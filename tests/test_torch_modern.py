@@ -1,0 +1,171 @@
+"""Port parity: lamp_tpu_torch.nn.modern against lamp_tpu.nn.modern.
+
+Weights are made by the JAX modules from a seeded key and carried across
+with lamp_tpu_torch.bridge; inputs are made with numpy. Everything runs in
+f32. Tolerance: atol 1e-5 for the single-op pieces (norm, RoPE, SwiGLU)
+and 1e-4 for blocks and model logits (sums of a few hundred f32 products
+taken in another order).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lamp_tpu import nn as jnn
+from lamp_tpu_torch import nn as tnn
+from lamp_tpu_torch.bridge import load_modern_lm
+
+ATOL_OP, ATOL_MODEL = 1e-5, 1e-4
+
+
+def jax_params(module) -> dict:
+    """A lamp_tpu module's leaves as {pytree path: numpy array}, with paths
+    written as the bridge reads them (``blocks.3.w_q.weight``)."""
+    leaves, _ = jax.tree_util.tree_flatten_with_path(module)
+    out = {}
+    for path, leaf in leaves:
+        parts = [str(getattr(p, "name", getattr(p, "idx", None)))
+                 for p in path]
+        out[".".join(parts)] = np.asarray(leaf)
+    return out
+
+
+def jax_modern_lm(seed=0, **kw):
+    cfg = dict(vocab_size=61, context_length=64, num_blocks=2, embed_dim=64,
+               num_heads=4, num_kv_heads=2, dtype=jnp.float32)
+    cfg.update(kw)
+    return jnn.ModernLM.init(key=jax.random.PRNGKey(seed), **cfg)
+
+
+def _close(got, want, atol):
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               atol=atol, rtol=0)
+
+
+def test_rmsnorm_matches_jax():
+    rng = np.random.RandomState(0)
+    w = rng.rand(32).astype(np.float32) + 0.5
+    x = rng.randn(3, 5, 32).astype(np.float32)
+    want, _ = jnn.RMSNorm(weight=jnp.asarray(w), eps=1e-5).forward(
+        jnp.asarray(x))
+    _close(tnn.RMSNorm(torch.from_numpy(w), eps=1e-5)(torch.from_numpy(x)),
+           want, ATOL_OP)
+
+
+@pytest.mark.parametrize("scaling", [
+    None,
+    {"type": "linear", "factor": 2.0},
+    {"type": "ntk", "factor": 4.0},
+    {"type": "yarn", "factor": 4.0, "original_max_len": 32},
+    {"type": "llama3", "factor": 8.0, "original_max_len": 32},
+], ids=["none", "linear", "ntk", "yarn", "llama3"])
+def test_rope_frequencies_match_jax(scaling):
+    want_c, want_s = jnn.rope_frequencies(32, 128, scaling=scaling,
+                                          dtype=jnp.float32)
+    got_c, got_s = tnn.rope_frequencies(32, 128, scaling=scaling)
+    # angles up to 128 rad: one f32 ulp of an angle moves cos/sin by ~1e-5
+    _close(got_c, want_c, 3e-5)
+    _close(got_s, want_s, 3e-5)
+
+
+@pytest.mark.parametrize("positions", ["none", "1d", "2d"])
+def test_apply_rope_matches_jax(positions):
+    rng = np.random.RandomState(1)
+    cos, sin = jnn.rope_frequencies(16, 32, dtype=jnp.float32)
+    x = rng.randn(2, 3, 7, 16).astype(np.float32)
+    pos = {"none": None,
+           "1d": rng.randint(0, 32, 7).astype(np.int32),
+           "2d": rng.randint(0, 32, (2, 7)).astype(np.int32)}[positions]
+    want = jnn.apply_rope(jnp.asarray(x), cos, sin,
+                          positions=None if pos is None else jnp.asarray(pos))
+    got = tnn.apply_rope(
+        torch.from_numpy(x), torch.tensor(np.asarray(cos)),
+        torch.tensor(np.asarray(sin)),
+        positions=None if pos is None else torch.from_numpy(pos).long())
+    _close(got, want, ATOL_OP)
+
+
+def test_swiglu_matches_jax():
+    m = jax_modern_lm()
+    jmlp = m.blocks[0].mlp
+    t = load_modern_lm(jax_params(m))
+    x = np.random.RandomState(2).randn(2, 5, 64).astype(np.float32)
+    want, _ = jmlp.forward(jnp.asarray(x))
+    _close(t.blocks[0].mlp(torch.from_numpy(x)), want, ATOL_OP)
+
+
+@pytest.mark.parametrize("window", [None, 3])
+def test_llama_block_matches_jax(window):
+    m = jax_modern_lm(window=window)
+    t = load_modern_lm(jax_params(m), window=window)
+    x = np.random.RandomState(3).randn(2, 9, 64).astype(np.float32)
+    (want, _), _ = m.blocks[1].forward((jnp.asarray(x),
+                                        (m.rope_cos, m.rope_sin)))
+    got = t.blocks[1](torch.from_numpy(x), t.rope_cos, t.rope_sin)
+    assert t.blocks[1].num_kv_heads == 2 and t.blocks[1].window == window
+    _close(got, want, ATOL_MODEL)
+
+
+@pytest.mark.parametrize("tied,packed", [(True, False), (False, False),
+                                          (True, True)],
+                         ids=["tied", "untied", "packed"])
+def test_modern_lm_forward_matches_jax(tied, packed):
+    """``packed``: two documents per row, segment ids keep attention inside
+    each and RoPE positions restart at the second."""
+    m = jax_modern_lm(tied=tied, window=[None, 5])
+    t = load_modern_lm(jax_params(m), window=[None, 5])
+    toks = np.random.RandomState(4).randint(0, 61, (2, 12))
+    seg = pos = None
+    if packed:
+        seg = np.repeat([[0] * 5 + [1] * 7], 2, 0).astype(np.int32)
+        pos = np.repeat([list(range(5)) + list(range(7))], 2, 0).astype(
+            np.int32)
+    want, _ = m.forward(
+        jnp.asarray(toks, jnp.int32),
+        segment_ids=None if seg is None else jnp.asarray(seg),
+        positions=None if pos is None else jnp.asarray(pos))
+    with torch.no_grad():
+        got = t(torch.from_numpy(toks),
+                segment_ids=None if seg is None else torch.from_numpy(seg),
+                positions=None if pos is None else torch.from_numpy(pos))
+    assert got.dtype == torch.float32 and got.shape == (2, 12, 61)
+    _close(got, want, ATOL_MODEL)
+
+
+def test_bridge_carries_config_and_casts():
+    m = jax_modern_lm(num_blocks=3)
+    t = load_modern_lm(jax_params(m), dtype=torch.bfloat16)
+    assert len(t.blocks) == 3 and t.context_length == 64
+    assert t.blocks[0].num_heads == 4 and t.blocks[0].num_kv_heads == 2
+    assert t.blocks[0].w_q.weight.dtype == torch.bfloat16
+    assert t.rope_cos.dtype == torch.float32
+    # PyTorch layout: [out, in]
+    np.testing.assert_array_equal(
+        t.blocks[2].mlp.w1.weight.detach().float().numpy(),
+        np.asarray(m.blocks[2].mlp.w1.weight, np.float32).T.astype(
+            jnp.bfloat16).astype(np.float32))
+
+
+def test_bridge_rejects_missing_and_extra_keys():
+    params = jax_params(jax_modern_lm())
+    missing = dict(params)
+    del missing["blocks.1.w_v.weight"]
+    with pytest.raises(KeyError, match="blocks.1.w_v.weight"):
+        load_modern_lm(missing)
+    extra = dict(params, **{"blocks.0.w_q.bias": np.zeros(64, np.float32)})
+    with pytest.raises(KeyError, match="blocks.0.w_q.bias"):
+        load_modern_lm(extra)
+
+
+def test_modern_lm_init_is_seeded():
+    kw = dict(vocab_size=50, context_length=16, num_blocks=1, embed_dim=32,
+              num_heads=4, num_kv_heads=2)
+    a = tnn.ModernLM.init(generator=torch.Generator().manual_seed(7), **kw)
+    b = tnn.ModernLM.init(generator=torch.Generator().manual_seed(7), **kw)
+    for (na, pa), (_, pb) in zip(a.state_dict().items(),
+                                 b.state_dict().items()):
+        assert torch.equal(pa, pb), na
+    with pytest.raises(NotImplementedError, match="moe_experts"):
+        tnn.ModernLM.init(generator=torch.Generator(), moe_experts=4, **kw)
