@@ -1,24 +1,45 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path once on one GPU and check it.
+"""Drive the PyTorch/CUDA port's serving and training paths on one GPU and
+check them.
 
     python3 chip_smoke.py              # from the repository root
 
 Phases (every failure raises and exits non-zero; nothing is skipped):
 
 1. Device and build: needs ``torch.cuda.is_available()``; prints the card's
-   name and power limit; builds ``lamp_tpu_torch/csrc/*.cu`` with nvcc.
+   name and power limit; builds ``lamp_tpu_torch/csrc/*.cu`` with nvcc (one
+   process per source, all at once).
 2. The paged-attention kernel against its plain PyTorch version at the
    serving slice's shapes (B=32, H=12, H_kv=4, D=64, 128-token pages, the
    12-layer stacked bf16 pool of 192 pages per layer), over edge lengths,
    append on/off and static / per-request windows; both are timed.
-3. The slice at full width: a 12-block, 768-wide llama-style ModernLM
-   (GQA 12/4 heads, SwiGLU 2048, vocab 32000, context 512, bf16, random
-   weights from a seed) behind ModernBatchServer(total_pages=192) and
-   ServingEngine(decode_steps=8, max_batch=32) serves 40 requests; the
+3. The serving slice at full width: a 12-block, 768-wide llama-style
+   ModernLM (GQA 12/4 heads, SwiGLU 2048, vocab 32000, context 512, bf16,
+   random weights from a seed) behind ModernBatchServer(total_pages=192)
+   and ServingEngine(decode_steps=8, max_batch=32) serves 40 requests; the
    results, the page pool, the kernel's launch count and the greedy tokens
    (against a dense forward) are checked; then the steady decode rate of
    step_many(8) at B=32 is timed with CUDA events, and one more call is
    profiled (device busy share, top kernels).
+4. The flash-attention kernels (forward, backward dkv and dq) against their
+   plain versions (in f32) at the training slice's shapes (B=2, H=12,
+   S=4096, D=64, bf16, causal) and the flagship's (B=8, S=384), and over
+   kv lengths [B] (with a 0) and [B, Sq], a window, non-causal Sq != Skv,
+   head_dim 128 and f32, by relative error per 64-row block, and a planted
+   fault (one skipped kv tile) that each check must see; each kernel, its
+   plain version and
+   ``scaled_dot_product_attention`` (the library yardstick, timed only) are
+   timed by their device time under torch.profiler, and the forward and
+   forward + backward calls of all three by CUDA events.
+5. The training slice at full width: a 12-block, 768-wide GPT
+   LanguageModelModule (12 heads, MLP 3072, byte vocab 256, bf16 with f32
+   AdamW masters, random weights from a seed) trains under the flagship
+   configuration (ctx 384, batch 8 x 5 accumulation, the example's AdamW)
+   and the long-context one (ctx 4096, batch 2): 2 warm-up steps, 5 timed
+   steps (CUDA events; the kernels' launch counts are checked against 12
+   layers x micro-batches x steps), 10 steps on one batch of SURVEY.md's
+   bytes (the loss must fall), and one profiled step (device busy share,
+   top kernels, no library attention kernel).
 
 The last lines are one JSON line on the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -27,9 +48,11 @@ limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -43,9 +66,40 @@ ATOL, RTOL = 1e-2, 4e-3
 # decode and the dense forward round activations at different places)
 MARGIN = 0.05
 
-# the slice's configuration (the JAX package's serving workload)
+# phase 4: per output (o, dq, dk, dv), the largest relative Frobenius error
+# ||kernel - plain|| / ||plain|| over the 64-row blocks of each (b, h) slab,
+# the plain version in f32 on the same inputs; a block where the plain
+# version is 0 must be exactly 0. bf16: the kernels round o, p and ds to
+# bf16 (as the TPU kernels do), a relative 2^-9 per term. f32: the kernels
+# and the plain version differ in summation order only. Each limit lies
+# between the sound kernels' readings and those of a planted fault (rows
+# past Sq/4 skip one 64-key tile), which every check also reads and must
+# see. On an H100: bf16 kernels read at most 4.7e-3 and the fault at least
+# 0.32; f32 kernels 5.3e-7 and the fault 0.47.
+FLASH_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+FLASH_BLOCK = 64
+
+# the serving slice's configuration (the JAX package's serving workload)
 VOCAB, CTX, BLOCKS, DIM, HEADS, KV_HEADS = 32000, 512, 12, 768, 12, 4
 PAGE, TOTAL_PAGES = 128, 192
+
+# the training slice: the JAX package's GPT LM (bench.py:109-130 flagship,
+# bench.py:223-240 long context), full width
+LM_VOCAB, LM_BLOCKS, LM_DIM, LM_HEADS = 256, 12, 768, 12
+TRAIN_CONFIGS = (("flagship", 384, 8, 5), ("longctx", 4096, 2, 1))
+
+# one H100 SXM's published dense bf16 rate and memory bandwidth
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+
+
+def reset_launch_counts():
+    """Every kernel wrapper's launch count to 0, just before a main path."""
+    from lamp_tpu_torch.ops.attention import flash_attention
+    from lamp_tpu_torch.ops.paged_attention import paged_attention
+
+    paged_attention.launches = 0
+    flash_attention.launches = 0
+    flash_attention.backward_launches = 0
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -152,10 +206,31 @@ def phase_kernel(paged_attention, paged_attention_reference):
     ms = cuda_time_ms(kernel, 200)
     plain_ms = cuda_time_ms(plain, 50)
     live = int(lengths.sum()) + b
-    gbs = live * 2 * hkv * d * 2 / (ms * 1e-3) / 1e9
-    print(f"  kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us "
-          f"({live} live tokens, {gbs:.0f} GB/s of K/V rows)")
-    return max_err, ms, plain_ms
+    kv_bytes = live * 2 * hkv * d * 2
+    gbs = kv_bytes / (ms * 1e-3) / 1e9
+    # the least bytes of the call: each K/V row read once, q read and the
+    # output written once, the page table and lengths read once
+    nbytes = kv_bytes + 2 * q.numel() * 2 + (table.numel() + b) * 4
+    bound_ms = max(nbytes / PEAK_BYTES,
+                   4 * live * HEADS * d / PEAK_FLOPS) * 1e3
+    print(f"  kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
+          f"{bound_ms * 1e3:.2f} us ({live} live tokens, {gbs:.0f} GB/s of "
+          f"K/V rows)")
+    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by="bytes", library_ms=None)
+
+
+def device_events(prof):
+    """The profile's kernels and copies on the device, without the device
+    rows of user annotations (``Optimizer.step#AdamW.step`` spans its
+    kernels and the gaps between them), which share a name with a host
+    row."""
+    events = prof.key_averages()
+    host = {e.key for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU}
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.key not in host]
 
 
 def profile_step(server):
@@ -171,8 +246,7 @@ def profile_step(server):
         server.step_many(8)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    device = sorted((e for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA),
+    device = sorted(device_events(prof),
                     key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in device)
     print(f"  profile of one step_many(8): {wall_us:.0f} us wall, device "
@@ -209,7 +283,7 @@ def phase_serving(torch_nn, models, paged_attention):
         engine.submit(prompts[rid], params, request_id=rid)
     free0 = len(server.free_pages)
     # the main path's run: the launch count covers exactly this
-    paged_attention.launches = 0
+    reset_launch_counts()
     steps0 = server.steps_decoded
     t0 = time.perf_counter()
     results = engine.run()
@@ -274,15 +348,388 @@ def phase_serving(torch_nn, models, paged_attention):
     return launches
 
 
+def device_ms(fn, n: int, warmup: int = 2):
+    """Device time per call of ``fn()``, by kernel name, from
+    torch.profiler over ``n`` calls: ``{kernel: ms}``. A trace that
+    recorded no device activity (seen once in ten runs on the H100) is
+    taken again, up to three times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    for attempt in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        times = {e.key: e.self_device_time_total / n / 1e3
+                 for e in device_events(prof) if e.self_device_time_total > 0}
+        if times:
+            return times
+        print(f"  the profiler recorded no device time (attempt "
+              f"{attempt + 1}); tracing again", flush=True)
+    return times
+
+
+def _kernel_ms(times, name):
+    found = [ms for key, ms in times.items() if name in key]
+    if not found:
+        raise AssertionError(f"no device time for {name}: {sorted(times)}")
+    return sum(found)
+
+
+def flash_inputs(b, h, sq, skv, d, dtype, seed=0):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    return randn(b, h, sq, d), randn(b, h, skv, d), randn(b, h, skv, d), \
+        randn(b, h, sq, d)
+
+
+def block_err(got, want):
+    """The largest ||got - want|| / ||want|| over the 64-row blocks of each
+    (b, h) slab of [B, H, S, D] tensors; inf where want is 0 in a block
+    and got is not."""
+    pad = -want.shape[2] % FLASH_BLOCK
+
+    def blocks(x):
+        x = torch.nn.functional.pad(x.detach().float(), (0, 0, 0, pad))
+        return x.reshape(x.shape[0], x.shape[1], -1, FLASH_BLOCK * x.shape[3])
+
+    g, w = blocks(got), blocks(want)
+    num, den = (g - w).norm(dim=-1), w.norm(dim=-1)
+    if (num[den == 0] != 0).any():
+        return math.inf
+    return float((num[den > 0] / den[den > 0]).max())
+
+
+def planted_fault(sq, skv):
+    """The visibility of a faulty kernel the checks must catch: rows past
+    Sq/4 skip one 64-key tile (keys 512-575 at Skv=4096, 64-127 at 384)."""
+    k0 = FLASH_BLOCK * max(1, skv // 512)
+    keep = torch.ones(sq, skv, dtype=torch.bool, device="cuda")
+    keep[sq // 4:, k0:k0 + FLASH_BLOCK] = False
+    return keep
+
+
+def check_flash(att, name, b, h, sq, skv, d, dtype, causal, window=None,
+                lengths=None):
+    """Kernels (forward through autograd, then backward) against the plain
+    version in f32, by :func:`block_err`; the plain version under
+    :func:`planted_fault` must read above the limit. Returns the max abs
+    error of (o, dq, dkv), the largest block error and the smallest planted
+    fault's reading."""
+    q, k, v, do = flash_inputs(b, h, sq, skv, d, dtype)
+    lens = None if lengths is None else torch.as_tensor(
+        np.asarray(lengths, np.int32), device="cuda")
+    qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
+    o = att.flash_attention(qq, kk, vv, causal=causal, window=window,
+                            kv_lengths=lens)
+    o.backward(do)
+    torch.cuda.synchronize()
+    kw = dict(causal=causal, window=att._check_window(window, causal, skv),
+              kv_lengths=lens, sm_scale=1.0 / math.sqrt(d))
+    q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
+
+    def plain(**fault):
+        with torch.no_grad():
+            ro, rlse = att.flash_attention_reference(q32, k32, v32, **kw,
+                                                     **fault)
+            return (ro,) + att._flash_backward_reference(
+                q32, k32, v32, ro, rlse, do32, **kw, **fault)
+
+    wants = plain()
+    faults = plain(mask=planted_fault(sq, skv))
+    errs, rels, planted = [], [], []
+    tol = FLASH_TOL[dtype]
+    for what, got, want, bad in zip(("o", "dq", "dk", "dv"),
+                                    (o, qq.grad, kk.grad, vv.grad), wants,
+                                    faults):
+        rel, fault = block_err(got, want), block_err(bad, want)
+        if not rel <= tol:
+            raise AssertionError(f"flash {name} {what}: block error "
+                                 f"{rel:.3e} > {tol:.0e}")
+        if not fault > tol:
+            raise AssertionError(f"flash {name} {what}: the planted fault "
+                                 f"reads {fault:.3e}, within {tol:.0e}")
+        errs.append(float((got.detach().float() - want).abs().max()))
+        rels.append(rel)
+        planted.append(fault)
+    del wants, faults
+    if lens is not None:  # rows with no key: exactly 0 out and 0 dq
+        empty = (lens == 0) if lens.dim() == 2 else \
+            (lens == 0)[:, None].expand(b, sq)
+        rows = empty[:, None, :].expand(b, h, sq)
+        if (o.detach()[rows] != 0).any() or (qq.grad[rows] != 0).any():
+            raise AssertionError(f"flash {name}: rows with no key are not 0")
+    print(f"  {name:14} B={b} H={h} Sq={sq} Skv={skv} D={d} "
+          f"{str(dtype)[6:]:8} causal={causal!s:5} window={window} "
+          f"lengths={'none' if lens is None else list(lens.shape)}:\n"
+          f"    block error o/dq/dk/dv {' '.join(f'{e:.2e}' for e in rels)}; "
+          f"planted fault {' '.join(f'{e:.2e}' for e in planted)}; "
+          f"max abs err {' '.join(f'{e:.2e}' for e in errs)}", flush=True)
+    return (errs[0], errs[1], max(errs[2], errs[3])), max(rels), min(planted)
+
+
+def time_flash(att, b, h, s, d):
+    """Device times (ms) of the three kernels, their plain versions and
+    scaled_dot_product_attention at one causal bf16 shape, and each
+    kernel's bound from the work these inputs need."""
+    import torch.nn.functional as F
+
+    q, k, v, do = flash_inputs(b, h, s, s, d, torch.bfloat16, seed=1)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = att._fwd_cuda(q, k, v, None, True, scale, None)
+    n = 20 if s <= 1024 else 5
+    fwd = _kernel_ms(device_ms(
+        lambda: att._fwd_cuda(q, k, v, None, True, scale, None), n),
+        "fwd_bf16")
+    bwd = device_ms(lambda: att._bwd_cuda(q, k, v, o, lse, do, None, True,
+                                          scale, None), n)
+    dq, dkv = _kernel_ms(bwd, "dq_bf16"), _kernel_ms(bwd, "dkv_bf16")
+    plain = sum(device_ms(lambda: att.flash_attention_reference(
+        q, k, v, causal=True), 2, warmup=1).values())
+    plain_bwd = sum(device_ms(lambda: att._flash_backward_reference(
+        q, k, v, o, lse, do, causal=True), 2, warmup=1).values())
+    lib = sum(device_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), n).values())
+    ql, kl, vl = (x.clone().requires_grad_() for x in (q, k, v))
+    lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    lib_bwd = sum(device_ms(lambda: torch.autograd.grad(
+        lo, (ql, kl, vl), do, retain_graph=True), n).values())
+    # the work these inputs need: causal (row, key) pairs; each input read
+    # once and each output written once (2-byte tensors, 4-byte lse and di)
+    pairs = b * h * s * (s + 1) / 2
+    t = b * h * s * d * 2
+    rows = b * h * s * 4
+
+    def bound(products, nbytes):
+        fl, by = 2 * products * d * pairs / PEAK_FLOPS, nbytes / PEAK_BYTES
+        return max(fl, by) * 1e3, ("operations" if fl >= by else "bytes")
+
+    # whole calls by CUDA events (host launch time included, which can
+    # exceed the device time at S=384): forward, and forward + backward
+    qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+
+    def fwd_bwd(fn):
+        return lambda: torch.autograd.grad(fn(qg, kg, vg), (qg, kg, vg), do)
+
+    def plain_fwd_bwd():
+        po, plse = att.flash_attention_reference(q, k, v, causal=True)
+        att._flash_backward_reference(q, k, v, po, plse, do, causal=True)
+
+    events = [
+        ("kernel", lambda: att.flash_attention(q, k, v, causal=True),
+         fwd_bwd(lambda a, b_, c: att.flash_attention(a, b_, c, causal=True)),
+         n),
+        ("plain", lambda: att.flash_attention_reference(q, k, v, causal=True),
+         plain_fwd_bwd, 2),
+        ("library", lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True), fwd_bwd(
+            lambda a, b_, c: F.scaled_dot_product_attention(
+                a, b_, c, is_causal=True)), n)]
+    print(f"  CUDA events, B={b} H={h} S={s}: " + "; ".join(
+        f"{name} forward {cuda_time_ms(f, it, warmup=1) * 1e3:.1f} us, "
+        f"forward+backward {cuda_time_ms(fb, it, warmup=1) * 1e3:.1f} us"
+        for name, f, fb, it in events), flush=True)
+    # the backward as a whole: dq and dkv against the plain backward and
+    # SDPA's (each of dq, dk, dv), and the 5 products any backward needs
+    # (the split design does 7: dq recomputes S and dP)
+    backward = dict(ms=dq + dkv, plain_ms=plain_bwd, library_ms=lib_bwd,
+                    bound=bound(5, 8 * t + 2 * rows))
+    out = {
+        "flash_attention_fwd": dict(ms=fwd, plain_ms=plain, library_ms=lib,
+                                    bound=bound(2, 4 * t + rows)),
+        "flash_attention_bwd_dq": dict(ms=dq, plain_ms=plain_bwd,
+                                       library_ms=lib_bwd,
+                                       bound=bound(3, 5 * t + 2 * rows),
+                                       backward=backward),
+        "flash_attention_bwd_dkv": dict(ms=dkv, plain_ms=plain_bwd,
+                                        library_ms=lib_bwd,
+                                        bound=bound(4, 6 * t + 2 * rows),
+                                        backward=backward),
+    }
+    for name, r in list(out.items()) + [("backward (dq + dkv)", backward)]:
+        print(f"  {name:24} B={b} H={h} S={s}: {r['ms'] * 1e3:9.1f} us, "
+              f"bound {r['bound'][0] * 1e3:7.1f} us ({r['bound'][1]}), plain "
+              f"{r['plain_ms'] * 1e3:9.1f} us, library "
+              f"{r['library_ms'] * 1e3:7.1f} us", flush=True)
+    print("  (the dq and dkv rows' plain and library times are of the whole "
+          "backward)", flush=True)
+    return out
+
+
+def phase_flash(att):
+    checks = {torch.bfloat16: [], torch.float32: []}
+
+    def check(*args, **kw):
+        result = check_flash(att, *args, **kw)
+        checks[args[6]].append(result)
+        return result[0]
+
+    errs = [check("slice", 2, LM_HEADS, 4096, 4096, 64, torch.bfloat16, True),
+            check("flagship", 8, LM_HEADS, 384, 384, 64, torch.bfloat16,
+                  True)]
+    rng = np.random.RandomState(0)
+    check("lengths [B]", 4, LM_HEADS, 1000, 1000, 64, torch.bfloat16, True,
+          lengths=[0, 1000, 777, 333])
+    check("lengths [B,Sq]", 2, LM_HEADS, 1000, 1000, 64, torch.bfloat16,
+          True, lengths=rng.randint(0, 1001, (2, 1000)))
+    check("window", 2, LM_HEADS, 3000, 3000, 64, torch.bfloat16, True,
+          window=1000)
+    check("noncausal", 2, LM_HEADS, 700, 1100, 64, torch.bfloat16, False)
+    check("head_dim 128", 2, 8, 1024, 1024, 128, torch.bfloat16, True,
+          lengths=[1024, 555])
+    check("f32", 2, 4, 512, 512, 64, torch.float32, True, lengths=[0, 400])
+    check("f32 head 128", 1, 4, 300, 400, 128, torch.float32, False)
+    for dtype, results in checks.items():
+        print(f"  {str(dtype)[6:]}: largest block error "
+              f"{max(r[1] for r in results):.3e}, limit "
+              f"{FLASH_TOL[dtype]:.0e}, smallest planted fault "
+              f"{min(r[2] for r in results):.3e}", flush=True)
+    times = time_flash(att, 2, LM_HEADS, 4096, 64)
+    time_flash(att, 8, LM_HEADS, 384, 64)  # printed: the flagship shape
+    for i, name in enumerate(times):
+        times[name]["max_abs_err"] = max(e[i] for e in errs)
+    return times
+
+
+def profile_train_step(step, state, batch):
+    """torch.profiler over one train step: device busy share of the wall
+    time, the top kernels, and the check that attention ran in the port's
+    kernels and in no library attention kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    device = sorted(device_events(prof),
+                    key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in device)
+    print(f"  profile of one step: {wall_us:.0f} us wall, device busy "
+          f"{busy:.0f} us ({100 * busy / wall_us:.1f}%), "
+          f"{sum(e.count for e in device)} device ops; top kernels:")
+    for e in device[:10]:
+        print(f"    {100 * e.self_device_time_total / busy:5.1f}%  "
+              f"{e.self_device_time_total:8.0f} us  x{e.count:<5} "
+              f"{e.key[:90]}")
+    names = " ".join(e.key for e in device)
+    for ours in ("fwd_bf16", "dq_bf16", "dkv_bf16"):
+        if ours not in names:
+            raise AssertionError(f"the step ran no {ours} kernel")
+    for library in ("flash_fwd", "flash_bwd", "fmha", "efficient_attention",
+                    "cudnn"):
+        if library in names:
+            raise AssertionError(f"a library attention kernel ran: {library}")
+
+
+def phase_train(torch_nn, optim, train, att):
+    """Both training configurations at full width; returns the kernels'
+    launches over the timed steps."""
+    from lamp_tpu_torch.nn.module import param_tags
+
+    dev = torch.device("cuda")
+    text = np.frombuffer((Path(__file__).resolve().parent / "SURVEY.md")
+                         .read_bytes(), np.uint8)
+    launches = backward_launches = 0
+    for name, ctx, batch, accum in TRAIN_CONFIGS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = torch_nn.LanguageModelModule.init(
+            vocab_size=LM_VOCAB, context_length=ctx, num_blocks=LM_BLOCKS,
+            embed_dim=LM_DIM, attention_heads=LM_HEADS, generator=gen,
+            dtype=torch.bfloat16, device=dev)
+        n_params = sum(p.numel() for p in model.parameters())
+        if accum > 1:  # the example's optimizer (autoregressivelm.py:93-107)
+            opt = optim.AdamW(
+                model.named_parameters(), 3e-4, beta2=0.95, clip=1.0,
+                weight_decay=lambda tag: 0.0 if (
+                    "bias" in tag or "LayerNorm" in tag or "scale" in tag
+                    or "Embedding" in tag) else 0.01,
+                tags=param_tags(model))
+        else:  # bench.py:230
+            opt = optim.AdamW(model.named_parameters(), 3e-4,
+                              weight_decay=0.01)
+
+        def loss_fn(m, b, generator, train_mode):
+            tokens, target = b
+            logits = m(tokens, train=train_mode, generator=generator)
+            return torch_nn.lm_loss(logits, target), tokens.shape[0]
+
+        state = train.TrainState.init(model, opt)
+        step = train.make_train_step(opt, loss_fn, accumulation_steps=accum)
+        shape = (accum, batch, ctx) if accum > 1 else (batch, ctx)
+        rng = np.random.RandomState(0)
+        tokens = torch.as_tensor(rng.randint(0, LM_VOCAB, shape), device=dev)
+        data = (tokens, torch.roll(tokens, -1, dims=-1))
+        losses = []
+        for _ in range(2):
+            losses.append(step(state, data)[1][0])
+        # the main path's run: the launch counts cover exactly these steps
+        reset_launch_counts()
+        steps = 5
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(steps):
+            losses.append(step(state, data)[1][0])
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / steps
+        want = LM_BLOCKS * accum * steps
+        got = (att.flash_attention.launches,
+               att.flash_attention.backward_launches)
+        launches += got[0]
+        backward_launches += got[1]
+        if got != (want, want):
+            raise AssertionError(f"{name}: launches {got}, want {want} each")
+        if not bool(torch.isfinite(torch.stack(losses)).all()):
+            raise AssertionError(f"{name}: a loss is not finite: {losses}")
+        tok_s = accum * batch * ctx / (ms * 1e-3)
+        flops_tok = 6 * n_params + 12 * LM_BLOCKS * LM_DIM * ctx
+        print(f"  {name}: ctx {ctx}, batch {batch} x {accum}, {n_params} "
+              f"params: {ms:.2f} ms/step, {tok_s:.1f} train tok/s, "
+              f"{flops_tok / 1e6:.1f} MFLOP/token, "
+              f"{100 * tok_s * flops_tok / PEAK_FLOPS:.2f}% of 989 TFLOP/s; "
+              f"launches fwd {got[0]} bwd {got[1]} (12 x {accum} x {steps}); "
+              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+              f"GiB", flush=True)
+        # one fixed batch of the repository's own text: the loss must fall
+        need = int(np.prod(shape)) + 1
+        chunk = np.resize(text, need).astype(np.int64)
+        fixed = torch.as_tensor(chunk[:-1].reshape(shape), device=dev)
+        fixed_target = torch.as_tensor(chunk[1:].reshape(shape), device=dev)
+        text_losses = [step(state, (fixed, fixed_target))[1][0]
+                       for _ in range(10)]
+        first, last = float(text_losses[0]), float(text_losses[-1])
+        print(f"  {name}: 10 steps on SURVEY.md bytes: loss {first:.4f} -> "
+              f"{last:.4f}", flush=True)
+        if not last < first:
+            raise AssertionError(f"{name}: loss did not fall on fixed text")
+        profile_train_step(step, state, data)
+        del model, opt, state
+    return launches, backward_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
     # f32 matmuls (the plain versions, the logits) stay f32: no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from lamp_tpu_torch import models
+    from lamp_tpu_torch import models, optim, train
     from lamp_tpu_torch import nn as torch_nn
     from lamp_tpu_torch.ops import _build
+    from lamp_tpu_torch.ops import attention as att
     from lamp_tpu_torch.ops.paged_attention import (paged_attention,
                                                     paged_attention_reference)
 
@@ -298,21 +745,46 @@ def main() -> int:
           flush=True)
 
     print("phase 2: paged_attention kernel vs plain", flush=True)
-    max_err, ms, plain_ms = phase_kernel(paged_attention,
-                                         paged_attention_reference)
+    paged = phase_kernel(paged_attention, paged_attention_reference)
     print("phase 3: serving slice at full width", flush=True)
-    launches = phase_serving(torch_nn, models, paged_attention)
+    paged["launches"] = phase_serving(torch_nn, models, paged_attention)
+    print("phase 4: flash attention kernels vs plain", flush=True)
+    flash = phase_flash(att)
+    print("phase 5: training slice at full width", flush=True)
+    fwd_launches, bwd_launches = phase_train(torch_nn, optim, train, att)
 
-    print(json.dumps({"kernels": [{
-        "name": "paged_attention", "route": "cuda",
-        "source": "lamp_tpu_torch/csrc/paged_attention.cu",
-        "replaces": "lamp_tpu/ops/paged_attention.py:151",
-        "launches": launches, "max_abs_err": max_err, "ms": ms,
-        "plain_ms": plain_ms}]}))
+    rows = [dict(name="paged_attention", route="cuda",
+                 source="lamp_tpu_torch/csrc/paged_attention.cu",
+                 replaces="lamp_tpu/ops/paged_attention.py:151", **paged)]
+    replaces = {"flash_attention_fwd": "lamp_tpu/ops/attention.py:87",
+                "flash_attention_bwd_dq": "lamp_tpu/ops/attention.py:297",
+                "flash_attention_bwd_dkv": "lamp_tpu/ops/attention.py:365"}
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    rows = [{k: r[k] for k in keys} for r in rows]
+    for name, r in flash.items():
+        row = dict(
+            name=name, route="cuda",
+            source="lamp_tpu_torch/csrc/flash_attention.cu",
+            replaces=replaces[name],
+            launches=fwd_launches if name.endswith("fwd") else bwd_launches,
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound"][0], bound_by=r["bound"][1],
+            library_ms=r["library_ms"])
+        if "backward" in r:  # plain_ms and library_ms time dq, dk and dv
+            bwd = r["backward"]
+            row["backward"] = dict(
+                note="plain_ms and library_ms of this row are of the whole "
+                     "backward (dq, dk, dv); here the backward's totals",
+                ms=bwd["ms"], bound_ms=bwd["bound"][0],
+                plain_ms=bwd["plain_ms"], library_ms=bwd["library_ms"])
+        rows.append(row)
+    print(json.dumps({"kernels": rows}))
     print(smi)
+    # the run used one card, whatever the machine holds
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 

@@ -35,7 +35,7 @@ class RMSNorm(nn.Module):
 
     @staticmethod
     def init(dim: int, *, eps: float = 1e-6, dtype=torch.float32,
-             device=None) -> "RMSNorm":
+             device="cuda") -> "RMSNorm":
         return RMSNorm(torch.ones(dim, dtype=dtype, device=device), eps=eps)
 
     def forward(self, x):
@@ -146,7 +146,7 @@ class SwiGLU(nn.Module):
 
     @staticmethod
     def init(dim: int, hidden: int, *, generator, dtype=torch.float32,
-             device=None) -> "SwiGLU":
+             device="cuda") -> "SwiGLU":
         kw = dict(generator=generator, bias=False, dtype=dtype, device=device)
         return SwiGLU(w1=Linear.init(dim, hidden, **kw),
                       w3=Linear.init(dim, hidden, **kw),
@@ -176,7 +176,7 @@ class LlamaBlock(nn.Module):
              num_kv_heads: Optional[int] = None,
              mlp_hidden: Optional[int] = None, window: Optional[int] = None,
              norm_eps: float = 1e-6, moe_experts: Optional[int] = None,
-             dtype=torch.float32, device=None) -> "LlamaBlock":
+             dtype=torch.float32, device="cuda") -> "LlamaBlock":
         if moe_experts is not None:
             raise NotImplementedError("LlamaBlock: moe_experts")
         kv_heads = num_kv_heads or num_heads
@@ -242,7 +242,7 @@ class ModernLM(nn.Module):
              rope_base: float = 10000.0, rope_scaling: Optional[dict] = None,
              window=None, norm_eps: float = 1e-6,
              moe_experts: Optional[int] = None, dtype=torch.float32,
-             device=None) -> "ModernLM":
+             device="cuda") -> "ModernLM":
         """Random weights drawn from ``generator``. ``window``: None (full
         attention), an int (sliding window in every block) or one entry per
         block."""

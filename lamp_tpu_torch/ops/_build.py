@@ -1,7 +1,8 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
 The sources in ``lamp_tpu_torch/csrc/*.cu`` expose plain C entry points.
-They are compiled into one shared library at first CUDA use (never at
+Each compiles to an object in its own nvcc process, all at once, and they
+are linked into one shared library at first CUDA use (never at
 import, so the CPU tests import every module freely), into
 ``lamp_tpu_torch/_build/``, under a name keyed by a hash of the sources and
 flags: an edited source builds anew, an unchanged one loads the cached
@@ -25,7 +26,7 @@ _PKG = Path(__file__).resolve().parent.parent
 _SRC_DIR = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -36,35 +37,53 @@ def _nvcc() -> str:
     return str(Path(cuda_home) / "bin" / "nvcc")
 
 
+def _run(cmds):
+    """Run the commands at once; raise on the first that fails. Returns
+    their combined output."""
+    try:
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for cmd in cmds]
+    except FileNotFoundError:
+        raise RuntimeError(f"nvcc not found; tried: {cmds[0][0]}") from None
+    logs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+    return "".join(f"{' '.join(cmd)}\n{log}" for cmd, log in zip(cmds, logs))
+
+
 def build(verbose: bool = False) -> Path:
     """Compile ``csrc/*.cu`` into ``_build/`` unless an up-to-date library
-    is there; returns its path. ``verbose`` prints the compiler's output
-    (``-Xptxas -v``: registers, shared memory and spills per kernel)."""
+    is there; returns its path. Each source compiles in its own nvcc
+    process, all at once, and one more links them. ``verbose`` prints the
+    compiler's output (``-Xptxas -v``: registers, shared memory and spills
+    per kernel)."""
     sources = sorted(_SRC_DIR.glob("*.cu"))
     digest = hashlib.sha256(" ".join(_FLAGS).encode())
     for src in sources:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    out = _BUILD_DIR / f"lamp_kernels_{digest.hexdigest()[:16]}.so"
+    key = digest.hexdigest()[:16]
+    out = _BUILD_DIR / f"lamp_kernels_{key}.so"
     if out.exists():
         return out
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{key}.{os.getpid()}"
+    objs = [_BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, sources)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except FileNotFoundError:
-        raise RuntimeError(
-            f"nvcc not found; tried: {' '.join(cmd)}") from None
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}")
+    log = _run([[nvcc, *_FLAGS, "-c", "-o", str(obj), str(src)]
+                for src, obj in zip(sources, objs)])
+    log += _run([[nvcc, "-shared", "-o", str(tmp), *map(str, objs)]])
+    for obj in objs:
+        obj.unlink()
     os.replace(tmp, out)  # atomic: another process never sees half a file
     if verbose:
-        print(f"built {out.name} in {time.perf_counter() - t0:.1f} s: "
-              f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}", flush=True)
+        print(f"built {out.name} in {time.perf_counter() - t0:.1f} s:\n{log}",
+              flush=True)
     return out
 
 
@@ -80,6 +99,15 @@ def library() -> ctypes.CDLL:
         i64, i64, i32, ctypes.c_float, i32, ptr,      # strides .. stream
     ]
     lib.lamp_paged_attention.restype = i32
+    # flash attention: tensors, then bh, heads, sq, skv, head_dim, the two
+    # limit strides, causal, window, sm_scale, dtype and the stream
+    shape = [i32] * 9 + [ctypes.c_float, i32, ptr]
+    lib.lamp_flash_attention_fwd.argtypes = [ptr] * 6 + shape
+    lib.lamp_flash_attention_bwd_dq.argtypes = [ptr] * 8 + shape
+    lib.lamp_flash_attention_bwd_dkv.argtypes = [ptr] * 9 + shape
+    for fn in (lib.lamp_flash_attention_fwd, lib.lamp_flash_attention_bwd_dq,
+               lib.lamp_flash_attention_bwd_dkv):
+        fn.restype = i32
     lib.lamp_cuda_error_string.argtypes = [i32]
     lib.lamp_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,19 +1,46 @@
-"""Plain PyTorch attention.
+"""Attention: plain PyTorch versions and the flash-attention kernels.
 
-Counterpart of ``lamp_tpu.ops.attention.mha_reference``. The serving slice's
-dense prefill uses it; the flash and compact kernels of the JAX package are
-not on that path and are still to be ported (ROADMAP.md, K1-K3).
+Counterpart of :mod:`lamp_tpu.ops.attention`. Layout is the JAX package's:
+q [B, H, Sq, D], k/v [B, H, Skv, D].
+
+:func:`flash_attention` launches the hand-written CUDA kernels
+(``csrc/flash_attention.cu``: a forward, and a backward in two kernels, dkv
+then dq) for CUDA tensors, and takes the plain PyTorch
+:func:`flash_attention_reference` and :func:`_flash_backward_reference` for
+CPU tensors only. On Hopper one kernel serves every length, so
+:func:`compact_attention` is the same function under the JAX name, with the
+JAX length limit, and :func:`dot_product_attention` has one kernel to route
+to.
+
+Rows with no visible key (a ``kv_lengths`` entry of 0, or rows before the
+causal diagonal when Sq > Skv) give exactly 0 output and 0 gradient. The
+JAX flash kernel gives 0 there only when every kv tile was skipped and the
+mean of V otherwise, and :func:`mha_reference` always gives the mean of V.
 """
 
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
-__all__ = ["mha_reference"]
+__all__ = ["mha_reference", "flash_attention", "flash_attention_reference",
+           "compact_attention", "dot_product_attention", "COMPACT_MAX_KV"]
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+LANES = 128
+# the JAX compact kernels' padded kv ceiling, kept as compact_attention's
+# limit so that the two packages accept the same calls
+COMPACT_MAX_KV = 2048
+
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _segment_mask(segment_ids):
+    q_ids, kv_ids = (segment_ids if isinstance(segment_ids, tuple)
+                     else (segment_ids, segment_ids))
+    return q_ids[:, None, :, None] == kv_ids[:, None, None, :]
 
 
 def mha_reference(q, k, v, *, causal=False, sm_scale=None, mask=None,
@@ -30,9 +57,7 @@ def mha_reference(q, k, v, *, causal=False, sm_scale=None, mask=None,
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(q.shape[-1])
     if segment_ids is not None:
-        q_ids, kv_ids = (segment_ids if isinstance(segment_ids, tuple)
-                         else (segment_ids, segment_ids))
-        seg = q_ids[:, None, :, None] == kv_ids[:, None, None, :]
+        seg = _segment_mask(segment_ids)
         mask = seg if mask is None else (mask & seg)
     acc = torch.promote_types(q.dtype, torch.float32)
     s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc)) * sm_scale
@@ -53,3 +78,298 @@ def mha_reference(q, k, v, *, causal=False, sm_scale=None, mask=None,
     p = torch.softmax(s, dim=-1)
     return torch.einsum(
         "bhqk,bhkd->bhqd", p.to(v.dtype).to(acc), v.to(acc)).to(q.dtype)
+
+
+def _visible(q, k, *, causal, window, kv_lengths, segment_ids, mask):
+    """Boolean [B or 1, H or 1, Sq, Skv]: which key each query row sees.
+    Composes the kernels' rule (kv limits, causal diagonal at Skv - Sq,
+    window) with the segment ids and arbitrary mask that only the plain
+    version takes."""
+    sq, skv = q.shape[2], k.shape[2]
+    rows = torch.arange(sq, device=q.device)[:, None]
+    cols = torch.arange(skv, device=q.device)[None, :]
+    keep = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        diag = rows + (skv - sq)
+        keep = cols <= diag
+        if window is not None:
+            keep = keep & (cols > diag - window)
+    keep = keep[None, None]
+    if kv_lengths is not None:
+        lim = kv_lengths.to(device=q.device, dtype=torch.long)
+        lim = lim[:, None] if lim.dim() == 1 else lim  # [B, 1] or [B, Sq]
+        keep = keep & (cols[None] < lim[:, :, None])[:, None]
+    if segment_ids is not None:
+        keep = keep & _segment_mask(segment_ids)
+    if mask is not None:
+        keep = keep & mask.to(device=q.device, dtype=torch.bool)
+    return keep
+
+
+def flash_attention_reference(q, k, v, *, causal=False, sm_scale=None,
+                              kv_lengths=None, window=None, segment_ids=None,
+                              mask=None):
+    """The plain forward: ``(o, lse)`` with the whole score matrix in memory.
+
+    The math of the JAX ``_fwd_kernel`` without tiles: f32 scores, f32
+    softmax statistics, ``p`` rounded to v's dtype for ``p @ v`` with f32
+    accumulation, ``o`` in q's dtype and ``lse = m + log(l)`` f32
+    [B, H, Sq]. Rows with no visible key give o = 0 and lse = -inf."""
+    d = q.shape[-1]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    acc = torch.promote_types(q.dtype, torch.float32)
+    keep = _visible(q, k, causal=causal, window=window,
+                    kv_lengths=kv_lengths, segment_ids=segment_ids, mask=mask)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc)) * sm_scale
+    s = torch.where(keep, s, -math.inf)
+    m = s.amax(dim=-1, keepdim=True)
+    m = torch.where(m == -math.inf, 0.0, m)
+    p = torch.exp(s - m)                       # masked entries: exp(-inf) = 0
+    l = p.sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).to(acc), v.to(acc))
+    o = torch.where(l == 0, 0.0, o / l)
+    lse = torch.where(l == 0, -math.inf, m + torch.log(l))[..., 0]
+    return o.to(q.dtype), lse.to(torch.float32)
+
+
+def _flash_backward_reference(q, k, v, o, lse, do, *, causal=False,
+                              sm_scale=None, kv_lengths=None, window=None,
+                              segment_ids=None, mask=None):
+    """The plain backward from the saved ``lse``: ``(dq, dk, dv)``.
+
+    The math of the JAX ``_bwd_fused_kernel`` without tiles:
+    ``di = rowsum(o * do)`` in f32, ``p = exp(s - lse)``, ``p`` rounded to
+    do's dtype for ``dv = p^T do`` and ``ds = p (dp - di) sm_scale`` rounded
+    to q's dtype for ``dk = ds^T q`` and ``dq = ds k``, all with f32
+    accumulation."""
+    d = q.shape[-1]
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(d)
+    acc = torch.promote_types(q.dtype, torch.float32)
+    keep = _visible(q, k, causal=causal, window=window,
+                    kv_lengths=kv_lengths, segment_ids=segment_ids, mask=mask)
+    di = (o.to(acc) * do.to(acc)).sum(dim=-1, keepdim=True)
+    s = torch.einsum("bhqd,bhkd->bhqk", q.to(acc), k.to(acc)) * sm_scale
+    p = torch.where(keep, torch.exp(s - lse[..., None].to(acc)), 0.0)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(do.dtype).to(acc), do.to(acc))
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.to(acc), v.to(acc))
+    ds = (p * (dp - di) * sm_scale).to(q.dtype).to(acc)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.to(acc))
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.to(acc))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_cuda(q, k, v, kv_lengths, segment_ids, mask):
+    """Raise on anything the CUDA kernels do not take."""
+    if segment_ids is not None or mask is not None:
+        raise NotImplementedError(
+            "flash_attention: segment_ids and mask on CUDA tensors (the plain "
+            "version takes them on CPU tensors)")
+    if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype or \
+            v.dtype != q.dtype:
+        raise TypeError(
+            f"flash_attention kernel takes float32 or bfloat16 q, k and v of "
+            f"one dtype, got {q.dtype}, {k.dtype} and {v.dtype}")
+    b, h, sq, d = q.shape
+    if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
+        raise ValueError(
+            f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)} and v "
+            f"{tuple(v.shape)} must be [B, H, Sq, D] and [B, H, Skv, D]")
+    if d not in (64, 128):
+        raise NotImplementedError(
+            f"flash_attention kernel: head_dim {d} (takes 64 or 128)")
+    tensors = [q, k, v] + ([] if kv_lengths is None else [kv_lengths])
+    for t in tensors:
+        if t.device != q.device:
+            raise ValueError(
+                f"flash_attention: tensors on {t.device} and {q.device}")
+        if not t.is_contiguous():
+            raise ValueError("flash_attention: tensors must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k and v must be 16-byte aligned")
+    if kv_lengths is not None:
+        if tuple(kv_lengths.shape) not in ((b,), (b, sq)):
+            raise ValueError(
+                f"flash_attention: kv_lengths must be [B]={b} or [B, Sq]="
+                f"{(b, sq)}, got {tuple(kv_lengths.shape)}")
+
+
+def _raise_on(lib, rc, what):
+    if rc != 0:
+        raise RuntimeError(
+            f"flash_attention {what} kernel launch failed: "
+            f"{lib.lamp_cuda_error_string(rc).decode()} ({rc})")
+
+
+def _limit_args(kv_lengths, sq):
+    """(pointer, batch stride, row stride) of the per-row kv limits."""
+    if kv_lengths is None:
+        return None, 0, 0
+    if kv_lengths.dim() == 1:
+        return kv_lengths.data_ptr(), 1, 0
+    return kv_lengths.data_ptr(), sq, 1
+
+
+def _cuda_shape_args(q, k, kv_lengths, causal, window, sm_scale):
+    b, h, sq, d = q.shape
+    lim_ptr, lim_b, lim_r = _limit_args(kv_lengths, sq)
+    return lim_ptr, (b * h, h, sq, k.shape[2], d, lim_b, lim_r, int(causal),
+                     0 if window is None else window, float(sm_scale),
+                     _KERNEL_DTYPES[q.dtype],
+                     torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def _fwd_cuda(q, k, v, kv_lengths, causal, sm_scale, window):
+    from ._build import library
+
+    lib = library()
+    o = torch.empty_like(q)
+    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    lim_ptr, shape = _cuda_shape_args(q, k, kv_lengths, causal, window,
+                                      sm_scale)
+    rc = lib.lamp_flash_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                      lim_ptr, o.data_ptr(), lse.data_ptr(),
+                                      *shape)
+    _raise_on(lib, rc, "forward")
+    flash_attention.launches += 1
+    return o, lse
+
+
+def _bwd_cuda(q, k, v, o, lse, do, kv_lengths, causal, sm_scale, window):
+    from ._build import library
+
+    lib = library()
+    do = do.to(q.dtype).contiguous()
+    # di = rowsum(o * do) in f32, outside the kernels as in the JAX package
+    di = (o.float() * do.float()).sum(dim=-1)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    lim_ptr, shape = _cuda_shape_args(q, k, kv_lengths, causal, window,
+                                      sm_scale)
+    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+              lse.data_ptr(), di.data_ptr(), lim_ptr)
+    rc = lib.lamp_flash_attention_bwd_dkv(*common, dk.data_ptr(),
+                                          dv.data_ptr(), *shape)
+    _raise_on(lib, rc, "backward dkv")
+    rc = lib.lamp_flash_attention_bwd_dq(*common, dq.data_ptr(), *shape)
+    _raise_on(lib, rc, "backward dq")
+    flash_attention.backward_launches += 1
+    return dq, dk, dv
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward saves ``q, k, v, o, lse``; backward recomputes ``p`` from
+    ``lse`` (the JAX ``custom_vjp`` of ``_flash``). CPU tensors take the
+    plain versions, CUDA tensors the kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_lengths, segment_ids, mask, causal,
+                sm_scale, window):
+        if q.device.type == "cpu":
+            o, lse = flash_attention_reference(
+                q, k, v, causal=causal, sm_scale=sm_scale,
+                kv_lengths=kv_lengths, window=window,
+                segment_ids=segment_ids, mask=mask)
+        else:
+            o, lse = _fwd_cuda(q, k, v, kv_lengths, causal, sm_scale, window)
+        ctx.save_for_backward(q, k, v, o, lse, kv_lengths)
+        ctx.segment_ids, ctx.mask = segment_ids, mask
+        ctx.cfg = (causal, sm_scale, window)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, kv_lengths = ctx.saved_tensors
+        causal, sm_scale, window = ctx.cfg
+        if q.device.type == "cpu":
+            dq, dk, dv = _flash_backward_reference(
+                q, k, v, o, lse, do, causal=causal, sm_scale=sm_scale,
+                kv_lengths=kv_lengths, window=window,
+                segment_ids=ctx.segment_ids, mask=ctx.mask)
+        else:
+            dq, dk, dv = _bwd_cuda(q, k, v, o, lse, do, kv_lengths, causal,
+                                   sm_scale, window)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def _check_window(window, causal, skv):
+    if window is None:
+        return None
+    if not causal:
+        raise ValueError("window requires causal=True")
+    window = int(window)
+    if window <= 0:
+        raise ValueError("window must be a positive int")
+    return None if window >= skv else window  # band covers everything
+
+
+def flash_attention(q, k, v, *, causal: bool = False,
+                    sm_scale: Optional[float] = None, kv_lengths=None,
+                    window: Optional[int] = None, segment_ids=None,
+                    mask=None):
+    """Flash attention on [B, H, S, D] tensors, differentiable.
+
+    ``causal`` aligns the diagonal to the end of kv when Sq != Skv.
+    ``kv_lengths`` ([B] or [B, Sq] int) limits the keys each row sees.
+    ``window`` (requires ``causal``) keeps each row's last ``window`` keys.
+    ``segment_ids`` ([B, S] int or a ``(q_ids, kv_ids)`` pair) and ``mask``
+    (boolean, broadcastable to [B, H, Sq, Skv], True = attend) are taken on
+    CPU tensors only; CUDA tensors raise ``NotImplementedError`` on them.
+    Rows with no visible key give 0.
+
+    CPU tensors take :func:`flash_attention_reference` and
+    :func:`_flash_backward_reference`. CUDA tensors launch the kernels of
+    ``csrc/flash_attention.cu`` (bf16 or f32, head_dim 64 or 128,
+    contiguous) or raise: each forward launch adds one to
+    ``flash_attention.launches`` and each backward (two kernels) one to
+    ``flash_attention.backward_launches``.
+    """
+    window = _check_window(window, causal, k.shape[2])
+    if sm_scale is None:
+        sm_scale = 1.0 / math.sqrt(q.shape[-1])
+    if kv_lengths is not None:  # int32, as jnp.asarray(kv_lengths, int32)
+        kv_lengths = torch.as_tensor(kv_lengths, device=q.device).to(
+            torch.int32).contiguous()
+    if q.device.type == "cuda":
+        _check_cuda(q, k, v, kv_lengths, segment_ids, mask)
+    elif q.device.type != "cpu":
+        raise ValueError(f"flash_attention: unsupported device {q.device}")
+    return _FlashAttention.apply(q, k, v, kv_lengths, segment_ids, mask,
+                                 causal, float(sm_scale), window)
+
+
+# kernel launches since the last reset (a run shows the path used the
+# kernels): forward launches, and backward calls of two kernels each
+flash_attention.launches = 0
+flash_attention.backward_launches = 0
+
+
+def compact_attention(q, k, v, *, causal: bool = False,
+                      sm_scale: Optional[float] = None, kv_lengths=None,
+                      window: Optional[int] = None, segment_ids=None,
+                      mask=None):
+    """The JAX package's short-sequence attention. On Hopper it is
+    :func:`flash_attention` itself; like the JAX version it refuses a kv
+    length that pads past ``COMPACT_MAX_KV``."""
+    skv_p = -(-k.shape[2] // LANES) * LANES
+    if skv_p > COMPACT_MAX_KV:
+        raise ValueError(
+            f"compact_attention: padded kv length {skv_p} exceeds "
+            f"{COMPACT_MAX_KV}; use flash_attention")
+    return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                           kv_lengths=kv_lengths, window=window,
+                           segment_ids=segment_ids, mask=mask)
+
+
+def dot_product_attention(q, k, v, *, causal: bool = False, mask=None,
+                          sm_scale: Optional[float] = None,
+                          window: Optional[int] = None, segment_ids=None):
+    """The JAX router with one kernel, routed by device alone: CUDA tensors
+    go to :func:`flash_attention` at every length, CPU tensors to
+    :func:`mha_reference` (the JAX package's XLA path off the TPU)."""
+    if q.device.type == "cuda":
+        return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
+                               window=window, segment_ids=segment_ids,
+                               mask=mask)
+    return mha_reference(q, k, v, causal=causal, sm_scale=sm_scale,
+                         mask=mask, window=window, segment_ids=segment_ids)

@@ -1,0 +1,255 @@
+"""Port parity: lamp_tpu_torch.ops.attention.flash_attention against
+lamp_tpu's flash_attention and compact_attention.
+
+The port's wrapper on CPU tensors runs its plain versions
+(``flash_attention_reference`` forward, ``_flash_backward_reference``
+backward) through its ``autograd.Function``; the JAX side runs its Pallas
+kernels in interpret mode with 32 x 32 tiles, so several kv tiles, skipped
+tiles and ragged edges are exercised. Inputs are made with numpy; all
+f32. Tolerance: atol 1e-5 on the output and on dq, dk and dv (sums of at
+most ~100 f32 products of unit-scale values, taken in another order).
+
+Rows with no visible key give 0 output and 0 gradient in the port; the
+JAX kernel gives the mean of V there when one of the row's tiles ran. Such
+rows are compared for being exactly 0, and their upstream gradient is set
+to 0 before comparing gradients with JAX, so that only rows with a key
+feed dk and dv.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lamp_tpu.ops import attention as jatt
+from lamp_tpu_torch.ops import attention as tatt
+
+ATOL = 1e-5
+
+# (name, B, H, Sq, Skv, D, causal, window, lengths kind)
+CASES = [
+    ("causal", 2, 2, 64, 64, 32, True, None, None),
+    ("noncausal", 2, 2, 64, 64, 32, False, None, None),
+    ("sq_lt_skv", 1, 2, 40, 72, 32, True, None, None),
+    ("noncausal_sq_gt_skv", 1, 2, 72, 40, 32, False, None, None),
+    ("ragged", 2, 1, 45, 45, 32, True, None, None),
+    ("lengths_1d", 3, 2, 64, 64, 32, True, None, "1d"),
+    ("lengths_2d", 2, 2, 48, 48, 32, False, None, "2d"),
+    ("window", 1, 2, 96, 96, 32, True, 20, None),
+    ("window_lengths", 2, 1, 70, 70, 32, True, 33, "1d"),
+    ("head_dim_64", 1, 2, 64, 64, 64, True, None, None),
+]
+
+
+def _inputs(b, h, sq, skv, d, lengths, seed=0):
+    rng = np.random.RandomState(seed)
+    q = rng.randn(b, h, sq, d).astype(np.float32)
+    k = rng.randn(b, h, skv, d).astype(np.float32)
+    v = rng.randn(b, h, skv, d).astype(np.float32)
+    do = rng.randn(b, h, sq, d).astype(np.float32)
+    lens = None
+    if lengths == "1d":
+        # every row keeps a key, also under the windows of CASES
+        lens = rng.randint(skv - 20, skv + 1, b).astype(np.int32)
+        lens[0] = skv - 3  # not a multiple of the tile
+    elif lengths == "2d":
+        lens = rng.randint(1, skv + 1, (b, sq)).astype(np.int32)
+    return q, k, v, do, lens
+
+
+def _jax_run(fn, q, k, v, do, **kw):
+    """Output and (dq, dk, dv) of sum(fn(q, k, v) * do) under JAX."""
+    args = [jnp.asarray(x) for x in (q, k, v)]
+
+    def loss(q, k, v):
+        return jnp.sum(fn(q, k, v, **kw) * jnp.asarray(do))
+
+    out = fn(*args, **kw)
+    grads = jax.grad(loss, argnums=(0, 1, 2))(*args)
+    return np.asarray(out), [np.asarray(g) for g in grads]
+
+
+def _torch_run(fn, q, k, v, do, **kw):
+    ts = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    out = fn(*ts, **kw)
+    out.backward(torch.tensor(do))
+    return out.detach().numpy(), [t.grad.numpy() for t in ts]
+
+
+def _jax_flash(q, k, v, **kw):
+    return jatt.flash_attention(q, k, v, interpret=True, block_q=32,
+                                block_k=32, **kw)
+
+
+def _jax_compact(q, k, v, **kw):
+    return jatt.compact_attention(q, k, v, interpret=True, **kw)
+
+
+def _compare(jax_fn, case):
+    name, b, h, sq, skv, d, causal, window, lengths = case
+    q, k, v, do, lens = _inputs(b, h, sq, skv, d, lengths)
+    kw = dict(causal=causal, window=window)
+    want, want_g = _jax_run(jax_fn, q, k, v, do, **kw, kv_lengths=None
+                            if lens is None else jnp.asarray(lens))
+    got, got_g = _torch_run(tatt.flash_attention, q, k, v, do, **kw,
+                            kv_lengths=None if lens is None
+                            else torch.from_numpy(lens))
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    for g, w, what in zip(got_g, want_g, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g, w, atol=ATOL, rtol=0, err_msg=what)
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_flash_attention_matches_jax_flash(case):
+    _compare(_jax_flash, case)
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_flash_attention_matches_jax_compact(case):
+    """K3: the JAX whole-tile kernels compute the same function."""
+    _compare(_jax_compact, case)
+
+
+def test_flash_attention_matches_jax_split_backward(monkeypatch):
+    """A zero slab budget sends JAX to its split dq / dkv kernels (the
+    fused kernel is the default above): the port's one backward design is
+    held against both."""
+    monkeypatch.setattr(jatt, "_FUSED_BWD_SLAB_BYTES", 0)
+    _compare(_jax_flash, ("split", 2, 2, 70, 70, 32, True, 24, "1d"))
+
+
+@pytest.mark.parametrize("lengths", ["1d", "2d"])
+def test_rows_without_keys_give_zero_output_and_gradient(lengths):
+    b, h, s, d = 2, 2, 48, 32
+    q, k, v, do, _ = _inputs(b, h, s, s, d, None, seed=1)
+    if lengths == "1d":
+        lens = np.array([0, 30], np.int32)
+        empty = np.zeros((b, s), bool)
+        empty[0] = True
+    else:
+        lens = np.random.RandomState(2).randint(0, 4, (b, s)).astype(np.int32)
+        empty = lens == 0
+    got, got_g = _torch_run(tatt.flash_attention, q, k, v, do, causal=True,
+                            kv_lengths=torch.from_numpy(lens))
+    rows = np.broadcast_to(empty[:, None, :], (b, h, s))
+    assert rows.any() and (got[rows] == 0).all()
+    assert (got_g[0][rows] == 0).all()  # dq
+    # the rows with a key against JAX, with the empty rows' gradient zeroed
+    do0 = np.where(rows[..., None], 0.0, do).astype(np.float32)
+    want, want_g = _jax_run(_jax_flash, q, k, v, do0, causal=True,
+                            kv_lengths=jnp.asarray(lens))
+    np.testing.assert_allclose(got[~rows], want[~rows], atol=ATOL, rtol=0)
+    got0, got0_g = _torch_run(tatt.flash_attention, q, k, v, do0, causal=True,
+                              kv_lengths=torch.from_numpy(lens))
+    # the empty rows feed nothing into dk and dv
+    np.testing.assert_array_equal(got_g[1], got0_g[1])
+    np.testing.assert_array_equal(got_g[2], got0_g[2])
+    for g0, w in zip(got0_g, want_g):
+        np.testing.assert_allclose(g0, w, atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("kind", ["segment_ids", "segment_pair", "mask"])
+def test_segment_ids_and_mask_match_jax_on_cpu(kind):
+    b, h, s, d = 2, 2, 40, 32
+    q, k, v, do, _ = _inputs(b, h, s, s, d, None, seed=3)
+    rng = np.random.RandomState(4)
+    if kind == "mask":
+        m = rng.rand(b, 1, s, s) < 0.7
+        m[:, :, :, 0] = True  # every row keeps a key
+        jkw, tkw = dict(mask=jnp.asarray(m)), dict(mask=torch.from_numpy(m))
+    else:
+        seg = np.sort(rng.randint(0, 3, (b, s)), axis=1).astype(np.int32)
+        if kind == "segment_pair":
+            jkw = dict(segment_ids=(jnp.asarray(seg), jnp.asarray(seg)))
+            tkw = dict(segment_ids=(torch.from_numpy(seg),
+                                    torch.from_numpy(seg)))
+        else:
+            jkw = dict(segment_ids=jnp.asarray(seg))
+            tkw = dict(segment_ids=torch.from_numpy(seg))
+    want, want_g = _jax_run(_jax_flash, q, k, v, do, causal=True, **jkw)
+    got, got_g = _torch_run(tatt.flash_attention, q, k, v, do, causal=True,
+                            **tkw)
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+    for g, w in zip(got_g, want_g):
+        np.testing.assert_allclose(g, w, atol=ATOL, rtol=0)
+
+
+def test_forward_lse_is_the_row_logsumexp():
+    q, k, v, _, _ = _inputs(1, 2, 20, 30, 32, None, seed=5)
+    o, lse = tatt.flash_attention_reference(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        causal=True)
+    s = np.einsum("bhqd,bhkd->bhqk", q, k) / np.sqrt(32)
+    keep = np.arange(30)[None, :] <= np.arange(20)[:, None] + 10
+    s = np.where(keep, s, -np.inf)
+    want = np.log(np.exp(s - s.max(-1, keepdims=True)).sum(-1)) + s.max(-1)
+    np.testing.assert_allclose(lse.numpy(), want, atol=1e-5, rtol=0)
+    assert o.dtype == torch.float32 and lse.dtype == torch.float32
+
+
+def test_cpu_calls_launch_no_kernel_and_cuda_checks_refuse():
+    """On CPU tensors the wrapper takes its plain version and counts no
+    launch. The CUDA path's checks raise on what the kernels do not take;
+    they are called here on CPU tensors, which needs no card."""
+    q, k, v, _, _ = _inputs(1, 1, 16, 16, 64, None)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    before = (tatt.flash_attention.launches,
+              tatt.flash_attention.backward_launches)
+    tatt.flash_attention(tq.requires_grad_(), tk, tv, causal=True).sum() \
+        .backward()
+    assert (tatt.flash_attention.launches,
+            tatt.flash_attention.backward_launches) == before
+    seg = torch.zeros((1, 16), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="segment_ids"):
+        tatt._check_cuda(tq, tk, tv, None, seg, None)
+    with pytest.raises(NotImplementedError, match="mask"):
+        tatt._check_cuda(tq, tk, tv, None, None,
+                         torch.ones((1, 1, 16, 16), dtype=torch.bool))
+    with pytest.raises(NotImplementedError, match="head_dim 32"):
+        tatt._check_cuda(tq[..., :32].contiguous(), tk[..., :32].contiguous(),
+                         tv[..., :32].contiguous(), None, None, None)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tatt._check_cuda(tq.half(), tk.half(), tv.half(), None, None, None)
+    with pytest.raises(ValueError, match="contiguous"):
+        tatt._check_cuda(tq.transpose(2, 3).contiguous().transpose(2, 3),
+                         tk, tv, None, None, None)
+    with pytest.raises(ValueError, match="kv_lengths"):
+        tatt._check_cuda(tq, tk, tv, torch.zeros(3, dtype=torch.int32),
+                         None, None)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tatt.flash_attention(tq.to("meta"), tk.to("meta"), tv.to("meta"))
+
+
+def test_window_and_compact_limits_follow_jax():
+    q = torch.zeros((1, 1, 8, 32))
+    with pytest.raises(ValueError, match="causal"):
+        tatt.flash_attention(q, q, q, window=4)
+    with pytest.raises(ValueError, match="positive"):
+        tatt.flash_attention(q, q, q, causal=True, window=0)
+    long = torch.zeros((1, 1, 2049, 32))
+    with pytest.raises(ValueError, match="COMPACT_MAX_KV|exceeds"):
+        tatt.compact_attention(long, long, long)
+    with pytest.raises(ValueError, match="exceeds"):
+        jatt.compact_attention(jnp.zeros((1, 1, 2049, 32)),
+                               jnp.zeros((1, 1, 2049, 32)),
+                               jnp.zeros((1, 1, 2049, 32)), interpret=True)
+
+
+@pytest.mark.parametrize("causal,window,segments", [
+    (True, None, False), (False, None, False), (True, 7, False),
+    (False, None, True)], ids=["causal", "noncausal", "window", "segments"])
+def test_dot_product_attention_routes_like_jax(causal, window, segments):
+    """CPU tensors take the plain path, as the JAX router does off the
+    TPU."""
+    q, k, v, _, _ = _inputs(1, 2, 24, 24, 32, None, seed=6)
+    seg = np.repeat(np.arange(3), 8)[None].astype(np.int32) \
+        if segments else None
+    want = jatt.dot_product_attention(
+        *map(jnp.asarray, (q, k, v)), causal=causal, window=window,
+        segment_ids=None if seg is None else jnp.asarray(seg))
+    got = tatt.dot_product_attention(
+        *map(torch.from_numpy, (q, k, v)), causal=causal, window=window,
+        segment_ids=None if seg is None else torch.from_numpy(seg))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                               rtol=0)

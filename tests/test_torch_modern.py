@@ -90,7 +90,7 @@ def test_apply_rope_matches_jax(positions):
 def test_swiglu_matches_jax():
     m = jax_modern_lm()
     jmlp = m.blocks[0].mlp
-    t = load_modern_lm(jax_params(m))
+    t = load_modern_lm(jax_params(m), device="cpu")
     x = np.random.RandomState(2).randn(2, 5, 64).astype(np.float32)
     want, _ = jmlp.forward(jnp.asarray(x))
     _close(t.blocks[0].mlp(torch.from_numpy(x)), want, ATOL_OP)
@@ -99,7 +99,7 @@ def test_swiglu_matches_jax():
 @pytest.mark.parametrize("window", [None, 3])
 def test_llama_block_matches_jax(window):
     m = jax_modern_lm(window=window)
-    t = load_modern_lm(jax_params(m), window=window)
+    t = load_modern_lm(jax_params(m), window=window, device="cpu")
     x = np.random.RandomState(3).randn(2, 9, 64).astype(np.float32)
     (want, _), _ = m.blocks[1].forward((jnp.asarray(x),
                                         (m.rope_cos, m.rope_sin)))
@@ -115,7 +115,8 @@ def test_modern_lm_forward_matches_jax(tied, packed):
     """``packed``: two documents per row, segment ids keep attention inside
     each and RoPE positions restart at the second."""
     m = jax_modern_lm(tied=tied, window=[None, 5])
-    t = load_modern_lm(jax_params(m), window=[None, 5])
+    t = load_modern_lm(jax_params(m), window=[None, 5],
+                       device="cpu")
     toks = np.random.RandomState(4).randint(0, 61, (2, 12))
     seg = pos = None
     if packed:
@@ -136,7 +137,7 @@ def test_modern_lm_forward_matches_jax(tied, packed):
 
 def test_bridge_carries_config_and_casts():
     m = jax_modern_lm(num_blocks=3)
-    t = load_modern_lm(jax_params(m), dtype=torch.bfloat16)
+    t = load_modern_lm(jax_params(m), dtype=torch.bfloat16, device="cpu")
     assert len(t.blocks) == 3 and t.context_length == 64
     assert t.blocks[0].num_heads == 4 and t.blocks[0].num_kv_heads == 2
     assert t.blocks[0].w_q.weight.dtype == torch.bfloat16
@@ -153,15 +154,15 @@ def test_bridge_rejects_missing_and_extra_keys():
     missing = dict(params)
     del missing["blocks.1.w_v.weight"]
     with pytest.raises(KeyError, match="blocks.1.w_v.weight"):
-        load_modern_lm(missing)
+        load_modern_lm(missing, device="cpu")
     extra = dict(params, **{"blocks.0.w_q.bias": np.zeros(64, np.float32)})
     with pytest.raises(KeyError, match="blocks.0.w_q.bias"):
-        load_modern_lm(extra)
+        load_modern_lm(extra, device="cpu")
 
 
 def test_modern_lm_init_is_seeded():
     kw = dict(vocab_size=50, context_length=16, num_blocks=1, embed_dim=32,
-              num_heads=4, num_kv_heads=2)
+              num_heads=4, num_kv_heads=2, device="cpu")
     a = tnn.ModernLM.init(generator=torch.Generator().manual_seed(7), **kw)
     b = tnn.ModernLM.init(generator=torch.Generator().manual_seed(7), **kw)
     for (na, pa), (_, pb) in zip(a.state_dict().items(),

@@ -29,7 +29,7 @@ PAGE = 8
 
 def _servers(window=None, total_pages=32):
     jm = jax_modern_lm(window=window)
-    tm = load_modern_lm(jax_params(jm), window=window)
+    tm = load_modern_lm(jax_params(jm), window=window, device="cpu")
     return (JaxServer(jm, page_size=PAGE, total_pages=total_pages),
             ModernBatchServer(tm, page_size=PAGE, total_pages=total_pages))
 

@@ -1,0 +1,189 @@
+"""The training slice: lamp_tpu_torch's make_train_step against
+lamp_tpu's, on one tiny GPT.
+
+A 2-block, 32-wide, 2-head LanguageModelModule (vocab 61, context 16) is
+made by lamp_tpu from a seeded key and bridged into the port. Both train
+20 steps with 2 accumulation micro-batches of 3 sequences, under the
+reference example's optimizer (AdamW, beta2 0.95, global-norm clip 1.0,
+weight decay 0.01 except on biases, norms, scales and embeddings) and
+cosine_with_warmup, on the same numpy batches. The JAX step is jitted; the
+port's runs eagerly on CPU through the flash_attention wrapper's plain
+version.
+
+Tolerance: in f32, per-step losses within rtol 1e-4 and final parameters
+within atol 1e-4 (20 steps of f32 Adam updates of ~3e-3 each, from sums
+taken in another order). In bf16 parameters with f32 masters, per-step
+losses within rtol 2e-2 and final f32 masters within atol 5e-3: the two
+frameworks round bf16 activations at different places, and Adam's
+normalised update turns those differences into steps of the learning
+rate's size. The key biases, whose true gradient is 0, are held in both
+only to the bound of 20 such steps: Adam follows the rounding noise in
+their gradients.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lamp_tpu import nn as jnn
+from lamp_tpu import optim as joptim
+from lamp_tpu import train as jtrain
+from lamp_tpu_torch import nn as tnn
+from lamp_tpu_torch import optim as toptim
+from lamp_tpu_torch import train as ttrain
+from lamp_tpu_torch.optim import schedules as tsched
+
+from .test_torch_modern import jax_params
+from .test_torch_transformer import jax_lm, torch_lm
+
+STEPS, ACCUM, BATCH, CTX, VOCAB = 20, 2, 3, 16, 61
+
+
+def _decay(tag):
+    # the reference example's tag-scoped weight decay
+    return 0.0 if ("bias" in tag or "LayerNorm" in tag or "scale" in tag
+                   or "Embedding" in tag) else 0.01
+
+
+def _batches():
+    rng = np.random.RandomState(0)
+    for _ in range(STEPS):
+        toks = rng.randint(0, VOCAB, (ACCUM, BATCH, CTX)).astype(np.int32)
+        yield toks, np.roll(toks, -1, axis=2)
+
+
+def _jax_run(jm):
+    params = jnn.partition_params(jm)[0]
+    opt = joptim.AdamW(3e-3, beta2=0.95, clip=1.0, weight_decay=_decay,
+                       tags=jnn.param_tags(params))
+
+    def loss_fn(m, batch, key, train):
+        tokens, target = batch
+        logits, nm = m.forward(tokens, key=key, train=train)
+        return (jnn.lm_loss(logits, target),
+                jnp.asarray(tokens.shape[0], jnp.float32), nm)
+
+    state = jtrain.TrainState.init(jm, opt)
+    step = jax.jit(jtrain.make_train_step(opt, loss_fn,
+                                          accumulation_steps=ACCUM))
+    sched = joptim.schedules.cosine_with_warmup(5, STEPS)
+    key = jax.random.PRNGKey(1)
+    losses = []
+    for i, (toks, target) in enumerate(_batches()):
+        _, factor = sched(None, i, None)
+        state, (loss, _) = step(state, (jnp.asarray(toks),
+                                        jnp.asarray(target)), key, factor)
+        losses.append(float(loss))
+    return losses, state
+
+
+def _torch_run(tm):
+    opt = toptim.AdamW(tm.named_parameters(), 3e-3, beta2=0.95, clip=1.0,
+                       weight_decay=_decay, tags=tnn.param_tags(tm))
+
+    def loss_fn(m, batch, generator, train):
+        tokens, target = batch
+        logits = m(tokens, train=train, generator=generator)
+        return tnn.lm_loss(logits, target), tokens.shape[0]
+
+    state = ttrain.TrainState.init(tm, opt)
+    step = ttrain.make_train_step(opt, loss_fn, accumulation_steps=ACCUM)
+    sched = tsched.cosine_with_warmup(5, STEPS)
+    losses = []
+    for i, (toks, target) in enumerate(_batches()):
+        _, factor = sched(None, i, None)
+        state, (loss, n) = step(state, (torch.tensor(toks).long(),
+                                        torch.tensor(target).long()),
+                                lr_factor=factor)
+        assert n == ACCUM * BATCH
+        losses.append(float(loss))
+    assert state.step == STEPS and opt.param_groups[0]["step"] == STEPS
+    return losses, state
+
+
+def _atol(name, atol):
+    # the key bias shifts every score of a row alike, so its true gradient
+    # is 0 and Adam follows rounding noise in it with steps up to the
+    # learning rate: it is held only to the bound of STEPS such steps
+    return 3e-3 * STEPS if name.endswith("w_k.bias") else atol
+
+
+def _linear_names(tm):
+    return {f"{n}.weight" for n, m in tm.named_modules()
+            if isinstance(m, tnn.Linear)}
+
+
+def test_train_steps_match_jax_f32():
+    jm = jax_lm()
+    tm = torch_lm(jm)
+    want, jstate = _jax_run(jm)
+    got, _ = _torch_run(tm)
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    final = jax_params(jstate.params)
+    linear = _linear_names(tm)
+    for name, p in tm.named_parameters():
+        w = final[name].T if name in linear else final[name]
+        np.testing.assert_allclose(p.detach().numpy(), w,
+                                   atol=_atol(name, 1e-4), rtol=0,
+                                   err_msg=name)
+
+
+def test_train_steps_match_jax_bf16_with_f32_masters():
+    jm = jax_lm(dtype=jnp.bfloat16)
+    tm = torch_lm(jm, dtype=torch.bfloat16)
+    want, jstate = _jax_run(jm)
+    got, tstate = _torch_run(tm)
+    np.testing.assert_allclose(got, want, rtol=2e-2)
+    masters = jax_params(jstate.opt_state["master"])
+    linear = _linear_names(tm)
+    for name, p in tm.named_parameters():
+        assert p.dtype == torch.bfloat16
+        master = tstate.optimizer.state[p]["master"]
+        assert master.dtype == torch.float32
+        w = masters[name].T if name in linear else masters[name]
+        np.testing.assert_allclose(master.numpy(), w, atol=_atol(name, 5e-3),
+                                   rtol=0, err_msg=name)
+
+
+def test_single_step_and_eval_step_match_jax():
+    """No accumulation: the gradients stay in the parameters' dtype, as in
+    the JAX step; then the eval step on the updated model."""
+    jm = jax_lm(seed=2)
+    tm = torch_lm(jm)
+    rng = np.random.RandomState(5)
+    toks = rng.randint(0, VOCAB, (4, CTX)).astype(np.int32)
+    target = np.roll(toks, -1, axis=1)
+
+    def jloss(m, batch, key, train):
+        logits, nm = m.forward(batch[0], key=key, train=train)
+        return (jnn.lm_loss(logits, batch[1]),
+                jnp.asarray(batch[0].shape[0], jnp.float32), nm)
+
+    def tloss(m, batch, generator, train):
+        return tnn.lm_loss(m(batch[0], train=train), batch[1]), \
+            batch[0].shape[0]
+
+    jopt = joptim.AdamW(1e-2)
+    jstate = jtrain.TrainState.init(jm, jopt)
+    jstate, (jl, _) = jtrain.make_train_step(jopt, jloss)(
+        jstate, (jnp.asarray(toks), jnp.asarray(target)),
+        jax.random.PRNGKey(0))
+    topt = toptim.AdamW(tm.named_parameters(), 1e-2)
+    tstate = ttrain.TrainState.init(tm, topt)
+    batch = (torch.tensor(toks).long(), torch.tensor(target).long())
+    tstate, (tl, n) = ttrain.make_train_step(topt, tloss)(tstate, batch)
+    assert n == 4
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    je, _ = jtrain.make_eval_step(jloss)(
+        jstate, (jnp.asarray(toks), jnp.asarray(target)))
+    te, _ = ttrain.make_eval_step(tloss)(tstate, batch)
+    assert not te.requires_grad
+    np.testing.assert_allclose(float(te), float(je), rtol=1e-4)
+
+
+def test_other_loss_calculations_are_not_ported():
+    for kind in ("adversarial", "perturbed"):
+        with pytest.raises(NotImplementedError, match=kind):
+            ttrain.make_train_step(None, None, loss_calculation=kind)
