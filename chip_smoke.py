@@ -12,7 +12,9 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
 2. The paged-attention kernel against its plain PyTorch version at the
    serving slice's shapes (B=32, H=12, H_kv=4, D=64, 128-token pages, the
    12-layer stacked bf16 pool of 192 pages per layer), over edge lengths,
-   append on/off and static / per-request windows; both are timed.
+   append on/off and static / per-request windows, on the bf16 pool and on
+   the same values in an fp8 (e4m3fn) pool, e5m2 once; both pools' kernel
+   and plain version are timed by profiler device time.
 3. The serving slice at full width: a 12-block, 768-wide llama-style
    ModernLM (GQA 12/4 heads, SwiGLU 2048, vocab 32000, context 512, bf16,
    random weights from a seed) behind ModernBatchServer(total_pages=192)
@@ -40,6 +42,28 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
    layers x micro-batches x steps), 10 steps on one batch of SURVEY.md's
    bytes (the loss must fall), and one profiled step (device busy share,
    top kernels, no library attention kernel).
+6. The int4 dequant-matmul kernel (K7) against its plain version at every
+   decode matmul of the serving configuration (QKV 768x1280, out 768x768,
+   SwiGLU 768x2048 and 2048x768, logits 768x32000) with M in {1, 7, 32, 64,
+   3072}, bf16 and f32 x, bf16 and f32 out, by relative Frobenius error,
+   with a planted fault (one K-group's scale row dropped) that each check
+   must see; timed at B=32 by profiler device time beside its bound and
+   F.linear on the dequantized bf16 weight. int8_matmul (torch._int_mm,
+   zero rows padded below 17 rows) at the same shapes with M in {1, 7, 16,
+   17, 32}: bit for bit against the same arithmetic with an exact f64
+   product, and near x @ dequant(w). The stochastic int8 quantizer (K8, on
+   no path of the port, driven here) at [3072, 768] and [3072, 3072] bf16,
+   bit for bit against its plain version, the unbiasedness check of
+   tests/test_quantization.py, and timed.
+7. Quantized serving at full width, on phase 3's model and requests:
+   ModernBatchServer(quantize_bits=4) through ServingEngine (lengths, the
+   page pool, 61 K7 and 12 K6 launches per decode step, greedy tokens
+   against a dense f32 forward of the dequantized model), then with
+   kv_dtype=float8_e4m3fn (the same checks, greedy agreement with the bf16
+   pool), then quantize_bits=8 (the same checks, no K7 launch, greedy
+   tokens against a dense f32 forward through int8_matmul), then the steady
+   step_many(8) at B=32 of int8, int4 and int4 + fp8 KV beside phase 3's
+   bf16 (tok/s, device time and device ops per step).
 
 The last lines are one JSON line on the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -47,6 +71,7 @@ limit, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import copy
 import json
 import math
 import subprocess
@@ -91,15 +116,53 @@ TRAIN_CONFIGS = (("flagship", 384, 8, 5), ("longctx", 4096, 2, 1))
 # one H100 SXM's published dense bf16 rate and memory bandwidth
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 
+# phase 6: K7 against its plain version (in f32, on the same inputs, then
+# rounded to the kernel's output dtype) by relative Frobenius error
+# ||kernel - plain|| / ||plain||. f32 out: both sum exact products of x
+# and the integer codes in f32 and differ in summation order only; bf16
+# out: each rounds its f32 sum once, so they differ where the two orders
+# straddle a bf16 rounding boundary (one bf16 step, 2^-8 relative, in a
+# few elements). A planted fault (the plain version with one K-group's
+# scale row dropped) must read above the limit in every check.
+K7_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
+# the serving configuration's decode matmuls: (name, K, N, calls per
+# decode step); every one also at the rows of an LM forward (3072)
+K7_SHAPES = (("qkv", 768, 1280, 12), ("wo", 768, 768, 12),
+             ("w1/w3", 768, 2048, 24), ("w2", 2048, 768, 12),
+             ("logits", 768, 32000, 1))
+K7_ROWS = (1, 7, 32, 64, 3072)
+DECODE_B = 32
+# K8 at the rows of an LM forward, 768 and 3072 wide: bit for bit
+K8_SHAPES = ((3072, 768), (3072, 3072))
+# phase 7: an int4 greedy token must equal the argmax of a dense f32
+# forward of the dequantized model (int4_server_reference) wherever its
+# top-1/top-2 margin exceeds this (phase 3's 0.05 for rounding activations
+# to bf16, doubled: the f32 dense forward does not round them at all)
+QMARGIN = 0.1
+# phase 6: int8_matmul against x @ dequant(w) in f32 by relative Frobenius
+# error; they differ by x's per-row int8 rounding alone (half a step of
+# absmax/127, ~0.75% relative RMS for Gaussian rows)
+INT8_ROWS = (1, 7, 16, 17, 32)
+INT8_TOL = 2e-2
+# phase 7, int8: every decode matmul quantizes x per row, so the server's
+# bf16 x and the f32 dense forward's x (relative 2^-9 apart) land on
+# different int8 codes (one step, absmax/127) in some elements; the margin
+# is QMARGIN x 2.5, and fewer tokens clear it (at least 1/8 must)
+QMARGIN8 = 0.25
+
 
 def reset_launch_counts():
     """Every kernel wrapper's launch count to 0, just before a main path."""
     from lamp_tpu_torch.ops.attention import flash_attention
     from lamp_tpu_torch.ops.paged_attention import paged_attention
+    from lamp_tpu_torch.ops.quantization import (int4_matmul,
+                                                 quantize_int8_stochastic)
 
     paged_attention.launches = 0
     flash_attention.launches = 0
     flash_attention.backward_launches = 0
+    int4_matmul.launches = 0
+    quantize_int8_stochastic.launches = 0
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -117,7 +180,8 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
 
 
 def phase_kernel(paged_attention, paged_attention_reference):
-    """The kernel against its plain version at the slice's shapes."""
+    """The kernel against its plain version at the slice's shapes, on the
+    bf16 pool and on the same values in an fp8 (e4m3) pool; e5m2 once."""
     dev = torch.device("cuda")
     b, h, hkv, d, pps = 32, HEADS, KV_HEADS, DIM // HEADS, CTX // PAGE
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -126,7 +190,7 @@ def phase_kernel(paged_attention, paged_attention_reference):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
     pool = randn(BLOCKS * TOTAL_PAGES, 2, PAGE, hkv * d)
-    pool32 = pool.float()
+    pool8 = pool.to(torch.float8_e4m3fn)
     q, new_k, new_v = randn(b, h, d), randn(b, hkv * d), randn(b, hkv * d)
     rng = np.random.RandomState(0)
     table = torch.as_tensor(np.stack([
@@ -140,42 +204,56 @@ def phase_kernel(paged_attention, paged_attention_reference):
         [0, 1, 2, 50, 100, 300, 0, 7] * (b // 8), np.int32), device=dev)
     offset = (BLOCKS - 1) * TOTAL_PAGES
 
-    max_err = 0.0
-    for append in (False, True):
+    def check(kv, append, window, windows, what):
+        """One call against the plain version in f32 (which upcasts an fp8
+        pool itself); returns the largest abs error."""
         app = (new_k, new_v) if append else None
         app32 = (new_k.float(), new_v.float()) if append else None
-        for window, windows in ((None, None), (100, None), (None, wins),
-                                (100, wins)):
-            kw = dict(num_kv_heads=hkv, window=window, windows=windows,
-                      page_offset=offset)
-            out = paged_attention(q, pool, None, table, lengths,
-                                  append_kv=app, **kw)
-            ref = paged_attention_reference(q.float(), pool32, None, table,
-                                            lengths, append_kv=app32, **kw)
-            torch.cuda.synchronize()
-            err = (out.float() - ref).abs()
-            bad = err > ATOL + RTOL * ref.abs()
-            if bad.any():
-                raise AssertionError(
-                    f"paged_attention append={append} window={window} "
-                    f"windows={windows is not None}: {int(bad.sum())} "
-                    f"elements off, max err {float(err.max()):.3e}")
-            if not append and (out[lengths == 0] != 0).any():
-                raise AssertionError("rows with no valid key are not 0")
-            max_err = max(max_err, float(err.max()))
-            print(f"  append={append!s:5} window={window!s:4} "
-                  f"windows={windows is not None!s:5} max_abs_err "
-                  f"{float(err.max()):.3e}")
+        kw = dict(num_kv_heads=hkv, window=window, windows=windows,
+                  page_offset=offset)
+        out = paged_attention(q, kv, None, table, lengths, append_kv=app,
+                              **kw)
+        ref = paged_attention_reference(
+            q.float(), kv if kv.element_size() == 1 else kv.float(), None,
+            table, lengths, append_kv=app32, **kw)
+        torch.cuda.synchronize()
+        err = (out.float() - ref).abs()
+        bad = err > ATOL + RTOL * ref.abs()
+        if bad.any():
+            raise AssertionError(
+                f"paged_attention {what} append={append} window={window} "
+                f"windows={windows is not None}: {int(bad.sum())} elements "
+                f"off, max err {float(err.max()):.3e}")
+        if not append and (out[lengths == 0] != 0).any():
+            raise AssertionError("rows with no valid key are not 0")
+        print(f"  {what:8} append={append!s:5} window={window!s:4} "
+              f"windows={windows is not None!s:5} max_abs_err "
+              f"{float(err.max()):.3e}")
+        return float(err.max())
+
+    max_err = {"bf16": 0.0, "fp8": 0.0}
+    for what, kv in (("bf16", pool), ("fp8", pool8)):
+        for append in (False, True):
+            for window, windows in ((None, None), (100, None), (None, wins),
+                                    (100, wins)):
+                max_err[what] = max(max_err[what], check(
+                    kv, append, window, windows,
+                    what if what == "bf16" else "e4m3fn"))
+    max_err["fp8"] = max(max_err["fp8"], check(
+        pool.to(torch.float8_e5m2), True, 100, wins, "e5m2"))
 
     # the split K/V layout and the other instantiations (f32, head_dim
-    # 128, 8 query heads per kv head), at small shapes
+    # 128, 8 query heads per kv head, an fp8 pool with an f32 q), at small
+    # shapes
     k_split, v_split = pool[:, 0].contiguous(), pool[:, 1].contiguous()
     cases = [(q, k_split, v_split, hkv)]
-    for dt, hd, nh, nkv in ((torch.float32, 64, 8, 2),
-                            (torch.bfloat16, 128, 8, 1),
-                            (torch.float32, 128, 4, 4)):
+    for dt, hd, nh, nkv, pdt in (
+            (torch.float32, 64, 8, 2, torch.float32),
+            (torch.bfloat16, 128, 8, 1, torch.bfloat16),
+            (torch.float32, 128, 4, 4, torch.float32),
+            (torch.float32, 128, 8, 2, torch.float8_e4m3fn)):
         small = torch.randn((64, 2, PAGE, nkv * hd), generator=gen,
-                            device=dev).to(dt)
+                            device=dev).to(pdt)
         cases.append((torch.randn((b, nh, hd), generator=gen,
                                   device=dev).to(dt), small, None, nkv))
     for qq, kp, vp, nkv in cases:
@@ -183,41 +261,53 @@ def phase_kernel(paged_attention, paged_attention_reference):
         out = paged_attention(qq, kp, vp, tab, lengths, num_kv_heads=nkv,
                               windows=wins)
         ref = paged_attention_reference(
-            qq.float(), kp.float(), None if vp is None else vp.float(), tab,
-            lengths, num_kv_heads=nkv, windows=wins)
+            qq.float(), kp if kp.element_size() == 1 else kp.float(),
+            None if vp is None else vp.float(), tab, lengths,
+            num_kv_heads=nkv, windows=wins)
         torch.cuda.synchronize()
         err = float((out.float() - ref).abs().max())
         tol = ATOL if qq.dtype == torch.bfloat16 else 1e-4
         print(f"  {qq.dtype} head_dim={qq.shape[2]} heads={qq.shape[1]}/"
-              f"{nkv} split={vp is not None} max_abs_err {err:.3e}")
+              f"{nkv} pool {kp.dtype} split={vp is not None} max_abs_err "
+              f"{err:.3e}")
         if err > tol * max(1.0, float(ref.abs().max())):
             raise AssertionError(f"paged_attention instantiation: err {err}")
 
     # time both on the path's own call: append_kv, no window, last layer
-    def kernel():
-        paged_attention(q, pool, None, table, lengths, num_kv_heads=hkv,
-                        append_kv=(new_k, new_v), page_offset=offset)
+    rows = {}
+    for what, kv in (("bf16", pool), ("fp8", pool8)):
+        def kernel():
+            paged_attention(q, kv, None, table, lengths, num_kv_heads=hkv,
+                            append_kv=(new_k, new_v), page_offset=offset)
 
-    def plain():
-        paged_attention_reference(q, pool, None, table, lengths,
-                                  num_kv_heads=hkv, append_kv=(new_k, new_v),
-                                  page_offset=offset)
+        def plain():
+            paged_attention_reference(q, kv, None, table, lengths,
+                                      num_kv_heads=hkv,
+                                      append_kv=(new_k, new_v),
+                                      page_offset=offset)
 
-    ms = cuda_time_ms(kernel, 200)
-    plain_ms = cuda_time_ms(plain, 50)
-    live = int(lengths.sum()) + b
-    kv_bytes = live * 2 * hkv * d * 2
-    gbs = kv_bytes / (ms * 1e-3) / 1e9
-    # the least bytes of the call: each K/V row read once, q read and the
-    # output written once, the page table and lengths read once
-    nbytes = kv_bytes + 2 * q.numel() * 2 + (table.numel() + b) * 4
-    bound_ms = max(nbytes / PEAK_BYTES,
-                   4 * live * HEADS * d / PEAK_FLOPS) * 1e3
-    print(f"  kernel {ms * 1e3:.2f} us, plain {plain_ms * 1e3:.2f} us, bound "
-          f"{bound_ms * 1e3:.2f} us ({live} live tokens, {gbs:.0f} GB/s of "
-          f"K/V rows)")
-    return dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by="bytes", library_ms=None)
+        # device time by profiler; the wrapper's whole call (host launch
+        # path included) by CUDA events over back-to-back calls, printed
+        ms = _kernel_ms(device_ms(kernel, 50), "paged_attention_kernel")
+        plain_ms = sum(device_ms(plain, 10).values())
+        events_ms = cuda_time_ms(kernel, 200)
+        live = int(lengths.sum()) + b
+        kv_bytes = live * 2 * hkv * d * kv.element_size()
+        gbs = kv_bytes / (ms * 1e-3) / 1e9
+        # the least bytes of the call: each K/V row read once, q read and
+        # the output written once, the page table and lengths read once
+        nbytes = kv_bytes + 2 * q.numel() * 2 + (table.numel() + b) * 4
+        bound_ms = max(nbytes / PEAK_BYTES,
+                       4 * live * HEADS * d / PEAK_FLOPS) * 1e3
+        print(f"  {what} pool: kernel {ms * 1e3:.2f} us (device), plain "
+              f"{plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
+              f"({live} live tokens, {gbs:.0f} GB/s of K/V rows); the "
+              f"wrapper by CUDA events over back-to-back calls "
+              f"{events_ms * 1e3:.2f} us")
+        rows[what] = dict(max_abs_err=max_err[what], ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by="bytes",
+                          library_ms=None)
+    return rows
 
 
 def device_events(prof):
@@ -236,7 +326,8 @@ def device_events(prof):
 def profile_step(server):
     """torch.profiler over one steady step_many(8): the device's busy share
     of the wall time (a lower bound: tracing slows the host) and the
-    kernels that take the most device time."""
+    kernels that take the most device time. Returns (device time us,
+    device ops) of the call."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -249,25 +340,23 @@ def profile_step(server):
     device = sorted(device_events(prof),
                     key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in device)
+    ops = sum(e.count for e in device)
     print(f"  profile of one step_many(8): {wall_us:.0f} us wall, device "
           f"busy {busy:.0f} us ({100 * busy / wall_us:.1f}%), "
-          f"{sum(e.count for e in device)} device ops; top kernels:")
+          f"{ops} device ops; top kernels:")
     for e in device[:8]:
         print(f"    {100 * e.self_device_time_total / busy:5.1f}%  "
               f"{e.self_device_time_total:8.0f} us  x{e.count:<5} "
               f"{e.key[:90]}")
+    return busy, ops
 
 
-def phase_serving(torch_nn, models, paged_attention):
-    """The slice through ServingEngine at full width, then its decode rate."""
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(0)
-    model = torch_nn.ModernLM.init(
-        vocab_size=VOCAB, context_length=CTX, num_blocks=BLOCKS,
-        embed_dim=DIM, num_heads=HEADS, num_kv_heads=KV_HEADS,
-        generator=gen, dtype=torch.bfloat16, device=dev)
-    server = models.ModernBatchServer(model, page_size=PAGE,
-                                      total_pages=TOTAL_PAGES)
+def serve_requests(models, server):
+    """Phase 3's 40 requests (prompts of 24-31 tokens, 36 sampled, 4
+    greedy, max_tokens 32-96) through ServingEngine(decode_steps=8,
+    max_batch=32), with every launch count set to 0 just before the run.
+    Checks each result's length and range and that the page pool returns
+    to its start. Returns (prompts, results, greedy ids, decode steps)."""
     engine = models.ServingEngine(server, decode_steps=8, max_batch=32)
     rng = np.random.RandomState(0)
     greedy = {3, 13, 23, 33}
@@ -282,20 +371,17 @@ def phase_serving(torch_nn, models, paged_attention):
                       max_tokens=max_tokens[rid]))
         engine.submit(prompts[rid], params, request_id=rid)
     free0 = len(server.free_pages)
-    # the main path's run: the launch count covers exactly this
+    # the main path's run: the launch counts cover exactly this
     reset_launch_counts()
     steps0 = server.steps_decoded
     t0 = time.perf_counter()
     results = engine.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = paged_attention.launches
     steps = server.steps_decoded - steps0
     emitted = sum(len(v) for v in results.values())
     print(f"  engine: 40 requests, {emitted} tokens, {steps} decode steps, "
-          f"{launches} kernel launches, {wall:.2f} s wall")
-    if launches == 0 or launches != BLOCKS * steps:
-        raise AssertionError(f"{launches} launches for {steps} decode steps")
+          f"{wall:.2f} s wall")
     if sorted(results) != sorted(prompts):
         raise AssertionError("missing results")
     for rid, toks in results.items():
@@ -305,47 +391,83 @@ def phase_serving(torch_nn, models, paged_attention):
                                  f"{max_tokens[rid]} in [0, {VOCAB})")
     if len(server.free_pages) != free0 or server.seq_pages:
         raise AssertionError("the page pool did not return to its start")
+    return prompts, results, [f"r{i}" for i in sorted(greedy)], steps
 
+
+def check_launches(name, launches, want):
+    print(f"  {name}: {launches} launches, want {want}")
+    if launches == 0 or launches != want:
+        raise AssertionError(f"{name}: {launches} launches, want {want}")
+
+
+def check_greedy(logits_of, prompts, results, greedy, margin, least=4):
+    """Each greedy token against the argmax of ``logits_of(tokens, prompt
+    length)`` ([T, V]) wherever its top-1/top-2 margin exceeds ``margin``;
+    at least 1/``least`` of the tokens must be checked."""
     checked = total = 0
-    min_margin_ok = float("inf")
     with torch.no_grad():
-        for i in sorted(greedy):
-            rid = f"r{i}"
+        for rid in greedy:
             seq = prompts[rid] + results[rid]
-            logits = model(torch.as_tensor([seq[:-1]], device=dev))[0]
+            logits = logits_of(torch.as_tensor([seq[:-1]], device="cuda"),
+                               len(prompts[rid]))
             top = logits[len(prompts[rid]) - 1:].topk(2, dim=-1)
-            margin = (top.values[:, 0] - top.values[:, 1]).cpu().numpy()
+            gap = (top.values[:, 0] - top.values[:, 1]).cpu().numpy()
             argmax = top.indices[:, 0].cpu().numpy()
             for j, tok in enumerate(results[rid]):
                 total += 1
-                if margin[j] > MARGIN:
+                if gap[j] > margin:
                     checked += 1
                     if tok != argmax[j]:
                         raise AssertionError(
                             f"{rid} token {j}: {tok} != dense argmax "
-                            f"{argmax[j]} (margin {margin[j]:.3f})")
-                    min_margin_ok = min(min_margin_ok, float(margin[j]))
-    print(f"  greedy: {checked} of {total} tokens past the {MARGIN} margin "
+                            f"{argmax[j]} (margin {gap[j]:.3f})")
+    print(f"  greedy: {checked} of {total} tokens past the {margin} margin "
           f"equal the dense argmax")
-    if checked < total // 4:
+    if checked < total // least:
         raise AssertionError("too few greedy tokens could be checked")
 
-    # steady decode rate: 32 requests, step_many(8), CUDA events
+
+def steady_decode(models, server, what):
+    """Steady decode rate of 32 requests with step_many(8) (CUDA events over
+    5 rounds after 2), then one profiled call. Returns tok/s, and the
+    device time (us) and device ops per decode step of the profiled
+    call."""
     rng = np.random.RandomState(0)
     for i in range(32):
         server.add(f"s{i}", rng.randint(0, VOCAB, 24 + i % 8).tolist(),
                    models.SamplingParams(temperature=0.8))
     server.step_many(8)
     server.step_many(8)
-    rounds = 5
-    ms = cuda_time_ms(lambda: server.step_many(8), rounds, warmup=0)
+    ms = cuda_time_ms(lambda: server.step_many(8), 5, warmup=0)
     tok_s = 32 * 8 / (ms * 1e-3)
-    print(f"  decode: step_many(8) at B=32 {ms:.2f} ms, "
-          f"{ms / 8:.3f} ms/step, {tok_s:.1f} tok/s")
-    profile_step(server)
+    print(f"  decode ({what}): step_many(8) at B=32 {ms:.2f} ms, "
+          f"{ms / 8:.3f} ms/step, {tok_s:.1f} tok/s", flush=True)
+    busy, ops = profile_step(server)
     for i in range(32):
         server.remove(f"s{i}")
-    return launches
+    return dict(tok_s=tok_s, device_us_per_step=busy / 8,
+                device_ops_per_step=ops / 8)
+
+
+def make_serving_model(torch_nn):
+    """The serving configuration's ModernLM, random weights from seed 0."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return torch_nn.ModernLM.init(
+        vocab_size=VOCAB, context_length=CTX, num_blocks=BLOCKS,
+        embed_dim=DIM, num_heads=HEADS, num_kv_heads=KV_HEADS,
+        generator=gen, dtype=torch.bfloat16, device="cuda")
+
+
+def phase_serving(model, models, paged_attention):
+    """The slice through ServingEngine at full width, then its decode rate.
+    Returns K6's launches and the steady decode figures."""
+    server = models.ModernBatchServer(model, page_size=PAGE,
+                                      total_pages=TOTAL_PAGES)
+    prompts, results, greedy, steps = serve_requests(models, server)
+    launches = paged_attention.launches
+    check_launches("paged_attention", launches, BLOCKS * steps)
+    check_greedy(lambda t, _: model(t)[0], prompts, results, greedy, MARGIN)
+    return launches, steady_decode(models, server, "bf16")
 
 
 def device_ms(fn, n: int, warmup: int = 2):
@@ -720,6 +842,296 @@ def phase_train(torch_nn, optim, train, att):
     return launches, backward_launches
 
 
+def rel_err(got, want):
+    """||got - want|| / ||want|| in f32."""
+    got, want = got.float(), want.float()
+    return float((got - want).norm() / want.norm())
+
+
+def check_int8_matmul(Q, gen):
+    """int8_matmul (torch._int_mm; below 17 rows padded with zero rows) at
+    the decode shapes, x bf16 and out in the path's dtype: bit for bit
+    against the same arithmetic with the int8 product taken in f64 (exact
+    for these sums), and within INT8_TOL of x @ dequant(w) in f32."""
+    worst = 0.0
+    for name, k, n, _ in K7_SHAPES:
+        w = torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5
+        wq, ws = Q.quantize_int8(w, axis=0)
+        w_deq = Q.dequantize_int8(wq, ws)
+        od = torch.float32 if name == "logits" else torch.bfloat16
+        for m in INT8_ROWS:
+            x = torch.randn(m, k, generator=gen, device="cuda").bfloat16()
+            got = Q.int8_matmul(x, wq, ws, out_dtype=od)
+            xq, xs = Q.quantize_int8(x, axis=1)
+            exact = (xq.double() @ wq.double()).float()
+            if not torch.equal(got, (exact * xs * ws).to(od)):
+                raise AssertionError(
+                    f"int8_matmul {name} M={m}: differs from the exact "
+                    f"int8 product")
+            err = rel_err(got, x.float() @ w_deq)
+            if not err <= INT8_TOL:
+                raise AssertionError(f"int8_matmul {name} M={m}: error "
+                                     f"{err:.3e} > {INT8_TOL:.0e}")
+            worst = max(worst, err)
+    print(f"  int8_matmul at M in {INT8_ROWS}: bit for bit equal to the "
+          f"exact int8 product; largest relative error against x @ "
+          f"dequant(w) {worst:.3e} (limit {INT8_TOL:.0e})", flush=True)
+
+
+def phase_quant_kernels(Q):
+    """K7 and K8 against their plain versions at the serving configuration's
+    shapes, and their device times; returns the kernels-line figures."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    least_fault = math.inf
+    path_err = 0.0
+    per_call = {}
+    for name, k, n, per_step in K7_SHAPES:
+        w = torch.randn(k, n, generator=gen, device=dev) * k ** -0.5
+        p, s = Q.quantize_int4(w, group_size=Q.int4_group_size(k))
+        faulty = s.clone()
+        faulty[1] = 0.0  # the planted fault: group 1's scale row dropped
+        path_out = torch.float32 if name == "logits" else torch.bfloat16
+        for m in K7_ROWS:
+            combos = [(torch.bfloat16, torch.bfloat16),
+                      (torch.bfloat16, torch.float32)]
+            if m <= 64:
+                combos.append((torch.float32, torch.float32))
+            for xd, od in combos:
+                x = torch.randn(m, k, generator=gen, device=dev).to(xd)
+                got = Q.int4_matmul(x, p, s, out_dtype=od)
+                want = Q.int4_matmul_reference(x, p, s).to(od)
+                err = rel_err(got, want)
+                fault = rel_err(
+                    Q.int4_matmul_reference(x, p, faulty).to(od), want)
+                if not bool(torch.isfinite(got).all()) or not err <= K7_TOL[od]:
+                    raise AssertionError(
+                        f"int4_matmul {name} M={m} x {xd} out {od}: error "
+                        f"{err:.3e} > {K7_TOL[od]:.0e}")
+                if not fault > K7_TOL[od]:
+                    raise AssertionError(
+                        f"int4_matmul {name} M={m}: the planted fault reads "
+                        f"{fault:.3e}, within {K7_TOL[od]:.0e}")
+                worst[od] = max(worst[od], err)
+                least_fault = min(least_fault, fault)
+                if m == DECODE_B and xd == torch.bfloat16 and od == path_out:
+                    path_err = max(path_err, float(
+                        (got.float() - want.float()).abs().max()))
+        # device times at the decode batch, in the path's dtypes (the
+        # kernel and, under split-K, its second pass)
+        x = torch.randn(DECODE_B, k, generator=gen, device=dev).bfloat16()
+        ms = _kernel_ms(device_ms(
+            lambda: Q.int4_matmul(x, p, s, out_dtype=path_out), 50),
+            "int4_mm")
+        plain = sum(device_ms(lambda: Q.int4_matmul_reference(x, p, s).to(
+            path_out), 10).values())
+        w_deq = Q.dequantize_int4(p, s).t().contiguous()  # [N, K] bf16
+        lib = sum(device_ms(lambda: torch.nn.functional.linear(x, w_deq),
+                            50).values())
+        xl = torch.randn(K7_ROWS[-1], k, generator=gen, device=dev).bfloat16()
+        ms_large = _kernel_ms(device_ms(
+            lambda: Q.int4_matmul(xl, p, s, out_dtype=path_out), 5),
+            "int4_mm")
+        # the wrapper's whole call, host launch path included
+        events_ms = cuda_time_ms(
+            lambda: Q.int4_matmul(x, p, s, out_dtype=path_out), 200)
+        nbytes = (p.numel() + s.numel() * 4 + x.numel() * 2
+                  + DECODE_B * n * (4 if path_out == torch.float32 else 2))
+        by, fl = nbytes / PEAK_BYTES, 2 * DECODE_B * k * n / PEAK_FLOPS
+        per_call[name] = dict(k=k, n=n, per_step=per_step, ms=ms,
+                              plain_ms=plain, library_ms=lib,
+                              bound_ms=max(by, fl) * 1e3,
+                              bound_by="bytes" if by >= fl else "operations",
+                              ms_m3072=ms_large, events_ms=events_ms)
+        print(f"  int4_matmul {name:6} K={k} N={n}: M={DECODE_B} "
+              f"{ms * 1e3:7.2f} us, bound {max(by, fl) * 1e6:6.2f} us, plain "
+              f"{plain * 1e3:8.2f} us, F.linear on the dequantized bf16 "
+              f"weight {lib * 1e3:6.2f} us; M={K7_ROWS[-1]} "
+              f"{ms_large * 1e3:8.2f} us; the wrapper by CUDA events over "
+              f"back-to-back calls {events_ms * 1e3:.2f} us", flush=True)
+    print(f"  int4_matmul: largest relative error {worst[torch.float32]:.3e} "
+          f"(f32 out, limit {K7_TOL[torch.float32]:.0e}), "
+          f"{worst[torch.bfloat16]:.3e} (bf16 out, limit "
+          f"{K7_TOL[torch.bfloat16]:.0e}); smallest planted fault "
+          f"{least_fault:.3e}", flush=True)
+
+    def step_total(key):
+        return sum(c[key] * c["per_step"] for c in per_call.values())
+
+    bound_by = {c["bound_by"] for c in per_call.values()}
+    k7 = dict(max_abs_err=path_err, ms=step_total("ms"),
+              plain_ms=step_total("plain_ms"),
+              bound_ms=step_total("bound_ms"),
+              bound_by="bytes" if bound_by == {"bytes"} else "operations",
+              library_ms=step_total("library_ms"), per_call=per_call)
+    calls = sum(c["per_step"] for c in per_call.values())
+    print(f"  int4_matmul, one decode step's {calls} calls at "
+          f"B={DECODE_B}: {k7['ms'] * 1e3:.1f} "
+          f"us, bound {k7['bound_ms'] * 1e3:.1f} us, plain "
+          f"{k7['plain_ms'] * 1e3:.1f} us, F.linear {k7['library_ms'] * 1e3:.1f}"
+          f" us", flush=True)
+    check_int8_matmul(Q, gen)
+
+    # K8 is on no path of the port: this phase drives it directly, and its
+    # launch count is this drive's
+    reset_launch_counts()
+    driven = {}
+    for m, k in K8_SHAPES:
+        x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
+        driven[(m, k)] = (x, Q.quantize_int8_stochastic(x, seed=1))
+    anchor = torch.cat([torch.ones(512, 1, device=dev),
+                        torch.full((512, 127), 0.3, device=dev)], dim=1)
+    vals, scales = Q.quantize_int8_stochastic(anchor, seed=1)
+    launches = Q.quantize_int8_stochastic.launches
+    v = vals[:, 1:].cpu().numpy()
+    mean = float((v.astype(np.float32) * scales.cpu().numpy()).mean())
+    print(f"  quantize_int8_stochastic: payload 0.3 -> codes "
+          f"{sorted(set(np.unique(v).tolist()))}, mean {mean:.6f}")
+    if not set(np.unique(v).tolist()) <= {38, 39} or \
+            abs(mean - 0.3) > 0.005 * 0.3:
+        raise AssertionError("quantize_int8_stochastic is biased")
+    k8 = None
+    for (m, k), (x, (vals, scales)) in driven.items():
+        rv, rs = Q.quantize_int8_stochastic_reference(x, seed=1)
+        if not (torch.equal(vals, rv) and torch.equal(scales, rs)):
+            raise AssertionError(
+                f"quantize_int8_stochastic [{m}, {k}]: "
+                f"{int((vals != rv).sum())} values and "
+                f"{int((scales != rs).sum())} scales differ from the plain "
+                f"version")
+        ms = _kernel_ms(device_ms(
+            lambda: Q.quantize_int8_stochastic(x, seed=2), 20),
+            "quantize_int8_stochastic_kernel")
+        plain = sum(device_ms(lambda: Q.quantize_int8_stochastic_reference(
+            x, seed=2), 5).values())
+        bound = (m * k * 2 + m * k + m * 4) / PEAK_BYTES * 1e3
+        print(f"  quantize_int8_stochastic [{m}, {k}] bf16: bit for bit "
+              f"equal to the plain version; {ms * 1e3:.2f} us, bound "
+              f"{bound * 1e3:.2f} us (bytes), plain {plain * 1e3:.2f} us",
+              flush=True)
+        k8 = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bound,
+                  bound_by="bytes", library_ms=None, launches=launches,
+                  shape=[m, k])
+    return k7, k8
+
+
+class _RowMix(torch.nn.Module):
+    """A linear layer whose first ``split[0]`` rows (a prefilled prompt) go
+    through the float weight and the rest (decode steps) through
+    ``decode``, both in f32."""
+
+    def __init__(self, weight, decode, split):
+        super().__init__()
+        self.weight, self.decode, self.split = weight, decode, split
+
+    def forward(self, x):
+        rows = torch.arange(x.shape[-2], device=x.device)[:, None]
+        return torch.where(rows < self.split[0],
+                           torch.nn.functional.linear(x, self.weight),
+                           self.decode(x))
+
+
+def quantized_server_reference(model, Q, bits):
+    """``logits_of(tokens, n_prompt)`` -> [T, V] f32: a dense f32 forward
+    of what ModernBatchServer(quantize_bits=bits) computes for one
+    sequence: the prefilled rows (all prompt tokens but the last) through
+    the float weights, as the server's prefill; every later row through
+    each decode matmul's quantized weight (int4: x times its round trip;
+    int8: int8_matmul, which also quantizes x per row), and the logits
+    likewise through the tied logits matrix."""
+    dense = copy.deepcopy(model).float()
+    split = [0]
+
+    def decode_matmul(wt):  # wt [in, out] f32, as the server packs it
+        if bits == 8:
+            q, s = Q.quantize_int8(wt, axis=0)
+            return lambda x: Q.int8_matmul(x, q, s)
+        p, s = Q.quantize_int4(wt, group_size=Q.int4_group_size(wt.shape[0]))
+        deq = Q.dequantize_int4(p, s, dtype=torch.float32)
+        return lambda x: x @ deq
+
+    with torch.no_grad():
+        for blk in dense.blocks:
+            for owner, name in ((blk, "w_q"), (blk, "w_k"), (blk, "w_v"),
+                                (blk, "w_o"), (blk.mlp, "w1"),
+                                (blk.mlp, "w3"), (blk.mlp, "w2")):
+                w = getattr(owner, name).weight.detach()
+                setattr(owner, name, _RowMix(w, decode_matmul(w.T), split))
+        logits = decode_matmul(dense.output_weight.detach().T)  # [D, V]
+
+    def logits_of(tokens, n_prompt):
+        split[0] = n_prompt - 1
+        return logits(dense.hidden(tokens)[0])
+
+    return logits_of
+
+
+def phase_quant_serving(model, models, Q, paged_attention, decode_bf16):
+    """Quantized serving at full width through ServingEngine: int4 (greedy
+    tokens against the dequantized dense model), int4 with an fp8 KV pool,
+    int8 (greedy tokens against a dense forward through int8_matmul); the
+    steady decode of each beside bf16."""
+    per_step = 5 * BLOCKS + 1  # K7 calls per decode step
+    server = models.ModernBatchServer(model, page_size=PAGE,
+                                      total_pages=TOTAL_PAGES,
+                                      quantize_bits=4)
+    prompts, results, greedy, steps = serve_requests(models, server)
+    k7_launches = Q.int4_matmul.launches
+    check_launches("int4_matmul", k7_launches, per_step * steps)
+    check_launches("paged_attention", paged_attention.launches,
+                   BLOCKS * steps)
+    check_greedy(quantized_server_reference(model, Q, 4), prompts, results,
+                 greedy, QMARGIN)
+    torch.cuda.empty_cache()
+    decode = {"bf16": decode_bf16,
+              "int4": steady_decode(models, server, "int4")}
+    del server
+
+    server = models.ModernBatchServer(model, page_size=PAGE,
+                                      total_pages=TOTAL_PAGES,
+                                      quantize_bits=4,
+                                      kv_dtype=torch.float8_e4m3fn)
+    prompts8, results8, greedy8, steps8 = serve_requests(models, server)
+    check_launches("int4_matmul (fp8 KV)", Q.int4_matmul.launches,
+                   per_step * steps8)
+    fp8_launches = paged_attention.launches
+    check_launches("paged_attention (fp8 KV)", fp8_launches, BLOCKS * steps8)
+    same = total = 0
+    for rid in greedy:
+        a, b = results[rid], results8[rid]
+        same += sum(x == y for x, y in zip(a, b))
+        total += len(a)
+        first = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                     None)
+        print(f"  {rid}: fp8 KV greedy tokens first differ from the bf16 "
+              f"KV run at {first}")
+    print(f"  greedy agreement, fp8 KV against bf16 KV (int4 weights): "
+          f"{same} of {total} positions")
+    decode["int4+fp8"] = steady_decode(models, server, "int4 + fp8 KV")
+    del server
+
+    server = models.ModernBatchServer(model, page_size=PAGE,
+                                      total_pages=TOTAL_PAGES,
+                                      quantize_bits=8)
+    prompts, results, greedy, steps = serve_requests(models, server)
+    if Q.int4_matmul.launches:
+        raise AssertionError("the int8 server launched the int4 kernel")
+    check_launches("paged_attention (int8)", paged_attention.launches,
+                   BLOCKS * steps)
+    check_greedy(quantized_server_reference(model, Q, 8), prompts, results,
+                 greedy, QMARGIN8, least=8)
+    torch.cuda.empty_cache()
+    decode["int8"] = steady_decode(models, server, "int8")
+    del server
+    for what in ("bf16", "int8", "int4", "int4+fp8"):
+        d = decode[what]
+        print(f"  steady decode {what:9}: {d['tok_s']:.1f} tok/s; profiled "
+              f"step {d['device_us_per_step']:.1f} us of device time, "
+              f"{d['device_ops_per_step']:.1f} device ops", flush=True)
+    return k7_launches, fp8_launches, decode
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -744,24 +1156,37 @@ def main() -> int:
     print(f"  kernels built and loaded in {time.perf_counter() - t0:.1f} s",
           flush=True)
 
-    print("phase 2: paged_attention kernel vs plain", flush=True)
+    from lamp_tpu_torch.ops import quantization as Q
+
+    print("phase 2: paged_attention kernel vs plain (bf16 and fp8 pools)",
+          flush=True)
     paged = phase_kernel(paged_attention, paged_attention_reference)
     print("phase 3: serving slice at full width", flush=True)
-    paged["launches"] = phase_serving(torch_nn, models, paged_attention)
+    model = make_serving_model(torch_nn)
+    paged["bf16"]["launches"], decode_bf16 = phase_serving(
+        model, models, paged_attention)
     print("phase 4: flash attention kernels vs plain", flush=True)
     flash = phase_flash(att)
     print("phase 5: training slice at full width", flush=True)
     fwd_launches, bwd_launches = phase_train(torch_nn, optim, train, att)
+    print("phase 6: int4 matmul and stochastic int8 kernels vs plain",
+          flush=True)
+    k7, k8 = phase_quant_kernels(Q)
+    print("phase 7: quantized serving at full width", flush=True)
+    k7["launches"], paged["fp8"]["launches"], _ = phase_quant_serving(
+        model, models, Q, paged_attention, decode_bf16)
 
-    rows = [dict(name="paged_attention", route="cuda",
-                 source="lamp_tpu_torch/csrc/paged_attention.cu",
-                 replaces="lamp_tpu/ops/paged_attention.py:151", **paged)]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    paged_src = dict(route="cuda",
+                     source="lamp_tpu_torch/csrc/paged_attention.cu",
+                     replaces="lamp_tpu/ops/paged_attention.py:151")
+    rows = [{k: r[k] for k in keys} for r in (
+        dict(name="paged_attention", **paged_src, **paged["bf16"]),
+        dict(name="paged_attention_fp8", **paged_src, **paged["fp8"]))]
     replaces = {"flash_attention_fwd": "lamp_tpu/ops/attention.py:87",
                 "flash_attention_bwd_dq": "lamp_tpu/ops/attention.py:297",
                 "flash_attention_bwd_dkv": "lamp_tpu/ops/attention.py:365"}
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    rows = [{k: r[k] for k in keys} for r in rows]
     for name, r in flash.items():
         row = dict(
             name=name, route="cuda",
@@ -779,12 +1204,27 @@ def main() -> int:
                 ms=bwd["ms"], bound_ms=bwd["bound"][0],
                 plain_ms=bwd["plain_ms"], library_ms=bwd["library_ms"])
         rows.append(row)
+    row = dict(name="int4_matmul", route="cuda",
+               source="lamp_tpu_torch/csrc/int4_matmul.cu",
+               replaces="lamp_tpu/ops/quantization.py:233", **k7)
+    row = {k: row[k] for k in keys}
+    row["note"] = ("ms, plain_ms, bound_ms and library_ms: the sum over one "
+                   "decode step's 61 calls at B=32 (library: F.linear on the "
+                   "dequantized bf16 weight); per_call: each shape")
+    row["per_call"] = k7["per_call"]
+    rows.append(row)
+    row = dict(name="quantize_int8_stochastic", route="cuda",
+               source="lamp_tpu_torch/csrc/quantize_int8.cu",
+               replaces="lamp_tpu/ops/quantization.py:123", **k8)
+    row = {k: row[k] for k in keys}
+    row["note"] = (f"on no path of the port: launches are phase 6's direct "
+                   f"drive; times at {k8['shape']} bf16")
+    rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(smi)
-    # the run used one card, whatever the machine holds
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}))
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -12,10 +12,12 @@ their tensors on the card unless asked for ``device="cpu"``.
 Ported so far: the paged-KV serving path (``models.ModernBatchServer``,
 ``models.ServingEngine``) over ``nn.ModernLM``, and GPT language-model
 training (``nn.LanguageModelModule``, ``optim.AdamW``,
-``train.make_train_step``) over the flash-attention kernels;
-``bridge.load_modern_lm``, ``bridge.load_language_model`` and
-``bridge.load_adamw_state`` carry a JAX model's weights and optimizer state
-across.
+``train.make_train_step``) over the flash-attention kernels, and quantized
+serving (``ModernBatchServer(quantize_bits=4|8, kv_dtype=fp8)`` over the
+int4 matmul kernel and fp8 KV pools; ``ops.quantize_model``);
+``bridge.load_modern_lm``, ``bridge.load_language_model``,
+``bridge.load_quantized_linear`` and ``bridge.load_adamw_state`` carry a JAX
+model's weights, quantized layers and optimizer state across.
 """
 
 from . import models, nn, ops, optim, train

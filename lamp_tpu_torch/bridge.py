@@ -22,8 +22,10 @@ from .nn.lm import LanguageModelModule
 from .nn.modern import LlamaBlock, ModernLM, RMSNorm, SwiGLU
 from .nn.transformer import (MultiheadAttention, TransformerEncoder,
                              TransformerEncoderBlock)
+from .ops.quantization import QuantizedLinear, QuantizedLinearInt4
 
-__all__ = ["load_modern_lm", "load_language_model", "load_adamw_state"]
+__all__ = ["load_modern_lm", "load_language_model", "load_adamw_state",
+           "load_quantized_linear"]
 
 _BLOCK_KEYS = ("norm1.weight", "norm2.weight", "w_q.weight", "w_k.weight",
                "w_v.weight", "w_o.weight", "mlp.w1.weight", "mlp.w3.weight",
@@ -168,6 +170,31 @@ def load_language_model(params: Dict[str, np.ndarray], *, num_heads: int,
         TransformerEncoder([block(i) for i in range(n_blocks)]),
         norm("final_norm"),
         context_length=params["position_embedding.weight"].shape[0])
+
+
+def load_quantized_linear(params: Dict[str, np.ndarray], *, device="cuda",
+                          dtype=torch.float32):
+    """Build a :class:`~lamp_tpu_torch.ops.QuantizedLinear` (from ``w_q``,
+    ``w_scale`` and an optional ``bias``) or a
+    :class:`~lamp_tpu_torch.ops.QuantizedLinearInt4` (from ``w_packed``,
+    ``w_scales`` and an optional ``bias``) out of the leaves of a
+    ``lamp_tpu`` quantized layer. The packed values and the scales keep
+    their bytes and their JAX layout [in, out] (no transpose); the bias is
+    cast to ``dtype``. Raises ``KeyError`` on a missing or an unexpected
+    key."""
+    bias = ({"bias"} if "bias" in params else set())
+    if "w_packed" in params:
+        _check_keys("QuantizedLinearInt4 parameters", params,
+                    {"w_packed", "w_scales"} | bias)
+        cls, names = QuantizedLinearInt4, ("w_packed", "w_scales")
+    else:
+        _check_keys("QuantizedLinear parameters", params,
+                    {"w_q", "w_scale"} | bias)
+        cls, names = QuantizedLinear, ("w_q", "w_scale")
+    values, scales = (torch.from_numpy(np.array(params[n])).to(device)
+                      for n in names)
+    return cls(values, scales.float(),
+               _tensor(params["bias"], dtype, device) if bias else None)
 
 
 def load_adamw_state(opt_state: Dict, optimizer, model) -> None:

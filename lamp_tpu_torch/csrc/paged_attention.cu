@@ -12,6 +12,13 @@
 // kv head) pair and scores every query head of the GQA group against each
 // row it loads.
 //
+// fp8 pools (float8_e4m3fn or float8_e5m2, with a bf16 or f32 q) halve those
+// bytes against bf16. The kernel is templated on the pool's type: K rows
+// come in by the same 16-byte loads (16 fp8 values each), V pairs by 2-byte
+// loads, and every value converts to f32 exactly (each fp8 value is exact in
+// bf16), which is the TPU kernel's upcast before its dots. q, the append
+// rows and the output stay in q's dtype.
+//
 // Layout (the JAX package's, unchanged):
 //   q          [B, H, D]
 //   K/V pool   row (page p, slot s, kv head g) at p*page_stride + s*F + g*D;
@@ -21,6 +28,8 @@
 //   windows    [B] int32 per-request limits (<= 0: none), or null
 //   new_k/new_v [B, F] current token's K/V (append mode), or null
 //   out        [B, H, D] in q's dtype
+//   (q, new_k, new_v and out share one dtype T; the pools have type KV,
+//   which is T or an fp8 type)
 //
 // Per block (grid = B x H_kv, 128 threads): walk keys from the first token of
 // the sliding-window band to lengths[b] in tiles of 128 tokens. Each tile:
@@ -40,6 +49,7 @@
 // pool sizes.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -65,6 +75,15 @@ __device__ __forceinline__ float2 load2(const float* p) {
 __device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
+// fp8 pools: every e4m3 and e5m2 value converts to f32 exactly
+__device__ __forceinline__ float to_float(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
+__device__ __forceinline__ float to_float(__nv_fp8_e5m2 x) { return static_cast<float>(x); }
+__device__ __forceinline__ float2 load2(const __nv_fp8_e4m3* p) {
+  return static_cast<float2>(*reinterpret_cast<const __nv_fp8x2_e4m3*>(p));
+}
+__device__ __forceinline__ float2 load2(const __nv_fp8_e5m2* p) {
+  return static_cast<float2>(*reinterpret_cast<const __nv_fp8x2_e5m2*>(p));
+}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -77,10 +96,10 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, int D>
+template <typename T, typename KV, int D>
 __global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const T* __restrict__ new_k,
+paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
+                       const KV* __restrict__ v, const T* __restrict__ new_k,
                        const T* __restrict__ new_v,
                        const int* __restrict__ page_table,
                        const int* __restrict__ lengths,
@@ -89,7 +108,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                        int pages_per_seq, long long page_stride,
                        long long page_offset, int static_window,
                        float sm_scale) {
-  constexpr int kVec = 16 / sizeof(T);      // elements per 16-byte load
+  constexpr int kVec = 16 / sizeof(KV);     // elements per 16-byte load
   constexpr int kPairs = D / 2;             // phase C: element pairs of a row
   constexpr int kSub = kThreads / kPairs;   // phase C: token subsets
 
@@ -146,7 +165,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int c = 0; c < D / kVec; ++c) {
         const uint4 raw = __ldg(kr + c);
-        const T* e = reinterpret_cast<const T*>(&raw);
+        const KV* e = reinterpret_cast<const KV*>(&raw);
 #pragma unroll
         for (int j = 0; j < kVec; ++j) {
           const float kf = to_float(e[j]);
@@ -251,7 +270,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, typename KV, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* new_k,
                    const void* new_v, const int* page_table, const int* lengths,
                    const int* windows, void* out, int batch, int num_heads,
@@ -259,8 +278,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* new_
                    long long page_stride, long long page_offset, int static_window,
                    float sm_scale, cudaStream_t stream) {
   dim3 grid(batch, num_kv_heads);
-  paged_attention_kernel<T, D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+  paged_attention_kernel<T, KV, D><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v),
       static_cast<const T*>(new_k), static_cast<const T*>(new_v), page_table, lengths,
       windows, static_cast<T*>(out), num_heads, num_kv_heads, page_size, pages_per_seq,
       page_stride, page_offset, static_window, sm_scale);
@@ -271,7 +290,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* new_
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, pools, new_k/new_v and out alike).
+// dtype: q's (and new_k/new_v's and out's): 0 = float32, 1 = bfloat16.
+// kv_dtype: the pools': 0 = float32, 1 = bfloat16 (each only with a q of the
+// same dtype), 2 = float8_e4m3fn, 3 = float8_e5m2 (with either q dtype).
 // Returns the cudaError_t of the launch; the caller raises on non-zero.
 int lamp_paged_attention(const void* q, const void* k, const void* v,
                          const void* new_k, const void* new_v, const void* page_table,
@@ -279,7 +300,7 @@ int lamp_paged_attention(const void* q, const void* k, const void* v,
                          int batch, int num_heads, int num_kv_heads, int head_dim,
                          int page_size, int pages_per_seq, long long page_stride,
                          long long page_offset, int static_window, float sm_scale,
-                         int dtype, void* stream) {
+                         int dtype, int kv_dtype, void* stream) {
   if (batch == 0) return cudaSuccess;
   if (num_kv_heads <= 0 || num_heads % num_kv_heads != 0 ||
       num_heads / num_kv_heads > kMaxQ)
@@ -288,14 +309,21 @@ int lamp_paged_attention(const void* q, const void* k, const void* v,
   const int* ln = static_cast<const int*>(lengths);
   const int* wn = static_cast<const int*>(windows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define LAMP_PA_LAUNCH(T, D)                                                       \
-  return launch<T, D>(q, k, v, new_k, new_v, pt, ln, wn, out, batch, num_heads,     \
-                      num_kv_heads, page_size, pages_per_seq, page_stride,         \
-                      page_offset, static_window, sm_scale, st)
-  if (dtype == 1 && head_dim == 64) LAMP_PA_LAUNCH(__nv_bfloat16, 64);
-  if (dtype == 1 && head_dim == 128) LAMP_PA_LAUNCH(__nv_bfloat16, 128);
-  if (dtype == 0 && head_dim == 64) LAMP_PA_LAUNCH(float, 64);
-  if (dtype == 0 && head_dim == 128) LAMP_PA_LAUNCH(float, 128);
+#define LAMP_PA_LAUNCH(T, KV, D)                                                   \
+  return launch<T, KV, D>(q, k, v, new_k, new_v, pt, ln, wn, out, batch, num_heads, \
+                          num_kv_heads, page_size, pages_per_seq, page_stride,     \
+                          page_offset, static_window, sm_scale, st)
+#define LAMP_PA_DIMS(T, KV)                          \
+  if (head_dim == 64) LAMP_PA_LAUNCH(T, KV, 64);     \
+  if (head_dim == 128) LAMP_PA_LAUNCH(T, KV, 128);   \
+  return cudaErrorInvalidValue
+  if (dtype == 1 && kv_dtype == 1) { LAMP_PA_DIMS(__nv_bfloat16, __nv_bfloat16); }
+  if (dtype == 0 && kv_dtype == 0) { LAMP_PA_DIMS(float, float); }
+  if (dtype == 1 && kv_dtype == 2) { LAMP_PA_DIMS(__nv_bfloat16, __nv_fp8_e4m3); }
+  if (dtype == 1 && kv_dtype == 3) { LAMP_PA_DIMS(__nv_bfloat16, __nv_fp8_e5m2); }
+  if (dtype == 0 && kv_dtype == 2) { LAMP_PA_DIMS(float, __nv_fp8_e4m3); }
+  if (dtype == 0 && kv_dtype == 3) { LAMP_PA_DIMS(float, __nv_fp8_e5m2); }
+#undef LAMP_PA_DIMS
 #undef LAMP_PA_LAUNCH
   return cudaErrorInvalidValue;
 }

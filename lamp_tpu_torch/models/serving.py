@@ -15,12 +15,20 @@ runs the model eagerly on that device; per layer, the hand-written paged
 attention kernel (:func:`~lamp_tpu_torch.ops.paged_attention`) attends over
 the pool plus the current token, and all layers' new K/V rows are written
 into the pool by one scatter after the layer loop. Prefill is a dense
-forward of the prompt with the plain attention.
+forward of the prompt with the plain attention and the float weights.
+
+Quantized serving: ``ModernBatchServer(model, quantize_bits=4)`` packs every
+decode matmul's weight (fused QKV, out-projection, the three SwiGLU
+matrices and the logits matrix) into int4 and multiplies by it with the
+hand-written int4 kernel (:func:`~lamp_tpu_torch.ops.int4_matmul`);
+``quantize_bits=8`` into per-channel int8 with ``torch._int_mm``.
+``kv_dtype=torch.float8_e4m3fn`` (or ``float8_e5m2``) stores the KV pool in
+fp8, which the paged-attention kernel reads directly.
 
 Not ported yet (each raises ``NotImplementedError`` when asked for): the
 GPT ``BatchServer`` model path, penalties, constrained decoding, LoRA
-adapters, ``n``/``best_of`` fan-out, the prefix cache, fp8 KV pools, weight
-quantization, tensor parallelism, chunked decode.
+adapters, ``n``/``best_of`` fan-out, the prefix cache, tensor parallelism,
+chunked decode.
 """
 
 from __future__ import annotations
@@ -34,6 +42,8 @@ import torch.nn.functional as F
 
 from ..ops.attention import mha_reference
 from ..ops.paged_attention import paged_attention
+from ..ops.quantization import (int4_group_size, int4_matmul, int8_matmul,
+                                quantize_int4, quantize_int8)
 from ..nn.modern import apply_rope
 from .sampling import NUCLEUS_CAND, SamplingParams, sample_tokens
 
@@ -80,8 +90,9 @@ class BatchServer:
                  total_pages: int = 512, temperature: float = 0.0,
                  seed: int = 0, quantize_bits: Optional[int] = None,
                  enable_prefix_cache: bool = False, kv_dtype=None):
-        if quantize_bits is not None:
-            raise NotImplementedError(f"quantize_bits={quantize_bits}")
+        if quantize_bits not in (None, 4, 8):
+            raise ValueError("quantize_bits must be None, 4 or 8")
+        self.quantize_bits = quantize_bits
         if enable_prefix_cache:
             raise NotImplementedError("enable_prefix_cache")
         self.model = model
@@ -91,9 +102,10 @@ class BatchServer:
         self.total_pages = total_pages
         self.max_pages_per_seq = (
             model.context_length + page_size - 1) // page_size
+        # kv_dtype=torch.float8_e4m3fn (or float8_e5m2) stores the pool in
+        # fp8: half the KV memory of bf16, and half the bytes the paged
+        # kernel reads; the pool write rounds each K/V row to fp8
         dt = model.token_embedding.weight.dtype if kv_dtype is None else kv_dtype
-        if dt in (torch.float8_e4m3fn, torch.float8_e5m2):
-            raise NotImplementedError(f"kv_dtype={dt}")
         self.kv_dtype = dt
         # ONE layer-stacked FUSED pool [L*P, 2, page, H_kv*D]: layer li owns
         # physical page rows [li*P, (li+1)*P); within a page, index 0 holds
@@ -428,20 +440,54 @@ class ModernBatchServer(BatchServer):
         # per-layer sliding windows: the kernel walks only each layer's band
         self._windows = tuple(b.window for b in model.blocks)
 
+    def _quantize_weight(self, w):
+        """Decode-path entry of a weight ``w`` [out, in]: ``w`` itself, or,
+        under ``quantize_bits``, a (values, scales) pair in the JAX layout of
+        its transpose [in, out]: nibble-packed int4 with per-group scales,
+        or int8 with per-channel scales."""
+        if not self.quantize_bits:
+            return w
+        wt = w.detach().T
+        if self.quantize_bits == 8:
+            return quantize_int8(wt, axis=0)
+        return quantize_int4(wt, group_size=int4_group_size(wt.shape[0]))
+
+    @staticmethod
+    def _mm(a, w, out_dtype=None):
+        """``a`` times a decode-path entry (see :meth:`_quantize_weight`):
+        a float [out, in] weight through ``F.linear`` (``a`` cast to its
+        dtype), or a packed pair through :func:`int4_matmul` or
+        :func:`int8_matmul`. The result is in ``out_dtype`` (default: the
+        product's)."""
+        if isinstance(w, tuple):
+            vals, scales = w
+            fn = int4_matmul if vals.dtype == torch.uint8 else int8_matmul
+            return fn(a, vals, scales, out_dtype=out_dtype)
+        y = F.linear(a.to(w.dtype), w)
+        return y if out_dtype is None else y.to(out_dtype)
+
     def _precompute_extras(self, model):
-        """Decode-path weights, [out, in] for ``F.linear``: fused per-layer
-        QKV, attention out-projection, the three SwiGLU matrices and the
-        logits matrix. The logits matrix is kept in f32 (a copy for bf16
-        models), so that logits accumulate and stay in f32 as the JAX
-        server's ``preferred_element_type`` does."""
+        """Decode-path weights: fused per-layer QKV, attention
+        out-projection, the three SwiGLU matrices and the logits matrix,
+        each through :meth:`_quantize_weight`. Unquantized, the logits
+        matrix is kept in f32 (a copy for bf16 models), so that logits
+        accumulate and stay in f32 as the JAX server's
+        ``preferred_element_type`` does; quantized, it is packed from the
+        float weight (the tied embedding's transpose [D, V]) and its
+        product written in f32."""
+        q = self._quantize_weight
         with torch.no_grad():
-            wqkv = tuple(torch.cat([blk.w_q.weight, blk.w_k.weight,
-                                    blk.w_v.weight]) for blk in model.blocks)
-        wo = tuple(blk.w_o.weight for blk in model.blocks)
-        w1 = tuple(blk.mlp.w1.weight for blk in model.blocks)
-        w3 = tuple(blk.mlp.w3.weight for blk in model.blocks)
-        w2 = tuple(blk.mlp.w2.weight for blk in model.blocks)
-        lmh = model.output_weight.detach().float()
+            wqkv = tuple(q(torch.cat([blk.w_q.weight, blk.w_k.weight,
+                                      blk.w_v.weight]))
+                         for blk in model.blocks)
+        wo = tuple(q(blk.w_o.weight) for blk in model.blocks)
+        w1 = tuple(q(blk.mlp.w1.weight) for blk in model.blocks)
+        w3 = tuple(q(blk.mlp.w3.weight) for blk in model.blocks)
+        w2 = tuple(q(blk.mlp.w2.weight) for blk in model.blocks)
+        if self.quantize_bits:
+            lmh = q(model.output_weight)
+        else:
+            lmh = model.output_weight.detach().float()
         return (wqkv, wo, w1, w3, w2, lmh)
 
     @torch.no_grad()
@@ -467,9 +513,10 @@ class ModernBatchServer(BatchServer):
 
         nq = self.heads * hd
         nkv = self.kv_heads * hd
+        mm = self._mm
         deferred_rows = []  # per-layer (k_rows, v_rows) written after loop
         for li, block in enumerate(model.blocks):
-            y = F.linear(block.norm1(x), wqkv[li])
+            y = mm(block.norm1(x), wqkv[li])
             q = rot(y[:, :nq].reshape(b, self.heads, hd))
             kk_f = rot(y[:, nq:nq + nkv].reshape(b, self.kv_heads, hd)
                        ).reshape(b, nkv)
@@ -484,13 +531,12 @@ class ModernBatchServer(BatchServer):
                 append_kv=(kk_f, vv_f),
                 page_offset=li * self.total_pages,
             )
-            x = x + F.linear(o.reshape(b, nq), wo[li])
+            x = x + mm(o.reshape(b, nq), wo[li])
             h = block.norm2(x)
-            x = x + F.linear(F.silu(F.linear(h, w1[li])) * F.linear(h, w3[li]),
-                             w2[li])
+            x = x + mm(F.silu(mm(h, w1[li])) * mm(h, w3[li]), w2[li])
         _kv_write_stacked(self.kv_pages, self.total_pages, token_pages,
                           token_slots, deferred_rows)
-        return F.linear(model.final_norm(x).float(), lmh)
+        return mm(model.final_norm(x), lmh, out_dtype=torch.float32)
 
     @torch.no_grad()
     def _prefill_seq(self, tokens, token_pages, token_slots, req_window=None):

@@ -293,4 +293,7 @@ class ModernLM(nn.Module):
         """Logits [B, T, V] in at least f32."""
         x = self.hidden(tokens, positions=positions, segment_ids=segment_ids)
         acc = torch.promote_types(x.dtype, torch.float32)
-        return F.linear(x.to(acc), self.output_weight.to(acc))
+        if self.lm_head is not None:
+            # the head module itself (it may be quantized), as the JAX model
+            return self.lm_head(x).to(acc)
+        return F.linear(x.to(acc), self.token_embedding.weight.to(acc))

@@ -96,7 +96,8 @@ def library() -> ctypes.CDLL:
     lib.lamp_paged_attention.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # tensors
         i32, i32, i32, i32, i32, i32,                 # batch .. pages_per_seq
-        i64, i64, i32, ctypes.c_float, i32, ptr,      # strides .. stream
+        i64, i64, i32, ctypes.c_float, i32, i32,      # strides .. kv dtype
+        ptr,                                          # stream
     ]
     lib.lamp_paged_attention.restype = i32
     # flash attention: tensors, then bh, heads, sq, skv, head_dim, the two
@@ -108,6 +109,14 @@ def library() -> ctypes.CDLL:
     for fn in (lib.lamp_flash_attention_fwd, lib.lamp_flash_attention_bwd_dq,
                lib.lamp_flash_attention_bwd_dkv):
         fn.restype = i32
+    # int4 matmul: x, packed, scales, out, then m, k, n, group, the x and
+    # out dtypes, the K-splits, the split workspace and the stream
+    lib.lamp_int4_matmul.argtypes = [ptr] * 4 + [i32] * 7 + [ptr, ptr]
+    lib.lamp_int4_matmul.restype = i32
+    # stochastic int8 quantizer: x, values, scales, m, k, seed, dtype, stream
+    lib.lamp_quantize_int8_stochastic.argtypes = [
+        ptr, ptr, ptr, i32, i32, ctypes.c_uint, i32, ptr]
+    lib.lamp_quantize_int8_stochastic.restype = i32
     lib.lamp_cuda_error_string.argtypes = [i32]
     lib.lamp_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -37,7 +37,11 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 _NO_WINDOW = 0x3FFFFFFF
 
 _FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+# the kernel's codes: q (and its output) in f32 or bf16; pools of q's dtype
+# or of either fp8 type
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2,
+                torch.float8_e5m2: 3}
 
 
 def _effective_window(window, windows, b, device=None):
@@ -117,12 +121,12 @@ def paged_attention_reference(q, k_pages, v_pages, page_indices, lengths, *,
 def _check_cuda(q, pools, page_indices, lengths, windows, append_kv):
     """Raise on anything the CUDA kernel does not take."""
     pool = pools[0]
-    if pool.dtype in _FP8:
-        raise NotImplementedError("paged_attention: fp8 KV pools on CUDA")
-    if q.dtype not in _KERNEL_DTYPES or pool.dtype != q.dtype:
+    if q.dtype not in _KERNEL_DTYPES or (
+            pool.dtype != q.dtype and pool.dtype not in _FP8):
         raise TypeError(
-            f"paged_attention kernel takes float32 or bfloat16 q and pool of "
-            f"one dtype, got {q.dtype} and {pool.dtype}")
+            f"paged_attention kernel takes float32 or bfloat16 q with a pool "
+            f"of one dtype with it or of an fp8 dtype, got {q.dtype} and "
+            f"{pool.dtype}")
     tensors = [q, *pools, page_indices, lengths]
     tensors += [] if windows is None else [windows]
     tensors += [] if append_kv is None else list(append_kv)
@@ -162,8 +166,10 @@ def paged_attention(q, k_pages, v_pages, page_indices, lengths, *,
     ``page_offset=li * P``. Rows with no valid key give 0.
 
     CPU tensors take :func:`paged_attention_reference`. CUDA tensors launch
-    the kernel (bf16 or f32, head_dim 64 or 128, up to 8 query heads per kv
-    head) or raise; each launch adds one to ``paged_attention.launches``.
+    the kernel (bf16 or f32 q with a pool of q's dtype, float8_e4m3fn or
+    float8_e5m2; head_dim 64 or 128; up to 8 query heads per kv head) or
+    raise; each launch adds one to ``paged_attention.launches``. fp8 pools
+    are upcast in the kernel; the append rows stay in q's dtype.
     """
     if window is not None:
         window = int(window)
@@ -208,8 +214,9 @@ def paged_attention(q, k_pages, v_pages, page_indices, lengths, *,
             f"paged_attention kernel: head_dim {d} (takes 64 or 128), "
             f"{h // num_kv_heads} query heads per kv head (takes <= 8)")
     # csrc/paged_attention.cu replaces lamp_tpu's _paged_kernel. It is bound
-    # by K/V bytes read (B x live tokens x 2 x F x 2 B per layer in bf16)
-    # and reads each K/V row once per kv head, not once per query head.
+    # by K/V bytes read (B x live tokens x 2 x F x 2 B per layer in bf16,
+    # 1 B in fp8) and reads each K/V row once per kv head, not once per
+    # query head.
     from ._build import library
 
     lib = library()
@@ -231,7 +238,7 @@ def paged_attention(q, k_pages, v_pages, page_indices, lengths, *,
         lengths.data_ptr(), None if windows is None else windows.data_ptr(),
         out.data_ptr(), b, h, num_kv_heads, d, page, page_indices.shape[1],
         page_stride, int(page_offset), 0 if window is None else window,
-        float(sm_scale), _KERNEL_DTYPES[q.dtype],
+        float(sm_scale), _KERNEL_DTYPES[q.dtype], _POOL_DTYPES[k_pages.dtype],
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:

@@ -4,7 +4,7 @@ The same numpy inputs go through the JAX Pallas kernel (interpret mode on
 CPU, as tests/test_paged_attention.py runs it) and through the port's
 wrapper on CPU tensors (its plain PyTorch version), in f32.
 Tolerance: atol 1e-5 (f32 on both sides; the two differ only in the order
-of the softmax sums). The fp8-pool case holds the port against the JAX
+of the softmax sums). The fp8-pool cases hold the port against the JAX
 plain reference at atol 1e-4.
 """
 
@@ -101,15 +101,24 @@ def test_paged_attention_fp8_pool_matches_jax_reference():
     """fp8 (e4m3) pools on the CPU path: dequantized after the gather, as
     the JAX reference does. Both sides see the same fp8 values; atol 1e-4
     covers the f32 sums of values up to 448."""
+    _fp8_pool_case("float8_e4m3fn")
+
+
+def test_paged_attention_fp8_e5m2_pool_matches_jax_reference():
+    """The same for e5m2 pools, the other fp8 type the kernel takes."""
+    _fp8_pool_case("float8_e5m2")
+
+
+def _fp8_pool_case(f8):
     q, k, _, table, new, _ = _inputs(4, 2, "fused", seed=1)
-    k8 = k.astype(ml_dtypes.float8_e4m3fn)
+    k8 = k.astype(getattr(ml_dtypes, f8))
     want = jax_reference(
         jnp.asarray(q), jnp.asarray(k8), None, jnp.asarray(table),
         jnp.asarray(LENGTHS), num_kv_heads=2, window=6,
         append_kv=tuple(jnp.asarray(a) for a in new))
     got = paged_attention(
         torch.from_numpy(q),
-        torch.from_numpy(k8.astype(np.float32)).to(torch.float8_e4m3fn), None,
+        torch.from_numpy(k8.astype(np.float32)).to(getattr(torch, f8)), None,
         torch.from_numpy(table), torch.from_numpy(LENGTHS), num_kv_heads=2,
         window=6, append_kv=tuple(torch.from_numpy(a) for a in new))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
@@ -165,9 +174,13 @@ def test_kernel_input_checks_raise():
     q, k, v, table = map(torch.from_numpy, (q, k, v, table))
     lengths = torch.from_numpy(LENGTHS)
     _check_cuda(q, [k, v], table, lengths, None, None)  # accepted
-    with pytest.raises(NotImplementedError, match="fp8"):
-        _check_cuda(q, [k.to(torch.float8_e4m3fn)], table, lengths, None,
-                    None)
+    for f8 in (torch.float8_e4m3fn, torch.float8_e5m2):  # fp8 pools too
+        _check_cuda(q.to(torch.bfloat16), [k.to(f8), v.to(f8)], table,
+                    lengths, None, None)
+        _check_cuda(q, [k.to(f8)], table, lengths, None, None)
+    with pytest.raises(TypeError, match="fp8"):
+        _check_cuda(q.to(torch.float16), [k.to(torch.float8_e4m3fn)], table,
+                    lengths, None, None)
     with pytest.raises(TypeError, match="one dtype"):
         _check_cuda(q.to(torch.bfloat16), [k], table, lengths, None, None)
     with pytest.raises(TypeError, match="int32"):
