@@ -64,6 +64,25 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
    tokens against a dense f32 forward through int8_matmul), then the steady
    step_many(8) at B=32 of int8, int4 and int4 + fp8 KV beside phase 3's
    bf16 (tok/s, device time and device ops per step).
+8. The fused AdamW kernel (K4) against its plain version at all 220
+   parameter shapes of the flagship GPT (85,565,952 parameters, one launch)
+   and odd sizes, in bf16 with stochastic rounding, bf16 rounded to nearest
+   and f32: new p, m and v bit for bit; the unbiasedness check (2^20 bf16
+   parameters at 1.0, lr 1e-4: the mean within 5 sigma of 1 - 1e-4); timed
+   over the flagship's tensors beside its bound, its plain version and the
+   port's optim.AdamW step on the same tensors (no PyTorch call rounds
+   stochastically). The fused LayerNorm kernels (K5, on no path of the
+   port, driven here) at [3072, 768] and [8192, 768] (bf16 and f32, with
+   and without bias), [15, 256], [8, 100] and [40, 8192]: y, dx, dw and db
+   by relative Frobenius error, with a planted fault (one row tile's
+   partial dropped from dw) that each check must see; timed beside
+   F.layer_norm's forward and autograd backward.
+9. The K4 path at full width (bench.py's fused-optimizer number): phase 5's
+   flagship under AdamWStochastic(3e-4, weight_decay=0.01), bf16 without
+   masters: the timed steps (K4 one launch a step, K1/K2 12 x 5 a step),
+   finite losses, the loss falling on SURVEY.md's bytes, a profiled step,
+   and the step, optimizer device time and peak memory beside phase 5's
+   AdamW flagship.
 
 The last lines are one JSON line on the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -71,12 +90,14 @@ limit, and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -151,18 +172,54 @@ INT8_TOL = 2e-2
 QMARGIN8 = 0.25
 
 
-def reset_launch_counts():
-    """Every kernel wrapper's launch count to 0, just before a main path."""
+# phase 8: K4 is held bit for bit (p, m and v) at every parameter shape of
+# the flagship and a few odd sizes, in bf16 stochastic, bf16 nearest and
+# f32; the flagship has 220 tensors, 85,565,952 parameters
+K4_FLAGSHIP = (220, 85_565_952)
+K4_ODD = ((65,), (131073,), (3, 5, 7))
+# K5 against its plain version (in f32 on the same inputs, then rounded to
+# the output's dtype) by relative Frobenius error of y, dx, dw and db. f32:
+# the two differ in summation order only (the row statistics, and dw, db
+# over thousands of rows, ~1e-6 at most); bf16 outputs: each rounds its f32
+# result once, so they differ by one bf16 step where the two orders
+# straddle a rounding boundary, in a few elements. A planted fault (the
+# plain dw with one row tile's partial dropped) must read above the limit
+# in every check.
+K5_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
+K5_SHAPES = ((3072, 768), (8192, 768))  # B.T of a flagship micro-batch
+K5_SMALL = ((15, 256), (8, 100), (40, 8192))
+
+
+def _counted():
+    """(name, wrapper, attribute) of every kernel launch counter."""
+    from lamp_tpu_torch.ops import fused_layernorm as FL
     from lamp_tpu_torch.ops.attention import flash_attention
+    from lamp_tpu_torch.ops.fused_adamw import fused_adamw_update
     from lamp_tpu_torch.ops.paged_attention import paged_attention
     from lamp_tpu_torch.ops.quantization import (int4_matmul,
                                                  quantize_int8_stochastic)
 
-    paged_attention.launches = 0
-    flash_attention.launches = 0
-    flash_attention.backward_launches = 0
-    int4_matmul.launches = 0
-    quantize_int8_stochastic.launches = 0
+    return (("paged_attention", paged_attention, "launches"),
+            ("flash_attention", flash_attention, "launches"),
+            ("flash_attention_backward", flash_attention,
+             "backward_launches"),
+            ("int4_matmul", int4_matmul, "launches"),
+            ("quantize_int8_stochastic", quantize_int8_stochastic,
+             "launches"),
+            ("fused_adamw", fused_adamw_update, "launches"),
+            ("fused_layernorm_fwd", FL.fused_layernorm, "launches"),
+            ("fused_layernorm_bwd", FL.fused_layernorm, "backward_launches"))
+
+
+def reset_launch_counts():
+    """Every kernel wrapper's launch count to 0, just before a main path."""
+    for _, wrapper, attr in _counted():
+        setattr(wrapper, attr, 0)
+
+
+def launch_counts():
+    """Every kernel wrapper's launch count, by name."""
+    return {name: getattr(wrapper, attr) for name, wrapper, attr in _counted()}
 
 
 def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
@@ -328,16 +385,12 @@ def profile_step(server):
     of the wall time (a lower bound: tracing slows the host) and the
     kernels that take the most device time. Returns (device time us,
     device ops) of the call."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with traced() as trace:
         t0 = time.perf_counter()
         server.step_many(8)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    device = sorted(device_events(prof),
+    device = sorted(trace.events,
                     key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in device)
     ops = sum(e.count for e in device)
@@ -470,27 +523,49 @@ def phase_serving(model, models, paged_attention):
     return launches, steady_decode(models, server, "bf16")
 
 
-def device_ms(fn, n: int, warmup: int = 2):
-    """Device time per call of ``fn()``, by kernel name, from
-    torch.profiler over ``n`` calls: ``{kernel: ms}``. A trace that
-    recorded no device activity (seen once in ten runs on the H100) is
-    taken again, up to three times."""
+@contextlib.contextmanager
+def traced():
+    """torch.profiler (host and device) over the block, each end padded
+    with 50 ms of idle host time; yields an object whose ``events`` are
+    then the block's device rows (kernel name, ``self_device_time_total``
+    in us, ``count`` of launches). On the H100 machine, traces without the
+    padding and without device_ms's count rule read K6-fp8 at a fifth of
+    its time and K4 below its bound."""
     from torch.profiler import ProfilerActivity, profile
 
+    trace = types.SimpleNamespace(events=[])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        yield trace
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    trace.events = device_events(prof)
+
+
+def device_ms(fn, n: int, warmup: int = 2):
+    """Device time per call of ``fn()``, by kernel name, from
+    torch.profiler over ``n`` calls: ``{kernel: ms}``. The H100 machine's
+    traces lose kernel records (a kernel launched once a call read 46-49
+    launches of 50, and as few as 2 of 5) and carry strays from other
+    traces, so each kernel counts as its mean time a launch times its
+    launches a call: its count over ``n``, rounded, at least one (a stray
+    counts once). A trace with no device time is taken again, up to three
+    times."""
     for _ in range(warmup):
         fn()
+    times = {}
     for attempt in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with traced() as trace:
             for _ in range(n):
                 fn()
-            torch.cuda.synchronize()
-        times = {e.key: e.self_device_time_total / n / 1e3
-                 for e in device_events(prof) if e.self_device_time_total > 0}
+        times = {e.key: e.self_device_time_total / e.count
+                 * max(1, round(e.count / n)) / 1e3
+                 for e in trace.events if e.self_device_time_total > 0}
         if times:
             return times
-        print(f"  the profiler recorded no device time (attempt "
+        print(f"  the profiler's trace held no device time (attempt "
               f"{attempt + 1}); tracing again", flush=True)
     return times
 
@@ -723,17 +798,14 @@ def phase_flash(att):
 def profile_train_step(step, state, batch):
     """torch.profiler over one train step: device busy share of the wall
     time, the top kernels, and the check that attention ran in the port's
-    kernels and in no library attention kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    kernels and in no library attention kernel. Returns the names of the
+    kernels that ran, joined."""
+    with traced() as trace:
         t0 = time.perf_counter()
         step(state, batch)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    device = sorted(device_events(prof),
+    device = sorted(trace.events,
                     key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in device)
     print(f"  profile of one step: {wall_us:.0f} us wall, device busy "
@@ -751,100 +823,132 @@ def profile_train_step(step, state, batch):
                     "cudnn"):
         if library in names:
             raise AssertionError(f"a library attention kernel ran: {library}")
+    return names
+
+
+def optimizer_device_ms(opt):
+    """Device time (ms) of one ``opt.step()`` on the gradients it holds,
+    by profiler over 20 calls (each updates the parameters again)."""
+    times = device_ms(lambda: opt.step(), 20, warmup=1)
+    if not times:
+        raise AssertionError(f"no device time for {type(opt).__name__}.step")
+    return sum(times.values())
+
+
+def train_config(torch_nn, train, att, name, ctx, batch, accum, make_opt):
+    """One training configuration at full width: 2 warm-up steps, 5 timed
+    steps (CUDA events) whose launch counts are returned, 10 steps on one
+    batch of SURVEY.md's bytes (the loss must fall), one profiled step and
+    the optimizer's device time. ``make_opt(model)`` builds the
+    optimizer."""
+    dev = torch.device("cuda")
+    text = np.frombuffer((Path(__file__).resolve().parent / "SURVEY.md")
+                         .read_bytes(), np.uint8)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = torch_nn.LanguageModelModule.init(
+        vocab_size=LM_VOCAB, context_length=ctx, num_blocks=LM_BLOCKS,
+        embed_dim=LM_DIM, attention_heads=LM_HEADS, generator=gen,
+        dtype=torch.bfloat16, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = make_opt(model)
+
+    def loss_fn(m, b, generator, train_mode):
+        tokens, target = b
+        logits = m(tokens, train=train_mode, generator=generator)
+        return torch_nn.lm_loss(logits, target), tokens.shape[0]
+
+    state = train.TrainState.init(model, opt)
+    step = train.make_train_step(opt, loss_fn, accumulation_steps=accum)
+    shape = (accum, batch, ctx) if accum > 1 else (batch, ctx)
+    rng = np.random.RandomState(0)
+    tokens = torch.as_tensor(rng.randint(0, LM_VOCAB, shape), device=dev)
+    data = (tokens, torch.roll(tokens, -1, dims=-1))
+    losses = []
+    for _ in range(2):
+        losses.append(step(state, data)[1][0])
+    # the main path's run: the launch counts cover exactly these steps
+    reset_launch_counts()
+    steps = 5
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(steps):
+        losses.append(step(state, data)[1][0])
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / steps
+    launches = launch_counts()
+    want = LM_BLOCKS * accum * steps
+    got = (launches["flash_attention"],
+           launches["flash_attention_backward"])
+    if got != (want, want):
+        raise AssertionError(f"{name}: launches {got}, want {want} each")
+    if not bool(torch.isfinite(torch.stack(losses)).all()):
+        raise AssertionError(f"{name}: a loss is not finite: {losses}")
+    tok_s = accum * batch * ctx / (ms * 1e-3)
+    flops_tok = 6 * n_params + 12 * LM_BLOCKS * LM_DIM * ctx
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  {name}: ctx {ctx}, batch {batch} x {accum}, {n_params} "
+          f"params, {type(opt).__name__}: {ms:.2f} ms/step, {tok_s:.1f} "
+          f"train tok/s, {flops_tok / 1e6:.1f} MFLOP/token, "
+          f"{100 * tok_s * flops_tok / PEAK_FLOPS:.2f}% of 989 TFLOP/s; "
+          f"launches fwd {got[0]} bwd {got[1]} (12 x {accum} x {steps}); "
+          f"peak memory {peak:.2f} GiB", flush=True)
+    # one fixed batch of the repository's own text: the loss must fall
+    need = int(np.prod(shape)) + 1
+    chunk = np.resize(text, need).astype(np.int64)
+    fixed = torch.as_tensor(chunk[:-1].reshape(shape), device=dev)
+    fixed_target = torch.as_tensor(chunk[1:].reshape(shape), device=dev)
+    text_losses = [step(state, (fixed, fixed_target))[1][0]
+                   for _ in range(10)]
+    first, last = float(text_losses[0]), float(text_losses[-1])
+    print(f"  {name}: 10 steps on SURVEY.md bytes: loss {first:.4f} -> "
+          f"{last:.4f}", flush=True)
+    if not last < first:
+        raise AssertionError(f"{name}: loss did not fall on fixed text")
+    names = profile_train_step(step, state, data)
+    opt_ms = optimizer_device_ms(opt)
+    print(f"  {name}: one {type(opt).__name__} step {opt_ms * 1e3:.1f} us "
+          f"of device time", flush=True)
+    del model, opt, state
+    return dict(ms=ms, tok_s=tok_s, peak_gib=peak, launches=launches,
+                optimizer_ms=opt_ms, n_params=n_params, kernels=names)
 
 
 def phase_train(torch_nn, optim, train, att):
     """Both training configurations at full width; returns the kernels'
-    launches over the timed steps."""
+    launches over the timed steps and the flagship's figures."""
     from lamp_tpu_torch.nn.module import param_tags
 
-    dev = torch.device("cuda")
-    text = np.frombuffer((Path(__file__).resolve().parent / "SURVEY.md")
-                         .read_bytes(), np.uint8)
     launches = backward_launches = 0
+    flagship = None
     for name, ctx, batch, accum in TRAIN_CONFIGS:
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        gen = torch.Generator(device=dev).manual_seed(0)
-        model = torch_nn.LanguageModelModule.init(
-            vocab_size=LM_VOCAB, context_length=ctx, num_blocks=LM_BLOCKS,
-            embed_dim=LM_DIM, attention_heads=LM_HEADS, generator=gen,
-            dtype=torch.bfloat16, device=dev)
-        n_params = sum(p.numel() for p in model.parameters())
         if accum > 1:  # the example's optimizer (autoregressivelm.py:93-107)
-            opt = optim.AdamW(
-                model.named_parameters(), 3e-4, beta2=0.95, clip=1.0,
-                weight_decay=lambda tag: 0.0 if (
-                    "bias" in tag or "LayerNorm" in tag or "scale" in tag
-                    or "Embedding" in tag) else 0.01,
-                tags=param_tags(model))
+            def make_opt(model):
+                return optim.AdamW(
+                    model.named_parameters(), 3e-4, beta2=0.95, clip=1.0,
+                    weight_decay=lambda tag: 0.0 if (
+                        "bias" in tag or "LayerNorm" in tag or "scale" in tag
+                        or "Embedding" in tag) else 0.01,
+                    tags=param_tags(model))
         else:  # bench.py:230
-            opt = optim.AdamW(model.named_parameters(), 3e-4,
-                              weight_decay=0.01)
-
-        def loss_fn(m, b, generator, train_mode):
-            tokens, target = b
-            logits = m(tokens, train=train_mode, generator=generator)
-            return torch_nn.lm_loss(logits, target), tokens.shape[0]
-
-        state = train.TrainState.init(model, opt)
-        step = train.make_train_step(opt, loss_fn, accumulation_steps=accum)
-        shape = (accum, batch, ctx) if accum > 1 else (batch, ctx)
-        rng = np.random.RandomState(0)
-        tokens = torch.as_tensor(rng.randint(0, LM_VOCAB, shape), device=dev)
-        data = (tokens, torch.roll(tokens, -1, dims=-1))
-        losses = []
-        for _ in range(2):
-            losses.append(step(state, data)[1][0])
-        # the main path's run: the launch counts cover exactly these steps
-        reset_launch_counts()
-        steps = 5
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(steps):
-            losses.append(step(state, data)[1][0])
-        end.record()
-        torch.cuda.synchronize()
-        ms = start.elapsed_time(end) / steps
-        want = LM_BLOCKS * accum * steps
-        got = (att.flash_attention.launches,
-               att.flash_attention.backward_launches)
-        launches += got[0]
-        backward_launches += got[1]
-        if got != (want, want):
-            raise AssertionError(f"{name}: launches {got}, want {want} each")
-        if not bool(torch.isfinite(torch.stack(losses)).all()):
-            raise AssertionError(f"{name}: a loss is not finite: {losses}")
-        tok_s = accum * batch * ctx / (ms * 1e-3)
-        flops_tok = 6 * n_params + 12 * LM_BLOCKS * LM_DIM * ctx
-        print(f"  {name}: ctx {ctx}, batch {batch} x {accum}, {n_params} "
-              f"params: {ms:.2f} ms/step, {tok_s:.1f} train tok/s, "
-              f"{flops_tok / 1e6:.1f} MFLOP/token, "
-              f"{100 * tok_s * flops_tok / PEAK_FLOPS:.2f}% of 989 TFLOP/s; "
-              f"launches fwd {got[0]} bwd {got[1]} (12 x {accum} x {steps}); "
-              f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-              f"GiB", flush=True)
-        # one fixed batch of the repository's own text: the loss must fall
-        need = int(np.prod(shape)) + 1
-        chunk = np.resize(text, need).astype(np.int64)
-        fixed = torch.as_tensor(chunk[:-1].reshape(shape), device=dev)
-        fixed_target = torch.as_tensor(chunk[1:].reshape(shape), device=dev)
-        text_losses = [step(state, (fixed, fixed_target))[1][0]
-                       for _ in range(10)]
-        first, last = float(text_losses[0]), float(text_losses[-1])
-        print(f"  {name}: 10 steps on SURVEY.md bytes: loss {first:.4f} -> "
-              f"{last:.4f}", flush=True)
-        if not last < first:
-            raise AssertionError(f"{name}: loss did not fall on fixed text")
-        profile_train_step(step, state, data)
-        del model, opt, state
-    return launches, backward_launches
+            def make_opt(model):
+                return optim.AdamW(model.named_parameters(), 3e-4,
+                                   weight_decay=0.01)
+        run = train_config(torch_nn, train, att, name, ctx, batch, accum,
+                           make_opt)
+        launches += run["launches"]["flash_attention"]
+        backward_launches += run["launches"]["flash_attention_backward"]
+        if name == "flagship":
+            flagship = run
+    return launches, backward_launches, flagship
 
 
 def rel_err(got, want):
     """||got - want|| / ||want|| in f32."""
-    got, want = got.float(), want.float()
+    got, want = got.detach().float(), want.detach().float()
     return float((got - want).norm() / want.norm())
 
 
@@ -1132,6 +1236,329 @@ def phase_quant_serving(model, models, Q, paged_attention, decode_bf16):
     return k7_launches, fp8_launches, decode
 
 
+def _bits(x):
+    """The bit pattern of a 2- or 4-byte float tensor, so that equality
+    is bit for bit (signed zeros, NaNs)."""
+    return x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+
+
+def flagship_shapes(torch_nn):
+    """The parameter shapes of the flagship GPT, in named_parameters()
+    order."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = torch_nn.LanguageModelModule.init(
+        vocab_size=LM_VOCAB, context_length=TRAIN_CONFIGS[0][1],
+        num_blocks=LM_BLOCKS, embed_dim=LM_DIM, attention_heads=LM_HEADS,
+        generator=gen, dtype=torch.bfloat16, device="cuda")
+    shapes = [tuple(p.shape) for p in model.parameters()]
+    del model
+    got = (len(shapes), sum(math.prod(s) for s in shapes))
+    if got != K4_FLAGSHIP:
+        raise AssertionError(f"flagship parameters {got}, want {K4_FLAGSHIP}")
+    return shapes
+
+
+def adamw_inputs(shapes, dtype, gen):
+    """Parameters, gradients and moments at ``shapes``, and a seed each."""
+    def randn(s, scale=1.0):
+        return torch.randn(s, generator=gen, device="cuda") * scale
+
+    return ([randn(s).to(dtype) for s in shapes],
+            [randn(s, 1e-2).to(dtype) for s in shapes],
+            [randn(s, 1e-3) for s in shapes],
+            [torch.rand(s, generator=gen, device="cuda") * 1e-5
+             for s in shapes],
+            [11 + i for i in range(len(shapes))])
+
+
+ADAMW_KW = dict(lr=3e-4, beta1=0.9, beta2=0.999, eps=1e-8, weight_decay=0.01)
+
+
+def check_adamw(FA, shapes, dtype, stochastic, gen):
+    """One K4 call over every tensor of ``shapes`` (grouped into launches
+    of up to 256) against the plain version on each tensor at step 7: new
+    p, m and v bit for bit. Returns the launches and the new p."""
+    ps, gs, ms, vs, seeds = adamw_inputs(shapes, dtype, gen)
+    pk, mk, vk = ([t.clone() for t in ts] for ts in (ps, ms, vs))
+    before = FA.fused_adamw_update.launches
+    FA._update_many(pk, gs, mk, vk, seeds, 7, stochastic=stochastic,
+                    **ADAMW_KW)
+    launched = FA.fused_adamw_update.launches - before
+    torch.cuda.synchronize()
+    differ = 0
+    for i in range(len(shapes)):
+        want = FA.fused_adamw_update_reference(
+            ps[i], gs[i], ms[i], vs[i], 7, stochastic=stochastic,
+            seed=seeds[i], **ADAMW_KW)
+        for got, w in zip((pk[i], mk[i], vk[i]), want):
+            differ += int((_bits(got) != _bits(w)).sum())
+    what = f"{str(dtype)[6:]} {'stochastic' if stochastic else 'nearest'}"
+    print(f"  fused_adamw {what:19}: {len(shapes)} tensors, "
+          f"{sum(p.numel() for p in ps)} parameters, {launched} launch(es): "
+          f"{differ} elements of p, m, v differ from the plain version",
+          flush=True)
+    if differ:
+        raise AssertionError(f"fused_adamw {what}: {differ} elements differ "
+                             f"from the plain version")
+    return launched, pk
+
+
+def phase_adamw_kernel(torch_nn, optim, FA):
+    """K4 against its plain version at the flagship's 220 parameter shapes
+    and odd sizes, bit for bit; the unbiasedness check; its device time
+    over the flagship's tensors beside its bound, its plain version and the
+    port's optim.AdamW step on the same tensors."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flag = flagship_shapes(torch_nn)
+    shapes = flag + list(K4_ODD)
+    _, sto = check_adamw(FA, shapes, torch.bfloat16, True, gen)
+    gen.manual_seed(0)
+    _, near = check_adamw(FA, shapes, torch.bfloat16, False, gen)
+    moved = sum(int((_bits(a) != _bits(b)).sum()) for a, b in zip(sto, near))
+    print(f"  stochastic and nearest rounding differ in {moved} elements")
+    if not moved:
+        raise AssertionError("stochastic rounding changed nothing")
+    del sto, near
+    check_adamw(FA, shapes, torch.float32, False, gen)
+
+    # unbiasedness: 2^20 bf16 parameters at 1.0, first step, lr 1e-4, no
+    # decay; each moves by -1e-4 in f32, q = 1e-4 / 2^-8 of them to
+    # 0.99609375 and the rest stay at 1.0
+    n = 1 << 20
+    results = {}
+    for stochastic in (True, False):
+        p = torch.ones(n, dtype=torch.bfloat16, device=dev)
+        FA.fused_adamw_update(p, torch.ones_like(p),
+                              torch.zeros(n, device=dev),
+                              torch.zeros(n, device=dev), 1, lr=1e-4,
+                              weight_decay=0.0, stochastic=stochastic, seed=3)
+        results[stochastic] = p.double()
+    q = 1e-4 / 2 ** -8
+    sigma = 2 ** -8 * math.sqrt(q * (1 - q) / n)
+    mean = float(results[True].mean())
+    low = float((results[True] == 0.99609375).double().mean())
+    print(f"  unbiasedness: stochastic mean {mean:.9f} (1 - 1e-4 = 0.9999, "
+          f"sigma {sigma:.2e}, off by {abs(mean - 0.9999) / sigma:.2f} "
+          f"sigma), {100 * low:.3f}% at 0.99609375 (q = {100 * q:.3f}%); "
+          f"nearest: all 1.0 {bool((results[False] == 1.0).all())}",
+          flush=True)
+    if not abs(mean - 0.9999) < 5 * sigma or \
+            not bool((results[False] == 1.0).all()):
+        raise AssertionError("fused_adamw stochastic rounding is biased")
+
+    # times over the flagship's tensors, bf16 with stochastic rounding (the
+    # K4 path's configuration)
+    ps, gs, ms, vs, seeds = adamw_inputs(flag, torch.bfloat16, gen)
+
+    def kernel():
+        FA._update_many(ps, gs, ms, vs, seeds, 1, stochastic=True,
+                        **ADAMW_KW)
+
+    def plain():
+        for i in range(len(flag)):
+            FA.fused_adamw_update_reference(ps[i], gs[i], ms[i], vs[i], 1,
+                                            seed=seeds[i], **ADAMW_KW)
+
+    k_ms = _kernel_ms(device_ms(kernel, 20), "fused_adamw_kernel")
+    plain_ms = sum(device_ms(plain, 2, warmup=1).values())
+    events_ms = cuda_time_ms(kernel, 20)
+    numel = sum(p.numel() for p in ps)
+    # bytes: p, g, m, v read (2 + 2 + 4 + 4), p, m, v written (2 + 4 + 4);
+    # operations: 16 f32 operations an element (the random bits' integer
+    # operations not counted) at the card's 67 TFLOP/s outside the tensor
+    # cores
+    by, fl = 22 * numel / PEAK_BYTES, 16 * numel / 67e12
+    bound_ms = max(by, fl) * 1e3
+    params = [torch.nn.Parameter(p) for p in ps]
+    for p, g in zip(params, gs):
+        p.grad = g
+    adamw = optim.AdamW([(f"p{i}", p) for i, p in enumerate(params)], 3e-4,
+                        weight_decay=0.01)
+    replaced_ms = optimizer_device_ms(adamw)
+    print(f"  fused_adamw over the flagship's {len(flag)} bf16 tensors "
+          f"({numel} parameters): {k_ms * 1e3:.1f} us of device time, bound "
+          f"{bound_ms * 1e3:.1f} us ({'bytes' if by >= fl else 'operations'}"
+          f"), plain {plain_ms * 1e3:.1f} us, the port's optim.AdamW step "
+          f"(f32 masters) {replaced_ms * 1e3:.1f} us; the wrapper's whole "
+          f"call by CUDA events {events_ms * 1e3:.1f} us", flush=True)
+    del params, adamw, ps, gs, ms, vs
+    return dict(max_abs_err=0.0, ms=k_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms,
+                bound_by="bytes" if by >= fl else "operations",
+                library_ms=None, replaced_ms=replaced_ms)
+
+
+def check_layernorm(FL, n, d, dtype, bias, gen):
+    """fused_layernorm's forward and backward (autograd) against the plain
+    versions at [n, d], by relative Frobenius error of y, dx, dw and db in
+    their dtypes; the plain dw with one row tile's partial dropped must read
+    above the limit. Returns ({output: max abs err}, largest relative
+    error, the planted fault's reading)."""
+    dev = torch.device("cuda")
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                + shift).to(dtype)
+
+    x, w = randn(n, d, scale=3.0, shift=1.0), randn(d, scale=0.5, shift=1.0)
+    b = randn(d, scale=0.1) if bias else None
+    dy = randn(n, d)
+    leaves = [t.clone().requires_grad_() for t in (x, w, b) if t is not None]
+    y = FL.fused_layernorm(*leaves, *([] if bias else [None]))
+    y.backward(dy)
+    y_ref, mu, rs = FL.fused_layernorm_reference(x, w, b)
+    dx_ref, dw_ref, db_ref = FL.fused_layernorm_backward_reference(
+        x, dy, w, mu, rs)
+    outs = [("y", y, y_ref), ("dx", leaves[0].grad, dx_ref),
+            ("dw", leaves[1].grad, dw_ref.to(dtype))]
+    if bias:
+        outs.append(("db", leaves[2].grad, db_ref.to(dtype)))
+    tol = K5_TOL[dtype]
+    errs, rels = {}, []
+    for what, got, want in outs:
+        rel = rel_err(got, want)
+        if not bool(torch.isfinite(got).all()) or not rel <= tol:
+            raise AssertionError(f"fused_layernorm [{n}, {d}] {dtype} "
+                                 f"{what}: error {rel:.3e} > {tol:.0e}")
+        errs[what] = float((got.float() - want.float()).abs().max())
+        rels.append(rel)
+    rows = FL.tile_rows(n, dev)
+    start = rows if n > rows else 0  # the second tile where there is one
+    tile = slice(start, start + rows)
+    yhat = (x.float() - mu[:, None]) * rs[:, None]
+    faulty = dw_ref - (dy.float()[tile] * yhat[tile]).sum(0)
+    fault = rel_err(faulty.to(dtype), dw_ref.to(dtype))
+    if not fault > tol:
+        raise AssertionError(f"fused_layernorm [{n}, {d}] {dtype}: the "
+                             f"planted fault reads {fault:.3e}, within "
+                             f"{tol:.0e}")
+    print(f"  fused_layernorm [{n}, {d}] {str(dtype)[6:]:8} bias={bias!s:5}:"
+          f" relative error y/dx/dw{'/db' if bias else ''} "
+          f"{' '.join(f'{e:.2e}' for e in rels)}; planted fault "
+          f"{fault:.2e} ({rows} rows a tile)", flush=True)
+    return errs, max(rels), fault
+
+
+def time_layernorm(FL, n, d, gen):
+    """Device times (ms) of K5a and K5b (both its kernels) at [n, d] bf16
+    with bias, their plain versions, F.layer_norm forward and its autograd
+    backward, and the bounds."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    x = (torch.randn(n, d, generator=gen, device=dev) * 3 + 1).bfloat16()
+    w = (torch.randn(d, generator=gen, device=dev) * 0.5 + 1).bfloat16()
+    b = (torch.randn(d, generator=gen, device=dev) * 0.1).bfloat16()
+    dy = torch.randn(n, d, generator=gen, device=dev).bfloat16()
+    _, mu, rs = FL._fwd_cuda(x, w, b, 1e-5)
+    fwd = _kernel_ms(device_ms(lambda: FL._fwd_cuda(x, w, b, 1e-5), 50),
+                     "layernorm_fwd")
+    bwd = _kernel_ms(device_ms(lambda: FL._bwd_cuda(x, dy, w, mu, rs), 50),
+                     "layernorm_bwd")
+    plain_fwd = sum(device_ms(lambda: FL.fused_layernorm_reference(x, w, b),
+                              10).values())
+    plain_bwd = sum(device_ms(lambda: FL.fused_layernorm_backward_reference(
+        x, dy, w, mu, rs), 10).values())
+    lib_fwd = sum(device_ms(lambda: F.layer_norm(x, (d,), w, b, 1e-5),
+                            50).values())
+    xl, wl, bl = (t.clone().requires_grad_() for t in (x, w, b))
+    yl = F.layer_norm(xl, (d,), wl, bl, 1e-5)
+    lib_bwd = sum(device_ms(lambda: torch.autograd.grad(
+        yl, (xl, wl, bl), dy, retain_graph=True), 50).values())
+    nd = n * d
+    # bytes: forward x read, y written (2 bytes each), w and b read (f32),
+    # mu and rstd written; backward x and dy read, dx written, w, mu and
+    # rstd read, dw and db written. Operations: ~8 (forward) and ~12
+    # (backward) f32 operations an element at 67 TFLOP/s
+    bounds = {}
+    for what, nbytes, ops in (("fwd", 4 * nd + 8 * d + 8 * n, 8 * nd),
+                              ("bwd", 6 * nd + 12 * d + 8 * n, 12 * nd)):
+        by, fl = nbytes / PEAK_BYTES, ops / 67e12
+        bounds[what] = (max(by, fl) * 1e3,
+                        "bytes" if by >= fl else "operations")
+    out = {"fwd": dict(ms=fwd, plain_ms=plain_fwd, library_ms=lib_fwd,
+                       bound_ms=bounds["fwd"][0], bound_by=bounds["fwd"][1]),
+           "bwd": dict(ms=bwd, plain_ms=plain_bwd, library_ms=lib_bwd,
+                       bound_ms=bounds["bwd"][0], bound_by=bounds["bwd"][1])}
+    for what, r in out.items():
+        print(f"  fused_layernorm {what} [{n}, {d}] bf16: {r['ms'] * 1e3:.2f}"
+              f" us, bound {r['bound_ms'] * 1e3:.2f} us ({r['bound_by']}), "
+              f"plain {r['plain_ms'] * 1e3:.2f} us, F.layer_norm "
+              f"{'forward' if what == 'fwd' else 'autograd backward'} "
+              f"{r['library_ms'] * 1e3:.2f} us", flush=True)
+    return out
+
+
+def phase_layernorm_kernel(FL):
+    """K5a and K5b against their plain versions at the flagship's [3072,
+    768], the long context's [8192, 768] (bf16 and f32, with and without
+    bias) and odd shapes; then their device times. K5 is on no path of
+    the port: its launches are this drive's."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    reset_launch_counts()
+    cases = [(n, d, dtype, bias) for n, d in K5_SHAPES
+             for dtype in (torch.bfloat16, torch.float32)
+             for bias in (True, False)]
+    cases += [(n, d, dtype, True) for n, d in K5_SMALL
+              for dtype in (torch.bfloat16, torch.float32)]
+    cases.append((8, 100, torch.float32, False))
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    least_fault = math.inf
+    path_err = {"fwd": 0.0, "bwd": 0.0}
+    for n, d, dtype, bias in cases:
+        errs, rel, fault = check_layernorm(FL, n, d, dtype, bias, gen)
+        worst[dtype] = max(worst[dtype], rel)
+        least_fault = min(least_fault, fault)
+        if (n, d) in K5_SHAPES and dtype == torch.bfloat16:
+            path_err["fwd"] = max(path_err["fwd"], errs["y"])
+            path_err["bwd"] = max(path_err["bwd"], *(
+                v for k, v in errs.items() if k != "y"))
+    launches = launch_counts()
+    print(f"  fused_layernorm: largest relative error {worst[torch.float32]:.3e}"
+          f" (f32, limit {K5_TOL[torch.float32]:.0e}), "
+          f"{worst[torch.bfloat16]:.3e} (bf16, limit "
+          f"{K5_TOL[torch.bfloat16]:.0e}); smallest planted fault "
+          f"{least_fault:.3e}; {launches['fused_layernorm_fwd']} forward and "
+          f"{launches['fused_layernorm_bwd']} backward launches", flush=True)
+    times = {shape: time_layernorm(FL, *shape, gen) for shape in K5_SHAPES}
+    rows = {}
+    for what in ("fwd", "bwd"):
+        row = dict(times[K5_SHAPES[0]][what], max_abs_err=path_err[what],
+                   launches=launches[f"fused_layernorm_{what}"])
+        row["per_shape"] = {f"{n}x{d}": times[(n, d)][what]
+                            for n, d in K5_SHAPES[1:]}
+        rows[what] = row
+    return rows
+
+
+def phase_adamw_train(torch_nn, train, att, FA, flagship):
+    """The flagship GPT under AdamWStochastic(3e-4, weight_decay=0.01), as
+    bench.py's fused-optimizer number: phase 5's steps and checks, K4's
+    launch count, and the step, optimizer time and peak memory beside
+    phase 5's AdamW flagship. Returns K4's launches over the timed
+    steps."""
+    name, ctx, batch, accum = TRAIN_CONFIGS[0]
+    run = train_config(
+        torch_nn, train, att, "flagship, AdamWStochastic", ctx, batch, accum,
+        lambda model: FA.AdamWStochastic(model.named_parameters(), 3e-4,
+                                         weight_decay=0.01))
+    # a step launches K4 once per dtype for up to 256 tensors: the
+    # flagship's 220 tensors are all bf16
+    launches = run["launches"]["fused_adamw"]
+    check_launches("fused_adamw", launches, 5)
+    if "fused_adamw_kernel" not in run["kernels"]:
+        raise AssertionError("the profiled step ran no fused_adamw kernel")
+    for what, key, unit, scale in (
+            ("step", "ms", "ms", 1.0), ("train tok/s", "tok_s", "", 1.0),
+            ("optimizer device time", "optimizer_ms", "us", 1e3),
+            ("peak memory", "peak_gib", "GiB", 1.0)):
+        print(f"  {what}: AdamWStochastic {run[key] * scale:.2f} {unit}, "
+              f"AdamW (phase 5) {flagship[key] * scale:.2f} {unit}",
+              flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -1168,13 +1595,26 @@ def main() -> int:
     print("phase 4: flash attention kernels vs plain", flush=True)
     flash = phase_flash(att)
     print("phase 5: training slice at full width", flush=True)
-    fwd_launches, bwd_launches = phase_train(torch_nn, optim, train, att)
+    fwd_launches, bwd_launches, flagship = phase_train(torch_nn, optim,
+                                                       train, att)
     print("phase 6: int4 matmul and stochastic int8 kernels vs plain",
           flush=True)
     k7, k8 = phase_quant_kernels(Q)
     print("phase 7: quantized serving at full width", flush=True)
     k7["launches"], paged["fp8"]["launches"], _ = phase_quant_serving(
         model, models, Q, paged_attention, decode_bf16)
+    del model
+    torch.cuda.empty_cache()
+    from lamp_tpu_torch.ops import fused_adamw as FA
+    from lamp_tpu_torch.ops import fused_layernorm as FL
+
+    print("phase 8: fused AdamW (K4) and fused LayerNorm (K5) kernels vs "
+          "plain", flush=True)
+    k4 = phase_adamw_kernel(torch_nn, optim, FA)
+    k5 = phase_layernorm_kernel(FL)
+    print("phase 9: the flagship under AdamWStochastic at full width",
+          flush=True)
+    k4["launches"] = phase_adamw_train(torch_nn, train, att, FA, flagship)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1220,6 +1660,31 @@ def main() -> int:
     row["note"] = (f"on no path of the port: launches are phase 6's direct "
                    f"drive; times at {k8['shape']} bf16")
     rows.append(row)
+    row = dict(name="fused_adamw", route="cuda",
+               source="lamp_tpu_torch/csrc/fused_adamw.cu",
+               replaces="lamp_tpu/ops/fused_adamw.py:30", **k4)
+    row = {k: row[k] for k in keys}
+    row["note"] = ("launches: phase 9's 5 timed steps, one launch a step; "
+                   "times: one call over the flagship's 220 bf16 tensors "
+                   "(85,565,952 parameters) with stochastic rounding; no "
+                   "PyTorch call rounds stochastically (library_ms null); "
+                   "replaced_ms: the port's optim.AdamW step (f32 masters) "
+                   "on the same tensors")
+    row["replaced_ms"] = k4["replaced_ms"]
+    rows.append(row)
+    for what, line in (("fwd", 46), ("bwd", 61)):
+        row = dict(name=f"fused_layernorm_{what}", route="cuda",
+                   source="lamp_tpu_torch/csrc/fused_layernorm.cu",
+                   replaces=f"lamp_tpu/ops/fused_layernorm.py:{line}",
+                   **k5[what])
+        row = {k: row[k] for k in keys}
+        row["note"] = (
+            "on no path of the port: launches are phase 8's direct drive; "
+            "times at [3072, 768] bf16 with bias (per_shape: [8192, 768]); "
+            "library: F.layer_norm " + ("forward" if what == "fwd" else
+                                        "autograd backward (dx, dw, db)"))
+        row["per_shape"] = k5[what]["per_shape"]
+        rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

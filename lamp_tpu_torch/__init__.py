@@ -14,7 +14,9 @@ Ported so far: the paged-KV serving path (``models.ModernBatchServer``,
 training (``nn.LanguageModelModule``, ``optim.AdamW``,
 ``train.make_train_step``) over the flash-attention kernels, and quantized
 serving (``ModernBatchServer(quantize_bits=4|8, kv_dtype=fp8)`` over the
-int4 matmul kernel and fp8 KV pools; ``ops.quantize_model``);
+int4 matmul kernel and fp8 KV pools; ``ops.quantize_model``), the fused
+AdamW with stochastic rounding (``ops.AdamWStochastic``) and the opt-in
+fused LayerNorm (``ops.fused_layernorm``);
 ``bridge.load_modern_lm``, ``bridge.load_language_model``,
 ``bridge.load_quantized_linear`` and ``bridge.load_adamw_state`` carry a JAX
 model's weights, quantized layers and optimizer state across.

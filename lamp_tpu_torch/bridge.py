@@ -198,27 +198,37 @@ def load_quantized_linear(params: Dict[str, np.ndarray], *, device="cuda",
 
 
 def load_adamw_state(opt_state: Dict, optimizer, model) -> None:
-    """Copy a ``lamp_tpu.optim.AdamW`` state into the port's
-    :class:`~lamp_tpu_torch.optim.AdamW` over ``model``'s parameters, so
-    that both packages go on from the same step. ``opt_state``:
-    ``{"step": int, "mt": {name: array}, "vt": {name: array}, "master":
-    {name: array}}`` keyed as ``optimizer.param_names``; ``master`` holds
-    exactly the parameters that have one (the bf16/f16 ones). The moments
-    of ``Linear`` weights are transposed as the weights are."""
+    """Copy a ``lamp_tpu`` AdamW-family optimizer state into the port's
+    optimizer over ``model``'s parameters, so that both packages go on from
+    the same step. ``opt_state`` is keyed as ``optimizer.param_names``:
+
+    - ``lamp_tpu.optim.AdamW`` into :class:`~lamp_tpu_torch.optim.AdamW`:
+      ``{"step": int, "mt": {name: array}, "vt": {name: array}, "master":
+      {name: array} | None}``; ``master`` holds exactly the parameters that
+      have one (the bf16/f16 ones; none under ``mixed_precision=False``,
+      where JAX stores ``None``);
+    - ``lamp_tpu.ops.fused_adamw.AdamWStochastic`` into
+      :class:`~lamp_tpu_torch.ops.AdamWStochastic`: ``{"step", "mt",
+      "vt"}``.
+
+    The moments and masters of ``Linear`` weights are transposed as the
+    weights are."""
     linear = {f"{prefix}.weight" for prefix, m in model.named_modules()
               if isinstance(m, Linear)}
     names = optimizer.param_names
     params = dict(zip(names, optimizer.params))
     with_master = {n for n in names
-                   if optimizer.state[params[n]]["master"] is not None}
+                   if optimizer.state[params[n]].get("master") is not None}
+    parts = {"mt": opt_state["mt"], "vt": opt_state["vt"],
+             "master": opt_state.get("master") or {}}
     for part, expected in (("mt", set(names)), ("vt", set(names)),
                            ("master", with_master)):
-        _check_keys(f"AdamW state {part!r}", opt_state[part], expected)
+        _check_keys(f"optimizer state {part!r}", parts[part], expected)
     for name, p in params.items():
         state = optimizer.state[p]
         for part in ("mt", "vt", "master"):
-            if state[part] is not None:
-                a = np.asarray(opt_state[part][name])
+            if state.get(part) is not None:
+                a = np.asarray(parts[part][name])
                 state[part].copy_(_tensor(a.T if name in linear else a,
                                           torch.float32, p.device))
     optimizer.param_groups[0]["step"] = int(opt_state["step"])

@@ -93,6 +93,7 @@ def library() -> ctypes.CDLL:
     the stream are ``c_void_p`` so that no pointer is cut to 32 bits."""
     lib = ctypes.CDLL(str(build()))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    f32 = ctypes.c_float
     lib.lamp_paged_attention.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # tensors
         i32, i32, i32, i32, i32, i32,                 # batch .. pages_per_seq
@@ -117,6 +118,19 @@ def library() -> ctypes.CDLL:
     lib.lamp_quantize_int8_stochastic.argtypes = [
         ptr, ptr, ptr, i32, i32, ctypes.c_uint, i32, ptr]
     lib.lamp_quantize_int8_stochastic.restype = i32
+    # fused AdamW: the host table of (p, g, m, v, n, seed) rows, its row
+    # count, the dtype, lr, lr wd, b1, 1 - b1, b2, 1 - b2, bc1, bc2, eps,
+    # the step, stochastic, the stream
+    lib.lamp_fused_adamw.argtypes = [ptr, i32, i32] + [f32] * 9 + [
+        ctypes.c_uint, i32, ptr]
+    lib.lamp_fused_adamw.restype = i32
+    # fused LayerNorm forward: x, weight, bias, y, mu, rstd, n, d, eps,
+    # dtype, stream; backward: x, dy, weight, mu, rstd, dx, dweight, dbias,
+    # the workspace, n, d, rows per tile, dtype, stream
+    lib.lamp_layernorm_fwd.argtypes = [ptr] * 6 + [i32, i32, f32, i32, ptr]
+    lib.lamp_layernorm_fwd.restype = i32
+    lib.lamp_layernorm_bwd.argtypes = [ptr] * 9 + [i32] * 4 + [ptr]
+    lib.lamp_layernorm_bwd.restype = i32
     lib.lamp_cuda_error_string.argtypes = [i32]
     lib.lamp_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -6,8 +6,7 @@ returns a state and ``step`` returns new parameters and a new state. Here
 it is a ``torch.optim.Optimizer`` that keeps the same state (``mt``, ``vt``
 f32 moments, an f32 ``master`` for bf16/f16 parameters only, and the step
 count) and updates the parameters in place under ``torch.no_grad()``, with
-``torch._foreach_*`` ops over all parameters at once. The JAX options
-``debias=False`` and ``mixed_precision=False`` are not ported.
+``torch._foreach_*`` ops over all parameters at once.
 """
 
 from __future__ import annotations
@@ -26,7 +25,11 @@ _LOW_PRECISION = (torch.bfloat16, torch.float16)
 class AdamW(torch.optim.Optimizer):
     """AdamW with ``b ** t`` debias, decoupled weight decay applied to the
     master weights, an optional global-norm clip of the gradients and an
-    ``lr_factor`` from a schedule.
+    ``lr_factor`` from a schedule. ``debias=False`` drops the bias
+    corrections (``1 - b ** t`` read as 1). ``mixed_precision=False`` keeps
+    no master: bf16/f16 parameters are updated in f32 and rounded to
+    nearest, the update that :class:`lamp_tpu_torch.ops.AdamWStochastic`
+    rounds stochastically instead (the two agree to f32 rounding).
 
     ``params``: ``(name, parameter)`` pairs (``model.named_parameters()``)
     or a ``{name: parameter}`` dict. ``tags``: ``{name: tag}``
@@ -41,7 +44,8 @@ class AdamW(torch.optim.Optimizer):
 
     def __init__(self, params, learning_rate: Hyper = 1e-3,
                  beta1: float = 0.9, beta2: float = 0.999, eps: float = 1e-8,
-                 weight_decay: Hyper = 0.0, clip=None, tags=None):
+                 weight_decay: Hyper = 0.0, clip=None, debias: bool = True,
+                 mixed_precision: bool = True, tags=None):
         named = list(params.items() if isinstance(params, dict) else params)
         super().__init__([p for _, p in named], dict(step=0))
         self.param_names = [name for name, _ in named]
@@ -52,12 +56,14 @@ class AdamW(torch.optim.Optimizer):
         self.wds = [wd[name] for name in self.param_names]
         self.beta1, self.beta2, self.eps = beta1, beta2, eps
         self.clip = clip
+        self.debias = debias
         for _, p in named:
             self.state[p] = {
                 "mt": torch.zeros_like(p, dtype=torch.float32),
                 "vt": torch.zeros_like(p, dtype=torch.float32),
                 "master": (p.detach().float().clone()
-                           if p.dtype in _LOW_PRECISION else None),
+                           if mixed_precision and p.dtype in _LOW_PRECISION
+                           else None),
             }
 
     @property
@@ -87,15 +93,18 @@ class AdamW(torch.optim.Optimizer):
         torch._foreach_addcmul_(vt, g32, g32, value=1 - b2)
         # in f32, as the JAX optimizer computes b ** t
         tf = np.float32(t)
-        bc1 = float(np.float32(1) - np.float32(b1) ** tf)
-        bc2 = float(np.float32(1) - np.float32(b2) ** tf)
+        bc1 = float(np.float32(1) - np.float32(b1) ** tf) if self.debias \
+            else 1.0
+        bc2 = float(np.float32(1) - np.float32(b2) ** tf) if self.debias \
+            else 1.0
         denom = torch._foreach_div(vt, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
         update = torch._foreach_div(mt, denom)
         # f32 parameters are their own master and update in place; the
-        # others update their master and are cast back
-        masters = [p if s["master"] is None else s["master"]
+        # others update their master (or, without one, an f32 copy) and are
+        # cast back
+        masters = [p.float() if s["master"] is None else s["master"]
                    for p, s in zip(params, states)]
         decay = torch._foreach_mul(
             masters, [lr_factor * lr * wd for lr, wd in zip(self.lrs,
