@@ -23,16 +23,21 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
    (against a dense forward) are checked; then the steady decode rate of
    step_many(8) at B=32 is timed with CUDA events, and one more call is
    profiled (device busy share, top kernels).
-4. The flash-attention kernels (forward, backward dkv and dq) against their
+4. The flash-attention kernels (forward, backward dq and dkv) against their
    plain versions (in f32) at the training slice's shapes (B=2, H=12,
    S=4096, D=64, bf16, causal) and the flagship's (B=8, S=384), and over
    kv lengths [B] (with a 0) and [B, Sq], a window, non-causal Sq != Skv,
-   head_dim 128 and f32, by relative error per 64-row block, and a planted
-   fault (one skipped kv tile) that each check must see; each kernel, its
-   plain version and
+   head_dim 128, f32 and the edges of the backward's 128-row and 128-key
+   blocks (S=4160, lengths [2, 129, 4095], a window of 100, head_dim 128 at
+   S=1000, per-row lengths that differ between a block's halves), by
+   relative error per 64-row block, and a planted fault (one skipped kv
+   tile) that each check must see; two backward calls must agree bit for
+   bit; each kernel, its plain version and
    ``scaled_dot_product_attention`` (the library yardstick, timed only) are
-   timed by their device time under torch.profiler, and the forward and
-   forward + backward calls of all three by CUDA events.
+   timed by their device time under torch.profiler (the backward's kernels
+   also as TFLOP/s, share of the 5-product bound and ratio to SDPA's
+   backward), and the forward and forward + backward calls of all three by
+   CUDA events.
 5. The training slice at full width: a 12-block, 768-wide GPT
    LanguageModelModule (12 heads, MLP 3072, byte vocab 256, bf16 with f32
    AdamW masters, random weights from a seed) trains under the flagship
@@ -41,7 +46,8 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
    steps (CUDA events; the kernels' launch counts are checked against 12
    layers x micro-batches x steps), 10 steps on one batch of SURVEY.md's
    bytes (the loss must fall), and one profiled step (device busy share,
-   top kernels, no library attention kernel).
+   top kernels, the attention kernels' shares, no library attention
+   kernel).
 6. The int4 dequant-matmul kernel (K7) against its plain version at every
    decode matmul of the serving configuration (QKV 768x1280, out 768x768,
    SwiGLU 768x2048 and 2048x768, logits 768x32000) with M in {1, 7, 32, 64,
@@ -120,8 +126,8 @@ MARGIN = 0.05
 # and the plain version differ in summation order only. Each limit lies
 # between the sound kernels' readings and those of a planted fault (rows
 # past Sq/4 skip one 64-key tile), which every check also reads and must
-# see. On an H100: bf16 kernels read at most 4.7e-3 and the fault at least
-# 0.32; f32 kernels 5.3e-7 and the fault 0.47.
+# see. On an H100: bf16 kernels read at most 5.4e-3 and the fault at least
+# 0.30; f32 kernels 5.4e-7 and the fault 0.47.
 FLASH_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 FLASH_BLOCK = 64
 
@@ -604,10 +610,15 @@ def block_err(got, want):
     return float((num[den > 0] / den[den > 0]).max())
 
 
-def planted_fault(sq, skv):
+def planted_fault(sq, skv, window=None):
     """The visibility of a faulty kernel the checks must catch: rows past
-    Sq/4 skip one 64-key tile (keys 512-575 at Skv=4096, 64-127 at 384)."""
+    Sq/4 skip one 64-key tile (keys 512-575 at Skv=4096, 64-127 at 384).
+    Under a window too narrow for those rows to reach that tile, they skip
+    the first tile past row Sq/4's diagonal instead."""
     k0 = FLASH_BLOCK * max(1, skv // 512)
+    diag = sq // 4 + skv - sq
+    if window is not None and k0 + FLASH_BLOCK + window <= diag:
+        k0 = -(-diag // FLASH_BLOCK) * FLASH_BLOCK
     keep = torch.ones(sq, skv, dtype=torch.bool, device="cuda")
     keep[sq // 4:, k0:k0 + FLASH_BLOCK] = False
     return keep
@@ -640,7 +651,7 @@ def check_flash(att, name, b, h, sq, skv, d, dtype, causal, window=None,
                 q32, k32, v32, ro, rlse, do32, **kw, **fault)
 
     wants = plain()
-    faults = plain(mask=planted_fault(sq, skv))
+    faults = plain(mask=planted_fault(sq, skv, window))
     errs, rels, planted = [], [], []
     tol = FLASH_TOL[dtype]
     for what, got, want, bad in zip(("o", "dq", "dk", "dv"),
@@ -699,7 +710,9 @@ def time_flash(att, b, h, s, d):
     lib_bwd = sum(device_ms(lambda: torch.autograd.grad(
         lo, (ql, kl, vl), do, retain_graph=True), n).values())
     # the work these inputs need: causal (row, key) pairs; each input read
-    # once and each output written once (2-byte tensors, 4-byte lse and di)
+    # once and each output written once (2-byte tensors, 4-byte lse and di;
+    # di is the dq kernel's output and the dkv kernel's input, and no
+    # input or output of the backward as a whole)
     pairs = b * h * s * (s + 1) / 2
     t = b * h * s * d * 2
     rows = b * h * s * 4
@@ -737,13 +750,13 @@ def time_flash(att, b, h, s, d):
     # SDPA's (each of dq, dk, dv), and the 5 products any backward needs
     # (the split design does 7: dq recomputes S and dP)
     backward = dict(ms=dq + dkv, plain_ms=plain_bwd, library_ms=lib_bwd,
-                    bound=bound(5, 8 * t + 2 * rows))
+                    bound=bound(5, 8 * t + rows))
     out = {
         "flash_attention_fwd": dict(ms=fwd, plain_ms=plain, library_ms=lib,
                                     bound=bound(2, 4 * t + rows)),
         "flash_attention_bwd_dq": dict(ms=dq, plain_ms=plain_bwd,
                                        library_ms=lib_bwd,
-                                       bound=bound(3, 5 * t + 2 * rows),
+                                       bound=bound(3, 6 * t + 2 * rows),
                                        backward=backward),
         "flash_attention_bwd_dkv": dict(ms=dkv, plain_ms=plain_bwd,
                                         library_ms=lib_bwd,
@@ -757,7 +770,33 @@ def time_flash(att, b, h, s, d):
               f"{r['library_ms'] * 1e3:7.1f} us", flush=True)
     print("  (the dq and dkv rows' plain and library times are of the whole "
           "backward)", flush=True)
+    # the backward's kernels on the work they do (dq 3 products, dkv 4,
+    # together 7: dq recomputes S and dP), against the 5 products any
+    # backward needs, and against SDPA's backward in this run
+    five = bound(5, 8 * t + rows)[0]
+    for name, ms, products in (("dq", dq, 3), ("dkv", dkv, 4),
+                               ("backward", dq + dkv, 7)):
+        print(f"  {name:8} S={s}: {2 * products * d * pairs / ms / 1e9:6.1f} "
+              f"TFLOP/s on its {products} products, "
+              f"{100 * five / ms:5.1f}% of the 5-product bound "
+              f"({five * 1e3:.1f} us), {ms / lib_bwd:.3f}x SDPA's backward "
+              f"({lib_bwd * 1e3:.1f} us)", flush=True)
     return out
+
+
+def check_deterministic(att, b, h, s, d):
+    """Two backward calls on the same inputs give the same bits."""
+    q, k, v, do = flash_inputs(b, h, s, s, d, torch.bfloat16, seed=2)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = att._fwd_cuda(q, k, v, None, True, scale, None)
+    first, second = (att._bwd_cuda(q, k, v, o, lse, do, None, True, scale,
+                                   None) for _ in range(2))
+    for what, x, y in zip(("dq", "dk", "dv"), first, second):
+        if not torch.equal(x, y):
+            raise AssertionError(f"flash backward: {what} differs between "
+                                 f"two calls on the same inputs")
+    print(f"  determinism    B={b} H={h} S={s} D={d}: two backward calls "
+          f"give equal dq, dk and dv", flush=True)
 
 
 def phase_flash(att):
@@ -783,6 +822,26 @@ def phase_flash(att):
           lengths=[1024, 555])
     check("f32", 2, 4, 512, 512, 64, torch.float32, True, lengths=[0, 400])
     check("f32 head 128", 1, 4, 300, 400, 128, torch.float32, False)
+    # the edges of the backward's 128-row and 128-key blocks
+    check("S=4160", 1, LM_HEADS, 4160, 4160, 64, torch.bfloat16, True)
+    # a row with one visible key has dq = 0 and adds 0 to dk in exact
+    # arithmetic (o = v, so di = dP): kernel and plain version both return
+    # rounding noise there, which no relative error can compare, so the
+    # smallest length held here is 2
+    check("lengths edges", 3, 4, 4096, 4096, 64, torch.bfloat16, True,
+          lengths=[2, 129, 4095])
+    check("window 100", 2, 4, 2000, 2000, 64, torch.bfloat16, True,
+          window=100)
+    check("head_dim 128 S=1000", 2, 4, 1000, 1000, 128, torch.bfloat16,
+          True, lengths=[1000, 0])
+    # per-row lengths that differ between the two halves of a 128-row dq
+    # block: one warpgroup's rows see a few keys, the other's all of them,
+    # so one skips many tiles the other computes
+    rows = np.arange(1000)
+    check("lengths halves", 2, 4, 1000, 1000, 64, torch.bfloat16, True,
+          lengths=np.stack([np.where(rows % 128 < 64, 2 + rows % 5, 1000),
+                            np.where(rows % 128 < 64, 1000, 2 + rows % 5)]))
+    check_deterministic(att, 2, LM_HEADS, 4096, 64)
     for dtype, results in checks.items():
         print(f"  {str(dtype)[6:]}: largest block error "
               f"{max(r[1] for r in results):.3e}, limit "
@@ -819,6 +878,14 @@ def profile_train_step(step, state, batch):
     for ours in ("fwd_bf16", "dq_bf16", "dkv_bf16"):
         if ours not in names:
             raise AssertionError(f"the step ran no {ours} kernel")
+    shares = {ours: sum(e.self_device_time_total for e in device
+                        if ours in e.key) for ours in
+              ("fwd_bf16", "dq_bf16", "dkv_bf16")}
+    print("  attention kernels' device time: " + ", ".join(
+        f"{ours} {us:.0f} us ({100 * us / busy:.1f}%)"
+        for ours, us in shares.items()) + f"; K2 (dq + dkv) "
+        f"{100 * (shares['dq_bf16'] + shares['dkv_bf16']) / busy:.1f}% of "
+        f"the busy time", flush=True)
     for library in ("flash_fwd", "flash_bwd", "fmha", "efficient_attention",
                     "cudnn"):
         if library in names:

@@ -2,7 +2,7 @@
 //
 // Replaces the Pallas TPU kernels of lamp_tpu/ops/attention.py:
 //   K1  _fwd_kernel (driven by _fwd)                 -> fwd_bf16 / fwd_f32
-//   K2a _bwd_fused_kernel (driven by _bwd_fused)     -> dkv_* then dq_*
+//   K2a _bwd_fused_kernel (driven by _bwd_fused)     -> dq_* then dkv_*
 //   K2b _bwd_dq_kernel, K2c _bwd_dkv_kernel          -> dq_*, dkv_*
 //   K3a/K3b _compact_{fwd,bwd}_kernel (compact_attention) compute the same
 //   function on short sequences; here they are the same kernels.
@@ -20,51 +20,90 @@
 // 2 * B * H * S^2 * D FLOPs (two products over half the score matrix):
 // 51.5 GFLOP at the training slice's B=2, H=12, S=4096, D=64, 52 us at the
 // H100's 989 TFLOP/s bf16 dense rate, against 25 MB of q/k/v/o (7.5 us at
-// 3.35 TB/s). The backward needs 5 products' worth (128.8 GFLOP, 130 us).
+// 3.35 TB/s). Any backward needs 5 products (128.8 GFLOP, 130.3 us); the
+// split one here does 7 (dq recomputes S and dP: 180.4 GFLOP, 182.4 us).
+// At the flagship's B=8, S=384 the backward is bound by bytes: q, k, v, o,
+// do read and dq, dk, dv written once, 37.7 MB, 11.3 us.
 //
-// Design (FlashAttention-2 on mma.sync): bf16 operands with f32
-// accumulation in m16n8k16 tensor-core products, as the TPU kernel's
-// preferred_element_type=f32 dots; softmax statistics in f32.
-//  - forward: one block of 4 warps per (b*h, 64-row q tile); each warp owns
-//    16 query rows, keeps Q fragments, the f32 output accumulator and the
-//    online-softmax max and sum in registers, and walks 64-key K/V tiles
-//    staged in shared memory by cp.async, the next tile in flight while this
-//    one is used; fragments come from shared memory by ldmatrix. Tiles
-//    above the causal diagonal, below the window band or past every row's
-//    kv limit are not visited (the TPU kernel's skipped grid steps), and
-//    tiles wholly inside the band skip the per-element mask. P is rounded
-//    to bf16 for P @ V, as p.astype(v.dtype) in the TPU kernel. The q tiles
-//    run last-first, so the long causal rows start first.
-//  - backward: the split design. A dkv kernel, one block per (b*h, 64-key
-//    tile), walks the q tiles and accumulates dk and dv in registers; it
-//    computes S^T = K Q^T and dP^T = V dO^T so that P^T and dS^T are already
-//    A fragments of dV += P^T dO and dK += dS^T Q. A dq kernel, one block
-//    per (b*h, 64-row q tile), walks the kv tiles. Both recompute
-//    p = exp(s - lse); di = rowsum(o * do) comes in from outside, as in the
-//    TPU package. This costs 7 products per tile pair against the fused
-//    kernel's 5, but needs no partial-dq slab and no atomics, so it is
-//    deterministic. P is rounded to do's dtype for dV and dS to q's dtype
-//    for dK and dQ, as in _bwd_fused_kernel.
+// Forward (FlashAttention-2 on mma.sync): one block of 4 warps per (b*h,
+// 64-row q tile); each warp owns 16 query rows, keeps Q fragments, the f32
+// output accumulator and the online-softmax max and sum in registers, and
+// walks 64-key K/V tiles staged in shared memory by cp.async, the next tile
+// in flight while this one is used; fragments come from shared memory by
+// ldmatrix. Tiles above the causal diagonal, below the window band or past
+// every row's kv limit are not visited (the TPU kernel's skipped grid
+// steps), and tiles wholly inside the band skip the per-element mask. P is
+// rounded to bf16 for P @ V, as p.astype(v.dtype) in the TPU kernel. The q
+// tiles run last-first, so the long causal rows start first.
+//
+// bf16 backward (wgmma, TMA and mbarriers; hopper.cuh): the split design,
+// a dq kernel, then a dkv kernel. Each block is a producer warpgroup and
+// two consumer warpgroups (setmaxnreg: 40 and 232 registers a thread).
+// The producer's first warp streams tiles by TMA (3-D tensor maps [B*H, S,
+// D], 128-byte swizzled, zero-filled past a ragged end) into a ring of 4
+// stages, each completing on a `full` mbarrier and refilled after its
+// `empty` mbarrier has the 256 consumer arrivals.
+//  - dq: a block owns 128 rows (64 a consumer), Q and dO resident; it first
+//    computes di = rowsum(o * do) in f32 for its rows from o and do and
+//    writes it for dkv. Per K/V tile of 128 keys (64 at D=128): S = Q K^T
+//    and dP = dO V^T (wgmma, A and B K-major from shared memory), p = exp2(s
+//    scale log2e - lse log2e), dS = p (dP - di) scale rounded to bf16 as the
+//    register A of dQ += dS K (B = K read MN-major, the transpose bit). Row
+//    blocks run last-first (long causal rows first).
+//  - dkv: a block owns 128 keys (64 a consumer), K and V resident. The
+//    producer streams q tiles of 64 rows (32 at D=128) with each row's
+//    lse log2e, di and visible key range [lo, hi), loaded one tile ahead.
+//    Per tile: S^T = K Q^T and dP^T = V dO^T (K-major), p^T rounded to bf16
+//    as the register A of dV += P^T dO, dS^T = p^T (dP^T - di) scale rounded
+//    to bf16 as the register A of dK += dS^T Q (dO and Q MN-major). dK and dV
+//    stay in f32 registers to the block's one store. Key blocks run
+//    first-first (key 0 sees the most rows).
+//  - in both, a tile's register-A products run on while the next tile's S
+//    and dP are issued; its stage is released when they are done. The
+//    accumulator of m64nN holds, per 8-column chunk j, rows g and g + 8 at
+//    columns 8j + 2t, 8j + 2t + 1, the layout of the A operand, so p and dS
+//    become A operands by packing pairs (acc_to_a). Visibility is two
+//    compares an element against the row's key range, skipped in tiles
+//    wholly inside the band (full_tile); exp2 is ex2.approx.ftz.
+//  - numerics as _bwd_fused_kernel: f32 accumulation, the softmax in the
+//    log2 domain, P rounded to do's dtype for dV, dS to q's dtype for dK
+//    and dQ, rows without a visible key exactly 0. No atomics and no
+//    partial-dq slab: every sum runs in a fixed order, so a call gives the
+//    same bits every time.
 //  - float32 inputs take scalar kernels (one thread per row or key, f32
-//    FMAs, no tensor cores): f32 is for checking, not for speed.
+//    FMAs, no tensor cores; dq_f32 computes di too): f32 is for checking,
+//    not for speed.
 //  - ragged Sq and Skv are masked in the kernel: tile loads past the end
 //    are zero-filled, rows and keys past the end are invisible, and stores
 //    are guarded. Nothing is padded in device memory.
 //
-// Resources (ptxas -v for sm_90a), per block of 128 threads: fwd_bf16 134
-// registers at D=64 and 178 at D=128, no spills, 45 / 85 KB of dynamic
-// shared memory; dq_bf16 168 (8 bytes spilled) and 242, 54 / 68 KB;
-// dkv_bf16 168 under its 3-blocks-per-SM bound (140 bytes spilled) and
-// 244, 54 / 68 KB. The f32 kernels (64 threads) use 168-255 registers and
-// spill, most at D=128, with 16-33 KB of static shared memory.
+// What the backward's design does about the old mma.sync kernels' limits:
+// (1) every product is wgmma; (2) a block owns 128 rows or keys, each
+// staged tile serves two warpgroups; (3) a producer warp keeps up to 4
+// tiles in flight by TMA while the consumers compute, with no
+// __syncthreads in the loop; (4) no spills (below); (5) the split's 7
+// products stay (a fused kernel needs a dq slab or atomics); (6) di is
+// computed in the dq kernel, not in PyTorch.
 //
-// Left for later: TMA loads and wgmma with warp-specialised producers,
-// 128-row tiles, the fused one-pass backward, segment ids and arbitrary
-// masks (the wrapper raises on those for CUDA tensors).
+// Resources (ptxas -v for sm_90a): the backward kernels, 384 threads,
+// report 168 registers (the launch bound; the consumers run at 232 after
+// setmaxnreg) and no spills at D=64 and D=128; dynamic shared memory (with
+// 1 KB for alignment) 161 KB (dq) and 97 KB (dkv) at D=64, 193 KB (dq)
+// and 129 KB (dkv) at D=128, and 80 B (dq) or 4.2 KB (dkv, the row
+// statistics) of static. fwd_bf16 (128 threads): 134 registers at D=64 and 178 at D=128,
+// no spills, 45 / 85 KB. The f32 kernels (64 threads) use 168-255
+// registers and spill, most at D=128, with 16-33 KB of static shared
+// memory.
+//
+// Left for later: the forward on wgmma and TMA (it can reuse hopper.cuh),
+// segment ids and arbitrary masks (the wrapper raises on those for CUDA
+// tensors).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -407,265 +446,474 @@ fwd_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 backward on wgmma (hopper.cuh): one block of three warpgroups. The
+// first is the producer: its first warp loads tiles by TMA into a ring of
+// kStages stages, each completing on a `full` mbarrier, and waits on each
+// stage's `empty` mbarrier before refilling it; its other warps idle. The
+// two consumer warpgroups each own 64 rows (dq) or 64 keys (dkv) of the
+// block's 128 and run every product by wgmma on the swizzled tiles.
+// ---------------------------------------------------------------------------
+
+constexpr int kBwdThreads = 384;  // a producer and two consumer warpgroups
+constexpr int kStages = 4;
+// registers a thread after setmaxnreg: 128 x 40 + 256 x 232 of the SM's 64K
+constexpr int kProducerRegs = 40, kConsumerRegs = 232;
+// the keys of a K/V tile the dq kernel streams (S and dP are m64nBC): 128
+// at D=64 (8% faster at S=4096 than 64 on an H100), 64 at D=128 (the ring
+// of 128-key tiles would not fit beside Q and dO)
+__host__ __device__ constexpr int dq_kv_tile(int d) { return d == 64 ? 128 : 64; }
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+__device__ __forceinline__ int tile_count(int first, int hi, int step) {
+  return first < hi ? (hi - first + step - 1) / step : 0;
+}
+
+// The keys [lo, hi) that `row` sees: visible() as two bounds, so that a
+// masked tile costs two compares an element. hi = 0 for rows past Sq.
+__device__ __forceinline__ int2 key_bounds(const Problem& p, int b, int row) {
+  int lo = 0, hi = row_limit(p, b, row);
+  if (p.causal) {
+    const int diag = row + p.offset;
+    hi = min(hi, diag + 1);
+    if (p.window > 0) lo = diag - p.window + 1;
+  }
+  return make_int2(lo, hi);
+}
+
+// 2^x by the special-function unit (ex2.approx.ftz: relative error about
+// 2^-22, results below 2^-126 flushed to 0; 2^-inf = 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// dq for 128 query rows, and di = rowsum(o * do) for them (written to `di`
+// for the dkv kernel, which runs after). Q and dO stay resident; the
+// producer streams K and V tiles of BC keys. Per tile and consumer: S = Q K^T
+// and dP = dO V^T (wgmma, A and B K-major), p = exp2(s scale log2e -
+// lse log2e), dS = p (dP - di) scale rounded to bf16 as the register A of
+// dQ += dS K (B = K MN-major).
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-        const bf16* __restrict__ v, const bf16* __restrict__ dout,
-        const float* __restrict__ lse, const float* __restrict__ di,
-        bf16* __restrict__ dq, Problem p) {
-  constexpr int BR = 64, BC = D == 64 ? 64 : 32, S = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);
-  bf16* dos = qs + BR * S;
-  bf16* kv = dos + BR * S;  // two stages of [K tile, V tile]
-  __shared__ int lim_max;
+__global__ void __launch_bounds__(kBwdThreads, 1)
+dq_bf16(const __grid_constant__ CUtensorMap tm_q,
+        const __grid_constant__ CUtensorMap tm_k,
+        const __grid_constant__ CUtensorMap tm_v,
+        const __grid_constant__ CUtensorMap tm_do, const bf16* __restrict__ o,
+        const bf16* __restrict__ dout, const float* __restrict__ lse,
+        float* __restrict__ di, bf16* __restrict__ dq, Problem p) {
+  using namespace hopper;
+  constexpr int BR = 128, BC = dq_kv_tile(D);
+  constexpr int kHalf = 64 * D * 2;   // bytes of one consumer's Q (or dO) rows
+  constexpr int kTile = BC * D * 2;   // bytes of a K (or V) tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* qs = align1024(smem_raw);  // [2 halves][D / 64][64][64]
+  unsigned char* dos = qs + 2 * kHalf;
+  unsigned char* ring = dos + 2 * kHalf;    // kStages x [K tile, V tile]
+  __shared__ __align__(8) uint64_t q_full, full[kStages], empty[kStages];
+  __shared__ int lim_max[2];
 
   const int bh = blockIdx.y, b = bh / p.heads;
-  const int r0 = (gridDim.x - 1 - blockIdx.x) * BR;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const long long qbase = (long long)bh * p.sq * D;
-  const long long kbase = (long long)bh * p.skv * D;
-  const int ra = r0 + warp * 16 + g, rb = ra + 8;
-  const int la = row_limit(p, b, ra), lb = row_limit(p, b, rb);
-  const long long lbase = (long long)bh * p.sq;
-  const float lse_a = ra < p.sq ? lse[lbase + ra] * kLog2e : 0.f;
-  const float lse_b = rb < p.sq ? lse[lbase + rb] * kLog2e : 0.f;
-  const float di_a = ra < p.sq ? di[lbase + ra] : 0.f;
-  const float di_b = rb < p.sq ? di[lbase + rb] : 0.f;
-
-  if (tid == 0) lim_max = 0;
-  load_tile<D, BR>(qs, q + qbase, r0, p.sq);
-  load_tile<D, BR>(dos, dout + qbase, r0, p.sq);
-  cp_commit();
+  const int r0 = (gridDim.x - 1 - blockIdx.x) * BR;  // long causal rows first
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(&q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * 128);
+    }
+    mbar_fence_init();
+    lim_max[0] = lim_max[1] = 0;
+  }
   __syncthreads();
-  atomicMax(&lim_max, max(la, lb));
+  if (tid < BR) atomicMax(&lim_max[tid / 64], row_limit(p, b, r0 + tid));
   __syncthreads();
   int lo, hi;
   kv_range(p, r0, BR, &lo, &hi);
-  hi = min(hi, lim_max);
+  hi = min(hi, max(lim_max[0], lim_max[1]));
   const int first = (lo / BC) * BC;
-  if (first < hi) {
-    load_tile<D, BC>(kv, k + kbase, first, p.skv);
-    load_tile<D, BC>(kv + BC * S, v + kbase, first, p.skv);
-  }
-  cp_commit();
-  cp_wait<1>();  // the Q and dO tiles
-  __syncthreads();
-  uint32_t qa[D / 16][4], da[D / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    load_a<S>(qa[kk], qs, warp * 16, kk * 16, lane);
-    load_a<S>(da[kk], dos, warp * 16, kk * 16, lane);
-  }
+  const int tiles = tile_count(first, hi, BC);
 
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  const float sl2 = p.scale * kLog2e;
-
-  int stage = 0;
-  for (int c0 = first; c0 < hi; c0 += BC, stage ^= 1) {
-    if (c0 + BC < hi) {
-      bf16* nxt = kv + (stage ^ 1) * 2 * BC * S;
-      load_tile<D, BC>(nxt, k + kbase, c0 + BC, p.skv);
-      load_tile<D, BC>(nxt + BC * S, v + kbase, c0 + BC, p.skv);
-    }
-    cp_commit();
-    cp_wait<1>();
-    __syncthreads();
-    const bf16* ks = kv + stage * 2 * BC * S;
-    const bf16* vs = ks + BC * S;
-    float s[BC / 8][4], dp[BC / 8][4];
-#pragma unroll
-    for (int j = 0; j < BC / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-      for (int j = 0; j < BC / 8; j += 2) {
-        uint32_t bf[4];
-        load_b_nk<S>(bf, ks, j * 8, kk * 16, lane);
-        mma(s[j], qa[kk], bf[0], bf[1]);
-        mma(s[j + 1], qa[kk], bf[2], bf[3]);
-        load_b_nk<S>(bf, vs, j * 8, kk * 16, lane);
-        mma(dp[j], da[kk], bf[0], bf[1]);
-        mma(dp[j + 1], da[kk], bf[2], bf[3]);
+  if (tid < 128) {  // producer
+    regs_dec<kProducerRegs>();
+    if (tid == 0) {
+      mbar_arrive_tx(&q_full, 4 * kHalf);
+      for (int h = 0; h < 2; ++h)
+        for (int cb = 0; cb < D / 64; ++cb) {
+          tma_load_3d(qs + h * kHalf + cb * 64 * 128, &tm_q, &q_full, cb * 64,
+                      r0 + 64 * h, bh);
+          tma_load_3d(dos + h * kHalf + cb * 64 * 128, &tm_do, &q_full,
+                      cb * 64, r0 + 64 * h, bh);
+        }
+      for (int i = 0; i < tiles; ++i) {
+        const int st = i % kStages, c0 = first + i * BC;
+        mbar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
+        unsigned char* dst = ring + st * 2 * kTile;
+        mbar_arrive_tx(&full[st], 2 * kTile);
+        for (int cb = 0; cb < D / 64; ++cb) {
+          tma_load_3d(dst + cb * BC * 128, &tm_k, &full[st], cb * 64, c0, bh);
+          tma_load_3d(dst + kTile + cb * BC * 128, &tm_v, &full[st], cb * 64,
+                      c0, bh);
+        }
       }
     }
-    const bool full = full_tile(p, r0, BR, c0, BC);
+  } else {  // consumers
+    regs_inc<kConsumerRegs>();
+    const int wg = tid / 128 - 1, warp = (tid % 128) / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int rw = r0 + 64 * wg;
+    const int ra = rw + warp * 16 + g, rb = ra + 8;
+    const int2 ba = key_bounds(p, b, ra), bb = key_bounds(p, b, rb);
+    const long long lbase = (long long)bh * p.sq;
+    const float lse_a = ra < p.sq ? lse[lbase + ra] * kLog2e : 0.f;
+    const float lse_b = rb < p.sq ? lse[lbase + rb] * kLog2e : 0.f;
+    // di of rows ra and rb: lane t sums columns [t D/4, (t + 1) D/4)
+    float di_a = 0.f, di_b = 0.f;
 #pragma unroll
-    for (int j = 0; j < BC / 8; ++j) {
+    for (int half = 0; half < 2; ++half) {
+      const int row = half ? rb : ra;
+      if (row >= p.sq) continue;
+      const long long off = (lbase + row) * D + t * (D / 4);
+      float sum = 0.f;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = c0 + j * 8 + 2 * t + (e & 1);
-        const bool top = e < 2;
-        const bool vis = full || (top ? visible(p, ra, la, col)
-                                      : visible(p, rb, lb, col));
-        const float pr = vis ? exp2f(s[j][e] * sl2 - (top ? lse_a : lse_b)) : 0.f;
-        s[j][e] = pr * (dp[j][e] - (top ? di_a : di_b)) * p.scale;  // ds
+      for (int c = 0; c < D / 4; c += 8) {
+        const uint4 ov = *reinterpret_cast<const uint4*>(o + off + c);
+        const uint4 dv = *reinterpret_cast<const uint4*>(dout + off + c);
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+        const __nv_bfloat162* d2 = reinterpret_cast<const __nv_bfloat162*>(&dv);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float2 of = __bfloat1622float2(o2[e]);
+          const float2 df = __bfloat1622float2(d2[e]);
+          sum = fmaf(of.x, df.x, sum);
+          sum = fmaf(of.y, df.y, sum);
+        }
       }
+      (half ? di_b : di_a) = sum;
     }
+    di_a = quad_sum(di_a);
+    di_b = quad_sum(di_b);
+    if (t == 0) {
+      if (ra < p.sq) di[lbase + ra] = di_a;
+      if (rb < p.sq) di[lbase + rb] = di_b;
+    }
+    int wlo, whi;
+    kv_range(p, rw, 64, &wlo, &whi);
+    whi = min(whi, lim_max[wg]);
+    const unsigned char* qh = qs + wg * kHalf;
+    const unsigned char* doh = dos + wg * kHalf;
+    const float sl2 = p.scale * kLog2e;
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    // dQ += dS K of one tile runs on while the next tile's S and dP are
+    // issued; its stage is released once that product is done
     uint32_t dsa[BC / 16][4];
-    c_to_a<BC / 16>(dsa, s);
-#pragma unroll
-    for (int kk = 0; kk < BC / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
-        uint32_t bf[4];
-        load_b_kn<S>(bf, ks, kk * 16, n * 8, lane);
-        mma(acc[n], dsa[kk], bf[0], bf[1]);
-        mma(acc[n + 1], dsa[kk], bf[2], bf[3]);
+    int held = -1;  // the stage an in-flight dQ product reads, or -1
+    mbar_wait(&q_full, 0);
+    for (int i = 0; i < tiles; ++i) {
+      const int st = i % kStages, c0 = first + i * BC;
+      mbar_wait(&full[st], (i / kStages) & 1);
+      if (!(c0 + BC > wlo && c0 < whi)) {  // no key of the tile is visible
+        // retire the held product first: the producer may be waiting for
+        // that stage before it can fill the ones this warpgroup skips
+        if (held >= 0) {
+          wg_wait<0>();
+          wg_keep(acc);
+          wg_keep(dsa);
+          mbar_arrive(&empty[held]);
+          held = -1;
+        }
+        mbar_arrive(&empty[st]);
+        continue;
       }
-    }
-    __syncthreads();
-  }
-  cp_wait<0>();
-
+      const unsigned char* ks = ring + st * 2 * kTile;
+      const unsigned char* vs = ks + kTile;
+      float s[BC / 2], dp[BC / 2];
+      wg_fence();
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (ra < p.sq)
-      *reinterpret_cast<uint32_t*>(dq + qbase + (long long)ra * D + col) =
-          pack(acc[n][0], acc[n][1]);
-    if (rb < p.sq)
-      *reinterpret_cast<uint32_t*>(dq + qbase + (long long)rb * D + col) =
-          pack(acc[n][2], acc[n][3]);
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<BC>(s, desc_k<64>(qh, kk), desc_k<BC>(ks, kk), kk > 0);
+      wg_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<BC>(dp, desc_k<64>(doh, kk), desc_k<BC>(vs, kk), kk > 0);
+      wg_commit();
+      wg_wait<1>();  // S, and the previous tile's dQ product
+      wg_keep(s);
+      wg_keep(acc);
+      wg_keep(dsa);
+      if (held >= 0) mbar_arrive(&empty[held]);
+      if (full_tile(p, rw, 64, c0, BC)) {
+#pragma unroll
+        for (int i2 = 0; i2 < BC / 2; ++i2)
+          s[i2] = fast_exp2(s[i2] * sl2 - ((i2 & 2) ? lse_b : lse_a));
+      } else {
+#pragma unroll
+        for (int i2 = 0; i2 < BC / 2; ++i2) {
+          const int col = c0 + (i2 / 4) * 8 + 2 * t + (i2 & 1);
+          const int2 kb2 = (i2 & 2) ? bb : ba;
+          const float x = s[i2] * sl2 - ((i2 & 2) ? lse_b : lse_a);
+          s[i2] = fast_exp2(col >= kb2.x && col < kb2.y ? x : -INFINITY);
+        }
+      }
+      wg_wait<0>();  // dP
+      wg_keep(dp);
+#pragma unroll
+      for (int i2 = 0; i2 < BC / 2; ++i2)
+        dp[i2] = s[i2] * (dp[i2] - ((i2 & 2) ? di_b : di_a)) * p.scale;
+      acc_to_a<BC>(dsa, dp);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BC / 16; ++kk)
+        wgmma_rs<D>(acc, dsa[kk], desc_mn<BC>(ks, kk));
+      wg_commit();
+      held = st;
+    }
+    wg_wait<0>();
+    wg_keep(acc);
+    wg_keep(dsa);
+    if (held >= 0) mbar_arrive(&empty[held]);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int col = n * 8 + 2 * t;
+      if (ra < p.sq)
+        *reinterpret_cast<uint32_t*>(dq + (lbase + ra) * D + col) =
+            pack_bf16(acc[4 * n], acc[4 * n + 1]);
+      if (rb < p.sq)
+        *reinterpret_cast<uint32_t*>(dq + (lbase + rb) * D + col) =
+            pack_bf16(acc[4 * n + 2], acc[4 * n + 3]);
+    }
   }
 }
 
-// at D=64, 3 blocks per SM (at most 170 registers, a few bytes spilled) run
-// faster on an H100 than the 2 that 188 unspilled registers allow (PERF.md)
+// dk and dv for 128 keys. K and V stay resident; the producer streams
+// q tiles of BR rows (Q, dO, and each row's lse log2e, di and kv limit).
+// Per tile and consumer: S^T = K Q^T and dP^T = V dO^T (wgmma, K-major),
+// p^T rounded to bf16 as the register A of dV += P^T dO, dS^T = p^T (dP^T -
+// di) scale rounded to bf16 as the register A of dK += dS^T Q (B = dO and
+// Q, MN-major).
 template <int D>
-__global__ void __launch_bounds__(kThreads, D == 64 ? 3 : 1)
-dkv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-         const bf16* __restrict__ v, const bf16* __restrict__ dout,
+__global__ void __launch_bounds__(kBwdThreads, 1)
+dkv_bf16(const __grid_constant__ CUtensorMap tm_q,
+         const __grid_constant__ CUtensorMap tm_k,
+         const __grid_constant__ CUtensorMap tm_v,
+         const __grid_constant__ CUtensorMap tm_do,
          const float* __restrict__ lse, const float* __restrict__ di,
          bf16* __restrict__ dk, bf16* __restrict__ dv, Problem p) {
-  constexpr int BC = 64, BR = D == 64 ? 64 : 32, S = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* ks = reinterpret_cast<bf16*>(smem);
-  bf16* vs = ks + BC * S;
-  bf16* qdo = vs + BC * S;  // two stages of [Q tile, dO tile]
-  __shared__ float lse_s[2][BR], di_s[2][BR];
-  __shared__ int lim_s[2][BR];
+  using namespace hopper;
+  constexpr int BC = 128, BR = D == 64 ? 64 : 32;
+  constexpr int kHalf = 64 * D * 2;  // bytes of one consumer's K (or V) rows
+  constexpr int kTile = BR * D * 2;  // bytes of a Q (or dO) tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ks = align1024(smem_raw);  // [2 halves][D / 64][64][64]
+  unsigned char* vs = ks + 2 * kHalf;
+  unsigned char* ring = vs + 2 * kHalf;     // kStages x [Q tile, dO tile]
+  // row statistics, read as float2 and int4 by the consumers
+  __shared__ __align__(16) float lse_s[kStages][BR], di_s[kStages][BR];
+  __shared__ __align__(16) int2 keys_s[kStages][BR];  // visible keys [lo, hi)
+  __shared__ __align__(8) uint64_t kv_full, full[kStages], empty[kStages];
 
   const int bh = blockIdx.y, b = bh / p.heads;
-  const int c0 = blockIdx.x * BC;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const long long qbase = (long long)bh * p.sq * D;
-  const long long kbase = (long long)bh * p.skv * D;
+  const int c0 = blockIdx.x * BC;  // key 0 walks the most q tiles: first
+  const int tid = threadIdx.x;
   const long long lbase = (long long)bh * p.sq;
-  const int ka = c0 + warp * 16 + g, kb = ka + 8;
-
-  // the q tile r0 into stage st: Q and dO by cp.async, the row arrays by
-  // plain stores (both are read after the next __syncthreads)
-  auto load_rows = [&](int r0, int st) {
-    bf16* dst = qdo + st * 2 * BR * S;
-    load_tile<D, BR>(dst, q + qbase, r0, p.sq);
-    load_tile<D, BR>(dst + BR * S, dout + qbase, r0, p.sq);
-    for (int i = tid; i < BR; i += kThreads) {
-      const int row = r0 + i;
-      lse_s[st][i] = row < p.sq ? lse[lbase + row] * kLog2e : 0.f;
-      di_s[st][i] = row < p.sq ? di[lbase + row] : 0.f;
-      lim_s[st][i] = row_limit(p, b, row);
-    }
-  };
-
-  load_tile<D, BC>(ks, k + kbase, c0, p.skv);
-  load_tile<D, BC>(vs, v + kbase, c0, p.skv);
   int lo, hi;
   q_range(p, c0, BC, &lo, &hi);
   const int first = (lo / BR) * BR;
-  if (first < hi) load_rows(first, 0);
-  cp_commit();
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-  const float sl2 = p.scale * kLog2e;
-
-  int stage = 0;
-  for (int r0 = first; r0 < hi; r0 += BR, stage ^= 1) {
-    if (r0 + BR < hi) load_rows(r0 + BR, stage ^ 1);
-    cp_commit();
-    cp_wait<1>();  // K, V and this q tile
-    __syncthreads();
-    const bf16* qs = qdo + stage * 2 * BR * S;
-    const bf16* dos = qs + BR * S;
-    // S^T = K Q^T and dP^T = V dO^T: rows are this warp's 16 keys
-    float st[BR / 8][4], dpt[BR / 8][4];
-#pragma unroll
-    for (int j = 0; j < BR / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a_k[4], a_v[4];
-      load_a<S>(a_k, ks, warp * 16, kk * 16, lane);
-      load_a<S>(a_v, vs, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int j = 0; j < BR / 8; j += 2) {
-        uint32_t bf[4];
-        load_b_nk<S>(bf, qs, j * 8, kk * 16, lane);
-        mma(st[j], a_k, bf[0], bf[1]);
-        mma(st[j + 1], a_k, bf[2], bf[3]);
-        load_b_nk<S>(bf, dos, j * 8, kk * 16, lane);
-        mma(dpt[j], a_v, bf[0], bf[1]);
-        mma(dpt[j + 1], a_v, bf[2], bf[3]);
-      }
+  const int tiles = tile_count(first, hi, BR);
+  if (tid == 0) {
+    mbar_init(&kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);  // the producer warp's lanes
+      mbar_init(&empty[s], 2 * 128);
     }
-    const bool full = full_tile(p, r0, BR, c0, BC);
-#pragma unroll
-    for (int j = 0; j < BR / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = j * 8 + 2 * t + (e & 1);  // local q row
-        const int key = e < 2 ? ka : kb;
-        const bool vis = full || visible(p, r0 + i, lim_s[stage][i], key);
-        const float pr = vis ? exp2f(st[j][e] * sl2 - lse_s[stage][i]) : 0.f;
-        st[j][e] = pr;
-        dpt[j][e] = pr * (dpt[j][e] - di_s[stage][i]) * p.scale;  // ds^T
-      }
-    }
-    uint32_t pta[BR / 16][4], dsa[BR / 16][4];
-    c_to_a<BR / 16>(pta, st);
-    c_to_a<BR / 16>(dsa, dpt);
-#pragma unroll
-    for (int kk = 0; kk < BR / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
-        uint32_t bf[4];
-        load_b_kn<S>(bf, dos, kk * 16, n * 8, lane);
-        mma(dv_acc[n], pta[kk], bf[0], bf[1]);
-        mma(dv_acc[n + 1], pta[kk], bf[2], bf[3]);
-        load_b_kn<S>(bf, qs, kk * 16, n * 8, lane);
-        mma(dk_acc[n], dsa[kk], bf[0], bf[1]);
-        mma(dk_acc[n + 1], dsa[kk], bf[2], bf[3]);
-      }
-    }
-    __syncthreads();  // this stage is refilled two tiles on
+    mbar_fence_init();
   }
-  cp_wait<0>();  // no copy outlives the block, also when no tile ran
+  __syncthreads();
 
+  if (tid < 128) {  // producer
+    regs_dec<kProducerRegs>();
+    if (tid < 32) {
+      const int lane = tid;
+      if (lane == 0) {
+        mbar_arrive_tx(&kv_full, 4 * kHalf);
+        for (int h = 0; h < 2; ++h)
+          for (int cb = 0; cb < D / 64; ++cb) {
+            tma_load_3d(ks + h * kHalf + cb * 64 * 128, &tm_k, &kv_full,
+                        cb * 64, c0 + 64 * h, bh);
+            tma_load_3d(vs + h * kHalf + cb * 64 * 128, &tm_v, &kv_full,
+                        cb * 64, c0 + 64 * h, bh);
+          }
+      }
+      // the row statistics of the next tile, loaded while this one waits
+      float lse_r[BR / 32], di_r[BR / 32];
+      int2 keys_r[BR / 32];
+      auto fetch = [&](int r0) {
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (ka < p.skv) {
-      *reinterpret_cast<uint32_t*>(dk + kbase + (long long)ka * D + col) =
-          pack(dk_acc[n][0], dk_acc[n][1]);
-      *reinterpret_cast<uint32_t*>(dv + kbase + (long long)ka * D + col) =
-          pack(dv_acc[n][0], dv_acc[n][1]);
+        for (int u = 0; u < BR / 32; ++u) {
+          const int row = r0 + lane + 32 * u;
+          lse_r[u] = row < p.sq ? lse[lbase + row] * kLog2e : 0.f;
+          di_r[u] = row < p.sq ? di[lbase + row] : 0.f;
+          keys_r[u] = key_bounds(p, b, row);
+        }
+      };
+      if (tiles > 0) fetch(first);
+      for (int i = 0; i < tiles; ++i) {
+        const int st = i % kStages, r0 = first + i * BR;
+        mbar_wait(&empty[st], ((i / kStages) & 1) ^ 1);
+#pragma unroll
+        for (int u = 0; u < BR / 32; ++u) {
+          lse_s[st][lane + 32 * u] = lse_r[u];
+          di_s[st][lane + 32 * u] = di_r[u];
+          keys_s[st][lane + 32 * u] = keys_r[u];
+        }
+        if (i + 1 < tiles) fetch(r0 + BR);
+        if (lane == 0) {
+          unsigned char* dst = ring + st * 2 * kTile;
+          mbar_arrive_tx(&full[st], 2 * kTile);
+          for (int cb = 0; cb < D / 64; ++cb) {
+            tma_load_3d(dst + cb * BR * 128, &tm_q, &full[st], cb * 64, r0,
+                        bh);
+            tma_load_3d(dst + kTile + cb * BR * 128, &tm_do, &full[st],
+                        cb * 64, r0, bh);
+          }
+        } else {
+          mbar_arrive(&full[st]);
+        }
+      }
     }
-    if (kb < p.skv) {
-      *reinterpret_cast<uint32_t*>(dk + kbase + (long long)kb * D + col) =
-          pack(dk_acc[n][2], dk_acc[n][3]);
-      *reinterpret_cast<uint32_t*>(dv + kbase + (long long)kb * D + col) =
-          pack(dv_acc[n][2], dv_acc[n][3]);
+  } else {  // consumers
+    regs_inc<kConsumerRegs>();
+    const int wg = tid / 128 - 1, warp = (tid % 128) / 32, lane = tid % 32;
+    const int g = lane / 4, t = lane % 4;
+    const int k0 = c0 + 64 * wg;
+    const int ka = k0 + warp * 16 + g, kb = ka + 8;
+    int wlo, whi;
+    q_range(p, k0, 64, &wlo, &whi);
+    if (k0 >= p.skv) whi = wlo;  // no key of this warpgroup exists
+    const unsigned char* kh = ks + wg * kHalf;
+    const unsigned char* vh = vs + wg * kHalf;
+    const float sl2 = p.scale * kLog2e;
+    float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    // dV += P^T dO and dK += dS^T Q of one tile run on while the next
+    // tile's S^T and dP^T are issued; the stage is released once they are
+    // done
+    uint32_t pa[BR / 16][4], dsa[BR / 16][4];
+    int held = -1;  // the stage in-flight dV and dK products read, or -1
+    mbar_wait(&kv_full, 0);
+    for (int i = 0; i < tiles; ++i) {
+      const int st = i % kStages, r0 = first + i * BR;
+      mbar_wait(&full[st], (i / kStages) & 1);
+      if (!(r0 + BR > wlo && r0 < whi)) {  // no row of the tile sees a key
+        if (held >= 0) {  // as in dq_bf16
+          wg_wait<0>();
+          wg_keep(dv_acc);
+          wg_keep(dk_acc);
+          wg_keep(pa);
+          wg_keep(dsa);
+          mbar_arrive(&empty[held]);
+          held = -1;
+        }
+        mbar_arrive(&empty[st]);
+        continue;
+      }
+      const unsigned char* qt = ring + st * 2 * kTile;
+      const unsigned char* dot = qt + kTile;
+      float s[BR / 2], dp[BR / 2];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<BR>(s, desc_k<64>(kh, kk), desc_k<BR>(qt, kk), kk > 0);
+      wg_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<BR>(dp, desc_k<64>(vh, kk), desc_k<BR>(dot, kk), kk > 0);
+      wg_commit();
+      // the row statistics of columns 8j + 2t and 8j + 2t + 1
+      float2 lse2[BR / 8], di2[BR / 8];
+#pragma unroll
+      for (int j = 0; j < BR / 8; ++j) {
+        lse2[j] = *reinterpret_cast<const float2*>(&lse_s[st][j * 8 + 2 * t]);
+        di2[j] = *reinterpret_cast<const float2*>(&di_s[st][j * 8 + 2 * t]);
+      }
+      wg_wait<1>();  // S^T, and the previous tile's dV and dK products
+      wg_keep(s);
+      wg_keep(dv_acc);
+      wg_keep(dk_acc);
+      wg_keep(pa);
+      wg_keep(dsa);
+      if (held >= 0) mbar_arrive(&empty[held]);
+      if (full_tile(p, r0, BR, k0, 64)) {
+#pragma unroll
+        for (int i2 = 0; i2 < BR / 2; ++i2)
+          s[i2] = fast_exp2(s[i2] * sl2 -
+                            ((i2 & 1) ? lse2[i2 / 4].y : lse2[i2 / 4].x));
+      } else {
+#pragma unroll
+        for (int j = 0; j < BR / 8; ++j) {
+          const int4 kb4 =
+              *reinterpret_cast<const int4*>(&keys_s[st][j * 8 + 2 * t]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = e < 2 ? ka : kb;
+            const int lo = (e & 1) ? kb4.z : kb4.x;
+            const int hi = (e & 1) ? kb4.w : kb4.y;
+            const float x =
+                s[4 * j + e] * sl2 - ((e & 1) ? lse2[j].y : lse2[j].x);
+            s[4 * j + e] = fast_exp2(key >= lo && key < hi ? x : -INFINITY);
+          }
+        }
+      }
+      acc_to_a<BR>(pa, s);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BR / 16; ++kk)
+        wgmma_rs<D>(dv_acc, pa[kk], desc_mn<BR>(dot, kk));
+      wg_commit();
+      wg_wait<1>();  // dP^T (dV may still run)
+      wg_keep(dp);
+#pragma unroll
+      for (int i2 = 0; i2 < BR / 2; ++i2)
+        dp[i2] = s[i2] * (dp[i2] - ((i2 & 1) ? di2[i2 / 4].y
+                                              : di2[i2 / 4].x)) * p.scale;
+      acc_to_a<BR>(dsa, dp);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < BR / 16; ++kk)
+        wgmma_rs<D>(dk_acc, dsa[kk], desc_mn<BR>(qt, kk));
+      wg_commit();
+      held = st;
+    }
+    wg_wait<0>();
+    wg_keep(dv_acc);
+    wg_keep(dk_acc);
+    wg_keep(pa);
+    wg_keep(dsa);
+    if (held >= 0) mbar_arrive(&empty[held]);
+    const long long kbase = (long long)bh * p.skv;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int col = n * 8 + 2 * t;
+      if (ka < p.skv) {
+        *reinterpret_cast<uint32_t*>(dk + (kbase + ka) * D + col) =
+            pack_bf16(dk_acc[4 * n], dk_acc[4 * n + 1]);
+        *reinterpret_cast<uint32_t*>(dv + (kbase + ka) * D + col) =
+            pack_bf16(dv_acc[4 * n], dv_acc[4 * n + 1]);
+      }
+      if (kb < p.skv) {
+        *reinterpret_cast<uint32_t*>(dk + (kbase + kb) * D + col) =
+            pack_bf16(dk_acc[4 * n + 2], dk_acc[4 * n + 3]);
+        *reinterpret_cast<uint32_t*>(dv + (kbase + kb) * D + col) =
+            pack_bf16(dv_acc[4 * n + 2], dv_acc[4 * n + 3]);
+      }
     }
   }
 }
@@ -743,9 +991,9 @@ fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 template <int D>
 __global__ void __launch_bounds__(kRows32)
 dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-       const float* __restrict__ v, const float* __restrict__ dout,
-       const float* __restrict__ lse, const float* __restrict__ di,
-       float* __restrict__ dq, Problem p) {
+       const float* __restrict__ v, const float* __restrict__ o,
+       const float* __restrict__ dout, const float* __restrict__ lse,
+       float* __restrict__ di, float* __restrict__ dq, Problem p) {
   __shared__ float ks[kTile32][D], vs[kTile32][D];
   __shared__ int lim_max;
   const int bh = blockIdx.y, b = bh / p.heads;
@@ -755,14 +1003,16 @@ dq_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int lim = row_limit(p, b, row);
   const bool in = row < p.sq;
   const float lse_r = in ? lse[(long long)bh * p.sq + row] : 0.f;
-  const float di_r = in ? di[(long long)bh * p.sq + row] : 0.f;
   float qr[D], dr[D], acc[D];
+  float di_r = 0.f;  // rowsum(o * do), for this kernel and the dkv kernel
 #pragma unroll
   for (int d = 0; d < D; ++d) {
     qr[d] = in ? q[qbase + (long long)row * D + d] : 0.f;
     dr[d] = in ? dout[qbase + (long long)row * D + d] : 0.f;
+    if (in) di_r = fmaf(o[qbase + (long long)row * D + d], dr[d], di_r);
     acc[d] = 0.f;
   }
+  if (in) di[(long long)bh * p.sq + row] = di_r;
   if (threadIdx.x == 0) lim_max = 0;
   __syncthreads();
   atomicMax(&lim_max, lim);
@@ -879,6 +1129,47 @@ int smem_bf16(int rows) {
   return rows * (D + kPad) * (int)sizeof(bf16);
 }
 
+// dynamic shared memory of the wgmma backward kernels, with 1 KB to align
+// the swizzled tiles: resident tiles of 128 rows (Q and dO, or K and V)
+// and kStages stages of two streamed tiles
+template <int D>
+int smem_dq() {
+  return 1024 + 2 * 128 * D * 2 + kStages * 2 * dq_kv_tile(D) * D * 2;
+}
+template <int D>
+int smem_dkv() {
+  return 1024 + 2 * 128 * D * 2 + kStages * 2 * (D == 64 ? 64 : 32) * D * 2;
+}
+
+// what an entry point returns when a TMA map could not be encoded: this
+// plus libcuda's CUresult (kMapError - 1: no encoder was found)
+constexpr int kMapError = 10000;
+
+// TMA maps of q, k, v and do ([bh, rows, d] bf16) in boxes of 64 columns by
+// q_rows (q, do) or kv_rows (k, v); a tensor with no rows gets a map of one
+// row, which no load reads. Returns 0 or kMapError + the failure.
+int bwd_maps(CUtensorMap* m, const void* q, const void* k, const void* v,
+             const void* dout, int bh, int sq, int skv, int d, int q_rows,
+             int kv_rows) {
+  // libcuda's encoder needs the device's context current on this
+  // thread, and autograd runs the backward on a thread of its own, where
+  // nothing may have made it current yet
+  cudaPointerAttributes at;
+  if (cudaPointerGetAttributes(&at, q) != cudaSuccess ||
+      cudaSetDevice(at.device) != cudaSuccess)
+    return static_cast<int>(cudaGetLastError());
+  sq = sq > 0 ? sq : 1;
+  skv = skv > 0 ? skv : 1;
+  const void* base[4] = {q, k, v, dout};
+  for (int i = 0; i < 4; ++i) {
+    const bool kv = i == 1 || i == 2;
+    const int rc = hopper::bf16_tile_map(&m[i], base[i], bh, kv ? skv : sq, d,
+                                         kv ? kv_rows : q_rows);
+    if (rc != 0) return kMapError + rc;
+  }
+  return 0;
+}
+
 Problem make_problem(const void* limits, int heads, int sq, int skv,
                      int lim_bstride, int lim_rstride, int causal, int window,
                      float sm_scale) {
@@ -901,8 +1192,9 @@ Problem make_problem(const void* limits, int heads, int sq, int skv,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o, do, dq, dk, dv alike);
-// head_dim 64 or 128. Each returns the cudaError_t of its launch; the caller
-// raises on non-zero.
+// head_dim 64 or 128. Each returns the cudaError_t of its launch, or (the
+// backward) kMapError + libcuda's CUresult when a TMA map was refused;
+// the caller raises on non-zero.
 int lamp_flash_attention_fwd(const void* q, const void* k, const void* v,
                              const void* limits, void* o, void* lse, int bh,
                              int heads, int sq, int skv, int head_dim,
@@ -941,9 +1233,9 @@ int lamp_flash_attention_fwd(const void* q, const void* k, const void* v,
 }
 
 int lamp_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
-                                const void* dout, const void* lse,
-                                const void* di, const void* limits, void* dq,
-                                int bh, int heads, int sq, int skv,
+                                const void* o, const void* dout,
+                                const void* lse, void* di, const void* limits,
+                                void* dq, int bh, int heads, int sq, int skv,
                                 int head_dim, int lim_bstride, int lim_rstride,
                                 int causal, int window, float sm_scale,
                                 int dtype, void* stream) {
@@ -952,34 +1244,40 @@ int lamp_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                  lim_rstride, causal, window, sm_scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
-  const float* d = static_cast<const float*>(di);
+  float* d = static_cast<float*>(di);
   if (dtype == 1) {
-    const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
-               *vb = static_cast<const bf16*>(v), *ob = static_cast<const bf16*>(dout);
+    const bf16 *ob = static_cast<const bf16*>(o),
+               *dob = static_cast<const bf16*>(dout);
     bf16* out = static_cast<bf16*>(dq);
-    const dim3 grid(cdiv(sq, 64), bh);
-    // q and do tiles of 64 rows, two stages of k and v tiles of 64 (D=64)
-    // or 32 (D=128) rows
+    CUtensorMap m[4];
+    const int rc = bwd_maps(m, q, k, v, dout, bh, sq, skv, head_dim, 64,
+                            dq_kv_tile(head_dim));
+    if (rc != 0) return rc;
+    const dim3 grid(cdiv(sq, 128), bh);
     if (head_dim == 64)
-      return launch(dq_bf16<64>, grid, kThreads, smem_bf16<64>(2 * 64 + 4 * 64),
-                    st, qb, kb, vb, ob, l, d, out, p);
+      return launch(dq_bf16<64>, grid, kBwdThreads, smem_dq<64>(), st, m[0],
+                    m[1], m[2], m[3], ob, dob, l, d, out, p);
     if (head_dim == 128)
-      return launch(dq_bf16<128>, grid, kThreads, smem_bf16<128>(2 * 64 + 4 * 32),
-                    st, qb, kb, vb, ob, l, d, out, p);
+      return launch(dq_bf16<128>, grid, kBwdThreads, smem_dq<128>(), st, m[0],
+                    m[1], m[2], m[3], ob, dob, l, d, out, p);
   }
   if (dtype == 0) {
     const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),
-                *vf = static_cast<const float*>(v), *of = static_cast<const float*>(dout);
+                *vf = static_cast<const float*>(v), *of = static_cast<const float*>(o),
+                *df = static_cast<const float*>(dout);
     float* out = static_cast<float*>(dq);
     const dim3 grid(cdiv(sq, kRows32), bh);
     if (head_dim == 64)
-      return launch(dq_f32<64>, grid, kRows32, 0, st, qf, kf, vf, of, l, d, out, p);
+      return launch(dq_f32<64>, grid, kRows32, 0, st, qf, kf, vf, of, df, l, d,
+                    out, p);
     if (head_dim == 128)
-      return launch(dq_f32<128>, grid, kRows32, 0, st, qf, kf, vf, of, l, d, out, p);
+      return launch(dq_f32<128>, grid, kRows32, 0, st, qf, kf, vf, of, df, l,
+                    d, out, p);
   }
   return cudaErrorInvalidValue;
 }
 
+// di is the dq kernel's output: launch dq first
 int lamp_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* di, const void* limits, void* dk,
@@ -994,18 +1292,18 @@ int lamp_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   const float* d = static_cast<const float*>(di);
   if (dtype == 1) {
-    const bf16 *qb = static_cast<const bf16*>(q), *kb = static_cast<const bf16*>(k),
-               *vb = static_cast<const bf16*>(v), *ob = static_cast<const bf16*>(dout);
     bf16 *dkb = static_cast<bf16*>(dk), *dvb = static_cast<bf16*>(dv);
-    const dim3 grid(cdiv(skv, 64), bh);
-    // k and v tiles of 64 rows, two stages of q and do tiles of 64 (D=64)
-    // or 32 (D=128) rows
+    CUtensorMap m[4];
+    const int rc = bwd_maps(m, q, k, v, dout, bh, sq, skv, head_dim,
+                            head_dim == 64 ? 64 : 32, 64);
+    if (rc != 0) return rc;
+    const dim3 grid(cdiv(skv, 128), bh);
     if (head_dim == 64)
-      return launch(dkv_bf16<64>, grid, kThreads, smem_bf16<64>(2 * 64 + 4 * 64),
-                    st, qb, kb, vb, ob, l, d, dkb, dvb, p);
+      return launch(dkv_bf16<64>, grid, kBwdThreads, smem_dkv<64>(), st, m[0],
+                    m[1], m[2], m[3], l, d, dkb, dvb, p);
     if (head_dim == 128)
-      return launch(dkv_bf16<128>, grid, kThreads, smem_bf16<128>(2 * 64 + 4 * 32),
-                    st, qb, kb, vb, ob, l, d, dkb, dvb, p);
+      return launch(dkv_bf16<128>, grid, kBwdThreads, smem_dkv<128>(), st,
+                    m[0], m[1], m[2], m[3], l, d, dkb, dvb, p);
   }
   if (dtype == 0) {
     const float *qf = static_cast<const float*>(q), *kf = static_cast<const float*>(k),

@@ -1,12 +1,15 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
-The sources in ``lamp_tpu_torch/csrc/*.cu`` expose plain C entry points.
+The sources in ``lamp_tpu_torch/csrc/*.cu`` expose plain C entry points;
+``csrc/*.cuh`` are headers they include.
 Each compiles to an object in its own nvcc process, all at once, and they
 are linked into one shared library at first CUDA use (never at
 import, so the CPU tests import every module freely), into
 ``lamp_tpu_torch/_build/``, under a name keyed by a hash of the sources and
-flags: an edited source builds anew, an unchanged one loads the cached
-library.
+flags (:func:`source_key`): an edited source or header builds anew, an
+unchanged tree loads the cached library. The wgmma backward kernels fetch
+libcuda's ``cuTensorMapEncodeTiled`` through the runtime
+(``cudaGetDriverEntryPoint``), so nothing links libcuda.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["build", "library"]
+__all__ = ["build", "library", "source_key"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC_DIR = _PKG / "csrc"
@@ -54,6 +57,17 @@ def _run(cmds):
     return "".join(f"{' '.join(cmd)}\n{log}" for cmd, log in zip(cmds, logs))
 
 
+def source_key(src_dir: Path = _SRC_DIR) -> str:
+    """The library's cache key: a hash of the flags and of every file
+    under ``src_dir`` (sources and the headers they include), by name and
+    content."""
+    digest = hashlib.sha256(" ".join(_FLAGS).encode())
+    for path in sorted(p for p in src_dir.rglob("*") if p.is_file()):
+        digest.update(str(path.relative_to(src_dir)).encode())
+        digest.update(path.read_bytes())
+    return digest.hexdigest()[:16]
+
+
 def build(verbose: bool = False) -> Path:
     """Compile ``csrc/*.cu`` into ``_build/`` unless an up-to-date library
     is there; returns its path. Each source compiles in its own nvcc
@@ -61,11 +75,7 @@ def build(verbose: bool = False) -> Path:
     compiler's output (``-Xptxas -v``: registers, shared memory and spills
     per kernel)."""
     sources = sorted(_SRC_DIR.glob("*.cu"))
-    digest = hashlib.sha256(" ".join(_FLAGS).encode())
-    for src in sources:
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    key = digest.hexdigest()[:16]
+    key = source_key()
     out = _BUILD_DIR / f"lamp_kernels_{key}.so"
     if out.exists():
         return out
@@ -105,7 +115,8 @@ def library() -> ctypes.CDLL:
     # limit strides, causal, window, sm_scale, dtype and the stream
     shape = [i32] * 9 + [ctypes.c_float, i32, ptr]
     lib.lamp_flash_attention_fwd.argtypes = [ptr] * 6 + shape
-    lib.lamp_flash_attention_bwd_dq.argtypes = [ptr] * 8 + shape
+    # dq: q, k, v, o, do, lse, di (written), limits, dq
+    lib.lamp_flash_attention_bwd_dq.argtypes = [ptr] * 9 + shape
     lib.lamp_flash_attention_bwd_dkv.argtypes = [ptr] * 9 + shape
     for fn in (lib.lamp_flash_attention_fwd, lib.lamp_flash_attention_bwd_dq,
                lib.lamp_flash_attention_bwd_dkv):

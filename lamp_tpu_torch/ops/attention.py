@@ -4,8 +4,8 @@ Counterpart of :mod:`lamp_tpu.ops.attention`. Layout is the JAX package's:
 q [B, H, Sq, D], k/v [B, H, Skv, D].
 
 :func:`flash_attention` launches the hand-written CUDA kernels
-(``csrc/flash_attention.cu``: a forward, and a backward in two kernels, dkv
-then dq) for CUDA tensors, and takes the plain PyTorch
+(``csrc/flash_attention.cu``: a forward, and a backward in two kernels, dq
+then dkv) for CUDA tensors, and takes the plain PyTorch
 :func:`flash_attention_reference` and :func:`_flash_backward_reference` for
 CPU tensors only. On Hopper one kernel serves every length, so
 :func:`compact_attention` is the same function under the JAX name, with the
@@ -195,7 +195,17 @@ def _check_cuda(q, k, v, kv_lengths, segment_ids, mask):
                 f"{(b, sq)}, got {tuple(kv_lengths.shape)}")
 
 
+# the backward's entry points return this plus libcuda's CUresult when
+# a TMA tensor map is refused (minus one: no encoder found)
+_MAP_ERROR = 10000
+
+
 def _raise_on(lib, rc, what):
+    if rc >= _MAP_ERROR - 1:
+        raise RuntimeError(
+            f"flash_attention {what}: libcuda refused a TMA tensor map "
+            f"(CUresult {rc - _MAP_ERROR}; -1: cuTensorMapEncodeTiled not "
+            f"found)")
     if rc != 0:
         raise RuntimeError(
             f"flash_attention {what} kernel launch failed: "
@@ -241,18 +251,22 @@ def _bwd_cuda(q, k, v, o, lse, do, kv_lengths, causal, sm_scale, window):
 
     lib = library()
     do = do.to(q.dtype).contiguous()
-    # di = rowsum(o * do) in f32, outside the kernels as in the JAX package
-    di = (o.float() * do.float()).sum(dim=-1)
+    if do.data_ptr() % 16:  # the kernels read do in 16-byte vectors
+        do = do.clone()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    # di = rowsum(o * do) in f32: written by the dq kernel, read by dkv
+    di = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     lim_ptr, shape = _cuda_shape_args(q, k, kv_lengths, causal, window,
                                       sm_scale)
-    common = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-              lse.data_ptr(), di.data_ptr(), lim_ptr)
-    rc = lib.lamp_flash_attention_bwd_dkv(*common, dk.data_ptr(),
-                                          dv.data_ptr(), *shape)
-    _raise_on(lib, rc, "backward dkv")
-    rc = lib.lamp_flash_attention_bwd_dq(*common, dq.data_ptr(), *shape)
+    qkv = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    rc = lib.lamp_flash_attention_bwd_dq(
+        *qkv, o.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(),
+        lim_ptr, dq.data_ptr(), *shape)
     _raise_on(lib, rc, "backward dq")
+    rc = lib.lamp_flash_attention_bwd_dkv(
+        *qkv, do.data_ptr(), lse.data_ptr(), di.data_ptr(), lim_ptr,
+        dk.data_ptr(), dv.data_ptr(), *shape)
+    _raise_on(lib, rc, "backward dkv")
     flash_attention.backward_launches += 1
     return dq, dk, dv
 

@@ -1,0 +1,143 @@
+"""Experiment: the flash-attention backward (K2) against edited copies of
+itself, on one CUDA card.
+
+Each variant is csrc/flash_attention.cu with a few text edits (one design
+choice changed). All variants build at once (one nvcc each, into
+lamp_tpu_torch/_build/variants/), load through ctypes beside each other,
+and run dq then dkv on the same inputs (bf16, causal, D=64) at the training
+slice's B=2, H=12, S=4096 and the flagship's B=8, H=12, S=384, timed by
+CUDA events over back-to-back calls (the kernels run 20-300 us, longer
+than a call's host time), in turns: each round runs every variant once.
+Prints each variant's median dq and dkv time and whether its dq, dk and dv
+equal the unedited build's bit for bit.
+
+    python3 scripts/exp_k2_variants.py        # from the repository root
+"""
+
+import ctypes
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
+from lamp_tpu_torch.ops import _build  # noqa: E402
+from lamp_tpu_torch.ops import attention as att  # noqa: E402
+
+SRC = ROOT / "lamp_tpu_torch" / "csrc"
+OUT = ROOT / "lamp_tpu_torch" / "_build" / "variants"
+
+# name: [(text, replacement), ...] edits of flash_attention.cu
+VARIANTS = {
+    "as built": [],
+    "2 stages": [("constexpr int kStages = 4;", "constexpr int kStages = 2;")],
+    "6 stages": [("constexpr int kStages = 4;", "constexpr int kStages = 6;")],
+    "dq 64-key tiles": [("return d == 64 ? 128 : 64; }",
+                         "return d == 64 ? 64 : 64; }")],
+    "exp2f": [('asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
+               "y = exp2f(x);")],
+}
+SHAPES = ((2, 12, 4096), (8, 12, 384))
+ROUNDS, CALLS = 5, 10
+
+
+def build():
+    """Compile every variant at once; returns {name: loaded library}."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    src = (SRC / "flash_attention.cu").read_text()
+    procs = {}
+    for i, (name, edits) in enumerate(VARIANTS.items()):
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise SystemExit(f"variant {name!r}: {old!r} not in the source")
+            text = text.replace(old, new)
+        cu, so = OUT / f"v{i}.cu", OUT / f"v{i}.so"
+        cu.write_text(text)
+        cmd = [_build._nvcc(), *_build._FLAGS, "-shared", f"-I{SRC}", "-o",
+               str(so), str(cu)]
+        procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT,
+                                            text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise SystemExit(f"variant {name!r} did not build:\n{log[-4000:]}")
+        lib = ctypes.CDLL(str(so))
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        shape = [i32] * 9 + [ctypes.c_float, i32, ptr]
+        lib.lamp_flash_attention_bwd_dq.argtypes = [ptr] * 9 + shape
+        lib.lamp_flash_attention_bwd_dkv.argtypes = [ptr] * 9 + shape
+        libs[name] = lib
+    return libs
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("exp_k2_variants: needs a CUDA card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    print(f"{torch.cuda.get_device_name(0)} | {smi.strip()}", flush=True)
+    t0 = time.perf_counter()
+    libs = build()
+    print(f"{len(libs)} variants built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    for b, h, s in SHAPES:
+        d = 64
+        scale = 1.0 / math.sqrt(d)
+        q, k, v, do = chip_smoke.flash_inputs(b, h, s, s, d, torch.bfloat16,
+                                              seed=1)
+        o, lse = att._fwd_cuda(q, k, v, None, True, scale, None)
+        di = torch.empty(q.shape[:3], dtype=torch.float32, device="cuda")
+        grads = [torch.empty_like(x) for x in (q, k, v)]
+        args = (b * h, h, s, s, d, 0, 0, 1, 0, scale, 1,
+                torch.cuda.current_stream().cuda_stream)
+
+        def dq(lib):
+            rc = lib.lamp_flash_attention_bwd_dq(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), di.data_ptr(), None,
+                grads[0].data_ptr(), *args)
+            assert rc == 0, rc
+
+        def dkv(lib):
+            rc = lib.lamp_flash_attention_bwd_dkv(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), di.data_ptr(), None, grads[1].data_ptr(),
+                grads[2].data_ptr(), *args)
+            assert rc == 0, rc
+
+        times = {name: ([], []) for name in libs}
+        same = {}
+        want = None
+        for r in range(ROUNDS):
+            for name, lib in libs.items():
+                for fn, out in ((dq, times[name][0]), (dkv, times[name][1])):
+                    fn(lib)  # dq first: dkv reads its di
+                    out.append(chip_smoke.cuda_time_ms(lambda: fn(lib),
+                                                       CALLS, warmup=1))
+                if r == 0:
+                    torch.cuda.synchronize()
+                    got = [x.clone() for x in grads]
+                    want = want or got
+                    same[name] = all(torch.equal(x, y)
+                                     for x, y in zip(got, want))
+        print(f"B={b} H={h} S={s} D={d} causal bf16, median of {ROUNDS} "
+              f"rounds of {CALLS} calls:", flush=True)
+        for name, (tq, tkv) in times.items():
+            mq, mkv = sorted(tq)[ROUNDS // 2], sorted(tkv)[ROUNDS // 2]
+            print(f"  {name:16} dq {mq * 1e3:7.1f} us  dkv {mkv * 1e3:7.1f} "
+                  f"us  sum {(mq + mkv) * 1e3:7.1f} us  equal to as-built "
+                  f"{same[name]}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

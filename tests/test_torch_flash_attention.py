@@ -39,6 +39,15 @@ CASES = [
     ("window", 1, 2, 96, 96, 32, True, 20, None),
     ("window_lengths", 2, 1, 70, 70, 32, True, 33, "1d"),
     ("head_dim_64", 1, 2, 64, 64, 64, True, None, None),
+    # the edges of the CUDA backward's 128-row and 128-key blocks
+    ("edge_129", 1, 2, 129, 129, 32, True, None, None),
+    ("edge_129_200", 1, 2, 129, 200, 32, True, None, None),
+    ("edge_200_129_noncausal", 1, 2, 200, 129, 32, False, None, None),
+    # 64 rows: with one visible key, dv of key 0 sums every row's do, and
+    # the tolerance holds sums of ~100 terms
+    ("edge_lengths_1", 2, 1, 64, 200, 32, False, None, "edge"),
+    ("edge_window_5", 1, 2, 200, 200, 32, True, 5, None),
+    ("edge_lengths_2d", 2, 1, 129, 200, 32, False, None, "2d"),
 ]
 
 
@@ -55,6 +64,8 @@ def _inputs(b, h, sq, skv, d, lengths, seed=0):
         lens[0] = skv - 3  # not a multiple of the tile
     elif lengths == "2d":
         lens = rng.randint(1, skv + 1, (b, sq)).astype(np.int32)
+    elif lengths == "edge":  # one key, and one past a 128-key block
+        lens = np.array([1, 129][:b], np.int32)
     return q, k, v, do, lens
 
 
