@@ -29,15 +29,24 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
    kv lengths [B] (with a 0) and [B, Sq], a window, non-causal Sq != Skv,
    head_dim 128, f32 and the edges of the backward's 128-row and 128-key
    blocks (S=4160, lengths [2, 129, 4095], a window of 100, head_dim 128 at
-   S=1000, per-row lengths that differ between a block's halves), by
-   relative error per 64-row block, and a planted fault (one skipped kv
-   tile) that each check must see; two backward calls must agree bit for
-   bit; each kernel, its plain version and
-   ``scaled_dot_product_attention`` (the library yardstick, timed only) are
-   timed by their device time under torch.profiler (the backward's kernels
-   also as TFLOP/s, share of the 5-product bound and ratio to SDPA's
-   backward), and the forward and forward + backward calls of all three by
-   CUDA events.
+   S=1000, per-row lengths that differ between a block's halves); then
+   segment ids (phase 10's packed batch, a (q_ids, kv_ids) pair with Sq !=
+   Skv, unsorted ids), masks (prefix-LM [B, 1, Sq, Skv], per-head
+   block-sparse [B, H, Sq, Skv] with runs of more than 4 skipped tiles,
+   [1, 1, Sq, Skv], a mask composed with kv lengths and ids), head dims 32,
+   16 and 96 in bf16 and f32, and float16 at D=64 and 128; by relative
+   error per 64-row block, and a planted fault (one skipped kv tile) that
+   each check must see; two backward calls must agree bit for bit (also
+   with packed ids); each kernel, its plain version and
+   ``scaled_dot_product_attention`` (the library yardstick, timed only;
+   with the equivalent boolean ``attn_mask`` at the packed shapes) are
+   timed by their device time under torch.profiler at S=4096, S=384 and
+   phase 10's packed shapes (the backward's kernels also as TFLOP/s,
+   share of the 5-product bound and ratio to SDPA's backward), and the
+   forward and forward + backward calls of all three by CUDA events. Then
+   GPT LanguageModelModules at examples/bert.py's width (128 wide, 4
+   heads: head_dim 32) and examples/translation.py's (64 wide, 4 heads:
+   head_dim 16) take 3 training steps each on the kernels.
 5. The training slice at full width: a 12-block, 768-wide GPT
    LanguageModelModule (12 heads, MLP 3072, byte vocab 256, bf16 with f32
    AdamW masters, random weights from a seed) trains under the flagship
@@ -89,6 +98,15 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
    finite losses, the loss falling on SURVEY.md's bytes, a profiled step,
    and the step, optimizer device time and peak memory beside phase 5's
    AdamW flagship.
+10. Packed-document training at full width: phase 3's ModernLM at context
+   2048, bf16 with f32 AdamW masters, 4 rows a step of documents of
+   64-1024 random tokens packed by ``data.pack_documents``, through
+   ``ModernLM.loss`` (segment ids into K1/K2, per-document RoPE, the fused
+   cross-entropy): the first loss against plain attention, 2 warm-up and
+   5 timed steps (CUDA events, train tok/s, K1/K2 launches 12 a step),
+   finite losses, the loss falling over 10 steps on one batch, a profiled
+   step (no library attention kernel) and peak memory beside the scores
+   ``mha_reference`` would keep.
 
 The last lines are one JSON line on the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -127,8 +145,10 @@ MARGIN = 0.05
 # between the sound kernels' readings and those of a planted fault (rows
 # past Sq/4 skip one 64-key tile), which every check also reads and must
 # see. On an H100: bf16 kernels read at most 5.4e-3 and the fault at least
-# 0.30; f32 kernels 5.4e-7 and the fault 0.47.
-FLASH_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+# 0.30; f32 kernels 5.4e-7 and the fault 0.47. f16: the kernels round o, p
+# and ds to f16, a relative 2^-11 per term, 8 times finer than bf16's, so
+# its limit is bf16's over 5 (the sums keep some headroom).
+FLASH_TOL = {torch.bfloat16: 1e-2, torch.float16: 2e-3, torch.float32: 1e-5}
 FLASH_BLOCK = 64
 
 # the serving slice's configuration (the JAX package's serving workload)
@@ -139,6 +159,11 @@ PAGE, TOTAL_PAGES = 128, 192
 # bench.py:223-240 long context), full width
 LM_VOCAB, LM_BLOCKS, LM_DIM, LM_HEADS = 256, 12, 768, 12
 TRAIN_CONFIGS = (("flagship", 384, 8, 5), ("longctx", 4096, 2, 1))
+
+# phase 10: packed-document training of the serving configuration's
+# ModernLM (bench.py:322-326) at context 2048, 4 rows a step, documents of
+# 64-1024 tokens
+PACK_CTX, PACK_BATCH, PACK_DOC_LENS = 2048, 4, (64, 1024)
 
 # one H100 SXM's published dense bf16 rate and memory bandwidth
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
@@ -610,48 +635,67 @@ def block_err(got, want):
     return float((num[den > 0] / den[den > 0]).max())
 
 
-def planted_fault(sq, skv, window=None):
+def planted_fault(sq, skv, window=None, keep=None):
     """The visibility of a faulty kernel the checks must catch: rows past
     Sq/4 skip one 64-key tile (keys 512-575 at Skv=4096, 64-127 at 384).
     Under a window too narrow for those rows to reach that tile, they skip
-    the first tile past row Sq/4's diagonal instead."""
+    the first tile past row Sq/4's diagonal instead. Under segment ids or a
+    mask (``keep``: the visibility, [B or 1, H or 1, Sq, Skv]) they skip the
+    64-key tile where those rows see the most keys."""
     k0 = FLASH_BLOCK * max(1, skv // 512)
     diag = sq // 4 + skv - sq
-    if window is not None and k0 + FLASH_BLOCK + window <= diag:
+    if keep is not None:
+        seen = keep[:, :, sq // 4:].sum(dim=(0, 1, 2))
+        seen = torch.nn.functional.pad(seen, (0, -skv % FLASH_BLOCK))
+        k0 = FLASH_BLOCK * int(seen.reshape(-1, FLASH_BLOCK).sum(1).argmax())
+    elif window is not None and k0 + FLASH_BLOCK + window <= diag:
         k0 = -(-diag // FLASH_BLOCK) * FLASH_BLOCK
-    keep = torch.ones(sq, skv, dtype=torch.bool, device="cuda")
-    keep[sq // 4:, k0:k0 + FLASH_BLOCK] = False
-    return keep
+    fault = torch.ones(sq, skv, dtype=torch.bool, device="cuda")
+    fault[sq // 4:, k0:k0 + FLASH_BLOCK] = False
+    return fault
 
 
 def check_flash(att, name, b, h, sq, skv, d, dtype, causal, window=None,
-                lengths=None):
+                lengths=None, segment_ids=None, mask=None):
     """Kernels (forward through autograd, then backward) against the plain
     version in f32, by :func:`block_err`; the plain version under
-    :func:`planted_fault` must read above the limit. Returns the max abs
-    error of (o, dq, dkv), the largest block error and the smallest planted
-    fault's reading."""
+    :func:`planted_fault` must read above the limit. ``segment_ids`` (a
+    [B, S] array or a pair of them) and ``mask`` (a boolean tensor on the
+    card) go to both. Returns the max abs error of (o, dq, dkv), the
+    largest block error and the smallest planted fault's reading."""
     q, k, v, do = flash_inputs(b, h, sq, skv, d, dtype)
     lens = None if lengths is None else torch.as_tensor(
         np.asarray(lengths, np.int32), device="cuda")
+    ids = None
+    if segment_ids is not None:
+        ids = tuple(torch.as_tensor(np.asarray(x), device="cuda")
+                    for x in segment_ids) if isinstance(segment_ids, tuple) \
+            else torch.as_tensor(np.asarray(segment_ids), device="cuda")
     qq, kk, vv = (x.clone().requires_grad_() for x in (q, k, v))
     o = att.flash_attention(qq, kk, vv, causal=causal, window=window,
-                            kv_lengths=lens)
+                            kv_lengths=lens, segment_ids=ids, mask=mask)
     o.backward(do)
     torch.cuda.synchronize()
     kw = dict(causal=causal, window=att._check_window(window, causal, skv),
-              kv_lengths=lens, sm_scale=1.0 / math.sqrt(d))
+              kv_lengths=lens, sm_scale=1.0 / math.sqrt(d), segment_ids=ids)
     q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
 
-    def plain(**fault):
+    def plain(fault=None):
+        m = mask if fault is None else (fault if mask is None
+                                         else mask & fault)
         with torch.no_grad():
             ro, rlse = att.flash_attention_reference(q32, k32, v32, **kw,
-                                                     **fault)
+                                                     mask=m)
             return (ro,) + att._flash_backward_reference(
-                q32, k32, v32, ro, rlse, do32, **kw, **fault)
+                q32, k32, v32, ro, rlse, do32, **kw, mask=m)
 
     wants = plain()
-    faults = plain(mask=planted_fault(sq, skv, window))
+    keep = None
+    if ids is not None or mask is not None:
+        keep = att._visible(q32, k32, causal=causal, window=kw["window"],
+                            kv_lengths=lens, segment_ids=ids, mask=mask)
+    faults = plain(planted_fault(sq, skv, window, keep))
+    del keep
     errs, rels, planted = [], [], []
     tol = FLASH_TOL[dtype]
     for what, got, want, bad in zip(("o", "dq", "dk", "dv"),
@@ -674,48 +718,65 @@ def check_flash(att, name, b, h, sq, skv, d, dtype, causal, window=None,
         rows = empty[:, None, :].expand(b, h, sq)
         if (o.detach()[rows] != 0).any() or (qq.grad[rows] != 0).any():
             raise AssertionError(f"flash {name}: rows with no key are not 0")
+    extra = ("" if ids is None else " ids") + \
+        ("" if mask is None else f" mask {list(mask.shape)}")
     print(f"  {name:14} B={b} H={h} Sq={sq} Skv={skv} D={d} "
           f"{str(dtype)[6:]:8} causal={causal!s:5} window={window} "
-          f"lengths={'none' if lens is None else list(lens.shape)}:\n"
+          f"lengths={'none' if lens is None else list(lens.shape)}{extra}:\n"
           f"    block error o/dq/dk/dv {' '.join(f'{e:.2e}' for e in rels)}; "
           f"planted fault {' '.join(f'{e:.2e}' for e in planted)}; "
           f"max abs err {' '.join(f'{e:.2e}' for e in errs)}", flush=True)
     return (errs[0], errs[1], max(errs[2], errs[3])), max(rels), min(planted)
 
 
-def time_flash(att, b, h, s, d):
+def time_flash(att, b, h, s, d, segment_ids=None):
     """Device times (ms) of the three kernels, their plain versions and
-    scaled_dot_product_attention at one causal bf16 shape, and each
-    kernel's bound from the work these inputs need."""
+    scaled_dot_product_attention at one causal bf16 shape (with
+    ``segment_ids``, a [B, S] array: packed documents, and SDPA given the
+    equivalent boolean ``attn_mask``), and each kernel's bound from the
+    work these inputs need."""
     import torch.nn.functional as F
 
     q, k, v, do = flash_inputs(b, h, s, s, d, torch.bfloat16, seed=1)
     scale = 1.0 / math.sqrt(d)
-    o, lse = att._fwd_cuda(q, k, v, None, True, scale, None)
+    ids = None if segment_ids is None else torch.as_tensor(
+        np.asarray(segment_ids), device="cuda")
+    kw = dict(causal=True, segment_ids=ids)
+    vis = att._Visibility(q, ids, None)
+    o, lse = att._fwd_cuda(q, k, v, None, True, scale, None, vis)
     n = 20 if s <= 1024 else 5
-    fwd = _kernel_ms(device_ms(
-        lambda: att._fwd_cuda(q, k, v, None, True, scale, None), n),
-        "fwd_bf16")
+    fwd_times = device_ms(
+        lambda: att._fwd_cuda(q, k, v, None, True, scale, None, vis), n)
+    # with ids the forward's call also writes the class map
+    classes = 0.0 if ids is None else _kernel_ms(fwd_times, "tile_classes")
+    fwd = _kernel_ms(fwd_times, "fwd_tc") + classes
     bwd = device_ms(lambda: att._bwd_cuda(q, k, v, o, lse, do, None, True,
-                                          scale, None), n)
-    dq, dkv = _kernel_ms(bwd, "dq_bf16"), _kernel_ms(bwd, "dkv_bf16")
+                                          scale, None, vis), n)
+    dq, dkv = _kernel_ms(bwd, "dq_tc"), _kernel_ms(bwd, "dkv_tc")
     plain = sum(device_ms(lambda: att.flash_attention_reference(
-        q, k, v, causal=True), 2, warmup=1).values())
+        q, k, v, **kw), 2, warmup=1).values())
     plain_bwd = sum(device_ms(lambda: att._flash_backward_reference(
-        q, k, v, o, lse, do, causal=True), 2, warmup=1).values())
+        q, k, v, o, lse, do, **kw), 2, warmup=1).values())
+    # SDPA: is_causal, or the boolean mask of causal and equal ids
+    keep = att._visible(q, k, causal=True, window=None, kv_lengths=None,
+                        segment_ids=ids, mask=None)
+    sdpa = dict(is_causal=True) if ids is None else dict(attn_mask=keep)
     lib = sum(device_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True), n).values())
+        q, k, v, **sdpa), n).values())
     ql, kl, vl = (x.clone().requires_grad_() for x in (q, k, v))
-    lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    lo = F.scaled_dot_product_attention(ql, kl, vl, **sdpa)
     lib_bwd = sum(device_ms(lambda: torch.autograd.grad(
         lo, (ql, kl, vl), do, retain_graph=True), n).values())
-    # the work these inputs need: causal (row, key) pairs; each input read
-    # once and each output written once (2-byte tensors, 4-byte lse and di;
-    # di is the dq kernel's output and the dkv kernel's input, and no
-    # input or output of the backward as a whole)
-    pairs = b * h * s * (s + 1) / 2
+    # the work these inputs need: visible (row, key) pairs (causal, and
+    # equal ids); each input read once and each output written once
+    # (2-byte tensors, 4-byte lse and di and ids; di is the dq kernel's
+    # output and the dkv kernel's input, and no input or output of the
+    # backward as a whole)
+    pairs = float(keep.sum()) * (h if keep.shape[1] == 1 else 1) * (
+        b if keep.shape[0] == 1 else 1)
+    del keep
     t = b * h * s * d * 2
-    rows = b * h * s * 4
+    rows = b * h * s * 4 + (0 if ids is None else b * s * 4)
 
     def bound(products, nbytes):
         fl, by = 2 * products * d * pairs / PEAK_FLOPS, nbytes / PEAK_BYTES
@@ -729,20 +790,22 @@ def time_flash(att, b, h, s, d):
         return lambda: torch.autograd.grad(fn(qg, kg, vg), (qg, kg, vg), do)
 
     def plain_fwd_bwd():
-        po, plse = att.flash_attention_reference(q, k, v, causal=True)
-        att._flash_backward_reference(q, k, v, po, plse, do, causal=True)
+        po, plse = att.flash_attention_reference(q, k, v, **kw)
+        att._flash_backward_reference(q, k, v, po, plse, do, **kw)
 
     events = [
-        ("kernel", lambda: att.flash_attention(q, k, v, causal=True),
-         fwd_bwd(lambda a, b_, c: att.flash_attention(a, b_, c, causal=True)),
-         n),
-        ("plain", lambda: att.flash_attention_reference(q, k, v, causal=True),
+        ("kernel", lambda: att.flash_attention(q, k, v, **kw),
+         fwd_bwd(lambda a, b_, c: att.flash_attention(a, b_, c, **kw)), n),
+        ("plain", lambda: att.flash_attention_reference(q, k, v, **kw),
          plain_fwd_bwd, 2),
-        ("library", lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True), fwd_bwd(
-            lambda a, b_, c: F.scaled_dot_product_attention(
-                a, b_, c, is_causal=True)), n)]
-    print(f"  CUDA events, B={b} H={h} S={s}: " + "; ".join(
+        ("library", lambda: F.scaled_dot_product_attention(q, k, v, **sdpa),
+         fwd_bwd(lambda a, b_, c: F.scaled_dot_product_attention(
+             a, b_, c, **sdpa)), n)]
+    what = f"B={b} H={h} S={s}" + ("" if ids is None else " packed")
+    if ids is not None:
+        print(f"  tile_classes (the class map, in the forward's time) {what}: "
+              f"{classes * 1e3:.1f} us", flush=True)
+    print(f"  CUDA events, {what}: " + "; ".join(
         f"{name} forward {cuda_time_ms(f, it, warmup=1) * 1e3:.1f} us, "
         f"forward+backward {cuda_time_ms(fb, it, warmup=1) * 1e3:.1f} us"
         for name, f, fb, it in events), flush=True)
@@ -764,7 +827,7 @@ def time_flash(att, b, h, s, d):
                                         backward=backward),
     }
     for name, r in list(out.items()) + [("backward (dq + dkv)", backward)]:
-        print(f"  {name:24} B={b} H={h} S={s}: {r['ms'] * 1e3:9.1f} us, "
+        print(f"  {name:24} {what}: {r['ms'] * 1e3:9.1f} us, "
               f"bound {r['bound'][0] * 1e3:7.1f} us ({r['bound'][1]}), plain "
               f"{r['plain_ms'] * 1e3:9.1f} us, library "
               f"{r['library_ms'] * 1e3:7.1f} us", flush=True)
@@ -776,7 +839,8 @@ def time_flash(att, b, h, s, d):
     five = bound(5, 8 * t + rows)[0]
     for name, ms, products in (("dq", dq, 3), ("dkv", dkv, 4),
                                ("backward", dq + dkv, 7)):
-        print(f"  {name:8} S={s}: {2 * products * d * pairs / ms / 1e9:6.1f} "
+        print(f"  {name:8} {what}: "
+              f"{2 * products * d * pairs / ms / 1e9:6.1f} "
               f"TFLOP/s on its {products} products, "
               f"{100 * five / ms:5.1f}% of the 5-product bound "
               f"({five * 1e3:.1f} us), {ms / lib_bwd:.3f}x SDPA's backward "
@@ -784,23 +848,110 @@ def time_flash(att, b, h, s, d):
     return out
 
 
-def check_deterministic(att, b, h, s, d):
+def check_deterministic(att, b, h, s, d, segment_ids=None):
     """Two backward calls on the same inputs give the same bits."""
     q, k, v, do = flash_inputs(b, h, s, s, d, torch.bfloat16, seed=2)
     scale = 1.0 / math.sqrt(d)
-    o, lse = att._fwd_cuda(q, k, v, None, True, scale, None)
+    ids = None if segment_ids is None else torch.as_tensor(
+        np.asarray(segment_ids), device="cuda")
+    vis = att._Visibility(q, ids, None)
+    o, lse = att._fwd_cuda(q, k, v, None, True, scale, None, vis)
     first, second = (att._bwd_cuda(q, k, v, o, lse, do, None, True, scale,
-                                   None) for _ in range(2))
+                                   None, vis) for _ in range(2))
     for what, x, y in zip(("dq", "dk", "dv"), first, second):
         if not torch.equal(x, y):
             raise AssertionError(f"flash backward: {what} differs between "
                                  f"two calls on the same inputs")
-    print(f"  determinism    B={b} H={h} S={s} D={d}: two backward calls "
+    print(f"  determinism    B={b} H={h} S={s} D={d}"
+          f"{'' if ids is None else ' packed ids'}: two backward calls "
           f"give equal dq, dk and dv", flush=True)
 
 
+def packed_batch(seed=0):
+    """Phase 10's batch: documents of uniform length PACK_DOC_LENS with
+    token ids uniform over the vocabulary, from a numpy seed, packed by the
+    port's pack_documents into rows of PACK_CTX; the first PACK_BATCH rows,
+    a dict of int32 arrays (tokens, targets, segment_ids, positions)."""
+    from lamp_tpu_torch.data import pack_documents
+
+    rng = np.random.RandomState(seed)
+    lo, hi = PACK_DOC_LENS
+    docs = [rng.randint(0, VOCAB, rng.randint(lo, hi + 1))
+            for _ in range(8 * PACK_BATCH)]
+    packed = pack_documents(docs, PACK_CTX)
+    return {key: a[:PACK_BATCH] for key, a in packed.items()}
+
+
+def check_flash_branches(att, check):
+    """The branches the TPU kernels take beyond causal, window and kv
+    lengths: segment ids (packed, a pair with Sq != Skv, unsorted), masks
+    (prefix-LM broadcast over heads, per-head block-sparse with runs of
+    more than kStages skipped tiles, [1, 1, Sq, Skv], composed with
+    lengths and ids), head dims 32, 16 and 96, float16, and a segmented
+    backward twice, bit for bit."""
+    dev = "cuda"
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    rng = np.random.RandomState(1)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    packed = packed_batch()["segment_ids"]
+    check("packed ids", PACK_BATCH, LM_HEADS, PACK_CTX, PACK_CTX, 64, bf16,
+          True, segment_ids=packed)
+    check("ids pair", 2, 4, 700, 1100, 64, bf16, False,
+          segment_ids=(np.sort(rng.randint(0, 6, (2, 700)), 1),
+                       np.sort(rng.randint(0, 6, (2, 1100)), 1)))
+    check("unsorted ids", 2, 4, 1000, 1000, 64, bf16, True,
+          segment_ids=rng.randint(0, 3, (2, 1000)))
+    s = 1000
+    rows = torch.arange(s, device=dev)[:, None]
+    cols = torch.arange(s, device=dev)[None, :]
+    prefix = torch.tensor([300, 650], device=dev)[:, None, None, None]
+    check("prefix-LM mask", 2, 4, s, s, 64, bf16, False,
+          mask=(cols < prefix) | (cols <= rows))  # [B, 1, S, S]
+    # per head, the even 64-row blocks see their own diagonal block of
+    # 256, 512 or 768 keys, the odd ones every key: a 128-row dq block's
+    # halves then skip and compute different runs of tiles (up to 11
+    # skipped 128-key tiles in a row, more than the ring's 4 stages)
+    s = 2048
+    rows = torch.arange(s, device=dev)[:, None]
+    cols = torch.arange(s, device=dev)[None, :]
+    heads = []
+    for hh in range(4):
+        blk = 256 * (1 + hh % 3)
+        heads.append(((rows // 64) % 2 == 1) | (rows // blk == cols // blk))
+    check("block-sparse", 2, 4, s, s, 64, bf16, False,
+          mask=torch.stack(heads)[None].expand(2, 4, s, s).contiguous())
+    s = 777
+    eye = torch.eye(s, dtype=torch.bool, device=dev)
+    check("mask [1,1]", 2, 4, s, s, 64, bf16, True,
+          mask=((torch.rand(s, s, generator=gen, device=dev) < 0.75)
+                | eye)[None, None])
+    s = 1000
+    eye = torch.eye(s, dtype=torch.bool, device=dev)
+    composed = dict(
+        lengths=[900, 1000], segment_ids=np.sort(rng.randint(0, 6, (2, s)), 1),
+        mask=(torch.rand(2, 1, s, s, generator=gen, device=dev) < 0.9) | eye)
+    check("composed", 2, 4, s, s, 64, bf16, True, **composed)
+    ids = np.sort(rng.randint(0, 4, (2, s)), 1)
+    for d in (32, 16, 96):
+        check(f"head_dim {d}", 2, 4, s, s, d, bf16, True, lengths=[1000, 555])
+        check(f"head_dim {d} ids", 2, 4, s, s, d, bf16, True, segment_ids=ids)
+        check(f"f32 head {d}", 1, 4, 300, 400, d, f32, False)
+        check(f"f32 head {d} ids", 2, 4, 512, 512, d, f32, True,
+              segment_ids=ids[:, :512])
+    check("head_dim 96 window", 2, 4, s, s, 96, bf16, True, window=300)
+    check("f32 composed", 2, 4, s, s, 64, f32, True, **composed)
+    check("f16", 2, LM_HEADS, 2048, 2048, 64, f16, True)
+    check("f16 head 128", 2, 8, s, s, 128, f16, True, lengths=[1000, 555])
+    check("f16 ids", 2, 4, s, s, 64, f16, True, segment_ids=ids)
+    check("f16 head 32 mask", 2, 4, s, s, 32, f16, True,
+          mask=composed["mask"])
+    check_deterministic(att, PACK_BATCH, LM_HEADS, PACK_CTX, 64,
+                        segment_ids=packed)
+    return packed
+
+
 def phase_flash(att):
-    checks = {torch.bfloat16: [], torch.float32: []}
+    checks = {torch.bfloat16: [], torch.float16: [], torch.float32: []}
 
     def check(*args, **kw):
         result = check_flash(att, *args, **kw)
@@ -842,6 +993,7 @@ def phase_flash(att):
           lengths=np.stack([np.where(rows % 128 < 64, 2 + rows % 5, 1000),
                             np.where(rows % 128 < 64, 1000, 2 + rows % 5)]))
     check_deterministic(att, 2, LM_HEADS, 4096, 64)
+    packed = check_flash_branches(att, check)
     for dtype, results in checks.items():
         print(f"  {str(dtype)[6:]}: largest block error "
               f"{max(r[1] for r in results):.3e}, limit "
@@ -849,8 +1001,12 @@ def phase_flash(att):
               f"{min(r[2] for r in results):.3e}", flush=True)
     times = time_flash(att, 2, LM_HEADS, 4096, 64)
     time_flash(att, 8, LM_HEADS, 384, 64)  # printed: the flagship shape
+    # phase 10's packed shapes
+    packed_times = time_flash(att, PACK_BATCH, LM_HEADS, PACK_CTX, 64,
+                              segment_ids=packed)
     for i, name in enumerate(times):
         times[name]["max_abs_err"] = max(e[i] for e in errs)
+        times[name]["packed"] = packed_times[name]
     return times
 
 
@@ -875,16 +1031,16 @@ def profile_train_step(step, state, batch):
               f"{e.self_device_time_total:8.0f} us  x{e.count:<5} "
               f"{e.key[:90]}")
     names = " ".join(e.key for e in device)
-    for ours in ("fwd_bf16", "dq_bf16", "dkv_bf16"):
+    for ours in ("fwd_tc", "dq_tc", "dkv_tc"):
         if ours not in names:
             raise AssertionError(f"the step ran no {ours} kernel")
     shares = {ours: sum(e.self_device_time_total for e in device
                         if ours in e.key) for ours in
-              ("fwd_bf16", "dq_bf16", "dkv_bf16")}
+              ("fwd_tc", "dq_tc", "dkv_tc")}
     print("  attention kernels' device time: " + ", ".join(
         f"{ours} {us:.0f} us ({100 * us / busy:.1f}%)"
         for ours, us in shares.items()) + f"; K2 (dq + dkv) "
-        f"{100 * (shares['dq_bf16'] + shares['dkv_bf16']) / busy:.1f}% of "
+        f"{100 * (shares['dq_tc'] + shares['dkv_tc']) / busy:.1f}% of "
         f"the busy time", flush=True)
     for library in ("flash_fwd", "flash_bwd", "fmha", "efficient_attention",
                     "cudnn"):
@@ -1626,6 +1782,150 @@ def phase_adamw_train(torch_nn, train, att, FA, flagship):
     return launches
 
 
+# phase 4: MultiheadAttention at the head dims of the JAX package's other
+# examples: (name, width, heads, blocks, vocab, context), bert.py's
+# defaults (head_dim 32) and translation.py's (head_dim 16)
+SMALL_HEAD_MODELS = (("bert width", 128, 4, 4, 8192, 128),
+                     ("translation width", 64, 4, 2, 32, 64))
+
+
+def check_small_heads(torch_nn, optim, train):
+    """A GPT LanguageModelModule at each SMALL_HEAD_MODELS width takes 3
+    training steps on the card (bf16, f32 AdamW masters): finite losses,
+    and each step's blocks launch the flash-attention kernels (their
+    head dims ran on CPU only before). Returns the launches."""
+    dev = torch.device("cuda")
+    total = {"flash_attention": 0, "flash_attention_backward": 0}
+    for name, dim, heads, blocks, vocab, ctx in SMALL_HEAD_MODELS:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        model = torch_nn.LanguageModelModule.init(
+            vocab_size=vocab, context_length=ctx, num_blocks=blocks,
+            embed_dim=dim, attention_heads=heads, generator=gen,
+            dtype=torch.bfloat16, device=dev)
+        opt = optim.AdamW(model.named_parameters(), 1e-3)
+
+        def loss_fn(m, b, generator, train_mode):
+            logits = m(b[0], train=train_mode, generator=generator)
+            return torch_nn.lm_loss(logits, b[1]), b[0].shape[0]
+
+        step = train.make_train_step(opt, loss_fn)
+        state = train.TrainState.init(model, opt)
+        rng = np.random.RandomState(0)
+        tokens = torch.as_tensor(rng.randint(0, vocab, (8, ctx)), device=dev)
+        batch = (tokens, torch.roll(tokens, -1, dims=-1))
+        reset_launch_counts()
+        losses = [float(step(state, batch)[1][0]) for _ in range(3)]
+        launches = launch_counts()
+        got = (launches["flash_attention"],
+               launches["flash_attention_backward"])
+        if got != (3 * blocks, 3 * blocks):
+            raise AssertionError(f"{name}: launches {got}, want "
+                                 f"{3 * blocks} each")
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"{name}: a loss is not finite: {losses}")
+        print(f"  {name}: {dim} wide, {heads} heads (head_dim "
+              f"{dim // heads}), {blocks} blocks, ctx {ctx}: 3 steps, "
+              f"losses {' '.join(f'{x:.4f}' for x in losses)}; launches "
+              f"fwd {got[0]} bwd {got[1]}", flush=True)
+        for key in total:
+            total[key] += launches[key]
+        del model, opt, state
+    return total
+
+
+def phase_packed(torch_nn, optim, train, att):
+    """Packed-document ModernLM training at full width: the serving
+    configuration's model (12 blocks, 768 wide, 12/4 heads, SwiGLU 2048,
+    vocab 32000, tied) at context 2048, bf16 with f32 AdamW masters, 4
+    packed rows a step through ModernLM.loss (segment ids to the flash
+    kernels, per-document RoPE positions, the fused cross-entropy). Checks
+    the first loss against the same model with plain attention, then runs
+    2 warm-up and 5 timed steps (CUDA events; K1/K2 launches 12 a step),
+    10 steps on one batch (the loss must fall) and one profiled step, and
+    prints peak memory beside the f32 scores mha_reference would keep.
+    Returns the timed steps' launches and figures."""
+    from lamp_tpu_torch.nn import modern
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = torch_nn.ModernLM.init(
+        vocab_size=VOCAB, context_length=PACK_CTX, num_blocks=BLOCKS,
+        embed_dim=DIM, num_heads=HEADS, num_kv_heads=KV_HEADS,
+        generator=gen, dtype=torch.bfloat16, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = optim.AdamW(model.named_parameters(), 3e-4, weight_decay=0.01)
+    state = train.TrainState.init(model, opt)
+    step = train.make_train_step(opt, train.packed_lm_loss)
+
+    def to_batch(p):
+        return (torch.as_tensor(p["tokens"], device=dev).long(),
+                torch.as_tensor(p["targets"], device=dev).long(),
+                torch.as_tensor(p["segment_ids"], device=dev),
+                torch.as_tensor(p["positions"], device=dev).long())
+
+    batches = [to_batch(packed_batch(seed)) for seed in range(7)]
+    tokens = PACK_BATCH * PACK_CTX
+    targets = int((batches[0][1] != -100).sum())
+    # the first loss against the same weights with plain attention (the
+    # whole score matrix, mha_reference): the kernels' path is right
+    with torch.no_grad():
+        got = float(model.loss(*batches[0][:2], segment_ids=batches[0][2],
+                               positions=batches[0][3]))
+        kernel = modern.flash_attention
+        modern.flash_attention = (
+            lambda q, k, v, **kw: att.mha_reference(q, k, v, **kw))
+        try:
+            want = float(model.loss(*batches[0][:2],
+                                    segment_ids=batches[0][2],
+                                    positions=batches[0][3]))
+        finally:
+            modern.flash_attention = kernel
+    print(f"  packed: first loss {got:.5f}, with plain attention "
+          f"{want:.5f} (|diff| {abs(got - want):.2e}, limit 2e-2: bf16 "
+          f"activations rounded at other places)", flush=True)
+    if not abs(got - want) <= 2e-2:
+        raise AssertionError(f"packed: loss {got} against plain {want}")
+    losses = [step(state, b)[1][0] for b in batches[:2]]
+    # the main path's run: the launch counts cover exactly these steps
+    reset_launch_counts()
+    steps = 5
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for b in batches[2:2 + steps]:
+        losses.append(step(state, b)[1][0])
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / steps
+    launches = launch_counts()
+    got = (launches["flash_attention"], launches["flash_attention_backward"])
+    if got != (BLOCKS * steps, BLOCKS * steps):
+        raise AssertionError(f"packed: launches {got}, want "
+                             f"{BLOCKS * steps} each")
+    if not bool(torch.isfinite(torch.stack(losses)).all()):
+        raise AssertionError(f"packed: a loss is not finite: {losses}")
+    tok_s = tokens / (ms * 1e-3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    scores = PACK_BATCH * HEADS * PACK_CTX ** 2 * 4 * BLOCKS / 2**30
+    print(f"  packed: ctx {PACK_CTX}, {PACK_BATCH} rows ({tokens} tokens, "
+          f"{targets} with a target), {n_params} params, AdamW: "
+          f"{ms:.2f} ms/step, {tok_s:.1f} train tok/s; launches fwd "
+          f"{got[0]} bwd {got[1]} (12 x {steps}); peak memory {peak:.2f} "
+          f"GiB (mha_reference would keep {scores:.2f} GiB of f32 scores "
+          f"[B, H, T, T] for the backward alone)", flush=True)
+    fixed = [step(state, batches[0])[1][0] for _ in range(10)]
+    first, last = float(fixed[0]), float(fixed[-1])
+    print(f"  packed: 10 steps on one batch: loss {first:.4f} -> "
+          f"{last:.4f}", flush=True)
+    if not last < first:
+        raise AssertionError("packed: loss did not fall on one batch")
+    profile_train_step(step, state, batches[1])
+    del model, opt, state
+    return dict(ms=ms, tok_s=tok_s, peak_gib=peak, launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -1661,6 +1961,7 @@ def main() -> int:
         model, models, paged_attention)
     print("phase 4: flash attention kernels vs plain", flush=True)
     flash = phase_flash(att)
+    small_heads = check_small_heads(torch_nn, optim, train)
     print("phase 5: training slice at full width", flush=True)
     fwd_launches, bwd_launches, flagship = phase_train(torch_nn, optim,
                                                        train, att)
@@ -1682,6 +1983,13 @@ def main() -> int:
     print("phase 9: the flagship under AdamWStochastic at full width",
           flush=True)
     k4["launches"] = phase_adamw_train(torch_nn, train, att, FA, flagship)
+    print("phase 10: packed-document ModernLM training at full width",
+          flush=True)
+    packed = phase_packed(torch_nn, optim, train, att)
+    for key in ("flash_attention", "flash_attention_backward"):
+        small_heads[key] += packed["launches"][key]
+    fwd_launches += small_heads["flash_attention"]
+    bwd_launches += small_heads["flash_attention_backward"]
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1703,6 +2011,16 @@ def main() -> int:
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound"][0], bound_by=r["bound"][1],
             library_ms=r["library_ms"])
+        pk = r["packed"]
+        row["packed"] = dict(
+            note="phase 10's shapes (B=4, H=12, S=2048, D=64, bf16, causal, "
+                 "packed segment ids); library: SDPA with the equivalent "
+                 "boolean attn_mask; launches: phase 10's 5 timed steps",
+            ms=pk["ms"], plain_ms=pk["plain_ms"], bound_ms=pk["bound"][0],
+            bound_by=pk["bound"][1], library_ms=pk["library_ms"],
+            launches=packed["launches"][
+                "flash_attention" if name.endswith("fwd")
+                else "flash_attention_backward"])
         if "backward" in r:  # plain_ms and library_ms time dq, dk and dv
             bwd = r["backward"]
             row["backward"] = dict(

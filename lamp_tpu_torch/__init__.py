@@ -16,12 +16,14 @@ training (``nn.LanguageModelModule``, ``optim.AdamW``,
 serving (``ModernBatchServer(quantize_bits=4|8, kv_dtype=fp8)`` over the
 int4 matmul kernel and fp8 KV pools; ``ops.quantize_model``), the fused
 AdamW with stochastic rounding (``ops.AdamWStochastic``) and the opt-in
-fused LayerNorm (``ops.fused_layernorm``);
+fused LayerNorm (``ops.fused_layernorm``), and packed-document ModernLM
+training (``data.pack_documents``, ``nn.ModernLM.loss`` over
+``ops.fused_lm_loss`` and the flash-attention kernels with segment ids);
 ``bridge.load_modern_lm``, ``bridge.load_language_model``,
 ``bridge.load_quantized_linear`` and ``bridge.load_adamw_state`` carry a JAX
 model's weights, quantized layers and optimizer state across.
 """
 
-from . import models, nn, ops, optim, train
+from . import data, models, nn, ops, optim, train
 
-__all__ = ["models", "nn", "ops", "optim", "train"]
+__all__ = ["data", "models", "nn", "ops", "optim", "train"]

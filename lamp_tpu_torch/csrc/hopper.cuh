@@ -1,29 +1,32 @@
 // Hopper (sm_90a) building blocks in raw PTX: mbarriers, TMA tensor loads,
-// warpgroup matrix multiplies (wgmma) on 128-byte-swizzled shared-memory
-// tiles, register reallocation between warpgroups, and the host-side
-// encoding of TMA tensor maps. Included by the kernels that use them.
+// warpgroup matrix multiplies (wgmma, bf16 or f16 inputs, f32 accumulators)
+// on swizzled shared-memory tiles, register reallocation between
+// warpgroups, and the host-side encoding of TMA tensor maps. Included by
+// the kernels that use them.
 //
-// Tile layout. A bf16 tile of R rows by D columns (D a multiple of 64) lies
-// in shared memory as D / 64 column blocks of [R][64], each row 128 bytes,
-// written by TMA with CU_TENSOR_MAP_SWIZZLE_128B: in every 1024-byte atom
-// of 8 rows, the 16-byte chunk c of row r sits at chunk c ^ (r % 8). Each
-// column block starts on a 1024-byte boundary. wgmma reads such a tile
-// through a matrix descriptor (layout type 1, 128-byte swizzle):
+// Tile layout. A 16-bit tile of R rows by D columns lies in shared memory as
+// column blocks of [R][W / 2], each row W bytes, where W is the swizzle:
+// 128 bytes (64 columns) for D a multiple of 64, 64 bytes (32 columns) for
+// D = 32. TMA writes it with CU_TENSOR_MAP_SWIZZLE_128B (or _64B): in every
+// atom of 8 rows (1024 or 512 bytes), the 16-byte chunk c of row r sits at
+// chunk c ^ (r % 8) (128B), or c ^ ((r / 2) % 4) (64B). Each column block
+// starts on a 1024-byte boundary. wgmma reads such a tile through a matrix
+// descriptor (layout type 1 for the 128-byte swizzle, 2 for 64):
 //  - K-major (the product's depth runs along the row, as for A = Q and
 //    B = K in S = Q K^T): the 16-column slice kk starts at column block
-//    kk / 4, byte (kk % 4) * 32 of the row; 8-row groups lie 1024 bytes
-//    apart (SBO); the leading offset is unused.
+//    kk / (W / 32), byte (kk % (W / 32)) * 32 of the row; 8-row groups lie
+//    8 W bytes apart (SBO); the leading offset is unused.
 //  - MN-major (the depth runs down the rows, as for B = K in dQ = dS K):
-//    the 16-row slice kk starts 16 * 128 bytes further down; 8-row groups
-//    lie 1024 bytes apart (SBO) and the 64-column blocks R * 128 bytes
-//    apart (LBO); the instruction's transpose bit is set.
+//    the 16-row slice kk starts 16 W bytes further down; 8-row groups lie
+//    8 W bytes apart (SBO) and the column blocks R W bytes apart (LBO); the
+//    instruction's transpose bit is set.
 //
 // Register fragments. An m64nN f32 accumulator is N / 2 floats a thread:
 // in the warpgroup, warp w owns rows 16w..16w+15; lane 4g + t holds, for
 // every 8-column chunk j, d[4j], d[4j+1] at row 16w + g, columns 8j + 2t,
 // 8j + 2t + 1, and d[4j+2], d[4j+3] at row 16w + g + 8. A register A
 // operand of m64nNk16 (64 rows by 16 of depth) is four 32-bit registers of
-// bf16 pairs: (row g, k 2t), (row g + 8, k 2t), (row g, k 2t + 8), (row
+// 16-bit pairs: (row g, k 2t), (row g + 8, k 2t), (row g, k 2t + 8), (row
 // g + 8, k 2t + 8). So the accumulator columns 16kk..16kk+15 become the A
 // operand of depth slice kk by packing d[8kk..8kk+7] in pairs (acc_to_a).
 
@@ -31,8 +34,11 @@
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace hopper {
 
@@ -116,25 +122,32 @@ __device__ __forceinline__ void regs_inc() {
 // wgmma
 // ---------------------------------------------------------------------------
 
-// descriptor of a 128-byte-swizzled shared-memory matrix (see the header)
-__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo,
-                                               uint32_t sbo) {
+// descriptor of a W-byte-swizzled shared-memory matrix (W = 128 or 64; see
+// the header)
+template <int W>
+__device__ __forceinline__ uint64_t sw_desc(const void* p, uint32_t lbo,
+                                            uint32_t sbo) {
+  static_assert(W == 128 || W == 64, "128- or 64-byte swizzle");
+  constexpr uint64_t layout = W == 128 ? 1 : 2;
   return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (layout << 62);
 }
 
-// depth slice kk of a K-major tile of R rows
-template <int R>
+// depth slice kk of a K-major tile of R rows in column blocks of W bytes
+template <int R, int W = 128>
 __device__ __forceinline__ uint64_t desc_k(const unsigned char* tile, int kk) {
-  return sw128_desc(tile + (kk / 4) * R * 128 + (kk % 4) * 32, 16, 1024);
+  constexpr int kSlices = W / 32;  // 16-column slices a column block holds
+  return sw_desc<W>(tile + (kk / kSlices) * R * W + (kk % kSlices) * 32, 16,
+                    8 * W);
 }
 
-// depth slice kk (rows 16kk..16kk+15) of an MN-major tile of R rows
-template <int R>
+// depth slice kk (rows 16kk..16kk+15) of an MN-major tile of R rows in
+// column blocks of W bytes
+template <int R, int W = 128>
 __device__ __forceinline__ uint64_t desc_mn(const unsigned char* tile,
                                             int kk) {
-  return sw128_desc(tile + kk * 16 * 128, R * 128, 1024);
+  return sw_desc<W>(tile + kk * 16 * W, R * W, 8 * W);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -164,152 +177,109 @@ __device__ __forceinline__ void wg_keep(uint32_t (&r)[R][4]) {
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+// two floats rounded to a pair of T (bf16 or f16), as one 32-bit register
+template <typename T>
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, __half>::value) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+
+// a pair of T as two floats
+template <typename T>
+__device__ __forceinline__ float2 unpack2(T a, T b) {
+  if constexpr (std::is_same<T, __half>::value)
+    return make_float2(__half2float(a), __half2float(b));
+  else
+    return make_float2(__bfloat162float(a), __bfloat162float(b));
 }
 
 // an m64nN accumulator as the register A operands of N / 16 depth slices
-template <int N>
+template <int N, typename T>
 __device__ __forceinline__ void acc_to_a(uint32_t (&a)[N / 16][4],
                                          const float (&d)[N / 2]) {
 #pragma unroll
   for (int kk = 0; kk < N / 16; ++kk)
 #pragma unroll
     for (int r = 0; r < 4; ++r)
-      a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
+      a[kk][r] = pack2<T>(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
 }
 
-// D (m64nN, f32) = (scale_d ? D : 0) + A B, A and B bf16 in shared memory,
-// both K-major (N = 32, 64, 128)
-template <int N>
+// The accumulator operands of m64nN: N / 2 floats, "+f"(d[i]) each.
+#define LAMP_ACC8(i)                                                      \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),             \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define LAMP_ACC16 LAMP_ACC8(0), LAMP_ACC8(8)
+#define LAMP_ACC32 LAMP_ACC16, LAMP_ACC8(16), LAMP_ACC8(24)
+#define LAMP_ACC64 \
+  LAMP_ACC32, LAMP_ACC8(32), LAMP_ACC8(40), LAMP_ACC8(48), LAMP_ACC8(56)
+// their places in the instruction's text
+#define LAMP_R16                                                         \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define LAMP_R32                                                         \
+  LAMP_R16 ", %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, "  \
+           "%27, %28, %29, %30, %31"
+#define LAMP_R64                                                         \
+  LAMP_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "  \
+           "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, " \
+           "%55, %56, %57, %58, %59, %60, %61, %62, %63"
+
+// D = (scale_d ? D : 0) + A B, both from shared memory, K-major; TY is the
+// inputs' type (bf16 or f16), A and B the operands after the accumulator
+#define LAMP_WGMMA_SS(N, TY, REGS, ACC, A, B, P)                          \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" P ", 0;\n"              \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY \
+               " {" REGS "}, %" A ", %" B ", p, 1, 1, 0, 0;\n}\n"          \
+               : ACC                                                      \
+               : "l"(a), "l"(b), "r"(scale_d))
+// D += A B, A from registers, B from shared memory, MN-major
+#define LAMP_WGMMA_RS(N, TY, REGS, ACC, A0, B, P)                         \
+  asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %" P ", 0;\n"              \
+               "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32." TY "." TY \
+               " {" REGS "}, {%" A0 "}, %" B ", p, 1, 1, 1;\n}\n"          \
+               : ACC                                                      \
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1))
+
+// D (m64nN, f32) = (scale_d ? D : 0) + A B, A and B of type T (bf16 or
+// f16) in shared memory, both K-major (N = 32, 64, 128)
+template <int N, typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
-                                         uint64_t b, int scale_d);
-// D (m64nN, f32) += A B, A bf16 in registers, B bf16 in shared memory,
-// MN-major (N = 64, 128)
-template <int N>
+                                         uint64_t b, int scale_d) {
+  constexpr bool f16 = std::is_same<T, __half>::value;
+  static_assert(N == 32 || N == 64 || N == 128, "m64nNk16, N = 32, 64, 128");
+  if constexpr (N == 32) {
+    if constexpr (f16) LAMP_WGMMA_SS(32, "f16", LAMP_R16, LAMP_ACC16, "16", "17", "18");
+    else LAMP_WGMMA_SS(32, "bf16", LAMP_R16, LAMP_ACC16, "16", "17", "18");
+  } else if constexpr (N == 64) {
+    if constexpr (f16) LAMP_WGMMA_SS(64, "f16", LAMP_R32, LAMP_ACC32, "32", "33", "34");
+    else LAMP_WGMMA_SS(64, "bf16", LAMP_R32, LAMP_ACC32, "32", "33", "34");
+  } else {
+    if constexpr (f16) LAMP_WGMMA_SS(128, "f16", LAMP_R64, LAMP_ACC64, "64", "65", "66");
+    else LAMP_WGMMA_SS(128, "bf16", LAMP_R64, LAMP_ACC64, "64", "65", "66");
+  }
+}
+
+// D (m64nN, f32) += A B, A of type T in registers, B in shared memory,
+// MN-major (N = 32, 64, 128)
+template <int N, typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
-                                         const uint32_t (&a)[4], uint64_t b);
-
-template <>
-__device__ __forceinline__ void wgmma_ss<32>(float (&d)[16], uint64_t a,
-                                             uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
-                                             uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a,
-                                              uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
-        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
-        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
-        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
-                                             const uint32_t (&a)[4],
-                                             uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
-        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
-        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
-        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+                                         const uint32_t (&a)[4], uint64_t b) {
+  constexpr bool f16 = std::is_same<T, __half>::value;
+  static_assert(N == 32 || N == 64 || N == 128, "m64nNk16, N = 32, 64, 128");
+  if constexpr (N == 32) {
+    if constexpr (f16) LAMP_WGMMA_RS(32, "f16", LAMP_R16, LAMP_ACC16, "16, %17, %18, %19", "20", "21");
+    else LAMP_WGMMA_RS(32, "bf16", LAMP_R16, LAMP_ACC16, "16, %17, %18, %19", "20", "21");
+  } else if constexpr (N == 64) {
+    if constexpr (f16) LAMP_WGMMA_RS(64, "f16", LAMP_R32, LAMP_ACC32, "32, %33, %34, %35", "36", "37");
+    else LAMP_WGMMA_RS(64, "bf16", LAMP_R32, LAMP_ACC32, "32, %33, %34, %35", "36", "37");
+  } else {
+    if constexpr (f16) LAMP_WGMMA_RS(128, "f16", LAMP_R64, LAMP_ACC64, "64, %65, %66, %67", "68", "69");
+    else LAMP_WGMMA_RS(128, "bf16", LAMP_R64, LAMP_ACC64, "64, %65, %66, %67", "68", "69");
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -343,27 +313,33 @@ inline EncodeTiled encoder() {
   return fn;
 }
 
-// what bf16_tile_map returns when libcuda's encoder was not found
+// what tile_map returns when libcuda's encoder was not found
 constexpr int kNoEncoder = -1;
 
-// encodes the map of a contiguous bf16 tensor [slabs, rows, cols] read in
-// boxes of box_rows x 64 columns, 128-byte swizzled; reads past an edge give
-// 0. Returns 0, libcuda's CUresult, or kNoEncoder.
-inline int bf16_tile_map(CUtensorMap* map, const void* base, int slabs,
-                         int rows, int cols, int box_rows) {
+// encodes the map of a contiguous [slabs, rows, cols] tensor of T (bf16 or
+// f16) read in boxes of box_rows x W / 2 columns, W-byte swizzled (W = 128
+// or 64); reads past an edge give 0, also where a box is wider than the
+// tensor's rows. Returns 0, libcuda's CUresult, or kNoEncoder.
+template <typename T, int W>
+int tile_map(CUtensorMap* map, const void* base, int slabs, int rows,
+             int cols, int box_rows) {
+  static_assert(W == 128 || W == 64, "128- or 64-byte swizzle");
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return kNoEncoder;
   const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)rows,
                               (cuuint64_t)slabs};
   const cuuint64_t strides[2] = {(cuuint64_t)cols * 2,
                                  (cuuint64_t)rows * cols * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box_rows, 1};
+  const cuuint32_t box[3] = {W / 2, (cuuint32_t)box_rows, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   return static_cast<int>(encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-      strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+      map,
+      std::is_same<T, __half>::value ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      3, const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE,
+      W == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
 
 }  // namespace hopper

@@ -2,9 +2,12 @@
 llama-style decoder blocks.
 
 Counterpart of :mod:`lamp_tpu.nn.modern`. Modules return their output only
-(the JAX modules return ``(output, module)``). ``LlamaBlock`` always attends
-with the plain :func:`~lamp_tpu_torch.ops.attention.mha_reference`; the JAX
-block's length dispatch to its TPU flash/compact kernels is not ported.
+(the JAX modules return ``(output, module)``). ``LlamaBlock`` attends with
+the flash-attention kernels on CUDA tensors at every length (the JAX
+block's flash/compact length bands are TPU dispatch: the port has one
+kernel), segment ids included, and with the plain
+:func:`~lamp_tpu_torch.ops.attention.mha_reference` on CPU tensors, as the
+JAX block does off the TPU.
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.attention import mha_reference
+from ..ops.attention import flash_attention, mha_reference
+from ..ops.fused_ce import fused_lm_loss
 from . import init as initializers
 from .layers import Embedding, Linear
 
@@ -211,8 +215,12 @@ class LlamaBlock(nn.Module):
         if hk != h:
             k = k.repeat_interleave(h // hk, dim=1)
             v = v.repeat_interleave(h // hk, dim=1)
-        o = mha_reference(q, k, v, causal=True, window=self.window,
-                          segment_ids=segment_ids)
+        if q.is_cuda:
+            o = flash_attention(q, k, v.contiguous(), causal=True,
+                                window=self.window, segment_ids=segment_ids)
+        else:
+            o = mha_reference(q, k, v, causal=True, window=self.window,
+                              segment_ids=segment_ids)
         x = x + self.w_o(o.transpose(1, 2).reshape(b, t, d))
         return x + self.mlp(self.norm2(x))
 
@@ -288,6 +296,23 @@ class ModernLM(nn.Module):
         if self.lm_head is not None:
             return self.lm_head.weight
         return self.token_embedding.weight
+
+    def loss(self, tokens, targets, *, ignore_index: int = -100,
+             row_chunk: Optional[int] = None, segment_ids=None,
+             positions=None, moe_aux_coef: float = 0.0):
+        """Mean next-token cross-entropy over the non-ignored targets
+        without holding the [B, T, V] logits: the final hidden states go
+        through :func:`~lamp_tpu_torch.ops.fused_ce.fused_lm_loss`. At
+        vocabulary 32000 and 8192 tokens the logits would be the step's
+        largest tensor. ``segment_ids`` and ``positions`` ([B, T]) train on
+        packed documents (``data.pack_documents``). MoE blocks are not
+        ported, so ``moe_aux_coef`` must be 0."""
+        if moe_aux_coef:
+            raise NotImplementedError(
+                "ModernLM.loss: moe_aux_coef (MoE blocks are not ported)")
+        x = self.hidden(tokens, positions=positions, segment_ids=segment_ids)
+        return fused_lm_loss(x, self.output_weight, targets,
+                             ignore_index=ignore_index, row_chunk=row_chunk)
 
     def forward(self, tokens, *, positions=None, segment_ids=None):
         """Logits [B, T, V] in at least f32."""

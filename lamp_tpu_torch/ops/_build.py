@@ -111,9 +111,11 @@ def library() -> ctypes.CDLL:
         ptr,                                          # stream
     ]
     lib.lamp_paged_attention.restype = i32
-    # flash attention: tensors, then bh, heads, sq, skv, head_dim, the two
-    # limit strides, causal, window, sm_scale, dtype and the stream
-    shape = [i32] * 9 + [ctypes.c_float, i32, ptr]
+    # flash attention: tensors, then the visibility (q ids, kv ids, mask,
+    # class map, the mask's four strides, the map's batch and heads), then
+    # bh, heads, sq, skv, head_dim, the two limit strides, causal, window,
+    # sm_scale, dtype and the stream
+    shape = [ptr] * 4 + [i64] * 4 + [i32] * 11 + [ctypes.c_float, i32, ptr]
     lib.lamp_flash_attention_fwd.argtypes = [ptr] * 6 + shape
     # dq: q, k, v, o, do, lse, di (written), limits, dq
     lib.lamp_flash_attention_bwd_dq.argtypes = [ptr] * 9 + shape

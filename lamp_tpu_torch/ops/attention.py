@@ -34,7 +34,7 @@ LANES = 128
 # limit so that the two packages accept the same calls
 COMPACT_MAX_KV = 2048
 
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _segment_mask(segment_ids):
@@ -82,9 +82,8 @@ def mha_reference(q, k, v, *, causal=False, sm_scale=None, mask=None,
 
 def _visible(q, k, *, causal, window, kv_lengths, segment_ids, mask):
     """Boolean [B or 1, H or 1, Sq, Skv]: which key each query row sees.
-    Composes the kernels' rule (kv limits, causal diagonal at Skv - Sq,
-    window) with the segment ids and arbitrary mask that only the plain
-    version takes."""
+    Composes the kernels' rules: kv limits, the causal diagonal at Skv -
+    Sq, the window, equal segment ids and the mask."""
     sq, skv = q.shape[2], k.shape[2]
     rows = torch.arange(sq, device=q.device)[:, None]
     cols = torch.arange(skv, device=q.device)[None, :]
@@ -161,24 +160,25 @@ def _flash_backward_reference(q, k, v, o, lse, do, *, causal=False,
 
 
 def _check_cuda(q, k, v, kv_lengths, segment_ids, mask):
-    """Raise on anything the CUDA kernels do not take."""
-    if segment_ids is not None or mask is not None:
-        raise NotImplementedError(
-            "flash_attention: segment_ids and mask on CUDA tensors (the plain "
-            "version takes them on CPU tensors)")
+    """Raise on anything the CUDA kernels do not take: head dims past 128
+    or not a multiple of 8, float64 or mixed dtypes, bad shapes, tensors
+    on other devices, non-contiguous or misaligned q, k and v, and
+    segment ids or masks of the wrong shape or device."""
     if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype or \
             v.dtype != q.dtype:
         raise TypeError(
-            f"flash_attention kernel takes float32 or bfloat16 q, k and v of "
-            f"one dtype, got {q.dtype}, {k.dtype} and {v.dtype}")
+            f"flash_attention kernel takes float32, bfloat16 or float16 q, "
+            f"k and v of one dtype, got {q.dtype}, {k.dtype} and {v.dtype}")
     b, h, sq, d = q.shape
+    skv = k.shape[2]
     if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
         raise ValueError(
             f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)} and v "
             f"{tuple(v.shape)} must be [B, H, Sq, D] and [B, H, Skv, D]")
-    if d not in (64, 128):
+    if d > 128 or d % 8:
         raise NotImplementedError(
-            f"flash_attention kernel: head_dim {d} (takes 64 or 128)")
+            f"flash_attention kernel: head_dim {d} (takes multiples of 8 up "
+            f"to 128)")
     tensors = [q, k, v] + ([] if kv_lengths is None else [kv_lengths])
     for t in tensors:
         if t.device != q.device:
@@ -193,6 +193,79 @@ def _check_cuda(q, k, v, kv_lengths, segment_ids, mask):
             raise ValueError(
                 f"flash_attention: kv_lengths must be [B]={b} or [B, Sq]="
                 f"{(b, sq)}, got {tuple(kv_lengths.shape)}")
+    if segment_ids is not None:
+        q_ids, kv_ids = (segment_ids if isinstance(segment_ids, tuple)
+                         else (segment_ids, segment_ids))
+        for ids, n, what in ((q_ids, sq, "q"), (kv_ids, skv, "kv")):
+            if tuple(ids.shape) != (b, n):
+                raise ValueError(
+                    f"flash_attention: {what} segment ids must be [B, S]="
+                    f"{(b, n)}, got {tuple(ids.shape)}")
+            if ids.device != q.device or ids.dtype.is_floating_point:
+                raise ValueError(
+                    f"flash_attention: segment ids must be integers on "
+                    f"{q.device}, got {ids.dtype} on {ids.device}")
+    if mask is not None:
+        if mask.device != q.device:
+            raise ValueError(
+                f"flash_attention: mask on {mask.device}, q on {q.device}")
+        shape = (1,) * (4 - mask.dim()) + tuple(mask.shape)
+        if mask.dim() > 4 or any(n not in (1, want) for n, want in
+                                 zip(shape, (b, h, sq, skv))):
+            raise ValueError(
+                f"flash_attention: mask {tuple(mask.shape)} does not "
+                f"broadcast to [B, H, Sq, Skv]={(b, h, sq, skv)}")
+
+
+class _Visibility:
+    """Segment ids and the mask as the kernels read them: int32 ids
+    ([B, Sq], [B, Skv]), the mask as a 4-D boolean view with its strides (0
+    on a broadcast axis; never expanded in memory) and the 64 x 64 class
+    map that the forward writes and the backward reads."""
+
+    def __init__(self, q, segment_ids, mask):
+        b, h, sq, _ = q.shape
+        self.q_ids = self.kv_ids = self.mask = None
+        self.strides = (0, 0, 0, 0)
+        self.map_batch = self.map_heads = 1
+        if segment_ids is not None:
+            q_ids, kv_ids = (segment_ids if isinstance(segment_ids, tuple)
+                             else (segment_ids, segment_ids))
+            # no copy when the ids are int32 and contiguous already
+            self.q_ids = q_ids.to(torch.int32).contiguous()
+            self.kv_ids = kv_ids.to(torch.int32).contiguous()
+            self.map_batch = b
+        if mask is not None:
+            m = mask if mask.dtype == torch.bool else mask != 0
+            m = m[(None,) * (4 - m.dim())]
+            if m.shape[3] > 1 and m.stride(3) != 1:
+                m = m.contiguous()  # the un-broadcast tensor, not [B, H, ..]
+            self.mask = m
+            self.strides = tuple(0 if n == 1 else st
+                                 for n, st in zip(m.shape, m.stride()))
+            self.map_batch = max(self.map_batch, m.shape[0])
+            self.map_heads = m.shape[1]
+        self.tiles = None
+
+    @property
+    def active(self):
+        return self.q_ids is not None or self.mask is not None
+
+    def alloc_map(self, q, skv):
+        """The class map's bytes, for the forward to write."""
+        if self.active:
+            sq = q.shape[2]
+            n = -(-sq // 64) * -(-skv // 64)
+            self.tiles = torch.empty(self.map_batch * self.map_heads * n,
+                                     dtype=torch.uint8, device=q.device)
+
+    def args(self):
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
+        return (ptr(self.q_ids), ptr(self.kv_ids), ptr(self.mask),
+                ptr(self.tiles), *self.strides, self.map_batch,
+                self.map_heads)
 
 
 # the backward's entry points return this plus libcuda's CUresult when
@@ -230,26 +303,34 @@ def _cuda_shape_args(q, k, kv_lengths, causal, window, sm_scale):
                      torch.cuda.current_stream(q.device).cuda_stream)
 
 
-def _fwd_cuda(q, k, v, kv_lengths, causal, sm_scale, window):
+def _fwd_cuda(q, k, v, kv_lengths, causal, sm_scale, window, vis=None):
+    """The forward kernel: ``(o, lse)``. ``vis`` (a :class:`_Visibility`)
+    carries segment ids and a mask; the launch writes its class map."""
     from ._build import library
 
     lib = library()
+    vis = vis or _Visibility(q, None, None)
+    vis.alloc_map(q, k.shape[2])
     o = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
     lim_ptr, shape = _cuda_shape_args(q, k, kv_lengths, causal, window,
                                       sm_scale)
     rc = lib.lamp_flash_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                       lim_ptr, o.data_ptr(), lse.data_ptr(),
-                                      *shape)
+                                      *vis.args(), *shape)
     _raise_on(lib, rc, "forward")
     flash_attention.launches += 1
     return o, lse
 
 
-def _bwd_cuda(q, k, v, o, lse, do, kv_lengths, causal, sm_scale, window):
+def _bwd_cuda(q, k, v, o, lse, do, kv_lengths, causal, sm_scale, window,
+              vis=None):
+    """The backward kernels, dq then dkv: ``(dq, dk, dv)``. ``vis`` is the
+    forward's, its class map written."""
     from ._build import library
 
     lib = library()
+    vis = vis or _Visibility(q, None, None)
     do = do.to(q.dtype).contiguous()
     if do.data_ptr() % 16:  # the kernels read do in 16-byte vectors
         do = do.clone()
@@ -261,11 +342,11 @@ def _bwd_cuda(q, k, v, o, lse, do, kv_lengths, causal, sm_scale, window):
     qkv = (q.data_ptr(), k.data_ptr(), v.data_ptr())
     rc = lib.lamp_flash_attention_bwd_dq(
         *qkv, o.data_ptr(), do.data_ptr(), lse.data_ptr(), di.data_ptr(),
-        lim_ptr, dq.data_ptr(), *shape)
+        lim_ptr, dq.data_ptr(), *vis.args(), *shape)
     _raise_on(lib, rc, "backward dq")
     rc = lib.lamp_flash_attention_bwd_dkv(
         *qkv, do.data_ptr(), lse.data_ptr(), di.data_ptr(), lim_ptr,
-        dk.data_ptr(), dv.data_ptr(), *shape)
+        dk.data_ptr(), dv.data_ptr(), *vis.args(), *shape)
     _raise_on(lib, rc, "backward dkv")
     flash_attention.backward_launches += 1
     return dq, dk, dv
@@ -274,7 +355,8 @@ def _bwd_cuda(q, k, v, o, lse, do, kv_lengths, causal, sm_scale, window):
 class _FlashAttention(torch.autograd.Function):
     """Forward saves ``q, k, v, o, lse``; backward recomputes ``p`` from
     ``lse`` (the JAX ``custom_vjp`` of ``_flash``). CPU tensors take the
-    plain versions, CUDA tensors the kernels."""
+    plain versions, CUDA tensors the kernels, which keep the forward's
+    segment ids, mask and class map for the backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, kv_lengths, segment_ids, mask, causal,
@@ -284,8 +366,11 @@ class _FlashAttention(torch.autograd.Function):
                 q, k, v, causal=causal, sm_scale=sm_scale,
                 kv_lengths=kv_lengths, window=window,
                 segment_ids=segment_ids, mask=mask)
+            ctx.vis = None
         else:
-            o, lse = _fwd_cuda(q, k, v, kv_lengths, causal, sm_scale, window)
+            ctx.vis = _Visibility(q, segment_ids, mask)
+            o, lse = _fwd_cuda(q, k, v, kv_lengths, causal, sm_scale, window,
+                               ctx.vis)
         ctx.save_for_backward(q, k, v, o, lse, kv_lengths)
         ctx.segment_ids, ctx.mask = segment_ids, mask
         ctx.cfg = (causal, sm_scale, window)
@@ -302,7 +387,7 @@ class _FlashAttention(torch.autograd.Function):
                 segment_ids=ctx.segment_ids, mask=ctx.mask)
         else:
             dq, dk, dv = _bwd_cuda(q, k, v, o, lse, do, kv_lengths, causal,
-                                   sm_scale, window)
+                                   sm_scale, window, ctx.vis)
         return dq, dk, dv, None, None, None, None, None, None
 
 
@@ -326,15 +411,16 @@ def flash_attention(q, k, v, *, causal: bool = False,
     ``causal`` aligns the diagonal to the end of kv when Sq != Skv.
     ``kv_lengths`` ([B] or [B, Sq] int) limits the keys each row sees.
     ``window`` (requires ``causal``) keeps each row's last ``window`` keys.
-    ``segment_ids`` ([B, S] int or a ``(q_ids, kv_ids)`` pair) and ``mask``
-    (boolean, broadcastable to [B, H, Sq, Skv], True = attend) are taken on
-    CPU tensors only; CUDA tensors raise ``NotImplementedError`` on them.
-    Rows with no visible key give 0.
+    ``segment_ids`` ([B, S] int, or a ``(q_ids [B, Sq], kv_ids [B, Skv])``
+    pair) keeps attention within equal ids; ``mask`` (boolean, broadcastable
+    to [B, H, Sq, Skv], True = attend) keeps what it sets. Rows with no
+    visible key give 0.
 
     CPU tensors take :func:`flash_attention_reference` and
     :func:`_flash_backward_reference`. CUDA tensors launch the kernels of
-    ``csrc/flash_attention.cu`` (bf16 or f32, head_dim 64 or 128,
-    contiguous) or raise: each forward launch adds one to
+    ``csrc/flash_attention.cu`` (float32, bfloat16 or float16, head_dim a
+    multiple of 8 up to 128, contiguous q, k and v; the mask is read in
+    place through its strides) or raise: each forward launch adds one to
     ``flash_attention.launches`` and each backward (two kernels) one to
     ``flash_attention.backward_launches``.
     """

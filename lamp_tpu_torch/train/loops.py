@@ -16,7 +16,7 @@ import dataclasses
 import torch
 from torch import nn
 
-__all__ = ["TrainState", "make_train_step", "make_eval_step"]
+__all__ = ["TrainState", "make_train_step", "make_eval_step", "packed_lm_loss"]
 
 
 @dataclasses.dataclass
@@ -105,3 +105,16 @@ def make_eval_step(loss_fn):
             return loss_fn(state.model, batch, None, False)
 
     return step
+
+
+def packed_lm_loss(model, batch, generator=None, train=True):
+    """A ``loss_fn`` for :func:`make_train_step` over packed documents:
+    ``batch`` is ``(tokens, targets, segment_ids, positions)`` as
+    :func:`~lamp_tpu_torch.data.pack_documents` gives them (tensors,
+    [B, T] each, -100 for no target); returns ``ModernLM.loss`` and the
+    number of targets it averages, so that accumulated micro-batches weigh
+    by tokens."""
+    tokens, targets, segment_ids, positions = batch
+    loss = model.loss(tokens, targets, segment_ids=segment_ids,
+                      positions=positions)
+    return loss, int((targets != -100).sum())

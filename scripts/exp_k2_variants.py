@@ -4,8 +4,9 @@ itself, on one CUDA card.
 Each variant is csrc/flash_attention.cu with a few text edits (one design
 choice changed). All variants build at once (one nvcc each, into
 lamp_tpu_torch/_build/variants/), load through ctypes beside each other,
-and run dq then dkv on the same inputs (bf16, causal, D=64) at the training
-slice's B=2, H=12, S=4096 and the flagship's B=8, H=12, S=384, timed by
+and run dq then dkv on the same inputs (bf16, causal) at the training
+slice's B=2, H=12, S=4096, D=64, the flagship's B=8, H=12, S=384, D=64,
+and at head_dim 32 (B=4, H=4, S=2048 and B=8, H=4, S=512), timed by
 CUDA events over back-to-back calls (the kernels run 20-300 us, longer
 than a call's host time), in turns: each round runs every variant once.
 Prints each variant's median dq and dkv time and whether its dq, dk and dv
@@ -34,16 +35,20 @@ SRC = ROOT / "lamp_tpu_torch" / "csrc"
 OUT = ROOT / "lamp_tpu_torch" / "_build" / "variants"
 
 # name: [(text, replacement), ...] edits of flash_attention.cu
+# (the tile sizes of head_dim 32: dq's K/V tile, dkv's q tile)
 VARIANTS = {
     "as built": [],
-    "2 stages": [("constexpr int kStages = 4;", "constexpr int kStages = 2;")],
-    "6 stages": [("constexpr int kStages = 4;", "constexpr int kStages = 6;")],
-    "dq 64-key tiles": [("return d == 64 ? 128 : 64; }",
-                         "return d == 64 ? 64 : 64; }")],
-    "exp2f": [('asm("ex2.approx.ftz.f32 %0, %1;\\n" : "=f"(y) : "f"(x));',
-               "y = exp2f(x);")],
+    "D32 dq 64 keys": [("int dq_kv_tile(int d) { return d == 128 ? 64 : 128; }",
+                        "int dq_kv_tile(int d) { return d == 64 ? 128 : 64; }")],
+    "D32 dkv 32 rows": [("int dkv_q_tile(int d) { return d == 128 ? 32 : 64; }",
+                         "int dkv_q_tile(int d) { return d == 64 ? 64 : 32; }")],
+    "D32 dkv 128 rows": [
+        ("int dkv_q_tile(int d) { return d == 128 ? 32 : 64; }",
+         "int dkv_q_tile(int d) { return d == 128 ? 32 : d == 32 ? 128 : 64; }")],
 }
-SHAPES = ((2, 12, 4096), (8, 12, 384))
+# (B, H, S, D)
+SHAPES = ((2, 12, 4096, 64), (8, 12, 384, 64), (4, 4, 2048, 32),
+          (8, 4, 512, 32))
 ROUNDS, CALLS = 5, 10
 
 
@@ -71,8 +76,10 @@ def build():
         if proc.returncode:
             raise SystemExit(f"variant {name!r} did not build:\n{log[-4000:]}")
         lib = ctypes.CDLL(str(so))
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        shape = [i32] * 9 + [ctypes.c_float, i32, ptr]
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        shape = [ptr] * 4 + [i64] * 4 + [i32] * 11 + [ctypes.c_float, i32,
+                                                      ptr]
+        lib.lamp_flash_attention_fwd.argtypes = [ptr] * 6 + shape
         lib.lamp_flash_attention_bwd_dq.argtypes = [ptr] * 9 + shape
         lib.lamp_flash_attention_bwd_dkv.argtypes = [ptr] * 9 + shape
         libs[name] = lib
@@ -90,16 +97,16 @@ def main():
     libs = build()
     print(f"{len(libs)} variants built in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    for b, h, s in SHAPES:
-        d = 64
+    for b, h, s, d in SHAPES:
         scale = 1.0 / math.sqrt(d)
         q, k, v, do = chip_smoke.flash_inputs(b, h, s, s, d, torch.bfloat16,
                                               seed=1)
         o, lse = att._fwd_cuda(q, k, v, None, True, scale, None)
         di = torch.empty(q.shape[:3], dtype=torch.float32, device="cuda")
         grads = [torch.empty_like(x) for x in (q, k, v)]
-        args = (b * h, h, s, s, d, 0, 0, 1, 0, scale, 1,
-                torch.cuda.current_stream().cuda_stream)
+        # no ids, no mask; then the shape
+        args = (None, None, None, None, 0, 0, 0, 0, 1, 1, b * h, h, s, s, d,
+                0, 0, 1, 0, scale, 1, torch.cuda.current_stream().cuda_stream)
 
         def dq(lib):
             rc = lib.lamp_flash_attention_bwd_dq(

@@ -211,17 +211,28 @@ def test_cpu_calls_launch_no_kernel_and_cuda_checks_refuse():
         .backward()
     assert (tatt.flash_attention.launches,
             tatt.flash_attention.backward_launches) == before
+    # segment ids, masks, float16 and head dims that are multiples of 8 up
+    # to 128 pass the checks; larger or unaligned head dims and float64
+    # are refused
     seg = torch.zeros((1, 16), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="segment_ids"):
-        tatt._check_cuda(tq, tk, tv, None, seg, None)
-    with pytest.raises(NotImplementedError, match="mask"):
+    tatt._check_cuda(tq, tk, tv, None, seg,
+                     torch.ones((1, 1, 16, 16), dtype=torch.bool))
+    tatt._check_cuda(tq.half(), tk.half(), tv.half(), None, (seg, seg), None)
+    for d in (8, 16, 32, 40, 96, 128):
+        x = torch.zeros((1, 1, 16, d))
+        tatt._check_cuda(x, x, x, None, None, None)
+    for d in (160, 36):
+        x = torch.zeros((1, 1, 16, d))
+        with pytest.raises(NotImplementedError, match=f"head_dim {d}"):
+            tatt._check_cuda(x, x, x, None, None, None)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        tatt._check_cuda(tq.double(), tk.double(), tv.double(), None, None,
+                         None)
+    with pytest.raises(ValueError, match="segment ids"):
+        tatt._check_cuda(tq, tk, tv, None, seg[:, :8], None)
+    with pytest.raises(ValueError, match="does not broadcast"):
         tatt._check_cuda(tq, tk, tv, None, None,
-                         torch.ones((1, 1, 16, 16), dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="head_dim 32"):
-        tatt._check_cuda(tq[..., :32].contiguous(), tk[..., :32].contiguous(),
-                         tv[..., :32].contiguous(), None, None, None)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        tatt._check_cuda(tq.half(), tk.half(), tv.half(), None, None, None)
+                         torch.ones((1, 2, 16, 16), dtype=torch.bool))
     with pytest.raises(ValueError, match="contiguous"):
         tatt._check_cuda(tq.transpose(2, 3).contiguous().transpose(2, 3),
                          tk, tv, None, None, None)
@@ -264,3 +275,136 @@ def test_dot_product_attention_routes_like_jax(causal, window, segments):
         segment_ids=None if seg is None else torch.from_numpy(seg))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
                                rtol=0)
+
+
+# Segment ids, masks, head dims and float16 against the JAX flash kernel
+# (interpret mode, 32 x 32 tiles): (name, B, H, Sq, Skv, D, causal, window,
+# ids, mask, kv lengths, dtype). ids: "sorted", "pair" (q and kv ids of
+# their own lengths, every q id present among the kv ids) or "unsorted";
+# mask: "heads" ([B, 1, Sq, Skv]), "per_head" ([B, H, Sq, Skv]) or "one"
+# ([1, 1, Sq, Skv]). Every row keeps a visible key (the rows' own key, or
+# the first key of their segment), so that the JAX kernel's rows without
+# one (a mean of V) do not enter.
+VIS_CASES = [
+    ("ids_sorted", 2, 2, 70, 70, 32, True, None, "sorted", None, None,
+     np.float32),
+    ("ids_pair", 2, 2, 40, 72, 32, False, None, "pair", None, None,
+     np.float32),
+    ("ids_unsorted", 2, 2, 64, 64, 32, True, None, "unsorted", None, None,
+     np.float32),
+    ("mask_heads", 2, 2, 48, 48, 32, False, None, None, "heads", None,
+     np.float32),
+    ("mask_per_head", 1, 3, 70, 70, 32, True, None, None, "per_head", None,
+     np.float32),
+    ("mask_one", 2, 2, 40, 72, 32, False, None, None, "one", None,
+     np.float32),
+    ("mask_ids_lengths", 2, 2, 70, 70, 32, True, None, "sorted", "heads",
+     "1d", np.float32),
+    ("ids_window", 1, 2, 96, 96, 32, True, 20, "sorted", None, None,
+     np.float32),
+    ("head_dim_16_ids", 2, 2, 48, 48, 16, True, None, "sorted", None, None,
+     np.float32),
+    ("head_dim_32_mask", 1, 2, 64, 64, 32, True, None, None, "per_head",
+     None, np.float32),
+    ("head_dim_96_ids", 1, 2, 40, 40, 96, True, None, "unsorted", None, None,
+     np.float32),
+    ("f16", 1, 2, 64, 64, 64, True, None, None, None, None, np.float16),
+    ("f16_ids_mask", 2, 1, 48, 48, 32, True, None, "sorted", "heads", None,
+     np.float16),
+]
+# float16: o, p and ds round to f16 (2^-11 relative) in both versions, at
+# other places of the sums; values and gradients here are of unit scale
+ATOL_F16 = 4e-3
+
+
+def _vis_inputs(case, seed=7):
+    name, b, h, sq, skv, d, causal, window, ids, mask, lengths, dtype = case
+    q, k, v, do, lens = _inputs(b, h, sq, skv, d, lengths, seed=seed)
+    q, k, v, do = (x.astype(dtype) for x in (q, k, v, do))
+    rng = np.random.RandomState(seed + 1)
+    seg = None
+    if ids == "sorted":
+        seg = np.sort(rng.randint(0, 3, (b, sq)), axis=1).astype(np.int32)
+    elif ids == "unsorted":
+        seg = rng.randint(0, 3, (b, sq)).astype(np.int32)
+    elif ids == "pair":
+        q_ids = np.sort(rng.randint(0, 3, (b, sq)), axis=1)
+        kv_ids = np.sort(np.concatenate(
+            [np.tile(np.arange(3), (b, 1)), rng.randint(0, 3, (b, skv - 3))],
+            axis=1), axis=1)
+        seg = (q_ids.astype(np.int32), kv_ids.astype(np.int32))
+    m = None
+    if mask is not None:
+        shape = {"heads": (b, 1, sq, skv), "per_head": (b, h, sq, skv),
+                 "one": (1, 1, sq, skv)}[mask]
+        m = rng.rand(*shape) < 0.7
+        if causal:  # the row's own key
+            m |= np.eye(sq, skv, skv - sq, dtype=bool)
+        else:
+            m[..., 0] = True
+        if seg is not None:  # the first key of each segment
+            first = np.ones((b, skv), bool)
+            first[:, 1:] = seg[:, 1:] != seg[:, :-1]
+            m = m | first[:, None, None, :]
+    if lens is not None:  # past the last segment's start
+        lens = np.maximum(lens, skv - 8).astype(np.int32)
+    return q, k, v, do, lens, seg, m
+
+
+@pytest.mark.parametrize("case", VIS_CASES, ids=[c[0] for c in VIS_CASES])
+def test_visibility_branches_match_jax(case):
+    """Forward and gradients (dq, dk, dv) under segment ids, id pairs,
+    unsorted ids, broadcast and per-head masks, their compositions with
+    kv lengths and windows, head dims 16, 32 and 96, and float16."""
+    causal, window = case[6], case[7]
+    q, k, v, do, lens, seg, m = _vis_inputs(case)
+    jkw = dict(causal=causal, window=window)
+    tkw = dict(jkw)
+    if lens is not None:
+        jkw["kv_lengths"] = jnp.asarray(lens)
+        tkw["kv_lengths"] = torch.from_numpy(lens)
+    if seg is not None:
+        jkw["segment_ids"] = tuple(map(jnp.asarray, seg)) \
+            if isinstance(seg, tuple) else jnp.asarray(seg)
+        tkw["segment_ids"] = tuple(map(torch.from_numpy, seg)) \
+            if isinstance(seg, tuple) else torch.from_numpy(seg)
+    if m is not None:
+        jkw["mask"], tkw["mask"] = jnp.asarray(m), torch.from_numpy(m)
+    want, want_g = _jax_run(_jax_flash, q, k, v, do, **jkw)
+    got, got_g = _torch_run(tatt.flash_attention, q, k, v, do, **tkw)
+    atol = ATOL_F16 if q.dtype == np.float16 else ATOL
+    np.testing.assert_allclose(got.astype(np.float32),
+                               want.astype(np.float32), atol=atol, rtol=0)
+    for g, w, what in zip(got_g, want_g, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g.astype(np.float32),
+                                   w.astype(np.float32), atol=atol, rtol=0,
+                                   err_msg=what)
+
+
+def test_visibility_reads_ids_and_mask_in_place():
+    """The CUDA path's view of the ids and the mask: int32 contiguous ids
+    are taken as they are, a broadcast mask keeps stride 0 on its size-1
+    axes and is never expanded, a mask without a contiguous last axis is
+    copied in its own shape, and the class map has one byte per 64 x 64
+    block of each (batch, head) the ids and mask tell apart."""
+    q = torch.zeros((2, 3, 100, 32))
+    ids = torch.zeros((2, 100), dtype=torch.int32)
+    mask = torch.ones((2, 1, 100, 100), dtype=torch.bool)
+    vis = tatt._Visibility(q, ids, mask)
+    assert vis.q_ids.data_ptr() == ids.data_ptr()
+    assert vis.mask.data_ptr() == mask.data_ptr()
+    assert vis.strides == (10000, 0, 100, 1)
+    assert (vis.map_batch, vis.map_heads) == (2, 1)
+    vis.alloc_map(q, 130)
+    assert vis.tiles.numel() == 2 * 1 * 2 * 3
+    wide = torch.ones((100, 200), dtype=torch.bool)[:, ::2]  # stride 2
+    vis = tatt._Visibility(q, None, wide)
+    assert vis.mask.shape == (1, 1, 100, 100) and vis.mask.stride(3) == 1
+    assert vis.strides == (0, 0, 100, 1)
+    assert (vis.map_batch, vis.map_heads) == (1, 1)
+    per_head = torch.ones((1, 3, 100, 1), dtype=torch.bool)
+    vis = tatt._Visibility(q, (ids.long(), ids.long()), per_head)
+    assert vis.q_ids.dtype == torch.int32
+    assert vis.strides == (0, 100, 1, 0)
+    assert (vis.map_batch, vis.map_heads) == (2, 3)
+    assert not tatt._Visibility(q, None, None).active

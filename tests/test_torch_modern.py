@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from lamp_tpu import nn as jnn
+from lamp_tpu.nn.module import combine
 from lamp_tpu_torch import nn as tnn
 from lamp_tpu_torch.bridge import load_modern_lm
 
@@ -170,3 +171,81 @@ def test_modern_lm_init_is_seeded():
         assert torch.equal(pa, pb), na
     with pytest.raises(NotImplementedError, match="moe_experts"):
         tnn.ModernLM.init(generator=torch.Generator(), moe_experts=4, **kw)
+
+
+def _packed(seed=5, ctx=16, vocab=61, rows=2):
+    """Documents of 3-9 tokens packed into ``rows`` rows of ``ctx``."""
+    from lamp_tpu_torch.data import pack_documents
+
+    rng = np.random.RandomState(seed)
+    docs = [rng.randint(0, vocab, rng.randint(3, 10)) for _ in range(12)]
+    p = pack_documents(docs, ctx)
+    return {k: v[:rows] for k, v in p.items()}, docs
+
+
+@pytest.mark.parametrize("tied,row_chunk", [(True, None), (False, 7)],
+                         ids=["tied", "untied_chunk_7"])
+def test_modern_lm_loss_packed_matches_jax(tied, row_chunk):
+    """``ModernLM.loss`` on packed rows (segment ids, per-document
+    positions, ignored targets at document ends and in the padding): the
+    loss and every parameter's gradient against JAX's. Tolerance: rtol
+    1e-5 on the loss, atol 1e-5 on gradients (f32, sums taken in another
+    order)."""
+    m = jax_modern_lm(tied=tied, context_length=16)
+    t = load_modern_lm(jax_params(m), device="cpu")
+    p, _ = _packed()
+    j = {k: jnp.asarray(v) for k, v in p.items()}
+
+    def jloss(model):
+        return model.loss(j["tokens"], j["targets"], row_chunk=row_chunk,
+                          segment_ids=j["segment_ids"],
+                          positions=j["positions"])
+
+    params, rest = jnn.partition_params(m)
+    want, wgrad = jax.value_and_grad(
+        lambda ps: jloss(combine(ps, rest)))(params)
+    tt = {k: torch.from_numpy(v) for k, v in p.items()}
+    got = t.loss(tt["tokens"], tt["targets"], row_chunk=row_chunk,
+                 segment_ids=tt["segment_ids"], positions=tt["positions"])
+    got.backward()
+    np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-5)
+    grads = jax_params(wgrad)
+    linear = {f"{n}.weight" for n, mod in t.named_modules()
+              if isinstance(mod, tnn.Linear)}
+    for name, prm in t.named_parameters():
+        w = grads[name].T if name in linear else grads[name]
+        np.testing.assert_allclose(prm.grad.numpy(), w, atol=1e-5, rtol=0,
+                                   err_msg=name)
+
+
+def test_modern_lm_packed_loss_is_document_weighted():
+    """The property of tests/test_modern.py's packing test, in the port:
+    the packed loss equals the token-weighted mean of each document's
+    standalone loss, and changing one document leaves the others' hidden
+    states unchanged."""
+    t = load_modern_lm(jax_params(jax_modern_lm(context_length=16)),
+                       device="cpu")
+    p, docs = _packed(rows=100)  # every row of the packing
+    tt = {k: torch.from_numpy(v) for k, v in p.items()}
+    with torch.no_grad():
+        packed = t.loss(tt["tokens"], tt["targets"],
+                        segment_ids=tt["segment_ids"],
+                        positions=tt["positions"])
+        total = count = 0.0
+        for doc in docs:
+            d = torch.from_numpy(np.asarray(doc)[None])
+            total += float(t.loss(d[:, :-1], d[:, 1:])) * (len(doc) - 1)
+            count += len(doc) - 1
+        np.testing.assert_allclose(float(packed), total / count, rtol=2e-5)
+        first = int(np.flatnonzero(p["positions"][0] == 0)[1])  # doc 2
+        h0 = t.hidden(tt["tokens"], segment_ids=tt["segment_ids"],
+                      positions=tt["positions"])
+        mutated = tt["tokens"].clone()
+        mutated[0, :first] = (mutated[0, :first] + 1) % 61
+        h1 = t.hidden(mutated, segment_ids=tt["segment_ids"],
+                      positions=tt["positions"])
+    _close(h1[0, first:], h0[0, first:].numpy(), 1e-5)
+    _close(h1[1:], h0[1:].numpy(), 1e-5)
+    assert not torch.allclose(h1[0, :first], h0[0, :first])
+    with pytest.raises(NotImplementedError, match="moe_aux_coef"):
+        t.loss(tt["tokens"], tt["targets"], moe_aux_coef=0.01)

@@ -187,3 +187,90 @@ def test_other_loss_calculations_are_not_ported():
     for kind in ("adversarial", "perturbed"):
         with pytest.raises(NotImplementedError, match=kind):
             ttrain.make_train_step(None, None, loss_calculation=kind)
+
+
+def _packed_batches(steps, rows=3, ctx=16):
+    """Rows of packed documents (3-11 tokens) for each step, from numpy:
+    (tokens, targets, segment_ids, positions), int32 [rows, ctx] each."""
+    from lamp_tpu_torch.data import pack_documents
+
+    rng = np.random.RandomState(6)
+    for _ in range(steps):
+        docs = [rng.randint(0, VOCAB, rng.randint(3, 12)) for _ in range(12)]
+        p = pack_documents(docs, ctx)
+        yield tuple(p[k][:rows] for k in ("tokens", "targets", "segment_ids",
+                                          "positions"))
+
+
+def _jax_packed_step(opt):
+    def loss_fn(m, batch, key, train):
+        tokens, targets, seg, pos = batch
+        loss = m.loss(tokens, targets, segment_ids=seg, positions=pos)
+        return loss, jnp.sum(targets != -100).astype(jnp.float32), m
+
+    return jax.jit(jtrain.make_train_step(opt, loss_fn))
+
+
+def test_packed_modern_lm_train_steps_match_jax_f32():
+    """Packed-document ModernLM training: a 2-block, 64-wide ModernLM
+    (GQA 4/2 heads, vocab 61, context 16) bridged from lamp_tpu takes 20
+    AdamW steps on the same packed rows in both packages (f32, through
+    ModernLM.loss and the fused cross-entropy); per-step losses within
+    rtol 1e-4, as test_train_steps_match_jax_f32."""
+    from .test_torch_modern import jax_modern_lm
+
+    jm = jax_modern_lm(context_length=16)
+    tm = tnn_load(jm)
+    jopt = joptim.AdamW(3e-3, weight_decay=0.01)
+    jstep = _jax_packed_step(jopt)
+    jstate = jtrain.TrainState.init(jm, jopt)
+    topt = toptim.AdamW(tm.named_parameters(), 3e-3, weight_decay=0.01)
+    tstate = ttrain.TrainState.init(tm, topt)
+    tstep = ttrain.make_train_step(topt, ttrain.packed_lm_loss)
+    key = jax.random.PRNGKey(0)
+    want, got = [], []
+    for batch in _packed_batches(STEPS):
+        jstate, (jl, _) = jstep(jstate, tuple(map(jnp.asarray, batch)), key)
+        tstate, (tl, n) = tstep(tstate, tuple(torch.from_numpy(x).long()
+                                              for x in batch))
+        assert n == int((batch[1] != -100).sum())
+        want.append(float(jl))
+        got.append(float(tl))
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+def test_packed_modern_lm_resumes_from_jax_state():
+    """The JAX ModernLM and its AdamW state after 3 packed steps, carried
+    across by the bridge (load_modern_lm, load_adamw_state): the next 3
+    steps' losses agree within rtol 1e-4."""
+    from lamp_tpu_torch import bridge
+
+    from .test_torch_modern import jax_modern_lm
+
+    jopt = joptim.AdamW(3e-3, weight_decay=0.01)
+    jstep = _jax_packed_step(jopt)
+    key = jax.random.PRNGKey(0)
+    jstate = jtrain.TrainState.init(jax_modern_lm(seed=3, context_length=16),
+                                    jopt)
+    batches = list(_packed_batches(6))
+    for batch in batches[:3]:
+        jstate, _ = jstep(jstate, tuple(map(jnp.asarray, batch)), key)
+    tm = tnn_load(jstate.model)
+    topt = toptim.AdamW(tm.named_parameters(), 3e-3, weight_decay=0.01)
+    os_ = jstate.opt_state
+    bridge.load_adamw_state(
+        {"step": int(os_["step"]), "mt": jax_params(os_["mt"]),
+         "vt": jax_params(os_["vt"]), "master": {}}, topt, tm)
+    tstate = ttrain.TrainState.init(tm, topt)
+    tstep = ttrain.make_train_step(topt, ttrain.packed_lm_loss)
+    for batch in batches[3:]:
+        jstate, (jl, _) = jstep(jstate, tuple(map(jnp.asarray, batch)), key)
+        tstate, (tl, _) = tstep(tstate, tuple(torch.from_numpy(x).long()
+                                              for x in batch))
+        np.testing.assert_allclose(float(tl), float(jl), rtol=1e-4)
+
+
+def tnn_load(jm):
+    from lamp_tpu_torch.bridge import load_modern_lm
+
+    return load_modern_lm(jax_params(jm), device="cpu")
