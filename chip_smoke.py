@@ -14,7 +14,15 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
    12-layer stacked bf16 pool of 192 pages per layer), over edge lengths,
    append on/off and static / per-request windows, on the bf16 pool and on
    the same values in an fp8 (e4m3fn) pool, e5m2 once; both pools' kernel
-   and plain version are timed by profiler device time.
+   and plain version are timed by profiler device time. Then the general
+   kernel (every head dim and group) at K6_WIDE's shapes, each at B=32 and
+   the same lengths and windows, with and without append: head dims 80
+   and 96, OpenLLaMA-3B's layer (32 / 32 heads, head_dim 100) in bf16, f16
+   and on e4m3 and e5m2 pools, Gemma-2B's (8 / 1 heads, head_dim 256),
+   Llama-3.1-405B's (128 / 8 heads, 16 a kv head), MQA at 32 query heads,
+   an odd head dim, D=320 and 128 query heads at D=256 (the kernel's
+   narrow-copy and split paths); each timed beside its bound and plain
+   version.
 3. The serving slice at full width: a 12-block, 768-wide llama-style
    ModernLM (GQA 12/4 heads, SwiGLU 2048, vocab 32000, context 512, bf16,
    random weights from a seed) behind ModernBatchServer(total_pages=192)
@@ -46,7 +54,15 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
    forward and forward + backward calls of all three by CUDA events. Then
    GPT LanguageModelModules at examples/bert.py's width (128 wide, 4
    heads: head_dim 32) and examples/translation.py's (64 wide, 4 heads:
-   head_dim 16) take 3 training steps each on the kernels.
+   head_dim 16) take 3 training steps each on the kernels. Then the head
+   dims the instances of 32, 64 and 128 do not hold: 12, 100, 160 and 256
+   in bf16 (causal with kv lengths, and with segment ids: the ragged and
+   D=256 forwards, the mma.sync backward), 75 and 320, and float64 at 64
+   and 100 (the scalar kernels; limit 1e-10), each by the same checks and
+   planted fault, and each but 75 and 320 timed at B=2, H=8, S=2048
+   beside its bound, its plain version and SDPA at the same head dim and
+   dtype; GPT models at head_dim 100 and 256, and one in f32, take 3
+   training steps each.
 5. The training slice at full width: a 12-block, 768-wide GPT
    LanguageModelModule (12 heads, MLP 3072, byte vocab 256, bf16 with f32
    AdamW masters, random weights from a seed) trains under the flagship
@@ -107,6 +123,16 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
    finite losses, the loss falling over 10 steps on one batch, a profiled
    step (no library attention kernel) and peak memory beside the scores
    ``mha_reference`` would keep.
+11. OpenLLaMA-3B serving at full width: hidden 3200, 32 heads (head_dim
+   100, no GQA), 26 layers, SwiGLU 8640, vocab 32000, untied head, bf16,
+   random weights from a seed, behind ModernBatchServer(total_pages=192)
+   and ServingEngine with phase 3's 40 requests: exact lengths, the page
+   pool back at its start, K6 (the general kernel) launched 26 times a
+   decode step, greedy tokens against the dense ModernLM forward on the
+   card (K1's ragged instance at head_dim 100, its launches counted); the
+   steady decode rate and a profiled step (device time, ops and K6's
+   share), then the steady decode on an e4m3 KV pool (K6-fp8 at 100-byte
+   head slices, its launches counted).
 
 The last lines are one JSON line on the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -148,7 +174,10 @@ MARGIN = 0.05
 # 0.30; f32 kernels 5.4e-7 and the fault 0.47. f16: the kernels round o, p
 # and ds to f16, a relative 2^-11 per term, 8 times finer than bf16's, so
 # its limit is bf16's over 5 (the sums keep some headroom).
-FLASH_TOL = {torch.bfloat16: 1e-2, torch.float16: 2e-3, torch.float32: 1e-5}
+# float64: the kernels compute in double, as the plain version does; they
+# differ in summation order only (~1e-15 relative), far below the limit.
+FLASH_TOL = {torch.bfloat16: 1e-2, torch.float16: 2e-3, torch.float32: 1e-5,
+             torch.float64: 1e-10}
 FLASH_BLOCK = 64
 
 # the serving slice's configuration (the JAX package's serving workload)
@@ -165,8 +194,57 @@ TRAIN_CONFIGS = (("flagship", 384, 8, 5), ("longctx", 4096, 2, 1))
 # 64-1024 tokens
 PACK_CTX, PACK_BATCH, PACK_DOC_LENS = 2048, 4, (64, 1024)
 
+# phase 11: OpenLLaMA-3B (openlm-research/open_llama_3b and _v2, a
+# LlamaForCausalLM): hidden 3200, 32 heads and 32 kv heads (head_dim 100),
+# 26 layers, SwiGLU 8640, vocab 32000, 2048 positions, RMSNorm eps 1e-6,
+# untied head, RoPE base 10000; bf16, random weights from seed 0; nothing
+# cut. Served with phase 3's pages, pool and requests.
+OL_CTX, OL_BLOCKS, OL_DIM, OL_HEADS, OL_MLP = 2048, 26, 3200, 32, 8640
+
 # one H100 SXM's published dense bf16 rate and memory bandwidth
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
+# its peak rate for the operations of the scalar kernels: f32 outside the
+# tensor cores (the data sheet's non-tensor FP32 rate), and f64 (its FP64
+# tensor-core rate, the card's highest for the type)
+PEAK_FLOPS_F32 = PEAK_FLOPS_F64 = 67e12
+
+# phase 2: K6 beyond the serving slice's head dim 64 and 8 query heads per
+# kv head (the general kernel, paged_attention_any): (name, heads, kv
+# heads, head_dim, q dtype, pool dtype), each at phase 2's B=32, lengths
+# and windows over a pool of TOTAL_PAGES pages. OpenLLaMA-3B's layer (32 /
+# 32 heads, head_dim 100; phase 11) in bf16, f16, f64 and on both fp8
+# pools, head dims 80 and 96 at the serving slice's GQA, the OpenLLaMA
+# layer at head_dim 128 (the fixed-head_dim kernel, for comparison per
+# byte), Gemma-2B's (8 query heads over 1 kv head, head_dim 256), Llama-3.1-405B's
+# attention layer (128 / 8 heads: 16 a kv head, head_dim 128) and MQA with
+# 32 query heads.
+K6_WIDE = (
+    ("d80", 12, 4, 80, torch.bfloat16, torch.bfloat16),
+    ("d96", 12, 4, 96, torch.bfloat16, torch.bfloat16),
+    ("openllama d100", 32, 32, 100, torch.bfloat16, torch.bfloat16),
+    # the same layer at head_dim 128, which the fixed-head_dim kernel
+    # (head_dim 64 or 128) takes: K6 per byte at D=100 (the general
+    # kernel) against D=128
+    ("d128 32/32", 32, 32, 128, torch.bfloat16, torch.bfloat16),
+    ("openllama d100 f16", 32, 32, 100, torch.float16, torch.float16),
+    ("openllama d100 e4m3", 32, 32, 100, torch.bfloat16,
+     torch.float8_e4m3fn),
+    ("openllama d100 e5m2", 32, 32, 100, torch.float16, torch.float8_e5m2),
+    ("gemma d256", 8, 1, 256, torch.bfloat16, torch.bfloat16),
+    ("405B 128/8", 128, 8, 128, torch.bfloat16, torch.bfloat16),
+    ("MQA 32/1", 32, 1, 128, torch.bfloat16, torch.bfloat16),
+    ("openllama d100 f64", 32, 32, 100, torch.float64, torch.float64),
+    # the general kernel's other paths: rows staged 2 or 1 bytes at a time
+    # (an odd head dim), output columns split over blocks (D > 256) and a
+    # group split over blocks (128 query heads of 256 past 227 KB)
+    ("d75 odd", 4, 2, 75, torch.bfloat16, torch.bfloat16),
+    ("d75 odd e4m3", 4, 2, 75, torch.bfloat16, torch.float8_e4m3fn),
+    ("d320 2/1", 2, 1, 320, torch.bfloat16, torch.bfloat16),
+    ("128/1 d256", 128, 1, 256, torch.bfloat16, torch.bfloat16),
+)
+# float64 computes in double in the kernel and in its plain version: they
+# differ in summation order only
+K6_TOL_F64 = 1e-10
 
 # phase 6: K7 against its plain version (in f32, on the same inputs, then
 # rounded to the kernel's output dtype) by relative Frobenius error
@@ -361,6 +439,9 @@ def phase_kernel(paged_attention, paged_attention_reference):
         if err > tol * max(1.0, float(ref.abs().max())):
             raise AssertionError(f"paged_attention instantiation: err {err}")
 
+    wide = check_paged_wide(paged_attention, paged_attention_reference,
+                            table, lengths, wins, gen)
+
     # time both on the path's own call: append_kv, no window, last layer
     rows = {}
     for what, kv in (("bf16", pool), ("fp8", pool8)):
@@ -395,7 +476,81 @@ def phase_kernel(paged_attention, paged_attention_reference):
         rows[what] = dict(max_abs_err=max_err[what], ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by="bytes",
                           library_ms=None)
+    rows["any"] = wide["openllama d100"]
+    rows["any_fp8"] = wide["openllama d100 e4m3"]
+    rows["any"]["per_case"] = {k: {x: r[x] for x in (
+        "ms", "plain_ms", "bound_ms", "max_abs_err")} for k, r in wide.items()}
     return rows
+
+
+def check_paged_wide(paged_attention, paged_attention_reference, table,
+                     lengths, wins, gen):
+    """The kernel at K6_WIDE's head dims, groups and dtypes against its
+    plain version (in f32) at phase 2's B=32, lengths and windows, with and
+    without append_kv; each timed on the decode's own call (append_kv, no
+    window) beside its bound and plain version. Returns {name: figures}."""
+    dev = torch.device("cuda")
+    b = lengths.shape[0]
+    out = {}
+    for name, h, hkv, d, qdt, pdt in K6_WIDE:
+        def randn(*shape, dtype):
+            return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+        pool = randn(TOTAL_PAGES, 2, PAGE, hkv * d, dtype=pdt)
+        q = randn(b, h, d, dtype=qdt)
+        new = (randn(b, hkv * d, dtype=qdt), randn(b, hkv * d, dtype=qdt))
+        fp8 = pool.element_size() == 1
+        acc = torch.promote_types(qdt, torch.float32)
+        err = 0.0
+        for app, window, windows in ((None, None, None), (new, 100, wins)):
+            out_k = paged_attention(q, pool, None, table, lengths,
+                                    num_kv_heads=hkv, window=window,
+                                    windows=windows, append_kv=app)
+            ref = paged_attention_reference(
+                q.to(acc), pool if fp8 else pool.to(acc), None, table,
+                lengths, num_kv_heads=hkv, window=window, windows=windows,
+                append_kv=None if app is None else tuple(
+                    x.to(acc) for x in app))
+            torch.cuda.synchronize()
+            e = (out_k.to(acc) - ref).abs()
+            bad = e > (K6_TOL_F64 if qdt == torch.float64 else
+                       ATOL + RTOL * ref.abs())
+            if bad.any():
+                raise AssertionError(
+                    f"paged_attention {name} append={app is not None}: "
+                    f"{int(bad.sum())} elements off, max err "
+                    f"{float(e.max()):.3e}")
+            if app is None and (out_k[lengths == 0] != 0).any():
+                raise AssertionError(f"{name}: rows with no key are not 0")
+            err = max(err, float(e.max()))
+
+        def kernel():
+            paged_attention(q, pool, None, table, lengths, num_kv_heads=hkv,
+                            append_kv=new)
+
+        def plain():
+            paged_attention_reference(q, pool, None, table, lengths,
+                                      num_kv_heads=hkv, append_kv=new)
+
+        ms = _kernel_ms(device_ms(kernel, 20), "paged_attention")
+        plain_ms = sum(device_ms(plain, 3).values())
+        live = int(lengths.sum()) + b
+        kv_bytes = live * 2 * hkv * d * pool.element_size()
+        nbytes = kv_bytes + 2 * q.numel() * q.element_size() + \
+            (table.numel() + b) * 4
+        peak = PEAK_FLOPS_F64 if qdt == torch.float64 else PEAK_FLOPS
+        bound_ms = max(nbytes / PEAK_BYTES, 4 * live * h * d / peak) * 1e3
+        print(f"  {name:20} H={h}/{hkv} D={d} q {str(qdt)[6:]} pool "
+              f"{str(pdt)[6:]}: max_abs_err {err:.3e}; kernel "
+              f"{ms * 1e3:.2f} us (device), plain {plain_ms * 1e3:.2f} us, "
+              f"bound {bound_ms * 1e3:.2f} us ({live} live tokens, "
+              f"{kv_bytes / (ms * 1e-3) / 1e9:.0f} GB/s of K/V rows)",
+              flush=True)
+        out[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=bound_ms, bound_by="bytes",
+                         library_ms=None)
+        del pool
+    return out
 
 
 def device_events(prof):
@@ -415,7 +570,7 @@ def profile_step(server):
     """torch.profiler over one steady step_many(8): the device's busy share
     of the wall time (a lower bound: tracing slows the host) and the
     kernels that take the most device time. Returns (device time us,
-    device ops) of the call."""
+    device ops, K6's device time us) of the call."""
     with traced() as trace:
         t0 = time.perf_counter()
         server.step_many(8)
@@ -432,7 +587,11 @@ def profile_step(server):
         print(f"    {100 * e.self_device_time_total / busy:5.1f}%  "
               f"{e.self_device_time_total:8.0f} us  x{e.count:<5} "
               f"{e.key[:90]}")
-    return busy, ops
+    k6 = sum(e.self_device_time_total for e in device
+             if "paged_attention" in e.key)
+    print(f"  K6 (paged_attention) {k6:.0f} us, {100 * k6 / busy:.1f}% of "
+          f"the device time")
+    return busy, ops, k6
 
 
 def serve_requests(models, server):
@@ -526,11 +685,11 @@ def steady_decode(models, server, what):
     tok_s = 32 * 8 / (ms * 1e-3)
     print(f"  decode ({what}): step_many(8) at B=32 {ms:.2f} ms, "
           f"{ms / 8:.3f} ms/step, {tok_s:.1f} tok/s", flush=True)
-    busy, ops = profile_step(server)
+    busy, ops, k6 = profile_step(server)
     for i in range(32):
         server.remove(f"s{i}")
     return dict(tok_s=tok_s, device_us_per_step=busy / 8,
-                device_ops_per_step=ops / 8)
+                device_ops_per_step=ops / 8, k6_share=k6 / busy)
 
 
 def make_serving_model(torch_nn):
@@ -552,6 +711,65 @@ def phase_serving(model, models, paged_attention):
     check_launches("paged_attention", launches, BLOCKS * steps)
     check_greedy(lambda t, _: model(t)[0], prompts, results, greedy, MARGIN)
     return launches, steady_decode(models, server, "bf16")
+
+
+def phase_openllama(torch_nn, models, paged_attention, att):
+    """OpenLLaMA-3B at full width behind ModernBatchServer(total_pages=192)
+    and ServingEngine: phase 3's 40 requests (K6 launches 26 a decode step,
+    the pool back at its start, exact lengths), the greedy tokens against
+    the dense ModernLM forward on the card (K1 at head_dim 100, its
+    launches counted), the steady decode rate and a profiled step (K6's
+    share), then a steady decode under kv_dtype=float8_e4m3fn (K6-fp8 at
+    100-byte head slices). Returns the launches and figures."""
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = torch_nn.ModernLM.init(
+        vocab_size=VOCAB, context_length=OL_CTX, num_blocks=OL_BLOCKS,
+        embed_dim=OL_DIM, num_heads=OL_HEADS, num_kv_heads=OL_HEADS,
+        mlp_hidden=OL_MLP, tied=False, rope_base=10000.0, norm_eps=1e-6,
+        generator=gen, dtype=torch.bfloat16, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    server = models.ModernBatchServer(model, page_size=PAGE,
+                                      total_pages=TOTAL_PAGES)
+    print(f"  OpenLLaMA-3B: {n_params} parameters "
+          f"({n_params * 2 / 1e9:.2f} GB bf16), head_dim "
+          f"{server.head_dim}, untied head; KV pool "
+          f"{server.kv_pages.numel() * 2 / 1e9:.2f} GB", flush=True)
+    prompts, results, greedy, steps = serve_requests(models, server)
+    k6 = paged_attention.launches
+    check_launches("paged_attention", k6, OL_BLOCKS * steps)
+    # the dense forward that checks the greedy tokens runs K1 at head_dim
+    # 100 (the ragged instance): its launches, counted from 0
+    reset_launch_counts()
+    check_greedy(lambda t, _: model(t)[0], prompts, results, greedy, MARGIN)
+    k1 = att.flash_attention.launches
+    check_launches("flash_attention (dense check)", k1,
+                   OL_BLOCKS * len(greedy))
+    decode = steady_decode(models, server, "bf16, OpenLLaMA-3B")
+    del server
+    torch.cuda.empty_cache()
+    server8 = models.ModernBatchServer(model, page_size=PAGE,
+                                       total_pages=TOTAL_PAGES,
+                                       kv_dtype=torch.float8_e4m3fn)
+    reset_launch_counts()
+    steps0 = server8.steps_decoded
+    decode8 = steady_decode(models, server8, "fp8 KV, OpenLLaMA-3B")
+    steps8 = server8.steps_decoded - steps0
+    k6_fp8 = paged_attention.launches
+    check_launches("paged_attention (fp8 pool)", k6_fp8, OL_BLOCKS * steps8)
+    if server8.seq_pages or len(server8.free_pages) != TOTAL_PAGES - 1:
+        raise AssertionError("fp8: the page pool did not return to its start")
+    print(f"  OpenLLaMA-3B decode: bf16 {decode['tok_s']:.1f} tok/s, "
+          f"{decode['device_us_per_step']:.1f} us and "
+          f"{decode['device_ops_per_step']:.1f} device ops a step, K6 "
+          f"{100 * decode['k6_share']:.1f}% of it; fp8 KV "
+          f"{decode8['tok_s']:.1f} tok/s, "
+          f"{decode8['device_us_per_step']:.1f} us a step, K6 "
+          f"{100 * decode8['k6_share']:.1f}%", flush=True)
+    del server8, model
+    torch.cuda.empty_cache()
+    return dict(k6=k6, k6_fp8=k6_fp8, k1=k1, decode=decode, decode8=decode8)
 
 
 @contextlib.contextmanager
@@ -625,7 +843,7 @@ def block_err(got, want):
     pad = -want.shape[2] % FLASH_BLOCK
 
     def blocks(x):
-        x = torch.nn.functional.pad(x.detach().float(), (0, 0, 0, pad))
+        x = torch.nn.functional.pad(x.detach().double(), (0, 0, 0, pad))
         return x.reshape(x.shape[0], x.shape[1], -1, FLASH_BLOCK * x.shape[3])
 
     g, w = blocks(got), blocks(want)
@@ -658,7 +876,8 @@ def planted_fault(sq, skv, window=None, keep=None):
 def check_flash(att, name, b, h, sq, skv, d, dtype, causal, window=None,
                 lengths=None, segment_ids=None, mask=None):
     """Kernels (forward through autograd, then backward) against the plain
-    version in f32, by :func:`block_err`; the plain version under
+    version in f32 (f64 for float64 inputs), by :func:`block_err`; the
+    plain version under
     :func:`planted_fault` must read above the limit. ``segment_ids`` (a
     [B, S] array or a pair of them) and ``mask`` (a boolean tensor on the
     card) go to both. Returns the max abs error of (o, dq, dkv), the
@@ -678,7 +897,8 @@ def check_flash(att, name, b, h, sq, skv, d, dtype, causal, window=None,
     torch.cuda.synchronize()
     kw = dict(causal=causal, window=att._check_window(window, causal, skv),
               kv_lengths=lens, sm_scale=1.0 / math.sqrt(d), segment_ids=ids)
-    q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
+    acc = torch.promote_types(dtype, torch.float32)
+    q32, k32, v32, do32 = (x.to(acc) for x in (q, k, v, do))
 
     def plain(fault=None):
         m = mask if fault is None else (fault if mask is None
@@ -708,7 +928,7 @@ def check_flash(att, name, b, h, sq, skv, d, dtype, causal, window=None,
         if not fault > tol:
             raise AssertionError(f"flash {name} {what}: the planted fault "
                                  f"reads {fault:.3e}, within {tol:.0e}")
-        errs.append(float((got.detach().float() - want).abs().max()))
+        errs.append(float((got.detach().to(acc) - want).abs().max()))
         rels.append(rel)
         planted.append(fault)
     del wants, faults
@@ -848,6 +1068,111 @@ def time_flash(att, b, h, s, d, segment_ids=None):
     return out
 
 
+def time_flash_case(att, b, h, s, d, dtype):
+    """Device times (ms) of the forward, dq and dkv kernels at one causal
+    shape of any head dim and dtype, whichever instance runs it (the
+    kernel's name is printed), beside their bounds from the work these
+    inputs need, the plain versions and scaled_dot_product_attention at the
+    same shape and dtype (forward, and its autograd backward). Returns
+    {kernel: figures}; the dq and dkv rows' plain and library times are of
+    the whole backward."""
+    import torch.nn.functional as F
+
+    q, k, v, do = flash_inputs(b, h, s, s, d, dtype, seed=1)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = att._fwd_cuda(q, k, v, None, True, scale, None)
+    n = 5
+    fwd_times = device_ms(
+        lambda: att._fwd_cuda(q, k, v, None, True, scale, None), n)
+    bwd_times = device_ms(lambda: att._bwd_cuda(
+        q, k, v, o, lse, do, None, True, scale, None), n)
+    names = [key for key in list(fwd_times) + list(bwd_times)
+             if "fwd_" in key or "dq_" in key or "dkv_" in key]
+    fwd = _kernel_ms(fwd_times, "fwd_")
+    dq, dkv = _kernel_ms(bwd_times, "dq_"), _kernel_ms(bwd_times, "dkv_")
+    plain = sum(device_ms(lambda: att.flash_attention_reference(
+        q, k, v, causal=True), 2, warmup=1).values())
+    plain_bwd = sum(device_ms(lambda: att._flash_backward_reference(
+        q, k, v, o, lse, do, causal=True), 2, warmup=1).values())
+    lib = sum(device_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True), n).values())
+    ql, kl, vl = (x.clone().requires_grad_() for x in (q, k, v))
+    lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    lib_bwd = sum(device_ms(lambda: torch.autograd.grad(
+        lo, (ql, kl, vl), do, retain_graph=True), n).values())
+    # the work: the causal pairs; each input read once and each output
+    # written once (lse and di in f32, f64 for float64)
+    pairs = b * h * s * (s + 1) / 2
+    t = b * h * s * d * q.element_size()
+    rows = b * h * s * lse.element_size()
+    peak = {torch.float32: PEAK_FLOPS_F32,
+            torch.float64: PEAK_FLOPS_F64}.get(dtype, PEAK_FLOPS)
+
+    def bound(products, nbytes):
+        fl, by = 2 * products * d * pairs / peak, nbytes / PEAK_BYTES
+        return max(fl, by) * 1e3, ("operations" if fl >= by else "bytes")
+
+    out = {"fwd": dict(ms=fwd, plain_ms=plain, library_ms=lib,
+                       bound=bound(2, 4 * t + rows)),
+           "dq": dict(ms=dq, plain_ms=plain_bwd, library_ms=lib_bwd,
+                      bound=bound(3, 6 * t + 2 * rows)),
+           "dkv": dict(ms=dkv, plain_ms=plain_bwd, library_ms=lib_bwd,
+                       bound=bound(4, 6 * t + 2 * rows))}
+    what = f"B={b} H={h} S={s} D={d} {str(dtype)[6:]}"
+    print(f"  timing {what}: kernels {sorted(set(names))}", flush=True)
+    for name, r in out.items():
+        print(f"  {name:4} {what}: {r['ms'] * 1e3:9.1f} us, bound "
+              f"{r['bound'][0] * 1e3:7.1f} us ({r['bound'][1]}), plain "
+              f"{r['plain_ms'] * 1e3:9.1f} us, SDPA {r['library_ms'] * 1e3:7.1f}"
+              f" us{'' if name == 'fwd' else ' (plain, SDPA: whole backward)'}",
+              flush=True)
+    return out
+
+
+def flash_instance(d, dtype, part):
+    """The kernel family that runs a head dim and dtype (the entry points'
+    routing in csrc/flash_attention.cu): part is "fwd", "dq" or "dkv"."""
+    if dtype in (torch.bfloat16, torch.float16) and d <= 256:
+        if part == "fwd":
+            return "fwd_ragged" if d % 8 else "fwd_256" if d > 128 else "fwd_tc"
+        return f"{part}_mma" if d % 8 or d > 128 else f"{part}_tc"
+    return f"{part}_any"
+
+
+def check_flash_head_dims(att, check):
+    """Head dims the instances of 32, 64 and 128 do not hold (12, 75 and
+    100: not a multiple of 8; 160, 256 and 320: above 128) in bf16,
+    causal and with segment ids, and float64 at head dims 64 and 100, each
+    by the checks of check_flash; then each timed at B=2, H=8, S=2048.
+    Returns the times by (head dim, dtype) and the largest abs error of
+    each kernel family that ran (flash_instance)."""
+    bf16, f64 = torch.bfloat16, torch.float64
+    s = 1000
+    ids = np.sort(np.random.RandomState(3).randint(0, 4, (2, s)), 1)
+    errs = {}
+
+    def run(name, d, dtype, *args, **kw):
+        e = check(name, *args[:4], d, dtype, *args[4:], **kw)
+        for part, err in zip(("fwd", "dq", "dkv"), e):
+            key = flash_instance(d, dtype, part)
+            errs[key] = max(errs.get(key, 0.0), err)
+
+    for d in (12, 100, 160, 256):
+        run(f"head_dim {d}", d, bf16, 2, 4, s, s, True, lengths=[1000, 555])
+        run(f"head_dim {d} ids", d, bf16, 2, 4, s, s, True, segment_ids=ids)
+    # an odd head dim (2-byte copies, stores of single elements) and one
+    # above 256 (the scalar kernels in bf16, output columns over blocks)
+    run("head_dim 75", 75, bf16, 2, 4, s, s, True, lengths=[1000, 555])
+    run("head_dim 320", 320, bf16, 1, 2, 512, 512, True, lengths=[512])
+    run("f64 head 64", 64, f64, 2, 4, 512, 512, True, lengths=[512, 300])
+    run("f64 head 100 ids", 100, f64, 2, 4, 512, 512, True,
+        segment_ids=ids[:, :512])
+    times = {(d, dt): time_flash_case(att, 2, 8, 2048, d, dt)
+             for d, dt in ((12, bf16), (100, bf16), (160, bf16), (256, bf16),
+                           (64, f64), (100, f64))}
+    return times, errs
+
+
 def check_deterministic(att, b, h, s, d, segment_ids=None):
     """Two backward calls on the same inputs give the same bits."""
     q, k, v, do = flash_inputs(b, h, s, s, d, torch.bfloat16, seed=2)
@@ -951,7 +1276,8 @@ def check_flash_branches(att, check):
 
 
 def phase_flash(att):
-    checks = {torch.bfloat16: [], torch.float16: [], torch.float32: []}
+    checks = {torch.bfloat16: [], torch.float16: [], torch.float32: [],
+              torch.float64: []}
 
     def check(*args, **kw):
         result = check_flash(att, *args, **kw)
@@ -994,6 +1320,7 @@ def phase_flash(att):
                             np.where(rows % 128 < 64, 1000, 2 + rows % 5)]))
     check_deterministic(att, 2, LM_HEADS, 4096, 64)
     packed = check_flash_branches(att, check)
+    wide = check_flash_head_dims(att, check)
     for dtype, results in checks.items():
         print(f"  {str(dtype)[6:]}: largest block error "
               f"{max(r[1] for r in results):.3e}, limit "
@@ -1007,7 +1334,7 @@ def phase_flash(att):
     for i, name in enumerate(times):
         times[name]["max_abs_err"] = max(e[i] for e in errs)
         times[name]["packed"] = packed_times[name]
-    return times
+    return times, wide
 
 
 def profile_train_step(step, state, batch):
@@ -1784,24 +2111,33 @@ def phase_adamw_train(torch_nn, train, att, FA, flagship):
 
 # phase 4: MultiheadAttention at the head dims of the JAX package's other
 # examples: (name, width, heads, blocks, vocab, context), bert.py's
-# defaults (head_dim 32) and translation.py's (head_dim 16)
+# defaults (head_dim 32) and translation.py's (head_dim 16); then head dims
+# the instances of 32, 64 and 128 do not hold: 100 (OpenLLaMA-3B's, not a
+# multiple of 8: the ragged forward) and 256 (Gemma's: the D=256 forward),
+# both with the mma.sync backward; and a model in f32, the dtype of the JAX
+# package's CPU tests (the scalar kernels)
 SMALL_HEAD_MODELS = (("bert width", 128, 4, 4, 8192, 128),
-                     ("translation width", 64, 4, 2, 32, 64))
+                     ("translation width", 64, 4, 2, 32, 64),
+                     ("head_dim 100", 400, 4, 2, 256, 256),
+                     ("head_dim 256", 512, 2, 2, 256, 256),
+                     ("f32, head_dim 64", 256, 4, 2, 256, 256))
 
 
 def check_small_heads(torch_nn, optim, train):
     """A GPT LanguageModelModule at each SMALL_HEAD_MODELS width takes 3
-    training steps on the card (bf16, f32 AdamW masters): finite losses,
-    and each step's blocks launch the flash-attention kernels (their
-    head dims ran on CPU only before). Returns the launches."""
+    training steps on the card (bf16 with f32 AdamW masters; the last in
+    f32): finite losses, and each step's blocks launch the flash-attention
+    kernels (their head dims ran on CPU only before). Returns the
+    (forward, backward) launches by model."""
     dev = torch.device("cuda")
-    total = {"flash_attention": 0, "flash_attention_backward": 0}
+    by_model = {}
     for name, dim, heads, blocks, vocab, ctx in SMALL_HEAD_MODELS:
+        dtype = torch.float32 if name.startswith("f32") else torch.bfloat16
         gen = torch.Generator(device=dev).manual_seed(0)
         model = torch_nn.LanguageModelModule.init(
             vocab_size=vocab, context_length=ctx, num_blocks=blocks,
             embed_dim=dim, attention_heads=heads, generator=gen,
-            dtype=torch.bfloat16, device=dev)
+            dtype=dtype, device=dev)
         opt = optim.AdamW(model.named_parameters(), 1e-3)
 
         def loss_fn(m, b, generator, train_mode):
@@ -1827,10 +2163,9 @@ def check_small_heads(torch_nn, optim, train):
               f"{dim // heads}), {blocks} blocks, ctx {ctx}: 3 steps, "
               f"losses {' '.join(f'{x:.4f}' for x in losses)}; launches "
               f"fwd {got[0]} bwd {got[1]}", flush=True)
-        for key in total:
-            total[key] += launches[key]
+        by_model[name] = got
         del model, opt, state
-    return total
+    return by_model
 
 
 def phase_packed(torch_nn, optim, train, att):
@@ -1960,8 +2295,8 @@ def main() -> int:
     paged["bf16"]["launches"], decode_bf16 = phase_serving(
         model, models, paged_attention)
     print("phase 4: flash attention kernels vs plain", flush=True)
-    flash = phase_flash(att)
-    small_heads = check_small_heads(torch_nn, optim, train)
+    flash, flash_wide = phase_flash(att)
+    small_by_model = check_small_heads(torch_nn, optim, train)
     print("phase 5: training slice at full width", flush=True)
     fwd_launches, bwd_launches, flagship = phase_train(torch_nn, optim,
                                                        train, att)
@@ -1986,19 +2321,49 @@ def main() -> int:
     print("phase 10: packed-document ModernLM training at full width",
           flush=True)
     packed = phase_packed(torch_nn, optim, train, att)
-    for key in ("flash_attention", "flash_attention_backward"):
-        small_heads[key] += packed["launches"][key]
-    fwd_launches += small_heads["flash_attention"]
-    bwd_launches += small_heads["flash_attention_backward"]
+    print("phase 11: OpenLLaMA-3B serving at full width (head_dim 100)",
+          flush=True)
+    openllama = phase_openllama(torch_nn, models, paged_attention, att)
+    # the tensor-core instances' launches: phase 5, phase 10 and the bert-
+    # and translation-width models; the head_dim 100 and 256 models run
+    # the new instances (the ragged forward at 100, the scalar kernels)
+    tc_models = [small_by_model[m] for m in ("bert width",
+                                             "translation width")]
+    fwd_launches += sum(g[0] for g in tc_models) + \
+        packed["launches"]["flash_attention"]
+    bwd_launches += sum(g[1] for g in tc_models) + \
+        packed["launches"]["flash_attention_backward"]
+    # the new instances' launches (flash_instance): the ragged forward runs
+    # the head_dim 100 GPT and phase 11's dense check, the D=256 forward
+    # the head_dim 256 GPT, the mma.sync backward both GPTs, and the scalar
+    # kernels the f32 GPT
+    d100, d256, f32 = (small_by_model[m] for m in (
+        "head_dim 100", "head_dim 256", "f32, head_dim 64"))
+    wide_launches = {"fwd_ragged": openllama["k1"] + d100[0],
+                     "fwd_256": d256[0], "dq_mma": d100[1] + d256[1],
+                     "dkv_mma": d100[1] + d256[1], "fwd_any": f32[0],
+                     "dq_any": f32[1], "dkv_any": f32[1]}
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     paged_src = dict(route="cuda",
                      source="lamp_tpu_torch/csrc/paged_attention.cu",
                      replaces="lamp_tpu/ops/paged_attention.py:151")
+    paged["any"]["launches"] = openllama["k6"]
+    paged["any_fp8"]["launches"] = openllama["k6_fp8"]
     rows = [{k: r[k] for k in keys} for r in (
         dict(name="paged_attention", **paged_src, **paged["bf16"]),
-        dict(name="paged_attention_fp8", **paged_src, **paged["fp8"]))]
+        dict(name="paged_attention_fp8", **paged_src, **paged["fp8"]),
+        dict(name="paged_attention_any", **paged_src, **paged["any"]),
+        dict(name="paged_attention_any_fp8", **paged_src,
+             **paged["any_fp8"]))]
+    rows[2]["note"] = (
+        "paged_attention_any (every head dim and group): times at "
+        "OpenLLaMA-3B's layer (B=32, 32/32 heads, head_dim 100, bf16); "
+        "launches: phase 11's 40 requests; per_case: phase 2's K6_WIDE")
+    rows[2]["per_case"] = paged["any"]["per_case"]
+    rows[3]["note"] = ("the same on an e4m3 pool (100-byte head slices); "
+                       "launches: phase 11's fp8-pool steady decode")
     replaces = {"flash_attention_fwd": "lamp_tpu/ops/attention.py:87",
                 "flash_attention_bwd_dq": "lamp_tpu/ops/attention.py:297",
                 "flash_attention_bwd_dkv": "lamp_tpu/ops/attention.py:365"}
@@ -2028,6 +2393,49 @@ def main() -> int:
                      "backward (dq, dk, dv); here the backward's totals",
                 ms=bwd["ms"], bound_ms=bwd["bound"][0],
                 plain_ms=bwd["plain_ms"], library_ms=bwd["library_ms"])
+        rows.append(row)
+    # the new flash instances, each timed at one shape of B=2, H=8, S=2048,
+    # causal (per_shape: every shape of check_flash_head_dims it ran)
+    flash_times, flash_errs = flash_wide
+    bf16, f64 = torch.bfloat16, torch.float64
+    for key, src, line, shape, note in (
+            ("fwd_ragged", "flash_attention.cu", 87, (100, bf16),
+             "fwd_tc<D, T, M, true> (head dims not a multiple of 8): "
+             "launches are phase 11's dense check and the head_dim 100 GPT"),
+            ("fwd_256", "flash_attention.cu", 87, (256, bf16),
+             "fwd_tc<256, T, M, R> (head dims 129-256): launches are the "
+             "head_dim 256 GPT"),
+            ("dq_mma", "flash_attention.cu", 297, (100, bf16),
+             "dq_mma (16-bit head dims up to 256 that are not a multiple of "
+             "8 or are above 128): launches are the head_dim 100 and 256 "
+             "GPTs' backward calls"),
+            ("dkv_mma", "flash_attention.cu", 365, (100, bf16),
+             "dkv_mma: as dq_mma"),
+            ("fwd_any", "flash_attention_any.cu", 87, (100, f64),
+             "fwd_any (f32 and f64 at every head dim, 16-bit above 256): "
+             "launches are the f32 GPT"),
+            ("dq_any", "flash_attention_any.cu", 297, (100, f64),
+             "dq_any (as fwd_any): launches are the f32 GPT's backward "
+             "calls"),
+            ("dkv_any", "flash_attention_any.cu", 365, (100, f64),
+             "dkv_any: as dq_any")):
+        part = key.split("_")[0]
+        r = flash_times[shape][part]
+        row = dict(name=f"flash_attention_{key}", route="cuda",
+                   source=f"lamp_tpu_torch/csrc/{src}",
+                   replaces=f"lamp_tpu/ops/attention.py:{line}",
+                   launches=wide_launches[key],
+                   max_abs_err=flash_errs[key], ms=r["ms"],
+                   plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
+                   bound_by=r["bound"][1], library_ms=r["library_ms"])
+        row["note"] = (f"times at head_dim {shape[0]} {str(shape[1])[6:]}; "
+                       f"{note}" + ("" if part == "fwd" else
+                                    "; plain_ms and library_ms of the whole "
+                                    "backward"))
+        row["per_shape"] = {f"head_dim {dd} {str(dt)[6:]}": {
+            k: t[part][k] for k in ("ms", "plain_ms", "library_ms")}
+            for (dd, dt), t in flash_times.items()
+            if flash_instance(dd, dt, part) == key}
         rows.append(row)
     row = dict(name="int4_matmul", route="cuda",
                source="lamp_tpu_torch/csrc/int4_matmul.cu",

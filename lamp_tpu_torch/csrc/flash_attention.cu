@@ -1,19 +1,34 @@
 // Flash attention forward and backward for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of lamp_tpu/ops/attention.py:
-//   K1  _fwd_kernel (driven by _fwd)                 -> fwd_tc / fwd_f32
+//   K1  _fwd_kernel (driven by _fwd)                 -> fwd_tc / fwd_any
 //   K2a _bwd_fused_kernel (driven by _bwd_fused)     -> dq_* then dkv_*
 //   K2b _bwd_dq_kernel, K2c _bwd_dkv_kernel          -> dq_*, dkv_*
 //   K3a/K3b _compact_{fwd,bwd}_kernel (compact_attention) compute the same
 //   function on short sequences; here they are the same kernels.
 //
-// Layout: q, o, dq [B*H, Sq, d]; k, v, dk, dv [B*H, Skv, d]; lse, di
-// [B*H, Sq] f32, all contiguous. d is any multiple of 8 up to 128; it runs
-// in the smallest instance D of 32, 64 and 128 with D >= d: the columns
-// past d read as 0 (TMA boxes past the tensor map's inner extent are
-// zero-filled, cp.async copies past d are zero-filled) and stores stop at
-// d. Nothing is padded in device memory. Types: float32, bfloat16 and
-// float16 (the tensor-core kernels are templated on the 16-bit type).
+// Layout: q, o, dq [B*H, Sq, d]; k, v, dk, dv [B*H, Skv, d]; lse and di
+// [B*H, Sq] f32 (f64 for float64 inputs), all contiguous. Every
+// head dim d >= 1 and the types float32, bfloat16, float16 and float64 run
+// on the card, with no upper limit on d:
+//  - bfloat16 and float16 take the tensor-core kernels here (templated on
+//    the 16-bit type), in the smallest instance D of 32, 64, 128 (and 256:
+//    the forward) with D >= d: the columns past d read as 0 (TMA boxes
+//    past the tensor map's inner extent are zero-filled, cp.async copies
+//    past d are zero-filled) and stores stop at d. The forward takes every
+//    d up to 256: a d that is not a multiple of 8 has rows only 8-, 4- or
+//    2-byte aligned, and its instance (R = true) copies them by 8- or
+//    4-byte cp.async, or 2-byte loads at an odd d. The wgmma backward
+//    reads tiles by TMA, whose global strides must be multiples of 16
+//    bytes, and keeps 128 rows resident: it takes the multiples of 8 up
+//    to 128; the other d up to 256 take the mma.sync backward (dq_mma,
+//    dkv_mma), whose tiles come as the ragged forward's do.
+//  - everything else (float32 and float64 at every d; the 16-bit types at
+//    d > 256) takes the scalar kernels
+//    of flash_attention_any.cu (fwd_any, dq_any, dkv_any), which stage
+//    the head dim in chunks and have no limit on it; float64 computes in
+//    double there.
+// Nothing is padded in device memory.
 //
 // Visibility, in one place. A key c is visible to row r when
 //  1. c lies in the row's key bounds [lo, hi) (key_bounds): c < min(Skv,
@@ -53,9 +68,10 @@
 // cut the work to the visible tiles, about sum(len^2) / 2 a row of B.
 //
 // Forward (FlashAttention-2 on mma.sync): one block of 4 warps per (b*h,
-// 64-row q tile); each warp owns 16 query rows, keeps Q fragments, the f32
-// output accumulator and the online-softmax max and sum in registers, and
-// walks 64-key K/V tiles staged in shared memory by cp.async, the next
+// 64-row q tile); each warp owns 16 query rows, keeps Q fragments (at D =
+// 256 read from shared memory at each use), the f32 output accumulator
+// and the online-softmax max and sum in registers, and walks 64-key K/V
+// tiles (32 at D = 256) staged in shared memory by cp.async, the next
 // visible tile in flight while this one is used; fragments come from
 // shared memory by ldmatrix. Tiles above the causal diagonal, below the
 // window band, past every row's kv limit or of class kSkip are not
@@ -102,9 +118,8 @@
 //    and dQ, rows without a visible key exactly 0. No atomics and no
 //    partial-dq slab: every sum runs in a fixed order, so a call gives the
 //    same bits every time.
-//  - float32 inputs take scalar kernels (one thread per row or key, f32
-//    FMAs, no tensor cores; dq_f32 computes di too): f32 is for checking,
-//    not for speed.
+//  - float32 and float64 inputs take the scalar kernels of
+//    flash_attention_any.cu (no tensor cores; dq_any computes di too).
 //
 // Resources (ptxas -v for sm_90a, on the build of this source): the
 // backward kernels, 384 threads, report 168 registers (the launch bound;
@@ -112,10 +127,12 @@
 // 1 KB for alignment) 161 KB (dq) and 97 KB (dkv) at D=64, 193 KB and 129
 // KB at D=128, 81 KB and 49 KB at D=32, beside a few KB of static (the
 // masked instances' class bytes and kv ids, dkv's row statistics).
-// fwd_tc (128 threads, 45 / 85 / 25 KB at D = 64 / 128 / 32): the
-// unmasked instance 130, 170 and 100 registers; the masked one is held to
-// 168 at D=64 by its launch bound. The f32 kernels (64 threads) spill at
-// D=64 and D=128. chip_smoke.py prints the whole table first.
+// fwd_tc (128 threads, 45 / 85 / 25 / 101 KB at D = 64 / 128 / 32 / 256):
+// the unmasked instance 152, 213, 123 and 241 registers (the ragged one,
+// R, 192, 239, 151 and 255 with 16 bytes spilled); the masked one is held
+// to 168 at D=64 by its launch bound. dq_mma and dkv_mma (128 threads):
+// 153-255 registers, up to 20 bytes spilled at D=128 and 224 at D=256.
+// chip_smoke.py prints the whole table first.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -125,160 +142,20 @@
 
 #include <type_traits>
 
+#include "flash_common.cuh"
 #include "hopper.cuh"
 
 namespace {
+
+using namespace lamp_flash;
 
 typedef __nv_bfloat16 bf16;
 typedef __half f16;
 using hopper::pack2;
 using hopper::unpack2;
 
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kThreads = 128;  // fwd_tc: 4 warps of 16 rows
 constexpr int kPad = 8;        // shared-memory row padding, 16-bit elements
-constexpr int kBlock = 64;     // rows and keys of a class-map block
-
-// classes of a 64 x 64 block under segment ids and the mask
-constexpr unsigned char kSkip = 0, kFull = 1, kPartial = 2;
-
-struct Problem {
-  int heads, sq, skv, d;       // d: the true head dim (<= the instance's D)
-  int causal, window, offset;  // offset = Skv - Sq aligns the diagonal
-  const int* limits;           // per-row kv limits, or null
-  int lim_bstride, lim_rstride;
-  const int* q_ids;            // segment ids [B, Sq] and [B, Skv], or null
-  const int* kv_ids;
-  const unsigned char* mask;   // keep-mask through its strides, or null
-  long long mask_b, mask_h, mask_r, mask_c;
-  unsigned char* tiles;        // class map, or null (no ids, no mask)
-  long long tile_b, tile_h;
-  int tiles_q, tiles_k;
-  float scale;
-};
-
-// Keys [0, limit) may be visible to this row; 0 for rows past Sq.
-__device__ __forceinline__ int row_limit(const Problem& p, int b, int row) {
-  if (row >= p.sq) return 0;
-  int lim = p.skv;
-  if (p.limits != nullptr)
-    lim = min(lim, p.limits[(long long)b * p.lim_bstride +
-                            (long long)row * p.lim_rstride]);
-  return lim;
-}
-
-// rule 1 of the header: the kv limit, the causal diagonal and the window
-__device__ __forceinline__ bool visible(const Problem& p, int row, int lim,
-                                        int col) {
-  if (col >= lim) return false;
-  if (p.causal) {
-    const int diag = row + p.offset;
-    if (col > diag) return false;
-    if (p.window > 0 && col <= diag - p.window) return false;
-  }
-  return true;
-}
-
-// The keys [lo, hi) that `row` sees under rule 1: visible() as two bounds,
-// so that a masked tile costs two compares an element. hi = 0 for rows
-// past Sq.
-__device__ __forceinline__ int2 key_bounds(const Problem& p, int b, int row) {
-  int lo = 0, hi = row_limit(p, b, row);
-  if (p.causal) {
-    const int diag = row + p.offset;
-    hi = min(hi, diag + 1);
-    if (p.window > 0) lo = diag - p.window + 1;
-  }
-  return make_int2(lo, hi);
-}
-
-// rule 3 at a (row, key) inside the tensors
-__device__ __forceinline__ bool mask_keeps(const Problem& p, int b, int h,
-                                           int row, int col) {
-  return p.mask == nullptr ||
-         p.mask[b * p.mask_b + h * p.mask_h + row * p.mask_r +
-                col * p.mask_c] != 0;
-}
-
-// rules 2 and 3 at a (row, key) inside the tensors
-__device__ __forceinline__ bool keep(const Problem& p, int b, int h, int row,
-                                     int col) {
-  if (p.q_ids != nullptr && p.q_ids[(long long)b * p.sq + row] !=
-                                p.kv_ids[(long long)b * p.skv + col])
-    return false;
-  return mask_keeps(p, b, h, row, col);
-}
-
-// The class-map row of rows block qb (tiles_k bytes, one per 64-key
-// block), or null past the last block (every span of it skips).
-__device__ __forceinline__ const unsigned char* class_row(const Problem& p,
-                                                          int b, int h,
-                                                          int qb) {
-  if (qb >= p.tiles_q) return nullptr;
-  return p.tiles + b * p.tile_b + h * p.tile_h + (long long)qb * p.tiles_k;
-}
-
-// entries of the class map a block stages in shared memory (rows or keys
-// up to 65536); a longer row is read in place
-constexpr int kMaxTiles = 1024;
-
-// The class of a row's keys [c0, c0 + cols) (c0 on a block edge): kSkip
-// when every block of the span skips, kFull when every one is full, else
-// kPartial. `row` holds n entries (null: skip); without ids and mask
-// (p.tiles null) every span is full.
-__device__ __forceinline__ int span_class(const unsigned char* row, int n,
-                                          int c0, int cols) {
-  if (row == nullptr) return kSkip;
-  const int k1 = min(n, (c0 + cols + kBlock - 1) / kBlock);
-  bool any = false, all = true;
-  for (int kb = c0 / kBlock; kb < k1; ++kb) {
-    const unsigned char c = row[kb];
-    any |= c != kSkip;
-    all &= c == kFull;
-  }
-  return !any ? kSkip : all ? kFull : kPartial;
-}
-
-// the f32 kernels read the map in place
-__device__ __forceinline__ int span_class(const Problem& p, int b, int h,
-                                          int qb, int c0, int cols) {
-  if (p.tiles == nullptr) return kFull;
-  return span_class(class_row(p, b, h, qb), p.tiles_k, c0, cols);
-}
-
-// Keys [lo, hi) that rows [r0, r0 + rows) can see under causal and window.
-__device__ __forceinline__ void kv_range(const Problem& p, int r0, int rows,
-                                         int* lo, int* hi) {
-  *lo = 0;
-  *hi = p.skv;
-  if (p.causal) {
-    *hi = min(p.skv, r0 + rows + p.offset);
-    if (p.window > 0) *lo = max(0, r0 + p.offset - p.window + 1);
-  }
-}
-
-// Rows [lo, hi) that can see some key of [c0, c0 + cols).
-__device__ __forceinline__ void q_range(const Problem& p, int c0, int cols,
-                                        int* lo, int* hi) {
-  *lo = 0;
-  *hi = p.sq;
-  if (p.causal) {
-    *lo = max(0, c0 - p.offset);
-    if (p.window > 0) *hi = min(p.sq, c0 + cols - 1 - p.offset + p.window);
-  }
-}
-
-// True when the bounds keep every (row, key) of the tile: no per-row
-// limits, no ragged edge, and the tile lies inside the causal band.
-__device__ __forceinline__ bool full_tile(const Problem& p, int r0, int rows,
-                                          int c0, int cols) {
-  if (p.limits != nullptr || r0 + rows > p.sq || c0 + cols > p.skv)
-    return false;
-  if (!p.causal) return true;
-  return c0 + cols - 1 <= r0 + p.offset &&
-         (p.window <= 0 || c0 > r0 + rows - 1 + p.offset - p.window);
-}
 
 // The class map: one thread per (64-row block, 64-key block) of one slab
 // (b, h) of the map. Segment ids classify by their ranges, as the TPU
@@ -326,15 +203,6 @@ __global__ void tile_classes(Problem p, int map_heads) {
       cls = kPartial;
   }
   p.tiles[b * p.tile_b + h * p.tile_h + idx] = cls;
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
 // ---------------------------------------------------------------------------
@@ -450,17 +318,76 @@ __device__ __forceinline__ void load_tile(T* s, const T* g, int row0, int n,
   }
 }
 
+template <int N>
+using Rows = std::integral_constant<int, N>;
+
+// the keys of a K/V tile the forward streams: 64, 32 at D = 256
+__host__ __device__ constexpr int fwd_kv_tile(int d) { return d > 128 ? 32 : 64; }
+
+// cp.async of 8 or 4 bytes (cp.async.ca), zero-filled when not valid
+template <int N>
+__device__ __forceinline__ void cp_async_ca(void* dst, const void* src,
+                                            bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "n"(N), "r"(valid ? N : 0));
+}
+
+// load_tile for any head dim d: rows of 2d bytes lie 16-byte aligned (d %
+// 8 == 0: load_tile), only 8-byte aligned (d % 4 == 0), 4-byte aligned (d
+// even) or 2-byte aligned (d odd), so the copies are 16-, 8- and 4-byte
+// cp.async, or (d odd) plain 2-byte loads and stores. Never a padded copy
+// in device memory.
+template <int D, int ROWS, typename T>
+__device__ __forceinline__ void load_tile_ragged(T* s, const T* g, int row0,
+                                                 int n, int d) {
+  if (d % 8 == 0) {
+    load_tile<D, ROWS>(s, g, row0, n, d);
+  } else if (d % 4 == 0) {
+    constexpr int kChunks = D / 4;
+    for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
+      const int r = i / kChunks, c = i % kChunks;
+      const bool in = row0 + r < n && c * 4 < d;
+      cp_async_ca<8>(s + r * (D + kPad) + c * 4,
+                     g + (in ? (long long)(row0 + r) * d + c * 4 : 0), in);
+    }
+  } else if (d % 2 == 0) {
+    constexpr int kChunks = D / 2;
+    for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
+      const int r = i / kChunks, c = i % kChunks;
+      const bool in = row0 + r < n && c * 2 < d;
+      cp_async_ca<4>(s + r * (D + kPad) + c * 2,
+                     g + (in ? (long long)(row0 + r) * d + c * 2 : 0), in);
+    }
+  } else {
+    // the stage written here is not read before the next __syncthreads
+    const unsigned short* gs = reinterpret_cast<const unsigned short*>(g);
+    unsigned short* ss = reinterpret_cast<unsigned short*>(s);
+    for (int i = threadIdx.x; i < ROWS * D; i += kThreads) {
+      const int r = i / D, c = i % D;
+      const bool in = row0 + r < n && c < d;
+      ss[r * (D + kPad) + c] = in ? gs[(long long)(row0 + r) * d + c] : 0;
+    }
+  }
+}
+
 // M: segment ids or a mask are given (the class map and rules 2-3 are
 // compiled in); without them the loop is rule 1's alone
+// R: the head dim is not a multiple of 8 (load_tile_ragged, and the output
+// stored by elements); R = false keeps the 16-byte copies
 // The masked instance at D=64 is held to 168 registers, so that three
 // blocks share an SM as the unmasked one's 130 allow: packed rows give
 // many short blocks, whose latency the third block hides.
-template <int D, typename T, bool M>
+template <int D, typename T, bool M, bool R>
 __global__ void __launch_bounds__(kThreads, M && D == 64 ? 3 : 1)
 fwd_tc(const T* __restrict__ q, const T* __restrict__ k,
        const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
        Problem p) {
-  constexpr int BR = 64, BC = 64, S = D + kPad;
+  // D = 256: 32-key tiles, and Q's fragments read from shared memory at
+  // each use, so that the f32 output accumulator (128 registers a thread)
+  // fits beside them
+  constexpr int BR = 64, BC = fwd_kv_tile(D), S = D + kPad;
+  constexpr bool kQRegs = D <= 128;
   extern __shared__ __align__(16) unsigned char smem[];
   T* qs = reinterpret_cast<T*>(smem);
   T* kv = qs + BR * S;  // two stages of [K tile, V tile]
@@ -474,9 +401,16 @@ fwd_tc(const T* __restrict__ q, const T* __restrict__ k,
   const long long kbase = (long long)bh * p.skv * p.d;
   const int ra = r0 + warp * 16 + g, rb = ra + 8;
   const int la = row_limit(p, b, ra), lb = row_limit(p, b, rb);
+  auto tile = [&](T* dst, const T* src, int row0, int n, auto rows) {
+    constexpr int ROWS = decltype(rows)::value;
+    if constexpr (R)
+      load_tile_ragged<D, ROWS>(dst, src, row0, n, p.d);
+    else
+      load_tile<D, ROWS>(dst, src, row0, n, p.d);
+  };
 
   if (tid == 0) lim_max = 0;
-  load_tile<D, BR>(qs, q + qbase, r0, p.sq, p.d);
+  tile(qs, q + qbase, r0, p.sq, Rows<BR>{});
   cp_commit();
   // masked: this row block's class-map row in shared memory, the segment
   // ids of rows ra and rb, and each staged tile's kv ids (0 without ids)
@@ -520,16 +454,18 @@ fwd_tc(const T* __restrict__ q, const T* __restrict__ k,
   };
   int c0 = next((lo / BC) * BC);
   if (c0 < hi) {
-    load_tile<D, BC>(kv, k + kbase, c0, p.skv, p.d);
-    load_tile<D, BC>(kv + BC * S, v + kbase, c0, p.skv, p.d);
+    tile(kv, k + kbase, c0, p.skv, Rows<BC>{});
+    tile(kv + BC * S, v + kbase, c0, p.skv, Rows<BC>{});
     stage_ids(0, c0);
   }
   cp_commit();
   cp_wait<1>();  // the Q tile
   __syncthreads();
-  uint32_t qa[D / 16][4];
+  uint32_t qa[kQRegs ? D / 16 : 1][4];
+  if constexpr (kQRegs) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) load_a<S>(qa[kk], qs, warp * 16, kk * 16, lane);
+    for (int kk = 0; kk < D / 16; ++kk) load_a<S>(qa[kk], qs, warp * 16, kk * 16, lane);
+  }
 
   float acc[D / 8][4];
 #pragma unroll
@@ -543,8 +479,8 @@ fwd_tc(const T* __restrict__ q, const T* __restrict__ k,
     int kid_next = 0;
     if (cn < hi) {
       T* nxt = kv + (stage ^ 1) * 2 * BC * S;
-      load_tile<D, BC>(nxt, k + kbase, cn, p.skv, p.d);
-      load_tile<D, BC>(nxt + BC * S, v + kbase, cn, p.skv, p.d);
+      tile(nxt, k + kbase, cn, p.skv, Rows<BC>{});
+      tile(nxt + BC * S, v + kbase, cn, p.skv, Rows<BC>{});
       if constexpr (M) {
         if (tid < BC && p.q_ids != nullptr && cn + tid < p.skv)
           kid_next = p.kv_ids[(long long)b * p.skv + cn + tid];
@@ -560,12 +496,18 @@ fwd_tc(const T* __restrict__ q, const T* __restrict__ k,
     for (int j = 0; j < BC / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qf[4];
+      const uint32_t* q_kk = qf;
+      if constexpr (kQRegs)
+        q_kk = qa[kk];
+      else
+        load_a<S>(qf, qs, warp * 16, kk * 16, lane);
 #pragma unroll
       for (int j = 0; j < BC / 8; j += 2) {
         uint32_t bf[4];
         load_b_nk<S>(bf, ks, j * 8, kk * 16, lane);
-        mma<T>(s[j], qa[kk], bf[0], bf[1]);
-        mma<T>(s[j + 1], qa[kk], bf[2], bf[3]);
+        mma<T>(s[j], q_kk, bf[0], bf[1]);
+        mma<T>(s[j + 1], q_kk, bf[2], bf[3]);
       }
     }
     const bool partial = M && span_class(crow, p.tiles_k, c0, BC) != kFull;
@@ -652,18 +594,372 @@ fwd_tc(const T* __restrict__ q, const T* __restrict__ k,
   for (int n = 0; n < D / 8; ++n) {
     const int col = n * 8 + 2 * t;
     if (col >= p.d) break;
-    if (ra < p.sq)
-      *reinterpret_cast<uint32_t*>(o + qbase + (long long)ra * p.d + col) =
-          pack2<T>(acc[n][0] * ia, acc[n][1] * ia);
-    if (rb < p.sq)
-      *reinterpret_cast<uint32_t*>(o + qbase + (long long)rb * p.d + col) =
-          pack2<T>(acc[n][2] * ib, acc[n][3] * ib);
+    const uint32_t wa = pack2<T>(acc[n][0] * ia, acc[n][1] * ia);
+    const uint32_t wb = pack2<T>(acc[n][2] * ib, acc[n][3] * ib);
+    if constexpr (R) {  // an odd d: 2-byte stores, the pair's second guarded
+      unsigned short* os = reinterpret_cast<unsigned short*>(o + qbase);
+      if (ra < p.sq) {
+        os[(long long)ra * p.d + col] = wa & 0xffff;
+        if (col + 1 < p.d) os[(long long)ra * p.d + col + 1] = wa >> 16;
+      }
+      if (rb < p.sq) {
+        os[(long long)rb * p.d + col] = wb & 0xffff;
+        if (col + 1 < p.d) os[(long long)rb * p.d + col + 1] = wb >> 16;
+      }
+    } else {
+      if (ra < p.sq)
+        *reinterpret_cast<uint32_t*>(o + qbase + (long long)ra * p.d + col) = wa;
+      if (rb < p.sq)
+        *reinterpret_cast<uint32_t*>(o + qbase + (long long)rb * p.d + col) = wb;
+    }
   }
   if (t == 0) {
     const long long lbase = (long long)bh * p.sq;
     if (ra < p.sq) lse[lbase + ra] = l_a == 0.f ? -INFINITY : (m_a + log2f(l_a)) * kLn2;
     if (rb < p.sq) lse[lbase + rb] = l_b == 0.f ? -INFINITY : (m_b + log2f(l_b)) * kLn2;
   }
+}
+
+// ---------------------------------------------------------------------------
+// 16-bit backward on mma.sync, for the head dims the wgmma kernels do not
+// take: d not a multiple of 8 (rows of 2d bytes, which TMA cannot
+// describe) and 128 < d <= 256 (whose resident 128-row tiles would not
+// fit). The split design of the wgmma kernels (dq, which writes di, then
+// dkv; no atomics) on 4 warps of 16 rows (dq) or 16 keys (dkv), with
+// tiles copied by load_tile_ragged into padded shared tiles one tile
+// ahead and fragments read by ldmatrix, as in fwd_tc. At D = 256 dq reads
+// Q's and dO's fragments from shared memory at each use, and dkv splits
+// its 256 output columns over two blocks (blockIdx.z), each recomputing
+// S^T and dP^T, so that the f32 accumulators fit in registers.
+// Visibility as fwd_tc: the bounds per element; under ids or a mask (M)
+// the class map's skipped tiles are not visited and keep() decides in its
+// partial ones.
+// ---------------------------------------------------------------------------
+
+// the keys of dq_mma's K/V tiles and the rows of dkv_mma's q tiles: 64,
+// 32 at D = 128 and 256
+__host__ __device__ constexpr int mma_bwd_tile(int d) { return d >= 128 ? 32 : 64; }
+// the output columns of a dkv_mma block (blockIdx.z picks them): dK and dV
+// of 256 columns would not fit in registers
+__host__ __device__ constexpr int mma_dkv_cols(int d) { return d > 128 ? 128 : d; }
+
+template <typename T>
+__device__ __forceinline__ float to_f(T x) {
+  return unpack2<T>(x, x).x;
+}
+
+// the output rows ra and rb of a [rows, d] matrix from C fragments of the
+// columns [c0, c0 + N), for any d: 2-byte stores, a pair's second guarded
+// at an odd d
+template <int N, typename T>
+__device__ __forceinline__ void store_rows(T* out, const float (*acc)[4],
+                                           int ra, int rb, int rows, int d,
+                                           int t, int c0 = 0) {
+  unsigned short* os = reinterpret_cast<unsigned short*>(out);
+#pragma unroll
+  for (int n = 0; n < N / 8; ++n) {
+    const int col = c0 + n * 8 + 2 * t;
+    if (col >= d) break;
+    const uint32_t wa = pack2<T>(acc[n][0], acc[n][1]);
+    const uint32_t wb = pack2<T>(acc[n][2], acc[n][3]);
+    if (ra < rows) {
+      os[(long long)ra * d + col] = wa & 0xffff;
+      if (col + 1 < d) os[(long long)ra * d + col + 1] = wa >> 16;
+    }
+    if (rb < rows) {
+      os[(long long)rb * d + col] = wb & 0xffff;
+      if (col + 1 < d) os[(long long)rb * d + col + 1] = wb >> 16;
+    }
+  }
+}
+
+template <int D, typename T, bool M>
+__global__ void __launch_bounds__(kThreads)
+dq_mma(const T* __restrict__ q, const T* __restrict__ k,
+       const T* __restrict__ v, const T* __restrict__ o,
+       const T* __restrict__ dout, const float* __restrict__ lse,
+       float* __restrict__ di, T* __restrict__ dq, Problem p) {
+  constexpr int BR = 64, BC = mma_bwd_tile(D), S = D + kPad;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* qs = reinterpret_cast<T*>(smem);
+  T* dos = qs + BR * S;
+  T* kv = dos + BR * S;  // two stages of [K tile, V tile]
+  __shared__ int lim_max;
+
+  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
+  const int qb = gridDim.x - 1 - blockIdx.x, r0 = qb * BR;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const long long qbase = (long long)bh * p.sq * p.d;
+  const long long kbase = (long long)bh * p.skv * p.d;
+  const long long lbase = (long long)bh * p.sq;
+  const int ra = r0 + warp * 16 + g, rb = ra + 8;
+  const int la = row_limit(p, b, ra), lb = row_limit(p, b, rb);
+  const float lse_a = ra < p.sq ? lse[lbase + ra] * kLog2e : 0.f;
+  const float lse_b = rb < p.sq ? lse[lbase + rb] * kLog2e : 0.f;
+
+  if (tid == 0) lim_max = 0;
+  load_tile_ragged<D, BR>(qs, q + qbase, r0, p.sq, p.d);
+  load_tile_ragged<D, BR>(dos, dout + qbase, r0, p.sq, p.d);
+  cp_commit();
+  // di = rowsum(o * do) of rows ra and rb in f32, lane t over the columns
+  // t, t + 4, ...; written for the dkv kernel
+  float di_a = 0.f, di_b = 0.f;
+  for (int c = t; c < p.d; c += 4) {
+    if (ra < p.sq) {
+      const long long i = qbase + (long long)ra * p.d + c;
+      di_a = fmaf(to_f(o[i]), to_f(dout[i]), di_a);
+    }
+    if (rb < p.sq) {
+      const long long i = qbase + (long long)rb * p.d + c;
+      di_b = fmaf(to_f(o[i]), to_f(dout[i]), di_b);
+    }
+  }
+  di_a = quad_sum(di_a);
+  di_b = quad_sum(di_b);
+  if (t == 0) {
+    if (ra < p.sq) di[lbase + ra] = di_a;
+    if (rb < p.sq) di[lbase + rb] = di_b;
+  }
+  __syncthreads();
+  atomicMax(&lim_max, max(la, lb));
+  __syncthreads();
+  int lo, hi;
+  kv_range(p, r0, BR, &lo, &hi);
+  hi = min(hi, lim_max);
+  const unsigned char* crow = M ? class_row(p, b, h, qb) : nullptr;
+  // the first tile at or after c that the class map does not skip
+  auto next = [&](int c) {
+    if constexpr (M)
+      while (c < hi && span_class(crow, p.tiles_k, c, BC) == kSkip) c += BC;
+    return c;
+  };
+  int c0 = next((lo / BC) * BC);
+  if (c0 < hi) {
+    load_tile_ragged<D, BC>(kv, k + kbase, c0, p.skv, p.d);
+    load_tile_ragged<D, BC>(kv + BC * S, v + kbase, c0, p.skv, p.d);
+  }
+  cp_commit();
+  cp_wait<1>();  // the Q and dO tiles
+  __syncthreads();
+  // Q's and dO's fragments in registers, at D = 256 read from shared
+  // memory at each use (the f32 dQ accumulator takes 128 registers)
+  constexpr bool kRegs = D <= 128;
+  uint32_t qa[kRegs ? D / 16 : 1][4], da[kRegs ? D / 16 : 1][4];
+  if constexpr (kRegs) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      load_a<S>(qa[kk], qs, warp * 16, kk * 16, lane);
+      load_a<S>(da[kk], dos, warp * 16, kk * 16, lane);
+    }
+  }
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const float sl2 = p.scale * kLog2e;
+
+  for (int stage = 0; c0 < hi; stage ^= 1) {
+    const int cn = next(c0 + BC);
+    if (cn < hi) {
+      T* nxt = kv + (stage ^ 1) * 2 * BC * S;
+      load_tile_ragged<D, BC>(nxt, k + kbase, cn, p.skv, p.d);
+      load_tile_ragged<D, BC>(nxt + BC * S, v + kbase, cn, p.skv, p.d);
+    }
+    cp_commit();
+    cp_wait<1>();  // this tile
+    __syncthreads();
+    const T* ks = kv + stage * 2 * BC * S;
+    const T* vs = ks + BC * S;
+    float s[BC / 8][4], dp[BC / 8][4];
+#pragma unroll
+    for (int j = 0; j < BC / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t qf[4], df[4];
+      const uint32_t *q_kk = qf, *d_kk = df;
+      if constexpr (kRegs) {
+        q_kk = qa[kk];
+        d_kk = da[kk];
+      } else {
+        load_a<S>(qf, qs, warp * 16, kk * 16, lane);
+        load_a<S>(df, dos, warp * 16, kk * 16, lane);
+      }
+#pragma unroll
+      for (int j = 0; j < BC / 8; j += 2) {
+        uint32_t bf[4];
+        load_b_nk<S>(bf, ks, j * 8, kk * 16, lane);
+        mma<T>(s[j], q_kk, bf[0], bf[1]);
+        mma<T>(s[j + 1], q_kk, bf[2], bf[3]);
+        load_b_nk<S>(bf, vs, j * 8, kk * 16, lane);
+        mma<T>(dp[j], d_kk, bf[0], bf[1]);
+        mma<T>(dp[j + 1], d_kk, bf[2], bf[3]);
+      }
+    }
+    const int cls = M ? span_class(crow, p.tiles_k, c0, BC) : kFull;
+    const bool full = cls == kFull && full_tile(p, r0, BR, c0, BC);
+#pragma unroll
+    for (int j = 0; j < BC / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = c0 + j * 8 + 2 * t + (e & 1);
+        const bool top = e < 2;
+        const int row = top ? ra : rb;
+        bool vis = full || visible(p, row, top ? la : lb, col);
+        if constexpr (M) {
+          if (!full && cls != kFull) vis = vis && keep(p, b, h, row, col);
+        }
+        const float pr = vis ? exp2f(s[j][e] * sl2 - (top ? lse_a : lse_b)) : 0.f;
+        s[j][e] = pr * (dp[j][e] - (top ? di_a : di_b)) * p.scale;  // dS
+      }
+    }
+    uint32_t dsa[BC / 16][4];
+    c_to_a<BC / 16, T>(dsa, s);
+#pragma unroll
+    for (int kk = 0; kk < BC / 16; ++kk) {
+#pragma unroll
+      for (int n = 0; n < D / 8; n += 2) {
+        uint32_t bf[4];
+        load_b_kn<S>(bf, ks, kk * 16, n * 8, lane);
+        mma<T>(acc[n], dsa[kk], bf[0], bf[1]);
+        mma<T>(acc[n + 1], dsa[kk], bf[2], bf[3]);
+      }
+    }
+    __syncthreads();  // this stage is refilled two tiles on
+    c0 = cn;
+  }
+  cp_wait<0>();
+  store_rows<D>(dq + qbase, acc, ra, rb, p.sq, p.d, t);
+}
+
+template <int D, typename T, bool M>
+__global__ void __launch_bounds__(kThreads)
+dkv_mma(const T* __restrict__ q, const T* __restrict__ k,
+        const T* __restrict__ v, const T* __restrict__ dout,
+        const float* __restrict__ lse, const float* __restrict__ di,
+        T* __restrict__ dk, T* __restrict__ dv, Problem p) {
+  constexpr int BC = 64, BR = mma_bwd_tile(D), S = D + kPad;
+  constexpr int DO = mma_dkv_cols(D);  // this block's dK and dV columns
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* ks = reinterpret_cast<T*>(smem);
+  T* vs = ks + BC * S;
+  T* qdo = vs + BC * S;  // two stages of [Q tile, dO tile]
+  __shared__ float lse_s[2][BR], di_s[2][BR];
+  __shared__ int lim_s[2][BR];
+
+  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
+  const int c0 = blockIdx.x * BC, col0 = blockIdx.z * DO;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const long long qbase = (long long)bh * p.sq * p.d;
+  const long long kbase = (long long)bh * p.skv * p.d;
+  const long long lbase = (long long)bh * p.sq;
+  const int ka = c0 + warp * 16 + g, kb = ka + 8;
+
+  // the q tile r0 into stage st: Q and dO by cp.async, the row statistics
+  // by plain stores (both are read after the next __syncthreads)
+  auto load_rows = [&](int r0, int st) {
+    T* dst = qdo + st * 2 * BR * S;
+    load_tile_ragged<D, BR>(dst, q + qbase, r0, p.sq, p.d);
+    load_tile_ragged<D, BR>(dst + BR * S, dout + qbase, r0, p.sq, p.d);
+    for (int i = tid; i < BR; i += kThreads) {
+      const int row = r0 + i;
+      lse_s[st][i] = row < p.sq ? lse[lbase + row] * kLog2e : 0.f;
+      di_s[st][i] = row < p.sq ? di[lbase + row] : 0.f;
+      lim_s[st][i] = row_limit(p, b, row);
+    }
+  };
+  int lo, hi;
+  q_range(p, c0, BC, &lo, &hi);
+  // the first q tile at or after r that the class map does not skip
+  auto next = [&](int r) {
+    if constexpr (M)
+      while (r < hi && span_class(p, b, h, r / kBlock, c0, BC) == kSkip) r += BR;
+    return r;
+  };
+  load_tile_ragged<D, BC>(ks, k + kbase, c0, p.skv, p.d);
+  load_tile_ragged<D, BC>(vs, v + kbase, c0, p.skv, p.d);
+  int r0 = next((lo / BR) * BR);
+  if (r0 < hi) load_rows(r0, 0);
+  cp_commit();
+
+  float dk_acc[DO / 8][4], dv_acc[DO / 8][4];
+#pragma unroll
+  for (int n = 0; n < DO / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+  const float sl2 = p.scale * kLog2e;
+
+  for (int stage = 0; r0 < hi; stage ^= 1) {
+    const int rn = next(r0 + BR);
+    if (rn < hi) load_rows(rn, stage ^ 1);
+    cp_commit();
+    cp_wait<1>();  // K, V and this q tile
+    __syncthreads();
+    const T* qs = qdo + stage * 2 * BR * S;
+    const T* dos = qs + BR * S;
+    // S^T = K Q^T and dP^T = V dO^T: rows are this warp's 16 keys
+    float st[BR / 8][4], dpt[BR / 8][4];
+#pragma unroll
+    for (int j = 0; j < BR / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a_k[4], a_v[4];
+      load_a<S>(a_k, ks, warp * 16, kk * 16, lane);
+      load_a<S>(a_v, vs, warp * 16, kk * 16, lane);
+#pragma unroll
+      for (int j = 0; j < BR / 8; j += 2) {
+        uint32_t bf[4];
+        load_b_nk<S>(bf, qs, j * 8, kk * 16, lane);
+        mma<T>(st[j], a_k, bf[0], bf[1]);
+        mma<T>(st[j + 1], a_k, bf[2], bf[3]);
+        load_b_nk<S>(bf, dos, j * 8, kk * 16, lane);
+        mma<T>(dpt[j], a_v, bf[0], bf[1]);
+        mma<T>(dpt[j + 1], a_v, bf[2], bf[3]);
+      }
+    }
+    const int cls = M ? span_class(p, b, h, r0 / kBlock, c0, BC) : kFull;
+    const bool full = cls == kFull && full_tile(p, r0, BR, c0, BC);
+#pragma unroll
+    for (int j = 0; j < BR / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = j * 8 + 2 * t + (e & 1);  // local q row
+        const int key = e < 2 ? ka : kb;
+        bool vis = full || visible(p, r0 + i, lim_s[stage][i], key);
+        if constexpr (M) {
+          if (!full && cls != kFull) vis = vis && keep(p, b, h, r0 + i, key);
+        }
+        const float pr = vis ? exp2f(st[j][e] * sl2 - lse_s[stage][i]) : 0.f;
+        st[j][e] = pr;
+        dpt[j][e] = pr * (dpt[j][e] - di_s[stage][i]) * p.scale;  // dS^T
+      }
+    }
+    uint32_t pta[BR / 16][4], dsa[BR / 16][4];
+    c_to_a<BR / 16, T>(pta, st);
+    c_to_a<BR / 16, T>(dsa, dpt);
+#pragma unroll
+    for (int kk = 0; kk < BR / 16; ++kk) {
+#pragma unroll
+      for (int n = 0; n < DO / 8; n += 2) {
+        uint32_t bf[4];
+        load_b_kn<S>(bf, dos, kk * 16, col0 + n * 8, lane);
+        mma<T>(dv_acc[n], pta[kk], bf[0], bf[1]);
+        mma<T>(dv_acc[n + 1], pta[kk], bf[2], bf[3]);
+        load_b_kn<S>(bf, qs, kk * 16, col0 + n * 8, lane);
+        mma<T>(dk_acc[n], dsa[kk], bf[0], bf[1]);
+        mma<T>(dk_acc[n + 1], dsa[kk], bf[2], bf[3]);
+      }
+    }
+    __syncthreads();  // this stage is refilled two tiles on
+    r0 = rn;
+  }
+  cp_wait<0>();  // no copy outlives the block, also when no tile ran
+  store_rows<DO>(dk + kbase, dk_acc, ka, kb, p.skv, p.d, t, col0);
+  store_rows<DO>(dv + kbase, dv_acc, ka, kb, p.skv, p.d, t, col0);
 }
 
 // ---------------------------------------------------------------------------
@@ -1297,248 +1593,38 @@ dkv_tc(const __grid_constant__ CUtensorMap tm_q,
 }
 
 // ---------------------------------------------------------------------------
-// float32: scalar kernels, one thread per query row (forward, dq) or per key
-// (dkv), over tiles staged in shared memory.
-// ---------------------------------------------------------------------------
-
-constexpr int kRows32 = 64;  // threads per block
-constexpr int kTile32 = 32;  // staged rows per tile
-
-// rows [row0, row0 + kTile32) of a [n, d] matrix, D columns, zero past n
-// and d
-template <int D>
-__device__ __forceinline__ void stage32(float (*s)[D], const float* g, int row0,
-                                        int n, int d) {
-  for (int i = threadIdx.x; i < kTile32 * D; i += blockDim.x) {
-    const int r = i / D, c = i % D;
-    s[r][c] = row0 + r < n && c < d ? g[(long long)(row0 + r) * d + c] : 0.f;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kRows32)
-fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
-        const float* __restrict__ v, float* __restrict__ o,
-        float* __restrict__ lse, Problem p) {
-  __shared__ float ks[kTile32][D], vs[kTile32][D];
-  __shared__ int lim_max;
-  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
-  const int r0 = blockIdx.x * kRows32, row = r0 + threadIdx.x;
-  const long long qbase = (long long)bh * p.sq * p.d;
-  const long long kbase = (long long)bh * p.skv * p.d;
-  const int lim = row_limit(p, b, row);
-  float qr[D], acc[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    qr[d] = row < p.sq && d < p.d ? q[qbase + (long long)row * p.d + d] : 0.f;
-    acc[d] = 0.f;
-  }
-  if (threadIdx.x == 0) lim_max = 0;
-  __syncthreads();
-  atomicMax(&lim_max, lim);
-  __syncthreads();
-  int lo, hi;
-  kv_range(p, r0, kRows32, &lo, &hi);
-  hi = min(hi, lim_max);
-  float m = -INFINITY, l = 0.f;
-  for (int c0 = (lo / kTile32) * kTile32; c0 < hi; c0 += kTile32) {
-    const int cls = span_class(p, b, h, r0 / kBlock, c0, kTile32);
-    if (cls == kSkip) continue;
-    stage32<D>(ks, k + kbase, c0, p.skv, p.d);
-    stage32<D>(vs, v + kbase, c0, p.skv, p.d);
-    __syncthreads();
-    for (int j = 0; j < kTile32; ++j) {
-      if (!visible(p, row, lim, c0 + j)) continue;
-      if (cls != kFull && !keep(p, b, h, row, c0 + j)) continue;
-      float s = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) s = fmaf(qr[d], ks[j][d], s);
-      s *= p.scale;
-      const float mn = fmaxf(m, s);
-      const float alpha = expf(m - mn), pr = expf(s - mn);
-      l = l * alpha + pr;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(pr, vs[j][d], acc[d] * alpha);
-      m = mn;
-    }
-    __syncthreads();
-  }
-  if (row < p.sq) {
-    const float inv = l == 0.f ? 0.f : 1.f / l;
-#pragma unroll
-    for (int d = 0; d < D; ++d)
-      if (d < p.d) o[qbase + (long long)row * p.d + d] = acc[d] * inv;
-    lse[(long long)bh * p.sq + row] = l == 0.f ? -INFINITY : m + logf(l);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kRows32)
-dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-       const float* __restrict__ v, const float* __restrict__ o,
-       const float* __restrict__ dout, const float* __restrict__ lse,
-       float* __restrict__ di, float* __restrict__ dq, Problem p) {
-  __shared__ float ks[kTile32][D], vs[kTile32][D];
-  __shared__ int lim_max;
-  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
-  const int r0 = blockIdx.x * kRows32, row = r0 + threadIdx.x;
-  const long long qbase = (long long)bh * p.sq * p.d;
-  const long long kbase = (long long)bh * p.skv * p.d;
-  const int lim = row_limit(p, b, row);
-  const bool in = row < p.sq;
-  const float lse_r = in ? lse[(long long)bh * p.sq + row] : 0.f;
-  float qr[D], dr[D], acc[D];
-  float di_r = 0.f;  // rowsum(o * do), for this kernel and the dkv kernel
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    const bool at = in && d < p.d;
-    const long long idx = qbase + (long long)row * p.d + d;
-    qr[d] = at ? q[idx] : 0.f;
-    dr[d] = at ? dout[idx] : 0.f;
-    if (at) di_r = fmaf(o[idx], dr[d], di_r);
-    acc[d] = 0.f;
-  }
-  if (in) di[(long long)bh * p.sq + row] = di_r;
-  if (threadIdx.x == 0) lim_max = 0;
-  __syncthreads();
-  atomicMax(&lim_max, lim);
-  __syncthreads();
-  int lo, hi;
-  kv_range(p, r0, kRows32, &lo, &hi);
-  hi = min(hi, lim_max);
-  for (int c0 = (lo / kTile32) * kTile32; c0 < hi; c0 += kTile32) {
-    const int cls = span_class(p, b, h, r0 / kBlock, c0, kTile32);
-    if (cls == kSkip) continue;
-    stage32<D>(ks, k + kbase, c0, p.skv, p.d);
-    stage32<D>(vs, v + kbase, c0, p.skv, p.d);
-    __syncthreads();
-    for (int j = 0; j < kTile32; ++j) {
-      if (!visible(p, row, lim, c0 + j)) continue;
-      if (cls != kFull && !keep(p, b, h, row, c0 + j)) continue;
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(qr[d], ks[j][d], s);
-        dp = fmaf(dr[d], vs[j][d], dp);
-      }
-      const float pr = expf(s * p.scale - lse_r);
-      const float ds = pr * (dp - di_r) * p.scale;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(ds, ks[j][d], acc[d]);
-    }
-    __syncthreads();
-  }
-  if (in) {
-#pragma unroll
-    for (int d = 0; d < D; ++d)
-      if (d < p.d) dq[qbase + (long long)row * p.d + d] = acc[d];
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kRows32)
-dkv_f32(const float* __restrict__ q, const float* __restrict__ k,
-        const float* __restrict__ v, const float* __restrict__ dout,
-        const float* __restrict__ lse, const float* __restrict__ di,
-        float* __restrict__ dk, float* __restrict__ dv, Problem p) {
-  __shared__ float qs[kTile32][D], dos[kTile32][D];
-  __shared__ float lse_s[kTile32], di_s[kTile32];
-  __shared__ int lim_s[kTile32];
-  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
-  const int c0 = blockIdx.x * kRows32, key = c0 + threadIdx.x;
-  const long long qbase = (long long)bh * p.sq * p.d;
-  const long long kbase = (long long)bh * p.skv * p.d;
-  const bool in = key < p.skv;
-  float kr[D], vr[D], dk_acc[D], dv_acc[D];
-#pragma unroll
-  for (int d = 0; d < D; ++d) {
-    const bool at = in && d < p.d;
-    kr[d] = at ? k[kbase + (long long)key * p.d + d] : 0.f;
-    vr[d] = at ? v[kbase + (long long)key * p.d + d] : 0.f;
-    dk_acc[d] = dv_acc[d] = 0.f;
-  }
-  int lo, hi;
-  q_range(p, c0, kRows32, &lo, &hi);
-  for (int r0 = (lo / kTile32) * kTile32; r0 < hi; r0 += kTile32) {
-    const int cls = span_class(p, b, h, r0 / kBlock, c0, kRows32);
-    if (cls == kSkip) continue;
-    stage32<D>(qs, q + qbase, r0, p.sq, p.d);
-    stage32<D>(dos, dout + qbase, r0, p.sq, p.d);
-    for (int i = threadIdx.x; i < kTile32; i += blockDim.x) {
-      const int row = r0 + i;
-      lse_s[i] = row < p.sq ? lse[(long long)bh * p.sq + row] : 0.f;
-      di_s[i] = row < p.sq ? di[(long long)bh * p.sq + row] : 0.f;
-      lim_s[i] = row_limit(p, b, row);
-    }
-    __syncthreads();
-    for (int i = 0; i < kTile32; ++i) {
-      if (!visible(p, r0 + i, lim_s[i], key)) continue;
-      if (cls != kFull && !keep(p, b, h, r0 + i, key)) continue;
-      float s = 0.f, dp = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        s = fmaf(qs[i][d], kr[d], s);
-        dp = fmaf(dos[i][d], vr[d], dp);
-      }
-      const float pr = expf(s * p.scale - lse_s[i]);
-      const float ds = pr * (dp - di_s[i]) * p.scale;
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        dv_acc[d] = fmaf(pr, dos[i][d], dv_acc[d]);
-        dk_acc[d] = fmaf(ds, qs[i][d], dk_acc[d]);
-      }
-    }
-    __syncthreads();
-  }
-  if (in) {
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      if (d >= p.d) break;
-      dk[kbase + (long long)key * p.d + d] = dk_acc[d];
-      dv[kbase + (long long)key * p.d + d] = dv_acc[d];
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
 // launchers
 // ---------------------------------------------------------------------------
-
-int cdiv(int a, int b) { return (a + b - 1) / b; }
-
-template <typename Kernel, typename... Args>
-cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem,
-                   cudaStream_t stream, Args... args) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
-  kernel<<<grid, threads, smem, stream>>>(args...);
-  return cudaGetLastError();
-}
 
 template <int D>
 using Dim = std::integral_constant<int, D>;
 
-// Calls f(T{}, Dim<D>{}) for the dtype code (0 float32, 1 bfloat16, 2
-// float16) and the smallest instance D of 32, 64 and 128 that holds the
-// head dim d (a multiple of 8 up to 128).
-template <typename F>
-int dispatch(int dtype, int d, F f) {
-  if (d < 8 || d > 128 || d % 8 != 0) return cudaErrorInvalidValue;
+// Calls f(T{}, Dim<D>{}) for a 16-bit dtype code (1 bfloat16, 2 float16)
+// and the smallest instance D of 32, 64, 128 and (the forward: Wide) 256
+// that holds the head dim d.
+template <bool Wide, typename F>
+int tc_dispatch(int dtype, int d, F f) {
   auto by_dim = [&](auto t) -> int {
     if (d <= 32) return f(t, Dim<32>{});
     if (d <= 64) return f(t, Dim<64>{});
+    if constexpr (Wide) {
+      if (d > 128) return f(t, Dim<256>{});
+    }
     return f(t, Dim<128>{});
   };
-  switch (dtype) {
-    case 0: return by_dim(float{});
-    case 1: return by_dim(bf16{});
-    case 2: return by_dim(f16{});
-  }
-  return cudaErrorInvalidValue;
+  return dtype == 1 ? by_dim(bf16{}) : by_dim(f16{});
 }
+
+// The tensor-core kernels take the 16-bit types: the forward at head dims
+// up to 256, the wgmma backward (TMA: rows of a multiple of 16 bytes; Q and
+// dO, or K and V, resident for 128 rows) at the multiples of 8 up to 128.
+// Everything else runs in the scalar kernels of flash_attention_any.cu.
+bool tc_forward(int dtype, int d) { return (dtype == 1 || dtype == 2) && d <= 256; }
+bool tc_backward(int dtype, int d) {
+  return tc_forward(dtype, d) && d <= 128 && d % 8 == 0;
+}
+// ... and the mma.sync backward (dq_mma, dkv_mma) the rest up to 256
+bool mma_backward(int dtype, int d) { return tc_forward(dtype, d); }
 
 // bytes of `rows` padded rows of a 16-bit tile
 template <int D>
@@ -1595,7 +1681,7 @@ Problem make_problem(const void* limits, const void* q_ids,
                      long long mask_c, int map_batch, int map_heads,
                      int heads, int sq, int skv, int d, int lim_bstride,
                      int lim_rstride, int causal, int window,
-                     float sm_scale) {
+                     double sm_scale) {
   Problem p;
   p.heads = heads;
   p.sq = sq;
@@ -1620,7 +1706,8 @@ Problem make_problem(const void* limits, const void* q_ids,
   p.tiles = classed ? static_cast<unsigned char*>(tiles) : nullptr;
   p.tile_h = map_heads > 1 ? (long long)p.tiles_q * p.tiles_k : 0;
   p.tile_b = map_batch > 1 ? (long long)map_heads * p.tiles_q * p.tiles_k : 0;
-  p.scale = sm_scale;
+  p.scale = static_cast<float>(sm_scale);
+  p.scale64 = sm_scale;
   return p;
 }
 
@@ -1631,9 +1718,9 @@ Problem make_problem(const void* limits, const void* q_ids,
 // one byte a (b, h, row, key) at b mask_b + h mask_h + row mask_r + key
 // mask_c, or null; tiles: the class map [map_batch, map_heads, Sq / 64,
 // Skv / 64] bytes, written by the forward and read by the backward), then
-// the shape: bh, heads, sq, skv, head_dim (a multiple of 8 up to 128), the
-// kv limits' strides, causal, window, sm_scale, the dtype (0 float32, 1
-// bfloat16, 2 float16: q, k, v, o, do, dq, dk, dv alike) and the stream.
+// the shape: bh, heads, sq, skv, head_dim (any d >= 1), the kv limits'
+// strides, causal, window, sm_scale, the dtype (0 float32, 1 bfloat16, 2
+// float16, 3 float64: q, k, v, o, do, dq, dk, dv alike) and the stream.
 // Each returns the cudaError_t of its launch, or (the backward) kMapError +
 // libcuda's CUresult when a TMA map was refused; the caller raises on
 // non-zero.
@@ -1642,7 +1729,7 @@ Problem make_problem(const void* limits, const void* q_ids,
       long long mask_b, long long mask_h, long long mask_r,                \
       long long mask_c, int map_batch, int map_heads, int bh, int heads,   \
       int sq, int skv, int head_dim, int lim_bstride, int lim_rstride,     \
-      int causal, int window, float sm_scale, int dtype, void *stream
+      int causal, int window, double sm_scale, int dtype, void *stream
 #define LAMP_PROBLEM(limits)                                               \
   make_problem(limits, q_ids, kv_ids, mask, tiles, mask_b, mask_h, mask_r, \
                mask_c, map_batch, map_heads, heads, sq, skv, head_dim,     \
@@ -1656,6 +1743,7 @@ int lamp_flash_attention_fwd(const void* q, const void* k, const void* v,
                              const void* limits, void* o, void* lse,
                              LAMP_VIS_PARAMS) {
   if (bh == 0 || sq == 0) return cudaSuccess;
+  if (head_dim <= 0) return cudaErrorInvalidValue;
   const Problem p = LAMP_PROBLEM(limits);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int blocks = p.tiles_q * p.tiles_k;
@@ -1665,59 +1753,77 @@ int lamp_flash_attention_fwd(const void* q, const void* k, const void* v,
                128, 0, st, p, map_heads);
     if (err != cudaSuccess) return err;
   }
+  if (!tc_forward(dtype, head_dim))
+    return any_fwd(dtype, q, k, v, o, lse, p, bh, st);
   float* l = static_cast<float*>(lse);
-  return dispatch(dtype, head_dim, [&](auto t, auto dim) -> int {
+  return tc_dispatch<true>(dtype, head_dim, [&](auto t, auto dim) -> int {
     using T = decltype(t);
     constexpr int D = decltype(dim)::value;
     const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
             *vt = static_cast<const T*>(v);
     T* ot = static_cast<T*>(o);
-    if constexpr (std::is_same<T, float>::value) {
-      return launch(fwd_f32<D>, dim3(cdiv(sq, kRows32), bh), kRows32, 0, st,
-                    qt, kt, vt, ot, l, p);
-    } else {
-      // a 64-row q tile and two stages of 64-row K and V tiles
-      const dim3 grid(cdiv(sq, 64), bh);
-      const int smem = smem_tc<D>(64 + 4 * 64);
-      if (p.tiles != nullptr)
-        return launch(fwd_tc<D, T, true>, grid, kThreads, smem, st, qt, kt,
-                      vt, ot, l, p);
-      return launch(fwd_tc<D, T, false>, grid, kThreads, smem, st, qt, kt,
-                    vt, ot, l, p);
-    }
+    // a 64-row q tile and two stages of K and V tiles
+    const dim3 grid(cdiv(sq, 64), bh);
+    const int smem = smem_tc<D>(64 + 4 * fwd_kv_tile(D));
+    // rows of a head dim not a multiple of 8 are not 16-byte aligned
+    const bool ragged = head_dim % 8 != 0;
+    if (p.tiles != nullptr)
+      return ragged ? launch(fwd_tc<D, T, true, true>, grid, kThreads, smem,
+                             st, qt, kt, vt, ot, l, p)
+                    : launch(fwd_tc<D, T, true, false>, grid, kThreads, smem,
+                             st, qt, kt, vt, ot, l, p);
+    return ragged ? launch(fwd_tc<D, T, false, true>, grid, kThreads, smem,
+                           st, qt, kt, vt, ot, l, p)
+                  : launch(fwd_tc<D, T, false, false>, grid, kThreads, smem,
+                           st, qt, kt, vt, ot, l, p);
   });
 }
 
+// di: rowsum(o * do), written here for the dkv kernel (f64 for float64
+// inputs, as lse, else f32)
 int lamp_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
                                 const void* o, const void* dout,
                                 const void* lse, void* di, const void* limits,
                                 void* dq, LAMP_VIS_PARAMS) {
   if (bh == 0 || sq == 0) return cudaSuccess;
+  if (head_dim <= 0) return cudaErrorInvalidValue;
   const Problem p = LAMP_PROBLEM(limits);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!mma_backward(dtype, head_dim))
+    return any_dq(dtype, q, k, v, o, dout, lse, di, dq, p, bh, st);
   const float* l = static_cast<const float*>(lse);
   float* dd = static_cast<float*>(di);
-  return dispatch(dtype, head_dim, [&](auto t, auto dim) -> int {
+  if (!tc_backward(dtype, head_dim))
+    return tc_dispatch<true>(dtype, head_dim, [&](auto t, auto dim) -> int {
+      using T = decltype(t);
+      constexpr int D = decltype(dim)::value;
+      const dim3 grid(cdiv(sq, 64), bh);
+      const int smem = smem_tc<D>(2 * 64 + 4 * mma_bwd_tile(D));
+      const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
+              *vt = static_cast<const T*>(v), *ot = static_cast<const T*>(o),
+              *dot = static_cast<const T*>(dout);
+      T* out = static_cast<T*>(dq);
+      if (p.tiles != nullptr)
+        return launch(dq_mma<D, T, true>, grid, kThreads, smem, st, qt, kt, vt,
+                      ot, dot, l, dd, out, p);
+      return launch(dq_mma<D, T, false>, grid, kThreads, smem, st, qt, kt, vt,
+                    ot, dot, l, dd, out, p);
+    });
+  return tc_dispatch<false>(dtype, head_dim, [&](auto t, auto dim) -> int {
     using T = decltype(t);
     constexpr int D = decltype(dim)::value;
     const T *ot = static_cast<const T*>(o), *dot = static_cast<const T*>(dout);
     T* out = static_cast<T*>(dq);
-    if constexpr (std::is_same<T, float>::value) {
-      return launch(dq_f32<D>, dim3(cdiv(sq, kRows32), bh), kRows32, 0, st,
-                    static_cast<const float*>(q), static_cast<const float*>(k),
-                    static_cast<const float*>(v), ot, dot, l, dd, out, p);
-    } else {
-      CUtensorMap m[4];
-      const int rc = bwd_maps<T, D>(m, q, k, v, dout, bh, sq, skv, head_dim,
-                                    64, dq_kv_tile(D));
-      if (rc != 0) return rc;
-      const dim3 grid(cdiv(sq, 128), bh);
-      if (p.tiles != nullptr)
-        return launch(dq_tc<D, T, true>, grid, kBwdThreads, smem_dq<D>(), st,
-                      m[0], m[1], m[2], m[3], ot, dot, l, dd, out, p);
-      return launch(dq_tc<D, T, false>, grid, kBwdThreads, smem_dq<D>(), st,
+    CUtensorMap m[4];
+    const int rc = bwd_maps<T, D>(m, q, k, v, dout, bh, sq, skv, head_dim, 64,
+                                  dq_kv_tile(D));
+    if (rc != 0) return rc;
+    const dim3 grid(cdiv(sq, 128), bh);
+    if (p.tiles != nullptr)
+      return launch(dq_tc<D, T, true>, grid, kBwdThreads, smem_dq<D>(), st,
                     m[0], m[1], m[2], m[3], ot, dot, l, dd, out, p);
-    }
+    return launch(dq_tc<D, T, false>, grid, kBwdThreads, smem_dq<D>(), st,
+                  m[0], m[1], m[2], m[3], ot, dot, l, dd, out, p);
   });
 }
 
@@ -1727,31 +1833,42 @@ int lamp_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                  const void* di, const void* limits, void* dk,
                                  void* dv, LAMP_VIS_PARAMS) {
   if (bh == 0 || skv == 0) return cudaSuccess;
+  if (head_dim <= 0) return cudaErrorInvalidValue;
   const Problem p = LAMP_PROBLEM(limits);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!mma_backward(dtype, head_dim))
+    return any_dkv(dtype, q, k, v, dout, lse, di, dk, dv, p, bh, st);
   const float* l = static_cast<const float*>(lse);
   const float* dd = static_cast<const float*>(di);
-  return dispatch(dtype, head_dim, [&](auto t, auto dim) -> int {
+  if (!tc_backward(dtype, head_dim))
+    return tc_dispatch<true>(dtype, head_dim, [&](auto t, auto dim) -> int {
+      using T = decltype(t);
+      constexpr int D = decltype(dim)::value;
+      const dim3 grid(cdiv(skv, 64), bh, D / mma_dkv_cols(D));
+      const int smem = smem_tc<D>(2 * 64 + 4 * mma_bwd_tile(D));
+      const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
+              *vt = static_cast<const T*>(v), *dot = static_cast<const T*>(dout);
+      T *dkt = static_cast<T*>(dk), *dvt = static_cast<T*>(dv);
+      if (p.tiles != nullptr)
+        return launch(dkv_mma<D, T, true>, grid, kThreads, smem, st, qt, kt,
+                      vt, dot, l, dd, dkt, dvt, p);
+      return launch(dkv_mma<D, T, false>, grid, kThreads, smem, st, qt, kt, vt,
+                    dot, l, dd, dkt, dvt, p);
+    });
+  return tc_dispatch<false>(dtype, head_dim, [&](auto t, auto dim) -> int {
     using T = decltype(t);
     constexpr int D = decltype(dim)::value;
     T *dkt = static_cast<T*>(dk), *dvt = static_cast<T*>(dv);
-    if constexpr (std::is_same<T, float>::value) {
-      return launch(dkv_f32<D>, dim3(cdiv(skv, kRows32), bh), kRows32, 0, st,
-                    static_cast<const float*>(q), static_cast<const float*>(k),
-                    static_cast<const float*>(v),
-                    static_cast<const float*>(dout), l, dd, dkt, dvt, p);
-    } else {
-      CUtensorMap m[4];
-      const int rc = bwd_maps<T, D>(m, q, k, v, dout, bh, sq, skv, head_dim,
-                                    dkv_q_tile(D), 64);
-      if (rc != 0) return rc;
-      const dim3 grid(cdiv(skv, 128), bh);
-      if (p.tiles != nullptr)
-        return launch(dkv_tc<D, T, true>, grid, kBwdThreads, smem_dkv<D>(),
-                      st, m[0], m[1], m[2], m[3], l, dd, dkt, dvt, p);
-      return launch(dkv_tc<D, T, false>, grid, kBwdThreads, smem_dkv<D>(),
-                    st, m[0], m[1], m[2], m[3], l, dd, dkt, dvt, p);
-    }
+    CUtensorMap m[4];
+    const int rc = bwd_maps<T, D>(m, q, k, v, dout, bh, sq, skv, head_dim,
+                                  dkv_q_tile(D), 64);
+    if (rc != 0) return rc;
+    const dim3 grid(cdiv(skv, 128), bh);
+    if (p.tiles != nullptr)
+      return launch(dkv_tc<D, T, true>, grid, kBwdThreads, smem_dkv<D>(), st,
+                    m[0], m[1], m[2], m[3], l, dd, dkt, dvt, p);
+    return launch(dkv_tc<D, T, false>, grid, kBwdThreads, smem_dkv<D>(), st,
+                  m[0], m[1], m[2], m[3], l, dd, dkt, dvt, p);
   });
 }
 

@@ -1,0 +1,202 @@
+// What the flash-attention kernels share (flash_attention.cu: the
+// tensor-core kernels and the entry points; flash_attention_any.cu: the
+// scalar kernels for every head dim and float type): the problem's shape,
+// the visibility rules of flash_attention.cu's header note, and the launch
+// helper.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <limits.h>
+#include <stdint.h>
+
+namespace lamp_flash {
+
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kBlock = 64;     // rows and keys of a class-map block
+
+// classes of a 64 x 64 block under segment ids and the mask
+constexpr unsigned char kSkip = 0, kFull = 1, kPartial = 2;
+
+struct Problem {
+  int heads, sq, skv, d;       // d: the true head dim (<= the instance's D)
+  int causal, window, offset;  // offset = Skv - Sq aligns the diagonal
+  const int* limits;           // per-row kv limits, or null
+  int lim_bstride, lim_rstride;
+  const int* q_ids;            // segment ids [B, Sq] and [B, Skv], or null
+  const int* kv_ids;
+  const unsigned char* mask;   // keep-mask through its strides, or null
+  long long mask_b, mask_h, mask_r, mask_c;
+  unsigned char* tiles;        // class map, or null (no ids, no mask)
+  long long tile_b, tile_h;
+  int tiles_q, tiles_k;
+  float scale;                 // sm_scale, for the f32 arithmetic
+  double scale64;              // and for float64's
+};
+
+// Keys [0, limit) may be visible to this row; 0 for rows past Sq.
+__device__ __forceinline__ int row_limit(const Problem& p, int b, int row) {
+  if (row >= p.sq) return 0;
+  int lim = p.skv;
+  if (p.limits != nullptr)
+    lim = min(lim, p.limits[(long long)b * p.lim_bstride +
+                            (long long)row * p.lim_rstride]);
+  return lim;
+}
+
+// rule 1 of the header: the kv limit, the causal diagonal and the window
+__device__ __forceinline__ bool visible(const Problem& p, int row, int lim,
+                                        int col) {
+  if (col >= lim) return false;
+  if (p.causal) {
+    const int diag = row + p.offset;
+    if (col > diag) return false;
+    if (p.window > 0 && col <= diag - p.window) return false;
+  }
+  return true;
+}
+
+// The keys [lo, hi) that `row` sees under rule 1: visible() as two bounds,
+// so that a masked tile costs two compares an element. hi = 0 for rows
+// past Sq.
+__device__ __forceinline__ int2 key_bounds(const Problem& p, int b, int row) {
+  int lo = 0, hi = row_limit(p, b, row);
+  if (p.causal) {
+    const int diag = row + p.offset;
+    hi = min(hi, diag + 1);
+    if (p.window > 0) lo = diag - p.window + 1;
+  }
+  return make_int2(lo, hi);
+}
+
+// rule 3 at a (row, key) inside the tensors
+__device__ __forceinline__ bool mask_keeps(const Problem& p, int b, int h,
+                                           int row, int col) {
+  return p.mask == nullptr ||
+         p.mask[b * p.mask_b + h * p.mask_h + row * p.mask_r +
+                col * p.mask_c] != 0;
+}
+
+// rules 2 and 3 at a (row, key) inside the tensors
+__device__ __forceinline__ bool keep(const Problem& p, int b, int h, int row,
+                                     int col) {
+  if (p.q_ids != nullptr && p.q_ids[(long long)b * p.sq + row] !=
+                                p.kv_ids[(long long)b * p.skv + col])
+    return false;
+  return mask_keeps(p, b, h, row, col);
+}
+
+// The class-map row of rows block qb (tiles_k bytes, one per 64-key
+// block), or null past the last block (every span of it skips).
+__device__ __forceinline__ const unsigned char* class_row(const Problem& p,
+                                                          int b, int h,
+                                                          int qb) {
+  if (qb >= p.tiles_q) return nullptr;
+  return p.tiles + b * p.tile_b + h * p.tile_h + (long long)qb * p.tiles_k;
+}
+
+// entries of the class map a block stages in shared memory (rows or keys
+// up to 65536); a longer row is read in place
+constexpr int kMaxTiles = 1024;
+
+// The class of a row's keys [c0, c0 + cols) (c0 on a block edge): kSkip
+// when every block of the span skips, kFull when every one is full, else
+// kPartial. `row` holds n entries (null: skip); without ids and mask
+// (p.tiles null) every span is full.
+__device__ __forceinline__ int span_class(const unsigned char* row, int n,
+                                          int c0, int cols) {
+  if (row == nullptr) return kSkip;
+  const int k1 = min(n, (c0 + cols + kBlock - 1) / kBlock);
+  bool any = false, all = true;
+  for (int kb = c0 / kBlock; kb < k1; ++kb) {
+    const unsigned char c = row[kb];
+    any |= c != kSkip;
+    all &= c == kFull;
+  }
+  return !any ? kSkip : all ? kFull : kPartial;
+}
+
+// the f32 kernels read the map in place
+__device__ __forceinline__ int span_class(const Problem& p, int b, int h,
+                                          int qb, int c0, int cols) {
+  if (p.tiles == nullptr) return kFull;
+  return span_class(class_row(p, b, h, qb), p.tiles_k, c0, cols);
+}
+
+// Keys [lo, hi) that rows [r0, r0 + rows) can see under causal and window.
+__device__ __forceinline__ void kv_range(const Problem& p, int r0, int rows,
+                                         int* lo, int* hi) {
+  *lo = 0;
+  *hi = p.skv;
+  if (p.causal) {
+    *hi = min(p.skv, r0 + rows + p.offset);
+    if (p.window > 0) *lo = max(0, r0 + p.offset - p.window + 1);
+  }
+}
+
+// Rows [lo, hi) that can see some key of [c0, c0 + cols).
+__device__ __forceinline__ void q_range(const Problem& p, int c0, int cols,
+                                        int* lo, int* hi) {
+  *lo = 0;
+  *hi = p.sq;
+  if (p.causal) {
+    *lo = max(0, c0 - p.offset);
+    if (p.window > 0) *hi = min(p.sq, c0 + cols - 1 - p.offset + p.window);
+  }
+}
+
+// True when the bounds keep every (row, key) of the tile: no per-row
+// limits, no ragged edge, and the tile lies inside the causal band.
+__device__ __forceinline__ bool full_tile(const Problem& p, int r0, int rows,
+                                          int c0, int cols) {
+  if (p.limits != nullptr || r0 + rows > p.sq || c0 + cols > p.skv)
+    return false;
+  if (!p.causal) return true;
+  return c0 + cols - 1 <= r0 + p.offset &&
+         (p.window <= 0 || c0 > r0 + rows - 1 + p.offset - p.window);
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// launches `kernel`, opting into `smem` bytes of dynamic shared memory above
+// 48 KB; returns the launch's error
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem,
+                   cudaStream_t stream, Args... args) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  kernel<<<grid, threads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+}  // namespace lamp_flash
+
+namespace lamp_flash {
+
+// flash_attention_any.cu: the scalar kernels, for every head dim and the
+// dtype codes 0 float32, 1 bfloat16, 2 float16 and 3 float64. Each returns
+// the launch's cudaError_t. lse and di are f64 for float64 inputs, else
+// f32.
+int any_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
+            void* lse, const Problem& p, int bh, cudaStream_t stream);
+int any_dq(int dtype, const void* q, const void* k, const void* v,
+           const void* o, const void* dout, const void* lse, void* di,
+           void* dq, const Problem& p, int bh, cudaStream_t stream);
+int any_dkv(int dtype, const void* q, const void* k, const void* v,
+            const void* dout, const void* lse, const void* di, void* dk,
+            void* dv, const Problem& p, int bh, cudaStream_t stream);
+
+}  // namespace lamp_flash

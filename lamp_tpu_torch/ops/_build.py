@@ -107,7 +107,7 @@ def library() -> ctypes.CDLL:
     lib.lamp_paged_attention.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # tensors
         i32, i32, i32, i32, i32, i32,                 # batch .. pages_per_seq
-        i64, i64, i32, ctypes.c_float, i32, i32,      # strides .. kv dtype
+        i64, i64, i32, ctypes.c_double, i32, i32,     # strides .. kv dtype
         ptr,                                          # stream
     ]
     lib.lamp_paged_attention.restype = i32
@@ -115,7 +115,7 @@ def library() -> ctypes.CDLL:
     # class map, the mask's four strides, the map's batch and heads), then
     # bh, heads, sq, skv, head_dim, the two limit strides, causal, window,
     # sm_scale, dtype and the stream
-    shape = [ptr] * 4 + [i64] * 4 + [i32] * 11 + [ctypes.c_float, i32, ptr]
+    shape = [ptr] * 4 + [i64] * 4 + [i32] * 11 + [ctypes.c_double, i32, ptr]
     lib.lamp_flash_attention_fwd.argtypes = [ptr] * 6 + shape
     # dq: q, k, v, o, do, lse, di (written), limits, dq
     lib.lamp_flash_attention_bwd_dq.argtypes = [ptr] * 9 + shape

@@ -4,8 +4,9 @@ Counterpart of :mod:`lamp_tpu.ops.attention`. Layout is the JAX package's:
 q [B, H, Sq, D], k/v [B, H, Skv, D].
 
 :func:`flash_attention` launches the hand-written CUDA kernels
-(``csrc/flash_attention.cu``: a forward, and a backward in two kernels, dq
-then dkv) for CUDA tensors, and takes the plain PyTorch
+(``csrc/flash_attention.cu`` and ``csrc/flash_attention_any.cu``: a
+forward, and a backward in two kernels, dq then dkv, at every head dim and
+float dtype) for CUDA tensors, and takes the plain PyTorch
 :func:`flash_attention_reference` and :func:`_flash_backward_reference` for
 CPU tensors only. On Hopper one kernel serves every length, so
 :func:`compact_attention` is the same function under the JAX name, with the
@@ -34,7 +35,8 @@ LANES = 128
 # limit so that the two packages accept the same calls
 COMPACT_MAX_KV = 2048
 
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+                  torch.float64: 3}
 
 
 def _segment_mask(segment_ids):
@@ -113,7 +115,8 @@ def flash_attention_reference(q, k, v, *, causal=False, sm_scale=None,
     The math of the JAX ``_fwd_kernel`` without tiles: f32 scores, f32
     softmax statistics, ``p`` rounded to v's dtype for ``p @ v`` with f32
     accumulation, ``o`` in q's dtype and ``lse = m + log(l)`` f32
-    [B, H, Sq]. Rows with no visible key give o = 0 and lse = -inf."""
+    [B, H, Sq]; float64 inputs compute, and keep lse, in float64. Rows
+    with no visible key give o = 0 and lse = -inf."""
     d = q.shape[-1]
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
@@ -129,7 +132,7 @@ def flash_attention_reference(q, k, v, *, causal=False, sm_scale=None,
     o = torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype).to(acc), v.to(acc))
     o = torch.where(l == 0, 0.0, o / l)
     lse = torch.where(l == 0, -math.inf, m + torch.log(l))[..., 0]
-    return o.to(q.dtype), lse.to(torch.float32)
+    return o.to(q.dtype), lse
 
 
 def _flash_backward_reference(q, k, v, o, lse, do, *, causal=False,
@@ -160,25 +163,22 @@ def _flash_backward_reference(q, k, v, o, lse, do, *, causal=False,
 
 
 def _check_cuda(q, k, v, kv_lengths, segment_ids, mask):
-    """Raise on anything the CUDA kernels do not take: head dims past 128
-    or not a multiple of 8, float64 or mixed dtypes, bad shapes, tensors
-    on other devices, non-contiguous or misaligned q, k and v, and
-    segment ids or masks of the wrong shape or device."""
+    """Raise on anything the CUDA kernels do not take: integer or mixed
+    dtypes, bad shapes, tensors on other devices, non-contiguous or
+    misaligned q, k and v, and segment ids or masks of the wrong shape or
+    device. Every head dim and every float dtype is taken."""
     if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype or \
             v.dtype != q.dtype:
         raise TypeError(
-            f"flash_attention kernel takes float32, bfloat16 or float16 q, "
-            f"k and v of one dtype, got {q.dtype}, {k.dtype} and {v.dtype}")
+            f"flash_attention kernel takes float32, bfloat16, float16 or "
+            f"float64 q, k and v of one dtype, got {q.dtype}, {k.dtype} and "
+            f"{v.dtype}")
     b, h, sq, d = q.shape
     skv = k.shape[2]
     if k.shape != v.shape or k.shape[:2] != (b, h) or k.shape[3] != d:
         raise ValueError(
             f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)} and v "
             f"{tuple(v.shape)} must be [B, H, Sq, D] and [B, H, Skv, D]")
-    if d > 128 or d % 8:
-        raise NotImplementedError(
-            f"flash_attention kernel: head_dim {d} (takes multiples of 8 up "
-            f"to 128)")
     tensors = [q, k, v] + ([] if kv_lengths is None else [kv_lengths])
     for t in tensors:
         if t.device != q.device:
@@ -312,7 +312,9 @@ def _fwd_cuda(q, k, v, kv_lengths, causal, sm_scale, window, vis=None):
     vis = vis or _Visibility(q, None, None)
     vis.alloc_map(q, k.shape[2])
     o = torch.empty_like(q)
-    lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    # f32, f64 for float64 inputs
+    lse = torch.empty(q.shape[:3], dtype=torch.promote_types(
+        q.dtype, torch.float32), device=q.device)
     lim_ptr, shape = _cuda_shape_args(q, k, kv_lengths, causal, window,
                                       sm_scale)
     rc = lib.lamp_flash_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -335,8 +337,10 @@ def _bwd_cuda(q, k, v, o, lse, do, kv_lengths, causal, sm_scale, window,
     if do.data_ptr() % 16:  # the kernels read do in 16-byte vectors
         do = do.clone()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    # di = rowsum(o * do) in f32: written by the dq kernel, read by dkv
-    di = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    # di = rowsum(o * do) in f32 (f64 for float64 inputs): written by the
+    # dq kernel, read by dkv
+    di = torch.empty(q.shape[:3], dtype=torch.promote_types(
+        q.dtype, torch.float32), device=q.device)
     lim_ptr, shape = _cuda_shape_args(q, k, kv_lengths, causal, window,
                                       sm_scale)
     qkv = (q.data_ptr(), k.data_ptr(), v.data_ptr())
@@ -418,11 +422,11 @@ def flash_attention(q, k, v, *, causal: bool = False,
 
     CPU tensors take :func:`flash_attention_reference` and
     :func:`_flash_backward_reference`. CUDA tensors launch the kernels of
-    ``csrc/flash_attention.cu`` (float32, bfloat16 or float16, head_dim a
-    multiple of 8 up to 128, contiguous q, k and v; the mask is read in
-    place through its strides) or raise: each forward launch adds one to
-    ``flash_attention.launches`` and each backward (two kernels) one to
-    ``flash_attention.backward_launches``.
+    ``csrc/flash_attention.cu`` and ``csrc/flash_attention_any.cu``
+    (float32, bfloat16, float16 or float64, any head_dim, contiguous q, k
+    and v; the mask is read in place through its strides) or raise: each
+    forward launch adds one to ``flash_attention.launches`` and each
+    backward (two kernels) one to ``flash_attention.backward_launches``.
     """
     window = _check_window(window, causal, k.shape[2])
     if sm_scale is None:

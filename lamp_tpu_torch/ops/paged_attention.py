@@ -37,11 +37,12 @@ NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 _NO_WINDOW = 0x3FFFFFFF
 
 _FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
-# the kernel's codes: q (and its output) in f32 or bf16; pools of q's dtype
-# or of either fp8 type
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's codes: q (and its output) in f32, bf16, f16 or f64; pools
+# of q's dtype, or of either fp8 type with a 32- or 16-bit q
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+                  torch.float64: 3}
 _POOL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2,
-                torch.float8_e5m2: 3}
+                torch.float8_e5m2: 3, torch.float16: 4, torch.float64: 5}
 
 
 def _effective_window(window, windows, b, device=None):
@@ -121,11 +122,12 @@ def paged_attention_reference(q, k_pages, v_pages, page_indices, lengths, *,
 def _check_cuda(q, pools, page_indices, lengths, windows, append_kv):
     """Raise on anything the CUDA kernel does not take."""
     pool = pools[0]
-    if q.dtype not in _KERNEL_DTYPES or (
-            pool.dtype != q.dtype and pool.dtype not in _FP8):
+    if q.dtype not in _KERNEL_DTYPES or (pool.dtype != q.dtype and (
+            pool.dtype not in _FP8 or q.dtype == torch.float64)):
         raise TypeError(
-            f"paged_attention kernel takes float32 or bfloat16 q with a pool "
-            f"of one dtype with it or of an fp8 dtype, got {q.dtype} and "
+            f"paged_attention kernel takes float32, bfloat16, float16 or "
+            f"float64 q with a pool of one dtype with it, or a 32- or 16-bit "
+            f"q with a pool of an fp8 dtype, got {q.dtype} and "
             f"{pool.dtype}")
     tensors = [q, *pools, page_indices, lengths]
     tensors += [] if windows is None else [windows]
@@ -166,10 +168,10 @@ def paged_attention(q, k_pages, v_pages, page_indices, lengths, *,
     ``page_offset=li * P``. Rows with no valid key give 0.
 
     CPU tensors take :func:`paged_attention_reference`. CUDA tensors launch
-    the kernel (bf16 or f32 q with a pool of q's dtype, float8_e4m3fn or
-    float8_e5m2; head_dim 64 or 128; up to 8 query heads per kv head) or
-    raise; each launch adds one to ``paged_attention.launches``. fp8 pools
-    are upcast in the kernel; the append rows stay in q's dtype.
+    the kernel (f32, bf16, f16 or f64 q with a pool of q's dtype, or a
+    32- or 16-bit q with a float8_e4m3fn or float8_e5m2 pool; any head_dim
+    and any number of query heads per kv head) or raise; each launch adds one to ``paged_attention.launches``.
+    fp8 pools are upcast in the kernel; the append rows stay in q's dtype.
     """
     if window is not None:
         window = int(window)
@@ -209,10 +211,6 @@ def paged_attention(q, k_pages, v_pages, page_indices, lengths, *,
         raise ValueError(f"paged_attention: unsupported device {q.device}")
     _check_cuda(q, [k_pages] if fused_kv else [k_pages, v_pages],
                 page_indices, lengths, windows, append_kv)
-    if d not in (64, 128) or h // num_kv_heads > 8:
-        raise NotImplementedError(
-            f"paged_attention kernel: head_dim {d} (takes 64 or 128), "
-            f"{h // num_kv_heads} query heads per kv head (takes <= 8)")
     # csrc/paged_attention.cu replaces lamp_tpu's _paged_kernel. It is bound
     # by K/V bytes read (B x live tokens x 2 x F x 2 B per layer in bf16,
     # 1 B in fp8) and reads each K/V row once per kv head, not once per

@@ -1,0 +1,137 @@
+"""A/B timing of the attention kernels between two checkouts of the port,
+on one CUDA card, in turns.
+
+    git archive <commit> lamp_tpu_torch | tar -x -C <dir>
+    python3 scripts/ab_attention.py <dir> [rounds]
+
+The two checkouts' packages share a name, so each measurement runs in a
+process of its own that imports one tree's lamp_tpu_torch: both trees'
+kernels first build at once (each into its own _build/), then every round
+measures the other tree, this tree, this tree and the other tree again.
+Each measurement is the device time a launch (torch.profiler, the mean
+over 30 calls) of the forward (fwd_tc), dq (dq_tc) and dkv (dkv_tc)
+kernels at the training slice's B=2, H=12, S=4096 and the flagship's B=8,
+H=12, S=384 (head_dim 64, bf16, causal, no ids or mask), and of the
+paged-attention kernel at chip_smoke.py phase 2's shape (B=32, 12/4 heads,
+head_dim 64, the 12-layer bf16 pool, append). Prints each measurement and
+the median of each side, and the ratio of this tree's to the other's.
+"""
+
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+CALLS = 30
+
+
+def worker(tree: str, build_only: bool) -> None:
+    sys.path.insert(0, tree)
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from lamp_tpu_torch.ops import _build
+    from lamp_tpu_torch.ops import attention as att
+    from lamp_tpu_torch.ops.paged_attention import paged_attention
+
+    assert Path(att.__file__).resolve().is_relative_to(Path(tree).resolve())
+    _build.build()
+    if build_only:
+        return
+    _build.library()
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def per_launch(fn, names):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(CALLS):
+                fn()
+            torch.cuda.synchronize()
+        out = {}
+        for e in prof.key_averages():
+            for name in names:
+                if name in e.key and e.count:
+                    out[name] = e.self_device_time_total / e.count
+        return out
+
+    times = {}
+    for b, s in ((2, 4096), (8, 384)):
+        q, k, v, do = (randn(b, 12, s, 64) for _ in range(4))
+        scale = 0.125
+        o, lse = att._fwd_cuda(q, k, v, None, True, scale, None)
+        fwd = per_launch(lambda: att._fwd_cuda(q, k, v, None, True, scale,
+                                               None), ["fwd_tc"])
+        bwd = per_launch(lambda: att._bwd_cuda(q, k, v, o, lse, do, None,
+                                               True, scale, None),
+                         ["dq_tc", "dkv_tc"])
+        for name, us in {**fwd, **bwd}.items():
+            times[f"{name} S={s}"] = us
+    # phase 2's shape: 12 layers x 192 pages of 128 tokens, 4 kv heads of 64
+    rng = np.random.RandomState(0)
+    pool = randn(12 * 192, 2, 128, 256)
+    qp, nk, nv = randn(32, 12, 64), randn(32, 256), randn(32, 256)
+    table = torch.as_tensor(np.stack([rng.choice(np.arange(1, 192), 4,
+                                                 replace=False)
+                                      for _ in range(32)]).astype(np.int32),
+                            device=dev)
+    edge = [0, 1, 127, 128, 129, 255, 511]
+    lengths = torch.as_tensor(np.asarray(
+        edge + list(rng.randint(0, 512, 32 - len(edge))), np.int32),
+        device=dev)
+    k6 = per_launch(lambda: paged_attention(
+        qp, pool, None, table, lengths, num_kv_heads=4, append_kv=(nk, nv),
+        page_offset=11 * 192), ["paged_attention"])
+    times["paged_attention"] = k6["paged_attention"]
+    print("AB " + json.dumps(times), flush=True)
+
+
+def run(tree: str, build_only: bool = False):
+    cmd = [sys.executable, __file__, "--worker", tree] + (
+        ["--build"] if build_only else [])
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True)
+
+
+def main() -> int:
+    other = str(Path(sys.argv[1]).resolve())
+    rounds = int(sys.argv[2]) if len(sys.argv) > 2 else 2
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    print(smi.strip(), flush=True)
+    builds = [run(t, build_only=True) for t in (other, str(ROOT))]
+    for proc in builds:
+        proc.communicate()
+        if proc.returncode:
+            raise SystemExit("a build failed")
+    seen = {"other": [], "this": []}
+    for _ in range(rounds):
+        for side in ("other", "this", "this", "other"):
+            proc = run(other if side == "other" else str(ROOT))
+            out = proc.communicate()[0]
+            if proc.returncode:
+                raise SystemExit(f"the {side} tree's worker failed")
+            line = next(x for x in out.splitlines() if x.startswith("AB "))
+            seen[side].append(json.loads(line[3:]))
+            print(side, line[3:], flush=True)
+    for key in seen["this"][0]:
+        a = statistics.median(m[key] for m in seen["other"])
+        b = statistics.median(m[key] for m in seen["this"])
+        print(f"{key:22} other {a:8.2f} us, this {b:8.2f} us, "
+              f"this / other {b / a:.3f}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    if len(sys.argv) > 2 and sys.argv[1] == "--worker":
+        worker(sys.argv[2], "--build" in sys.argv)
+        sys.exit(0)
+    sys.exit(main())

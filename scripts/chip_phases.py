@@ -1,0 +1,69 @@
+"""Run some of chip_smoke.py's checks on one CUDA card, for a quick first
+call after a kernel change: the build (with ptxas's register and spill
+lines), then the named parts only.
+
+    python3 scripts/chip_phases.py [paged] [flash] [small] [openllama]
+
+paged: phase 2 (the paged-attention kernels, K6_WIDE's shapes included);
+flash: phase 4's head dims and float64 (check_flash_head_dims, with the
+f32 checks and timing that the scalar kernels and the tensor-core kernels
+share); small: the GPT models of SMALL_HEAD_MODELS; openllama: phase 11.
+No argument runs all four. Every check raises as in chip_smoke.py.
+"""
+
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+from lamp_tpu_torch import models, optim, train  # noqa: E402
+from lamp_tpu_torch import nn as torch_nn  # noqa: E402
+from lamp_tpu_torch.ops import _build  # noqa: E402
+from lamp_tpu_torch.ops import attention as att  # noqa: E402
+from lamp_tpu_torch.ops.paged_attention import (  # noqa: E402
+    paged_attention, paged_attention_reference)
+
+PARTS = ("paged", "flash", "small", "openllama")
+
+
+def main(parts) -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_phases: needs a CUDA card")
+    unknown = set(parts) - set(PARTS)
+    if unknown:
+        raise SystemExit(f"chip_phases: unknown parts {sorted(unknown)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(torch.cuda.get_device_name(0), torch.__version__,
+          torch.version.cuda, flush=True)
+    t0 = time.perf_counter()
+    _build.build(verbose=True)
+    _build.library()
+    print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
+    if "paged" in parts:
+        cs.phase_kernel(paged_attention, paged_attention_reference)
+    if "flash" in parts:
+        def check(*args, **kw):
+            return cs.check_flash(att, *args, **kw)[0]
+
+        check("f32", 2, 4, 512, 512, 64, torch.float32, True,
+              lengths=[0, 400])
+        check("f32 head 128", 1, 4, 300, 400, 128, torch.float32, False)
+        print(cs.check_flash_head_dims(att, check)[1], flush=True)
+        cs.time_flash(att, 2, cs.LM_HEADS, 4096, 64)
+    if "small" in parts:
+        print(cs.check_small_heads(torch_nn, optim, train), flush=True)
+    if "openllama" in parts:
+        print(cs.phase_openllama(torch_nn, models, paged_attention, att),
+              flush=True)
+    print("chip_phases: done", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:] or PARTS))

@@ -65,8 +65,10 @@ def build():
             text = text.replace(old, new)
         cu, so = OUT / f"v{i}.cu", OUT / f"v{i}.so"
         cu.write_text(text)
+        # the scalar kernels' source links in too: the entry points route
+        # the inputs the tensor-core kernels do not take to it
         cmd = [_build._nvcc(), *_build._FLAGS, "-shared", f"-I{SRC}", "-o",
-               str(so), str(cu)]
+               str(so), str(cu), str(SRC / "flash_attention_any.cu")]
         procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                             stderr=subprocess.STDOUT,
                                             text=True))
@@ -77,7 +79,7 @@ def build():
             raise SystemExit(f"variant {name!r} did not build:\n{log[-4000:]}")
         lib = ctypes.CDLL(str(so))
         ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        shape = [ptr] * 4 + [i64] * 4 + [i32] * 11 + [ctypes.c_float, i32,
+        shape = [ptr] * 4 + [i64] * 4 + [i32] * 11 + [ctypes.c_double, i32,
                                                       ptr]
         lib.lamp_flash_attention_fwd.argtypes = [ptr] * 6 + shape
         lib.lamp_flash_attention_bwd_dq.argtypes = [ptr] * 9 + shape

@@ -211,23 +211,22 @@ def test_cpu_calls_launch_no_kernel_and_cuda_checks_refuse():
         .backward()
     assert (tatt.flash_attention.launches,
             tatt.flash_attention.backward_launches) == before
-    # segment ids, masks, float16 and head dims that are multiples of 8 up
-    # to 128 pass the checks; larger or unaligned head dims and float64
-    # are refused
+    # segment ids, masks, every float dtype and every head dim pass the
+    # checks (the kernels take all of them); integer and mixed dtypes are
+    # refused
     seg = torch.zeros((1, 16), dtype=torch.int32)
     tatt._check_cuda(tq, tk, tv, None, seg,
                      torch.ones((1, 1, 16, 16), dtype=torch.bool))
     tatt._check_cuda(tq.half(), tk.half(), tv.half(), None, (seg, seg), None)
-    for d in (8, 16, 32, 40, 96, 128):
+    for d in (1, 8, 12, 16, 32, 36, 40, 96, 100, 128, 160, 256, 300):
         x = torch.zeros((1, 1, 16, d))
         tatt._check_cuda(x, x, x, None, None, None)
-    for d in (160, 36):
-        x = torch.zeros((1, 1, 16, d))
-        with pytest.raises(NotImplementedError, match=f"head_dim {d}"):
-            tatt._check_cuda(x, x, x, None, None, None)
-    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
-        tatt._check_cuda(tq.double(), tk.double(), tv.double(), None, None,
-                         None)
+    tatt._check_cuda(tq.double(), tk.double(), tv.double(), None, None, None)
+    with pytest.raises(TypeError,
+                       match="float32, bfloat16, float16 or float64"):
+        tatt._check_cuda(tq.int(), tk.int(), tv.int(), None, None, None)
+    with pytest.raises(TypeError, match="of one dtype"):
+        tatt._check_cuda(tq.double(), tk, tv, None, None, None)
     with pytest.raises(ValueError, match="segment ids"):
         tatt._check_cuda(tq, tk, tv, None, seg[:, :8], None)
     with pytest.raises(ValueError, match="does not broadcast"):
@@ -351,11 +350,36 @@ def _vis_inputs(case, seed=7):
     return q, k, v, do, lens, seg, m
 
 
-@pytest.mark.parametrize("case", VIS_CASES, ids=[c[0] for c in VIS_CASES])
-def test_visibility_branches_match_jax(case):
-    """Forward and gradients (dq, dk, dv) under segment ids, id pairs,
-    unsorted ids, broadcast and per-head masks, their compositions with
-    kv lengths and windows, head dims 16, 32 and 96, and float16."""
+
+
+# Head dims the tensor-core kernels do not hold (not a multiple of 8, or
+# above 128: the CUDA path runs them in the ragged forward instance or the
+# scalar kernels), causal, windowed and segmented, in the VIS_CASES layout
+HEAD_DIM_CASES = [
+    ("d12_causal", 1, 2, 64, 64, 12, True, None, None, None, None,
+     np.float32),
+    ("d12_ids", 2, 1, 48, 48, 12, True, None, "sorted", None, None,
+     np.float32),
+    ("d100_causal", 1, 2, 64, 64, 100, True, None, None, None, None,
+     np.float32),
+    ("d100_window", 1, 2, 70, 70, 100, True, 20, None, None, None,
+     np.float32),
+    ("d100_ids", 2, 1, 48, 48, 100, True, None, "sorted", None, None,
+     np.float32),
+    ("d160_causal", 1, 1, 64, 64, 160, True, None, None, None, None,
+     np.float32),
+    ("d160_ids_window", 1, 2, 70, 70, 160, True, 24, "sorted", None, None,
+     np.float32),
+    ("d256_causal", 1, 1, 64, 64, 256, True, None, None, None, None,
+     np.float32),
+    ("d256_ids", 2, 1, 40, 40, 256, True, None, "unsorted", None, None,
+     np.float32),
+    ("d100_f16", 1, 2, 64, 64, 100, True, None, None, None, None,
+     np.float16),
+]
+
+
+def _vis_compare(case, atol):
     causal, window = case[6], case[7]
     q, k, v, do, lens, seg, m = _vis_inputs(case)
     jkw = dict(causal=causal, window=window)
@@ -372,12 +396,53 @@ def test_visibility_branches_match_jax(case):
         jkw["mask"], tkw["mask"] = jnp.asarray(m), torch.from_numpy(m)
     want, want_g = _jax_run(_jax_flash, q, k, v, do, **jkw)
     got, got_g = _torch_run(tatt.flash_attention, q, k, v, do, **tkw)
-    atol = ATOL_F16 if q.dtype == np.float16 else ATOL
     np.testing.assert_allclose(got.astype(np.float32),
                                want.astype(np.float32), atol=atol, rtol=0)
     for g, w, what in zip(got_g, want_g, ("dq", "dk", "dv")):
         np.testing.assert_allclose(g.astype(np.float32),
                                    w.astype(np.float32), atol=atol, rtol=0,
+                                   err_msg=what)
+    return q, k, v, do, tkw, got, got_g
+
+
+@pytest.mark.parametrize("case", VIS_CASES + HEAD_DIM_CASES,
+                         ids=[c[0] for c in VIS_CASES + HEAD_DIM_CASES])
+def test_visibility_branches_match_jax(case):
+    """Forward and gradients (dq, dk, dv) under segment ids, id pairs,
+    unsorted ids, broadcast and per-head masks, their compositions with
+    kv lengths and windows, head dims 12 to 256, and float16."""
+    _vis_compare(case, ATOL_F16 if case[-1] == np.float16 else ATOL)
+
+
+# float64 under JAX's x64: its kernel's dots ask for f32 results
+# (preferred_element_type) even on f64 inputs, so it agrees with the
+# port's float64 (computed in double throughout) at f32's tolerance,
+# ATOL; the port's forward and gradients are also held to the f64
+# gradients of mha_reference through autograd (every row here keeps a
+# visible key) at 1e-10, which only a double computation meets.
+F64_CASES = [
+    ("f64_d64", 1, 2, 64, 64, 64, True, None, None, None, None, np.float64),
+    ("f64_d100_ids", 2, 1, 48, 48, 100, True, None, "sorted", None, None,
+     np.float64),
+]
+
+
+@pytest.mark.parametrize("case", F64_CASES, ids=[c[0] for c in F64_CASES])
+def test_float64_matches_jax_and_computes_in_double(case):
+    old = jax.config.read("jax_enable_x64")
+    jax.config.update("jax_enable_x64", True)
+    try:
+        q, k, v, do, tkw, got, got_g = _vis_compare(case, ATOL)
+    finally:
+        jax.config.update("jax_enable_x64", old)
+    assert got.dtype == np.float64
+    ts = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    kw = {key: val for key, val in tkw.items() if key != "kv_lengths"}
+    out = tatt.mha_reference(*ts, **kw)
+    out.backward(torch.tensor(do))
+    np.testing.assert_allclose(got, out.detach().numpy(), atol=1e-10, rtol=0)
+    for g, t, what in zip(got_g, ts, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g, t.grad.numpy(), atol=1e-10, rtol=0,
                                    err_msg=what)
 
 

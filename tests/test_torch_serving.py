@@ -229,3 +229,47 @@ def test_sampled_engine_cancel_and_pool():
     assert len(engine.result_logprobs["s2"]) == 6
     assert all(lp <= 0 for lp in engine.result_logprobs["s2"])
     assert len(ts.free_pages) == ts.total_pages - 1
+
+
+def _openllama_servers():
+    """OpenLLaMA-3B's shape (openlm-research/open_llama_3b: no GQA, head_dim
+    100, SwiGLU 2.7x the width, untied head) cut to 2 blocks of width 200:
+    2 heads of head_dim 100, SwiGLU 540, vocab 256; made by lamp_tpu and
+    bridged, as _servers."""
+    jm = jax_modern_lm(vocab_size=256, embed_dim=200, num_heads=2,
+                       num_kv_heads=2, mlp_hidden=540, tied=False)
+    tm = load_modern_lm(jax_params(jm), device="cpu")
+    assert tm.lm_head is not None and tm.rope_cos.shape[1] == 50
+    kw = dict(page_size=PAGE, total_pages=32)
+    return jm, JaxServer(jm, **kw), ModernBatchServer(tm, **kw)
+
+
+@pytest.mark.parametrize("what", ["forward", "advance", "engine"])
+def test_openllama_shape_matches_jax(what):
+    """The OpenLLaMA-shaped model: the dense forward's logits, the decode
+    step's logits (through the paged attention's plain version at head_dim
+    100) and greedy ServingEngine tokens against the JAX package's."""
+    jm, js, ts = _openllama_servers()
+    assert ts.head_dim == 100
+    if what == "forward":
+        toks = np.random.RandomState(4).randint(0, 256, (2, 12))
+        want, _ = jm.forward(jnp.asarray(toks, jnp.int32))
+        with torch.no_grad():
+            got = ts.model(torch.from_numpy(toks))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL,
+                                   rtol=0)
+    elif what == "advance":
+        _advance_both(js, ts)
+    else:
+        prompts = [[1, 2, 3], [70, 80], [200, 4, 4, 9, 4], [9], [255, 0]]
+        budgets = [5, 9, 3, 12, 6]
+        engines = (JaxEngine(js, decode_steps=4, max_batch=3),
+                   ServingEngine(ts, decode_steps=4, max_batch=3))
+        for eng, params in zip(engines, (JaxParams, SamplingParams)):
+            for i, (p, n) in enumerate(zip(prompts, budgets)):
+                eng.submit(p, params(max_tokens=n), request_id=f"q{i}")
+        want = engines[0].run()
+        got = engines[1].run()
+        assert got == want
+        assert [len(got[f"q{i}"]) for i in range(5)] == budgets
+        assert len(ts.free_pages) == ts.total_pages - 1 and not ts.seq_pages
