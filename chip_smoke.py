@@ -35,9 +35,12 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
    plain versions (in f32) at the training slice's shapes (B=2, H=12,
    S=4096, D=64, bf16, causal) and the flagship's (B=8, S=384), and over
    kv lengths [B] (with a 0) and [B, Sq], a window, non-causal Sq != Skv,
-   head_dim 128, f32 and the edges of the backward's 128-row and 128-key
-   blocks (S=4160, lengths [2, 129, 4095], a window of 100, head_dim 128 at
-   S=1000, per-row lengths that differ between a block's halves); then
+   head_dim 128, f32 and the edges of the forward's and backward's 128-row
+   and 128-key blocks (S=4160, lengths [2, 129, 4095], a window of 100,
+   head_dim 128 at S=1000, per-row lengths that differ between a block's
+   halves); the wgmma forward's (fwd_wg) edges: S=127 and 129, head dims
+   72, 136, 192, 200 and 256 in bf16 and f16, causal with kv lengths and
+   with segment ids, and a window of 100 at head_dim 192; then
    segment ids (phase 10's packed batch, a (q_ids, kv_ids) pair with Sq !=
    Skv, unsorted ids), masks (prefix-LM [B, 1, Sq, Skv], per-head
    block-sparse [B, H, Sq, Skv] with runs of more than 4 skipped tiles,
@@ -55,13 +58,14 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
    GPT LanguageModelModules at examples/bert.py's width (128 wide, 4
    heads: head_dim 32) and examples/translation.py's (64 wide, 4 heads:
    head_dim 16) take 3 training steps each on the kernels. Then the head
-   dims the instances of 32, 64 and 128 do not hold: 12, 100, 160 and 256
-   in bf16 (causal with kv lengths, and with segment ids: the ragged and
-   D=256 forwards, the mma.sync backward), 75 and 320, and float64 at 64
-   and 100 (the scalar kernels; limit 1e-10), each by the same checks and
-   planted fault, and each but 75 and 320 timed at B=2, H=8, S=2048
-   beside its bound, its plain version and SDPA at the same head dim and
-   dtype; GPT models at head_dim 100 and 256, and one in f32, take 3
+   dims the backward's instances of 32, 64 and 128 do not hold: 12, 100,
+   160 and 256 in bf16 (causal with kv lengths, and with segment ids: the
+   ragged forward at 12 and 100, fwd_wg's D=192 and 256 instances, the
+   mma.sync backward), 75 and 320, and float64 at 64 and 100 (the scalar
+   kernels; limit 1e-10), each by the same checks and planted fault, and
+   each but 75 and 320 (and 192 besides) timed at B=2, H=8, S=2048 beside
+   its bound, its plain version and SDPA at the same head dim and dtype;
+   GPT models at head_dim 100 and 256, and one in f32, take 3
    training steps each.
 5. The training slice at full width: a 12-block, 768-wide GPT
    LanguageModelModule (12 heads, MLP 3072, byte vocab 256, bf16 with f32
@@ -969,7 +973,7 @@ def time_flash(att, b, h, s, d, segment_ids=None):
         lambda: att._fwd_cuda(q, k, v, None, True, scale, None, vis), n)
     # with ids the forward's call also writes the class map
     classes = 0.0 if ids is None else _kernel_ms(fwd_times, "tile_classes")
-    fwd = _kernel_ms(fwd_times, "fwd_tc") + classes
+    fwd = _kernel_ms(fwd_times, "fwd_wg") + classes
     bwd = device_ms(lambda: att._bwd_cuda(q, k, v, o, lse, do, None, True,
                                           scale, None, vis), n)
     dq, dkv = _kernel_ms(bwd, "dq_tc"), _kernel_ms(bwd, "dkv_tc")
@@ -1134,7 +1138,7 @@ def flash_instance(d, dtype, part):
     routing in csrc/flash_attention.cu): part is "fwd", "dq" or "dkv"."""
     if dtype in (torch.bfloat16, torch.float16) and d <= 256:
         if part == "fwd":
-            return "fwd_ragged" if d % 8 else "fwd_256" if d > 128 else "fwd_tc"
+            return "fwd_ragged" if d % 8 else "fwd_wg"
         return f"{part}_mma" if d % 8 or d > 128 else f"{part}_tc"
     return f"{part}_any"
 
@@ -1168,9 +1172,39 @@ def check_flash_head_dims(att, check):
     run("f64 head 100 ids", 100, f64, 2, 4, 512, 512, True,
         segment_ids=ids[:, :512])
     times = {(d, dt): time_flash_case(att, 2, 8, 2048, d, dt)
-             for d, dt in ((12, bf16), (100, bf16), (160, bf16), (256, bf16),
-                           (64, f64), (100, f64))}
+             for d, dt in ((12, bf16), (100, bf16), (160, bf16), (192, bf16),
+                           (256, bf16), (64, f64), (100, f64))}
     return times, errs
+
+
+# the wgmma forward's instances past 128: head dims that are multiples of 8
+# in D=128 (72), D=192 (136, 192) and D=256 (200, 256)
+WG_HEAD_DIMS = (72, 136, 192, 200, 256)
+
+
+def check_flash_forward_edges(att, check):
+    """The edges of the wgmma forward (fwd_wg): its 128-row blocks at 127
+    and 129 rows (S=4160 and the lengths that differ between a block's
+    64-row halves are phase 4's earlier checks), its instances at
+    WG_HEAD_DIMS in bf16 and f16, causal with kv lengths (the unmasked
+    instance) and with segment ids (the masked one), and a window of 100
+    at head_dim 192. 129 rows run non-causal, and causal over 192 keys:
+    causal at S=129, key 128 is seen by row 128 alone, and dk's block of
+    that one key compares rounding noise (as a row with one visible key;
+    see phase 4's "lengths edges")."""
+    bf16, f16 = torch.bfloat16, torch.float16
+    check("S=127", 2, LM_HEADS, 127, 127, 64, bf16, True)
+    check("S=129", 2, LM_HEADS, 129, 129, 64, bf16, False)
+    check("Sq=129 Skv=192", 2, LM_HEADS, 129, 192, 64, bf16, True)
+    s = 1000
+    ids = np.sort(np.random.RandomState(4).randint(0, 4, (2, s)), 1)
+    for d in WG_HEAD_DIMS:
+        for dtype in (bf16, f16):
+            name = f"head_dim {d} {str(dtype)[6:]}"
+            check(name, 2, 4, s, s, d, dtype, True, lengths=[1000, 555])
+            check(f"{name} ids", 2, 4, s, s, d, dtype, True, segment_ids=ids)
+    check("head_dim 192 window 100", 2, 4, 2000, 2000, 192, bf16, True,
+          window=100)
 
 
 def check_deterministic(att, b, h, s, d, segment_ids=None):
@@ -1319,6 +1353,7 @@ def phase_flash(att):
           lengths=np.stack([np.where(rows % 128 < 64, 2 + rows % 5, 1000),
                             np.where(rows % 128 < 64, 1000, 2 + rows % 5)]))
     check_deterministic(att, 2, LM_HEADS, 4096, 64)
+    check_flash_forward_edges(att, check)
     packed = check_flash_branches(att, check)
     wide = check_flash_head_dims(att, check)
     for dtype, results in checks.items():
@@ -1358,12 +1393,12 @@ def profile_train_step(step, state, batch):
               f"{e.self_device_time_total:8.0f} us  x{e.count:<5} "
               f"{e.key[:90]}")
     names = " ".join(e.key for e in device)
-    for ours in ("fwd_tc", "dq_tc", "dkv_tc"):
+    for ours in ("fwd_wg", "dq_tc", "dkv_tc"):
         if ours not in names:
             raise AssertionError(f"the step ran no {ours} kernel")
     shares = {ours: sum(e.self_device_time_total for e in device
                         if ours in e.key) for ours in
-              ("fwd_tc", "dq_tc", "dkv_tc")}
+              ("fwd_wg", "dq_tc", "dkv_tc")}
     print("  attention kernels' device time: " + ", ".join(
         f"{ours} {us:.0f} us ({100 * us / busy:.1f}%)"
         for ours, us in shares.items()) + f"; K2 (dq + dkv) "
@@ -2340,7 +2375,7 @@ def main() -> int:
     d100, d256, f32 = (small_by_model[m] for m in (
         "head_dim 100", "head_dim 256", "f32, head_dim 64"))
     wide_launches = {"fwd_ragged": openllama["k1"] + d100[0],
-                     "fwd_256": d256[0], "dq_mma": d100[1] + d256[1],
+                     "fwd_wg": d256[0], "dq_mma": d100[1] + d256[1],
                      "dkv_mma": d100[1] + d256[1], "fwd_any": f32[0],
                      "dq_any": f32[1], "dkv_any": f32[1]}
 
@@ -2370,7 +2405,8 @@ def main() -> int:
     for name, r in flash.items():
         row = dict(
             name=name, route="cuda",
-            source="lamp_tpu_torch/csrc/flash_attention.cu",
+            source="lamp_tpu_torch/csrc/" + ("flash_forward.cu" if name.endswith(
+                "fwd") else "flash_attention.cu"),
             replaces=replaces[name],
             launches=fwd_launches if name.endswith("fwd") else bwd_launches,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
@@ -2400,10 +2436,11 @@ def main() -> int:
     bf16, f64 = torch.bfloat16, torch.float64
     for key, src, line, shape, note in (
             ("fwd_ragged", "flash_attention.cu", 87, (100, bf16),
-             "fwd_tc<D, T, M, true> (head dims not a multiple of 8): "
+             "fwd_tc<D, T, M> (head dims not a multiple of 8): "
              "launches are phase 11's dense check and the head_dim 100 GPT"),
-            ("fwd_256", "flash_attention.cu", 87, (256, bf16),
-             "fwd_tc<256, T, M, R> (head dims 129-256): launches are the "
+            ("fwd_wg", "flash_forward.cu", 87, (256, bf16),
+             "fwd_wg<D, T, M> at head dims 129-256 (D=192 and 256; "
+             "flash_attention_fwd is its D=64 instance): launches are the "
              "head_dim 256 GPT"),
             ("dq_mma", "flash_attention.cu", 297, (100, bf16),
              "dq_mma (16-bit head dims up to 256 that are not a multiple of "

@@ -1,7 +1,8 @@
 // Flash attention forward and backward for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels of lamp_tpu/ops/attention.py:
-//   K1  _fwd_kernel (driven by _fwd)                 -> fwd_tc / fwd_any
+//   K1  _fwd_kernel (driven by _fwd)                 -> fwd_wg (in
+//       flash_forward.cu) / fwd_tc / fwd_any
 //   K2a _bwd_fused_kernel (driven by _bwd_fused)     -> dq_* then dkv_*
 //   K2b _bwd_dq_kernel, K2c _bwd_dkv_kernel          -> dq_*, dkv_*
 //   K3a/K3b _compact_{fwd,bwd}_kernel (compact_attention) compute the same
@@ -11,18 +12,19 @@
 // [B*H, Sq] f32 (f64 for float64 inputs), all contiguous. Every
 // head dim d >= 1 and the types float32, bfloat16, float16 and float64 run
 // on the card, with no upper limit on d:
-//  - bfloat16 and float16 take the tensor-core kernels here (templated on
-//    the 16-bit type), in the smallest instance D of 32, 64, 128 (and 256:
-//    the forward) with D >= d: the columns past d read as 0 (TMA boxes
-//    past the tensor map's inner extent are zero-filled, cp.async copies
-//    past d are zero-filled) and stores stop at d. The forward takes every
-//    d up to 256: a d that is not a multiple of 8 has rows only 8-, 4- or
-//    2-byte aligned, and its instance (R = true) copies them by 8- or
-//    4-byte cp.async, or 2-byte loads at an odd d. The wgmma backward
+//  - bfloat16 and float16 take the tensor-core kernels (templated on the
+//    16-bit type), in the smallest instance D with D >= d: the columns
+//    past d read as 0 (TMA boxes past the tensor map's inner extent are
+//    zero-filled, cp.async copies past d are zero-filled) and stores stop
+//    at d. The forward takes every d up to 256: at d % 8 == 0 the wgmma
+//    kernel fwd_wg (flash_forward.cu; D = 32, 64, 128, 192, 256), which
 //    reads tiles by TMA, whose global strides must be multiples of 16
-//    bytes, and keeps 128 rows resident: it takes the multiples of 8 up
-//    to 128; the other d up to 256 take the mma.sync backward (dq_mma,
-//    dkv_mma), whose tiles come as the ragged forward's do.
+//    bytes; a d that is not a multiple of 8 has rows only 8-, 4- or
+//    2-byte aligned, and takes fwd_tc here (D = 32, 64, 128, 256), which
+//    copies them by 8- or 4-byte cp.async, or 2-byte loads at an odd d.
+//    The wgmma backward keeps 128 rows resident: it takes the multiples
+//    of 8 up to 128; the other d up to 256 take the mma.sync backward
+//    (dq_mma, dkv_mma), whose tiles come as the ragged forward's do.
 //  - everything else (float32 and float64 at every d; the 16-bit types at
 //    d > 256) takes the scalar kernels
 //    of flash_attention_any.cu (fwd_any, dq_any, dkv_any), which stage
@@ -67,7 +69,8 @@
 // do read and dq, dk, dv written once, 37.7 MB, 11.3 us. Packed documents
 // cut the work to the visible tiles, about sum(len^2) / 2 a row of B.
 //
-// Forward (FlashAttention-2 on mma.sync): one block of 4 warps per (b*h,
+// Ragged forward (FlashAttention-2 on mma.sync; the wgmma forward's
+// design is flash_forward.cu's note): one block of 4 warps per (b*h,
 // 64-row q tile); each warp owns 16 query rows, keeps Q fragments (at D =
 // 256 read from shared memory at each use), the f32 output accumulator
 // and the online-softmax max and sum in registers, and walks 64-key K/V
@@ -127,10 +130,10 @@
 // 1 KB for alignment) 161 KB (dq) and 97 KB (dkv) at D=64, 193 KB and 129
 // KB at D=128, 81 KB and 49 KB at D=32, beside a few KB of static (the
 // masked instances' class bytes and kv ids, dkv's row statistics).
-// fwd_tc (128 threads, 45 / 85 / 25 / 101 KB at D = 64 / 128 / 32 / 256):
-// the unmasked instance 152, 213, 123 and 241 registers (the ragged one,
-// R, 192, 239, 151 and 255 with 16 bytes spilled); the masked one is held
-// to 168 at D=64 by its launch bound. dq_mma and dkv_mma (128 threads):
+// fwd_tc, the ragged forward (128 threads, 45 / 85 / 25 / 101 KB at D =
+// 64 / 128 / 32 / 256): 192, 239, 151 and 255 registers (16 bytes spilled
+// at D=256); the masked one is held to 168 at D=64 by its launch bound.
+// fwd_wg: flash_forward.cu's note. dq_mma and dkv_mma (128 threads):
 // 153-255 registers, up to 20 bytes spilled at D=128 and 224 at D=256.
 // chip_smoke.py prints the whole table first.
 
@@ -371,14 +374,15 @@ __device__ __forceinline__ void load_tile_ragged(T* s, const T* g, int row0,
   }
 }
 
+// The forward at 16-bit head dims d that are not a multiple of 8, whose
+// rows TMA cannot describe (fwd_wg in flash_forward.cu takes the rest):
+// tiles copied by load_tile_ragged, the output stored by elements.
 // M: segment ids or a mask are given (the class map and rules 2-3 are
-// compiled in); without them the loop is rule 1's alone
-// R: the head dim is not a multiple of 8 (load_tile_ragged, and the output
-// stored by elements); R = false keeps the 16-byte copies
+// compiled in); without them the loop is rule 1's alone.
 // The masked instance at D=64 is held to 168 registers, so that three
-// blocks share an SM as the unmasked one's 130 allow: packed rows give
-// many short blocks, whose latency the third block hides.
-template <int D, typename T, bool M, bool R>
+// blocks share an SM: packed rows give many short blocks, whose latency
+// the third block hides.
+template <int D, typename T, bool M>
 __global__ void __launch_bounds__(kThreads, M && D == 64 ? 3 : 1)
 fwd_tc(const T* __restrict__ q, const T* __restrict__ k,
        const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
@@ -402,11 +406,7 @@ fwd_tc(const T* __restrict__ q, const T* __restrict__ k,
   const int ra = r0 + warp * 16 + g, rb = ra + 8;
   const int la = row_limit(p, b, ra), lb = row_limit(p, b, rb);
   auto tile = [&](T* dst, const T* src, int row0, int n, auto rows) {
-    constexpr int ROWS = decltype(rows)::value;
-    if constexpr (R)
-      load_tile_ragged<D, ROWS>(dst, src, row0, n, p.d);
-    else
-      load_tile<D, ROWS>(dst, src, row0, n, p.d);
+    load_tile_ragged<D, decltype(rows)::value>(dst, src, row0, n, p.d);
   };
 
   if (tid == 0) lim_max = 0;
@@ -594,23 +594,17 @@ fwd_tc(const T* __restrict__ q, const T* __restrict__ k,
   for (int n = 0; n < D / 8; ++n) {
     const int col = n * 8 + 2 * t;
     if (col >= p.d) break;
+    // 2-byte stores, the pair's second guarded at an odd d
     const uint32_t wa = pack2<T>(acc[n][0] * ia, acc[n][1] * ia);
     const uint32_t wb = pack2<T>(acc[n][2] * ib, acc[n][3] * ib);
-    if constexpr (R) {  // an odd d: 2-byte stores, the pair's second guarded
-      unsigned short* os = reinterpret_cast<unsigned short*>(o + qbase);
-      if (ra < p.sq) {
-        os[(long long)ra * p.d + col] = wa & 0xffff;
-        if (col + 1 < p.d) os[(long long)ra * p.d + col + 1] = wa >> 16;
-      }
-      if (rb < p.sq) {
-        os[(long long)rb * p.d + col] = wb & 0xffff;
-        if (col + 1 < p.d) os[(long long)rb * p.d + col + 1] = wb >> 16;
-      }
-    } else {
-      if (ra < p.sq)
-        *reinterpret_cast<uint32_t*>(o + qbase + (long long)ra * p.d + col) = wa;
-      if (rb < p.sq)
-        *reinterpret_cast<uint32_t*>(o + qbase + (long long)rb * p.d + col) = wb;
+    unsigned short* os = reinterpret_cast<unsigned short*>(o + qbase);
+    if (ra < p.sq) {
+      os[(long long)ra * p.d + col] = wa & 0xffff;
+      if (col + 1 < p.d) os[(long long)ra * p.d + col + 1] = wa >> 16;
+    }
+    if (rb < p.sq) {
+      os[(long long)rb * p.d + col] = wb & 0xffff;
+      if (col + 1 < p.d) os[(long long)rb * p.d + col + 1] = wb >> 16;
     }
   }
   if (t == 0) {
@@ -981,27 +975,6 @@ constexpr int kProducerRegs = 40, kConsumerRegs = 232;
 __host__ __device__ constexpr int dq_kv_tile(int d) { return d == 128 ? 64 : 128; }
 // the rows of a q tile the dkv kernel streams: 64, 32 at D=128
 __host__ __device__ constexpr int dkv_q_tile(int d) { return d == 128 ? 32 : 64; }
-// the swizzle, in bytes of a tile row's column block: 128 (64 columns),
-// 64 (32 columns) at D=32
-__host__ __device__ constexpr int swizzle_bytes(int d) { return d == 32 ? 64 : 128; }
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
-}
-
-__device__ __forceinline__ int tile_count(int first, int hi, int step) {
-  return first < hi ? (hi - first + step - 1) / step : 0;
-}
-
-// 2^x by the special-function unit (ex2.approx.ftz: relative error about
-// 2^-22, results below 2^-126 flushed to 0; 2^-inf = 0)
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
 // dq for 128 query rows, and di = rowsum(o * do) for them (written to `di`
 // for the dkv kernel, which runs after). Q and dO stay resident; the
 // producer streams K and V tiles of BC keys. Per tile and consumer: S = Q K^T
@@ -1600,8 +1573,8 @@ template <int D>
 using Dim = std::integral_constant<int, D>;
 
 // Calls f(T{}, Dim<D>{}) for a 16-bit dtype code (1 bfloat16, 2 float16)
-// and the smallest instance D of 32, 64, 128 and (the forward: Wide) 256
-// that holds the head dim d.
+// and the smallest instance D of 32, 64, 128 and (the ragged forward and
+// the mma.sync backward: Wide) 256 that holds the head dim d.
 template <bool Wide, typename F>
 int tc_dispatch(int dtype, int d, F f) {
   auto by_dim = [&](auto t) -> int {
@@ -1616,7 +1589,7 @@ int tc_dispatch(int dtype, int d, F f) {
 }
 
 // The tensor-core kernels take the 16-bit types: the forward at head dims
-// up to 256, the wgmma backward (TMA: rows of a multiple of 16 bytes; Q and
+// up to 256 (fwd_wg at multiples of 8, fwd_tc the rest), the wgmma backward (TMA: rows of a multiple of 16 bytes; Q and
 // dO, or K and V, resident for 128 rows) at the multiples of 8 up to 128.
 // Everything else runs in the scalar kernels of flash_attention_any.cu.
 bool tc_forward(int dtype, int d) { return (dtype == 1 || dtype == 2) && d <= 256; }
@@ -1642,37 +1615,6 @@ int smem_dq() {
 template <int D>
 int smem_dkv() {
   return 1024 + 2 * 128 * D * 2 + kStages * 2 * dkv_q_tile(D) * D * 2;
-}
-
-// what an entry point returns when a TMA map could not be encoded: this
-// plus libcuda's CUresult (kMapError - 1: no encoder was found)
-constexpr int kMapError = 10000;
-
-// TMA maps of q, k, v and do ([bh, rows, d] of T) in boxes of D's column
-// block by q_rows (q, do) or kv_rows (k, v); a tensor with no rows gets a
-// map of one row, which no load reads. Returns 0 or kMapError + the
-// failure.
-template <typename T, int D>
-int bwd_maps(CUtensorMap* m, const void* q, const void* k, const void* v,
-             const void* dout, int bh, int sq, int skv, int d, int q_rows,
-             int kv_rows) {
-  // libcuda's encoder needs the device's context current on this
-  // thread, and autograd runs the backward on a thread of its own, where
-  // nothing may have made it current yet
-  cudaPointerAttributes at;
-  if (cudaPointerGetAttributes(&at, q) != cudaSuccess ||
-      cudaSetDevice(at.device) != cudaSuccess)
-    return static_cast<int>(cudaGetLastError());
-  sq = sq > 0 ? sq : 1;
-  skv = skv > 0 ? skv : 1;
-  const void* base[4] = {q, k, v, dout};
-  for (int i = 0; i < 4; ++i) {
-    const bool kv = i == 1 || i == 2;
-    const int rc = hopper::tile_map<T, swizzle_bytes(D)>(
-        &m[i], base[i], bh, kv ? skv : sq, d, kv ? kv_rows : q_rows);
-    if (rc != 0) return kMapError + rc;
-  }
-  return 0;
 }
 
 Problem make_problem(const void* limits, const void* q_ids,
@@ -1721,9 +1663,8 @@ Problem make_problem(const void* limits, const void* q_ids,
 // the shape: bh, heads, sq, skv, head_dim (any d >= 1), the kv limits'
 // strides, causal, window, sm_scale, the dtype (0 float32, 1 bfloat16, 2
 // float16, 3 float64: q, k, v, o, do, dq, dk, dv alike) and the stream.
-// Each returns the cudaError_t of its launch, or (the backward) kMapError +
-// libcuda's CUresult when a TMA map was refused; the caller raises on
-// non-zero.
+// Each returns the cudaError_t of its launch, or kMapError + libcuda's
+// CUresult when a TMA map was refused; the caller raises on non-zero.
 #define LAMP_VIS_PARAMS                                                    \
   const void *q_ids, const void *kv_ids, const void *mask, void *tiles,    \
       long long mask_b, long long mask_h, long long mask_r,                \
@@ -1756,26 +1697,22 @@ int lamp_flash_attention_fwd(const void* q, const void* k, const void* v,
   if (!tc_forward(dtype, head_dim))
     return any_fwd(dtype, q, k, v, o, lse, p, bh, st);
   float* l = static_cast<float*>(lse);
+  // rows of a multiple of 8 (16 bytes): TMA and wgmma (flash_forward.cu)
+  if (head_dim % 8 == 0) return wg_fwd(dtype, q, k, v, o, l, p, bh, st);
   return tc_dispatch<true>(dtype, head_dim, [&](auto t, auto dim) -> int {
     using T = decltype(t);
     constexpr int D = decltype(dim)::value;
-    const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
-            *vt = static_cast<const T*>(v);
-    T* ot = static_cast<T*>(o);
     // a 64-row q tile and two stages of K and V tiles
     const dim3 grid(cdiv(sq, 64), bh);
     const int smem = smem_tc<D>(64 + 4 * fwd_kv_tile(D));
-    // rows of a head dim not a multiple of 8 are not 16-byte aligned
-    const bool ragged = head_dim % 8 != 0;
+    const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
+            *vt = static_cast<const T*>(v);
+    T* ot = static_cast<T*>(o);
     if (p.tiles != nullptr)
-      return ragged ? launch(fwd_tc<D, T, true, true>, grid, kThreads, smem,
-                             st, qt, kt, vt, ot, l, p)
-                    : launch(fwd_tc<D, T, true, false>, grid, kThreads, smem,
-                             st, qt, kt, vt, ot, l, p);
-    return ragged ? launch(fwd_tc<D, T, false, true>, grid, kThreads, smem,
-                           st, qt, kt, vt, ot, l, p)
-                  : launch(fwd_tc<D, T, false, false>, grid, kThreads, smem,
-                           st, qt, kt, vt, ot, l, p);
+      return launch(fwd_tc<D, T, true>, grid, kThreads, smem, st, qt, kt, vt,
+                    ot, l, p);
+    return launch(fwd_tc<D, T, false>, grid, kThreads, smem, st, qt, kt, vt,
+                  ot, l, p);
   });
 }
 
@@ -1814,9 +1751,10 @@ int lamp_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
     constexpr int D = decltype(dim)::value;
     const T *ot = static_cast<const T*>(o), *dot = static_cast<const T*>(dout);
     T* out = static_cast<T*>(dq);
-    CUtensorMap m[4];
-    const int rc = bwd_maps<T, D>(m, q, k, v, dout, bh, sq, skv, head_dim, 64,
-                                  dq_kv_tile(D));
+    CUtensorMap m[4];  // q, k, v, do
+    const int rc = tile_maps<T, D, 4>(
+        m, {q, k, v, dout}, {sq, skv, skv, sq},
+        {64, dq_kv_tile(D), dq_kv_tile(D), 64}, bh, head_dim);
     if (rc != 0) return rc;
     const dim3 grid(cdiv(sq, 128), bh);
     if (p.tiles != nullptr)
@@ -1859,9 +1797,10 @@ int lamp_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
     using T = decltype(t);
     constexpr int D = decltype(dim)::value;
     T *dkt = static_cast<T*>(dk), *dvt = static_cast<T*>(dv);
-    CUtensorMap m[4];
-    const int rc = bwd_maps<T, D>(m, q, k, v, dout, bh, sq, skv, head_dim,
-                                  dkv_q_tile(D), 64);
+    CUtensorMap m[4];  // q, k, v, do
+    const int rc = tile_maps<T, D, 4>(
+        m, {q, k, v, dout}, {sq, skv, skv, sq},
+        {dkv_q_tile(D), 64, 64, dkv_q_tile(D)}, bh, head_dim);
     if (rc != 0) return rc;
     const dim3 grid(cdiv(skv, 128), bh);
     if (p.tiles != nullptr)

@@ -1,14 +1,17 @@
 // What the flash-attention kernels share (flash_attention.cu: the
-// tensor-core kernels and the entry points; flash_attention_any.cu: the
-// scalar kernels for every head dim and float type): the problem's shape,
-// the visibility rules of flash_attention.cu's header note, and the launch
-// helper.
+// backward's tensor-core kernels, the ragged forward and the entry points;
+// flash_forward.cu: the wgmma forward; flash_attention_any.cu: the scalar
+// kernels for every head dim and float type): the problem's shape, the
+// visibility rules of flash_attention.cu's header note, the launch helper,
+// and what the wgmma kernels share (their block shape, TMA maps, exp2).
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace lamp_flash {
 
@@ -168,12 +171,13 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// launches `kernel`, opting into `smem` bytes of dynamic shared memory above
-// 48 KB; returns the launch's error
+// launches `kernel`, opting into `smem` bytes of dynamic shared memory (a
+// block's static and dynamic shared memory together past 48 KB need it);
+// returns the launch's error
 template <typename Kernel, typename... Args>
 cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem,
                    cudaStream_t stream, Args... args) {
-  if (smem > 48 * 1024) {
+  if (smem > 0) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
@@ -182,9 +186,67 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// the wgmma kernels (fwd_wg, dq_tc, dkv_tc): a TMA producer warpgroup and
+// consumer warpgroups of 64 rows (or keys) each
+// ---------------------------------------------------------------------------
+
+// the swizzle, in bytes of a tile row's column block: 128 (64 columns),
+// 64 (32 columns) at D=32
+__host__ __device__ constexpr int swizzle_bytes(int d) { return d == 32 ? 64 : 128; }
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~uintptr_t(1023));
+}
+
+__device__ __forceinline__ int tile_count(int first, int hi, int step) {
+  return first < hi ? (hi - first + step - 1) / step : 0;
+}
+
+// 2^x by the special-function unit (ex2.approx.ftz: relative error about
+// 2^-22, results below 2^-126 flushed to 0; 2^-inf = 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// what an entry point returns when a TMA map could not be encoded: this
+// plus libcuda's CUresult (kMapError - 1: no encoder was found)
+constexpr int kMapError = 10000;
+
+// TMA maps of N tensors [bh, rows[i], d] of T (bf16 or f16) in boxes of
+// D's column block (swizzle_bytes) by box[i] rows; a tensor with no rows
+// gets a map of one row, which no load reads. Binds the tensors' device
+// first: libcuda's encoder needs its context current on this thread, and
+// autograd runs the backward on a thread of its own, where nothing may
+// have made it current yet. Returns 0, a cudaError_t, or kMapError + the
+// encoder's failure.
+template <typename T, int D, int N>
+int tile_maps(CUtensorMap (&m)[N], const void* const (&base)[N],
+              const int (&rows)[N], const int (&box)[N], int bh, int d) {
+  cudaPointerAttributes at;
+  if (cudaPointerGetAttributes(&at, base[0]) != cudaSuccess ||
+      cudaSetDevice(at.device) != cudaSuccess)
+    return static_cast<int>(cudaGetLastError());
+  for (int i = 0; i < N; ++i) {
+    const int rc = hopper::tile_map<T, swizzle_bytes(D)>(
+        &m[i], base[i], bh, rows[i] > 0 ? rows[i] : 1, d, box[i]);
+    if (rc != 0) return kMapError + rc;
+  }
+  return 0;
+}
+
 }  // namespace lamp_flash
 
 namespace lamp_flash {
+
+// flash_forward.cu: the wgmma forward for bfloat16 (dtype 1) and float16
+// (2) at head dims d % 8 == 0, d <= 256. Returns the launch's cudaError_t,
+// or kMapError + libcuda's CUresult when a TMA map was refused.
+int wg_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
+           float* lse, const Problem& p, int bh, cudaStream_t stream);
 
 // flash_attention_any.cu: the scalar kernels, for every head dim and the
 // dtype codes 0 float32, 1 bfloat16, 2 float16 and 3 float64. Each returns

@@ -217,6 +217,10 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[N / 16][4],
 #define LAMP_ACC32 LAMP_ACC16, LAMP_ACC8(16), LAMP_ACC8(24)
 #define LAMP_ACC64 \
   LAMP_ACC32, LAMP_ACC8(32), LAMP_ACC8(40), LAMP_ACC8(48), LAMP_ACC8(56)
+#define LAMP_ACC96 \
+  LAMP_ACC64, LAMP_ACC8(64), LAMP_ACC8(72), LAMP_ACC8(80), LAMP_ACC8(88)
+#define LAMP_ACC128 \
+  LAMP_ACC96, LAMP_ACC8(96), LAMP_ACC8(104), LAMP_ACC8(112), LAMP_ACC8(120)
 // their places in the instruction's text
 #define LAMP_R16                                                         \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
@@ -227,6 +231,15 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[N / 16][4],
   LAMP_R32 ", %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, "  \
            "%43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, " \
            "%55, %56, %57, %58, %59, %60, %61, %62, %63"
+#define LAMP_R96                                                         \
+  LAMP_R64 ", %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, "  \
+           "%75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, " \
+           "%87, %88, %89, %90, %91, %92, %93, %94, %95"
+#define LAMP_R128                                                        \
+  LAMP_R96 ", %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, "  \
+           "%106, %107, %108, %109, %110, %111, %112, %113, %114, %115, " \
+           "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, " \
+           "%126, %127"
 
 // D = (scale_d ? D : 0) + A B, both from shared memory, K-major; TY is the
 // inputs' type (bf16 or f16), A and B the operands after the accumulator
@@ -264,21 +277,29 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
 }
 
 // D (m64nN, f32) += A B, A of type T in registers, B in shared memory,
-// MN-major (N = 32, 64, 128)
+// MN-major (N = 32, 64, 128, 192, 256: B's N columns span N / 64 column
+// blocks of a 128-byte-swizzled tile, LBO apart)
 template <int N, typename T>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
                                          const uint32_t (&a)[4], uint64_t b) {
   constexpr bool f16 = std::is_same<T, __half>::value;
-  static_assert(N == 32 || N == 64 || N == 128, "m64nNk16, N = 32, 64, 128");
+  static_assert(N == 32 || N == 64 || N == 128 || N == 192 || N == 256,
+                "m64nNk16, N = 32, 64, 128, 192, 256");
   if constexpr (N == 32) {
     if constexpr (f16) LAMP_WGMMA_RS(32, "f16", LAMP_R16, LAMP_ACC16, "16, %17, %18, %19", "20", "21");
     else LAMP_WGMMA_RS(32, "bf16", LAMP_R16, LAMP_ACC16, "16, %17, %18, %19", "20", "21");
   } else if constexpr (N == 64) {
     if constexpr (f16) LAMP_WGMMA_RS(64, "f16", LAMP_R32, LAMP_ACC32, "32, %33, %34, %35", "36", "37");
     else LAMP_WGMMA_RS(64, "bf16", LAMP_R32, LAMP_ACC32, "32, %33, %34, %35", "36", "37");
-  } else {
+  } else if constexpr (N == 128) {
     if constexpr (f16) LAMP_WGMMA_RS(128, "f16", LAMP_R64, LAMP_ACC64, "64, %65, %66, %67", "68", "69");
     else LAMP_WGMMA_RS(128, "bf16", LAMP_R64, LAMP_ACC64, "64, %65, %66, %67", "68", "69");
+  } else if constexpr (N == 192) {
+    if constexpr (f16) LAMP_WGMMA_RS(192, "f16", LAMP_R96, LAMP_ACC96, "96, %97, %98, %99", "100", "101");
+    else LAMP_WGMMA_RS(192, "bf16", LAMP_R96, LAMP_ACC96, "96, %97, %98, %99", "100", "101");
+  } else {
+    if constexpr (f16) LAMP_WGMMA_RS(256, "f16", LAMP_R128, LAMP_ACC128, "128, %129, %130, %131", "132", "133");
+    else LAMP_WGMMA_RS(256, "bf16", LAMP_R128, LAMP_ACC128, "128, %129, %130, %131", "132", "133");
   }
 }
 

@@ -4,9 +4,9 @@ Counterpart of :mod:`lamp_tpu.ops.attention`. Layout is the JAX package's:
 q [B, H, Sq, D], k/v [B, H, Skv, D].
 
 :func:`flash_attention` launches the hand-written CUDA kernels
-(``csrc/flash_attention.cu`` and ``csrc/flash_attention_any.cu``: a
-forward, and a backward in two kernels, dq then dkv, at every head dim and
-float dtype) for CUDA tensors, and takes the plain PyTorch
+(``csrc/flash_forward.cu``, ``csrc/flash_attention.cu`` and
+``csrc/flash_attention_any.cu``: a forward, and a backward in two kernels,
+dq then dkv, at every head dim and float dtype) for CUDA tensors, and takes the plain PyTorch
 :func:`flash_attention_reference` and :func:`_flash_backward_reference` for
 CPU tensors only. On Hopper one kernel serves every length, so
 :func:`compact_attention` is the same function under the JAX name, with the
@@ -268,8 +268,8 @@ class _Visibility:
                 self.map_heads)
 
 
-# the backward's entry points return this plus libcuda's CUresult when
-# a TMA tensor map is refused (minus one: no encoder found)
+# the entry points return this plus libcuda's CUresult when a TMA tensor
+# map is refused (minus one: no encoder found)
 _MAP_ERROR = 10000
 
 

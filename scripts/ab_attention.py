@@ -8,13 +8,19 @@ The two checkouts' packages share a name, so each measurement runs in a
 process of its own that imports one tree's lamp_tpu_torch: both trees'
 kernels first build at once (each into its own _build/), then every round
 measures the other tree, this tree, this tree and the other tree again.
-Each measurement is the device time a launch (torch.profiler, the mean
-over 30 calls) of the forward (fwd_tc), dq (dq_tc) and dkv (dkv_tc)
-kernels at the training slice's B=2, H=12, S=4096 and the flagship's B=8,
-H=12, S=384 (head_dim 64, bf16, causal, no ids or mask), and of the
-paged-attention kernel at chip_smoke.py phase 2's shape (B=32, 12/4 heads,
-head_dim 64, the 12-layer bf16 pool, append). Prints each measurement and
-the median of each side, and the ratio of this tree's to the other's.
+Each measurement is the device time a call (torch.profiler, the mean over
+30 calls) of the forward's kernels (whichever instance runs: fwd_tc before
+the wgmma forward, fwd_wg since; with segment ids, tile_classes too) at
+the training slice's B=2, H=12, S=4096, the flagship's B=8, H=12, S=384,
+chip_smoke.py phase 10's packed shapes (B=4, H=12, S=2048, segment ids)
+and B=2, H=8, S=2048 at head dims 160 and 256 (bf16, causal), of
+scaled_dot_product_attention at the same shapes (the same call in both
+trees: a yardstick measured on the same card; with the equivalent
+boolean attn_mask at the packed shapes), of the dq (dq_tc) and dkv
+(dkv_tc) kernels at S=4096 and S=384, and of the paged-attention kernel
+at chip_smoke.py phase 2's shape (B=32, 12/4 heads, head_dim 64, the
+12-layer bf16 pool, append). Prints each measurement and the median of
+each side, and the ratio of this tree's to the other's.
 """
 
 import json
@@ -29,8 +35,11 @@ CALLS = 30
 
 def worker(tree: str, build_only: bool) -> None:
     sys.path.insert(0, tree)
+    import math
+
     import numpy as np
     import torch
+    import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
 
     from lamp_tpu_torch.ops import _build
@@ -49,6 +58,8 @@ def worker(tree: str, build_only: bool) -> None:
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
     def per_launch(fn, names):
+        """Device time a call (us) of the kernels whose names hold one of
+        ``names``, by name; every kernel's summed under "all"."""
         for _ in range(3):
             fn()
         torch.cuda.synchronize()
@@ -56,25 +67,51 @@ def worker(tree: str, build_only: bool) -> None:
             for _ in range(CALLS):
                 fn()
             torch.cuda.synchronize()
-        out = {}
+        out = {"all": 0.0}
         for e in prof.key_averages():
+            if not e.self_device_time_total:
+                continue
+            out["all"] += e.self_device_time_total / CALLS
             for name in names:
-                if name in e.key and e.count:
-                    out[name] = e.self_device_time_total / e.count
+                if name in e.key:
+                    out[name] = out.get(name, 0.0) + \
+                        e.self_device_time_total / CALLS
         return out
 
+    from lamp_tpu_torch.data import pack_documents
+
+    rng = np.random.RandomState(0)  # chip_smoke.py's packed_batch
+    docs = [rng.randint(0, 32000, rng.randint(64, 1025)) for _ in range(32)]
+    packed = torch.as_tensor(pack_documents(docs, 2048)["segment_ids"][:4],
+                             device=dev)
     times = {}
-    for b, s in ((2, 4096), (8, 384)):
-        q, k, v, do = (randn(b, 12, s, 64) for _ in range(4))
-        scale = 0.125
-        o, lse = att._fwd_cuda(q, k, v, None, True, scale, None)
+    # (name, B, H, S, head_dim, segment ids)
+    for what, b, h, s, d, ids in (("S=4096", 2, 12, 4096, 64, None),
+                                  ("S=384", 8, 12, 384, 64, None),
+                                  ("packed", 4, 12, 2048, 64, packed),
+                                  ("D=160", 2, 8, 2048, 160, None),
+                                  ("D=256", 2, 8, 2048, 256, None)):
+        q, k, v, do = (randn(b, h, s, d) for _ in range(4))
+        scale = 1.0 / math.sqrt(d)
+        vis = att._Visibility(q, ids, None)
         fwd = per_launch(lambda: att._fwd_cuda(q, k, v, None, True, scale,
-                                               None), ["fwd_tc"])
-        bwd = per_launch(lambda: att._bwd_cuda(q, k, v, o, lse, do, None,
-                                               True, scale, None),
-                         ["dq_tc", "dkv_tc"])
-        for name, us in {**fwd, **bwd}.items():
-            times[f"{name} S={s}"] = us
+                                               None, vis), ["fwd_"])
+        times[f"fwd {what}"] = fwd["all"]
+        if ids is None:
+            sdpa = dict(is_causal=True)
+        else:
+            sdpa = dict(attn_mask=att._visible(
+                q, k, causal=True, window=None, kv_lengths=None,
+                segment_ids=ids, mask=None))
+        times[f"SDPA fwd {what}"] = per_launch(
+            lambda: F.scaled_dot_product_attention(q, k, v, **sdpa), [])["all"]
+        if what in ("S=4096", "S=384"):
+            o, lse = att._fwd_cuda(q, k, v, None, True, scale, None)
+            bwd = per_launch(lambda: att._bwd_cuda(q, k, v, o, lse, do, None,
+                                                   True, scale, None),
+                             ["dq_tc", "dkv_tc"])
+            for name in ("dq_tc", "dkv_tc"):
+                times[f"{name} {what}"] = bwd[name]
     # phase 2's shape: 12 layers x 192 pages of 128 tokens, 4 kv heads of 64
     rng = np.random.RandomState(0)
     pool = randn(12 * 192, 2, 128, 256)

@@ -2,13 +2,16 @@
 call after a kernel change: the build (with ptxas's register and spill
 lines), then the named parts only.
 
-    python3 scripts/chip_phases.py [paged] [flash] [small] [openllama]
+    python3 scripts/chip_phases.py [paged] [fwd] [flash] [small] [openllama]
 
 paged: phase 2 (the paged-attention kernels, K6_WIDE's shapes included);
-flash: phase 4's head dims and float64 (check_flash_head_dims, with the
-f32 checks and timing that the scalar kernels and the tensor-core kernels
-share); small: the GPT models of SMALL_HEAD_MODELS; openllama: phase 11.
-No argument runs all four. Every check raises as in chip_smoke.py.
+fwd: phase 4's checks of the wgmma forward's edges
+(check_flash_forward_edges) and its timing at S=4096, S=384 and the
+packed shapes; flash: phase 4's head dims
+and float64 (check_flash_head_dims, with the f32 checks and timing that
+the scalar kernels and the tensor-core kernels share); small: the GPT
+models of SMALL_HEAD_MODELS; openllama: phase 11. No argument runs all
+five. Every check raises as in chip_smoke.py.
 """
 
 import sys
@@ -28,7 +31,7 @@ from lamp_tpu_torch.ops import attention as att  # noqa: E402
 from lamp_tpu_torch.ops.paged_attention import (  # noqa: E402
     paged_attention, paged_attention_reference)
 
-PARTS = ("paged", "flash", "small", "openllama")
+PARTS = ("paged", "fwd", "flash", "small", "openllama")
 
 
 def main(parts) -> int:
@@ -47,10 +50,17 @@ def main(parts) -> int:
     print(f"built in {time.perf_counter() - t0:.1f} s", flush=True)
     if "paged" in parts:
         cs.phase_kernel(paged_attention, paged_attention_reference)
-    if "flash" in parts:
-        def check(*args, **kw):
-            return cs.check_flash(att, *args, **kw)[0]
 
+    def check(*args, **kw):
+        return cs.check_flash(att, *args, **kw)[0]
+
+    if "fwd" in parts:
+        cs.check_flash_forward_edges(att, check)
+        cs.time_flash(att, 2, cs.LM_HEADS, 4096, 64)
+        cs.time_flash(att, 8, cs.LM_HEADS, 384, 64)
+        cs.time_flash(att, cs.PACK_BATCH, cs.LM_HEADS, cs.PACK_CTX, 64,
+                      segment_ids=cs.packed_batch()["segment_ids"])
+    if "flash" in parts:
         check("f32", 2, 4, 512, 512, 64, torch.float32, True,
               lengths=[0, 400])
         check("f32 head 128", 1, 4, 300, 400, 128, torch.float32, False)

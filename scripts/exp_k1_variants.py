@@ -1,0 +1,231 @@
+"""Experiment: the wgmma flash-attention forward (K1, fwd_wg in
+csrc/flash_forward.cu) against edited copies of itself, on one CUDA card.
+
+Each variant is csrc/flash_forward.cu with a few text edits (one design
+choice changed). flash_attention.cu and flash_attention_any.cu (the entry
+points, the class map, the other kernels) compile once to objects, every
+variant's flash_forward.cu at the same time (one nvcc each, into
+lamp_tpu_torch/_build/k1_variants/), and each links into a library of its
+own, loaded through ctypes beside the others. Each runs the forward on the
+same inputs (causal) at the training slice's B=2, H=12, S=4096, D=64
+bf16 (also non-causal), the flagship's B=8, H=12, S=384, phase 10's packed shapes (B=4,
+H=12, S=2048 with segment ids: the time includes the class map's
+kernel) and B=2, H=8, S=2048 at head dims 160 and 256, timed by
+torch.profiler device time (chip_smoke.device_ms) in turns: each round
+runs every variant once. Prints each variant's median time a call, its
+largest block error against the plain f32 forward (chip_smoke.block_err)
+and its largest difference from the unedited build's output, and for the
+variant "timeline" the share of its consumers' cycles in each stretch of
+the loop (clock64 marks, inserted by the edits); first, for each source,
+how many of its kernels ptxas reports with serialized wgmma instructions
+(warning C7520) and with a stack frame or spills.
+
+    python3 scripts/exp_k1_variants.py        # from the repository root
+"""
+
+import ctypes
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke  # noqa: E402
+from lamp_tpu_torch.ops import _build  # noqa: E402
+from lamp_tpu_torch.ops import attention as att  # noqa: E402
+
+SRC = ROOT / "lamp_tpu_torch" / "csrc"
+OUT = ROOT / "lamp_tpu_torch" / "_build" / "k1_variants"
+
+# name: [(text, replacement), ...] edits of flash_forward.cu
+NO_S = ("wgmma_ss<BC, T>(s, desc_k<64, W>(qh, kk), desc_k<BC, W>(kt, kk),\n"
+        "                        kk > 0);", "s[kk] = 0.f;")
+NO_PV = ("pv_product<D, BC, W, T>(acc, pa, vs + held * kTile);",
+         "hopper::wg_commit();")
+NO_EXP = ("fast_exp2(fmaf(s[i2", "(fmaf(s[i2")
+# clock64 marks in the consumer loop: the first warp of each consumer adds
+# the cycles spent in each stretch to a device counter, which the script
+# reads before and after one call (lamp_prof_read)
+SEGMENTS = ("wait K", "issue S, P V", "wait S", "softmax", "wait P V",
+            "rescale, pack")
+TIMELINE = [
+    ("namespace {\n\nusing namespace lamp_flash;",
+     "__device__ unsigned long long lamp_prof[8];\n"
+     "extern \"C\" int lamp_prof_read(void* out) {\n"
+     "  return (int)cudaMemcpyFromSymbol(out, lamp_prof, sizeof(lamp_prof));\n"
+     "}\n#define MARK(i) { const long long t_ = clock64(); pt[i] += t_ - tc; "
+     "tc = t_; }\nnamespace {\n\nusing namespace lamp_flash;"),
+    ("    int n = 0;      // tiles loaded, as the producer counts them",
+     "    int n = 0;\n    unsigned long long pt[6] = {};\n"
+     "    long long tc = clock64();"),
+    ("      mbar_wait(&k_full[st], phase);\n      wg_fence();",
+     "      mbar_wait(&k_full[st], phase);\n      MARK(0)\n      wg_fence();"),
+    ("        pv_product<D, BC, W, T>(acc, pa, vs + held * kTile);\n      }\n"
+     "      if (pending)",
+     "        pv_product<D, BC, W, T>(acc, pa, vs + held * kTile);\n      }\n"
+     "      MARK(1)\n      if (pending)"),
+    ("      wg_keep(s);\n", "      wg_keep(s);\n      MARK(2)\n"),
+    ("      if (pending) {\n        wg_wait<0>();",
+     "      MARK(3)\n      if (pending) {\n        wg_wait<0>();"),
+    ("      l_a = l_a * al_a + rs_a;", "      MARK(4)\n      l_a = l_a * al_a + rs_a;"),
+    ("      held_phase = phase;\n", "      held_phase = phase;\n      MARK(5)\n"),
+    ("    l_a = quad_sum(l_a);",
+     "    if (lane == 0 && warp == 0)\n      for (int i = 0; i < 6; ++i) "
+     "atomicAdd(&lamp_prof[i], pt[i]);\n    l_a = quad_sum(l_a);"),
+]
+VARIANTS = {
+    "as built": [],
+    "2 consumers": [("constexpr int wg_consumers(int d) { return d <= 64 ? 3 : 2; }",
+                     "constexpr int wg_consumers(int d) { return 2; }")],
+    "masked 128-key tiles": [
+        ("return d > 128 || (m && wg_consumers(d) == 3) ? 64 : 128;",
+         "return d > 128 ? 64 : 128;")],
+    # knock-outs (wrong results; where the time goes): the exponentials,
+    # both products, both products and the exponentials
+    "no exp2": [NO_EXP],
+    "no products": [NO_S, NO_PV],
+    "skeleton": [NO_S, NO_PV, NO_EXP],
+    "timeline": TIMELINE,
+}
+# (name, B, H, S, D, packed segment ids, causal)
+SHAPES = (("S=4096", 2, 12, 4096, 64, False, True),
+          ("S=4096 non-causal", 2, 12, 4096, 64, False, False),
+          ("S=384", 8, 12, 384, 64, False, True),
+          ("packed", 4, 12, 2048, 64, True, True),
+          ("D=128", 2, 8, 2048, 128, False, True),
+          ("D=160", 2, 8, 2048, 160, False, True),
+          ("D=256", 2, 8, 2048, 256, False, True))
+ROUNDS, CALLS = 3, 10
+
+
+def build():
+    """Compile every variant at once; returns {name: loaded library}."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    src = (SRC / "flash_forward.cu").read_text()
+    flags = [*_build._FLAGS, f"-I{SRC}"]
+    shared = [OUT / "flash_attention.o", OUT / "flash_attention_any.o"]
+    cmds = [[_build._nvcc(), *flags, "-c", "-o", str(obj),
+             str(SRC / f"{obj.stem}.cu")] for obj in shared]
+    objs = {}
+    for i, (name, edits) in enumerate(VARIANTS.items()):
+        text = src
+        for old, new in edits:
+            if old not in text:
+                raise SystemExit(f"variant {name!r}: {old!r} not in the source")
+            text = text.replace(old, new)
+        cu, obj = OUT / f"v{i}.cu", OUT / f"v{i}.o"
+        cu.write_text(text)
+        cmds.append([_build._nvcc(), *flags, "-c", "-o", str(obj), str(cu)])
+        objs[name] = obj
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    for cmd, proc in zip(cmds, procs):
+        log = proc.communicate()[0]
+        if proc.returncode:
+            raise SystemExit(f"{cmd[-1]} did not build:\n{log[-4000:]}")
+        # ptxas's C7520: the kernel's wgmma instructions are serialized
+        lines = log.splitlines()
+        spills = [f"{lines[j - 1].split('fwd_wg')[-1][:24]}: {line.strip()}"
+                  for j, line in enumerate(lines) if "spill stores" in line
+                  and "fwd_wg" in lines[j - 1]
+                  and not line.strip().startswith("0 bytes stack frame, 0")]
+        print(f"{Path(cmd[-1]).name}: {log.count('C7520')} kernels with "
+              f"serialized wgmma; fwd_wg with a stack frame or spills: "
+              f"{spills}", flush=True)
+    libs = {}
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    shape = [ptr] * 4 + [i64] * 4 + [i32] * 11 + [ctypes.c_double, i32, ptr]
+    for name, obj in objs.items():
+        so = obj.with_suffix(".so")
+        subprocess.run([_build._nvcc(), "-shared", "-o", str(so), str(obj),
+                        *map(str, shared)], check=True)
+        lib = ctypes.CDLL(str(so))
+        lib.lamp_flash_attention_fwd.argtypes = [ptr] * 6 + shape
+        libs[name] = lib
+    return libs
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("exp_k1_variants: needs a CUDA card")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout
+    print(f"{torch.cuda.get_device_name(0)} | {smi.strip()}", flush=True)
+    t0 = time.perf_counter()
+    libs = build()
+    print(f"{len(libs)} variants built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    packed = chip_smoke.packed_batch()["segment_ids"]
+    for what, b, h, s, d, with_ids, causal in SHAPES:
+        scale = 1.0 / math.sqrt(d)
+        q, k, v, _ = chip_smoke.flash_inputs(b, h, s, s, d, torch.bfloat16,
+                                             seed=1)
+        ids = torch.as_tensor(np.asarray(packed), device="cuda") \
+            if with_ids else None
+        vis = att._Visibility(q, ids, None)
+        vis.alloc_map(q, s)
+        o = torch.empty_like(q)
+        lse = torch.empty(q.shape[:3], dtype=torch.float32, device="cuda")
+        args = (*vis.args(), b * h, h, s, s, d, 0, 0, int(causal), 0, scale, 1,
+                torch.cuda.current_stream().cuda_stream)
+
+        def fwd(lib):
+            rc = lib.lamp_flash_attention_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), None, o.data_ptr(),
+                lse.data_ptr(), *args)
+            assert rc == 0, rc
+
+        with torch.no_grad():
+            want, _ = att.flash_attention_reference(
+                q.float(), k.float(), v.float(), causal=causal,
+                segment_ids=ids)
+        times = {name: [] for name in libs}
+        errs, diffs, first = {}, {}, None
+        for r in range(ROUNDS):
+            for name, lib in libs.items():
+                times[name].append(sum(chip_smoke.device_ms(
+                    lambda: fwd(lib), CALLS, warmup=1).values()))
+                if r == 0:
+                    fwd(lib)
+                    torch.cuda.synchronize()
+                    errs[name] = chip_smoke.block_err(o, want)
+                    first = o.clone() if first is None else first
+                    diffs[name] = float((o.float() - first.float()).abs().max())
+        pairs = float(att._visible(q, k, causal=causal, window=None,
+                                   kv_lengths=None, segment_ids=ids,
+                                   mask=None).sum()) * (b * h if ids is None
+                                                        else h)
+        print(f"{what}: B={b} H={h} S={s} D={d} bf16, median of "
+              f"{ROUNDS} rounds of {CALLS} calls:", flush=True)
+        for name, ts in times.items():
+            ms = sorted(ts)[ROUNDS // 2]
+            print(f"  {name:16} {ms * 1e3:8.1f} us  "
+                  f"{4 * d * pairs / ms / 1e9:6.1f} TFLOP/s  block error "
+                  f"{errs[name]:.2e}  max |o - as built| {diffs[name]:.2e}",
+                  flush=True)
+        for name, lib in libs.items():
+            if not hasattr(lib, "lamp_prof_read"):
+                continue
+            before, after = ((ctypes.c_ulonglong * 8)() for _ in range(2))
+            lib.lamp_prof_read(before)
+            fwd(lib)
+            torch.cuda.synchronize()
+            lib.lamp_prof_read(after)
+            cycles = [a - b for a, b in zip(after, before)][:len(SEGMENTS)]
+            total = sum(cycles) or 1
+            print(f"  {name}: consumer cycles by stretch: " + ", ".join(
+                f"{seg} {100 * c / total:.1f}%" for seg, c in
+                zip(SEGMENTS, cycles)), flush=True)
+        del q, k, v, o, want
+
+
+if __name__ == "__main__":
+    main()

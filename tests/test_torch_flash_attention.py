@@ -66,6 +66,14 @@ def _inputs(b, h, sq, skv, d, lengths, seed=0):
         lens = rng.randint(1, skv + 1, (b, sq)).astype(np.int32)
     elif lengths == "edge":  # one key, and one past a 128-key block
         lens = np.array([1, 129][:b], np.int32)
+    elif lengths == "halves":
+        # per-row limits that differ between the 64-row halves of a
+        # 128-row block: a few keys in one half, every key in the other
+        rows = np.arange(sq)
+        short = 2 + rows % 5
+        lens = np.stack([np.where(rows % 128 < 64, short, skv),
+                         np.where(rows % 128 < 64, skv, short)])[:b]
+        lens = lens.astype(np.int32)
     return q, k, v, do, lens
 
 
@@ -345,16 +353,18 @@ def _vis_inputs(case, seed=7):
             first = np.ones((b, skv), bool)
             first[:, 1:] = seg[:, 1:] != seg[:, :-1]
             m = m | first[:, None, None, :]
-    if lens is not None:  # past the last segment's start
+    if lens is not None and lengths != "halves":  # past the last segment's start
         lens = np.maximum(lens, skv - 8).astype(np.int32)
     return q, k, v, do, lens, seg, m
 
 
 
 
-# Head dims the tensor-core kernels do not hold (not a multiple of 8, or
-# above 128: the CUDA path runs them in the ragged forward instance or the
-# scalar kernels), causal, windowed and segmented, in the VIS_CASES layout
+# Head dims the backward's tensor-core kernels do not hold (not a multiple
+# of 8, or above 128: the CUDA path runs them in the ragged forward, the
+# wgmma forward's D=192 and 256 instances and the mma.sync backward),
+# causal, windowed and segmented, and the wgmma forward's edges, in the
+# VIS_CASES layout
 HEAD_DIM_CASES = [
     ("d12_causal", 1, 2, 64, 64, 12, True, None, None, None, None,
      np.float32),
@@ -376,6 +386,20 @@ HEAD_DIM_CASES = [
      np.float32),
     ("d100_f16", 1, 2, 64, 64, 100, True, None, None, None, None,
      np.float16),
+    # the wgmma forward's edges: its D=192 instance (d 136 and 192), the
+    # rows of a block's two 64-row consumers seeing different key counts
+    # across a 129-row edge, and d 72 in float16
+    ("d136_causal", 1, 2, 64, 64, 136, True, None, None, None, None,
+     np.float32),
+    ("d136_ids_window", 1, 2, 70, 70, 136, True, 24, "sorted", None, None,
+     np.float32),
+    ("d192_causal", 1, 1, 64, 64, 192, True, None, None, None, None,
+     np.float32),
+    ("d192_ids_window", 1, 2, 70, 70, 192, True, 24, "sorted", None, None,
+     np.float32),
+    ("s129_halves", 2, 1, 129, 129, 32, True, None, None, None, "halves",
+     np.float32),
+    ("d72_f16", 1, 2, 64, 64, 72, True, None, None, None, None, np.float16),
 ]
 
 
