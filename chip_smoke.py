@@ -61,12 +61,18 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
    dims the backward's instances of 32, 64 and 128 do not hold: 12, 100,
    160 and 256 in bf16 (causal with kv lengths, and with segment ids: the
    ragged forward at 12 and 100, fwd_wg's D=192 and 256 instances, the
-   mma.sync backward), 75 and 320, and float64 at 64 and 100 (the scalar
-   kernels; limit 1e-10), each by the same checks and planted fault, and
-   each but 75 and 320 (and 192 besides) timed at B=2, H=8, S=2048 beside
-   its bound, its plain version and SDPA at the same head dim and dtype;
-   GPT models at head_dim 100 and 256, and one in f32, take 3
-   training steps each.
+   mma.sync backward) and 75; then the edges of dq_any and dkv_any (the
+   backward for f32, f64 and 16-bit above 256: 64-row blocks, 64-, 32- or
+   16-row tiles, 128-column parts above 128): float64 at head dims 8, 64,
+   100, 128, 136 and 200 (limit 1e-10), f32 at 64, 100 and 320 and bf16 at
+   320, each causal with kv lengths [2, 65, 2047], causal with Sq != Skv,
+   with segment ids and with a mask, a window once, head dims 75, 102 and
+   257-300 whose rows take 8-, 4- or 2-byte copies, and two backward calls
+   bit for bit in f64, f32 and bf16 at 320; each by the same checks and
+   planted fault; the tensor-core head dims (and 192 besides) and f64 and
+   f32 at 64 and 100 timed at B=2, H=8, S=2048 beside their bound, their
+   plain version and SDPA at the same head dim and dtype; GPT models at
+   head_dim 100 and 256, and one in f32, take 3 training steps each.
 5. The training slice at full width: a 12-block, 768-wide GPT
    LanguageModelModule (12 heads, MLP 3072, byte vocab 256, bf16 with f32
    AdamW masters, random weights from a seed) trains under the flagship
@@ -76,7 +82,10 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
    layers x micro-batches x steps), 10 steps on one batch of SURVEY.md's
    bytes (the loss must fall), and one profiled step (device busy share,
    top kernels, the attention kernels' shares, no library attention
-   kernel).
+   kernel). Then the flagship in float32 (examples/autoregressivelm.py
+   --no-bf16: f32 parameters, no masters), whose attention runs fwd_any,
+   dq_any and dkv_any: its first loss against the same model and batch
+   through plain attention, and the same steps, checks and profile.
 6. The int4 dequant-matmul kernel (K7) against its plain version at every
    decode matmul of the serving configuration (QKV 768x1280, out 768x768,
    SwiGLU 768x2048 and 2048x768, logits 768x32000) with M in {1, 7, 32, 64,
@@ -191,7 +200,12 @@ PAGE, TOTAL_PAGES = 128, 192
 # the training slice: the JAX package's GPT LM (bench.py:109-130 flagship,
 # bench.py:223-240 long context), full width
 LM_VOCAB, LM_BLOCKS, LM_DIM, LM_HEADS = 256, 12, 768, 12
-TRAIN_CONFIGS = (("flagship", 384, 8, 5), ("longctx", 4096, 2, 1))
+TRAIN_CONFIGS = (("flagship", 384, 8, 5, torch.bfloat16),
+                 ("longctx", 4096, 2, 1, torch.bfloat16),
+                 ("flagship f32", 384, 8, 5, torch.float32))
+# the kernels a training step's attention runs, by parameter dtype
+TRAIN_KERNELS = {torch.bfloat16: ("fwd_wg", "dq_tc", "dkv_tc"),
+                 torch.float32: ("fwd_any", "dq_any", "dkv_any")}
 
 # phase 10: packed-document training of the serving configuration's
 # ModernLM (bench.py:322-326) at context 2048, 4 rows a step, documents of
@@ -1143,14 +1157,25 @@ def flash_instance(d, dtype, part):
     return f"{part}_any"
 
 
+# phase 4: the head dims of dq_any and dkv_any's edges (64-row blocks; 64-,
+# 32- or 16-row tiles; instances of 32, 64, 112 (float64) and 128 columns,
+# and 128-column parts above 128), by dtype
+ANY_HEAD_DIMS = ((torch.float64, (8, 64, 100, 128, 136, 200)),
+                 (torch.float32, (64, 100, 320)),
+                 (torch.bfloat16, (320,)))
+
+
 def check_flash_head_dims(att, check):
     """Head dims the instances of 32, 64 and 128 do not hold (12, 75 and
-    100: not a multiple of 8; 160, 256 and 320: above 128) in bf16,
-    causal and with segment ids, and float64 at head dims 64 and 100, each
-    by the checks of check_flash; then each timed at B=2, H=8, S=2048.
-    Returns the times by (head dim, dtype) and the largest abs error of
-    each kernel family that ran (flash_instance)."""
-    bf16, f64 = torch.bfloat16, torch.float64
+    100: not a multiple of 8; 160 and 256: above 128) in bf16, causal and
+    with segment ids; then the edges of dq_any and dkv_any (ANY_HEAD_DIMS),
+    each causal with kv lengths that cut tiles, causal with Sq != Skv, with
+    segment ids and with a mask, a window once, and two backward calls bit
+    for bit; each by the checks of check_flash; then the tensor-core head
+    dims and f64 and f32 at 64 and 100 timed at B=2, H=8, S=2048. Returns
+    the times by (head dim, dtype) and the largest abs error of each
+    kernel family that ran (flash_instance)."""
+    bf16, f32, f64 = torch.bfloat16, torch.float32, torch.float64
     s = 1000
     ids = np.sort(np.random.RandomState(3).randint(0, 4, (2, s)), 1)
     errs = {}
@@ -1164,17 +1189,49 @@ def check_flash_head_dims(att, check):
     for d in (12, 100, 160, 256):
         run(f"head_dim {d}", d, bf16, 2, 4, s, s, True, lengths=[1000, 555])
         run(f"head_dim {d} ids", d, bf16, 2, 4, s, s, True, segment_ids=ids)
-    # an odd head dim (2-byte copies, stores of single elements) and one
-    # above 256 (the scalar kernels in bf16, output columns over blocks)
+    # an odd head dim (2-byte copies, stores of single elements)
     run("head_dim 75", 75, bf16, 2, 4, s, s, True, lengths=[1000, 555])
-    run("head_dim 320", 320, bf16, 1, 2, 512, 512, True, lengths=[512])
-    run("f64 head 64", 64, f64, 2, 4, 512, 512, True, lengths=[512, 300])
-    run("f64 head 100 ids", 100, f64, 2, 4, 512, 512, True,
-        segment_ids=ids[:, :512])
+    check_any_backward(att, run, ids)
     times = {(d, dt): time_flash_case(att, 2, 8, 2048, d, dt)
              for d, dt in ((12, bf16), (100, bf16), (160, bf16), (192, bf16),
-                           (256, bf16), (64, f64), (100, f64))}
+                           (256, bf16), (64, f64), (100, f64), (64, f32),
+                           (100, f32))}
     return times, errs
+
+
+def check_any_backward(att, run, ids):
+    """The edges of dq_any and dkv_any at ANY_HEAD_DIMS, each by
+    ``run(name, d, dtype, b, h, sq, skv, causal, **kw)`` (check_flash's
+    checks): kv lengths that end a 64-key block after 2 and 1 keys and one
+    short of 2048; Sq != Skv, whose causal offset cuts the tiles; segment
+    ids (``ids``, [2, >= 512]); a [B, 1, Sq, Skv] mask with every row
+    keeping its diagonal key; a window once; head dims whose rows take
+    8-, 4- and 2-byte copies; then two backward calls bit for bit in f64,
+    f32 and bf16 at head dim 320."""
+    bf16, f32, f64 = torch.bfloat16, torch.float32, torch.float64
+    s = 1000
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    sq, skv = 300, 700
+    mask = (torch.rand(2, 1, sq, skv, generator=gen, device="cuda") < 0.8)
+    mask[..., torch.arange(sq), torch.arange(sq) + skv - sq] = True
+    for dtype, dims in ANY_HEAD_DIMS:
+        for d in dims:
+            name = f"{str(dtype)[6:]} head {d}"
+            run(f"{name} lengths", d, dtype, 3, 2, 2048, 2048, True,
+                lengths=[2, 65, 2047])
+            run(f"{name} Sq!=Skv", d, dtype, 2, 2, sq, skv, True)
+            run(f"{name} ids", d, dtype, 2, 2, 512, 512, True,
+                segment_ids=ids[:, :512])
+            run(f"{name} mask", d, dtype, 2, 2, sq, skv, True, mask=mask)
+    run("f64 head 100 window", 100, f64, 2, 2, s, s, True, window=100)
+    # rows that are not a multiple of 16 bytes: staged by 8-, 4- or (an odd
+    # 16-bit head dim) 2-byte copies
+    for d, dtype in ((75, f64), (75, f32), (102, f32), (300, bf16),
+                     (258, bf16), (257, bf16)):
+        run(f"{str(dtype)[6:]} head {d} narrow", d, dtype, 2, 2, s, s, True,
+            lengths=[1000, 555])
+    for d, dtype in ((100, f64), (64, f32), (320, bf16)):
+        check_deterministic(att, 2, 4, s, d, dtype=dtype)
 
 
 # the wgmma forward's instances past 128: head dims that are multiples of 8
@@ -1207,9 +1264,10 @@ def check_flash_forward_edges(att, check):
           window=100)
 
 
-def check_deterministic(att, b, h, s, d, segment_ids=None):
+def check_deterministic(att, b, h, s, d, segment_ids=None,
+                        dtype=torch.bfloat16):
     """Two backward calls on the same inputs give the same bits."""
-    q, k, v, do = flash_inputs(b, h, s, s, d, torch.bfloat16, seed=2)
+    q, k, v, do = flash_inputs(b, h, s, s, d, dtype, seed=2)
     scale = 1.0 / math.sqrt(d)
     ids = None if segment_ids is None else torch.as_tensor(
         np.asarray(segment_ids), device="cuda")
@@ -1221,7 +1279,7 @@ def check_deterministic(att, b, h, s, d, segment_ids=None):
         if not torch.equal(x, y):
             raise AssertionError(f"flash backward: {what} differs between "
                                  f"two calls on the same inputs")
-    print(f"  determinism    B={b} H={h} S={s} D={d}"
+    print(f"  determinism    B={b} H={h} S={s} D={d} {str(dtype)[6:]}"
           f"{'' if ids is None else ' packed ids'}: two backward calls "
           f"give equal dq, dk and dv", flush=True)
 
@@ -1372,11 +1430,12 @@ def phase_flash(att):
     return times, wide
 
 
-def profile_train_step(step, state, batch):
+def profile_train_step(step, state, batch,
+                       ours=TRAIN_KERNELS[torch.bfloat16]):
     """torch.profiler over one train step: device busy share of the wall
     time, the top kernels, and the check that attention ran in the port's
-    kernels and in no library attention kernel. Returns the names of the
-    kernels that ran, joined."""
+    kernels ``ours`` (forward, dq, dkv) and in no library attention kernel.
+    Returns the names of the kernels that ran, joined."""
     with traced() as trace:
         t0 = time.perf_counter()
         step(state, batch)
@@ -1393,16 +1452,15 @@ def profile_train_step(step, state, batch):
               f"{e.self_device_time_total:8.0f} us  x{e.count:<5} "
               f"{e.key[:90]}")
     names = " ".join(e.key for e in device)
-    for ours in ("fwd_wg", "dq_tc", "dkv_tc"):
-        if ours not in names:
-            raise AssertionError(f"the step ran no {ours} kernel")
-    shares = {ours: sum(e.self_device_time_total for e in device
-                        if ours in e.key) for ours in
-              ("fwd_wg", "dq_tc", "dkv_tc")}
+    for kernel in ours:
+        if kernel not in names:
+            raise AssertionError(f"the step ran no {kernel} kernel")
+    shares = {kernel: sum(e.self_device_time_total for e in device
+                          if kernel in e.key) for kernel in ours}
     print("  attention kernels' device time: " + ", ".join(
-        f"{ours} {us:.0f} us ({100 * us / busy:.1f}%)"
-        for ours, us in shares.items()) + f"; K2 (dq + dkv) "
-        f"{100 * (shares['dq_tc'] + shares['dkv_tc']) / busy:.1f}% of "
+        f"{kernel} {us:.0f} us ({100 * us / busy:.1f}%)"
+        for kernel, us in shares.items()) + f"; K2 (dq + dkv) "
+        f"{100 * (shares[ours[1]] + shares[ours[2]]) / busy:.1f}% of "
         f"the busy time", flush=True)
     for library in ("flash_fwd", "flash_bwd", "fmha", "efficient_attention",
                     "cudnn"):
@@ -1420,12 +1478,17 @@ def optimizer_device_ms(opt):
     return sum(times.values())
 
 
-def train_config(torch_nn, train, att, name, ctx, batch, accum, make_opt):
-    """One training configuration at full width: 2 warm-up steps, 5 timed
-    steps (CUDA events) whose launch counts are returned, 10 steps on one
-    batch of SURVEY.md's bytes (the loss must fall), one profiled step and
-    the optimizer's device time. ``make_opt(model)`` builds the
-    optimizer."""
+def train_config(torch_nn, train, att, name, ctx, batch, accum, make_opt,
+                 dtype=torch.bfloat16):
+    """One training configuration at full width, its parameters in
+    ``dtype``: 2 warm-up steps, 5 timed steps (CUDA events) whose launch
+    counts are returned, 10 steps on one batch of SURVEY.md's bytes (the
+    loss must fall), one profiled step and the optimizer's device time.
+    ``make_opt(model)`` builds the optimizer. In float32 the first loss is
+    checked against the same model and batch through plain attention
+    (mha_reference, the whole score matrix)."""
+    from lamp_tpu_torch.nn import transformer
+
     dev = torch.device("cuda")
     text = np.frombuffer((Path(__file__).resolve().parent / "SURVEY.md")
                          .read_bytes(), np.uint8)
@@ -1435,7 +1498,7 @@ def train_config(torch_nn, train, att, name, ctx, batch, accum, make_opt):
     model = torch_nn.LanguageModelModule.init(
         vocab_size=LM_VOCAB, context_length=ctx, num_blocks=LM_BLOCKS,
         embed_dim=LM_DIM, attention_heads=LM_HEADS, generator=gen,
-        dtype=torch.bfloat16, device=dev)
+        dtype=dtype, device=dev)
     n_params = sum(p.numel() for p in model.parameters())
     opt = make_opt(model)
 
@@ -1450,6 +1513,25 @@ def train_config(torch_nn, train, att, name, ctx, batch, accum, make_opt):
     rng = np.random.RandomState(0)
     tokens = torch.as_tensor(rng.randint(0, LM_VOCAB, shape), device=dev)
     data = (tokens, torch.roll(tokens, -1, dims=-1))
+    if dtype == torch.float32:
+        # the first micro-batch's loss through the kernels and through
+        # plain attention: both in f32, apart by summation order only
+        first = (data[0][0], data[1][0]) if accum > 1 else data
+        with torch.no_grad():
+            got = float(loss_fn(model, first, None, False)[0])
+            kernel = transformer.flash_attention
+            transformer.flash_attention = (
+                lambda q, k, v, **kw: att.mha_reference(
+                    q, k, v, causal=kw["causal"]))
+            try:
+                want = float(loss_fn(model, first, None, False)[0])
+            finally:
+                transformer.flash_attention = kernel
+        print(f"  {name}: first loss {got:.6f}, with plain attention "
+              f"{want:.6f} (|diff| {abs(got - want):.2e}, limit 1e-4)",
+              flush=True)
+        if not abs(got - want) <= 1e-4:
+            raise AssertionError(f"{name}: loss {got} against plain {want}")
     losses = []
     for _ in range(2):
         losses.append(step(state, data)[1][0])
@@ -1493,7 +1575,7 @@ def train_config(torch_nn, train, att, name, ctx, batch, accum, make_opt):
           f"{last:.4f}", flush=True)
     if not last < first:
         raise AssertionError(f"{name}: loss did not fall on fixed text")
-    names = profile_train_step(step, state, data)
+    names = profile_train_step(step, state, data, TRAIN_KERNELS[dtype])
     opt_ms = optimizer_device_ms(opt)
     print(f"  {name}: one {type(opt).__name__} step {opt_ms * 1e3:.1f} us "
           f"of device time", flush=True)
@@ -1502,33 +1584,43 @@ def train_config(torch_nn, train, att, name, ctx, batch, accum, make_opt):
                 optimizer_ms=opt_ms, n_params=n_params, kernels=names)
 
 
-def phase_train(torch_nn, optim, train, att):
-    """Both training configurations at full width; returns the kernels'
-    launches over the timed steps and the flagship's figures."""
+def run_train_config(torch_nn, optim, train, att, config):
+    """One of TRAIN_CONFIGS through train_config, with the example's AdamW
+    (autoregressivelm.py:93-107) under accumulation, else bench.py:230's."""
     from lamp_tpu_torch.nn.module import param_tags
 
-    launches = backward_launches = 0
+    name, ctx, batch, accum, dtype = config
+    if accum > 1:
+        def make_opt(model):
+            return optim.AdamW(
+                model.named_parameters(), 3e-4, beta2=0.95, clip=1.0,
+                weight_decay=lambda tag: 0.0 if (
+                    "bias" in tag or "LayerNorm" in tag or "scale" in tag
+                    or "Embedding" in tag) else 0.01,
+                tags=param_tags(model))
+    else:
+        def make_opt(model):
+            return optim.AdamW(model.named_parameters(), 3e-4,
+                               weight_decay=0.01)
+    return train_config(torch_nn, train, att, name, ctx, batch, accum,
+                        make_opt, dtype)
+
+
+def phase_train(torch_nn, optim, train, att):
+    """Every training configuration at full width; returns the kernels'
+    launches over the timed steps by parameter dtype ({dtype: (forward,
+    backward)}) and the bf16 flagship's figures."""
+    launches = {}
     flagship = None
-    for name, ctx, batch, accum in TRAIN_CONFIGS:
-        if accum > 1:  # the example's optimizer (autoregressivelm.py:93-107)
-            def make_opt(model):
-                return optim.AdamW(
-                    model.named_parameters(), 3e-4, beta2=0.95, clip=1.0,
-                    weight_decay=lambda tag: 0.0 if (
-                        "bias" in tag or "LayerNorm" in tag or "scale" in tag
-                        or "Embedding" in tag) else 0.01,
-                    tags=param_tags(model))
-        else:  # bench.py:230
-            def make_opt(model):
-                return optim.AdamW(model.named_parameters(), 3e-4,
-                                   weight_decay=0.01)
-        run = train_config(torch_nn, train, att, name, ctx, batch, accum,
-                           make_opt)
-        launches += run["launches"]["flash_attention"]
-        backward_launches += run["launches"]["flash_attention_backward"]
-        if name == "flagship":
+    for config in TRAIN_CONFIGS:
+        run = run_train_config(torch_nn, optim, train, att, config)
+        dtype = config[-1]
+        fwd, bwd = launches.get(dtype, (0, 0))
+        launches[dtype] = (fwd + run["launches"]["flash_attention"],
+                           bwd + run["launches"]["flash_attention_backward"])
+        if config[0] == "flagship":
             flagship = run
-    return launches, backward_launches, flagship
+    return launches, flagship
 
 
 def rel_err(got, want):
@@ -2123,7 +2215,7 @@ def phase_adamw_train(torch_nn, train, att, FA, flagship):
     launch count, and the step, optimizer time and peak memory beside
     phase 5's AdamW flagship. Returns K4's launches over the timed
     steps."""
-    name, ctx, batch, accum = TRAIN_CONFIGS[0]
+    name, ctx, batch, accum, _ = TRAIN_CONFIGS[0]
     run = train_config(
         torch_nn, train, att, "flagship, AdamWStochastic", ctx, batch, accum,
         lambda model: FA.AdamWStochastic(model.named_parameters(), 3e-4,
@@ -2333,8 +2425,8 @@ def main() -> int:
     flash, flash_wide = phase_flash(att)
     small_by_model = check_small_heads(torch_nn, optim, train)
     print("phase 5: training slice at full width", flush=True)
-    fwd_launches, bwd_launches, flagship = phase_train(torch_nn, optim,
-                                                       train, att)
+    train_launches, flagship = phase_train(torch_nn, optim, train, att)
+    fwd_launches, bwd_launches = train_launches[torch.bfloat16]
     print("phase 6: int4 matmul and stochastic int8 kernels vs plain",
           flush=True)
     k7, k8 = phase_quant_kernels(Q)
@@ -2374,10 +2466,12 @@ def main() -> int:
     # kernels the f32 GPT
     d100, d256, f32 = (small_by_model[m] for m in (
         "head_dim 100", "head_dim 256", "f32, head_dim 64"))
+    f32_fwd, f32_bwd = (f32[i] + train_launches[torch.float32][i]
+                        for i in range(2))
     wide_launches = {"fwd_ragged": openllama["k1"] + d100[0],
                      "fwd_wg": d256[0], "dq_mma": d100[1] + d256[1],
-                     "dkv_mma": d100[1] + d256[1], "fwd_any": f32[0],
-                     "dq_any": f32[1], "dkv_any": f32[1]}
+                     "dkv_mma": d100[1] + d256[1], "fwd_any": f32_fwd,
+                     "dq_any": f32_bwd, "dkv_any": f32_bwd}
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2450,11 +2544,12 @@ def main() -> int:
              "dkv_mma: as dq_mma"),
             ("fwd_any", "flash_attention_any.cu", 87, (100, f64),
              "fwd_any (f32 and f64 at every head dim, 16-bit above 256): "
-             "launches are the f32 GPT"),
-            ("dq_any", "flash_attention_any.cu", 297, (100, f64),
-             "dq_any (as fwd_any): launches are the f32 GPT's backward "
+             "launches are phase 5's f32 flagship and the small f32 GPT"),
+            ("dq_any", "flash_backward_any.cu", 297, (100, f64),
+             "dq_any (as fwd_any; DMMA in f64, FFMA in f32): launches are "
+             "phase 5's f32 flagship's and the small f32 GPT's backward "
              "calls"),
-            ("dkv_any", "flash_attention_any.cu", 365, (100, f64),
+            ("dkv_any", "flash_backward_any.cu", 365, (100, f64),
              "dkv_any: as dq_any")):
         part = key.split("_")[0]
         r = flash_times[shape][part]

@@ -26,9 +26,9 @@
 //    of 8 up to 128; the other d up to 256 take the mma.sync backward
 //    (dq_mma, dkv_mma), whose tiles come as the ragged forward's do.
 //  - everything else (float32 and float64 at every d; the 16-bit types at
-//    d > 256) takes the scalar kernels
-//    of flash_attention_any.cu (fwd_any, dq_any, dkv_any), which stage
-//    the head dim in chunks and have no limit on it; float64 computes in
+//    d > 256) takes fwd_any (flash_attention_any.cu) and dq_any, dkv_any
+//    (flash_backward_any.cu: float64 on the FP64 tensor cores, the rest on
+//    FFMA), which have no limit on the head dim; float64 computes in
 //    double there.
 // Nothing is padded in device memory.
 //
@@ -121,8 +121,8 @@
 //    and dQ, rows without a visible key exactly 0. No atomics and no
 //    partial-dq slab: every sum runs in a fixed order, so a call gives the
 //    same bits every time.
-//  - float32 and float64 inputs take the scalar kernels of
-//    flash_attention_any.cu (no tensor cores; dq_any computes di too).
+//  - float32 and float64 inputs take dq_any and dkv_any of
+//    flash_backward_any.cu (dq_any computes di too).
 //
 // Resources (ptxas -v for sm_90a, on the build of this source): the
 // backward kernels, 384 threads, report 168 registers (the launch bound;
@@ -292,21 +292,6 @@ __device__ __forceinline__ void c_to_a(uint32_t (*a)[4], float (*c)[4]) {
   }
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  // src-size 0 zero-fills the 16 bytes without reading
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // rows [row0, row0 + ROWS) of a [n, d] matrix into a padded shared tile of
 // D columns, by cp.async; rows past n and columns past d are zero-filled
 template <int D, int ROWS, typename T>
@@ -326,15 +311,6 @@ using Rows = std::integral_constant<int, N>;
 
 // the keys of a K/V tile the forward streams: 64, 32 at D = 256
 __host__ __device__ constexpr int fwd_kv_tile(int d) { return d > 128 ? 32 : 64; }
-
-// cp.async of 8 or 4 bytes (cp.async.ca), zero-filled when not valid
-template <int N>
-__device__ __forceinline__ void cp_async_ca(void* dst, const void* src,
-                                            bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "n"(N), "r"(valid ? N : 0));
-}
 
 // load_tile for any head dim d: rows of 2d bytes lie 16-byte aligned (d %
 // 8 == 0: load_tile), only 8-byte aligned (d % 4 == 0), 4-byte aligned (d
@@ -1591,7 +1567,8 @@ int tc_dispatch(int dtype, int d, F f) {
 // The tensor-core kernels take the 16-bit types: the forward at head dims
 // up to 256 (fwd_wg at multiples of 8, fwd_tc the rest), the wgmma backward (TMA: rows of a multiple of 16 bytes; Q and
 // dO, or K and V, resident for 128 rows) at the multiples of 8 up to 128.
-// Everything else runs in the scalar kernels of flash_attention_any.cu.
+// Everything else runs in fwd_any (flash_attention_any.cu) and dq_any,
+// dkv_any (flash_backward_any.cu).
 bool tc_forward(int dtype, int d) { return (dtype == 1 || dtype == 2) && d <= 256; }
 bool tc_backward(int dtype, int d) {
   return tc_forward(dtype, d) && d <= 128 && d % 8 == 0;

@@ -1,36 +1,34 @@
-// Flash attention forward and backward for every head dim and float type:
-// the scalar kernels (no tensor cores) of flash_attention.cu's entry
-// points.
+// Flash attention forward for every head dim and float type: the scalar
+// kernel fwd_any (no tensor cores) of flash_attention.cu's forward entry
+// point. The backward's kernels for the same inputs, dq_any and dkv_any,
+// are flash_backward_any.cu's.
 //
-// Replaces, with flash_attention.cu, the Pallas TPU kernels of
-// lamp_tpu/ops/attention.py (K1 _fwd_kernel, K2 _bwd_dq_kernel and
-// _bwd_dkv_kernel, and so K3), for the inputs the tensor-core kernels do
-// not take: float32 and float64 at every head dim; bfloat16 and float16
-// above head dim 256. The head dim d is a run-time value with no upper
-// limit.
+// Replaces, with flash_attention.cu and flash_forward.cu, the Pallas TPU
+// kernel of lamp_tpu/ops/attention.py K1 _fwd_kernel (and so K3a), for
+// the inputs the tensor-core kernels do not take: float32 and float64 at
+// every head dim; bfloat16 and float16 above head dim 256. The head dim d
+// is a run-time value with no upper limit.
 //
 // The same function as the tensor-core kernels, with the visibility rules
 // of flash_attention.cu's header (flash_common.cuh): f32 accumulation for
 // the 16-bit types and f32 (A = float), double throughout for float64 (A =
 // double; the JAX kernel's dots ask for f32 results even there); p rounded
-// to v's type for P @ V, p to do's type for dV and dS to q's type for dK
-// and dQ; rows with no visible key give o = 0, lse = -inf and zero
-// gradients. lse and di (rowsum(o * do)) are A: f32, f64 for float64.
+// to v's type for P @ V; rows with no visible key give o = 0 and lse =
+// -inf. lse is A: f32, f64 for float64.
 //
-// Design: a block of 128 threads owns 32 query rows (forward, dq) or 32
-// keys (dkv) and DO output columns (128; 64 for float64), and walks tiles
-// of 32 keys (or rows). Four threads share a row: each holds 8 of the
-// tile's 32 scores and DO / 4 output columns in registers. The score
-// products run over the head dim in chunks of 32 staged in shared memory,
-// so nothing in a block grows with d; a head dim above DO splits the
-// output columns over blockIdx.z, and each part recomputes the scores.
-// Loads are plain element loads: any row stride, any alignment.
+// Design: a block of 128 threads owns 32 query rows and DO output columns
+// (128; 64 for float64), and walks tiles of 32 keys. Four threads share a
+// row: each holds 8 of the tile's 32 scores and DO / 4 output columns in
+// registers. The score products run over the head dim in chunks of 32
+// staged in shared memory, so nothing in a block grows with d; a head dim
+// above DO splits the output columns over blockIdx.z, and each part
+// recomputes the scores. Loads are plain element loads: any row stride,
+// any alignment.
 //
 // What bounds it: not the card's limits but its own simplicity. The
 // products run on the FMA units (67 TFLOP/s in f32 on an H100, against
 // 989 on the tensor cores in bf16), with two shared-memory loads a
-// multiply-add; they are for the shapes no model of the port runs at
-// scale, and for checking.
+// multiply-add.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -47,8 +45,8 @@ namespace {
 using namespace lamp_flash;
 
 constexpr int kAT = 128;  // threads a block
-constexpr int kAR = 32;   // rows (forward, dq) or keys (dkv) of a block
-constexpr int kAC = 32;   // keys (forward, dq) or rows (dkv) of a tile
+constexpr int kAR = 32;   // rows of a block
+constexpr int kAC = 32;   // keys of a tile
 constexpr int kAK = 32;   // head-dim chunk of the score products
 constexpr int kAS = kAC / 4;  // scores a thread
 
@@ -58,31 +56,8 @@ __host__ __device__ constexpr int out_cols() {
   return sizeof(A) == 8 ? 64 : 128;
 }
 
-__device__ __forceinline__ float to_acc(float x) { return x; }
-__device__ __forceinline__ double to_acc(double x) { return x; }
-__device__ __forceinline__ float to_acc(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_acc(__half x) { return __half2float(x); }
-
-template <typename T, typename A>
-__device__ __forceinline__ T from_acc(A x) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) return __float2bfloat16(x);
-  else if constexpr (std::is_same<T, __half>::value) return __float2half(x);
-  else return static_cast<T>(x);
-}
-
-// x rounded to T, as an accumulator value
-template <typename T, typename A>
-__device__ __forceinline__ A round_to(A x) {
-  if constexpr (std::is_same<T, A>::value) return x;
-  else return to_acc(from_acc<T>(x));
-}
-
 __device__ __forceinline__ float amax(float x, float y) { return fmaxf(x, y); }
 __device__ __forceinline__ double amax(double x, double y) { return fmax(x, y); }
-__device__ __forceinline__ float afma(float x, float y, float z) { return fmaf(x, y, z); }
-__device__ __forceinline__ double afma(double x, double y, double z) { return fma(x, y, z); }
-__device__ __forceinline__ float aexp(float x) { return expf(x); }
-__device__ __forceinline__ double aexp(double x) { return exp(x); }
 __device__ __forceinline__ float alog(float x) { return logf(x); }
 __device__ __forceinline__ double alog(double x) { return log(x); }
 
@@ -214,209 +189,9 @@ fwd_any(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, typename A>
-__global__ void __launch_bounds__(kAT)
-dq_any(const T* __restrict__ q, const T* __restrict__ k,
-       const T* __restrict__ v, const T* __restrict__ o,
-       const T* __restrict__ dout, const A* __restrict__ lse,
-       A* __restrict__ di, T* __restrict__ dq, Problem p) {
-  constexpr int DO = out_cols<A>();
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  A* qs = reinterpret_cast<A*>(smem_raw);  // [kAR][kAK + 1]
-  A* dos = qs + kAR * (kAK + 1);           // [kAR][kAK + 1]
-  A* ks = dos + kAR * (kAK + 1);           // [kAC][kAK + 1]
-  A* vs = ks + kAC * (kAK + 1);            // [kAC][kAK + 1]
-  A* dss = vs + kAC * (kAK + 1);           // [kAR][kAC + 1]
-  A* kos = dss + kAR * (kAC + 1);          // [kAC][DO + 1]
-  __shared__ int lim_max;
-  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
-  const int r0 = blockIdx.x * kAR, col0 = blockIdx.z * DO;
-  const int tid = threadIdx.x, r = tid / 4, c4 = tid % 4, row = r0 + r;
-  const long long qbase = (long long)bh * p.sq * p.d;
-  const long long kbase = (long long)bh * p.skv * p.d;
-  const bool in = row < p.sq;
-  const int lim = row_limit(p, b, row);
-  const A lse_r = in ? lse[(long long)bh * p.sq + row] : A(0);
-  // di = rowsum(o * do): the row's four threads take every fourth column
-  A di_r = 0;
-  if (in)
-    for (int c = c4; c < p.d; c += 4) {
-      const long long idx = qbase + (long long)row * p.d + c;
-      di_r = afma(to_acc(o[idx]), to_acc(dout[idx]), di_r);
-    }
-  di_r = row_sum(di_r);
-  if (in && blockIdx.z == 0 && c4 == 0) di[(long long)bh * p.sq + row] = di_r;
-  if (tid == 0) lim_max = 0;
-  __syncthreads();
-  atomicMax(&lim_max, lim);
-  __syncthreads();
-  int lo, hi;
-  kv_range(p, r0, kAR, &lo, &hi);
-  hi = min(hi, lim_max);
-  const A scale = sizeof(A) == 8 ? A(p.scale64) : A(p.scale);
-  A acc[DO / 4];
-#pragma unroll
-  for (int i = 0; i < DO / 4; ++i) acc[i] = 0;
-  for (int c0 = (lo / kAC) * kAC; c0 < hi; c0 += kAC) {
-    const int cls = span_class(p, b, h, r0 / kBlock, c0, kAC);
-    if (cls == kSkip) continue;
-    A s[kAS], dp[kAS];
-#pragma unroll
-    for (int i = 0; i < kAS; ++i) s[i] = dp[i] = 0;
-    for (int d0 = 0; d0 < p.d; d0 += kAK) {
-      stage<kAR, kAK>(qs, q + qbase, r0, p.sq, d0, p.d);
-      stage<kAR, kAK>(dos, dout + qbase, r0, p.sq, d0, p.d);
-      stage<kAC, kAK>(ks, k + kbase, c0, p.skv, d0, p.d);
-      stage<kAC, kAK>(vs, v + kbase, c0, p.skv, d0, p.d);
-      __syncthreads();
-#pragma unroll 4
-      for (int e = 0; e < kAK; ++e) {
-        const A qe = qs[r * (kAK + 1) + e], de = dos[r * (kAK + 1) + e];
-#pragma unroll
-        for (int i = 0; i < kAS; ++i) {
-          const int j = (c4 + 4 * i) * (kAK + 1) + e;
-          s[i] = afma(qe, ks[j], s[i]);
-          dp[i] = afma(de, vs[j], dp[i]);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < kAS; ++i) {
-      const int col = c0 + c4 + 4 * i;
-      const bool vis = visible(p, row, lim, col) &&
-                       (cls == kFull || keep(p, b, h, row, col));
-      const A pr = vis ? aexp(s[i] * scale - lse_r) : A(0);
-      dss[r * (kAC + 1) + c4 + 4 * i] = round_to<T>(pr * (dp[i] - di_r) * scale);
-    }
-    stage<kAC, DO>(kos, k + kbase, c0, p.skv, col0, p.d);
-    __syncthreads();
-    for (int j = 0; j < kAC; ++j) {
-      const A dsj = dss[r * (kAC + 1) + j];
-#pragma unroll
-      for (int i = 0; i < DO / 4; ++i) acc[i] = afma(dsj, kos[j * (DO + 1) + c4 + 4 * i], acc[i]);
-    }
-    __syncthreads();
-  }
-  if (in) {
-#pragma unroll
-    for (int i = 0; i < DO / 4; ++i) {
-      const int col = col0 + c4 + 4 * i;
-      if (col < p.d) dq[qbase + (long long)row * p.d + col] = from_acc<T>(acc[i]);
-    }
-  }
-}
-
-template <typename T, typename A>
-__global__ void __launch_bounds__(kAT)
-dkv_any(const T* __restrict__ q, const T* __restrict__ k,
-        const T* __restrict__ v, const T* __restrict__ dout,
-        const A* __restrict__ lse, const A* __restrict__ di,
-        T* __restrict__ dk, T* __restrict__ dv, Problem p) {
-  constexpr int DO = out_cols<A>();
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  A* ks = reinterpret_cast<A*>(smem_raw);  // [kAR][kAK + 1]
-  A* vs = ks + kAR * (kAK + 1);            // [kAR][kAK + 1]
-  A* qs = vs + kAR * (kAK + 1);            // [kAC][kAK + 1]
-  A* dos = qs + kAC * (kAK + 1);           // [kAC][kAK + 1]
-  A* pss = dos + kAC * (kAK + 1);          // [kAR][kAC + 1]
-  A* dss = pss + kAR * (kAC + 1);          // [kAR][kAC + 1]
-  A* qo = dss + kAR * (kAC + 1);           // [kAC][DO + 1]
-  A* doo = qo + kAC * (DO + 1);            // [kAC][DO + 1]
-  A* lse_s = doo + kAC * (DO + 1);         // [kAC]
-  A* di_s = lse_s + kAC;                   // [kAC]
-  __shared__ int lim_s[kAC];
-  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
-  const int c0 = blockIdx.x * kAR, col0 = blockIdx.z * DO;
-  const int tid = threadIdx.x, kr = tid / 4, c4 = tid % 4, key = c0 + kr;
-  const long long qbase = (long long)bh * p.sq * p.d;
-  const long long kbase = (long long)bh * p.skv * p.d;
-  const long long lbase = (long long)bh * p.sq;
-  int lo, hi;
-  q_range(p, c0, kAR, &lo, &hi);
-  const A scale = sizeof(A) == 8 ? A(p.scale64) : A(p.scale);
-  A dk_acc[DO / 4], dv_acc[DO / 4];
-#pragma unroll
-  for (int i = 0; i < DO / 4; ++i) dk_acc[i] = dv_acc[i] = 0;
-  for (int r0 = (lo / kAC) * kAC; r0 < hi; r0 += kAC) {
-    const int cls = span_class(p, b, h, r0 / kBlock, c0, kAR);
-    if (cls == kSkip) continue;
-    for (int i = tid; i < kAC; i += kAT) {
-      const int row = r0 + i;
-      lse_s[i] = row < p.sq ? lse[lbase + row] : A(0);
-      di_s[i] = row < p.sq ? di[lbase + row] : A(0);
-      lim_s[i] = row_limit(p, b, row);
-    }
-    A s[kAS], dp[kAS];
-#pragma unroll
-    for (int i = 0; i < kAS; ++i) s[i] = dp[i] = 0;
-    for (int d0 = 0; d0 < p.d; d0 += kAK) {
-      stage<kAR, kAK>(ks, k + kbase, c0, p.skv, d0, p.d);
-      stage<kAR, kAK>(vs, v + kbase, c0, p.skv, d0, p.d);
-      stage<kAC, kAK>(qs, q + qbase, r0, p.sq, d0, p.d);
-      stage<kAC, kAK>(dos, dout + qbase, r0, p.sq, d0, p.d);
-      __syncthreads();
-#pragma unroll 4
-      for (int e = 0; e < kAK; ++e) {
-        const A ke = ks[kr * (kAK + 1) + e], ve = vs[kr * (kAK + 1) + e];
-#pragma unroll
-        for (int i = 0; i < kAS; ++i) {
-          const int j = (c4 + 4 * i) * (kAK + 1) + e;
-          s[i] = afma(ke, qs[j], s[i]);
-          dp[i] = afma(ve, dos[j], dp[i]);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < kAS; ++i) {
-      const int j = c4 + 4 * i, row = r0 + j;
-      const bool vis = visible(p, row, lim_s[j], key) &&
-                       (cls == kFull || keep(p, b, h, row, key));
-      const A pr = vis ? aexp(s[i] * scale - lse_s[j]) : A(0);
-      pss[kr * (kAC + 1) + j] = round_to<T>(pr);
-      dss[kr * (kAC + 1) + j] = round_to<T>(pr * (dp[i] - di_s[j]) * scale);
-    }
-    stage<kAC, DO>(qo, q + qbase, r0, p.sq, col0, p.d);
-    stage<kAC, DO>(doo, dout + qbase, r0, p.sq, col0, p.d);
-    __syncthreads();
-    for (int j = 0; j < kAC; ++j) {
-      const A pj = pss[kr * (kAC + 1) + j], dsj = dss[kr * (kAC + 1) + j];
-#pragma unroll
-      for (int i = 0; i < DO / 4; ++i) {
-        const int c = j * (DO + 1) + c4 + 4 * i;
-        dv_acc[i] = afma(pj, doo[c], dv_acc[i]);
-        dk_acc[i] = afma(dsj, qo[c], dk_acc[i]);
-      }
-    }
-    __syncthreads();
-  }
-  if (key < p.skv) {
-#pragma unroll
-    for (int i = 0; i < DO / 4; ++i) {
-      const int col = col0 + c4 + 4 * i;
-      if (col < p.d) {
-        dk[kbase + (long long)key * p.d + col] = from_acc<T>(dk_acc[i]);
-        dv[kbase + (long long)key * p.d + col] = from_acc<T>(dv_acc[i]);
-      }
-    }
-  }
-}
-
 template <typename A>
 constexpr int smem_fwd() {
   return (2 * kAR * (kAK + 1) + kAR * (kAC + 1) + kAC * (out_cols<A>() + 1)) *
-         sizeof(A);
-}
-template <typename A>
-constexpr int smem_dq() {
-  return (4 * kAR * (kAK + 1) + kAR * (kAC + 1) + kAC * (out_cols<A>() + 1)) *
-         sizeof(A);
-}
-template <typename A>
-constexpr int smem_dkv() {
-  return (4 * kAR * (kAK + 1) + 2 * kAR * (kAC + 1) +
-          2 * kAC * (out_cols<A>() + 1) + 2 * kAC) *
          sizeof(A);
 }
 
@@ -450,36 +225,6 @@ int any_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
                   stream, static_cast<const T*>(q), static_cast<const T*>(k),
                   static_cast<const T*>(v), static_cast<T*>(o),
                   static_cast<A*>(lse), p);
-  });
-}
-
-int any_dq(int dtype, const void* q, const void* k, const void* v,
-           const void* o, const void* dout, const void* lse, void* di,
-           void* dq, const Problem& p, int bh, cudaStream_t stream) {
-  return by_type(dtype, [&](auto t, auto a) -> int {
-    using T = decltype(t);
-    using A = decltype(a);
-    return launch(dq_any<T, A>, grid_of<A>(p.sq, bh, p.d), kAT, smem_dq<A>(),
-                  stream, static_cast<const T*>(q), static_cast<const T*>(k),
-                  static_cast<const T*>(v), static_cast<const T*>(o),
-                  static_cast<const T*>(dout), static_cast<const A*>(lse),
-                  static_cast<A*>(di),
-                  static_cast<T*>(dq), p);
-  });
-}
-
-int any_dkv(int dtype, const void* q, const void* k, const void* v,
-            const void* dout, const void* lse, const void* di, void* dk,
-            void* dv, const Problem& p, int bh, cudaStream_t stream) {
-  return by_type(dtype, [&](auto t, auto a) -> int {
-    using T = decltype(t);
-    using A = decltype(a);
-    return launch(dkv_any<T, A>, grid_of<A>(p.skv, bh, p.d), kAT,
-                  smem_dkv<A>(), stream, static_cast<const T*>(q),
-                  static_cast<const T*>(k), static_cast<const T*>(v),
-                  static_cast<const T*>(dout), static_cast<const A*>(lse),
-                  static_cast<const A*>(di),
-                  static_cast<T*>(dk), static_cast<T*>(dv), p);
   });
 }
 

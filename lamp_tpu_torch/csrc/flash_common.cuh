@@ -1,15 +1,21 @@
 // What the flash-attention kernels share (flash_attention.cu: the
 // backward's tensor-core kernels, the ragged forward and the entry points;
-// flash_forward.cu: the wgmma forward; flash_attention_any.cu: the scalar
-// kernels for every head dim and float type): the problem's shape, the
+// flash_forward.cu: the wgmma forward; flash_attention_any.cu and
+// flash_backward_any.cu: the scalar forward and the FP64-tensor-core /
+// FFMA backward for every head dim and float type): the problem's shape, the
 // visibility rules of flash_attention.cu's header note, the launch helper,
 // and what the wgmma kernels share (their block shape, TMA maps, exp2).
 
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
+#include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -171,6 +177,56 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
+// cp.async of 16 bytes (cp.async.cg); src-size 0 zero-fills the 16 bytes
+// without reading
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   hopper::smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+// cp.async of 8 or 4 bytes (cp.async.ca), zero-filled when not valid
+template <int N>
+__device__ __forceinline__ void cp_async_ca(void* dst, const void* src,
+                                            bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                   hopper::smem_u32(dst)),
+               "l"(src), "n"(N), "r"(valid ? N : 0));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// the scalar kernels' arithmetic type A: f32, double for float64. T's
+// values as A, A's rounded to T, and A's fma and exp.
+__device__ __forceinline__ float to_acc(float x) { return x; }
+__device__ __forceinline__ double to_acc(double x) { return x; }
+__device__ __forceinline__ float to_acc(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_acc(__half x) { return __half2float(x); }
+
+template <typename T, typename A>
+__device__ __forceinline__ T from_acc(A x) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) return __float2bfloat16(x);
+  else if constexpr (std::is_same<T, __half>::value) return __float2half(x);
+  else return static_cast<T>(x);
+}
+
+// x rounded to T, as an accumulator value
+template <typename T, typename A>
+__device__ __forceinline__ A round_to(A x) {
+  if constexpr (std::is_same<T, A>::value) return x;
+  else return to_acc(from_acc<T>(x));
+}
+
+__device__ __forceinline__ float afma(float x, float y, float z) { return fmaf(x, y, z); }
+__device__ __forceinline__ double afma(double x, double y, double z) { return fma(x, y, z); }
+__device__ __forceinline__ float aexp(float x) { return expf(x); }
+__device__ __forceinline__ double aexp(double x) { return exp(x); }
+
 // launches `kernel`, opting into `smem` bytes of dynamic shared memory (a
 // block's static and dynamic shared memory together past 48 KB need it);
 // returns the launch's error
@@ -248,10 +304,10 @@ namespace lamp_flash {
 int wg_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
            float* lse, const Problem& p, int bh, cudaStream_t stream);
 
-// flash_attention_any.cu: the scalar kernels, for every head dim and the
-// dtype codes 0 float32, 1 bfloat16, 2 float16 and 3 float64. Each returns
-// the launch's cudaError_t. lse and di are f64 for float64 inputs, else
-// f32.
+// flash_attention_any.cu (any_fwd) and flash_backward_any.cu (any_dq,
+// any_dkv): the kernels for every head dim and the dtype codes 0 float32,
+// 1 bfloat16, 2 float16 and 3 float64. Each returns the launch's
+// cudaError_t. lse and di are f64 for float64 inputs, else f32.
 int any_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
             void* lse, const Problem& p, int bh, cudaStream_t stream);
 int any_dq(int dtype, const void* q, const void* k, const void* v,

@@ -2,7 +2,7 @@
 on one CUDA card, in turns.
 
     git archive <commit> lamp_tpu_torch | tar -x -C <dir>
-    python3 scripts/ab_attention.py <dir> [rounds]
+    python3 scripts/ab_attention.py <dir> [rounds] [tc|any]
 
 The two checkouts' packages share a name, so each measurement runs in a
 process of its own that imports one tree's lamp_tpu_torch: both trees'
@@ -19,8 +19,14 @@ trees: a yardstick measured on the same card; with the equivalent
 boolean attn_mask at the packed shapes), of the dq (dq_tc) and dkv
 (dkv_tc) kernels at S=4096 and S=384, and of the paged-attention kernel
 at chip_smoke.py phase 2's shape (B=32, 12/4 heads, head_dim 64, the
-12-layer bf16 pool, append). Prints each measurement and the median of
-each side, and the ratio of this tree's to the other's.
+12-layer bf16 pool, append): the "tc" group. The "any" group times the
+backward for the inputs the tensor-core kernels do not take (dq_any and
+dkv_any) at B=2, H=8, S=2048, causal, in float64 at head dims 64 and 100,
+float32 at 64 and 100 and bfloat16 at 320, each beside SDPA's backward
+(the autograd backward of scaled_dot_product_attention, dq, dk and dv) at
+the same shape and dtype. A third argument names one group; both run by
+default. Prints each measurement and the median of each side, and the
+ratio of this tree's to the other's.
 """
 
 import json
@@ -33,7 +39,12 @@ ROOT = Path(__file__).resolve().parent.parent
 CALLS = 30
 
 
-def worker(tree: str, build_only: bool) -> None:
+# the "any" group's shapes: (dtype name, head dim), at B=2, H=8, S=2048
+ANY_SHAPES = (("float64", 64), ("float64", 100), ("float32", 64),
+              ("float32", 100), ("bfloat16", 320))
+
+
+def worker(tree: str, build_only: bool, groups) -> None:
     sys.path.insert(0, tree)
     import math
 
@@ -54,8 +65,8 @@ def worker(tree: str, build_only: bool) -> None:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def randn(*shape):
-        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     def per_launch(fn, names):
         """Device time a call (us) of the kernels whose names hold one of
@@ -78,13 +89,35 @@ def worker(tree: str, build_only: bool) -> None:
                         e.self_device_time_total / CALLS
         return out
 
+    times = {}
+    if "any" in groups:
+        for name, d in ANY_SHAPES:
+            dtype = getattr(torch, name)
+            q, k, v, do = (randn(2, 8, 2048, d, dtype=dtype)
+                           for _ in range(4))
+            scale = 1.0 / math.sqrt(d)
+            o, lse = att._fwd_cuda(q, k, v, None, True, scale, None)
+            bwd = per_launch(lambda: att._bwd_cuda(
+                q, k, v, o, lse, do, None, True, scale, None),
+                ["dq_any", "dkv_any"])
+            what = f"{name} D={d}"
+            for kernel in ("dq_any", "dkv_any"):
+                times[f"{kernel} {what}"] = bwd[kernel]
+            times[f"any bwd {what}"] = bwd["dq_any"] + bwd["dkv_any"]
+            ql, kl, vl = (x.clone().requires_grad_() for x in (q, k, v))
+            lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+            times[f"SDPA bwd {what}"] = per_launch(
+                lambda: torch.autograd.grad(lo, (ql, kl, vl), do,
+                                            retain_graph=True), [])["all"]
+        if "tc" not in groups:
+            print("AB " + json.dumps(times), flush=True)
+            return
     from lamp_tpu_torch.data import pack_documents
 
     rng = np.random.RandomState(0)  # chip_smoke.py's packed_batch
     docs = [rng.randint(0, 32000, rng.randint(64, 1025)) for _ in range(32)]
     packed = torch.as_tensor(pack_documents(docs, 2048)["segment_ids"][:4],
                              device=dev)
-    times = {}
     # (name, B, H, S, head_dim, segment ids)
     for what, b, h, s, d, ids in (("S=4096", 2, 12, 4096, 64, None),
                                   ("S=384", 8, 12, 384, 64, None),
@@ -131,8 +164,8 @@ def worker(tree: str, build_only: bool) -> None:
     print("AB " + json.dumps(times), flush=True)
 
 
-def run(tree: str, build_only: bool = False):
-    cmd = [sys.executable, __file__, "--worker", tree] + (
+def run(tree: str, groups, build_only: bool = False):
+    cmd = [sys.executable, __file__, "--worker", tree, ",".join(groups)] + (
         ["--build"] if build_only else [])
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True)
 
@@ -140,11 +173,12 @@ def run(tree: str, build_only: bool = False):
 def main() -> int:
     other = str(Path(sys.argv[1]).resolve())
     rounds = int(sys.argv[2]) if len(sys.argv) > 2 else 2
+    groups = sys.argv[3:4] or ["tc", "any"]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(smi.strip(), flush=True)
-    builds = [run(t, build_only=True) for t in (other, str(ROOT))]
+    builds = [run(t, groups, build_only=True) for t in (other, str(ROOT))]
     for proc in builds:
         proc.communicate()
         if proc.returncode:
@@ -152,7 +186,7 @@ def main() -> int:
     seen = {"other": [], "this": []}
     for _ in range(rounds):
         for side in ("other", "this", "this", "other"):
-            proc = run(other if side == "other" else str(ROOT))
+            proc = run(other if side == "other" else str(ROOT), groups)
             out = proc.communicate()[0]
             if proc.returncode:
                 raise SystemExit(f"the {side} tree's worker failed")
@@ -169,6 +203,6 @@ def main() -> int:
 
 if __name__ == "__main__":
     if len(sys.argv) > 2 and sys.argv[1] == "--worker":
-        worker(sys.argv[2], "--build" in sys.argv)
+        worker(sys.argv[2], "--build" in sys.argv, sys.argv[3].split(","))
         sys.exit(0)
     sys.exit(main())

@@ -2,22 +2,26 @@
 call after a kernel change: the build (with ptxas's register and spill
 lines), then the named parts only.
 
-    python3 scripts/chip_phases.py [paged] [fwd] [flash] [small] [openllama]
+    python3 scripts/chip_phases.py [paged] [fwd] [flash] [any] [small]
+        [train32] [openllama]
 
 paged: phase 2 (the paged-attention kernels, K6_WIDE's shapes included);
 fwd: phase 4's checks of the wgmma forward's edges
 (check_flash_forward_edges) and its timing at S=4096, S=384 and the
 packed shapes; flash: phase 4's head dims
 and float64 (check_flash_head_dims, with the f32 checks and timing that
-the scalar kernels and the tensor-core kernels share); small: the GPT
-models of SMALL_HEAD_MODELS; openllama: phase 11. No argument runs all
-five. Every check raises as in chip_smoke.py.
+the scalar kernels and the tensor-core kernels share); any: phase 4's
+edges of dq_any and dkv_any alone (check_any_backward, with the f32
+checks), untimed; small: the GPT models of SMALL_HEAD_MODELS; train32:
+phase 5's f32 flagship; openllama: phase 11. No argument runs them all.
+Every check raises as in chip_smoke.py.
 """
 
 import sys
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -31,7 +35,7 @@ from lamp_tpu_torch.ops import attention as att  # noqa: E402
 from lamp_tpu_torch.ops.paged_attention import (  # noqa: E402
     paged_attention, paged_attention_reference)
 
-PARTS = ("paged", "fwd", "flash", "small", "openllama")
+PARTS = ("paged", "fwd", "flash", "any", "small", "train32", "openllama")
 
 
 def main(parts) -> int:
@@ -66,8 +70,18 @@ def main(parts) -> int:
         check("f32 head 128", 1, 4, 300, 400, 128, torch.float32, False)
         print(cs.check_flash_head_dims(att, check)[1], flush=True)
         cs.time_flash(att, 2, cs.LM_HEADS, 4096, 64)
+    if "any" in parts:
+        check("f32", 2, 4, 512, 512, 64, torch.float32, True,
+              lengths=[0, 400])
+        check("f32 head 128", 1, 4, 300, 400, 128, torch.float32, False)
+        ids = np.sort(np.random.RandomState(3).randint(0, 4, (2, 512)), 1)
+        cs.check_any_backward(
+            att, lambda name, d, dtype, *a, **kw: check(
+                name, *a[:4], d, dtype, *a[4:], **kw), ids)
     if "small" in parts:
         print(cs.check_small_heads(torch_nn, optim, train), flush=True)
+    if "train32" in parts:
+        cs.run_train_config(torch_nn, optim, train, att, cs.TRAIN_CONFIGS[2])
     if "openllama" in parts:
         print(cs.phase_openllama(torch_nn, models, paged_attention, att),
               flush=True)

@@ -470,6 +470,51 @@ def test_float64_matches_jax_and_computes_in_double(case):
                                    err_msg=what)
 
 
+# The edges of the CUDA backward for float32, float64 and 16-bit above 256
+# (dq_any, dkv_any: 64-row blocks, 32- or 16-row tiles, instances of 32,
+# 64 and 128 columns, 128-column parts above 128), in the VIS_CASES layout
+# without the dtype: head dims 8, 100, 136 and 320, Sq != Skv, kv lengths
+# that are not a multiple of 64, segment ids and a mask
+ANY_CASES = [
+    ("d8_lengths", 2, 2, 70, 130, 8, True, None, None, None, "1d"),
+    ("d100_ids", 2, 1, 70, 70, 100, True, None, "sorted", None, None),
+    ("d136_mask", 1, 2, 48, 100, 136, True, None, None, "heads", None),
+    ("d320_lengths", 1, 2, 40, 72, 320, False, None, None, None, "1d"),
+    ("d320_pair", 2, 1, 40, 72, 320, False, None, "pair", None, None),
+]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case", ANY_CASES, ids=[c[0] for c in ANY_CASES])
+def test_any_backward_edges_match_jax(case, dtype):
+    """Forward and gradients against JAX's at ATOL (in float64 under x64,
+    whose dots ask for f32 results); float64 also against mha_reference's
+    gradients in double at 1e-10, the kv lengths given to it as a mask."""
+    old = jax.config.read("jax_enable_x64")
+    jax.config.update("jax_enable_x64", dtype == np.float64)
+    try:
+        q, k, v, do, tkw, got, got_g = _vis_compare(case + (dtype,), ATOL)
+    finally:
+        jax.config.update("jax_enable_x64", old)
+    assert got.dtype == dtype
+    if dtype != np.float64:
+        return
+    kw = {key: val for key, val in tkw.items() if key != "kv_lengths"}
+    if "kv_lengths" in tkw:
+        keys = torch.arange(k.shape[2])
+        keep = keys[None, None, None, :] < tkw["kv_lengths"][:, None, None,
+                                                             None]
+        kw["mask"] = keep if "mask" not in kw else kw["mask"] & keep
+    ts = [torch.tensor(x, requires_grad=True) for x in (q, k, v)]
+    out = tatt.mha_reference(*ts, **kw)
+    out.backward(torch.tensor(do))
+    np.testing.assert_allclose(got, out.detach().numpy(), atol=1e-10, rtol=0)
+    for g, t, what in zip(got_g, ts, ("dq", "dk", "dv")):
+        np.testing.assert_allclose(g, t.grad.numpy(), atol=1e-10, rtol=0,
+                                   err_msg=what)
+
+
 def test_visibility_reads_ids_and_mask_in_place():
     """The CUDA path's view of the ids and the mask: int32 contiguous ids
     are taken as they are, a broadcast mask keeps stride 0 on its size-1
