@@ -1378,6 +1378,9 @@ def phase_flash(att):
 
     errs = [check("slice", 2, LM_HEADS, 4096, 4096, 64, torch.bfloat16, True),
             check("flagship", 8, LM_HEADS, 384, 384, 64, torch.bfloat16,
+                  True),
+            # phase 5's f32 flagship shape: fwd_any, dq_any and dkv_any
+            check("flagship f32", 8, LM_HEADS, 384, 384, 64, torch.float32,
                   True)]
     rng = np.random.RandomState(0)
     check("lengths [B]", 4, LM_HEADS, 1000, 1000, 64, torch.bfloat16, True,
@@ -2463,11 +2466,10 @@ def main() -> int:
     # the new instances' launches (flash_instance): the ragged forward runs
     # the head_dim 100 GPT and phase 11's dense check, the D=256 forward
     # the head_dim 256 GPT, the mma.sync backward both GPTs, and the scalar
-    # kernels the f32 GPT
+    # kernels phase 5's f32 flagship (the small f32 GPT's are in the note)
     d100, d256, f32 = (small_by_model[m] for m in (
         "head_dim 100", "head_dim 256", "f32, head_dim 64"))
-    f32_fwd, f32_bwd = (f32[i] + train_launches[torch.float32][i]
-                        for i in range(2))
+    f32_fwd, f32_bwd = train_launches[torch.float32]
     wide_launches = {"fwd_ragged": openllama["k1"] + d100[0],
                      "fwd_wg": d256[0], "dq_mma": d100[1] + d256[1],
                      "dkv_mma": d100[1] + d256[1], "fwd_any": f32_fwd,
@@ -2544,11 +2546,13 @@ def main() -> int:
              "dkv_mma: as dq_mma"),
             ("fwd_any", "flash_attention_any.cu", 87, (100, f64),
              "fwd_any (f32 and f64 at every head dim, 16-bit above 256): "
-             "launches are phase 5's f32 flagship and the small f32 GPT"),
+             "launches are phase 5's f32 flagship's 5 timed steps (the "
+             f"small f32 GPT of phase 4 launched it {f32[0]} times more)"),
             ("dq_any", "flash_backward_any.cu", 297, (100, f64),
              "dq_any (as fwd_any; DMMA in f64, FFMA in f32): launches are "
-             "phase 5's f32 flagship's and the small f32 GPT's backward "
-             "calls"),
+             "phase 5's f32 flagship's backward calls in its 5 timed steps "
+             f"(the small f32 GPT of phase 4 launched it {f32[1]} times "
+             "more)"),
             ("dkv_any", "flash_backward_any.cu", 365, (100, f64),
              "dkv_any: as dq_any")):
         part = key.split("_")[0]

@@ -103,7 +103,9 @@ struct Layout {
   // One stage of 64 (float64 at D = 112: 32): twice the keys of two
   // stages in the same shared memory, 2-6% faster on an H100 than two
   // stages of half the keys, where the tiles' fixed costs outweigh the
-  // exposed loads; float64 at D = 128 has room for two stages of 16 alone.
+  // exposed loads. float64 at D = 128 keeps two stages of 16: one of 32
+  // does not fit (dkv: 240384 bytes), and one of 16 made dq 3.7% slower
+  // on an H100 at B=2, H=8, S=2048, causal (dkv the same).
   static constexpr int BC =
       sizeof(T) == 8 ? (D > 112 ? 16 : D > 64 ? 32 : 64) : 64;
   static constexpr int NS = sizeof(T) == 8 && D > 112 ? 2 : 1;

@@ -23,7 +23,7 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["build", "library", "source_key"]
+__all__ = ["build", "library", "load", "source_key"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC_DIR = _PKG / "csrc"
@@ -99,9 +99,16 @@ def build(verbose: bool = False) -> Path:
 
 @functools.lru_cache(maxsize=None)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call. Every pointer and
-    the stream are ``c_void_p`` so that no pointer is cut to 32 bits."""
-    lib = ctypes.CDLL(str(build()))
+    """The loaded kernel library, built on first call."""
+    return load(build())
+
+
+def load(path: Path) -> ctypes.CDLL:
+    """Load a library linked from every ``csrc/*.cu`` (the package's, or an
+    experiment's edited copy) and declare its entry points' C signatures.
+    Every pointer and the stream are ``c_void_p`` so that no pointer is cut
+    to 32 bits."""
+    lib = ctypes.CDLL(str(path))
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     f32 = ctypes.c_float
     lib.lamp_paged_attention.argtypes = [

@@ -12,7 +12,7 @@ packed shapes; flash: phase 4's head dims
 and float64 (check_flash_head_dims, with the f32 checks and timing that
 the scalar kernels and the tensor-core kernels share); any: phase 4's
 edges of dq_any and dkv_any alone (check_any_backward, with the f32
-checks), untimed; small: the GPT models of SMALL_HEAD_MODELS; train32:
+checks and the f32 flagship's shape), untimed; small: the GPT models of SMALL_HEAD_MODELS; train32:
 phase 5's f32 flagship; openllama: phase 11. No argument runs them all.
 Every check raises as in chip_smoke.py.
 """
@@ -71,6 +71,8 @@ def main(parts) -> int:
         print(cs.check_flash_head_dims(att, check)[1], flush=True)
         cs.time_flash(att, 2, cs.LM_HEADS, 4096, 64)
     if "any" in parts:
+        check("flagship f32", 8, cs.LM_HEADS, 384, 384, 64, torch.float32,
+              True)
         check("f32", 2, 4, 512, 512, 64, torch.float32, True,
               lengths=[0, 400])
         check("f32 head 128", 1, 4, 300, 400, 128, torch.float32, False)

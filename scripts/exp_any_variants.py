@@ -3,23 +3,21 @@ dkv_any in csrc/flash_backward_any.cu) against edited copies of itself,
 on one CUDA card.
 
 Each variant is flash_backward_any.cu with a few text edits (a knock-out,
-or one design choice changed); every occurrence of an edit's text is
-replaced. The rest of the library (flash_attention.cu, which holds the
-entry points, flash_forward.cu and flash_attention_any.cu) compiles once,
-the variants all at once beside it (one nvcc each, into
-lamp_tpu_torch/_build/any_variants/), and each links into a library of
-its own, loaded through ctypes beside the others. dq then dkv run on the
-same inputs (causal, B=2, H=8, S=2048) in float64 and float32 at head
-dims 64 and 100, timed by CUDA events over back-to-back calls (each takes
-milliseconds, far above a call's host time), in turns: each round runs
-every variant once. Prints each variant's median dq and dkv time and the
-largest difference of its dq, dk and dv from the unedited build's,
-relative to the largest value (0 when bit for bit; knock-outs are not).
+or one design choice changed), built by scripts/kernel_variants.py into
+lamp_tpu_torch/_build/any_variants/ and loaded beside the others. dq then
+dkv run on the same inputs (causal, B=2, H=8, S=2048) in float64 at head
+dims 64, 100 and 128 and in float32 at 64 and 100, timed by CUDA events
+over back-to-back calls (each takes milliseconds, far above a call's host
+time), in turns: each round runs every variant once. Prints each variant's
+instances that ptxas reports with a stack frame or spills, then its median
+dq and dkv time and the largest difference of its dq, dk and dv from the
+unedited build's, relative to the largest value (0 when bit for bit;
+knock-outs are not).
 
     python3 scripts/exp_any_variants.py        # from the repository root
+    python3 scripts/exp_any_variants.py "f64 one stage of 16"   # one variant
 """
 
-import ctypes
 import math
 import subprocess
 import sys
@@ -32,13 +30,11 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
-from lamp_tpu_torch.ops import _build  # noqa: E402
+import kernel_variants  # noqa: E402
 from lamp_tpu_torch.ops import attention as att  # noqa: E402
 
-SRC = ROOT / "lamp_tpu_torch" / "csrc"
 OUT = ROOT / "lamp_tpu_torch" / "_build" / "any_variants"
 SOURCE = "flash_backward_any.cu"
-OTHERS = ("flash_attention.cu", "flash_forward.cu", "flash_attention_any.cu")
 
 # name: [(text, replacement), ...] edits of flash_backward_any.cu
 NO_LOADS = [("    load_rows<BC, D, ST>(s, str1, c0, n_str, ch * D, p.d);\n"
@@ -77,56 +73,30 @@ VARIANTS = {
     "two stages of 32 (f64: 16)": [(TILES, (
         "  static constexpr int BC = sizeof(T) == 8 && D > 64 ? 16 : 32;\n"
         "  static constexpr int NS = 2;"))],
+    # f64 at D = 128 (the one instance with two stages): one stage of 16
+    # (one of 32 would need 240384 bytes of shared memory in dkv, above the
+    # 232448 a block may have)
+    "f64 one stage of 16": [(
+        "  static constexpr int NS = sizeof(T) == 8 && D > 112 ? 2 : 1;",
+        "  static constexpr int NS = 1;")],
 }
 # (dtype, head dim) at B=2, H=8, S=2048, causal
-SHAPES = ((torch.float64, 64), (torch.float64, 100), (torch.float32, 64),
-          (torch.float32, 100))
+SHAPES = ((torch.float64, 64), (torch.float64, 100), (torch.float64, 128),
+          (torch.float32, 64), (torch.float32, 100))
 B, H, S = 2, 8, 2048
 ROUNDS, CALLS = 5, 5
 
 
-def build():
-    """Compile the rest once and every variant at once; returns {name:
-    loaded library}."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    nvcc = _build._nvcc()
-    src = (SRC / SOURCE).read_text()
-    procs = []
-    for name in OTHERS:
-        obj = OUT / f"{name}.o"
-        procs.append((name, obj, subprocess.Popen(
-            [nvcc, *_build._FLAGS, "-c", "-o", str(obj), str(SRC / name)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    for i, (name, edits) in enumerate(VARIANTS.items()):
-        text = src
-        for old, new in edits:
-            if old not in text:
-                raise SystemExit(f"variant {name!r}: {old!r} not in the source")
-            text = text.replace(old, new)
-        cu, obj = OUT / f"v{i}.cu", OUT / f"v{i}.o"
-        cu.write_text(text)
-        procs.append((name, obj, subprocess.Popen(
-            [nvcc, *_build._FLAGS, f"-I{SRC}", "-c", "-o", str(obj), str(cu)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    objs = {}
-    for name, obj, proc in procs:
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise SystemExit(f"{name!r} did not build:\n{log[-4000:]}")
-        objs[name] = obj
-    shared = [str(objs[name]) for name in OTHERS]
-    libs = {}
-    for i, name in enumerate(VARIANTS):
-        so = OUT / f"v{i}.so"
-        subprocess.run([nvcc, "-shared", "-o", str(so), *shared,
-                        str(objs[name])], check=True)
-        lib = ctypes.CDLL(str(so))
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        shape = [ptr] * 4 + [i64] * 4 + [i32] * 11 + [ctypes.c_double, i32,
-                                                      ptr]
-        lib.lamp_flash_attention_bwd_dq.argtypes = [ptr] * 9 + shape
-        lib.lamp_flash_attention_bwd_dkv.argtypes = [ptr] * 9 + shape
-        libs[name] = lib
+def build(names):
+    """Compile "as built" and the variants ``names`` (all when empty) at
+    once; returns {name: loaded library}. Prints each variant's dq_any and
+    dkv_any instances that have a stack frame or spills."""
+    chosen = {name: edits for name, edits in VARIANTS.items()
+              if name == "as built" or not names or name in names}
+    libs, logs = kernel_variants.build(SOURCE, chosen, OUT)
+    for name in chosen:
+        print(f"{name}: instances with a stack frame or spills: "
+              f"{kernel_variants.spills(logs[name], '_any')}", flush=True)
     return libs
 
 
@@ -138,7 +108,7 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True).stdout
     print(f"{torch.cuda.get_device_name(0)} | {smi.strip()}", flush=True)
     t0 = time.perf_counter()
-    libs = build()
+    libs = build(sys.argv[1:])
     print(f"{len(libs)} variants built in {time.perf_counter() - t0:.1f} s",
           flush=True)
     codes = {torch.float32: 0, torch.float64: 3}

@@ -2,23 +2,21 @@
 csrc/flash_forward.cu) against edited copies of itself, on one CUDA card.
 
 Each variant is csrc/flash_forward.cu with a few text edits (one design
-choice changed). flash_attention.cu and flash_attention_any.cu (the entry
-points, the class map, the other kernels) compile once to objects, every
-variant's flash_forward.cu at the same time (one nvcc each, into
-lamp_tpu_torch/_build/k1_variants/), and each links into a library of its
-own, loaded through ctypes beside the others. Each runs the forward on the
-same inputs (causal) at the training slice's B=2, H=12, S=4096, D=64
-bf16 (also non-causal), the flagship's B=8, H=12, S=384, phase 10's packed shapes (B=4,
-H=12, S=2048 with segment ids: the time includes the class map's
-kernel) and B=2, H=8, S=2048 at head dims 160 and 256, timed by
-torch.profiler device time (chip_smoke.device_ms) in turns: each round
-runs every variant once. Prints each variant's median time a call, its
-largest block error against the plain f32 forward (chip_smoke.block_err)
-and its largest difference from the unedited build's output, and for the
-variant "timeline" the share of its consumers' cycles in each stretch of
-the loop (clock64 marks, inserted by the edits); first, for each source,
-how many of its kernels ptxas reports with serialized wgmma instructions
-(warning C7520) and with a stack frame or spills.
+choice changed), built by scripts/kernel_variants.py into
+lamp_tpu_torch/_build/k1_variants/ and loaded beside the others. Each runs
+the forward on the same inputs (causal) at the training slice's B=2, H=12,
+S=4096, D=64 bf16 (also non-causal), the flagship's B=8, H=12, S=384,
+phase 10's packed shapes (B=4, H=12, S=2048 with segment ids: the time
+includes the class map's kernel) and B=2, H=8, S=2048 at head dims 160 and
+256, timed by torch.profiler device time (chip_smoke.device_ms) in turns:
+each round runs every variant once. Prints each variant's median time a
+call, its largest block error against the plain f32 forward
+(chip_smoke.block_err) and its largest difference from the unedited
+build's output, and for the variant "timeline" the share of its consumers'
+cycles in each stretch of the loop (clock64 marks, inserted by the edits);
+first, for each source, how many of its kernels ptxas reports with
+serialized wgmma instructions (warning C7520) and which fwd_wg kernels
+have a stack frame or spills.
 
     python3 scripts/exp_k1_variants.py        # from the repository root
 """
@@ -37,10 +35,9 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
-from lamp_tpu_torch.ops import _build  # noqa: E402
+import kernel_variants  # noqa: E402
 from lamp_tpu_torch.ops import attention as att  # noqa: E402
 
-SRC = ROOT / "lamp_tpu_torch" / "csrc"
 OUT = ROOT / "lamp_tpu_torch" / "_build" / "k1_variants"
 
 # name: [(text, replacement), ...] edits of flash_forward.cu
@@ -105,50 +102,15 @@ ROUNDS, CALLS = 3, 10
 
 
 def build():
-    """Compile every variant at once; returns {name: loaded library}."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    src = (SRC / "flash_forward.cu").read_text()
-    flags = [*_build._FLAGS, f"-I{SRC}"]
-    shared = [OUT / "flash_attention.o", OUT / "flash_attention_any.o"]
-    cmds = [[_build._nvcc(), *flags, "-c", "-o", str(obj),
-             str(SRC / f"{obj.stem}.cu")] for obj in shared]
-    objs = {}
-    for i, (name, edits) in enumerate(VARIANTS.items()):
-        text = src
-        for old, new in edits:
-            if old not in text:
-                raise SystemExit(f"variant {name!r}: {old!r} not in the source")
-            text = text.replace(old, new)
-        cu, obj = OUT / f"v{i}.cu", OUT / f"v{i}.o"
-        cu.write_text(text)
-        cmds.append([_build._nvcc(), *flags, "-c", "-o", str(obj), str(cu)])
-        objs[name] = obj
-    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for cmd in cmds]
-    for cmd, proc in zip(cmds, procs):
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise SystemExit(f"{cmd[-1]} did not build:\n{log[-4000:]}")
-        # ptxas's C7520: the kernel's wgmma instructions are serialized
-        lines = log.splitlines()
-        spills = [f"{lines[j - 1].split('fwd_wg')[-1][:24]}: {line.strip()}"
-                  for j, line in enumerate(lines) if "spill stores" in line
-                  and "fwd_wg" in lines[j - 1]
-                  and not line.strip().startswith("0 bytes stack frame, 0")]
-        print(f"{Path(cmd[-1]).name}: {log.count('C7520')} kernels with "
-              f"serialized wgmma; fwd_wg with a stack frame or spills: "
-              f"{spills}", flush=True)
-    libs = {}
-    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    shape = [ptr] * 4 + [i64] * 4 + [i32] * 11 + [ctypes.c_double, i32, ptr]
-    for name, obj in objs.items():
-        so = obj.with_suffix(".so")
-        subprocess.run([_build._nvcc(), "-shared", "-o", str(so), str(obj),
-                        *map(str, shared)], check=True)
-        lib = ctypes.CDLL(str(so))
-        lib.lamp_flash_attention_fwd.argtypes = [ptr] * 6 + shape
-        libs[name] = lib
+    """Compile every variant at once; returns {name: loaded library}. Prints,
+    for each source, how many kernels ptxas reports with serialized wgmma
+    instructions (C7520) and which fwd_wg kernels have a stack frame or
+    spills."""
+    libs, logs = kernel_variants.build("flash_forward.cu", VARIANTS, OUT)
+    for key, log in logs.items():
+        print(f"{key}: {log.count('C7520')} kernels with serialized wgmma; "
+              f"fwd_wg with a stack frame or spills: "
+              f"{kernel_variants.spills(log, 'fwd_wg')}", flush=True)
     return libs
 
 

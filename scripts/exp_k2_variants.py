@@ -2,20 +2,19 @@
 itself, on one CUDA card.
 
 Each variant is csrc/flash_attention.cu with a few text edits (one design
-choice changed). All variants build at once (one nvcc each, into
-lamp_tpu_torch/_build/variants/), load through ctypes beside each other,
-and run dq then dkv on the same inputs (bf16, causal) at the training
-slice's B=2, H=12, S=4096, D=64, the flagship's B=8, H=12, S=384, D=64,
-and at head_dim 32 (B=4, H=4, S=2048 and B=8, H=4, S=512), timed by
-CUDA events over back-to-back calls (the kernels run 20-300 us, longer
-than a call's host time), in turns: each round runs every variant once.
-Prints each variant's median dq and dkv time and whether its dq, dk and dv
-equal the unedited build's bit for bit.
+choice changed), built by scripts/kernel_variants.py into
+lamp_tpu_torch/_build/variants/ and loaded beside the others. Each runs dq
+then dkv on the same inputs (bf16, causal) at the training slice's B=2,
+H=12, S=4096, D=64, the flagship's B=8, H=12, S=384, D=64, and at
+head_dim 32 (B=4, H=4, S=2048 and B=8, H=4, S=512), timed by CUDA events
+over back-to-back calls (the kernels run 20-300 us, longer than a call's
+host time), in turns: each round runs every variant once. Prints each
+variant's median dq and dkv time and whether its dq, dk and dv equal the
+unedited build's bit for bit.
 
     python3 scripts/exp_k2_variants.py        # from the repository root
 """
 
-import ctypes
 import math
 import subprocess
 import sys
@@ -28,10 +27,9 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
-from lamp_tpu_torch.ops import _build  # noqa: E402
+import kernel_variants  # noqa: E402
 from lamp_tpu_torch.ops import attention as att  # noqa: E402
 
-SRC = ROOT / "lamp_tpu_torch" / "csrc"
 OUT = ROOT / "lamp_tpu_torch" / "_build" / "variants"
 
 # name: [(text, replacement), ...] edits of flash_attention.cu
@@ -54,38 +52,7 @@ ROUNDS, CALLS = 5, 10
 
 def build():
     """Compile every variant at once; returns {name: loaded library}."""
-    OUT.mkdir(parents=True, exist_ok=True)
-    src = (SRC / "flash_attention.cu").read_text()
-    procs = {}
-    for i, (name, edits) in enumerate(VARIANTS.items()):
-        text = src
-        for old, new in edits:
-            if old not in text:
-                raise SystemExit(f"variant {name!r}: {old!r} not in the source")
-            text = text.replace(old, new)
-        cu, so = OUT / f"v{i}.cu", OUT / f"v{i}.so"
-        cu.write_text(text)
-        # the scalar kernels' source links in too: the entry points route
-        # the inputs the tensor-core kernels do not take to it
-        cmd = [_build._nvcc(), *_build._FLAGS, "-shared", f"-I{SRC}", "-o",
-               str(so), str(cu), str(SRC / "flash_attention_any.cu")]
-        procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT,
-                                            text=True))
-    libs = {}
-    for name, (so, proc) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            raise SystemExit(f"variant {name!r} did not build:\n{log[-4000:]}")
-        lib = ctypes.CDLL(str(so))
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        shape = [ptr] * 4 + [i64] * 4 + [i32] * 11 + [ctypes.c_double, i32,
-                                                      ptr]
-        lib.lamp_flash_attention_fwd.argtypes = [ptr] * 6 + shape
-        lib.lamp_flash_attention_bwd_dq.argtypes = [ptr] * 9 + shape
-        lib.lamp_flash_attention_bwd_dkv.argtypes = [ptr] * 9 + shape
-        libs[name] = lib
-    return libs
+    return kernel_variants.build("flash_attention.cu", VARIANTS, OUT)[0]
 
 
 def main():

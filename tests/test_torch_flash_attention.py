@@ -470,11 +470,16 @@ def test_float64_matches_jax_and_computes_in_double(case):
                                    err_msg=what)
 
 
-# The edges of the CUDA backward for float32, float64 and 16-bit above 256
-# (dq_any, dkv_any: 64-row blocks, 32- or 16-row tiles, instances of 32,
-# 64 and 128 columns, 128-column parts above 128), in the VIS_CASES layout
-# without the dtype: head dims 8, 100, 136 and 320, Sq != Skv, kv lengths
-# that are not a multiple of 64, segment ids and a mask
+# CPU parity of the plain backward (flash_attention_reference and
+# _flash_backward_reference, which flash_attention takes on CPU tensors)
+# at the head dims and lengths where the CUDA backward for float32 and
+# float64 (dq_any, dkv_any) changes its tiling: 64-row blocks, 64-, 32- or
+# 16-row tiles, instances of 32, 64 and 128 columns, 128-column parts above
+# 128. In the VIS_CASES layout without the dtype: head dims 8, 100, 136 and
+# 320, Sq != Skv, kv lengths that are not a multiple of 64, segment ids and
+# a mask. These cases cannot see a fault of the kernels themselves: those
+# are held at the same edges on the card by chip_smoke.py's
+# check_any_backward.
 ANY_CASES = [
     ("d8_lengths", 2, 2, 70, 130, 8, True, None, None, None, "1d"),
     ("d100_ids", 2, 1, 70, 70, 100, True, None, "sorted", None, None),
