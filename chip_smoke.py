@@ -69,10 +69,17 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
    with segment ids and with a mask, a window once, head dims 75, 102 and
    257-300 whose rows take 8-, 4- or 2-byte copies, and two backward calls
    bit for bit in f64, f32 and bf16 at 320; each by the same checks and
-   planted fault; the tensor-core head dims (and 192 besides) and f64 and
-   f32 at 64 and 100 timed at B=2, H=8, S=2048 beside their bound, their
-   plain version and SDPA at the same head dim and dtype; GPT models at
-   head_dim 100 and 256, and one in f32, take 3 training steps each.
+   planted fault; then the edges of fwd_any (check_any_forward: o and lse
+   per 64-row block, limits 1e-10 in f64, 1e-5 in f32, o 1e-2 and lse 1e-5
+   in bf16, with the planted fault; rows 63, 65, 127 and 129, [B, Sq]
+   lengths with empty rows inside a block, Sq = 1, Sq != Skv, a window,
+   ids, a mask, head dims 8-320 in f64 and f32 and 257/320 in bf16, two
+   forward calls bit for bit); the tensor-core head dims (and 192 besides),
+   f64 and f32 at 64 and 100 and bf16 at 320 timed at B=2, H=8, S=2048,
+   and f32 at the f32 flagship's B=8, H=12, S=384, D=64, beside their
+   bound, their plain version and SDPA at the same head dim and dtype;
+   GPT models at head_dim 100 and 256, and one in f32, take 3 training
+   steps each.
 5. The training slice at full width: a 12-block, 768-wide GPT
    LanguageModelModule (12 heads, MLP 3072, byte vocab 256, bf16 with f32
    AdamW masters, random weights from a seed) trains under the flagship
@@ -1144,6 +1151,12 @@ def time_flash_case(att, b, h, s, d, dtype):
               f"{r['plain_ms'] * 1e3:9.1f} us, SDPA {r['library_ms'] * 1e3:7.1f}"
               f" us{'' if name == 'fwd' else ' (plain, SDPA: whole backward)'}",
               flush=True)
+    # the backward as a whole against the 5 products any backward needs
+    # (dq and dkv do 7: dq recomputes S and dP)
+    five = bound(5, 8 * t + 2 * rows)
+    print(f"  bwd  {what}: dq + dkv {(dq + dkv) * 1e3:9.1f} us, bound (5 "
+          f"products) {five[0] * 1e3:7.1f} us ({five[1]}), SDPA's backward "
+          f"{lib_bwd * 1e3:7.1f} us", flush=True)
     return out
 
 
@@ -1192,10 +1205,15 @@ def check_flash_head_dims(att, check):
     # an odd head dim (2-byte copies, stores of single elements)
     run("head_dim 75", 75, bf16, 2, 4, s, s, True, lengths=[1000, 555])
     check_any_backward(att, run, ids)
-    times = {(d, dt): time_flash_case(att, 2, 8, 2048, d, dt)
+    check_any_forward(att)
+    # (head dim, dtype, B, H, S): B=2, H=8, S=2048, and phase 5's f32
+    # flagship's own shape
+    times = {(d, dt, 2, 8, 2048): time_flash_case(att, 2, 8, 2048, d, dt)
              for d, dt in ((12, bf16), (100, bf16), (160, bf16), (192, bf16),
-                           (256, bf16), (64, f64), (100, f64), (64, f32),
-                           (100, f32))}
+                           (256, bf16), (320, bf16), (64, f64), (100, f64),
+                           (64, f32), (100, f32))}
+    times[64, f32, 8, LM_HEADS, 384] = time_flash_case(att, 8, LM_HEADS, 384,
+                                                       64, f32)
     return times, errs
 
 
@@ -1232,6 +1250,123 @@ def check_any_backward(att, run, ids):
             lengths=[1000, 555])
     for d, dtype in ((100, f64), (64, f32), (320, bf16)):
         check_deterministic(att, 2, 4, s, d, dtype=dtype)
+
+
+def lse_block_err(got, want):
+    """:func:`block_err` of lse [B, H, S]: a row whose plain lse is -inf
+    (no visible key) must be -inf in ``got`` too (else inf), and the rest
+    compare per 64-row block."""
+    empty = want == -math.inf
+    if not torch.equal(got == -math.inf, empty):
+        return math.inf
+    return block_err(got.masked_fill(empty, 0)[..., None],
+                     want.masked_fill(empty, 0)[..., None])
+
+
+def check_any_forward(att):
+    """The edges of the forward for f32, f64 and 16-bit above 256 (fwd_any:
+    blocks of 64 rows, tiles of 64 or 32 keys, instances of 32, 64, 112
+    (float64) and 128 columns, 128-column parts above 128): o and lse of
+    the kernel against the plain version (f32; f64 for float64) by
+    :func:`block_err` per 64-row block, and the plain version under
+    :func:`planted_fault`, which must read above the limits. o is held to
+    FLASH_TOL; lse to 1e-10 in float64 and 1e-5 otherwise: the kernel and
+    the plain version compute it in f32 from the same inputs in every
+    other dtype, so bf16's looser limit for o (p rounded to bf16) does not
+    apply. Cases, in f64 and f32: rows 63, 65, 127 and 129, which cut the
+    64-row block; [B, Sq] kv lengths with rows of length 0 inside blocks
+    that have visible rows; Sq = 1 and Sq != Skv; a window; segment ids and
+    a [B, 1, Sq, Skv] mask; head dims 8 to 320 with kv lengths (and 257 and
+    320 in bf16); then two forward calls bit for bit in f64, f32 and bf16
+    at head dim 320."""
+    bf16, f32, f64 = torch.bfloat16, torch.float32, torch.float64
+    rng = np.random.RandomState(6)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    lens = rng.randint(1, 301, (2, 300))
+    lens[:, 10:20] = 0  # zero-length rows inside the first 64-row block
+    lens[1, 200:260] = 0
+    ids = np.sort(rng.randint(0, 4, (2, 512)), 1)
+    mask = torch.rand(2, 1, 300, 700, generator=gen, device="cuda") < 0.8
+    mask[..., torch.arange(300), torch.arange(300) + 400] = True
+    # (name, b, h, sq, skv, d, causal, keyword arguments)
+    cases = [(f"rows {n}", 2, 3, n, 384, 64, True, {})
+             for n in (63, 65, 127, 129)]
+    cases += [("lengths [B,Sq]", 2, 3, 300, 300, 100, True,
+               dict(lengths=lens)),
+              ("Sq=1", 2, 3, 1, 1000, 64, True, {}),
+              ("Sq!=Skv", 2, 3, 300, 700, 100, True, {}),
+              ("window", 2, 2, 1000, 1000, 100, True, dict(window=100)),
+              ("ids", 2, 2, 512, 512, 64, True, dict(segment_ids=ids)),
+              ("mask", 2, 2, 300, 700, 100, True, dict(mask=mask))]
+    cases += [(f"head {d}", 2, 2, 600, 600, d, True,
+               dict(lengths=[600, 333]))
+              for d in (8, 64, 100, 112, 128, 129, 136, 256, 257, 320)]
+    runs = [(dtype, case) for dtype in (f64, f32) for case in cases]
+    runs += [(bf16, case) for case in cases if case[5] in (257, 320)
+             and case[0].startswith("head")]
+    worst = {}
+    for dtype, (name, b, h, sq, skv, d, causal, kw) in runs:
+        q, k, v, _ = flash_inputs(b, h, sq, skv, d, dtype)
+        lengths = kw.get("lengths")
+        lim = None if lengths is None else torch.as_tensor(
+            np.asarray(lengths, np.int32), device="cuda")
+        seg = kw.get("segment_ids")
+        seg = None if seg is None else torch.as_tensor(seg, device="cuda")
+        m = kw.get("mask")
+        window = att._check_window(kw.get("window"), causal, skv)
+        scale = 1.0 / math.sqrt(d)
+        o, lse = att._fwd_cuda(q, k, v, lim, causal, scale, window,
+                               att._Visibility(q, seg, m))
+        acc = torch.promote_types(dtype, torch.float32)
+        ref = dict(causal=causal, window=window, kv_lengths=lim,
+                   sm_scale=scale, segment_ids=seg)
+        qa, ka, va = (x.to(acc) for x in (q, k, v))
+        with torch.no_grad():
+            want = att.flash_attention_reference(qa, ka, va, **ref, mask=m)
+            keep = None if seg is None and m is None else att._visible(
+                qa, ka, **{x: ref[x] for x in ("causal", "window",
+                                               "kv_lengths", "segment_ids")},
+                mask=m)
+            fault = planted_fault(sq, skv, kw.get("window"), keep)
+            bad = att.flash_attention_reference(
+                qa, ka, va, **ref, mask=fault if m is None else m & fault)
+        tols = (FLASH_TOL[dtype], FLASH_TOL[torch.float64 if dtype == f64
+                                            else torch.float32])
+        errs = (block_err(o, want[0]), lse_block_err(lse, want[1]))
+        faults = (block_err(bad[0], want[0]), lse_block_err(bad[1], want[1]))
+        label = (f"{str(dtype)[6:]} {name} (B={b} H={h} Sq={sq} Skv={skv} "
+                 f"D={d})")
+        for what, err, fe, tol in zip(("o", "lse"), errs, faults, tols):
+            if not err <= tol:
+                raise AssertionError(f"fwd_any {label} {what}: block error "
+                                     f"{err:.3e} > {tol:.0e}")
+            if not fe > tol:
+                raise AssertionError(f"fwd_any {label} {what}: the planted "
+                                     f"fault reads {fe:.3e}, within {tol:.0e}")
+        empty = want[1] == -math.inf
+        if (o[empty] != 0).any():
+            raise AssertionError(f"fwd_any {label}: rows with no key are "
+                                 f"not 0")
+        w = worst.setdefault(dtype, [0.0, 0.0, math.inf])
+        w[0], w[1] = max(w[0], errs[0]), max(w[1], errs[1])
+        w[2] = min(w[2], *faults)
+        print(f"  fwd_any {label}: block error o {errs[0]:.2e} lse "
+              f"{errs[1]:.2e}; planted fault {faults[0]:.2e} "
+              f"{faults[1]:.2e}; rows with no key {int(empty.sum())}",
+              flush=True)
+    for dtype, (eo, el, fe) in worst.items():
+        print(f"  fwd_any {str(dtype)[6:]}: largest block error o {eo:.3e}, "
+              f"lse {el:.3e}; smallest planted fault {fe:.3e}", flush=True)
+    for dtype in (f64, f32, bf16):
+        q, k, v, _ = flash_inputs(2, 4, 1000, 1000, 320, dtype, seed=2)
+        first, second = (att._fwd_cuda(q, k, v, None, True, 320 ** -0.5, None)
+                         for _ in range(2))
+        for what, x, y in zip(("o", "lse"), first, second):
+            if not torch.equal(x, y):
+                raise AssertionError(f"fwd_any {str(dtype)[6:]}: {what} "
+                                     f"differs between two calls")
+        print(f"  determinism    B=2 H=4 S=1000 D=320 {str(dtype)[6:]}: two "
+              f"forward calls give equal o and lse", flush=True)
 
 
 # the wgmma forward's instances past 128: head dims that are multiples of 8
@@ -2530,30 +2665,33 @@ def main() -> int:
     # causal (per_shape: every shape of check_flash_head_dims it ran)
     flash_times, flash_errs = flash_wide
     bf16, f64 = torch.bfloat16, torch.float64
+    wide = (2, 8, 2048)
     for key, src, line, shape, note in (
-            ("fwd_ragged", "flash_attention.cu", 87, (100, bf16),
+            ("fwd_ragged", "flash_attention.cu", 87, (100, bf16, *wide),
              "fwd_tc<D, T, M> (head dims not a multiple of 8): "
              "launches are phase 11's dense check and the head_dim 100 GPT"),
-            ("fwd_wg", "flash_forward.cu", 87, (256, bf16),
+            ("fwd_wg", "flash_forward.cu", 87, (256, bf16, *wide),
              "fwd_wg<D, T, M> at head dims 129-256 (D=192 and 256; "
              "flash_attention_fwd is its D=64 instance): launches are the "
              "head_dim 256 GPT"),
-            ("dq_mma", "flash_attention.cu", 297, (100, bf16),
+            ("dq_mma", "flash_attention.cu", 297, (100, bf16, *wide),
              "dq_mma (16-bit head dims up to 256 that are not a multiple of "
              "8 or are above 128): launches are the head_dim 100 and 256 "
              "GPTs' backward calls"),
-            ("dkv_mma", "flash_attention.cu", 365, (100, bf16),
+            ("dkv_mma", "flash_attention.cu", 365, (100, bf16, *wide),
              "dkv_mma: as dq_mma"),
-            ("fwd_any", "flash_attention_any.cu", 87, (100, f64),
-             "fwd_any (f32 and f64 at every head dim, 16-bit above 256): "
-             "launches are phase 5's f32 flagship's 5 timed steps (the "
-             f"small f32 GPT of phase 4 launched it {f32[0]} times more)"),
-            ("dq_any", "flash_backward_any.cu", 297, (100, f64),
+            ("fwd_any", "flash_forward_any.cu", 87, (100, f64, *wide),
+             "fwd_any (f32 and f64 at every head dim, 16-bit above 256; DMMA "
+             "in f64, FFMA in f32): launches are phase 5's f32 flagship's 5 "
+             "timed steps (the small f32 GPT of phase 4 launched it "
+             f"{f32[0]} times more); per_shape holds that flagship's own "
+             "shape (B=8, H=12, S=384, D=64, f32) and bf16 at D=320"),
+            ("dq_any", "flash_backward_any.cu", 297, (100, f64, *wide),
              "dq_any (as fwd_any; DMMA in f64, FFMA in f32): launches are "
              "phase 5's f32 flagship's backward calls in its 5 timed steps "
              f"(the small f32 GPT of phase 4 launched it {f32[1]} times "
              "more)"),
-            ("dkv_any", "flash_backward_any.cu", 365, (100, f64),
+            ("dkv_any", "flash_backward_any.cu", 365, (100, f64, *wide),
              "dkv_any: as dq_any")):
         part = key.split("_")[0]
         r = flash_times[shape][part]
@@ -2564,13 +2702,17 @@ def main() -> int:
                    max_abs_err=flash_errs[key], ms=r["ms"],
                    plain_ms=r["plain_ms"], bound_ms=r["bound"][0],
                    bound_by=r["bound"][1], library_ms=r["library_ms"])
-        row["note"] = (f"times at head_dim {shape[0]} {str(shape[1])[6:]}; "
+        row["note"] = (f"times at head_dim {shape[0]} {str(shape[1])[6:]} "
+                       f"B=2 H=8 S=2048; "
                        f"{note}" + ("" if part == "fwd" else
                                     "; plain_ms and library_ms of the whole "
                                     "backward"))
-        row["per_shape"] = {f"head_dim {dd} {str(dt)[6:]}": {
-            k: t[part][k] for k in ("ms", "plain_ms", "library_ms")}
-            for (dd, dt), t in flash_times.items()
+        row["per_shape"] = {
+            f"head_dim {dd} {str(dt)[6:]}" + ("" if (bb, hh, ss) == wide else
+                                              f" B={bb} H={hh} S={ss}"): {
+                k: t[part][k] for k in ("ms", "plain_ms", "library_ms")}
+            | {"bound_ms": t[part]["bound"][0]}
+            for (dd, dt, bb, hh, ss), t in flash_times.items()
             if flash_instance(dd, dt, part) == key}
         rows.append(row)
     row = dict(name="int4_matmul", route="cuda",

@@ -2,7 +2,7 @@
 //
 // Replaces the Pallas TPU kernels of lamp_tpu/ops/attention.py:
 //   K1  _fwd_kernel (driven by _fwd)                 -> fwd_wg (in
-//       flash_forward.cu) / fwd_tc / fwd_any
+//       flash_forward.cu) / fwd_tc / fwd_any (in flash_forward_any.cu)
 //   K2a _bwd_fused_kernel (driven by _bwd_fused)     -> dq_* then dkv_*
 //   K2b _bwd_dq_kernel, K2c _bwd_dkv_kernel          -> dq_*, dkv_*
 //   K3a/K3b _compact_{fwd,bwd}_kernel (compact_attention) compute the same
@@ -26,10 +26,10 @@
 //    of 8 up to 128; the other d up to 256 take the mma.sync backward
 //    (dq_mma, dkv_mma), whose tiles come as the ragged forward's do.
 //  - everything else (float32 and float64 at every d; the 16-bit types at
-//    d > 256) takes fwd_any (flash_attention_any.cu) and dq_any, dkv_any
-//    (flash_backward_any.cu: float64 on the FP64 tensor cores, the rest on
-//    FFMA), which have no limit on the head dim; float64 computes in
-//    double there.
+//    d > 256) takes fwd_any (flash_forward_any.cu) and dq_any, dkv_any
+//    (flash_backward_any.cu): float64 on the FP64 tensor cores, the rest on
+//    FFMA, with no limit on the head dim; float64 computes in double
+//    there.
 // Nothing is padded in device memory.
 //
 // Visibility, in one place. A key c is visible to row r when
@@ -1567,7 +1567,7 @@ int tc_dispatch(int dtype, int d, F f) {
 // The tensor-core kernels take the 16-bit types: the forward at head dims
 // up to 256 (fwd_wg at multiples of 8, fwd_tc the rest), the wgmma backward (TMA: rows of a multiple of 16 bytes; Q and
 // dO, or K and V, resident for 128 rows) at the multiples of 8 up to 128.
-// Everything else runs in fwd_any (flash_attention_any.cu) and dq_any,
+// Everything else runs in fwd_any (flash_forward_any.cu) and dq_any,
 // dkv_any (flash_backward_any.cu).
 bool tc_forward(int dtype, int d) { return (dtype == 1 || dtype == 2) && d <= 256; }
 bool tc_backward(int dtype, int d) {

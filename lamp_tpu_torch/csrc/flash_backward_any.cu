@@ -72,19 +72,8 @@ namespace {
 
 using namespace lamp_flash;
 
-constexpr int kBT = 256;     // threads a block: 4 pairs of warps
-constexpr int kBR = 64;      // rows (dq) or keys (dkv) a block owns
-constexpr int kWideD = 128;  // the widest instance; wider head dims split
-
-// the accumulator type: double for float64, else f32
-template <typename T>
-struct AccOf {
-  using type = float;
-};
-template <>
-struct AccOf<double> {
-  using type = double;
-};
+constexpr int kBT = kAnyThreads;  // threads a block: 4 pairs of warps
+constexpr int kBR = kAnyRows;     // rows (dq) or keys (dkv) a block owns
 
 template <typename A>
 __device__ __forceinline__ A warp_sum(A x) {
@@ -121,246 +110,6 @@ struct Layout {
   static constexpr int kRows = DKV ? BC * (2 * sizeof(A) + 2 * sizeof(int)) : 0;
   static constexpr int kBytes = kOwn + NS * (kStage + kRows) + kX;
 };
-
-// rows [r0, r0 + ROWS) and columns [c0, c0 + D) of a [n, d] matrix into a
-// staged tile (row stride ST) by cp.async of V bytes; rows past n and
-// columns past d are zero-filled. V divides d's row bytes and c0's.
-template <int V, int ROWS, int D, int ST, typename T>
-__device__ __forceinline__ void copy_rows(T* s, const T* g, int r0, int n,
-                                          int c0, int d) {
-  constexpr int E = V / sizeof(T), kPer = D / E;
-  for (int i = threadIdx.x; i < ROWS * kPer; i += kBT) {
-    const int r = i / kPer, c = (i % kPer) * E;
-    const bool in = r0 + r < n && c0 + c < d;
-    const T* src = g + (in ? (long long)(r0 + r) * d + c0 + c : 0);
-    if constexpr (V == 16) cp_async16(s + r * ST + c, src, in);
-    else cp_async_ca<V>(s + r * ST + c, src, in);
-  }
-}
-
-// copy_rows with the widest copy the rows' alignment allows: 16, 8 or 4
-// bytes; a 16-bit type at an odd head dim is loaded 2 bytes at a time by
-// plain loads (the stage written is not read before the next barrier)
-template <int ROWS, int D, int ST, typename T>
-__device__ __forceinline__ void load_rows(T* s, const T* g, int r0, int n,
-                                          int c0, int d) {
-  const int bytes = d * (int)sizeof(T);
-  if (bytes % 16 == 0) {
-    copy_rows<16, ROWS, D, ST>(s, g, r0, n, c0, d);
-  } else if (bytes % 8 == 0) {
-    copy_rows<8, ROWS, D, ST>(s, g, r0, n, c0, d);
-  } else if constexpr (sizeof(T) <= 4) {
-    if (bytes % 4 == 0) {
-      copy_rows<4, ROWS, D, ST>(s, g, r0, n, c0, d);
-    } else {
-      const unsigned short* gs = reinterpret_cast<const unsigned short*>(g);
-      unsigned short* ss = reinterpret_cast<unsigned short*>(s);
-      for (int i = threadIdx.x; i < ROWS * D; i += kBT) {
-        const int r = i / D, c = i % D;
-        const bool in = r0 + r < n && c0 + c < d;
-        ss[r * ST + c] = in ? gs[(long long)(r0 + r) * d + c0 + c] : 0;
-      }
-    }
-  }
-}
-
-// four adjacent elements of a staged row as f32 (a 16-byte load in f32,
-// 8 bytes for the 16-bit types)
-__device__ __forceinline__ void load4(float (&x)[4], const float* s) {
-  const float4 v = *reinterpret_cast<const float4*>(s);
-  x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
-}
-template <typename T>
-__device__ __forceinline__ void load4(float (&x)[4], const T* s) {
-  const uint2 v = *reinterpret_cast<const uint2*>(s);
-  const T* e = reinterpret_cast<const T*>(&v);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) x[i] = to_acc(e[i]);
-}
-
-// c += a b on the FP64 tensor cores, a 16 x 4 (row), b 4 x 8 (col), c 16
-// x 8: lane (g, t) holds c0, c1 at row g, columns 2t, 2t + 1 and c2, c3 at
-// row g + 8; a0 = A[g][t], a1 = A[g + 8][t]; b = B[t][g]. m16n8k4 is a
-// shape sm_90 added: two m8n8k4 (sm_80's) on the same fragments give the
-// same bits in 1.4x the time on an H100 (both kernels, float64 at D = 64
-// and 100; scripts/exp_any_variants.py).
-__device__ __forceinline__ void dmma16(double& c0, double& c1, double& c2,
-                                       double& c3, double a0, double a1,
-                                       double b) {
-  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
-      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
-      : "+d"(c0), "+d"(c1), "+d"(c2), "+d"(c3)
-      : "d"(a0), "d"(a1), "d"(b));
-}
-
-// A lane's share of its warp's 16 x BC score tile: RH rows of each 8-row
-// half m, at rows rbase + 8m + 4r (r < RH), and 2 KC keys, at key(c, e) =
-// KS c + KE e + kbase (c < KC, e < 2). DMMA's accumulator fixes it for
-// float64: rows g + 8m and keys 8c + 2t + e (g = lane / 4, t = lane % 4).
-// FFMA takes 4 rows x 8 keys: rows q + 4 (2m + r) and keys 16c + 8e + u
-// (q = lane / 8, u = lane % 8), so that a 4-column step loads 4 + 8 rows
-// for 128 multiply-adds (2 + 16 for 128 in DMMA's layout) and the 8 lanes
-// of a 16-byte load phase read 8 different rows of the padded tile.
-template <typename A, int BC>
-struct ScoreFrag {
-  static constexpr bool kMma = sizeof(A) == 8;
-  static constexpr int RH = kMma ? 1 : 2;
-  static constexpr int KC = kMma ? BC / 8 : BC / 16;
-  static constexpr int KS = kMma ? 8 : 16;
-  static constexpr int KE = kMma ? 1 : 8;
-  __device__ __forceinline__ static int rbase(int lane) {
-    return kMma ? lane / 4 : lane / 8;
-  }
-  __device__ __forceinline__ static int kbase(int lane) {
-    return kMma ? 2 * (lane % 4) : lane % 8;
-  }
-  __device__ __forceinline__ static int row(int lane, int m, int r) {
-    return rbase(lane) + 8 * m + 4 * r;
-  }
-  __device__ __forceinline__ static int key(int lane, int c, int e) {
-    return KS * c + KE * e + kbase(lane);
-  }
-};
-
-// A warp's score tile, 16 x BC: sf[m][r][c][e] += sum_k a[row][k] *
-// b[key][k] over k < kend (columns past kend up to the next multiple of 4
-// are staged zeros), at ScoreFrag's rows and keys; a and b staged with row
-// stride ST.
-template <int BC, int ST>
-__device__ __forceinline__ void score_product(double (&sf)[2][1][BC / 8][2],
-                                              const double* a,
-                                              const double* b, int kend,
-                                              int lane) {
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll 2
-  for (int k0 = 0; k0 < kend; k0 += 4) {
-    const double a0 = a[g * ST + k0 + t], a1 = a[(g + 8) * ST + k0 + t];
-#pragma unroll
-    for (int n = 0; n < BC / 8; ++n) {
-      // the fragment's B[k][n] = b[n][k]: lane (g, t) holds b[8n + g][k0 + t]
-      const double bb = b[(8 * n + g) * ST + k0 + t];
-      dmma16(sf[0][0][n][0], sf[0][0][n][1], sf[1][0][n][0], sf[1][0][n][1],
-             a0, a1, bb);
-    }
-  }
-}
-template <int BC, int ST, typename T>
-__device__ __forceinline__ void score_product(float (&sf)[2][2][BC / 16][2],
-                                              const T* a, const T* b,
-                                              int kend, int lane) {
-  using F = ScoreFrag<float, BC>;
-#pragma unroll 2
-  for (int k0 = 0; k0 < kend; k0 += 4) {
-    float av[2][2][4];
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int r = 0; r < 2; ++r) load4(av[m][r], a + F::row(lane, m, r) * ST + k0);
-#pragma unroll
-    for (int c = 0; c < F::KC; ++c)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float bb[4];
-        load4(bb, b + F::key(lane, c, e) * ST + k0);
-#pragma unroll
-        for (int m = 0; m < 2; ++m)
-#pragma unroll
-          for (int r = 0; r < 2; ++r)
-#pragma unroll
-            for (int k = 0; k < 4; ++k)
-              sf[m][r][c][e] = fmaf(av[m][r][k], bb[k], sf[m][r][c][e]);
-      }
-  }
-}
-
-// A lane's share of its warp's output rows and columns: RO rows at
-// row(i, half) and NG groups of E adjacent columns, group j's at col(j, e).
-// DMMA's accumulator fixes it for float64: rows g + 8i, columns 8 group +
-// 2t + e of 8-column groups. FFMA takes rows q + 4i and columns 32 group
-// + 4u + e (q = lane / 8, u = lane % 8): a 4-key step loads 4 + 4 NG rows
-// for 64 NG multiply-adds. dkv's warps each take every group (one of dK,
-// dV); dq's two split them: alternate groups, or at D = 32 (one FFMA
-// group) the pair's rows, each warp its own 8.
-template <typename A, int D, bool DKV>
-struct OutCols {
-  static constexpr bool kMma = sizeof(A) == 8;
-  static constexpr int GW = kMma ? 8 : 32;      // columns of a group
-  static constexpr bool kRowSplit = !kMma && !DKV && D == GW;
-  static constexpr int RO = kMma ? 2 : kRowSplit ? 2 : 4;
-  static constexpr int NG = DKV || kRowSplit ? D / GW : D / (2 * GW);
-  static constexpr int E = kMma ? 2 : 4;
-  __device__ __forceinline__ static int group(int j, int half) {
-    return DKV || kRowSplit ? j : 2 * j + half;
-  }
-  __device__ __forceinline__ static int row(int lane, int i, int half) {
-    if constexpr (kMma) return lane / 4 + 8 * i;
-    else return lane / 8 + 4 * i + (kRowSplit ? 8 * half : 0);
-  }
-  __device__ __forceinline__ static int col(int lane, int j, int half, int e) {
-    if constexpr (kMma) return GW * group(j, half) + 2 * (lane % 4) + e;
-    else return GW * group(j, half) + 4 * (lane % 8) + e;
-  }
-};
-
-// acc[i][j] += x[row i][:] . b[:][columns of group j] over the BC rows of
-// b (x: a pair's exchange rows, row stride SX; b staged, row stride ST).
-// Every group runs: columns past d are staged zeros (a test of the group
-// against d inside the unrolled loop kept ptxas from hoisting the loads:
-// f32 at D=100 took 1.3x as long). RP: x is p, rounded to T here.
-template <typename T, int D, int BC, int ST, int SX, bool DKV, bool RP>
-__device__ __forceinline__ void out_product(double (&acc)[2][OutCols<double, D, DKV>::NG][2],
-                                            const double* x, const T* b,
-                                            int half, int lane) {
-  using OC = OutCols<double, D, DKV>;
-  const int g = lane / 4, t = lane % 4;
-#pragma unroll 2
-  for (int k0 = 0; k0 < BC; k0 += 4) {
-    const double a0 = x[g * SX + k0 + t], a1 = x[(g + 8) * SX + k0 + t];
-#pragma unroll
-    for (int i = 0; i < OC::NG; ++i) {
-      // B[k][n] = b[k0 + k][8j + n]: lane (g, t) holds b[k0 + t][8j + g]
-      const double bb = b[(k0 + t) * ST + 8 * OC::group(i, half) + g];
-      dmma16(acc[0][i][0], acc[0][i][1], acc[1][i][0], acc[1][i][1], a0, a1,
-             bb);
-    }
-  }
-}
-template <typename T, int D, int BC, int ST, int SX, bool DKV, bool RP>
-__device__ __forceinline__ void out_product(
-    float (&acc)[OutCols<float, D, DKV>::RO][OutCols<float, D, DKV>::NG][4],
-    const float* x, const T* b, int half, int lane) {
-  using OC = OutCols<float, D, DKV>;
-#pragma unroll 2
-  for (int k0 = 0; k0 < BC; k0 += 4) {
-    float av[OC::RO][4];
-#pragma unroll
-    for (int i = 0; i < OC::RO; ++i) {
-      load4(av[i], x + OC::row(lane, i, half) * SX + k0);
-      if constexpr (RP) {
-#pragma unroll
-        for (int k = 0; k < 4; ++k) av[i][k] = round_to<T>(av[i][k]);
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-#pragma unroll
-      for (int j = 0; j < OC::NG; ++j) {
-        float bb[4];
-        load4(bb, b + (k0 + k) * ST + OC::col(lane, j, half, 0));
-#pragma unroll
-        for (int i = 0; i < OC::RO; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            acc[i][j][e] = fmaf(av[i][k], bb[e], acc[i][j][e]);
-      }
-    }
-  }
-}
-
-// rows sync of a pair of warps (named barriers 1-4; 0 is __syncthreads)
-__device__ __forceinline__ void pair_sync(int pair) {
-  asm volatile("bar.sync %0, 64;\n" ::"r"(pair + 1) : "memory");
-}
 
 // The body of dq_any (DKV false) and dkv_any (DKV true) at instance D (32,
 // 64 or 128: the head dim, or each part of a wider one). dq: out1 = dq, di
@@ -650,36 +399,6 @@ dkv_any(const T* __restrict__ q, const T* __restrict__ k,
                       const_cast<typename AccOf<T>::type*>(di), dk, dv, p);
 }
 
-template <int N>
-using Dim = std::integral_constant<int, N>;
-
-// calls f(T{}, Dim<D>{}) for the dtype code and head dim: D = 32, 64, 112
-// (float64 only: f32's dq halves take multiples of 32) or 128 (and 128 for
-// every wider d, split over blockIdx.z); the 16-bit types come here only
-// above 256 and have the D = 128 instance alone
-template <typename F>
-int by_type(int dtype, int d, F f) {
-  auto by_dim = [&](auto t) -> int {
-    if constexpr (sizeof(t) == 2) {
-      return f(t, Dim<kWideD>{});
-    } else {
-      if (d <= 32) return f(t, Dim<32>{});
-      if (d <= 64) return f(t, Dim<64>{});
-      if constexpr (sizeof(t) == 8) {
-        if (d <= 112) return f(t, Dim<112>{});
-      }
-      return f(t, Dim<kWideD>{});
-    }
-  };
-  switch (dtype) {
-    case 0: return by_dim(float{});
-    case 1: return by_dim(__nv_bfloat16{});
-    case 2: return by_dim(__half{});
-    case 3: return by_dim(double{});
-  }
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace
 
 namespace lamp_flash {
@@ -687,7 +406,7 @@ namespace lamp_flash {
 int any_dq(int dtype, const void* q, const void* k, const void* v,
            const void* o, const void* dout, const void* lse, void* di,
            void* dq, const Problem& p, int bh, cudaStream_t stream) {
-  return by_type(dtype, p.d, [&](auto t, auto dim) -> int {
+  return any_dispatch(dtype, p.d, [&](auto t, auto dim) -> int {
     using T = decltype(t);
     using A = typename AccOf<T>::type;
     constexpr int D = decltype(dim)::value;
@@ -703,7 +422,7 @@ int any_dq(int dtype, const void* q, const void* k, const void* v,
 int any_dkv(int dtype, const void* q, const void* k, const void* v,
             const void* dout, const void* lse, const void* di, void* dk,
             void* dv, const Problem& p, int bh, cudaStream_t stream) {
-  return by_type(dtype, p.d, [&](auto t, auto dim) -> int {
+  return any_dispatch(dtype, p.d, [&](auto t, auto dim) -> int {
     using T = decltype(t);
     using A = typename AccOf<T>::type;
     constexpr int D = decltype(dim)::value;

@@ -1,9 +1,10 @@
 // What the flash-attention kernels share (flash_attention.cu: the
 // backward's tensor-core kernels, the ragged forward and the entry points;
-// flash_forward.cu: the wgmma forward; flash_attention_any.cu and
-// flash_backward_any.cu: the scalar forward and the FP64-tensor-core /
-// FFMA backward for every head dim and float type): the problem's shape, the
-// visibility rules of flash_attention.cu's header note, the launch helper,
+// flash_forward.cu: the wgmma forward; flash_forward_any.cu and
+// flash_backward_any.cu: the FP64-tensor-core / FFMA forward and backward
+// for every head dim and float type): the problem's shape, the visibility
+// rules of flash_attention.cu's header note, the launch helper, what the
+// scalar kernels share (their block shape, staging and fragment layouts)
 // and what the wgmma kernels share (their block shape, TMA maps, exp2).
 
 #pragma once
@@ -243,6 +244,294 @@ cudaError_t launch(Kernel kernel, dim3 grid, int threads, int smem,
 }
 
 // ---------------------------------------------------------------------------
+// the scalar kernels (flash_forward_any.cu's fwd_any, flash_backward_any.cu's
+// dq_any and dkv_any): 8 warps in 4 pairs own 64 rows (or keys); operands
+// staged by cp.async; float64 on the FP64 tensor cores (DMMA), the rest on
+// register-tiled FFMA
+// ---------------------------------------------------------------------------
+
+constexpr int kAnyThreads = 256;  // threads a block: 4 pairs of warps
+constexpr int kAnyRows = 64;      // rows (keys) a block owns: one class-map block
+constexpr int kWideD = 128;       // the widest instance; wider head dims split
+
+// the accumulator type: double for float64, else f32
+template <typename T>
+struct AccOf {
+  using type = float;
+};
+template <>
+struct AccOf<double> {
+  using type = double;
+};
+
+// rows [r0, r0 + ROWS) and columns [c0, c0 + D) of a [n, d] matrix into a
+// staged tile (row stride ST) by cp.async of V bytes; rows past n and
+// columns past d are zero-filled. V divides d's row bytes and c0's.
+template <int V, int ROWS, int D, int ST, typename T>
+__device__ __forceinline__ void copy_rows(T* s, const T* g, int r0, int n,
+                                          int c0, int d) {
+  constexpr int E = V / sizeof(T), kPer = D / E;
+  for (int i = threadIdx.x; i < ROWS * kPer; i += kAnyThreads) {
+    const int r = i / kPer, c = (i % kPer) * E;
+    const bool in = r0 + r < n && c0 + c < d;
+    const T* src = g + (in ? (long long)(r0 + r) * d + c0 + c : 0);
+    if constexpr (V == 16) cp_async16(s + r * ST + c, src, in);
+    else cp_async_ca<V>(s + r * ST + c, src, in);
+  }
+}
+
+// copy_rows with the widest copy the rows' alignment allows: 16, 8 or 4
+// bytes; a 16-bit type at an odd head dim is loaded 2 bytes at a time by
+// plain loads (the stage written is not read before the next barrier)
+template <int ROWS, int D, int ST, typename T>
+__device__ __forceinline__ void load_rows(T* s, const T* g, int r0, int n,
+                                          int c0, int d) {
+  const int bytes = d * (int)sizeof(T);
+  if (bytes % 16 == 0) {
+    copy_rows<16, ROWS, D, ST>(s, g, r0, n, c0, d);
+  } else if (bytes % 8 == 0) {
+    copy_rows<8, ROWS, D, ST>(s, g, r0, n, c0, d);
+  } else if constexpr (sizeof(T) <= 4) {
+    if (bytes % 4 == 0) {
+      copy_rows<4, ROWS, D, ST>(s, g, r0, n, c0, d);
+    } else {
+      const unsigned short* gs = reinterpret_cast<const unsigned short*>(g);
+      unsigned short* ss = reinterpret_cast<unsigned short*>(s);
+      for (int i = threadIdx.x; i < ROWS * D; i += kAnyThreads) {
+        const int r = i / D, c = i % D;
+        const bool in = r0 + r < n && c0 + c < d;
+        ss[r * ST + c] = in ? gs[(long long)(r0 + r) * d + c0 + c] : 0;
+      }
+    }
+  }
+}
+
+// four adjacent elements of a staged row as f32 (a 16-byte load in f32,
+// 8 bytes for the 16-bit types)
+__device__ __forceinline__ void load4(float (&x)[4], const float* s) {
+  const float4 v = *reinterpret_cast<const float4*>(s);
+  x[0] = v.x, x[1] = v.y, x[2] = v.z, x[3] = v.w;
+}
+template <typename T>
+__device__ __forceinline__ void load4(float (&x)[4], const T* s) {
+  const uint2 v = *reinterpret_cast<const uint2*>(s);
+  const T* e = reinterpret_cast<const T*>(&v);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) x[i] = to_acc(e[i]);
+}
+
+// c += a b on the FP64 tensor cores, a 16 x 4 (row), b 4 x 8 (col), c 16
+// x 8: lane (g, t) holds c0, c1 at row g, columns 2t, 2t + 1 and c2, c3 at
+// row g + 8; a0 = A[g][t], a1 = A[g + 8][t]; b = B[t][g]. m16n8k4 is a
+// shape sm_90 added: two m8n8k4 (sm_80's) on the same fragments give the
+// same bits in 1.4x the time on an H100 (both kernels, float64 at D = 64
+// and 100; scripts/exp_any_variants.py).
+__device__ __forceinline__ void dmma16(double& c0, double& c1, double& c2,
+                                       double& c3, double a0, double a1,
+                                       double b) {
+  asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+d"(c0), "+d"(c1), "+d"(c2), "+d"(c3)
+      : "d"(a0), "d"(a1), "d"(b));
+}
+
+// A lane's share of its warp's 16 x BC score tile: RH rows of each 8-row
+// half m, at rows rbase + 8m + 4r (r < RH), and 2 KC keys, at key(c, e) =
+// KS c + KE e + kbase (c < KC, e < 2). DMMA's accumulator fixes it for
+// float64: rows g + 8m and keys 8c + 2t + e (g = lane / 4, t = lane % 4).
+// FFMA takes 4 rows x 8 keys: rows q + 4 (2m + r) and keys 16c + 8e + u
+// (q = lane / 8, u = lane % 8), so that a 4-column step loads 4 + 8 rows
+// for 128 multiply-adds (2 + 16 for 128 in DMMA's layout) and the 8 lanes
+// of a 16-byte load phase read 8 different rows of the padded tile.
+template <typename A, int BC>
+struct ScoreFrag {
+  static constexpr bool kMma = sizeof(A) == 8;
+  static constexpr int RH = kMma ? 1 : 2;
+  static constexpr int KC = kMma ? BC / 8 : BC / 16;
+  static constexpr int KS = kMma ? 8 : 16;
+  static constexpr int KE = kMma ? 1 : 8;
+  __device__ __forceinline__ static int rbase(int lane) {
+    return kMma ? lane / 4 : lane / 8;
+  }
+  __device__ __forceinline__ static int kbase(int lane) {
+    return kMma ? 2 * (lane % 4) : lane % 8;
+  }
+  __device__ __forceinline__ static int row(int lane, int m, int r) {
+    return rbase(lane) + 8 * m + 4 * r;
+  }
+  __device__ __forceinline__ static int key(int lane, int c, int e) {
+    return KS * c + KE * e + kbase(lane);
+  }
+};
+
+// A warp's score tile, 16 x BC: sf[m][r][c][e] += sum_k a[row][k] *
+// b[key][k] over k < kend (columns past kend up to the next multiple of 4
+// are staged zeros), at ScoreFrag's rows and keys; a and b staged with row
+// stride ST.
+template <int BC, int ST>
+__device__ __forceinline__ void score_product(double (&sf)[2][1][BC / 8][2],
+                                              const double* a,
+                                              const double* b, int kend,
+                                              int lane) {
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll 2
+  for (int k0 = 0; k0 < kend; k0 += 4) {
+    const double a0 = a[g * ST + k0 + t], a1 = a[(g + 8) * ST + k0 + t];
+#pragma unroll
+    for (int n = 0; n < BC / 8; ++n) {
+      // the fragment's B[k][n] = b[n][k]: lane (g, t) holds b[8n + g][k0 + t]
+      const double bb = b[(8 * n + g) * ST + k0 + t];
+      dmma16(sf[0][0][n][0], sf[0][0][n][1], sf[1][0][n][0], sf[1][0][n][1],
+             a0, a1, bb);
+    }
+  }
+}
+template <int BC, int ST, typename T>
+__device__ __forceinline__ void score_product(float (&sf)[2][2][BC / 16][2],
+                                              const T* a, const T* b,
+                                              int kend, int lane) {
+  using F = ScoreFrag<float, BC>;
+#pragma unroll 2
+  for (int k0 = 0; k0 < kend; k0 += 4) {
+    float av[2][2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) load4(av[m][r], a + F::row(lane, m, r) * ST + k0);
+#pragma unroll
+    for (int c = 0; c < F::KC; ++c)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float bb[4];
+        load4(bb, b + F::key(lane, c, e) * ST + k0);
+#pragma unroll
+        for (int m = 0; m < 2; ++m)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              sf[m][r][c][e] = fmaf(av[m][r][k], bb[k], sf[m][r][c][e]);
+      }
+  }
+}
+
+// A lane's share of its warp's output rows and columns: RO rows at
+// row(i, half) and NG groups of E adjacent columns, group j's at col(j, e).
+// DMMA's accumulator fixes it for float64: rows g + 8i, columns 8 group +
+// 2t + e of 8-column groups. FFMA takes rows q + 4i and columns 32 group
+// + 4u + e (q = lane / 8, u = lane % 8): a 4-key step loads 4 + 4 NG rows
+// for 64 NG multiply-adds. dkv's warps each take every group (one of dK,
+// dV); dq's two split them: alternate groups, or at D = 32 (one FFMA
+// group) the pair's rows, each warp its own 8.
+template <typename A, int D, bool DKV>
+struct OutCols {
+  static constexpr bool kMma = sizeof(A) == 8;
+  static constexpr int GW = kMma ? 8 : 32;      // columns of a group
+  static constexpr bool kRowSplit = !kMma && !DKV && D == GW;
+  static constexpr int RO = kMma ? 2 : kRowSplit ? 2 : 4;
+  static constexpr int NG = DKV || kRowSplit ? D / GW : D / (2 * GW);
+  static constexpr int E = kMma ? 2 : 4;
+  __device__ __forceinline__ static int group(int j, int half) {
+    return DKV || kRowSplit ? j : 2 * j + half;
+  }
+  __device__ __forceinline__ static int row(int lane, int i, int half) {
+    if constexpr (kMma) return lane / 4 + 8 * i;
+    else return lane / 8 + 4 * i + (kRowSplit ? 8 * half : 0);
+  }
+  __device__ __forceinline__ static int col(int lane, int j, int half, int e) {
+    if constexpr (kMma) return GW * group(j, half) + 2 * (lane % 4) + e;
+    else return GW * group(j, half) + 4 * (lane % 8) + e;
+  }
+};
+
+// acc[i][j] += x[row i][:] . b[:][columns of group j] over the BC rows of
+// b (x: a pair's exchange rows, row stride SX; b staged, row stride ST).
+// Every group runs: columns past d are staged zeros (a test of the group
+// against d inside the unrolled loop kept ptxas from hoisting the loads:
+// f32 at D=100 took 1.3x as long). RP: x is p, rounded to T here.
+template <typename T, int D, int BC, int ST, int SX, bool DKV, bool RP>
+__device__ __forceinline__ void out_product(double (&acc)[2][OutCols<double, D, DKV>::NG][2],
+                                            const double* x, const T* b,
+                                            int half, int lane) {
+  using OC = OutCols<double, D, DKV>;
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll 2
+  for (int k0 = 0; k0 < BC; k0 += 4) {
+    const double a0 = x[g * SX + k0 + t], a1 = x[(g + 8) * SX + k0 + t];
+#pragma unroll
+    for (int i = 0; i < OC::NG; ++i) {
+      // B[k][n] = b[k0 + k][8j + n]: lane (g, t) holds b[k0 + t][8j + g]
+      const double bb = b[(k0 + t) * ST + 8 * OC::group(i, half) + g];
+      dmma16(acc[0][i][0], acc[0][i][1], acc[1][i][0], acc[1][i][1], a0, a1,
+             bb);
+    }
+  }
+}
+template <typename T, int D, int BC, int ST, int SX, bool DKV, bool RP>
+__device__ __forceinline__ void out_product(
+    float (&acc)[OutCols<float, D, DKV>::RO][OutCols<float, D, DKV>::NG][4],
+    const float* x, const T* b, int half, int lane) {
+  using OC = OutCols<float, D, DKV>;
+#pragma unroll 2
+  for (int k0 = 0; k0 < BC; k0 += 4) {
+    float av[OC::RO][4];
+#pragma unroll
+    for (int i = 0; i < OC::RO; ++i) {
+      load4(av[i], x + OC::row(lane, i, half) * SX + k0);
+      if constexpr (RP) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) av[i][k] = round_to<T>(av[i][k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+#pragma unroll
+      for (int j = 0; j < OC::NG; ++j) {
+        float bb[4];
+        load4(bb, b + (k0 + k) * ST + OC::col(lane, j, half, 0));
+#pragma unroll
+        for (int i = 0; i < OC::RO; ++i)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[i][j][e] = fmaf(av[i][k], bb[e], acc[i][j][e]);
+      }
+    }
+  }
+}
+
+// rows sync of a pair of warps (named barriers 1-4; 0 is __syncthreads)
+__device__ __forceinline__ void pair_sync(int pair) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(pair + 1) : "memory");
+}
+
+// calls f(T{}, std::integral_constant<int, D>{}) for the dtype code and
+// head dim: D = 32, 64, 112 (float64 only: f32's dq halves take multiples
+// of 32) or 128 (and 128 for every wider d, split over blockIdx.z); the
+// 16-bit types come here only above 256 and have the D = 128 instance alone
+template <typename F>
+int any_dispatch(int dtype, int d, F f) {
+  auto by_dim = [&](auto t) -> int {
+    if constexpr (sizeof(t) == 2) {
+      return f(t, std::integral_constant<int, kWideD>{});
+    } else {
+      if (d <= 32) return f(t, std::integral_constant<int, 32>{});
+      if (d <= 64) return f(t, std::integral_constant<int, 64>{});
+      if constexpr (sizeof(t) == 8) {
+        if (d <= 112) return f(t, std::integral_constant<int, 112>{});
+      }
+      return f(t, std::integral_constant<int, kWideD>{});
+    }
+  };
+  switch (dtype) {
+    case 0: return by_dim(float{});
+    case 1: return by_dim(__nv_bfloat16{});
+    case 2: return by_dim(__half{});
+    case 3: return by_dim(double{});
+  }
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
 // the wgmma kernels (fwd_wg, dq_tc, dkv_tc): a TMA producer warpgroup and
 // consumer warpgroups of 64 rows (or keys) each
 // ---------------------------------------------------------------------------
@@ -304,7 +593,7 @@ namespace lamp_flash {
 int wg_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
            float* lse, const Problem& p, int bh, cudaStream_t stream);
 
-// flash_attention_any.cu (any_fwd) and flash_backward_any.cu (any_dq,
+// flash_forward_any.cu (any_fwd) and flash_backward_any.cu (any_dq,
 // any_dkv): the kernels for every head dim and the dtype codes 0 float32,
 // 1 bfloat16, 2 float16 and 3 float64. Each returns the launch's
 // cudaError_t. lse and di are f64 for float64 inputs, else f32.

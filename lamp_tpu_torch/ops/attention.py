@@ -5,7 +5,7 @@ q [B, H, Sq, D], k/v [B, H, Skv, D].
 
 :func:`flash_attention` launches the hand-written CUDA kernels
 (``csrc/flash_forward.cu``, ``csrc/flash_attention.cu``,
-``csrc/flash_attention_any.cu`` and ``csrc/flash_backward_any.cu``: a
+``csrc/flash_forward_any.cu`` and ``csrc/flash_backward_any.cu``: a
 forward, and a backward in two kernels, dq then dkv, at every head dim and
 float dtype) for CUDA tensors, and takes the plain PyTorch
 :func:`flash_attention_reference` and :func:`_flash_backward_reference` for
@@ -424,7 +424,7 @@ def flash_attention(q, k, v, *, causal: bool = False,
     CPU tensors take :func:`flash_attention_reference` and
     :func:`_flash_backward_reference`. CUDA tensors launch the kernels of
     ``csrc/flash_forward.cu``, ``csrc/flash_attention.cu``,
-    ``csrc/flash_attention_any.cu`` and ``csrc/flash_backward_any.cu``
+    ``csrc/flash_forward_any.cu`` and ``csrc/flash_backward_any.cu``
     (float32, bfloat16, float16 or float64, any head_dim, contiguous q, k
     and v; the mask is read in place through its strides) or raise: each
     forward launch adds one to ``flash_attention.launches`` and each

@@ -20,13 +20,17 @@ boolean attn_mask at the packed shapes), of the dq (dq_tc) and dkv
 (dkv_tc) kernels at S=4096 and S=384, and of the paged-attention kernel
 at chip_smoke.py phase 2's shape (B=32, 12/4 heads, head_dim 64, the
 12-layer bf16 pool, append): the "tc" group. The "any" group times the
-backward for the inputs the tensor-core kernels do not take (dq_any and
-dkv_any) at B=2, H=8, S=2048, causal, in float64 at head dims 64 and 100,
-float32 at 64 and 100 and bfloat16 at 320, each beside SDPA's backward
-(the autograd backward of scaled_dot_product_attention, dq, dk and dv) at
-the same shape and dtype. A third argument names one group; both run by
-default. Prints each measurement and the median of each side, and the
-ratio of this tree's to the other's.
+kernels for the inputs the tensor-core kernels do not take, at B=2, H=8,
+S=2048, causal, in float64 at head dims 64 and 100, float32 at 64 and 100
+and bfloat16 at 320, and at the f32 flagship's B=8, H=12, S=384, D=64:
+the forward (fwd_any) beside SDPA's forward, and the backward (dq_any and
+dkv_any) beside SDPA's backward (the autograd backward of
+scaled_dot_product_attention, dq, dk and dv), at the same shape and
+dtype. It also hashes dq, dk and dv of the backward kernels on the plain
+forward's o and lse, which both trees compute alike, and prints whether
+the two trees' backward agree bit for bit. A third argument names one
+group; both run by default. Prints each measurement and the median of
+each side, and the ratio of this tree's to the other's.
 """
 
 import json
@@ -39,9 +43,10 @@ ROOT = Path(__file__).resolve().parent.parent
 CALLS = 30
 
 
-# the "any" group's shapes: (dtype name, head dim), at B=2, H=8, S=2048
-ANY_SHAPES = (("float64", 64), ("float64", 100), ("float32", 64),
-              ("float32", 100), ("bfloat16", 320))
+# the "any" group's shapes: (dtype name, head dim, B, H, S)
+ANY_SHAPES = (("float64", 64, 2, 8, 2048), ("float64", 100, 2, 8, 2048),
+              ("float32", 64, 2, 8, 2048), ("float32", 100, 2, 8, 2048),
+              ("bfloat16", 320, 2, 8, 2048), ("float32", 64, 8, 12, 384))
 
 
 def worker(tree: str, build_only: bool, groups) -> None:
@@ -91,16 +96,25 @@ def worker(tree: str, build_only: bool, groups) -> None:
 
     times = {}
     if "any" in groups:
-        for name, d in ANY_SHAPES:
+        import hashlib
+
+        bits = {}
+        for name, d, b, h, s in ANY_SHAPES:
             dtype = getattr(torch, name)
-            q, k, v, do = (randn(2, 8, 2048, d, dtype=dtype)
-                           for _ in range(4))
+            q, k, v, do = (randn(b, h, s, d, dtype=dtype) for _ in range(4))
             scale = 1.0 / math.sqrt(d)
+            what = f"{name} D={d}" + ("" if (b, h, s) == (2, 8, 2048) else
+                                      f" B={b} H={h} S={s}")
+            times[f"fwd_any {what}"] = per_launch(lambda: att._fwd_cuda(
+                q, k, v, None, True, scale, None), ["fwd_any"])["fwd_any"]
+            times[f"SDPA fwd {what}"] = per_launch(
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=True),
+                [])["all"]
             o, lse = att._fwd_cuda(q, k, v, None, True, scale, None)
             bwd = per_launch(lambda: att._bwd_cuda(
                 q, k, v, o, lse, do, None, True, scale, None),
                 ["dq_any", "dkv_any"])
-            what = f"{name} D={d}"
             for kernel in ("dq_any", "dkv_any"):
                 times[f"{kernel} {what}"] = bwd[kernel]
             times[f"any bwd {what}"] = bwd["dq_any"] + bwd["dkv_any"]
@@ -109,6 +123,15 @@ def worker(tree: str, build_only: bool, groups) -> None:
             times[f"SDPA bwd {what}"] = per_launch(
                 lambda: torch.autograd.grad(lo, (ql, kl, vl), do,
                                             retain_graph=True), [])["all"]
+            # the backward's bits on inputs both trees compute alike
+            po, plse = att.flash_attention_reference(q, k, v, causal=True)
+            grads = att._bwd_cuda(q, k, v, po, plse, do, None, True, scale,
+                                  None)
+            bits[f"bwd {what}"] = hashlib.sha256(b"".join(
+                g.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+                for g in grads)).hexdigest()[:16]
+            del po, plse, grads, lo
+        print("BITS " + json.dumps(bits), flush=True)
         if "tc" not in groups:
             print("AB " + json.dumps(times), flush=True)
             return
@@ -184,6 +207,7 @@ def main() -> int:
         if proc.returncode:
             raise SystemExit("a build failed")
     seen = {"other": [], "this": []}
+    bits = {"other": [], "this": []}
     for _ in range(rounds):
         for side in ("other", "this", "this", "other"):
             proc = run(other if side == "other" else str(ROOT), groups)
@@ -193,11 +217,20 @@ def main() -> int:
             line = next(x for x in out.splitlines() if x.startswith("AB "))
             seen[side].append(json.loads(line[3:]))
             print(side, line[3:], flush=True)
+            for x in out.splitlines():
+                if x.startswith("BITS "):
+                    bits[side].append(json.loads(x[5:]))
     for key in seen["this"][0]:
         a = statistics.median(m[key] for m in seen["other"])
         b = statistics.median(m[key] for m in seen["this"])
-        print(f"{key:22} other {a:8.2f} us, this {b:8.2f} us, "
+        print(f"{key:40} other {a:8.2f} us, this {b:8.2f} us, "
               f"this / other {b / a:.3f}", flush=True)
+    if bits["this"]:
+        for key in bits["this"][0]:
+            seen_bits = {m[key] for side in bits.values() for m in side}
+            print(f"{key}: the two trees' dq, dk and dv "
+                  f"{'agree bit for bit' if len(seen_bits) == 1 else 'DIFFER'}"
+                  f" ({', '.join(sorted(seen_bits))})", flush=True)
     return 0
 
 

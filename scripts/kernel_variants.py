@@ -1,6 +1,6 @@
 """Edited copies of one kernel source, built beside each other: the build
-shared by scripts/exp_k1_variants.py, exp_k2_variants.py and
-exp_any_variants.py.
+shared by scripts/exp_k1_variants.py, exp_k2_variants.py,
+exp_any_variants.py and exp_fwd_any_variants.py.
 
 A variant is a list of (text, replacement) edits of the source; every
 occurrence of an edit's text is replaced. The package's other sources

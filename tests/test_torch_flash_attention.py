@@ -16,6 +16,8 @@ to 0 before comparing gradients with JAX, so that only rows with a key
 feed dk and dv.
 """
 
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -518,6 +520,116 @@ def test_any_backward_edges_match_jax(case, dtype):
     for g, t, what in zip(got_g, ts, ("dq", "dk", "dv")):
         np.testing.assert_allclose(g, t.grad.numpy(), atol=1e-10, rtol=0,
                                    err_msg=what)
+
+
+# The forward for float32 and float64 (fwd_any on the card) at the edges
+# where the CUDA kernel changes its tiling or visibility: rows that cut its
+# 64-row blocks, rows with no visible key inside a block with visible rows,
+# Sq = 1, a window, and head dims 12, 129 and 257 (an instance of 32
+# columns, and 128-column parts above 128). In the CASES layout; lengths
+# "zeros" gives [B, Sq] kv lengths with rows 3-8 at 0. On the CPU the port
+# takes its plain forward (flash_attention_reference), so these cases hold
+# that plain version, o and lse, against JAX's forward; the kernel's own
+# edges are held only on the card, by chip_smoke.py's check_any_forward.
+ANY_FWD_CASES = [
+    ("rows_65", 1, 2, 65, 100, 32, True, None, None),
+    ("rows_129_noncausal", 1, 2, 129, 70, 16, False, None, None),
+    ("zero_rows", 2, 2, 70, 90, 32, True, None, "zeros"),
+    ("sq_1", 2, 2, 1, 75, 32, True, None, None),
+    ("window", 1, 2, 96, 96, 32, True, 20, None),
+    ("d12", 1, 2, 40, 50, 12, True, None, None),
+    ("d129_lengths", 2, 1, 40, 50, 129, True, None, "1d"),
+    ("d257", 1, 1, 33, 40, 257, False, None, None),
+]
+
+
+def _jax_forward(q, k, v, causal, window, lens):
+    """o and lse of JAX's forward kernel (``_fwd``, in interpret mode with
+    32 x 32 tiles), on the padded operands that ``flash_attention`` gives
+    it."""
+    b, h, sq, d = q.shape
+    skv = k.shape[2]
+    if window is not None and window >= skv:
+        window = None
+    bq, bk = min(32, -(-sq // 8) * 8), min(32, -(-skv // 8) * 8)
+    sq_p, skv_p = -(-sq // bq) * bq, -(-skv // bk) * bk
+
+    def rows(x, n, n_p):
+        return jnp.pad(jnp.asarray(x).reshape(b * h, n, d),
+                       ((0, 0), (0, n_p - n), (0, 0)))
+
+    limits = None
+    if lens is not None:
+        limits = jnp.asarray(lens, jnp.int32)
+        if limits.ndim == 1:
+            limits = jnp.broadcast_to(limits[:, None], (b, sq))
+        limits = jnp.pad(limits, ((0, 0), (0, sq_p - sq)))[:, None, :]
+    o, lse = jatt._fwd(rows(q, sq, sq_p), rows(k, skv, skv_p),
+                       rows(v, skv, skv_p), limits, None, None, None,
+                       1.0 / math.sqrt(d), causal, bq, bk, skv,
+                       skv - sq if causal else 0, h, True, window=window)
+    return (np.asarray(o)[:, :sq].reshape(b, h, sq, d),
+            np.asarray(lse)[:, :sq].reshape(b, h, sq))
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("case", ANY_FWD_CASES,
+                         ids=[c[0] for c in ANY_FWD_CASES])
+def test_any_forward_edges_match_jax(case, dtype):
+    """o and lse against JAX's forward at ATOL (in float64 under x64, whose
+    dots ask for f32 results); float64 also against a double logsumexp
+    and mha_reference at 1e-10. Rows with no visible key give o = 0 and
+    lse = -inf in the port (JAX's kernel gives the mean of V there), and
+    are compared for exactly that."""
+    name, b, h, sq, skv, d, causal, window, lengths = case
+    q, k, v, _, lens = _inputs(b, h, sq, skv, d,
+                               None if lengths == "zeros" else lengths)
+    if lengths == "zeros":
+        lens = np.random.RandomState(3).randint(1, skv + 1, (b, sq))
+        lens[:, 3:9] = 0
+        lens = lens.astype(np.int32)
+    q, k, v = (x.astype(dtype) for x in (q, k, v))
+    old = jax.config.read("jax_enable_x64")
+    jax.config.update("jax_enable_x64", dtype == np.float64)
+    try:
+        want, want_lse = _jax_forward(q, k, v, causal, window, lens)
+    finally:
+        jax.config.update("jax_enable_x64", old)
+    tlens = None if lens is None else torch.from_numpy(lens)
+    got, got_lse = (x.numpy() for x in tatt.flash_attention_reference(
+        *map(torch.from_numpy, (q, k, v)), causal=causal, window=window,
+        kv_lengths=tlens))
+    assert got.dtype == dtype and got_lse.dtype == dtype
+    # the visibility in double: causal with the offset Skv - Sq, the
+    # window, the kv lengths
+    qpos = np.arange(sq)[:, None] + (skv - sq if causal else 0)
+    kpos = np.arange(skv)[None, :]
+    keep = np.ones((b, 1, sq, skv), bool)
+    if causal:
+        keep &= kpos <= qpos
+        if window is not None:
+            keep &= kpos > qpos - window
+    if lens is not None:
+        lim = lens[:, None] if lens.ndim == 1 else lens
+        keep &= (kpos[None] < lim[:, :, None])[:, None]
+    keep = np.broadcast_to(keep, (b, h, sq, skv))
+    rows = keep.any(-1)
+    assert (got[~rows] == 0).all() and (got_lse[~rows] == -np.inf).all()
+    np.testing.assert_allclose(got[rows], want[rows], atol=ATOL, rtol=0)
+    np.testing.assert_allclose(got_lse[rows], want_lse[rows], atol=ATOL,
+                               rtol=0)
+    if dtype != np.float64:
+        return
+    s = np.einsum("bhqd,bhkd->bhqk", q, k) / np.sqrt(d)
+    s = np.where(keep, s, -np.inf)
+    top = np.where(rows, s.max(-1), 0.0)
+    with np.errstate(divide="ignore"):  # log(0) = -inf in the empty rows
+        lse = np.log(np.exp(s - top[..., None]).sum(-1)) + top
+    np.testing.assert_allclose(got_lse[rows], lse[rows], atol=1e-10, rtol=0)
+    ref = tatt.mha_reference(*map(torch.from_numpy, (q, k, v)),
+                             mask=torch.from_numpy(keep.copy())).numpy()
+    np.testing.assert_allclose(got[rows], ref[rows], atol=1e-10, rtol=0)
 
 
 def test_visibility_reads_ids_and_mask_in_place():
