@@ -74,12 +74,19 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
    in bf16, with the planted fault; rows 63, 65, 127 and 129, [B, Sq]
    lengths with empty rows inside a block, Sq = 1, Sq != Skv, a window,
    ids, a mask, head dims 8-320 in f64 and f32 and 257/320 in bf16, two
-   forward calls bit for bit); the tensor-core head dims (and 192 besides),
-   f64 and f32 at 64 and 100 and bf16 at 320 timed at B=2, H=8, S=2048,
-   and f32 at the f32 flagship's B=8, H=12, S=384, D=64, beside their
-   bound, their plain version and SDPA at the same head dim and dtype;
-   GPT models at head_dim 100 and 256, and one in f32, take 3 training
-   steps each.
+   forward calls bit for bit); the edges of dq_wide and dkv_wide (the
+   16-bit backward at multiples of 8 above 128; check_wide_backward: head
+   dims 136, 160, 192, 200 and 256 in bf16 and f16 with kv lengths [2, 65,
+   2047, 0], [B, Sq] lengths with empty rows, Sq != Skv, ids and a mask,
+   S = 63-129 and a window at 160 and 256, phase 12's shape, two backward
+   calls bit for bit with and without ids, and head dims 130 and 250 on
+   dq_mma and dkv_mma); the tensor-core head dims (and 192 besides), f64
+   and f32 at 64 and 100 and bf16 at 320 timed at B=2, H=8, S=2048, and
+   f32 at the f32 flagship's B=8, H=12, S=384, D=64, beside their bound,
+   their plain version and SDPA at the same head dim and dtype (each
+   profiler reading held against CUDA events of the same calls); GPT
+   models at head_dim 100 and 256, and one in f32, take 3 training steps
+   each.
 5. The training slice at full width: a 12-block, 768-wide GPT
    LanguageModelModule (12 heads, MLP 3072, byte vocab 256, bf16 with f32
    AdamW masters, random weights from a seed) trains under the flagship
@@ -153,6 +160,16 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
    steady decode rate and a profiled step (device time, ops and K6's
    share), then the steady decode on an e4m3 KV pool (K6-fp8 at 100-byte
    head slices, its launches counted).
+12. Training at Gemma-2B's widths: a ModernLM of 18 blocks, 2048 wide, 8
+   query heads over 1 kv head (head_dim 256), SwiGLU 16384, vocab 256000,
+   tied (2.51 B parameters, random weights from a seed; the JAX package's
+   ModernLM, not Gemma: SwiGLU, plain RMSNorm, no embedding scale), bf16
+   with f32 AdamW masters, 2 rows of 2048 seeded tokens a step, plain
+   causal, through ModernLM.loss: the first loss against plain attention,
+   2 warm-up and 5 timed steps (fwd_wg's D=256 instance, dq_wide and
+   dkv_wide 18 launches each a step), the loss falling over 10 steps on
+   one batch, a profiled step (busy share, attention shares, no library
+   attention kernel) and the peak memory.
 
 The last lines are one JSON line on the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -225,6 +242,23 @@ PACK_CTX, PACK_BATCH, PACK_DOC_LENS = 2048, 4, (64, 1024)
 # untied head, RoPE base 10000; bf16, random weights from seed 0; nothing
 # cut. Served with phase 3's pages, pool and requests.
 OL_CTX, OL_BLOCKS, OL_DIM, OL_HEADS, OL_MLP = 2048, 26, 3200, 32, 8640
+
+# phase 12: a ModernLM at Gemma-2B's widths (google/gemma-2b config.json:
+# hidden_size 2048, 8 attention heads over 1 kv head of head_dim 256, 18
+# layers, intermediate_size 16384, vocab_size 256000, tied embeddings,
+# rms_norm_eps 1e-6, rope_theta 10000), trained in bf16 with f32 AdamW
+# masters at context 2048, 2 rows of seeded tokens a step, plain causal
+# (no segment ids: the unmasked kernel instances). It is the JAX package's
+# ModernLM at those widths, not Gemma: SwiGLU where Gemma has GeGLU, plain
+# RMSNorm where Gemma scales by (1 + w), no sqrt(d) embedding scale.
+# Nothing is cut: 2.51 B parameters, random weights from seed 0.
+GEMMA = dict(vocab_size=256000, num_blocks=18, embed_dim=2048, num_heads=8,
+             num_kv_heads=1, mlp_hidden=16384, tied=True, norm_eps=1e-6,
+             rope_base=10000.0)
+GEMMA_CTX, GEMMA_ROWS = 2048, 2
+# the attention kernels of its step: fwd_wg's D=256 instance, then dq_wide
+# and dkv_wide
+GEMMA_KERNELS = ("fwd_wg", "dq_wide", "dkv_wide")
 
 # one H100 SXM's published dense bf16 rate and memory bandwidth
 PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
@@ -844,6 +878,25 @@ def device_ms(fn, n: int, warmup: int = 2):
     return times
 
 
+def checked_device_ms(fn, n: int, what: str):
+    """:func:`device_ms` of ``fn()``, held against the same calls timed by
+    CUDA events (:func:`cuda_time_ms`): a trace whose kernels sum to less
+    than 0.8 of the events' time per call lost records and is taken again,
+    up to twice. Prints both figures; returns the last trace's times."""
+    events = cuda_time_ms(fn, n, warmup=1)
+    for attempt in range(3):
+        times = device_ms(fn, n)
+        total = sum(times.values())
+        agree = total >= 0.8 * events
+        print(f"  {what}: profiler {total * 1e3:.1f} us a call, CUDA "
+              f"events {events * 1e3:.1f} us"
+              + ("" if agree else f" (below 0.8 x events, trace "
+                 f"{attempt + 1} of 3)"), flush=True)
+        if agree:
+            break
+    return times
+
+
 def _kernel_ms(times, name):
     found = [ms for key, ms in times.items() if name in key]
     if not found:
@@ -880,12 +933,15 @@ def block_err(got, want):
 
 def planted_fault(sq, skv, window=None, keep=None):
     """The visibility of a faulty kernel the checks must catch: rows past
-    Sq/4 skip one 64-key tile (keys 512-575 at Skv=4096, 64-127 at 384).
+    Sq/4 skip one 64-key tile (keys 512-575 at Skv=4096, 64-127 at 384,
+    0-63 when Skv <= 64).
     Under a window too narrow for those rows to reach that tile, they skip
     the first tile past row Sq/4's diagonal instead. Under segment ids or a
     mask (``keep``: the visibility, [B or 1, H or 1, Sq, Skv]) they skip the
     64-key tile where those rows see the most keys."""
     k0 = FLASH_BLOCK * max(1, skv // 512)
+    if k0 >= skv:  # one key block: the rows lose every key of it
+        k0 = 0
     diag = sq // 4 + skv - sq
     if keep is not None:
         seen = keep[:, :, sq // 4:].sum(dim=(0, 1, 2))
@@ -1107,10 +1163,12 @@ def time_flash_case(att, b, h, s, d, dtype):
     scale = 1.0 / math.sqrt(d)
     o, lse = att._fwd_cuda(q, k, v, None, True, scale, None)
     n = 5
-    fwd_times = device_ms(
-        lambda: att._fwd_cuda(q, k, v, None, True, scale, None), n)
-    bwd_times = device_ms(lambda: att._bwd_cuda(
-        q, k, v, o, lse, do, None, True, scale, None), n)
+    what = f"B={b} H={h} S={s} D={d} {str(dtype)[6:]}"
+    fwd_times = checked_device_ms(
+        lambda: att._fwd_cuda(q, k, v, None, True, scale, None), n,
+        f"forward {what}")
+    bwd_times = checked_device_ms(lambda: att._bwd_cuda(
+        q, k, v, o, lse, do, None, True, scale, None), n, f"backward {what}")
     names = [key for key in list(fwd_times) + list(bwd_times)
              if "fwd_" in key or "dq_" in key or "dkv_" in key]
     fwd = _kernel_ms(fwd_times, "fwd_")
@@ -1143,7 +1201,6 @@ def time_flash_case(att, b, h, s, d, dtype):
                       bound=bound(3, 6 * t + 2 * rows)),
            "dkv": dict(ms=dkv, plain_ms=plain_bwd, library_ms=lib_bwd,
                        bound=bound(4, 6 * t + 2 * rows))}
-    what = f"B={b} H={h} S={s} D={d} {str(dtype)[6:]}"
     print(f"  timing {what}: kernels {sorted(set(names))}", flush=True)
     for name, r in out.items():
         print(f"  {name:4} {what}: {r['ms'] * 1e3:9.1f} us, bound "
@@ -1166,7 +1223,9 @@ def flash_instance(d, dtype, part):
     if dtype in (torch.bfloat16, torch.float16) and d <= 256:
         if part == "fwd":
             return "fwd_ragged" if d % 8 else "fwd_wg"
-        return f"{part}_mma" if d % 8 or d > 128 else f"{part}_tc"
+        if d % 8:
+            return f"{part}_mma"
+        return f"{part}_wide" if d > 128 else f"{part}_tc"
     return f"{part}_any"
 
 
@@ -1204,6 +1263,7 @@ def check_flash_head_dims(att, check):
         run(f"head_dim {d} ids", d, bf16, 2, 4, s, s, True, segment_ids=ids)
     # an odd head dim (2-byte copies, stores of single elements)
     run("head_dim 75", 75, bf16, 2, 4, s, s, True, lengths=[1000, 555])
+    check_wide_backward(att, run)
     check_any_backward(att, run, ids)
     check_any_forward(att)
     # (head dim, dtype, B, H, S): B=2, H=8, S=2048, and phase 5's f32
@@ -1215,6 +1275,63 @@ def check_flash_head_dims(att, check):
     times[64, f32, 8, LM_HEADS, 384] = time_flash_case(att, 8, LM_HEADS, 384,
                                                        64, f32)
     return times, errs
+
+
+# phase 4: the head dims of dq_wide and dkv_wide (16-bit multiples of 8
+# above 128): 136-192 in the D=192 instance, 200 and 256 in D=256
+WIDE_HEAD_DIMS = (136, 160, 192, 200, 256)
+
+
+def check_wide_backward(att, run):
+    """The edges of dq_wide and dkv_wide (dq blocks of 64 rows at D=256 and
+    128 at D=192, dkv blocks of 64 keys, 64-key and 64-row tiles) at
+    WIDE_HEAD_DIMS in bf16 and f16, each by ``run(name, d, dtype, b, h,
+    sq, skv, causal, **kw)`` (check_flash's checks): causal with kv
+    lengths [2, 65, 2047] and a 0; [B, Sq] lengths with rows of length 0
+    inside 64-row blocks that keep visible rows; Sq != Skv; segment ids;
+    a [B, 1, Sq, Skv] mask. Then at 160 and 256 in bf16: S = 63, 65, 127
+    and 129, non-causal and causal over the 64-key multiple above S (a
+    last key block of one key, seen by one row, would compare dk's
+    rounding noise), and a window of 100; phase 12's own shape (B=2, H=8,
+    S=2048, D=256); two backward calls bit for bit at 192 and 256 with and
+    without ids; and head dims 130 and 250, not multiples of 8, which
+    dq_mma and dkv_mma keep."""
+    bf16, f16 = torch.bfloat16, torch.float16
+    rng = np.random.RandomState(7)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    s = 700
+    lens = rng.randint(2, s + 1, (2, s))
+    lens[:, 10:20] = 0  # inside the first 64-row block
+    lens[1, 300:360] = 0  # across two blocks
+    ids = np.sort(rng.randint(0, 4, (2, 1000)), 1)
+    sq, skv = 300, 700
+    mask = torch.rand(2, 1, sq, skv, generator=gen, device="cuda") < 0.8
+    mask[..., torch.arange(sq), torch.arange(sq) + skv - sq] = True
+    for d in WIDE_HEAD_DIMS:
+        for dtype in (bf16, f16):
+            name = f"wide {str(dtype)[6:]} head {d}"
+            run(f"{name} lengths", d, dtype, 4, 2, 2048, 2048, True,
+                lengths=[2, 65, 2047, 0])
+            run(f"{name} lengths [B,Sq]", d, dtype, 2, 2, s, s, True,
+                lengths=lens)
+            run(f"{name} Sq!=Skv", d, dtype, 2, 2, sq, skv, True)
+            run(f"{name} ids", d, dtype, 2, 2, s, s, True,
+                segment_ids=ids[:, :s])
+            run(f"{name} mask", d, dtype, 2, 2, sq, skv, True, mask=mask)
+    for d in (160, 256):
+        for n in (63, 65, 127, 129):
+            run(f"wide head {d} S={n}", d, bf16, 2, 4, n, n, False)
+            run(f"wide head {d} Sq={n} causal", d, bf16, 2, 4, n,
+                -(-n // 64) * 64, True)
+        run(f"wide head {d} window 100", d, bf16, 2, 4, 1000, 1000, True,
+            window=100)
+    run("wide path shape", 256, bf16, 2, 8, 2048, 2048, True)
+    for d in (192, 256):
+        check_deterministic(att, 2, 4, 1000, d)
+        check_deterministic(att, 2, 4, 1000, d, segment_ids=ids)
+    for d in (130, 250):
+        run(f"head_dim {d}", d, bf16, 2, 4, 1000, 1000, True,
+            lengths=[1000, 555])
 
 
 def check_any_backward(att, run, ids):
@@ -2526,6 +2643,99 @@ def phase_packed(torch_nn, optim, train, att):
     return dict(ms=ms, tok_s=tok_s, peak_gib=peak, launches=launches)
 
 
+def phase_gemma(torch_nn, optim, train, att):
+    """A ModernLM at Gemma-2B's widths (GEMMA) trained in bf16 with f32
+    AdamW masters at context GEMMA_CTX, GEMMA_ROWS rows of seeded tokens a
+    step through ModernLM.loss (the fused cross-entropy) and plain causal
+    attention: the first loss against the same weights with plain
+    attention, 2 warm-up and 5 timed steps (CUDA events; the forward and
+    the backward launched once a block a step), finite losses, the loss
+    falling over 10 steps on one batch, a profiled step (device busy
+    share, the attention kernels' shares, no library attention kernel) and
+    the peak memory. Returns the timed steps' launches and figures."""
+    from lamp_tpu_torch.nn import modern
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = torch_nn.ModernLM.init(context_length=GEMMA_CTX, generator=gen,
+                                   dtype=torch.bfloat16, device=dev, **GEMMA)
+    n_params = sum(p.numel() for p in model.parameters())
+    opt = optim.AdamW(model.named_parameters(), 3e-4, weight_decay=0.01)
+    state = train.TrainState.init(model, opt)
+
+    def loss_fn(m, batch, generator, train_mode):
+        return m.loss(batch[0], batch[1]), batch[1].numel()
+
+    step = train.make_train_step(opt, loss_fn)
+
+    def batch_of(seed):
+        rng = np.random.RandomState(seed)
+        tokens = torch.as_tensor(rng.randint(
+            0, GEMMA["vocab_size"], (GEMMA_ROWS, GEMMA_CTX + 1)), device=dev)
+        return tokens[:, :-1], tokens[:, 1:]
+
+    batches = [batch_of(seed) for seed in range(7)]
+    blocks = GEMMA["num_blocks"]
+    # the first loss against the same weights with plain attention (the
+    # whole score matrix, mha_reference): the kernels' path is right
+    with torch.no_grad():
+        got = float(model.loss(*batches[0]))
+        kernel = modern.flash_attention
+        modern.flash_attention = (
+            lambda q, k, v, **kw: att.mha_reference(q, k, v, **kw))
+        try:
+            want = float(model.loss(*batches[0]))
+        finally:
+            modern.flash_attention = kernel
+    print(f"  gemma widths: first loss {got:.5f}, with plain attention "
+          f"{want:.5f} (|diff| {abs(got - want):.2e}, limit 2e-2: bf16 "
+          f"activations rounded at other places)", flush=True)
+    if not abs(got - want) <= 2e-2:
+        raise AssertionError(f"gemma widths: loss {got} against plain {want}")
+    losses = [step(state, b)[1][0] for b in batches[:2]]
+    # the main path's run: the launch counts cover exactly these steps
+    reset_launch_counts()
+    steps = 5
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for b in batches[2:2 + steps]:
+        losses.append(step(state, b)[1][0])
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / steps
+    launches = launch_counts()
+    got = (launches["flash_attention"], launches["flash_attention_backward"])
+    if got != (blocks * steps, blocks * steps):
+        raise AssertionError(f"gemma widths: launches {got}, want "
+                             f"{blocks * steps} each")
+    if not bool(torch.isfinite(torch.stack(losses)).all()):
+        raise AssertionError(f"gemma widths: a loss is not finite: {losses}")
+    tokens = GEMMA_ROWS * GEMMA_CTX
+    tok_s = tokens / (ms * 1e-3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  gemma widths: {blocks} x {GEMMA['embed_dim']}, "
+          f"{GEMMA['num_heads']}/{GEMMA['num_kv_heads']} heads of 256, "
+          f"SwiGLU {GEMMA['mlp_hidden']}, vocab {GEMMA['vocab_size']}, "
+          f"{n_params} params, ctx {GEMMA_CTX}, {GEMMA_ROWS} rows: "
+          f"{ms:.2f} ms/step, {tok_s:.1f} train tok/s, "
+          f"{100 * tok_s * 6 * n_params / PEAK_FLOPS:.1f}% of 989 TFLOP/s "
+          f"by 6 N; launches fwd {got[0]} bwd {got[1]} ({blocks} x "
+          f"{steps}); peak memory {peak:.2f} GiB", flush=True)
+    fixed = [step(state, batches[0])[1][0] for _ in range(10)]
+    first, last = float(fixed[0]), float(fixed[-1])
+    print(f"  gemma widths: 10 steps on one batch: loss {first:.4f} -> "
+          f"{last:.4f}", flush=True)
+    if not last < first:
+        raise AssertionError("gemma widths: loss did not fall on one batch")
+    profile_train_step(step, state, batches[1], GEMMA_KERNELS)
+    del model, opt, state
+    torch.cuda.empty_cache()
+    return dict(ms=ms, tok_s=tok_s, peak_gib=peak, launches=launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -2589,6 +2799,9 @@ def main() -> int:
     print("phase 11: OpenLLaMA-3B serving at full width (head_dim 100)",
           flush=True)
     openllama = phase_openllama(torch_nn, models, paged_attention, att)
+    print("phase 12: a ModernLM at Gemma-2B's widths (head_dim 256) "
+          "trained in bf16 at context 2048", flush=True)
+    gemma = phase_gemma(torch_nn, optim, train, att)
     # the tensor-core instances' launches: phase 5, phase 10 and the bert-
     # and translation-width models; the head_dim 100 and 256 models run
     # the new instances (the ragged forward at 100, the scalar kernels)
@@ -2600,15 +2813,20 @@ def main() -> int:
         packed["launches"]["flash_attention_backward"]
     # the new instances' launches (flash_instance): the ragged forward runs
     # the head_dim 100 GPT and phase 11's dense check, the D=256 forward
-    # the head_dim 256 GPT, the mma.sync backward both GPTs, and the scalar
-    # kernels phase 5's f32 flagship (the small f32 GPT's are in the note)
+    # the head_dim 256 GPT and phase 12, the mma.sync backward the head_dim
+    # 100 GPT, the wide backward phase 12 (the head_dim 256 GPT's are in
+    # the note), and the scalar kernels phase 5's f32 flagship (the small
+    # f32 GPT's are in the note)
     d100, d256, f32 = (small_by_model[m] for m in (
         "head_dim 100", "head_dim 256", "f32, head_dim 64"))
     f32_fwd, f32_bwd = train_launches[torch.float32]
+    g_fwd, g_bwd = (gemma["launches"][k] for k in (
+        "flash_attention", "flash_attention_backward"))
     wide_launches = {"fwd_ragged": openllama["k1"] + d100[0],
-                     "fwd_wg": d256[0], "dq_mma": d100[1] + d256[1],
-                     "dkv_mma": d100[1] + d256[1], "fwd_any": f32_fwd,
-                     "dq_any": f32_bwd, "dkv_any": f32_bwd}
+                     "fwd_wg": d256[0] + g_fwd, "dq_mma": d100[1],
+                     "dkv_mma": d100[1], "dq_wide": g_bwd, "dkv_wide": g_bwd,
+                     "fwd_any": f32_fwd, "dq_any": f32_bwd,
+                     "dkv_any": f32_bwd}
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -2673,13 +2891,20 @@ def main() -> int:
             ("fwd_wg", "flash_forward.cu", 87, (256, bf16, *wide),
              "fwd_wg<D, T, M> at head dims 129-256 (D=192 and 256; "
              "flash_attention_fwd is its D=64 instance): launches are the "
-             "head_dim 256 GPT"),
+             "head_dim 256 GPT and phase 12's 5 timed steps"),
             ("dq_mma", "flash_attention.cu", 297, (100, bf16, *wide),
              "dq_mma (16-bit head dims up to 256 that are not a multiple of "
-             "8 or are above 128): launches are the head_dim 100 and 256 "
-             "GPTs' backward calls"),
+             "8): launches are the head_dim 100 GPT's backward calls"),
             ("dkv_mma", "flash_attention.cu", 365, (100, bf16, *wide),
              "dkv_mma: as dq_mma"),
+            ("dq_wide", "flash_backward_wide.cu", 297, (256, bf16, *wide),
+             "dq_wide<D, T, M> (wgmma; 16-bit head dims 129-256 that are "
+             "multiples of 8, D=192 and 256): launches are phase 12's 5 "
+             "timed steps (the head_dim 256 GPT of phase 4 launched it "
+             f"{d256[1]} times more); per_shape holds D=160 (the D=192 "
+             "instance) and 192"),
+            ("dkv_wide", "flash_backward_wide.cu", 365, (256, bf16, *wide),
+             "dkv_wide<D, T, M>: as dq_wide"),
             ("fwd_any", "flash_forward_any.cu", 87, (100, f64, *wide),
              "fwd_any (f32 and f64 at every head dim, 16-bit above 256; DMMA "
              "in f64, FFMA in f32): launches are phase 5's f32 flagship's 5 "

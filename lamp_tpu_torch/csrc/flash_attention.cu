@@ -22,9 +22,11 @@
 //    bytes; a d that is not a multiple of 8 has rows only 8-, 4- or
 //    2-byte aligned, and takes fwd_tc here (D = 32, 64, 128, 256), which
 //    copies them by 8- or 4-byte cp.async, or 2-byte loads at an odd d.
-//    The wgmma backward keeps 128 rows resident: it takes the multiples
-//    of 8 up to 128; the other d up to 256 take the mma.sync backward
-//    (dq_mma, dkv_mma), whose tiles come as the ragged forward's do.
+//    The wgmma backward takes the multiples of 8: dq_tc and dkv_tc here up
+//    to 128 (128 rows resident), dq_wide and dkv_wide above
+//    (flash_backward_wide.cu; D = 192, 256); the d that are not multiples
+//    of 8 take the mma.sync backward (dq_mma, dkv_mma), whose tiles come as
+//    the ragged forward's do.
 //  - everything else (float32 and float64 at every d; the 16-bit types at
 //    d > 256) takes fwd_any (flash_forward_any.cu) and dq_any, dkv_any
 //    (flash_backward_any.cu): float64 on the FP64 tensor cores, the rest on
@@ -121,8 +123,10 @@
 //    and dQ, rows without a visible key exactly 0. No atomics and no
 //    partial-dq slab: every sum runs in a fixed order, so a call gives the
 //    same bits every time.
-//  - float32 and float64 inputs take dq_any and dkv_any of
-//    flash_backward_any.cu (dq_any computes di too).
+//  - above head dim 128, dq_wide and dkv_wide (flash_backward_wide.cu)
+//    keep this design with 64 rows or keys a consumer; float32 and float64
+//    inputs take dq_any and dkv_any of flash_backward_any.cu (dq_any
+//    computes di too).
 //
 // Resources (ptxas -v for sm_90a, on the build of this source): the
 // backward kernels, 384 threads, report 168 registers (the launch bound;
@@ -135,7 +139,11 @@
 // at D=256); the masked one is held to 168 at D=64 by its launch bound.
 // fwd_wg: flash_forward.cu's note. dq_mma and dkv_mma (128 threads):
 // 153-255 registers, up to 20 bytes spilled at D=128 and 224 at D=256.
-// chip_smoke.py prints the whole table first.
+// dq_wide: 256 threads at D=256, 241 registers (the masked instance 255,
+// 16 bytes spilled), 384 at D=192, 168 (232 after setmaxnreg), no spill;
+// dkv_wide: 384 threads, 168 (232), no spill; dynamic shared memory 193 KB
+// (dq) and 209 KB (dkv) at both instances, beside 48 bytes to 4.9 KB of
+// static. chip_smoke.py prints the whole table first.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -593,17 +601,16 @@ fwd_tc(const T* __restrict__ q, const T* __restrict__ k,
 // ---------------------------------------------------------------------------
 // 16-bit backward on mma.sync, for the head dims the wgmma kernels do not
 // take: d not a multiple of 8 (rows of 2d bytes, which TMA cannot
-// describe) and 128 < d <= 256 (whose resident 128-row tiles would not
-// fit). The split design of the wgmma kernels (dq, which writes di, then
-// dkv; no atomics) on 4 warps of 16 rows (dq) or 16 keys (dkv), with
-// tiles copied by load_tile_ragged into padded shared tiles one tile
-// ahead and fragments read by ldmatrix, as in fwd_tc. At D = 256 dq reads
-// Q's and dO's fragments from shared memory at each use, and dkv splits
-// its 256 output columns over two blocks (blockIdx.z), each recomputing
-// S^T and dP^T, so that the f32 accumulators fit in registers.
-// Visibility as fwd_tc: the bounds per element; under ids or a mask (M)
-// the class map's skipped tiles are not visited and keep() decides in its
-// partial ones.
+// describe), up to 256. The split design of the wgmma kernels (dq, which
+// writes di, then dkv; no atomics) on 4 warps of 16 rows (dq) or 16 keys
+// (dkv), with tiles copied by load_tile_ragged into padded shared tiles
+// one tile ahead and fragments read by ldmatrix, as in fwd_tc. At D = 256
+// dq reads Q's and dO's fragments from shared memory at each use, and dkv
+// splits its 256 output columns over two blocks (blockIdx.z), each
+// recomputing S^T and dP^T, so that the f32 accumulators fit in
+// registers. Visibility as fwd_tc: the bounds per element; under ids or a
+// mask (M) the class map's skipped tiles are not visited and keep()
+// decides in its partial ones.
 // ---------------------------------------------------------------------------
 
 // the keys of dq_mma's K/V tiles and the rows of dkv_mma's q tiles: 64,
@@ -1565,15 +1572,21 @@ int tc_dispatch(int dtype, int d, F f) {
 }
 
 // The tensor-core kernels take the 16-bit types: the forward at head dims
-// up to 256 (fwd_wg at multiples of 8, fwd_tc the rest), the wgmma backward (TMA: rows of a multiple of 16 bytes; Q and
-// dO, or K and V, resident for 128 rows) at the multiples of 8 up to 128.
-// Everything else runs in fwd_any (flash_forward_any.cu) and dq_any,
-// dkv_any (flash_backward_any.cu).
+// up to 256 (fwd_wg at multiples of 8, fwd_tc the rest); the wgmma
+// backward (TMA: rows of a multiple of 16 bytes) at the multiples of 8,
+// dq_tc/dkv_tc up to 128 (Q and dO, or K and V, resident for 128 rows) and
+// dq_wide/dkv_wide above (flash_backward_wide.cu). Everything else runs in
+// fwd_any (flash_forward_any.cu) and dq_any, dkv_any
+// (flash_backward_any.cu).
 bool tc_forward(int dtype, int d) { return (dtype == 1 || dtype == 2) && d <= 256; }
 bool tc_backward(int dtype, int d) {
   return tc_forward(dtype, d) && d <= 128 && d % 8 == 0;
 }
-// ... and the mma.sync backward (dq_mma, dkv_mma) the rest up to 256
+bool wide_backward(int dtype, int d) {
+  return tc_forward(dtype, d) && d > 128 && d % 8 == 0;
+}
+// ... and the mma.sync backward (dq_mma, dkv_mma) the rest up to 256: the
+// head dims that are not a multiple of 8
 bool mma_backward(int dtype, int d) { return tc_forward(dtype, d); }
 
 // bytes of `rows` padded rows of a 16-bit tile
@@ -1707,6 +1720,8 @@ int lamp_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
     return any_dq(dtype, q, k, v, o, dout, lse, di, dq, p, bh, st);
   const float* l = static_cast<const float*>(lse);
   float* dd = static_cast<float*>(di);
+  if (wide_backward(dtype, head_dim))
+    return wide_dq(dtype, q, k, v, o, dout, l, dd, dq, p, bh, st);
   if (!tc_backward(dtype, head_dim))
     return tc_dispatch<true>(dtype, head_dim, [&](auto t, auto dim) -> int {
       using T = decltype(t);
@@ -1755,6 +1770,8 @@ int lamp_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
     return any_dkv(dtype, q, k, v, dout, lse, di, dk, dv, p, bh, st);
   const float* l = static_cast<const float*>(lse);
   const float* dd = static_cast<const float*>(di);
+  if (wide_backward(dtype, head_dim))
+    return wide_dkv(dtype, q, k, v, dout, l, dd, dk, dv, p, bh, st);
   if (!tc_backward(dtype, head_dim))
     return tc_dispatch<true>(dtype, head_dim, [&](auto t, auto dim) -> int {
       using T = decltype(t);

@@ -1,6 +1,7 @@
 // What the flash-attention kernels share (flash_attention.cu: the
 // backward's tensor-core kernels, the ragged forward and the entry points;
-// flash_forward.cu: the wgmma forward; flash_forward_any.cu and
+// flash_forward.cu: the wgmma forward; flash_backward_wide.cu: the wgmma
+// backward above head dim 128; flash_forward_any.cu and
 // flash_backward_any.cu: the FP64-tensor-core / FFMA forward and backward
 // for every head dim and float type): the problem's shape, the visibility
 // rules of flash_attention.cu's header note, the launch helper, what the
@@ -532,8 +533,8 @@ int any_dispatch(int dtype, int d, F f) {
 }
 
 // ---------------------------------------------------------------------------
-// the wgmma kernels (fwd_wg, dq_tc, dkv_tc): a TMA producer warpgroup and
-// consumer warpgroups of 64 rows (or keys) each
+// the wgmma kernels (fwd_wg, dq_tc, dkv_tc, dq_wide, dkv_wide): a TMA
+// producer warpgroup and consumer warpgroups of 64 rows (or keys) each
 // ---------------------------------------------------------------------------
 
 // the swizzle, in bytes of a tile row's column block: 128 (64 columns),
@@ -547,6 +548,14 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
 
 __device__ __forceinline__ int tile_count(int first, int hi, int step) {
   return first < hi ? (hi - first + step - 1) / step : 0;
+}
+
+// A consumer warp retires a ring stage by one arrival (the stage's `empty`
+// barrier counts one a consumer warp), after its lanes have read the
+// stage: their products waited on, their kv ids read
+__device__ __forceinline__ void release(uint64_t* bar) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) hopper::mbar_arrive(bar);
 }
 
 // 2^x by the special-function unit (ex2.approx.ftz: relative error about
@@ -592,6 +601,16 @@ namespace lamp_flash {
 // or kMapError + libcuda's CUresult when a TMA map was refused.
 int wg_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
            float* lse, const Problem& p, int bh, cudaStream_t stream);
+
+// flash_backward_wide.cu: the wgmma backward, dq then dkv, for bfloat16
+// (dtype 1) and float16 (2) at head dims d % 8 == 0, 128 < d <= 256; the
+// same returns as wg_fwd.
+int wide_dq(int dtype, const void* q, const void* k, const void* v,
+            const void* o, const void* dout, const float* lse, float* di,
+            void* dq, const Problem& p, int bh, cudaStream_t stream);
+int wide_dkv(int dtype, const void* q, const void* k, const void* v,
+             const void* dout, const float* lse, const float* di, void* dk,
+             void* dv, const Problem& p, int bh, cudaStream_t stream);
 
 // flash_forward_any.cu (any_fwd) and flash_backward_any.cu (any_dq,
 // any_dkv): the kernels for every head dim and the dtype codes 0 float32,

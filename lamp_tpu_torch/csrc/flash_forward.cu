@@ -119,14 +119,6 @@ __host__ __device__ constexpr int wg_stages(int d, bool m) {
              : 4;
 }
 
-// A consumer retires a stage by one arrival a warp (4 NC in all), after
-// the warp's lanes have read the stage (their products waited on, their
-// kv ids read)
-__device__ __forceinline__ void release(uint64_t* bar) {
-  __syncwarp();
-  if (threadIdx.x % 32 == 0) hopper::mbar_arrive(bar);
-}
-
 // dynamic shared memory, with 1 KB to align the swizzled tiles
 template <int D, bool M>
 int smem_wg() {

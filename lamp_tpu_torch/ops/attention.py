@@ -5,9 +5,9 @@ q [B, H, Sq, D], k/v [B, H, Skv, D].
 
 :func:`flash_attention` launches the hand-written CUDA kernels
 (``csrc/flash_forward.cu``, ``csrc/flash_attention.cu``,
-``csrc/flash_forward_any.cu`` and ``csrc/flash_backward_any.cu``: a
-forward, and a backward in two kernels, dq then dkv, at every head dim and
-float dtype) for CUDA tensors, and takes the plain PyTorch
+``csrc/flash_backward_wide.cu``, ``csrc/flash_forward_any.cu`` and
+``csrc/flash_backward_any.cu``: a forward, and a backward in two kernels,
+dq then dkv, at every head dim and float dtype) for CUDA tensors, and takes the plain PyTorch
 :func:`flash_attention_reference` and :func:`_flash_backward_reference` for
 CPU tensors only. On Hopper one kernel serves every length, so
 :func:`compact_attention` is the same function under the JAX name, with the
@@ -424,8 +424,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
     CPU tensors take :func:`flash_attention_reference` and
     :func:`_flash_backward_reference`. CUDA tensors launch the kernels of
     ``csrc/flash_forward.cu``, ``csrc/flash_attention.cu``,
-    ``csrc/flash_forward_any.cu`` and ``csrc/flash_backward_any.cu``
-    (float32, bfloat16, float16 or float64, any head_dim, contiguous q, k
+    ``csrc/flash_backward_wide.cu``, ``csrc/flash_forward_any.cu`` and
+    ``csrc/flash_backward_any.cu`` (float32, bfloat16, float16 or float64, any head_dim, contiguous q, k
     and v; the mask is read in place through its strides) or raise: each
     forward launch adds one to ``flash_attention.launches`` and each
     backward (two kernels) one to ``flash_attention.backward_launches``.

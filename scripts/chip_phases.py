@@ -2,19 +2,22 @@
 call after a kernel change: the build (with ptxas's register and spill
 lines), then the named parts only.
 
-    python3 scripts/chip_phases.py [paged] [fwd] [flash] [any] [small]
-        [train32] [openllama]
+    python3 scripts/chip_phases.py [paged] [fwd] [flash] [wide] [any]
+        [small] [train32] [openllama] [gemma]
 
 paged: phase 2 (the paged-attention kernels, K6_WIDE's shapes included);
 fwd: phase 4's checks of the wgmma forward's edges
 (check_flash_forward_edges) and its timing at S=4096, S=384 and the
 packed shapes; flash: phase 4's head dims
 and float64 (check_flash_head_dims, with the f32 checks and timing that
-the scalar kernels and the tensor-core kernels share); any: phase 4's
+the scalar kernels and the tensor-core kernels share); wide: phase 4's
+edges of dq_wide and dkv_wide (check_wide_backward), untimed, then their
+timing at B=2, H=8, S=2048, D=160, 192 and 256; any: phase 4's
 edges of fwd_any (check_any_forward), then of dq_any and dkv_any
 (check_any_backward, with the f32 checks and the f32 flagship's shape),
 untimed; small: the GPT models of SMALL_HEAD_MODELS; train32:
-phase 5's f32 flagship; openllama: phase 11. No argument runs them all.
+phase 5's f32 flagship; openllama: phase 11; gemma: phase 12. No
+argument runs them all.
 Every check raises as in chip_smoke.py.
 """
 
@@ -36,7 +39,8 @@ from lamp_tpu_torch.ops import attention as att  # noqa: E402
 from lamp_tpu_torch.ops.paged_attention import (  # noqa: E402
     paged_attention, paged_attention_reference)
 
-PARTS = ("paged", "fwd", "flash", "any", "small", "train32", "openllama")
+PARTS = ("paged", "fwd", "flash", "wide", "any", "small", "train32",
+         "openllama", "gemma")
 
 
 def main(parts) -> int:
@@ -71,6 +75,11 @@ def main(parts) -> int:
         check("f32 head 128", 1, 4, 300, 400, 128, torch.float32, False)
         print(cs.check_flash_head_dims(att, check)[1], flush=True)
         cs.time_flash(att, 2, cs.LM_HEADS, 4096, 64)
+    if "wide" in parts:
+        cs.check_wide_backward(att, lambda name, d, dtype, *a, **kw: check(
+            name, *a[:4], d, dtype, *a[4:], **kw))
+        for d in (160, 192, 256):
+            cs.time_flash_case(att, 2, 8, 2048, d, torch.bfloat16)
     if "any" in parts:
         cs.check_any_forward(att)
         check("flagship f32", 8, cs.LM_HEADS, 384, 384, 64, torch.float32,
@@ -89,6 +98,8 @@ def main(parts) -> int:
     if "openllama" in parts:
         print(cs.phase_openllama(torch_nn, models, paged_attention, att),
               flush=True)
+    if "gemma" in parts:
+        print(cs.phase_gemma(torch_nn, optim, train, att), flush=True)
     print("chip_phases: done", flush=True)
     return 0
 

@@ -68,6 +68,11 @@ def _inputs(b, h, sq, skv, d, lengths, seed=0):
         lens = rng.randint(1, skv + 1, (b, sq)).astype(np.int32)
     elif lengths == "edge":  # one key, and one past a 128-key block
         lens = np.array([1, 129][:b], np.int32)
+    elif lengths == "empty":
+        # [B, Sq] limits with rows of length 0 inside 64-row blocks that
+        # keep rows with keys
+        lens = rng.randint(2, skv + 1, (b, sq)).astype(np.int32)
+        lens[:, 10:20] = 0
     elif lengths == "halves":
         # per-row limits that differ between the 64-row halves of a
         # 128-row block: a few keys in one half, every key in the other
@@ -355,7 +360,8 @@ def _vis_inputs(case, seed=7):
             first = np.ones((b, skv), bool)
             first[:, 1:] = seg[:, 1:] != seg[:, :-1]
             m = m | first[:, None, None, :]
-    if lens is not None and lengths != "halves":  # past the last segment's start
+    if lens is not None and lengths not in ("halves", "empty"):
+        # past the last segment's start
         lens = np.maximum(lens, skv - 8).astype(np.int32)
     return q, k, v, do, lens, seg, m
 
@@ -402,12 +408,34 @@ HEAD_DIM_CASES = [
     ("s129_halves", 2, 1, 129, 129, 32, True, None, None, None, "halves",
      np.float32),
     ("d72_f16", 1, 2, 64, 64, 72, True, None, None, None, None, np.float16),
+    # the wgmma backward above 128 (dq_wide, dkv_wide): d 200 across a
+    # 129-row edge, d 192 with [B, Sq] lengths and rows of length 0, d 256
+    # with Sq != Skv, d 160 under a mask, d 256 at 65 rows with a window
+    ("d200_causal_s129", 1, 1, 129, 129, 200, True, None, None, None, None,
+     np.float32),
+    ("d192_lengths_empty", 2, 1, 70, 70, 192, True, None, None, None,
+     "empty", np.float32),
+    ("d256_sq_ne_skv", 1, 1, 40, 72, 256, True, None, None, None, None,
+     np.float32),
+    ("d160_mask", 1, 2, 48, 48, 160, True, None, None, "heads", None,
+     np.float32),
+    ("d256_s65_window", 1, 1, 65, 65, 256, True, 20, None, None, None,
+     np.float32),
 ]
 
 
 def _vis_compare(case, atol):
+    """The port's flash attention against JAX's kernel (interpret mode) on
+    one VIS_CASES case. Rows with no visible key give 0 in the port and
+    the mean of a tile's values in the TPU kernel (its NEG_INF is finite):
+    they must be 0 here, and the rest is compared with their output
+    gradient zeroed."""
     causal, window = case[6], case[7]
     q, k, v, do, lens, seg, m = _vis_inputs(case)
+    empty = None
+    if lens is not None and lens.ndim == 2 and (lens == 0).any():
+        empty = np.broadcast_to((lens == 0)[:, None, :], q.shape[:3])
+        do = np.where(empty[..., None], 0, do).astype(do.dtype)
     jkw = dict(causal=causal, window=window)
     tkw = dict(jkw)
     if lens is not None:
@@ -422,8 +450,13 @@ def _vis_compare(case, atol):
         jkw["mask"], tkw["mask"] = jnp.asarray(m), torch.from_numpy(m)
     want, want_g = _jax_run(_jax_flash, q, k, v, do, **jkw)
     got, got_g = _torch_run(tatt.flash_attention, q, k, v, do, **tkw)
-    np.testing.assert_allclose(got.astype(np.float32),
-                               want.astype(np.float32), atol=atol, rtol=0)
+    rows = np.ones(q.shape[:3], bool)
+    if empty is not None:
+        assert (got[empty] == 0).all() and (got_g[0][empty] == 0).all()
+        rows = ~empty
+    np.testing.assert_allclose(got[rows].astype(np.float32),
+                               want[rows].astype(np.float32), atol=atol,
+                               rtol=0)
     for g, w, what in zip(got_g, want_g, ("dq", "dk", "dv")):
         np.testing.assert_allclose(g.astype(np.float32),
                                    w.astype(np.float32), atol=atol, rtol=0,

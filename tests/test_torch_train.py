@@ -239,6 +239,49 @@ def test_packed_modern_lm_train_steps_match_jax_f32():
     np.testing.assert_allclose(got, want, rtol=1e-4)
 
 
+def test_gemma_width_modern_lm_train_steps_match_jax_f32():
+    """A ModernLM at Gemma-2B's proportions, scaled down (chip_smoke.py's
+    phase 12 trains the full widths on the card): 2 blocks, 512 wide, 2
+    query heads over 1 kv head (head_dim 256), SwiGLU 1024, vocab 97,
+    context 80, tied, bridged from lamp_tpu. 20 AdamW steps on the same
+    plain causal rows (2 of 80 seeded tokens a step, no segment ids) in
+    both packages, f32, through ModernLM.loss; per-step losses within rtol
+    1e-4, as test_train_steps_match_jax_f32."""
+    from .test_torch_modern import jax_modern_lm
+
+    ctx, vocab = 80, 97
+    jm = jax_modern_lm(vocab_size=vocab, context_length=ctx, num_blocks=2,
+                       embed_dim=512, num_heads=2, num_kv_heads=1,
+                       mlp_hidden=1024, tied=True, norm_eps=1e-6,
+                       rope_base=10000.0)
+    tm = tnn_load(jm)
+    assert tm.blocks[0].num_kv_heads == 1 and tm.rope_cos.shape[-1] == 128
+
+    def jloss(m, batch, key, train):
+        return m.loss(batch[0], batch[1]), jnp.float32(batch[1].size), m
+
+    jopt = joptim.AdamW(3e-4, weight_decay=0.01)
+    jstep = jax.jit(jtrain.make_train_step(jopt, jloss))
+    jstate = jtrain.TrainState.init(jm, jopt)
+    topt = toptim.AdamW(tm.named_parameters(), 3e-4, weight_decay=0.01)
+    tstate = ttrain.TrainState.init(tm, topt)
+    tstep = ttrain.make_train_step(
+        topt, lambda m, b, generator, train: (m.loss(b[0], b[1]),
+                                              b[1].numel()))
+    key = jax.random.PRNGKey(0)
+    rng = np.random.RandomState(11)
+    want, got = [], []
+    for _ in range(STEPS):
+        rows = rng.randint(0, vocab, (2, ctx + 1)).astype(np.int32)
+        batch = (rows[:, :-1], rows[:, 1:])
+        jstate, (jl, _) = jstep(jstate, tuple(map(jnp.asarray, batch)), key)
+        tstate, (tl, _) = tstep(tstate, tuple(torch.from_numpy(x).long()
+                                              for x in batch))
+        want.append(float(jl))
+        got.append(float(tl))
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
 def test_packed_modern_lm_resumes_from_jax_state():
     """The JAX ModernLM and its AdamW state after 3 packed steps, carried
     across by the bridge (load_modern_lm, load_adamw_state): the next 3
