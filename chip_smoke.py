@@ -105,8 +105,14 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
    SwiGLU 768x2048 and 2048x768, logits 768x32000) with M in {1, 7, 32, 64,
    3072}, bf16 and f32 x, bf16 and f32 out, by relative Frobenius error,
    with a planted fault (one K-group's scale row dropped) that each check
-   must see; timed at B=32 by profiler device time beside its bound and
-   F.linear on the dequantized bf16 weight. int8_matmul (torch._int_mm,
+   must see, and at M in {1, 32, 64} two calls of the decode kernel
+   (int4_mm_decode, M <= 64) equal bit for bit; the same at K7_EDGES (a
+   ragged N of 1000 over an uneven cluster, K=8192 in rounds, groups of
+   32). Timed at B=32 by CUDA events over a CUDA graph of 100 calls (warm,
+   and cold: copies of the weight beyond L2), the profiler's sum held
+   against it, beside its bound and F.linear on the dequantized bf16
+   weight timed alike; a call must launch int4_mm_decode alone and
+   allocate nothing beside its output. int8_matmul (torch._int_mm,
    zero rows padded below 17 rows) at the same shapes with M in {1, 7, 16,
    17, 32}: bit for bit against the same arithmetic with an exact f64
    product, and near x @ dequant(w). The stochastic int8 quantizer (K8, on
@@ -121,7 +127,7 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
    pool), then quantize_bits=8 (the same checks, no K7 launch, greedy
    tokens against a dense f32 forward through int8_matmul), then the steady
    step_many(8) at B=32 of int8, int4 and int4 + fp8 KV beside phase 3's
-   bf16 (tok/s, device time and device ops per step).
+   bf16 (tok/s, device time and device ops per step, K7's share).
 8. The fused AdamW kernel (K4) against its plain version at all 220
    parameter shapes of the flagship GPT (85,565,952 parameters, one launch)
    and odd sizes, in bf16 with stochastic rounding, bf16 rounded to nearest
@@ -321,6 +327,18 @@ K7_SHAPES = (("qkv", 768, 1280, 12), ("wo", 768, 768, 12),
              ("logits", 768, 32000, 1))
 K7_ROWS = (1, 7, 32, 64, 3072)
 DECODE_B = 32
+# the decode kernel's edges, checked untimed at every decode row: (name, K,
+# N, group) of a ragged N (1000: not a multiple of any tile, not of 16, so
+# the weight and scales go by plain loads) over an uneven cluster (24 steps
+# over 5 ranks), a K whose slices take rounds through two stages (8192),
+# and groups of 32 (four groups in a 64-row slice)
+K7_EDGES = (("n1000", 768, 1000, 128), ("k8192", 8192, 1024, 128),
+            ("g32", 768, 1280, 32))
+# two calls of the decode kernel equal bit for bit at these rows
+K7_BITS_ROWS = (1, 32, 64)
+# a cold call cycles through copies of its weight that together exceed
+# the 50 MB L2 cache, as a decode step finds its weights
+COLD_BYTES = 64 << 20
 # K8 at the rows of an LM forward, 768 and 3072 wide: bit for bit
 K8_SHAPES = ((3072, 768), (3072, 3072))
 # phase 7: an int4 greedy token must equal the argmax of a dense f32
@@ -402,6 +420,39 @@ def cuda_time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+GRAPH_CALLS = 100
+
+
+def graph_ms(fn, calls: int = GRAPH_CALLS, reps: int = 5) -> float:
+    """Device time a call of ``fn(i)`` (i = 0 .. calls - 1), by CUDA events
+    over the replay of a CUDA graph of ``calls`` back-to-back calls,
+    captured after a warm-up on a side stream: the median of ``reps``
+    replays. Calls of a few us are timed without the host's launches,
+    which events over eager calls time instead."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(3):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fn(i)
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps):
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return sorted(times)[reps // 2]
 
 
 def phase_kernel(paged_attention, paged_attention_reference):
@@ -629,7 +680,7 @@ def profile_step(server):
     """torch.profiler over one steady step_many(8): the device's busy share
     of the wall time (a lower bound: tracing slows the host) and the
     kernels that take the most device time. Returns (device time us,
-    device ops, K6's device time us) of the call."""
+    device ops, K6's device time us, K7's device time us) of the call."""
     with traced() as trace:
         t0 = time.perf_counter()
         server.step_many(8)
@@ -648,9 +699,11 @@ def profile_step(server):
               f"{e.key[:90]}")
     k6 = sum(e.self_device_time_total for e in device
              if "paged_attention" in e.key)
+    k7 = sum(e.self_device_time_total for e in device if "int4_mm" in e.key)
     print(f"  K6 (paged_attention) {k6:.0f} us, {100 * k6 / busy:.1f}% of "
-          f"the device time")
-    return busy, ops, k6
+          f"the device time" + (f"; K7 (int4_mm) {k7:.0f} us, "
+                                f"{100 * k7 / busy:.1f}%" if k7 else ""))
+    return busy, ops, k6, k7
 
 
 def serve_requests(models, server):
@@ -744,11 +797,12 @@ def steady_decode(models, server, what):
     tok_s = 32 * 8 / (ms * 1e-3)
     print(f"  decode ({what}): step_many(8) at B=32 {ms:.2f} ms, "
           f"{ms / 8:.3f} ms/step, {tok_s:.1f} tok/s", flush=True)
-    busy, ops, k6 = profile_step(server)
+    busy, ops, k6, k7 = profile_step(server)
     for i in range(32):
         server.remove(f"s{i}")
     return dict(tok_s=tok_s, device_us_per_step=busy / 8,
-                device_ops_per_step=ops / 8, k6_share=k6 / busy)
+                device_ops_per_step=ops / 8, k6_share=k6 / busy,
+                k7_share=k7 / busy)
 
 
 def make_serving_model(torch_nn):
@@ -1914,57 +1968,142 @@ def check_int8_matmul(Q, gen):
           f"dequant(w) {worst:.3e} (limit {INT8_TOL:.0e})", flush=True)
 
 
+def check_int4(Q, name, k, n, g, rows, gen, path_out):
+    """K7 against its plain version at one weight shape: every row count of
+    ``rows`` in bf16 x (bf16 and f32 out) and, at M <= 64, f32 x; each
+    within K7_TOL, a planted dropped scale row above it, and at
+    K7_BITS_ROWS two calls of the decode kernel equal bit for bit. Returns
+    the packed weight, its scales, the largest error by out dtype, the
+    smallest planted fault, and the largest absolute error at M=DECODE_B in
+    the path's dtypes."""
+    dev = torch.device("cuda")
+    w = torch.randn(k, n, generator=gen, device=dev) * k ** -0.5
+    p, s = Q.quantize_int4(w, group_size=g)
+    faulty = s.clone()
+    faulty[1] = 0.0  # the planted fault: group 1's scale row dropped
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    least_fault = math.inf
+    path_err = 0.0
+    for m in rows:
+        combos = [(torch.bfloat16, torch.bfloat16),
+                  (torch.bfloat16, torch.float32)]
+        if m <= 64:
+            combos.append((torch.float32, torch.float32))
+        for xd, od in combos:
+            x = torch.randn(m, k, generator=gen, device=dev).to(xd)
+            got = Q.int4_matmul(x, p, s, out_dtype=od)
+            want = Q.int4_matmul_reference(x, p, s).to(od)
+            err = rel_err(got, want)
+            fault = rel_err(
+                Q.int4_matmul_reference(x, p, faulty).to(od), want)
+            if not bool(torch.isfinite(got).all()) or not err <= K7_TOL[od]:
+                raise AssertionError(
+                    f"int4_matmul {name} M={m} x {xd} out {od}: error "
+                    f"{err:.3e} > {K7_TOL[od]:.0e}")
+            if not fault > K7_TOL[od]:
+                raise AssertionError(
+                    f"int4_matmul {name} M={m}: the planted fault reads "
+                    f"{fault:.3e}, within {K7_TOL[od]:.0e}")
+            if m in K7_BITS_ROWS and xd == torch.bfloat16 and not \
+                    torch.equal(_bits(got), _bits(Q.int4_matmul(
+                        x, p, s, out_dtype=od))):
+                raise AssertionError(f"int4_matmul {name} M={m} out {od}: "
+                                     f"two calls differ")
+            worst[od] = max(worst[od], err)
+            least_fault = min(least_fault, fault)
+            if m == DECODE_B and xd == torch.bfloat16 and od == path_out:
+                path_err = max(path_err, float(
+                    (got.float() - want.float()).abs().max()))
+    return p, s, worst, least_fault, path_err
+
+
+def graph_checked(fn, name, what, calls=50):
+    """The device time a call of ``fn(i)`` by CUDA events over a CUDA
+    graph's replay (:func:`graph_ms`), held against the profiler's sum of
+    the kernels whose names hold ``name`` (every kernel for ``name`` None)
+    over ``calls`` eager calls: a trace reading below 0.8 of the graph's
+    time lost records and is taken again, up to twice. Prints both;
+    returns (graph ms, profiler ms, the trace's times by kernel)."""
+    ms = graph_ms(fn)
+    for attempt in range(3):
+        times = device_ms(lambda: fn(0), calls)
+        prof = _kernel_ms(times, name) if name else sum(times.values())
+        agree = prof >= 0.8 * ms
+        print(f"  {what}: graph {ms * 1e3:.2f} us a call, profiler "
+              f"{prof * 1e3:.2f} us ({prof / ms:.3f})"
+              + ("" if agree else f", below 0.8 (trace {attempt + 1} of 3)"),
+              flush=True)
+        if agree:
+            break
+    return ms, prof, times
+
+
 def phase_quant_kernels(Q):
     """K7 and K8 against their plain versions at the serving configuration's
-    shapes, and their device times; returns the kernels-line figures."""
+    shapes and K7's edges, and their device times; returns the
+    kernels-line figures."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     least_fault = math.inf
     path_err = 0.0
     per_call = {}
+    for name, k, n, g in K7_EDGES:
+        _, _, w_edge, f_edge, _ = check_int4(Q, name, k, n, g, K7_ROWS[:4],
+                                             gen, torch.bfloat16)
+        print(f"  int4_matmul {name} K={k} N={n} g={g}: M in {K7_ROWS[:4]} "
+              f"within the limits (largest {max(w_edge.values()):.3e}), "
+              f"planted fault at least {f_edge:.3e}, two calls bit for bit "
+              f"at M in {K7_BITS_ROWS}; plan (tile, cluster, round rows) "
+              f"{Q._int4_plan(DECODE_B, n, k // 2, g, dev)}", flush=True)
+        for od in worst:
+            worst[od] = max(worst[od], w_edge[od])
+        least_fault = min(least_fault, f_edge)
     for name, k, n, per_step in K7_SHAPES:
-        w = torch.randn(k, n, generator=gen, device=dev) * k ** -0.5
-        p, s = Q.quantize_int4(w, group_size=Q.int4_group_size(k))
-        faulty = s.clone()
-        faulty[1] = 0.0  # the planted fault: group 1's scale row dropped
         path_out = torch.float32 if name == "logits" else torch.bfloat16
-        for m in K7_ROWS:
-            combos = [(torch.bfloat16, torch.bfloat16),
-                      (torch.bfloat16, torch.float32)]
-            if m <= 64:
-                combos.append((torch.float32, torch.float32))
-            for xd, od in combos:
-                x = torch.randn(m, k, generator=gen, device=dev).to(xd)
-                got = Q.int4_matmul(x, p, s, out_dtype=od)
-                want = Q.int4_matmul_reference(x, p, s).to(od)
-                err = rel_err(got, want)
-                fault = rel_err(
-                    Q.int4_matmul_reference(x, p, faulty).to(od), want)
-                if not bool(torch.isfinite(got).all()) or not err <= K7_TOL[od]:
-                    raise AssertionError(
-                        f"int4_matmul {name} M={m} x {xd} out {od}: error "
-                        f"{err:.3e} > {K7_TOL[od]:.0e}")
-                if not fault > K7_TOL[od]:
-                    raise AssertionError(
-                        f"int4_matmul {name} M={m}: the planted fault reads "
-                        f"{fault:.3e}, within {K7_TOL[od]:.0e}")
-                worst[od] = max(worst[od], err)
-                least_fault = min(least_fault, fault)
-                if m == DECODE_B and xd == torch.bfloat16 and od == path_out:
-                    path_err = max(path_err, float(
-                        (got.float() - want.float()).abs().max()))
-        # device times at the decode batch, in the path's dtypes (the
-        # kernel and, under split-K, its second pass)
+        p, s, w_shape, f_shape, e_shape = check_int4(
+            Q, name, k, n, Q.int4_group_size(k), K7_ROWS, gen, path_out)
+        for od in worst:
+            worst[od] = max(worst[od], w_shape[od])
+        least_fault = min(least_fault, f_shape)
+        path_err = max(path_err, e_shape)
+        # device times at the decode batch, in the path's dtypes: by CUDA
+        # events over a graph of back-to-back calls, warm (one weight, held
+        # in L2) and cold (copies beyond L2), the profiler held against it
         x = torch.randn(DECODE_B, k, generator=gen, device=dev).bfloat16()
-        ms = _kernel_ms(device_ms(
-            lambda: Q.int4_matmul(x, p, s, out_dtype=path_out), 50),
-            "int4_mm")
+        copies = max(1, min(GRAPH_CALLS, -(-COLD_BYTES // (
+            p.numel() + 4 * s.numel()))))
+        weights = [(p, s)] + [(p.clone(), s.clone())
+                              for _ in range(copies - 1)]
+        ms, prof, times = graph_checked(
+            lambda i: Q.int4_matmul(x, p, s, out_dtype=path_out), "int4_mm",
+            f"int4_matmul {name}")
+        # one launch a call, no second pass, no workspace
+        names = sorted(key for key in times if "int4_mm" in key)
+        if not names or any("int4_mm_decode" not in key for key in names):
+            raise AssertionError(f"int4_matmul {name}: kernels {names}, "
+                                 f"want int4_mm_decode alone")
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        y = Q.int4_matmul(x, p, s, out_dtype=path_out)
+        extra = torch.cuda.max_memory_allocated() - before
+        if extra > -(-y.numel() * y.element_size() // 512) * 512:
+            raise AssertionError(f"int4_matmul {name}: a call allocated "
+                                 f"{extra} bytes beside its output")
+        del y
+        ms_cold = graph_ms(lambda i: Q.int4_matmul(
+            x, *weights[i % copies], out_dtype=path_out))
         plain = sum(device_ms(lambda: Q.int4_matmul_reference(x, p, s).to(
             path_out), 10).values())
         w_deq = Q.dequantize_int4(p, s).t().contiguous()  # [N, K] bf16
-        lib = sum(device_ms(lambda: torch.nn.functional.linear(x, w_deq),
-                            50).values())
+        lin = [w_deq] + [w_deq.clone() for _ in range(max(0, min(
+            GRAPH_CALLS, -(-COLD_BYTES // (2 * k * n))) - 1))]
+        lib, lib_prof, _ = graph_checked(
+            lambda i: torch.nn.functional.linear(x, w_deq), None,
+            f"F.linear {name}")
+        lib_cold = graph_ms(lambda i: torch.nn.functional.linear(
+            x, lin[i % len(lin)]))
         xl = torch.randn(K7_ROWS[-1], k, generator=gen, device=dev).bfloat16()
         ms_large = _kernel_ms(device_ms(
             lambda: Q.int4_matmul(xl, p, s, out_dtype=path_out), 5),
@@ -1976,16 +2115,26 @@ def phase_quant_kernels(Q):
                   + DECODE_B * n * (4 if path_out == torch.float32 else 2))
         by, fl = nbytes / PEAK_BYTES, 2 * DECODE_B * k * n / PEAK_FLOPS
         per_call[name] = dict(k=k, n=n, per_step=per_step, ms=ms,
+                              profiler_ms=prof, cold_ms=ms_cold,
                               plain_ms=plain, library_ms=lib,
+                              library_profiler_ms=lib_prof,
+                              library_cold_ms=lib_cold,
                               bound_ms=max(by, fl) * 1e3,
                               bound_by="bytes" if by >= fl else "operations",
-                              ms_m3072=ms_large, events_ms=events_ms)
+                              ms_m3072=ms_large, events_ms=events_ms,
+                              plan=list(Q._int4_plan(DECODE_B, n, k // 2,
+                                                     Q.int4_group_size(k),
+                                                     dev)))
         print(f"  int4_matmul {name:6} K={k} N={n}: M={DECODE_B} "
-              f"{ms * 1e3:7.2f} us, bound {max(by, fl) * 1e6:6.2f} us, plain "
-              f"{plain * 1e3:8.2f} us, F.linear on the dequantized bf16 "
-              f"weight {lib * 1e3:6.2f} us; M={K7_ROWS[-1]} "
+              f"{ms * 1e3:7.2f} us (cold {ms_cold * 1e3:.2f}), bound "
+              f"{max(by, fl) * 1e6:6.2f} us, plain {plain * 1e3:8.2f} us, "
+              f"F.linear on the dequantized bf16 weight {lib * 1e3:6.2f} us "
+              f"(cold {lib_cold * 1e3:.2f}); M={K7_ROWS[-1]} "
               f"{ms_large * 1e3:8.2f} us; the wrapper by CUDA events over "
-              f"back-to-back calls {events_ms * 1e3:.2f} us", flush=True)
+              f"back-to-back calls {events_ms * 1e3:.2f} us; plan "
+              f"{per_call[name]['plan']}", flush=True)
+        del weights, lin, w_deq
+        torch.cuda.empty_cache()
     print(f"  int4_matmul: largest relative error {worst[torch.float32]:.3e} "
           f"(f32 out, limit {K7_TOL[torch.float32]:.0e}), "
           f"{worst[torch.bfloat16]:.3e} (bf16 out, limit "
@@ -2003,10 +2152,14 @@ def phase_quant_kernels(Q):
               library_ms=step_total("library_ms"), per_call=per_call)
     calls = sum(c["per_step"] for c in per_call.values())
     print(f"  int4_matmul, one decode step's {calls} calls at "
-          f"B={DECODE_B}: {k7['ms'] * 1e3:.1f} "
-          f"us, bound {k7['bound_ms'] * 1e3:.1f} us, plain "
+          f"B={DECODE_B}: {k7['ms'] * 1e3:.1f} us (profiler "
+          f"{step_total('profiler_ms') * 1e3:.1f}, cold "
+          f"{step_total('cold_ms') * 1e3:.1f}), bound "
+          f"{k7['bound_ms'] * 1e3:.1f} us, plain "
           f"{k7['plain_ms'] * 1e3:.1f} us, F.linear {k7['library_ms'] * 1e3:.1f}"
-          f" us", flush=True)
+          f" us (cold {step_total('library_cold_ms') * 1e3:.1f}); the "
+          f"wrappers by CUDA events {step_total('events_ms') * 1e3:.1f} us",
+          flush=True)
     check_int8_matmul(Q, gen)
 
     # K8 is on no path of the port: this phase drives it directly, and its
@@ -2103,26 +2256,41 @@ def quantized_server_reference(model, Q, bits):
     return logits_of
 
 
-def phase_quant_serving(model, models, Q, paged_attention, decode_bf16):
-    """Quantized serving at full width through ServingEngine: int4 (greedy
-    tokens against the dequantized dense model), int4 with an fp8 KV pool,
-    int8 (greedy tokens against a dense forward through int8_matmul); the
-    steady decode of each beside bf16."""
-    per_step = 5 * BLOCKS + 1  # K7 calls per decode step
+K7_PER_STEP = 5 * BLOCKS + 1  # K7 calls per decode step
+
+
+def serve_int4(model, models, Q, paged_attention):
+    """ModernBatchServer(quantize_bits=4) through ServingEngine at full
+    width: K7 and K6 launch counts, greedy tokens against the dequantized
+    dense model, then the steady decode. Returns (results, greedy ids, K7
+    launches, the steady decode's figures)."""
     server = models.ModernBatchServer(model, page_size=PAGE,
                                       total_pages=TOTAL_PAGES,
                                       quantize_bits=4)
     prompts, results, greedy, steps = serve_requests(models, server)
     k7_launches = Q.int4_matmul.launches
-    check_launches("int4_matmul", k7_launches, per_step * steps)
+    check_launches("int4_matmul", k7_launches, K7_PER_STEP * steps)
     check_launches("paged_attention", paged_attention.launches,
                    BLOCKS * steps)
     check_greedy(quantized_server_reference(model, Q, 4), prompts, results,
                  greedy, QMARGIN)
     torch.cuda.empty_cache()
-    decode = {"bf16": decode_bf16,
-              "int4": steady_decode(models, server, "int4")}
-    del server
+    decode = steady_decode(models, server, "int4")
+    print(f"  steady decode int4: profiled step "
+          f"{decode['device_us_per_step']:.1f} us of device time, K7 "
+          f"{100 * decode['k7_share']:.1f}% of it", flush=True)
+    return results, greedy, k7_launches, decode
+
+
+def phase_quant_serving(model, models, Q, paged_attention, decode_bf16):
+    """Quantized serving at full width through ServingEngine: int4 (greedy
+    tokens against the dequantized dense model), int4 with an fp8 KV pool,
+    int8 (greedy tokens against a dense forward through int8_matmul); the
+    steady decode of each beside bf16."""
+    per_step = K7_PER_STEP
+    results, greedy, k7_launches, decode_int4 = serve_int4(
+        model, models, Q, paged_attention)
+    decode = {"bf16": decode_bf16, "int4": decode_int4}
 
     server = models.ModernBatchServer(model, page_size=PAGE,
                                       total_pages=TOTAL_PAGES,
@@ -2164,7 +2332,9 @@ def phase_quant_serving(model, models, Q, paged_attention, decode_bf16):
         d = decode[what]
         print(f"  steady decode {what:9}: {d['tok_s']:.1f} tok/s; profiled "
               f"step {d['device_us_per_step']:.1f} us of device time, "
-              f"{d['device_ops_per_step']:.1f} device ops", flush=True)
+              f"{d['device_ops_per_step']:.1f} device ops"
+              + (f", K7 {100 * d['k7_share']:.1f}%" if d["k7_share"] else ""),
+              flush=True)
     return k7_launches, fp8_launches, decode
 
 
@@ -2946,7 +3116,11 @@ def main() -> int:
     row = {k: row[k] for k in keys}
     row["note"] = ("ms, plain_ms, bound_ms and library_ms: the sum over one "
                    "decode step's 61 calls at B=32 (library: F.linear on the "
-                   "dequantized bf16 weight); per_call: each shape")
+                   "dequantized bf16 weight); ms and library_ms by CUDA "
+                   "events over a CUDA graph of 100 calls on one weight; "
+                   "per_call: each shape, with the profiler's sum, cold "
+                   "times (copies beyond L2), the wrapper's eager time and "
+                   "the launch plan")
     row["per_call"] = k7["per_call"]
     rows.append(row)
     row = dict(name="quantize_int8_stochastic", route="cuda",

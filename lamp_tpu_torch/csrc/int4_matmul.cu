@@ -9,58 +9,90 @@
 // (rows [kk*g, (kk+1)*g)) is scaled by scales row kk, the same rows of the
 // high half by row kk + K/(2g).
 //
-// Arithmetic (the TPU kernel's): per K-group, x in its own dtype times the
-// exact integer codes, summed in f32; each group's partial product is scaled
+// Arithmetic (the TPU kernel's): x in its own dtype times the exact integer
+// codes, summed in f32 per K-group; each group's partial product is scaled
 // by its f32 scale row before it is added to the f32 output; the output is
 // written once in out's dtype (f32 for the logits, bf16 for the layers).
+// A group cut between two blocks' K slices is scaled in each part:
+// (a + b) s = a s + b s up to the rounding order.
 //
 // What bounds it: the packed weight bytes. Decode multiplies a few rows
-// (M <= 64) by each weight, so the call reads K*N/2 bytes of weight and does
-// 2*M FLOPs per weight element, far below the card's ridge; at the serving
-// shapes (K=768, g=128) the 768 x 32000 logits matrix is 12.3 MB packed.
-// The design reads each packed byte once per row tile and uses both of its
-// nibbles (one load feeds the low-half and the high-half products), and
-// never writes the dequantized weight to device memory.
+// (M <= 64) by each weight, so a call reads K*N/2 bytes of weight and does
+// 2*M operations per weight element, far below the card's ridge. At the
+// serving shapes (K = 768 or 2048, g = 128, M = 32) a layer's matrix is
+// 0.3-0.8 MB packed (bound 0.12-0.30 us at 3.35 TB/s) and the 768 x 32000
+// logits matrix 12.3 MB (5.13 us): a layer's call is a chain of fixed
+// latencies, each paid once a block.
 //
-// Design (tensor-core path: bf16 x, g a multiple of 16): a block of 4 warps
-// owns a BM x 64 output tile (BM = 32 for up to 32 rows, the decode batch,
-// else 64); warp w owns columns [16w, 16w+16) and every active 16-row tile.
-// The TPU grid's sequential K axis becomes a loop inside the block over
-// chunks of KC in {16, 32, 64} rows of the half (KC divides g), staged in
-// shared memory by cp.async three chunks deep (two in flight while one is
-// used): the x rows of the low half and of the high half ([BM, KC]
-// bf16 each), the packed bytes ([KC, 64]) and the scale rows of the chunk's
-// group ([2, 64] f32). Per k16 step each lane reads
-// the 4 bytes of its B fragment and turns each nibble into bf16 exactly
-// (0x4300 | v is 128 + v in bf16; minus 136 gives v - 8), which feeds two
-// mma.sync m16n8k16 (f32 accumulators): one for the low half, one for the
-// high half. At the end of each group the two partial sums are scaled by
-// that group's scale rows and added to the output accumulators. Rows past M
-// and columns past N are masked (zero-filled when staged, not stored); row
-// tiles past M are skipped.
+// Decode kernel (int4_mm_decode: bf16 x, g a multiple of 16, M <= 64). The
+// row-tiled kernel below, split over K for these rows, paid four costs many
+// times over; what this design does about each:
+//  1. A second launch and a round trip through device memory (partial
+//     tiles written to a workspace for a second kernel to add). Here a call
+//     is one launch with no workspace: where the output tiles are too few,
+//     the K range is split over the blocks of a thread-block cluster (<= 8,
+//     the portable size). Each block adds its warps' partials in its shared
+//     memory and sends each share of the tile to the rank that owns it, by
+//     st.async into that rank's shared memory (distributed shared memory),
+//     completing on the owner's mbarrier; the owner adds the slots in rank
+//     order and stores, so two calls give the same bits. No rank waits on
+//     the whole cluster or reads another's memory.
+//  2. Chunk-serial latency (chunks of <= 64 rows, two in flight, two block
+//     barriers each). Here a block puts its whole K slice in flight at
+//     once, as 16-byte cp.async pieces spread over its 256 threads, each
+//     thread's pieces arriving on one mbarrier when they land
+//     (cp.async.mbarrier.arrive.noinc): one DRAM latency a block. Bulk
+//     copies of whole rows (cp.async.bulk) were slower on an H100: a warp
+//     issues its lanes' bulk copies one after another. A slice that does
+//     not fit (large K) goes in rounds of R rows through two stages, the
+//     next round in flight under this one.
+//  3. x staged again for every chunk and block. Here a block stages its K
+//     slice of both halves' x rows once, beside the weight.
+//  4. Byte-wise fragment reads. Here the operands are swapped: the weight's
+//     16 output columns are the A operand of mma.sync m16n8k16 and x's rows
+//     the 8-wide B. One ldmatrix.trans of the packed bytes (pairs of bytes
+//     as b16 elements) gives each lane k = 2t, 2t+1 (and 2t+8, 2t+9) of
+//     columns 2g and 2g+1; masks and shifts turn each 32-bit register into
+//     the low-half and the high-half A fragments of both columns, so one
+//     byte feeds both halves' products. A rows g and g+8 are columns 2g
+//     and 2g+1 of the warp's 16. A step's fragments are all loaded before
+//     its products.
+// A block is 8 warps over BN (32, 64 or 128) output columns: BN/16 column
+// groups, each taking 8/(BN/16) parts of the block's K slice. The caller
+// (ops/quantization.py:_int4_plan) chooses BN, the cluster size and the
+// round rows: about a block for every two SMs (more blocks in more ranks
+// cost more in the cluster sum than they save), 128 columns where the
+// 64-column tiles are many (the logits: x staged once per 128 columns).
+// The plan's arithmetic is done on the host, and no copy loop divides by a
+// value known only at run time. The kernel refuses a plan it cannot run.
+// What a layer's call spends beside its launch, by a clock64 timeline of
+// each block (scripts/exp_int4_variants.py): the barriers' setup, the
+// copies' issue and landing, the products and the cluster sum, each a few
+// hundred nanoseconds.
 //
-// Split-K: at decode shapes a layer's matrix gives few blocks (N=768: 12
-// tiles on 132 SMs), and a block's time grows with the chunks it walks
-// (~1 us each on an H100, mostly fixed cost per chunk), so the caller may
-// divide the K-groups over `splits` blocks per tile. Each writes its f32
-// partial tile to a workspace, and a second pass adds the splits in order
-// and writes out's dtype: deterministic, no atomics.
+// Row-tiled kernel (int4_mm_tc: bf16 x, g a multiple of 16, M > 64, an LM
+// forward's rows): a block of 4 warps owns a 64 x 64 output tile and walks
+// the K range in chunks of KC in {16, 32, 64} rows staged by cp.async three
+// deep. Its tiles fill the card, so it does not split K.
 //
 // f32 x, or a group that is not a multiple of 16, takes a scalar kernel (one
 // thread per column, 8 rows per block): a checking path, not a fast one.
-//
-// Left for later: wgmma with TMA, and the per-chunk fixed cost.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
+namespace cg = cooperative_groups;
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 128;  // 4 warps
-constexpr int kBN = 64;        // output columns per block, 16 per warp
+constexpr int kThreads = 128;  // 4 warps (row-tiled and scalar kernels)
+constexpr int kBN = 64;        // output columns per row-tiled block, 16 per warp
+constexpr int kBM = 64;        // rows per row-tiled block
 constexpr int kStages = 3;     // chunks staged: 2 in flight beside the one in use
 constexpr int kXPad = 8;       // bf16 elements of row padding (x tiles)
 constexpr int kWPad = 16;      // bytes of row padding (packed tile)
@@ -116,6 +148,15 @@ __device__ __forceinline__ uint32_t dequant2(uint32_t v0, uint32_t v1) {
   return *reinterpret_cast<uint32_t*>(&r);
 }
 
+// the low nibbles of bytes 0 and 2 of (v >> shift) -> a bf16 pair of their
+// values minus 8, exactly (0x4300 | c is 128 + c in bf16)
+__device__ __forceinline__ uint32_t nibbles(uint32_t v, int shift) {
+  uint32_t bits = ((v >> shift) & 0x000F000Fu) | 0x43004300u;
+  __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&bits),
+                             __floats2bfloat162_rn(136.f, 136.f));
+  return *reinterpret_cast<uint32_t*>(&r);
+}
+
 __device__ __forceinline__ void store2(float* out, long long i, float a, float b) {
   *reinterpret_cast<float2*>(out + i) = make_float2(a, b);
 }
@@ -126,8 +167,364 @@ __device__ __forceinline__ void store1(float* out, long long i, float a) { out[i
 __device__ __forceinline__ void store1(bf16* out, long long i, float a) {
   out[i] = __float2bfloat16(a);
 }
+__device__ __forceinline__ void store4(float* out, long long i, float4 v) {
+  *reinterpret_cast<float4*>(out + i) = v;
+}
+__device__ __forceinline__ void store4(bf16* out, long long i, float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 bits = make_uint2(*reinterpret_cast<uint32_t*>(&lo), *reinterpret_cast<uint32_t*>(&hi));
+  *reinterpret_cast<uint2*>(out + i) = bits;
+}
 
-// a warp's C fragments of a BM x 64 tile into dst [m, n], rows past m and
+// ---------------------------------------------------------------------------
+// Decode kernel: one launch, split-K over a cluster
+// ---------------------------------------------------------------------------
+
+// a split cluster barrier: an arrival that lets the rank go on, and later a
+// wait for every rank's arrival
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// the address of shared memory `addr` of this block in cluster rank `rank`
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// a float4 into the shared memory of another block of the cluster,
+// completing `bytes` (16) on that block's mbarrier `bar` (both mapped)
+__device__ __forceinline__ void st_async(uint32_t addr, float4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+constexpr int kMaxCluster = 8;  // the portable cluster size
+constexpr int kDecWarps = 8;
+constexpr int kDecThreads = 32 * kDecWarps;
+constexpr int kMaxSmem = 232448;  // 227 KB, a block's most on an H100
+constexpr int kBarBytes = 128;    // the stages' mbarriers, then the stages
+
+// Byte layout of one stage of a round of R packed rows, staged x rows
+// mrows (a multiple of 8) and BN columns (after the stages, or the K
+// parts' partial tiles where those are larger, comes `recv`, the cluster
+// sum's [cluster][ceil(mrows BN / 4 / cluster)] float4s):
+//   w   [R][BN + 16]             packed bytes, a row padded by 16 bytes so
+//                                that ldmatrix's 8 rows lie in 8 bank groups
+//   x   [2][mrows][2R + 16]      bytes: x's low-half and high-half columns
+//                                of the round, bf16, rows padded alike
+//   sc  [2][groups][BN]          f32 scale rows of the groups the round
+//                                touches (low half, then high half)
+// groups = (R + g - 17) / g + 1, the most a span of R rows starting at a
+// multiple of 16 touches. ops/quantization.py:_int4_decode_smem repeats
+// this arithmetic to choose R.
+struct Layout {
+  int rows, stages, x, sc, bytes, groups, recv;
+  Layout() = default;
+  __host__ __device__ Layout(int bn, int mrows, int k2, int g, int cluster, int round_rows) {
+    const int steps = k2 / 16;
+    const int slice = 16 * ((steps + cluster - 1) / cluster);  // the longest slice
+    const int r = round_rows < slice ? round_rows : slice;
+    rows = r;
+    stages = r < slice ? 2 : 1;
+    x = r * (bn + 16);
+    sc = x + 2 * mrows * (2 * r + 16);
+    groups = (r + g - 17) / g + 1;
+    bytes = sc + 2 * groups * bn * 4;  // of a stage
+    // the K parts' partial tiles [8 / (BN/16)][mrows][BN + 4] f32, over
+    // the stages once every product is done
+    const int red = (kDecWarps / (bn / 16)) * mrows * (bn + 4) * 4;
+    recv = stages * bytes > red ? stages * bytes : red;
+  }
+  // the dynamic shared memory (bytes)
+  __host__ __device__ int smem(int bn, int mrows, int cluster) const {
+    const int share = (mrows * bn / 4 + cluster - 1) / cluster;
+    return kBarBytes + recv + (cluster > 1 ? cluster * share * 16 : 0);
+  }
+};
+
+// What a launch of the decode kernel needs beside its pointers, computed on
+// the host so that no block divides by a value known only at run time
+// before its copies are in flight.
+struct Plan {
+  int m, k, n, group;
+  Layout lay;
+  int share;                        // float4s of the tile each rank owns
+  int bounds[kMaxCluster + 1];      // rank r's packed rows [bounds[r], bounds[r+1])
+  bool vec;                         // weight and scale rows by 16-byte pieces
+};
+
+// x [m, k] bf16, packed [k/2, n], scales [k/g, n] f32, out [m, n]. Grid:
+// ceil(n / BN) tiles x `cluster` blocks, a cluster per tile (the cluster's
+// index is the tile's); rank r takes the 16-row steps [r T / c, (r + 1) T /
+// c) of the T = k/32 steps of the half. NT: the 8-row tiles of x held
+// (ceil(m / 8) <= NT). vec: n % 16 == 0 and packed, scales 16-byte aligned,
+// so that weight and scale rows go by 16-byte cp.async (else plain loads).
+template <int BN, int NT, typename O>
+__global__ void __launch_bounds__(kDecThreads)
+int4_mm_decode(const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
+               const float* __restrict__ scales, O* __restrict__ out, const Plan pl) {
+  constexpr int kGroupsC = BN / 16;           // column groups of 16
+  constexpr int kParts = kDecWarps / kGroupsC;  // K parts per column group
+  constexpr int kWS = BN + 16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);  // a stage's mbarrier each
+  unsigned char* stages = smem + kBarBytes;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  uint32_t tile;
+  asm("mov.u32 %0, %%clusterid.x;\n" : "=r"(tile));
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int m = pl.m, k = pl.k, n = pl.n, group = pl.group, k2 = k / 2;
+  const Layout lay = pl.lay;
+  const bool vec = pl.vec;
+  const int n0 = tile * BN;
+  int row0 = 0, row1 = 0;  // selected, not indexed: the plan stays in registers
+#pragma unroll
+  for (int r = 0; r < kMaxCluster; ++r) {
+    if (r == rank) row0 = pl.bounds[r], row1 = pl.bounds[r + 1];
+  }
+  const int nt = (m + 7) / 8, mrows = 8 * nt;
+  const int R = lay.rows, n_stages = lay.stages;
+  const int wb = min(BN, n - n0);  // the tile's valid columns
+  const int XS = 2 * R + 16;
+
+  // the tile's float4s (valid rows), the share of them each rank owns in
+  // the cluster's sum, and where that sum lands
+  constexpr int kC4 = BN / 4;
+  const int total4 = m * kC4, share = pl.share;
+  float4* recv = reinterpret_cast<float4*>(stages + lay.recv);
+  // put the round of rows [a, a + R) in flight into stage i: x's rows, the
+  // packed rows and the scale rows of the groups the round touches, as
+  // 16-byte cp.async pieces spread over the threads (the weight and scales
+  // by plain loads unless vec). No integer division by a value known only
+  // at run time inside the loops: each sits on the call's critical path.
+  auto issue = [&](int a, int i) {
+    unsigned char* st = stages + i * lay.bytes;
+    const int rows = min(R, row1 - a), px = rows / 8;
+    // piece (seg, q): x row seg % m of half seg / m, bytes [16 q, 16 q + 16)
+    int seg = tid / px, q = tid - seg * px;
+    const int dseg = kDecThreads / px, dq = kDecThreads - dseg * px;
+    while (seg < 2 * m) {
+      const int half = seg >= m, r = seg - half * m;
+      cp_async16(st + lay.x + (half * mrows + r) * XS + q * 16,
+                 x + (long long)r * k + half * k2 + a + q * 8, true);
+      seg += dseg, q += dq;
+      if (q >= px) q -= px, ++seg;
+    }
+    const int g0 = a / group, ng = (a + rows - 1) / group - g0 + 1, n_kp = k2 / group;
+    if (vec) {
+      constexpr int kWP = BN / 16, kSP = BN / 4;  // pieces of a packed, a scale row
+      for (int c = tid; c < rows * kWP; c += kDecThreads) {
+        const int r = c / kWP, p = c % kWP;
+        if (p * 16 < wb)
+          cp_async16(st + r * kWS + p * 16, packed + (long long)(a + r) * n + n0 + p * 16, true);
+      }
+      for (int c = tid; c < 2 * ng * kSP; c += kDecThreads) {
+        const int sg = c / kSP, p = c % kSP, half = sg >= ng, gi = sg - half * ng;
+        if (p * 4 < wb)
+          cp_async16(st + lay.sc + (half * lay.groups + gi) * BN * 4 + p * 16,
+                     scales + (long long)(g0 + gi + half * n_kp) * n + n0 + p * 4, true);
+      }
+    } else {
+      for (int c = tid; c < rows * BN; c += kDecThreads) {
+        const int r = c / BN, col = c % BN;
+        st[r * kWS + col] = col < wb ? packed[(long long)(a + r) * n + n0 + col] : 0;
+      }
+      float* sc = reinterpret_cast<float*>(st + lay.sc);
+      for (int c = tid; c < 2 * ng * BN; c += kDecThreads) {
+        const int sg = c / BN, col = c % BN, half = sg >= ng, gi = sg - half * ng;
+        sc[(half * lay.groups + gi) * BN + col] =
+            col < wb ? scales[(long long)(g0 + gi + half * n_kp) * n + n0 + col] : 0.f;
+      }
+    }
+  };
+  // this thread's pieces so far arrive on stage i's mbarrier once landed
+  auto arrive = [&](int i) {
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                     smem_addr(&bar[i]))
+                 : "memory");
+  };
+  // the first round goes out before anything else, so that setting up the
+  // barriers overlaps its flight; then rounds through n_stages stages, the
+  // next round in flight under this one
+  issue(row0, 0);
+  if (tid == 0) {
+    // a stage's barrier: an arrival from each thread once its pieces land
+    for (int i = 0; i < n_stages; ++i) hopper::mbar_init(&bar[i], kDecThreads);
+    if (cs > 1) {  // bar[2]: every rank's share of this rank's elements
+      hopper::mbar_init(&bar[2], 1);
+      hopper::mbar_arrive_tx(&bar[2], cs * 16 * max(0, min(share, total4 - rank * share)));
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (cs > 1) cluster_arrive_relaxed();  // this rank's recv is ready
+  arrive(0);
+  if (n_stages == 2 && row0 + R < row1) {
+    issue(row0 + R, 1);
+    arrive(1);
+  }
+
+  const int cgp = warp % kGroupsC, part = warp / kGroupsC;
+  const int g_row = lane >> 2, t = lane & 3;
+  float acc[NT][4], dlo[NT][4], dhi[NT][4];
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = dlo[i][e] = dhi[i][e] = 0.f;
+
+  for (int a = row0, j = 0; a < row1; a += R, ++j) {
+    const unsigned char* st = stages + (j & 1) * lay.bytes;
+    hopper::mbar_wait(&bar[j & 1], (j >> 1) & 1);
+    if (!vec) __syncthreads();  // the plain loads of the weight and scales
+    const int n_steps = min(R, row1 - a) / 16;
+    const int s0 = part * n_steps / kParts, s1 = (part + 1) * n_steps / kParts;
+    const float* sc = reinterpret_cast<const float*>(st + lay.sc);
+    // add this warp's partial sums of group gi, scaled by its rows
+    auto flush = [&](int gi) {
+      const float2 sl = *reinterpret_cast<const float2*>(
+          sc + gi * BN + cgp * 16 + 2 * g_row);
+      const float2 sh = *reinterpret_cast<const float2*>(
+          sc + (lay.groups + gi) * BN + cgp * 16 + 2 * g_row);
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        // c0, c1: column 2g; c2, c3: column 2g + 1
+        acc[i][0] += dlo[i][0] * sl.x + dhi[i][0] * sh.x;
+        acc[i][1] += dlo[i][1] * sl.x + dhi[i][1] * sh.x;
+        acc[i][2] += dlo[i][2] * sl.y + dhi[i][2] * sh.y;
+        acc[i][3] += dlo[i][3] * sl.y + dhi[i][3] * sh.y;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dlo[i][e] = dhi[i][e] = 0.f;
+      }
+    };
+    // lanes 0-15 address rows 0-15 of the step's packed rows at the warp's
+    // 16 columns; lanes 0-7, 8-15, 16-23, 24-31 the x rows of the low half
+    // k 0-7, k 8-15, then the high half's
+    const uint32_t w_lane = smem_addr(st + (lane & 15) * kWS + cgp * 16);
+    const uint32_t x_lane = smem_addr(
+        st + lay.x + ((lane >> 4) * mrows + (lane & 7)) * XS + ((lane >> 3) & 1) * 16);
+    // the group of step s0 and the step where the next one starts
+    int gi = (a + 16 * s0) / group - a / group;
+    int next = ((a / group + gi + 1) * group - a) / 16;
+    for (int s = s0; s < s1; ++s) {
+      if (s == next) {
+        flush(gi++);
+        next += group / 16;
+      }
+      // every fragment of the step first, then the products
+      uint32_t w0, w1, b[NT][4];
+      asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+                   : "=r"(w0), "=r"(w1)
+                   : "r"(w_lane + s * 16 * kWS));
+#pragma unroll
+      for (int i = 0; i < NT; ++i)
+        if (i < nt)
+          asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                       : "=r"(b[i][0]), "=r"(b[i][1]), "=r"(b[i][2]), "=r"(b[i][3])
+                       : "r"(x_lane + i * 8 * XS + s * 32));
+      const uint32_t alo[4] = {nibbles(w0, 0), nibbles(w0, 8), nibbles(w1, 0), nibbles(w1, 8)};
+      const uint32_t ahi[4] = {nibbles(w0, 4), nibbles(w0, 12), nibbles(w1, 4),
+                               nibbles(w1, 12)};
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        if (i < nt) {
+          mma(dlo[i], alo, b[i][0], b[i][1]);
+          mma(dhi[i], ahi, b[i][2], b[i][3]);
+        }
+      }
+    }
+    if (s0 < s1) flush(gi);
+    if (a + 2 * R < row1) {
+      __syncthreads();  // every warp is done with this stage
+      issue(a + 2 * R, j & 1);
+      arrive(j & 1);
+    }
+  }
+
+  // the block's partial tile: each K part's [mrows][BN] (over the stages),
+  // then the parts added in order
+  __syncthreads();
+  constexpr int RS = BN + 4;
+  float* red = reinterpret_cast<float*>(stages);
+#pragma unroll
+  for (int i = 0; i < NT; ++i) {
+    if (i < nt) {
+      float* r = red + (part * mrows + 8 * i + 2 * t) * RS + cgp * 16 + 2 * g_row;
+      *reinterpret_cast<float2*>(r) = make_float2(acc[i][0], acc[i][2]);
+      *reinterpret_cast<float2*>(r + RS) = make_float2(acc[i][1], acc[i][3]);
+    }
+  }
+  __syncthreads();
+  const bool vec4 = n % 4 == 0;
+  auto put = [&](int e, float4 v) {  // element e (a float4) of the tile
+    const int row = e / kC4, c = 4 * (e % kC4);
+    const long long i = (long long)row * n + n0 + c;
+    if (vec4 && c + 4 <= wb) {
+      store4(out, i, v);
+    } else {
+      if (c < wb) store1(out, i, v.x);
+      if (c + 1 < wb) store1(out, i + 1, v.y);
+      if (c + 2 < wb) store1(out, i + 2, v.z);
+      if (c + 3 < wb) store1(out, i + 3, v.w);
+    }
+  };
+  // the cluster's sum: rank r owns the share [r S, (r + 1) S) of the
+  // tile's float4s; every rank sends each share of its partial to its
+  // owner's `recv` [cs][S] (slot = the sender's rank) by st.async, which
+  // completes on the owner's mbarrier, and each owner, once every byte has
+  // landed, adds its slots in rank order and stores. Nothing waits on the
+  // whole cluster, and nothing is read across blocks.
+  if (cs > 1) cluster_wait();  // every rank's recv and mbarrier exist
+  for (int q = 0; q < cs; ++q) {
+    const int base = q * share, count = min(share, total4 - base);
+    const uint32_t slot = map_rank(smem_addr(recv + rank * share), q);
+    const uint32_t owner_bar = map_rank(smem_addr(&bar[2]), q);
+    for (int i = tid; i < count; i += kDecThreads) {
+      const int e = base + i;
+      const float4* p0 = reinterpret_cast<const float4*>(red + (e / kC4) * RS) + e % kC4;
+      float4 v = *p0;
+#pragma unroll
+      for (int pq = 1; pq < kParts; ++pq) {
+        const float4 u = *reinterpret_cast<const float4*>(
+            reinterpret_cast<const float*>(p0) + pq * mrows * RS);
+        v.x += u.x, v.y += u.y, v.z += u.z, v.w += u.w;
+      }
+      if (cs == 1)
+        put(e, v);
+      else
+        st_async(slot + i * 16, v, owner_bar);
+    }
+  }
+  if (cs == 1) return;
+  hopper::mbar_wait(&bar[2], 0);
+  for (int i = tid; i < share && rank * share + i < total4; i += kDecThreads) {
+    float4 v = recv[i];
+#pragma unroll
+    for (int q = 1; q < kMaxCluster; ++q) {
+      if (q < cs) {
+        const float4 u = recv[q * share + i];
+        v.x += u.x, v.y += u.y, v.z += u.z, v.w += u.w;
+      }
+    }
+    put(rank * share + i, v);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Row-tiled kernel (M > 64)
+// ---------------------------------------------------------------------------
+
+// a warp's C fragments of a kBM x 64 tile into dst [m, n], rows past m and
 // columns past n masked
 template <int MT, typename O>
 __device__ __forceinline__ void store_tile(O* dst, const float (&acc)[MT][2][4], int m, int n,
@@ -157,34 +554,32 @@ __device__ __forceinline__ void store_tile(O* dst, const float (&acc)[MT][2][4],
   }
 }
 
-template <int KC, int BM>
-struct Stage {
-  bf16 x[2][BM][KC + kXPad];  // low-half and high-half x rows
-  uint8_t w[KC][kWS];         // packed bytes
-  float sc[2][kBN];           // the chunk's group's low and high scale rows
+template <int KC>
+struct TileStage {
+  bf16 x[2][kBM][KC + kXPad];  // low-half and high-half x rows
+  uint8_t w[KC][kWS];          // packed bytes
+  float sc[2][kBN];            // the chunk's group's low and high scale rows
 };
 
-template <int KC, int BM, typename O>
+template <int KC, typename O>
 __global__ void __launch_bounds__(kThreads)
 int4_mm_tc(const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
-           const float* __restrict__ scales, O* __restrict__ out, float* __restrict__ part,
-           int m, int k, int n, int group, int groups_per_split, bool vec) {
+           const float* __restrict__ scales, O* __restrict__ out, int m, int k, int n,
+           int group, bool vec) {
   constexpr int kXS = KC + kXPad;
-  constexpr int kMT = BM / 16;  // 16-row tiles
-  extern __shared__ __align__(16) unsigned char smem[];
-  Stage<KC, BM>* stage = reinterpret_cast<Stage<KC, BM>*>(smem);
+  constexpr int kMT = kBM / 16;  // 16-row tiles
+  extern __shared__ __align__(128) unsigned char smem[];
+  TileStage<KC>* stage = reinterpret_cast<TileStage<KC>*>(smem);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * BM;
+  const int m0 = blockIdx.y * kBM;
   const int k2 = k / 2;
   const int n_kp = k2 / group;       // groups per half
   const int per_group = group / KC;  // chunks per group
-  // this block's groups: all of them, or split z's range under split-K
-  const int c0 = blockIdx.z * groups_per_split * per_group;
-  const int n_chunks = min(n_kp, (blockIdx.z + 1) * groups_per_split) * per_group - c0;
+  const int n_chunks = n_kp * per_group;
   // rows staged and multiplied: whole 16-row tiles covering the valid rows
-  const int rows = min(BM, ((m - m0 + 15) / 16) * 16);
+  const int rows = min(kBM, ((m - m0 + 15) / 16) * 16);
 
   auto load = [&](int st, int c) {
     const int kb = c * KC;
@@ -240,17 +635,15 @@ int4_mm_tc(const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
   // commits one (possibly empty) group, so wait_group counts stay uniform
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
-    if (st < n_chunks) load(st, c0 + st);
+    if (st < n_chunks) load(st, st);
     cp_commit();
   }
-  for (int lc = 0; lc < n_chunks; ++lc) {
-    if (lc + kStages - 1 < n_chunks)
-      load((lc + kStages - 1) % kStages, c0 + lc + kStages - 1);
+  for (int c = 0; c < n_chunks; ++c) {
+    if (c + kStages - 1 < n_chunks) load((c + kStages - 1) % kStages, c + kStages - 1);
     cp_commit();
     cp_wait<kStages - 1>();
     __syncthreads();
-    const int c = c0 + lc;
-    const Stage<KC, BM>& s = stage[lc % kStages];
+    const TileStage<KC>& s = stage[c % kStages];
 #pragma unroll
     for (int ks = 0; ks < KC / 16; ++ks) {
       uint32_t blo[2][2], bhi[2][2];
@@ -297,23 +690,7 @@ int4_mm_tc(const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
     }
     __syncthreads();  // this stage is refilled by a later iteration's load
   }
-
-  // split-K: f32 partial sums of split z, added in order by
-  // int4_mm_split_sum
-  if (part != nullptr)
-    store_tile(part + (long long)blockIdx.z * m * n, acc, m, n, m0, n0, rows, warp, lane);
-  else
-    store_tile(out, acc, m, n, m0, n0, rows, warp, lane);
-}
-
-template <typename O>
-__global__ void int4_mm_split_sum(const float* __restrict__ part, O* __restrict__ out,
-                                  long long mn, int splits) {
-  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (i >= mn) return;
-  float total = part[i];
-  for (int z = 1; z < splits; ++z) total += part[z * mn + i];
-  store1(out, i, total);
+  store_tile(out, acc, m, n, m0, n0, rows, warp, lane);
 }
 
 // scalar path: one thread per output column, kRowsS rows per block
@@ -359,41 +736,70 @@ int4_mm_scalar(const T* __restrict__ x, const uint8_t* __restrict__ packed,
     if (r < rows) store1(out, (long long)(m0 + r) * n + col, acc[r]);
 }
 
-template <int KC, int BM, typename O>
+template <int BN, int NT, typename O>
+cudaError_t launch_decode(const void* x, const void* packed, const void* scales, void* out,
+                          int m, int k, int n, int group, int cluster, int round_rows,
+                          cudaStream_t stream) {
+  const int mrows = 8 * ((m + 7) / 8), steps = k / 32;
+  Plan pl;
+  pl.m = m, pl.k = k, pl.n = n, pl.group = group;
+  pl.lay = Layout(BN, mrows, k / 2, group, cluster, round_rows);
+  const int smem = pl.lay.smem(BN, mrows, cluster);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  pl.share = (m * (BN / 4) + cluster - 1) / cluster;
+  for (int r = 0; r <= cluster; ++r) pl.bounds[r] = 16 * (r * steps / cluster);
+  pl.vec = n % 16 == 0 && reinterpret_cast<uintptr_t>(packed) % 16 == 0 &&
+           reinterpret_cast<uintptr_t>(scales) % 16 == 0;
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      int4_mm_decode<BN, NT, O>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (opt_in != cudaSuccess) return opt_in;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(((n + BN - 1) / BN) * cluster);
+  cfg.blockDim = dim3(kDecThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, int4_mm_decode<BN, NT, O>, static_cast<const bf16*>(x),
+                            static_cast<const uint8_t*>(packed),
+                            static_cast<const float*>(scales), static_cast<O*>(out), pl);
+}
+
+template <int BN, typename O>
+cudaError_t launch_decode_rows(const void* x, const void* packed, const void* scales,
+                               void* out, int m, int k, int n, int group, int cluster,
+                               int round_rows, cudaStream_t stream) {
+#define LAMP_I4_DEC(NT)                                                                    \
+  return launch_decode<BN, NT, O>(x, packed, scales, out, m, k, n, group, cluster,         \
+                                  round_rows, stream);
+  if (m <= 8) LAMP_I4_DEC(1)
+  if (m <= 16) LAMP_I4_DEC(2)
+  if (m <= 32) LAMP_I4_DEC(4)
+  LAMP_I4_DEC(8)
+#undef LAMP_I4_DEC
+}
+
+template <int KC, typename O>
 cudaError_t launch_tc(const void* x, const void* packed, const void* scales, void* out, int m,
-                      int k, int n, int group, int splits, float* part, cudaStream_t stream) {
-  constexpr int kSmem = kStages * sizeof(Stage<KC, BM>);
+                      int k, int n, int group, cudaStream_t stream) {
+  constexpr int kSmem = kStages * sizeof(TileStage<KC>);
   // above 48 KB only as opted-in dynamic shared memory (set once)
   static const cudaError_t opt_in = cudaFuncSetAttribute(
-      int4_mm_tc<KC, BM, O>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      int4_mm_tc<KC, O>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
   if (opt_in != cudaSuccess) return opt_in;
   // 16-byte copies of the packed rows and the scale rows
   const bool vec = n % 16 == 0 && reinterpret_cast<uintptr_t>(packed) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(scales) % 16 == 0;
-  const int n_kp = k / 2 / group;
-  const int per_split = (n_kp + splits - 1) / splits;
-  if ((splits - 1) * per_split >= n_kp) return cudaErrorInvalidValue;  // an empty split
-  dim3 grid((n + kBN - 1) / kBN, (m + BM - 1) / BM, splits);
-  int4_mm_tc<KC, BM, O><<<grid, kThreads, kSmem, stream>>>(
+  dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
+  int4_mm_tc<KC, O><<<grid, kThreads, kSmem, stream>>>(
       static_cast<const bf16*>(x), static_cast<const uint8_t*>(packed),
-      static_cast<const float*>(scales), static_cast<O*>(out), splits > 1 ? part : nullptr,
-      m, k, n, group, per_split, vec);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return err;
-  const long long mn = (long long)m * n;
-  int4_mm_split_sum<O><<<(unsigned)((mn + 255) / 256), 256, 0, stream>>>(
-      part, static_cast<O*>(out), mn, splits);
+      static_cast<const float*>(scales), static_cast<O*>(out), m, k, n, group, vec);
   return cudaGetLastError();
-}
-
-template <int KC, typename O>
-cudaError_t launch_tc_rows(const void* x, const void* packed, const void* scales, void* out,
-                           int m, int k, int n, int group, int splits, float* part,
-                           cudaStream_t stream) {
-  // decode batches up to 32 rows take a 32-row tile: half the staged bytes
-  return m <= 32
-             ? launch_tc<KC, 32, O>(x, packed, scales, out, m, k, n, group, splits, part, stream)
-             : launch_tc<KC, 64, O>(x, packed, scales, out, m, k, n, group, splits, part, stream);
 }
 
 template <typename T, typename O>
@@ -412,38 +818,54 @@ extern "C" {
 
 // x [m, k] (x_dtype 0 = float32, 1 = bfloat16), packed [k/2, n] uint8,
 // scales [k/group, n] float32, out [m, n] (out_dtype 0 = float32,
-// 1 = bfloat16), all contiguous. splits > 1 (tensor-core path only) divides
-// the K-groups over that many blocks per output tile, ceil(groups / splits)
-// each, which write f32 partial sums into workspace [splits, m, n] for a
-// second pass to add in order. The caller decides splits; a count that
-// leaves a split empty, or splits > 1 on the scalar path, is refused.
-// Returns the cudaError_t of the launches.
+// 1 = bfloat16), all contiguous. The route follows from the inputs: bf16 x
+// with group % 16 == 0 and m <= 64 takes the decode kernel, whose plan the
+// caller gives (tile: BN of 32, 64 or 128; cluster: the blocks of 1-8 that
+// split K for a tile; round_rows: packed rows staged at once, a multiple of
+// 16); bf16 x with group % 16 == 0 and m > 64 the row-tiled kernel, f32 x
+// or another group the scalar kernel, both with tile, cluster and
+// round_rows 0. A plan for another route, or one the decode kernel cannot
+// run (x not 16-byte aligned, more shared memory than a block has), is
+// refused. Returns the cudaError_t of the launch.
 int lamp_int4_matmul(const void* x, const void* packed, const void* scales, void* out, int m,
-                     int k, int n, int group, int x_dtype, int out_dtype, int splits,
-                     void* workspace, void* stream) {
+                     int k, int n, int group, int x_dtype, int out_dtype, int tile,
+                     int cluster, int round_rows, void* stream) {
   if (m == 0 || n == 0) return cudaSuccess;
   if (m < 0 || n < 0 || k <= 0 || k % 2 || group <= 0 || (k / 2) % group)
     return cudaErrorInvalidValue;
-  if (splits < 1 || (splits > 1 && workspace == nullptr)) return cudaErrorInvalidValue;
-  float* part = static_cast<float*>(workspace);
   if (x_dtype < 0 || x_dtype > 1 || out_dtype < 0 || out_dtype > 1)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (x_dtype == 1 && group % 16 == 0) {
+  const bool tc = x_dtype == 1 && group % 16 == 0;
+  if (tc && m <= 64) {
+    if (cluster < 1 || cluster > 8 || cluster > k / 32 || round_rows < 16 ||
+        round_rows % 16 || reinterpret_cast<uintptr_t>(x) % 16)
+      return cudaErrorInvalidValue;
+#define LAMP_I4_DEC_BN(BN)                                                                 \
+  if (tile == BN)                                                                          \
+    return out_dtype == 1 ? launch_decode_rows<BN, bf16>(x, packed, scales, out, m, k, n,  \
+                                                         group, cluster, round_rows, st)   \
+                          : launch_decode_rows<BN, float>(x, packed, scales, out, m, k, n, \
+                                                          group, cluster, round_rows, st);
+    LAMP_I4_DEC_BN(32)
+    LAMP_I4_DEC_BN(64)
+    LAMP_I4_DEC_BN(128)
+#undef LAMP_I4_DEC_BN
+    return cudaErrorInvalidValue;
+  }
+  if (tile != 0 || cluster != 0 || round_rows != 0) return cudaErrorInvalidValue;
+  if (tc) {
     const int kc = group % 64 == 0 ? 64 : (group % 32 == 0 ? 32 : 16);
-#define LAMP_I4_TC(KC)                                                                 \
-  if (kc == KC)                                                                        \
-    return out_dtype == 1                                                              \
-               ? launch_tc_rows<KC, bf16>(x, packed, scales, out, m, k, n, group, splits,    \
-                                          part, st)                                    \
-               : launch_tc_rows<KC, float>(x, packed, scales, out, m, k, n, group, splits,   \
-                                           part, st);
+#define LAMP_I4_TC(KC)                                                             \
+  if (kc == KC)                                                                    \
+    return out_dtype == 1                                                          \
+               ? launch_tc<KC, bf16>(x, packed, scales, out, m, k, n, group, st)   \
+               : launch_tc<KC, float>(x, packed, scales, out, m, k, n, group, st);
     LAMP_I4_TC(64)
     LAMP_I4_TC(32)
     LAMP_I4_TC(16)
 #undef LAMP_I4_TC
   }
-  if (splits != 1) return cudaErrorInvalidValue;
   if (x_dtype == 1)
     return out_dtype == 1 ? launch_scalar<bf16, bf16>(x, packed, scales, out, m, k, n, group, st)
                           : launch_scalar<bf16, float>(x, packed, scales, out, m, k, n, group, st);

@@ -131,8 +131,9 @@ def load(path: Path) -> ctypes.CDLL:
                lib.lamp_flash_attention_bwd_dkv):
         fn.restype = i32
     # int4 matmul: x, packed, scales, out, then m, k, n, group, the x and
-    # out dtypes, the K-splits, the split workspace and the stream
-    lib.lamp_int4_matmul.argtypes = [ptr] * 4 + [i32] * 7 + [ptr, ptr]
+    # out dtypes, the decode kernel's plan (tile, cluster, round rows; 0 on
+    # the other routes) and the stream
+    lib.lamp_int4_matmul.argtypes = [ptr] * 4 + [i32] * 9 + [ptr]
     lib.lamp_int4_matmul.restype = i32
     # stochastic int8 quantizer: x, values, scales, m, k, seed, dtype, stream
     lib.lamp_quantize_int8_stochastic.argtypes = [

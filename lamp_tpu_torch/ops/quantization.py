@@ -397,15 +397,12 @@ def int4_matmul(x, w_packed, w_scales, *, out_dtype=None):
     lib = library()
     m = x2.shape[0]
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    splits = (_int4_splits(m, n, k // 2 // g, x.device)
-              if x.dtype == torch.bfloat16 and g % 16 == 0 else 1)
-    part = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-            if splits > 1 else None)
+    plan = (_int4_plan(m, n, k // 2, g, x.device)
+            if x.dtype == torch.bfloat16 and g % 16 == 0 else (0, 0, 0))
     rc = lib.lamp_int4_matmul(
         x2.data_ptr(), w_packed.data_ptr(), w_scales.data_ptr(),
         out.data_ptr(), m, k, n, g, _KERNEL_DTYPES[x.dtype],
-        _KERNEL_DTYPES[out_dtype], splits,
-        None if part is None else part.data_ptr(),
+        _KERNEL_DTYPES[out_dtype], *plan,
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(lib, rc, "int4_matmul")
     int4_matmul.launches += 1
@@ -421,19 +418,88 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _int4_splits(m: int, n: int, n_kp: int, device) -> int:
-    """K-splits of a tensor-core K7 call (``csrc/int4_matmul.cu``), decided
-    here only: its output tiles are 64 columns by 32 rows (up to 32 rows)
-    or 64; when they number fewer than two blocks per SM, the ``n_kp``
-    groups of each half are divided over more blocks, ``ceil(n_kp /
-    splits)`` groups each, down to one group a block. The count returned
-    leaves no split empty; the kernel takes it as it is."""
-    tiles = -(-n // 64) * -(-m // (32 if m <= 32 else 64))
+# K7's decode kernel (csrc/int4_matmul.cu, int4_mm_decode) takes M <= 64
+# rows of bf16 x; each plan it is given stays within a block's 227 KB of
+# shared memory, and a stage of a round within _DECODE_STAGE_BYTES, so that
+# two blocks of one round each fit on an SM (the logits' 250 blocks of 128
+# columns then run in one wave)
+_DECODE_ROWS = 64
+_DECODE_STAGE_BYTES = 112 << 10
+_DECODE_WARPS = 8
+_DECODE_BAR_BYTES = 128  # the mbarriers, ahead of the stages
+_MAX_SMEM = 232448
+
+
+def _int4_decode_smem(tile: int, mrows: int, k2: int, g: int, cluster: int,
+                      round_rows: int) -> int:
+    """The decode kernel's dynamic shared memory (bytes) for a plan, by the
+    kernel's own arithmetic (``Layout`` in csrc/int4_matmul.cu): the
+    mbarriers, then one stage (two when the longest slice takes more than
+    one round) of the round's packed rows [R][tile + 16], x rows
+    [2][mrows][2R + 16] bytes and scale rows [2][groups][tile] f32, or the
+    K parts' partial tiles [8 / (tile / 16)][mrows][tile + 4] f32 if
+    larger, then in a cluster the sum's slots [cluster][ceil(mrows tile /
+    4 / cluster)] float4s."""
+    slice_rows = 16 * -(-(k2 // 16) // cluster)
+    r = min(round_rows, slice_rows)
+    groups = (r + g - 17) // g + 1
+    stage = r * (tile + 16) + 2 * mrows * (2 * r + 16) + 2 * groups * tile * 4
+    stages = 2 if r < slice_rows else 1
+    red = (_DECODE_WARPS // (tile // 16)) * mrows * (tile + 4) * 4
+    recv = cluster * -(-(mrows * tile // 4) // cluster) * 16 \
+        if cluster > 1 else 0
+    return _DECODE_BAR_BYTES + max(stages * stage, red) + recv
+
+
+def _int4_plan(m: int, n: int, k2: int, g: int, device) -> Tuple[int, int,
+                                                                 int]:
+    """The launch plan of a tensor-core K7 call (bf16 x, ``g`` % 16 == 0),
+    decided here only: ``(tile, cluster, round_rows)`` for the decode
+    kernel, or ``(0, 0, 0)`` for the row-tiled kernel of M > 64 rows.
+
+    - the call aims at a block for every two SMs: on an H100 more blocks
+      in more ranks cost more in the cluster sum than they save
+      (PERF.md §6);
+    - tile, the output columns of a block: 128 where the 64-column tiles
+      are at least two per SM (the logits: x is staged once per 128
+      columns), else 64 where clusters of 8 over 64-column tiles reach the
+      aim, else 32;
+    - cluster, the blocks (<= 8) that split a tile's K range: enough to
+      reach the aim, at most one per 16-row step, then the fewest that
+      keep the longest slice as short;
+    - round_rows, the packed rows a block stages at once: its whole slice
+      where a stage fits in _DECODE_STAGE_BYTES, else the most that do (the
+      kernel then runs two stages of rounds).
+
+    The kernel refuses a plan that it cannot run."""
+    if m > _DECODE_ROWS:
+        return 0, 0, 0
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
-    want = max(1, min(n_kp, 2 * _sm_count(index) // tiles))
-    per_split = -(-n_kp // want)
-    return -(-n_kp // per_split)
+    return _decode_plan(m, n, k2, g, _sm_count(index))
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_plan(m: int, n: int, k2: int, g: int, sms: int):
+    steps = k2 // 16
+    target = max(1, sms // 2)  # blocks a call aims at
+    tiles64 = -(-n // 64)
+    if tiles64 >= 2 * sms:
+        tile = 128
+    elif tiles64 * min(8, steps) >= target:
+        tile = 64
+    else:
+        tile = 32
+    cluster = max(1, min(8, steps, -(-target // -(-n // tile))))
+    cluster = -(-steps // -(-steps // cluster))
+    slice_rows = 16 * -(-steps // cluster)
+    mrows = 8 * -(-m // 8)
+    round_rows = slice_rows
+    while round_rows > 16 and _int4_decode_smem(
+            tile, mrows, k2, g, cluster, round_rows) - _DECODE_BAR_BYTES > \
+            _DECODE_STAGE_BYTES * (2 if round_rows < slice_rows else 1):
+        round_rows -= 16
+    return tile, cluster, round_rows
 
 
 def _raise_on(lib, rc, what):

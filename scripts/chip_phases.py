@@ -3,7 +3,7 @@ call after a kernel change: the build (with ptxas's register and spill
 lines), then the named parts only.
 
     python3 scripts/chip_phases.py [paged] [fwd] [flash] [wide] [any]
-        [small] [train32] [openllama] [gemma]
+        [small] [train32] [openllama] [gemma] [quant]
 
 paged: phase 2 (the paged-attention kernels, K6_WIDE's shapes included);
 fwd: phase 4's checks of the wgmma forward's edges
@@ -16,8 +16,10 @@ timing at B=2, H=8, S=2048, D=160, 192 and 256; any: phase 4's
 edges of fwd_any (check_any_forward), then of dq_any and dkv_any
 (check_any_backward, with the f32 checks and the f32 flagship's shape),
 untimed; small: the GPT models of SMALL_HEAD_MODELS; train32:
-phase 5's f32 flagship; openllama: phase 11; gemma: phase 12. No
-argument runs them all.
+phase 5's f32 flagship; openllama: phase 11; gemma: phase 12; quant:
+phase 6 (K7 at every decode shape and edge, int8_matmul, K8), then phase
+7's int4 server (launch counts, greedy tokens, the steady decode and K7's
+share of a profiled step). No argument runs them all.
 Every check raises as in chip_smoke.py.
 """
 
@@ -40,7 +42,7 @@ from lamp_tpu_torch.ops.paged_attention import (  # noqa: E402
     paged_attention, paged_attention_reference)
 
 PARTS = ("paged", "fwd", "flash", "wide", "any", "small", "train32",
-         "openllama", "gemma")
+         "openllama", "gemma", "quant")
 
 
 def main(parts) -> int:
@@ -100,6 +102,12 @@ def main(parts) -> int:
               flush=True)
     if "gemma" in parts:
         print(cs.phase_gemma(torch_nn, optim, train, att), flush=True)
+    if "quant" in parts:
+        from lamp_tpu_torch.ops import quantization as Q
+
+        cs.phase_quant_kernels(Q)
+        cs.serve_int4(cs.make_serving_model(torch_nn), models, Q,
+                      paged_attention)
     print("chip_phases: done", flush=True)
     return 0
 

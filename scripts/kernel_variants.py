@@ -1,6 +1,7 @@
 """Edited copies of one kernel source, built beside each other: the build
 shared by scripts/exp_k1_variants.py, exp_k2_variants.py,
-exp_any_variants.py and exp_fwd_any_variants.py.
+exp_any_variants.py, exp_fwd_any_variants.py, exp_wide_variants.py and
+exp_int4_variants.py.
 
 A variant is a list of (text, replacement) edits of the source; every
 occurrence of an edit's text is replaced. The package's other sources
@@ -18,13 +19,15 @@ from lamp_tpu_torch.ops import _build
 SRC = _build._SRC_DIR
 
 
-def build(source: str, variants: dict, out: Path):
+def build(source: str, variants: dict, out: Path, text: str = None):
     """Build ``variants`` ({name: edits}) of ``csrc/<source>`` into ``out``;
     returns ({name: loaded library}, {variant name or source file name:
-    nvcc's output}). Exits if an edit's text is missing or a file does not
-    build."""
+    nvcc's output}). ``text``, when given, is the source to edit in place
+    of this tree's ``csrc/<source>`` (another checkout's copy of it, whose
+    headers must be this tree's). Exits if an edit's text is missing or a
+    file does not build."""
     out.mkdir(parents=True, exist_ok=True)
-    text = (SRC / source).read_text()
+    text = (SRC / source).read_text() if text is None else text
     others = sorted(p for p in SRC.glob("*.cu") if p.name != source)
     jobs = {p.name: (p, out / f"{p.stem}.o") for p in others}
     for i, (name, edits) in enumerate(variants.items()):

@@ -121,10 +121,13 @@ def _int4_close(got, want):
 
 
 # (M, K, N, dtype): kernel-eligible for the JAX kernel (N % 128, g % 32);
-# M=5 takes its row-padding branch
+# M=5 takes its row-padding branch; the last four are the serving
+# configuration's decode shapes (qkv, w1/w3, w2, logits)
 @pytest.mark.parametrize("m,k,n,dtype", [
     (5, 256, 128, "f32"), (5, 256, 128, "bf16"), (16, 512, 256, "bf16"),
-    (16, 512, 256, "f32"), (1, 768, 128, "bf16")])
+    (16, 512, 256, "f32"), (1, 768, 128, "bf16"), (32, 768, 1280, "bf16"),
+    (7, 768, 2048, "bf16"), (32, 2048, 768, "bf16"),
+    (1, 768, 32000, "bf16")])
 def test_int4_matmul_reference_matches_jax_kernel(m, k, n, dtype):
     rng = np.random.RandomState(3)
     w = rng.randn(k, n).astype(np.float32)
@@ -172,21 +175,50 @@ def test_int4_matmul_wrapper_is_the_plain_version_on_cpu():
         tops.int4_matmul(x[..., :64], tp, ts)
 
 
-@pytest.mark.parametrize("m,n,n_kp", [(32, 768, 8), (32, 768, 3),
-                                      (7, 1280, 6), (1, 32000, 3),
-                                      (3072, 768, 8), (32, 2048, 7)])
-def test_int4_splits_are_final_and_leave_no_split_empty(monkeypatch, m, n,
-                                                        n_kp):
-    """The wrapper decides K7's split count alone and the kernel refuses a
-    count that leaves a split empty: each of ``splits`` blocks takes
-    ceil(n_kp / splits) groups, so the last must start below n_kp."""
+# (M, N, K/2, g): the former split-K test's cases, then the serving
+# configuration's five decode matmuls at M=32 (qkv, wo, w1/w3, w2, logits),
+# then a ragged N and a K that needs rounds
+@pytest.mark.parametrize("m,n,k2,g", [
+    (32, 768, 1024, 128), (32, 768, 384, 128), (7, 1280, 768, 128),
+    (1, 32000, 384, 128), (3072, 768, 1024, 128), (32, 2048, 896, 128),
+    (32, 1280, 384, 128), (32, 768, 384, 128), (32, 2048, 384, 128),
+    (32, 768, 1024, 128), (32, 32000, 384, 128), (64, 1000, 384, 16),
+    (64, 4096, 8192, 128)])
+def test_int4_plan_covers_k_once_and_fills_the_card(monkeypatch, m, n, k2,
+                                                    g):
+    """The wrapper decides K7's launch plan alone: M > 64 takes the
+    row-tiled kernel (no plan); otherwise each packed row lies in exactly
+    one rank's slice of a cluster of at most 8 (none empty), a round is a
+    multiple of 16 rows within the longest slice, the shared memory fits a
+    block, and a call launches a block for every two SMs or more (66 of
+    132; the plan aims there: more blocks in more ranks cost the H100 more
+    in the cluster sum than they saved) or splits K as far as its 16-row
+    steps allow (at most 8)."""
     monkeypatch.setattr(tq, "_sm_count", lambda index: 132)
-    splits = tq._int4_splits(m, n, n_kp, torch.device("cuda", 0))
-    per_split = -(-n_kp // splits)
-    assert 1 <= splits <= n_kp
-    assert (splits - 1) * per_split < n_kp
-    tiles = -(-n // 64) * -(-m // (32 if m <= 32 else 64))
-    assert splits == 1 or tiles * splits <= 2 * 132
+    tile, cluster, round_rows = tq._int4_plan(m, n, k2, g,
+                                              torch.device("cuda", 0))
+    if m > 64:
+        assert (tile, cluster, round_rows) == (0, 0, 0)
+        return
+    assert tile in (32, 64, 128)
+    assert 1 <= cluster <= 8
+    # the kernel's cut (launch_decode in csrc/int4_matmul.cu): rank r takes
+    # the 16-row steps [r T / c, (r + 1) T / c) of the T = K/32 steps
+    steps = k2 // 16
+    slices = [(16 * (r * steps // cluster), 16 * ((r + 1) * steps // cluster))
+              for r in range(cluster)]
+    covered = np.zeros(k2, int)
+    for start, end in slices:
+        assert start < end and start % 16 == 0
+        covered[start:end] += 1
+    assert (covered == 1).all()
+    longest = max(end - start for start, end in slices)
+    assert 16 <= round_rows <= longest and round_rows % 16 == 0
+    mrows = 8 * -(-m // 8)
+    assert tq._int4_decode_smem(tile, mrows, k2, g, cluster, round_rows) \
+        <= tq._MAX_SMEM
+    blocks = -(-n // tile) * cluster
+    assert blocks >= 132 // 2 or cluster == min(8, k2 // 16)
 
 
 def _stochastic_input(rows=512):
