@@ -22,7 +22,11 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
    Llama-3.1-405B's (128 / 8 heads, 16 a kv head), MQA at 32 query heads,
    an odd head dim, D=320 and 128 query heads at D=256 (the kernel's
    narrow-copy and split paths); each timed beside its bound and plain
-   version.
+   version. Then the general kernel's key split (check_paged_split): every
+   such case over lengths at the split's edges, windows whose band starts
+   inside a split, append on and off, and OpenLLaMA-3B's layer over pages
+   of 16 tokens; two calls bit for bit, and a planted fault (one split's
+   keys hidden) above the limit.
 3. The serving slice at full width: a 12-block, 768-wide llama-style
    ModernLM (GQA 12/4 heads, SwiGLU 2048, vocab 32000, context 512, bf16,
    random weights from a seed) behind ModernBatchServer(total_pages=192)
@@ -61,7 +65,12 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
    dims the backward's instances of 32, 64 and 128 do not hold: 12, 100,
    160 and 256 in bf16 (causal with kv lengths, and with segment ids: the
    ragged forward at 12 and 100, fwd_wg's D=192 and 256 instances, the
-   mma.sync backward) and 75; then the edges of dq_any and dkv_any (the
+   mma.sync backward) and 75; the ragged forward's edges
+   (check_ragged_forward: head dims 12, 75, 100, 102, 130 and 250 in bf16
+   and f16 over kv lengths, [B, Sq] lengths with empty rows, Sq != Skv, a
+   window, ids, a mask, rows 63-129 and phase 11's shape, o and lse per
+   64-row block with a planted fault, two calls bit for bit); then the
+   edges of dq_any and dkv_any (the
    backward for f32, f64 and 16-bit above 256: 64-row blocks, 64-, 32- or
    16-row tiles, 128-column parts above 128): float64 at head dims 8, 64,
    100, 128, 136 and 200 (limit 1e-10), f32 at 64, 100 and 320 and bf16 at
@@ -551,6 +560,8 @@ def phase_kernel(paged_attention, paged_attention_reference):
 
     wide = check_paged_wide(paged_attention, paged_attention_reference,
                             table, lengths, wins, gen)
+    split = check_paged_split(paged_attention, paged_attention_reference,
+                              table, gen)
 
     # time both on the path's own call: append_kv, no window, last layer
     rows = {}
@@ -590,6 +601,10 @@ def phase_kernel(paged_attention, paged_attention_reference):
     rows["any_fp8"] = wide["openllama d100 e4m3"]
     rows["any"]["per_case"] = {k: {x: r[x] for x in (
         "ms", "plain_ms", "bound_ms", "max_abs_err")} for k, r in wide.items()}
+    for k, (splits, err, fault) in split.items():
+        rows["any"]["per_case"].setdefault(k, {}).update(
+            splits=splits, split_edges_max_abs_err=err,
+            split_edges_planted_fault=fault)
     return rows
 
 
@@ -662,6 +677,146 @@ def check_paged_wide(paged_attention, paged_attention_reference, table,
         del pool
     return out
 
+
+def paged_plain_without(q, pool, table, lengths, hkv, drop, window=None,
+                        windows=None, append_kv=None):
+    """The plain version (f32; f64 for float64) with the pool keys [drop[0],
+    drop[1]) of every sequence hidden: a kernel that lost one split's
+    partial. Follows paged_attention_reference (fused pool, append as key
+    position lengths[b])."""
+    from lamp_tpu_torch.ops.paged_attention import (NEG_INF,
+                                                    _effective_window)
+
+    acc = torch.promote_types(q.dtype, torch.float32)
+    b, h, d = q.shape
+    page, pps = pool.shape[2], table.shape[1]
+    kp, vp = pool[:, 0].to(acc), pool[:, 1].to(acc)  # fp8: exact
+    idx = table.long()
+    k = kp[idx].reshape(b, pps * page, hkv, d)
+    v = vp[idx].reshape(b, pps * page, hkv, d)
+    eff = lengths.long()
+    pos = torch.arange(pps * page, device=q.device)
+    hidden = (pos >= drop[0]) & (pos < drop[1])
+    if append_kv is not None:
+        rows = torch.arange(b, device=q.device)
+        at = torch.clamp(eff, max=pps * page - 1)
+        k[rows, at] = append_kv[0].to(acc).reshape(b, hkv, d)
+        v[rows, at] = append_kv[1].to(acc).reshape(b, hkv, d)
+        eff = eff + 1
+        hidden = hidden[None] & (pos[None] != at[:, None])
+    else:
+        hidden = hidden[None].expand(b, -1)
+    k = k.transpose(1, 2).repeat_interleave(h // hkv, dim=1)
+    v = v.transpose(1, 2).repeat_interleave(h // hkv, dim=1)
+    s = torch.einsum("bhd,bhkd->bhk", q.to(acc), k) / math.sqrt(d)
+    keep = (pos[None, None] < eff[:, None, None]) & ~hidden[:, None]
+    w_eff = _effective_window(window, windows, b, q.device)
+    if w_eff is not None:
+        keep = keep & (pos[None, None] >= eff[:, None, None]
+                       - w_eff.long()[:, None, None])
+    s = torch.where(keep, s, NEG_INF)
+    p = torch.softmax(s, dim=-1) * keep.any(-1, keepdim=True)
+    return torch.einsum("bhk,bhkd->bhd", p, v)
+
+
+def check_paged_split(paged_attention, paged_attention_reference, table,
+                      gen):
+    """paged_attention_any over its key split's edges, at every K6_WIDE case
+    routed to it (phase 2's B=32, 4 pages of 128 tokens a sequence; and
+    OpenLLaMA-3B's layer over 32 pages of 16 tokens): lengths
+    0 and 1, each split boundary (the plan's ranks of `per` pages) - 1, at
+    and + 1, and the table's end; per-request windows whose band starts
+    inside a split, beside none; append on and off. Each call against the
+    plain version (f32; float64 at K6_TOL_F64) at phase 2's limits, twice
+    bit for bit, and the plain version with one split's keys hidden (the
+    second rank's pages, or the first page without a split) must read above
+    the limit. Returns {case: (splits, largest abs error, smallest
+    fault)}."""
+    from lamp_tpu_torch.ops.paged_attention import (_general_route,
+                                                    _paged_plan, _split_pages)
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    # and OpenLLaMA-3B's layer over pages of 16 tokens, 32 a sequence: a
+    # tile of several pages
+    rng = np.random.RandomState(6)
+    table16 = torch.as_tensor(np.stack([
+        rng.choice(np.arange(1, 32 * 33), 32, replace=False)
+        for _ in range(table.shape[0])]).astype(np.int32), device=dev)
+    cases = [(c, table, PAGE, TOTAL_PAGES) for c in K6_WIDE] + [(
+        ("openllama d100 page 16", 32, 32, 100, torch.bfloat16,
+         torch.bfloat16), table16, 16, 32 * 33)]
+    for (name, h, hkv, d, qdt, pdt), table, page, total in cases:
+        if not _general_route(h // hkv, d, qdt):
+            continue
+        b, pps = table.shape
+        splits, stages = _paged_plan(b, hkv, h // hkv, d, pps, sms)
+        ranges = _split_pages(pps, splits)
+        edges = [0, 1, pps * page - 1]
+        for lo, _ in ranges[1:]:
+            edges += [lo * page - 1, lo * page, lo * page + 1]
+        rng = np.random.RandomState(5)
+        lens = np.asarray(edges + list(rng.randint(
+            0, pps * page, b - len(edges))), np.int32)
+        lengths = torch.as_tensor(lens, device=dev)
+        # a band [len - w, len) that starts inside the split before the one
+        # holding the row's last key, or none
+        first = ranges[1][0] * page if splits > 1 else page
+        wins = np.where(np.arange(b) % 2 == 0, 0,
+                        np.maximum(1, lens - first + 17)).astype(np.int32)
+        windows = torch.as_tensor(wins, device=dev)
+        pool = torch.randn((total, 2, page, hkv * d), generator=gen,
+                           device=dev).to(pdt)
+        q = torch.randn((b, h, d), generator=gen, device=dev).to(qdt)
+        new = tuple(torch.randn((b, hkv * d), generator=gen,
+                                device=dev).to(qdt) for _ in range(2))
+        acc = torch.promote_types(qdt, torch.float32)
+        drop = (ranges[1][0] * page, ranges[1][1] * page) if splits > 1 \
+            else (0, page)
+        err, fault_min = 0.0, math.inf
+        for app in (None, new):
+            for win in (None, windows):
+                kw = dict(num_kv_heads=hkv, windows=win, append_kv=app)
+                got = paged_attention(q, pool, None, table, lengths, **kw)
+                again = paged_attention(q, pool, None, table, lengths, **kw)
+                app32 = None if app is None else tuple(x.to(acc)
+                                                       for x in app)
+                ref = paged_attention_reference(
+                    q.to(acc), pool if pool.element_size() == 1 else
+                    pool.to(acc), None, table, lengths, num_kv_heads=hkv,
+                    windows=win, append_kv=app32)
+                bad = paged_plain_without(q, pool, table, lengths, hkv, drop,
+                                          windows=win, append_kv=app)
+                torch.cuda.synchronize()
+                what = (f"paged_attention {name} splits={splits} "
+                        f"append={app is not None} windows="
+                        f"{win is not None}")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{what}: two calls differ")
+                limit = (K6_TOL_F64 if qdt == torch.float64 else
+                         ATOL + RTOL * ref.abs())
+                e = (got.to(acc) - ref).abs()
+                if (e > limit).any():
+                    raise AssertionError(
+                        f"{what}: {int((e > limit).sum())} elements off, "
+                        f"max err {float(e.max()):.3e}")
+                if app is None and (got[lengths == 0] != 0).any():
+                    raise AssertionError(f"{what}: rows with no key are not 0")
+                fe = (bad - ref).abs()
+                if not (fe > limit).any():
+                    raise AssertionError(f"{what}: the planted fault (keys "
+                                         f"{drop} hidden) reads within the "
+                                         f"limit")
+                err = max(err, float(e.max()))
+                fault_min = min(fault_min, float(fe.max()))
+        print(f"  split edges {name:20} splits={splits} (pages a rank "
+              f"{ranges[0][1]}), stages={stages}: max_abs_err {err:.3e}, "
+              f"planted fault "
+              f"{fault_min:.3e}; two calls equal", flush=True)
+        out[name] = (splits, err, fault_min)
+        del pool
+    return out
 
 def device_events(prof):
     """The profile's kernels and copies on the device, without the device
@@ -1317,13 +1472,15 @@ def check_flash_head_dims(att, check):
         run(f"head_dim {d} ids", d, bf16, 2, 4, s, s, True, segment_ids=ids)
     # an odd head dim (2-byte copies, stores of single elements)
     run("head_dim 75", 75, bf16, 2, 4, s, s, True, lengths=[1000, 555])
+    errs["fwd_ragged"] = max(errs["fwd_ragged"], check_ragged_forward(att))
     check_wide_backward(att, run)
     check_any_backward(att, run, ids)
     check_any_forward(att)
     # (head dim, dtype, B, H, S): B=2, H=8, S=2048, and phase 5's f32
     # flagship's own shape
     times = {(d, dt, 2, 8, 2048): time_flash_case(att, 2, 8, 2048, d, dt)
-             for d, dt in ((12, bf16), (100, bf16), (160, bf16), (192, bf16),
+             for d, dt in ((12, bf16), (75, bf16), (100, bf16), (130, bf16),
+                           (160, bf16), (192, bf16),
                            (256, bf16), (320, bf16), (64, f64), (100, f64),
                            (64, f32), (100, f32))}
     times[64, f32, 8, LM_HEADS, 384] = time_flash_case(att, 8, LM_HEADS, 384,
@@ -1539,6 +1696,113 @@ def check_any_forward(att):
         print(f"  determinism    B=2 H=4 S=1000 D=320 {str(dtype)[6:]}: two "
               f"forward calls give equal o and lse", flush=True)
 
+
+# phase 4: the ragged head dims (d % 8 != 0) of the wgmma forward's
+# cp.async producer: 8-byte pieces (12, 100), 4-byte ones (102, 130, 250),
+# 2-byte loads (75); instances D = 32 (12), 128 (75, 100, 102), 192 (130)
+# and 256 (250)
+RAGGED_HEAD_DIMS = (12, 75, 100, 102, 130, 250)
+
+
+def check_ragged_forward(att):
+    """The edges of the ragged forward (fwd_wg<D, T, M, true>, tiles copied
+    by cp.async) at RAGGED_HEAD_DIMS in bf16 and f16: o and lse of the
+    kernel against the plain version in f32 by :func:`block_err` per 64-row
+    block, o at FLASH_TOL and lse at 1e-5 (both compute it in f32 from the
+    same inputs), and the plain version under :func:`planted_fault`, which
+    must read above both limits; every case also twice, bit for bit (a
+    stage read before its copies land, or without the proxy fence, differs
+    between calls). Cases: kv lengths [2, 65, 2047, 0] at S=2048; [B, Sq]
+    lengths with rows of length 0 inside blocks that have visible rows;
+    Sq != Skv; rows 63, 65, 127 and 129 (a block of 128 or 192 rows cut);
+    a window of 100; segment ids and a [B, 1, Sq, Skv] mask (the masked
+    instance); and the path's shape, phase 11's dense check (B=1, H=32,
+    S=127). Returns the largest abs error of o."""
+    bf16, f16 = torch.bfloat16, torch.float16
+    rng = np.random.RandomState(7)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    lens = rng.randint(1, 301, (2, 300))
+    lens[:, 10:20] = 0  # zero-length rows inside the first 64-row block
+    lens[1, 200:260] = 0
+    ids = np.sort(rng.randint(0, 4, (2, 512)), 1)
+    mask = torch.rand(2, 1, 300, 700, generator=gen, device="cuda") < 0.8
+    mask[..., torch.arange(300), torch.arange(300) + 400] = True
+    # (name, b, h, sq, skv, causal, keyword arguments)
+    cases = [("lengths [B]", 4, 2, 2048, 2048, True,
+              dict(lengths=[2, 65, 2047, 0])),
+             ("lengths [B,Sq]", 2, 3, 300, 300, True, dict(lengths=lens)),
+             ("Sq!=Skv", 2, 3, 300, 700, True, {}),
+             ("window", 2, 2, 1000, 1000, True, dict(window=100)),
+             ("ids", 2, 2, 512, 512, True, dict(segment_ids=ids)),
+             ("mask", 2, 2, 300, 700, True, dict(mask=mask)),
+             ("path", 1, OL_HEADS, 127, 127, True, {})]
+    cases += [(f"rows {n}", 2, 3, n, n, True, {}) for n in (63, 65, 127, 129)]
+    worst = [0.0, 0.0, math.inf, 0.0]  # o, lse, smallest fault, abs err
+    for d in RAGGED_HEAD_DIMS:
+        for dtype in (bf16, f16):
+            for name, b, h, sq, skv, causal, kw in cases:
+                q, k, v, _ = flash_inputs(b, h, sq, skv, d, dtype)
+                lengths = kw.get("lengths")
+                lim = None if lengths is None else torch.as_tensor(
+                    np.asarray(lengths, np.int32), device="cuda")
+                seg = kw.get("segment_ids")
+                seg = None if seg is None else torch.as_tensor(
+                    seg, device="cuda")
+                m = kw.get("mask")
+                window = att._check_window(kw.get("window"), causal, skv)
+                scale = 1.0 / math.sqrt(d)
+                vis = att._Visibility(q, seg, m)
+                o, lse = att._fwd_cuda(q, k, v, lim, causal, scale, window,
+                                       vis)
+                o2, lse2 = att._fwd_cuda(q, k, v, lim, causal, scale, window,
+                                         vis)
+                ref = dict(causal=causal, window=window, kv_lengths=lim,
+                           sm_scale=scale, segment_ids=seg)
+                qa, ka, va = (x.float() for x in (q, k, v))
+                with torch.no_grad():
+                    want = att.flash_attention_reference(qa, ka, va, **ref,
+                                                         mask=m)
+                    keep = None if seg is None and m is None else \
+                        att._visible(qa, ka, **{x: ref[x] for x in (
+                            "causal", "window", "kv_lengths",
+                            "segment_ids")}, mask=m)
+                    fault = planted_fault(sq, skv, kw.get("window"), keep)
+                    bad = att.flash_attention_reference(
+                        qa, ka, va, **ref,
+                        mask=fault if m is None else m & fault)
+                label = (f"{str(dtype)[6:]} D={d} {name} (B={b} H={h} "
+                         f"Sq={sq} Skv={skv})")
+                if not (torch.equal(o, o2) and torch.equal(lse, lse2)):
+                    raise AssertionError(f"fwd_ragged {label}: two calls "
+                                         f"differ")
+                errs = (block_err(o, want[0]), lse_block_err(lse, want[1]))
+                faults = (block_err(bad[0], want[0]),
+                          lse_block_err(bad[1], want[1]))
+                for what, err, fe, tol in zip(("o", "lse"), errs, faults,
+                                              (FLASH_TOL[dtype], 1e-5)):
+                    if not err <= tol:
+                        raise AssertionError(
+                            f"fwd_ragged {label} {what}: block error "
+                            f"{err:.3e} > {tol:.0e}")
+                    if not fe > tol:
+                        raise AssertionError(
+                            f"fwd_ragged {label} {what}: the planted fault "
+                            f"reads {fe:.3e}, within {tol:.0e}")
+                empty = want[1] == -math.inf
+                if (o[empty] != 0).any():
+                    raise AssertionError(f"fwd_ragged {label}: rows with no "
+                                         f"key are not 0")
+                worst[0] = max(worst[0], errs[0])
+                worst[1] = max(worst[1], errs[1])
+                worst[2] = min(worst[2], *faults)
+                worst[3] = max(worst[3], float(
+                    (o.float() - want[0]).abs().max()))
+            print(f"  fwd_ragged D={d} {str(dtype)[6:]}: {len(cases)} cases "
+                  f"pass, two calls equal in each", flush=True)
+    print(f"  fwd_ragged: largest block error o {worst[0]:.3e}, lse "
+          f"{worst[1]:.3e}; smallest planted fault {worst[2]:.3e}",
+          flush=True)
+    return worst[3]
 
 # the wgmma forward's instances past 128: head dims that are multiples of 8
 # in D=128 (72), D=192 (136, 192) and D=256 (200, 256)
@@ -3012,9 +3276,12 @@ def main() -> int:
         dict(name="paged_attention_any_fp8", **paged_src,
              **paged["any_fp8"]))]
     rows[2]["note"] = (
-        "paged_attention_any (every head dim and group): times at "
-        "OpenLLaMA-3B's layer (B=32, 32/32 heads, head_dim 100, bf16); "
-        "launches: phase 11's 40 requests; per_case: phase 2's K6_WIDE")
+        "paged_attention_any (every head dim and group; split-KV over a "
+        "thread-block cluster summed through distributed shared memory, a "
+        "3-stage cp.async ring): times at OpenLLaMA-3B's layer (B=32, 32/32 "
+        "heads, head_dim 100, bf16); launches: phase 11's 40 requests; "
+        "per_case: phase 2's K6_WIDE, with each case's splits and its "
+        "split-edge check")
     rows[2]["per_case"] = paged["any"]["per_case"]
     rows[3]["note"] = ("the same on an e4m3 pool (100-byte head slices); "
                        "launches: phase 11's fp8-pool steady decode")
@@ -3055,9 +3322,11 @@ def main() -> int:
     bf16, f64 = torch.bfloat16, torch.float64
     wide = (2, 8, 2048)
     for key, src, line, shape, note in (
-            ("fwd_ragged", "flash_attention.cu", 87, (100, bf16, *wide),
-             "fwd_tc<D, T, M> (head dims not a multiple of 8): "
-             "launches are phase 11's dense check and the head_dim 100 GPT"),
+            ("fwd_ragged", "flash_forward.cu", 87, (100, bf16, *wide),
+             "fwd_wg<D, T, M, true> (16-bit head dims not a multiple of 8: "
+             "the wgmma consumers fed by a cp.async producer; per_shape "
+             "holds D=12, 75 and 130): launches are phase 11's dense check "
+             "and the head_dim 100 GPT"),
             ("fwd_wg", "flash_forward.cu", 87, (256, bf16, *wide),
              "fwd_wg<D, T, M> at head dims 129-256 (D=192 and 256; "
              "flash_attention_fwd is its D=64 instance): launches are the "

@@ -2,7 +2,7 @@
 //
 // Replaces the Pallas TPU kernels of lamp_tpu/ops/attention.py:
 //   K1  _fwd_kernel (driven by _fwd)                 -> fwd_wg (in
-//       flash_forward.cu) / fwd_tc / fwd_any (in flash_forward_any.cu)
+//       flash_forward.cu) / fwd_any (in flash_forward_any.cu)
 //   K2a _bwd_fused_kernel (driven by _bwd_fused)     -> dq_* then dkv_*
 //   K2b _bwd_dq_kernel, K2c _bwd_dkv_kernel          -> dq_*, dkv_*
 //   K3a/K3b _compact_{fwd,bwd}_kernel (compact_attention) compute the same
@@ -16,17 +16,17 @@
 //    16-bit type), in the smallest instance D with D >= d: the columns
 //    past d read as 0 (TMA boxes past the tensor map's inner extent are
 //    zero-filled, cp.async copies past d are zero-filled) and stores stop
-//    at d. The forward takes every d up to 256: at d % 8 == 0 the wgmma
-//    kernel fwd_wg (flash_forward.cu; D = 32, 64, 128, 192, 256), which
-//    reads tiles by TMA, whose global strides must be multiples of 16
-//    bytes; a d that is not a multiple of 8 has rows only 8-, 4- or
-//    2-byte aligned, and takes fwd_tc here (D = 32, 64, 128, 256), which
-//    copies them by 8- or 4-byte cp.async, or 2-byte loads at an odd d.
+//    at d. The forward takes every d up to 256 in the wgmma kernel fwd_wg
+//    (flash_forward.cu; D = 32, 64, 128, 192, 256): at d % 8 == 0 its
+//    producer reads tiles by TMA, whose global strides must be multiples
+//    of 16 bytes; a d that is not a multiple of 8 has rows only 8-, 4- or
+//    2-byte aligned, and its producer copies them by 8- or 4-byte
+//    cp.async, or 2-byte loads at an odd d, into the same layout.
 //    The wgmma backward takes the multiples of 8: dq_tc and dkv_tc here up
 //    to 128 (128 rows resident), dq_wide and dkv_wide above
 //    (flash_backward_wide.cu; D = 192, 256); the d that are not multiples
-//    of 8 take the mma.sync backward (dq_mma, dkv_mma), whose tiles come as
-//    the ragged forward's do.
+//    of 8 take the mma.sync backward (dq_mma, dkv_mma), whose tiles come
+//    by 8- or 4-byte cp.async or 2-byte loads (load_tile_ragged).
 //  - everything else (float32 and float64 at every d; the 16-bit types at
 //    d > 256) takes fwd_any (flash_forward_any.cu) and dq_any, dkv_any
 //    (flash_backward_any.cu): float64 on the FP64 tensor cores, the rest on
@@ -70,19 +70,6 @@
 // At the flagship's B=8, S=384 the backward is bound by bytes: q, k, v, o,
 // do read and dq, dk, dv written once, 37.7 MB, 11.3 us. Packed documents
 // cut the work to the visible tiles, about sum(len^2) / 2 a row of B.
-//
-// Ragged forward (FlashAttention-2 on mma.sync; the wgmma forward's
-// design is flash_forward.cu's note): one block of 4 warps per (b*h,
-// 64-row q tile); each warp owns 16 query rows, keeps Q fragments (at D =
-// 256 read from shared memory at each use), the f32 output accumulator
-// and the online-softmax max and sum in registers, and walks 64-key K/V
-// tiles (32 at D = 256) staged in shared memory by cp.async, the next
-// visible tile in flight while this one is used; fragments come from
-// shared memory by ldmatrix. Tiles above the causal diagonal, below the
-// window band, past every row's kv limit or of class kSkip are not
-// visited (the TPU kernel's skipped grid steps). P is rounded to v's type
-// for P @ V, as p.astype(v.dtype) in the TPU kernel. The q tiles run
-// last-first, so the long causal rows start first.
 //
 // 16-bit backward (wgmma, TMA and mbarriers; hopper.cuh): the split
 // design, a dq kernel, then a dkv kernel. Each block is a producer
@@ -134,9 +121,6 @@
 // 1 KB for alignment) 161 KB (dq) and 97 KB (dkv) at D=64, 193 KB and 129
 // KB at D=128, 81 KB and 49 KB at D=32, beside a few KB of static (the
 // masked instances' class bytes and kv ids, dkv's row statistics).
-// fwd_tc, the ragged forward (128 threads, 45 / 85 / 25 / 101 KB at D =
-// 64 / 128 / 32 / 256): 192, 239, 151 and 255 registers (16 bytes spilled
-// at D=256); the masked one is held to 168 at D=64 by its launch bound.
 // fwd_wg: flash_forward.cu's note. dq_mma and dkv_mma (128 threads):
 // 153-255 registers, up to 20 bytes spilled at D=128 and 224 at D=256.
 // dq_wide: 256 threads at D=256, 241 registers (the masked instance 255,
@@ -165,7 +149,7 @@ typedef __half f16;
 using hopper::pack2;
 using hopper::unpack2;
 
-constexpr int kThreads = 128;  // fwd_tc: 4 warps of 16 rows
+constexpr int kThreads = 128;  // dq_mma, dkv_mma: 4 warps of 16 rows
 constexpr int kPad = 8;        // shared-memory row padding, 16-bit elements
 
 // The class map: one thread per (64-row block, 64-key block) of one slab
@@ -314,12 +298,6 @@ __device__ __forceinline__ void load_tile(T* s, const T* g, int row0, int n,
   }
 }
 
-template <int N>
-using Rows = std::integral_constant<int, N>;
-
-// the keys of a K/V tile the forward streams: 64, 32 at D = 256
-__host__ __device__ constexpr int fwd_kv_tile(int d) { return d > 128 ? 32 : 64; }
-
 // load_tile for any head dim d: rows of 2d bytes lie 16-byte aligned (d %
 // 8 == 0: load_tile), only 8-byte aligned (d % 4 == 0), 4-byte aligned (d
 // even) or 2-byte aligned (d odd), so the copies are 16-, 8- and 4-byte
@@ -358,257 +336,17 @@ __device__ __forceinline__ void load_tile_ragged(T* s, const T* g, int row0,
   }
 }
 
-// The forward at 16-bit head dims d that are not a multiple of 8, whose
-// rows TMA cannot describe (fwd_wg in flash_forward.cu takes the rest):
-// tiles copied by load_tile_ragged, the output stored by elements.
-// M: segment ids or a mask are given (the class map and rules 2-3 are
-// compiled in); without them the loop is rule 1's alone.
-// The masked instance at D=64 is held to 168 registers, so that three
-// blocks share an SM: packed rows give many short blocks, whose latency
-// the third block hides.
-template <int D, typename T, bool M>
-__global__ void __launch_bounds__(kThreads, M && D == 64 ? 3 : 1)
-fwd_tc(const T* __restrict__ q, const T* __restrict__ k,
-       const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
-       Problem p) {
-  // D = 256: 32-key tiles, and Q's fragments read from shared memory at
-  // each use, so that the f32 output accumulator (128 registers a thread)
-  // fits beside them
-  constexpr int BR = 64, BC = fwd_kv_tile(D), S = D + kPad;
-  constexpr bool kQRegs = D <= 128;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* qs = reinterpret_cast<T*>(smem);
-  T* kv = qs + BR * S;  // two stages of [K tile, V tile]
-  __shared__ int lim_max;
-
-  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
-  const int qb = gridDim.x - 1 - blockIdx.x, r0 = qb * BR;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const long long qbase = (long long)bh * p.sq * p.d;
-  const long long kbase = (long long)bh * p.skv * p.d;
-  const int ra = r0 + warp * 16 + g, rb = ra + 8;
-  const int la = row_limit(p, b, ra), lb = row_limit(p, b, rb);
-  auto tile = [&](T* dst, const T* src, int row0, int n, auto rows) {
-    load_tile_ragged<D, decltype(rows)::value>(dst, src, row0, n, p.d);
-  };
-
-  if (tid == 0) lim_max = 0;
-  tile(qs, q + qbase, r0, p.sq, Rows<BR>{});
-  cp_commit();
-  // masked: this row block's class-map row in shared memory, the segment
-  // ids of rows ra and rb, and each staged tile's kv ids (0 without ids)
-  __shared__ unsigned char cls_s[M ? kMaxTiles : 1];
-  __shared__ int kid_s[2][M ? BC : 1];
-  // kv ids of keys [c, c + BC) into kid_s[st]; one id a thread
-  auto stage_ids = [&](int st, int c) {
-    if constexpr (M) {
-      if (tid < BC)
-        kid_s[st][tid] = p.q_ids != nullptr && c + tid < p.skv
-                             ? p.kv_ids[(long long)b * p.skv + c + tid] : 0;
-    }
-  };
-  const unsigned char* crow = nullptr;
-  int qid_a = 0, qid_b = 0;
-  int2 ba = make_int2(0, 0), bb = ba;
-  if constexpr (M) {
-    ba = key_bounds(p, b, ra);
-    bb = key_bounds(p, b, rb);
-    crow = class_row(p, b, h, qb);
-    if (p.tiles_k <= kMaxTiles) {
-      for (int i = tid; i < p.tiles_k; i += kThreads) cls_s[i] = crow[i];
-      crow = cls_s;
-    }
-    if (p.q_ids != nullptr) {
-      qid_a = ra < p.sq ? p.q_ids[(long long)b * p.sq + ra] : 0;
-      qid_b = rb < p.sq ? p.q_ids[(long long)b * p.sq + rb] : 0;
-    }
-  }
-  __syncthreads();
-  atomicMax(&lim_max, max(la, lb));
-  __syncthreads();
-  int lo, hi;
-  kv_range(p, r0, BR, &lo, &hi);
-  hi = min(hi, lim_max);
-  // the first tile at or after c that the class map does not skip
-  auto next = [&](int c) {
-    if constexpr (M)
-      while (c < hi && span_class(crow, p.tiles_k, c, BC) == kSkip) c += BC;
-    return c;
-  };
-  int c0 = next((lo / BC) * BC);
-  if (c0 < hi) {
-    tile(kv, k + kbase, c0, p.skv, Rows<BC>{});
-    tile(kv + BC * S, v + kbase, c0, p.skv, Rows<BC>{});
-    stage_ids(0, c0);
-  }
-  cp_commit();
-  cp_wait<1>();  // the Q tile
-  __syncthreads();
-  uint32_t qa[kQRegs ? D / 16 : 1][4];
-  if constexpr (kQRegs) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) load_a<S>(qa[kk], qs, warp * 16, kk * 16, lane);
-  }
-
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  float m_a = -INFINITY, m_b = -INFINITY, l_a = 0.f, l_b = 0.f;
-  const float sl2 = p.scale * kLog2e;
-
-  for (int stage = 0; c0 < hi; stage ^= 1) {
-    const int cn = next(c0 + BC);
-    // the next tile's kv ids, stored once this stage's readers are done
-    int kid_next = 0;
-    if (cn < hi) {
-      T* nxt = kv + (stage ^ 1) * 2 * BC * S;
-      tile(nxt, k + kbase, cn, p.skv, Rows<BC>{});
-      tile(nxt + BC * S, v + kbase, cn, p.skv, Rows<BC>{});
-      if constexpr (M) {
-        if (tid < BC && p.q_ids != nullptr && cn + tid < p.skv)
-          kid_next = p.kv_ids[(long long)b * p.skv + cn + tid];
-      }
-    }
-    cp_commit();
-    cp_wait<1>();  // this tile
-    __syncthreads();
-    const T* ks = kv + stage * 2 * BC * S;
-    const T* vs = ks + BC * S;
-    float s[BC / 8][4];
-#pragma unroll
-    for (int j = 0; j < BC / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qf[4];
-      const uint32_t* q_kk = qf;
-      if constexpr (kQRegs)
-        q_kk = qa[kk];
-      else
-        load_a<S>(qf, qs, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int j = 0; j < BC / 8; j += 2) {
-        uint32_t bf[4];
-        load_b_nk<S>(bf, ks, j * 8, kk * 16, lane);
-        mma<T>(s[j], q_kk, bf[0], bf[1]);
-        mma<T>(s[j + 1], q_kk, bf[2], bf[3]);
-      }
-    }
-    const bool partial = M && span_class(crow, p.tiles_k, c0, BC) != kFull;
-    const bool full = !partial && full_tile(p, r0, BR, c0, BC);
-    float mx_a = -INFINITY, mx_b = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < BC / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = c0 + j * 8 + 2 * t + (e & 1);
-        bool vis;
-        if constexpr (M) {
-          // rule 1 as the rows' key bounds (two compares), then rules 2
-          // and 3 in partial tiles (ids 0 = 0 without ids)
-          const int2 kb2 = e < 2 ? ba : bb;
-          vis = full || (col >= kb2.x && col < kb2.y);
-          if (partial) {
-            vis = vis && (e < 2 ? qid_a : qid_b) ==
-                             kid_s[stage][j * 8 + 2 * t + (e & 1)];
-            if (p.mask != nullptr)
-              vis = vis && mask_keeps(p, b, h, e < 2 ? ra : rb, col);
-          }
-        } else {
-          vis = full || (e < 2 ? visible(p, ra, la, col)
-                               : visible(p, rb, lb, col));
-        }
-        s[j][e] = vis ? s[j][e] * sl2 : -INFINITY;
-      }
-      mx_a = fmaxf(mx_a, fmaxf(s[j][0], s[j][1]));
-      mx_b = fmaxf(mx_b, fmaxf(s[j][2], s[j][3]));
-    }
-    const float mn_a = fmaxf(m_a, quad_max(mx_a));
-    const float mn_b = fmaxf(m_b, quad_max(mx_b));
-    // a row with nothing visible so far keeps max -inf; exponentiate
-    // against 0 there so that exp2(-inf) gives 0, never NaN
-    const float mu_a = mn_a == -INFINITY ? 0.f : mn_a;
-    const float mu_b = mn_b == -INFINITY ? 0.f : mn_b;
-    const float al_a = exp2f(m_a - mu_a), al_b = exp2f(m_b - mu_b);
-    m_a = mn_a;
-    m_b = mn_b;
-    l_a *= al_a;
-    l_b *= al_b;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      acc[n][0] *= al_a;
-      acc[n][1] *= al_a;
-      acc[n][2] *= al_b;
-      acc[n][3] *= al_b;
-    }
-#pragma unroll
-    for (int j = 0; j < BC / 8; ++j) {
-      s[j][0] = exp2f(s[j][0] - mu_a);
-      s[j][1] = exp2f(s[j][1] - mu_a);
-      s[j][2] = exp2f(s[j][2] - mu_b);
-      s[j][3] = exp2f(s[j][3] - mu_b);
-      l_a += s[j][0] + s[j][1];
-      l_b += s[j][2] + s[j][3];
-    }
-    uint32_t pa[BC / 16][4];
-    c_to_a<BC / 16, T>(pa, s);
-#pragma unroll
-    for (int kk = 0; kk < BC / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
-        uint32_t bf[4];
-        load_b_kn<S>(bf, vs, kk * 16, n * 8, lane);
-        mma<T>(acc[n], pa[kk], bf[0], bf[1]);
-        mma<T>(acc[n + 1], pa[kk], bf[2], bf[3]);
-      }
-    }
-    __syncthreads();  // this stage is refilled two tiles on
-    if constexpr (M) {
-      if (tid < BC) kid_s[stage ^ 1][tid] = kid_next;
-    }
-    c0 = cn;
-  }
-  cp_wait<0>();
-
-  l_a = quad_sum(l_a);
-  l_b = quad_sum(l_b);
-  const float ia = l_a == 0.f ? 0.f : 1.f / l_a;
-  const float ib = l_b == 0.f ? 0.f : 1.f / l_b;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int col = n * 8 + 2 * t;
-    if (col >= p.d) break;
-    // 2-byte stores, the pair's second guarded at an odd d
-    const uint32_t wa = pack2<T>(acc[n][0] * ia, acc[n][1] * ia);
-    const uint32_t wb = pack2<T>(acc[n][2] * ib, acc[n][3] * ib);
-    unsigned short* os = reinterpret_cast<unsigned short*>(o + qbase);
-    if (ra < p.sq) {
-      os[(long long)ra * p.d + col] = wa & 0xffff;
-      if (col + 1 < p.d) os[(long long)ra * p.d + col + 1] = wa >> 16;
-    }
-    if (rb < p.sq) {
-      os[(long long)rb * p.d + col] = wb & 0xffff;
-      if (col + 1 < p.d) os[(long long)rb * p.d + col + 1] = wb >> 16;
-    }
-  }
-  if (t == 0) {
-    const long long lbase = (long long)bh * p.sq;
-    if (ra < p.sq) lse[lbase + ra] = l_a == 0.f ? -INFINITY : (m_a + log2f(l_a)) * kLn2;
-    if (rb < p.sq) lse[lbase + rb] = l_b == 0.f ? -INFINITY : (m_b + log2f(l_b)) * kLn2;
-  }
-}
-
 // ---------------------------------------------------------------------------
 // 16-bit backward on mma.sync, for the head dims the wgmma kernels do not
 // take: d not a multiple of 8 (rows of 2d bytes, which TMA cannot
 // describe), up to 256. The split design of the wgmma kernels (dq, which
 // writes di, then dkv; no atomics) on 4 warps of 16 rows (dq) or 16 keys
 // (dkv), with tiles copied by load_tile_ragged into padded shared tiles
-// one tile ahead and fragments read by ldmatrix, as in fwd_tc. At D = 256
+// one tile ahead and fragments read by ldmatrix. At D = 256
 // dq reads Q's and dO's fragments from shared memory at each use, and dkv
 // splits its 256 output columns over two blocks (blockIdx.z), each
 // recomputing S^T and dP^T, so that the f32 accumulators fit in
-// registers. Visibility as fwd_tc: the bounds per element; under ids or a
+// registers. Visibility: the bounds per element; under ids or a
 // mask (M) the class map's skipped tiles are not visited and keep()
 // decides in its partial ones.
 // ---------------------------------------------------------------------------
@@ -1556,8 +1294,8 @@ template <int D>
 using Dim = std::integral_constant<int, D>;
 
 // Calls f(T{}, Dim<D>{}) for a 16-bit dtype code (1 bfloat16, 2 float16)
-// and the smallest instance D of 32, 64, 128 and (the ragged forward and
-// the mma.sync backward: Wide) 256 that holds the head dim d.
+// and the smallest instance D of 32, 64, 128 and (the mma.sync backward:
+// Wide) 256 that holds the head dim d.
 template <bool Wide, typename F>
 int tc_dispatch(int dtype, int d, F f) {
   auto by_dim = [&](auto t) -> int {
@@ -1572,7 +1310,7 @@ int tc_dispatch(int dtype, int d, F f) {
 }
 
 // The tensor-core kernels take the 16-bit types: the forward at head dims
-// up to 256 (fwd_wg at multiples of 8, fwd_tc the rest); the wgmma
+// up to 256 (fwd_wg, by TMA or cp.async); the wgmma
 // backward (TMA: rows of a multiple of 16 bytes) at the multiples of 8,
 // dq_tc/dkv_tc up to 128 (Q and dO, or K and V, resident for 128 rows) and
 // dq_wide/dkv_wide above (flash_backward_wide.cu). Everything else runs in
@@ -1686,24 +1424,9 @@ int lamp_flash_attention_fwd(const void* q, const void* k, const void* v,
   }
   if (!tc_forward(dtype, head_dim))
     return any_fwd(dtype, q, k, v, o, lse, p, bh, st);
-  float* l = static_cast<float*>(lse);
-  // rows of a multiple of 8 (16 bytes): TMA and wgmma (flash_forward.cu)
-  if (head_dim % 8 == 0) return wg_fwd(dtype, q, k, v, o, l, p, bh, st);
-  return tc_dispatch<true>(dtype, head_dim, [&](auto t, auto dim) -> int {
-    using T = decltype(t);
-    constexpr int D = decltype(dim)::value;
-    // a 64-row q tile and two stages of K and V tiles
-    const dim3 grid(cdiv(sq, 64), bh);
-    const int smem = smem_tc<D>(64 + 4 * fwd_kv_tile(D));
-    const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
-            *vt = static_cast<const T*>(v);
-    T* ot = static_cast<T*>(o);
-    if (p.tiles != nullptr)
-      return launch(fwd_tc<D, T, true>, grid, kThreads, smem, st, qt, kt, vt,
-                    ot, l, p);
-    return launch(fwd_tc<D, T, false>, grid, kThreads, smem, st, qt, kt, vt,
-                  ot, l, p);
-  });
+  // wgmma (flash_forward.cu): tiles by TMA at rows of a multiple of 16
+  // bytes (d % 8 == 0), by cp.async at the other head dims
+  return wg_fwd(dtype, q, k, v, o, static_cast<float*>(lse), p, bh, st);
 }
 
 // di: rowsum(o * do), written here for the dkv kernel (f64 for float64

@@ -1,5 +1,5 @@
 // What the flash-attention kernels share (flash_attention.cu: the
-// backward's tensor-core kernels, the ragged forward and the entry points;
+// backward's tensor-core kernels and the entry points;
 // flash_forward.cu: the wgmma forward; flash_backward_wide.cu: the wgmma
 // backward above head dim 128; flash_forward_any.cu and
 // flash_backward_any.cu: the FP64-tensor-core / FFMA forward and backward
@@ -179,22 +179,10 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// cp.async of 16 bytes (cp.async.cg); src-size 0 zero-fills the 16 bytes
-// without reading
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   hopper::smem_u32(dst)),
-               "l"(src), "r"(valid ? 16 : 0));
-}
-// cp.async of 8 or 4 bytes (cp.async.ca), zero-filled when not valid
-template <int N>
-__device__ __forceinline__ void cp_async_ca(void* dst, const void* src,
-                                            bool valid) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
-                   hopper::smem_u32(dst)),
-               "l"(src), "n"(N), "r"(valid ? N : 0));
-}
+// cp.async of 16 bytes (.cg) and of 8 or 4 bytes (.ca), zero-filled
+// when not valid (hopper.cuh)
+using hopper::cp_async16;
+using hopper::cp_async_ca;
 __device__ __forceinline__ void cp_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -597,8 +585,9 @@ int tile_maps(CUtensorMap (&m)[N], const void* const (&base)[N],
 namespace lamp_flash {
 
 // flash_forward.cu: the wgmma forward for bfloat16 (dtype 1) and float16
-// (2) at head dims d % 8 == 0, d <= 256. Returns the launch's cudaError_t,
-// or kMapError + libcuda's CUresult when a TMA map was refused.
+// (2) at every head dim d <= 256 (tiles by TMA at d % 8 == 0, by cp.async
+// at the rest). Returns the launch's cudaError_t, or kMapError +
+// libcuda's CUresult when a TMA map was refused.
 int wg_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
            float* lse, const Problem& p, int bh, cudaStream_t stream);
 

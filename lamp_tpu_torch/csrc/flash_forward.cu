@@ -1,10 +1,8 @@
-// The flash-attention forward for Hopper (sm_90a) on wgmma: fwd_wg<D, T, M>,
-// for bfloat16 and float16 at every head dim d with d % 8 == 0 and d <= 256
-// (the rows TMA can describe). It replaces the Pallas TPU kernel
-// _fwd_kernel of lamp_tpu/ops/attention.py (K1) for those calls; the
-// entry point lamp_flash_attention_fwd (flash_attention.cu) routes here,
-// the other 16-bit head dims to the ragged fwd_tc and everything else to
-// fwd_any. Layout, visibility and numerics are flash_attention.cu's header
+// The flash-attention forward for Hopper (sm_90a) on wgmma: fwd_wg<D, T, M,
+// R>, for bfloat16 and float16 at every head dim d <= 256. It replaces the
+// Pallas TPU kernel _fwd_kernel of lamp_tpu/ops/attention.py (K1) for those
+// calls; the entry point lamp_flash_attention_fwd (flash_attention.cu)
+// routes here, and everything else to fwd_any. Layout, visibility and numerics are flash_attention.cu's header
 // note: q, o [B*H, Sq, d], k, v [B*H, Skv, d], lse [B*H, Sq] f32 in natural
 // log; f32 accumulation, P rounded to v's type for P V (p.astype(v.dtype)
 // in the TPU kernel), rows with no visible key o = 0 and lse = -inf.
@@ -13,8 +11,8 @@
 // pair (S = Q K^T and O += P V): the causal training slice (B=2, H=12,
 // S=4096, d=64) is 51.5 GFLOP, 52 us at the H100's 989 TFLOP/s bf16 dense
 // rate, against 25 MB of q, k, v and o (7.5 us at 3.35 TB/s).
-// FlashAttention-2 on mma.sync (fwd_tc, kept for the ragged head dims)
-// reached ~173 TFLOP/s there on an H100 (700 W); this design follows
+// FlashAttention-2 on mma.sync reached ~173 TFLOP/s there on an H100
+// (700 W); this design follows
 // FlashAttention-3's forward (Shah et al., arXiv 2407.08608) to feed the
 // tensor cores from swizzled shared memory, without fragments loaded
 // through the register file.
@@ -29,6 +27,23 @@
 //    mbarrier has an arrival from each consumer warp (one a warp: 256
 //    arrivals a thread serialize in shared memory). Under ids or a mask
 //    (M) the producer warp's lanes stage each K tile's kv ids beside it.
+//  - R (the ragged producer: d % 8 != 0, whose rows of 2d bytes TMA's
+//    16-byte global strides cannot describe): the producer's 128 threads
+//    copy the same tiles into the same swizzled layout by cp.async, 8 bytes
+//    a piece at d % 4 == 0 (a 200-byte row of d = 100) and 4 bytes at
+//    other even d, each thread one column of pieces down the rows; at an
+//    odd d, whose rows lie 2-byte aligned, by 4-byte loads of the tile's
+//    contiguous span, several in flight, and 2-byte stores; copies past
+//    S are zero-filled, and the columns from d to D are zeroed once in
+//    every buffer before the loop (16 bytes at a time), which no copy
+//    overwrites. Each thread's
+//    copies of a tile arrive on its `full` barrier (128 arrivals) through
+//    cp.async.mbarrier.arrive.noinc (a plain arrival after the 2-byte
+//    stores), the kv ids under M among them; a consumer fences the async
+//    proxy (fence.proxy.async) after each wait, before wgmma reads what
+//    the generic proxy wrote. The consumers are the same code. At NC = 3
+//    the producer keeps 32 registers (128 x 32 + 384 x 160 = 64K) for its
+//    address arithmetic.
 //  - NC consumers (setmaxnreg up to 232, 160 with NC = 3) of 64 rows each.
 //    Per tile: S = Q K^T (wgmma, A and B K-major from shared memory); the
 //    visibility (below); an online softmax in the log2 domain by
@@ -56,7 +71,8 @@
 //    bytes at 128 keys, 40 at 64, at the same speed); ST as many stages of
 //    K and V as fit beside Q in 220 KB, at most 4; instances D = 32, 64,
 //    128, 192 and 256 hold every d up to 256 in the smallest D >= d
-//    (columns past d read 0 and are not stored).
+//    (columns past d read 0 and are not stored; at an odd d the output's
+//    last column is stored alone).
 //  - Visibility: rule 1 (key_bounds, full_tile) per element only in tiles
 //    the bounds cut; under M the 64 x 64 class map is read per consumer's
 //    64 rows: a tile is loaded unless the map hides it from every
@@ -64,7 +80,7 @@
 //    (after retiring the product it holds, so that a run of skipped tiles
 //    cannot starve the producer), and ids and mask bytes are tested only
 //    in partial tiles. The masked and unmasked instances are separate:
-//    sharing one made fwd_tc 1.8x slower on an H100.
+//    sharing one made the mma.sync forward 1.8x slower on an H100.
 //  - Row blocks run last-first, so the long causal rows start first.
 //
 // Resources (ptxas -v for sm_90a): the launch bound, 168 registers (384
@@ -105,8 +121,11 @@ __host__ __device__ constexpr int wg_kv_tile(int d, bool m) {
 }
 
 // registers a thread after setmaxnreg, within the SM's 64K: 128 x 40 + 256
-// x 232 with two consumers, 128 x 24 + 384 x 160 with three
-__host__ __device__ constexpr int wg_producer_regs(int nc) { return nc == 3 ? 24 : 40; }
+// x 232 with two consumers, 128 x 24 + 384 x 160 with three (the ragged
+// producer's cp.async addresses: 128 x 32 + 384 x 160)
+__host__ __device__ constexpr int wg_producer_regs(int nc, bool r) {
+  return nc == 3 ? (r ? 32 : 24) : 40;
+}
 __host__ __device__ constexpr int wg_consumer_regs(int nc) { return nc == 3 ? 160 : 232; }
 
 // stages of each of the K and V rings: as many as fit beside Q in 220 KB,
@@ -143,12 +162,119 @@ __device__ __forceinline__ void pv_product(float (&acc)[D / 2],
   hopper::wg_commit();
 }
 
-template <int D, typename T, bool M>
+// the ragged producer's inputs: q, k, v as [B*H, S, d] rows (null in the
+// TMA instances)
+template <typename T>
+struct Rows {
+  const T *q, *k, *v;
+};
+
+// Where a producer thread's pieces of a row-major tile lie (V elements a
+// piece, P = d / V of them a row): at P <= 128 the thread copies the piece
+// at column c of the rows r, r + dr, ... (dr = 128 / P rows at once, dr P
+// threads busy); above, the columns c and c + 128 V of every row. A thread
+// with no piece has c >= d. The offsets inside a column stay fixed down
+// the rows, so a piece costs a few instructions.
+struct Walk {
+  int r, c, dr;
+};
+
+__device__ __forceinline__ Walk walk_of(int tid, int d, int v) {
+  const int per = d / v;
+  if (per > 128) return Walk{0, tid * v, 1};
+  const int rows = 128 / per;
+  return tid < rows * per ? Walk{tid / per, (tid % per) * v, rows}
+                          : Walk{0, d, 1};
+}
+
+// the byte of element (r, c) in a W-byte-swizzled tile of ROWS rows
+template <int ROWS, int W>
+__device__ __forceinline__ int swizzled(int r, int c) {
+  constexpr int C = W / 2;  // columns of a column block
+  const int byte = (c % C) * 2;
+  const int swz = W == 128 ? r & 7 : (r >> 1) & 3;
+  return (c / C) * ROWS * W + r * W + (((byte >> 4) ^ swz) << 4) + (byte & 15);
+}
+
+// Rows [row0, row0 + ROWS) of a [n, d] matrix g into a W-byte-swizzled tile
+// of ROWS rows (TMA's layout, hopper.cuh) by 8- (V = 4) or 4-byte (V = 2)
+// cp.async, the pieces that walk `w` gives this thread, zero-filled past n.
+// Columns from d on are not written.
+template <int ROWS, int W, int V, typename T>
+__device__ __forceinline__ void copy_tile(unsigned char* tile, const T* g,
+                                          int row0, int n, int d, Walk w) {
+  for (int c = w.c; c < d; c += 128 * V) {
+    for (int r = w.r; r < ROWS; r += w.dr) {
+      const bool in = row0 + r < n;
+      hopper::cp_async_ca<2 * V>(tile + swizzled<ROWS, W>(r, c),
+                                 g + (in ? (long long)(row0 + r) * d + c : c),
+                                 in);
+    }
+  }
+}
+
+// The same tile at an odd d, whose rows lie only 2-byte aligned: the rows
+// [row0, row0 + ROWS) are one contiguous span of g, so the producer's 128
+// threads load its 4-byte words in turn (NB words a thread in flight) and
+// store each word's two elements where they belong by 2-byte stores;
+// elements of rows past n are stored as 0, and a word that reaches past
+// the span's valid elements is read by its valid halves alone.
+template <int ROWS, int W, int NB, typename T>
+__device__ __forceinline__ void copy_tile_odd(unsigned char* tile, const T* g,
+                                              int row0, int n, int d,
+                                              int tid) {
+  const unsigned short* gs = reinterpret_cast<const unsigned short*>(g);
+  const long long e0 = (long long)row0 * d, e1 = e0 + (long long)ROWS * d;
+  const long long ev = min(e1, max(e0, (long long)n * d));
+  // the first element of the 4-byte word that holds element e0
+  const long long w0 = e0 - ((reinterpret_cast<uintptr_t>(gs + e0) >> 1) & 1);
+  const int words = static_cast<int>((e1 - w0 + 1) / 2);
+  // (row, column) of this thread's next word's first element (-1: the
+  // element before the tile), and a step of 128 words, 256 elements
+  const int rel = static_cast<int>(w0 - e0) + 2 * tid;
+  int r = rel >= 0 ? rel / d : -1, c = rel >= 0 ? rel % d : d - 1;
+  const int dr = 256 / d, dc = 256 % d;
+  for (int k0 = tid; k0 < words; k0 += 128 * NB) {
+    uint32_t x[NB];
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const int k = k0 + 128 * i;
+      const long long e = w0 + 2LL * k;
+      x[i] = 0;
+      if (k < words) {
+        if (e >= e0 && e + 1 < ev) {
+          x[i] = *reinterpret_cast<const uint32_t*>(gs + e);
+        } else {
+          if (e >= e0 && e < ev) x[i] = gs[e];
+          if (e + 1 >= e0 && e + 1 < ev) x[i] |= uint32_t(gs[e + 1]) << 16;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      if (k0 + 128 * i < words) {
+        int rr = r, cc = c;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (rr >= 0 && rr < ROWS)
+            *reinterpret_cast<unsigned short*>(
+                tile + swizzled<ROWS, W>(rr, cc)) = (x[i] >> (16 * h)) & 0xffff;
+          if (++cc == d) cc = 0, ++rr;
+        }
+      }
+      r += dr;
+      c += dc;
+      if (c >= d) c -= d, ++r;
+    }
+  }
+}
+
+template <int D, typename T, bool M, bool R>
 __global__ void __launch_bounds__(128 * (wg_consumers(D) + 1), 1)
 fwd_wg(const __grid_constant__ CUtensorMap tm_q,
        const __grid_constant__ CUtensorMap tm_k,
-       const __grid_constant__ CUtensorMap tm_v, T* __restrict__ o,
-       float* __restrict__ lse, Problem p) {
+       const __grid_constant__ CUtensorMap tm_v, const Rows<T> rg,
+       T* __restrict__ o, float* __restrict__ lse, Problem p) {
   using namespace hopper;
   constexpr int NC = wg_consumers(D), BR = 64 * NC;
   constexpr int BC = wg_kv_tile(D, M), ST = wg_stages(D, M);
@@ -175,15 +301,34 @@ fwd_wg(const __grid_constant__ CUtensorMap tm_q,
   const int qb0 = r0 / kBlock;
   const int tid = threadIdx.x;
   if (tid == 0) {
-    mbar_init(&q_full, 1);
+    // the ragged producer: an arrival from each of its threads
+    mbar_init(&q_full, R ? 128 : 1);
     for (int s = 0; s < ST; ++s) {
-      mbar_init(&k_full[s], M ? 32 : 1);
+      mbar_init(&k_full[s], R ? 128 : M ? 32 : 1);
       mbar_init(&k_empty[s], kReleases);
-      mbar_init(&v_full[s], 1);
+      mbar_init(&v_full[s], R ? 128 : 1);
       mbar_init(&v_empty[s], kReleases);
     }
     mbar_fence_init();
     for (int w = 0; w < NC; ++w) lim_max[w] = 0;
+  }
+  if constexpr (R) {
+    // the columns from d to D of every row of Q and of every stage, which
+    // TMA would have read as 0: each 16-byte chunk from the one holding
+    // column d on, whole (the copies of the columns below d land after the
+    // barrier below, and never write past d)
+    const int c8 = p.d / 8, chunks = D / 8 - c8;
+    constexpr int kQRows = NC * 64, kRows = kQRows + 2 * ST * BC;
+    for (int i = tid; i < kRows * chunks; i += kThreads) {
+      const int row = i / chunks, col = (c8 + i % chunks) * 8;
+      const bool in_q = row < kQRows;
+      const int r = in_q ? row % 64 : (row - kQRows) % BC;
+      unsigned char* tile =
+          in_q ? qs + (row / 64) * kHalf : ks + ((row - kQRows) / BC) * kTile;
+      *reinterpret_cast<uint4*>(
+          tile + (in_q ? swizzled<64, W>(r, col) : swizzled<BC, W>(r, col))) =
+          make_uint4(0, 0, 0, 0);
+    }
   }
   __syncthreads();
   if (tid < BR) atomicMax(&lim_max[tid / 64], row_limit(p, b, r0 + tid));
@@ -223,8 +368,68 @@ fwd_wg(const __grid_constant__ CUtensorMap tm_q,
     return true;
   };
 
-  if (tid < 128) {  // producer
-    regs_dec<wg_producer_regs(NC)>();
+  if (tid < 128 && R) {  // the ragged producer: every thread copies
+    regs_dec<wg_producer_regs(NC, R)>();
+    // V elements a piece: 4 (8 bytes) at d % 4 == 0, 2 at other even d, 1
+    auto produce = [&](auto piece) {
+      constexpr int V = decltype(piece)::value;
+      const Walk w = walk_of(tid, p.d, V);
+      // a tile of `rows` rows from row0 of a [n, d] matrix g; this
+      // thread's copies so far arrive on `bar` once landed
+      auto copy = [&](unsigned char* tile, const T* g, int row0, int n,
+                      auto rows) {
+        constexpr int RS = decltype(rows)::value;
+        if constexpr (V == 1)
+          copy_tile_odd<RS, W, NC == 3 ? 4 : 8>(tile, g, row0, n, p.d, tid);
+        else
+          copy_tile<RS, W, V>(tile, g, row0, n, p.d, w);
+      };
+      auto arrive = [](uint64_t* bar) {
+        if constexpr (V == 1)
+          mbar_arrive(bar);
+        else
+          cp_async_arrive_noinc(bar);
+      };
+      for (int hf = 0; hf < NC; ++hf)
+        copy(qs + hf * kHalf, rg.q + (long long)bh * p.sq * p.d, r0 + 64 * hf,
+             p.sq, std::integral_constant<int, 64>{});
+      arrive(&q_full);
+      const T* kg = rg.k + (long long)bh * p.skv * p.d;
+      const T* vg = rg.v + (long long)bh * p.skv * p.d;
+      int n = 0;  // tiles loaded
+      for (int i = 0; i < tiles; ++i) {
+        const int c0 = first + i * BC;
+        if (!loaded(i)) continue;
+        const int st = n % ST;
+        const uint32_t empty_phase = ((n / ST) & 1) ^ 1;
+        ++n;
+        mbar_wait(&k_empty[st], empty_phase);
+        if constexpr (M) {  // the tile's kv ids (0 without ids), with K
+          for (int u = tid; u < BC; u += 128) {
+            const bool in = p.q_ids != nullptr && c0 + u < p.skv;
+            const int* src = in ? p.kv_ids + (long long)b * p.skv + c0 + u
+                                : reinterpret_cast<const int*>(kg);
+            if constexpr (V == 1)
+              kid_s[st][u] = in ? *src : 0;
+            else
+              cp_async_ca<4>(&kid_s[st][u], src, in);
+          }
+        }
+        copy(ks + st * kTile, kg, c0, p.skv, std::integral_constant<int, BC>{});
+        arrive(&k_full[st]);
+        mbar_wait(&v_empty[st], empty_phase);
+        copy(vs + st * kTile, vg, c0, p.skv, std::integral_constant<int, BC>{});
+        arrive(&v_full[st]);
+      }
+    };
+    if (p.d % 4 == 0)
+      produce(std::integral_constant<int, 4>{});
+    else if (p.d % 2 == 0)
+      produce(std::integral_constant<int, 2>{});
+    else
+      produce(std::integral_constant<int, 1>{});
+  } else if (tid < 128) {  // producer
+    regs_dec<wg_producer_regs(NC, R)>();
     // the first thread (masked: the first warp, for the kv ids)
     if (tid == 0 || (M && tid < 32)) {
       const int lane = tid;
@@ -268,6 +473,12 @@ fwd_wg(const __grid_constant__ CUtensorMap tm_q,
     const int wg = tid / 128 - 1, warp = (tid % 128) / 32, lane = tid % 32;
     const int g = lane / 4, t = lane % 4;
     const int rw = r0 + 64 * wg;
+    // a wait for a stage that wgmma reads: after the ragged producer's
+    // generic-proxy writes, an async-proxy fence
+    auto wait_tile = [](uint64_t* bar, uint32_t phase) {
+      mbar_wait(bar, phase);
+      if constexpr (R) fence_proxy_async();
+    };
     const int ra = rw + warp * 16 + g, rb = ra + 8;
     const int2 ba = key_bounds(p, b, ra), bb = key_bounds(p, b, rb);
     // masked: the segment ids of rows ra and rb
@@ -298,7 +509,7 @@ fwd_wg(const __grid_constant__ CUtensorMap tm_q,
     int held = -1;  // the V stage that P waits for, or -1
     uint32_t held_phase = 0;
     int n = 0;      // tiles loaded, as the producer counts them
-    mbar_wait(&q_full, 0);
+    wait_tile(&q_full, 0);
     for (int i = 0; i < tiles; ++i) {
       const int c0 = first + i * BC;
       if (!loaded(i)) continue;
@@ -311,7 +522,7 @@ fwd_wg(const __grid_constant__ CUtensorMap tm_q,
         // the held product first, since the producer may be waiting for
         // that stage before it can fill the ones this warpgroup skips
         if (held >= 0) {
-          mbar_wait(&v_full[held], held_phase);
+          wait_tile(&v_full[held], held_phase);
           pv_product<D, BC, W, T>(acc, pa, vs + held * kTile);
           wg_wait<0>();
           wg_keep(acc);
@@ -327,7 +538,7 @@ fwd_wg(const __grid_constant__ CUtensorMap tm_q,
       }
       const unsigned char* kt = ks + st * kTile;
       float s[BC / 2];
-      mbar_wait(&k_full[st], phase);
+      wait_tile(&k_full[st], phase);
       wg_fence();
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk)
@@ -336,7 +547,7 @@ fwd_wg(const __grid_constant__ CUtensorMap tm_q,
       wg_commit();
       const bool pending = held >= 0;
       if (pending) {
-        mbar_wait(&v_full[held], held_phase);
+        wait_tile(&v_full[held], held_phase);
         pv_product<D, BC, W, T>(acc, pa, vs + held * kTile);
       }
       if (pending)
@@ -428,7 +639,7 @@ fwd_wg(const __grid_constant__ CUtensorMap tm_q,
       held_phase = phase;
     }
     if (held >= 0) {
-      mbar_wait(&v_full[held], held_phase);
+      wait_tile(&v_full[held], held_phase);
       pv_product<D, BC, W, T>(acc, pa, vs + held * kTile);
       wg_wait<0>();
       wg_keep(acc);
@@ -441,16 +652,27 @@ fwd_wg(const __grid_constant__ CUtensorMap tm_q,
     const float ia = l_a == 0.f ? 0.f : 1.f / l_a;
     const float ib = l_b == 0.f ? 0.f : 1.f / l_b;
     const long long lbase = (long long)bh * p.sq;
+    // pairs of columns by 4-byte stores; at an odd d by 2-byte stores,
+    // the last column alone
+    auto put = [&](long long i, int col, uint32_t pair) {
+      if (!(p.d & 1)) {
+        *reinterpret_cast<uint32_t*>(o + i) = pair;
+      } else {
+        unsigned short* os = reinterpret_cast<unsigned short*>(o + i);
+        os[0] = pair & 0xffff;
+        if (col + 1 < p.d) os[1] = pair >> 16;
+      }
+    };
 #pragma unroll
     for (int nn = 0; nn < D / 8; ++nn) {
       const int col = nn * 8 + 2 * t;
       if (col >= p.d) break;
       if (ra < p.sq)
-        *reinterpret_cast<uint32_t*>(o + (lbase + ra) * p.d + col) =
-            pack2<T>(acc[4 * nn] * ia, acc[4 * nn + 1] * ia);
+        put((lbase + ra) * p.d + col, col,
+            pack2<T>(acc[4 * nn] * ia, acc[4 * nn + 1] * ia));
       if (rb < p.sq)
-        *reinterpret_cast<uint32_t*>(o + (lbase + rb) * p.d + col) =
-            pack2<T>(acc[4 * nn + 2] * ib, acc[4 * nn + 3] * ib);
+        put((lbase + rb) * p.d + col, col,
+            pack2<T>(acc[4 * nn + 2] * ib, acc[4 * nn + 3] * ib));
     }
     if (t == 0) {
       if (ra < p.sq)
@@ -461,23 +683,34 @@ fwd_wg(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// d % 8 == 0: TMA maps; else the ragged producer's rows (no maps)
 template <int D, typename T>
 int launch_wg(const void* q, const void* k, const void* v, void* o,
               float* lse, const Problem& p, int bh, cudaStream_t stream) {
-  const bool masked = p.tiles != nullptr;
+  const bool masked = p.tiles != nullptr, ragged = p.d % 8 != 0;
   const int bc = masked ? wg_kv_tile(D, true) : wg_kv_tile(D, false);
-  CUtensorMap m[3];
-  const int rc = tile_maps<T, D, 3>(m, {q, k, v}, {p.sq, p.skv, p.skv},
-                                    {64, bc, bc}, bh, p.d);
-  if (rc != 0) return rc;
+  CUtensorMap m[3] = {};
+  Rows<T> rows{nullptr, nullptr, nullptr};
+  if (ragged) {
+    rows = {static_cast<const T*>(q), static_cast<const T*>(k),
+            static_cast<const T*>(v)};
+  } else {
+    const int rc = tile_maps<T, D, 3>(m, {q, k, v}, {p.sq, p.skv, p.skv},
+                                      {64, bc, bc}, bh, p.d);
+    if (rc != 0) return rc;
+  }
   constexpr int NC = wg_consumers(D);
   const dim3 grid(cdiv(p.sq, 64 * NC), bh);
   T* out = static_cast<T*>(o);
+  auto go = [&](auto kernel, int smem) {
+    return launch(kernel, grid, 128 * (NC + 1), smem, stream, m[0], m[1],
+                  m[2], rows, out, lse, p);
+  };
   if (masked)
-    return launch(fwd_wg<D, T, true>, grid, 128 * (NC + 1),
-                  smem_wg<D, true>(), stream, m[0], m[1], m[2], out, lse, p);
-  return launch(fwd_wg<D, T, false>, grid, 128 * (NC + 1),
-                smem_wg<D, false>(), stream, m[0], m[1], m[2], out, lse, p);
+    return ragged ? go(fwd_wg<D, T, true, true>, smem_wg<D, true>())
+                  : go(fwd_wg<D, T, true, false>, smem_wg<D, true>());
+  return ragged ? go(fwd_wg<D, T, false, true>, smem_wg<D, false>())
+                : go(fwd_wg<D, T, false, false>, smem_wg<D, false>());
 }
 
 template <typename T>
@@ -496,8 +729,7 @@ namespace lamp_flash {
 
 int wg_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
            float* lse, const Problem& p, int bh, cudaStream_t stream) {
-  if (p.d % 8 != 0 || p.d > 256 || (dtype != 1 && dtype != 2))
-    return cudaErrorInvalidValue;
+  if (p.d > 256 || (dtype != 1 && dtype != 2)) return cudaErrorInvalidValue;
   return dtype == 1 ? by_dim<bf16>(p.d, q, k, v, o, lse, p, bh, stream)
                     : by_dim<f16>(p.d, q, k, v, o, lse, p, bh, stream);
 }

@@ -1,4 +1,5 @@
-// Hopper (sm_90a) building blocks in raw PTX: mbarriers, TMA tensor loads,
+// Hopper (sm_90a) building blocks in raw PTX: mbarriers, cp.async tracked
+// by mbarriers, thread-block clusters, TMA tensor loads,
 // warpgroup matrix multiplies (wgmma, bf16 or f16 inputs, f32 accumulators)
 // on swizzled shared-memory tiles, register reallocation between
 // warpgroups, and the host-side encoding of TMA tensor maps. Included by
@@ -90,6 +91,80 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // ---------------------------------------------------------------------------
+// cp.async (non-bulk): 16 bytes by .cg, 8 or 4 bytes by .ca; src-size 0
+// zero-fills the destination without reading. An mbarrier can track a
+// thread's copies (cp_async_arrive_noinc); wgmma reads what they wrote only
+// after fence_proxy_async (they write through the generic proxy, wgmma
+// reads through the async proxy).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+template <int N>
+__device__ __forceinline__ void cp_async_ca(void* dst, const void* src,
+                                            bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "n"(N), "r"(valid ? N : 0));
+}
+
+// an arrival on `bar` once every cp.async this thread issued before has
+// landed; it counts toward the barrier's expected arrivals (.noinc)
+__device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// orders this thread's view of shared memory written through the generic
+// proxy (cp.async, st.shared) before its later async-proxy reads (wgmma)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// thread-block clusters: a split barrier (an arrival that lets the block go
+// on, later a wait for every block's arrival), another block's shared
+// memory (mapa), and stores into it that complete on that block's mbarrier
+// (st.async): distributed shared memory
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// the address of shared memory `addr` of this block in cluster rank `rank`
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// 16 bytes into the shared memory of another block of the cluster,
+// completing 16 bytes on that block's mbarrier `bar` (both mapped)
+__device__ __forceinline__ void st_async(uint32_t addr, float4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void st_async(uint32_t addr, uint4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, "
+      "[%5];\n" ::"r"(addr),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
+      : "memory");
+}
+
+// ---------------------------------------------------------------------------
 // TMA: one box of a 3-D tensor map (column c0, row c1, slab c2) into shared
 // memory, completing on `bar`; elements past the tensor's edges read 0
 // ---------------------------------------------------------------------------
@@ -102,6 +177,18 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
       "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// one box of a 2-D tensor map (column c0, row c1) into shared memory,
+// completing on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
       : "memory");
 }
 
@@ -360,6 +447,36 @@ int tile_map(CUtensorMap* map, const void* base, int slabs, int rows,
       3, const_cast<void*>(base), dims, strides, box, unit,
       CU_TENSOR_MAP_INTERLEAVE_NONE,
       W == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
+}
+
+// the map's element type of a 1-, 2-, 4- or 8-byte type (1 byte: fp8 as
+// bytes)
+template <typename X>
+constexpr CUtensorMapDataType map_type() {
+  if constexpr (sizeof(X) == 1) return CU_TENSOR_MAP_DATA_TYPE_UINT8;
+  else if constexpr (std::is_same<X, __half>::value) return CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  else if constexpr (std::is_same<X, __nv_bfloat16>::value) return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  else if constexpr (std::is_same<X, float>::value) return CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  else return CU_TENSOR_MAP_DATA_TYPE_FLOAT64;
+}
+
+// encodes the map of a [rows, cols] matrix of elements of `type` whose rows
+// lie `stride` bytes apart (a multiple of 16), read in unswizzled boxes of
+// box_rows x box_cols (box_cols times the element a multiple of 16 bytes);
+// reads past an edge give 0. Returns 0, libcuda's CUresult, or kNoEncoder.
+inline int row_map(CUtensorMap* map, const void* base, CUtensorMapDataType type,
+                   long long rows, int cols, long long stride, int box_rows,
+                   int box_cols) {
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return kNoEncoder;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)stride};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return static_cast<int>(encode(
+      map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
 

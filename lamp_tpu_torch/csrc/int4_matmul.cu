@@ -180,31 +180,10 @@ __device__ __forceinline__ void store4(bf16* out, long long i, float4 v) {
 // Decode kernel: one launch, split-K over a cluster
 // ---------------------------------------------------------------------------
 
-// a split cluster barrier: an arrival that lets the rank go on, and later a
-// wait for every rank's arrival
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
-// the address of shared memory `addr` of this block in cluster rank `rank`
-__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
-  uint32_t r;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
-  return r;
-}
-
-// a float4 into the shared memory of another block of the cluster,
-// completing `bytes` (16) on that block's mbarrier `bar` (both mapped)
-__device__ __forceinline__ void st_async(uint32_t addr, float4 v, uint32_t bar) {
-  asm volatile(
-      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 [%0], {%1, %2, %3, %4}, "
-      "[%5];\n" ::"r"(addr),
-      "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
-      : "memory");
-}
+using hopper::cluster_arrive_relaxed;
+using hopper::cluster_wait;
+using hopper::map_rank;
+using hopper::st_async;
 
 constexpr int kMaxCluster = 8;  // the portable cluster size
 constexpr int kDecWarps = 8;

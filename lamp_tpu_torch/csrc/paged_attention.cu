@@ -46,27 +46,69 @@
 //
 // paged_attention_any<T, KV, A>, for every other head dim (any D, also
 // odd), group (any number of query heads per kv head) and float64 (A, the
-// accumulators' type, is double there and f32 otherwise): the same walk in
-// tiles of 64 tokens, with everything that grows with D or the group in
-// dynamic shared memory (opted in above 48 KB) instead of registers and
-// static arrays. Per tile, the K rows are staged in shared memory segment
-// by segment (at most 512 bytes of a row at a time), each row read from
-// device memory once, by loads as wide as the head slice's alignment
-// allows (cp.async of each 4-byte word when the head slice is 4-byte
-// aligned, as a bf16 head of 100 at 8-byte offsets and an fp8 one at
-// 4-byte offsets are; 2- or 1-byte copies at odd D); every (query head,
-// token) score sums that row against q. Phase B is as above.
-// Then the V rows are staged the same way and every (query head, column)
-// of the output accumulates p * V over the tile's tokens in order, in A
-// in shared memory: one sum a value, no split over token subsets, so the
-// result does not depend on D. A block computes the query heads and
-// output columns that fit in shared memory: up to 256 columns (more are
-// split over blockIdx.z, and each part reads the K rows again) and every
-// query head of the group while q_per_kv x (64 scores + a q segment + the
-// output columns + 4) values of A and the staged rows fit in 227 KB (128
-// query heads at D = 128 in f32 take 183,040 bytes); a larger group is
-// split over blockIdx.z too. The usual shapes run in one part, reading
-// each K/V row once.
+// accumulators' type, is double there and f32 otherwise). What held its
+// first design at a third of the byte bound (OpenLLaMA-3B's layer, B=32,
+// 32 / 32 heads of 100) and far below it with few kv heads (MQA 32/1: 32
+// blocks on 132 SMs), and what this one does about each:
+//  1. Too few blocks with few kv heads: the grid was B x H_kv. Here the
+//     keys are split over the blocks of a thread-block cluster
+//     (flash-decoding): rank r of `splits` (<= 8) walks the pages [r per,
+//     (r + 1) per) of the sequence; a rank whose pages lie past lengths[b]
+//     or outside the window band walks nothing and gives an empty partial
+//     (m = -inf, l = 0). The plan (splits) is the caller's, from shapes
+//     alone (ops/paged_attention.py:_paged_plan; lengths are never read on
+//     the host, so a step can be captured in a CUDA graph). The partials
+//     are added inside the cluster, as int4_matmul.cu's decode kernel adds
+//     its split-K partials: rank r owns the heads [r hs, (r + 1) hs); each
+//     rank sends the records (m, l, o) of each owner's heads by st.async
+//     into the owner's shared memory, completing on the owner's mbarrier,
+//     and the owner adds them in rank order. One launch, no workspace, no
+//     atomics: two calls give the same bits.
+//  2. Copies a block could not keep in flight (stage, barrier, score,
+//     barrier, softmax, stage V, barrier, accumulate; 4-byte cp.async of
+//     each word). Here each tile of tt tokens (64; 32 or 16 where the rows
+//     are wide) goes into a ring of `stages`, on the stage's mbarrier.
+//     Where the pool's rows (F elements) lie a multiple of 16 bytes apart
+//     and the head's units are whole, one thread loads a tile's K and V
+//     rows by TMA: a 2-D map of the pool's rows a call, a box of a page's
+//     (or a tile's) rows by the head's columns, from the 16-byte boundary
+//     at or below them (a box's start must be 16-byte aligned: one of 200
+//     bytes at 200-byte offsets faulted), the head then (g D sz & 15)
+//     bytes into each box row; tiles start at tile boundaries of the
+//     sequence, the tokens below the band masked; a tile's V boxes go out
+//     once it is scored, into its K rows' place, in flight under the
+//     softmax (half the shared memory, so an SM holds twice the blocks:
+//     a short decode's 1024 blocks then run in one wave). Elsewhere every thread
+//     copies pieces as wide as the rows' alignment allows by cp.async
+//     (from 4 bytes), arriving by cp.async.mbarrier.arrive.noinc, or 2 or
+//     1 bytes at a time at an odd D. A cp.async piece costs an H100 about
+//     the same whatever its width, so the copies of 200-byte rows in 8-byte
+//     pieces held the MHA layer at ~2 TB/s (PERF.md §6): TMA moves
+//     them at less cost. The page table is read for a tile `stages` tiles
+//     ahead. The ring is one stage unless a tile's products
+//     are long (the plan): a second and third stage cost more in blocks an
+//     SM holds than their overlap gains, and the blocks an SM holds
+//     overlap each other's copies and products (PERF.md §6).
+//  3. Idle threads on small groups (one thread a (head, token) score, one
+//     a (head, column) output), and scalar reads from shared memory. Here
+//     a block is 8 warps; a thread reads a staged row a unit at a time
+//     (the row's alignment: 8 bf16 values of a head of 128, 4 of one of
+//     100), scores it against up to 4 query heads at once, and a score's
+//     dot product is split over ds lanes (interleaved units, summed by
+//     shuffles) until the block's threads are busy; the output's (head,
+//     unit of columns) products are split over sb subsets of the tile's
+//     tokens, whose sums are added in order at the end, two tokens in
+//     flight a thread. Staged rows are padded to an odd number of their
+//     pieces, so that the rows a warp reads at one unit fall in different
+//     banks.
+// Everything that grows with D or the group lies in dynamic shared memory
+// (opted in above 48 KB): the stages, q, the tile's scores, each head's
+// record (m, l, and the output columns, per token subset) and the cluster
+// sum's slots. A block computes up to 256 output columns (more are split
+// over blockIdx.z, and each part reads the K rows again) and the query
+// heads of the group that fit in 227 KB (a larger group is split over
+// blockIdx.z too): the tile and the heads a pass are the host's plan
+// (any_plan), fewest passes first, then the largest tile.
 // Rows with no valid key (length 0 and no append) give exactly 0.
 //
 // Not carried over from the TPU kernel: grouping G sequences per grid cell,
@@ -83,6 +125,8 @@
 
 #include <algorithm>
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -350,56 +394,147 @@ __device__ __forceinline__ float aexp(float x) { return expf(x); }
 __device__ __forceinline__ double aexp(double x) { return exp(x); }
 __device__ __forceinline__ void store(double* p, double x) { *p = x; }
 
-constexpr int kAnyTile = 64;  // tokens a tile
+constexpr int kAnyThreads = 256;  // a block's most threads: 8 warps
+constexpr int kMaxStages = 3;   // K/V tiles in flight: this one and two more
+constexpr int kMaxSplits = 8;   // the portable cluster size
+constexpr int kMaxHb = 4;       // query heads a thread scores against a row
 // the largest dynamic shared memory a block may opt into on an H100
 constexpr int kSmemMax = 227 * 1024;
 
-// One segment of `len` elements, from element d0 on, of the rows row_s[0 ..
-// n) of `src` into `dst` (a row every rw 4-byte words); vb (4, 2 or 1
-// bytes) divides the segment's bytes and its offset, which the host
-// ensures. At vb = 4 every 4-byte word is one cp.async, all in flight at
-// once (the rows' stride, an odd number of elements' widths that keeps
-// phase A's reads of one row a thread free of bank conflicts, leaves
-// 16-bit and 8-bit rows only 4-byte aligned); below, a plain copy of 2 or
-// 1 bytes at a time.
-template <typename KV>
-__device__ __forceinline__ void stage_rows(uint32_t* dst, const KV* src,
-                                           const long long* row_s, int n,
-                                           int d0, int len, int vb, int rw) {
-  const int bytes = len * static_cast<int>(sizeof(KV));
-  if (vb == 4) {
-    const int words = bytes / 4;
-    for (int i = threadIdx.x; i < n * words; i += kThreads) {
-      const int j = i / words, c = i % words;
-      const uint32_t* g = reinterpret_cast<const uint32_t*>(src + row_s[j] + d0) + c;
-      const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst + j * rw + c));
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(g));
+// The elements a thread reads from a staged row at once (a unit): the copy
+// piece's VB bytes, and at least a pair of 16- or 8-bit elements (an odd
+// D's rows are copied 2 or 1 bytes at a time but lie 4-byte aligned)
+template <int VB, typename KV>
+__host__ __device__ constexpr int unit_elems() {
+  return sizeof(KV) <= 2 && VB < 2 * static_cast<int>(sizeof(KV))
+             ? 2
+             : VB / static_cast<int>(sizeof(KV));
+}
+
+// a unit of VE elements of a staged row at byte p, as A
+template <int VE, typename KV, typename A>
+__device__ __forceinline__ void load_unit(const unsigned char* p, A (&x)[VE]) {
+  constexpr int bytes = VE * sizeof(KV);
+  union {
+    uint4 v4;
+    uint2 v2;
+    uint32_t v1;
+    unsigned short s;
+  } raw;
+  if constexpr (bytes == 16) raw.v4 = *reinterpret_cast<const uint4*>(p);
+  else if constexpr (bytes == 8) raw.v2 = *reinterpret_cast<const uint2*>(p);
+  else if constexpr (bytes == 4) raw.v1 = *reinterpret_cast<const uint32_t*>(p);
+  else raw.s = *reinterpret_cast<const unsigned short*>(p);
+  const KV* e = reinterpret_cast<const KV*>(&raw);
+#pragma unroll
+  for (int i = 0; i < VE; ++i) x[i] = to_acc<A>(e[i]);
+}
+
+// VE consecutive values of A in shared memory (aligned to VE values)
+template <int VE, typename A>
+__device__ __forceinline__ void load_vals(const A* p, A (&x)[VE]) {
+  if constexpr (std::is_same<A, float>::value && VE % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < VE; i += 4) {
+      const float4 f = *reinterpret_cast<const float4*>(p + i);
+      x[i] = f.x, x[i + 1] = f.y, x[i + 2] = f.z, x[i + 3] = f.w;
     }
-    asm volatile("cp.async.wait_all;\n" ::);
-    return;
-  }
-  const int chunks = bytes / vb;
-  unsigned char* db = reinterpret_cast<unsigned char*>(dst);
-  for (int i = threadIdx.x; i < n * chunks; i += kThreads) {
-    const int j = i / chunks, c = i % chunks;
-    const unsigned char* g =
-        reinterpret_cast<const unsigned char*>(src + row_s[j] + d0) + c * vb;
-    unsigned char* d = db + j * rw * 4 + c * vb;
-    if (vb == 2)
-      *reinterpret_cast<unsigned short*>(d) =
-          __ldg(reinterpret_cast<const unsigned short*>(g));
-    else
-      *d = *g;
+  } else if constexpr (VE % 2 == 0 && sizeof(A) * 2 <= 16) {
+#pragma unroll
+    for (int i = 0; i < VE; i += 2) {
+      if constexpr (std::is_same<A, float>::value) {
+        const float2 f = *reinterpret_cast<const float2*>(p + i);
+        x[i] = f.x, x[i + 1] = f.y;
+      } else {
+        const double2 f = *reinterpret_cast<const double2*>(p + i);
+        x[i] = f.x, x[i + 1] = f.y;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < VE; ++i) x[i] = p[i];
   }
 }
 
-// grid = B x H_kv x (passes * chunks): blockIdx.z picks the pass (qh query
-// heads of the group) and the chunk (dout output columns).
-// Dynamic shared memory, in this order: the tile's row offsets, scores [qh]
-// [kAnyTile], q's segment [qh][seg], the output [qh][dout], m, l, alpha and
-// the append score [qh] each, and the staged rows [kAnyTile][rw words].
-template <typename T, typename KV, typename A>
-__global__ void __launch_bounds__(kThreads)
+// What a launch of paged_attention_any needs beside its pointers, computed
+// on the host (any_plan): the tile, the split, the work's layout over the
+// threads and of dynamic shared memory.
+struct AnyPlan {
+  int tt, ltt;     // tokens a tile (64, 32 or 16) and its log2
+  int qh;          // query heads a pass (a group past 227 KB takes several)
+  int passes, chunks, dout;  // output columns a chunk (<= 256)
+  int splits;      // blocks over one (sequence, kv head)'s pages: a cluster
+  int per;         // pages a split
+  int st;          // stages of the ring (1 to kMaxStages)
+  int vb;          // bytes a row's offsets are aligned to: 16, 8, 4, 2 or 1
+  int tma;         // rows loaded by TMA boxes of `box` rows (tm_k, tm_v),
+                   // else by vb-byte pieces (cp.async from 4 bytes, plain
+                   // loads and stores below)
+  int box, rpp;    // a box's rows, and a page's rows in the maps
+  int sk, sv;      // a staged K row's and V row's stride, 4-byte words
+  int ro;          // o's values in a head's record (the chunk's units), then m, l
+  int hw;          // 4-byte words of a record, % 4 == 0
+  int hb;          // query heads a score thread takes (<= kMaxHb)
+  int ds, lds;     // threads a score's dot product is split over (pow. of 2)
+  int sb;          // token subsets of the output products
+  int hs;          // heads each rank of the cluster owns in the sum
+  int nt;          // threads a block: 128 or kAnyThreads
+  // byte offsets into dynamic shared memory, and its size
+  int o_stage, o_rows, o_q, o_s, o_rec, o_alpha, o_recv, o_w, smem;
+};
+
+// Where a thread's copy pieces of a tile lie: from piece (j, c) (token,
+// piece of its rows) in steps of a block's threads, (dj, dc); no division
+// in the copy loop.
+struct Walk {
+  int j, c, dj, dc;
+};
+
+// Copies of the rows of one tile into a stage: the `n` tokens' K rows
+// (whole, D elements) and V rows (the chunk's nc columns from c0), VB-byte
+// pieces (pk of a K row, then pv of a V row) spread over the block's
+// threads in order; 16-, 8- and 4-byte pieces by cp.async, 2- and 1-byte
+// ones by plain loads and stores. `rows` holds each token's element offset
+// in the pools.
+template <int VB, typename KV>
+__device__ __forceinline__ void issue_rows(unsigned char* stage,
+                                           const long long* rows, int n,
+                                           const KV* k, const KV* v, int c0,
+                                           int pk, int pv, Walk w,
+                                           const AnyPlan& pl) {
+  const int per = pk + pv;
+  const unsigned char* kb = reinterpret_cast<const unsigned char*>(k);
+  const unsigned char* vb = reinterpret_cast<const unsigned char*>(v) +
+                            (long long)c0 * sizeof(KV);
+  unsigned char* vs = stage + pl.tt * pl.sk * 4;
+  for (int j = w.j, c = w.c; j < n;) {
+    const long long off = rows[j] * static_cast<long long>(sizeof(KV));
+    const bool is_k = c < pk;
+    const unsigned char* src = (is_k ? kb + c * VB : vb + (c - pk) * VB) + off;
+    unsigned char* dst = is_k ? stage + j * pl.sk * 4 + c * VB
+                              : vs + j * pl.sv * 4 + (c - pk) * VB;
+    if constexpr (VB == 16)
+      hopper::cp_async16(dst, src, true);
+    else if constexpr (VB == 8 || VB == 4)
+      hopper::cp_async_ca<VB>(dst, src, true);
+    else if constexpr (VB == 2)
+      *reinterpret_cast<unsigned short*>(dst) =
+          __ldg(reinterpret_cast<const unsigned short*>(src));
+    else
+      *dst = __ldg(src);
+    j += w.dj;
+    c += w.dc;
+    if (c >= per) c -= per, ++j;
+  }
+}
+
+// grid = splits x B x (H_kv * passes * chunks), clusters of `splits` blocks
+// along x: rank r of a cluster walks the pages [r per, (r + 1) per) of one
+// (sequence, kv head) for the pass's qh query heads and the chunk's dout
+// output columns, and the ranks then add their partials through
+// distributed shared memory (the header). VB: the copy pieces' bytes.
+template <typename T, typename KV, typename A, int VB>
+__global__ void __launch_bounds__(kAnyThreads)
 paged_attention_any(const T* __restrict__ q, const KV* __restrict__ k,
                     const KV* __restrict__ v, const T* __restrict__ new_k,
                     const T* __restrict__ new_v,
@@ -409,31 +544,60 @@ paged_attention_any(const T* __restrict__ q, const KV* __restrict__ k,
                     int num_heads, int num_kv_heads, int D, int page_size,
                     int pages_per_seq, long long page_stride,
                     long long page_offset, int static_window, A sm_scale,
-                    int qh, int chunks, int seg, int dout, int vb, int rw) {
+                    const AnyPlan pl, const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v) {
+  constexpr int VE = unit_elems<VB, KV>(), sz = sizeof(KV);
   extern __shared__ __align__(16) unsigned char smem_any[];
-  long long* row_s = reinterpret_cast<long long*>(smem_any);
-  A* s_s = reinterpret_cast<A*>(row_s + kAnyTile);
-  A* q_s = s_s + qh * kAnyTile;
-  A* o_s = q_s + qh * seg;
-  A* m_s = o_s + qh * dout;
-  A* l_s = m_s + qh;
-  A* alpha_s = l_s + qh;
-  A* snew_s = alpha_s + qh;
-  uint32_t* rows_s = reinterpret_cast<uint32_t*>(snew_s + qh);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_any);  // a stage's copies
+  uint64_t* vfull = full + kMaxStages;  // by TMA: a stage's V rows
+  uint64_t* comb = vfull + kMaxStages;  // the partials sent to this rank
+  unsigned char* stages = smem_any + pl.o_stage;  // [ST][tt K rows, tt V rows]
+  long long* rows_s = reinterpret_cast<long long*>(smem_any + pl.o_rows);
+  A* q_s = reinterpret_cast<A*>(smem_any + pl.o_q);   // [qh][dq]
+  A* s_s = reinterpret_cast<A*>(smem_any + pl.o_s);   // [qh][tt]
+  uint32_t* rec = reinterpret_cast<uint32_t*>(smem_any + pl.o_rec);
+  A* alpha_s = reinterpret_cast<A*>(smem_any + pl.o_alpha);
+  uint32_t* recv = reinterpret_cast<uint32_t*>(smem_any + pl.o_recv);
+  A* w_s = reinterpret_cast<A*>(smem_any + pl.o_w);
 
-  const int b = blockIdx.x;
-  const int g = blockIdx.y;  // kv head
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int nt = pl.nt, warps = nt / 32;
+  const int rank = blockIdx.x, cs = pl.splits, b = blockIdx.y;
+  const int g = blockIdx.z / (pl.passes * pl.chunks);  // kv head
+  const int pz = blockIdx.z % (pl.passes * pl.chunks);
   const int qpk = num_heads / num_kv_heads;
-  const int h0 = (blockIdx.z / chunks) * qh;     // first head of the pass
-  const int nh = min(qh, qpk - h0);
-  const int c0 = (blockIdx.z % chunks) * dout;   // first output column
-  const int nc = min(dout, D - c0);
+  const int h0 = (pz / pl.chunks) * pl.qh;  // first head of the pass
+  const int nh = min(pl.qh, qpk - h0);
+  const int c0 = (pz % pl.chunks) * pl.dout;  // first output column
+  const int nc = min(pl.dout, D - c0);
+  const int tt = pl.tt, ro = pl.ro, ST = pl.st;
+  const int nu = (D + VE - 1) / VE, nuv = (nc + VE - 1) / VE;  // units a row
+  const int dq = nu * VE;
   const long long F = (long long)num_kv_heads * D;
   const bool append = new_k != nullptr;
+  const int pk = D * sz / VB, pv = nc * sz / VB;  // copy pieces a row
+  // head h's record in token subset u: o[ro], then m and l (subset 0's)
+  auto record = [&](int u, int h) {
+    return reinterpret_cast<A*>(rec + (u * pl.qh + h) * pl.hw);
+  };
+  const int hs = pl.hs, own0 = rank * hs;  // this rank's heads in the sum
+  const int nown = max(0, min(hs, nh - own0));
 
-  // key band [lo, hi), as paged_attention_kernel
+  const int* table = page_table + (long long)b * pages_per_seq;
+  // by TMA: the first thread fetches the maps' descriptors, and the first
+  // box threads the pages of this split's first tile before the length
+  // is known (the first tile starts there unless a window cuts it)
+  int first_page = 0;
+  if (pl.tma) {
+    if (tid == 0) {
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tm_k) : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tm_v) : "memory");
+    }
+    if (tid < pl.tt / pl.box)
+      first_page = table[min(rank * pl.per + tid * pl.box / page_size,
+                             pages_per_seq - 1)];
+  }
+  // key band [lo, hi), as paged_attention_kernel, cut to this split's pages
   const int len = lengths[b];
   const int hi = min(len, pages_per_seq * page_size);
   int w = kNoWindow;
@@ -441,127 +605,520 @@ paged_attention_any(const T* __restrict__ q, const KV* __restrict__ k,
   if (static_window > 0) w = min(w, static_window);
   const int w_old = append ? max(w - 1, 0) : w;
   const int lo = max(len - w_old, 0);
+  const int tlo = max(lo, rank * pl.per * page_size);
+  const int thi = min(hi, min((rank + 1) * pl.per, pages_per_seq) * page_size);
+  // tiles from tlo; by TMA from the tile boundary below it (a box never
+  // crosses a page), the tokens below tlo masked
+  const int t_first = pl.tma ? tlo / tt * tt : tlo;
+  const int tiles = thi > tlo ? (thi - t_first + tt - 1) / tt : 0;
 
+  if (tid == 0) {
+    // TMA: the first thread's arrival with the boxes' bytes; else every
+    // thread's when its copies land
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&full[s], pl.tma ? 1 : nt);
+      hopper::mbar_init(&vfull[s], 1);
+    }
+    if (cs > 1) {  // every rank's partials of this rank's heads
+      hopper::mbar_init(comb, 1);
+      hopper::mbar_arrive_tx(comb, cs * nown * pl.hw * 4);
+    }
+    hopper::mbar_fence_init();
+  }
+  // the records: o = 0, l = 0, m = -inf (subset 0's)
+  {
+    const int na = pl.hw * 4 / static_cast<int>(sizeof(A));  // A's a record
+    A* ra = reinterpret_cast<A*>(rec);
+    for (int i = tid; i < pl.sb * pl.qh * na; i += nt)
+      ra[i] = i < pl.qh * na && i % na == ro ? A(-INFINITY) : A(0);
+  }
+  // the staged rows' tails past D (K) and nc (V) elements read as 0: an
+  // odd D's last unit reaches past its last element (TMA's rows are whole
+  // units)
+  if (!pl.tma) {
+    const int k0 = D * sz / 4, v0 = nc * sz / 4;
+    const int kt = pl.sk - k0, vt = pl.sv - v0;
+    uint32_t* st32 = reinterpret_cast<uint32_t*>(stages);
+    for (int i = tid; i < ST * tt * (kt + vt); i += nt) {
+      const int s = i / (tt * (kt + vt)), r = i % (tt * (kt + vt));
+      uint32_t* base = st32 + s * tt * (pl.sk + pl.sv);
+      if (r < tt * kt)
+        base[(r / kt) * pl.sk + k0 + r % kt] = 0;
+      else
+        base[tt * pl.sk + ((r - tt * kt) / vt) * pl.sv + v0 + (r - tt * kt) % vt] = 0;
+    }
+  }
   // the pass's query rows: head h of the pass at q_row + h * D
   const T* q_row = q + ((long long)b * num_heads + (long long)g * qpk + h0) * D;
-  for (int i = tid; i < nh * nc; i += kThreads) o_s[(i / nc) * dout + i % nc] = A(0);
-  for (int h = tid; h < nh; h += kThreads) {
-    m_s[h] = A(-INFINITY);
-    l_s[h] = A(0);
+  for (int i = tid; i < nh * dq; i += nt) {
+    const int h = i / dq, e = i % dq;
+    q_s[i] = e < D ? to_acc<A>(q_row[(long long)h * D + e]) : A(0);
   }
-  __syncthreads();
-
-  const int* table = page_table + (long long)b * pages_per_seq;
-  for (int t0 = lo; t0 < hi; t0 += kAnyTile) {
-    const int n = min(kAnyTile, hi - t0);
-    if (tid < n) {
-      const int tok = t0 + tid;
-      const long long phys = (long long)table[tok / page_size] + page_offset;
-      row_s[tid] = phys * page_stride + (long long)(tok % page_size) * F +
-                   (long long)g * D;
+  // each token's element offset in the pools (K's row; V's at the chunk),
+  // or by TMA each box's row in the maps, for tile i into its slot (ST + 1
+  // slots: by TMA a tile's V boxes go out after its scores)
+  auto slot = [&](int i) { return rows_s + (i % (ST + 1)) * tt; };
+  auto locate = [&](int i) {
+    if (pl.tma) {
+      const int tok = t_first + i * tt + tid * pl.box;
+      if (tid < tt / pl.box && tok < thi) {
+        const int pi = tok / page_size;
+        const int page =
+            i == 0 && pi == rank * pl.per + tid * pl.box / page_size
+                ? first_page : table[pi];
+        slot(i)[tid] = ((long long)page + page_offset) * pl.rpp +
+                       tok % page_size;
+      }
+      return;
     }
-    // A: scores of every (query head, token), D in segments of seg
-    for (int d0 = 0; d0 < D; d0 += seg) {
-      const int sl = min(seg, D - d0);
-      __syncthreads();  // row_s written; the last segment's readers done
-      stage_rows(rows_s, k, row_s, n, d0, sl, vb, rw);
-      for (int i = tid; i < nh * sl; i += kThreads)
-        q_s[(i / sl) * seg + i % sl] = to_acc<A>(q_row[(i / sl) * D + d0 + i % sl]);
-      __syncthreads();
-      for (int i = tid; i < nh * n; i += kThreads) {
-        const int h = i / n, j = i % n;
-        const KV* kr = reinterpret_cast<const KV*>(rows_s + j * rw);
-        const A* qr = q_s + h * seg;
-        A acc = 0;
-        for (int e = 0; e < sl; ++e) acc = afma(qr[e], to_acc<A>(kr[e]), acc);
-        A* s = s_s + h * kAnyTile + j;
-        *s = d0 == 0 ? acc : *s + acc;
+    const int tok = tlo + i * tt + tid;
+    if (tid < tt && tok < thi)
+      slot(i)[tid] =
+          ((long long)table[tok / page_size] + page_offset) * page_stride +
+          (long long)(tok % page_size) * F + (long long)g * D;
+  };
+  for (int i = 0; i < ST && i < tiles; ++i) locate(i);
+  __syncthreads();
+  if (cs > 1) hopper::cluster_arrive_relaxed();  // this rank's barrier exists
+
+  // put tile i in flight into its stage; each thread's copies arrive on
+  // the stage's barrier
+  const int pieces = pk + pv, wj = tid / pieces;
+  const Walk walk{wj, tid - wj * pieces, nt / pieces, nt % pieces};
+  // TMA: the boxes start at the 16-byte boundary at or below the head's
+  // columns (a box's start in its rows must be 16-byte aligned), which
+  // then lie hshift bytes into each box row
+  const int hshift = pl.tma ? static_cast<int>((g * (long long)D * sz) & 15) : 0;
+  const int col0 = pl.tma ? static_cast<int>((g * (long long)D * sz - hshift) / sz) : 0;
+  // a stage: tt K rows, then tt V rows; by TMA the V rows replace the K
+  // rows once the tile is scored (half the shared memory: more blocks an
+  // SM holds), the V boxes in flight under the softmax
+  const int stage_bytes = tt * (pl.sk + (pl.tma ? 0 : pl.sv)) * 4;
+  // the first thread's K (or V) boxes of tile i, a box a page the tile
+  // holds, after the generic proxy's reads of the stage
+  auto boxes_of = [&](int i, uint64_t* bar, const CUtensorMap* map, int col) {
+    const int t0 = t_first + i * tt;
+    const int boxes = min(tt, thi - t0 + pl.box - 1) / pl.box;
+    unsigned char* st = stages + (i % ST) * stage_bytes;
+    hopper::fence_proxy_async();
+    hopper::mbar_arrive_tx(bar, boxes * pl.box * pl.sk * 4);
+    for (int x = 0; x < boxes; ++x)
+      hopper::tma_load_2d(st + x * pl.box * pl.sk * 4, map, bar, col,
+                          static_cast<int>(slot(i)[x]));
+  };
+  auto issue = [&](int i) {
+    const int s = i % ST;
+    unsigned char* st = stages + s * stage_bytes;
+    if (pl.tma) {
+      if (tid == 0) boxes_of(i, &full[s], &tm_k, col0);
+      return;
+    }
+    const int n = min(tt, thi - (tlo + i * tt));
+    issue_rows<VB>(st, slot(i), n, k, v, c0, pk, pv, walk, pl);
+    if constexpr (VB >= 4)
+      hopper::cp_async_arrive_noinc(&full[s]);
+    else
+      hopper::mbar_arrive(&full[s]);
+  };
+  for (int i = 0; i < ST - 1 && i < tiles; ++i) issue(i);
+
+  const int hb = pl.hb, nhb = (nh + hb - 1) / hb;  // head blocks of scores
+  const int ds = pl.ds;
+  for (int i = 0; i < tiles; ++i) {
+    const int s = i % ST;
+    const int t0 = t_first + i * tt, n = min(tt, thi - t0);
+    const int jlo = max(0, tlo - t0);  // tokens below the band (TMA)
+    // the tile ST - 1 on goes out into the stage the last tile left (the
+    // one after it finds its rows below)
+    if (i + ST - 1 < tiles) issue(i + ST - 1);
+    hopper::mbar_wait(&full[s], (i / ST) & 1);
+    const unsigned char* ks = stages + s * stage_bytes;
+    const unsigned char* vs = pl.tma ? ks : ks + tt * pl.sk * 4;
+    // scores: a thread takes hb query heads against one token's row over
+    // every ds-th unit of it (ds lanes a dot product, summed by shuffles),
+    // two partial sums a head
+    for (int i0 = 0; i0 < nhb * tt * ds; i0 += nt) {
+      const int it = i0 + tid;
+      const int item = it >> pl.lds, part = it & (ds - 1);
+      const int hq = (item >> pl.ltt) * hb, j = item & (tt - 1);
+      const bool in = hq < nh && j < n && j >= jlo;
+      A acc[kMaxHb][2] = {};
+      if (in) {
+        const unsigned char* kr = ks + j * pl.sk * 4 + hshift;
+        for (int u = part; u < nu; u += ds) {
+          A kx[VE];
+          load_unit<VE, KV>(kr + u * VE * sz, kx);
+#pragma unroll
+          for (int x = 0; x < kMaxHb; ++x) {
+            if (x < hb && hq + x < nh) {
+              A qx[VE];
+              load_vals<VE>(q_s + (hq + x) * dq + u * VE, qx);
+#pragma unroll
+              for (int e = 0; e < VE; ++e)
+                acc[x][e & 1] = afma(qx[e], kx[e], acc[x][e & 1]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int x = 0; x < kMaxHb; ++x) {
+        A sum = acc[x][0] + acc[x][1];
+        for (int o = ds / 2; o > 0; o >>= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        if (in && part == 0 && x < hb && hq + x < nh)
+          s_s[(hq + x) * tt + j] = sum * sm_scale;
       }
     }
     __syncthreads();
-    // B: one warp per query head: online-softmax update
-    for (int h = warp; h < nh; h += kWarps) {
-      A* sh = s_s + h * kAnyTile;
-      A x[kAnyTile / 32];
-      A mx = -INFINITY;
+    if (pl.tma && tid == 0) boxes_of(i, &vfull[s], &tm_v, col0 + c0);
+    // the rows of tile i + ST, into the slot of tile i - 1's
+    if (i + ST < tiles) locate(i + ST);
+    // one warp a query head: the online softmax's step
+    for (int h = warp; h < nh; h += warps) {
+      A* sh = s_s + h * tt;
+      A x[4], mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < kAnyTile / 32; ++j) {
-        const int i = lane + 32 * j;
-        x[j] = i < n ? sh[i] * sm_scale : A(-INFINITY);
-        mx = amax(mx, x[j]);
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = lane + 32 * jj;
+        x[jj] = j < n && j >= jlo ? sh[j] : A(-INFINITY);
+        mx = amax(mx, x[jj]);
       }
       mx = warp_max(mx);  // finite: every tile holds >= 1 key of the band
-      const A m_old = m_s[h];
-      const A m_new = amax(m_old, mx);
+      A* r0 = record(0, h) + ro;
+      const A m_old = r0[0], m_new = amax(m_old, mx);
       const A alpha = aexp(m_old - m_new);  // 0 on the first tile
       A sum = 0;
 #pragma unroll
-      for (int j = 0; j < kAnyTile / 32; ++j) {
-        const int i = lane + 32 * j;
-        const A p = i < n ? aexp(x[j] - m_new) : A(0);
-        if (i < n) sh[i] = p;
+      for (int jj = 0; jj < 4; ++jj) {
+        const int j = lane + 32 * jj;
+        const A p = j < n && j >= jlo ? aexp(x[jj] - m_new) : A(0);
+        if (j < n) sh[j] = p;
         sum += p;
       }
       sum = warp_sum(sum);
       if (lane == 0) {
-        m_s[h] = m_new;
-        l_s[h] = l_s[h] * alpha + sum;
+        r0[0] = m_new;
+        r0[1] = r0[1] * alpha + sum;
         alpha_s[h] = alpha;
       }
     }
-    // C: o = o * alpha + p @ V over this block's columns, one sum a value
-    for (int d0 = c0; d0 < c0 + nc; d0 += seg) {
-      const int sl = min(seg, c0 + nc - d0);
-      __syncthreads();  // phase B done; the last segment's readers done
-      stage_rows(rows_s, v, row_s, n, d0, sl, vb, rw);
-      __syncthreads();
-      for (int i = tid; i < nh * sl; i += kThreads) {
-        const int h = i / sl, e = i % sl;
-        const A* ph = s_s + h * kAnyTile;
-        A* o = o_s + h * dout + (d0 - c0) + e;
-        A acc = *o * alpha_s[h];
-        for (int j = 0; j < n; ++j)
-          acc = afma(ph[j], to_acc<A>(reinterpret_cast<const KV*>(rows_s + j * rw)[e]),
-                     acc);
-        *o = acc;
+    __syncthreads();
+    if (pl.tma) hopper::mbar_wait(&vfull[s], (i / ST) & 1);
+    // o = o alpha + p V over the chunk's columns: a unit of a head's
+    // columns and a subset of the tokens (every sb-th) a thread, two
+    // tokens at a time
+    const int items = nh * nuv;
+    for (int it = tid; it < items * pl.sb; it += nt) {
+      const int u = it / items, r = it % items, h = r / nuv, cu = r % nuv;
+      A* o = record(u, h) + cu * VE;
+      const A* ph = s_s + h * tt;
+      const A a = alpha_s[h];
+      A o0[VE], o1[VE];
+      load_vals<VE>(o, o0);
+#pragma unroll
+      for (int e = 0; e < VE; ++e) o0[e] *= a, o1[e] = 0;
+      const int sb = pl.sb;
+      int j = jlo + u;
+      for (; j + sb < n; j += 2 * sb) {
+        A x0[VE], x1[VE];
+        load_unit<VE, KV>(vs + j * pl.sv * 4 + hshift + cu * VE * sz, x0);
+        load_unit<VE, KV>(vs + (j + sb) * pl.sv * 4 + hshift + cu * VE * sz,
+                          x1);
+        const A p0 = ph[j], p1 = ph[j + sb];
+#pragma unroll
+        for (int e = 0; e < VE; ++e) {
+          o0[e] = afma(p0, x0[e], o0[e]);
+          o1[e] = afma(p1, x1[e], o1[e]);
+        }
       }
+      if (j < n) {
+        A x0[VE];
+        load_unit<VE, KV>(vs + j * pl.sv * 4 + hshift + cu * VE * sz, x0);
+        const A p0 = ph[j];
+#pragma unroll
+        for (int e = 0; e < VE; ++e) o0[e] = afma(p0, x0[e], o0[e]);
+      }
+#pragma unroll
+      for (int e = 0; e < VE; ++e) o[e] = o0[e] + o1[e];
     }
-    __syncthreads();  // s_s, row_s and the rows are rewritten by the next tile
+    __syncthreads();  // the stage, the scores and alpha are free
+  }
+  // the token subsets' sums, in order, into subset 0's records
+  if (pl.sb > 1) {
+    for (int i = tid; i < nh * ro; i += nt) {
+      const int h = i / ro, c = i % ro;
+      A acc = record(0, h)[c];
+      for (int u = 1; u < pl.sb; ++u) acc += record(u, h)[c];
+      record(0, h)[c] = acc;
+    }
+    __syncthreads();
   }
 
+  // The cluster's sum: rank r owns the heads [r hs, (r + 1) hs) of the
+  // pass; every rank sends the records of each owner's heads to the
+  // owner's recv [splits][hs][hw] (slot = the sender's rank) by st.async,
+  // which completes on the owner's mbarrier, and each owner, once every
+  // byte has landed, adds the partials in rank order. Without a split a
+  // rank reads its own records.
+  const uint32_t* src = rec + own0 * pl.hw;
+  int parts = 1, stride = 0;
+  if (cs > 1) {
+    hopper::cluster_wait();  // every rank's comb barrier exists
+    for (int r = 0; r < cs; ++r) {
+      const int words = max(0, min(hs, nh - r * hs)) * pl.hw;
+      const uint32_t* from = rec + r * hs * pl.hw;
+      const uint32_t slot = hopper::map_rank(hopper::smem_u32(recv + rank * hs * pl.hw), r);
+      const uint32_t bar = hopper::map_rank(hopper::smem_u32(comb), r);
+      for (int i = 4 * tid; i < words; i += 4 * nt)
+        hopper::st_async(slot + i * 4, *reinterpret_cast<const uint4*>(from + i), bar);
+    }
+    hopper::mbar_wait(comb, 0);
+    src = recv;
+    parts = cs;
+    stride = hs * pl.hw;
+  }
+  auto part_rec = [&](int r, int hh) {
+    return reinterpret_cast<const A*>(src + r * stride + hh * pl.hw);
+  };
+  // per owned head: the combined max M and sum L, each part's weight
+  // exp(m_r - M) (w_s [parts][hs]), and the append column's score
+  A* m_c = w_s + parts * hs;
+  A* l_c = m_c + hs;
+  A* sn_c = l_c + hs;
+  for (int hh = tid; hh < nown; hh += nt) {
+    A M = -INFINITY;
+    for (int r = 0; r < parts; ++r) M = amax(M, part_rec(r, hh)[ro]);
+    const A mu = M == A(-INFINITY) ? A(0) : M;
+    A L = 0;
+    for (int r = 0; r < parts; ++r) {
+      const A wr = aexp(part_rec(r, hh)[ro] - mu);
+      w_s[r * hs + hh] = wr;
+      L += wr * part_rec(r, hh)[ro + 1];
+    }
+    m_c[hh] = M;
+    l_c[hh] = L;
+  }
   const long long kv_row = (long long)b * F + (long long)g * D;
   if (append) {
-    // the current token's score over the whole head, one warp a query head
-    for (int h = warp; h < nh; h += kWarps) {
+    // the current token's score over the whole head, one warp a head
+    for (int hh = warp; hh < nown; hh += warps) {
+      const T* qh = q_row + (long long)(own0 + hh) * D;
       A part = 0;
       for (int d = lane; d < D; d += 32)
-        part += to_acc<A>(q_row[(long long)h * D + d]) * to_acc<A>(new_k[kv_row + d]);
+        part += to_acc<A>(qh[d]) * to_acc<A>(new_k[kv_row + d]);
       part = warp_sum(part);
-      if (lane == 0) snew_s[h] = part * sm_scale;
+      if (lane == 0) sn_c[hh] = part * sm_scale;
     }
   }
   __syncthreads();
-
-  T* out_row = out + ((long long)b * num_heads + (long long)g * qpk + h0) * D;
-  for (int i = tid; i < nh * nc; i += kThreads) {
-    const int h = i / nc, d = c0 + i % nc;
-    A o = o_s[h * dout + i % nc];
-    A l = l_s[h];
+  T* out_row = out + ((long long)b * num_heads + (long long)g * qpk + h0 + own0) * D;
+  for (int i = tid; i < nown * nc; i += nt) {
+    const int hh = i / nc, c = i % nc;
+    A o = 0;
+    for (int r = 0; r < parts; ++r) o = afma(w_s[r * hs + hh], part_rec(r, hh)[c], o);
+    A l = l_c[hh];
     if (append) {
       // one more online-softmax column: always visible to its own query
-      const A m = m_s[h], sn = snew_s[h];
+      const A m = m_c[hh], sn = sn_c[hh];
       const A mf = amax(m, sn);
       const A alpha = aexp(m - mf), pn = aexp(sn - mf);
       l = l * alpha + pn;
-      o = o * alpha + pn * to_acc<A>(new_v[kv_row + d]);
+      o = o * alpha + pn * to_acc<A>(new_v[kv_row + c0 + c]);
     }
-    store(out_row + (long long)h * D + d, l == A(0) ? A(0) : o / l);
+    store(out_row + (long long)hh * D + c0 + c, l == A(0) ? A(0) : o / l);
   }
 }
 
-// the largest of 4, 2 and 1 that divides x
-int word_divisor(long long x) { return x % 4 == 0 ? 4 : x % 2 == 0 ? 2 : 1; }
+// the largest of 16, 8, 4, 2 and 1 that divides x
+int piece_bytes(long long x) {
+  for (int p = 16; p > 1; p /= 2)
+    if (x % p == 0) return p;
+  return 1;
+}
 
+// a staged row's stride in 4-byte words for `bytes` of row copied by
+// pieces of vb bytes: aligned to the piece, an odd number of pieces (or of
+// words, below 4 bytes), so that the rows a warp reads at one column fall
+// in different banks
+int row_words(int bytes, int vb) {
+  const int u = vb >= 4 ? vb / 4 : 1;
+  const int units = ((bytes + 3) / 4 + u - 1) / u;
+  return u * (units | 1);
+}
+
+int align16(int x) { return (x + 15) & ~15; }
+
+// The plan of a launch with `splits` blocks over a sequence's pages and a
+// ring of `stages` (chosen by the caller: ops/paged_attention.py:
+// _paged_plan): the tile (64, 32 or 16 tokens) and the query heads a pass
+// that fit in 227 KB, fewest passes first, then the largest tile. Rows
+// aligned to 4 or 8 bytes are copied as 16-byte windows when every page
+// is a multiple of 16 bytes (a window then never reaches past the pool).
+// Returns false if nothing fits (unreachable: one head in 16-token tiles
+// does).
+template <typename T, typename KV, int VB>
+bool any_plan(AnyPlan& pl, int num_heads, int num_kv_heads, int D,
+              int page_size, int pages_per_seq, long long page_stride,
+              int splits, int stages) {
+  using A = typename std::conditional<std::is_same<T, double>::value, double,
+                                      float>::type;
+  constexpr int VE = unit_elems<VB, KV>();
+  const int sz = sizeof(KV), asz = sizeof(A);
+  const int qpk = num_heads / num_kv_heads;
+  pl.splits = splits;
+  pl.per = (pages_per_seq + splits - 1) / splits;
+  pl.st = stages;
+  pl.vb = VB;
+  pl.dout = D < 256 ? D : 256;
+  pl.chunks = (D + pl.dout - 1) / pl.dout;
+  // TMA: rows of whole units (D sz % 4 == 0) a multiple of 16 bytes apart
+  // (the pool's rows, F sz), one chunk, tiles of whole pages or pages of
+  // whole tiles (below)
+  pl.tma = pl.tma != 0 && VB >= 4 &&
+           (long long)num_kv_heads * D * sz % 16 == 0 && pl.chunks == 1;
+  pl.rpp = static_cast<int>(page_stride / ((long long)num_kv_heads * D));
+  if (pl.tma) {  // a box row: the head's columns from the 16-byte
+                 // boundary at or below them (16 - VB bytes early at most),
+                 // an odd number of 16-byte units where a box may be that
+                 // wide (256 columns): the rows a warp reads at one unit
+                 // then fall in different banks
+    const int units = (D * sz + 31 - VB) / 16;
+    pl.sk = pl.sv = 4 * (units % 2 == 0 && (units + 1) * 16 <= 256 * sz
+                             ? units + 1 : units);
+  } else {
+    pl.sk = row_words(D * sz, VB);
+    pl.sv = row_words(pl.dout * sz, VB);
+  }
+  pl.ro = (pl.dout + VE - 1) / VE * VE;
+  pl.hw = ((pl.ro + 2) * asz + 15) / 16 * 4;
+  const int dq = (D + VE - 1) / VE * VE;
+  const int units = pl.ro / VE;
+  // 4 warps for one f32 query head a kv head: its blocks are many and
+  // short, and an SM holds twice as many of them (registers); 8 warps
+  // for the products of a group or of float64
+  pl.nt = qpk == 1 && asz == 4 ? 128 : kAnyThreads;
+  bool found = false;
+  for (int lt = 6; lt >= 4; --lt) {
+    const int tt = 1 << lt;
+    if (pl.tma && page_size % tt != 0 && tt % page_size != 0) continue;
+    for (int qh = qpk; qh >= 1; --qh) {
+      AnyPlan c = pl;
+      c.tt = tt;
+      c.box = tt < page_size ? tt : page_size;
+      c.ltt = lt;
+      c.qh = qh;
+      c.passes = (qpk + qh - 1) / qh;
+      c.hb = std::min(kMaxHb, qh);
+      c.lds = 0;
+      while (c.lds < 5 && (qh + c.hb - 1) / c.hb * tt * (2 << c.lds) <= c.nt)
+        ++c.lds;
+      c.ds = 1 << c.lds;
+      c.sb = std::max(1, c.nt / (qh * units));
+      c.hs = (qh + splits - 1) / splits;
+      int o = 128;  // the mbarriers; TMA boxes 128-byte aligned
+      c.o_stage = o;
+      o = align16(o + stages * tt * (c.sk + (c.tma ? 0 : c.sv)) * 4);
+      c.o_rows = o;
+      o = align16(o + (stages + 1) * tt * 8);
+      c.o_q = o;
+      o = align16(o + qh * dq * asz);
+      c.o_s = o;
+      o = align16(o + qh * tt * asz);
+      c.o_rec = o;
+      o = align16(o + c.sb * qh * c.hw * 4);
+      c.o_alpha = o;
+      o = align16(o + qh * asz);
+      c.o_recv = o;
+      o = align16(o + (splits > 1 ? splits * c.hs * c.hw * 4 : 0));
+      c.o_w = o;
+      o = align16(o + (splits + 3) * c.hs * asz);
+      c.smem = o;
+      if (c.smem > kSmemMax) continue;
+      if (!found || c.passes < pl.passes) pl = c;
+      found = true;
+      break;
+    }
+  }
+  if (!found && pl.tma) {  // no tile divides the pages: copies
+    pl.tma = 0;
+    return any_plan<T, KV, VB>(pl, num_heads, num_kv_heads, D, page_size,
+                               pages_per_seq, page_stride, splits, stages);
+  }
+  return found;
+}
+
+template <typename T, typename KV, int VB>
+cudaError_t launch_any_vb(const void* q, const void* k, const void* v,
+                          const void* new_k, const void* new_v,
+                          const int* page_table, const int* lengths,
+                          const int* windows, void* out, int batch,
+                          int num_heads, int num_kv_heads, int D, int page_size,
+                          int pages_per_seq, long long page_stride,
+                          long long page_offset, int static_window,
+                          double sm_scale, int splits, int stages,
+                          cudaStream_t stream) {
+  // f32 accumulators, f64 for float64
+  using A = typename std::conditional<std::is_same<T, double>::value, double,
+                                      float>::type;
+  AnyPlan pl;
+  pl.tma = -1;  // undecided
+  if (!any_plan<T, KV, VB>(pl, num_heads, num_kv_heads, D, page_size,
+                           pages_per_seq, page_stride, splits, stages))
+    return cudaErrorInvalidValue;
+  // the maps of the K and V rows ([rows, F] of KV, F sz bytes apart, 2^39
+  // bytes of rows: more than a card holds; rows past the pool are never
+  // addressed), boxes of a tile's or a page's rows by the head's columns.
+  // The encoder needs the pools' device current on this thread.
+  CUtensorMap maps[2] = {};
+  if (pl.tma) {
+    cudaPointerAttributes at;
+    if (cudaPointerGetAttributes(&at, k) != cudaSuccess ||
+        cudaSetDevice(at.device) != cudaSuccess)
+      return cudaGetLastError();
+    const void* bases[2] = {k, v};
+    const long long stride = (long long)num_kv_heads * D * sizeof(KV);
+    for (int i = 0; i < 2; ++i) {
+      const int rc = hopper::row_map(
+          &maps[i], bases[i], hopper::map_type<KV>(), (1LL << 39) / stride,
+          num_kv_heads * D, stride, pl.box,
+          pl.sk * 4 / static_cast<int>(sizeof(KV)));
+      if (rc != 0) return cudaErrorInvalidValue;
+    }
+  }
+  auto kernel = paged_attention_any<T, KV, A, VB>;
+  if (pl.smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(splits, batch, num_kv_heads * pl.passes * pl.chunks);
+  cfg.blockDim = dim3(pl.nt);
+  cfg.dynamicSmemBytes = pl.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  // a cluster of one block without a split (on an H100 the MHA layer ran
+  // 4-12% faster so than by a plain launch: PERF.md §6)
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(q), static_cast<const KV*>(k),
+      static_cast<const KV*>(v), static_cast<const T*>(new_k),
+      static_cast<const T*>(new_v), page_table, lengths, windows,
+      static_cast<T*>(out), num_heads, num_kv_heads, D, page_size,
+      pages_per_seq, page_stride, page_offset, static_window,
+      static_cast<A>(sm_scale), pl, maps[0], maps[1]);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// The copy pieces' bytes: the largest of 16, 8, 4, 2, 1 that divides a
+// row's bytes (every row offset is a multiple of D elements of a 16-byte
+// aligned pool, every chunk's of 256 elements), a kernel instance each.
 template <typename T, typename KV>
 cudaError_t launch_any(const void* q, const void* k, const void* v,
                        const void* new_k, const void* new_v,
@@ -570,47 +1127,28 @@ cudaError_t launch_any(const void* q, const void* k, const void* v,
                        int num_kv_heads, int D, int page_size,
                        int pages_per_seq, long long page_stride,
                        long long page_offset, int static_window,
-                       double sm_scale, cudaStream_t stream) {
-  // f32 accumulators, f64 for float64
-  using A = typename std::conditional<std::is_same<T, double>::value, double,
-                                      float>::type;
-  const int sz = static_cast<int>(sizeof(KV));
-  const int qpk = num_heads / num_kv_heads;
-  // a row segment of at most 512 bytes, an output chunk of at most 256
-  // columns; copies of the widest unit (4, 2 or 1 bytes) that every row
-  // offset (a multiple of D elements), segment and chunk allow
-  const int seg = D * sz <= 512 ? D : 512 / sz;
-  const int dout = D < 256 ? D : 256;
-  const int vb = std::min(word_divisor((long long)D * sz),
-                          std::min(word_divisor((long long)seg * sz),
-                                   word_divisor((long long)dout * sz)));
-  // the row stride in 4-byte words: an odd number of elements' widths
-  // (conflict-free row reads), each row aligned to its element (8 bytes
-  // for float64)
-  const int unit = sz == 8 ? 2 : 1;
-  const int rw = unit * ((((seg * sz + 3) / 4 + unit - 1) / unit) | 1);
-  const int fixed = kAnyTile * 8 + kAnyTile * rw * 4;
-  const int per_head = (kAnyTile + seg + dout + 4) * static_cast<int>(sizeof(A));
-  const int qh = std::min(qpk, (kSmemMax - fixed) / per_head);
-  if (qh < 1) return cudaErrorInvalidValue;  // unreachable: seg, dout capped
-  const int chunks = (D + dout - 1) / dout;
-  const int passes = (qpk + qh - 1) / qh;
-  const int smem = fixed + qh * per_head;
-  auto kernel = paged_attention_any<T, KV, A>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
+                       double sm_scale, int splits, int stages,
+                       cudaStream_t stream) {
+  if (splits < 1 || splits > kMaxSplits || splits > pages_per_seq ||
+      stages < 1 || stages > kMaxStages)
+    return cudaErrorInvalidValue;
+  const int vb = piece_bytes((long long)D * sizeof(KV));
+#define LAMP_PA_ANY(VB)                                                          \
+  if (vb == VB) {                                                                \
+    if constexpr (VB >= static_cast<int>(sizeof(KV)))                           \
+      return launch_any_vb<T, KV, VB>(q, k, v, new_k, new_v, page_table, lengths, \
+                                      windows, out, batch, num_heads,            \
+                                      num_kv_heads, D, page_size, pages_per_seq, \
+                                      page_stride, page_offset, static_window,   \
+                                      sm_scale, splits, stages, stream);         \
   }
-  dim3 grid(batch, num_kv_heads, passes * chunks);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v),
-      static_cast<const T*>(new_k), static_cast<const T*>(new_v), page_table, lengths,
-      windows, static_cast<T*>(out), num_heads, num_kv_heads, D, page_size,
-      pages_per_seq, page_stride, page_offset, static_window, static_cast<A>(sm_scale),
-      qh, chunks,
-      seg, dout, vb, rw);
-  return cudaGetLastError();
+  LAMP_PA_ANY(16)
+  LAMP_PA_ANY(8)
+  LAMP_PA_ANY(4)
+  LAMP_PA_ANY(2)
+  LAMP_PA_ANY(1)
+#undef LAMP_PA_ANY
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -621,17 +1159,21 @@ extern "C" {
 // 2 = float16, 3 = float64. kv_dtype: the pools': 0 = float32, 1 =
 // bfloat16, 4 = float16, 5 = float64 (each only with a q of the same
 // dtype), 2 = float8_e4m3fn, 3 = float8_e5m2 (with a float32, bfloat16 or
-// float16 q). float64 computes in double, in paged_attention_any. Any head_dim and any number of query
-// heads per kv head: D = 64 or 128 with at most kMaxQ of them take
-// paged_attention_kernel, everything else paged_attention_any.
-// Returns the cudaError_t of the launch; the caller raises on non-zero.
+// float16 q). float64 computes in double, in paged_attention_any. Any
+// head_dim and any number of query heads per kv head: D = 64 or 128 with
+// at most kMaxQ of them take paged_attention_kernel (splits and stages
+// must be 0), everything else paged_attention_any, over `splits` blocks a
+// sequence's pages (1 to 8, at most pages_per_seq) with a ring of
+// `stages` (1 to 3): the caller's plan. Returns the cudaError_t of the
+// launch; the caller raises on non-zero.
 int lamp_paged_attention(const void* q, const void* k, const void* v,
                          const void* new_k, const void* new_v, const void* page_table,
                          const void* lengths, const void* windows, void* out,
                          int batch, int num_heads, int num_kv_heads, int head_dim,
                          int page_size, int pages_per_seq, long long page_stride,
                          long long page_offset, int static_window, double sm_scale,
-                         int dtype, int kv_dtype, void* stream) {
+                         int dtype, int kv_dtype, int splits, int stages,
+                         void* stream) {
   if (batch == 0) return cudaSuccess;
   if (num_kv_heads <= 0 || head_dim <= 0 || num_heads % num_kv_heads != 0)
     return cudaErrorInvalidValue;
@@ -640,6 +1182,9 @@ int lamp_paged_attention(const void* q, const void* k, const void* v,
   const int* wn = static_cast<const int*>(windows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool fixed = num_heads / num_kv_heads <= kMaxQ;
+  if (fixed && (head_dim == 64 || head_dim == 128) && dtype != 3 &&
+      (splits != 0 || stages != 0))
+    return cudaErrorInvalidValue;
 #define LAMP_PA_LAUNCH(T, KV, D)                                                   \
   return launch<T, KV, D>(q, k, v, new_k, new_v, pt, ln, wn, out, batch, num_heads, \
                           num_kv_heads, page_size, pages_per_seq, page_stride,     \
@@ -650,7 +1195,7 @@ int lamp_paged_attention(const void* q, const void* k, const void* v,
   return launch_any<T, KV>(q, k, v, new_k, new_v, pt, ln, wn, out, batch,         \
                            num_heads, num_kv_heads, head_dim, page_size,          \
                            pages_per_seq, page_stride, page_offset, static_window, \
-                           sm_scale, st)
+                           sm_scale, splits, stages, st)
   if (dtype == 1 && kv_dtype == 1) { LAMP_PA_DIMS(__nv_bfloat16, __nv_bfloat16); }
   if (dtype == 0 && kv_dtype == 0) { LAMP_PA_DIMS(float, float); }
   if (dtype == 2 && kv_dtype == 4) { LAMP_PA_DIMS(__half, __half); }
@@ -664,7 +1209,7 @@ int lamp_paged_attention(const void* q, const void* k, const void* v,
     return launch_any<double, double>(q, k, v, new_k, new_v, pt, ln, wn, out, batch,
                                       num_heads, num_kv_heads, head_dim, page_size,
                                       pages_per_seq, page_stride, page_offset,
-                                      static_window, sm_scale, st);
+                                      static_window, sm_scale, splits, stages, st);
 #undef LAMP_PA_DIMS
 #undef LAMP_PA_LAUNCH
   return cudaErrorInvalidValue;

@@ -115,7 +115,7 @@ def load(path: Path) -> ctypes.CDLL:
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # tensors
         i32, i32, i32, i32, i32, i32,                 # batch .. pages_per_seq
         i64, i64, i32, ctypes.c_double, i32, i32,     # strides .. kv dtype
-        ptr,                                          # stream
+        i32, i32, ptr,                                # splits, stages, stream
     ]
     lib.lamp_paged_attention.restype = i32
     # flash attention: tensors, then the visibility (q ids, kv ids, mask,

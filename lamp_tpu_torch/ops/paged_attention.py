@@ -23,6 +23,7 @@ FUSED layout (pass ``v_pages=None``): kv_pages [P, 2, page, H_kv * D]
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -117,6 +118,55 @@ def paged_attention_reference(q, k_pages, v_pages, page_indices, lengths, *,
     # no valid keys -> zero output (not the meaningless uniform-softmax mean)
     o = torch.where(eff > 0, o, 0.0)
     return o.to(q.dtype)
+
+
+# csrc/paged_attention.cu: paged_attention_kernel takes head_dim 64 or 128
+# with at most _FIXED_GROUP query heads a kv head (not float64);
+# paged_attention_any the rest, over up to _MAX_SPLITS blocks (one
+# thread-block cluster) a sequence
+_FIXED_GROUP = 8
+_MAX_SPLITS = 8
+
+
+def _general_route(group: int, head_dim: int, dtype) -> bool:
+    """Whether a call runs paged_attention_any (else paged_attention_kernel):
+    the C entry point's routing."""
+    return (dtype == torch.float64 or group > _FIXED_GROUP
+            or head_dim not in (64, 128))
+
+
+@functools.lru_cache(maxsize=None)
+def _paged_plan(batch: int, kv_heads: int, group: int, head_dim: int,
+                pages_per_seq: int, sms: int):
+    """The launch plan of a paged_attention_any call, ``(splits, stages)``,
+    decided here from shapes alone and never from ``lengths`` (a decode
+    step stays capturable in a CUDA graph):
+
+    - splits: how many blocks of one thread-block cluster walk a
+      sequence's pages, rank r the pages [r per, (r + 1) per) with per =
+      ceil(pages_per_seq / splits). Without a split the grid has batch x
+      kv_heads blocks (x the 256-column chunks of a head_dim above 256); a
+      call aims at one block per SM: splits reach that aim, at most
+      _MAX_SPLITS (a portable cluster) and at most one page a split, then
+      the fewest that keep the longest split as short;
+    - stages: the ring's K/V tiles in flight. One, unless a tile's products
+      are long (a group of 64 or more query heads a kv head): on an H100 a
+      block's second and third stages cost more in blocks an SM holds than
+      their overlap gains (PERF.md §6).
+    """
+    base = batch * kv_heads * -(-head_dim // 256)
+    splits = max(1, min(_MAX_SPLITS, pages_per_seq, -(-sms // base)))
+    per = -(-pages_per_seq // splits)
+    stages = 2 if group >= 64 else 1
+    return -(-pages_per_seq // per), stages
+
+
+def _split_pages(pages_per_seq: int, splits: int):
+    """The pages [start, stop) that each rank of a plan walks (as the kernel
+    computes them)."""
+    per = -(-pages_per_seq // splits)
+    return [(r * per, min((r + 1) * per, pages_per_seq))
+            for r in range(splits)]
 
 
 def _check_cuda(q, pools, page_indices, lengths, windows, append_kv):
@@ -214,7 +264,8 @@ def paged_attention(q, k_pages, v_pages, page_indices, lengths, *,
     # csrc/paged_attention.cu replaces lamp_tpu's _paged_kernel. It is bound
     # by K/V bytes read (B x live tokens x 2 x F x 2 B per layer in bf16,
     # 1 B in fp8) and reads each K/V row once per kv head, not once per
-    # query head.
+    # query head; paged_attention_any splits a sequence's pages over the
+    # blocks of a cluster by _paged_plan.
     from ._build import library
 
     lib = library()
@@ -231,13 +282,19 @@ def paged_attention(q, k_pages, v_pages, page_indices, lengths, *,
         append_kv[0].data_ptr(), append_kv[1].data_ptr())
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
+    pages_per_seq = page_indices.shape[1]
+    splits = stages = 0  # paged_attention_kernel's route takes no plan
+    if b and _general_route(h // num_kv_heads, d, q.dtype):
+        splits, stages = _paged_plan(
+            b, num_kv_heads, h // num_kv_heads, d, pages_per_seq,
+            torch.cuda.get_device_properties(q.device).multi_processor_count)
     rc = lib.lamp_paged_attention(
         q.data_ptr(), k_ptr, v_ptr, nk, nv, page_indices.data_ptr(),
         lengths.data_ptr(), None if windows is None else windows.data_ptr(),
-        out.data_ptr(), b, h, num_kv_heads, d, page, page_indices.shape[1],
+        out.data_ptr(), b, h, num_kv_heads, d, page, pages_per_seq,
         page_stride, int(page_offset), 0 if window is None else window,
         float(sm_scale), _KERNEL_DTYPES[q.dtype], _POOL_DTYPES[k_pages.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream,
+        splits, stages, torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(

@@ -2,7 +2,7 @@
 on one CUDA card, in turns.
 
     git archive <commit> lamp_tpu_torch | tar -x -C <dir>
-    python3 scripts/ab_attention.py <dir> [rounds] [tc|any]
+    python3 scripts/ab_attention.py <dir> [rounds] [tc|any|ragged]
 
 The two checkouts' packages share a name, so each measurement runs in a
 process of its own that imports one tree's lamp_tpu_torch: both trees'
@@ -35,8 +35,12 @@ dkv_any) beside SDPA's backward (the autograd backward of
 scaled_dot_product_attention, dq, dk and dv), at the same shape and
 dtype. It also hashes dq, dk and dv of the backward kernels on the plain
 forward's o and lse, which both trees compute alike, and prints whether
-the two trees' backward agree bit for bit. A third argument names one
-group; both run by default. Prints each measurement and the median of
+the two trees' backward agree bit for bit. The "ragged" group times the
+forward at the 16-bit head dims that are not multiples of 8 (fwd_tc on
+mma.sync before, fwd_wg with a cp.async producer since) at B=2, H=8,
+S=2048, causal, bf16, D=12, 75, 100 and 130, beside SDPA's forward, and
+prints each tree's block error of o against the plain forward in f32. A
+third argument names one group; "tc" and "any" run by default. Prints each measurement and the median of
 each side, and the ratio of this tree's to the other's.
 """
 
@@ -50,6 +54,8 @@ ROOT = Path(__file__).resolve().parent.parent
 CALLS = 30
 
 
+# the "ragged" group's head dims (bf16, B=2, H=8, S=2048, causal)
+RAGGED_DIMS = (12, 75, 100, 130)
 # the "any" group's shapes: (dtype name, head dim, B, H, S)
 ANY_SHAPES = (("float64", 64, 2, 8, 2048), ("float64", 100, 2, 8, 2048),
               ("float32", 64, 2, 8, 2048), ("float32", 100, 2, 8, 2048),
@@ -125,6 +131,28 @@ def worker(tree: str, build_only: bool, groups) -> None:
         return float((num[den > 0] / den[den > 0]).max())
 
     times = {}
+    errs = {}
+    if "ragged" in groups:
+        for d in RAGGED_DIMS:
+            q, k, v = (randn(2, 8, 2048, d) for _ in range(3))
+            scale = 1.0 / math.sqrt(d)
+            times[f"fwd ragged D={d}"] = per_launch(
+                lambda: att._fwd_cuda(q, k, v, None, True, scale, None),
+                ["fwd_"], f"fwd ragged D={d}")["fwd_"]
+            times[f"SDPA fwd ragged D={d}"] = per_launch(
+                lambda: F.scaled_dot_product_attention(q, k, v,
+                                                       is_causal=True),
+                [], f"SDPA fwd ragged D={d}")["all"]
+            o, _ = att._fwd_cuda(q, k, v, None, True, scale, None)
+            want, _ = att.flash_attention_reference(
+                q.float(), k.float(), v.float(), causal=True)
+            errs[f"fwd ragged D={d}"] = block_err(o, want)
+            del o, want
+        if groups == ["ragged"]:
+            print("ERR " + json.dumps(errs), flush=True)
+            print("EV " + json.dumps(checks), flush=True)
+            print("AB " + json.dumps(times), flush=True)
+            return
     if "any" in groups:
         import hashlib
 
@@ -175,7 +203,6 @@ def worker(tree: str, build_only: bool, groups) -> None:
     packed = torch.as_tensor(pack_documents(docs, 2048)["segment_ids"][:4],
                              device=dev)
     # (name, B, H, S, head_dim, segment ids)
-    errs = {}
     for what, b, h, s, d, ids in (("S=4096", 2, 12, 4096, 64, None),
                                   ("S=384", 8, 12, 384, 64, None),
                                   ("packed", 4, 12, 2048, 64, packed),
@@ -306,9 +333,9 @@ def main() -> int:
                       if low else ""), flush=True)
     if errs["this"]:
         # the trees sum in different orders here: each against the plain
-        # backward, not against each other
+        # version, not against each other
         for key in errs["this"][0]:
-            print(f"{key}: largest block error against the plain backward "
+            print(f"{key}: largest block error against the plain version "
                   + ", ".join(f"{side} {max(m[key] for m in errs[side]):.3e}"
                               for side in ("other", "this")), flush=True)
     if bits["this"]:

@@ -2,10 +2,14 @@
 call after a kernel change: the build (with ptxas's register and spill
 lines), then the named parts only.
 
-    python3 scripts/chip_phases.py [paged] [fwd] [flash] [wide] [any]
-        [small] [train32] [openllama] [gemma] [quant]
+    python3 scripts/chip_phases.py [paged] [ragged] [fwd] [flash] [wide]
+        [any] [small] [train32] [openllama] [gemma] [quant]
 
-paged: phase 2 (the paged-attention kernels, K6_WIDE's shapes included);
+paged: phase 2 (the paged-attention kernels, K6_WIDE's shapes and the key
+split's edges included); ragged: phase 4's checks of the ragged forward
+(check_ragged_forward: head dims 12-250 that are not multiples of 8, the
+wgmma forward's cp.async producer), then its timing at B=2, H=8, S=2048,
+D=12, 75, 100 and 130 beside SDPA;
 fwd: phase 4's checks of the wgmma forward's edges
 (check_flash_forward_edges) and its timing at S=4096, S=384 and the
 packed shapes; flash: phase 4's head dims
@@ -41,8 +45,8 @@ from lamp_tpu_torch.ops import attention as att  # noqa: E402
 from lamp_tpu_torch.ops.paged_attention import (  # noqa: E402
     paged_attention, paged_attention_reference)
 
-PARTS = ("paged", "fwd", "flash", "wide", "any", "small", "train32",
-         "openllama", "gemma", "quant")
+PARTS = ("paged", "ragged", "fwd", "flash", "wide", "any", "small",
+         "train32", "openllama", "gemma", "quant")
 
 
 def main(parts) -> int:
@@ -65,6 +69,10 @@ def main(parts) -> int:
     def check(*args, **kw):
         return cs.check_flash(att, *args, **kw)[0]
 
+    if "ragged" in parts:
+        cs.check_ragged_forward(att)
+        for d in (12, 75, 100, 130):
+            cs.time_flash_case(att, 2, 8, 2048, d, torch.bfloat16)
     if "fwd" in parts:
         cs.check_flash_forward_edges(att, check)
         cs.time_flash(att, 2, cs.LM_HEADS, 4096, 64)

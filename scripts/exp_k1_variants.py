@@ -7,8 +7,9 @@ lamp_tpu_torch/_build/k1_variants/ and loaded beside the others. Each runs
 the forward on the same inputs (causal) at the training slice's B=2, H=12,
 S=4096, D=64 bf16 (also non-causal), the flagship's B=8, H=12, S=384,
 phase 10's packed shapes (B=4, H=12, S=2048 with segment ids: the time
-includes the class map's kernel) and B=2, H=8, S=2048 at head dims 160 and
-256, timed by torch.profiler device time (chip_smoke.device_ms) in turns:
+includes the class map's kernel) and B=2, H=8, S=2048 at head dims 128,
+160 and 256, and at the ragged head dims 12, 75, 100 and 130 beside the
+multiples of 8 of the same instances (16, 104, 136), timed by torch.profiler device time (chip_smoke.device_ms) in turns:
 each round runs every variant once. Prints each variant's median time a
 call, its largest block error against the plain f32 forward
 (chip_smoke.block_err) and its largest difference from the unedited
@@ -18,7 +19,10 @@ first, for each source, how many of its kernels ptxas reports with
 serialized wgmma instructions (warning C7520) and which fwd_wg kernels
 have a stack frame or spills.
 
-    python3 scripts/exp_k1_variants.py        # from the repository root
+    python3 scripts/exp_k1_variants.py [variant ...] [--ragged]
+
+(from the repository root; variant names build and time only those beside
+"as built", --ragged only the ragged head dims and their neighbours)
 """
 
 import ctypes
@@ -61,8 +65,8 @@ TIMELINE = [
     ("    int n = 0;      // tiles loaded, as the producer counts them",
      "    int n = 0;\n    unsigned long long pt[6] = {};\n"
      "    long long tc = clock64();"),
-    ("      mbar_wait(&k_full[st], phase);\n      wg_fence();",
-     "      mbar_wait(&k_full[st], phase);\n      MARK(0)\n      wg_fence();"),
+    ("      wait_tile(&k_full[st], phase);\n      wg_fence();",
+     "      wait_tile(&k_full[st], phase);\n      MARK(0)\n      wg_fence();"),
     ("        pv_product<D, BC, W, T>(acc, pa, vs + held * kTile);\n      }\n"
      "      if (pending)",
      "        pv_product<D, BC, W, T>(acc, pa, vs + held * kTile);\n      }\n"
@@ -89,6 +93,13 @@ VARIANTS = {
     "no products": [NO_S, NO_PV],
     "skeleton": [NO_S, NO_PV, NO_EXP],
     "timeline": TIMELINE,
+    # the ragged producer issues no copy (its arrivals stay): what its
+    # copies cost the ragged head dims
+    "ragged, no copies": [
+        ("    for (int r = w.r; r < ROWS; r += w.dr) {",
+         "    for (int r = ROWS; r < ROWS; r += w.dr) {"),
+        ("  for (int k0 = tid; k0 < words; k0 += 128 * NB) {",
+         "  for (int k0 = words; k0 < words; k0 += 128 * NB) {")],
 }
 # (name, B, H, S, D, packed segment ids, causal)
 SHAPES = (("S=4096", 2, 12, 4096, 64, False, True),
@@ -97,7 +108,16 @@ SHAPES = (("S=4096", 2, 12, 4096, 64, False, True),
           ("packed", 4, 12, 2048, 64, True, True),
           ("D=128", 2, 8, 2048, 128, False, True),
           ("D=160", 2, 8, 2048, 160, False, True),
-          ("D=256", 2, 8, 2048, 256, False, True))
+          ("D=256", 2, 8, 2048, 256, False, True),
+          # the ragged producer (d % 8 != 0) beside the TMA one in the same
+          # instances: D=32 (12, 16), 128 (75, 100, 104), 192 (130, 136)
+          ("D=12", 2, 8, 2048, 12, False, True),
+          ("D=16", 2, 8, 2048, 16, False, True),
+          ("D=75", 2, 8, 2048, 75, False, True),
+          ("D=100", 2, 8, 2048, 100, False, True),
+          ("D=104", 2, 8, 2048, 104, False, True),
+          ("D=130", 2, 8, 2048, 130, False, True),
+          ("D=136", 2, 8, 2048, 136, False, True))
 ROUNDS, CALLS = 3, 10
 
 
@@ -117,6 +137,18 @@ def build():
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("exp_k1_variants: needs a CUDA card")
+    global SHAPES, VARIANTS
+    args = sys.argv[1:]
+    if "--ragged" in args:  # the ragged shapes and their neighbours only
+        SHAPES = tuple(x for x in SHAPES if x[4] in (12, 16, 75, 100, 104,
+                                                      130, 136))
+        args.remove("--ragged")
+    unknown = set(args) - set(VARIANTS)
+    if unknown:
+        raise SystemExit(f"unknown variants {sorted(unknown)}")
+    if args:
+        VARIANTS = {n: e for n, e in VARIANTS.items()
+                    if n in args or n == "as built"}
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout

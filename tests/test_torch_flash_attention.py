@@ -421,6 +421,15 @@ HEAD_DIM_CASES = [
      np.float32),
     ("d256_s65_window", 1, 1, 65, 65, 256, True, 20, None, None, None,
      np.float32),
+    # the ragged head dims of the wgmma forward's cp.async producer in its
+    # other instances: 4-byte pieces in D=128 (102) and D=192 (130, under
+    # ids: the masked instance), and d 250 in D=256 across a 129-row edge
+    ("d102_causal", 1, 2, 70, 70, 102, True, None, None, None, None,
+     np.float32),
+    ("d130_ids", 2, 1, 48, 48, 130, True, None, "sorted", None, None,
+     np.float32),
+    ("d250_causal_s129", 1, 1, 129, 129, 250, True, None, None, None, None,
+     np.float32),
 ]
 
 

@@ -19,8 +19,12 @@ from lamp_tpu.ops.paged_attention import paged_attention as jax_paged
 from lamp_tpu.ops.paged_attention import \
     paged_attention_reference as jax_reference
 from lamp_tpu_torch.ops.paged_attention import (
+    _MAX_SPLITS,
     _check_cuda,
     _effective_window,
+    _general_route,
+    _paged_plan,
+    _split_pages,
     paged_attention,
     paged_attention_reference,
 )
@@ -110,6 +114,9 @@ def test_paged_attention_matches_jax_kernel(heads, kv_heads, layout, append,
 # the JAX reference at 1e-4 (as the fp8 cases below), and to be no further
 # from the exact result (the port's plain version in float64 on the same
 # fp8 values) than the JAX kernel is, within ATOL.
+# the split plan's page boundaries +- 1 (append mode puts the new token at
+# lengths[b], so at most PPS * PAGE - 1)
+SPLIT_BOUNDS = np.array([1, 15, 16, 17, 24, 25], np.int32)
 WIDE_CASES = [
     ("d100_mha", 2, 2, 100, "fused", True, "combined", "float32", None),
     ("d100_group12", 12, 1, 100, "stacked", True, "per_request", "float32",
@@ -124,13 +131,25 @@ WIDE_CASES = [
      "float8_e4m3fn"),
     ("d100_e5m2_f16", 2, 2, 100, "fused", True, "none", "float16",
      "float8_e5m2"),
+    # lengths at the edges of the CUDA kernel's key split (ranks of one page
+    # each at PAGE = 8: boundaries at 8, 16 and 24 tokens), and a group of
+    # 32 query heads over one kv head (MQA), whose rows the split serves
+    ("d100_split_bounds", 2, 2, 100, "fused", True, "combined", "float32",
+     None, SPLIT_BOUNDS),
+    ("d100_split_bounds_pool", 2, 2, 100, "split", False, "none", "float32",
+     None, SPLIT_BOUNDS),
+    ("d128_group32_kv1", 32, 1, 128, "fused", True, "per_request",
+     "float32", None, SPLIT_BOUNDS),
+    ("d128_group32_kv1_pool", 32, 1, 128, "stacked", False, "static",
+     "float32", None, None),
 ]
 WIDE_ATOL = {"float32": ATOL, "float16": 4e-3}
 
 
 @pytest.mark.parametrize("case", WIDE_CASES, ids=[c[0] for c in WIDE_CASES])
 def test_head_dims_groups_and_dtypes_match_jax_kernel(case):
-    _, heads, kv_heads, d, layout, append, wmode, qdt, pool = case
+    _, heads, kv_heads, d, layout, append, wmode, qdt, pool, *rest = case
+    lengths = LENGTHS if not rest or rest[0] is None else rest[0]
     q, k, v, table, new, offset = _inputs(heads, kv_heads, layout, seed=3,
                                           d=d)
     window = 5 if wmode in ("static", "combined") else None
@@ -148,14 +167,14 @@ def test_head_dims_groups_and_dtypes_match_jax_kernel(case):
             vj.astype(np.float32)).to(getattr(torch, pool))
     want = jax_paged(
         jnp.asarray(q), jnp.asarray(kj), None if v is None else jnp.asarray(vj),
-        jnp.asarray(table), jnp.asarray(LENGTHS), num_kv_heads=kv_heads,
+        jnp.asarray(table), jnp.asarray(lengths), num_kv_heads=kv_heads,
         window=window,
         windows=None if windows is None else jnp.asarray(windows),
         append_kv=(tuple(jnp.asarray(a) for a in new) if append else None),
         page_offset=offset, interpret=True)
     got = paged_attention(
         torch.from_numpy(q), kt, vt, torch.from_numpy(table),
-        torch.from_numpy(LENGTHS), num_kv_heads=kv_heads, window=window,
+        torch.from_numpy(lengths), num_kv_heads=kv_heads, window=window,
         windows=None if windows is None else torch.from_numpy(windows),
         append_kv=(tuple(torch.from_numpy(a) for a in new)
                    if append else None),
@@ -168,7 +187,7 @@ def test_head_dims_groups_and_dtypes_match_jax_kernel(case):
         ref = jax_reference(
             jnp.asarray(q), jnp.asarray(kj),
             None if v is None else jnp.asarray(vj), jnp.asarray(table),
-            jnp.asarray(LENGTHS), num_kv_heads=kv_heads, window=window,
+            jnp.asarray(lengths), num_kv_heads=kv_heads, window=window,
             windows=None if windows is None else jnp.asarray(windows),
             append_kv=(tuple(jnp.asarray(a) for a in new) if append
                        else None), page_offset=offset)
@@ -177,7 +196,7 @@ def test_head_dims_groups_and_dtypes_match_jax_kernel(case):
         exact = paged_attention(
             torch.from_numpy(q).double(), kt.double(),
             None if vt is None else vt.double(), torch.from_numpy(table),
-            torch.from_numpy(LENGTHS), num_kv_heads=kv_heads, window=window,
+            torch.from_numpy(lengths), num_kv_heads=kv_heads, window=window,
             windows=None if windows is None else torch.from_numpy(windows),
             append_kv=(tuple(torch.from_numpy(a).double() for a in new)
                        if append else None),
@@ -185,7 +204,7 @@ def test_head_dims_groups_and_dtypes_match_jax_kernel(case):
         assert np.abs(got32 - exact).max() <= \
             np.abs(want32 - exact).max() + ATOL
     if not append:  # no valid key -> exactly 0
-        assert not got[LENGTHS == 0].any()
+        assert not got[lengths == 0].any()
 
 
 def test_float64_matches_jax_kernel_and_computes_in_double():
@@ -332,3 +351,65 @@ def test_kernel_input_checks_raise():
         _check_cuda(q, [k, v], table, lengths, None,
                     (torch.from_numpy(new[0]).t().contiguous().t(),
                      torch.from_numpy(new[1])))
+
+
+# the CUDA kernel's shapes beside the serving slice's (chip_smoke.py's
+# K6_WIDE: name, heads, kv heads, head dim), each planned at phase 2's
+# B=32 and at B=1 on an H100's 132 SMs
+K6_WIDE_SHAPES = [
+    ("d80", 12, 4, 80), ("d96", 12, 4, 96), ("openllama d100", 32, 32, 100),
+    ("d128 32/32", 32, 32, 128), ("gemma d256", 8, 1, 256),
+    ("405B 128/8", 128, 8, 128), ("MQA 32/1", 32, 1, 128),
+    ("d75 odd", 4, 2, 75), ("d320 2/1", 2, 1, 320),
+    ("128/1 d256", 128, 1, 256),
+]
+
+
+@pytest.mark.parametrize("shape", K6_WIDE_SHAPES,
+                         ids=[s[0] for s in K6_WIDE_SHAPES])
+def test_paged_split_plan_covers_pages_once(shape):
+    """The key split of paged_attention_any: at pages_per_seq 1-16, every
+    page lies in exactly one rank's range and every rank has one, a
+    cluster holds at most _MAX_SPLITS blocks, the ring 1 to 3 stages, and
+    the plan is a function of shapes alone (it takes no lengths, so a
+    decode step can be captured in a CUDA graph)."""
+    import inspect
+
+    _, heads, kv_heads, d = shape
+    assert set(inspect.signature(_paged_plan).parameters) == {
+        "batch", "kv_heads", "group", "head_dim", "pages_per_seq", "sms"}
+    for batch in (32, 1):
+        for pps in range(1, 17):
+            splits, stages = _paged_plan(batch, kv_heads, heads // kv_heads,
+                                         d, pps, 132)
+            assert 1 <= splits <= min(_MAX_SPLITS, pps)
+            assert 1 <= stages <= 3
+            ranges = _split_pages(pps, splits)
+            assert len(ranges) == splits
+            assert all(lo < hi for lo, hi in ranges)
+            pages = [p for lo, hi in ranges for p in range(lo, hi)]
+            assert pages == list(range(pps))
+            # blocks without the split fill the card: no split
+            if batch * kv_heads * -(-d // 256) >= 132:
+                assert splits == 1
+
+
+def test_paged_plan_and_route_follow_the_kernel():
+    """Which calls the general kernel takes (the C entry point's routing)
+    and the splits it gets at the path's shapes: OpenLLaMA-3B's 32 kv heads
+    at B=32 fill the card unsplit; MQA 32/1 and Gemma-2B's 8/1 split phase
+    2's 4 pages into 4 ranks of one page."""
+    assert not _general_route(3, 64, torch.bfloat16)
+    assert not _general_route(8, 128, torch.float16)
+    assert _general_route(1, 100, torch.bfloat16)
+    assert _general_route(16, 128, torch.bfloat16)
+    assert _general_route(1, 64, torch.float64)
+    assert _paged_plan(32, 32, 1, 100, 16, 132) == (1, 1)
+    assert _paged_plan(32, 1, 32, 128, 4, 132) == (4, 1)
+    assert _paged_plan(32, 1, 8, 256, 4, 132) == (4, 1)
+    # 5 splits of 16 pages would leave a rank of one page: 4 ranks of 4
+    assert _paged_plan(32, 1, 32, 128, 16, 132)[0] == 4
+    assert _split_pages(16, 4) == [(0, 4), (4, 8), (8, 12), (12, 16)]
+    assert _paged_plan(1, 1, 32, 128, 64, 132)[0] == _MAX_SPLITS
+    # a tile's products are long at 128 query heads a kv head: two stages
+    assert _paged_plan(32, 1, 128, 256, 4, 132) == (4, 2)
