@@ -320,6 +320,32 @@ K6_WIDE = (
 # differ in summation order only
 K6_TOL_F64 = 1e-10
 
+
+def openllama_decode_call(gen, rng, batch: int = 32):
+    """Phase 11's decode call of K6's general kernel, as a step makes it:
+    OpenLLaMA-3B's layer (32 / 32 heads of 100, bf16) over a layer-stacked
+    pool of OL_BLOCKS x TOTAL_PAGES pages of PAGE tokens, OL_CTX / PAGE
+    pages a sequence, lengths of 56-95 tokens (phase 11's), append_kv.
+    Returns (q, pool, kv heads, (new_k, new_v), table, lengths, offsets):
+    ``offsets`` holds each layer's page_offset, so that calls taking them
+    in turn read each layer's rows from device memory, as a step's do
+    (one layer's ~31 MB would stay in the 50 MB L2 across calls)."""
+    dev = torch.device("cuda")
+    pool = torch.randn((OL_BLOCKS * TOTAL_PAGES, 2, PAGE, OL_DIM),
+                       generator=gen, device=dev, dtype=torch.bfloat16)
+    pps = OL_CTX // PAGE
+    table = torch.as_tensor(np.stack([
+        rng.choice(np.arange(1, TOTAL_PAGES), pps, replace=False)
+        for _ in range(batch)]).astype(np.int32), device=dev)
+    lengths = torch.as_tensor(rng.randint(56, 96, batch).astype(np.int32),
+                              device=dev)
+    q = torch.randn((batch, OL_HEADS, OL_DIM // OL_HEADS), generator=gen,
+                    device=dev, dtype=torch.bfloat16)
+    new = tuple(torch.randn((batch, OL_DIM), generator=gen, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
+    offsets = [layer * TOTAL_PAGES for layer in range(OL_BLOCKS)]
+    return q, pool, OL_HEADS, new, table, lengths, offsets
+
 # phase 6: K7 against its plain version (in f32, on the same inputs, then
 # rounded to the kernel's output dtype) by relative Frobenius error
 # ||kernel - plain|| / ||plain||. f32 out: both sum exact products of x
@@ -462,6 +488,27 @@ def graph_ms(fn, calls: int = GRAPH_CALLS, reps: int = 5) -> float:
         times.append(start.elapsed_time(end) / calls)
     del graph
     return sorted(times)[reps // 2]
+
+
+def host_us(fn, calls: int = 200, burst: int = 10,
+            queued: bool = False) -> float:
+    """The host's time a call of ``fn(i)`` (i = 0 .. calls - 1), by its
+    clock: bursts of ``burst`` eager calls, each after the card has drained
+    the last, so that no call waits on a full launch queue (a decode step's
+    calls find the card idle: the step is host-bound). ``queued``: the
+    calls in one burst behind a kernel that sleeps ~0.1 s, all of them in
+    the launch queue at once."""
+    total = 0.0
+    for i0 in range(0, calls, calls if queued else burst):
+        torch.cuda.synchronize()
+        if queued:
+            torch.cuda._sleep(200_000_000)
+        t0 = time.perf_counter()
+        for i in range(i0, min(calls, i0 + (calls if queued else burst))):
+            fn(i)
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total / calls * 1e6
 
 
 def phase_kernel(paged_attention, paged_attention_reference):
@@ -722,7 +769,8 @@ def paged_plain_without(q, pool, table, lengths, hkv, drop, window=None,
 def check_paged_split(paged_attention, paged_attention_reference, table,
                       gen):
     """paged_attention_any over its key split's edges, at every K6_WIDE case
-    routed to it (phase 2's B=32, 4 pages of 128 tokens a sequence; and
+    (the fixed kernel's d128 32/32 too, which ignores the plan; phase 2's
+    B=32, 4 pages of 128 tokens a sequence; and
     OpenLLaMA-3B's layer over 32 pages of 16 tokens): lengths
     0 and 1, each split boundary (the plan's ranks of `per` pages) - 1, at
     and + 1, and the table's end; per-request windows whose band starts
@@ -732,8 +780,7 @@ def check_paged_split(paged_attention, paged_attention_reference, table,
     second rank's pages, or the first page without a split) must read above
     the limit. Returns {case: (splits, largest abs error, smallest
     fault)}."""
-    from lamp_tpu_torch.ops.paged_attention import (_general_route,
-                                                    _paged_plan, _split_pages)
+    from lamp_tpu_torch.ops.paged_attention import _paged_plan, _split_pages
 
     dev = torch.device("cuda")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -748,8 +795,6 @@ def check_paged_split(paged_attention, paged_attention_reference, table,
         ("openllama d100 page 16", 32, 32, 100, torch.bfloat16,
          torch.bfloat16), table16, 16, 32 * 33)]
     for (name, h, hkv, d, qdt, pdt), table, page, total in cases:
-        if not _general_route(h // hkv, d, qdt):
-            continue
         b, pps = table.shape
         splits, stages = _paged_plan(b, hkv, h // hkv, d, pps, sms)
         ranges = _split_pages(pps, splits)
@@ -3277,8 +3322,11 @@ def main() -> int:
              **paged["any_fp8"]))]
     rows[2]["note"] = (
         "paged_attention_any (every head dim and group; split-KV over a "
-        "thread-block cluster summed through distributed shared memory, a "
-        "3-stage cp.async ring): times at OpenLLaMA-3B's layer (B=32, 32/32 "
+        "thread-block cluster summed through distributed shared memory; "
+        "K/V rows by TMA boxes of 16 rows where the pool's rows are 16-byte "
+        "strided, else cp.async pieces; a ring of 1 stage, 2 at 64 or more "
+        "query heads a kv head; V written over K once a tile is scored): "
+        "times at OpenLLaMA-3B's layer (B=32, 32/32 "
         "heads, head_dim 100, bf16); launches: phase 11's 40 requests; "
         "per_case: phase 2's K6_WIDE, with each case's splits and its "
         "split-edge check")

@@ -70,15 +70,18 @@
 //     are wide) goes into a ring of `stages`, on the stage's mbarrier.
 //     Where the pool's rows (F elements) lie a multiple of 16 bytes apart
 //     and the head's units are whole, one thread loads a tile's K and V
-//     rows by TMA: a 2-D map of the pool's rows a call, a box of a page's
-//     (or a tile's) rows by the head's columns, from the 16-byte boundary
-//     at or below them (a box's start must be 16-byte aligned: one of 200
-//     bytes at 200-byte offsets faulted), the head then (g D sz & 15)
-//     bytes into each box row; tiles start at tile boundaries of the
-//     sequence, the tokens below the band masked; a tile's V boxes go out
-//     once it is scored, into its K rows' place, in flight under the
-//     softmax (half the shared memory, so an SM holds twice the blocks:
-//     a short decode's 1024 blocks then run in one wave). Elsewhere every thread
+//     rows by TMA: a 2-D map of the pool's rows (encoded once for a pool
+//     and kept), boxes of kBoxRows rows (or of a page's, when smaller) by
+//     the head's columns, only those that hold a key of the band (a short
+//     decode's last tile then reads about its keys, not the whole tile),
+//     from the 16-byte boundary at or below the head's columns (a box's
+//     start must be 16-byte aligned: one of 200 bytes at 200-byte offsets
+//     faulted), the head then (g D sz & 15) bytes into each box row; tiles
+//     start at tile boundaries of the sequence, the tokens below the band
+//     masked; a tile's V boxes go out once it is scored, into its K rows'
+//     place, in flight under the softmax (half the shared memory, so an SM
+//     holds twice the blocks: a short decode's 1024 blocks then run in one
+//     wave). Elsewhere every thread
 //     copies pieces as wide as the rows' alignment allows by cp.async
 //     (from 4 bytes), arriving by cp.async.mbarrier.arrive.noinc, or 2 or
 //     1 bytes at a time at an odd D. A cp.async piece costs an H100 about
@@ -91,7 +94,7 @@
 //     overlap each other's copies and products (PERF.md §6).
 //  3. Idle threads on small groups (one thread a (head, token) score, one
 //     a (head, column) output), and scalar reads from shared memory. Here
-//     a block is 8 warps; a thread reads a staged row a unit at a time
+//     a block is 8 warps (4 for one f32 query head a kv head); a thread reads a staged row a unit at a time
 //     (the row's alignment: 8 bf16 values of a head of 128, 4 of one of
 //     100), scores it against up to 4 query heads at once, and a score's
 //     dot product is split over ds lanes (interleaved units, summed by
@@ -124,6 +127,7 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <mutex>
 #include <type_traits>
 
 #include "hopper.cuh"
@@ -398,6 +402,7 @@ constexpr int kAnyThreads = 256;  // a block's most threads: 8 warps
 constexpr int kMaxStages = 3;   // K/V tiles in flight: this one and two more
 constexpr int kMaxSplits = 8;   // the portable cluster size
 constexpr int kMaxHb = 4;       // query heads a thread scores against a row
+constexpr int kBoxRows = 16;    // a TMA box's rows (fewer: a page's)
 // the largest dynamic shared memory a block may opt into on an H100
 constexpr int kSmemMax = 227 * 1024;
 
@@ -470,7 +475,8 @@ struct AnyPlan {
   int tma;         // rows loaded by TMA boxes of `box` rows (tm_k, tm_v),
                    // else by vb-byte pieces (cp.async from 4 bytes, plain
                    // loads and stores below)
-  int box, rpp;    // a box's rows, and a page's rows in the maps
+  int box, rpp;    // a box's rows (it divides the tile and the page), and
+                   // a page's rows in the maps
   int sk, sv;      // a staged K row's and V row's stride, 4-byte words
   int ro;          // o's values in a head's record (the chunk's units), then m, l
   int hw;          // 4-byte words of a record, % 4 == 0
@@ -694,15 +700,16 @@ paged_attention_any(const T* __restrict__ q, const KV* __restrict__ k,
   // rows once the tile is scored (half the shared memory: more blocks an
   // SM holds), the V boxes in flight under the softmax
   const int stage_bytes = tt * (pl.sk + (pl.tma ? 0 : pl.sv)) * 4;
-  // the first thread's K (or V) boxes of tile i, a box a page the tile
-  // holds, after the generic proxy's reads of the stage
+  // the first thread's K (or V) boxes of tile i that hold a key of the
+  // band [tlo, thi), after the generic proxy's reads of the stage
   auto boxes_of = [&](int i, uint64_t* bar, const CUtensorMap* map, int col) {
     const int t0 = t_first + i * tt;
     const int boxes = min(tt, thi - t0 + pl.box - 1) / pl.box;
+    const int x0 = max(0, tlo - t0) / pl.box;  // boxes below the band
     unsigned char* st = stages + (i % ST) * stage_bytes;
     hopper::fence_proxy_async();
-    hopper::mbar_arrive_tx(bar, boxes * pl.box * pl.sk * 4);
-    for (int x = 0; x < boxes; ++x)
+    hopper::mbar_arrive_tx(bar, (boxes - x0) * pl.box * pl.sk * 4);
+    for (int x = x0; x < boxes; ++x)
       hopper::tma_load_2d(st + x * pl.box * pl.sk * 4, map, bar, col,
                           static_cast<int>(slot(i)[x]));
   };
@@ -1004,7 +1011,7 @@ bool any_plan(AnyPlan& pl, int num_heads, int num_kv_heads, int D,
     for (int qh = qpk; qh >= 1; --qh) {
       AnyPlan c = pl;
       c.tt = tt;
-      c.box = tt < page_size ? tt : page_size;
+      c.box = std::min(kBoxRows, std::min(tt, page_size));
       c.ltt = lt;
       c.qh = qh;
       c.passes = (qpk + qh - 1) / qh;
@@ -1047,6 +1054,55 @@ bool any_plan(AnyPlan& pl, int num_heads, int num_kv_heads, int D,
   return found;
 }
 
+// The map of a pool's rows ([rows, cols] of `type`, `stride` bytes apart) in
+// boxes of box_rows x box_cols, encoded once and kept: a decode step calls
+// the kernel once a layer over one pool (layer-stacked: page_offset), on a
+// host that holds the card back. The last kMapCache maps are kept,
+// replaced round robin; a map is a function of its key alone.
+constexpr int kMapCache = 16;
+struct MapKey {
+  const void* base;
+  CUtensorMapDataType type;
+  long long rows, stride;
+  int cols, box_rows, box_cols;
+  bool operator==(const MapKey& o) const {
+    return base == o.base && type == o.type && rows == o.rows &&
+           stride == o.stride && cols == o.cols && box_rows == o.box_rows &&
+           box_cols == o.box_cols;
+  }
+};
+
+cudaError_t pool_map(CUtensorMap* map, const MapKey& key) {
+  static std::mutex mu;
+  static MapKey keys[kMapCache];
+  static CUtensorMap maps[kMapCache];
+  static int used = 0, next = 0;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i)
+    if (keys[i] == key) {
+      *map = maps[i];
+      return cudaSuccess;
+    }
+  // the encoder needs the pool's device current on this thread: made so
+  // for the encode, and the caller's device restored
+  cudaPointerAttributes at;
+  int current = 0;
+  cudaError_t err = cudaPointerGetAttributes(&at, key.base);
+  if (err == cudaSuccess) err = cudaGetDevice(&current);
+  if (err == cudaSuccess) err = cudaSetDevice(at.device);
+  if (err != cudaSuccess) return err;
+  const int rc = hopper::row_map(map, key.base, key.type, key.rows, key.cols,
+                                 key.stride, key.box_rows, key.box_cols);
+  if (current != at.device) err = cudaSetDevice(current);
+  if (rc != 0) return cudaErrorInvalidValue;
+  if (err != cudaSuccess) return err;
+  keys[next] = key;
+  maps[next] = *map;
+  next = (next + 1) % kMapCache;
+  if (used < kMapCache) ++used;
+  return cudaSuccess;
+}
+
 template <typename T, typename KV, int VB>
 cudaError_t launch_any_vb(const void* q, const void* k, const void* v,
                           const void* new_k, const void* new_v,
@@ -1067,22 +1123,17 @@ cudaError_t launch_any_vb(const void* q, const void* k, const void* v,
     return cudaErrorInvalidValue;
   // the maps of the K and V rows ([rows, F] of KV, F sz bytes apart, 2^39
   // bytes of rows: more than a card holds; rows past the pool are never
-  // addressed), boxes of a tile's or a page's rows by the head's columns.
-  // The encoder needs the pools' device current on this thread.
+  // addressed), boxes of pl.box rows by the head's columns
   CUtensorMap maps[2] = {};
   if (pl.tma) {
-    cudaPointerAttributes at;
-    if (cudaPointerGetAttributes(&at, k) != cudaSuccess ||
-        cudaSetDevice(at.device) != cudaSuccess)
-      return cudaGetLastError();
     const void* bases[2] = {k, v};
     const long long stride = (long long)num_kv_heads * D * sizeof(KV);
     for (int i = 0; i < 2; ++i) {
-      const int rc = hopper::row_map(
-          &maps[i], bases[i], hopper::map_type<KV>(), (1LL << 39) / stride,
-          num_kv_heads * D, stride, pl.box,
-          pl.sk * 4 / static_cast<int>(sizeof(KV)));
-      if (rc != 0) return cudaErrorInvalidValue;
+      const cudaError_t err = pool_map(
+          &maps[i], MapKey{bases[i], hopper::map_type<KV>(),
+                           (1LL << 39) / stride, stride, num_kv_heads * D,
+                           pl.box, pl.sk * 4 / static_cast<int>(sizeof(KV))});
+      if (err != cudaSuccess) return err;
     }
   }
   auto kernel = paged_attention_any<T, KV, A, VB>;
@@ -1161,11 +1212,11 @@ extern "C" {
 // dtype), 2 = float8_e4m3fn, 3 = float8_e5m2 (with a float32, bfloat16 or
 // float16 q). float64 computes in double, in paged_attention_any. Any
 // head_dim and any number of query heads per kv head: D = 64 or 128 with
-// at most kMaxQ of them take paged_attention_kernel (splits and stages
-// must be 0), everything else paged_attention_any, over `splits` blocks a
+// at most kMaxQ of them take paged_attention_kernel (which ignores splits
+// and stages), everything else paged_attention_any, over `splits` blocks a
 // sequence's pages (1 to 8, at most pages_per_seq) with a ring of
-// `stages` (1 to 3): the caller's plan. Returns the cudaError_t of the
-// launch; the caller raises on non-zero.
+// `stages` (1 to 3): the caller's plan, which it passes on every call.
+// Returns the cudaError_t of the launch; the caller raises on non-zero.
 int lamp_paged_attention(const void* q, const void* k, const void* v,
                          const void* new_k, const void* new_v, const void* page_table,
                          const void* lengths, const void* windows, void* out,
@@ -1182,9 +1233,6 @@ int lamp_paged_attention(const void* q, const void* k, const void* v,
   const int* wn = static_cast<const int*>(windows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool fixed = num_heads / num_kv_heads <= kMaxQ;
-  if (fixed && (head_dim == 64 || head_dim == 128) && dtype != 3 &&
-      (splits != 0 || stages != 0))
-    return cudaErrorInvalidValue;
 #define LAMP_PA_LAUNCH(T, KV, D)                                                   \
   return launch<T, KV, D>(q, k, v, new_k, new_v, pt, ln, wn, out, batch, num_heads, \
                           num_kv_heads, page_size, pages_per_seq, page_stride,     \

@@ -29,6 +29,8 @@ from typing import Optional
 
 import torch
 
+from .quantization import _sm_count
+
 __all__ = ["paged_attention", "paged_attention_reference"]
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
@@ -120,19 +122,9 @@ def paged_attention_reference(q, k_pages, v_pages, page_indices, lengths, *,
     return o.to(q.dtype)
 
 
-# csrc/paged_attention.cu: paged_attention_kernel takes head_dim 64 or 128
-# with at most _FIXED_GROUP query heads a kv head (not float64);
-# paged_attention_any the rest, over up to _MAX_SPLITS blocks (one
-# thread-block cluster) a sequence
-_FIXED_GROUP = 8
+# csrc/paged_attention.cu's paged_attention_any walks a sequence's pages
+# over up to _MAX_SPLITS blocks (one thread-block cluster)
 _MAX_SPLITS = 8
-
-
-def _general_route(group: int, head_dim: int, dtype) -> bool:
-    """Whether a call runs paged_attention_any (else paged_attention_kernel):
-    the C entry point's routing."""
-    return (dtype == torch.float64 or group > _FIXED_GROUP
-            or head_dim not in (64, 128))
 
 
 @functools.lru_cache(maxsize=None)
@@ -140,7 +132,9 @@ def _paged_plan(batch: int, kv_heads: int, group: int, head_dim: int,
                 pages_per_seq: int, sms: int):
     """The launch plan of a paged_attention_any call, ``(splits, stages)``,
     decided here from shapes alone and never from ``lengths`` (a decode
-    step stays capturable in a CUDA graph):
+    step stays capturable in a CUDA graph). Every call passes it; the C
+    entry point alone picks the kernel, and paged_attention_kernel (head_dim
+    64 or 128, at most 8 query heads a kv head) ignores it:
 
     - splits: how many blocks of one thread-block cluster walk a
       sequence's pages, rank r the pages [r per, (r + 1) per) with per =
@@ -154,9 +148,9 @@ def _paged_plan(batch: int, kv_heads: int, group: int, head_dim: int,
       block's second and third stages cost more in blocks an SM holds than
       their overlap gains (PERF.md §6).
     """
-    base = batch * kv_heads * -(-head_dim // 256)
+    base = max(1, batch * kv_heads * -(-head_dim // 256))
     splits = max(1, min(_MAX_SPLITS, pages_per_seq, -(-sms // base)))
-    per = -(-pages_per_seq // splits)
+    per = max(1, -(-pages_per_seq // splits))
     stages = 2 if group >= 64 else 1
     return -(-pages_per_seq // per), stages
 
@@ -283,11 +277,10 @@ def paged_attention(q, k_pages, v_pages, page_indices, lengths, *,
     if sm_scale is None:
         sm_scale = 1.0 / math.sqrt(d)
     pages_per_seq = page_indices.shape[1]
-    splits = stages = 0  # paged_attention_kernel's route takes no plan
-    if b and _general_route(h // num_kv_heads, d, q.dtype):
-        splits, stages = _paged_plan(
-            b, num_kv_heads, h // num_kv_heads, d, pages_per_seq,
-            torch.cuda.get_device_properties(q.device).multi_processor_count)
+    index = q.device.index if q.device.index is not None \
+        else torch.cuda.current_device()
+    splits, stages = _paged_plan(b, num_kv_heads, h // num_kv_heads, d,
+                                 pages_per_seq, _sm_count(index))
     rc = lib.lamp_paged_attention(
         q.data_ptr(), k_ptr, v_ptr, nk, nv, page_indices.data_ptr(),
         lengths.data_ptr(), None if windows is None else windows.data_ptr(),

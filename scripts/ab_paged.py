@@ -2,7 +2,7 @@
 the port, on one CUDA card, in turns.
 
     git archive <commit> lamp_tpu_torch | tar -x -C <dir>
-    python3 scripts/ab_paged.py <dir> [rounds] [cases|decode]
+    python3 scripts/ab_paged.py <dir> [rounds] [cases|call|decode]
 
 The two checkouts' packages share a name, so each measurement runs in a
 process of its own that imports one tree's lamp_tpu_torch: both trees'
@@ -15,12 +15,18 @@ random, a pool of 192 pages) on the decode's own call (append_kv, no
 window), through the tree's own ``paged_attention`` (its wrapper, its
 plan): the device time a call by CUDA events over the replay of a CUDA
 graph of 100 back-to-back calls (median of 5 replays), and the profiler's
-sum of the call's kernels over 20 eager calls beside it. "decode":
+sum of the call's kernels over 20 eager calls beside it. "call": phase
+11's decode call (chip_smoke.py's openllama_decode_call: lengths of 56-95,
+the calls taking the 26 layers' pages in turns, as a step does) timed so,
+and the host's time a call of the wrapper and of its C entry point alone
+(chip_smoke.py's host_us: bursts of 10 calls on a drained card; and 200
+calls queued at once behind a sleeping kernel). "decode":
 chip_smoke.py phase 11's steady decode, OpenLLaMA-3B (26 x 3200, 32 / 32
 heads of 100, bf16, random weights from seed 0) behind
 ModernBatchServer(page_size=128, total_pages=192) with 32 requests:
 step_many(8) by CUDA events, then one profiled step_many(8): the device's
-busy time a decode step and K6's part of it. Both groups run by default.
+busy time a decode step and K6's part of it. All three groups run by
+default.
 Prints each measurement, the median of each side and the ratio of this
 tree's to the other's.
 """
@@ -65,12 +71,12 @@ def worker(tree: str, build_only: bool, groups) -> None:
     times = {}
 
     def prof_us(fn, calls=20):
-        for _ in range(3):
-            fn()
+        for i in range(3):
+            fn(i)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
+            for i in range(calls):
+                fn(i)
             torch.cuda.synchronize()
         return sum(e.self_device_time_total for e in prof.key_averages()
                    if e.self_device_time_total > 0) / calls
@@ -100,6 +106,43 @@ def worker(tree: str, build_only: bool, groups) -> None:
             times[name] = cs.graph_ms(call) * 1e3
             times[f"{name} (profiler)"] = prof_us(call)
             del pool
+    if "call" in groups:
+        # phase 11's decode call, the layers in turns as a step takes them
+        gen = torch.Generator(device=dev).manual_seed(0)
+        rng = np.random.RandomState(0)
+        q, pool, hkv, new, table, lengths, offsets = \
+            cs.openllama_decode_call(gen, rng)
+
+        def call(i=0):
+            PA.paged_attention(q, pool, None, table, lengths,
+                               num_kv_heads=hkv, append_kv=new,
+                               page_offset=offsets[i % len(offsets)])
+
+        times["openllama decode"] = cs.graph_ms(call) * 1e3
+        times["openllama decode (profiler)"] = prof_us(call, len(offsets))
+        # the host's time a call: the wrapper, then its C entry point alone
+        # with the arguments the wrapper passes (an older entry that takes
+        # no plan is passed none)
+        times["openllama decode host us a call"] = cs.host_us(call)
+        times["openllama decode host us a call, 200 queued"] = cs.host_us(
+            call, queued=True)
+        b, h, d = q.shape
+        fn = _build.library().lamp_paged_attention
+        plan = PA._paged_plan(
+            b, hkv, h // hkv, d, table.shape[1],
+            torch.cuda.get_device_properties(dev).multi_processor_count) \
+            if len(fn.argtypes) == 24 else ()
+        out = torch.empty_like(q)
+        page, fused = pool.shape[2], pool.shape[3]
+        args = (q.data_ptr(), pool.data_ptr(),
+                pool.data_ptr() + page * fused * pool.element_size(),
+                new[0].data_ptr(), new[1].data_ptr(), table.data_ptr(),
+                lengths.data_ptr(), None, out.data_ptr(), b, h, hkv, d, page,
+                table.shape[1], 2 * page * fused, 0, 0, d ** -0.5, 1, 1,
+                *plan, torch.cuda.current_stream().cuda_stream)
+        times["openllama decode host us a call, C entry"] = cs.host_us(
+            lambda i: fn(*args))
+        del pool
     if "decode" in groups:
         from lamp_tpu_torch import models
         from lamp_tpu_torch import nn as torch_nn
@@ -143,7 +186,7 @@ def run(tree: str, groups, build_only: bool = False):
 def main() -> int:
     other = str(Path(sys.argv[1]).resolve())
     rounds = int(sys.argv[2]) if len(sys.argv) > 2 else 2
-    groups = sys.argv[3:4] or ["cases", "decode"]
+    groups = sys.argv[3:4] or ["cases", "call", "decode"]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout

@@ -10,9 +10,12 @@ _paged_plan gives. Each is timed through the package's own paged_attention
 wrapper (its library swapped for the variant's) at chip_smoke.py phase
 2's shapes (B=32, 4 pages of 128 tokens a sequence, its lengths; the
 decode's own call, append_kv and no window) in the CASES below, and at
-phase 11's steady decode ("openllama decode": its 26-layer pool, 16 pages
-a sequence, lengths of 56-95 tokens): the device
-time a call by CUDA events over the replay of a CUDA graph of 100 calls,
+phase 11's steady decode ("openllama decode", chip_smoke.py's
+openllama_decode_call: its 26-layer pool, 16 pages a sequence, lengths of
+56-95 tokens, the calls taking the layers in turns as a step does): the
+device time a call by CUDA events over the replay of a CUDA graph of 100
+calls (and at the decode call the wrapper's host time a call, by
+chip_smoke.py's host_us),
 median of 5 replays, the variants in turns, ROUNDS rounds, the median
 printed. A variant whose results are right (every case within phase 2's
 limits of the plain version) says so; knock-outs are not. With variant
@@ -66,6 +69,9 @@ VARIANTS = {
     "three stages": ([], lambda splits, stages: (splits, 3)),
     # rows copied by cp.async pieces of their alignment instead of TMA
     # boxes
+    # TMA boxes of a whole tile (or page) of rows, whatever the band holds
+    "boxes of a tile": ([("c.box = std::min(kBoxRows, std::min(tt, page_size));",
+                          "c.box = std::min(tt, page_size);")], None),
     "no TMA": ([("pl.tma = pl.tma != 0 && VB >= 4 &&",
                  "pl.tma = false && VB >= 4 &&")], None),
     # the partials stay where they are: each owner adds what its recv
@@ -79,6 +85,22 @@ VARIANTS = {
     "plain launch without a split": ([("cfg.numAttrs = 1;",
                                        "cfg.numAttrs = splits > 1 ? 1 : 0;")],
                                      None),
+    # a launch by <<<>>> without a split (cudaLaunchKernel, no launch
+    # attributes): the host's time a call
+    "chevron launch without a split": ([(
+        "  const cudaError_t err = cudaLaunchKernelEx(\n      &cfg, kernel, ",
+        "  if (splits == 1) {\n"
+        "    kernel<<<cfg.gridDim, cfg.blockDim, pl.smem, stream>>>(\n"
+        "        static_cast<const T*>(q), static_cast<const KV*>(k),\n"
+        "        static_cast<const KV*>(v), static_cast<const T*>(new_k),\n"
+        "        static_cast<const T*>(new_v), page_table, lengths, windows,\n"
+        "        static_cast<T*>(out), num_heads, num_kv_heads, D, page_size,\n"
+        "        pages_per_seq, page_stride, page_offset, static_window,\n"
+        "        static_cast<A>(sm_scale), pl, maps[0], maps[1]);\n"
+        "    return cudaGetLastError();\n"
+        "  }\n"
+        "  const cudaError_t err = cudaLaunchKernelEx(\n      &cfg, kernel, ")],
+        None),
     "tiles of 32": ([("for (int lt = 6; lt >= 4; --lt) {",
                       "for (int lt = 5; lt >= 4; --lt) {")], None),
     "one head a score thread": ([("c.hb = std::min(kMaxHb, qh);",
@@ -112,24 +134,9 @@ def inputs():
         q = torch.randn((b, h, d), generator=gen, device=dev).to(qdt)
         new = tuple(torch.randn((b, hkv * d), generator=gen,
                                 device=dev).to(qdt) for _ in range(2))
-        out[name] = (q, pool, hkv, new, table, lengths, 0)
-    # phase 11's steady decode call: OpenLLaMA-3B's 26-layer pool of 192
-    # pages, 16 pages a sequence, lengths of 56-95 tokens, the last layer
-    pool = torch.randn((cs.OL_BLOCKS * cs.TOTAL_PAGES, 2, cs.PAGE,
-                        cs.OL_DIM), generator=gen, device=dev).to(
-                            torch.bfloat16)
-    pps = cs.OL_CTX // cs.PAGE
-    table = torch.as_tensor(np.stack([
-        rng.choice(np.arange(1, cs.TOTAL_PAGES), pps, replace=False)
-        for _ in range(b)]).astype(np.int32), device=dev)
-    lengths = torch.as_tensor(rng.randint(56, 96, b).astype(np.int32),
-                              device=dev)
-    q = torch.randn((b, cs.OL_HEADS, 100), generator=gen,
-                    device=dev).to(torch.bfloat16)
-    new = tuple(torch.randn((b, cs.OL_DIM), generator=gen,
-                            device=dev).to(torch.bfloat16) for _ in range(2))
-    out["openllama decode"] = (q, pool, cs.OL_HEADS, new, table, lengths,
-                               (cs.OL_BLOCKS - 1) * cs.TOTAL_PAGES)
+        out[name] = (q, pool, hkv, new, table, lengths, [0])
+    # phase 11's steady decode call, the layers in turns
+    out["openllama decode"] = cs.openllama_decode_call(gen, rng, b)
     return out
 
 
@@ -157,6 +164,7 @@ def main(names) -> int:
     cases = inputs()
     plan = PA._paged_plan
     times = {n: {c: [] for c in cases} for n in chosen}
+    host = {n: [] for n in chosen}
     right = {}
     for rnd in range(ROUNDS):
         for name, (_, splits) in chosen.items():  # splits: the override
@@ -164,17 +172,17 @@ def main(names) -> int:
             PA._paged_plan = plan if splits is None else (
                 lambda *a, f=splits: f(*plan(*a)))
             for case, (q, pool, hkv, new, table, lengths,
-                       offset) in cases.items():
+                       offsets) in cases.items():
                 def call(i=0):
-                    return PA.paged_attention(q, pool, None, table, lengths,
-                                              num_kv_heads=hkv, append_kv=new,
-                                              page_offset=offset)
+                    return PA.paged_attention(
+                        q, pool, None, table, lengths, num_kv_heads=hkv,
+                        append_kv=new, page_offset=offsets[i % len(offsets)])
 
                 if rnd == 0:
                     acc = torch.promote_types(q.dtype, torch.float32)
                     ref = PA.paged_attention_reference(
                         q.to(acc), pool if pool.element_size() == 1 else
-                        pool[offset:offset + cs.TOTAL_PAGES].to(acc), None,
+                        pool[:cs.TOTAL_PAGES].to(acc), None,
                         table, lengths, num_kv_heads=hkv,
                         append_kv=tuple(x.to(acc) for x in new))
                     err = (call().to(acc) - ref).abs()
@@ -183,11 +191,14 @@ def main(names) -> int:
                     right[name] = right.get(name, True) and \
                         not bool((err > lim).any())
                 times[name][case].append(cs.graph_ms(call) * 1e3)
+                if case == "openllama decode":
+                    host[name].append(cs.host_us(call))
     PA._paged_plan = plan
-    print(f"{'variant':26} " + " ".join(f"{c[:14]:>14}" for c in cases),
-          flush=True)
+    print(f"{'variant':26} " + " ".join(f"{c[:14]:>14}" for c in cases) +
+          " host (decode)", flush=True)
     for name in chosen:
         row = " ".join(f"{np.median(times[name][c]):14.2f}" for c in cases)
+        row += f" {np.median(host[name]):13.2f}"
         print(f"{name:26} {row}  (us a call; results "
               f"{'right' if right[name] else 'WRONG'})", flush=True)
     return 0

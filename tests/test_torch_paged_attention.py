@@ -22,7 +22,6 @@ from lamp_tpu_torch.ops.paged_attention import (
     _MAX_SPLITS,
     _check_cuda,
     _effective_window,
-    _general_route,
     _paged_plan,
     _split_pages,
     paged_attention,
@@ -395,15 +394,13 @@ def test_paged_split_plan_covers_pages_once(shape):
 
 
 def test_paged_plan_and_route_follow_the_kernel():
-    """Which calls the general kernel takes (the C entry point's routing)
-    and the splits it gets at the path's shapes: OpenLLaMA-3B's 32 kv heads
-    at B=32 fill the card unsplit; MQA 32/1 and Gemma-2B's 8/1 split phase
-    2's 4 pages into 4 ranks of one page."""
-    assert not _general_route(3, 64, torch.bfloat16)
-    assert not _general_route(8, 128, torch.float16)
-    assert _general_route(1, 100, torch.bfloat16)
-    assert _general_route(16, 128, torch.bfloat16)
-    assert _general_route(1, 64, torch.float64)
+    """The splits the general kernel gets at the path's shapes:
+    OpenLLaMA-3B's 32 kv heads at B=32 fill the card unsplit; MQA 32/1 and
+    Gemma-2B's 8/1 split phase 2's 4 pages into 4 ranks of one page. Every
+    call passes a plan, also one that the C entry point routes to the fixed
+    kernel (the serving slice's 12 / 4 heads of 64), and an empty batch."""
+    assert _paged_plan(32, 4, 3, 64, 4, 132) == (2, 1)
+    assert _paged_plan(0, 4, 3, 64, 4, 132) == (4, 1)
     assert _paged_plan(32, 32, 1, 100, 16, 132) == (1, 1)
     assert _paged_plan(32, 1, 32, 128, 4, 132) == (4, 1)
     assert _paged_plan(32, 1, 8, 256, 4, 132) == (4, 1)
