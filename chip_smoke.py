@@ -13,8 +13,16 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
    serving slice's shapes (B=32, H=12, H_kv=4, D=64, 128-token pages, the
    12-layer stacked bf16 pool of 192 pages per layer), over edge lengths,
    append on/off and static / per-request windows, on the bf16 pool and on
-   the same values in an fp8 (e4m3fn) pool, e5m2 once; both pools' kernel
-   and plain version are timed by profiler device time. Then the general
+   the same values in an fp8 (e4m3fn) pool, e5m2 once; then the fixed
+   kernel (paged_attention_fixed) at its own edges (check_paged_fixed:
+   K6_FIXED's q / pool pairs, layouts, groups and pages of 16 tokens over
+   lengths 0, 1, 15-17, 127-129, 511 and the split's boundaries, windows
+   whose band starts inside a 16-key box, append on and off; two calls bit
+   for bit; a dropped box and a dropped split must read above the limit);
+   both pools' kernel and plain version are timed by profiler device time,
+   and phase 3's decode call (serving_decode_call: lengths 56-95, the
+   calls taking 4 page tables x 12 layers in turns, cold) by CUDA events
+   over a CUDA graph, on the bf16 and e4m3 pools. Then the general
    kernel (every head dim and group) at K6_WIDE's shapes, each at B=32 and
    the same lengths and windows, with and without append: head dims 80
    and 96, OpenLLaMA-3B's layer (32 / 32 heads, head_dim 100) in bf16, f16
@@ -319,6 +327,45 @@ K6_WIDE = (
 # float64 computes in double in the kernel and in its plain version: they
 # differ in summation order only
 K6_TOL_F64 = 1e-10
+# f32 q: the fixed kernel computes in f32 (FFMA, no TF32) as the plain
+# version does; they differ in summation order and exp2 only
+K6_TOL_F32 = 1e-4
+
+# phase 2: K6's fixed kernel (paged_attention_fixed: head_dim 64 or 128, at
+# most 8 query heads a kv head) at its own edges (check_paged_fixed): (name,
+# heads, kv heads, head_dim, q dtype, pool dtype, layout, page size), each
+# at phase 2's B=32 and CTX / PAGE pages a sequence (CTX / 16 of 16
+# tokens) over lengths 0, 1, 15-17, 127-129, 511 and the split's
+# boundaries +- 1; every q / pool pair the kernel takes, fused and split
+# pools, groups of 1, 3, 4 and 8, one block and a cluster of two
+K6_FIXED = (
+    ("serving d64", 12, 4, 64, torch.bfloat16, torch.bfloat16, "fused", PAGE),
+    ("serving d64 e4m3", 12, 4, 64, torch.bfloat16, torch.float8_e4m3fn,
+     "fused", PAGE),
+    ("serving d64 e5m2", 12, 4, 64, torch.bfloat16, torch.float8_e5m2,
+     "split", PAGE),
+    ("serving d64 pages of 16", 12, 4, 64, torch.bfloat16, torch.bfloat16,
+     "fused", 16),
+    ("d64 f16", 12, 4, 64, torch.float16, torch.float16, "split", PAGE),
+    ("d64 f16 e4m3", 8, 2, 64, torch.float16, torch.float8_e4m3fn, "fused",
+     PAGE),
+    ("d64 f32", 12, 4, 64, torch.float32, torch.float32, "fused", PAGE),
+    ("d64 f32 e4m3", 8, 2, 64, torch.float32, torch.float8_e4m3fn, "split",
+     PAGE),
+    ("d64 mha", 4, 4, 64, torch.bfloat16, torch.bfloat16, "split", PAGE),
+    # one kv head: the plan's 4 splits are a cluster of 2 blocks
+    ("d64 3/1 e4m3", 3, 1, 64, torch.bfloat16, torch.float8_e4m3fn, "fused",
+     PAGE),
+    ("d128 group 8", 16, 2, 128, torch.bfloat16, torch.bfloat16, "fused",
+     PAGE),
+    ("d128 group 8 e4m3", 16, 2, 128, torch.bfloat16, torch.float8_e4m3fn,
+     "split", PAGE),
+    ("d128 f16 e5m2", 8, 1, 128, torch.float16, torch.float8_e5m2, "fused",
+     PAGE),
+    ("d128 f32", 8, 2, 128, torch.float32, torch.float32, "split", PAGE),
+    ("d128 f32 e5m2", 4, 4, 128, torch.float32, torch.float8_e5m2, "fused",
+     PAGE),
+)
 
 
 def openllama_decode_call(gen, rng, batch: int = 32):
@@ -345,6 +392,53 @@ def openllama_decode_call(gen, rng, batch: int = 32):
                             dtype=torch.bfloat16) for _ in range(2))
     offsets = [layer * TOTAL_PAGES for layer in range(OL_BLOCKS)]
     return q, pool, OL_HEADS, new, table, lengths, offsets
+
+def serving_decode_call(gen, rng, pool_dtype=torch.bfloat16, batch: int = 32,
+                        tables: int = 4):
+    """Phase 3's decode call of K6's fixed kernel, as a steady step makes
+    it: the serving slice's layer (12 / 4 heads of 64, bf16 q) over its
+    layer-stacked pool of BLOCKS x TOTAL_PAGES pages of PAGE tokens (bf16,
+    or ``pool_dtype``: the same values in fp8), CTX / PAGE pages a
+    sequence, lengths of 56-95 tokens (phase 3's steady decode: prompts of
+    24-31 tokens, the timed and profiled steps 16-64 tokens on), append_kv,
+    no window. Each of ``tables`` page tables gives every sequence its own
+    live page (the tables' live pages disjoint) and the trash page 0 for
+    the pages the server has not handed out, as ModernBatchServer's tables
+    do. Returns (q, pool, kv heads, (new_k, new_v), tables, lengths,
+    offsets): call i takes decode_turn(i, tables, offsets), so that calls
+    in turn read tables x BLOCKS layers' rows (~118 MB, past the 50 MB
+    L2) from device memory, as a step's calls find them (one layer's rows
+    would stay in L2 across calls)."""
+    dev = torch.device("cuda")
+    d = DIM // HEADS
+    pool = torch.randn((BLOCKS * TOTAL_PAGES, 2, PAGE, KV_HEADS * d),
+                       generator=gen, device=dev,
+                       dtype=torch.bfloat16).to(pool_dtype)
+    live = rng.choice(np.arange(1, TOTAL_PAGES), tables * batch,
+                      replace=False).reshape(tables, batch)
+    out = []
+    for t in range(tables):
+        table = np.zeros((batch, CTX // PAGE), np.int32)
+        table[:, 0] = live[t]
+        out.append(torch.as_tensor(table, device=dev))
+    lengths = torch.as_tensor(rng.randint(56, 96, batch).astype(np.int32),
+                              device=dev)
+    q = torch.randn((batch, HEADS, d), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    new = tuple(torch.randn((batch, KV_HEADS * d), generator=gen, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
+    offsets = [layer * TOTAL_PAGES for layer in range(BLOCKS)]
+    return q, pool, KV_HEADS, new, out, lengths, offsets
+
+
+def decode_turn(i, tables, offsets):
+    """The (page table, page_offset) of call i of a decode-call timing:
+    ``tables`` one table or a list of them, each in turn, then the next
+    layer's offset."""
+    if torch.is_tensor(tables):
+        return tables, offsets[i % len(offsets)]
+    return tables[i % len(tables)], offsets[(i // len(tables)) % len(offsets)]
+
 
 # phase 6: K7 against its plain version (in f32, on the same inputs, then
 # rounded to the kernel's output dtype) by relative Frobenius error
@@ -605,6 +699,8 @@ def phase_kernel(paged_attention, paged_attention_reference):
         if err > tol * max(1.0, float(ref.abs().max())):
             raise AssertionError(f"paged_attention instantiation: err {err}")
 
+    fixed = check_paged_fixed(paged_attention, paged_attention_reference,
+                              gen)
     wide = check_paged_wide(paged_attention, paged_attention_reference,
                             table, lengths, wins, gen)
     split = check_paged_split(paged_attention, paged_attention_reference,
@@ -625,7 +721,7 @@ def phase_kernel(paged_attention, paged_attention_reference):
 
         # device time by profiler; the wrapper's whole call (host launch
         # path included) by CUDA events over back-to-back calls, printed
-        ms = _kernel_ms(device_ms(kernel, 50), "paged_attention_kernel")
+        ms = _kernel_ms(device_ms(kernel, 50), "paged_attention_fixed")
         plain_ms = sum(device_ms(plain, 10).values())
         events_ms = cuda_time_ms(kernel, 200)
         live = int(lengths.sum()) + b
@@ -644,6 +740,46 @@ def phase_kernel(paged_attention, paged_attention_reference):
         rows[what] = dict(max_abs_err=max_err[what], ms=ms, plain_ms=plain_ms,
                           bound_ms=bound_ms, bound_by="bytes",
                           library_ms=None)
+    del pool, pool8
+    torch.cuda.empty_cache()
+    # phase 3's decode call, cold: calls in turn over 4 tables x 12 layers
+    for what, pdt in (("bf16", torch.bfloat16),
+                      ("fp8", torch.float8_e4m3fn)):
+        rng = np.random.RandomState(7)
+        dq, dpool, dhkv, dnew, tables, dlens, offsets = serving_decode_call(
+            gen, rng, pdt)
+
+        def call(i=0):
+            tab, off = decode_turn(i, tables, offsets)
+            return paged_attention(dq, dpool, None, tab, dlens,
+                                   num_kv_heads=dhkv, append_kv=dnew,
+                                   page_offset=off)
+
+        ref = paged_attention_reference(
+            dq.float(), dpool if dpool.element_size() == 1 else dpool.float(),
+            None, tables[0], dlens, num_kv_heads=dhkv,
+            append_kv=tuple(x.float() for x in dnew))
+        e = (call().float() - ref).abs()
+        if (e > ATOL + RTOL * ref.abs()).any():
+            raise AssertionError(f"serving decode call ({what}): max err "
+                                 f"{float(e.max()):.3e}")
+        call_ms = graph_ms(call)
+        live = int(dlens.sum())
+        nbytes = live * 2 * dhkv * d * dpool.element_size() + \
+            (2 * dq.numel() + 2 * dnew[0].numel()) * 2 + \
+            (tables[0].numel() + b) * 4
+        call_bound = max(nbytes / PEAK_BYTES,
+                         4 * (live + b) * HEADS * d / PEAK_FLOPS) * 1e3
+        print(f"  serving decode call ({what} pool, lengths 56-95, 4 tables "
+              f"x 12 layers in turns, cold): {call_ms * 1e3:.2f} us a call "
+              f"(CUDA events over a graph), bound {call_bound * 1e3:.2f} us",
+              flush=True)
+        rows[what]["decode_call_ms"] = call_ms
+        rows[what]["decode_call_bound_ms"] = call_bound
+        del dpool
+    rows["bf16"]["fixed_edges"] = {k: dict(splits=v[0], max_abs_err=v[1],
+                                           planted_fault=v[2])
+                                   for k, v in fixed.items()}
     rows["any"] = wide["openllama d100"]
     rows["any_fp8"] = wide["openllama d100 e4m3"]
     rows["any"]["per_case"] = {k: {x: r[x] for x in (
@@ -766,11 +902,108 @@ def paged_plain_without(q, pool, table, lengths, hkv, drop, window=None,
     return torch.einsum("bhk,bhkd->bhd", p, v)
 
 
+def check_paged_fixed(paged_attention, paged_attention_reference, gen):
+    """paged_attention_fixed (head_dim 64 or 128, at most 8 query heads a kv
+    head) at every K6_FIXED case against its plain version (f32): lengths
+    0, 1, 15-17 (a box's edge), 127-129 (a page's), 511 (the table's end),
+    and each boundary of the plan's split +- 1; append on and off; no
+    window, per-request windows (their bands mostly start inside a 16-row
+    box) and those with a static window of 37. Each call at phase 2's
+    limits (K6_TOL_F32 relative to max(1, |plain|) for f32 q), rows with no
+    key exactly 0, twice bit for bit, and two planted faults above the
+    limit: the plain version with one box's keys (16-31) hidden, and with
+    the second rank's pages hidden (the first page without a split).
+    Returns {case: (splits, largest abs error, smallest fault)}."""
+    from lamp_tpu_torch.ops.paged_attention import _paged_plan, _split_pages
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    b = 32
+    out = {}
+    for name, h, hkv, d, qdt, pdt, layout, page in K6_FIXED:
+        pps = CTX // page
+        total = TOTAL_PAGES * PAGE // page
+        rng = np.random.RandomState(11)
+        table = torch.as_tensor(np.stack([
+            rng.choice(np.arange(1, total), pps, replace=False)
+            for _ in range(b)]).astype(np.int32), device=dev)
+        splits, _ = _paged_plan(b, hkv, h // hkv, d, pps, sms)
+        ranges = _split_pages(pps, splits)
+        edges = [0, 1, 15, 16, 17, 127, 128, 129, pps * page - 1]
+        for lo, _ in ranges[1:]:
+            edges += [lo * page - 1, lo * page, lo * page + 1]
+        lens = np.asarray(edges + list(rng.randint(
+            0, pps * page, b - len(edges))), np.int32)
+        lengths = torch.as_tensor(lens, device=dev)
+        wins = torch.as_tensor(np.asarray(
+            [0, 23, 0, 100, 7, 300, 0, 41] * (b // 8), np.int32), device=dev)
+        pool = torch.randn((total, 2, page, hkv * d), generator=gen,
+                           device=dev).to(pdt)
+        k_pool, v_pool = (pool, None) if layout == "fused" else (
+            pool[:, 0].contiguous(), pool[:, 1].contiguous())
+        q = torch.randn((b, h, d), generator=gen, device=dev).to(qdt)
+        new = tuple(torch.randn((b, hkv * d), generator=gen,
+                                device=dev).to(qdt) for _ in range(2))
+        acc = torch.promote_types(qdt, torch.float32)
+        drops = [(16, 32), (ranges[1][0] * page, ranges[1][1] * page)
+                 if splits > 1 else (0, page)]
+        err, fault_min = 0.0, math.inf
+        for app in (None, new):
+            for window, windows in ((None, None), (None, wins), (37, wins)):
+                kw = dict(num_kv_heads=hkv, window=window, windows=windows,
+                          append_kv=app)
+                got = paged_attention(q, k_pool, v_pool, table, lengths, **kw)
+                again = paged_attention(q, k_pool, v_pool, table, lengths,
+                                        **kw)
+                app32 = None if app is None else tuple(x.to(acc)
+                                                       for x in app)
+                ref = paged_attention_reference(
+                    q.to(acc), pool if pool.element_size() == 1 else
+                    pool.to(acc), None, table, lengths, num_kv_heads=hkv,
+                    window=window, windows=windows, append_kv=app32)
+                faults = [paged_plain_without(
+                    q, pool, table, lengths, hkv, drop, window=window,
+                    windows=windows, append_kv=app) for drop in drops]
+                torch.cuda.synchronize()
+                what = (f"paged_attention {name} splits={splits} "
+                        f"append={app is not None} window={window} "
+                        f"windows={windows is not None}")
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{what}: two calls differ")
+                limit = (K6_TOL_F32 * torch.clamp(ref.abs(), min=1.0)
+                         if qdt == torch.float32 else ATOL + RTOL * ref.abs())
+                e = (got.to(acc) - ref).abs()
+                if (e > limit).any():
+                    raise AssertionError(
+                        f"{what}: {int((e > limit).sum())} elements off, "
+                        f"max err {float(e.max()):.3e}")
+                if app is None and (got[lengths == 0] != 0).any():
+                    raise AssertionError(f"{what}: rows with no key are not 0")
+                for drop, bad in zip(drops, faults):
+                    fe = (bad - ref).abs()
+                    if not (fe > limit).any():
+                        raise AssertionError(
+                            f"{what}: the planted fault (keys {drop} "
+                            f"hidden) reads within the limit")
+                    fault_min = min(fault_min, float(fe.max()))
+                err = max(err, float(e.max()))
+        print(f"  fixed edges {name:24} H={h}/{hkv} D={d} q "
+              f"{str(qdt)[6:]} pool {str(pdt)[6:]} {layout} page {page} "
+              f"splits={splits}: max_abs_err {err:.3e}, planted faults "
+              f"{fault_min:.3e}; two calls equal", flush=True)
+        out[name] = (splits, err, fault_min)
+        del pool, k_pool, v_pool
+    return out
+
+
 def check_paged_split(paged_attention, paged_attention_reference, table,
                       gen):
-    """paged_attention_any over its key split's edges, at every K6_WIDE case
-    (the fixed kernel's d128 32/32 too, which ignores the plan; phase 2's
-    B=32, 4 pages of 128 tokens a sequence; and
+    """Both kernels over their key split's edges, at every K6_WIDE case
+    (the fixed kernel's d128 32/32 too), the serving slice's layer (12 / 4
+    heads of 64) and d128 32/32 on bf16 and e4m3 pools (the fixed kernel,
+    whose cluster of the plan's splits interleaves 16-key boxes, so the
+    page boundaries are lengths at its boxes' edges; phase 2's B=32, 4
+    pages of 128 tokens a sequence; and
     OpenLLaMA-3B's layer over 32 pages of 16 tokens): lengths
     0 and 1, each split boundary (the plan's ranks of `per` pages) - 1, at
     and + 1, and the table's end; per-request windows whose band starts
@@ -791,7 +1024,12 @@ def check_paged_split(paged_attention, paged_attention_reference, table,
     table16 = torch.as_tensor(np.stack([
         rng.choice(np.arange(1, 32 * 33), 32, replace=False)
         for _ in range(table.shape[0])]).astype(np.int32), device=dev)
-    cases = [(c, table, PAGE, TOTAL_PAGES) for c in K6_WIDE] + [(
+    fixed = (("serving d64", 12, 4, 64, torch.bfloat16, torch.bfloat16),
+             ("serving d64 e4m3", 12, 4, 64, torch.bfloat16,
+              torch.float8_e4m3fn),
+             ("d128 32/32 e4m3", 32, 32, 128, torch.bfloat16,
+              torch.float8_e4m3fn))
+    cases = [(c, table, PAGE, TOTAL_PAGES) for c in K6_WIDE + fixed] + [(
         ("openllama d100 page 16", 32, 32, 100, torch.bfloat16,
          torch.bfloat16), table16, 16, 32 * 33)]
     for (name, h, hkv, d, qdt, pdt), table, page, total in cases:
@@ -3320,6 +3558,22 @@ def main() -> int:
         dict(name="paged_attention_any", **paged_src, **paged["any"]),
         dict(name="paged_attention_any_fp8", **paged_src,
              **paged["any_fp8"]))]
+    rows[0]["note"] = (
+        "paged_attention_fixed (head_dim 64 or 128, at most 8 query heads a "
+        "kv head: 16-key boxes of K and V by TMA into each warp's ring, the "
+        "first page's boxes before the length is known, split-KV over a "
+        "thread-block cluster summed through distributed shared memory, "
+        "mma.sync products for 16-bit q): times at phase 2's call (B=32, "
+        "lengths up to 511); decode_call_ms: phase 3's decode call (lengths "
+        "56-95, 4 tables x 12 layers in turns, cold) by CUDA events over a "
+        "graph; launches: phase 3's 40 requests; fixed_edges: "
+        "check_paged_fixed")
+    rows[1]["note"] = ("the same on an e4m3 pool; launches: phase 7's fp8-KV "
+                       "requests")
+    for i, what in ((0, "bf16"), (1, "fp8")):
+        for key in ("decode_call_ms", "decode_call_bound_ms", "fixed_edges"):
+            if key in paged[what]:
+                rows[i][key] = paged[what][key]
     rows[2]["note"] = (
         "paged_attention_any (every head dim and group; split-KV over a "
         "thread-block cluster summed through distributed shared memory; "

@@ -462,12 +462,14 @@ constexpr CUtensorMapDataType map_type() {
 }
 
 // encodes the map of a [rows, cols] matrix of elements of `type` whose rows
-// lie `stride` bytes apart (a multiple of 16), read in unswizzled boxes of
-// box_rows x box_cols (box_cols times the element a multiple of 16 bytes);
-// reads past an edge give 0. Returns 0, libcuda's CUresult, or kNoEncoder.
+// lie `stride` bytes apart (a multiple of 16), read in boxes of box_rows x
+// box_cols (box_cols times the element a multiple of 16 bytes), unswizzled
+// or swizzled (a box row then at most the swizzle's span); reads past an
+// edge give 0. Returns 0, libcuda's CUresult, or kNoEncoder.
 inline int row_map(CUtensorMap* map, const void* base, CUtensorMapDataType type,
                    long long rows, int cols, long long stride, int box_rows,
-                   int box_cols) {
+                   int box_cols,
+                   CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_NONE) {
   const EncodeTiled encode = encoder();
   if (encode == nullptr) return kNoEncoder;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
@@ -476,7 +478,7 @@ inline int row_map(CUtensorMap* map, const void* base, CUtensorMapDataType type,
   const cuuint32_t unit[2] = {1, 1};
   return static_cast<int>(encode(
       map, type, 2, const_cast<void*>(base), dims, strides, box, unit,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE));
 }
 

@@ -32,17 +32,51 @@
 //
 // Two kernels compute the same function.
 //
-// paged_attention_kernel<T, KV, D>, for D = 64 or 128 and at most 8 query
-// heads per kv head (the serving slice's shapes): grid = B x H_kv, 128
-// threads. Walk keys from the first token of the sliding-window band to
-// lengths[b] in tiles of 128 tokens. Each tile:
-//   A. one thread per token: resolve its page, score it against all q_per_kv
-//      query heads (16-byte vector loads of the K row, scores in registers);
-//   B. one warp per query head: tile max, online-softmax rescale (f32 m, l);
-//   C. threads split D into element pairs and the tile's tokens into
-//      interleaved subsets; each accumulates p * V for all query heads.
-// Then the subsets are summed, the append_kv column is added as one more
-// online-softmax step, and the result is divided by l.
+// paged_attention_fixed<T, KV, D, MMA>, for D = 64 or 128, at most 8 query
+// heads a kv head and pages of a multiple of 16 tokens (the serving slice's
+// decode: 12 / 4 heads of 64, bf16 or fp8 pools). What held the kernel it
+// replaces (one block of 128 threads a (sequence, kv head), 128 blocks on
+// 132 SMs) at ~10x its byte bound, and what this one does about each:
+//  1. A chain of dependent round trips a tile (the length, then the page,
+//     then the K row; V only after the scores), V read 4 bytes at a time.
+//     Here a tile is a box of 16 keys: one TMA load of their K rows and one
+//     of their V rows (a 2-D map of the pool's rows, [rows, CW bytes] boxes
+//     of the head's columns, swizzled over CW = 128 or 64 bytes), both
+//     completing on one mbarrier. Each warp walks its own boxes through a
+//     ring of its own (8 KB: up to 4 slots), issued by its lane 0 as a slot
+//     frees, so a warp never waits on another. The length, the request's
+//     window and the pages of a warp's first boxes are read in one round
+//     trip, and the boxes go out as soon as the length says which hold a
+//     key of the band (kFixSpec > 0 would put a warp's first boxes in
+//     flight before, when no window is set; boxes past the length cost more
+//     than the wait they save). The maps hold the pool's rows (the caller's
+//     total_pages), and a box is kept inside them: a garbage page id reads
+//     pool rows, which are masked.
+//  2. Too few blocks, and every block walking its tiles in turn: the keys
+//     are split (flash-decoding) over P parts of one (sequence, kv head):
+//     the caller's plan (ops/paged_attention.py:_paged_plan, from shapes
+//     alone: 2 splits at the serving decode) asks for 4 parts a split, and
+//     they are the 8 warps of one block, or of a thread-block cluster of
+//     ranks past 8 parts. Part p = r + ranks w (warp w of rank r) walks the
+//     band's boxes p, p + P, ... counted from the band's first, so a
+//     one-page decode call spreads over every warp. Each part's partial (m,
+//     l, o) goes to the rank that owns the head (by st.async into its
+//     shared memory, completing on its mbarrier, in a cluster), which adds
+//     the parts in (rank, warp) order: one launch, no atomics, no
+//     workspace, two calls bit for bit.
+//  3. Scalar FMAs from registers. 16-bit q (MMA): a box's products on
+//     mma.sync m16n8k16 with the group's heads as n = 8: S = K q^T (K rows
+//     by ldmatrix, q's fragments in registers), an online softmax per warp
+//     in the log2 domain, P rounded to q's type (the plain version's
+//     p.to(v.dtype)) and moved into the B operand by movmatrix.trans, O =
+//     V^T P (V by ldmatrix.trans). fp8 rows are converted to q's type in
+//     registers (exact); V's pairs are transposed by movmatrix, which
+//     permutes the output columns a thread holds (undone at the record).
+//     f32 q (held to 1e-4: no TF32) keeps FFMA: a lane scores one key over
+//     half its row by 16-byte reads, then owns D / 32 output columns.
+// The append column's score and V row are read while the boxes are in
+// flight. V rows outside the band read as 0 in the products, so garbage
+// rows of a box cannot turn p = 0 into a NaN.
 //
 // paged_attention_any<T, KV, A>, for every other head dim (any D, also
 // odd), group (any number of query heads per kv head) and float64 (A, the
@@ -134,10 +168,7 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // one token per thread in phase A
-constexpr int kTile = kThreads;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxQ = 8;  // query heads per kv head
+constexpr int kMaxQ = 8;  // query heads a kv head of paged_attention_fixed
 constexpr int kNoWindow = 0x3FFFFFFF;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -150,24 +181,9 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
 }
 __device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
 __device__ __forceinline__ void store(__half* p, float x) { *p = __float2half(x); }
-__device__ __forceinline__ float2 load2(const __half* p) {
-  return __half22float2(*reinterpret_cast<const __half2*>(p));
-}
-__device__ __forceinline__ float2 load2(const float* p) {
-  return *reinterpret_cast<const float2*>(p);
-}
-__device__ __forceinline__ float2 load2(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
 // fp8 pools: every e4m3 and e5m2 value converts to f32 exactly
 __device__ __forceinline__ float to_float(__nv_fp8_e4m3 x) { return static_cast<float>(x); }
 __device__ __forceinline__ float to_float(__nv_fp8_e5m2 x) { return static_cast<float>(x); }
-__device__ __forceinline__ float2 load2(const __nv_fp8_e4m3* p) {
-  return static_cast<float2>(*reinterpret_cast<const __nv_fp8x2_e4m3*>(p));
-}
-__device__ __forceinline__ float2 load2(const __nv_fp8_e5m2* p) {
-  return static_cast<float2>(*reinterpret_cast<const __nv_fp8x2_e5m2*>(p));
-}
 
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
@@ -190,194 +206,594 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, typename KV, int D>
-__global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
-                       const KV* __restrict__ v, const T* __restrict__ new_k,
-                       const T* __restrict__ new_v,
-                       const int* __restrict__ page_table,
-                       const int* __restrict__ lengths,
-                       const int* __restrict__ windows, T* __restrict__ out,
-                       int num_heads, int num_kv_heads, int page_size,
-                       int pages_per_seq, long long page_stride,
-                       long long page_offset, int static_window,
-                       float sm_scale) {
-  constexpr int kVec = 16 / sizeof(KV);     // elements per 16-byte load
-  constexpr int kPairs = D / 2;             // phase C: element pairs of a row
-  constexpr int kSub = kThreads / kPairs;   // phase C: token subsets
+// ---------------------------------------------------------------------------
+// paged_attention_fixed: head_dim 64 or 128, at most kMaxQ query heads a kv
+// head, pages of a multiple of kFixBox tokens (see the header)
+// ---------------------------------------------------------------------------
 
-  __shared__ float q_s[kMaxQ][D];
-  __shared__ float s_s[kMaxQ][kTile];       // scores, then probabilities
-  __shared__ long long row_s[kTile];        // element offset of each K/V row
-  __shared__ float red_s[kSub][kMaxQ][D];
-  __shared__ float m_s[kMaxQ], l_s[kMaxQ], alpha_s[kMaxQ], snew_s[kMaxQ];
+constexpr int kFixWarps = 8;          // a block's warps
+constexpr int kFixSplitWarps = 4;     // parts (warps) a split of the plan asks for
+constexpr int kFixBox = 16;           // keys a box: 16 rows of K, 16 of V
+constexpr int kFixRing = 8 * 1024;    // bytes of a warp's ring of boxes
+constexpr int kFixMaxSlots = 4;
+// boxes a warp reads before the length is known (when no window is set):
+// none, since the pages come in the length's round trip anyway and a box
+// past the length costs DRAM reads (PERF.md §6)
+constexpr int kFixSpec = 0;
 
-  const int b = blockIdx.x;
-  const int g = blockIdx.y;  // kv head
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int qpk = num_heads / num_kv_heads;
-  const int F = num_kv_heads * D;
-  const bool append = new_k != nullptr;
-
-  // key band [lo, hi): the tighter of the static and per-request windows;
-  // in append mode the new token takes one place of the band
-  const int len = lengths[b];
-  const int hi = min(len, pages_per_seq * page_size);
-  int w = kNoWindow;
-  if (windows != nullptr && windows[b] > 0) w = windows[b];
-  if (static_window > 0) w = min(w, static_window);
-  const int w_old = append ? max(w - 1, 0) : w;
-  const int lo = max(len - w_old, 0);
-
-  const T* q_row = q + ((long long)b * num_heads + (long long)g * qpk) * D;
-  for (int i = tid; i < qpk * D; i += kThreads) q_s[i / D][i % D] = to_float(q_row[i]);
-  if (tid < kMaxQ) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.f;
+// A ring slot holds one box of K rows, then one of V rows. A row's D sz
+// bytes lie as NC column blocks of [kFixBox][CW] bytes, each written by one
+// TMA box swizzled over CW (128 or 64) bytes: the 16-byte chunk c of row r
+// at c ^ (r % 8) (CW = 128) or c ^ ((r / 2) % 4) (CW = 64), so that the
+// rows a warp reads at one chunk fall in different banks.
+template <typename KV, int D>
+struct FixShape {
+  static constexpr int RB = D * static_cast<int>(sizeof(KV));  // 64 to 512
+  static constexpr int CW = RB < 128 ? RB : 128;
+  static constexpr int NC = RB / CW;
+  static constexpr int BOX = kFixBox * CW;  // a TMA box's bytes
+  static constexpr int HALF = NC * BOX;     // a box's 16 rows of K (or V)
+  static constexpr int SLOT = 2 * HALF;
+  static constexpr int SLOTS = kFixRing / SLOT < 1 ? 1
+                               : kFixRing / SLOT > kFixMaxSlots ? kFixMaxSlots
+                                                                : kFixRing / SLOT;
+  static constexpr int REC = D + 4;  // a head's record: m, l, 2 unused, o[D]
+  // the byte of a slot's half that holds byte c of staged row r
+  __device__ static __forceinline__ int at(int r, int c) {
+    const int cw = c % CW;
+    const int sw = CW == 128 ? (r & 7) : ((r >> 1) & 3);
+    return (c / CW) * BOX + r * CW + (((cw >> 4) ^ sw) << 4) + (cw & 15);
   }
-  const int dp = tid % kPairs, sub = tid / kPairs;
-  float acc[kMaxQ][2];
-#pragma unroll
-  for (int h = 0; h < kMaxQ; ++h) acc[h][0] = acc[h][1] = 0.f;
-  __syncthreads();
+};
 
-  const int* table = page_table + (long long)b * pages_per_seq;
-  for (int t0 = lo; t0 < hi; t0 += kTile) {
-    const int n = min(kTile, hi - t0);
-    // A: one thread per token scores it against every query head
-    if (tid < n) {
-      const int tok = t0 + tid;
-      const long long phys = (long long)table[tok / page_size] + page_offset;
-      const long long row =
-          phys * page_stride + (long long)(tok % page_size) * F + (long long)g * D;
-      row_s[tid] = row;
-      const uint4* kr = reinterpret_cast<const uint4*>(k + row);
-      float s[kMaxQ];
-#pragma unroll
-      for (int h = 0; h < kMaxQ; ++h) s[h] = 0.f;
-#pragma unroll
-      for (int c = 0; c < D / kVec; ++c) {
-        const uint4 raw = __ldg(kr + c);
-        const KV* e = reinterpret_cast<const KV*>(&raw);
-#pragma unroll
-        for (int j = 0; j < kVec; ++j) {
-          const float kf = to_float(e[j]);
-#pragma unroll
-          for (int h = 0; h < kMaxQ; ++h)
-            if (h < qpk) s[h] = fmaf(q_s[h][c * kVec + j], kf, s[h]);
-        }
-      }
-#pragma unroll
-      for (int h = 0; h < kMaxQ; ++h)
-        if (h < qpk) s_s[h][tid] = s[h] * sm_scale;
-    }
-    __syncthreads();
-    // B: one warp per query head: online-softmax update
-    for (int h = warp; h < qpk; h += kWarps) {
-      float x[kTile / 32];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kTile / 32; ++j) {
-        const int i = lane + 32 * j;
-        x[j] = i < n ? s_s[h][i] : -INFINITY;
-        mx = fmaxf(mx, x[j]);
-      }
-      mx = warp_max(mx);  // finite: every tile holds >= 1 key of the band
-      const float m_old = m_s[h];
-      const float m_new = fmaxf(m_old, mx);
-      const float alpha = expf(m_old - m_new);  // 0 on the first tile
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kTile / 32; ++j) {
-        const int i = lane + 32 * j;
-        const float p = i < n ? expf(x[j] - m_new) : 0.f;
-        if (i < n) s_s[h][i] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        m_s[h] = m_new;
-        l_s[h] = l_s[h] * alpha + sum;
-        alpha_s[h] = alpha;
-      }
-    }
-    __syncthreads();
-    // C: o = o * alpha + p @ V, one element pair and one token subset each
-#pragma unroll
-    for (int h = 0; h < kMaxQ; ++h) {
-      if (h < qpk) {
-        acc[h][0] *= alpha_s[h];
-        acc[h][1] *= alpha_s[h];
-      }
-    }
-#pragma unroll 4
-    for (int j = sub; j < n; j += kSub) {
-      const float2 vv = load2(v + row_s[j] + 2 * dp);
-#pragma unroll
-      for (int h = 0; h < kMaxQ; ++h) {
-        if (h < qpk) {
-          const float p = s_s[h][j];
-          acc[h][0] = fmaf(p, vv.x, acc[h][0]);
-          acc[h][1] = fmaf(p, vv.y, acc[h][1]);
-        }
-      }
-    }
-    __syncthreads();  // s_s and row_s are rewritten by the next tile
-  }
+// What a launch of paged_attention_fixed needs beside its pointers, from
+// the host (launch_fixed)
+struct FixPlan {
+  int ranks;   // cluster ranks over a sequence's keys
+  int hs;      // query heads each rank owns in the cluster's sum
+  int rows;    // the maps' rows (the pool's): boxes are kept inside
+  int o_bar, o_recv, o_w, o_q, o_p, smem;  // dynamic shared memory
+};
 
-#pragma unroll
-  for (int h = 0; h < kMaxQ; ++h) {
-    if (h < qpk) {
-      red_s[sub][h][2 * dp] = acc[h][0];
-      red_s[sub][h][2 * dp + 1] = acc[h][1];
-    }
-  }
-  const long long kv_row = (long long)b * F + (long long)g * D;
-  if (append) {
-    // the current token's score, one warp per query head
-    for (int h = warp; h < qpk; h += kWarps) {
-      float part = 0.f;
-      for (int d = lane; d < D; d += 32) part += q_s[h][d] * to_float(new_k[kv_row + d]);
-      part = warp_sum(part);
-      if (lane == 0) snew_s[h] = part * sm_scale;
-    }
-  }
-  __syncthreads();
+__device__ __forceinline__ unsigned char* align1k(unsigned char* p) {
+  return reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(p) + 1023) & ~static_cast<uintptr_t>(1023));
+}
 
-  T* out_row = out + ((long long)b * num_heads + (long long)g * qpk) * D;
-  for (int i = tid; i < qpk * D; i += kThreads) {
-    const int h = i / D, d = i % D;
-    float o = 0.f;
-#pragma unroll
-    for (int s = 0; s < kSub; ++s) o += red_s[s][h][d];
-    float l = l_s[h];
-    if (append) {
-      // one more online-softmax column: always visible to its own query
-      const float m = m_s[h], sn = snew_s[h];
-      const float mf = fmaxf(m, sn);
-      const float alpha = expf(m - mf), pn = expf(sn - mf);
-      l = l * alpha + pn;
-      o = o * alpha + pn * to_float(new_v[kv_row + d]);
-    }
-    store(out_row + i, l == 0.f ? 0.f : o / l);
+// mma.sync m16n8k16, 16-bit operands, f32 accumulators. In a warp, lane =
+// 4 gq + tq. A (16 x 16) holds rows gq and gq + 8, columns 2tq, 2tq + 1,
+// 2tq + 8, 2tq + 9; B (16 x 8) rows 2tq, 2tq + 1, 2tq + 8, 2tq + 9 of
+// column gq; C (16 x 8) rows gq (c[0], c[1]) and gq + 8 (c[2], c[3]) at
+// columns 2tq and 2tq + 1.
+template <typename T>
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<T, __half>::value)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(hopper::smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(hopper::smem_u32(p)));
+}
+
+// an 8 x 8 matrix of 16-bit values transposed across the warp: lane 4g + t
+// holds row g's columns 2t, 2t + 1, and gets column g's rows 2t, 2t + 1
+__device__ __forceinline__ uint32_t movt(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+// 2^x by the SFU (relative error ~2^-22; 2^-inf = 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// the two fp8 values in x's low 16 bits (the first in the low byte) as a
+// pair of T (bf16 or f16), exactly
+template <typename T, typename KV>
+__device__ __forceinline__ uint32_t fp8x2(uint32_t x) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+      static_cast<__nv_fp8x2_storage_t>(x & 0xffffu),
+      std::is_same<KV, __nv_fp8_e4m3>::value ? __NV_E4M3 : __NV_E5M2);
+  if constexpr (std::is_same<T, __half>::value) {
+    return static_cast<uint32_t>(h.x) | (static_cast<uint32_t>(h.y) << 16);
+  } else {
+    const float2 f = __half22float2(__half2(h));
+    return hopper::pack2<T>(f.x, f.y);
   }
 }
 
-template <typename T, typename KV, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* new_k,
-                   const void* new_v, const int* page_table, const int* lengths,
-                   const int* windows, void* out, int batch, int num_heads,
-                   int num_kv_heads, int page_size, int pages_per_seq,
-                   long long page_stride, long long page_offset, int static_window,
-                   float sm_scale, cudaStream_t stream) {
-  dim3 grid(batch, num_kv_heads);
-  paged_attention_kernel<T, KV, D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v),
-      static_cast<const T*>(new_k), static_cast<const T*>(new_v), page_table, lengths,
-      windows, static_cast<T*>(out), num_heads, num_kv_heads, page_size, pages_per_seq,
-      page_stride, page_offset, static_window, sm_scale);
-  return cudaGetLastError();
+// p as the output's type would round it (the plain version's p.to(v.dtype))
+template <typename T>
+__device__ __forceinline__ float round_to(float p) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return __bfloat162float(__float2bfloat16(p));
+  else if constexpr (std::is_same<T, __half>::value)
+    return __half2float(__float2half(p));
+  else
+    return p;
+}
+
+// C consecutive values of a staged row (C sz bytes, within one 16-byte
+// chunk) as floats
+template <typename KV, int C>
+__device__ __forceinline__ void load_cols(const unsigned char* p, float (&x)[C]) {
+  constexpr int bytes = C * static_cast<int>(sizeof(KV));
+  union {
+    uint4 v4;
+    uint2 v2;
+    uint32_t v1;
+    unsigned short s;
+  } raw;
+  if constexpr (bytes == 16) raw.v4 = *reinterpret_cast<const uint4*>(p);
+  else if constexpr (bytes == 8) raw.v2 = *reinterpret_cast<const uint2*>(p);
+  else if constexpr (bytes == 4) raw.v1 = *reinterpret_cast<const uint32_t*>(p);
+  else raw.s = *reinterpret_cast<const unsigned short*>(p);
+  const KV* e = reinterpret_cast<const KV*>(&raw);
+#pragma unroll
+  for (int i = 0; i < C; ++i) x[i] = to_float(e[i]);
+}
+
+// grid = ranks x B x H_kv, clusters of `ranks` blocks along x, kFixWarps
+// warps a block: P = ranks x kFixWarps parts of one (sequence, kv head).
+// Part p = r + ranks w (warp w of rank r) walks the band's boxes p, p + P,
+// p + 2P, ... (counted from the band's first), each into the next slot of
+// the warp's own ring, with its own online softmax. MMA: the products on
+// mma.sync (16-bit q); else FFMA. The parts are summed in (rank, warp)
+// order.
+template <typename T, typename KV, int D, bool MMA>
+__global__ void __launch_bounds__(kFixWarps * 32)
+paged_attention_fixed(const T* __restrict__ q, const T* __restrict__ new_k,
+                      const T* __restrict__ new_v,
+                      const int* __restrict__ page_table,
+                      const int* __restrict__ lengths,
+                      const int* __restrict__ windows, T* __restrict__ out,
+                      int num_heads, int num_kv_heads, int page_size,
+                      int pages_per_seq, int rpp, long long page_offset,
+                      int static_window, float scale2, const FixPlan pl,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v) {
+  using S = FixShape<KV, D>;
+  constexpr int W = kFixWarps, NS = S::SLOTS, REC = S::REC;
+  constexpr int sz = sizeof(KV);
+  extern __shared__ unsigned char fix_raw[];
+  unsigned char* smem = align1k(fix_raw);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int rank = blockIdx.x, cs = pl.ranks, b = blockIdx.y, g = blockIdx.z;
+  const int qpk = num_heads / num_kv_heads;
+  const bool append = new_k != nullptr;
+  unsigned char* ring = smem + warp * NS * S::SLOT;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + pl.o_bar) + warp * NS;
+  uint64_t* comb = reinterpret_cast<uint64_t*>(smem + pl.o_bar) + W * NS;
+  float* recv = reinterpret_cast<float*>(smem + pl.o_recv);
+  const int hs = pl.hs, own0 = rank * hs, nown = max(0, min(hs, qpk - own0));
+  const int page = page_size;
+
+  // each warp's ring barriers (one arrival: lane 0's, with the boxes'
+  // bytes); the cluster's sum barrier (every part's records of this rank's
+  // heads)
+  if (lane == 0) {
+    for (int s = 0; s < NS; ++s) hopper::mbar_init(&full[s], 1);
+    if (warp == 0) {
+      if (cs > 1) {
+        hopper::mbar_init(comb, 1);
+        hopper::mbar_arrive_tx(comb, cs * W * nown * REC * 4);
+      }
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tm_k) : "memory");
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(&tm_v) : "memory");
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncwarp();
+  if (cs > 1) hopper::cluster_arrive_relaxed();  // this rank's barrier exists
+
+  // One round trip: the length, the request's window, and the pages of the
+  // part's first NS boxes if the band starts at token 0 (no window)
+  const int* table = page_table + (long long)b * pages_per_seq;
+  const int P = cs * W, part = rank + cs * warp;
+  const int end = pages_per_seq * page;  // the table's tokens
+  int pg = 0;
+  {
+    const int tok = (part + P * lane) * kFixBox;
+    if (lane < NS && tok < end) pg = __ldg(table + tok / page);
+  }
+  const int len = __ldg(lengths + b);
+  const int wreq = windows != nullptr ? __ldg(windows + b) : 0;
+
+  // lane 0: box j of the part (the tokens [t0, t0 + kFixBox) of page pgid)
+  // into slot j % NS, K and V on the slot's barrier, after the warp's reads
+  // of the slot; a box outside the pool (a garbage page id past the length)
+  // is moved inside it, and its keys are masked
+  const int col = g * D;
+  auto issue = [&](int j, int t0, int pgid) {
+    const int s = j % NS;
+    unsigned char* st = ring + s * S::SLOT;
+    long long row = ((long long)pgid + page_offset) * rpp + t0 % page;
+    row = row < 0 ? 0 : row > pl.rows - kFixBox ? pl.rows - kFixBox : row;
+    hopper::fence_proxy_async();
+    hopper::mbar_arrive_tx(&full[s], S::SLOT);
+#pragma unroll
+    for (int c = 0; c < S::NC; ++c) {
+      hopper::tma_load_2d(st + c * S::BOX, &tm_k, &full[s], col + c * S::CW / sz,
+                          static_cast<int>(row));
+      hopper::tma_load_2d(st + S::HALF + c * S::BOX, &tm_v, &full[s],
+                          col + c * S::CW / sz, static_cast<int>(row));
+    }
+  };
+
+  // Without a window the band starts at token 0, so the part's first boxes
+  // are known before the length is: they go out now, and those past the
+  // length are waited for and dropped
+  const bool spec = windows == nullptr && static_window <= 0;
+  const int nspec = spec ? min(kFixSpec, NS) : 0;
+  for (int j = 0; j < nspec; ++j) {
+    const int t0 = (part + P * j) * kFixBox;
+    const int pj = __shfl_sync(0xffffffffu, pg, j);
+    if (lane == 0 && t0 < end) issue(j, t0, pj);
+  }
+
+  // key band [lo, hi): the tighter of the static and per-request windows;
+  // in append mode the new token takes one place of the band
+  const int hi = min(len, end);
+  int w = kNoWindow;
+  if (wreq > 0) w = wreq;
+  if (static_window > 0) w = min(w, static_window);
+  const int w_old = append ? max(w - 1, 0) : w;
+  const int tlo = max(len - w_old, 0), thi = hi;
+  // the band's boxes [ib0, ib0 + nball); the part's are ib0 + part + P j
+  const int ib0 = tlo / kFixBox;
+  const int nball = thi > tlo ? (thi + kFixBox - 1) / kFixBox - ib0 : 0;
+  const int nbox = nball > part ? (nball - part + P - 1) / P : 0;
+  auto box_tok = [&](int j) { return (ib0 + part + P * j) * kFixBox; };
+  // the first slots' boxes not in flight yet (their pages read again when
+  // a window moved the band's start)
+  if (ib0 != 0) {
+    const int tok = box_tok(lane);
+    pg = lane < NS && lane < nbox ? __ldg(table + tok / page) : 0;
+  }
+  for (int j = nspec; j < min(NS, nbox); ++j) {
+    const int pj = __shfl_sync(0xffffffffu, pg, j);
+    if (lane == 0) issue(j, box_tok(j), pj);
+  }
+
+  // the warp's online softmax (log2 domain: scores times scale2)
+  constexpr int DT = D / 16;  // 16-column slices of a row
+  constexpr int C = D / 32;   // FFMA: output columns a lane
+  float m2[2] = {-INFINITY, -INFINITY}, l2[2] = {0.f, 0.f};  // MMA: heads 2tq, 2tq + 1
+  float o2[MMA ? DT : 1][4] = {};
+  uint32_t qb[MMA ? DT : 1][2] = {};
+  float mf[MMA ? 1 : kMaxQ], lf[MMA ? 1 : kMaxQ];
+  float of[MMA ? 1 : kMaxQ][C];
+  float* q_s = reinterpret_cast<float*>(smem + pl.o_q);               // FFMA: [kMaxQ][D]
+  float* p_s = reinterpret_cast<float*>(smem + pl.o_p) + warp * kMaxQ * kFixBox;
+  const T* q_row = q + ((long long)b * num_heads + (long long)g * qpk) * D;
+  if constexpr (MMA) {
+    // q as the B operand of S = K q^T (column gq = head gq), in registers:
+    // a 16-bit row's k = 2tq, 2tq + 1, 2tq + 8, 2tq + 9 of each slice; an
+    // fp8 row's fragments hold its values 4tq .. 4tq + 3 (below), so q's
+    // do too (the depth is summed over, in any order)
+    if (gq < qpk) {
+      const T* qh = q_row + gq * D;
+#pragma unroll
+      for (int kk = 0; kk < DT; ++kk) {
+        if constexpr (sz == 2) {
+          qb[kk][0] = *reinterpret_cast<const uint32_t*>(qh + 16 * kk + 2 * tq);
+          qb[kk][1] = *reinterpret_cast<const uint32_t*>(qh + 16 * kk + 2 * tq + 8);
+        } else {
+          const uint2 v = *reinterpret_cast<const uint2*>(qh + 16 * kk + 4 * tq);
+          qb[kk][0] = v.x;
+          qb[kk][1] = v.y;
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int h = 0; h < kMaxQ; ++h) {
+      mf[h] = -INFINITY;
+      lf[h] = 0.f;
+#pragma unroll
+      for (int i = 0; i < C; ++i) of[h][i] = 0.f;
+    }
+    for (int i = tid; i < qpk * D; i += W * 32) q_s[i] = to_float(q_row[i]);
+    __syncthreads();
+  }
+
+  // while the boxes are in flight: the append column's score (log2
+  // domain) of each head this rank owns, one warp a head, and its V row
+  float* sn_c = reinterpret_cast<float*>(smem + pl.o_w);  // [hs]
+  float* nv_s = sn_c + hs;                                 // [D]
+  const long long kv_row = ((long long)b * num_kv_heads + g) * D;
+  if (append) {
+    for (int hh = warp; hh < nown; hh += W) {
+      const T* qh = q_row + (long long)(own0 + hh) * D;
+      float dot = 0.f;
+      for (int d = lane; d < D; d += 32)
+        dot += to_float(qh[d]) * to_float(new_k[kv_row + d]);
+      dot = warp_sum(dot);
+      if (lane == 0) sn_c[hh] = dot * scale2;
+    }
+    if (nown > 0)
+      for (int i = tid; i < D; i += W * 32) nv_s[i] = to_float(new_v[kv_row + i]);
+  }
+
+  for (int j = 0; j < nbox; ++j) {
+    const int s = j % NS, t0 = box_tok(j);
+    // the page of the box this slot takes next
+    int pnext = 0;
+    if (lane == 0 && j + NS < nbox) pnext = __ldg(table + box_tok(j + NS) / page);
+    hopper::mbar_wait(&full[s], (j / NS) & 1);
+    const unsigned char* ks = ring + s * S::SLOT;
+    const unsigned char* vs = ks + S::HALF;
+    if constexpr (MMA) {
+      // S = K q^T: 16 keys (M) by the group's heads (N = 8) over the depth
+      float sc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < DT; ++kk) {
+        uint32_t a[4];
+        if constexpr (sz == 2) {
+          ldsm4(a, ks + S::at(lane & 15, (2 * kk + (lane >> 4)) * 16));
+        } else {  // row gq's and gq + 8's values 16kk + 4tq .. + 3
+          const uint32_t x0 = *reinterpret_cast<const uint32_t*>(ks + S::at(gq, 16 * kk + 4 * tq));
+          const uint32_t x1 = *reinterpret_cast<const uint32_t*>(ks + S::at(gq + 8, 16 * kk + 4 * tq));
+          a[0] = fp8x2<T, KV>(x0);
+          a[1] = fp8x2<T, KV>(x1);
+          a[2] = fp8x2<T, KV>(x0 >> 16);
+          a[3] = fp8x2<T, KV>(x1 >> 16);
+        }
+        mma16816<T>(sc, a, qb[kk][0], qb[kk][1]);
+      }
+      const int k0 = t0 + gq, k1 = k0 + 8;
+      const bool in0 = k0 >= tlo && k0 < thi, in1 = k1 >= tlo && k1 < thi;
+      const float x0 = in0 ? sc[0] * scale2 : -INFINITY;
+      const float x1 = in0 ? sc[1] * scale2 : -INFINITY;
+      const float x2 = in1 ? sc[2] * scale2 : -INFINITY;
+      const float x3 = in1 ? sc[3] * scale2 : -INFINITY;
+      float mx0 = fmaxf(x0, x2), mx1 = fmaxf(x1, x3);
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
+      }
+      // finite: every box holds a key of the band
+      const float mn0 = fmaxf(m2[0], mx0), mn1 = fmaxf(m2[1], mx1);
+      const float al0 = ex2(m2[0] - mn0), al1 = ex2(m2[1] - mn1);
+      const float p0 = ex2(x0 - mn0), p1 = ex2(x1 - mn1);
+      const float p2 = ex2(x2 - mn0), p3 = ex2(x3 - mn1);
+      l2[0] = l2[0] * al0 + p0 + p2;
+      l2[1] = l2[1] * al1 + p1 + p3;
+      m2[0] = mn0;
+      m2[1] = mn1;
+      // P (keys by heads) rounded to T, transposed into the B operand of
+      // O = V^T P: keys 2tq, 2tq + 1 (+ 8) of head gq
+      const uint32_t pb0 = movt(hopper::pack2<T>(p0, p1));
+      const uint32_t pb1 = movt(hopper::pack2<T>(p2, p3));
+      // V rows outside the band read as 0 (a box's other rows may hold
+      // anything, and p = 0 times a NaN is a NaN)
+      uint32_t vm0 = 0xffffffffu, vm1 = 0xffffffffu;
+      if (t0 < tlo || t0 + kFixBox > thi) {
+        const int ka = t0 + 2 * tq, kb = ka + 8;
+        vm0 = (ka >= tlo && ka < thi ? 0xffffu : 0u) |
+              (ka + 1 >= tlo && ka + 1 < thi ? 0xffff0000u : 0u);
+        vm1 = (kb >= tlo && kb < thi ? 0xffffu : 0u) |
+              (kb + 1 >= tlo && kb + 1 < thi ? 0xffff0000u : 0u);
+      }
+#pragma unroll
+      for (int dd = 0; dd < DT; ++dd) {
+        o2[dd][0] *= al0;
+        o2[dd][1] *= al1;
+        o2[dd][2] *= al0;
+        o2[dd][3] *= al1;
+        // A = V^T: 16 columns (M) by the box's 16 keys (K)
+        uint32_t a[4];
+        if constexpr (sz == 2) {
+          ldsm4t(a, vs + S::at((lane & 7) + ((lane >> 4) << 3),
+                               (2 * dd + ((lane >> 3) & 1)) * 16));
+        } else {
+          // rows gq and gq + 8's values 16dd + 4tq .. + 3 as two 8 x 8
+          // matrices of pairs each, transposed: rows gq and gq + 8 of A are
+          // then the columns 16dd + 4(gq / 2) + gq % 2 and that + 2
+          const uint32_t x0 = *reinterpret_cast<const uint32_t*>(vs + S::at(gq, 16 * dd + 4 * tq));
+          const uint32_t x1 = *reinterpret_cast<const uint32_t*>(vs + S::at(gq + 8, 16 * dd + 4 * tq));
+          a[0] = movt(fp8x2<T, KV>(x0));
+          a[1] = movt(fp8x2<T, KV>(x0 >> 16));
+          a[2] = movt(fp8x2<T, KV>(x1));
+          a[3] = movt(fp8x2<T, KV>(x1 >> 16));
+        }
+        a[0] &= vm0;
+        a[1] &= vm0;
+        a[2] &= vm1;
+        a[3] &= vm1;
+        mma16816<T>(o2[dd], a, pb0, pb1);
+      }
+    } else {
+      // scores: lane 16hf + kr takes key kr's row against every head over
+      // half the row (16-byte reads), the halves summed by a shuffle
+      const int kr = lane & 15, hf = lane >> 4;
+      constexpr int E = 16 / sz;            // values a 16-byte chunk
+      constexpr int CH = S::RB / 16 / 2;    // chunks of a half row
+      float sc[kMaxQ];
+#pragma unroll
+      for (int h = 0; h < kMaxQ; ++h) sc[h] = 0.f;
+#pragma unroll
+      for (int c = 0; c < CH; ++c) {
+        const int cb = hf * CH + c;
+        const uint4 raw = *reinterpret_cast<const uint4*>(ks + S::at(kr, cb * 16));
+        const KV* e = reinterpret_cast<const KV*>(&raw);
+#pragma unroll
+        for (int i = 0; i < E; i += 4) {
+          const float k0 = to_float(e[i]), k1 = to_float(e[i + 1]);
+          const float k2 = to_float(e[i + 2]), k3 = to_float(e[i + 3]);
+#pragma unroll
+          for (int h = 0; h < kMaxQ; ++h) {
+            if (h < qpk) {
+              const float4 qv = *reinterpret_cast<const float4*>(q_s + h * D + cb * E + i);
+              sc[h] = fmaf(qv.x, k0, fmaf(qv.y, k1, fmaf(qv.z, k2, fmaf(qv.w, k3, sc[h]))));
+            }
+          }
+        }
+      }
+      const int key = t0 + kr;
+      const bool in = key >= tlo && key < thi;
+#pragma unroll
+      for (int h = 0; h < kMaxQ; ++h) {
+        if (h < qpk) {
+          float x = sc[h] + __shfl_xor_sync(0xffffffffu, sc[h], 16);
+          x = in ? x * scale2 : -INFINITY;
+          float mx = x;
+#pragma unroll
+          for (int o = 1; o < 16; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+          const float mn = fmaxf(mf[h], mx);
+          const float al = ex2(mf[h] - mn);
+          const float p = ex2(x - mn);
+          lf[h] = lf[h] * al + p;
+          mf[h] = mn;
+#pragma unroll
+          for (int i = 0; i < C; ++i) of[h][i] *= al;
+          if (hf == 0) p_s[h * kFixBox + kr] = round_to<T>(p);
+        }
+      }
+      __syncwarp();
+      // o += p V over the box's band keys: lane l the columns C l .. + C - 1
+      const int j0 = max(tlo - t0, 0), j1 = min(thi - t0, kFixBox);
+      for (int jj = j0; jj < j1; ++jj) {
+        float vx[C];
+        load_cols<KV, C>(vs + S::at(jj, lane * C * sz), vx);
+#pragma unroll
+        for (int h = 0; h < kMaxQ; ++h) {
+          if (h < qpk) {
+            const float pj = p_s[h * kFixBox + jj];
+#pragma unroll
+            for (int i = 0; i < C; ++i) of[h][i] = fmaf(pj, vx[i], of[h][i]);
+          }
+        }
+      }
+    }
+    __syncwarp();  // the slot (and p_s) are free
+    if (lane == 0 && j + NS < nbox) issue(j + NS, box_tok(j + NS), pnext);
+  }
+  // boxes put in flight past the band land before the ring is reused
+  for (int j = nbox; j < nspec; ++j)
+    if ((part + P * j) * kFixBox < end) hopper::mbar_wait(&full[j], 0);
+
+  // the warp's record of each head (m, l, o) into its own ring
+  float* rec = reinterpret_cast<float*>(ring);
+  if constexpr (MMA) {
+#pragma unroll
+    for (int o = 4; o < 32; o <<= 1) {
+      l2[0] += __shfl_xor_sync(0xffffffffu, l2[0], o);
+      l2[1] += __shfl_xor_sync(0xffffffffu, l2[1], o);
+    }
+    const int h0 = 2 * tq;
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      const int h = h0 + x;
+      if (h < qpk) {
+        float* r = rec + h * REC;
+        if (gq == 0) {
+          r[0] = m2[x];
+          r[1] = l2[x];
+        }
+#pragma unroll
+        for (int dd = 0; dd < DT; ++dd) {
+          const int da = sz == 2 ? 16 * dd + gq : 16 * dd + 4 * (gq >> 1) + (gq & 1);
+          const int db = sz == 2 ? da + 8 : da + 2;
+          r[4 + da] = o2[dd][x];
+          r[4 + db] = o2[dd][2 + x];
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int h = 0; h < kMaxQ; ++h) {
+      if (h < qpk) {
+        float l = lf[h];
+#pragma unroll
+        for (int o = 1; o < 16; o <<= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+        float* r = rec + h * REC;
+        if (lane == 0) {
+          r[0] = mf[h];
+          r[1] = l;
+        }
+#pragma unroll
+        for (int i = 0; i < C; ++i) r[4 + lane * C + i] = of[h][i];
+      }
+    }
+  }
+  __syncwarp();
+
+  // The cluster's sum: rank r owns the heads [r hs, (r + 1) hs); every
+  // warp sends the records of each owner's heads into the owner's recv
+  // [rank][warp][hs] by st.async, completing on the owner's barrier, and
+  // each owner adds the parts in (rank, warp) order once every byte has
+  // landed. Without a split the block's warps' records are the parts.
+  if (cs > 1) {
+    hopper::cluster_wait();  // every rank's barrier exists
+    constexpr int Q4 = REC / 4;
+    const int slot = rank * W + warp;
+    for (int i = lane; i < qpk * Q4; i += 32) {
+      const int h = i / Q4, c = i % Q4, owner = h / hs;
+      const uint32_t dst = hopper::map_rank(
+          hopper::smem_u32(recv + (slot * hs + h - owner * hs) * REC + 4 * c), owner);
+      const uint32_t bar = hopper::map_rank(hopper::smem_u32(comb), owner);
+      hopper::st_async(dst, *reinterpret_cast<const uint4*>(rec + h * REC + 4 * c), bar);
+    }
+    if (nown > 0) hopper::mbar_wait(comb, 0);
+  }
+  __syncthreads();  // the parts, the append score and V row are in place
+  auto part_rec = [&](int p, int hh) -> const float* {
+    return cs > 1 ? recv + (p * hs + hh) * REC
+                  : reinterpret_cast<const float*>(smem + p * NS * S::SLOT) +
+                        (own0 + hh) * REC;
+  };
+  // each output of an owned head: the combined max M, each part's weight
+  // exp2(m_p - M), the sums L and o over the parts in order
+  const int parts = cs * W;
+  T* out_row = out + ((long long)b * num_heads + (long long)g * qpk + own0) * D;
+  for (int i = tid; i < nown * D; i += W * 32) {
+    const int hh = i / D, c = i % D;
+    float M = -INFINITY;
+    for (int p = 0; p < parts; ++p) M = fmaxf(M, part_rec(p, hh)[0]);
+    const float mu = M == -INFINITY ? 0.f : M;
+    float o = 0.f, l = 0.f;
+    for (int p = 0; p < parts; ++p) {
+      const float* r = part_rec(p, hh);
+      const float wr = ex2(r[0] - mu);
+      l = fmaf(wr, r[1], l);
+      o = fmaf(wr, r[4 + c], o);
+    }
+    if (append) {
+      // one more online-softmax column: always visible to its own query
+      const float m = M, sn = sn_c[hh];
+      const float mx = fmaxf(m, sn);
+      const float al = ex2(m - mx), pn = ex2(sn - mx);
+      l = l * al + pn;
+      o = o * al + pn * nv_s[c];
+    }
+    store(out_row + (long long)hh * D + c, l == 0.f ? 0.f : o / l);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -603,7 +1019,7 @@ paged_attention_any(const T* __restrict__ q, const KV* __restrict__ k,
       first_page = table[min(rank * pl.per + tid * pl.box / page_size,
                              pages_per_seq - 1)];
   }
-  // key band [lo, hi), as paged_attention_kernel, cut to this split's pages
+  // key band [lo, hi), as paged_attention_fixed, cut to this split's pages
   const int len = lengths[b];
   const int hi = min(len, pages_per_seq * page_size);
   int w = kNoWindow;
@@ -1065,10 +1481,11 @@ struct MapKey {
   CUtensorMapDataType type;
   long long rows, stride;
   int cols, box_rows, box_cols;
+  CUtensorMapSwizzle swizzle;
   bool operator==(const MapKey& o) const {
     return base == o.base && type == o.type && rows == o.rows &&
            stride == o.stride && cols == o.cols && box_rows == o.box_rows &&
-           box_cols == o.box_cols;
+           box_cols == o.box_cols && swizzle == o.swizzle;
   }
 };
 
@@ -1092,7 +1509,8 @@ cudaError_t pool_map(CUtensorMap* map, const MapKey& key) {
   if (err == cudaSuccess) err = cudaSetDevice(at.device);
   if (err != cudaSuccess) return err;
   const int rc = hopper::row_map(map, key.base, key.type, key.rows, key.cols,
-                                 key.stride, key.box_rows, key.box_cols);
+                                 key.stride, key.box_rows, key.box_cols,
+                                 key.swizzle);
   if (current != at.device) err = cudaSetDevice(current);
   if (rc != 0) return cudaErrorInvalidValue;
   if (err != cudaSuccess) return err;
@@ -1109,10 +1527,10 @@ cudaError_t launch_any_vb(const void* q, const void* k, const void* v,
                           const int* page_table, const int* lengths,
                           const int* windows, void* out, int batch,
                           int num_heads, int num_kv_heads, int D, int page_size,
-                          int pages_per_seq, long long page_stride,
-                          long long page_offset, int static_window,
-                          double sm_scale, int splits, int stages,
-                          cudaStream_t stream) {
+                          int pages_per_seq, long long pool_rows,
+                          long long page_stride, long long page_offset,
+                          int static_window, double sm_scale, int splits,
+                          int stages, cudaStream_t stream) {
   // f32 accumulators, f64 for float64
   using A = typename std::conditional<std::is_same<T, double>::value, double,
                                       float>::type;
@@ -1121,18 +1539,18 @@ cudaError_t launch_any_vb(const void* q, const void* k, const void* v,
   if (!any_plan<T, KV, VB>(pl, num_heads, num_kv_heads, D, page_size,
                            pages_per_seq, page_stride, splits, stages))
     return cudaErrorInvalidValue;
-  // the maps of the K and V rows ([rows, F] of KV, F sz bytes apart, 2^39
-  // bytes of rows: more than a card holds; rows past the pool are never
-  // addressed), boxes of pl.box rows by the head's columns
+  // the maps of the K and V rows ([pool_rows, F] of KV, F sz bytes apart),
+  // boxes of pl.box rows by the head's columns
   CUtensorMap maps[2] = {};
   if (pl.tma) {
     const void* bases[2] = {k, v};
     const long long stride = (long long)num_kv_heads * D * sizeof(KV);
     for (int i = 0; i < 2; ++i) {
       const cudaError_t err = pool_map(
-          &maps[i], MapKey{bases[i], hopper::map_type<KV>(),
-                           (1LL << 39) / stride, stride, num_kv_heads * D,
-                           pl.box, pl.sk * 4 / static_cast<int>(sizeof(KV))});
+          &maps[i], MapKey{bases[i], hopper::map_type<KV>(), pool_rows, stride,
+                           num_kv_heads * D, pl.box,
+                           pl.sk * 4 / static_cast<int>(sizeof(KV)),
+                           CU_TENSOR_MAP_SWIZZLE_NONE});
       if (err != cudaSuccess) return err;
     }
   }
@@ -1167,6 +1585,84 @@ cudaError_t launch_any_vb(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// The plan and the maps of a paged_attention_fixed launch, then the launch:
+// the caller's `splits` ask for splits x kFixSplitWarps parts over a
+// sequence's keys, as warps of one block up to kFixWarps and as cluster
+// ranks past that (on an H100 one block of 8 warps beat a cluster of 2
+// blocks of 4 at the serving decode: PERF.md §6); the maps of the pool's K
+// and V rows ([pool_rows, F] of KV, F sz bytes apart), boxes of kFixBox
+// rows by CW bytes of the head's columns, swizzled over CW
+template <typename T, typename KV, int D, bool MMA>
+cudaError_t launch_fixed(const void* q, const void* k, const void* v,
+                         const void* new_k, const void* new_v,
+                         const int* page_table, const int* lengths,
+                         const int* windows, void* out, int batch, int num_heads,
+                         int num_kv_heads, int page_size, int pages_per_seq,
+                         long long pool_rows, long long page_stride,
+                         long long page_offset, int static_window,
+                         double sm_scale, int splits, cudaStream_t stream) {
+  using S = FixShape<KV, D>;
+  const long long F = (long long)num_kv_heads * D;
+  if (page_stride % F != 0 || pool_rows < kFixBox || pool_rows > 0x7FFFFFFF)
+    return cudaErrorInvalidValue;
+  const int qpk = num_heads / num_kv_heads;
+  FixPlan pl = {};
+  const int ranks = (splits * kFixSplitWarps + kFixWarps - 1) / kFixWarps;
+  pl.ranks = ranks;
+  pl.hs = (qpk + ranks - 1) / ranks;
+  pl.rows = static_cast<int>(pool_rows);
+  int o = kFixWarps * S::SLOTS * S::SLOT;  // the warps' rings, 1 KB aligned
+  pl.o_bar = o;
+  o = align16(o + (kFixWarps * S::SLOTS + 1) * 8);
+  pl.o_recv = o;
+  o = align16(o + (ranks > 1 ? ranks * kFixWarps * pl.hs * S::REC * 4 : 0));
+  pl.o_w = o;
+  o = align16(o + (pl.hs + D) * 4);
+  pl.o_q = o;
+  o = align16(o + (MMA ? 0 : kMaxQ * D * 4));
+  pl.o_p = o;
+  o += MMA ? 0 : kFixWarps * kMaxQ * kFixBox * 4;
+  pl.smem = o + 1024;  // room to align the rings
+  CUtensorMap maps[2] = {};
+  const void* bases[2] = {k, v};
+  for (int i = 0; i < 2; ++i) {
+    const cudaError_t err = pool_map(
+        &maps[i],
+        MapKey{bases[i], hopper::map_type<KV>(), pool_rows,
+               F * static_cast<long long>(sizeof(KV)), static_cast<int>(F),
+               kFixBox, S::CW / static_cast<int>(sizeof(KV)),
+               S::CW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                            : CU_TENSOR_MAP_SWIZZLE_64B});
+    if (err != cudaSuccess) return err;
+  }
+  auto kernel = paged_attention_fixed<T, KV, D, MMA>;
+  if (pl.smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, pl.smem);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ranks, batch, num_kv_heads);
+  cfg.blockDim = dim3(kFixWarps * 32);
+  cfg.dynamicSmemBytes = pl.smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const T*>(q), static_cast<const T*>(new_k),
+      static_cast<const T*>(new_v), page_table, lengths, windows,
+      static_cast<T*>(out), num_heads, num_kv_heads, page_size, pages_per_seq,
+      static_cast<int>(page_stride / F), page_offset, static_window,
+      static_cast<float>(sm_scale * 1.4426950408889634), pl, maps[0], maps[1]);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 // The copy pieces' bytes: the largest of 16, 8, 4, 2, 1 that divides a
 // row's bytes (every row offset is a multiple of D elements of a 16-byte
 // aligned pool, every chunk's of 256 elements), a kernel instance each.
@@ -1176,13 +1672,11 @@ cudaError_t launch_any(const void* q, const void* k, const void* v,
                        const int* page_table, const int* lengths,
                        const int* windows, void* out, int batch, int num_heads,
                        int num_kv_heads, int D, int page_size,
-                       int pages_per_seq, long long page_stride,
-                       long long page_offset, int static_window,
-                       double sm_scale, int splits, int stages,
-                       cudaStream_t stream) {
-  if (splits < 1 || splits > kMaxSplits || splits > pages_per_seq ||
-      stages < 1 || stages > kMaxStages)
-    return cudaErrorInvalidValue;
+                       int pages_per_seq, long long pool_rows,
+                       long long page_stride, long long page_offset,
+                       int static_window, double sm_scale, int splits,
+                       int stages, cudaStream_t stream) {
+  if (stages < 1 || stages > kMaxStages) return cudaErrorInvalidValue;
   const int vb = piece_bytes((long long)D * sizeof(KV));
 #define LAMP_PA_ANY(VB)                                                          \
   if (vb == VB) {                                                                \
@@ -1190,8 +1684,9 @@ cudaError_t launch_any(const void* q, const void* k, const void* v,
       return launch_any_vb<T, KV, VB>(q, k, v, new_k, new_v, page_table, lengths, \
                                       windows, out, batch, num_heads,            \
                                       num_kv_heads, D, page_size, pages_per_seq, \
-                                      page_stride, page_offset, static_window,   \
-                                      sm_scale, splits, stages, stream);         \
+                                      pool_rows, page_stride, page_offset,       \
+                                      static_window, sm_scale, splits, stages,   \
+                                      stream);                                   \
   }
   LAMP_PA_ANY(16)
   LAMP_PA_ANY(8)
@@ -1212,38 +1707,49 @@ extern "C" {
 // dtype), 2 = float8_e4m3fn, 3 = float8_e5m2 (with a float32, bfloat16 or
 // float16 q). float64 computes in double, in paged_attention_any. Any
 // head_dim and any number of query heads per kv head: D = 64 or 128 with
-// at most kMaxQ of them take paged_attention_kernel (which ignores splits
-// and stages), everything else paged_attention_any, over `splits` blocks a
-// sequence's pages (1 to 8, at most pages_per_seq) with a ring of
-// `stages` (1 to 3): the caller's plan, which it passes on every call.
-// Returns the cudaError_t of the launch; the caller raises on non-zero.
+// at most kMaxQ of them and pages of a multiple of kFixBox tokens take
+// paged_attention_fixed (which takes `splits` and keeps its own ring),
+// everything else paged_attention_any with a ring of `stages` (1 to 3);
+// both over `splits` blocks a sequence's pages (1 to 8, at most
+// pages_per_seq): the caller's plan, which it passes on every call.
+// total_pages: the pool's pages (its first dimension), which bound the
+// kernels' reads. Returns the cudaError_t of the launch; the caller raises
+// on non-zero.
 int lamp_paged_attention(const void* q, const void* k, const void* v,
                          const void* new_k, const void* new_v, const void* page_table,
                          const void* lengths, const void* windows, void* out,
                          int batch, int num_heads, int num_kv_heads, int head_dim,
-                         int page_size, int pages_per_seq, long long page_stride,
-                         long long page_offset, int static_window, double sm_scale,
-                         int dtype, int kv_dtype, int splits, int stages,
-                         void* stream) {
+                         int page_size, int pages_per_seq, int total_pages,
+                         long long page_stride, long long page_offset,
+                         int static_window, double sm_scale, int dtype, int kv_dtype,
+                         int splits, int stages, void* stream) {
   if (batch == 0) return cudaSuccess;
-  if (num_kv_heads <= 0 || head_dim <= 0 || num_heads % num_kv_heads != 0)
+  if (num_kv_heads <= 0 || head_dim <= 0 || num_heads % num_kv_heads != 0 ||
+      page_size <= 0 || total_pages <= 0 || splits < 1 || splits > kMaxSplits ||
+      splits > pages_per_seq)
     return cudaErrorInvalidValue;
   const int* pt = static_cast<const int*>(page_table);
   const int* ln = static_cast<const int*>(lengths);
   const int* wn = static_cast<const int*>(windows);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool fixed = num_heads / num_kv_heads <= kMaxQ;
-#define LAMP_PA_LAUNCH(T, KV, D)                                                   \
-  return launch<T, KV, D>(q, k, v, new_k, new_v, pt, ln, wn, out, batch, num_heads, \
-                          num_kv_heads, page_size, pages_per_seq, page_stride,     \
-                          page_offset, static_window, static_cast<float>(sm_scale), st)
+  // the pool's rows in the maps: a page's rows lie page_stride / F rows
+  // apart (2 pages of rows in the fused pool)
+  const long long F = (long long)num_kv_heads * head_dim;
+  const long long pool_rows =
+      (long long)(total_pages - 1) * (page_stride / F) + page_size;
+  const bool fixed = num_heads / num_kv_heads <= kMaxQ && page_size % kFixBox == 0;
+#define LAMP_PA_FIXED(T, KV, D)                                                     \
+  return launch_fixed<T, KV, D, (sizeof(T) == 2)>(                                   \
+      q, k, v, new_k, new_v, pt, ln, wn, out, batch, num_heads, num_kv_heads,        \
+      page_size, pages_per_seq, pool_rows, page_stride, page_offset, static_window,  \
+      sm_scale, splits, st)
 #define LAMP_PA_DIMS(T, KV)                                                       \
-  if (fixed && head_dim == 64) LAMP_PA_LAUNCH(T, KV, 64);                         \
-  if (fixed && head_dim == 128) LAMP_PA_LAUNCH(T, KV, 128);                       \
+  if (fixed && head_dim == 64) LAMP_PA_FIXED(T, KV, 64);                          \
+  if (fixed && head_dim == 128) LAMP_PA_FIXED(T, KV, 128);                        \
   return launch_any<T, KV>(q, k, v, new_k, new_v, pt, ln, wn, out, batch,         \
                            num_heads, num_kv_heads, head_dim, page_size,          \
-                           pages_per_seq, page_stride, page_offset, static_window, \
-                           sm_scale, splits, stages, st)
+                           pages_per_seq, pool_rows, page_stride, page_offset,    \
+                           static_window, sm_scale, splits, stages, st)
   if (dtype == 1 && kv_dtype == 1) { LAMP_PA_DIMS(__nv_bfloat16, __nv_bfloat16); }
   if (dtype == 0 && kv_dtype == 0) { LAMP_PA_DIMS(float, float); }
   if (dtype == 2 && kv_dtype == 4) { LAMP_PA_DIMS(__half, __half); }
@@ -1256,10 +1762,11 @@ int lamp_paged_attention(const void* q, const void* k, const void* v,
   if (dtype == 3 && kv_dtype == 5)
     return launch_any<double, double>(q, k, v, new_k, new_v, pt, ln, wn, out, batch,
                                       num_heads, num_kv_heads, head_dim, page_size,
-                                      pages_per_seq, page_stride, page_offset,
-                                      static_window, sm_scale, splits, stages, st);
+                                      pages_per_seq, pool_rows, page_stride,
+                                      page_offset, static_window, sm_scale, splits,
+                                      stages, st);
 #undef LAMP_PA_DIMS
-#undef LAMP_PA_LAUNCH
+#undef LAMP_PA_FIXED
   return cudaErrorInvalidValue;
 }
 

@@ -113,7 +113,7 @@ def load(path: Path) -> ctypes.CDLL:
     f32 = ctypes.c_float
     lib.lamp_paged_attention.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,  # tensors
-        i32, i32, i32, i32, i32, i32,                 # batch .. pages_per_seq
+        i32, i32, i32, i32, i32, i32, i32,  # batch .. pages_per_seq, pages
         i64, i64, i32, ctypes.c_double, i32, i32,     # strides .. kv dtype
         i32, i32, ptr,                                # splits, stages, stream
     ]

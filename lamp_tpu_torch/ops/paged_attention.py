@@ -122,19 +122,24 @@ def paged_attention_reference(q, k_pages, v_pages, page_indices, lengths, *,
     return o.to(q.dtype)
 
 
-# csrc/paged_attention.cu's paged_attention_any walks a sequence's pages
-# over up to _MAX_SPLITS blocks (one thread-block cluster)
+# csrc/paged_attention.cu's kernels walk a sequence's pages over up to
+# _MAX_SPLITS blocks (one thread-block cluster)
 _MAX_SPLITS = 8
+# the kernels' TMA maps address the pool's rows by int32 coordinates
+_MAX_POOL_ROWS = 2 ** 31 - 1
 
 
 @functools.lru_cache(maxsize=None)
 def _paged_plan(batch: int, kv_heads: int, group: int, head_dim: int,
                 pages_per_seq: int, sms: int):
-    """The launch plan of a paged_attention_any call, ``(splits, stages)``,
+    """The launch plan of a paged-attention call, ``(splits, stages)``,
     decided here from shapes alone and never from ``lengths`` (a decode
     step stays capturable in a CUDA graph). Every call passes it; the C
-    entry point alone picks the kernel, and paged_attention_kernel (head_dim
-    64 or 128, at most 8 query heads a kv head) ignores it:
+    entry point alone picks the kernel: paged_attention_fixed (head_dim 64
+    or 128, at most 8 query heads a kv head, pages of a multiple of 16
+    tokens) takes 4 warps' worth of parts a split (the 8 warps of one block
+    for 2, a thread-block cluster of such blocks past that) and keeps a
+    ring of its own, and paged_attention_any takes both:
 
     - splits: how many blocks of one thread-block cluster walk a
       sequence's pages, rank r the pages [r per, (r + 1) per) with per =
@@ -143,10 +148,10 @@ def _paged_plan(batch: int, kv_heads: int, group: int, head_dim: int,
       call aims at one block per SM: splits reach that aim, at most
       _MAX_SPLITS (a portable cluster) and at most one page a split, then
       the fewest that keep the longest split as short;
-    - stages: the ring's K/V tiles in flight. One, unless a tile's products
-      are long (a group of 64 or more query heads a kv head): on an H100 a
-      block's second and third stages cost more in blocks an SM holds than
-      their overlap gains (PERF.md §6).
+    - stages: paged_attention_any's ring of K/V tiles in flight. One, unless
+      a tile's products are long (a group of 64 or more query heads a kv
+      head): on an H100 a block's second and third stages cost more in
+      blocks an SM holds than their overlap gains (PERF.md §6).
     """
     base = max(1, batch * kv_heads * -(-head_dim // 256))
     splits = max(1, min(_MAX_SPLITS, pages_per_seq, -(-sms // base)))
@@ -173,6 +178,11 @@ def _check_cuda(q, pools, page_indices, lengths, windows, append_kv):
             f"float64 q with a pool of one dtype with it, or a 32- or 16-bit "
             f"q with a pool of an fp8 dtype, got {q.dtype} and "
             f"{pool.dtype}")
+    rows = pool.numel() // max(1, pool.shape[-1])
+    if rows > _MAX_POOL_ROWS:
+        raise ValueError(
+            f"paged_attention: the pool's {rows} rows exceed the kernel's "
+            f"{_MAX_POOL_ROWS}")
     tensors = [q, *pools, page_indices, lengths]
     tensors += [] if windows is None else [windows]
     tensors += [] if append_kv is None else list(append_kv)
@@ -187,8 +197,9 @@ def _check_cuda(q, pools, page_indices, lengths, windows, append_kv):
             raise TypeError(
                 "paged_attention: page table, lengths and windows must be "
                 f"int32, got {t.dtype}")
-    if any(p.data_ptr() % 16 for p in pools):
-        raise ValueError("paged_attention: pools must be 16-byte aligned")
+    if any(t.data_ptr() % 16 for t in [q, *pools]):
+        raise ValueError(
+            "paged_attention: q and the pools must be 16-byte aligned")
 
 
 def paged_attention(q, k_pages, v_pages, page_indices, lengths, *,
@@ -258,8 +269,9 @@ def paged_attention(q, k_pages, v_pages, page_indices, lengths, *,
     # csrc/paged_attention.cu replaces lamp_tpu's _paged_kernel. It is bound
     # by K/V bytes read (B x live tokens x 2 x F x 2 B per layer in bf16,
     # 1 B in fp8) and reads each K/V row once per kv head, not once per
-    # query head; paged_attention_any splits a sequence's pages over the
-    # blocks of a cluster by _paged_plan.
+    # query head; both kernels spread a sequence's keys over warps and
+    # cluster ranks by _paged_plan, and read rows inside the pool's
+    # total_pages.
     from ._build import library
 
     lib = library()
@@ -285,7 +297,8 @@ def paged_attention(q, k_pages, v_pages, page_indices, lengths, *,
         q.data_ptr(), k_ptr, v_ptr, nk, nv, page_indices.data_ptr(),
         lengths.data_ptr(), None if windows is None else windows.data_ptr(),
         out.data_ptr(), b, h, num_kv_heads, d, page, pages_per_seq,
-        page_stride, int(page_offset), 0 if window is None else window,
+        total_pages, page_stride, int(page_offset),
+        0 if window is None else window,
         float(sm_scale), _KERNEL_DTYPES[q.dtype], _POOL_DTYPES[k_pages.dtype],
         splits, stages, torch.cuda.current_stream(q.device).cuda_stream,
     )

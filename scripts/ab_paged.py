@@ -9,24 +9,29 @@ process of its own that imports one tree's lamp_tpu_torch: both trees'
 kernels first build at once (each into its own _build/), then every round
 measures the other tree, this tree, this tree and the other tree again.
 
-"cases": each of chip_smoke.py's K6_WIDE cases at phase 2's shapes (B=32,
-4 pages of 128 tokens a sequence, lengths 0, 1, 127-129, 255, 511 and
-random, a pool of 192 pages) on the decode's own call (append_kv, no
-window), through the tree's own ``paged_attention`` (its wrapper, its
-plan): the device time a call by CUDA events over the replay of a CUDA
-graph of 100 back-to-back calls (median of 5 replays), and the profiler's
-sum of the call's kernels over 20 eager calls beside it. "call": phase
-11's decode call (chip_smoke.py's openllama_decode_call: lengths of 56-95,
-the calls taking the 26 layers' pages in turns, as a step does) timed so,
-and the host's time a call of the wrapper and of its C entry point alone
-(chip_smoke.py's host_us: bursts of 10 calls on a drained card; and 200
-calls queued at once behind a sleeping kernel). "decode":
-chip_smoke.py phase 11's steady decode, OpenLLaMA-3B (26 x 3200, 32 / 32
-heads of 100, bf16, random weights from seed 0) behind
-ModernBatchServer(page_size=128, total_pages=192) with 32 requests:
-step_many(8) by CUDA events, then one profiled step_many(8): the device's
-busy time a decode step and K6's part of it. All three groups run by
-default.
+"cases": phase 2's own calls (the serving slice's layer, 12 / 4 heads of
+64, bf16 q over the 12-layer bf16 pool and over the same values in e4m3,
+the last layer's page_offset) and each of chip_smoke.py's K6_WIDE cases at
+phase 2's shapes (B=32, 4 pages of 128 tokens a sequence, lengths 0, 1,
+127-129, 255, 511 and random, a pool of 192 pages) on the decode's own
+call (append_kv, no window), through the tree's own ``paged_attention``
+(its wrapper, its plan): the device time a call by CUDA events over the
+replay of a CUDA graph of 100 back-to-back calls (median of 5 replays),
+and the profiler's sum of the call's kernels over 20 eager calls beside
+it. "call": phase 3's decode call (chip_smoke.py's serving_decode_call:
+lengths of 56-95, the calls taking 4 page tables x 12 layers in turns,
+cold) on the bf16 and e4m3 pools, and phase 11's (openllama_decode_call:
+lengths of 56-95, the calls taking the 26 layers' pages in turns, as a
+step does) timed so, and the host's time a call of phase 11's wrapper and
+of its C entry point alone (chip_smoke.py's host_us: bursts of 10 calls on
+a drained card; and 200 calls queued at once behind a sleeping kernel).
+"decode": chip_smoke.py phase 3's steady decode (the serving slice's
+ModernLM, 12 x 768, 12 / 4 heads of 64) and phase 11's, OpenLLaMA-3B (26
+x 3200, 32 / 32 heads of 100), bf16, random weights from seed 0, each
+behind ModernBatchServer(page_size=128, total_pages=192) with 32
+requests: step_many(8) by CUDA events, then one profiled step_many(8):
+the device's busy time a decode step and K6's part of it. All three
+groups run by default.
 Prints each measurement, the median of each side and the ratio of this
 tree's to the other's.
 """
@@ -92,6 +97,27 @@ def worker(tree: str, build_only: bool, groups) -> None:
         lengths = torch.as_tensor(np.asarray(
             edge + list(rng.randint(0, pps * cs.PAGE, b - len(edge))),
             np.int32), device=dev)
+        # phase 2's own calls: the serving layer over the 12-layer pool
+        d = cs.DIM // cs.HEADS
+        pool = torch.randn((cs.BLOCKS * cs.TOTAL_PAGES, 2, cs.PAGE,
+                            cs.KV_HEADS * d), generator=gen,
+                           device=dev).to(torch.bfloat16)
+        q = torch.randn((b, cs.HEADS, d), generator=gen,
+                        device=dev).to(torch.bfloat16)
+        new = tuple(torch.randn((b, cs.KV_HEADS * d), generator=gen,
+                                device=dev).to(torch.bfloat16)
+                    for _ in range(2))
+        offset = (cs.BLOCKS - 1) * cs.TOTAL_PAGES
+        for name, kv in (("phase 2 bf16", pool),
+                         ("phase 2 e4m3", pool.to(torch.float8_e4m3fn))):
+            def call(i=0, kv=kv):
+                PA.paged_attention(q, kv, None, table, lengths,
+                                   num_kv_heads=cs.KV_HEADS, append_kv=new,
+                                   page_offset=offset)
+
+            times[name] = cs.graph_ms(call) * 1e3
+            times[f"{name} (profiler)"] = prof_us(call)
+        del pool, kv
         for name, h, hkv, d, qdt, pdt in cs.K6_WIDE:
             pool = torch.randn((cs.TOTAL_PAGES, 2, cs.PAGE, hkv * d),
                                generator=gen, device=dev).to(pdt)
@@ -107,8 +133,24 @@ def worker(tree: str, build_only: bool, groups) -> None:
             times[f"{name} (profiler)"] = prof_us(call)
             del pool
     if "call" in groups:
-        # phase 11's decode call, the layers in turns as a step takes them
+        # phase 3's decode call, 4 tables x 12 layers in turns (cold)
         gen = torch.Generator(device=dev).manual_seed(0)
+        for name, pdt in (("serving decode", torch.bfloat16),
+                          ("serving decode e4m3", torch.float8_e4m3fn)):
+            rng = np.random.RandomState(7)
+            q, pool, hkv, new, tables, lengths, offsets = \
+                cs.serving_decode_call(gen, rng, pdt)
+
+            def call(i=0):
+                tab, off = cs.decode_turn(i, tables, offsets)
+                PA.paged_attention(q, pool, None, tab, lengths,
+                                   num_kv_heads=hkv, append_kv=new,
+                                   page_offset=off)
+
+            times[name] = cs.graph_ms(call) * 1e3
+            times[f"{name} (profiler)"] = prof_us(call, 48)
+            del pool
+        # phase 11's decode call, the layers in turns as a step takes them
         rng = np.random.RandomState(0)
         q, pool, hkv, new, table, lengths, offsets = \
             cs.openllama_decode_call(gen, rng)
@@ -128,18 +170,21 @@ def worker(tree: str, build_only: bool, groups) -> None:
             call, queued=True)
         b, h, d = q.shape
         fn = _build.library().lamp_paged_attention
+        # the entry's arguments by its arity: 22 (no plan), 24 (the plan),
+        # 25 (the plan and the pool's pages)
         plan = PA._paged_plan(
             b, hkv, h // hkv, d, table.shape[1],
             torch.cuda.get_device_properties(dev).multi_processor_count) \
-            if len(fn.argtypes) == 24 else ()
+            if len(fn.argtypes) >= 24 else ()
+        pages = (pool.shape[0],) if len(fn.argtypes) == 25 else ()
         out = torch.empty_like(q)
         page, fused = pool.shape[2], pool.shape[3]
         args = (q.data_ptr(), pool.data_ptr(),
                 pool.data_ptr() + page * fused * pool.element_size(),
                 new[0].data_ptr(), new[1].data_ptr(), table.data_ptr(),
                 lengths.data_ptr(), None, out.data_ptr(), b, h, hkv, d, page,
-                table.shape[1], 2 * page * fused, 0, 0, d ** -0.5, 1, 1,
-                *plan, torch.cuda.current_stream().cuda_stream)
+                table.shape[1], *pages, 2 * page * fused, 0, 0, d ** -0.5, 1,
+                1, *plan, torch.cuda.current_stream().cuda_stream)
         times["openllama decode host us a call, C entry"] = cs.host_us(
             lambda i: fn(*args))
         del pool
@@ -147,33 +192,42 @@ def worker(tree: str, build_only: bool, groups) -> None:
         from lamp_tpu_torch import models
         from lamp_tpu_torch import nn as torch_nn
 
-        gen = torch.Generator(device=dev).manual_seed(0)
-        model = torch_nn.ModernLM.init(
-            vocab_size=cs.VOCAB, context_length=cs.OL_CTX,
-            num_blocks=cs.OL_BLOCKS, embed_dim=cs.OL_DIM,
-            num_heads=cs.OL_HEADS, num_kv_heads=cs.OL_HEADS,
-            mlp_hidden=cs.OL_MLP, tied=False, rope_base=10000.0,
-            norm_eps=1e-6, generator=gen, dtype=torch.bfloat16, device=dev)
-        server = models.ModernBatchServer(model, page_size=cs.PAGE,
-                                          total_pages=cs.TOTAL_PAGES)
-        rng = np.random.RandomState(0)
-        for i in range(32):
-            server.add(f"s{i}", rng.randint(0, cs.VOCAB, 24 + i % 8).tolist(),
-                       models.SamplingParams(temperature=0.8))
-        server.step_many(8)
-        server.step_many(8)
-        times["decode step_many(8) by events, ms"] = cs.cuda_time_ms(
-            lambda: server.step_many(8), 3, warmup=0)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        # phase 3's serving model, then phase 11's OpenLLaMA-3B
+        for label, make in (
+                ("serving", lambda gen: cs.make_serving_model(torch_nn)),
+                ("openllama", lambda gen: torch_nn.ModernLM.init(
+                    vocab_size=cs.VOCAB, context_length=cs.OL_CTX,
+                    num_blocks=cs.OL_BLOCKS, embed_dim=cs.OL_DIM,
+                    num_heads=cs.OL_HEADS, num_kv_heads=cs.OL_HEADS,
+                    mlp_hidden=cs.OL_MLP, tied=False, rope_base=10000.0,
+                    norm_eps=1e-6, generator=gen, dtype=torch.bfloat16,
+                    device=dev))):
+            gen = torch.Generator(device=dev).manual_seed(0)
+            model = make(gen)
+            server = models.ModernBatchServer(model, page_size=cs.PAGE,
+                                              total_pages=cs.TOTAL_PAGES)
+            rng = np.random.RandomState(0)
+            for i in range(32):
+                server.add(f"s{i}",
+                           rng.randint(0, cs.VOCAB, 24 + i % 8).tolist(),
+                           models.SamplingParams(temperature=0.8))
             server.step_many(8)
-            torch.cuda.synchronize()
-        busy = k6 = 0.0
-        for e in prof.key_averages():
-            busy += e.self_device_time_total
-            if "paged_attention" in e.key:
-                k6 += e.self_device_time_total
-        times["decode device us a step"] = busy / 8
-        times["decode K6 us a step"] = k6 / 8
+            server.step_many(8)
+            times[f"{label} decode step_many(8) by events, ms"] = \
+                cs.cuda_time_ms(lambda: server.step_many(8), 3, warmup=0)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                server.step_many(8)
+                torch.cuda.synchronize()
+            busy = k6 = 0.0
+            for e in prof.key_averages():
+                busy += e.self_device_time_total
+                if "paged_attention" in e.key:
+                    k6 += e.self_device_time_total
+            times[f"{label} decode device us a step"] = busy / 8
+            times[f"{label} decode K6 us a step"] = k6 / 8
+            times[f"{label} decode K6 share"] = k6 / busy
+            del server, model
+            torch.cuda.empty_cache()
     print("AB " + json.dumps(times), flush=True)
 
 

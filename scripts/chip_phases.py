@@ -5,8 +5,9 @@ lines), then the named parts only.
     python3 scripts/chip_phases.py [paged] [ragged] [fwd] [flash] [wide]
         [any] [small] [train32] [openllama] [gemma] [quant]
 
-paged: phase 2 (the paged-attention kernels, K6_WIDE's shapes and the key
-split's edges included); ragged: phase 4's checks of the ragged forward
+paged: phase 2 (the paged-attention kernels: the fixed kernel's edges,
+K6_WIDE's shapes and the key split's edges included, and the serving
+decode call's timing); ragged: phase 4's checks of the ragged forward
 (check_ragged_forward: head dims 12-250 that are not multiples of 8, the
 wgmma forward's cp.async producer), then its timing at B=2, H=8, S=2048,
 D=12, 75, 100 and 130 beside SDPA;

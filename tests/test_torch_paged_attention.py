@@ -248,6 +248,71 @@ def test_float64_matches_jax_kernel_and_computes_in_double():
                                        atol=1e-12, rtol=0)
 
 
+# The CUDA fixed kernel's edges (paged_attention_fixed: head_dim 64 or 128,
+# at most 8 query heads a kv head, the band's 16-key boxes interleaved over
+# a cluster of _paged_plan's splits): the serving slice's 12 / 4 heads of
+# 64 and a group of 8 at 128, bf16 q over a bf16 or an e4m3 pool of
+# 16-token pages, lengths at a box's edges (15-17), a page's (127-129 at
+# pages of 16: a box's too) and the plan's split boundaries +- 1,
+# per-request windows whose bands start inside a box, one case with a
+# static window too.
+# Tolerance: both sides give bf16 outputs from f32 sums and round p to
+# bf16 at different places (the JAX kernel before normalising, the plain
+# version after): they differ by at most a bf16 step (2^-8 relative) and a
+# little more, atol 1e-2 and rtol 1e-2.
+FIXED_EDGE_CASES = [  # (name, heads, kv heads, head_dim, pool, append, window)
+    ("d64_12_4_bf16", 12, 4, 64, "bfloat16", False, None),
+    ("d64_12_4_e4m3_append", 12, 4, 64, "float8_e4m3fn", True, None),
+    ("d128_group8_bf16_append", 16, 2, 128, "bfloat16", True, 40),
+    ("d128_group8_e4m3", 16, 2, 128, "float8_e4m3fn", False, None),
+]
+
+
+@pytest.mark.parametrize("case", FIXED_EDGE_CASES,
+                         ids=[c[0] for c in FIXED_EDGE_CASES])
+def test_fixed_kernel_edges_match_jax_kernel(case):
+    _, heads, kv_heads, d, pool, append, window = case
+    page, pps, total = 16, 16, 200
+    splits, _ = _paged_plan(12, kv_heads, heads // kv_heads, d, pps, 132)
+    assert splits > 1  # the split's boundaries are among the lengths
+    edges = [0, 1, 15, 16, 17, 127, 128, 129, pps * page - 1]
+    for lo, _ in _split_pages(pps, splits)[1:]:
+        edges += [lo * page - 1, lo * page, lo * page + 1]
+    lengths = np.asarray(edges, np.int32)
+    b = len(lengths)
+    rng = np.random.RandomState(7)
+    # bands starting inside a 16-key box (or no limit: 0)
+    windows = np.asarray([0, 3, 9, 20, 0, 37, 50, 0, 100] * 4,
+                         np.int32)[:b]
+    k = rng.randn(total, 2, page, kv_heads * d).astype(np.float32)
+    q = rng.randn(b, heads, d).astype(ml_dtypes.bfloat16)
+    table = np.stack([rng.choice(total, pps, replace=False)
+                      for _ in range(b)]).astype(np.int32)
+    new = [rng.randn(b, kv_heads * d).astype(ml_dtypes.bfloat16)
+           for _ in range(2)]
+    kj = k.astype(getattr(ml_dtypes, pool))
+    want = jax_paged(
+        jnp.asarray(q), jnp.asarray(kj), None, jnp.asarray(table),
+        jnp.asarray(lengths), num_kv_heads=kv_heads, window=window,
+        windows=jnp.asarray(windows),
+        append_kv=tuple(jnp.asarray(a) for a in new) if append else None,
+        interpret=True)
+    kt = torch.from_numpy(kj.astype(np.float32)).to(getattr(torch, pool))
+    got = paged_attention(
+        torch.from_numpy(q.astype(np.float32)).bfloat16(), kt, None,
+        torch.from_numpy(table), torch.from_numpy(lengths),
+        num_kv_heads=kv_heads, window=window,
+        windows=torch.from_numpy(windows),
+        append_kv=tuple(torch.from_numpy(a.astype(np.float32)).bfloat16()
+                        for a in new) if append else None)
+    assert got.dtype == torch.bfloat16 and got.shape == (b, heads, d)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want).astype(np.float32),
+                               atol=1e-2, rtol=1e-2)
+    if not append:  # no valid key -> exactly 0
+        assert not got[torch.from_numpy(lengths) == 0].any()
+
+
 def test_paged_attention_fp8_pool_matches_jax_reference():
     """fp8 (e4m3) pools on the CPU path: dequantized after the gather, as
     the JAX reference does. Both sides see the same fp8 values; atol 1e-4
@@ -350,12 +415,23 @@ def test_kernel_input_checks_raise():
         _check_cuda(q, [k, v], table, lengths, None,
                     (torch.from_numpy(new[0]).t().contiguous().t(),
                      torch.from_numpy(new[1])))
+    # the kernels' maps address the pool's rows by int32 coordinates: a
+    # pool of 2^32 rows (a shape alone, on the meta device) is refused
+    with pytest.raises(ValueError, match="rows"):
+        _check_cuda(q, [torch.empty((2 ** 24, 2, 128, 8), device="meta")],
+                    table, lengths, None, None)
+    # q is read 4 or 8 bytes at a time: a view 4 bytes into a buffer is
+    # refused
+    shifted = torch.zeros(q.numel() + 1)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        _check_cuda(shifted, [k, v], table, lengths, None, None)
 
 
 # the CUDA kernel's shapes beside the serving slice's (chip_smoke.py's
 # K6_WIDE: name, heads, kv heads, head dim), each planned at phase 2's
 # B=32 and at B=1 on an H100's 132 SMs
 K6_WIDE_SHAPES = [
+    ("serving d64", 12, 4, 64), ("d128 group 8", 16, 2, 128),
     ("d80", 12, 4, 80), ("d96", 12, 4, 96), ("openllama d100", 32, 32, 100),
     ("d128 32/32", 32, 32, 128), ("gemma d256", 8, 1, 256),
     ("405B 128/8", 128, 8, 128), ("MQA 32/1", 32, 1, 128),
@@ -367,7 +443,8 @@ K6_WIDE_SHAPES = [
 @pytest.mark.parametrize("shape", K6_WIDE_SHAPES,
                          ids=[s[0] for s in K6_WIDE_SHAPES])
 def test_paged_split_plan_covers_pages_once(shape):
-    """The key split of paged_attention_any: at pages_per_seq 1-16, every
+    """The key split of both kernels (paged_attention_fixed at the first
+    two shapes, paged_attention_any at the rest): at pages_per_seq 1-16, every
     page lies in exactly one rank's range and every rank has one, a
     cluster holds at most _MAX_SPLITS blocks, the ring 1 to 3 stages, and
     the plan is a function of shapes alone (it takes no lengths, so a
@@ -394,12 +471,14 @@ def test_paged_split_plan_covers_pages_once(shape):
 
 
 def test_paged_plan_and_route_follow_the_kernel():
-    """The splits the general kernel gets at the path's shapes:
-    OpenLLaMA-3B's 32 kv heads at B=32 fill the card unsplit; MQA 32/1 and
-    Gemma-2B's 8/1 split phase 2's 4 pages into 4 ranks of one page. Every
-    call passes a plan, also one that the C entry point routes to the fixed
-    kernel (the serving slice's 12 / 4 heads of 64), and an empty batch."""
+    """The splits each kernel gets at the path's shapes: the fixed kernel
+    at the serving slice's 12 / 4 heads of 64 splits its 4 pages into 2
+    ranks of 2 (128 blocks unsplit, on 132 SMs); OpenLLaMA-3B's 32 kv heads
+    at B=32 fill the card unsplit; MQA 32/1 and Gemma-2B's 8/1 split phase
+    2's 4 pages into 4 ranks of one page. Every call passes a plan, also
+    an empty batch."""
     assert _paged_plan(32, 4, 3, 64, 4, 132) == (2, 1)
+    assert _split_pages(4, 2) == [(0, 2), (2, 4)]
     assert _paged_plan(0, 4, 3, 64, 4, 132) == (4, 1)
     assert _paged_plan(32, 32, 1, 100, 16, 132) == (1, 1)
     assert _paged_plan(32, 1, 32, 128, 4, 132) == (4, 1)
