@@ -72,13 +72,19 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
    head_dim 16) take 3 training steps each on the kernels. Then the head
    dims the backward's instances of 32, 64 and 128 do not hold: 12, 100,
    160 and 256 in bf16 (causal with kv lengths, and with segment ids: the
-   ragged forward at 12 and 100, fwd_wg's D=192 and 256 instances, the
-   mma.sync backward) and 75; the ragged forward's edges
+   ragged forward and backward at 12 and 100, fwd_wg's D=192 and 256
+   instances) and 75; the ragged forward's edges
    (check_ragged_forward: head dims 12, 75, 100, 102, 130 and 250 in bf16
    and f16 over kv lengths, [B, Sq] lengths with empty rows, Sq != Skv, a
    window, ids, a mask, rows 63-129 and phase 11's shape, o and lse per
-   64-row block with a planted fault, two calls bit for bit); then the
-   edges of dq_any and dkv_any (the
+   64-row block with a planted fault, two calls bit for bit); the ragged
+   backward's edges (check_ragged_backward: dq_tc/dkv_tc and dq_wide/
+   dkv_wide with the cp.async producer at head dims 12, 75, 100, 102, 130
+   and 250 in bf16 and f16 over kv lengths [2, 65, 2047, 0], [B, Sq]
+   lengths with empty rows, Sq != Skv, ids and a mask, then in bf16 a
+   window, S = 63-129 and phase 13's shape, o, dq, dk and dv per 64-row
+   block with a planted fault, two backward calls bit for bit with and
+   without ids); then the edges of dq_any and dkv_any (the
    backward for f32, f64 and 16-bit above 256: 64-row blocks, 64-, 32- or
    16-row tiles, 128-column parts above 128): float64 at head dims 8, 64,
    100, 128, 136 and 200 (limit 1e-10), f32 at 64, 100 and 320 and bf16 at
@@ -96,9 +102,9 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
    dims 136, 160, 192, 200 and 256 in bf16 and f16 with kv lengths [2, 65,
    2047, 0], [B, Sq] lengths with empty rows, Sq != Skv, ids and a mask,
    S = 63-129 and a window at 160 and 256, phase 12's shape, two backward
-   calls bit for bit with and without ids, and head dims 130 and 250 on
-   dq_mma and dkv_mma); the tensor-core head dims (and 192 besides), f64
-   and f32 at 64 and 100 and bf16 at 320 timed at B=2, H=8, S=2048, and
+   calls bit for bit with and without ids); the 16-bit head dims 12, 75,
+   100, 130, 160, 192, 250, 256 and 320, f64 and f32 at 64 and 100 timed
+   at B=2, H=8, S=2048, and
    f32 at the f32 flagship's B=8, H=12, S=384, D=64, beside their bound,
    their plain version and SDPA at the same head dim and dtype (each
    profiler reading held against CUDA events of the same calls); GPT
@@ -193,6 +199,15 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
    dkv_wide 18 launches each a step), the loss falling over 10 steps on
    one batch, a profiled step (busy share, attention shares, no library
    attention kernel) and the peak memory.
+13. Training OpenLLaMA-3B: phase 11's model (26 x 3200, 32 heads of
+   head_dim 100, SwiGLU 8640, vocab 32000, untied; 3.43 B parameters,
+   random weights from a seed), bf16 with f32 AdamW masters (3e-4, weight
+   decay 0.01), 2 rows of 2048 seeded tokens a step, plain causal,
+   through ModernLM.loss: the first loss against plain attention, 2
+   warm-up and 5 timed steps (the ragged forward and backward instances at
+   D=128, 26 launches each a step), the loss falling over 10 steps on one
+   batch, a profiled step (busy share, attention shares, no library
+   attention kernel) and the peak memory.
 
 The last lines are one JSON line on the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -265,6 +280,18 @@ PACK_CTX, PACK_BATCH, PACK_DOC_LENS = 2048, 4, (64, 1024)
 # untied head, RoPE base 10000; bf16, random weights from seed 0; nothing
 # cut. Served with phase 3's pages, pool and requests.
 OL_CTX, OL_BLOCKS, OL_DIM, OL_HEADS, OL_MLP = 2048, 26, 3200, 32, 8640
+OL_HEAD_DIM = OL_DIM // OL_HEADS
+
+# phase 13: the same model (3.43 B parameters, nothing cut) trained in bf16
+# with f32 AdamW masters (3e-4, weight decay 0.01) at context 2048, 2 rows
+# of seeded tokens a step, plain causal, through ModernLM.loss: the 16-bit
+# attention at head_dim 100, whose backward is the ragged one
+# (dq_tc/dkv_tc<128, bf16, false, true>)
+OPENLLAMA_TRAIN_ROWS = 2
+# the attention kernels of its step, as the profiler names their instances
+OPENLLAMA_KERNELS = ("fwd_wg<128, __nv_bfloat16, false, true>",
+                     "dq_tc<128, __nv_bfloat16, false, true>",
+                     "dkv_tc<128, __nv_bfloat16, false, true>")
 
 # phase 12: a ModernLM at Gemma-2B's widths (google/gemma-2b config.json:
 # hidden_size 2048, 8 attention heads over 1 kv head of head_dim 256, 18
@@ -1713,10 +1740,10 @@ def flash_instance(d, dtype, part):
     """The kernel family that runs a head dim and dtype (the entry points'
     routing in csrc/flash_attention.cu): part is "fwd", "dq" or "dkv"."""
     if dtype in (torch.bfloat16, torch.float16) and d <= 256:
-        if part == "fwd":
-            return "fwd_ragged" if d % 8 else "fwd_wg"
         if d % 8:
-            return f"{part}_mma"
+            return f"{part}_ragged"
+        if part == "fwd":
+            return "fwd_wg"
         return f"{part}_wide" if d > 128 else f"{part}_tc"
     return f"{part}_any"
 
@@ -1756,6 +1783,7 @@ def check_flash_head_dims(att, check):
     # an odd head dim (2-byte copies, stores of single elements)
     run("head_dim 75", 75, bf16, 2, 4, s, s, True, lengths=[1000, 555])
     errs["fwd_ragged"] = max(errs["fwd_ragged"], check_ragged_forward(att))
+    check_ragged_backward(att, run)
     check_wide_backward(att, run)
     check_any_backward(att, run, ids)
     check_any_forward(att)
@@ -1763,7 +1791,7 @@ def check_flash_head_dims(att, check):
     # flagship's own shape
     times = {(d, dt, 2, 8, 2048): time_flash_case(att, 2, 8, 2048, d, dt)
              for d, dt in ((12, bf16), (75, bf16), (100, bf16), (130, bf16),
-                           (160, bf16), (192, bf16),
+                           (250, bf16), (160, bf16), (192, bf16),
                            (256, bf16), (320, bf16), (64, f64), (100, f64),
                            (64, f32), (100, f32))}
     times[64, f32, 8, LM_HEADS, 384] = time_flash_case(att, 8, LM_HEADS, 384,
@@ -1788,8 +1816,8 @@ def check_wide_backward(att, run):
     last key block of one key, seen by one row, would compare dk's
     rounding noise), and a window of 100; phase 12's own shape (B=2, H=8,
     S=2048, D=256); two backward calls bit for bit at 192 and 256 with and
-    without ids; and head dims 130 and 250, not multiples of 8, which
-    dq_mma and dkv_mma keep."""
+    without ids. (Head dims 130 and 250, not multiples of 8, are
+    check_ragged_backward's.)"""
     bf16, f16 = torch.bfloat16, torch.float16
     rng = np.random.RandomState(7)
     gen = torch.Generator(device="cuda").manual_seed(7)
@@ -1823,9 +1851,57 @@ def check_wide_backward(att, run):
     for d in (192, 256):
         check_deterministic(att, 2, 4, 1000, d)
         check_deterministic(att, 2, 4, 1000, d, segment_ids=ids)
-    for d in (130, 250):
-        run(f"head_dim {d}", d, bf16, 2, 4, 1000, 1000, True,
-            lengths=[1000, 555])
+
+
+def check_ragged_backward(att, run):
+    """The edges of the ragged backward (dq_tc/dkv_tc<D, T, M, true> up to
+    head dim 128, dq_wide/dkv_wide<D, T, M, true> above: the wgmma
+    kernels fed by the cp.async producer) at RAGGED_HEAD_DIMS in bf16 and
+    f16, each by ``run(name, d, dtype, b, h, sq, skv, causal, **kw)``
+    (check_flash's checks: o, dq, dk and dv per 64-row block at
+    FLASH_TOL, each case with its planted fault above the limit, rows
+    with no key exactly 0): causal with kv lengths [2, 65, 2047] and a 0;
+    [B, Sq] lengths with rows of length 0 inside 64-row blocks that keep
+    visible rows; Sq != Skv; segment ids; a [B, 1, Sq, Skv] mask. Then in
+    bf16: a window of 100 at every head dim, and at 12, 75, 100 and 250
+    S = 63, 65, 127 and 129, non-causal and causal over the 64-key multiple
+    above S (the 128-row dq blocks and 128-key dkv blocks cut); phase 13's
+    own shape (B=2, H=32, S=2048, D=100); and two backward calls bit for
+    bit at 12, 75, 100 and 250, with and without ids."""
+    bf16, f16 = torch.bfloat16, torch.float16
+    rng = np.random.RandomState(11)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    s = 700
+    lens = rng.randint(2, s + 1, (2, s))
+    lens[:, 10:20] = 0  # inside the first 64-row block
+    lens[1, 300:360] = 0  # across two blocks
+    ids = np.sort(rng.randint(0, 4, (2, 1000)), 1)
+    sq, skv = 300, 700
+    mask = torch.rand(2, 1, sq, skv, generator=gen, device="cuda") < 0.8
+    mask[..., torch.arange(sq), torch.arange(sq) + skv - sq] = True
+    for d in RAGGED_HEAD_DIMS:
+        for dtype in (bf16, f16):
+            name = f"ragged {str(dtype)[6:]} head {d}"
+            run(f"{name} lengths", d, dtype, 4, 2, 2048, 2048, True,
+                lengths=[2, 65, 2047, 0])
+            run(f"{name} lengths [B,Sq]", d, dtype, 2, 2, s, s, True,
+                lengths=lens)
+            run(f"{name} Sq!=Skv", d, dtype, 2, 2, sq, skv, True)
+            run(f"{name} ids", d, dtype, 2, 2, s, s, True,
+                segment_ids=ids[:, :s])
+            run(f"{name} mask", d, dtype, 2, 2, sq, skv, True, mask=mask)
+        run(f"ragged head {d} window 100", d, bf16, 2, 4, 1000, 1000, True,
+            window=100)
+    for d in (12, 75, 100, 250):
+        for n in (63, 65, 127, 129):
+            run(f"ragged head {d} S={n}", d, bf16, 2, 4, n, n, False)
+            run(f"ragged head {d} Sq={n} causal", d, bf16, 2, 4, n,
+                -(-n // 64) * 64, True)
+    run("ragged path shape", OL_HEAD_DIM, bf16, OPENLLAMA_TRAIN_ROWS,
+        OL_HEADS, OL_CTX, OL_CTX, True)
+    for d in (12, 75, 100, 250):
+        check_deterministic(att, 2, 4, 1000, d)
+        check_deterministic(att, 2, 4, 1000, d, segment_ids=ids)
 
 
 def check_any_backward(att, run, ids):
@@ -3360,24 +3436,26 @@ def phase_packed(torch_nn, optim, train, att):
     return dict(ms=ms, tok_s=tok_s, peak_gib=peak, launches=launches)
 
 
-def phase_gemma(torch_nn, optim, train, att):
-    """A ModernLM at Gemma-2B's widths (GEMMA) trained in bf16 with f32
-    AdamW masters at context GEMMA_CTX, GEMMA_ROWS rows of seeded tokens a
-    step through ModernLM.loss (the fused cross-entropy) and plain causal
-    attention: the first loss against the same weights with plain
-    attention, 2 warm-up and 5 timed steps (CUDA events; the forward and
-    the backward launched once a block a step), finite losses, the loss
+def train_at_width(label, config, rows, ours, torch_nn, optim, train, att):
+    """A ModernLM of ``config`` (ModernLM.init's keywords: context_length,
+    widths, heads) trained in bf16 with f32 AdamW masters (3e-4, weight
+    decay 0.01), ``rows`` rows of seeded tokens a step through
+    ModernLM.loss (the fused cross-entropy) and plain causal attention:
+    the first loss against the same weights with plain attention (within
+    2e-2), 2 warm-up and 5 timed steps (CUDA events; the forward and the
+    backward launched once a block a step), finite losses, the loss
     falling over 10 steps on one batch, a profiled step (device busy
-    share, the attention kernels' shares, no library attention kernel) and
-    the peak memory. Returns the timed steps' launches and figures."""
+    share, the attention kernels ``ours``' shares, no library attention
+    kernel) and the peak memory. Prints under ``label``; returns the timed
+    steps' launches and figures."""
     from lamp_tpu_torch.nn import modern
 
     dev = torch.device("cuda")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=dev).manual_seed(0)
-    model = torch_nn.ModernLM.init(context_length=GEMMA_CTX, generator=gen,
-                                   dtype=torch.bfloat16, device=dev, **GEMMA)
+    model = torch_nn.ModernLM.init(generator=gen, dtype=torch.bfloat16,
+                                   device=dev, **config)
     n_params = sum(p.numel() for p in model.parameters())
     opt = optim.AdamW(model.named_parameters(), 3e-4, weight_decay=0.01)
     state = train.TrainState.init(model, opt)
@@ -3386,15 +3464,16 @@ def phase_gemma(torch_nn, optim, train, att):
         return m.loss(batch[0], batch[1]), batch[1].numel()
 
     step = train.make_train_step(opt, loss_fn)
+    ctx, vocab = config["context_length"], config["vocab_size"]
 
     def batch_of(seed):
         rng = np.random.RandomState(seed)
-        tokens = torch.as_tensor(rng.randint(
-            0, GEMMA["vocab_size"], (GEMMA_ROWS, GEMMA_CTX + 1)), device=dev)
+        tokens = torch.as_tensor(rng.randint(0, vocab, (rows, ctx + 1)),
+                                 device=dev)
         return tokens[:, :-1], tokens[:, 1:]
 
     batches = [batch_of(seed) for seed in range(7)]
-    blocks = GEMMA["num_blocks"]
+    blocks = config["num_blocks"]
     # the first loss against the same weights with plain attention (the
     # whole score matrix, mha_reference): the kernels' path is right
     with torch.no_grad():
@@ -3406,11 +3485,11 @@ def phase_gemma(torch_nn, optim, train, att):
             want = float(model.loss(*batches[0]))
         finally:
             modern.flash_attention = kernel
-    print(f"  gemma widths: first loss {got:.5f}, with plain attention "
+    print(f"  {label}: first loss {got:.5f}, with plain attention "
           f"{want:.5f} (|diff| {abs(got - want):.2e}, limit 2e-2: bf16 "
           f"activations rounded at other places)", flush=True)
     if not abs(got - want) <= 2e-2:
-        raise AssertionError(f"gemma widths: loss {got} against plain {want}")
+        raise AssertionError(f"{label}: loss {got} against plain {want}")
     losses = [step(state, b)[1][0] for b in batches[:2]]
     # the main path's run: the launch counts cover exactly these steps
     reset_launch_counts()
@@ -3426,31 +3505,69 @@ def phase_gemma(torch_nn, optim, train, att):
     launches = launch_counts()
     got = (launches["flash_attention"], launches["flash_attention_backward"])
     if got != (blocks * steps, blocks * steps):
-        raise AssertionError(f"gemma widths: launches {got}, want "
+        raise AssertionError(f"{label}: launches {got}, want "
                              f"{blocks * steps} each")
     if not bool(torch.isfinite(torch.stack(losses)).all()):
-        raise AssertionError(f"gemma widths: a loss is not finite: {losses}")
-    tokens = GEMMA_ROWS * GEMMA_CTX
-    tok_s = tokens / (ms * 1e-3)
+        raise AssertionError(f"{label}: a loss is not finite: {losses}")
+    tok_s = rows * ctx / (ms * 1e-3)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"  gemma widths: {blocks} x {GEMMA['embed_dim']}, "
-          f"{GEMMA['num_heads']}/{GEMMA['num_kv_heads']} heads of 256, "
-          f"SwiGLU {GEMMA['mlp_hidden']}, vocab {GEMMA['vocab_size']}, "
-          f"{n_params} params, ctx {GEMMA_CTX}, {GEMMA_ROWS} rows: "
-          f"{ms:.2f} ms/step, {tok_s:.1f} train tok/s, "
+    heads, kv_heads = config["num_heads"], config["num_kv_heads"]
+    print(f"  {label}: {blocks} x {config['embed_dim']}, {heads}/{kv_heads} "
+          f"heads of {config['embed_dim'] // heads}, SwiGLU "
+          f"{config['mlp_hidden']}, vocab {vocab}, {n_params} params, ctx "
+          f"{ctx}, {rows} rows: {ms:.2f} ms/step, {tok_s:.1f} train tok/s, "
           f"{100 * tok_s * 6 * n_params / PEAK_FLOPS:.1f}% of 989 TFLOP/s "
           f"by 6 N; launches fwd {got[0]} bwd {got[1]} ({blocks} x "
           f"{steps}); peak memory {peak:.2f} GiB", flush=True)
     fixed = [step(state, batches[0])[1][0] for _ in range(10)]
     first, last = float(fixed[0]), float(fixed[-1])
-    print(f"  gemma widths: 10 steps on one batch: loss {first:.4f} -> "
+    print(f"  {label}: 10 steps on one batch: loss {first:.4f} -> "
           f"{last:.4f}", flush=True)
     if not last < first:
-        raise AssertionError("gemma widths: loss did not fall on one batch")
-    profile_train_step(step, state, batches[1], GEMMA_KERNELS)
+        raise AssertionError(f"{label}: loss did not fall on one batch")
+    profile_train_step(step, state, batches[1], ours)
     del model, opt, state
     torch.cuda.empty_cache()
     return dict(ms=ms, tok_s=tok_s, peak_gib=peak, launches=launches)
+
+
+def phase_gemma(torch_nn, optim, train, att):
+    """Phase 12: a ModernLM at Gemma-2B's widths (GEMMA) trained at
+    context GEMMA_CTX, GEMMA_ROWS rows a step (train_at_width): fwd_wg's
+    D=256 instance, dq_wide and dkv_wide."""
+    return train_at_width("gemma widths",
+                          dict(GEMMA, context_length=GEMMA_CTX), GEMMA_ROWS,
+                          GEMMA_KERNELS, torch_nn, optim, train, att)
+
+
+def phase_openllama_train(torch_nn, optim, train, att,
+                          ours=OPENLLAMA_KERNELS):
+    """Phase 13: OpenLLaMA-3B at full width (phase 11's model: 26 x 3200,
+    32 heads of 100, SwiGLU 8640, vocab 32000, untied) trained at context
+    OL_CTX, OPENLLAMA_TRAIN_ROWS rows a step (train_at_width), after the
+    check that head_dim 100 routes to the ragged instances; ``ours``: the
+    kernels its profiled step must have run."""
+    for part in ("fwd", "dq", "dkv"):
+        got = flash_instance(OL_HEAD_DIM, torch.bfloat16, part)
+        if got != f"{part}_ragged":
+            raise AssertionError(f"openllama train: head_dim {OL_HEAD_DIM} "
+                                 f"routes {part} to {got}")
+    config = dict(vocab_size=VOCAB, context_length=OL_CTX,
+                  num_blocks=OL_BLOCKS, embed_dim=OL_DIM, num_heads=OL_HEADS,
+                  num_kv_heads=OL_HEADS, mlp_hidden=OL_MLP, tied=False,
+                  rope_base=10000.0, norm_eps=1e-6)
+    return train_at_width("openllama train", config, OPENLLAMA_TRAIN_ROWS,
+                          ours, torch_nn, optim, train, att)
+
+
+def kernel_line(source, kernel):
+    """``csrc/<source>:<line>`` of the line that opens ``kernel``'s
+    definition (its name followed by its parameter list)."""
+    path = Path(__file__).resolve().parent / "lamp_tpu_torch" / "csrc" / source
+    for i, line in enumerate(path.read_text().splitlines(), 1):
+        if line.startswith(f"{kernel}("):
+            return f"lamp_tpu_torch/csrc/{source}:{i}"
+    raise AssertionError(f"no definition of {kernel} in {source}")
 
 
 def main() -> int:
@@ -3519,6 +3636,9 @@ def main() -> int:
     print("phase 12: a ModernLM at Gemma-2B's widths (head_dim 256) "
           "trained in bf16 at context 2048", flush=True)
     gemma = phase_gemma(torch_nn, optim, train, att)
+    print("phase 13: OpenLLaMA-3B (head_dim 100) trained in bf16 at context "
+          "2048", flush=True)
+    ol_train = phase_openllama_train(torch_nn, optim, train, att)
     # the tensor-core instances' launches: phase 5, phase 10 and the bert-
     # and translation-width models; the head_dim 100 and 256 models run
     # the new instances (the ragged forward at 100, the scalar kernels)
@@ -3529,21 +3649,23 @@ def main() -> int:
     bwd_launches += sum(g[1] for g in tc_models) + \
         packed["launches"]["flash_attention_backward"]
     # the new instances' launches (flash_instance): the ragged forward runs
-    # the head_dim 100 GPT and phase 11's dense check, the D=256 forward
-    # the head_dim 256 GPT and phase 12, the mma.sync backward the head_dim
-    # 100 GPT, the wide backward phase 12 (the head_dim 256 GPT's are in
-    # the note), and the scalar kernels phase 5's f32 flagship (the small
-    # f32 GPT's are in the note)
+    # the head_dim 100 GPT, phase 11's dense check and phase 13, the D=256
+    # forward the head_dim 256 GPT and phase 12, the ragged backward the
+    # head_dim 100 GPT and phase 13, the wide backward phase 12 (the
+    # head_dim 256 GPT's are in the note), and the scalar kernels phase 5's
+    # f32 flagship (the small f32 GPT's are in the note)
     d100, d256, f32 = (small_by_model[m] for m in (
         "head_dim 100", "head_dim 256", "f32, head_dim 64"))
     f32_fwd, f32_bwd = train_launches[torch.float32]
     g_fwd, g_bwd = (gemma["launches"][k] for k in (
         "flash_attention", "flash_attention_backward"))
-    wide_launches = {"fwd_ragged": openllama["k1"] + d100[0],
-                     "fwd_wg": d256[0] + g_fwd, "dq_mma": d100[1],
-                     "dkv_mma": d100[1], "dq_wide": g_bwd, "dkv_wide": g_bwd,
-                     "fwd_any": f32_fwd, "dq_any": f32_bwd,
-                     "dkv_any": f32_bwd}
+    o_fwd, o_bwd = (ol_train["launches"][k] for k in (
+        "flash_attention", "flash_attention_backward"))
+    wide_launches = {"fwd_ragged": openllama["k1"] + d100[0] + o_fwd,
+                     "fwd_wg": d256[0] + g_fwd, "dq_ragged": d100[1] + o_bwd,
+                     "dkv_ragged": d100[1] + o_bwd, "dq_wide": g_bwd,
+                     "dkv_wide": g_bwd, "fwd_any": f32_fwd,
+                     "dq_any": f32_bwd, "dkv_any": f32_bwd}
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3627,17 +3749,26 @@ def main() -> int:
             ("fwd_ragged", "flash_forward.cu", 87, (100, bf16, *wide),
              "fwd_wg<D, T, M, true> (16-bit head dims not a multiple of 8: "
              "the wgmma consumers fed by a cp.async producer; per_shape "
-             "holds D=12, 75 and 130): launches are phase 11's dense check "
-             "and the head_dim 100 GPT"),
+             "holds D=12, 75, 130 and 250): launches are phase 11's dense "
+             "check, the head_dim 100 GPT and phase 13's 5 timed steps"),
             ("fwd_wg", "flash_forward.cu", 87, (256, bf16, *wide),
              "fwd_wg<D, T, M> at head dims 129-256 (D=192 and 256; "
              "flash_attention_fwd is its D=64 instance): launches are the "
              "head_dim 256 GPT and phase 12's 5 timed steps"),
-            ("dq_mma", "flash_attention.cu", 297, (100, bf16, *wide),
-             "dq_mma (16-bit head dims up to 256 that are not a multiple of "
-             "8): launches are the head_dim 100 GPT's backward calls"),
-            ("dkv_mma", "flash_attention.cu", 365, (100, bf16, *wide),
-             "dkv_mma: as dq_mma"),
+            ("dq_ragged", "flash_attention.cu", 297, (100, bf16, *wide),
+             f"dq_tc<D, T, M, true> ({kernel_line('flash_attention.cu', 'dq_tc')}"
+             f"; 16-bit head dims up to 128 that are not a multiple of 8) "
+             f"and dq_wide<D, T, M, true> "
+             f"({kernel_line('flash_backward_wide.cu', 'dq_wide')}; 129-255): "
+             "the wgmma consumers fed by a cp.async producer; launches are "
+             "phase 13's 5 timed steps and the head_dim 100 GPT's backward "
+             "calls; per_shape holds D=12, 75, 130 and 250"),
+            ("dkv_ragged", "flash_attention.cu", 365, (100, bf16, *wide),
+             f"dkv_tc<D, T, M, true> "
+             f"({kernel_line('flash_attention.cu', 'dkv_tc')}) and "
+             f"dkv_wide<D, T, M, true> "
+             f"({kernel_line('flash_backward_wide.cu', 'dkv_wide')}): as "
+             "dq_ragged"),
             ("dq_wide", "flash_backward_wide.cu", 297, (256, bf16, *wide),
              "dq_wide<D, T, M> (wgmma; 16-bit head dims 129-256 that are "
              "multiples of 8, D=192 and 256): launches are phase 12's 5 "

@@ -22,11 +22,12 @@
 //    of 16 bytes; a d that is not a multiple of 8 has rows only 8-, 4- or
 //    2-byte aligned, and its producer copies them by 8- or 4-byte
 //    cp.async, or 2-byte loads at an odd d, into the same layout.
-//    The wgmma backward takes the multiples of 8: dq_tc and dkv_tc here up
-//    to 128 (128 rows resident), dq_wide and dkv_wide above
-//    (flash_backward_wide.cu; D = 192, 256); the d that are not multiples
-//    of 8 take the mma.sync backward (dq_mma, dkv_mma), whose tiles come
-//    by 8- or 4-byte cp.async or 2-byte loads (load_tile_ragged).
+//    The wgmma backward takes every d up to 256 too: dq_tc and dkv_tc here
+//    up to 128 (128 rows resident; D = 32, 64, 128), dq_wide and dkv_wide
+//    above (flash_backward_wide.cu; D = 192, 256); each by TMA at d % 8
+//    == 0 and, at the other d (R, the ragged instances), by a producer
+//    whose 128 threads copy the same tiles into the same layout as the
+//    forward's (flash_common.cuh: copy_tile, copy_tile_odd).
 //  - everything else (float32 and float64 at every d; the 16-bit types at
 //    d > 256) takes fwd_any (flash_forward_any.cu) and dq_any, dkv_any
 //    (flash_backward_any.cu): float64 on the FP64 tensor cores, the rest on
@@ -78,7 +79,22 @@
 // maps [B*H, S, d], 128-byte swizzled, 64-byte at D = 32, zero-filled past
 // a ragged end) into a ring of 4 stages, each completing on a `full`
 // mbarrier and refilled after its `empty` mbarrier has the 256 consumer
-// arrivals. The producer loads a tile unless the class map hides it from
+// arrivals. R (d % 8 != 0: rows of 2d bytes, which TMA's 16-byte global
+// strides cannot describe): all the producer's 128 threads copy each tile
+// into the same 128-byte swizzle (64-byte at D = 32), by 8-byte cp.async
+// pieces at d % 4 == 0 (a 200-byte row of d = 100: 25 pieces), 4-byte at
+// other even d, and at an odd d by 4-byte loads of the tile's contiguous
+// span and 2-byte stores; rows past S are zero-filled, and the columns d
+// to D of every buffer are zeroed once before the loop. Each thread's
+// copies arrive on the stage's `full` barrier (128 arrivals) by
+// cp.async.mbarrier.arrive.noinc (a plain arrival after 2-byte stores);
+// the kv ids (dq, under M) travel with them; dkv's row statistics are
+// written by the first warp's lanes, which arrive once more after them
+// (160 arrivals). A consumer fences the async proxy (fence.proxy.async)
+// after each wait, before wgmma reads what the generic proxy wrote; the
+// consumers are otherwise the TMA instances' code, di's prologue reads o
+// and do by 8-, 4- or 2-byte loads (the rows' alignment), and an odd d's
+// outputs are stored by 2-byte stores. The producer loads a tile unless the class map hides it from
 // both consumers; producer and consumers compute that sequence from the
 // same map bytes, so they agree on every stage. A consumer whose own half
 // the map or the bounds hide retires the stage unused (after retiring the
@@ -117,17 +133,17 @@
 //
 // Resources (ptxas -v for sm_90a, on the build of this source): the
 // backward kernels, 384 threads, report 168 registers (the launch bound;
-// the consumers run at 232 after setmaxnreg); dynamic shared memory (with
-// 1 KB for alignment) 161 KB (dq) and 97 KB (dkv) at D=64, 193 KB and 129
-// KB at D=128, 81 KB and 49 KB at D=32, beside a few KB of static (the
+// the consumers run at 232 and the producer at 40 after setmaxnreg), no
+// spill, the ragged instances (R) alike; dynamic shared memory (with 1 KB
+// for alignment) 161 KB (dq) and 97 KB (dkv) at D=64, 193 KB and 129 KB
+// at D=128, 81 KB and 49 KB at D=32, beside a few KB of static (the
 // masked instances' class bytes and kv ids, dkv's row statistics).
-// fwd_wg: flash_forward.cu's note. dq_mma and dkv_mma (128 threads):
-// 153-255 registers, up to 20 bytes spilled at D=128 and 224 at D=256.
-// dq_wide: 256 threads at D=256, 241 registers (the masked instance 255,
-// 16 bytes spilled), 384 at D=192, 168 (232 after setmaxnreg), no spill;
-// dkv_wide: 384 threads, 168 (232), no spill; dynamic shared memory 193 KB
-// (dq) and 209 KB (dkv) at both instances, beside 48 bytes to 4.9 KB of
-// static. chip_smoke.py prints the whole table first.
+// fwd_wg: flash_forward.cu's note. dq_wide: 256 threads at D=256, 241
+// registers (243 ragged; the masked instance 255, 16 bytes spilled, 8
+// ragged), 384 at D=192, 168 (232 after setmaxnreg), no spill; dkv_wide:
+// 384 threads, 168 (232), no spill; dynamic shared memory 193 KB (dq) and
+// 209 KB (dkv) at both instances, beside 48 bytes to 4.9 KB of static.
+// chip_smoke.py prints the whole table first.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -148,9 +164,6 @@ typedef __nv_bfloat16 bf16;
 typedef __half f16;
 using hopper::pack2;
 using hopper::unpack2;
-
-constexpr int kThreads = 128;  // dq_mma, dkv_mma: 4 warps of 16 rows
-constexpr int kPad = 8;        // shared-memory row padding, 16-bit elements
 
 // The class map: one thread per (64-row block, 64-key block) of one slab
 // (b, h) of the map. Segment ids classify by their ranges, as the TPU
@@ -201,488 +214,12 @@ __global__ void tile_classes(Problem p, int map_heads) {
 }
 
 // ---------------------------------------------------------------------------
-// 16-bit tensor-core building blocks (mma.sync m16n8k16, f32 accumulators).
-// In a warp, lane = 4 * g + t. An A fragment (16 x 16) holds rows g and g + 8,
-// columns 2t, 2t + 1, 2t + 8, 2t + 9; a B fragment (16 x 8) holds k = 2t,
-// 2t + 1, 2t + 8, 2t + 9 of column g; a C fragment (16 x 8) holds rows g
-// (c[0], c[1]) and g + 8 (c[2], c[3]) at columns 2t and 2t + 1. Fragments
-// come from shared memory by ldmatrix, four 8 x 8 matrices at a time; tiles
-// come from device memory by cp.async, one tile ahead of the one in use.
-// ---------------------------------------------------------------------------
-
-template <typename T>
-__device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0,
-                                    uint32_t b1) {
-  if constexpr (std::is_same<T, f16>::value)
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  else
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// A fragment of rows row0.., columns k0.. of a row-major tile with row
-// stride S
-template <int S, typename T>
-__device__ __forceinline__ void load_a(uint32_t* a, const T* s, int row0,
-                                       int k0, int lane) {
-  ldsm_x4(a, s + (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * S + k0 +
-                 (lane >> 4) * 8);
-}
-
-// B fragments of the n-tiles n0 (b[0], b[1]) and n0 + 8 (b[2], b[3]) at
-// k0, for B[k][n] = s[n][k] (a tile stored [n][k])
-template <int S, typename T>
-__device__ __forceinline__ void load_b_nk(uint32_t* b, const T* s, int n0,
-                                          int k0, int lane) {
-  ldsm_x4(b, s + (n0 + (lane & 7) + (lane >> 4) * 8) * S + k0 +
-                 ((lane >> 3) & 1) * 8);
-}
-
-// the same for B[k][n] = s[k][n] (a tile stored [k][n])
-template <int S, typename T>
-__device__ __forceinline__ void load_b_kn(uint32_t* b, const T* s, int k0,
-                                          int n0, int lane) {
-  ldsm_x4_trans(b, s + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * S + n0 +
-                       (lane >> 4) * 8);
-}
-
-// C fragments of 2 * N adjacent 16 x 8 tiles -> A fragments of N 16 x 16
-// tiles (the score tile becomes the left operand of the next product).
-template <int N, typename T>
-__device__ __forceinline__ void c_to_a(uint32_t (*a)[4], float (*c)[4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    a[i][0] = pack2<T>(c[2 * i][0], c[2 * i][1]);
-    a[i][1] = pack2<T>(c[2 * i][2], c[2 * i][3]);
-    a[i][2] = pack2<T>(c[2 * i + 1][0], c[2 * i + 1][1]);
-    a[i][3] = pack2<T>(c[2 * i + 1][2], c[2 * i + 1][3]);
-  }
-}
-
-// rows [row0, row0 + ROWS) of a [n, d] matrix into a padded shared tile of
-// D columns, by cp.async; rows past n and columns past d are zero-filled
-template <int D, int ROWS, typename T>
-__device__ __forceinline__ void load_tile(T* s, const T* g, int row0, int n,
-                                          int d) {
-  constexpr int kChunks = D / 8;  // 16-byte copies per row
-  for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
-    const int r = i / kChunks, c = i % kChunks;
-    const bool in = row0 + r < n && c * 8 < d;
-    cp_async16(s + r * (D + kPad) + c * 8,
-               g + (in ? (long long)(row0 + r) * d + c * 8 : 0), in);
-  }
-}
-
-// load_tile for any head dim d: rows of 2d bytes lie 16-byte aligned (d %
-// 8 == 0: load_tile), only 8-byte aligned (d % 4 == 0), 4-byte aligned (d
-// even) or 2-byte aligned (d odd), so the copies are 16-, 8- and 4-byte
-// cp.async, or (d odd) plain 2-byte loads and stores. Never a padded copy
-// in device memory.
-template <int D, int ROWS, typename T>
-__device__ __forceinline__ void load_tile_ragged(T* s, const T* g, int row0,
-                                                 int n, int d) {
-  if (d % 8 == 0) {
-    load_tile<D, ROWS>(s, g, row0, n, d);
-  } else if (d % 4 == 0) {
-    constexpr int kChunks = D / 4;
-    for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
-      const int r = i / kChunks, c = i % kChunks;
-      const bool in = row0 + r < n && c * 4 < d;
-      cp_async_ca<8>(s + r * (D + kPad) + c * 4,
-                     g + (in ? (long long)(row0 + r) * d + c * 4 : 0), in);
-    }
-  } else if (d % 2 == 0) {
-    constexpr int kChunks = D / 2;
-    for (int i = threadIdx.x; i < ROWS * kChunks; i += kThreads) {
-      const int r = i / kChunks, c = i % kChunks;
-      const bool in = row0 + r < n && c * 2 < d;
-      cp_async_ca<4>(s + r * (D + kPad) + c * 2,
-                     g + (in ? (long long)(row0 + r) * d + c * 2 : 0), in);
-    }
-  } else {
-    // the stage written here is not read before the next __syncthreads
-    const unsigned short* gs = reinterpret_cast<const unsigned short*>(g);
-    unsigned short* ss = reinterpret_cast<unsigned short*>(s);
-    for (int i = threadIdx.x; i < ROWS * D; i += kThreads) {
-      const int r = i / D, c = i % D;
-      const bool in = row0 + r < n && c < d;
-      ss[r * (D + kPad) + c] = in ? gs[(long long)(row0 + r) * d + c] : 0;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// 16-bit backward on mma.sync, for the head dims the wgmma kernels do not
-// take: d not a multiple of 8 (rows of 2d bytes, which TMA cannot
-// describe), up to 256. The split design of the wgmma kernels (dq, which
-// writes di, then dkv; no atomics) on 4 warps of 16 rows (dq) or 16 keys
-// (dkv), with tiles copied by load_tile_ragged into padded shared tiles
-// one tile ahead and fragments read by ldmatrix. At D = 256
-// dq reads Q's and dO's fragments from shared memory at each use, and dkv
-// splits its 256 output columns over two blocks (blockIdx.z), each
-// recomputing S^T and dP^T, so that the f32 accumulators fit in
-// registers. Visibility: the bounds per element; under ids or a
-// mask (M) the class map's skipped tiles are not visited and keep()
-// decides in its partial ones.
-// ---------------------------------------------------------------------------
-
-// the keys of dq_mma's K/V tiles and the rows of dkv_mma's q tiles: 64,
-// 32 at D = 128 and 256
-__host__ __device__ constexpr int mma_bwd_tile(int d) { return d >= 128 ? 32 : 64; }
-// the output columns of a dkv_mma block (blockIdx.z picks them): dK and dV
-// of 256 columns would not fit in registers
-__host__ __device__ constexpr int mma_dkv_cols(int d) { return d > 128 ? 128 : d; }
-
-template <typename T>
-__device__ __forceinline__ float to_f(T x) {
-  return unpack2<T>(x, x).x;
-}
-
-// the output rows ra and rb of a [rows, d] matrix from C fragments of the
-// columns [c0, c0 + N), for any d: 2-byte stores, a pair's second guarded
-// at an odd d
-template <int N, typename T>
-__device__ __forceinline__ void store_rows(T* out, const float (*acc)[4],
-                                           int ra, int rb, int rows, int d,
-                                           int t, int c0 = 0) {
-  unsigned short* os = reinterpret_cast<unsigned short*>(out);
-#pragma unroll
-  for (int n = 0; n < N / 8; ++n) {
-    const int col = c0 + n * 8 + 2 * t;
-    if (col >= d) break;
-    const uint32_t wa = pack2<T>(acc[n][0], acc[n][1]);
-    const uint32_t wb = pack2<T>(acc[n][2], acc[n][3]);
-    if (ra < rows) {
-      os[(long long)ra * d + col] = wa & 0xffff;
-      if (col + 1 < d) os[(long long)ra * d + col + 1] = wa >> 16;
-    }
-    if (rb < rows) {
-      os[(long long)rb * d + col] = wb & 0xffff;
-      if (col + 1 < d) os[(long long)rb * d + col + 1] = wb >> 16;
-    }
-  }
-}
-
-template <int D, typename T, bool M>
-__global__ void __launch_bounds__(kThreads)
-dq_mma(const T* __restrict__ q, const T* __restrict__ k,
-       const T* __restrict__ v, const T* __restrict__ o,
-       const T* __restrict__ dout, const float* __restrict__ lse,
-       float* __restrict__ di, T* __restrict__ dq, Problem p) {
-  constexpr int BR = 64, BC = mma_bwd_tile(D), S = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* qs = reinterpret_cast<T*>(smem);
-  T* dos = qs + BR * S;
-  T* kv = dos + BR * S;  // two stages of [K tile, V tile]
-  __shared__ int lim_max;
-
-  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
-  const int qb = gridDim.x - 1 - blockIdx.x, r0 = qb * BR;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const long long qbase = (long long)bh * p.sq * p.d;
-  const long long kbase = (long long)bh * p.skv * p.d;
-  const long long lbase = (long long)bh * p.sq;
-  const int ra = r0 + warp * 16 + g, rb = ra + 8;
-  const int la = row_limit(p, b, ra), lb = row_limit(p, b, rb);
-  const float lse_a = ra < p.sq ? lse[lbase + ra] * kLog2e : 0.f;
-  const float lse_b = rb < p.sq ? lse[lbase + rb] * kLog2e : 0.f;
-
-  if (tid == 0) lim_max = 0;
-  load_tile_ragged<D, BR>(qs, q + qbase, r0, p.sq, p.d);
-  load_tile_ragged<D, BR>(dos, dout + qbase, r0, p.sq, p.d);
-  cp_commit();
-  // di = rowsum(o * do) of rows ra and rb in f32, lane t over the columns
-  // t, t + 4, ...; written for the dkv kernel
-  float di_a = 0.f, di_b = 0.f;
-  for (int c = t; c < p.d; c += 4) {
-    if (ra < p.sq) {
-      const long long i = qbase + (long long)ra * p.d + c;
-      di_a = fmaf(to_f(o[i]), to_f(dout[i]), di_a);
-    }
-    if (rb < p.sq) {
-      const long long i = qbase + (long long)rb * p.d + c;
-      di_b = fmaf(to_f(o[i]), to_f(dout[i]), di_b);
-    }
-  }
-  di_a = quad_sum(di_a);
-  di_b = quad_sum(di_b);
-  if (t == 0) {
-    if (ra < p.sq) di[lbase + ra] = di_a;
-    if (rb < p.sq) di[lbase + rb] = di_b;
-  }
-  __syncthreads();
-  atomicMax(&lim_max, max(la, lb));
-  __syncthreads();
-  int lo, hi;
-  kv_range(p, r0, BR, &lo, &hi);
-  hi = min(hi, lim_max);
-  const unsigned char* crow = M ? class_row(p, b, h, qb) : nullptr;
-  // the first tile at or after c that the class map does not skip
-  auto next = [&](int c) {
-    if constexpr (M)
-      while (c < hi && span_class(crow, p.tiles_k, c, BC) == kSkip) c += BC;
-    return c;
-  };
-  int c0 = next((lo / BC) * BC);
-  if (c0 < hi) {
-    load_tile_ragged<D, BC>(kv, k + kbase, c0, p.skv, p.d);
-    load_tile_ragged<D, BC>(kv + BC * S, v + kbase, c0, p.skv, p.d);
-  }
-  cp_commit();
-  cp_wait<1>();  // the Q and dO tiles
-  __syncthreads();
-  // Q's and dO's fragments in registers, at D = 256 read from shared
-  // memory at each use (the f32 dQ accumulator takes 128 registers)
-  constexpr bool kRegs = D <= 128;
-  uint32_t qa[kRegs ? D / 16 : 1][4], da[kRegs ? D / 16 : 1][4];
-  if constexpr (kRegs) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      load_a<S>(qa[kk], qs, warp * 16, kk * 16, lane);
-      load_a<S>(da[kk], dos, warp * 16, kk * 16, lane);
-    }
-  }
-  float acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  const float sl2 = p.scale * kLog2e;
-
-  for (int stage = 0; c0 < hi; stage ^= 1) {
-    const int cn = next(c0 + BC);
-    if (cn < hi) {
-      T* nxt = kv + (stage ^ 1) * 2 * BC * S;
-      load_tile_ragged<D, BC>(nxt, k + kbase, cn, p.skv, p.d);
-      load_tile_ragged<D, BC>(nxt + BC * S, v + kbase, cn, p.skv, p.d);
-    }
-    cp_commit();
-    cp_wait<1>();  // this tile
-    __syncthreads();
-    const T* ks = kv + stage * 2 * BC * S;
-    const T* vs = ks + BC * S;
-    float s[BC / 8][4], dp[BC / 8][4];
-#pragma unroll
-    for (int j = 0; j < BC / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t qf[4], df[4];
-      const uint32_t *q_kk = qf, *d_kk = df;
-      if constexpr (kRegs) {
-        q_kk = qa[kk];
-        d_kk = da[kk];
-      } else {
-        load_a<S>(qf, qs, warp * 16, kk * 16, lane);
-        load_a<S>(df, dos, warp * 16, kk * 16, lane);
-      }
-#pragma unroll
-      for (int j = 0; j < BC / 8; j += 2) {
-        uint32_t bf[4];
-        load_b_nk<S>(bf, ks, j * 8, kk * 16, lane);
-        mma<T>(s[j], q_kk, bf[0], bf[1]);
-        mma<T>(s[j + 1], q_kk, bf[2], bf[3]);
-        load_b_nk<S>(bf, vs, j * 8, kk * 16, lane);
-        mma<T>(dp[j], d_kk, bf[0], bf[1]);
-        mma<T>(dp[j + 1], d_kk, bf[2], bf[3]);
-      }
-    }
-    const int cls = M ? span_class(crow, p.tiles_k, c0, BC) : kFull;
-    const bool full = cls == kFull && full_tile(p, r0, BR, c0, BC);
-#pragma unroll
-    for (int j = 0; j < BC / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = c0 + j * 8 + 2 * t + (e & 1);
-        const bool top = e < 2;
-        const int row = top ? ra : rb;
-        bool vis = full || visible(p, row, top ? la : lb, col);
-        if constexpr (M) {
-          if (!full && cls != kFull) vis = vis && keep(p, b, h, row, col);
-        }
-        const float pr = vis ? exp2f(s[j][e] * sl2 - (top ? lse_a : lse_b)) : 0.f;
-        s[j][e] = pr * (dp[j][e] - (top ? di_a : di_b)) * p.scale;  // dS
-      }
-    }
-    uint32_t dsa[BC / 16][4];
-    c_to_a<BC / 16, T>(dsa, s);
-#pragma unroll
-    for (int kk = 0; kk < BC / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < D / 8; n += 2) {
-        uint32_t bf[4];
-        load_b_kn<S>(bf, ks, kk * 16, n * 8, lane);
-        mma<T>(acc[n], dsa[kk], bf[0], bf[1]);
-        mma<T>(acc[n + 1], dsa[kk], bf[2], bf[3]);
-      }
-    }
-    __syncthreads();  // this stage is refilled two tiles on
-    c0 = cn;
-  }
-  cp_wait<0>();
-  store_rows<D>(dq + qbase, acc, ra, rb, p.sq, p.d, t);
-}
-
-template <int D, typename T, bool M>
-__global__ void __launch_bounds__(kThreads)
-dkv_mma(const T* __restrict__ q, const T* __restrict__ k,
-        const T* __restrict__ v, const T* __restrict__ dout,
-        const float* __restrict__ lse, const float* __restrict__ di,
-        T* __restrict__ dk, T* __restrict__ dv, Problem p) {
-  constexpr int BC = 64, BR = mma_bwd_tile(D), S = D + kPad;
-  constexpr int DO = mma_dkv_cols(D);  // this block's dK and dV columns
-  extern __shared__ __align__(16) unsigned char smem[];
-  T* ks = reinterpret_cast<T*>(smem);
-  T* vs = ks + BC * S;
-  T* qdo = vs + BC * S;  // two stages of [Q tile, dO tile]
-  __shared__ float lse_s[2][BR], di_s[2][BR];
-  __shared__ int lim_s[2][BR];
-
-  const int bh = blockIdx.y, b = bh / p.heads, h = bh % p.heads;
-  const int c0 = blockIdx.x * BC, col0 = blockIdx.z * DO;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t = lane % 4;
-  const long long qbase = (long long)bh * p.sq * p.d;
-  const long long kbase = (long long)bh * p.skv * p.d;
-  const long long lbase = (long long)bh * p.sq;
-  const int ka = c0 + warp * 16 + g, kb = ka + 8;
-
-  // the q tile r0 into stage st: Q and dO by cp.async, the row statistics
-  // by plain stores (both are read after the next __syncthreads)
-  auto load_rows = [&](int r0, int st) {
-    T* dst = qdo + st * 2 * BR * S;
-    load_tile_ragged<D, BR>(dst, q + qbase, r0, p.sq, p.d);
-    load_tile_ragged<D, BR>(dst + BR * S, dout + qbase, r0, p.sq, p.d);
-    for (int i = tid; i < BR; i += kThreads) {
-      const int row = r0 + i;
-      lse_s[st][i] = row < p.sq ? lse[lbase + row] * kLog2e : 0.f;
-      di_s[st][i] = row < p.sq ? di[lbase + row] : 0.f;
-      lim_s[st][i] = row_limit(p, b, row);
-    }
-  };
-  int lo, hi;
-  q_range(p, c0, BC, &lo, &hi);
-  // the first q tile at or after r that the class map does not skip
-  auto next = [&](int r) {
-    if constexpr (M)
-      while (r < hi && span_class(p, b, h, r / kBlock, c0, BC) == kSkip) r += BR;
-    return r;
-  };
-  load_tile_ragged<D, BC>(ks, k + kbase, c0, p.skv, p.d);
-  load_tile_ragged<D, BC>(vs, v + kbase, c0, p.skv, p.d);
-  int r0 = next((lo / BR) * BR);
-  if (r0 < hi) load_rows(r0, 0);
-  cp_commit();
-
-  float dk_acc[DO / 8][4], dv_acc[DO / 8][4];
-#pragma unroll
-  for (int n = 0; n < DO / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-  const float sl2 = p.scale * kLog2e;
-
-  for (int stage = 0; r0 < hi; stage ^= 1) {
-    const int rn = next(r0 + BR);
-    if (rn < hi) load_rows(rn, stage ^ 1);
-    cp_commit();
-    cp_wait<1>();  // K, V and this q tile
-    __syncthreads();
-    const T* qs = qdo + stage * 2 * BR * S;
-    const T* dos = qs + BR * S;
-    // S^T = K Q^T and dP^T = V dO^T: rows are this warp's 16 keys
-    float st[BR / 8][4], dpt[BR / 8][4];
-#pragma unroll
-    for (int j = 0; j < BR / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a_k[4], a_v[4];
-      load_a<S>(a_k, ks, warp * 16, kk * 16, lane);
-      load_a<S>(a_v, vs, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int j = 0; j < BR / 8; j += 2) {
-        uint32_t bf[4];
-        load_b_nk<S>(bf, qs, j * 8, kk * 16, lane);
-        mma<T>(st[j], a_k, bf[0], bf[1]);
-        mma<T>(st[j + 1], a_k, bf[2], bf[3]);
-        load_b_nk<S>(bf, dos, j * 8, kk * 16, lane);
-        mma<T>(dpt[j], a_v, bf[0], bf[1]);
-        mma<T>(dpt[j + 1], a_v, bf[2], bf[3]);
-      }
-    }
-    const int cls = M ? span_class(p, b, h, r0 / kBlock, c0, BC) : kFull;
-    const bool full = cls == kFull && full_tile(p, r0, BR, c0, BC);
-#pragma unroll
-    for (int j = 0; j < BR / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = j * 8 + 2 * t + (e & 1);  // local q row
-        const int key = e < 2 ? ka : kb;
-        bool vis = full || visible(p, r0 + i, lim_s[stage][i], key);
-        if constexpr (M) {
-          if (!full && cls != kFull) vis = vis && keep(p, b, h, r0 + i, key);
-        }
-        const float pr = vis ? exp2f(st[j][e] * sl2 - lse_s[stage][i]) : 0.f;
-        st[j][e] = pr;
-        dpt[j][e] = pr * (dpt[j][e] - di_s[stage][i]) * p.scale;  // dS^T
-      }
-    }
-    uint32_t pta[BR / 16][4], dsa[BR / 16][4];
-    c_to_a<BR / 16, T>(pta, st);
-    c_to_a<BR / 16, T>(dsa, dpt);
-#pragma unroll
-    for (int kk = 0; kk < BR / 16; ++kk) {
-#pragma unroll
-      for (int n = 0; n < DO / 8; n += 2) {
-        uint32_t bf[4];
-        load_b_kn<S>(bf, dos, kk * 16, col0 + n * 8, lane);
-        mma<T>(dv_acc[n], pta[kk], bf[0], bf[1]);
-        mma<T>(dv_acc[n + 1], pta[kk], bf[2], bf[3]);
-        load_b_kn<S>(bf, qs, kk * 16, col0 + n * 8, lane);
-        mma<T>(dk_acc[n], dsa[kk], bf[0], bf[1]);
-        mma<T>(dk_acc[n + 1], dsa[kk], bf[2], bf[3]);
-      }
-    }
-    __syncthreads();  // this stage is refilled two tiles on
-    r0 = rn;
-  }
-  cp_wait<0>();  // no copy outlives the block, also when no tile ran
-  store_rows<DO>(dk + kbase, dk_acc, ka, kb, p.skv, p.d, t, col0);
-  store_rows<DO>(dv + kbase, dv_acc, ka, kb, p.skv, p.d, t, col0);
-}
-
-// ---------------------------------------------------------------------------
 // 16-bit backward on wgmma (hopper.cuh): one block of three warpgroups. The
 // first is the producer: its first warp loads tiles by TMA into a ring of
 // kStages stages, each completing on a `full` mbarrier, and waits on each
-// stage's `empty` mbarrier before refilling it; its other warps idle. The
-// two consumer warpgroups each own 64 rows (dq) or 64 keys (dkv) of the
+// stage's `empty` mbarrier before refilling it; its other warps idle (R,
+// the ragged producer: all its 128 threads copy by cp.async). The two
+// consumer warpgroups each own 64 rows (dq) or 64 keys (dkv) of the
 // block's 128 and run every product by wgmma on the swizzled tiles.
 // ---------------------------------------------------------------------------
 
@@ -701,15 +238,18 @@ __host__ __device__ constexpr int dkv_q_tile(int d) { return d == 128 ? 32 : 64;
 // producer streams K and V tiles of BC keys. Per tile and consumer: S = Q K^T
 // and dP = dO V^T (wgmma, A and B K-major), p = exp2(s scale log2e -
 // lse log2e), dS = p (dP - di) scale rounded to T as the register A of
-// dQ += dS K (B = K MN-major).
-template <int D, typename T, bool M>
+// dQ += dS K (B = K MN-major). R: d % 8 != 0, tiles copied from rg's rows
+// by the ragged producer (the header note); the consumers are the same
+// code.
+template <int D, typename T, bool M, bool R>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 dq_tc(const __grid_constant__ CUtensorMap tm_q,
       const __grid_constant__ CUtensorMap tm_k,
       const __grid_constant__ CUtensorMap tm_v,
-      const __grid_constant__ CUtensorMap tm_do, const T* __restrict__ o,
-      const T* __restrict__ dout, const float* __restrict__ lse,
-      float* __restrict__ di, T* __restrict__ dq, Problem p) {
+      const __grid_constant__ CUtensorMap tm_do, const BwdRows<T> rg,
+      const T* __restrict__ o, const T* __restrict__ dout,
+      const float* __restrict__ lse, float* __restrict__ di,
+      T* __restrict__ dq, Problem p) {
   using namespace hopper;
   constexpr int BR = 128, BC = dq_kv_tile(D);
   constexpr int W = swizzle_bytes(D), C = W / 2;  // a column block
@@ -732,13 +272,22 @@ dq_tc(const __grid_constant__ CUtensorMap tm_q,
   const int qb0 = r0 / kBlock;
   const int tid = threadIdx.x;
   if (tid == 0) {
-    mbar_init(&q_full, 1);
+    // the ragged producer: an arrival from each of its threads
+    mbar_init(&q_full, R ? 128 : 1);
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], M ? 32 : 1);
+      mbar_init(&full[s], R ? 128 : M ? 32 : 1);
       mbar_init(&empty[s], 2 * 128);
     }
     mbar_fence_init();
     lim_max[0] = lim_max[1] = 0;
+  }
+  if constexpr (R) {  // the columns d..D that TMA would have read as 0
+    for (int hf = 0; hf < 2; ++hf) {
+      zero_tail<D, 64, W>(qs + hf * kHalf, p.d, tid, kBwdThreads);
+      zero_tail<D, 64, W>(dos + hf * kHalf, p.d, tid, kBwdThreads);
+    }
+    for (int s = 0; s < 2 * kStages; ++s)
+      zero_tail<D, BC, W>(ring + s * kTile, p.d, tid, kBwdThreads);
   }
   __syncthreads();
   if (tid < BR) atomicMax(&lim_max[tid / 64], row_limit(p, b, r0 + tid));
@@ -771,7 +320,12 @@ dq_tc(const __grid_constant__ CUtensorMap tm_q,
     return !M || tile_class(0, i) != kSkip || tile_class(1, i) != kSkip;
   };
 
-  if (tid < 128) {  // producer
+  if (tid < 128 && R) {  // the ragged producer: every thread copies
+    regs_dec<kProducerRegs>();
+    produce_dq<2, BC, kStages, W, M>(rg, p, b, bh, r0, first, tiles, loaded,
+                                     qs, dos, kHalf, ring, kTile, &q_full,
+                                     full, empty, &kid_s[0][0]);
+  } else if (tid < 128) {  // producer
     regs_dec<kProducerRegs>();
     // the first thread (masked: the first warp, for the kv ids)
     if (tid == 0 || (M && tid < 32)) {
@@ -829,12 +383,17 @@ dq_tc(const __grid_constant__ CUtensorMap tm_q,
         qid_b = rb < p.sq ? p.q_ids[(long long)b * p.sq + rb] : 0;
       }
     }
-    // di of rows ra and rb: lane t sums columns [t D/4, (t + 1) D/4)
+    // di of rows ra and rb: lane t sums columns [t D/4, (t + 1) D/4) (R:
+    // row_dot's pieces, by the rows' alignment)
     float di_a = 0.f, di_b = 0.f;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int row = half ? rb : ra;
       if (row >= p.sq) continue;
+      if constexpr (R) {
+        (half ? di_b : di_a) = row_dot(o, dout, (lbase + row) * p.d, p.d, t);
+        continue;
+      }
       float sum = 0.f;
 #pragma unroll
       for (int c = 0; c < D / 4; c += 8) {
@@ -875,12 +434,12 @@ dq_tc(const __grid_constant__ CUtensorMap tm_q,
     uint32_t dsa[BC / 16][4];
     int held = -1;  // the stage an in-flight dQ product reads, or -1
     int n = 0;      // tiles loaded, as the producer counts them
-    mbar_wait(&q_full, 0);
+    wait_stage<R>(&q_full, 0);
     for (int i = 0; i < tiles; ++i) {
       const int c0 = first + i * BC;
       if (!loaded(i)) continue;
       const int st = n % kStages;
-      mbar_wait(&full[st], (n / kStages) & 1);
+      wait_stage<R>(&full[st], (n / kStages) & 1);
       ++n;
       const int cls = M ? tile_class(wg, i) : kFull;
       if (cls == kSkip || !(c0 + BC > wlo && c0 < whi)) {
@@ -977,6 +536,15 @@ dq_tc(const __grid_constant__ CUtensorMap tm_q,
     for (int nn = 0; nn < D / 8; ++nn) {
       const int col = nn * 8 + 2 * t;
       if (col >= p.d) break;
+      if constexpr (R) {  // at an odd d, 2-byte stores
+        if (ra < p.sq)
+          store_pair(dq, (lbase + ra) * p.d + col, col, p.d,
+                     pack2<T>(acc[4 * nn], acc[4 * nn + 1]));
+        if (rb < p.sq)
+          store_pair(dq, (lbase + rb) * p.d + col, col, p.d,
+                     pack2<T>(acc[4 * nn + 2], acc[4 * nn + 3]));
+        continue;
+      }
       if (ra < p.sq)
         *reinterpret_cast<uint32_t*>(dq + (lbase + ra) * p.d + col) =
             pack2<T>(acc[4 * nn], acc[4 * nn + 1]);
@@ -992,13 +560,13 @@ dq_tc(const __grid_constant__ CUtensorMap tm_q,
 // segment id). Per tile and consumer: S^T = K Q^T and dP^T = V dO^T (wgmma,
 // K-major), p^T rounded to T as the register A of dV += P^T dO, dS^T = p^T
 // (dP^T - di) scale rounded to T as the register A of dK += dS^T Q (B = dO
-// and Q, MN-major).
-template <int D, typename T, bool M>
+// and Q, MN-major). R: as in dq_tc.
+template <int D, typename T, bool M, bool R>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 dkv_tc(const __grid_constant__ CUtensorMap tm_q,
        const __grid_constant__ CUtensorMap tm_k,
        const __grid_constant__ CUtensorMap tm_v,
-       const __grid_constant__ CUtensorMap tm_do,
+       const __grid_constant__ CUtensorMap tm_do, const BwdRows<T> rg,
        const float* __restrict__ lse, const float* __restrict__ di,
        T* __restrict__ dk, T* __restrict__ dv, Problem p) {
   using namespace hopper;
@@ -1040,9 +608,11 @@ dkv_tc(const __grid_constant__ CUtensorMap tm_q,
            half_class(1, r0 / kBlock) != kSkip;
   };
   if (tid == 0) {
-    mbar_init(&kv_full, 1);
+    mbar_init(&kv_full, R ? 128 : 1);
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 32);  // the producer warp's lanes
+      // the producer warp's lanes (R: every producer thread's copies, and
+      // the first warp's lanes again after the row statistics)
+      mbar_init(&full[s], R ? 128 + 32 : 32);
       mbar_init(&empty[s], 2 * 128);
     }
     mbar_fence_init();
@@ -1054,9 +624,23 @@ dkv_tc(const __grid_constant__ CUtensorMap tm_q,
         cls_s[hf][qb] = span_class(p, b, h, qb, c0 + 64 * hf, 64);
       }
   }
+  if constexpr (R) {  // the columns d..D that TMA would have read as 0
+    for (int hf = 0; hf < 2; ++hf) {
+      zero_tail<D, 64, W>(ks + hf * kHalf, p.d, tid, kBwdThreads);
+      zero_tail<D, 64, W>(vs + hf * kHalf, p.d, tid, kBwdThreads);
+    }
+    for (int s = 0; s < 2 * kStages; ++s)
+      zero_tail<D, BR, W>(ring + s * kTile, p.d, tid, kBwdThreads);
+  }
   __syncthreads();
 
-  if (tid < 128) {  // producer
+  if (tid < 128 && R) {  // the ragged producer: every thread copies
+    regs_dec<kProducerRegs>();
+    produce_dkv<2, BR, kStages, W, M>(
+        rg, p, b, bh, c0, first, tiles, loaded, lse, di, ks, vs, kHalf, ring,
+        kTile, &kv_full, full, empty, &lse_s[0][0], &di_s[0][0],
+        &keys_s[0][0], &qid_s[0][0]);
+  } else if (tid < 128) {  // producer
     regs_dec<kProducerRegs>();
     if (tid < 32) {
       const int lane = tid;
@@ -1145,12 +729,12 @@ dkv_tc(const __grid_constant__ CUtensorMap tm_q,
     uint32_t pa[BR / 16][4], dsa[BR / 16][4];
     int held = -1;  // the stage in-flight dV and dK products read, or -1
     int n = 0;      // tiles loaded, as the producer counts them
-    mbar_wait(&kv_full, 0);
+    wait_stage<R>(&kv_full, 0);
     for (int i = 0; i < tiles; ++i) {
       const int r0 = first + i * BR;
       if (!loaded(r0)) continue;
       const int st = n % kStages;
-      mbar_wait(&full[st], (n / kStages) & 1);
+      wait_stage<R>(&full[st], (n / kStages) & 1);
       ++n;
       const int cls = M ? half_class(wg, r0 / kBlock) : kFull;
       if (cls == kSkip || !(r0 + BR > wlo && r0 < whi)) {
@@ -1270,6 +854,21 @@ dkv_tc(const __grid_constant__ CUtensorMap tm_q,
     for (int nn = 0; nn < D / 8; ++nn) {
       const int col = nn * 8 + 2 * t;
       if (col >= p.d) break;
+      if constexpr (R) {  // at an odd d, 2-byte stores
+        if (ka < p.skv) {
+          store_pair(dk, (kbase + ka) * p.d + col, col, p.d,
+                     pack2<T>(dk_acc[4 * nn], dk_acc[4 * nn + 1]));
+          store_pair(dv, (kbase + ka) * p.d + col, col, p.d,
+                     pack2<T>(dv_acc[4 * nn], dv_acc[4 * nn + 1]));
+        }
+        if (kb < p.skv) {
+          store_pair(dk, (kbase + kb) * p.d + col, col, p.d,
+                     pack2<T>(dk_acc[4 * nn + 2], dk_acc[4 * nn + 3]));
+          store_pair(dv, (kbase + kb) * p.d + col, col, p.d,
+                     pack2<T>(dv_acc[4 * nn + 2], dv_acc[4 * nn + 3]));
+        }
+        continue;
+      }
       if (ka < p.skv) {
         *reinterpret_cast<uint32_t*>(dk + (kbase + ka) * p.d + col) =
             pack2<T>(dk_acc[4 * nn], dk_acc[4 * nn + 1]);
@@ -1294,44 +893,25 @@ template <int D>
 using Dim = std::integral_constant<int, D>;
 
 // Calls f(T{}, Dim<D>{}) for a 16-bit dtype code (1 bfloat16, 2 float16)
-// and the smallest instance D of 32, 64, 128 and (the mma.sync backward:
-// Wide) 256 that holds the head dim d.
-template <bool Wide, typename F>
+// and the smallest instance D of 32, 64 and 128 that holds the head dim d.
+template <typename F>
 int tc_dispatch(int dtype, int d, F f) {
   auto by_dim = [&](auto t) -> int {
     if (d <= 32) return f(t, Dim<32>{});
     if (d <= 64) return f(t, Dim<64>{});
-    if constexpr (Wide) {
-      if (d > 128) return f(t, Dim<256>{});
-    }
     return f(t, Dim<128>{});
   };
   return dtype == 1 ? by_dim(bf16{}) : by_dim(f16{});
 }
 
-// The tensor-core kernels take the 16-bit types: the forward at head dims
-// up to 256 (fwd_wg, by TMA or cp.async); the wgmma
-// backward (TMA: rows of a multiple of 16 bytes) at the multiples of 8,
-// dq_tc/dkv_tc up to 128 (Q and dO, or K and V, resident for 128 rows) and
-// dq_wide/dkv_wide above (flash_backward_wide.cu). Everything else runs in
-// fwd_any (flash_forward_any.cu) and dq_any, dkv_any
+// The tensor-core kernels take the 16-bit types at head dims up to 256:
+// the forward fwd_wg, the backward dq_tc/dkv_tc up to 128 (Q and dO, or K
+// and V, resident for 128 rows) and dq_wide/dkv_wide above
+// (flash_backward_wide.cu); each by TMA at rows of a multiple of 16 bytes
+// (d % 8 == 0), else by the ragged producer's cp.async. Everything else
+// runs in fwd_any (flash_forward_any.cu) and dq_any, dkv_any
 // (flash_backward_any.cu).
 bool tc_forward(int dtype, int d) { return (dtype == 1 || dtype == 2) && d <= 256; }
-bool tc_backward(int dtype, int d) {
-  return tc_forward(dtype, d) && d <= 128 && d % 8 == 0;
-}
-bool wide_backward(int dtype, int d) {
-  return tc_forward(dtype, d) && d > 128 && d % 8 == 0;
-}
-// ... and the mma.sync backward (dq_mma, dkv_mma) the rest up to 256: the
-// head dims that are not a multiple of 8
-bool mma_backward(int dtype, int d) { return tc_forward(dtype, d); }
-
-// bytes of `rows` padded rows of a 16-bit tile
-template <int D>
-int smem_tc(int rows) {
-  return rows * (D + kPad) * 2;
-}
 
 // dynamic shared memory of the wgmma backward kernels, with 1 KB to align
 // the swizzled tiles: resident tiles of 128 rows (Q and dO, or K and V)
@@ -1439,44 +1019,38 @@ int lamp_flash_attention_bwd_dq(const void* q, const void* k, const void* v,
   if (head_dim <= 0) return cudaErrorInvalidValue;
   const Problem p = LAMP_PROBLEM(limits);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!mma_backward(dtype, head_dim))
+  if (!tc_forward(dtype, head_dim))
     return any_dq(dtype, q, k, v, o, dout, lse, di, dq, p, bh, st);
   const float* l = static_cast<const float*>(lse);
   float* dd = static_cast<float*>(di);
-  if (wide_backward(dtype, head_dim))
+  if (head_dim > 128)
     return wide_dq(dtype, q, k, v, o, dout, l, dd, dq, p, bh, st);
-  if (!tc_backward(dtype, head_dim))
-    return tc_dispatch<true>(dtype, head_dim, [&](auto t, auto dim) -> int {
-      using T = decltype(t);
-      constexpr int D = decltype(dim)::value;
-      const dim3 grid(cdiv(sq, 64), bh);
-      const int smem = smem_tc<D>(2 * 64 + 4 * mma_bwd_tile(D));
-      const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
-              *vt = static_cast<const T*>(v), *ot = static_cast<const T*>(o),
-              *dot = static_cast<const T*>(dout);
-      T* out = static_cast<T*>(dq);
-      if (p.tiles != nullptr)
-        return launch(dq_mma<D, T, true>, grid, kThreads, smem, st, qt, kt, vt,
-                      ot, dot, l, dd, out, p);
-      return launch(dq_mma<D, T, false>, grid, kThreads, smem, st, qt, kt, vt,
-                    ot, dot, l, dd, out, p);
-    });
-  return tc_dispatch<false>(dtype, head_dim, [&](auto t, auto dim) -> int {
+  return tc_dispatch(dtype, head_dim, [&](auto t, auto dim) -> int {
     using T = decltype(t);
     constexpr int D = decltype(dim)::value;
     const T *ot = static_cast<const T*>(o), *dot = static_cast<const T*>(dout);
     T* out = static_cast<T*>(dq);
-    CUtensorMap m[4];  // q, k, v, do
-    const int rc = tile_maps<T, D, 4>(
-        m, {q, k, v, dout}, {sq, skv, skv, sq},
-        {64, dq_kv_tile(D), dq_kv_tile(D), 64}, bh, head_dim);
-    if (rc != 0) return rc;
+    // d % 8 == 0: TMA maps; else the ragged producer's rows (no maps)
+    const bool ragged = head_dim % 8 != 0;
+    CUtensorMap m[4] = {};  // q, k, v, do
+    BwdRows<T> rows{nullptr, nullptr, nullptr, nullptr};
+    if (ragged) {
+      rows = {static_cast<const T*>(q), static_cast<const T*>(k),
+              static_cast<const T*>(v), dot};
+    } else {
+      const int rc = tile_maps<T, D, 4>(
+          m, {q, k, v, dout}, {sq, skv, skv, sq},
+          {64, dq_kv_tile(D), dq_kv_tile(D), 64}, bh, head_dim);
+      if (rc != 0) return rc;
+    }
     const dim3 grid(cdiv(sq, 128), bh);
+    auto go = [&](auto kernel) {
+      return launch(kernel, grid, kBwdThreads, smem_dq<D>(), st, m[0], m[1],
+                    m[2], m[3], rows, ot, dot, l, dd, out, p);
+    };
     if (p.tiles != nullptr)
-      return launch(dq_tc<D, T, true>, grid, kBwdThreads, smem_dq<D>(), st,
-                    m[0], m[1], m[2], m[3], ot, dot, l, dd, out, p);
-    return launch(dq_tc<D, T, false>, grid, kBwdThreads, smem_dq<D>(), st,
-                  m[0], m[1], m[2], m[3], ot, dot, l, dd, out, p);
+      return ragged ? go(dq_tc<D, T, true, true>) : go(dq_tc<D, T, true, false>);
+    return ragged ? go(dq_tc<D, T, false, true>) : go(dq_tc<D, T, false, false>);
   });
 }
 
@@ -1489,42 +1063,38 @@ int lamp_flash_attention_bwd_dkv(const void* q, const void* k, const void* v,
   if (head_dim <= 0) return cudaErrorInvalidValue;
   const Problem p = LAMP_PROBLEM(limits);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!mma_backward(dtype, head_dim))
+  if (!tc_forward(dtype, head_dim))
     return any_dkv(dtype, q, k, v, dout, lse, di, dk, dv, p, bh, st);
   const float* l = static_cast<const float*>(lse);
   const float* dd = static_cast<const float*>(di);
-  if (wide_backward(dtype, head_dim))
+  if (head_dim > 128)
     return wide_dkv(dtype, q, k, v, dout, l, dd, dk, dv, p, bh, st);
-  if (!tc_backward(dtype, head_dim))
-    return tc_dispatch<true>(dtype, head_dim, [&](auto t, auto dim) -> int {
-      using T = decltype(t);
-      constexpr int D = decltype(dim)::value;
-      const dim3 grid(cdiv(skv, 64), bh, D / mma_dkv_cols(D));
-      const int smem = smem_tc<D>(2 * 64 + 4 * mma_bwd_tile(D));
-      const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
-              *vt = static_cast<const T*>(v), *dot = static_cast<const T*>(dout);
-      T *dkt = static_cast<T*>(dk), *dvt = static_cast<T*>(dv);
-      if (p.tiles != nullptr)
-        return launch(dkv_mma<D, T, true>, grid, kThreads, smem, st, qt, kt,
-                      vt, dot, l, dd, dkt, dvt, p);
-      return launch(dkv_mma<D, T, false>, grid, kThreads, smem, st, qt, kt, vt,
-                    dot, l, dd, dkt, dvt, p);
-    });
-  return tc_dispatch<false>(dtype, head_dim, [&](auto t, auto dim) -> int {
+  return tc_dispatch(dtype, head_dim, [&](auto t, auto dim) -> int {
     using T = decltype(t);
     constexpr int D = decltype(dim)::value;
     T *dkt = static_cast<T*>(dk), *dvt = static_cast<T*>(dv);
-    CUtensorMap m[4];  // q, k, v, do
-    const int rc = tile_maps<T, D, 4>(
-        m, {q, k, v, dout}, {sq, skv, skv, sq},
-        {dkv_q_tile(D), 64, 64, dkv_q_tile(D)}, bh, head_dim);
-    if (rc != 0) return rc;
+    const bool ragged = head_dim % 8 != 0;
+    CUtensorMap m[4] = {};  // q, k, v, do
+    BwdRows<T> rows{nullptr, nullptr, nullptr, nullptr};
+    if (ragged) {
+      rows = {static_cast<const T*>(q), static_cast<const T*>(k),
+              static_cast<const T*>(v), static_cast<const T*>(dout)};
+    } else {
+      const int rc = tile_maps<T, D, 4>(
+          m, {q, k, v, dout}, {sq, skv, skv, sq},
+          {dkv_q_tile(D), 64, 64, dkv_q_tile(D)}, bh, head_dim);
+      if (rc != 0) return rc;
+    }
     const dim3 grid(cdiv(skv, 128), bh);
+    auto go = [&](auto kernel) {
+      return launch(kernel, grid, kBwdThreads, smem_dkv<D>(), st, m[0], m[1],
+                    m[2], m[3], rows, l, dd, dkt, dvt, p);
+    };
     if (p.tiles != nullptr)
-      return launch(dkv_tc<D, T, true>, grid, kBwdThreads, smem_dkv<D>(), st,
-                    m[0], m[1], m[2], m[3], l, dd, dkt, dvt, p);
-    return launch(dkv_tc<D, T, false>, grid, kBwdThreads, smem_dkv<D>(), st,
-                  m[0], m[1], m[2], m[3], l, dd, dkt, dvt, p);
+      return ragged ? go(dkv_tc<D, T, true, true>)
+                    : go(dkv_tc<D, T, true, false>);
+    return ragged ? go(dkv_tc<D, T, false, true>)
+                  : go(dkv_tc<D, T, false, false>);
   });
 }
 

@@ -1,10 +1,12 @@
 // The flash-attention backward for Hopper (sm_90a) at the 16-bit head dims
-// 129-256 that are multiples of 8: dq_wide<D, T, M>, then dkv_wide<D, T, M>,
-// on wgmma, TMA and mbarriers (hopper.cuh). D is 192 or 256, the smallest
-// instance that holds the head dim d (columns past d read 0 from the TMA
-// boxes and are not stored); T is bf16 or f16; M, as in every tensor-core
-// kernel here, says whether segment ids or a mask are given. They replace
-// the Pallas TPU kernels _bwd_dq_kernel and _bwd_dkv_kernel of
+// 129-256: dq_wide<D, T, M, R>, then dkv_wide<D, T, M, R>, on wgmma, TMA and
+// mbarriers (hopper.cuh). D is 192 or 256, the smallest instance that
+// holds the head dim d (columns past d read 0 and are not stored); T is
+// bf16 or f16; M, as in every tensor-core kernel here, says whether
+// segment ids or a mask are given; R that d is not a multiple of 8, whose
+// tiles the producer's 128 threads copy by cp.async (flash_attention.cu's
+// header note: the ragged producer; the consumers are the same). They
+// replace the Pallas TPU kernels _bwd_dq_kernel and _bwd_dkv_kernel of
 // lamp_tpu/ops/attention.py (K2b, K2c) for those calls; the entry points of
 // flash_attention.cu route here (lamp_flash::wide_dq, wide_dkv). Layout,
 // visibility and numerics are flash_attention.cu's header note, and so is
@@ -48,8 +50,9 @@
 //    KB of shared memory (f32, so that dS is taken from the unrounded p, as
 //    in _bwd_dkv_kernel) behind two named barriers, dS^T = P^T (dP^T - di)
 //    scale and dK += dS^T Q. So dkv does its 4 products, none twice (the
-//    mma.sync dkv_mma split its output columns over two blocks and computed
-//    S^T and dP^T in both: 6), and only the first consumer tests
+//    mma.sync backward this replaced split its output columns over two
+//    blocks and computed S^T and dP^T in both: 6), and only the first
+//    consumer tests
 //    visibility. Each consumer's next score product is issued while its
 //    register-A product runs.
 //  - dq's row blocks run last-first (the long causal rows first), dkv's key
@@ -128,14 +131,15 @@ int smem_dkv() {
   return 1024 + 2 * 64 * D * 2 + kExchange + dkv_stages(D) * 2 * kTileRows * D * 2;
 }
 
-template <int D, typename T, bool M>
+template <int D, typename T, bool M, bool R>
 __global__ void __launch_bounds__(128 * (dq_consumers(D) + 1), 1)
 dq_wide(const __grid_constant__ CUtensorMap tm_q,
         const __grid_constant__ CUtensorMap tm_k,
         const __grid_constant__ CUtensorMap tm_v,
-        const __grid_constant__ CUtensorMap tm_do, const T* __restrict__ o,
-        const T* __restrict__ dout, const float* __restrict__ lse,
-        float* __restrict__ di, T* __restrict__ dq, Problem p) {
+        const __grid_constant__ CUtensorMap tm_do, const BwdRows<T> rg,
+        const T* __restrict__ o, const T* __restrict__ dout,
+        const float* __restrict__ lse, float* __restrict__ di,
+        T* __restrict__ dq, Problem p) {
   using namespace hopper;
   constexpr int NC = dq_consumers(D), BR = 64 * NC, BC = kTileRows;
   constexpr int ST = dq_stages(D), kThreads = 128 * (NC + 1);
@@ -160,13 +164,22 @@ dq_wide(const __grid_constant__ CUtensorMap tm_q,
   const int qb0 = r0 / kBlock;
   const int tid = threadIdx.x;
   if (tid == 0) {
-    mbar_init(&q_full, 1);
+    // the ragged producer: an arrival from each of its threads
+    mbar_init(&q_full, R ? 128 : 1);
     for (int s = 0; s < ST; ++s) {
-      mbar_init(&full[s], M ? 32 : 1);
+      mbar_init(&full[s], R ? 128 : M ? 32 : 1);
       mbar_init(&empty[s], 4 * NC);
     }
     mbar_fence_init();
     for (int w = 0; w < NC; ++w) lim_max[w] = 0;
+  }
+  if constexpr (R) {  // the columns d..D that TMA would have read as 0
+    for (int hf = 0; hf < NC; ++hf) {
+      zero_tail<D, 64, W>(qs + hf * kHalf, p.d, tid, kThreads);
+      zero_tail<D, 64, W>(dos + hf * kHalf, p.d, tid, kThreads);
+    }
+    for (int s = 0; s < 2 * ST; ++s)
+      zero_tail<D, BC, W>(ring + s * kTile, p.d, tid, kThreads);
   }
   __syncthreads();
   if (tid < BR) atomicMax(&lim_max[tid / 64], row_limit(p, b, r0 + tid));
@@ -206,7 +219,12 @@ dq_wide(const __grid_constant__ CUtensorMap tm_q,
     return true;
   };
 
-  if (tid < 128) {  // producer
+  if (tid < 128 && R) {  // the ragged producer: every thread copies
+    if constexpr (NC > 1) regs_dec<kProducerRegs>();
+    produce_dq<NC, BC, ST, W, M>(rg, p, b, bh, r0, first, tiles, loaded, qs,
+                                 dos, kHalf, ring, kTile, &q_full, full,
+                                 empty, &kid_s[0][0]);
+  } else if (tid < 128) {  // producer
     if constexpr (NC > 1) regs_dec<kProducerRegs>();
     // the first thread (masked: the first warp, for the kv ids)
     if (tid == 0 || (M && tid < 32)) {
@@ -264,12 +282,17 @@ dq_wide(const __grid_constant__ CUtensorMap tm_q,
         qid_b = rb < p.sq ? p.q_ids[(long long)b * p.sq + rb] : 0;
       }
     }
-    // di of rows ra and rb: lane t sums columns [t D/4, (t + 1) D/4)
+    // di of rows ra and rb: lane t sums columns [t D/4, (t + 1) D/4) (R:
+    // row_dot's pieces, by the rows' alignment)
     float di_a = 0.f, di_b = 0.f;
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int row = half ? rb : ra;
       if (row >= p.sq) continue;
+      if constexpr (R) {
+        (half ? di_b : di_a) = row_dot(o, dout, (lbase + row) * p.d, p.d, t);
+        continue;
+      }
       float sum = 0.f;
 #pragma unroll
       for (int c = 0; c < D / 4; c += 8) {
@@ -310,12 +333,12 @@ dq_wide(const __grid_constant__ CUtensorMap tm_q,
     uint32_t dsa[BC / 16][4];
     int held = -1;  // the stage an in-flight dQ product reads, or -1
     int n = 0;      // tiles loaded, as the producer counts them
-    mbar_wait(&q_full, 0);
+    wait_stage<R>(&q_full, 0);
     for (int i = 0; i < tiles; ++i) {
       const int c0 = first + i * BC;
       if (!loaded(i)) continue;
       const int st = n % ST;
-      mbar_wait(&full[st], (n / ST) & 1);
+      wait_stage<R>(&full[st], (n / ST) & 1);
       ++n;
       const int cls = M ? tile_class(wg, i) : kFull;
       if (cls == kSkip || !(c0 + BC > wlo && c0 < whi)) {
@@ -400,6 +423,15 @@ dq_wide(const __grid_constant__ CUtensorMap tm_q,
     for (int nn = 0; nn < D / 8; ++nn) {
       const int col = nn * 8 + 2 * t;
       if (col >= p.d) break;
+      if constexpr (R) {  // at an odd d, 2-byte stores
+        if (ra < p.sq)
+          store_pair(dq, (lbase + ra) * p.d + col, col, p.d,
+                     pack2<T>(acc[4 * nn], acc[4 * nn + 1]));
+        if (rb < p.sq)
+          store_pair(dq, (lbase + rb) * p.d + col, col, p.d,
+                     pack2<T>(acc[4 * nn + 2], acc[4 * nn + 3]));
+        continue;
+      }
       if (ra < p.sq)
         *reinterpret_cast<uint32_t*>(dq + (lbase + ra) * p.d + col) =
             pack2<T>(acc[4 * nn], acc[4 * nn + 1]);
@@ -410,12 +442,12 @@ dq_wide(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-template <int D, typename T, bool M>
+template <int D, typename T, bool M, bool R>
 __global__ void __launch_bounds__(384, 1)
 dkv_wide(const __grid_constant__ CUtensorMap tm_q,
          const __grid_constant__ CUtensorMap tm_k,
          const __grid_constant__ CUtensorMap tm_v,
-         const __grid_constant__ CUtensorMap tm_do,
+         const __grid_constant__ CUtensorMap tm_do, const BwdRows<T> rg,
          const float* __restrict__ lse, const float* __restrict__ di,
          T* __restrict__ dk, T* __restrict__ dv, Problem p) {
   using namespace hopper;
@@ -457,9 +489,11 @@ dkv_wide(const __grid_constant__ CUtensorMap tm_q,
   // producer and both consumers walk this same sequence
   auto loaded = [&](int r0) { return !M || row_class(r0 / kBlock) != kSkip; };
   if (tid == 0) {
-    mbar_init(&kv_full, 1);
+    mbar_init(&kv_full, R ? 128 : 1);
     for (int s = 0; s < ST; ++s) {
-      mbar_init(&full[s], 32);  // the producer warp's lanes
+      // the producer warp's lanes (R: every producer thread's copies, and
+      // the first warp's lanes again after the row statistics)
+      mbar_init(&full[s], R ? 128 + 32 : 32);
       mbar_init(&empty[s], 8);  // one a consumer warp
     }
     mbar_fence_init();
@@ -469,9 +503,21 @@ dkv_wide(const __grid_constant__ CUtensorMap tm_q,
       for (int qb = tid; qb < p.tiles_q; qb += 384)
         cls_s[qb] = span_class(p, b, h, qb, c0, BC);
   }
+  if constexpr (R) {  // the columns d..D that TMA would have read as 0
+    zero_tail<D, BC, W>(ks, p.d, tid, 384);
+    zero_tail<D, BC, W>(vs, p.d, tid, 384);
+    for (int s = 0; s < 2 * ST; ++s)
+      zero_tail<D, BR, W>(ring + s * kTile, p.d, tid, 384);
+  }
   __syncthreads();
 
-  if (tid < 128) {  // producer
+  if (tid < 128 && R) {  // the ragged producer: every thread copies
+    regs_dec<kProducerRegs>();
+    produce_dkv<1, BR, ST, W, M>(
+        rg, p, b, bh, c0, first, tiles, loaded, lse, di, ks, vs, kKeys, ring,
+        kTile, &kv_full, full, empty, &lse_s[0][0], &di_s[0][0],
+        &keys_s[0][0], &qid_s[0][0]);
+  } else if (tid < 128) {  // producer
     regs_dec<kProducerRegs>();
     if (tid < 32) {
       const int lane = tid;
@@ -555,12 +601,12 @@ dkv_wide(const __grid_constant__ CUtensorMap tm_q,
     for (int i = 0; i < tiles; ++i) total += loaded(first + i * BR);
     int held = -1;  // the stage an in-flight output product reads, or -1
     int n = 0;      // tiles loaded, as the producer counts them
-    mbar_wait(&kv_full, 0);
+    wait_stage<R>(&kv_full, 0);
     for (int i = 0; i < tiles; ++i) {
       const int r0 = first + i * BR;
       if (!loaded(r0)) continue;
       const int st = n % ST;
-      mbar_wait(&full[st], (n / ST) & 1);
+      wait_stage<R>(&full[st], (n / ST) & 1);
       const unsigned char* qt = ring + st * 2 * kTile;
       const unsigned char* dot = qt + kTile;
       float s[BR / 2];
@@ -664,6 +710,15 @@ dkv_wide(const __grid_constant__ CUtensorMap tm_q,
     for (int nn = 0; nn < D / 8; ++nn) {
       const int col = nn * 8 + 2 * t;
       if (col >= p.d) break;
+      if constexpr (R) {  // at an odd d, 2-byte stores
+        if (ka < p.skv)
+          store_pair(out, (kbase + ka) * p.d + col, col, p.d,
+                     pack2<T>(acc[4 * nn], acc[4 * nn + 1]));
+        if (kb < p.skv)
+          store_pair(out, (kbase + kb) * p.d + col, col, p.d,
+                     pack2<T>(acc[4 * nn + 2], acc[4 * nn + 3]));
+        continue;
+      }
       if (ka < p.skv)
         *reinterpret_cast<uint32_t*>(out + (kbase + ka) * p.d + col) =
             pack2<T>(acc[4 * nn], acc[4 * nn + 1]);
@@ -674,49 +729,72 @@ dkv_wide(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// d % 8 == 0: TMA maps; else the ragged producer's rows (no maps)
 template <int D, typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* o,
               const void* dout, const float* lse, float* di, void* dq,
               const Problem& p, int bh, cudaStream_t stream) {
-  CUtensorMap m[4];  // q, k, v, do
-  const int rc = tile_maps<T, D, 4>(m, {q, k, v, dout},
-                                    {p.sq, p.skv, p.skv, p.sq},
-                                    {64, kTileRows, kTileRows, 64}, bh, p.d);
-  if (rc != 0) return rc;
+  const bool ragged = p.d % 8 != 0;
+  CUtensorMap m[4] = {};  // q, k, v, do
+  BwdRows<T> rows{nullptr, nullptr, nullptr, nullptr};
+  const T *ot = static_cast<const T*>(o), *dot = static_cast<const T*>(dout);
+  if (ragged) {
+    rows = {static_cast<const T*>(q), static_cast<const T*>(k),
+            static_cast<const T*>(v), dot};
+  } else {
+    const int rc = tile_maps<T, D, 4>(m, {q, k, v, dout},
+                                      {p.sq, p.skv, p.skv, p.sq},
+                                      {64, kTileRows, kTileRows, 64}, bh, p.d);
+    if (rc != 0) return rc;
+  }
   constexpr int NC = dq_consumers(D);
   const dim3 grid(cdiv(p.sq, 64 * NC), bh);
-  const T *ot = static_cast<const T*>(o), *dot = static_cast<const T*>(dout);
   T* out = static_cast<T*>(dq);
+  auto go = [&](auto kernel) {
+    return launch(kernel, grid, 128 * (NC + 1), smem_dq<D>(), stream, m[0],
+                  m[1], m[2], m[3], rows, ot, dot, lse, di, out, p);
+  };
   if (p.tiles != nullptr)
-    return launch(dq_wide<D, T, true>, grid, 128 * (NC + 1), smem_dq<D>(),
-                  stream, m[0], m[1], m[2], m[3], ot, dot, lse, di, out, p);
-  return launch(dq_wide<D, T, false>, grid, 128 * (NC + 1), smem_dq<D>(),
-                stream, m[0], m[1], m[2], m[3], ot, dot, lse, di, out, p);
+    return ragged ? go(dq_wide<D, T, true, true>)
+                  : go(dq_wide<D, T, true, false>);
+  return ragged ? go(dq_wide<D, T, false, true>)
+                : go(dq_wide<D, T, false, false>);
 }
 
 template <int D, typename T>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const float* lse, const float* di, void* dk, void* dv,
                const Problem& p, int bh, cudaStream_t stream) {
-  CUtensorMap m[4];  // q, k, v, do
-  const int rc = tile_maps<T, D, 4>(m, {q, k, v, dout},
-                                    {p.sq, p.skv, p.skv, p.sq},
-                                    {kTileRows, 64, 64, kTileRows}, bh, p.d);
-  if (rc != 0) return rc;
+  const bool ragged = p.d % 8 != 0;
+  CUtensorMap m[4] = {};  // q, k, v, do
+  BwdRows<T> rows{nullptr, nullptr, nullptr, nullptr};
+  if (ragged) {
+    rows = {static_cast<const T*>(q), static_cast<const T*>(k),
+            static_cast<const T*>(v), static_cast<const T*>(dout)};
+  } else {
+    const int rc = tile_maps<T, D, 4>(m, {q, k, v, dout},
+                                      {p.sq, p.skv, p.skv, p.sq},
+                                      {kTileRows, 64, 64, kTileRows}, bh, p.d);
+    if (rc != 0) return rc;
+  }
   const dim3 grid(cdiv(p.skv, 64), bh);
   T *dkt = static_cast<T*>(dk), *dvt = static_cast<T*>(dv);
+  auto go = [&](auto kernel) {
+    return launch(kernel, grid, 384, smem_dkv<D>(), stream, m[0], m[1], m[2],
+                  m[3], rows, lse, di, dkt, dvt, p);
+  };
   if (p.tiles != nullptr)
-    return launch(dkv_wide<D, T, true>, grid, 384, smem_dkv<D>(), stream,
-                  m[0], m[1], m[2], m[3], lse, di, dkt, dvt, p);
-  return launch(dkv_wide<D, T, false>, grid, 384, smem_dkv<D>(), stream,
-                m[0], m[1], m[2], m[3], lse, di, dkt, dvt, p);
+    return ragged ? go(dkv_wide<D, T, true, true>)
+                  : go(dkv_wide<D, T, true, false>);
+  return ragged ? go(dkv_wide<D, T, false, true>)
+                : go(dkv_wide<D, T, false, false>);
 }
 
 // calls f(T{}, std::integral_constant<int, D>{}) for the dtype code (1
 // bfloat16, 2 float16) and the instance D (192 or 256) of the head dim
 template <typename F>
 int wide_dispatch(int dtype, int d, F f) {
-  if (d % 8 != 0 || d <= 128 || d > 256 || (dtype != 1 && dtype != 2))
+  if (d <= 128 || d > 256 || (dtype != 1 && dtype != 2))
     return cudaErrorInvalidValue;
   auto by_dim = [&](auto t) -> int {
     if (d <= 192) return f(t, std::integral_constant<int, 192>{});

@@ -554,6 +554,356 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
+// ---------------------------------------------------------------------------
+// the ragged producers (fwd_wg, dq_tc, dkv_tc, dq_wide, dkv_wide with R:
+// 16-bit head dims that are not a multiple of 8, whose rows of 2d bytes
+// TMA's 16-byte global strides cannot describe): the producer warpgroup's
+// 128 threads copy the tiles TMA would have loaded into the same swizzled
+// layout, by cp.async pieces, or 2-byte stores at an odd d
+// ---------------------------------------------------------------------------
+
+// Where a producer thread's pieces of a row-major tile lie (V elements a
+// piece, P = d / V of them a row): at P <= 128 the thread copies the piece
+// at column c of the rows r, r + dr, ... (dr = 128 / P rows at once, dr P
+// threads busy); above, the columns c and c + 128 V of every row. A thread
+// with no piece has c >= d. The offsets inside a column stay fixed down
+// the rows, so a piece costs a few instructions.
+struct Walk {
+  int r, c, dr;
+};
+
+__device__ __forceinline__ Walk walk_of(int tid, int d, int v) {
+  const int per = d / v;
+  if (per > 128) return Walk{0, tid * v, 1};
+  const int rows = 128 / per;
+  return tid < rows * per ? Walk{tid / per, (tid % per) * v, rows}
+                          : Walk{0, d, 1};
+}
+
+// the byte of element (r, c) in a W-byte-swizzled tile of ROWS rows
+template <int ROWS, int W>
+__device__ __forceinline__ int swizzled(int r, int c) {
+  constexpr int C = W / 2;  // columns of a column block
+  const int byte = (c % C) * 2;
+  const int swz = W == 128 ? r & 7 : (r >> 1) & 3;
+  return (c / C) * ROWS * W + r * W + (((byte >> 4) ^ swz) << 4) + (byte & 15);
+}
+
+// Rows [row0, row0 + ROWS) of a [n, d] matrix g into a W-byte-swizzled tile
+// of ROWS rows (TMA's layout, hopper.cuh) by 8- (V = 4) or 4-byte (V = 2)
+// cp.async, the pieces that walk `w` gives this thread, zero-filled past n.
+// Columns from d on are not written.
+template <int ROWS, int W, int V, typename T>
+__device__ __forceinline__ void copy_tile(unsigned char* tile, const T* g,
+                                          int row0, int n, int d, Walk w) {
+  for (int c = w.c; c < d; c += 128 * V) {
+    for (int r = w.r; r < ROWS; r += w.dr) {
+      const bool in = row0 + r < n;
+      hopper::cp_async_ca<2 * V>(tile + swizzled<ROWS, W>(r, c),
+                                 g + (in ? (long long)(row0 + r) * d + c : c),
+                                 in);
+    }
+  }
+}
+
+// The same tile at an odd d, whose rows lie only 2-byte aligned: the rows
+// [row0, row0 + ROWS) are one contiguous span of g, so the producer's 128
+// threads load its 4-byte words in turn (NB words a thread in flight) and
+// store each word's two elements where they belong by 2-byte stores;
+// elements of rows past n are stored as 0, and a word that reaches past
+// the span's valid elements is read by its valid halves alone.
+template <int ROWS, int W, int NB, typename T>
+__device__ __forceinline__ void copy_tile_odd(unsigned char* tile, const T* g,
+                                              int row0, int n, int d,
+                                              int tid) {
+  const unsigned short* gs = reinterpret_cast<const unsigned short*>(g);
+  const long long e0 = (long long)row0 * d, e1 = e0 + (long long)ROWS * d;
+  const long long ev = min(e1, max(e0, (long long)n * d));
+  // the first element of the 4-byte word that holds element e0
+  const long long w0 = e0 - ((reinterpret_cast<uintptr_t>(gs + e0) >> 1) & 1);
+  const int words = static_cast<int>((e1 - w0 + 1) / 2);
+  // (row, column) of this thread's next word's first element (-1: the
+  // element before the tile), and a step of 128 words, 256 elements
+  const int rel = static_cast<int>(w0 - e0) + 2 * tid;
+  int r = rel >= 0 ? rel / d : -1, c = rel >= 0 ? rel % d : d - 1;
+  const int dr = 256 / d, dc = 256 % d;
+  for (int k0 = tid; k0 < words; k0 += 128 * NB) {
+    uint32_t x[NB];
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      const int k = k0 + 128 * i;
+      const long long e = w0 + 2LL * k;
+      x[i] = 0;
+      if (k < words) {
+        if (e >= e0 && e + 1 < ev) {
+          x[i] = *reinterpret_cast<const uint32_t*>(gs + e);
+        } else {
+          if (e >= e0 && e < ev) x[i] = gs[e];
+          if (e + 1 >= e0 && e + 1 < ev) x[i] |= uint32_t(gs[e + 1]) << 16;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < NB; ++i) {
+      if (k0 + 128 * i < words) {
+        int rr = r, cc = c;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          if (rr >= 0 && rr < ROWS)
+            *reinterpret_cast<unsigned short*>(
+                tile + swizzled<ROWS, W>(rr, cc)) = (x[i] >> (16 * h)) & 0xffff;
+          if (++cc == d) cc = 0, ++rr;
+        }
+      }
+      r += dr;
+      c += dc;
+      if (c >= d) c -= d, ++r;
+    }
+  }
+}
+
+// What the backward's ragged producers share with fwd_wg's (which keeps
+// its own copy of the calls, as it was written).
+//
+// The columns from d to D of a W-byte-swizzled tile of ROWS rows, which
+// TMA would have read as 0: each 16-byte chunk from the one holding column
+// d on, whole, by the threads tid, tid + step, ... Run once a buffer,
+// before a barrier: the copies of the columns below d land after it and
+// never write past d.
+template <int D, int ROWS, int W>
+__device__ __forceinline__ void zero_tail(unsigned char* tile, int d, int tid,
+                                          int step) {
+  const int c8 = d / 8, chunks = D / 8 - c8;
+  for (int i = tid; i < ROWS * chunks; i += step)
+    *reinterpret_cast<uint4*>(
+        tile + swizzled<ROWS, W>(i / chunks, (c8 + i % chunks) * 8)) =
+        make_uint4(0, 0, 0, 0);
+}
+
+// the backward's inputs as [B*H, S, d] rows, for its ragged producers (null
+// in the TMA instances)
+template <typename T>
+struct BwdRows {
+  const T *q, *k, *v, *dout;
+};
+
+// Calls f(std::integral_constant<int, V>{}) with V the elements of a copy
+// piece at head dim d: 4 (8 bytes) at d % 4 == 0, 2 (4 bytes) at other
+// even d, 1 at an odd d (copy_tile_odd).
+template <typename F>
+__device__ __forceinline__ void by_piece(int d, F f) {
+  if (d % 4 == 0)
+    f(std::integral_constant<int, 4>{});
+  else if (d % 2 == 0)
+    f(std::integral_constant<int, 2>{});
+  else
+    f(std::integral_constant<int, 1>{});
+}
+
+// ROWS rows from row0 of a [n, d] matrix g into a W-byte-swizzled tile, by
+// the pieces of V elements of this thread's walk w, or at V = 1 by
+// copy_tile_odd (NB words a thread in flight)
+template <int ROWS, int W, int V, int NB, typename T>
+__device__ __forceinline__ void copy_ragged(unsigned char* tile, const T* g,
+                                            int row0, int n, int d, Walk w,
+                                            int tid) {
+  if constexpr (V == 1)
+    copy_tile_odd<ROWS, W, NB>(tile, g, row0, n, d, tid);
+  else
+    copy_tile<ROWS, W, V>(tile, g, row0, n, d, w);
+}
+
+// an arrival on `bar` once this thread's copies so far have landed: by
+// cp.async.mbarrier.arrive.noinc, or after V = 1's plain stores a plain
+// arrival (release)
+template <int V>
+__device__ __forceinline__ void arrive_copies(uint64_t* bar) {
+  if constexpr (V == 1)
+    hopper::mbar_arrive(bar);
+  else
+    hopper::cp_async_arrive_noinc(bar);
+}
+
+// Lane t's share of rowsum(o * do) over one row of d elements at element
+// offset `off`: the pieces t, t + 4, ... of 4 (8-byte loads), 2 (4-byte)
+// or 1 element, by the row's alignment, in f32.
+template <typename T>
+__device__ __forceinline__ float row_dot(const T* o, const T* dout,
+                                         long long off, int d, int t) {
+  float sum = 0.f;
+  if (d % 4 == 0) {
+    for (int c = 4 * t; c < d; c += 16) {
+      const uint2 ov = *reinterpret_cast<const uint2*>(o + off + c);
+      const uint2 dv = *reinterpret_cast<const uint2*>(dout + off + c);
+      const T* o4 = reinterpret_cast<const T*>(&ov);
+      const T* d4 = reinterpret_cast<const T*>(&dv);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float2 of = hopper::unpack2<T>(o4[2 * e], o4[2 * e + 1]);
+        const float2 df = hopper::unpack2<T>(d4[2 * e], d4[2 * e + 1]);
+        sum = fmaf(of.x, df.x, sum);
+        sum = fmaf(of.y, df.y, sum);
+      }
+    }
+  } else if (d % 2 == 0) {
+    for (int c = 2 * t; c < d; c += 8) {
+      const uint32_t ow = *reinterpret_cast<const uint32_t*>(o + off + c);
+      const uint32_t dw = *reinterpret_cast<const uint32_t*>(dout + off + c);
+      const T* o2 = reinterpret_cast<const T*>(&ow);
+      const T* d2 = reinterpret_cast<const T*>(&dw);
+      const float2 of = hopper::unpack2<T>(o2[0], o2[1]);
+      const float2 df = hopper::unpack2<T>(d2[0], d2[1]);
+      sum = fmaf(of.x, df.x, sum);
+      sum = fmaf(of.y, df.y, sum);
+    }
+  } else {
+    for (int c = t; c < d; c += 4) {
+      const float2 of = hopper::unpack2<T>(o[off + c], o[off + c]);
+      const float2 df = hopper::unpack2<T>(dout[off + c], dout[off + c]);
+      sum = fmaf(of.x, df.x, sum);
+    }
+  }
+  return sum;
+}
+
+// A consumer's wait for a stage that wgmma reads: after the ragged
+// producer's generic-proxy writes (R), an async-proxy fence.
+template <bool R>
+__device__ __forceinline__ void wait_stage(uint64_t* bar, uint32_t phase) {
+  hopper::mbar_wait(bar, phase);
+  if constexpr (R) hopper::fence_proxy_async();
+}
+
+// The ragged producer of the dq kernels (dq_tc, dq_wide), run by the
+// producer warpgroup's 128 threads: the NC 64-row parts of Q and dO from
+// row r0 (kHalf bytes a part), arriving on q_full; then each tile i <
+// tiles that loaded(i) keeps, BC keys from first + i BC, into the ring's
+// next stage st of ST ([K tile, V tile] of kTile bytes each; under M the
+// tile's kv ids, 0 without ids, into kid[st BC ..]) once empty[st] has
+// passed, arriving on full[st].
+template <int NC, int BC, int ST, int W, bool M, typename T, typename L>
+__device__ __forceinline__ void produce_dq(
+    const BwdRows<T>& rg, const Problem& p, int b, int bh, int r0,
+    int first, int tiles, L loaded, unsigned char* qs, unsigned char* dos,
+    int kHalf, unsigned char* ring, int kTile, uint64_t* q_full,
+    uint64_t* full, uint64_t* empty, int* kid) {
+  const int tid = threadIdx.x;
+  by_piece(p.d, [&](auto piece) {
+    constexpr int V = decltype(piece)::value;
+    const Walk w = walk_of(tid, p.d, V);
+    const long long qoff = (long long)bh * p.sq * p.d;
+    for (int hf = 0; hf < NC; ++hf) {
+      copy_ragged<64, W, V, 8>(qs + hf * kHalf, rg.q + qoff, r0 + 64 * hf,
+                               p.sq, p.d, w, tid);
+      copy_ragged<64, W, V, 8>(dos + hf * kHalf, rg.dout + qoff,
+                               r0 + 64 * hf, p.sq, p.d, w, tid);
+    }
+    arrive_copies<V>(q_full);
+    const T* kg = rg.k + (long long)bh * p.skv * p.d;
+    const T* vg = rg.v + (long long)bh * p.skv * p.d;
+    int n = 0;  // tiles loaded
+    for (int i = 0; i < tiles; ++i) {
+      const int c0 = first + i * BC;
+      if (!loaded(i)) continue;
+      const int st = n % ST;
+      hopper::mbar_wait(&empty[st], ((n / ST) & 1) ^ 1);
+      ++n;
+      if constexpr (M) {  // the tile's kv ids, with K
+        for (int u = tid; u < BC; u += 128) {
+          const bool in = p.q_ids != nullptr && c0 + u < p.skv;
+          const int* src = in ? p.kv_ids + (long long)b * p.skv + c0 + u
+                              : reinterpret_cast<const int*>(kg);
+          if constexpr (V == 1)
+            kid[st * BC + u] = in ? *src : 0;
+          else
+            cp_async_ca<4>(&kid[st * BC + u], src, in);
+        }
+      }
+      unsigned char* dst = ring + st * 2 * kTile;
+      copy_ragged<BC, W, V, 8>(dst, kg, c0, p.skv, p.d, w, tid);
+      copy_ragged<BC, W, V, 8>(dst + kTile, vg, c0, p.skv, p.d, w, tid);
+      arrive_copies<V>(&full[st]);
+    }
+  });
+}
+
+// The ragged producer of the dkv kernels (dkv_tc, dkv_wide), run by the
+// producer warpgroup's 128 threads: the NH 64-key parts of K and V from
+// key c0 (kHalf bytes a part), arriving on kv_full; then each q tile of BR
+// rows from r0 = first + i BR (i < tiles) that loaded(r0) keeps into the
+// ring's next stage st of ST ([Q tile, dO tile] of kTile bytes each) once
+// empty[st] has passed, arriving on full[st]; the first warp's lanes then
+// write the tile's row statistics (lse log2e, di, the visible keys [lo,
+// hi) and, under M, the segment ids, at st BR ..) and arrive again, so
+// that full[st] counts 128 + 32 arrivals. They fetch the statistics when
+// they store them: fetched a tile ahead, as the TMA producers do, they
+// spilled 12-60 bytes at 40 registers and gained nothing on an H100.
+template <int NH, int BR, int ST, int W, bool M, typename T, typename L>
+__device__ __forceinline__ void produce_dkv(
+    const BwdRows<T>& rg, const Problem& p, int b, int bh, int c0,
+    int first, int tiles, L loaded, const float* lse, const float* di,
+    unsigned char* ks, unsigned char* vs, int kHalf, unsigned char* ring,
+    int kTile, uint64_t* kv_full, uint64_t* full, uint64_t* empty,
+    float* lse_s, float* di_s, int2* keys_s, int* qid_s) {
+  const int tid = threadIdx.x;
+  const long long lbase = (long long)bh * p.sq;
+  by_piece(p.d, [&](auto piece) {
+    constexpr int V = decltype(piece)::value;
+    const Walk w = walk_of(tid, p.d, V);
+    const long long koff = (long long)bh * p.skv * p.d;
+    for (int hf = 0; hf < NH; ++hf) {
+      copy_ragged<64, W, V, 8>(ks + hf * kHalf, rg.k + koff, c0 + 64 * hf,
+                               p.skv, p.d, w, tid);
+      copy_ragged<64, W, V, 8>(vs + hf * kHalf, rg.v + koff, c0 + 64 * hf,
+                               p.skv, p.d, w, tid);
+    }
+    arrive_copies<V>(kv_full);
+    const T* qg = rg.q + lbase * p.d;
+    const T* dg = rg.dout + lbase * p.d;
+    int n = 0;  // tiles loaded
+    for (int i = 0; i < tiles; ++i) {
+      const int r0 = first + i * BR;
+      if (!loaded(r0)) continue;
+      const int st = n % ST;
+      hopper::mbar_wait(&empty[st], ((n / ST) & 1) ^ 1);
+      ++n;
+      unsigned char* dst = ring + st * 2 * kTile;
+      copy_ragged<BR, W, V, 8>(dst, qg, r0, p.sq, p.d, w, tid);
+      copy_ragged<BR, W, V, 8>(dst + kTile, dg, r0, p.sq, p.d, w, tid);
+      arrive_copies<V>(&full[st]);
+      if (tid < 32) {  // the row statistics
+#pragma unroll
+        for (int u = 0; u < BR / 32; ++u) {
+          const int row = r0 + tid + 32 * u, at = st * BR + tid + 32 * u;
+          const bool in = row < p.sq;
+          lse_s[at] = in ? lse[lbase + row] * kLog2e : 0.f;
+          di_s[at] = in ? di[lbase + row] : 0.f;
+          keys_s[at] = key_bounds(p, b, row);
+          if constexpr (M)
+            qid_s[at] = in && p.q_ids != nullptr
+                            ? p.q_ids[(long long)b * p.sq + row] : 0;
+        }
+        hopper::mbar_arrive(&full[st]);
+      }
+    }
+  });
+}
+
+// The output columns col and col + 1 (col even, col < d) of a [rows, d]
+// matrix at element i: one 4-byte store at an even d, 2-byte stores at an
+// odd d, where col + 1 may lie past d.
+template <typename T>
+__device__ __forceinline__ void store_pair(T* out, long long i, int col, int d,
+                                           uint32_t pair) {
+  if (!(d & 1)) {
+    *reinterpret_cast<uint32_t*>(out + i) = pair;
+  } else {
+    unsigned short* os = reinterpret_cast<unsigned short*>(out + i);
+    os[0] = pair & 0xffff;
+    if (col + 1 < d) os[1] = pair >> 16;
+  }
+}
+
 // what an entry point returns when a TMA map could not be encoded: this
 // plus libcuda's CUresult (kMapError - 1: no encoder was found)
 constexpr int kMapError = 10000;
@@ -592,8 +942,8 @@ int wg_fwd(int dtype, const void* q, const void* k, const void* v, void* o,
            float* lse, const Problem& p, int bh, cudaStream_t stream);
 
 // flash_backward_wide.cu: the wgmma backward, dq then dkv, for bfloat16
-// (dtype 1) and float16 (2) at head dims d % 8 == 0, 128 < d <= 256; the
-// same returns as wg_fwd.
+// (dtype 1) and float16 (2) at head dims 128 < d <= 256 (tiles by TMA at
+// d % 8 == 0, by cp.async at the rest); the same returns as wg_fwd.
 int wide_dq(int dtype, const void* q, const void* k, const void* v,
             const void* o, const void* dout, const float* lse, float* di,
             void* dq, const Problem& p, int bh, cudaStream_t stream);

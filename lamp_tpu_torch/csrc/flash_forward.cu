@@ -169,106 +169,6 @@ struct Rows {
   const T *q, *k, *v;
 };
 
-// Where a producer thread's pieces of a row-major tile lie (V elements a
-// piece, P = d / V of them a row): at P <= 128 the thread copies the piece
-// at column c of the rows r, r + dr, ... (dr = 128 / P rows at once, dr P
-// threads busy); above, the columns c and c + 128 V of every row. A thread
-// with no piece has c >= d. The offsets inside a column stay fixed down
-// the rows, so a piece costs a few instructions.
-struct Walk {
-  int r, c, dr;
-};
-
-__device__ __forceinline__ Walk walk_of(int tid, int d, int v) {
-  const int per = d / v;
-  if (per > 128) return Walk{0, tid * v, 1};
-  const int rows = 128 / per;
-  return tid < rows * per ? Walk{tid / per, (tid % per) * v, rows}
-                          : Walk{0, d, 1};
-}
-
-// the byte of element (r, c) in a W-byte-swizzled tile of ROWS rows
-template <int ROWS, int W>
-__device__ __forceinline__ int swizzled(int r, int c) {
-  constexpr int C = W / 2;  // columns of a column block
-  const int byte = (c % C) * 2;
-  const int swz = W == 128 ? r & 7 : (r >> 1) & 3;
-  return (c / C) * ROWS * W + r * W + (((byte >> 4) ^ swz) << 4) + (byte & 15);
-}
-
-// Rows [row0, row0 + ROWS) of a [n, d] matrix g into a W-byte-swizzled tile
-// of ROWS rows (TMA's layout, hopper.cuh) by 8- (V = 4) or 4-byte (V = 2)
-// cp.async, the pieces that walk `w` gives this thread, zero-filled past n.
-// Columns from d on are not written.
-template <int ROWS, int W, int V, typename T>
-__device__ __forceinline__ void copy_tile(unsigned char* tile, const T* g,
-                                          int row0, int n, int d, Walk w) {
-  for (int c = w.c; c < d; c += 128 * V) {
-    for (int r = w.r; r < ROWS; r += w.dr) {
-      const bool in = row0 + r < n;
-      hopper::cp_async_ca<2 * V>(tile + swizzled<ROWS, W>(r, c),
-                                 g + (in ? (long long)(row0 + r) * d + c : c),
-                                 in);
-    }
-  }
-}
-
-// The same tile at an odd d, whose rows lie only 2-byte aligned: the rows
-// [row0, row0 + ROWS) are one contiguous span of g, so the producer's 128
-// threads load its 4-byte words in turn (NB words a thread in flight) and
-// store each word's two elements where they belong by 2-byte stores;
-// elements of rows past n are stored as 0, and a word that reaches past
-// the span's valid elements is read by its valid halves alone.
-template <int ROWS, int W, int NB, typename T>
-__device__ __forceinline__ void copy_tile_odd(unsigned char* tile, const T* g,
-                                              int row0, int n, int d,
-                                              int tid) {
-  const unsigned short* gs = reinterpret_cast<const unsigned short*>(g);
-  const long long e0 = (long long)row0 * d, e1 = e0 + (long long)ROWS * d;
-  const long long ev = min(e1, max(e0, (long long)n * d));
-  // the first element of the 4-byte word that holds element e0
-  const long long w0 = e0 - ((reinterpret_cast<uintptr_t>(gs + e0) >> 1) & 1);
-  const int words = static_cast<int>((e1 - w0 + 1) / 2);
-  // (row, column) of this thread's next word's first element (-1: the
-  // element before the tile), and a step of 128 words, 256 elements
-  const int rel = static_cast<int>(w0 - e0) + 2 * tid;
-  int r = rel >= 0 ? rel / d : -1, c = rel >= 0 ? rel % d : d - 1;
-  const int dr = 256 / d, dc = 256 % d;
-  for (int k0 = tid; k0 < words; k0 += 128 * NB) {
-    uint32_t x[NB];
-#pragma unroll
-    for (int i = 0; i < NB; ++i) {
-      const int k = k0 + 128 * i;
-      const long long e = w0 + 2LL * k;
-      x[i] = 0;
-      if (k < words) {
-        if (e >= e0 && e + 1 < ev) {
-          x[i] = *reinterpret_cast<const uint32_t*>(gs + e);
-        } else {
-          if (e >= e0 && e < ev) x[i] = gs[e];
-          if (e + 1 >= e0 && e + 1 < ev) x[i] |= uint32_t(gs[e + 1]) << 16;
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < NB; ++i) {
-      if (k0 + 128 * i < words) {
-        int rr = r, cc = c;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          if (rr >= 0 && rr < ROWS)
-            *reinterpret_cast<unsigned short*>(
-                tile + swizzled<ROWS, W>(rr, cc)) = (x[i] >> (16 * h)) & 0xffff;
-          if (++cc == d) cc = 0, ++rr;
-        }
-      }
-      r += dr;
-      c += dc;
-      if (c >= d) c -= d, ++r;
-    }
-  }
-}
-
 template <int D, typename T, bool M, bool R>
 __global__ void __launch_bounds__(128 * (wg_consumers(D) + 1), 1)
 fwd_wg(const __grid_constant__ CUtensorMap tm_q,

@@ -6,7 +6,9 @@ returns a state and ``step`` returns new parameters and a new state. Here
 it is a ``torch.optim.Optimizer`` that keeps the same state (``mt``, ``vt``
 f32 moments, an f32 ``master`` for bf16/f16 parameters only, and the step
 count) and updates the parameters in place under ``torch.no_grad()``, with
-``torch._foreach_*`` ops over all parameters at once.
+``torch._foreach_*`` ops over runs of parameters of at most
+``_STEP_ELEMENTS`` elements together (every parameter at once in a model of
+up to 256 M parameters).
 """
 
 from __future__ import annotations
@@ -20,6 +22,26 @@ from .clip import clip_by_global_norm
 __all__ = ["AdamW"]
 
 _LOW_PRECISION = (torch.bfloat16, torch.float16)
+
+# the step's f32 temporaries (the gradient, the denominator, the update,
+# the decay) are 16 bytes an element of the run being updated: runs of at
+# most 2^28 elements keep them to 4 GiB, where a whole 3.4 B-parameter
+# model's would take 55 GB beside its 55 GB of state. Each element's
+# arithmetic is the same in any run.
+_STEP_ELEMENTS = 1 << 28
+
+
+def _runs(params, limit):
+    """Consecutive index ranges of ``params`` of at most ``limit``
+    elements each (a larger parameter alone)."""
+    start, size = 0, 0
+    for i, p in enumerate(params):
+        if size and size + p.numel() > limit:
+            yield range(start, i)
+            start, size = i, 0
+        size += p.numel()
+    if start < len(params):
+        yield range(start, len(params))
 
 
 class AdamW(torch.optim.Optimizer):
@@ -76,14 +98,32 @@ class AdamW(torch.optim.Optimizer):
         if closure is not None:
             with torch.enable_grad():
                 loss = closure()
-        params = self.params
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad
-                 for p in params]
+        all_params = self.params
+        all_grads = [torch.zeros_like(p) if p.grad is None else p.grad
+                     for p in all_params]
         if self.clip is not None:
-            grads, _ = clip_by_global_norm(grads, self.clip)
-        g32 = [g.float() for g in grads]
+            all_grads, _ = clip_by_global_norm(all_grads, self.clip)
         b1, b2 = self.beta1, self.beta2
         t = self.param_groups[0]["step"] + 1
+        # in f32, as the JAX optimizer computes b ** t
+        tf = np.float32(t)
+        bc1 = float(np.float32(1) - np.float32(b1) ** tf) if self.debias \
+            else 1.0
+        bc2 = float(np.float32(1) - np.float32(b2) ** tf) if self.debias \
+            else 1.0
+        for run in _runs(all_params, _STEP_ELEMENTS):
+            self._update([all_params[i] for i in run],
+                         [all_grads[i] for i in run],
+                         [self.lrs[i] for i in run],
+                         [self.wds[i] for i in run], bc1, bc2, lr_factor)
+        self.param_groups[0]["step"] = t
+        return loss
+
+    def _update(self, params, grads, lrs, wds, bc1, bc2, lr_factor):
+        """The step's update of ``params`` (a run of the parameters) from
+        ``grads``, with the bias corrections bc1, bc2."""
+        b1, b2 = self.beta1, self.beta2
+        g32 = [g.float() for g in grads]
         states = [self.state[p] for p in params]
         mt = [s["mt"] for s in states]
         vt = [s["vt"] for s in states]
@@ -91,12 +131,7 @@ class AdamW(torch.optim.Optimizer):
         torch._foreach_add_(mt, g32, alpha=1 - b1)
         torch._foreach_mul_(vt, b2)
         torch._foreach_addcmul_(vt, g32, g32, value=1 - b2)
-        # in f32, as the JAX optimizer computes b ** t
-        tf = np.float32(t)
-        bc1 = float(np.float32(1) - np.float32(b1) ** tf) if self.debias \
-            else 1.0
-        bc2 = float(np.float32(1) - np.float32(b2) ** tf) if self.debias \
-            else 1.0
+        del g32
         denom = torch._foreach_div(vt, bc2)
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, self.eps)
@@ -107,13 +142,10 @@ class AdamW(torch.optim.Optimizer):
         masters = [p.float() if s["master"] is None else s["master"]
                    for p, s in zip(params, states)]
         decay = torch._foreach_mul(
-            masters, [lr_factor * lr * wd for lr, wd in zip(self.lrs,
-                                                            self.wds)])
-        torch._foreach_mul_(update, [-lr_factor * lr / bc1 for lr in self.lrs])
+            masters, [lr_factor * lr * wd for lr, wd in zip(lrs, wds)])
+        torch._foreach_mul_(update, [-lr_factor * lr / bc1 for lr in lrs])
         torch._foreach_add_(masters, update)
         torch._foreach_sub_(masters, decay)
         cast = [(p, m) for p, m in zip(params, masters) if m is not p]
         if cast:
             torch._foreach_copy_([p for p, _ in cast], [m for _, m in cast])
-        self.param_groups[0]["step"] = t
-        return loss

@@ -36,11 +36,18 @@ scaled_dot_product_attention, dq, dk and dv), at the same shape and
 dtype. It also hashes dq, dk and dv of the backward kernels on the plain
 forward's o and lse, which both trees compute alike, and prints whether
 the two trees' backward agree bit for bit. The "ragged" group times the
-forward at the 16-bit head dims that are not multiples of 8 (fwd_tc on
-mma.sync before, fwd_wg with a cp.async producer since) at B=2, H=8,
-S=2048, causal, bf16, D=12, 75, 100 and 130, beside SDPA's forward, and
-prints each tree's block error of o against the plain forward in f32. A
-third argument names one group; "tc" and "any" run by default. Prints each measurement and the median of
+16-bit head dims that are not multiples of 8 at B=2, H=8, S=2048, causal,
+bf16, D=12, 75, 100, 130 and 250: the forward (fwd_tc on mma.sync in
+older trees, fwd_wg with a cp.async producer now) beside SDPA's forward,
+and the backward's dq and dkv kernels and their sum (dq_mma and dkv_mma in
+older trees, the wgmma kernels with a cp.async producer now) beside
+SDPA's backward; it prints each tree's block error of o, dq, dk and dv against
+the plain version in f32, checks that two backward calls of each tree
+give the same bits, and hashes the TMA instances' outputs (fwd_wg, dq_tc,
+dkv_tc, dq_wide, dkv_wide at D=64, 128, 192 and 256, unmasked and with
+segment ids) on the plain forward's o and lse, which the two trees must
+give bit for bit. A third argument names one group; "tc" and "any" run by
+default. Prints each measurement and the median of
 each side, and the ratio of this tree's to the other's.
 """
 
@@ -55,7 +62,10 @@ CALLS = 30
 
 
 # the "ragged" group's head dims (bf16, B=2, H=8, S=2048, causal)
-RAGGED_DIMS = (12, 75, 100, 130)
+RAGGED_DIMS = (12, 75, 100, 130, 250)
+# the ragged group's hashed TMA instances: (head dim, segment ids)
+TMA_BITS = ((64, False), (128, False), (192, False), (256, False),
+            (64, True), (256, True))
 # the "any" group's shapes: (dtype name, head dim, B, H, S)
 ANY_SHAPES = (("float64", 64, 2, 8, 2048), ("float64", 100, 2, 8, 2048),
               ("float32", 64, 2, 8, 2048), ("float32", 100, 2, 8, 2048),
@@ -133,8 +143,16 @@ def worker(tree: str, build_only: bool, groups) -> None:
     times = {}
     errs = {}
     if "ragged" in groups:
+        import hashlib
+
+        def digest(tensors):
+            return hashlib.sha256(b"".join(
+                x.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+                for x in tensors)).hexdigest()[:16]
+
+        bits = {}
         for d in RAGGED_DIMS:
-            q, k, v = (randn(2, 8, 2048, d) for _ in range(3))
+            q, k, v, do = (randn(2, 8, 2048, d) for _ in range(4))
             scale = 1.0 / math.sqrt(d)
             times[f"fwd ragged D={d}"] = per_launch(
                 lambda: att._fwd_cuda(q, k, v, None, True, scale, None),
@@ -143,11 +161,53 @@ def worker(tree: str, build_only: bool, groups) -> None:
                 lambda: F.scaled_dot_product_attention(q, k, v,
                                                        is_causal=True),
                 [], f"SDPA fwd ragged D={d}")["all"]
-            o, _ = att._fwd_cuda(q, k, v, None, True, scale, None)
-            want, _ = att.flash_attention_reference(
-                q.float(), k.float(), v.float(), causal=True)
-            errs[f"fwd ragged D={d}"] = block_err(o, want)
-            del o, want
+            o, lse = att._fwd_cuda(q, k, v, None, True, scale, None)
+            bwd = per_launch(lambda: att._bwd_cuda(
+                q, k, v, o, lse, do, None, True, scale, None),
+                ["dq_", "dkv_"], f"bwd ragged D={d}")
+            times[f"dq ragged D={d}"] = bwd["dq_"]
+            times[f"dkv ragged D={d}"] = bwd["dkv_"]
+            times[f"bwd ragged D={d}"] = bwd["dq_"] + bwd["dkv_"]
+            ql, kl, vl = (x.clone().requires_grad_() for x in (q, k, v))
+            lo = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+            times[f"SDPA bwd ragged D={d}"] = per_launch(
+                lambda: torch.autograd.grad(lo, (ql, kl, vl), do,
+                                            retain_graph=True), [],
+                f"SDPA bwd ragged D={d}")["all"]
+            first, second = (att._bwd_cuda(q, k, v, o, lse, do, None, True,
+                                           scale, None) for _ in range(2))
+            if not all(torch.equal(x, y) for x, y in zip(first, second)):
+                raise SystemExit(f"ragged D={d}: two backward calls differ")
+            f32 = [x.float() for x in (q, k, v, do)]
+            want_o, want_lse = att.flash_attention_reference(
+                *f32[:3], causal=True)
+            wants = att._flash_backward_reference(
+                *f32[:3], want_o, want_lse, f32[3], causal=True,
+                sm_scale=scale)
+            errs[f"fwd ragged D={d}"] = block_err(o, want_o)
+            errs[f"bwd ragged D={d}"] = max(
+                block_err(g, w) for g, w in zip(first, wants))
+            del o, lse, lo, first, second, f32, want_o, want_lse, wants
+        # the TMA instances on inputs both trees compute alike (the plain
+        # forward's o and lse for the backward): the same bits in both
+        for d, with_ids in TMA_BITS:
+            q, k, v, do = (randn(2, 4, 1000, d) for _ in range(4))
+            scale = 1.0 / math.sqrt(d)
+            ids = None
+            if with_ids:
+                ids = torch.as_tensor(np.sort(np.random.RandomState(3).randint(
+                    0, 4, (2, 1000)), 1).astype(np.int32), device=dev)
+            vis = att._Visibility(q, ids, None)
+            o, lse = att._fwd_cuda(q, k, v, None, True, scale, None, vis)
+            po, plse = att.flash_attention_reference(
+                q, k, v, causal=True, segment_ids=ids)
+            grads = att._bwd_cuda(q, k, v, po, plse, do, None, True, scale,
+                                  None, vis)
+            what = f"TMA D={d}" + (" ids" if with_ids else "")
+            bits[f"{what} fwd"] = digest((o, lse))
+            bits[f"{what} bwd"] = digest(grads)
+            del o, lse, po, plse, grads
+        print("BITS " + json.dumps(bits), flush=True)
         if groups == ["ragged"]:
             print("ERR " + json.dumps(errs), flush=True)
             print("EV " + json.dumps(checks), flush=True)
@@ -341,7 +401,7 @@ def main() -> int:
     if bits["this"]:
         for key in bits["this"][0]:
             seen_bits = {m[key] for side in bits.values() for m in side}
-            print(f"{key}: the two trees' dq, dk and dv "
+            print(f"{key}: the two trees' outputs "
                   f"{'agree bit for bit' if len(seen_bits) == 1 else 'DIFFER'}"
                   f" ({', '.join(sorted(seen_bits))})", flush=True)
     return 0

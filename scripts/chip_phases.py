@@ -2,15 +2,19 @@
 call after a kernel change: the build (with ptxas's register and spill
 lines), then the named parts only.
 
-    python3 scripts/chip_phases.py [paged] [ragged] [fwd] [flash] [wide]
-        [any] [small] [train32] [openllama] [gemma] [quant]
+    python3 scripts/chip_phases.py [paged] [ragged] [ragged_bwd] [fwd]
+        [flash] [wide] [any] [small] [train32] [openllama] [gemma]
+        [openllama_train] [quant]
 
 paged: phase 2 (the paged-attention kernels: the fixed kernel's edges,
 K6_WIDE's shapes and the key split's edges included, and the serving
 decode call's timing); ragged: phase 4's checks of the ragged forward
 (check_ragged_forward: head dims 12-250 that are not multiples of 8, the
 wgmma forward's cp.async producer), then its timing at B=2, H=8, S=2048,
-D=12, 75, 100 and 130 beside SDPA;
+D=12, 75, 100 and 130 beside SDPA; ragged_bwd: phase 4's checks of the
+ragged backward (check_ragged_backward: head dims 12-250 that are not
+multiples of 8, the wgmma backward's cp.async producer), then its timing
+at B=2, H=8, S=2048, D=12, 75, 100, 130 and 250 beside SDPA's backward;
 fwd: phase 4's checks of the wgmma forward's edges
 (check_flash_forward_edges) and its timing at S=4096, S=384 and the
 packed shapes; flash: phase 4's head dims
@@ -21,7 +25,8 @@ timing at B=2, H=8, S=2048, D=160, 192 and 256; any: phase 4's
 edges of fwd_any (check_any_forward), then of dq_any and dkv_any
 (check_any_backward, with the f32 checks and the f32 flagship's shape),
 untimed; small: the GPT models of SMALL_HEAD_MODELS; train32:
-phase 5's f32 flagship; openllama: phase 11; gemma: phase 12; quant:
+phase 5's f32 flagship; openllama: phase 11; gemma: phase 12;
+openllama_train: phase 13 (OpenLLaMA-3B trained in bf16); quant:
 phase 6 (K7 at every decode shape and edge, int8_matmul, K8), then phase
 7's int4 server (launch counts, greedy tokens, the steady decode and K7's
 share of a profiled step). No argument runs them all.
@@ -46,8 +51,8 @@ from lamp_tpu_torch.ops import attention as att  # noqa: E402
 from lamp_tpu_torch.ops.paged_attention import (  # noqa: E402
     paged_attention, paged_attention_reference)
 
-PARTS = ("paged", "ragged", "fwd", "flash", "wide", "any", "small",
-         "train32", "openllama", "gemma", "quant")
+PARTS = ("paged", "ragged", "ragged_bwd", "fwd", "flash", "wide", "any",
+         "small", "train32", "openllama", "gemma", "openllama_train", "quant")
 
 
 def main(parts) -> int:
@@ -73,6 +78,11 @@ def main(parts) -> int:
     if "ragged" in parts:
         cs.check_ragged_forward(att)
         for d in (12, 75, 100, 130):
+            cs.time_flash_case(att, 2, 8, 2048, d, torch.bfloat16)
+    if "ragged_bwd" in parts:
+        cs.check_ragged_backward(att, lambda name, d, dtype, *a, **kw: check(
+            name, *a[:4], d, dtype, *a[4:], **kw))
+        for d in (12, 75, 100, 130, 250):
             cs.time_flash_case(att, 2, 8, 2048, d, torch.bfloat16)
     if "fwd" in parts:
         cs.check_flash_forward_edges(att, check)
@@ -111,6 +121,9 @@ def main(parts) -> int:
               flush=True)
     if "gemma" in parts:
         print(cs.phase_gemma(torch_nn, optim, train, att), flush=True)
+    if "openllama_train" in parts:
+        print(cs.phase_openllama_train(torch_nn, optim, train, att),
+              flush=True)
     if "quant" in parts:
         from lamp_tpu_torch.ops import quantization as Q
 

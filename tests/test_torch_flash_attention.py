@@ -368,11 +368,11 @@ def _vis_inputs(case, seed=7):
 
 
 
-# Head dims the backward's tensor-core kernels do not hold (not a multiple
-# of 8, or above 128: the CUDA path runs them in the ragged forward, the
-# wgmma forward's D=192 and 256 instances and the mma.sync backward),
-# causal, windowed and segmented, and the wgmma forward's edges, in the
-# VIS_CASES layout
+# Head dims the backward's TMA instances of 32, 64 and 128 do not hold (not
+# a multiple of 8, or above 128: the CUDA path runs them in the ragged
+# forward and backward, whose producers copy by cp.async, and in the
+# wgmma kernels' D=192 and 256 instances), causal, windowed and
+# segmented, and the wgmma forward's edges, in the VIS_CASES layout
 HEAD_DIM_CASES = [
     ("d12_causal", 1, 2, 64, 64, 12, True, None, None, None, None,
      np.float32),
@@ -429,6 +429,21 @@ HEAD_DIM_CASES = [
     ("d130_ids", 2, 1, 48, 48, 130, True, None, "sorted", None, None,
      np.float32),
     ("d250_causal_s129", 1, 1, 129, 129, 250, True, None, None, None, None,
+     np.float32),
+    # the ragged backward's tiling (the wgmma backward fed by cp.async): d
+    # 100 over 129 rows whose lengths differ between a 128-row dq block's
+    # halves, d 100 with Sq != Skv, an odd d (75) under a mask, d 102 with
+    # rows of length 0, and d 130 (dq_wide/dkv_wide's D=192 instance) at 65
+    # rows with a window
+    ("d100_s129_halves", 2, 1, 129, 129, 100, True, None, None, None,
+     "halves", np.float32),
+    ("d100_sq_ne_skv", 1, 2, 40, 72, 100, True, None, None, None, None,
+     np.float32),
+    ("d75_mask", 1, 2, 48, 48, 75, True, None, None, "heads", None,
+     np.float32),
+    ("d102_lengths_empty", 2, 1, 70, 70, 102, True, None, None, None,
+     "empty", np.float32),
+    ("d130_s65_window", 1, 1, 65, 65, 130, True, 20, None, None, None,
      np.float32),
 ]
 

@@ -95,6 +95,34 @@ def test_adamw_matches_jax(weight_decay, clip):
                                        rtol=RTOL, atol=ATOL)
 
 
+def test_adamw_runs_of_parameters_give_the_same_bits(monkeypatch):
+    """AdamW's step over runs of at most _STEP_ELEMENTS elements (here 20:
+    "w", 30 elements, alone, the rest one at a time) gives the bits of one
+    run over every parameter, with per-tag learning rates and decay and
+    the global clip."""
+    from lamp_tpu_torch.optim import optimizers
+
+    def run(limit):
+        monkeypatch.setattr(optimizers, "_STEP_ELEMENTS", limit)
+        tp = {n: torch.nn.Parameter(
+            torch.tensor(a).to(getattr(torch, DTYPES[n])))
+            for n, a in _params().items()}
+        opt = toptim.AdamW(tp, {"default": 1e-2, "Embedding.weight": 3e-2},
+                           weight_decay=_decay, clip=1.0, tags=dict(TAGS))
+        for step in range(3):
+            for n, p in tp.items():
+                p.grad = torch.tensor(_grads(step)[n]).to(p.dtype)
+            opt.step(lr_factor=[1.0, 0.5, 0.25][step])
+        return [t for p in tp.values() for t in (p.detach(), *(
+            x for x in opt.state[p].values() if x is not None))]
+
+    assert [list(r) for r in optimizers._runs(
+        [torch.zeros(n) for n in (30, 5, 21, 4, 6)], 20)] == [
+            [0], [1], [2], [3, 4]]
+    one, several = run(1 << 28), run(20)
+    assert all(torch.equal(x, y) for x, y in zip(one, several))
+
+
 @pytest.mark.parametrize("max_norm", [0.5, 100.0], ids=["clips", "passes"])
 def test_clip_by_global_norm_matches_jax(max_norm):
     g = _grads(0)

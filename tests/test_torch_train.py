@@ -239,23 +239,12 @@ def test_packed_modern_lm_train_steps_match_jax_f32():
     np.testing.assert_allclose(got, want, rtol=1e-4)
 
 
-def test_gemma_width_modern_lm_train_steps_match_jax_f32():
-    """A ModernLM at Gemma-2B's proportions, scaled down (chip_smoke.py's
-    phase 12 trains the full widths on the card): 2 blocks, 512 wide, 2
-    query heads over 1 kv head (head_dim 256), SwiGLU 1024, vocab 97,
-    context 80, tied, bridged from lamp_tpu. 20 AdamW steps on the same
-    plain causal rows (2 of 80 seeded tokens a step, no segment ids) in
-    both packages, f32, through ModernLM.loss; per-step losses within rtol
-    1e-4, as test_train_steps_match_jax_f32."""
-    from .test_torch_modern import jax_modern_lm
-
-    ctx, vocab = 80, 97
-    jm = jax_modern_lm(vocab_size=vocab, context_length=ctx, num_blocks=2,
-                       embed_dim=512, num_heads=2, num_kv_heads=1,
-                       mlp_hidden=1024, tied=True, norm_eps=1e-6,
-                       rope_base=10000.0)
+def _plain_causal_train_losses(jm, vocab, ctx):
+    """20 AdamW steps (3e-4, weight decay 0.01) of the JAX ModernLM ``jm``
+    and its bridged copy on the same plain causal rows (2 of ``ctx``
+    seeded tokens a step, no segment ids), f32, through ModernLM.loss:
+    the per-step losses (port, JAX)."""
     tm = tnn_load(jm)
-    assert tm.blocks[0].num_kv_heads == 1 and tm.rope_cos.shape[-1] == 128
 
     def jloss(m, batch, key, train):
         return m.loss(batch[0], batch[1]), jnp.float32(batch[1].size), m
@@ -279,6 +268,49 @@ def test_gemma_width_modern_lm_train_steps_match_jax_f32():
                                               for x in batch))
         want.append(float(jl))
         got.append(float(tl))
+    return got, want
+
+
+def test_gemma_width_modern_lm_train_steps_match_jax_f32():
+    """A ModernLM at Gemma-2B's proportions, scaled down (chip_smoke.py's
+    phase 12 trains the full widths on the card): 2 blocks, 512 wide, 2
+    query heads over 1 kv head (head_dim 256), SwiGLU 1024, vocab 97,
+    context 80, tied, bridged from lamp_tpu. 20 AdamW steps on the same
+    plain causal rows (2 of 80 seeded tokens a step, no segment ids) in
+    both packages, f32, through ModernLM.loss; per-step losses within rtol
+    1e-4, as test_train_steps_match_jax_f32."""
+    from .test_torch_modern import jax_modern_lm
+
+    ctx, vocab = 80, 97
+    jm = jax_modern_lm(vocab_size=vocab, context_length=ctx, num_blocks=2,
+                       embed_dim=512, num_heads=2, num_kv_heads=1,
+                       mlp_hidden=1024, tied=True, norm_eps=1e-6,
+                       rope_base=10000.0)
+    tm = tnn_load(jm)
+    assert tm.blocks[0].num_kv_heads == 1 and tm.rope_cos.shape[-1] == 128
+    got, want = _plain_causal_train_losses(jm, vocab, ctx)
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+def test_openllama_width_modern_lm_train_steps_match_jax_f32():
+    """A ModernLM at OpenLLaMA-3B's proportions, scaled down (chip_smoke.py's
+    phase 13 trains the full widths on the card): 2 blocks, 400 wide, 4
+    query heads over 4 kv heads (head_dim 100, not a multiple of 8: the
+    ragged kernels on the card), SwiGLU 1080, vocab 97, context 80,
+    untied, bridged from lamp_tpu. 20 AdamW steps on the same plain
+    causal rows in both packages, f32, through ModernLM.loss; per-step
+    losses within rtol 1e-4, as test_train_steps_match_jax_f32."""
+    from .test_torch_modern import jax_modern_lm
+
+    ctx, vocab = 80, 97
+    jm = jax_modern_lm(vocab_size=vocab, context_length=ctx, num_blocks=2,
+                       embed_dim=400, num_heads=4, num_kv_heads=4,
+                       mlp_hidden=1080, tied=False, norm_eps=1e-6,
+                       rope_base=10000.0)
+    tm = tnn_load(jm)
+    assert tm.blocks[0].num_kv_heads == 4 and tm.rope_cos.shape[-1] == 50
+    assert tm.lm_head is not None
+    got, want = _plain_causal_train_losses(jm, vocab, ctx)
     np.testing.assert_allclose(got, want, rtol=1e-4)
 
 
