@@ -126,16 +126,19 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
 6. The int4 dequant-matmul kernel (K7) against its plain version at every
    decode matmul of the serving configuration (QKV 768x1280, out 768x768,
    SwiGLU 768x2048 and 2048x768, logits 768x32000) with M in {1, 7, 32, 64,
-   3072}, bf16 and f32 x, bf16 and f32 out, by relative Frobenius error,
-   with a planted fault (one K-group's scale row dropped) that each check
-   must see, and at M in {1, 32, 64} two calls of the decode kernel
-   (int4_mm_decode, M <= 64) equal bit for bit; the same at K7_EDGES (a
-   ragged N of 1000 over an uneven cluster, K=8192 in rounds, groups of
-   32). Timed at B=32 by CUDA events over a CUDA graph of 100 calls (warm,
-   and cold: copies of the weight beyond L2), the profiler's sum held
-   against it, beside its bound and F.linear on the dequantized bf16
-   weight timed alike; a call must launch int4_mm_decode alone and
-   allocate nothing beside its output. int8_matmul (torch._int_mm,
+   65, 128, 160, 257, 3072}, bf16 x (f32 x up to 64), bf16 and f32 out, by
+   relative Frobenius error, with a planted fault (one K-group's scale row
+   dropped) that each check must see, and two calls equal bit for bit (the
+   decode kernel int4_mm_decode at M <= 64, the row-tiled int4_mm_tc
+   above); the same at K7_EDGES (a ragged N of 1000 over an uneven
+   cluster, K=8192 in rounds, groups of 32). Timed at B=32 by CUDA events
+   over a CUDA graph of 100 calls (warm, and cold: copies of the weight
+   beyond L2), the profiler's sum held against it, beside its bound and
+   F.linear on the dequantized bf16 weight timed alike; a call must launch
+   int4_mm_decode alone and allocate nothing beside its output. The same
+   for int4_mm_tc at M=128 (phase 14's chunk) at every shape and at
+   M=3072 for qkv and the logits, and for int4_mm_scalar (f32 x, beside
+   F.linear in f32) at B=32. int8_matmul (torch._int_mm,
    zero rows padded below 17 rows) at the same shapes with M in {1, 7, 16,
    17, 32}: bit for bit against the same arithmetic with an exact f64
    product, and near x @ dequant(w). The stochastic int8 quantizer (K8, on
@@ -208,6 +211,22 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
    D=128, 26 launches each a step), the loss falling over 10 steps on one
    batch, a profiled step (busy share, attention shares, no library
    attention kernel) and the peak memory.
+14. Speculative decoding at full width: phase 3's model as the target and
+   its first 3 blocks (draft_view, the same tensors) as the draft, both
+   behind ModernBatchServer(quantize_bits=4) in SpeculativeDecoder(k=4);
+   phase 3's first 32 prompts, greedy, every round over all 32 until each
+   has emitted 64 tokens: 1 to 4 tokens a round, int4_mm_tc launched 61
+   times a round (the target's chunk of 128 rows), the draft's
+   int4_mm_decode and K6 launches, the greedy tokens against the dense f32
+   forward of the dequantized target past phase 7's margin, the pools back
+   at their start; tokens a round, tok/s and a profiled round (device
+   time, ops, int4_mm_tc's share). Before it, in bf16, one advance_chunk's
+   logits against the same 4 tokens fed one step at a time (relative
+   error); after it, a sampled run at temperature 1.0.
+
+After phase 6, check_layouts holds flash_attention (forward and backward),
+paged_attention and int4_matmul given transposed views and offset slices
+against their contiguous copies, bit for bit.
 
 The last lines are one JSON line on the kernels, the card's name and power
 limit, and ``{"ok": true, "device": {...}}``.
@@ -481,8 +500,12 @@ K7_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
 K7_SHAPES = (("qkv", 768, 1280, 12), ("wo", 768, 768, 12),
              ("w1/w3", 768, 2048, 24), ("w2", 2048, 768, 12),
              ("logits", 768, 32000, 1))
-K7_ROWS = (1, 7, 32, 64, 3072)
+K7_ROWS = (1, 7, 32, 64, 65, 128, 160, 257, 3072)
 DECODE_B = 32
+# the row-tiled kernel's rows on phase 14's path (32 sequences x k = 4) and
+# of an LM forward
+SPEC_ROWS = 128
+LM_ROWS = 3072
 # the decode kernel's edges, checked untimed at every decode row: (name, K,
 # N, group) of a ragged N (1000: not a multiple of any tile, not of 16, so
 # the weight and scales go by plain loads) over an uneven cluster (24 steps
@@ -490,8 +513,9 @@ DECODE_B = 32
 # and groups of 32 (four groups in a 64-row slice)
 K7_EDGES = (("n1000", 768, 1000, 128), ("k8192", 8192, 1024, 128),
             ("g32", 768, 1280, 32))
-# two calls of the decode kernel equal bit for bit at these rows
-K7_BITS_ROWS = (1, 32, 64)
+# two calls of the decode kernel (M <= 64) or the row-tiled kernel equal bit
+# for bit at these rows
+K7_BITS_ROWS = (1, 32, 64, 65, 128, 160, 257, 3072)
 # a cold call cycles through copies of its weight that together exceed
 # the 50 MB L2 cache, as a decode step finds its weights
 COLD_BYTES = 64 << 20
@@ -542,6 +566,7 @@ def _counted():
                                                  quantize_int8_stochastic)
 
     return (("paged_attention", paged_attention, "launches"),
+            ("int4_mm_tc", int4_matmul, "tc_launches"),
             ("flash_attention", flash_attention, "launches"),
             ("flash_attention_backward", flash_attention,
              "backward_launches"),
@@ -2595,7 +2620,8 @@ def check_int4(Q, name, k, n, g, rows, gen, path_out):
     """K7 against its plain version at one weight shape: every row count of
     ``rows`` in bf16 x (bf16 and f32 out) and, at M <= 64, f32 x; each
     within K7_TOL, a planted dropped scale row above it, and at
-    K7_BITS_ROWS two calls of the decode kernel equal bit for bit. Returns
+    K7_BITS_ROWS two calls (of int4_mm_decode at M <= 64, of int4_mm_tc
+    above) equal bit for bit. Returns
     the packed weight, its scales, the largest error by out dtype, the
     smallest planted fault, and the largest absolute error at M=DECODE_B in
     the path's dtypes."""
@@ -2661,6 +2687,56 @@ def graph_checked(fn, name, what, calls=50):
     return ms, prof, times
 
 
+def time_int4_route(Q, name, p, s, x, path_out, kernel, w_lib):
+    """One K7 route's call int4_matmul(x, p, s) timed by graph_checked (the
+    trace must hold ``kernel`` and no other int4 kernel), with a call's
+    allocations beside its output (none allowed), its bound (bytes: x,
+    the packed weight, its scales and the output once; operations: 2 M K
+    N at the tensor cores' bf16 rate, or at the f32 rate outside them for
+    f32 x), its plain version and F.linear(x, w_lib) timed alike. Returns
+    the figures."""
+    m, k = x.shape
+    n = p.shape[1]
+    ms, prof, times = graph_checked(
+        lambda i: Q.int4_matmul(x, p, s, out_dtype=path_out), "int4_mm",
+        f"int4_matmul {name} M={m}")
+    names = sorted(key for key in times if "int4_mm" in key)
+    if not names or any(kernel not in key for key in names):
+        raise AssertionError(f"int4_matmul {name} M={m}: kernels {names}, "
+                             f"want {kernel} alone")
+    # one allocation a call, its output's (a count of the caching
+    # allocator's requests: a reused cached block can be larger than the
+    # request, so bytes would not say it)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    y = Q.int4_matmul(x, p, s, out_dtype=path_out)
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - before
+    if allocs != 1:
+        raise AssertionError(f"int4_matmul {name} M={m}: a call made "
+                             f"{allocs} allocations, want its output's")
+    del y
+    plain = sum(device_ms(lambda: Q.int4_matmul_reference(x, p, s).to(
+        path_out), 3).values())
+    lib, lib_prof, _ = graph_checked(
+        lambda i: torch.nn.functional.linear(x, w_lib), None,
+        f"F.linear {name} M={m}")
+    nbytes = (p.numel() + s.numel() * 4 + x.numel() * x.element_size()
+              + m * n * (4 if path_out == torch.float32 else 2))
+    rate = PEAK_FLOPS if x.dtype == torch.bfloat16 else PEAK_FLOPS_F32
+    by, fl = nbytes / PEAK_BYTES, 2 * m * k * n / rate
+    g = k // s.shape[0]
+    plan = (list(Q._int4_plan(m, n, k // 2, g, x.device))
+            if kernel != "int4_mm_scalar" else [0, 0, 0])
+    print(f"  int4_matmul {name:6} M={m}: {kernel} {ms * 1e3:8.2f} us, "
+          f"bound {max(by, fl) * 1e6:7.2f} us "
+          f"({'bytes' if by >= fl else 'operations'}), plain "
+          f"{plain * 1e3:9.2f} us, F.linear {lib * 1e3:7.2f} us "
+          f"({ms / lib:.2f}x); plan {plan}", flush=True)
+    return dict(ms=ms, profiler_ms=prof, plain_ms=plain, library_ms=lib,
+                library_profiler_ms=lib_prof, bound_ms=max(by, fl) * 1e3,
+                bound_by="bytes" if by >= fl else "operations", plan=plan)
+
+
 def phase_quant_kernels(Q):
     """K7 and K8 against their plain versions at the serving configuration's
     shapes and K7's edges, and their device times; returns the
@@ -2672,13 +2748,15 @@ def phase_quant_kernels(Q):
     path_err = 0.0
     per_call = {}
     for name, k, n, g in K7_EDGES:
-        _, _, w_edge, f_edge, _ = check_int4(Q, name, k, n, g, K7_ROWS[:4],
+        _, _, w_edge, f_edge, _ = check_int4(Q, name, k, n, g, K7_ROWS,
                                              gen, torch.bfloat16)
-        print(f"  int4_matmul {name} K={k} N={n} g={g}: M in {K7_ROWS[:4]} "
+        print(f"  int4_matmul {name} K={k} N={n} g={g}: M in {K7_ROWS} "
               f"within the limits (largest {max(w_edge.values()):.3e}), "
               f"planted fault at least {f_edge:.3e}, two calls bit for bit "
-              f"at M in {K7_BITS_ROWS}; plan (tile, cluster, round rows) "
-              f"{Q._int4_plan(DECODE_B, n, k // 2, g, dev)}", flush=True)
+              f"at M in {K7_BITS_ROWS}; plans (tile, cluster, rows) "
+              f"{Q._int4_plan(DECODE_B, n, k // 2, g, dev)} at M="
+              f"{DECODE_B}, {Q._int4_plan(SPEC_ROWS, n, k // 2, g, dev)} at "
+              f"M={SPEC_ROWS}", flush=True)
         for od in worst:
             worst[od] = max(worst[od], w_edge[od])
         least_fault = min(least_fault, f_edge)
@@ -2698,64 +2776,51 @@ def phase_quant_kernels(Q):
             p.numel() + 4 * s.numel()))))
         weights = [(p, s)] + [(p.clone(), s.clone())
                               for _ in range(copies - 1)]
-        ms, prof, times = graph_checked(
-            lambda i: Q.int4_matmul(x, p, s, out_dtype=path_out), "int4_mm",
-            f"int4_matmul {name}")
-        # one launch a call, no second pass, no workspace
-        names = sorted(key for key in times if "int4_mm" in key)
-        if not names or any("int4_mm_decode" not in key for key in names):
-            raise AssertionError(f"int4_matmul {name}: kernels {names}, "
-                                 f"want int4_mm_decode alone")
-        torch.cuda.synchronize()
-        before = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        y = Q.int4_matmul(x, p, s, out_dtype=path_out)
-        extra = torch.cuda.max_memory_allocated() - before
-        if extra > -(-y.numel() * y.element_size() // 512) * 512:
-            raise AssertionError(f"int4_matmul {name}: a call allocated "
-                                 f"{extra} bytes beside its output")
-        del y
+        w_deq = Q.dequantize_int4(p, s).t().contiguous()  # [N, K] bf16
+        dec = time_int4_route(Q, name, p, s, x, path_out, "int4_mm_decode",
+                              w_deq)
+        ms, prof, plain, lib = (dec[key] for key in (
+            "ms", "profiler_ms", "plain_ms", "library_ms"))
         ms_cold = graph_ms(lambda i: Q.int4_matmul(
             x, *weights[i % copies], out_dtype=path_out))
-        plain = sum(device_ms(lambda: Q.int4_matmul_reference(x, p, s).to(
-            path_out), 10).values())
-        w_deq = Q.dequantize_int4(p, s).t().contiguous()  # [N, K] bf16
         lin = [w_deq] + [w_deq.clone() for _ in range(max(0, min(
             GRAPH_CALLS, -(-COLD_BYTES // (2 * k * n))) - 1))]
-        lib, lib_prof, _ = graph_checked(
-            lambda i: torch.nn.functional.linear(x, w_deq), None,
-            f"F.linear {name}")
         lib_cold = graph_ms(lambda i: torch.nn.functional.linear(
             x, lin[i % len(lin)]))
-        xl = torch.randn(K7_ROWS[-1], k, generator=gen, device=dev).bfloat16()
-        ms_large = _kernel_ms(device_ms(
-            lambda: Q.int4_matmul(xl, p, s, out_dtype=path_out), 5),
-            "int4_mm")
+        # the row-tiled kernel (int4_mm_tc) at phase 14's rows, and qkv and
+        # the logits at an LM forward's
+        tc = {SPEC_ROWS: time_int4_route(
+            Q, name, p, s, torch.randn(SPEC_ROWS, k, generator=gen,
+                                       device=dev).bfloat16(),
+            path_out, "int4_mm_tc", w_deq)}
+        if name in ("qkv", "logits"):
+            tc[LM_ROWS] = time_int4_route(
+                Q, name, p, s, torch.randn(LM_ROWS, k, generator=gen,
+                                           device=dev).bfloat16(),
+                path_out, "int4_mm_tc", w_deq)
+        # the scalar kernel (f32 x) at the decode batch, beside F.linear in
+        # f32 on the dequantized f32 weight
+        scalar = time_int4_route(
+            Q, name, p, s, x.float(), torch.float32, "int4_mm_scalar",
+            Q.dequantize_int4(p, s, dtype=torch.float32).t().contiguous())
         # the wrapper's whole call, host launch path included
         events_ms = cuda_time_ms(
             lambda: Q.int4_matmul(x, p, s, out_dtype=path_out), 200)
-        nbytes = (p.numel() + s.numel() * 4 + x.numel() * 2
-                  + DECODE_B * n * (4 if path_out == torch.float32 else 2))
-        by, fl = nbytes / PEAK_BYTES, 2 * DECODE_B * k * n / PEAK_FLOPS
         per_call[name] = dict(k=k, n=n, per_step=per_step, ms=ms,
                               profiler_ms=prof, cold_ms=ms_cold,
                               plain_ms=plain, library_ms=lib,
-                              library_profiler_ms=lib_prof,
+                              library_profiler_ms=dec["library_profiler_ms"],
                               library_cold_ms=lib_cold,
-                              bound_ms=max(by, fl) * 1e3,
-                              bound_by="bytes" if by >= fl else "operations",
-                              ms_m3072=ms_large, events_ms=events_ms,
-                              plan=list(Q._int4_plan(DECODE_B, n, k // 2,
-                                                     Q.int4_group_size(k),
-                                                     dev)))
+                              bound_ms=dec["bound_ms"],
+                              bound_by=dec["bound_by"], events_ms=events_ms,
+                              plan=dec["plan"],
+                              tc={f"M={m}": t for m, t in tc.items()},
+                              scalar_f32=scalar)
         print(f"  int4_matmul {name:6} K={k} N={n}: M={DECODE_B} "
-              f"{ms * 1e3:7.2f} us (cold {ms_cold * 1e3:.2f}), bound "
-              f"{max(by, fl) * 1e6:6.2f} us, plain {plain * 1e3:8.2f} us, "
-              f"F.linear on the dequantized bf16 weight {lib * 1e3:6.2f} us "
-              f"(cold {lib_cold * 1e3:.2f}); M={K7_ROWS[-1]} "
-              f"{ms_large * 1e3:8.2f} us; the wrapper by CUDA events over "
-              f"back-to-back calls {events_ms * 1e3:.2f} us; plan "
-              f"{per_call[name]['plan']}", flush=True)
+              f"{ms * 1e3:7.2f} us (cold {ms_cold * 1e3:.2f}), F.linear "
+              f"cold {lib_cold * 1e3:.2f} us; the wrapper by CUDA events "
+              f"over back-to-back calls {events_ms * 1e3:.2f} us",
+              flush=True)
         del weights, lin, w_deq
         torch.cuda.empty_cache()
     print(f"  int4_matmul: largest relative error {worst[torch.float32]:.3e} "
@@ -2774,6 +2839,16 @@ def phase_quant_kernels(Q):
               bound_by="bytes" if bound_by == {"bytes"} else "operations",
               library_ms=step_total("library_ms"), per_call=per_call)
     calls = sum(c["per_step"] for c in per_call.values())
+    # a speculative round's target chunk: the same 61 calls at M=128
+    k7["tc_round"] = {key: sum(c["tc"][f"M={SPEC_ROWS}"][key] * c["per_step"]
+                               for c in per_call.values())
+                      for key in ("ms", "plain_ms", "bound_ms",
+                                  "library_ms")}
+    print(f"  int4_mm_tc, a speculative round's {calls} calls at "
+          f"M={SPEC_ROWS}: {k7['tc_round']['ms'] * 1e3:.1f} us, bound "
+          f"{k7['tc_round']['bound_ms'] * 1e3:.1f} us, plain "
+          f"{k7['tc_round']['plain_ms'] * 1e3:.1f} us, F.linear "
+          f"{k7['tc_round']['library_ms'] * 1e3:.1f} us", flush=True)
     print(f"  int4_matmul, one decode step's {calls} calls at "
           f"B={DECODE_B}: {k7['ms'] * 1e3:.1f} us (profiler "
           f"{step_total('profiler_ms') * 1e3:.1f}, cold "
@@ -2959,6 +3034,229 @@ def phase_quant_serving(model, models, Q, paged_attention, decode_bf16):
               + (f", K7 {100 * d['k7_share']:.1f}%" if d["k7_share"] else ""),
               flush=True)
     return k7_launches, fp8_launches, decode
+
+
+# phase 14: speculative decoding on the int4 servers: phase 3's model as
+# the target, its first SPEC_DRAFT_BLOCKS blocks (draft_view) as the draft,
+# k = SPEC_K, SPEC_BATCH of phase 3's requests (its prompts), greedy, each
+# until it has emitted SPEC_TOKENS; then a sampled run at temperature 1.0
+SPEC_K, SPEC_DRAFT_BLOCKS, SPEC_BATCH, SPEC_TOKENS = 4, 3, 32, 64
+SPEC_SAMPLED_TOKENS = 16
+# phase 14, bf16: one advance_chunk's logits against the same tokens fed one
+# decode step at a time, by relative Frobenius error. The two run the same
+# arithmetic on the same bf16 weights and differ only where bf16 rounds:
+# the chunk's K/V rows are read back from the pool where a step injects
+# them, and the products run over B*m rows instead of B (other GEMM tilings
+# and sum orders), each a relative 2^-9 per rounding, over 12 layers
+CHUNK_TOL = 2e-2
+
+
+def check_layouts(att, paged_attention, Q):
+    """The wrappers take any layout: flash_attention (forward and
+    backward), paged_attention (q and append_kv) and int4_matmul (x, on
+    both kernels' routes) given transposed views and offset slices (2 bytes
+    past a 16-byte boundary) give the bits of their contiguous copies."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+
+    def offset(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=dev)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    def same(what, got, want):
+        for i, (g, w) in enumerate(zip(got, want)):
+            if not torch.equal(_bits(g.contiguous()), _bits(w.contiguous())):
+                raise AssertionError(f"{what}: output {i} differs from the "
+                                     f"contiguous copy's")
+
+    # flash attention: q, k, v as [B, S, H, D] projections viewed as
+    # [B, H, S, D], and as offset slices, causal, bf16, forward and backward
+    b, h, sq, d = 2, LM_HEADS, 200, 64
+
+    def bhsd():
+        return torch.randn(b, sq, h, d, generator=gen, device=dev
+                           ).bfloat16().transpose(1, 2)
+
+    q, k, v = bhsd(), bhsd(), bhsd()
+    do = torch.randn(b, h, sq, d, generator=gen, device=dev).bfloat16()
+
+    def flash(*qkv):
+        leaves = [t.detach().requires_grad_() for t in qkv]
+        o = att.flash_attention(*leaves, causal=True)
+        o.backward(do)
+        return [o] + [t.grad for t in leaves]
+
+    want = flash(*(t.contiguous() for t in (q, k, v)))
+    same("flash_attention, transposed q, k, v", flash(q, k, v), want)
+    same("flash_attention, offset q, k, v",
+         flash(*(offset(t.contiguous()) for t in (q, k, v))), want)
+    # paged attention at the serving slice's shapes: q [B, H, D] a view of
+    # [H, B, D], the appended K/V column slices of a fused projection
+    hd, pages = DIM // HEADS, 4
+    nkv = KV_HEADS * hd
+    pool = torch.randn(8 * pages + 1, 2, PAGE, nkv, generator=gen,
+                       device=dev).bfloat16()
+    table = torch.arange(1, 8 * pages + 1, device=dev, dtype=torch.int32
+                         ).reshape(8, pages)
+    lengths = torch.randint(0, pages * PAGE, (8,), generator=gen,
+                            device=dev, dtype=torch.int32)
+    qt = torch.randn(HEADS, 8, hd, generator=gen, device=dev).bfloat16(
+        ).transpose(0, 1)
+    fused = torch.randn(8, 3 * nkv, generator=gen, device=dev).bfloat16()
+    kn, vn = fused[:, nkv:2 * nkv], fused[:, 2 * nkv:]
+
+    def paged(q, kn, vn):
+        return [paged_attention(q, pool, None, table, lengths,
+                                num_kv_heads=KV_HEADS, append_kv=(kn, vn))]
+
+    want = paged(qt.contiguous(), kn.contiguous(), vn.contiguous())
+    same("paged_attention, transposed q and sliced append_kv",
+         paged(qt, kn, vn), want)
+    same("paged_attention, offset q and append_kv",
+         paged(*(offset(t.contiguous()) for t in (qt, kn, vn))), want)
+    # int4_matmul on the decode and the row-tiled routes
+    w = torch.randn(DIM, 1280, generator=gen, device=dev) * DIM ** -0.5
+    p, sc = Q.quantize_int4(w, group_size=Q.int4_group_size(DIM))
+    for m in (DECODE_B, SPEC_ROWS):
+        xt = torch.randn(DIM, m, generator=gen, device=dev).bfloat16().t()
+        want = [Q.int4_matmul(xt.contiguous(), p, sc)]
+        same(f"int4_matmul M={m}, transposed x", [Q.int4_matmul(xt, p, sc)],
+             want)
+        same(f"int4_matmul M={m}, offset x",
+             [Q.int4_matmul(offset(xt.contiguous()), p, sc)], want)
+    print("  layouts: flash_attention (forward and backward), "
+          "paged_attention and int4_matmul (M=32, 128) given transposed "
+          "views and offset slices give their contiguous copies' bits",
+          flush=True)
+
+
+def spec_prompts():
+    """Phase 3's first SPEC_BATCH prompts (24-31 tokens)."""
+    rng = np.random.RandomState(0)
+    return {f"r{i}": rng.randint(0, VOCAB, 24 + i % 8).tolist()
+            for i in range(SPEC_BATCH)}
+
+
+def run_speculative(spec, prompts, tokens):
+    """Every prompt through ``spec`` until each request has emitted
+    ``tokens``, the whole batch in every round (so that each target chunk
+    has SPEC_BATCH x k rows), every launch count set to 0 just before.
+    Checks that 1 to k tokens come out a round. Returns (the emitted
+    tokens, rounds, rounds x sequences that accepted every proposal, wall
+    seconds)."""
+    for rid, p in prompts.items():
+        spec.add(rid, p)
+    out = {rid: [] for rid in prompts}
+    rounds = full = 0
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while min(len(v) for v in out.values()) < tokens:
+        for rid, toks in spec.step().items():
+            if not 1 <= len(toks) <= spec.k or not all(
+                    0 <= t < VOCAB for t in toks):
+                raise AssertionError(f"{rid}: a round emitted {toks}")
+            full += len(toks) == spec.k
+            out[rid] += toks
+        rounds += 1
+    torch.cuda.synchronize()
+    return out, rounds, full, time.perf_counter() - t0
+
+
+def phase_speculative(torch_nn, models, Q, paged_attention):
+    """Phase 14: speculative decoding at full width on the int4 servers
+    (greedy, then sampled), and a bf16 chunk against single steps.
+    Returns the figures."""
+    import functools
+
+    model = make_serving_model(torch_nn)
+    draft = models.draft_view(model, SPEC_DRAFT_BLOCKS)
+    prompts = spec_prompts()
+    ids = list(prompts)
+    # bf16: one chunk against the same tokens one step at a time
+    servers = [models.ModernBatchServer(model, page_size=PAGE,
+                                        total_pages=TOTAL_PAGES)
+               for _ in range(2)]
+    for server in servers:
+        for rid, p in prompts.items():
+            server.add(rid, p)
+    toks = np.random.RandomState(1).randint(0, VOCAB, (SPEC_BATCH, SPEC_K))
+    chunk = servers[0].advance_chunk(ids, toks)
+    steps = torch.stack([servers[1]._advance(ids, torch.as_tensor(
+        toks[:, j], device="cuda")) for j in range(SPEC_K)], dim=1)
+    chunk_err = rel_err(chunk, steps)
+    print(f"  bf16 advance_chunk of {SPEC_BATCH} x {SPEC_K} tokens against "
+          f"{SPEC_K} single steps: relative error {chunk_err:.3e} (limit "
+          f"{CHUNK_TOL:.0e})", flush=True)
+    if not chunk_err <= CHUNK_TOL:
+        raise AssertionError("the chunk's logits differ from the steps'")
+    del servers, chunk, steps
+    torch.cuda.empty_cache()
+
+    int4 = functools.partial(models.ModernBatchServer, quantize_bits=4)
+    spec = models.SpeculativeDecoder(model, draft, k=SPEC_K,
+                                     server_cls=int4, page_size=PAGE,
+                                     total_pages=TOTAL_PAGES)
+    free0 = (len(spec.target.free_pages), len(spec.draft.free_pages))
+    out, rounds, full, wall = run_speculative(spec, prompts, SPEC_TOKENS)
+    counts = launch_counts()
+    emitted = sum(len(v) for v in out.values())
+    draft_calls = (SPEC_K - 1) * rounds + full  # the draft's decode steps
+    tc_launches = counts["int4_mm_tc"]
+    check_launches("int4_mm_tc (the target's chunks)", tc_launches,
+                   K7_PER_STEP * rounds)
+    check_launches("int4_mm_decode (the draft's steps)",
+                   counts["int4_matmul"] - tc_launches,
+                   (5 * SPEC_DRAFT_BLOCKS + 1) * draft_calls)
+    check_launches("paged_attention", counts["paged_attention"],
+                   BLOCKS * rounds + SPEC_DRAFT_BLOCKS * draft_calls)
+    per_seq = emitted / (rounds * SPEC_BATCH)
+    print(f"  greedy: {rounds} rounds, {emitted} tokens emitted in "
+          f"{wall:.2f} s ({emitted / wall:.1f} tok/s), {per_seq:.3f} a "
+          f"sequence a round ({per_seq - 1:.3f} accepted proposals), every "
+          f"proposal accepted in {full} of {rounds * SPEC_BATCH}",
+          flush=True)
+    results = {rid: v[:SPEC_TOKENS] for rid, v in out.items()}
+    check_greedy(quantized_server_reference(model, Q, 4), prompts, results,
+                 ids, QMARGIN)
+    with traced() as trace:
+        spec.step()
+    busy = sum(e.self_device_time_total for e in trace.events)
+    ops = sum(e.count for e in trace.events)
+    tc_us = sum(e.self_device_time_total for e in trace.events
+                if "int4_mm_tc" in e.key)
+    print(f"  a profiled round: {busy:.1f} us of device time, {ops} device "
+          f"ops, int4_mm_tc {tc_us:.1f} us ({100 * tc_us / busy:.1f}%)",
+          flush=True)
+    for rid in ids:
+        spec.remove(rid)
+    if (len(spec.target.free_pages), len(spec.draft.free_pages)) != free0:
+        raise AssertionError("a page pool did not return to its start")
+    del spec
+    torch.cuda.empty_cache()
+
+    spec = models.SpeculativeDecoder(model, draft, k=SPEC_K,
+                                     server_cls=int4, page_size=PAGE,
+                                     total_pages=TOTAL_PAGES,
+                                     temperature=1.0, seed=1)
+    free0 = (len(spec.target.free_pages), len(spec.draft.free_pages))
+    out_s, rounds_s, _, wall_s = run_speculative(spec, prompts,
+                                                 SPEC_SAMPLED_TOKENS)
+    for rid in ids:
+        spec.remove(rid)
+    if (len(spec.target.free_pages), len(spec.draft.free_pages)) != free0:
+        raise AssertionError("a page pool did not return to its start "
+                             "(sampled)")
+    emitted_s = sum(len(v) for v in out_s.values())
+    print(f"  sampled (temperature 1.0): {rounds_s} rounds, {emitted_s} "
+          f"tokens in {wall_s:.2f} s, {emitted_s / (rounds_s * SPEC_BATCH):.3f}"
+          f" a sequence a round; the pools back at their start", flush=True)
+    return dict(rounds=rounds, emitted=emitted, tok_s=emitted / wall,
+                per_seq_round=per_seq, tc_launches=tc_launches,
+                round_device_us=busy, round_ops=ops,
+                tc_share=tc_us / busy, chunk_err=chunk_err)
 
 
 def _bits(x):
@@ -3612,6 +3910,7 @@ def main() -> int:
     print("phase 6: int4 matmul and stochastic int8 kernels vs plain",
           flush=True)
     k7, k8 = phase_quant_kernels(Q)
+    check_layouts(att, paged_attention, Q)
     print("phase 7: quantized serving at full width", flush=True)
     k7["launches"], paged["fp8"]["launches"], _ = phase_quant_serving(
         model, models, Q, paged_attention, decode_bf16)
@@ -3639,6 +3938,10 @@ def main() -> int:
     print("phase 13: OpenLLaMA-3B (head_dim 100) trained in bf16 at context "
           "2048", flush=True)
     ol_train = phase_openllama_train(torch_nn, optim, train, att)
+    print("phase 14: speculative decoding on the int4 servers at full "
+          "width", flush=True)
+    spec = phase_speculative(torch_nn, models, Q, paged_attention)
+    k7["launches"] += spec["tc_launches"]
     # the tensor-core instances' launches: phase 5, phase 10 and the bert-
     # and translation-width models; the head_dim 100 and 256 models run
     # the new instances (the ragged forward at 100, the scalar kernels)
@@ -3817,13 +4120,22 @@ def main() -> int:
                replaces="lamp_tpu/ops/quantization.py:233", **k7)
     row = {k: row[k] for k in keys}
     row["note"] = ("ms, plain_ms, bound_ms and library_ms: the sum over one "
-                   "decode step's 61 calls at B=32 (library: F.linear on the "
-                   "dequantized bf16 weight); ms and library_ms by CUDA "
-                   "events over a CUDA graph of 100 calls on one weight; "
-                   "per_call: each shape, with the profiler's sum, cold "
-                   "times (copies beyond L2), the wrapper's eager time and "
-                   "the launch plan")
+                   "decode step's 61 calls at B=32 (int4_mm_decode; "
+                   "library: F.linear on the dequantized bf16 weight); ms "
+                   "and library_ms by CUDA events over a CUDA graph of 100 "
+                   "calls on one weight; launches: phase 7's int4 requests "
+                   "and phase 14's int4_mm_tc launches; tc_round: the same "
+                   "sums over a speculative round's 61 calls at M=128 "
+                   "(int4_mm_tc); per_call: each shape, with the profiler's "
+                   "sum, cold times (copies beyond L2), the wrapper's eager "
+                   "time, the launch plan, int4_mm_tc at M=128 (and 3072 "
+                   "for qkv and the logits) and int4_mm_scalar (f32 x, "
+                   "beside F.linear in f32) at M=32")
     row["per_call"] = k7["per_call"]
+    row["tc_round"] = k7["tc_round"]
+    row["speculative"] = {key: spec[key] for key in (
+        "rounds", "emitted", "tok_s", "per_seq_round", "tc_launches",
+        "round_device_us", "round_ops", "tc_share", "chunk_err")}
     rows.append(row)
     row = dict(name="quantize_int8_stochastic", route="cuda",
                source="lamp_tpu_torch/csrc/quantize_int8.cu",

@@ -70,10 +70,39 @@
 // copies' issue and landing, the products and the cluster sum, each a few
 // hundred nanoseconds.
 //
-// Row-tiled kernel (int4_mm_tc: bf16 x, g a multiple of 16, M > 64, an LM
-// forward's rows): a block of 4 warps owns a 64 x 64 output tile and walks
-// the K range in chunks of KC in {16, 32, 64} rows staged by cp.async three
-// deep. Its tiles fill the card, so it does not split K.
+// Row-tiled kernel (int4_mm_tc: bf16 x, g a multiple of 16, M > 64: a
+// speculative round's target chunk of B*k rows, an LM forward's rows). What
+// bounds it: at 128 rows the bytes (a layer's matrix 0.3-0.8 MB packed, the
+// 768 x 32000 logits 12.3 MB packed beside 16.4 MB of f32 output: 0.2-8.8
+// us at 3.35 TB/s), at thousands of rows the products (2 M K N, 153 us for
+// the logits at 3072 rows). Its design:
+//  - The product is taken transposed, out^T = W^T x^T, on wgmma: the
+//    dequantized weight is the register A operand (64 output columns a
+//    consumer warpgroup) and x's rows the shared-memory B operand (K-major
+//    as x lies, 64 or 128 rows: wgmma's N). One ldmatrix.trans of a step's
+//    16 packed rows gives a lane both nibbles of its fragment's bytes, so
+//    a byte is read once and feeds the low half's product and the high
+//    half's; at M <= 256 a call reads each packed byte once.
+//  - A producer warp keeps a ring of stages in flight by TMA (x's tiles and
+//    the packed tile, swizzled as the consumers read them) and cp.async (the
+//    scale rows), each on a stage's mbarrier.
+//  - A pass is one half's products over one group's steps of a stage (8 at
+//    most: 128 packed rows, 4 where a group is smaller), summed in f32 and
+//    scaled by the group's scale row at its end, as the TPU kernel orders
+//    it; the next pass's fragments are built while a pass's products run.
+//    No pass divides: its descriptors are a base plus offsets.
+//  - At 256 rows or fewer the tiles are too few for the card, so a
+//    thread-block cluster splits K (at group boundaries where it can) and
+//    sums its ranks' partial tiles by st.async into their owners' shared
+//    memory, in rank order, as the decode kernel does; above, the grid is
+//    persistent (a block an SM walking the tiles), so that one tile's
+//    stores overlap the next one's loads.
+// Where its time goes (scripts/exp_int4_tc_variants.py, its timelines and
+// knock-outs): at 128 rows a layer's call is a chain of latencies (the
+// block's setup and first stage, two passes, the cluster sum); at 3072
+// rows the passes' products run near the tensor cores' rate for their N,
+// and the scaling between passes and the re-reads of x (once per 128 output
+// columns, through L2) take the rest.
 //
 // f32 x, or a group that is not a multiple of 16, takes a scalar kernel (one
 // thread per column, 8 rows per block): a checking path, not a fast one.
@@ -90,13 +119,7 @@ namespace {
 namespace cg = cooperative_groups;
 typedef __nv_bfloat16 bf16;
 
-constexpr int kThreads = 128;  // 4 warps (row-tiled and scalar kernels)
-constexpr int kBN = 64;        // output columns per row-tiled block, 16 per warp
-constexpr int kBM = 64;        // rows per row-tiled block
-constexpr int kStages = 3;     // chunks staged: 2 in flight beside the one in use
-constexpr int kXPad = 8;       // bf16 elements of row padding (x tiles)
-constexpr int kWPad = 16;      // bytes of row padding (packed tile)
-constexpr int kWS = kBN + kWPad;
+constexpr int kThreads = 128;  // 4 warps (scalar kernel)
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
@@ -109,11 +132,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
   // src-size 0 zero-fills the 16 bytes without reading
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
                "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 // mma.sync m16n8k16, bf16 operands, f32 accumulators. In a warp, lane =
@@ -129,40 +147,17 @@ __device__ __forceinline__ void mma(float* c, const uint32_t* a, uint32_t b0, ui
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// A fragment of rows row0.., columns k0.. of a row-major bf16 tile of row
-// stride S, by ldmatrix
-template <int S>
-__device__ __forceinline__ void load_a(uint32_t* a, const bf16* s, int row0, int k0,
-                                       int lane) {
-  const bf16* p = s + (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * S + k0 + (lane >> 4) * 8;
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-               : "r"(smem_addr(p)));
-}
-
-// two 4-bit codes (offset-binary) -> a bf16 pair (v0 - 8, v1 - 8), exactly
-__device__ __forceinline__ uint32_t dequant2(uint32_t v0, uint32_t v1) {
-  uint32_t bits = 0x43004300u | v0 | (v1 << 16);
-  __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&bits),
-                             __floats2bfloat162_rn(136.f, 136.f));
-  return *reinterpret_cast<uint32_t*>(&r);
-}
-
 // the low nibbles of bytes 0 and 2 of (v >> shift) -> a bf16 pair of their
-// values minus 8, exactly (0x4300 | c is 128 + c in bf16)
+// values minus 8, exactly (0x4300 | c is 128 + c in bf16, 0x4308 is 136):
+// one lop3 (mask and magic together) and one bf16x2 subtraction
 __device__ __forceinline__ uint32_t nibbles(uint32_t v, int shift) {
-  uint32_t bits = ((v >> shift) & 0x000F000Fu) | 0x43004300u;
-  __nv_bfloat162 r = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&bits),
-                             __floats2bfloat162_rn(136.f, 136.f));
-  return *reinterpret_cast<uint32_t*>(&r);
+  uint32_t bits;
+  asm("lop3.b32 %0, %1, 0x000F000F, 0x43004300, 0xEA;\n" : "=r"(bits) : "r"(v >> shift));
+  uint32_t r;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n" : "=r"(r) : "r"(bits), "r"(0x43084308u));
+  return r;
 }
 
-__device__ __forceinline__ void store2(float* out, long long i, float a, float b) {
-  *reinterpret_cast<float2*>(out + i) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(bf16* out, long long i, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(out + i) = __floats2bfloat162_rn(a, b);
-}
 __device__ __forceinline__ void store1(float* out, long long i, float a) { out[i] = a; }
 __device__ __forceinline__ void store1(bf16* out, long long i, float a) {
   out[i] = __float2bfloat16(a);
@@ -500,176 +495,433 @@ int4_mm_decode(const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
 }
 
 // ---------------------------------------------------------------------------
-// Row-tiled kernel (M > 64)
+// Row-tiled kernel (M > 64): wgmma, the dequantized weight as the register
+// A operand
 // ---------------------------------------------------------------------------
 
-// a warp's C fragments of a kBM x 64 tile into dst [m, n], rows past m and
-// columns past n masked
-template <int MT, typename O>
-__device__ __forceinline__ void store_tile(O* dst, const float (&acc)[MT][2][4], int m, int n,
-                                           int m0, int n0, int rows, int warp, int lane) {
-  const int g_row = lane >> 2, t2 = 2 * (lane & 3);
-  const bool pairs = (n % 2) == 0;
+using hopper::sw_desc;
+
+constexpr int kTcCols = 64;        // output columns of a consumer warpgroup (wgmma's M)
+constexpr int kTcConsumers = 256;  // two consumer warpgroups a block
+constexpr int kTcMaxStages = 4;
+constexpr int kTcFull = 33;  // a stage's arrivals: 32 copy lanes and the TMA's
+constexpr int kMapError = 10000;  // + libcuda's CUresult of a refused TMA map
+
+// Byte layout of one stage of KC packed rows (64 or 128: KC / 16 steps) for
+// a block of BN output columns over BM x rows, each part starting on a
+// 1024-byte boundary:
+//   x_lo [KC / 64][BM][64] bf16  x's low-half columns of the stage's rows,
+//                         in column blocks of 64 (128-byte rows,
+//                         128B-swizzled by TMA)
+//   x_hi                  the high-half columns alike
+//   w    [KC][BN]         packed bytes, a row's 16-byte chunk c at chunk
+//                         c ^ tc_swizzle(row) (ldmatrix's 8 rows in 8 bank
+//                         groups)
+//   sc   [2][KC / 16 + 1][BN] f32  the scale rows of the groups the stage
+//                         touches, low half then high half
+__host__ __device__ constexpr int tc_slots(int kc) { return kc / 16 + 1; }
+__host__ __device__ constexpr int tc_x_bytes(int bm, int kc) { return bm * kc * 2; }
+__host__ __device__ constexpr int tc_stage_bytes(int bn, int bm, int kc) {
+  return (2 * tc_x_bytes(bm, kc) + kc * bn + 2 * tc_slots(kc) * bn * 4 + 1023) / 1024 * 1024;
+}
+// the cluster sum's slots: [cluster][ceil(BM BN / 4 / cluster)] float4s
+__host__ __device__ constexpr int tc_recv_bytes(int bn, int bm, int cluster) {
+  return cluster > 1 ? cluster * ((bm * bn / 4 + cluster - 1) / cluster) * 16 : 0;
+}
+
+template <int W>
+__device__ __forceinline__ int tc_swizzle(int r) {
+  return W == 128 ? (r & 7) : ((r >> 1) & 3);
+}
+
+// D (m64nN, f32; N = 64 or 128) = (scale_d ? D : 0) + A B: A bf16 from
+// registers, B bf16 from shared memory, K-major (x's rows, K contiguous),
+// 128B-swizzled
+template <int N>
+__device__ __forceinline__ void wgmma_tc(float (&d)[N / 2], const uint32_t (&a)[4], uint64_t b,
+                                         int scale_d) {
+  static_assert(N == 64 || N == 128, "m64n64k16 or m64n128k16");
+  if constexpr (N == 128)
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {" LAMP_R64
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : LAMP_ACC64
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+  else
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {" LAMP_R32
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : LAMP_ACC32
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void st_stream2(float* out, long long i, float a, float b) {
+  asm volatile("st.global.cs.v2.f32 [%0], {%1, %2};\n" ::"l"(out + i), "f"(a), "f"(b)
+               : "memory");
+}
+__device__ __forceinline__ void st_stream2(bf16* out, long long i, float a, float b) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  asm volatile("st.global.cs.b32 [%0], %1;\n" ::"l"(out + i),
+               "r"(*reinterpret_cast<uint32_t*>(&v))
+               : "memory");
+}
+
+// What a launch of the row-tiled kernel needs beside its pointers.
+struct TcPlan {
+  int m, k, n, group;
+  int steps;      // 16-row steps of a half (k / 32)
+  int stages;     // the ring's stages
+  int recv;       // byte offset of the cluster sum's slots, past the stages
+  int col_tiles;  // tiles of BN columns
+  int tiles;      // col_tiles x tiles of BM rows (the persistent walk's)
+  bool tma_w;     // packed rows by TMA (else 4-byte cp.async pieces)
+  bool vec_s;     // scale rows by 16-byte pieces (else 4-byte)
+};
+
+// x [m, k] bf16 (read by the TMA map tm_x in boxes of BM rows by 64
+// columns), packed [k/2, n] (by tm_w in boxes of KC rows by BN columns,
+// 64B- or 128B-swizzled, where n % 16 == 0 and packed is 16-byte aligned;
+// else by 4-byte cp.async into the same layout), scales [k/g, n] f32, out
+// [m, n]; n % 4 == 0. A block is two consumer warpgroups of WR x rows (64
+// or 128) and a producer warpgroup (the last), whose first warp copies: the
+// consumers split the tile's columns (RS false: BN = 128, BM = WR) or its
+// rows (RS true: BN = 64, BM = 2 WR). A stage holds KC packed rows (KC /
+// 16 steps of 16; 128 where the groups are whole multiples of 128 rows).
+// Without a cluster the grid is persistent: block b takes the tiles b, b +
+// gridDim.x, ... (column tiles fastest, so that the blocks at work share
+// x's rows in L2), the ring of stages running on from one tile to the
+// next, so that a tile's stores overlap the next one's loads. With a
+// cluster (cs ranks), a cluster takes one tile (clusterid.x, blockIdx.y)
+// and rank r the 16-row steps [r T / cs, (r + 1) T / cs) of the T = k/32
+// steps of a half. The product is out^T = W^T x^T: warp q of a consumer
+// holds the 16 output columns 16q.. of its warpgroup's 64 as wgmma's A rows
+// (row g <- column 2g, row g + 8 <- column 2g + 1, so that one
+// ldmatrix.trans of the packed bytes gives a lane both columns' codes at k
+// = 2t, 2t + 1), and x's WR rows are wgmma's N.
+template <bool RS, int WR, int KC, typename O>
+__global__ void __launch_bounds__(kTcConsumers + 128, 1)
+int4_mm_tc(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
+           const uint8_t* __restrict__ packed, const float* __restrict__ scales,
+           O* __restrict__ out, const TcPlan pl) {
+  constexpr int BN = RS ? kTcCols : 2 * kTcCols;  // the block's output columns
+  constexpr int BM = RS ? 2 * WR : WR;             // the block's x rows
+  constexpr int kSteps = KC / 16;                  // steps a stage, and a pass's most
+  constexpr int kSlots = tc_slots(KC);
+  constexpr int kStage = tc_stage_bytes(BN, BM, KC), kX = tc_x_bytes(BM, KC);
+  constexpr int kW = 2 * kX, kSc = kW + KC * BN;
+  constexpr int kC4 = BN / 4;  // float4s of a tile row
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* stages = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  __shared__ __align__(8) uint64_t full[kTcMaxStages], empty[kTcMaxStages], recv_bar;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int n = pl.n, k2 = pl.k / 2, group = pl.group, S = pl.stages;
+  const int s_begin = rank * pl.steps / cs, s_end = (rank + 1) * pl.steps / cs;
+  const int n_st = (s_end - s_begin + kSteps - 1) / kSteps;  // stages a tile
+  const bool producer = warp == kTcConsumers / 32;
+  // the block's tiles: t0, t0 + dt, ... below pl.tiles (one with a cluster)
+  int t0 = blockIdx.x, dt = gridDim.x;
+  if (cs > 1) {
+    uint32_t cid;
+    asm("mov.u32 %0, %%clusterid.x;\n" : "=r"(cid));
+    t0 = blockIdx.y * pl.col_tiles + cid, dt = pl.tiles;
+  }
+  // with a cluster: the tile's float4s (valid rows), and the share of them
+  // each rank owns in the cluster's sum
+  const int total4 = min(BM, pl.m - (t0 / pl.col_tiles) * BM) * kC4;
+  const int share = (total4 + cs - 1) / cs;
+
+  // the producer warp's stage j (the tile's jt-th): x's two tiles and the
+  // packed tile by TMA (lane 0; the packed tile by 4-byte cp.async over
+  // the lanes where n % 16 != 0), the scale rows by cp.async over the
+  // lanes, each lane's pieces arriving on the stage's barrier once landed
+  auto load = [&](int j, int tile, int jt) {
+    const int st = j % S, n_kp = k2 / group;
+    const int n0 = (tile % pl.col_tiles) * BN, m0 = (tile / pl.col_tiles) * BM;
+    if (j >= S) hopper::mbar_wait(&empty[st], ((j / S) - 1) & 1);
+    unsigned char* sb = stages + st * kStage;
+    const int r0 = 16 * (s_begin + kSteps * jt);  // the stage's first packed row
+    if (lane == 0) {
+      hopper::mbar_arrive_tx(&full[st], 2 * kX + (pl.tma_w ? KC * BN : 0));
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-    if (mt * 16 >= rows) continue;
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      const int col = n0 + warp * 16 + nt * 8 + t2;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + mt * 16 + g_row + 8 * h;
-        if (row >= m) continue;
-        const long long i = (long long)row * n + col;
-        const float a = acc[mt][nt][2 * h], b = acc[mt][nt][2 * h + 1];
-        if (pairs && col + 1 < n) {
-          store2(dst, i, a, b);
+      for (int c = 0; c < KC / 64; ++c) {
+        hopper::tma_load_2d(sb + c * BM * 128, &tm_x, &full[st], r0 + 64 * c, m0);
+        hopper::tma_load_2d(sb + kX + c * BM * 128, &tm_x, &full[st], k2 + r0 + 64 * c, m0);
+      }
+      if (pl.tma_w) hopper::tma_load_2d(sb + kW, &tm_w, &full[st], n0, r0);
+    }
+    if (!pl.tma_w) {  // rows past the half and columns past n zero-filled
+      constexpr int kP = BN / 4;
+      for (int c = lane; c < KC * kP; c += 32) {
+        const int r = c / kP, p = c % kP, row = r0 + r, col = n0 + 4 * p;
+        const bool in = row < k2 && col < n;
+        hopper::cp_async_ca<4>(sb + kW + r * BN + 16 * ((p / 4) ^ tc_swizzle<BN>(r)) + 4 * (p % 4),
+                               packed + (in ? (long long)row * n + col : 0), in);
+      }
+    }
+    // the scale rows of the groups g0 .. g0 + ng - 1 that the stage's rows
+    // touch, low half then high half
+    const int g0 = r0 / group, ng = (min(r0 + KC, k2) - 1) / group - g0 + 1;
+    float* sc = reinterpret_cast<float*>(sb + kSc);
+    for (int h = 0; h < 2; ++h) {
+      for (int gi = 0; gi < ng; ++gi) {
+        const float* src = scales + (long long)(g0 + gi + h * n_kp) * n + n0;
+        float* dst = sc + (h * kSlots + gi) * BN;
+        if (pl.vec_s) {
+          if (lane < BN / 4) cp_async16(dst + 4 * lane, src + 4 * lane, n0 + 4 * lane < n);
         } else {
-          if (col < n) store1(dst, i, a);
-          if (col + 1 < n) store1(dst, i + 1, b);
+          for (int p = lane; p < BN; p += 32) hopper::cp_async_ca<4>(dst + p, src + p, n0 + p < n);
         }
       }
     }
-  }
-}
+    hopper::cp_async_arrive_noinc(&full[st]);
+  };
 
-template <int KC>
-struct TileStage {
-  bf16 x[2][kBM][KC + kXPad];  // low-half and high-half x rows
-  uint8_t w[KC][kWS];          // packed bytes
-  float sc[2][kBN];            // the chunk's group's low and high scale rows
-};
-
-template <int KC, typename O>
-__global__ void __launch_bounds__(kThreads)
-int4_mm_tc(const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
-           const float* __restrict__ scales, O* __restrict__ out, int m, int k, int n,
-           int group, bool vec) {
-  constexpr int kXS = KC + kXPad;
-  constexpr int kMT = kBM / 16;  // 16-row tiles
-  extern __shared__ __align__(128) unsigned char smem[];
-  TileStage<KC>* stage = reinterpret_cast<TileStage<KC>*>(smem);
-
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * kBM;
-  const int k2 = k / 2;
-  const int n_kp = k2 / group;       // groups per half
-  const int per_group = group / KC;  // chunks per group
-  const int n_chunks = n_kp * per_group;
-  // rows staged and multiplied: whole 16-row tiles covering the valid rows
-  const int rows = min(kBM, ((m - m0 + 15) / 16) * 16);
-
-  auto load = [&](int st, int c) {
-    const int kb = c * KC;
-    constexpr int kPieces = KC / 8;  // 16-byte pieces of an x row
-    for (int i = tid; i < 2 * rows * kPieces; i += kThreads) {
-      const int half = i / (rows * kPieces);
-      const int r = (i / kPieces) % rows, p = i % kPieces;
-      const bool in = m0 + r < m;
-      const bf16* src = x + (long long)(in ? m0 + r : 0) * k + half * k2 + kb + p * 8;
-      cp_async16(&stage[st].x[half][r][p * 8], src, in);
+  // the producer's first lane fetches the TMA maps ahead of their first
+  // use and sets up the barriers
+  if (producer && lane == 0) {
+    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tm_x))
+                 : "memory");
+    if (pl.tma_w)
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tm_w))
+                   : "memory");
+    for (int i = 0; i < S; ++i) {
+      hopper::mbar_init(&full[i], kTcFull);
+      hopper::mbar_init(&empty[i], kTcConsumers / 32);  // one a consumer warp
     }
-    // the scale rows of the chunk's group, staged with it so that applying
-    // them never waits on device memory
-    const int kk = c / per_group;
-    if (vec) {
-      for (int i = tid; i < KC * (kBN / 16); i += kThreads) {
-        const int r = i / (kBN / 16), p = i % (kBN / 16);
-        const int col = n0 + p * 16;
-        const bool in = col < n;
-        cp_async16(&stage[st].w[r][p * 16],
-                   packed + (long long)(kb + r) * n + (in ? col : 0), in);
+    if (cs > 1) {  // every rank's share of this rank's elements
+      hopper::mbar_init(&recv_bar, 1);
+      hopper::mbar_arrive_tx(&recv_bar, cs * 16 * max(0, min(share, total4 - rank * share)));
+    }
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
+  if (cs > 1) cluster_arrive_relaxed();  // this rank's slots are ready
+
+  if (warp >= kTcConsumers / 32) {
+    // the producer warpgroup, of which the first warp copies; it gives
+    // registers to the consumers
+    hopper::regs_dec<40>();
+    if (producer) {
+      int j = 0;  // the ring's stage count, over the block's tiles
+      for (int t = t0; t < pl.tiles; t += dt)
+        for (int jt = 0; jt < n_st; ++jt, ++j) load(j, t, jt);
+    }
+    if (cs > 1) cluster_wait();
+    return;
+  }
+
+  // a consumer warpgroup
+  hopper::regs_inc<232>();
+  const int wg = warp / 4, wq = warp % 4;
+  const int cb = RS ? 0 : kTcCols * wg;  // its first column in the tile
+  const int rb = RS ? WR * wg : 0;       // its first x row in the tile
+  const int g_row = lane >> 2, t = lane & 3;
+  const int chunk = (cb + 16 * wq) / 16;     // the warp's chunk of a packed row
+  const int lrow = lane & 15;                // the row it addresses for ldmatrix
+  const int col = cb + 16 * wq + 2 * g_row;  // its first column (of 2)
+  if (t0 >= pl.tiles) return;  // a persistent block past the last tile
+
+  // A pass: one half's products over the steps [s, e) of one stage (the
+  // ring's j-th, in `slot`; the tile's jt-th), all in one group (the
+  // stage's g-th): kSteps wgmma (a piece of fewer steps pads with zero
+  // fragments over its first step's x columns, adding exact zeros for
+  // finite x, so that no product is on a divergent path and ptxas keeps
+  // them in flight together), summed in f32 in `part`, then scaled by the
+  // group's scale row into `acc`. The next pass's fragments are built while
+  // this pass's products run. Nothing here divides: the issue of a pass's
+  // products is a few instructions each.
+  struct Pass {
+    int tile, jt, j, slot, phase;  // the stage: its tile, place, ring slot
+    int n, gb;                     // its steps, the next group boundary in it
+    int s, e, g, h;                // the piece's steps [s, e), group, half
+  };
+  const int gsteps = group / 16;  // steps a group
+  auto enter = [&](Pass& p) {     // p at the first pass of its stage
+    const int a0 = s_begin + kSteps * p.jt;
+    p.n = min(kSteps, s_end - a0);
+    p.gb = (a0 / gsteps + 1) * gsteps - a0;
+    p.s = 0, p.e = min(p.n, p.gb), p.g = 0, p.h = 0;
+  };
+  // p to the next pass; false past the block's last. A new stage is waited
+  // for here.
+  auto advance = [&](Pass& p) {
+    if (p.h == 0) {
+      p.h = 1;
+      return true;
+    }
+    p.h = 0;
+    if (p.e < p.n) {
+      p.s = p.e, p.gb += gsteps, ++p.g;
+      p.e = min(p.n, p.gb);
+      return true;
+    }
+    ++p.j;
+    if (++p.slot == S) p.slot = 0, p.phase ^= 1;
+    if (++p.jt == n_st) {
+      p.jt = 0;
+      p.tile += dt;
+      if (p.tile >= pl.tiles) return false;
+    }
+    enter(p);
+    hopper::mbar_wait(&full[p.slot], p.phase);
+    return true;
+  };
+  // the A fragments of p's steps: one ldmatrix.trans of a step's 16 packed
+  // rows at the warp's 16 columns gives a lane the bytes of k = 2t, 2t + 1
+  // (w0) and 2t + 8, 2t + 9 (w1) of columns 2g, 2g + 1; half h's nibbles
+  // become bf16 pairs. A step's rows start on a multiple of 16, so the
+  // lane's swizzled chunk is the same in every step: its address is the
+  // lane's base plus the step's offset, and padded steps read the piece's
+  // first step and are zeroed by selects, not branches.
+  const uint32_t w_lane = smem_addr(stages) + kW + lrow * BN + 16 * (chunk ^ tc_swizzle<BN>(lrow));
+  auto build = [&](uint32_t (&af)[kSteps][4], const Pass& p) {
+    const uint32_t w = w_lane + p.slot * kStage;
+    const int sh = 4 * p.h;
+#pragma unroll
+    for (int i = 0; i < kSteps; ++i) {
+      const bool on = p.s + i < p.e;
+      uint32_t w0, w1;
+      asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+                   : "=r"(w0), "=r"(w1)
+                   : "r"(w + (on ? p.s + i : p.s) * (16 * BN)));
+      const uint32_t a0 = nibbles(w0, sh), a1 = nibbles(w0, 8 + sh);
+      const uint32_t a2 = nibbles(w1, sh), a3 = nibbles(w1, 8 + sh);
+      af[i][0] = on ? a0 : 0u;
+      af[i][1] = on ? a1 : 0u;
+      af[i][2] = on ? a2 : 0u;
+      af[i][3] = on ? a3 : 0u;
+    }
+  };
+  float acc[WR / 2], part[WR / 2];
+  // x's 16-column slice of step i of p's stage: column block i / 4, byte
+  // 32 (i % 4) of the warpgroup's rows; the descriptors are the pass's
+  // first one plus each slice's offset (16-byte units)
+  auto issue = [&](uint32_t (&af)[kSteps][4], const Pass& p) {
+    const uint64_t d0 =
+        sw_desc<128>(stages + p.slot * kStage + p.h * kX + rb * 128, 16, 1024);
+    uint64_t desc[kSteps];
+#pragma unroll
+    for (int i = 0; i < kSteps; ++i) {
+      const unsigned st = static_cast<unsigned>(p.s + i < p.e ? p.s + i : p.s);
+      desc[i] = d0 + ((st >> 2) * (BM * 8) + 2 * (st & 3));
+    }
+    hopper::wg_keep(part);
+    hopper::wg_keep(af);
+    hopper::wg_fence();
+#pragma unroll
+    for (int i = 0; i < kSteps; ++i) wgmma_tc<WR>(part, af[i], desc[i], i > 0);
+    hopper::wg_commit();
+  };
+  auto scale = [&](const Pass& p) {
+    const float* sc = reinterpret_cast<const float*>(stages + p.slot * kStage + kSc);
+    const float2 sv = *reinterpret_cast<const float2*>(sc + (p.h * kSlots + p.g) * BN + col);
+#pragma unroll
+    for (int i = 0; i < WR / 8; ++i) {
+      acc[4 * i] += part[4 * i] * sv.x;
+      acc[4 * i + 1] += part[4 * i + 1] * sv.x;
+      acc[4 * i + 2] += part[4 * i + 2] * sv.y;
+      acc[4 * i + 3] += part[4 * i + 3] * sv.y;
+    }
+  };
+  // the tile's output: lane (g, t) holds, for each 8-row chunk i of its
+  // warpgroup's rows, rows 8i + 2t (acc[4i], acc[4i + 2]) and 8i + 2t + 1
+  // (acc[4i + 1], acc[4i + 3]) at columns 2g, 2g + 1 of its warp's 16
+  auto finish = [&](int tile) {
+    const int n0 = (tile % pl.col_tiles) * BN, m0 = (tile / pl.col_tiles) * BM;
+    if (cs == 1) {
+      // streaming stores: the output is written once and not read here
+      if (n0 + col < n) {
+#pragma unroll
+        for (int i = 0; i < WR / 8; ++i) {
+          const int row = m0 + rb + 8 * i + 2 * t;
+          const long long o = (long long)row * n + n0 + col;
+          if (row < pl.m) st_stream2(out, o, acc[4 * i], acc[4 * i + 2]);
+          if (row + 1 < pl.m) st_stream2(out, o + n, acc[4 * i + 1], acc[4 * i + 3]);
+        }
       }
-      if (tid < 2 * (kBN / 4)) {
-        const int h = tid / (kBN / 4), p = tid % (kBN / 4);
-        const int col = n0 + p * 4;
-        const bool in = col < n;
-        cp_async16(&stage[st].sc[h][p * 4],
-                   scales + (long long)(kk + h * n_kp) * n + (in ? col : 0), in);
+      return;
+    }
+    // the cluster's sum (one tile a block): rank r owns the share [r S,
+    // (r + 1) S) of the tile's float4s (a row's 4-column chunks, row after
+    // row); lanes g and g ^ 1 swap a pair so that each holds a float4 of one
+    // row (even g: row 8i + 2t, columns 2g..2g+3; odd g: row 8i + 2t + 1),
+    // and every rank sends each of its float4s to the owner's slot for the
+    // sender's rank, by st.async, which completes on the owner's barrier;
+    // each owner, once every byte has landed, adds its slots in rank order
+    // and stores, so two calls give the same bits
+    cluster_wait();  // every rank's slots and barrier exist
+    float4* recv = reinterpret_cast<float4*>(stages + pl.recv);
+    const bool even = (g_row & 1) == 0;
+#pragma unroll
+    for (int i = 0; i < WR / 8; ++i) {
+      const float s0 = even ? acc[4 * i + 1] : acc[4 * i];
+      const float s1 = even ? acc[4 * i + 3] : acc[4 * i + 2];
+      const float o0 = __shfl_xor_sync(0xffffffffu, s0, 4);
+      const float o1 = __shfl_xor_sync(0xffffffffu, s1, 4);
+      const float4 v = even ? make_float4(acc[4 * i], acc[4 * i + 2], o0, o1)
+                            : make_float4(o0, o1, acc[4 * i + 1], acc[4 * i + 3]);
+      const int row = rb + 8 * i + 2 * t + (even ? 0 : 1);
+      const int e = row * kC4 + (even ? col : col - 2) / 4;
+      if (e < total4) {
+        const int q = e / share;
+        st_async(map_rank(smem_addr(recv + rank * share + (e - q * share)), q), v,
+                 map_rank(smem_addr(&recv_bar), q));
       }
-    } else {
-      for (int i = tid; i < KC * kBN; i += kThreads) {
-        const int r = i / kBN, col = i % kBN;
-        stage[st].w[r][col] = n0 + col < n ? packed[(long long)(kb + r) * n + n0 + col] : 0;
+    }
+    hopper::mbar_wait(&recv_bar, 0);
+    for (int i = tid; i < share && rank * share + i < total4; i += kTcConsumers) {
+      float4 v = recv[i];
+      for (int q = 1; q < cs; ++q) {
+        const float4 u = recv[q * share + i];
+        v.x += u.x, v.y += u.y, v.z += u.z, v.w += u.w;
       }
-      for (int i = tid; i < 2 * kBN; i += kThreads) {
-        const int h = i / kBN, col = i % kBN;
-        stage[st].sc[h][col] =
-            n0 + col < n ? scales[(long long)(kk + h * n_kp) * n + n0 + col] : 0.f;
-      }
+      const int e = rank * share + i, c = n0 + 4 * (e % kC4);
+      if (c < n) store4(out, (long long)(m0 + e / kC4) * n + c, v);
     }
   };
 
-  float acc[kMT][2][4], dlo[kMT][2][4], dhi[kMT][2][4];
 #pragma unroll
-  for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = dlo[mt][nt][i] = dhi[mt][nt][i] = 0.f;
-
-  const int g_row = lane >> 2, t2 = 2 * (lane & 3);
-  // kStages - 1 chunks in flight ahead of the one in use; every iteration
-  // commits one (possibly empty) group, so wait_group counts stay uniform
-#pragma unroll
-  for (int st = 0; st < kStages - 1; ++st) {
-    if (st < n_chunks) load(st, st);
-    cp_commit();
-  }
-  for (int c = 0; c < n_chunks; ++c) {
-    if (c + kStages - 1 < n_chunks) load((c + kStages - 1) % kStages, c + kStages - 1);
-    cp_commit();
-    cp_wait<kStages - 1>();
-    __syncthreads();
-    const TileStage<KC>& s = stage[c % kStages];
-#pragma unroll
-    for (int ks = 0; ks < KC / 16; ++ks) {
-      uint32_t blo[2][2], bhi[2][2];
-#pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const int col = warp * 16 + nt * 8 + g_row;
-        const int kr = ks * 16 + t2;
-        const uint32_t b00 = s.w[kr][col], b01 = s.w[kr + 1][col];
-        const uint32_t b10 = s.w[kr + 8][col], b11 = s.w[kr + 9][col];
-        blo[nt][0] = dequant2(b00 & 15u, b01 & 15u);
-        blo[nt][1] = dequant2(b10 & 15u, b11 & 15u);
-        bhi[nt][0] = dequant2(b00 >> 4, b01 >> 4);
-        bhi[nt][1] = dequant2(b10 >> 4, b11 >> 4);
-      }
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt) {
-        if (mt * 16 < rows) {
-          uint32_t a[4];
-          load_a<kXS>(a, &s.x[0][0][0], mt * 16, ks * 16, lane);
-          mma(dlo[mt][0], a, blo[0][0], blo[0][1]);
-          mma(dlo[mt][1], a, blo[1][0], blo[1][1]);
-          load_a<kXS>(a, &s.x[1][0][0], mt * 16, ks * 16, lane);
-          mma(dhi[mt][0], a, bhi[0][0], bhi[0][1]);
-          mma(dhi[mt][1], a, bhi[1][0], bhi[1][1]);
-        }
-      }
+  for (int i = 0; i < WR / 2; ++i) acc[i] = 0.f;
+  Pass cur;
+  cur.tile = t0, cur.jt = 0, cur.j = 0, cur.slot = 0, cur.phase = 0;
+  enter(cur);
+  uint32_t af0[kSteps][4], af1[kSteps][4];
+  hopper::mbar_wait(&full[0], 0);
+  build(af0, cur);
+  // one pass: its products issued, the next pass's fragments built in
+  // `next` meanwhile, its sum scaled into acc; the stage released after its
+  // last pass, the tile stored after its last. The fragment buffers
+  // alternate.
+  auto step = [&](uint32_t (&af)[kSteps][4], uint32_t (&next)[kSteps][4]) {
+    issue(af, cur);
+    Pass nxt = cur;
+    const bool more = advance(nxt);
+    if (more) build(next, nxt);
+    hopper::wg_wait<0>();
+    hopper::wg_keep(part);
+    hopper::wg_keep(af);
+    scale(cur);
+    if (!more || nxt.j != cur.j) {
+      __syncwarp();
+      if (lane == 0) hopper::mbar_arrive(&empty[cur.slot]);
     }
-    if ((c + 1) % per_group == 0) {
-      // the group's partial products, scaled by its scale rows
+    if (!more || nxt.tile != cur.tile) {
+      finish(cur.tile);
 #pragma unroll
-      for (int nt = 0; nt < 2; ++nt) {
-        const int col = warp * 16 + nt * 8 + t2;
-        const float sl[2] = {s.sc[0][col], s.sc[0][col + 1]};
-        const float sh[2] = {s.sc[1][col], s.sc[1][col + 1]};
-#pragma unroll
-        for (int mt = 0; mt < kMT; ++mt) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            acc[mt][nt][i] += dlo[mt][nt][i] * sl[i & 1] + dhi[mt][nt][i] * sh[i & 1];
-            dlo[mt][nt][i] = dhi[mt][nt][i] = 0.f;
-          }
-        }
-      }
+      for (int i = 0; i < WR / 2; ++i) acc[i] = 0.f;
     }
-    __syncthreads();  // this stage is refilled by a later iteration's load
+    cur = nxt;
+    return more;
+  };
+  while (step(af0, af1) && step(af1, af0)) {
   }
-  store_tile(out, acc, m, n, m0, n0, rows, warp, lane);
 }
 
 // scalar path: one thread per output column, kRowsS rows per block
@@ -763,22 +1015,89 @@ cudaError_t launch_decode_rows(const void* x, const void* packed, const void* sc
 #undef LAMP_I4_DEC
 }
 
-template <int KC, typename O>
+// the card's SMs (the persistent grid's blocks), once a device
+int sm_count() {
+  static int sms[64] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 132;
+  if (sms[dev] == 0 &&
+      cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    sms[dev] = 132;
+  return sms[dev];
+}
+
+template <bool RS, int WR, int KC, typename O>
 cudaError_t launch_tc(const void* x, const void* packed, const void* scales, void* out, int m,
-                      int k, int n, int group, cudaStream_t stream) {
-  constexpr int kSmem = kStages * sizeof(TileStage<KC>);
-  // above 48 KB only as opted-in dynamic shared memory (set once)
+                      int k, int n, int group, int cluster, cudaStream_t stream, int* map_rc) {
+  constexpr int BN = RS ? kTcCols : 2 * kTcCols, BM = RS ? 2 * WR : WR;
+  TcPlan pl;
+  pl.m = m, pl.k = k, pl.n = n, pl.group = group, pl.steps = k / 32;
+  if (cluster < 1 || cluster > kMaxCluster || cluster > pl.steps) return cudaErrorInvalidValue;
+  const int stage = tc_stage_bytes(BN, BM, KC), recv = tc_recv_bytes(BN, BM, cluster);
+  // 1 KB to align the stages, 1 KB for the static barriers
+  pl.stages = (kMaxSmem - 2048 - recv) / stage;
+  if (pl.stages > kTcMaxStages) pl.stages = kTcMaxStages;
+  if (pl.stages < 2) return cudaErrorInvalidValue;
+  pl.recv = pl.stages * stage;
+  const int smem = 1024 + pl.recv + recv;
+  pl.col_tiles = (n + BN - 1) / BN;
+  pl.tiles = pl.col_tiles * ((m + BM - 1) / BM);
+  pl.tma_w = n % 16 == 0 && reinterpret_cast<uintptr_t>(packed) % 16 == 0;
+  pl.vec_s = reinterpret_cast<uintptr_t>(scales) % 16 == 0;
+  // the TMA maps; libcuda's encoder needs x's device current on this
+  // thread: made so for the encode, and the caller's device restored
+  CUtensorMap map_x, map_w = {};
+  cudaPointerAttributes at;
+  int current = 0;
+  cudaError_t err = cudaPointerGetAttributes(&at, x);
+  if (err == cudaSuccess) err = cudaGetDevice(&current);
+  if (err == cudaSuccess && current != at.device) err = cudaSetDevice(at.device);
+  if (err != cudaSuccess) return err;
+  *map_rc = hopper::row_map(&map_x, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, m, k, 2LL * k, BM, 64,
+                            CU_TENSOR_MAP_SWIZZLE_128B);
+  if (*map_rc == 0 && pl.tma_w)
+    *map_rc = hopper::row_map(&map_w, packed, CU_TENSOR_MAP_DATA_TYPE_UINT8, k / 2, n, n, KC, BN,
+                              BN == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
+  const int sms = sm_count();
+  if (current != at.device) err = cudaSetDevice(current);
+  if (*map_rc != 0) return cudaErrorInvalidValue;
+  if (err != cudaSuccess) return err;
   static const cudaError_t opt_in = cudaFuncSetAttribute(
-      int4_mm_tc<KC, O>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      int4_mm_tc<RS, WR, KC, O>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem - 1024);
   if (opt_in != cudaSuccess) return opt_in;
-  // 16-byte copies of the packed rows and the scale rows
-  const bool vec = n % 16 == 0 && reinterpret_cast<uintptr_t>(packed) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(scales) % 16 == 0;
-  dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  int4_mm_tc<KC, O><<<grid, kThreads, kSmem, stream>>>(
-      static_cast<const bf16*>(x), static_cast<const uint8_t*>(packed),
-      static_cast<const float*>(scales), static_cast<O*>(out), m, k, n, group, vec);
-  return cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  // without a cluster a persistent grid of a block an SM; with one, a
+  // cluster a tile
+  cfg.gridDim = cluster == 1 ? dim3(pl.tiles < sms ? pl.tiles : sms)
+                             : dim3(pl.col_tiles * cluster, (m + BM - 1) / BM);
+  cfg.blockDim = dim3(kTcConsumers + 128);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, int4_mm_tc<RS, WR, KC, O>, map_x, map_w,
+                            static_cast<const uint8_t*>(packed),
+                            static_cast<const float*>(scales), static_cast<O*>(out), pl);
+}
+
+// the stage: 128 packed rows where a group is a whole multiple of 128 rows
+// and two such stages fit beside the cluster's slots, else 64
+template <bool RS, int WR, typename O>
+cudaError_t launch_tc_kc(const void* x, const void* packed, const void* scales, void* out,
+                         int m, int k, int n, int group, int cluster, cudaStream_t stream,
+                         int* map_rc) {
+  constexpr int BN = RS ? kTcCols : 2 * kTcCols, BM = RS ? 2 * WR : WR;
+  if (group % 128 == 0 &&
+      2 * tc_stage_bytes(BN, BM, 128) + tc_recv_bytes(BN, BM, cluster) <= kMaxSmem - 2048)
+    return launch_tc<RS, WR, 128, O>(x, packed, scales, out, m, k, n, group, cluster, stream,
+                                      map_rc);
+  return launch_tc<RS, WR, 64, O>(x, packed, scales, out, m, k, n, group, cluster, stream,
+                                   map_rc);
 }
 
 template <typename T, typename O>
@@ -797,15 +1116,18 @@ extern "C" {
 
 // x [m, k] (x_dtype 0 = float32, 1 = bfloat16), packed [k/2, n] uint8,
 // scales [k/group, n] float32, out [m, n] (out_dtype 0 = float32,
-// 1 = bfloat16), all contiguous. The route follows from the inputs: bf16 x
-// with group % 16 == 0 and m <= 64 takes the decode kernel, whose plan the
-// caller gives (tile: BN of 32, 64 or 128; cluster: the blocks of 1-8 that
-// split K for a tile; round_rows: packed rows staged at once, a multiple of
-// 16); bf16 x with group % 16 == 0 and m > 64 the row-tiled kernel, f32 x
-// or another group the scalar kernel, both with tile, cluster and
-// round_rows 0. A plan for another route, or one the decode kernel cannot
-// run (x not 16-byte aligned, more shared memory than a block has), is
-// refused. Returns the cudaError_t of the launch.
+// 1 = bfloat16), all contiguous. The route follows from the inputs and the
+// plan (tile, cluster, rows) the caller gives: bf16 x with group % 16 == 0
+// and m <= 64 takes the decode kernel (tile: BN of 32, 64 or 128; cluster:
+// the blocks of 1-8 that split K for a tile; rows: packed rows staged at
+// once, a multiple of 16); bf16 x with group % 16 == 0, m > 64 and a plan
+// the row-tiled kernel (tile: the block's output columns, 64 or 128;
+// cluster: 1-8 blocks splitting K; rows: the block's x rows, 128, or 256
+// with 64 columns), which takes n % 4 == 0, packed 4-byte and x 16-byte
+// aligned; every other call, with tile, cluster and rows 0, the scalar
+// kernel. A plan for another route, or one the kernel cannot run, is
+// refused. Returns the cudaError_t of the launch, or kMapError + libcuda's
+// CUresult when x's TMA map was refused.
 int lamp_int4_matmul(const void* x, const void* packed, const void* scales, void* out, int m,
                      int k, int n, int group, int x_dtype, int out_dtype, int tile,
                      int cluster, int round_rows, void* stream) {
@@ -832,19 +1154,28 @@ int lamp_int4_matmul(const void* x, const void* packed, const void* scales, void
 #undef LAMP_I4_DEC_BN
     return cudaErrorInvalidValue;
   }
-  if (tile != 0 || cluster != 0 || round_rows != 0) return cudaErrorInvalidValue;
-  if (tc) {
-    const int kc = group % 64 == 0 ? 64 : (group % 32 == 0 ? 32 : 16);
-#define LAMP_I4_TC(KC)                                                             \
-  if (kc == KC)                                                                    \
-    return out_dtype == 1                                                          \
-               ? launch_tc<KC, bf16>(x, packed, scales, out, m, k, n, group, st)   \
-               : launch_tc<KC, float>(x, packed, scales, out, m, k, n, group, st);
-    LAMP_I4_TC(64)
-    LAMP_I4_TC(32)
-    LAMP_I4_TC(16)
+  if (tc && (tile != 0 || cluster != 0 || round_rows != 0)) {
+    if (n % 4 || reinterpret_cast<uintptr_t>(packed) % 4 || reinterpret_cast<uintptr_t>(x) % 16)
+      return cudaErrorInvalidValue;
+    int map_rc = 0;
+    cudaError_t err = cudaErrorInvalidValue;
+#define LAMP_I4_TC(RS, WR)                                                                  \
+  err = out_dtype == 1                                                                      \
+            ? launch_tc_kc<RS, WR, bf16>(x, packed, scales, out, m, k, n, group, cluster,   \
+                                         st, &map_rc)                                       \
+            : launch_tc_kc<RS, WR, float>(x, packed, scales, out, m, k, n, group, cluster,  \
+                                          st, &map_rc);
+    if (tile == 128 && round_rows == 128) {
+      LAMP_I4_TC(false, 128)
+    } else if (tile == 64 && round_rows == 128) {
+      LAMP_I4_TC(true, 64)
+    } else if (tile == 64 && round_rows == 256) {
+      LAMP_I4_TC(true, 128)
+    }
 #undef LAMP_I4_TC
+    return map_rc != 0 ? kMapError + map_rc : static_cast<int>(err);
   }
+  if (tile != 0 || cluster != 0 || round_rows != 0) return cudaErrorInvalidValue;
   if (x_dtype == 1)
     return out_dtype == 1 ? launch_scalar<bf16, bf16>(x, packed, scales, out, m, k, n, group, st)
                           : launch_scalar<bf16, float>(x, packed, scales, out, m, k, n, group, st);

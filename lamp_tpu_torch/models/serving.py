@@ -25,10 +25,28 @@ hand-written int4 kernel (:func:`~lamp_tpu_torch.ops.int4_matmul`);
 ``kv_dtype=torch.float8_e4m3fn`` (or ``float8_e5m2``) stores the KV pool in
 fp8, which the paged-attention kernel reads directly.
 
+Chunked decode and speculative decoding: :meth:`BatchServer.advance_chunk`
+scores m tokens of every sequence in one call (each layer writes the
+chunk's K/V rows into the pool, then the paged kernel attends over B*m
+query rows), :meth:`BatchServer.rewind` drops a sequence's last tokens, and
+:class:`SpeculativeDecoder` drives a draft server (often
+:func:`draft_view` of the target: its first blocks, sharing the target's
+tensors) and verifies its proposals with one chunk of the target a round:
+
+    spec = SpeculativeDecoder(model, draft_view(model, 3), k=4,
+                              server_cls=functools.partial(
+                                  ModernBatchServer, quantize_bits=4))
+    spec.add("a", prompt_tokens)
+    emitted = spec.step()           # {"a": [tok, ...]}, 1 to k tokens
+
+Under ``quantize_bits=4`` a chunk of B*k > 64 rows runs the int4 kernel's
+row-tiled route.
+
 Not ported yet (each raises ``NotImplementedError`` when asked for): the
 GPT ``BatchServer`` model path, penalties, constrained decoding, LoRA
-adapters, ``n``/``best_of`` fan-out, the prefix cache, tensor parallelism,
-chunked decode.
+adapters, ``n``/``best_of`` fan-out, the prefix cache (and so the
+prefix-cache suffix prefill), tensor parallelism, MoE blocks,
+``BeamSearchDecoder`` and ``LoRADraftSpeculativeDecoder``.
 """
 
 from __future__ import annotations
@@ -40,15 +58,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..nn.modern import ModernLM, apply_rope
 from ..ops.attention import mha_reference
 from ..ops.paged_attention import paged_attention
 from ..ops.quantization import (int4_group_size, int4_matmul, int8_matmul,
                                 quantize_int4, quantize_int8)
-from ..nn.modern import apply_rope
 from .sampling import NUCLEUS_CAND, SamplingParams, sample_tokens
 
 __all__ = ["BatchServer", "ModernBatchServer", "ServingEngine",
-           "SamplingParams"]
+           "SamplingParams", "SpeculativeDecoder", "draft_view"]
 
 
 def _kv_write_stacked(pool, total_pages, token_pages, token_slots,
@@ -311,6 +329,54 @@ class BatchServer:
             self.seq_len[s] += 1
         return logits
 
+    def advance_chunk(self, seq_ids, tokens):
+        """Process m tokens of each sequence in one call; returns logits
+        [B, m, V] f32. Token j's logits predict token j+1 (causal within
+        the chunk). Bumps lengths by m."""
+        tokens = torch.as_tensor(tokens, device=self.device).long()
+        b, m = tokens.shape
+        self._require_capacity(seq_ids, m)
+        for s in seq_ids:
+            self._release_pages(s)
+        lens0 = torch.as_tensor([self.seq_len[s] for s in seq_ids],
+                                dtype=torch.int32, device=self.device)
+        tp = np.zeros((b, m), np.int64)
+        ts = np.zeros((b, m), np.int64)
+        for i, s in enumerate(seq_ids):
+            for j in range(m):
+                tp[i, j], ts[i, j] = self._alloc_slot(s)
+                self.seq_len[s] += 1
+        # page table AFTER allocation (a chunk may open new pages)
+        idx, _ = self._views(seq_ids)
+        return self._decode_chunk(
+            tokens, idx, lens0, torch.as_tensor(tp, device=self.device),
+            torch.as_tensor(ts, device=self.device),
+            self._windows_arg(seq_ids))
+
+    def rewind(self, seq_id, n: int) -> None:
+        """Drop the last ``n`` tokens' KV (speculative-decoding rollback).
+        The rows are simply forgotten: lengths mask them and their slots are
+        reused on the next advance; pages past the new length go back to
+        the pool."""
+        if not 0 <= n <= self.seq_len[seq_id]:
+            raise ValueError(
+                f"rewind({n}) of {seq_id!r}, which holds "
+                f"{self.seq_len[seq_id]} tokens")
+        self.seq_len[seq_id] -= n
+        rel = self.seq_released.get(seq_id, 0)
+        if rel:
+            bound = self._kv_bound(seq_id)
+            # the rewound band must not re-enter released history
+            if bound is None or \
+                    self.seq_len[seq_id] + 1 - bound < rel * self.page_size:
+                raise RuntimeError(
+                    f"rewind({n}) crosses KV already released by the "
+                    f"sliding window for {seq_id!r}")
+        keep = max(-(-self.seq_len[seq_id] // self.page_size), rel)
+        pages = self.seq_pages[seq_id]
+        while len(pages) > keep:
+            self.free_pages.append(pages.pop())
+
     def _sampling_arrays(self, seq_ids):
         """(temperature [B] | None, top_k [B] | None, top_p [B] | None,
         min_p [B] | None, max_top_k, want_logprobs). A filter is None when
@@ -536,6 +602,58 @@ class ModernBatchServer(BatchServer):
             x = x + mm(F.silu(mm(h, w1[li])) * mm(h, w3[li]), w2[li])
         _kv_write_stacked(self.kv_pages, self.total_pages, token_pages,
                           token_slots, deferred_rows)
+        return mm(model.final_norm(x), lmh, out_dtype=torch.float32)
+
+    @torch.no_grad()
+    def _decode_chunk(self, tokens, page_idx, lengths, token_pages,
+                      token_slots, req_windows=None):
+        """Process a [B, m] chunk of tokens at positions ``lengths[:, None]
+        + arange(m)``: each layer writes the chunk's K/V rows into
+        (token_pages, token_slots) [B, m] of the pool before its attention
+        (row j of a chunk sees rows < j, which ``append_kv``'s one injected
+        row cannot give), then the paged kernel attends over the B*m query
+        rows (the page table repeated m times, lengths pos + 1); returns
+        logits [B, m, V] f32."""
+        model = self.model
+        b, m = tokens.shape
+        wqkv, wo, w1, w3, w2, lmh = self._extras
+        dev = self.device
+        pos = lengths.long()[:, None] + torch.arange(m, device=dev)[None]
+        x = model.token_embedding(tokens)  # [B, m, D]
+        hd = self.head_dim
+        c = model.rope_cos[pos].float()[:, :, None, :]  # [B, m, 1, hd/2]
+        s = model.rope_sin[pos].float()[:, :, None, :]
+
+        def rot(t):
+            t1, t2 = t.float().chunk(2, dim=-1)
+            return torch.cat([t1 * c - t2 * s, t2 * c + t1 * s],
+                             dim=-1).to(t.dtype)
+
+        nq = self.heads * hd
+        nkv = self.kv_heads * hd
+        mm = self._mm
+        plen = (pos + 1).reshape(-1).to(torch.int32)
+        pidx = page_idx.repeat_interleave(m, dim=0)
+        win_r = (None if req_windows is None
+                 else req_windows.repeat_interleave(m))
+        tp = token_pages.reshape(-1)
+        ts = token_slots.reshape(-1)
+        for li, block in enumerate(model.blocks):
+            y = mm(block.norm1(x), wqkv[li])
+            q = rot(y[..., :nq].reshape(b, m, self.heads, hd))
+            kk = rot(y[..., nq:nq + nkv].reshape(b, m, self.kv_heads, hd))
+            _kv_write_stacked(self.kv_pages, self.total_pages,
+                              tp + li * self.total_pages, ts,
+                              [(kk.reshape(b * m, nkv),
+                                y[..., nq + nkv:].reshape(b * m, nkv))])
+            o = paged_attention(
+                q.reshape(b * m, self.heads, hd), self.kv_pages, None, pidx,
+                plen, num_kv_heads=self.kv_heads, window=self._windows[li],
+                windows=win_r, page_offset=li * self.total_pages,
+            ).reshape(b, m, nq)
+            x = x + mm(o, wo[li])
+            h = block.norm2(x)
+            x = x + mm(F.silu(mm(h, w1[li])) * mm(h, w3[li]), w2[li])
         return mm(model.final_norm(x), lmh, out_dtype=torch.float32)
 
     @torch.no_grad()
@@ -775,3 +893,158 @@ class ServingEngine:
             self._generated_lp.pop(rid, None)
             return True
         return False
+
+
+class SpeculativeDecoder:
+    """Speculative decoding over the paged servers: a small DRAFT model
+    proposes ``k-1`` tokens autoregressively, the TARGET model scores all
+    ``k`` positions in ONE chunked decode call
+    (:meth:`BatchServer.advance_chunk`).
+
+    ``temperature == 0`` (default): greedy — the longest draft prefix
+    agreeing with the target's argmax is accepted (+1 corrected token); the
+    emitted stream is IDENTICAL to target-only greedy decoding.
+
+    ``temperature > 0``: rejection sampling (Leviathan et al.) — draft
+    token d_j is accepted with probability min(1, p_j(d_j)/q_j(d_j)); on
+    rejection a replacement is drawn from normalize(max(0, p_j - q_j)); if
+    all proposals are accepted a bonus token is drawn from p_k. The emitted
+    tokens are distributed EXACTLY as target-only sampling at that
+    temperature. The draws come from a host-side numpy generator seeded by
+    ``seed`` over f64 copies of the logits, as in the JAX class.
+
+    Rejected tokens' K/V are dropped with :meth:`BatchServer.rewind` (their
+    page slots are simply reused). ``server_cls`` builds both servers
+    (``functools.partial(ModernBatchServer, quantize_bits=4)`` for int4
+    servers). Both servers are fed the same prompts via :meth:`add`.
+    """
+
+    def __init__(self, target_model, draft_model, *, k: int = 4,
+                 page_size: int = 128, total_pages: int = 512,
+                 temperature: float = 0.0, seed: int = 0,
+                 server_cls=None):
+        if server_cls is None:
+            server_cls = (BatchServer if hasattr(target_model, "encoder")
+                          else ModernBatchServer)
+        self.k = k
+        self.temperature = temperature
+        self.rng = np.random.default_rng(seed)
+        self.target = server_cls(target_model, page_size=page_size,
+                                 total_pages=total_pages)
+        self.draft = server_cls(draft_model, page_size=page_size,
+                                total_pages=total_pages)
+
+    def add(self, seq_id, prompt_tokens) -> None:
+        self.target.add(seq_id, prompt_tokens)
+        self.draft.add(seq_id, prompt_tokens)
+
+    def remove(self, seq_id) -> None:
+        self.target.remove(seq_id)
+        self.draft.remove(seq_id)
+
+    @property
+    def active(self):
+        return self.target.active
+
+    @staticmethod
+    def _softmax(logits, temperature):
+        z = logits / temperature
+        z = z - z.max(axis=-1, keepdims=True)
+        e = np.exp(z)
+        return e / e.sum(axis=-1, keepdims=True)
+
+    def step(self) -> Dict:
+        """One speculative round; returns {seq_id: [emitted tokens]} (1 to
+        ``k`` tokens per sequence)."""
+        seq_ids = self.active
+        if not seq_ids:
+            return {}
+        k = self.k
+        b = len(seq_ids)
+        sampling = self.temperature > 0
+        dev = self.draft.device
+        # 1. draft proposes: inputs p0 (pending token), d1, ..., d_{k-2};
+        #    outputs d1..d_{k-1}
+        proposals = np.zeros((b, k), np.int64)
+        proposals[:, 0] = [self.target.last_token[s] for s in seq_ids]
+        q_dists = []  # [k-1] entries of [B, V] draft distributions
+        for j in range(1, k):
+            logits = self.draft._advance(
+                seq_ids, torch.as_tensor(proposals[:, j - 1], device=dev))
+            if sampling:
+                q = self._softmax(logits.cpu().numpy().astype(np.float64),
+                                  self.temperature)
+                q_dists.append(q)
+                for i in range(b):
+                    proposals[i, j] = self.rng.choice(q.shape[1], p=q[i])
+            else:
+                proposals[:, j] = logits.argmax(-1).cpu().numpy()
+        # 2. target verifies all k positions at once
+        tlogits = self.target.advance_chunk(seq_ids, proposals)
+        if sampling:
+            p_dists = self._softmax(tlogits.cpu().numpy().astype(np.float64),
+                                    self.temperature)  # [B, k, V]
+        t_next = tlogits.argmax(-1).cpu().numpy()  # [B, k]: t1..tk
+        out = {}
+        for i, s in enumerate(seq_ids):
+            emitted = []
+            if sampling:
+                # rejection sampling: accept d_j w.p. min(1, p/q); replace
+                # from the normalized positive residual on rejection
+                for j in range(1, k):
+                    d = int(proposals[i, j])
+                    p_j = p_dists[i, j - 1]
+                    q_j = q_dists[j - 1][i]
+                    if self.rng.uniform() < min(
+                            1.0, p_j[d] / max(q_j[d], 1e-30)):
+                        emitted.append(d)
+                    else:
+                        resid = np.maximum(p_j - q_j, 0.0)
+                        tot = resid.sum()
+                        dist = resid / tot if tot > 0 else p_j
+                        emitted.append(int(self.rng.choice(len(dist),
+                                                           p=dist)))
+                        break
+                else:  # all accepted: bonus token from the target
+                    pk = p_dists[i, k - 1]
+                    emitted.append(int(self.rng.choice(len(pk), p=pk)))
+            else:
+                # greedy: accept while the draft matches the target's argmax
+                for j in range(1, k):
+                    if proposals[i, j] == t_next[i, j - 1]:
+                        emitted.append(int(proposals[i, j]))
+                    else:
+                        break
+                # +1: the target's token at the first mismatch (or position k)
+                emitted.append(int(t_next[i, len(emitted)]))
+            n_emit = len(emitted)
+            # 3. roll back both servers to the accepted history: the target
+            #    wrote k rows, the draft k-1; each needs old_len + n_emit
+            #    rows (the newest token stays pending)
+            self.target.rewind(s, k - n_emit)
+            if n_emit == k:
+                # the draft never processed d_{k-1} (== t_{k-1}); feed it so
+                # that the draft's history matches before the next round
+                self.draft._advance(
+                    [s], torch.as_tensor([int(proposals[i, k - 1])],
+                                         device=dev))
+            else:
+                self.draft.rewind(s, (k - 1) - n_emit)
+            self.target.last_token[s] = emitted[-1]
+            self.draft.last_token[s] = emitted[-1]
+            out[s] = emitted
+        return out
+
+
+def draft_view(model, num_blocks: int):
+    """A truncated VIEW of a :class:`~lamp_tpu_torch.nn.ModernLM`: its first
+    ``num_blocks`` transformer blocks plus the shared final norm, LM head,
+    embedding and RoPE tables. Every tensor is the full model's own (the
+    same ``Parameter`` and buffer objects): no device memory is copied."""
+    if not 0 < num_blocks <= len(model.blocks):
+        raise ValueError(
+            f"num_blocks must be in [1, {len(model.blocks)}], got "
+            f"{num_blocks}")
+    return ModernLM(model.token_embedding, list(model.blocks[:num_blocks]),
+                    model.final_norm, model.lm_head, model.rope_cos,
+                    model.rope_sin, context_length=model.context_length)

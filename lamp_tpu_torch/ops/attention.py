@@ -163,11 +163,21 @@ def _flash_backward_reference(q, k, v, o, lse, do, *, causal=False,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def aligned16(t):
+    """``t`` itself where it is contiguous and 16-byte aligned, else a
+    fresh contiguous copy: the kernels read rows in 16-byte pieces. Any
+    layout of an input is taken this way (a copy, not a plain version)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _check_cuda(q, k, v, kv_lengths, segment_ids, mask):
     """Raise on anything the CUDA kernels do not take: integer or mixed
     dtypes, bad shapes, tensors on other devices, non-contiguous or
-    misaligned q, k and v, and segment ids or masks of the wrong shape or
-    device. Every head dim and every float dtype is taken."""
+    misaligned q, k and v (which :func:`flash_attention` copies through
+    :func:`aligned16` before this check), and segment ids or masks of the
+    wrong shape or device. Every head dim and every float dtype is
+    taken."""
     if q.dtype not in _KERNEL_DTYPES or k.dtype != q.dtype or \
             v.dtype != q.dtype:
         raise TypeError(
@@ -334,9 +344,7 @@ def _bwd_cuda(q, k, v, o, lse, do, kv_lengths, causal, sm_scale, window,
 
     lib = library()
     vis = vis or _Visibility(q, None, None)
-    do = do.to(q.dtype).contiguous()
-    if do.data_ptr() % 16:  # the kernels read do in 16-byte vectors
-        do = do.clone()
+    do = aligned16(do.to(q.dtype))
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     # di = rowsum(o * do) in f32 (f64 for float64 inputs): written by the
     # dq kernel, read by dkv
@@ -425,8 +433,10 @@ def flash_attention(q, k, v, *, causal: bool = False,
     :func:`_flash_backward_reference`. CUDA tensors launch the kernels of
     ``csrc/flash_forward.cu``, ``csrc/flash_attention.cu``,
     ``csrc/flash_backward_wide.cu``, ``csrc/flash_forward_any.cu`` and
-    ``csrc/flash_backward_any.cu`` (float32, bfloat16, float16 or float64, any head_dim, contiguous q, k
-    and v; the mask is read in place through its strides) or raise: each
+    ``csrc/flash_backward_any.cu`` (float32, bfloat16, float16 or
+    float64, any head_dim, q, k and v of any layout: a non-contiguous or
+    misaligned one is copied first; the mask is read in place through its
+    strides) or raise: each
     forward launch adds one to ``flash_attention.launches`` and each
     backward (two kernels) one to ``flash_attention.backward_launches``.
     """
@@ -437,6 +447,7 @@ def flash_attention(q, k, v, *, causal: bool = False,
         kv_lengths = torch.as_tensor(kv_lengths, device=q.device).to(
             torch.int32).contiguous()
     if q.device.type == "cuda":
+        q, k, v = aligned16(q), aligned16(k), aligned16(v)
         _check_cuda(q, k, v, kv_lengths, segment_ids, mask)
     elif q.device.type != "cpu":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
@@ -467,15 +478,30 @@ def compact_attention(q, k, v, *, causal: bool = False,
                            segment_ids=segment_ids, mask=mask)
 
 
+_IMPLEMENTATIONS = (None, "xla", "compact", "flash")
+
+
 def dot_product_attention(q, k, v, *, causal: bool = False, mask=None,
                           sm_scale: Optional[float] = None,
-                          window: Optional[int] = None, segment_ids=None):
-    """The JAX router with one kernel, routed by device alone: CUDA tensors
-    go to :func:`flash_attention` at every length, CPU tensors to
-    :func:`mha_reference` (the JAX package's XLA path off the TPU)."""
-    if q.device.type == "cuda":
-        return flash_attention(q, k, v, causal=causal, sm_scale=sm_scale,
-                               window=window, segment_ids=segment_ids,
-                               mask=mask)
+                          window: Optional[int] = None, segment_ids=None,
+                          implementation: Optional[str] = None):
+    """The JAX router with one kernel. CUDA tensors go to
+    :func:`flash_attention` at every length (``implementation`` None or
+    ``"flash"``; ``"compact"`` through :func:`compact_attention`, which is
+    the same kernel with the JAX path's kv-length limit), or, for
+    ``"xla"``, to :func:`mha_reference`: the caller's explicit request for
+    the unfused path, as in JAX. CPU tensors take :func:`mha_reference`
+    whatever the value (the JAX package's XLA path off the TPU). Any other
+    value raises ``ValueError`` (the JAX router would take it as
+    ``"xla"``)."""
+    if implementation not in _IMPLEMENTATIONS:
+        raise ValueError(
+            f"dot_product_attention: implementation must be one of "
+            f"{_IMPLEMENTATIONS}, got {implementation!r}")
+    if q.device.type == "cuda" and implementation != "xla":
+        fn = compact_attention if implementation == "compact" \
+            else flash_attention
+        return fn(q, k, v, causal=causal, sm_scale=sm_scale, window=window,
+                  segment_ids=segment_ids, mask=mask)
     return mha_reference(q, k, v, causal=causal, sm_scale=sm_scale,
                          mask=mask, window=window, segment_ids=segment_ids)

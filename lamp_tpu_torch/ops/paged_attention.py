@@ -29,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from .attention import aligned16
 from .quantization import _sm_count
 
 __all__ = ["paged_attention", "paged_attention_reference"]
@@ -169,7 +170,9 @@ def _split_pages(pages_per_seq: int, splits: int):
 
 
 def _check_cuda(q, pools, page_indices, lengths, windows, append_kv):
-    """Raise on anything the CUDA kernel does not take."""
+    """Raise on anything the CUDA kernel does not take (a non-contiguous
+    or misaligned q or append_kv is copied by :func:`paged_attention`
+    before this check)."""
     pool = pools[0]
     if q.dtype not in _KERNEL_DTYPES or (pool.dtype != q.dtype and (
             pool.dtype not in _FP8 or q.dtype == torch.float64)):
@@ -225,8 +228,12 @@ def paged_attention(q, k_pages, v_pages, page_indices, lengths, *,
     CPU tensors take :func:`paged_attention_reference`. CUDA tensors launch
     the kernel (f32, bf16, f16 or f64 q with a pool of q's dtype, or a
     32- or 16-bit q with a float8_e4m3fn or float8_e5m2 pool; any head_dim
-    and any number of query heads per kv head) or raise; each launch adds one to ``paged_attention.launches``.
-    fp8 pools are upcast in the kernel; the append rows stay in q's dtype.
+    and any number of query heads per kv head) or raise; each launch adds
+    one to ``paged_attention.launches``. q and ``append_kv`` may have any
+    layout (a non-contiguous or misaligned one is copied first); the pools,
+    page table, lengths and windows, which the server keeps, must be
+    contiguous and the pools 16-byte aligned, or the call raises. fp8 pools
+    are upcast in the kernel; the append rows stay in q's dtype.
     """
     if window is not None:
         window = int(window)
@@ -264,6 +271,12 @@ def paged_attention(q, k_pages, v_pages, page_indices, lengths, *,
         )
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention: unsupported device {q.device}")
+    # q and the appended rows may have any layout (copied where not
+    # contiguous and 16-byte aligned); the pools, page table, lengths and
+    # windows, which the server keeps, must already be
+    q = aligned16(q)
+    if append_kv is not None:
+        append_kv = (aligned16(append_kv[0]), aligned16(append_kv[1]))
     _check_cuda(q, [k_pages] if fused_kv else [k_pages, v_pages],
                 page_indices, lengths, windows, append_kv)
     # csrc/paged_attention.cu replaces lamp_tpu's _paged_kernel. It is bound

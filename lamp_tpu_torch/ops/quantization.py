@@ -31,9 +31,11 @@ dequantize-then-dot fallback that rounds the weight to x's dtype. The port
 computes the kernel's arithmetic at every shape instead: x in its own dtype
 times the exact integer codes, summed in f32 per K-group, each group's
 partial product scaled by its f32 scale row, the result in f32 and then cast
-to ``out_dtype``. The CUDA kernel takes every M >= 1, every N and every
-group size (tensor cores for bf16 x and groups of a multiple of 16, a
-scalar loop otherwise) and masks the ragged edges.
+to ``out_dtype``. The CUDA kernels take every M >= 1, every N and every
+group size and mask the ragged edges: bf16 x with groups of a multiple of
+16 runs on tensor cores (``int4_mm_decode`` at M <= 64, ``int4_mm_tc`` on
+wgmma above, where N % 4 == 0), everything else a scalar loop
+(``int4_mm_scalar``).
 
 **K8's random bits.** ``pltpu.prng_random_bits`` has no counterpart, so the
 stream is NOT the TPU's: element ``i`` (its flat index in ``[M, K]``) draws
@@ -52,6 +54,8 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+
+from .attention import aligned16
 
 __all__ = [
     "quantize_int8",
@@ -365,7 +369,11 @@ def int4_matmul(x, w_packed, w_scales, *, out_dtype=None):
     [..., N] in ``out_dtype`` (default x's dtype). CPU tensors take
     :func:`int4_matmul_reference`; CUDA tensors launch
     ``csrc/int4_matmul.cu`` (x f32 or bf16, out f32 or bf16) or raise, and
-    each launch adds one to ``int4_matmul.launches``."""
+    each launch adds one to ``int4_matmul.launches`` (and a launch of the
+    row-tiled kernel to ``int4_matmul.tc_launches``). x may have any
+    layout: a non-contiguous or misaligned x is copied to a fresh
+    contiguous tensor first. The packed weight and its scales, which the
+    caller keeps, must be contiguous: the wrapper raises otherwise."""
     out_dtype = out_dtype or x.dtype
     k, n, g = _int4_shapes(x, w_packed, w_scales)
     lead = x.shape[:-1]
@@ -380,25 +388,26 @@ def int4_matmul(x, w_packed, w_scales, *, out_dtype=None):
         raise TypeError(
             f"int4_matmul kernel takes float32 or bfloat16 x and out and "
             f"float32 scales, got {x.dtype}, {out_dtype} and {w_scales.dtype}")
-    x2 = x2.contiguous()
     for t in (w_packed, w_scales):
         if t.device != x.device:
             raise ValueError(f"int4_matmul: tensors on {t.device} and "
                              f"{x.device}")
         if not t.is_contiguous():
             raise ValueError("int4_matmul: weights must be contiguous")
-    if x2.data_ptr() % 16:
-        raise ValueError("int4_matmul: x must be 16-byte aligned")
+    x2 = aligned16(x2)
     # csrc/int4_matmul.cu replaces lamp_tpu's _int4_mm_kernel. It is bound
-    # by the packed weight bytes (K*N/2) and reads each packed byte once
-    # per row tile, consuming both nibbles.
+    # by the packed weight bytes (K*N/2) at decode's rows and by its
+    # products at an LM forward's; each packed byte feeds both halves'
+    # products.
     from ._build import library
 
     lib = library()
     m = x2.shape[0]
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    plan = (_int4_plan(m, n, k // 2, g, x.device)
-            if x.dtype == torch.bfloat16 and g % 16 == 0 else (0, 0, 0))
+    plan = (0, 0, 0)
+    if x.dtype == torch.bfloat16 and g % 16 == 0 and (
+            m <= _DECODE_ROWS or (n % 4 == 0 and w_packed.data_ptr() % 4 == 0)):
+        plan = _int4_plan(m, n, k // 2, g, x.device)
     rc = lib.lamp_int4_matmul(
         x2.data_ptr(), w_packed.data_ptr(), w_scales.data_ptr(),
         out.data_ptr(), m, k, n, g, _KERNEL_DTYPES[x.dtype],
@@ -406,11 +415,15 @@ def int4_matmul(x, w_packed, w_scales, *, out_dtype=None):
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(lib, rc, "int4_matmul")
     int4_matmul.launches += 1
+    if m > _DECODE_ROWS and plan[0]:
+        int4_matmul.tc_launches += 1
     return out.reshape(*lead, n)
 
 
-# kernel launches since the last reset (a run shows the path used the kernel)
+# kernel launches since the last reset (a run shows the path used the
+# kernel): every route's, and the row-tiled kernel's (int4_mm_tc) alone
 int4_matmul.launches = 0
+int4_matmul.tc_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -455,28 +468,58 @@ def _int4_plan(m: int, n: int, k2: int, g: int, device) -> Tuple[int, int,
                                                                  int]:
     """The launch plan of a tensor-core K7 call (bf16 x, ``g`` % 16 == 0),
     decided here only: ``(tile, cluster, round_rows)`` for the decode
-    kernel, or ``(0, 0, 0)`` for the row-tiled kernel of M > 64 rows.
-
-    - the call aims at a block for every two SMs: on an H100 more blocks
-      in more ranks cost more in the cluster sum than they save
-      (PERF.md §6);
-    - tile, the output columns of a block: 128 where the 64-column tiles
-      are at least two per SM (the logits: x is staged once per 128
-      columns), else 64 where clusters of 8 over 64-column tiles reach the
-      aim, else 32;
-    - cluster, the blocks (<= 8) that split a tile's K range: enough to
-      reach the aim, at most one per 16-row step, then the fewest that
-      keep the longest slice as short;
-    - round_rows, the packed rows a block stages at once: its whole slice
-      where a stage fits in _DECODE_STAGE_BYTES, else the most that do (the
-      kernel then runs two stages of rounds).
-
-    The kernel refuses a plan that it cannot run."""
-    if m > _DECODE_ROWS:
-        return 0, 0, 0
+    kernel of M <= 64 rows (:func:`_decode_plan`), or ``(tile, cluster,
+    rows)`` for the row-tiled kernel above (:func:`_tc_plan`). The kernel
+    refuses a plan that it cannot run."""
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
+    if m > _DECODE_ROWS:
+        return _tc_plan(min(m, 257), n, k2, g, _sm_count(index))
     return _decode_plan(m, n, k2, g, _sm_count(index))
+
+
+def _even_cluster(steps: int, want: int) -> int:
+    """At most ``want`` (and 8, and ``steps``) blocks splitting ``steps``
+    16-row steps: the fewest that keep the longest slice as short."""
+    cluster = max(1, min(8, steps, want))
+    return -(-steps // -(-steps // cluster))
+
+
+@functools.lru_cache(maxsize=None)
+def _tc_plan(m: int, n: int, k2: int, g: int, sms: int):
+    """``(tile, cluster, rows)`` of the row-tiled kernel (int4_mm_tc): a
+    block is two consumer warpgroups of 64 output columns each (wgmma's M)
+    over ``tile`` columns by ``rows`` x rows.
+
+    - above 256 rows: 128 x 128 tiles, no split (the tiles fill the card,
+      and the products bound the call; the grid is persistent);
+    - 129-256 rows: 64 columns by 256 rows, the warpgroups over 128 rows
+      each, so that each packed byte is read once a call;
+    - 65-128 rows: 128 columns by 128 rows where the 128-column tiles are
+      at least one for every two SMs (the logits), else 64 columns, the
+      warpgroups over 64 rows each (wgmma m64n64);
+    - cluster: at 256 rows or fewer, the blocks (<= 8) that split a tile's
+      K range, aiming at a block for every two SMs (a block fills an SM's
+      shared memory; clusters of 6-8 such blocks did not all fit on the
+      card at once: a second wave). Ranks that split at group boundaries
+      (a divisor of the half's groups) are taken where one lies within a
+      factor 2 below the aim: a rank then scales whole groups, in passes
+      of whole stages, and no rank waits on another's extra pass; else the
+      even split of the decode plan.
+    """
+    if m > 256:
+        return 128, 1, 128
+    steps = k2 // 16
+    if m > 128:
+        tile, rows = 64, 256
+    else:
+        rows = 128
+        tile = 128 if -(-n // 128) >= sms // 2 else 64
+    want = max(1, min(8, steps, -(-max(1, sms // 2) // -(-n // tile))))
+    n_kp = k2 // g
+    aligned = max(d for d in range(1, want + 1) if n_kp % d == 0)
+    cluster = aligned if 2 * aligned >= want else _even_cluster(steps, want)
+    return tile, cluster, rows
 
 
 @functools.lru_cache(maxsize=None)
@@ -490,8 +533,7 @@ def _decode_plan(m: int, n: int, k2: int, g: int, sms: int):
         tile = 64
     else:
         tile = 32
-    cluster = max(1, min(8, steps, -(-target // -(-n // tile))))
-    cluster = -(-steps // -(-steps // cluster))
+    cluster = _even_cluster(steps, -(-target // -(-n // tile)))
     slice_rows = 16 * -(-steps // cluster)
     mrows = 8 * -(-m // 8)
     round_rows = slice_rows
@@ -502,7 +544,16 @@ def _decode_plan(m: int, n: int, k2: int, g: int, sms: int):
     return tile, cluster, round_rows
 
 
+# the int4 entry returns this plus libcuda's CUresult when x's TMA map is
+# refused (minus one: no encoder found)
+_MAP_ERROR = 10000
+
+
 def _raise_on(lib, rc, what):
+    if rc >= _MAP_ERROR - 1:
+        raise RuntimeError(
+            f"{what}: libcuda refused a TMA tensor map (CUresult "
+            f"{rc - _MAP_ERROR}; -1: cuTensorMapEncodeTiled not found)")
     if rc != 0:
         raise RuntimeError(
             f"{what} kernel launch failed: "

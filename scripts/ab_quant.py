@@ -2,7 +2,7 @@
 port, on one CUDA card, in turns.
 
     git archive <commit> lamp_tpu_torch | tar -x -C <dir>
-    python3 scripts/ab_quant.py <dir> [rounds]
+    python3 scripts/ab_quant.py <dir> [rounds] [decode|tc]
 
 The two checkouts' packages share a name, so each measurement runs in a
 process of its own that imports one tree's lamp_tpu_torch: both trees'
@@ -11,14 +11,18 @@ measures the other tree, this tree, this tree and the other tree again.
 Each measurement calls the tree's own ``int4_matmul`` (its wrapper, its
 launch plan) at the serving configuration's five decode shapes (qkv
 768 x 1280, wo 768 x 768, w1/w3 768 x 2048, w2 2048 x 768, logits
-768 x 32000; bf16 x, out bf16, f32 for the logits) at M = 1 and 32, and
-F.linear on the dequantized bf16 weight [N, K] beside each (the same call
+768 x 32000; bf16 x, out bf16, f32 for the logits) at M = 1 and 32
+(``decode``, the default: the decode kernel's rows) or M = 128 and 3072
+(``tc``: a speculative round's target chunk and an LM forward's rows, the
+row-tiled kernel's), and F.linear on the dequantized bf16 weight [N, K]
+beside each (the same call
 in both trees: a yardstick measured on the same card). A time is the
 device time a call by CUDA events over the replay of a CUDA graph of 100
 back-to-back calls, one weight (warm, in L2); the profiler's sum of the
 same call's kernels over 50 eager calls is printed beside it. Prints each
 measurement, the median of each side, the ratio of this tree's to the
-other's, and the sum over one decode step's 61 calls at M = 32.
+other's, and the sum over 61 calls (a decode step's at M = 32, a
+speculative round's target chunk at M = 128).
 """
 
 import json
@@ -32,11 +36,11 @@ ROOT = Path(__file__).resolve().parent.parent
 SHAPES = (("qkv", 768, 1280, 12), ("wo", 768, 768, 12),
           ("w1/w3", 768, 2048, 24), ("w2", 2048, 768, 12),
           ("logits", 768, 32000, 1))
-ROWS = (1, 32)
+ROWS = {"decode": (1, 32), "tc": (128, 3072)}
 CALLS = 100
 
 
-def worker(tree: str, build_only: bool) -> None:
+def worker(tree: str, build_only: bool, group: str = "decode") -> None:
     sys.path.insert(0, tree)
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -90,7 +94,7 @@ def worker(tree: str, build_only: bool) -> None:
         p, s = Q.quantize_int4(w, group_size=Q.int4_group_size(k))
         od = torch.float32 if name == "logits" else torch.bfloat16
         w_deq = Q.dequantize_int4(p, s).t().contiguous()
-        for m in ROWS:
+        for m in ROWS[group]:
             x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
 
             def k7():
@@ -108,8 +112,8 @@ def worker(tree: str, build_only: bool) -> None:
     print("AB " + json.dumps(times), flush=True)
 
 
-def run(tree: str, build_only: bool = False):
-    cmd = [sys.executable, __file__, "--worker", tree] + (
+def run(tree: str, build_only: bool = False, group: str = "decode"):
+    cmd = [sys.executable, __file__, "--worker", tree, group] + (
         ["--build"] if build_only else [])
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True)
 
@@ -117,6 +121,8 @@ def run(tree: str, build_only: bool = False):
 def main() -> int:
     other = str(Path(sys.argv[1]).resolve())
     rounds = int(sys.argv[2]) if len(sys.argv) > 2 else 2
+    group = sys.argv[3] if len(sys.argv) > 3 else "decode"
+    summed = ROWS[group][1 if group == "decode" else 0]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True).stdout
@@ -130,7 +136,7 @@ def main() -> int:
     profs = {"other": [], "this": []}
     for _ in range(rounds):
         for side in ("other", "this", "this", "other"):
-            proc = run(other if side == "other" else str(ROOT))
+            proc = run(other if side == "other" else str(ROOT), group=group)
             out = proc.communicate()[0]
             if proc.returncode:
                 raise SystemExit(f"the {side} tree's worker failed")
@@ -152,17 +158,17 @@ def main() -> int:
               flush=True)
     for side in ("other", "this"):
         for what in ("K7", "F.linear"):
-            step = sum(med[side][f"{what} {name} M=32"] * calls
+            step = sum(med[side][f"{what} {name} M={summed}"] * calls
                        for name, _, _, calls in SHAPES)
-            pstep = sum(pmed[side][f"{what} {name} M=32"] * calls
+            pstep = sum(pmed[side][f"{what} {name} M={summed}"] * calls
                         for name, _, _, calls in SHAPES)
-            print(f"{side:5} {what:8} one decode step's 61 calls at M=32: "
+            print(f"{side:5} {what:8} 61 calls at M={summed}: "
                   f"{step:7.1f} us (profiler {pstep:7.1f})", flush=True)
     return 0
 
 
 if __name__ == "__main__":
     if len(sys.argv) > 2 and sys.argv[1] == "--worker":
-        worker(sys.argv[2], "--build" in sys.argv)
+        worker(sys.argv[2], "--build" in sys.argv, sys.argv[3])
         sys.exit(0)
     sys.exit(main())

@@ -4,7 +4,7 @@ lines), then the named parts only.
 
     python3 scripts/chip_phases.py [paged] [ragged] [ragged_bwd] [fwd]
         [flash] [wide] [any] [small] [train32] [openllama] [gemma]
-        [openllama_train] [quant]
+        [openllama_train] [quant] [layouts] [spec]
 
 paged: phase 2 (the paged-attention kernels: the fixed kernel's edges,
 K6_WIDE's shapes and the key split's edges included, and the serving
@@ -27,9 +27,14 @@ edges of fwd_any (check_any_forward), then of dq_any and dkv_any
 untimed; small: the GPT models of SMALL_HEAD_MODELS; train32:
 phase 5's f32 flagship; openllama: phase 11; gemma: phase 12;
 openllama_train: phase 13 (OpenLLaMA-3B trained in bf16); quant:
-phase 6 (K7 at every decode shape and edge, int8_matmul, K8), then phase
-7's int4 server (launch counts, greedy tokens, the steady decode and K7's
-share of a profiled step). No argument runs them all.
+phase 6 (K7 at every decode shape and edge and the row-tiled kernel's
+rows, int8_matmul, K8), then phase 7's int4 server (launch counts, greedy
+tokens, the steady decode and K7's share of a profiled step); layouts:
+check_layouts (the wrappers given transposed views and offset slices,
+against their contiguous copies, bit for bit); spec: phase 14
+(speculative decoding on the int4 servers: the bf16 chunk against single
+steps, the greedy run's checks and figures, a profiled round, the sampled
+run). No argument runs them all.
 Every check raises as in chip_smoke.py.
 """
 
@@ -52,7 +57,8 @@ from lamp_tpu_torch.ops.paged_attention import (  # noqa: E402
     paged_attention, paged_attention_reference)
 
 PARTS = ("paged", "ragged", "ragged_bwd", "fwd", "flash", "wide", "any",
-         "small", "train32", "openllama", "gemma", "openllama_train", "quant")
+         "small", "train32", "openllama", "gemma", "openllama_train", "quant",
+         "layouts", "spec")
 
 
 def main(parts) -> int:
@@ -130,6 +136,14 @@ def main(parts) -> int:
         cs.phase_quant_kernels(Q)
         cs.serve_int4(cs.make_serving_model(torch_nn), models, Q,
                       paged_attention)
+    if "layouts" in parts or "spec" in parts:
+        from lamp_tpu_torch.ops import quantization as Q
+
+        if "layouts" in parts:
+            cs.check_layouts(att, paged_attention, Q)
+        if "spec" in parts:
+            print(cs.phase_speculative(torch_nn, models, Q, paged_attention),
+                  flush=True)
     print("chip_phases: done", flush=True)
     return 0
 

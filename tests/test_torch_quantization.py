@@ -186,9 +186,10 @@ def test_int4_matmul_wrapper_is_the_plain_version_on_cpu():
     (64, 4096, 8192, 128)])
 def test_int4_plan_covers_k_once_and_fills_the_card(monkeypatch, m, n, k2,
                                                     g):
-    """The wrapper decides K7's launch plan alone: M > 64 takes the
-    row-tiled kernel (no plan); otherwise each packed row lies in exactly
-    one rank's slice of a cluster of at most 8 (none empty), a round is a
+    """The wrapper decides K7's launch plan alone: M > 256 takes the
+    row-tiled kernel's 128 x 128 tiles unsplit (its plans at 65-256 rows:
+    tests/test_torch_speculative.py); otherwise each packed row lies in
+    exactly one rank's slice of a cluster of at most 8 (none empty), a round is a
     multiple of 16 rows within the longest slice, the shared memory fits a
     block, and a call launches a block for every two SMs or more (66 of
     132; the plan aims there: more blocks in more ranks cost the H100 more
@@ -198,7 +199,7 @@ def test_int4_plan_covers_k_once_and_fills_the_card(monkeypatch, m, n, k2,
     tile, cluster, round_rows = tq._int4_plan(m, n, k2, g,
                                               torch.device("cuda", 0))
     if m > 64:
-        assert (tile, cluster, round_rows) == (0, 0, 0)
+        assert (tile, cluster, round_rows) == (128, 1, 128)
         return
     assert tile in (32, 64, 128)
     assert 1 <= cluster <= 8
