@@ -126,19 +126,23 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
 6. The int4 dequant-matmul kernel (K7) against its plain version at every
    decode matmul of the serving configuration (QKV 768x1280, out 768x768,
    SwiGLU 768x2048 and 2048x768, logits 768x32000) with M in {1, 7, 32, 64,
-   65, 128, 160, 257, 3072}, bf16 x (f32 x up to 64), bf16 and f32 out, by
-   relative Frobenius error, with a planted fault (one K-group's scale row
-   dropped) that each check must see, and two calls equal bit for bit (the
-   decode kernel int4_mm_decode at M <= 64, the row-tiled int4_mm_tc
-   above); the same at K7_EDGES (a ragged N of 1000 over an uneven
-   cluster, K=8192 in rounds, groups of 32). Timed at B=32 by CUDA events
+   65, 128, 160, 257, 3072}, bf16 x (bf16 and f32 out) and f32 x (f32 out,
+   split into three bf16 parts on the tensor cores), by relative Frobenius
+   error, with a planted fault (one K-group's scale row dropped; for f32 x
+   also x kept to one bf16 part) that each check must see, and two calls
+   equal bit for bit (the decode kernel int4_mm_decode at M <= 64, the
+   row-tiled int4_mm_tc above); the same at K7_EDGES (a ragged N of 1000
+   over an uneven cluster, K=8192 in rounds, groups of 32, and the
+   scalar-route kernel int4_mm_scalar's groups of 8 and odd N of 50257).
+   Timed at B=32 by CUDA events
    over a CUDA graph of 100 calls (warm, and cold: copies of the weight
    beyond L2), the profiler's sum held against it, beside its bound and
    F.linear on the dequantized bf16 weight timed alike; a call must launch
    int4_mm_decode alone and allocate nothing beside its output. The same
    for int4_mm_tc at M=128 (phase 14's chunk) at every shape and at
-   M=3072 for qkv and the logits, and for int4_mm_scalar (f32 x, beside
-   F.linear in f32) at B=32. int8_matmul (torch._int_mm,
+   M=3072 for qkv and the logits, for the f32 route at M=32, 128 and 3072
+   (beside F.linear in f32) and for int4_mm_scalar at its two edges.
+   int8_matmul (torch._int_mm,
    zero rows padded below 17 rows) at the same shapes with M in {1, 7, 16,
    17, 32}: bit for bit against the same arithmetic with an exact f64
    product, and near x @ dequant(w). The stochastic int8 quantizer (K8, on
@@ -148,12 +152,15 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
 7. Quantized serving at full width, on phase 3's model and requests:
    ModernBatchServer(quantize_bits=4) through ServingEngine (lengths, the
    page pool, 61 K7 and 12 K6 launches per decode step, greedy tokens
-   against a dense f32 forward of the dequantized model), then with
+   against a dense f32 forward of the dequantized model), the same model in
+   f32 under quantize_bits=4 (every K7 launch on the f32 route, none on the
+   scalar route, an f32 pool, greedy tokens past a 1e-3 margin), then with
    kv_dtype=float8_e4m3fn (the same checks, greedy agreement with the bf16
    pool), then quantize_bits=8 (the same checks, no K7 launch, greedy
    tokens against a dense f32 forward through int8_matmul), then the steady
-   step_many(8) at B=32 of int8, int4 and int4 + fp8 KV beside phase 3's
-   bf16 (tok/s, device time and device ops per step, K7's share).
+   step_many(8) at B=32 of int8, int4, int4 + fp8 KV and f32 int4 beside
+   phase 3's bf16 (tok/s, device time and device ops per step, K7's
+   share).
 8. The fused AdamW kernel (K4) against its plain version at all 220
    parameter shapes of the flagship GPT (85,565,952 parameters, one launch)
    and odd sizes, in bf16 with stochastic rounding, bf16 rounded to nearest
@@ -164,9 +171,9 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
    stochastically). The fused LayerNorm kernels (K5, on no path of the
    port, driven here) at [3072, 768] and [8192, 768] (bf16 and f32, with
    and without bias), [15, 256], [8, 100] and [40, 8192]: y, dx, dw and db
-   by relative Frobenius error, with a planted fault (one row tile's
-   partial dropped from dw) that each check must see; timed beside
-   F.layer_norm's forward and autograd backward.
+   by relative Frobenius error, with a planted fault (one block's band of
+   rows dropped from dw) that each check must see, two backward calls bit
+   for bit; timed beside F.layer_norm's forward and autograd backward.
 9. The K4 path at full width (bench.py's fused-optimizer number): phase 5's
    flagship under AdamWStochastic(3e-4, weight_decay=0.01), bf16 without
    masters: the timed steps (K4 one launch a step, K1/K2 12 x 5 a step),
@@ -489,11 +496,14 @@ def decode_turn(i, tables, offsets):
 # phase 6: K7 against its plain version (in f32, on the same inputs, then
 # rounded to the kernel's output dtype) by relative Frobenius error
 # ||kernel - plain|| / ||plain||. f32 out: both sum exact products of x
-# and the integer codes in f32 and differ in summation order only; bf16
-# out: each rounds its f32 sum once, so they differ where the two orders
-# straddle a bf16 rounding boundary (one bf16 step, 2^-8 relative, in a
-# few elements). A planted fault (the plain version with one K-group's
-# scale row dropped) must read above the limit in every check.
+# and the integer codes in f32 and differ in summation order only (f32 x
+# on the tensor cores too: its three bf16 parts add back to x exactly, each
+# part times a code is exact); bf16 out: each rounds its f32 sum once, so
+# they differ where the two orders straddle a bf16 rounding boundary (one
+# bf16 step, 2^-8 relative, in a few elements). A planted fault (the plain
+# version with one K-group's scale row dropped) must read above the limit
+# in every check, and for f32 x a second one (x rounded to its first bf16
+# part alone, as a split that kept one part would compute) too.
 K7_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
 # the serving configuration's decode matmuls: (name, K, N, calls per
 # decode step); every one also at the rows of an LM forward (3072)
@@ -506,16 +516,24 @@ DECODE_B = 32
 # of an LM forward
 SPEC_ROWS = 128
 LM_ROWS = 3072
-# the decode kernel's edges, checked untimed at every decode row: (name, K,
-# N, group) of a ragged N (1000: not a multiple of any tile, not of 16, so
-# the weight and scales go by plain loads) over an uneven cluster (24 steps
-# over 5 ranks), a K whose slices take rounds through two stages (8192),
-# and groups of 32 (four groups in a 64-row slice)
+# K7's edges, checked at every row of K7_ROWS: (name, K, N, group) of a
+# ragged N (1000: not a multiple of any tile, not of 16, so the weight and
+# scales go by plain loads) over an uneven cluster (24 steps over 5 ranks),
+# a K whose slices take rounds through two stages (8192), groups of 32
+# (four groups in a 64-row slice), and the scalar-route kernel's two
+# kinds of call: groups of 8 (every row) and an odd N (GPT-2's 50257-wide
+# logits: M > 64 there; packed rows by single bytes)
 K7_EDGES = (("n1000", 768, 1000, 128), ("k8192", 8192, 1024, 128),
-            ("g32", 768, 1280, 32))
-# two calls of the decode kernel (M <= 64) or the row-tiled kernel equal bit
-# for bit at these rows
+            ("g32", 768, 1280, 32), ("g8", 768, 1280, 8),
+            ("n50257", 768, 50257, 128))
+# the scalar-route kernel's timing: g8 at the decode batch (f32 x and out),
+# n50257 at phase 14's rows (bf16 x, f32 out, as logits)
+K7_SCALAR_TIMED = {"g8": (DECODE_B, torch.float32),
+                   "n50257": (SPEC_ROWS, torch.bfloat16)}
+# two calls of any K7 route (bf16 or f32 x) equal bit for bit at these rows
 K7_BITS_ROWS = (1, 32, 64, 65, 128, 160, 257, 3072)
+# the f32 route (f32 x on the tensor cores) timed at these rows
+K7_F32_ROWS = (DECODE_B, SPEC_ROWS, LM_ROWS)
 # a cold call cycles through copies of its weight that together exceed
 # the 50 MB L2 cache, as a decode step finds its weights
 COLD_BYTES = 64 << 20
@@ -526,6 +544,10 @@ K8_SHAPES = ((3072, 768), (3072, 3072))
 # top-1/top-2 margin exceeds this (phase 3's 0.05 for rounding activations
 # to bf16, doubled: the f32 dense forward does not round them at all)
 QMARGIN = 0.1
+# phase 7's f32 int4 server: the same model in f32, so its activations
+# round nowhere and its decode matmuls (f32 x split exactly) differ from the
+# dense forward's in summation order only: a margin of 1e-3
+QMARGIN32 = 1e-3
 # phase 6: int8_matmul against x @ dequant(w) in f32 by relative Frobenius
 # error; they differ by x's per-row int8 rounding alone (half a step of
 # absmax/127, ~0.75% relative RMS for Gaussian rows)
@@ -549,8 +571,8 @@ K4_ODD = ((65,), (131073,), (3, 5, 7))
 # over thousands of rows, ~1e-6 at most); bf16 outputs: each rounds its f32
 # result once, so they differ by one bf16 step where the two orders
 # straddle a rounding boundary, in a few elements. A planted fault (the
-# plain dw with one row tile's partial dropped) must read above the limit
-# in every check.
+# plain dw with one block's band of rows dropped) must read above the limit
+# in every check, and two backward calls give the same bits.
 K5_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
 K5_SHAPES = ((3072, 768), (8192, 768))  # B.T of a flagship micro-batch
 K5_SMALL = ((15, 256), (8, 100), (40, 8192))
@@ -567,6 +589,8 @@ def _counted():
 
     return (("paged_attention", paged_attention, "launches"),
             ("int4_mm_tc", int4_matmul, "tc_launches"),
+            ("int4_matmul_f32", int4_matmul, "f32_launches"),
+            ("int4_mm_scalar", int4_matmul, "scalar_launches"),
             ("flash_attention", flash_attention, "launches"),
             ("flash_attention_backward", flash_attention,
              "backward_launches"),
@@ -2618,13 +2642,14 @@ def check_int8_matmul(Q, gen):
 
 def check_int4(Q, name, k, n, g, rows, gen, path_out):
     """K7 against its plain version at one weight shape: every row count of
-    ``rows`` in bf16 x (bf16 and f32 out) and, at M <= 64, f32 x; each
-    within K7_TOL, a planted dropped scale row above it, and at
-    K7_BITS_ROWS two calls (of int4_mm_decode at M <= 64, of int4_mm_tc
-    above) equal bit for bit. Returns
-    the packed weight, its scales, the largest error by out dtype, the
-    smallest planted fault, and the largest absolute error at M=DECODE_B in
-    the path's dtypes."""
+    ``rows`` in bf16 x (bf16 and f32 out) and f32 x (f32 out); each within
+    K7_TOL, a planted dropped scale row above it (and for f32 x, x rounded
+    to its first bf16 part), and at K7_BITS_ROWS two calls equal bit for
+    bit. Returns the packed weight, its scales, the largest error by out
+    dtype, the smallest planted fault, and the largest absolute error of
+    each route ("scalar": int4_mm_scalar; "f32": f32 x on the tensor cores;
+    "decode": int4_mm_decode, "tc": int4_mm_tc, bf16 x) in its path's
+    dtypes (bf16 x: out in ``path_out``; f32 x: f32 out)."""
     dev = torch.device("cuda")
     w = torch.randn(k, n, generator=gen, device=dev) * k ** -0.5
     p, s = Q.quantize_int4(w, group_size=g)
@@ -2632,36 +2657,42 @@ def check_int4(Q, name, k, n, g, rows, gen, path_out):
     faulty[1] = 0.0  # the planted fault: group 1's scale row dropped
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     least_fault = math.inf
-    path_err = 0.0
+    path_err = {}
     for m in rows:
-        combos = [(torch.bfloat16, torch.bfloat16),
-                  (torch.bfloat16, torch.float32)]
-        if m <= 64:
-            combos.append((torch.float32, torch.float32))
-        for xd, od in combos:
+        for xd, od in ((torch.bfloat16, torch.bfloat16),
+                       (torch.bfloat16, torch.float32),
+                       (torch.float32, torch.float32)):
             x = torch.randn(m, k, generator=gen, device=dev).to(xd)
             got = Q.int4_matmul(x, p, s, out_dtype=od)
             want = Q.int4_matmul_reference(x, p, s).to(od)
             err = rel_err(got, want)
-            fault = rel_err(
-                Q.int4_matmul_reference(x, p, faulty).to(od), want)
+            faults = [rel_err(
+                Q.int4_matmul_reference(x, p, faulty).to(od), want)]
+            if xd == torch.float32:  # the split's fault: one part kept
+                faults.append(rel_err(Q.int4_matmul_reference(
+                    x.bfloat16().float(), p, s).to(od), want))
             if not bool(torch.isfinite(got).all()) or not err <= K7_TOL[od]:
                 raise AssertionError(
                     f"int4_matmul {name} M={m} x {xd} out {od}: error "
                     f"{err:.3e} > {K7_TOL[od]:.0e}")
-            if not fault > K7_TOL[od]:
+            if not min(faults) > K7_TOL[od]:
                 raise AssertionError(
-                    f"int4_matmul {name} M={m}: the planted fault reads "
-                    f"{fault:.3e}, within {K7_TOL[od]:.0e}")
-            if m in K7_BITS_ROWS and xd == torch.bfloat16 and not \
-                    torch.equal(_bits(got), _bits(Q.int4_matmul(
-                        x, p, s, out_dtype=od))):
-                raise AssertionError(f"int4_matmul {name} M={m} out {od}: "
-                                     f"two calls differ")
+                    f"int4_matmul {name} M={m} x {xd}: a planted fault "
+                    f"reads {min(faults):.3e}, within {K7_TOL[od]:.0e}")
+            if m in K7_BITS_ROWS and not torch.equal(
+                    _bits(got), _bits(Q.int4_matmul(x, p, s, out_dtype=od))):
+                raise AssertionError(f"int4_matmul {name} M={m} x {xd} out "
+                                     f"{od}: two calls differ")
             worst[od] = max(worst[od], err)
-            least_fault = min(least_fault, fault)
-            if m == DECODE_B and xd == torch.bfloat16 and od == path_out:
-                path_err = max(path_err, float(
+            least_fault = min(least_fault, *faults)
+            if od == (path_out if xd == torch.bfloat16 else torch.float32):
+                tensor_cores = Q._route_plan(
+                    m, n, k // 2, g, x.element_size(),
+                    p.data_ptr() % 4 == 0, dev)[0]
+                route = ("scalar" if not tensor_cores else "f32"
+                         if xd == torch.float32 else "decode" if m <= 64
+                         else "tc")
+                path_err[route] = max(path_err.get(route, 0.0), float(
                     (got.float() - want.float()).abs().max()))
     return p, s, worst, least_fault, path_err
 
@@ -2691,10 +2722,12 @@ def time_int4_route(Q, name, p, s, x, path_out, kernel, w_lib):
     """One K7 route's call int4_matmul(x, p, s) timed by graph_checked (the
     trace must hold ``kernel`` and no other int4 kernel), with a call's
     allocations beside its output (none allowed), its bound (bytes: x,
-    the packed weight, its scales and the output once; operations: 2 M K
-    N at the tensor cores' bf16 rate, or at the f32 rate outside them for
-    f32 x), its plain version and F.linear(x, w_lib) timed alike. Returns
-    the figures."""
+    the packed weight, its scales and the output once; operations: the
+    least the card needs, 2 M K N at the tensor cores' bf16 rate for bf16
+    x, three times that for f32 x, whose exact split into three bf16 parts
+    is the cheapest way the card computes it, F.linear in f32 running
+    outside the tensor cores at 67 TFLOP/s), its plain version and
+    F.linear(x, w_lib) timed alike. Returns the figures."""
     m, k = x.shape
     n = p.shape[1]
     ms, prof, times = graph_checked(
@@ -2722,12 +2755,13 @@ def time_int4_route(Q, name, p, s, x, path_out, kernel, w_lib):
         f"F.linear {name} M={m}")
     nbytes = (p.numel() + s.numel() * 4 + x.numel() * x.element_size()
               + m * n * (4 if path_out == torch.float32 else 2))
-    rate = PEAK_FLOPS if x.dtype == torch.bfloat16 else PEAK_FLOPS_F32
-    by, fl = nbytes / PEAK_BYTES, 2 * m * k * n / rate
+    parts = 1 if x.dtype == torch.bfloat16 else 3
+    by, fl = nbytes / PEAK_BYTES, 2 * parts * m * k * n / PEAK_FLOPS
     g = k // s.shape[0]
-    plan = (list(Q._int4_plan(m, n, k // 2, g, x.device))
+    plan = (list(Q._int4_plan(m, n, k // 2, g, x.device, x.element_size()))
             if kernel != "int4_mm_scalar" else [0, 0, 0])
-    print(f"  int4_matmul {name:6} M={m}: {kernel} {ms * 1e3:8.2f} us, "
+    print(f"  int4_matmul {name:6} M={m} {str(x.dtype)[6:]:8}: {kernel} "
+          f"{ms * 1e3:8.2f} us, "
           f"bound {max(by, fl) * 1e6:7.2f} us "
           f"({'bytes' if by >= fl else 'operations'}), plain "
           f"{plain * 1e3:9.2f} us, F.linear {lib * 1e3:7.2f} us "
@@ -2739,27 +2773,46 @@ def time_int4_route(Q, name, p, s, x, path_out, kernel, w_lib):
 
 def phase_quant_kernels(Q):
     """K7 and K8 against their plain versions at the serving configuration's
-    shapes and K7's edges, and their device times; returns the
-    kernels-line figures."""
+    shapes and K7's edges, and their device times: K7's decode route
+    (int4_mm_decode) and row-tiled route (int4_mm_tc) in bf16, its f32
+    route (f32 x on the tensor cores) at K7_F32_ROWS and its scalar route
+    (int4_mm_scalar) at K7_SCALAR_TIMED. Returns the kernels-line figures:
+    the decode route's (with the row-tiled route's round), the f32
+    route's, the scalar route's and K8's."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
+    reset_launch_counts()  # the scalar route's launches: this drive's
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     least_fault = math.inf
-    path_err = 0.0
+    path_err = {}
+
+    def add_errs(errs):
+        for route, e in errs.items():
+            path_err[route] = max(path_err.get(route, 0.0), e)
+
     per_call = {}
+    edge_weights = {}
     for name, k, n, g in K7_EDGES:
-        _, _, w_edge, f_edge, _ = check_int4(Q, name, k, n, g, K7_ROWS,
-                                             gen, torch.bfloat16)
-        print(f"  int4_matmul {name} K={k} N={n} g={g}: M in {K7_ROWS} "
-              f"within the limits (largest {max(w_edge.values()):.3e}), "
-              f"planted fault at least {f_edge:.3e}, two calls bit for bit "
-              f"at M in {K7_BITS_ROWS}; plans (tile, cluster, rows) "
-              f"{Q._int4_plan(DECODE_B, n, k // 2, g, dev)} at M="
-              f"{DECODE_B}, {Q._int4_plan(SPEC_ROWS, n, k // 2, g, dev)} at "
-              f"M={SPEC_ROWS}", flush=True)
+        p, s, w_edge, f_edge, e_edge = check_int4(Q, name, k, n, g, K7_ROWS,
+                                                  gen, torch.bfloat16)
+        if name in K7_SCALAR_TIMED:
+            edge_weights[name] = (p, s, g)
+        print(f"  int4_matmul {name} K={k} N={n} g={g}: M in {K7_ROWS}, x "
+              f"bf16 and f32, within the limits (largest "
+              f"{max(w_edge.values()):.3e}), planted faults at least "
+              f"{f_edge:.3e}, two calls bit for bit at M in {K7_BITS_ROWS}"
+              f"; routes {sorted(e_edge)}" + (
+                  f"; plans (tile, cluster, rows) "
+                  f"{Q._int4_plan(DECODE_B, n, k // 2, g, dev)} at M="
+                  f"{DECODE_B}, {Q._int4_plan(SPEC_ROWS, n, k // 2, g, dev)}"
+                  f" at M={SPEC_ROWS}" if g % 16 == 0 and n % 4 == 0
+                  else ""), flush=True)
         for od in worst:
             worst[od] = max(worst[od], w_edge[od])
         least_fault = min(least_fault, f_edge)
+        add_errs(e_edge)
+        torch.cuda.empty_cache()
+    scalar_launches = Q.int4_matmul.scalar_launches
     for name, k, n, per_step in K7_SHAPES:
         path_out = torch.float32 if name == "logits" else torch.bfloat16
         p, s, w_shape, f_shape, e_shape = check_int4(
@@ -2767,7 +2820,7 @@ def phase_quant_kernels(Q):
         for od in worst:
             worst[od] = max(worst[od], w_shape[od])
         least_fault = min(least_fault, f_shape)
-        path_err = max(path_err, e_shape)
+        add_errs(e_shape)
         # device times at the decode batch, in the path's dtypes: by CUDA
         # events over a graph of back-to-back calls, warm (one weight, held
         # in L2) and cold (copies beyond L2), the profiler held against it
@@ -2798,11 +2851,14 @@ def phase_quant_kernels(Q):
                 Q, name, p, s, torch.randn(LM_ROWS, k, generator=gen,
                                            device=dev).bfloat16(),
                 path_out, "int4_mm_tc", w_deq)
-        # the scalar kernel (f32 x) at the decode batch, beside F.linear in
-        # f32 on the dequantized f32 weight
-        scalar = time_int4_route(
-            Q, name, p, s, x.float(), torch.float32, "int4_mm_scalar",
-            Q.dequantize_int4(p, s, dtype=torch.float32).t().contiguous())
+        # the f32 route (f32 x and out, as phase 7's f32 server calls it)
+        # beside F.linear in f32 on the dequantized f32 weight (full f32:
+        # allow_tf32 is off)
+        w32 = Q.dequantize_int4(p, s, dtype=torch.float32).t().contiguous()
+        f32 = {m: time_int4_route(
+            Q, name, p, s, torch.randn(m, k, generator=gen, device=dev),
+            torch.float32, "int4_mm_decode" if m <= 64 else "int4_mm_tc",
+            w32) for m in K7_F32_ROWS}
         # the wrapper's whole call, host launch path included
         events_ms = cuda_time_ms(
             lambda: Q.int4_matmul(x, p, s, out_dtype=path_out), 200)
@@ -2815,25 +2871,43 @@ def phase_quant_kernels(Q):
                               bound_by=dec["bound_by"], events_ms=events_ms,
                               plan=dec["plan"],
                               tc={f"M={m}": t for m, t in tc.items()},
-                              scalar_f32=scalar)
+                              f32={f"M={m}": t for m, t in f32.items()})
         print(f"  int4_matmul {name:6} K={k} N={n}: M={DECODE_B} "
               f"{ms * 1e3:7.2f} us (cold {ms_cold * 1e3:.2f}), F.linear "
               f"cold {lib_cold * 1e3:.2f} us; the wrapper by CUDA events "
               f"over back-to-back calls {events_ms * 1e3:.2f} us",
               flush=True)
-        del weights, lin, w_deq
+        del weights, lin, w_deq, w32
         torch.cuda.empty_cache()
+    # the scalar-route kernel at its edges, beside its plain version and
+    # F.linear on the dequantized weight in x's dtype
+    scalar = {}
+    for name, (m, xd) in K7_SCALAR_TIMED.items():
+        p, s, g = edge_weights[name]
+        k = 2 * p.shape[0]
+        scalar[name] = time_int4_route(
+            Q, name, p, s, torch.randn(m, k, generator=gen,
+                                       device=dev).to(xd),
+            torch.float32, "int4_mm_scalar",
+            Q.dequantize_int4(p, s, dtype=xd).t().contiguous())
+        scalar[name].update(m=m, k=k, n=p.shape[1], group=g,
+                            x=str(xd)[6:])
+    del edge_weights
+    torch.cuda.empty_cache()
     print(f"  int4_matmul: largest relative error {worst[torch.float32]:.3e} "
           f"(f32 out, limit {K7_TOL[torch.float32]:.0e}), "
           f"{worst[torch.bfloat16]:.3e} (bf16 out, limit "
           f"{K7_TOL[torch.bfloat16]:.0e}); smallest planted fault "
-          f"{least_fault:.3e}", flush=True)
+          f"{least_fault:.3e}; largest absolute error by route "
+          f"{ {r: f'{e:.3e}' for r, e in sorted(path_err.items())} }",
+          flush=True)
 
-    def step_total(key):
-        return sum(c[key] * c["per_step"] for c in per_call.values())
+    def step_total(key, rows=None):
+        return sum((c[key] if rows is None else c["f32"][rows][key])
+                   * c["per_step"] for c in per_call.values())
 
     bound_by = {c["bound_by"] for c in per_call.values()}
-    k7 = dict(max_abs_err=path_err, ms=step_total("ms"),
+    k7 = dict(max_abs_err=path_err["decode"], ms=step_total("ms"),
               plain_ms=step_total("plain_ms"),
               bound_ms=step_total("bound_ms"),
               bound_by="bytes" if bound_by == {"bytes"} else "operations",
@@ -2844,6 +2918,19 @@ def phase_quant_kernels(Q):
                                for c in per_call.values())
                       for key in ("ms", "plain_ms", "bound_ms",
                                   "library_ms")}
+    k7["tc_round"]["max_abs_err"] = path_err["tc"]
+    # the f32 route: one f32 decode step's 61 calls at B=32
+    rows32 = f"M={DECODE_B}"
+    f32_by = {c["f32"][rows32]["bound_by"] for c in per_call.values()}
+    k7_f32 = dict(max_abs_err=path_err["f32"],
+                  bound_by="bytes" if f32_by == {"bytes"} else "operations",
+                  **{key: step_total(key, rows32) for key in (
+                      "ms", "plain_ms", "bound_ms", "library_ms")})
+    # the scalar route: its g8 call at the decode batch (per_edge: both)
+    k7_scalar = {key: scalar["g8"][key] for key in (
+        "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+    k7_scalar.update(max_abs_err=path_err["scalar"],
+                     launches=scalar_launches, per_edge=scalar)
     print(f"  int4_mm_tc, a speculative round's {calls} calls at "
           f"M={SPEC_ROWS}: {k7['tc_round']['ms'] * 1e3:.1f} us, bound "
           f"{k7['tc_round']['bound_ms'] * 1e3:.1f} us, plain "
@@ -2858,6 +2945,11 @@ def phase_quant_kernels(Q):
           f" us (cold {step_total('library_cold_ms') * 1e3:.1f}); the "
           f"wrappers by CUDA events {step_total('events_ms') * 1e3:.1f} us",
           flush=True)
+    print(f"  int4_matmul f32 route, one f32 decode step's {calls} calls at "
+          f"B={DECODE_B}: {k7_f32['ms'] * 1e3:.1f} us, bound "
+          f"{k7_f32['bound_ms'] * 1e3:.1f} us, plain "
+          f"{k7_f32['plain_ms'] * 1e3:.1f} us, F.linear in f32 "
+          f"{k7_f32['library_ms'] * 1e3:.1f} us", flush=True)
     check_int8_matmul(Q, gen)
 
     # K8 is on no path of the port: this phase drives it directly, and its
@@ -2900,7 +2992,7 @@ def phase_quant_kernels(Q):
         k8 = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bound,
                   bound_by="bytes", library_ms=None, launches=launches,
                   shape=[m, k])
-    return k7, k8
+    return k7, k7_f32, k7_scalar, k8
 
 
 class _RowMix(torch.nn.Module):
@@ -2980,15 +3072,52 @@ def serve_int4(model, models, Q, paged_attention):
     return results, greedy, k7_launches, decode
 
 
+def serve_int4_f32(model, models, Q, paged_attention):
+    """The serving model in f32 under ModernBatchServer(quantize_bits=4)
+    through ServingEngine: an f32 pool, K6 with f32 q, every decode matmul
+    on K7's f32 route (f32 x split into three bf16 parts on the tensor
+    cores). Checks the launches (61 K7 a step, all on the f32 route, none on
+    the scalar route; 12 K6), the greedy tokens against a dense f32 forward
+    of the dequantized model past QMARGIN32, and (serve_requests) the pool;
+    then the steady decode. Returns (K7's f32-route launches, the steady
+    decode's figures)."""
+    model32 = copy.deepcopy(model).float()
+    server = models.ModernBatchServer(model32, page_size=PAGE,
+                                      total_pages=TOTAL_PAGES,
+                                      quantize_bits=4)
+    prompts, results, greedy, steps = serve_requests(models, server)
+    counts = launch_counts()
+    check_launches("int4_matmul (f32)", counts["int4_matmul"],
+                   K7_PER_STEP * steps)
+    check_launches("int4_matmul's f32 route", counts["int4_matmul_f32"],
+                   K7_PER_STEP * steps)
+    if counts["int4_mm_scalar"]:
+        raise AssertionError(f"the f32 server launched the scalar route "
+                             f"{counts['int4_mm_scalar']} times")
+    check_launches("paged_attention (f32 pool)", counts["paged_attention"],
+                   BLOCKS * steps)
+    check_greedy(quantized_server_reference(model32, Q, 4), prompts, results,
+                 greedy, QMARGIN32)
+    torch.cuda.empty_cache()
+    decode = steady_decode(models, server, "int4 f32")
+    del server, model32
+    torch.cuda.empty_cache()
+    return counts["int4_matmul_f32"], decode
+
+
 def phase_quant_serving(model, models, Q, paged_attention, decode_bf16):
     """Quantized serving at full width through ServingEngine: int4 (greedy
-    tokens against the dequantized dense model), int4 with an fp8 KV pool,
-    int8 (greedy tokens against a dense forward through int8_matmul); the
-    steady decode of each beside bf16."""
+    tokens against the dequantized dense model), the model in f32 under
+    int4 (K7's f32 route), int4 with an fp8 KV pool, int8 (greedy tokens
+    against a dense forward through int8_matmul); the steady decode of each
+    beside bf16. Returns (K7's int4 launches, its f32-route launches, K6's
+    fp8 launches, the steady decodes)."""
     per_step = K7_PER_STEP
     results, greedy, k7_launches, decode_int4 = serve_int4(
         model, models, Q, paged_attention)
     decode = {"bf16": decode_bf16, "int4": decode_int4}
+    f32_launches, decode["int4 f32"] = serve_int4_f32(model, models, Q,
+                                                      paged_attention)
 
     server = models.ModernBatchServer(model, page_size=PAGE,
                                       total_pages=TOTAL_PAGES,
@@ -3026,14 +3155,14 @@ def phase_quant_serving(model, models, Q, paged_attention, decode_bf16):
     torch.cuda.empty_cache()
     decode["int8"] = steady_decode(models, server, "int8")
     del server
-    for what in ("bf16", "int8", "int4", "int4+fp8"):
+    for what in ("bf16", "int8", "int4", "int4+fp8", "int4 f32"):
         d = decode[what]
         print(f"  steady decode {what:9}: {d['tok_s']:.1f} tok/s; profiled "
               f"step {d['device_us_per_step']:.1f} us of device time, "
               f"{d['device_ops_per_step']:.1f} device ops"
               + (f", K7 {100 * d['k7_share']:.1f}%" if d["k7_share"] else ""),
               flush=True)
-    return k7_launches, fp8_launches, decode
+    return k7_launches, f32_launches, fp8_launches, decode
 
 
 # phase 14: speculative decoding on the int4 servers: phase 3's model as
@@ -3415,9 +3544,10 @@ def phase_adamw_kernel(torch_nn, optim, FA):
 def check_layernorm(FL, n, d, dtype, bias, gen):
     """fused_layernorm's forward and backward (autograd) against the plain
     versions at [n, d], by relative Frobenius error of y, dx, dw and db in
-    their dtypes; the plain dw with one row tile's partial dropped must read
-    above the limit. Returns ({output: max abs err}, largest relative
-    error, the planted fault's reading)."""
+    their dtypes; the plain dw with one block's band of rows dropped must
+    read above the limit; two backward calls give the same bits. Returns
+    ({output: max abs err}, largest relative error, the planted fault's
+    reading)."""
     dev = torch.device("cuda")
 
     def randn(*shape, scale=1.0, shift=0.0):
@@ -3446,20 +3576,25 @@ def check_layernorm(FL, n, d, dtype, bias, gen):
                                  f"{what}: error {rel:.3e} > {tol:.0e}")
         errs[what] = float((got.float() - want.float()).abs().max())
         rels.append(rel)
-    rows = FL.tile_rows(n, dev)
-    start = rows if n > rows else 0  # the second tile where there is one
-    tile = slice(start, start + rows)
+    blocks = FL._bwd_blocks(n, dev)
+    start, end = FL._bwd_bands(n, blocks)[min(1, blocks - 1)]  # the second
+    band = slice(start, end)
     yhat = (x.float() - mu[:, None]) * rs[:, None]
-    faulty = dw_ref - (dy.float()[tile] * yhat[tile]).sum(0)
+    faulty = dw_ref - (dy.float()[band] * yhat[band]).sum(0)
     fault = rel_err(faulty.to(dtype), dw_ref.to(dtype))
     if not fault > tol:
         raise AssertionError(f"fused_layernorm [{n}, {d}] {dtype}: the "
                              f"planted fault reads {fault:.3e}, within "
                              f"{tol:.0e}")
+    once, again = (FL._bwd_cuda(x, dy, w, mu, rs) for _ in range(2))
+    if not all(torch.equal(_bits(a), _bits(b)) for a, b in zip(once, again)):
+        raise AssertionError(f"fused_layernorm [{n}, {d}] {dtype}: two "
+                             f"backward calls differ")
     print(f"  fused_layernorm [{n}, {d}] {str(dtype)[6:]:8} bias={bias!s:5}:"
           f" relative error y/dx/dw{'/db' if bias else ''} "
           f"{' '.join(f'{e:.2e}' for e in rels)}; planted fault "
-          f"{fault:.2e} ({rows} rows a tile)", flush=True)
+          f"{fault:.2e} ({blocks} blocks); two backward calls bit for bit",
+          flush=True)
     return errs, max(rels), fault
 
 
@@ -3909,11 +4044,12 @@ def main() -> int:
     fwd_launches, bwd_launches = train_launches[torch.bfloat16]
     print("phase 6: int4 matmul and stochastic int8 kernels vs plain",
           flush=True)
-    k7, k8 = phase_quant_kernels(Q)
+    k7, k7_f32, k7_scalar, k8 = phase_quant_kernels(Q)
     check_layouts(att, paged_attention, Q)
     print("phase 7: quantized serving at full width", flush=True)
-    k7["launches"], paged["fp8"]["launches"], _ = phase_quant_serving(
-        model, models, Q, paged_attention, decode_bf16)
+    (k7["launches"], k7_f32["launches"], paged["fp8"]["launches"],
+     decodes) = phase_quant_serving(model, models, Q, paged_attention,
+                                    decode_bf16)
     del model
     torch.cuda.empty_cache()
     from lamp_tpu_torch.ops import fused_adamw as FA
@@ -3941,7 +4077,10 @@ def main() -> int:
     print("phase 14: speculative decoding on the int4 servers at full "
           "width", flush=True)
     spec = phase_speculative(torch_nn, models, Q, paged_attention)
-    k7["launches"] += spec["tc_launches"]
+    tc_by = {c["tc"][f"M={SPEC_ROWS}"]["bound_by"]
+             for c in k7["per_call"].values()}
+    k7_tc = dict(k7["tc_round"], launches=spec["tc_launches"],
+                 bound_by="bytes" if tc_by == {"bytes"} else "operations")
     # the tensor-core instances' launches: phase 5, phase 10 and the bert-
     # and translation-width models; the head_dim 100 and 256 models run
     # the new instances (the ragged forward at 100, the scalar kernels)
@@ -4115,27 +4254,56 @@ def main() -> int:
             for (dd, dt, bb, hh, ss), t in flash_times.items()
             if flash_instance(dd, dt, part) == key}
         rows.append(row)
-    row = dict(name="int4_matmul", route="cuda",
-               source="lamp_tpu_torch/csrc/int4_matmul.cu",
-               replaces="lamp_tpu/ops/quantization.py:233", **k7)
+    k7_src = dict(route="cuda", source="lamp_tpu_torch/csrc/int4_matmul.cu",
+                  replaces="lamp_tpu/ops/quantization.py:233")
+    row = dict(name="int4_matmul", **k7_src, **k7)
     row = {k: row[k] for k in keys}
-    row["note"] = ("ms, plain_ms, bound_ms and library_ms: the sum over one "
-                   "decode step's 61 calls at B=32 (int4_mm_decode; "
-                   "library: F.linear on the dequantized bf16 weight); ms "
-                   "and library_ms by CUDA events over a CUDA graph of 100 "
-                   "calls on one weight; launches: phase 7's int4 requests "
-                   "and phase 14's int4_mm_tc launches; tc_round: the same "
-                   "sums over a speculative round's 61 calls at M=128 "
-                   "(int4_mm_tc); per_call: each shape, with the profiler's "
-                   "sum, cold times (copies beyond L2), the wrapper's eager "
-                   "time, the launch plan, int4_mm_tc at M=128 (and 3072 "
-                   "for qkv and the logits) and int4_mm_scalar (f32 x, "
-                   "beside F.linear in f32) at M=32")
+    row["note"] = ("the decode route, int4_mm_decode (bf16 x, M <= 64): ms, "
+                   "plain_ms, bound_ms and library_ms the sum over one "
+                   "decode step's 61 calls at B=32 (library: F.linear on "
+                   "the dequantized bf16 weight); ms and library_ms by CUDA "
+                   "events over a CUDA graph of 100 calls on one weight; "
+                   "launches: phase 7's int4 requests; per_call: each "
+                   "shape, with the profiler's sum, cold times (copies "
+                   "beyond L2), the wrapper's eager time, the launch plan, "
+                   "int4_mm_tc at M=128 (and 3072 for qkv and the logits) "
+                   "and the f32 route at M=32, 128 and 3072 (beside "
+                   "F.linear in f32)")
     row["per_call"] = k7["per_call"]
-    row["tc_round"] = k7["tc_round"]
+    rows.append(row)
+    row = dict(name="int4_matmul_tc", **k7_src, **k7_tc)
+    row = {k: row[k] for k in keys}
+    row["note"] = ("the row-tiled route, int4_mm_tc (bf16 x, M > 64): the "
+                   "sums over a speculative round's 61 calls at M=128; "
+                   "launches: phase 14's target chunks; speculative: phase "
+                   "14's figures")
     row["speculative"] = {key: spec[key] for key in (
         "rounds", "emitted", "tok_s", "per_seq_round", "tc_launches",
         "round_device_us", "round_ops", "tc_share", "chunk_err")}
+    rows.append(row)
+    row = dict(name="int4_matmul_f32", **k7_src, **k7_f32)
+    row = {k: row[k] for k in keys}
+    row["note"] = ("the f32 route: f32 x split exactly into three bf16 "
+                   "parts on the tensor cores (int4_mm_decode at M <= 64, "
+                   "int4_mm_tc above): the sums over one f32 decode step's "
+                   "61 calls at B=32, f32 out, beside F.linear in f32 on "
+                   "the dequantized f32 weight (full f32: allow_tf32 off); "
+                   "bound: three bf16 products at 989 TFLOP/s or the "
+                   "bytes; launches: phase 7's f32 int4 server; "
+                   "per_call[...]['f32'] of the int4_matmul row holds M=32, "
+                   "128 and 3072; decode: that server's steady decode")
+    row["decode"] = decodes["int4 f32"]
+    rows.append(row)
+    row = dict(name="int4_matmul_scalar", **k7_src, **k7_scalar)
+    row = {k: row[k] for k in keys}
+    row["note"] = ("the scalar route, int4_mm_scalar (register-tiled FFMA: "
+                   "groups not a multiple of 16, M > 64 with N % 4 != 0): "
+                   "on no path of the port, launches are phase 6's checks; "
+                   "times at the g8 edge (K=768, N=1280, g=8, M=32, f32 x "
+                   "and out; library F.linear in f32); per_edge: g8 and "
+                   "n50257 (K=768, N=50257, M=128, bf16 x, f32 out; "
+                   "library F.linear in bf16)")
+    row["per_edge"] = k7_scalar["per_edge"]
     rows.append(row)
     row = dict(name="quantize_int8_stochastic", route="cuda",
                source="lamp_tpu_torch/csrc/quantize_int8.cu",

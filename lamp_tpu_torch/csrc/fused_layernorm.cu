@@ -19,17 +19,37 @@
 // row's values in registers (the whole row for D <= 1024) and re-reads the
 // rest from L1 for the three passes (mean, variance, output).
 //
-// The backward's dw and db are sums over rows. The TPU kernel carries them
-// across its sequential grid in a revisited output block; here blocks run in
-// no order, so each block owns a tile of rows and writes its tile's f32
-// partial sums to a workspace [2, tiles, D], and a second kernel adds the
-// partials of each column in tile order. Nothing is atomic, so the result is
-// the same from run to run. In the first kernel, each warp computes the
-// row means m1, m2 of its rows (warp reductions, into shared memory); then
-// each thread owns columns and walks the tile's rows in order, writing dx
-// and adding dy yhat and dy for its columns in registers. The tile's x and
-// dy are read twice, the second time from L1/L2. The wrapper picks the rows
-// per tile (about two tiles per SM, at most 256 rows).
+// The backward reads x and dy once from memory. A warp owns a row at a
+// time; its lanes take 16-byte loads (8 bf16 or 4 f32: V values) at
+// columns V lane + 32 V j, so a lane owns the same columns in every row,
+// and for D up to a window (bf16: 768 columns with the next row's loads in
+// flight under this row's sums, else 1024; f32: 768) the row stays in its
+// registers as read: m1 and m2 come from warp shuffles, then dx is written
+// with 16-byte stores, and the lane's dw and db partials for its columns
+// stay in registers across every row the warp takes. A lane's row and
+// partials take at most 96 registers, so that two blocks fit an SM. Rows
+// that are not 16-byte multiples, or not 16-byte aligned, take the same
+// loop with one value a load (windows of 768). Above a window the row goes
+// in windows: a first pass takes every row's m1, m2 into a workspace, and
+// each window re-reads its columns (from L1 or L2), so the kernel runs at
+// every N and D.
+//
+// dw and db are sums over rows. The TPU kernel carries them across its
+// sequential grid in a revisited output block; here the grid is persistent
+// (two blocks an SM, one at most for every 8 rows:
+// ops/fused_layernorm.py:_bwd_plan), each block over a contiguous band of
+// rows (its warps taking rows w, w + 8, ...), and a block adds its warps'
+// partials in warp order through shared memory into one row of a workspace
+// [2, blocks, D]; a second kernel adds those in a fixed order. Nothing is
+// atomic, so two calls give the same bits. The last block to finish adding
+// the rows instead (a counter behind a fence) read 49.60 and 71.93 us a
+// call against 12.54 and 18.36 with the second kernel, on the same grids,
+// at [3072, 768] and [8192, 768] bf16 on an H100
+// (scripts/exp_layernorm_variants.py): one block cannot pull a megabyte of
+// partials fast.
+//
+// What bounds the backward: bytes (x and dy read, dx written; 4.24 us at
+// [3072, 768] bf16, 11.29 at [8192, 768], at 3.35 TB/s).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,7 +60,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kCache = 32;      // row values a lane keeps in registers
-constexpr int kMaxTileRows = 256;
 constexpr int kReduceCols = 32;  // columns of one reduction block
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -115,73 +134,241 @@ layernorm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-layernorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                     const float* __restrict__ w, const float* __restrict__ mu,
-                     const float* __restrict__ rs, T* __restrict__ dx, float* __restrict__ part_w,
-                     float* __restrict__ part_b, int n, int d, int tile_rows) {
-  __shared__ float s_mu[kMaxTileRows], s_rs[kMaxTileRows], s_m1[kMaxTileRows],
-      s_m2[kMaxTileRows];
-  const int lane = threadIdx.x % 32;
-  const int warp = threadIdx.x / 32;
-  const int r0 = blockIdx.x * tile_rows;
-  const int rows = min(tile_rows, n - r0);
-  const float inv_d = 1.0f / (float)d;
-
-  // the row means m1 = mean(dy w) and m2 = mean(dy w yhat), a warp a row
-  for (int r = warp; r < rows; r += kWarps) {
-    const long long off = (long long)(r0 + r) * d;
-    const float mu_r = mu[r0 + r], rs_r = rs[r0 + r];
-    float s1 = 0.f, s2 = 0.f;
-    for (int col = lane; col < d; col += 32) {
-      const float yhat = (to_float(x[off + col]) - mu_r) * rs_r;
-      const float dyg = to_float(dy[off + col]) * w[col];
-      s1 += dyg;
-      s2 += dyg * yhat;
-    }
-    s1 = warp_sum(s1);
-    s2 = warp_sum(s2);
-    if (lane == 0) {
-      s_mu[r] = mu_r;
-      s_rs[r] = rs_r;
-      s_m1[r] = s1 * inv_d;
-      s_m2[r] = s2 * inv_d;
+// V values of T as they lie in memory (16 bytes for V > 1; one value for V =
+// 1), held in 32-bit registers and turned into floats where used
+template <typename T, int V>
+struct Pack {
+  static constexpr int kRegs = V > 1 ? 4 : 1;
+  uint32_t r[kRegs];
+  __device__ __forceinline__ void load(const T* p) {
+    if constexpr (V > 1) {
+      const uint4 a = *reinterpret_cast<const uint4*>(p);
+      r[0] = a.x, r[1] = a.y, r[2] = a.z, r[3] = a.w;
+    } else if constexpr (sizeof(T) == 4) {
+      r[0] = __float_as_uint(*reinterpret_cast<const float*>(p));
+    } else {
+      r[0] = *reinterpret_cast<const unsigned short*>(p);
     }
   }
-  __syncthreads();
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < kRegs; ++i) r[i] = 0u;
+  }
+  __device__ __forceinline__ float operator[](int e) const {  // e a constant after unrolling
+    if constexpr (sizeof(T) == 4) return __uint_as_float(r[e]);
+    const uint32_t w = r[e / 2];
+    return __uint_as_float(e % 2 ? w & 0xFFFF0000u : w << 16);
+  }
+};
 
-  // dx, and the tile's column sums, rows in order
-  for (int col = threadIdx.x; col < d; col += kThreads) {
-    const float wc = w[col];
-    float acc_w = 0.f, acc_b = 0.f;
-    for (int r = 0; r < rows; ++r) {
-      const long long i = (long long)(r0 + r) * d + col;
-      const float dyv = to_float(dy[i]);
-      const float yhat = (to_float(x[i]) - s_mu[r]) * s_rs[r];
-      const float dyg = dyv * wc;
-      dx[i] = from_float<T>(s_rs[r] * (dyg - s_m1[r] - yhat * s_m2[r]));
-      acc_w += dyv * yhat;
-      acc_b += dyv;
+template <int V>
+__device__ __forceinline__ void store_v(float* p, const float (&v)[V]) {
+  if constexpr (V == 4)
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  else
+#pragma unroll
+    for (int e = 0; e < V; ++e) p[e] = v[e];
+}
+template <int V>
+__device__ __forceinline__ void store_v(__nv_bfloat16* p, const float (&v)[V]) {
+  if constexpr (V == 8) {
+    uint32_t w[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const __nv_bfloat162 b = __floats2bfloat162_rn(v[2 * e], v[2 * e + 1]);
+      w[e] = *reinterpret_cast<const uint32_t*>(&b);
     }
-    part_w[(long long)blockIdx.x * d + col] = acc_w;
-    part_b[(long long)blockIdx.x * d + col] = acc_b;
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) p[e] = __float2bfloat16_rn(v[e]);
   }
 }
 
-// dw, db [D]: the tiles' partials of each column added in tile order. A
-// block takes 32 columns; warp k adds tiles k, k + 8, ... in order, and the
-// eight warps' sums are added in warp order.
-__global__ void __launch_bounds__(kThreads)
+// V floats of w at p (16-byte loads for V > 1)
+template <int V>
+__device__ __forceinline__ void load_w(const float* p, float (&v)[V]) {
+  if constexpr (V > 1) {
+#pragma unroll
+    for (int q = 0; q < V / 4; ++q) {
+      const float4 a = *reinterpret_cast<const float4*>(p + 4 * q);
+      v[4 * q] = a.x, v[4 * q + 1] = a.y, v[4 * q + 2] = a.z, v[4 * q + 3] = a.w;
+    }
+  } else {
+    v[0] = *p;
+  }
+}
+
+// x, dy [n, d] T; block b of `blocks` takes the rows [b n / blocks, (b + 1)
+// n / blocks), its warp w the rows w, w + 8, ... of that band. Lane l holds
+// the columns c0 + V l + 32 V j (j < CH) of a window of W = 32 V CH columns
+// starting at c0: CH chunks of V values, 96 registers or fewer of row and
+// partials, so that two blocks fit an SM (bwd_launch picks CH: 3 or 4 x 8
+// bf16, 6 x 4 f32, 24 x 1). PF: the next row's loads are issued before this
+// row's sums (bf16 rows of up to 768 columns, where both rows fit the
+// registers). part [2][blocks][d]: the block's dw, db partials; stats
+// [2][n]: m1, m2 of each row, used where d > W. Dynamic shared memory:
+// [kWarps][2][min(d, W)] floats.
+template <typename T, int V, int CH, bool PF>
+__global__ void __launch_bounds__(kThreads, 2)
+layernorm_bwd_kernel(const T* __restrict__ x, const T* __restrict__ dy,
+                     const float* __restrict__ w, const float* __restrict__ mu,
+                     const float* __restrict__ rs, T* __restrict__ dx, float* __restrict__ part,
+                     float* __restrict__ stats, int n, int d, int blocks) {
+  constexpr int W = 32 * V * CH;
+  extern __shared__ float red[];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int r0 = (int)((long long)blockIdx.x * n / blocks);
+  const int r1 = (int)((long long)(blockIdx.x + 1) * n / blocks);
+  const float inv_d = 1.0f / (float)d;
+  const int windows = (d + W - 1) / W, span = min(d, W);
+
+  if (windows > 1) {  // every row's m1 and m2 first, a full pass over the row
+    for (int r = r0 + warp; r < r1; r += kWarps) {
+      const long long off = (long long)r * d;
+      const float mu_r = mu[r], rs_r = rs[r];
+      float s1 = 0.f, s2 = 0.f;
+      for (int c = V * lane; c < d; c += 32 * V) {
+        Pack<T, V> xv, gv;
+        float wv[V];
+        xv.load(x + off + c);
+        gv.load(dy + off + c);
+        load_w<V>(w + c, wv);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const float dyg = gv[e] * wv[e];
+          s1 += dyg;
+          s2 += dyg * ((xv[e] - mu_r) * rs_r);
+        }
+      }
+      s1 = warp_sum(s1);
+      s2 = warp_sum(s2);
+      if (lane == 0) stats[r] = s1 * inv_d, stats[n + r] = s2 * inv_d;
+    }
+    __syncthreads();
+  }
+
+  for (int c0 = 0; c0 < d; c0 += W) {
+    float pw[CH][V], pb[CH][V];
+#pragma unroll
+    for (int j = 0; j < CH; ++j)
+#pragma unroll
+      for (int e = 0; e < V; ++e) pw[j][e] = pb[j][e] = 0.f;
+    // row r's window as read, its mean and rstd (and with PF the next row's)
+    Pack<T, V> xv[CH], gv[CH], xn[PF ? CH : 1], gn[PF ? CH : 1];
+    float mu_r = 0.f, rs_r = 0.f, mu_n = 0.f, rs_n = 0.f;
+    auto load_row = [&](Pack<T, V>* px, Pack<T, V>* pg, float& m, float& s, int r) {
+      const long long off = (long long)r * d;
+      m = mu[r], s = rs[r];
+#pragma unroll
+      for (int j = 0; j < CH; ++j) {
+        const int c = c0 + V * lane + 32 * V * j;
+        if (c < d) {
+          px[j].load(x + off + c);
+          pg[j].load(dy + off + c);
+        } else {
+          px[j].zero();
+          pg[j].zero();
+        }
+      }
+    };
+    int r = r0 + warp;
+    if (PF && r < r1) load_row(xv, gv, mu_r, rs_r, r);
+    for (; r < r1; r += kWarps) {
+      if constexpr (PF) {
+        if (r + kWarps < r1) load_row(xn, gn, mu_n, rs_n, r + kWarps);
+      } else {
+        load_row(xv, gv, mu_r, rs_r, r);
+      }
+      const long long off = (long long)r * d;
+      float m1, m2;
+      if (windows == 1) {
+        float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+        for (int j = 0; j < CH; ++j) {
+          const int c = c0 + V * lane + 32 * V * j;
+          if (c < d) {
+            float wv[V];
+            load_w<V>(w + c, wv);
+#pragma unroll
+            for (int e = 0; e < V; ++e) {
+              const float dyg = gv[j][e] * wv[e];
+              s1 += dyg;
+              s2 += dyg * ((xv[j][e] - mu_r) * rs_r);
+            }
+          }
+        }
+        m1 = warp_sum(s1) * inv_d;
+        m2 = warp_sum(s2) * inv_d;
+      } else {
+        m1 = stats[r];
+        m2 = stats[n + r];
+      }
+#pragma unroll
+      for (int j = 0; j < CH; ++j) {
+        const int c = c0 + V * lane + 32 * V * j;
+        if (c < d) {
+          float wv[V], o[V];
+          load_w<V>(w + c, wv);
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            const float g = gv[j][e], yhat = (xv[j][e] - mu_r) * rs_r;
+            o[e] = rs_r * (g * wv[e] - m1 - yhat * m2);
+            pw[j][e] += g * yhat;
+            pb[j][e] += g;
+          }
+          store_v<V>(dx + off + c, o);
+        }
+      }
+      if constexpr (PF) {
+#pragma unroll
+        for (int j = 0; j < CH; ++j) xv[j] = xn[j], gv[j] = gn[j];
+        mu_r = mu_n, rs_r = rs_n;
+      }
+    }
+    // the block's partials of the window: each warp's into shared memory,
+    // then added in warp order
+#pragma unroll
+    for (int j = 0; j < CH; ++j)
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const int i = V * lane + 32 * V * j + e;
+        if (c0 + i < d) {
+          red[(2 * warp) * span + i] = pw[j][e];
+          red[(2 * warp + 1) * span + i] = pb[j][e];
+        }
+      }
+    __syncthreads();
+    for (int i = threadIdx.x; i < span && c0 + i < d; i += kThreads) {
+      float sw = 0.f, sb = 0.f;
+#pragma unroll
+      for (int q = 0; q < kWarps; ++q) {
+        sw += red[(2 * q) * span + i];
+        sb += red[(2 * q + 1) * span + i];
+      }
+      part[(long long)blockIdx.x * d + c0 + i] = sw;
+      part[((long long)blocks + blockIdx.x) * d + c0 + i] = sb;
+    }
+    __syncthreads();
+  }
+}
+
+// dw, db [D]: the blocks' partials of each column added in a fixed order. A
+// block of kReduceWarps warps takes 32 columns; warp k adds the partial
+// rows k, k + kReduceWarps, ... in order, and the warps' sums are added in
+// warp order.
+constexpr int kReduceWarps = 32;
+__global__ void __launch_bounds__(32 * kReduceWarps)
 layernorm_bwd_reduce_kernel(const float* __restrict__ part_w, const float* __restrict__ part_b,
                             float* __restrict__ dw, float* __restrict__ db, int tiles, int d) {
-  __shared__ float s_w[kWarps][kReduceCols], s_b[kWarps][kReduceCols];
+  __shared__ float s_w[kReduceWarps][kReduceCols], s_b[kReduceWarps][kReduceCols];
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   const int col = blockIdx.x * kReduceCols + lane;
   float aw = 0.f, ab = 0.f;
   if (col < d) {
-    for (int t = warp; t < tiles; t += kWarps) {
+#pragma unroll 4
+    for (int t = warp; t < tiles; t += kReduceWarps) {
       aw += part_w[(long long)t * d + col];
       ab += part_b[(long long)t * d + col];
     }
@@ -192,7 +379,7 @@ layernorm_bwd_reduce_kernel(const float* __restrict__ part_w, const float* __res
   if (warp == 0 && col < d) {
     float sw = 0.f, sb = 0.f;
 #pragma unroll
-    for (int k = 0; k < kWarps; ++k) {
+    for (int k = 0; k < kReduceWarps; ++k) {
       sw += s_w[k][lane];
       sb += s_b[k][lane];
     }
@@ -209,21 +396,47 @@ cudaError_t fwd(const void* x, const float* w, const float* b, void* y, float* m
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, int V, int CH, bool PF>
 cudaError_t bwd(const void* x, const void* dy, const float* w, const float* mu, const float* rs,
-                void* dx, float* dw, float* db, float* work, int n, int d, int tile_rows,
+                void* dx, float* dw, float* db, float* work, int n, int d, int blocks,
                 cudaStream_t stream) {
-  const int tiles = (n + tile_rows - 1) / tile_rows;
-  float* part_w = work;
-  float* part_b = work + (long long)tiles * d;
-  layernorm_bwd_kernel<T><<<tiles, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(dy), w, mu, rs, static_cast<T*>(dx),
-      part_w, part_b, n, d, tile_rows);
+  constexpr int W = 32 * V * CH;
+  const int smem = 2 * kWarps * (d < W ? d : W) * 4;
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      layernorm_bwd_kernel<T, V, CH, PF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      2 * kWarps * W * 4);
+  if (opt_in != cudaSuccess) return opt_in;
+  float* part = work;
+  float* stats = work + 2LL * blocks * d;
+  layernorm_bwd_kernel<T, V, CH, PF><<<blocks, kThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(dy), w, mu, rs, static_cast<T*>(dx), part,
+      stats, n, d, blocks);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  layernorm_bwd_reduce_kernel<<<(d + kReduceCols - 1) / kReduceCols, kThreads, 0, stream>>>(
-      part_w, part_b, dw, db, tiles, d);
+  layernorm_bwd_reduce_kernel<<<(d + kReduceCols - 1) / kReduceCols, 32 * kReduceWarps, 0,
+                                stream>>>(part, part + (long long)blocks * d, dw, db, blocks, d);
   return cudaGetLastError();
+}
+
+// 16-byte loads where every row starts 16-byte aligned (bf16: 3 chunks a
+// lane with the next row in flight up to 768 columns, else 4; f32: 6),
+// else one value a load
+template <typename T>
+cudaError_t bwd_launch(const void* x, const void* dy, const float* w, const float* mu,
+                       const float* rs, void* dx, float* dw, float* db, float* work, int n,
+                       int d, int blocks, cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = (d * sizeof(T)) % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dy) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(dx) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  if constexpr (V == 8)
+    if (vec && d <= 768)
+      return bwd<T, V, 3, true>(x, dy, w, mu, rs, dx, dw, db, work, n, d, blocks, stream);
+  if (vec)
+    return bwd<T, V, V == 8 ? 4 : 6, false>(x, dy, w, mu, rs, dx, dw, db, work, n, d, blocks,
+                                            stream);
+  return bwd<T, 1, 24, false>(x, dy, w, mu, rs, dx, dw, db, work, n, d, blocks, stream);
 }
 
 }  // namespace
@@ -249,13 +462,13 @@ int lamp_layernorm_fwd(const void* x, const void* weight, const void* bias, void
 
 // x, dy [n, d] contiguous in one dtype (0 = float32, 1 = bfloat16); weight
 // [d], mu, rstd [n] float32 -> dx [n, d] in x's dtype, dweight and dbias
-// [d] float32. workspace: 2 * ceil(n / tile_rows) * d float32;
-// 1 <= tile_rows <= 256. Returns the cudaError_t of the first launch that
-// failed.
+// [d] float32. blocks: the persistent grid, 1 <= blocks <= max(n, 1);
+// workspace: 2 * blocks * d float32, and 2 * n more where d > 768.
+// Returns the cudaError_t of the first launch that failed.
 int lamp_layernorm_bwd(const void* x, const void* dy, const void* weight, const void* mu,
                        const void* rstd, void* dx, void* dweight, void* dbias, void* workspace,
-                       int n, int d, int tile_rows, int dtype, void* stream) {
-  if (n < 0 || d < 0 || tile_rows < 1 || tile_rows > kMaxTileRows) return cudaErrorInvalidValue;
+                       int n, int d, int blocks, int dtype, void* stream) {
+  if (n < 0 || d < 0 || blocks < 1 || blocks > (n > 1 ? n : 1)) return cudaErrorInvalidValue;
   if (d == 0) return cudaSuccess;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n == 0) {  // no rows: the sums are 0
@@ -268,9 +481,9 @@ int lamp_layernorm_bwd(const void* x, const void* dy, const void* weight, const 
   float* dw = static_cast<float*>(dweight);
   float* db = static_cast<float*>(dbias);
   float* work = static_cast<float*>(workspace);
-  if (dtype == 0) return bwd<float>(x, dy, w, m, r, dx, dw, db, work, n, d, tile_rows, st);
+  if (dtype == 0) return bwd_launch<float>(x, dy, w, m, r, dx, dw, db, work, n, d, blocks, st);
   if (dtype == 1)
-    return bwd<__nv_bfloat16>(x, dy, w, m, r, dx, dw, db, work, n, d, tile_rows, st);
+    return bwd_launch<__nv_bfloat16>(x, dy, w, m, r, dx, dw, db, work, n, d, blocks, st);
   return cudaErrorInvalidValue;
 }
 

@@ -24,7 +24,7 @@
 // logits matrix 12.3 MB (5.13 us): a layer's call is a chain of fixed
 // latencies, each paid once a block.
 //
-// Decode kernel (int4_mm_decode: bf16 x, g a multiple of 16, M <= 64). The
+// Decode kernel (int4_mm_decode: g a multiple of 16, M <= 64). The
 // row-tiled kernel below, split over K for these rows, paid four costs many
 // times over; what this design does about each:
 //  1. A second launch and a round trip through device memory (partial
@@ -70,7 +70,7 @@
 // copies' issue and landing, the products and the cluster sum, each a few
 // hundred nanoseconds.
 //
-// Row-tiled kernel (int4_mm_tc: bf16 x, g a multiple of 16, M > 64: a
+// Row-tiled kernel (int4_mm_tc: g a multiple of 16, M > 64, n % 4 == 0: a
 // speculative round's target chunk of B*k rows, an LM forward's rows). What
 // bounds it: at 128 rows the bytes (a layer's matrix 0.3-0.8 MB packed, the
 // 768 x 32000 logits 12.3 MB packed beside 16.4 MB of f32 output: 0.2-8.8
@@ -104,8 +104,38 @@
 // and the scaling between passes and the re-reads of x (once per 128 output
 // columns, through L2) take the rest.
 //
-// f32 x, or a group that is not a multiple of 16, takes a scalar kernel (one
-// thread per column, 8 rows per block): a checking path, not a fast one.
+// f32 x on the tensor cores (both kernels above, g a multiple of 16). An f32
+// value splits exactly into three bf16 parts: hi = bf16_rn(x), r = x - hi
+// (exact in f32), mid = bf16_rn(r), lo = bf16_rn(r - mid); three 8-bit
+// significands cover f32's 24, so hi + mid + lo == x bit for bit (split3
+// below; ops/quantization.py:split_f32_to_bf16x3 is its plain version).
+// Each part times an integer code is exact in the f32 accumulator, so the
+// three products W hi + W mid + W lo, summed into the same f32
+// accumulators, give the plain version's f32 arithmetic (not TF32's). Two
+// kinds of value fall outside the exact split: where lo falls below bf16's
+// normal range (|x| below about 2^-110) it keeps fewer bits, and above
+// bf16's largest finite value (about 3.39e38) hi rounds to inf. The weight
+// is read and turned into fragments once; each fragment feeds three
+// products. The decode kernel stages x's slice in f32 (twice bf16's bytes)
+// and splits each lane's B fragment in registers; the row-tiled kernel's
+// producer warpgroup loads x's f32 tile and stores its three parts as three
+// bf16 planes in the stage's swizzled layout (the consumers' products set
+// the time at thousands of rows, so the split is kept off them), and a
+// k-step issues three wgmma with three B descriptors against one register
+// A operand.
+//
+// Scalar-route kernel (int4_mm_scalar: a group that is not a multiple of
+// 16 in either dtype, and M > 64 where n % 4 != 0 or the packed weight is
+// not 4-byte aligned, e.g. GPT-2's 50257-wide logits at an LM forward's
+// rows). What bounds it: 2 M K N FFMA at the f32 rate (67 TFLOP/s), or the
+// bytes at small M. Register-tiled FFMA: a block of 256 threads takes 64 x
+// rows by 64 or 128 columns (4 x 4 or 4 x 8 a thread; 64 columns where the
+// 128-column tiles would not give every SM a block), so the weight is read
+// once per 64 rows; x's rows and the packed bytes of 32-row chunks are
+// staged by cp.async (16 bytes a piece, the packed rows 4 where only that
+// is aligned, plain loads else) in two stages, a chunk's codes decoded once
+// into shared memory as f32, and each group's partial scaled at the
+// group's end as the plain version does.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -118,8 +148,6 @@ namespace {
 
 namespace cg = cooperative_groups;
 typedef __nv_bfloat16 bf16;
-
-constexpr int kThreads = 128;  // 4 warps (scalar kernel)
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(bf16 x) { return __bfloat162float(x); }
@@ -158,6 +186,25 @@ __device__ __forceinline__ uint32_t nibbles(uint32_t v, int shift) {
   return r;
 }
 
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// the exact three-way split of an f32 pair (header): hi, mid and lo as bf16
+// pairs. r = -(hi - x) and lo = -(mid - r) equal x - hi and r - mid and keep
+// a zero's sign, so that hi + mid + lo == x bit for bit at -0 too.
+__device__ __forceinline__ void split3(float a, float b, uint32_t& hi, uint32_t& mid,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const float ra = -(hf.x - a), rb = -(hf.y - b);
+  const __nv_bfloat162 md = __floats2bfloat162_rn(ra, rb);
+  const float2 mf = __bfloat1622float2(md);
+  hi = bf16x2_bits(h);
+  mid = bf16x2_bits(md);
+  lo = bf16x2_bits(__floats2bfloat162_rn(-(mf.x - ra), -(mf.y - rb)));
+}
+
 __device__ __forceinline__ void store1(float* out, long long i, float a) { out[i] = a; }
 __device__ __forceinline__ void store1(bf16* out, long long i, float a) {
   out[i] = __float2bfloat16(a);
@@ -192,8 +239,12 @@ constexpr int kBarBytes = 128;    // the stages' mbarriers, then the stages
 // sum's [cluster][ceil(mrows BN / 4 / cluster)] float4s):
 //   w   [R][BN + 16]             packed bytes, a row padded by 16 bytes so
 //                                that ldmatrix's 8 rows lie in 8 bank groups
-//   x   [2][mrows][2R + 16]      bytes: x's low-half and high-half columns
-//                                of the round, bf16, rows padded alike
+//   x   [2][mrows][xs (R + 8)]   bytes: x's low-half and high-half columns
+//                                of the round in x's dtype (xs bytes: 2
+//                                for bf16, 4 for f32), rows padded by 8
+//                                elements (f32: a half-warp's float2 reads
+//                                of 4 rows then lie in 4 disjoint 32-byte
+//                                bank groups)
 //   sc  [2][groups][BN]          f32 scale rows of the groups the round
 //                                touches (low half, then high half)
 // groups = (R + g - 17) / g + 1, the most a span of R rows starting at a
@@ -202,14 +253,15 @@ constexpr int kBarBytes = 128;    // the stages' mbarriers, then the stages
 struct Layout {
   int rows, stages, x, sc, bytes, groups, recv;
   Layout() = default;
-  __host__ __device__ Layout(int bn, int mrows, int k2, int g, int cluster, int round_rows) {
+  __host__ __device__ Layout(int bn, int mrows, int k2, int g, int cluster, int round_rows,
+                             int xs) {
     const int steps = k2 / 16;
     const int slice = 16 * ((steps + cluster - 1) / cluster);  // the longest slice
     const int r = round_rows < slice ? round_rows : slice;
     rows = r;
     stages = r < slice ? 2 : 1;
     x = r * (bn + 16);
-    sc = x + 2 * mrows * (2 * r + 16);
+    sc = x + 2 * mrows * xs * (r + 8);
     groups = (r + g - 17) / g + 1;
     bytes = sc + 2 * groups * bn * 4;  // of a stage
     // the K parts' partial tiles [8 / (BN/16)][mrows][BN + 4] f32, over
@@ -235,19 +287,21 @@ struct Plan {
   bool vec;                         // weight and scale rows by 16-byte pieces
 };
 
-// x [m, k] bf16, packed [k/2, n], scales [k/g, n] f32, out [m, n]. Grid:
+// x [m, k] TX (bf16, or f32 split into three bf16 parts), packed [k/2, n],
+// scales [k/g, n] f32, out [m, n]. Grid:
 // ceil(n / BN) tiles x `cluster` blocks, a cluster per tile (the cluster's
 // index is the tile's); rank r takes the 16-row steps [r T / c, (r + 1) T /
 // c) of the T = k/32 steps of the half. NT: the 8-row tiles of x held
 // (ceil(m / 8) <= NT). vec: n % 16 == 0 and packed, scales 16-byte aligned,
 // so that weight and scale rows go by 16-byte cp.async (else plain loads).
-template <int BN, int NT, typename O>
+template <int BN, int NT, typename O, typename TX>
 __global__ void __launch_bounds__(kDecThreads)
-int4_mm_decode(const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
+int4_mm_decode(const TX* __restrict__ x, const uint8_t* __restrict__ packed,
                const float* __restrict__ scales, O* __restrict__ out, const Plan pl) {
   constexpr int kGroupsC = BN / 16;           // column groups of 16
   constexpr int kParts = kDecWarps / kGroupsC;  // K parts per column group
   constexpr int kWS = BN + 16;
+  constexpr int kXB = sizeof(TX);  // bytes of an x element
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* bar = reinterpret_cast<uint64_t*>(smem);  // a stage's mbarrier each
   unsigned char* stages = smem + kBarBytes;
@@ -270,7 +324,7 @@ int4_mm_decode(const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
   const int nt = (m + 7) / 8, mrows = 8 * nt;
   const int R = lay.rows, n_stages = lay.stages;
   const int wb = min(BN, n - n0);  // the tile's valid columns
-  const int XS = 2 * R + 16;
+  const int XS = kXB * (R + 8);
 
   // the tile's float4s (valid rows), the share of them each rank owns in
   // the cluster's sum, and where that sum lands
@@ -284,14 +338,14 @@ int4_mm_decode(const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
   // at run time inside the loops: each sits on the call's critical path.
   auto issue = [&](int a, int i) {
     unsigned char* st = stages + i * lay.bytes;
-    const int rows = min(R, row1 - a), px = rows / 8;
+    const int rows = min(R, row1 - a), px = rows * kXB / 16;
     // piece (seg, q): x row seg % m of half seg / m, bytes [16 q, 16 q + 16)
     int seg = tid / px, q = tid - seg * px;
     const int dseg = kDecThreads / px, dq = kDecThreads - dseg * px;
     while (seg < 2 * m) {
       const int half = seg >= m, r = seg - half * m;
       cp_async16(st + lay.x + (half * mrows + r) * XS + q * 16,
-                 x + (long long)r * k + half * k2 + a + q * 8, true);
+                 x + (long long)r * k + half * k2 + a + q * (16 / kXB), true);
       seg += dseg, q += dq;
       if (q >= px) q -= px, ++seg;
     }
@@ -385,8 +439,6 @@ int4_mm_decode(const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
     // 16 columns; lanes 0-7, 8-15, 16-23, 24-31 the x rows of the low half
     // k 0-7, k 8-15, then the high half's
     const uint32_t w_lane = smem_addr(st + (lane & 15) * kWS + cgp * 16);
-    const uint32_t x_lane = smem_addr(
-        st + lay.x + ((lane >> 4) * mrows + (lane & 7)) * XS + ((lane >> 3) & 1) * 16);
     // the group of step s0 and the step where the next one starts
     int gi = (a + 16 * s0) / group - a / group;
     int next = ((a / group + gi + 1) * group - a) / 16;
@@ -395,25 +447,53 @@ int4_mm_decode(const bf16* __restrict__ x, const uint8_t* __restrict__ packed,
         flush(gi++);
         next += group / 16;
       }
-      // every fragment of the step first, then the products
-      uint32_t w0, w1, b[NT][4];
+      uint32_t w0, w1;
       asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
                    : "=r"(w0), "=r"(w1)
                    : "r"(w_lane + s * 16 * kWS));
-#pragma unroll
-      for (int i = 0; i < NT; ++i)
-        if (i < nt)
-          asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-                       : "=r"(b[i][0]), "=r"(b[i][1]), "=r"(b[i][2]), "=r"(b[i][3])
-                       : "r"(x_lane + i * 8 * XS + s * 32));
       const uint32_t alo[4] = {nibbles(w0, 0), nibbles(w0, 8), nibbles(w1, 0), nibbles(w1, 8)};
       const uint32_t ahi[4] = {nibbles(w0, 4), nibbles(w0, 12), nibbles(w1, 4),
                                nibbles(w1, 12)};
+      if constexpr (sizeof(TX) == 2) {
+        // every fragment of the step first, then the products
+        const uint32_t x_lane = smem_addr(
+            st + lay.x + ((lane >> 4) * mrows + (lane & 7)) * XS + ((lane >> 3) & 1) * 16);
+        uint32_t b[NT][4];
 #pragma unroll
-      for (int i = 0; i < NT; ++i) {
-        if (i < nt) {
-          mma(dlo[i], alo, b[i][0], b[i][1]);
-          mma(dhi[i], ahi, b[i][2], b[i][3]);
+        for (int i = 0; i < NT; ++i)
+          if (i < nt)
+            asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                         : "=r"(b[i][0]), "=r"(b[i][1]), "=r"(b[i][2]), "=r"(b[i][3])
+                         : "r"(x_lane + i * 8 * XS + s * 32));
+#pragma unroll
+        for (int i = 0; i < NT; ++i) {
+          if (i < nt) {
+            mma(dlo[i], alo, b[i][0], b[i][1]);
+            mma(dhi[i], ahi, b[i][2], b[i][3]);
+          }
+        }
+      } else {
+        // f32 x: lane (g, t) reads k = 2t, 2t + 1 and 2t + 8, 2t + 9 of
+        // x row g of each 8-row tile as float pairs, splits them into the
+        // hi, mid and lo B fragments, and adds their three products with
+        // the same A fragment
+        const unsigned char* xl = st + lay.x + g_row * XS + (s * 16 + 2 * t) * 4;
+        auto split_mma = [&](float (&d)[4], const uint32_t (&af)[4], const unsigned char* xp) {
+          const float2 v0 = *reinterpret_cast<const float2*>(xp);
+          const float2 v1 = *reinterpret_cast<const float2*>(xp + 32);
+          uint32_t h0, m0, l0, h1, m1, l1;
+          split3(v0.x, v0.y, h0, m0, l0);
+          split3(v1.x, v1.y, h1, m1, l1);
+          mma(d, af, h0, h1);
+          mma(d, af, m0, m1);
+          mma(d, af, l0, l1);
+        };
+#pragma unroll
+        for (int i = 0; i < NT; ++i) {
+          if (i < nt) {
+            split_mma(dlo[i], alo, xl + 8 * i * XS);
+            split_mma(dhi[i], ahi, xl + (mrows + 8 * i) * XS);
+          }
         }
       }
     }
@@ -505,6 +585,7 @@ constexpr int kTcCols = 64;        // output columns of a consumer warpgroup (wg
 constexpr int kTcConsumers = 256;  // two consumer warpgroups a block
 constexpr int kTcMaxStages = 4;
 constexpr int kTcFull = 33;  // a stage's arrivals: 32 copy lanes and the TMA's
+constexpr int kTcSplit = 128;  // f32 x: and the producer warpgroup's, once it stored its parts
 constexpr int kMapError = 10000;  // + libcuda's CUresult of a refused TMA map
 
 // Byte layout of one stage of KC packed rows (64 or 128: KC / 16 steps) for
@@ -512,7 +593,9 @@ constexpr int kMapError = 10000;  // + libcuda's CUresult of a refused TMA map
 // 1024-byte boundary:
 //   x_lo [KC / 64][BM][64] bf16  x's low-half columns of the stage's rows,
 //                         in column blocks of 64 (128-byte rows,
-//                         128B-swizzled by TMA)
+//                         128B-swizzled by TMA); f32 x: three such planes,
+//                         its hi, mid and lo parts (P = 3), stored in the
+//                         same swizzle by the producer warpgroup
 //   x_hi                  the high-half columns alike
 //   w    [KC][BN]         packed bytes, a row's 16-byte chunk c at chunk
 //                         c ^ tc_swizzle(row) (ldmatrix's 8 rows in 8 bank
@@ -521,8 +604,9 @@ constexpr int kMapError = 10000;  // + libcuda's CUresult of a refused TMA map
 //                         touches, low half then high half
 __host__ __device__ constexpr int tc_slots(int kc) { return kc / 16 + 1; }
 __host__ __device__ constexpr int tc_x_bytes(int bm, int kc) { return bm * kc * 2; }
-__host__ __device__ constexpr int tc_stage_bytes(int bn, int bm, int kc) {
-  return (2 * tc_x_bytes(bm, kc) + kc * bn + 2 * tc_slots(kc) * bn * 4 + 1023) / 1024 * 1024;
+__host__ __device__ constexpr int tc_stage_bytes(int bn, int bm, int kc, int parts) {
+  return (2 * parts * tc_x_bytes(bm, kc) + kc * bn + 2 * tc_slots(kc) * bn * 4 + 1023) / 1024 *
+         1024;
 }
 // the cluster sum's slots: [cluster][ceil(BM BN / 4 / cluster)] float4s
 __host__ __device__ constexpr int tc_recv_bytes(int bn, int bm, int cluster) {
@@ -581,7 +665,8 @@ struct TcPlan {
 };
 
 // x [m, k] bf16 (read by the TMA map tm_x in boxes of BM rows by 64
-// columns), packed [k/2, n] (by tm_w in boxes of KC rows by BN columns,
+// columns; f32 x is read by the producer warpgroup's loads and split into
+// its three bf16 parts), packed [k/2, n] (by tm_w in boxes of KC rows by BN columns,
 // 64B- or 128B-swizzled, where n % 16 == 0 and packed is 16-byte aligned;
 // else by 4-byte cp.async into the same layout), scales [k/g, n] f32, out
 // [m, n]; n % 4 == 0. A block is two consumer warpgroups of WR x rows (64
@@ -600,17 +685,19 @@ struct TcPlan {
 // (row g <- column 2g, row g + 8 <- column 2g + 1, so that one
 // ldmatrix.trans of the packed bytes gives a lane both columns' codes at k
 // = 2t, 2t + 1), and x's WR rows are wgmma's N.
-template <bool RS, int WR, int KC, typename O>
+template <bool RS, int WR, int KC, typename O, typename TX>
 __global__ void __launch_bounds__(kTcConsumers + 128, 1)
 int4_mm_tc(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUtensorMap tm_w,
-           const uint8_t* __restrict__ packed, const float* __restrict__ scales,
-           O* __restrict__ out, const TcPlan pl) {
+           const TX* __restrict__ x, const uint8_t* __restrict__ packed,
+           const float* __restrict__ scales, O* __restrict__ out, const TcPlan pl) {
+  constexpr bool kF32 = sizeof(TX) == 4;           // x split into three parts
+  constexpr int kXP = kF32 ? 3 : 1;                 // x's bf16 planes a half
   constexpr int BN = RS ? kTcCols : 2 * kTcCols;  // the block's output columns
   constexpr int BM = RS ? 2 * WR : WR;             // the block's x rows
   constexpr int kSteps = KC / 16;                  // steps a stage, and a pass's most
   constexpr int kSlots = tc_slots(KC);
-  constexpr int kStage = tc_stage_bytes(BN, BM, KC), kX = tc_x_bytes(BM, KC);
-  constexpr int kW = 2 * kX, kSc = kW + KC * BN;
+  constexpr int kStage = tc_stage_bytes(BN, BM, KC, kXP), kX = tc_x_bytes(BM, KC);
+  constexpr int kW = 2 * kXP * kX, kSc = kW + KC * BN;
   constexpr int kC4 = BN / 4;  // float4s of a tile row
   extern __shared__ unsigned char smem_raw[];
   unsigned char* stages = reinterpret_cast<unsigned char*>(
@@ -637,22 +724,24 @@ int4_mm_tc(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUt
   const int total4 = min(BM, pl.m - (t0 / pl.col_tiles) * BM) * kC4;
   const int share = (total4 + cs - 1) / cs;
 
-  // the producer warp's stage j (the tile's jt-th): x's two tiles and the
-  // packed tile by TMA (lane 0; the packed tile by 4-byte cp.async over
-  // the lanes where n % 16 != 0), the scale rows by cp.async over the
-  // lanes, each lane's pieces arriving on the stage's barrier once landed
+  // the producer warp's stage j (the tile's jt-th), once the stage is
+  // free: x's two tiles (bf16) and the packed tile by TMA (lane 0; the
+  // packed tile by 4-byte cp.async over the lanes where n % 16 != 0), the
+  // scale rows by cp.async over the lanes, each lane's pieces arriving on
+  // the stage's barrier once landed
   auto load = [&](int j, int tile, int jt) {
     const int st = j % S, n_kp = k2 / group;
     const int n0 = (tile % pl.col_tiles) * BN, m0 = (tile / pl.col_tiles) * BM;
-    if (j >= S) hopper::mbar_wait(&empty[st], ((j / S) - 1) & 1);
     unsigned char* sb = stages + st * kStage;
     const int r0 = 16 * (s_begin + kSteps * jt);  // the stage's first packed row
     if (lane == 0) {
-      hopper::mbar_arrive_tx(&full[st], 2 * kX + (pl.tma_w ? KC * BN : 0));
+      hopper::mbar_arrive_tx(&full[st], (kF32 ? 0 : 2 * kX) + (pl.tma_w ? KC * BN : 0));
+      if constexpr (!kF32) {
 #pragma unroll
-      for (int c = 0; c < KC / 64; ++c) {
-        hopper::tma_load_2d(sb + c * BM * 128, &tm_x, &full[st], r0 + 64 * c, m0);
-        hopper::tma_load_2d(sb + kX + c * BM * 128, &tm_x, &full[st], k2 + r0 + 64 * c, m0);
+        for (int c = 0; c < KC / 64; ++c) {
+          hopper::tma_load_2d(sb + c * BM * 128, &tm_x, &full[st], r0 + 64 * c, m0);
+          hopper::tma_load_2d(sb + kX + c * BM * 128, &tm_x, &full[st], k2 + r0 + 64 * c, m0);
+        }
       }
       if (pl.tma_w) hopper::tma_load_2d(sb + kW, &tm_w, &full[st], n0, r0);
     }
@@ -682,17 +771,52 @@ int4_mm_tc(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUt
     }
     hopper::cp_async_arrive_noinc(&full[st]);
   };
+  // f32 x: the producer warpgroup's 128 threads load stage j's x rows (16
+  // bytes a load, 8 columns a piece), split each value into its hi, mid
+  // and lo parts and store them as the stage's three bf16 planes of each
+  // half, in the swizzle the wgmma descriptors read (16-byte chunk c of a
+  // 128-byte row r at chunk c ^ (r % 8)). Rows past m and columns past the
+  // half are zeros, as TMA fills them.
+  auto split_x = [&](int j, int tile, int jt) {
+    constexpr int kPieces = BM * KC / 8;  // of a half
+    const int m0 = (tile / pl.col_tiles) * BM;
+    const int r0 = 16 * (s_begin + kSteps * jt);
+    unsigned char* sb = stages + (j % S) * kStage;
+#pragma unroll 2
+    for (int c = tid - kTcConsumers; c < 2 * kPieces; c += 128) {
+      const int h = c / kPieces, row = (c % kPieces) / (KC / 8), p = c % (KC / 8);
+      const int col = r0 + 8 * p;  // in the half
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+      if (m0 + row < pl.m && col < k2) {
+        const float4* src =
+            reinterpret_cast<const float4*>(x + (long long)(m0 + row) * pl.k + h * k2 + col);
+        a = __ldg(src);
+        b = __ldg(src + 1);
+      }
+      uint4 hi, mid, lo;
+      split3(a.x, a.y, hi.x, mid.x, lo.x);
+      split3(a.z, a.w, hi.y, mid.y, lo.y);
+      split3(b.x, b.y, hi.z, mid.z, lo.z);
+      split3(b.z, b.w, hi.w, mid.w, lo.w);
+      unsigned char* dst =
+          sb + h * kXP * kX + (p / 8) * BM * 128 + row * 128 + 16 * ((p % 8) ^ (row & 7));
+      *reinterpret_cast<uint4*>(dst) = hi;
+      *reinterpret_cast<uint4*>(dst + kX) = mid;
+      *reinterpret_cast<uint4*>(dst + 2 * kX) = lo;
+    }
+  };
 
   // the producer's first lane fetches the TMA maps ahead of their first
   // use and sets up the barriers
   if (producer && lane == 0) {
-    asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tm_x))
-                 : "memory");
+    if (!kF32)
+      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tm_x))
+                   : "memory");
     if (pl.tma_w)
       asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&tm_w))
                    : "memory");
     for (int i = 0; i < S; ++i) {
-      hopper::mbar_init(&full[i], kTcFull);
+      hopper::mbar_init(&full[i], kTcFull + (kF32 ? kTcSplit : 0));
       hopper::mbar_init(&empty[i], kTcConsumers / 32);  // one a consumer warp
     }
     if (cs > 1) {  // every rank's share of this rank's elements
@@ -705,20 +829,28 @@ int4_mm_tc(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUt
   if (cs > 1) cluster_arrive_relaxed();  // this rank's slots are ready
 
   if (warp >= kTcConsumers / 32) {
-    // the producer warpgroup, of which the first warp copies; it gives
-    // registers to the consumers
-    hopper::regs_dec<40>();
-    if (producer) {
+    // the producer warpgroup, of which the first warp copies (and, for f32
+    // x, every thread splits x); it gives registers to the consumers
+    hopper::regs_dec<kF32 ? 120 : 40>();
+    if (producer || kF32) {
       int j = 0;  // the ring's stage count, over the block's tiles
       for (int t = t0; t < pl.tiles; t += dt)
-        for (int jt = 0; jt < n_st; ++jt, ++j) load(j, t, jt);
+        for (int jt = 0; jt < n_st; ++jt, ++j) {
+          if (j >= S) hopper::mbar_wait(&empty[j % S], ((j / S) - 1) & 1);
+          if (producer) load(j, t, jt);
+          if constexpr (kF32) {
+            split_x(j, t, jt);
+            hopper::fence_proxy_async();  // the parts, before wgmma reads them
+            hopper::mbar_arrive(&full[j % S]);
+          }
+        }
     }
     if (cs > 1) cluster_wait();
     return;
   }
 
   // a consumer warpgroup
-  hopper::regs_inc<232>();
+  hopper::regs_inc<kF32 ? 192 : 232>();
   const int wg = warp / 4, wq = warp % 4;
   const int cb = RS ? 0 : kTcCols * wg;  // its first column in the tile
   const int rb = RS ? WR * wg : 0;       // its first x row in the tile
@@ -802,10 +934,11 @@ int4_mm_tc(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUt
   float acc[WR / 2], part[WR / 2];
   // x's 16-column slice of step i of p's stage: column block i / 4, byte
   // 32 (i % 4) of the warpgroup's rows; the descriptors are the pass's
-  // first one plus each slice's offset (16-byte units)
+  // first one plus each slice's offset (16-byte units), and f32 x's mid
+  // and lo planes one and two planes further
   auto issue = [&](uint32_t (&af)[kSteps][4], const Pass& p) {
     const uint64_t d0 =
-        sw_desc<128>(stages + p.slot * kStage + p.h * kX + rb * 128, 16, 1024);
+        sw_desc<128>(stages + p.slot * kStage + p.h * kXP * kX + rb * 128, 16, 1024);
     uint64_t desc[kSteps];
 #pragma unroll
     for (int i = 0; i < kSteps; ++i) {
@@ -816,7 +949,10 @@ int4_mm_tc(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUt
     hopper::wg_keep(af);
     hopper::wg_fence();
 #pragma unroll
-    for (int i = 0; i < kSteps; ++i) wgmma_tc<WR>(part, af[i], desc[i], i > 0);
+    for (int i = 0; i < kSteps; ++i) {
+#pragma unroll
+      for (int q = 0; q < kXP; ++q) wgmma_tc<WR>(part, af[i], desc[i] + q * (kX >> 4), i + q > 0);
+    }
     hopper::wg_commit();
   };
   auto scale = [&](const Pass& p) {
@@ -924,57 +1060,230 @@ int4_mm_tc(const __grid_constant__ CUtensorMap tm_x, const __grid_constant__ CUt
   }
 }
 
-// scalar path: one thread per output column, kRowsS rows per block
-constexpr int kRowsS = 8;
+// ---------------------------------------------------------------------------
+// Scalar-route kernel: register-tiled FFMA (header)
+// ---------------------------------------------------------------------------
 
-template <typename T, typename O>
-__global__ void __launch_bounds__(kThreads)
-int4_mm_scalar(const T* __restrict__ x, const uint8_t* __restrict__ packed,
-               const float* __restrict__ scales, O* __restrict__ out, int m, int k, int n,
-               int group) {
-  const int col = blockIdx.x * kThreads + threadIdx.x;
-  const int m0 = blockIdx.y * kRowsS;
-  if (col >= n) return;
-  const int k2 = k / 2, n_kp = k2 / group;
-  const int rows = min(kRowsS, m - m0);
-  float acc[kRowsS];
-#pragma unroll
-  for (int r = 0; r < kRowsS; ++r) acc[r] = 0.f;
-  for (int kk = 0; kk < n_kp; ++kk) {
-    float dl[kRowsS], dh[kRowsS];
-#pragma unroll
-    for (int r = 0; r < kRowsS; ++r) dl[r] = dh[r] = 0.f;
-    for (int j = 0; j < group; ++j) {
-      const int kr = kk * group + j;
-      const int byte = __ldg(packed + (long long)kr * n + col);
-      const float lo = (float)((byte & 15) - 8), hi = (float)((byte >> 4) - 8);
-#pragma unroll
-      for (int r = 0; r < kRowsS; ++r) {
-        if (r < rows) {
-          const T* xr = x + (long long)(m0 + r) * k;
-          dl[r] += to_float(xr[kr]) * lo;
-          dh[r] += to_float(xr[k2 + kr]) * hi;
-        }
-      }
-    }
-    const float sl = __ldg(scales + (long long)kk * n + col);
-    const float sh = __ldg(scales + (long long)(kk + n_kp) * n + col);
-#pragma unroll
-    for (int r = 0; r < kRowsS; ++r) acc[r] += dl[r] * sl + dh[r] * sh;
-  }
-#pragma unroll
-  for (int r = 0; r < kRowsS; ++r)
-    if (r < rows) store1(out, (long long)(m0 + r) * n + col, acc[r]);
+constexpr int kSThreads = 256;
+constexpr int kSRows = 64;  // x rows a block: 16 row groups of 4
+constexpr int kSK = 32;     // packed rows a chunk
+
+template <typename T>
+__host__ __device__ constexpr int s_xrow() {  // a staged x row (elements), 16-byte aligned
+  return kSK + 16 / static_cast<int>(sizeof(T));
+}
+template <typename T>
+__host__ __device__ constexpr int s_stage_bytes(int bn) {  // x [2][kSRows][row], packed [kSK][bn]
+  return 2 * kSRows * s_xrow<T>() * static_cast<int>(sizeof(T)) + kSK * bn;
+}
+template <typename T>
+__host__ __device__ constexpr int s_smem_bytes(int bn) {  // two stages and the codes
+  return 2 * s_stage_bytes<T>(bn) + 2 * kSK * bn * 4;
 }
 
-template <int BN, int NT, typename O>
+// four x values of a staged row from k on (k a multiple of 4), as floats
+__device__ __forceinline__ float4 x4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 x4(const bf16* p) {
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+
+// x [m, k] T, packed [k/2, n], scales [k/g, n] f32, out [m, n], any m, n, g.
+// Grid: ceil(n / BN) x ceil(m / 64); BN = 16 TN. Thread (ty, tx) = (tid /
+// 16, tid % 16) holds rows 4 ty .. 4 ty + 3 of the block's 64 and columns
+// 64 q + 4 tx .. + 3 (q < TN / 4), so that a warp's code reads are 16
+// lanes' contiguous float4s. modes: bit 0, x by 16-byte cp.async (x 16-byte
+// aligned, k and k/2 16-byte multiples); bit 1, the packed rows by 16-byte
+// cp.async; bit 2, by 4-byte cp.async; neither, by plain loads.
+template <typename T, typename O, int TN>
+__global__ void __launch_bounds__(kSThreads)
+int4_mm_scalar(const T* __restrict__ x, const uint8_t* __restrict__ packed,
+               const float* __restrict__ scales, O* __restrict__ out, int m, int k, int n,
+               int group, int modes) {
+  constexpr int BN = 16 * TN, XR = s_xrow<T>(), kQ = TN / 4;
+  constexpr int kXStage = 2 * kSRows * XR * static_cast<int>(sizeof(T));
+  constexpr int kStage = s_stage_bytes<T>(BN);
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* codes = reinterpret_cast<float*>(smem + 2 * kStage);  // [2][kSK][BN]: low, high
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * kSRows;
+  const int k2 = k / 2, n_kp = k2 / group;
+  const bool xvec = modes & 1, w16 = modes & 2, w4 = modes & 4;
+
+  // chunk c (packed rows [c kSK, (c + 1) kSK)) into stage i: x's rows of
+  // both halves and the packed rows, zeros past m, k/2 and n
+  auto stage = [&](int c, int i) {
+    unsigned char* st = smem + i * kStage;
+    T* xs = reinterpret_cast<T*>(st);
+    const int kb = c * kSK;
+    if (xvec) {
+      constexpr int kE = 16 / static_cast<int>(sizeof(T)), kPP = kSK / kE;  // a piece, a row's
+      for (int p = tid; p < 2 * kSRows * kPP; p += kSThreads) {
+        const int hr = p / kPP, q = p % kPP, r = hr % kSRows, col = kb + q * kE;
+        const bool ok = m0 + r < m && col < k2;
+        cp_async16(xs + hr * XR + q * kE,
+                   ok ? x + (long long)(m0 + r) * k + (hr / kSRows) * k2 + col : x, ok);
+      }
+    } else {
+      for (int e = tid; e < 2 * kSRows * kSK; e += kSThreads) {
+        const int hr = e / kSK, kk = e % kSK, r = hr % kSRows, col = kb + kk;
+        xs[hr * XR + kk] = m0 + r < m && col < k2
+                               ? x[(long long)(m0 + r) * k + (hr / kSRows) * k2 + col]
+                               : T(0.f);
+      }
+    }
+    unsigned char* ws = st + kXStage;
+    if (w16 || w4) {
+      const int piece = w16 ? 16 : 4, pr = BN / piece;
+      for (int p = tid; p < kSK * pr; p += kSThreads) {
+        const int r = p / pr, col = (p % pr) * piece;
+        const bool ok = kb + r < k2 && n0 + col < n;
+        const uint8_t* src = ok ? packed + (long long)(kb + r) * n + n0 + col : packed;
+        if (w16)
+          cp_async16(ws + r * BN + col, src, ok);
+        else
+          hopper::cp_async_ca<4>(ws + r * BN + col, src, ok);
+      }
+    } else {
+      for (int e = tid; e < kSK * BN; e += kSThreads) {
+        const int r = e / BN, col = e % BN;
+        ws[e] = kb + r < k2 && n0 + col < n ? packed[(long long)(kb + r) * n + n0 + col] : 0;
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  float acc[4][TN], dl[4][TN], dh[4][TN];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = dl[i][j] = dh[i][j] = 0.f;
+  // add the partials of group gi, scaled by its rows, into acc
+  auto flush = [&](int gi) {
+#pragma unroll
+    for (int q = 0; q < kQ; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = n0 + 64 * q + 4 * tx + e, j = 4 * q + e;
+        const float sl = col < n ? __ldg(scales + (long long)gi * n + col) : 0.f;
+        const float sh = col < n ? __ldg(scales + (long long)(gi + n_kp) * n + col) : 0.f;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          acc[i][j] += dl[i][j] * sl + dh[i][j] * sh;
+          dl[i][j] = dh[i][j] = 0.f;
+        }
+      }
+  };
+  // one k of the chunk (u: the x values of the thread's rows, low and high
+  // half) against the codes of its columns
+  auto fma_k = [&](int kk, const float (&ul)[4], const float (&uh)[4]) {
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      const float4 cl = *reinterpret_cast<const float4*>(codes + kk * BN + 64 * q + 4 * tx);
+      const float4 ch =
+          *reinterpret_cast<const float4*>(codes + (kSK + kk) * BN + 64 * q + 4 * tx);
+      const float bl[4] = {cl.x, cl.y, cl.z, cl.w}, bh[4] = {ch.x, ch.y, ch.z, ch.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dl[i][4 * q + e] += ul[i] * bl[e];
+          dh[i][4 * q + e] += uh[i] * bh[e];
+        }
+    }
+  };
+
+  // a warp whose 8 rows all lie past m only stages and decodes
+  const bool active = m0 + 8 * (tid / 32) < m;
+  const int chunks = (k2 + kSK - 1) / kSK;
+  int gnext = group;  // the packed row where the next group starts
+  stage(0, 0);
+  for (int c = 0; c < chunks; ++c) {
+    if (c + 1 < chunks) {
+      stage(c + 1, (c + 1) & 1);
+      asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    } else {
+      asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    }
+    __syncthreads();
+    // the chunk's codes, once, as f32: byte e of the packed rows -> its
+    // low nibble's value at codes[0][e], its high nibble's at codes[1][e]
+    const unsigned char* ws = smem + (c & 1) * kStage + kXStage;
+    for (int e = 4 * tid; e < kSK * BN; e += 4 * kSThreads) {
+      const uint32_t v = *reinterpret_cast<const uint32_t*>(ws + e);
+      auto code = [v](int shift) {
+        return static_cast<float>(static_cast<int>((v >> shift) & 15) - 8);
+      };
+      *reinterpret_cast<float4*>(codes + e) = make_float4(code(0), code(8), code(16), code(24));
+      *reinterpret_cast<float4*>(codes + kSK * BN + e) =
+          make_float4(code(4), code(12), code(20), code(28));
+    }
+    __syncthreads();
+    if (active) {
+      const T* xl = reinterpret_cast<const T*>(smem + (c & 1) * kStage) + 4 * ty * XR;
+      const T* xh = xl + kSRows * XR;
+      const int kb = c * kSK, kend = min(kSK, k2 - kb);
+      for (int kk = 0; kk < kend;) {
+        if (kb + kk == gnext) {  // a group ends here
+          flush(gnext / group - 1);
+          gnext += group;
+        }
+        const int e = min(kend, gnext - kb);  // this group's end in the chunk
+        for (; (kk & 3) == 0 && kk + 4 <= e; kk += 4) {
+          float4 vl[4], vh[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) vl[i] = x4(xl + i * XR + kk), vh[i] = x4(xh + i * XR + kk);
+          fma_k(kk, {vl[0].x, vl[1].x, vl[2].x, vl[3].x}, {vh[0].x, vh[1].x, vh[2].x, vh[3].x});
+          fma_k(kk + 1, {vl[0].y, vl[1].y, vl[2].y, vl[3].y},
+                {vh[0].y, vh[1].y, vh[2].y, vh[3].y});
+          fma_k(kk + 2, {vl[0].z, vl[1].z, vl[2].z, vl[3].z},
+                {vh[0].z, vh[1].z, vh[2].z, vh[3].z});
+          fma_k(kk + 3, {vl[0].w, vl[1].w, vl[2].w, vl[3].w},
+                {vh[0].w, vh[1].w, vh[2].w, vh[3].w});
+        }
+        for (; kk < e && !((kk & 3) == 0 && kk + 4 <= e); ++kk)
+          fma_k(kk,
+                {to_float(xl[kk]), to_float(xl[XR + kk]), to_float(xl[2 * XR + kk]),
+                 to_float(xl[3 * XR + kk])},
+                {to_float(xh[kk]), to_float(xh[XR + kk]), to_float(xh[2 * XR + kk]),
+                 to_float(xh[3 * XR + kk])});
+      }
+    }
+    __syncthreads();  // the stage and the codes are free for the next chunk
+  }
+  if (!active) return;
+  flush(n_kp - 1);
+  const bool vec4 = n % 4 == 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = m0 + 4 * ty + i;
+    if (row >= m) break;
+#pragma unroll
+    for (int q = 0; q < kQ; ++q) {
+      const int col = n0 + 64 * q + 4 * tx;
+      const long long o = (long long)row * n + col;
+      if (vec4 && col + 4 <= n) {
+        store4(out, o, make_float4(acc[i][4 * q], acc[i][4 * q + 1], acc[i][4 * q + 2],
+                                   acc[i][4 * q + 3]));
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (col + e < n) store1(out, o + e, acc[i][4 * q + e]);
+      }
+    }
+  }
+}
+
+template <int BN, int NT, typename O, typename TX>
 cudaError_t launch_decode(const void* x, const void* packed, const void* scales, void* out,
                           int m, int k, int n, int group, int cluster, int round_rows,
                           cudaStream_t stream) {
   const int mrows = 8 * ((m + 7) / 8), steps = k / 32;
   Plan pl;
   pl.m = m, pl.k = k, pl.n = n, pl.group = group;
-  pl.lay = Layout(BN, mrows, k / 2, group, cluster, round_rows);
+  pl.lay = Layout(BN, mrows, k / 2, group, cluster, round_rows, sizeof(TX));
   const int smem = pl.lay.smem(BN, mrows, cluster);
   if (smem > kMaxSmem) return cudaErrorInvalidValue;
   pl.share = (m * (BN / 4) + cluster - 1) / cluster;
@@ -982,7 +1291,7 @@ cudaError_t launch_decode(const void* x, const void* packed, const void* scales,
   pl.vec = n % 16 == 0 && reinterpret_cast<uintptr_t>(packed) % 16 == 0 &&
            reinterpret_cast<uintptr_t>(scales) % 16 == 0;
   static const cudaError_t opt_in = cudaFuncSetAttribute(
-      int4_mm_decode<BN, NT, O>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+      int4_mm_decode<BN, NT, O, TX>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (opt_in != cudaSuccess) return opt_in;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(((n + BN - 1) / BN) * cluster);
@@ -996,18 +1305,18 @@ cudaError_t launch_decode(const void* x, const void* packed, const void* scales,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, int4_mm_decode<BN, NT, O>, static_cast<const bf16*>(x),
+  return cudaLaunchKernelEx(&cfg, int4_mm_decode<BN, NT, O, TX>, static_cast<const TX*>(x),
                             static_cast<const uint8_t*>(packed),
                             static_cast<const float*>(scales), static_cast<O*>(out), pl);
 }
 
-template <int BN, typename O>
+template <int BN, typename O, typename TX>
 cudaError_t launch_decode_rows(const void* x, const void* packed, const void* scales,
                                void* out, int m, int k, int n, int group, int cluster,
                                int round_rows, cudaStream_t stream) {
 #define LAMP_I4_DEC(NT)                                                                    \
-  return launch_decode<BN, NT, O>(x, packed, scales, out, m, k, n, group, cluster,         \
-                                  round_rows, stream);
+  return launch_decode<BN, NT, O, TX>(x, packed, scales, out, m, k, n, group, cluster,     \
+                                      round_rows, stream);
   if (m <= 8) LAMP_I4_DEC(1)
   if (m <= 16) LAMP_I4_DEC(2)
   if (m <= 32) LAMP_I4_DEC(4)
@@ -1026,14 +1335,15 @@ int sm_count() {
   return sms[dev];
 }
 
-template <bool RS, int WR, int KC, typename O>
+template <bool RS, int WR, int KC, typename O, typename TX>
 cudaError_t launch_tc(const void* x, const void* packed, const void* scales, void* out, int m,
                       int k, int n, int group, int cluster, cudaStream_t stream, int* map_rc) {
   constexpr int BN = RS ? kTcCols : 2 * kTcCols, BM = RS ? 2 * WR : WR;
+  constexpr int kXP = sizeof(TX) == 4 ? 3 : 1;
   TcPlan pl;
   pl.m = m, pl.k = k, pl.n = n, pl.group = group, pl.steps = k / 32;
   if (cluster < 1 || cluster > kMaxCluster || cluster > pl.steps) return cudaErrorInvalidValue;
-  const int stage = tc_stage_bytes(BN, BM, KC), recv = tc_recv_bytes(BN, BM, cluster);
+  const int stage = tc_stage_bytes(BN, BM, KC, kXP), recv = tc_recv_bytes(BN, BM, cluster);
   // 1 KB to align the stages, 1 KB for the static barriers
   pl.stages = (kMaxSmem - 2048 - recv) / stage;
   if (pl.stages > kTcMaxStages) pl.stages = kTcMaxStages;
@@ -1053,8 +1363,10 @@ cudaError_t launch_tc(const void* x, const void* packed, const void* scales, voi
   if (err == cudaSuccess) err = cudaGetDevice(&current);
   if (err == cudaSuccess && current != at.device) err = cudaSetDevice(at.device);
   if (err != cudaSuccess) return err;
-  *map_rc = hopper::row_map(&map_x, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, m, k, 2LL * k, BM, 64,
-                            CU_TENSOR_MAP_SWIZZLE_128B);
+  map_x = {};
+  if (kXP == 1)  // f32 x is loaded and split by the producer warpgroup
+    *map_rc = hopper::row_map(&map_x, x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, m, k, 2LL * k, BM,
+                              64, CU_TENSOR_MAP_SWIZZLE_128B);
   if (*map_rc == 0 && pl.tma_w)
     *map_rc = hopper::row_map(&map_w, packed, CU_TENSOR_MAP_DATA_TYPE_UINT8, k / 2, n, n, KC, BN,
                               BN == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
@@ -1063,7 +1375,8 @@ cudaError_t launch_tc(const void* x, const void* packed, const void* scales, voi
   if (*map_rc != 0) return cudaErrorInvalidValue;
   if (err != cudaSuccess) return err;
   static const cudaError_t opt_in = cudaFuncSetAttribute(
-      int4_mm_tc<RS, WR, KC, O>, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem - 1024);
+      int4_mm_tc<RS, WR, KC, O, TX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kMaxSmem - 1024);
   if (opt_in != cudaSuccess) return opt_in;
   cudaLaunchConfig_t cfg = {};
   // without a cluster a persistent grid of a block an SM; with one, a
@@ -1080,34 +1393,55 @@ cudaError_t launch_tc(const void* x, const void* packed, const void* scales, voi
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, int4_mm_tc<RS, WR, KC, O>, map_x, map_w,
-                            static_cast<const uint8_t*>(packed),
+  return cudaLaunchKernelEx(&cfg, int4_mm_tc<RS, WR, KC, O, TX>, map_x, map_w,
+                            static_cast<const TX*>(x), static_cast<const uint8_t*>(packed),
                             static_cast<const float*>(scales), static_cast<O*>(out), pl);
 }
 
 // the stage: 128 packed rows where a group is a whole multiple of 128 rows
-// and two such stages fit beside the cluster's slots, else 64
-template <bool RS, int WR, typename O>
+// and two such stages fit beside the cluster's slots, else 64 (f32 x: 64,
+// its three planes a half filling what 128 rows would take)
+template <bool RS, int WR, typename O, typename TX>
 cudaError_t launch_tc_kc(const void* x, const void* packed, const void* scales, void* out,
                          int m, int k, int n, int group, int cluster, cudaStream_t stream,
                          int* map_rc) {
   constexpr int BN = RS ? kTcCols : 2 * kTcCols, BM = RS ? 2 * WR : WR;
-  if (group % 128 == 0 &&
-      2 * tc_stage_bytes(BN, BM, 128) + tc_recv_bytes(BN, BM, cluster) <= kMaxSmem - 2048)
-    return launch_tc<RS, WR, 128, O>(x, packed, scales, out, m, k, n, group, cluster, stream,
-                                      map_rc);
-  return launch_tc<RS, WR, 64, O>(x, packed, scales, out, m, k, n, group, cluster, stream,
-                                   map_rc);
+  if constexpr (sizeof(TX) == 2) {
+    if (group % 128 == 0 &&
+        2 * tc_stage_bytes(BN, BM, 128, 1) + tc_recv_bytes(BN, BM, cluster) <= kMaxSmem - 2048)
+      return launch_tc<RS, WR, 128, O, TX>(x, packed, scales, out, m, k, n, group, cluster,
+                                            stream, map_rc);
+  }
+  return launch_tc<RS, WR, 64, O, TX>(x, packed, scales, out, m, k, n, group, cluster, stream,
+                                       map_rc);
 }
 
+template <typename T, typename O, int TN>
+cudaError_t launch_scalar_tn(const void* x, const void* packed, const void* scales, void* out,
+                             int m, int k, int n, int group, cudaStream_t stream) {
+  constexpr int BN = 16 * TN, smem = s_smem_bytes<T>(BN);
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x), pa = reinterpret_cast<uintptr_t>(packed);
+  const int xb = static_cast<int>(sizeof(T));
+  const int modes = (xa % 16 == 0 && (k * xb) % 16 == 0 && (k / 2 * xb) % 16 == 0 ? 1 : 0) |
+                    (n % 16 == 0 && pa % 16 == 0 ? 2 : n % 4 == 0 && pa % 4 == 0 ? 4 : 0);
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      int4_mm_scalar<T, O, TN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (opt_in != cudaSuccess) return opt_in;
+  dim3 grid((n + BN - 1) / BN, (m + kSRows - 1) / kSRows);
+  int4_mm_scalar<T, O, TN><<<grid, kSThreads, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<const uint8_t*>(packed),
+      static_cast<const float*>(scales), static_cast<O*>(out), m, k, n, group, modes);
+  return cudaGetLastError();
+}
+
+// 128 columns a block where those tiles give every SM one, else 64
 template <typename T, typename O>
 cudaError_t launch_scalar(const void* x, const void* packed, const void* scales, void* out,
                           int m, int k, int n, int group, cudaStream_t stream) {
-  dim3 grid((n + kThreads - 1) / kThreads, (m + kRowsS - 1) / kRowsS);
-  int4_mm_scalar<T, O><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const uint8_t*>(packed),
-      static_cast<const float*>(scales), static_cast<O*>(out), m, k, n, group);
-  return cudaGetLastError();
+  const long long tiles128 = (long long)((n + 127) / 128) * ((m + kSRows - 1) / kSRows);
+  if (tiles128 >= sm_count())
+    return launch_scalar_tn<T, O, 8>(x, packed, scales, out, m, k, n, group, stream);
+  return launch_scalar_tn<T, O, 4>(x, packed, scales, out, m, k, n, group, stream);
 }
 
 }  // namespace
@@ -1117,17 +1451,17 @@ extern "C" {
 // x [m, k] (x_dtype 0 = float32, 1 = bfloat16), packed [k/2, n] uint8,
 // scales [k/group, n] float32, out [m, n] (out_dtype 0 = float32,
 // 1 = bfloat16), all contiguous. The route follows from the inputs and the
-// plan (tile, cluster, rows) the caller gives: bf16 x with group % 16 == 0
-// and m <= 64 takes the decode kernel (tile: BN of 32, 64 or 128; cluster:
-// the blocks of 1-8 that split K for a tile; rows: packed rows staged at
-// once, a multiple of 16); bf16 x with group % 16 == 0, m > 64 and a plan
-// the row-tiled kernel (tile: the block's output columns, 64 or 128;
-// cluster: 1-8 blocks splitting K; rows: the block's x rows, 128, or 256
-// with 64 columns), which takes n % 4 == 0, packed 4-byte and x 16-byte
-// aligned; every other call, with tile, cluster and rows 0, the scalar
-// kernel. A plan for another route, or one the kernel cannot run, is
-// refused. Returns the cudaError_t of the launch, or kMapError + libcuda's
-// CUresult when x's TMA map was refused.
+// plan (tile, cluster, rows) the caller gives: x of either dtype with
+// group % 16 == 0 and m <= 64 takes the decode kernel (tile: BN of 32, 64 or 128;
+// cluster: the blocks of 1-8 that split K for a tile; rows: packed rows
+// staged at once, a multiple of 16); group % 16 == 0, m > 64 and a plan the
+// row-tiled kernel (tile: the block's output columns, 64 or 128; cluster:
+// 1-8 blocks splitting K; rows: the block's x rows: bf16 x 128, or 256 with
+// 64 columns; f32 x 64 with 128 columns), which takes n % 4 == 0, packed
+// 4-byte and x 16-byte aligned; every other call, with tile, cluster and
+// rows 0, the scalar-route kernel. A plan for another route, or one the
+// kernel cannot run, is refused. Returns the cudaError_t of the launch, or
+// kMapError + libcuda's CUresult when a TMA map was refused.
 int lamp_int4_matmul(const void* x, const void* packed, const void* scales, void* out, int m,
                      int k, int n, int group, int x_dtype, int out_dtype, int tile,
                      int cluster, int round_rows, void* stream) {
@@ -1137,21 +1471,26 @@ int lamp_int4_matmul(const void* x, const void* packed, const void* scales, void
   if (x_dtype < 0 || x_dtype > 1 || out_dtype < 0 || out_dtype > 1)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool tc = x_dtype == 1 && group % 16 == 0;
+  const bool tc = group % 16 == 0;
   if (tc && m <= 64) {
     if (cluster < 1 || cluster > 8 || cluster > k / 32 || round_rows < 16 ||
         round_rows % 16 || reinterpret_cast<uintptr_t>(x) % 16)
       return cudaErrorInvalidValue;
+#define LAMP_I4_DEC_X(BN, O)                                                                \
+  return x_dtype == 1 ? launch_decode_rows<BN, O, bf16>(x, packed, scales, out, m, k, n, group, \
+                                                        cluster, round_rows, st)            \
+                      : launch_decode_rows<BN, O, float>(x, packed, scales, out, m, k, n,   \
+                                                         group, cluster, round_rows, st);
 #define LAMP_I4_DEC_BN(BN)                                                                 \
-  if (tile == BN)                                                                          \
-    return out_dtype == 1 ? launch_decode_rows<BN, bf16>(x, packed, scales, out, m, k, n,  \
-                                                         group, cluster, round_rows, st)   \
-                          : launch_decode_rows<BN, float>(x, packed, scales, out, m, k, n, \
-                                                          group, cluster, round_rows, st);
+  if (tile == BN) {                                                                        \
+    if (out_dtype == 1) LAMP_I4_DEC_X(BN, bf16)                                            \
+    LAMP_I4_DEC_X(BN, float)                                                               \
+  }
     LAMP_I4_DEC_BN(32)
     LAMP_I4_DEC_BN(64)
     LAMP_I4_DEC_BN(128)
 #undef LAMP_I4_DEC_BN
+#undef LAMP_I4_DEC_X
     return cudaErrorInvalidValue;
   }
   if (tc && (tile != 0 || cluster != 0 || round_rows != 0)) {
@@ -1159,18 +1498,20 @@ int lamp_int4_matmul(const void* x, const void* packed, const void* scales, void
       return cudaErrorInvalidValue;
     int map_rc = 0;
     cudaError_t err = cudaErrorInvalidValue;
-#define LAMP_I4_TC(RS, WR)                                                                  \
+#define LAMP_I4_TC(RS, WR, TX)                                                              \
   err = out_dtype == 1                                                                      \
-            ? launch_tc_kc<RS, WR, bf16>(x, packed, scales, out, m, k, n, group, cluster,   \
-                                         st, &map_rc)                                       \
-            : launch_tc_kc<RS, WR, float>(x, packed, scales, out, m, k, n, group, cluster,  \
-                                          st, &map_rc);
-    if (tile == 128 && round_rows == 128) {
-      LAMP_I4_TC(false, 128)
+            ? launch_tc_kc<RS, WR, bf16, TX>(x, packed, scales, out, m, k, n, group,        \
+                                             cluster, st, &map_rc)                          \
+            : launch_tc_kc<RS, WR, float, TX>(x, packed, scales, out, m, k, n, group,       \
+                                              cluster, st, &map_rc);
+    if (x_dtype == 0) {
+      if (tile == 128 && round_rows == 64) LAMP_I4_TC(false, 64, float)
+    } else if (tile == 128 && round_rows == 128) {
+      LAMP_I4_TC(false, 128, bf16)
     } else if (tile == 64 && round_rows == 128) {
-      LAMP_I4_TC(true, 64)
+      LAMP_I4_TC(true, 64, bf16)
     } else if (tile == 64 && round_rows == 256) {
-      LAMP_I4_TC(true, 128)
+      LAMP_I4_TC(true, 128, bf16)
     }
 #undef LAMP_I4_TC
     return map_rc != 0 ? kMapError + map_rc : static_cast<int>(err);

@@ -16,6 +16,13 @@ launch the kernels or raise. Each forward launch adds one to
 ``fused_layernorm.launches`` and each backward (a kernel and its
 reduction pass) one to ``fused_layernorm.backward_launches``.
 
+The CUDA backward reads x and dy once: a warp a row, 16-byte loads, the
+row held in registers up to 1024 columns (bf16; 768 in f32), each lane's
+dw, db partials in registers across its rows; a persistent grid
+(:func:`_bwd_plan`) of blocks over contiguous bands of rows adds them in
+warp order, then in a fixed order over the blocks, so two calls give the
+same bits.
+
 **Every shape takes the kernel.** The JAX op sends shapes its TPU kernel
 cannot tile (D not a multiple of 128, or N not a multiple of 8) to a jnp
 path; here any N and D go through the kernels. The statistics stay f32 for
@@ -34,7 +41,10 @@ __all__ = ["fused_layernorm", "fused_layernorm_reference",
            "fused_layernorm_backward_reference"]
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_TILE_ROWS = 256  # csrc/fused_layernorm.cu kMaxTileRows
+# the CUDA backward's narrowest window of columns (csrc/fused_layernorm.cu
+# bwd_chunks: 1024 for 16-byte bf16 loads, 768 for f32 and one value a
+# load): above it, each row's m1, m2 go through the workspace
+_HELD = 768
 
 
 def fused_layernorm_reference(x2, weight, bias, eps: float = 1e-5):
@@ -68,13 +78,26 @@ def fused_layernorm_backward_reference(x2, dy2, weight, mu, rs):
     return dx, (dy * yhat).sum(dim=0), dy.sum(dim=0)
 
 
-def tile_rows(n: int, device) -> int:
-    """Rows per tile of the CUDA backward: about two tiles per SM, at most
-    256 rows. Its dw, db are the tiles' partial sums added in tile
-    order."""
+def _bwd_plan(n: int, sms: int) -> int:
+    """The CUDA backward's persistent grid: two blocks an SM, but no more
+    than one block for every 8 rows (a row for each of its warps), and at
+    least one. Block b takes the contiguous rows [b n / blocks, (b + 1) n /
+    blocks) (:func:`_bwd_bands`); its dw, db partial is one row of a
+    workspace [2, blocks, D]. (At [3072, 768] bf16 on an H100, 8 rows a
+    block read 11.54 us a call against 12.54 at 16, 12.03 at 32 and 16.77 at
+    64; scripts/exp_layernorm_variants.py.)"""
+    return max(1, min(2 * sms, -(-n // 8)))
+
+
+def _bwd_bands(n: int, blocks: int):
+    """Each block's rows ``[start, end)``, as the kernel cuts them."""
+    return [(b * n // blocks, (b + 1) * n // blocks) for b in range(blocks)]
+
+
+def _bwd_blocks(n: int, device) -> int:
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
-    return max(1, min(_MAX_TILE_ROWS, -(-n // (2 * _sm_count(index)))))
+    return _bwd_plan(n, _sm_count(index))
 
 
 def _stream(t):
@@ -112,17 +135,19 @@ def _bwd_cuda(x2, dy2, weight, mu, rs):
 
     lib = library()
     n, d = x2.shape
-    rows = tile_rows(n, x2.device)
+    blocks = _bwd_blocks(n, x2.device)
     dx = torch.empty_like(x2)
     dw = torch.empty(d, dtype=torch.float32, device=x2.device)
     db = torch.empty(d, dtype=torch.float32, device=x2.device)
-    work = torch.empty(2 * -(-n // rows) * d, dtype=torch.float32,
-                       device=x2.device)
+    # the blocks' partials, and each row's m1, m2 where a row is cut into
+    # windows
+    work = torch.empty(2 * blocks * d + (2 * n if d > _HELD else 0),
+                       dtype=torch.float32, device=x2.device)
     w = weight.float().contiguous()
     rc = lib.lamp_layernorm_bwd(
         x2.data_ptr(), dy2.data_ptr(), w.data_ptr(), mu.data_ptr(),
         rs.data_ptr(), dx.data_ptr(), dw.data_ptr(), db.data_ptr(),
-        work.data_ptr(), n, d, rows, _KERNEL_DTYPES[x2.dtype], _stream(x2))
+        work.data_ptr(), n, d, blocks, _KERNEL_DTYPES[x2.dtype], _stream(x2))
     _raise_on(lib, rc, "backward")
     fused_layernorm.backward_launches += 1
     return dx, dw, db

@@ -32,10 +32,24 @@ computes the kernel's arithmetic at every shape instead: x in its own dtype
 times the exact integer codes, summed in f32 per K-group, each group's
 partial product scaled by its f32 scale row, the result in f32 and then cast
 to ``out_dtype``. The CUDA kernels take every M >= 1, every N and every
-group size and mask the ragged edges: bf16 x with groups of a multiple of
-16 runs on tensor cores (``int4_mm_decode`` at M <= 64, ``int4_mm_tc`` on
-wgmma above, where N % 4 == 0), everything else a scalar loop
-(``int4_mm_scalar``).
+group size and mask the ragged edges. Groups of a multiple of 16 run on
+tensor cores, in bf16 and f32 x alike: ``int4_mm_decode`` at M <= 64,
+``int4_mm_tc`` on wgmma above where N % 4 == 0 and the packed weight is
+4-byte aligned. Every other call (groups not a multiple of 16; M > 64 with
+N % 4 != 0 or a packed weight not 4-byte aligned) runs ``int4_mm_scalar``,
+register-tiled FFMA.
+
+**f32 x on the tensor cores.** An f32 value splits exactly into three bf16
+parts (:func:`split_f32_to_bf16x3`): ``hi = bf16(x)``, ``r = x - hi``
+(exact), ``mid = bf16(r)``, ``lo = bf16(r - mid)``; three 8-bit
+significands cover f32's 24, so ``hi + mid + lo == x`` bit for bit. The
+kernels split x this way inside the kernel and add the three products with
+the exact integer codes into the same f32 accumulators: the plain
+version's f32 arithmetic, at three bf16 products a weight fragment. A
+stated difference: where ``lo`` falls below bf16's normal range (``|x|``
+below about 2^-110) it keeps fewer bits, and above bf16's largest finite
+value (about 3.39e38) ``hi`` rounds to inf, so those x do not split
+exactly.
 
 **K8's random bits.** ``pltpu.prng_random_bits`` has no counterpart, so the
 stream is NOT the TPU's: element ``i`` (its flat index in ``[M, K]``) draws
@@ -70,6 +84,7 @@ __all__ = [
     "dequantize_int4",
     "int4_matmul",
     "int4_matmul_reference",
+    "split_f32_to_bf16x3",
     "QuantizedLinearInt4",
 ]
 
@@ -362,6 +377,22 @@ def int4_matmul_reference(x2, w_packed, w_scales):
     return out
 
 
+def split_f32_to_bf16x3(x):
+    """The exact three-way split of f32 ``x`` into bf16 parts (hi, mid, lo)
+    with ``hi + mid + lo == x`` (summed in f32) bit for bit, as K7's
+    kernels split f32 x on the card (``split3`` in csrc/int4_matmul.cu):
+    ``hi = bf16(x)``, ``r = -(hi - x)``, ``mid = bf16(r)``, ``lo =
+    bf16(-(mid - r))``. ``-(hi - x)`` equals ``x - hi`` and keeps a zero's
+    sign, so -0 splits into three -0. The module docstring states where the
+    split is not exact. The main path does not call this: the plain version
+    of the kernels' split, for the tests."""
+    x = x.float()
+    hi = x.bfloat16()
+    r = -(hi.float() - x)
+    mid = r.bfloat16()
+    return hi, mid, (-(mid.float() - r)).bfloat16()
+
+
 def int4_matmul(x, w_packed, w_scales, *, out_dtype=None):
     """y = x @ dequant_int4(w), the weight staying nibble-packed.
 
@@ -369,8 +400,10 @@ def int4_matmul(x, w_packed, w_scales, *, out_dtype=None):
     [..., N] in ``out_dtype`` (default x's dtype). CPU tensors take
     :func:`int4_matmul_reference`; CUDA tensors launch
     ``csrc/int4_matmul.cu`` (x f32 or bf16, out f32 or bf16) or raise, and
-    each launch adds one to ``int4_matmul.launches`` (and a launch of the
-    row-tiled kernel to ``int4_matmul.tc_launches``). x may have any
+    each launch adds one to ``int4_matmul.launches``, and to the counter of
+    its route: ``tc_launches`` (the row-tiled kernel, M > 64),
+    ``f32_launches`` (f32 x on the tensor cores, either kernel),
+    ``scalar_launches`` (the scalar-route kernel). x may have any
     layout: a non-contiguous or misaligned x is copied to a fresh
     contiguous tensor first. The packed weight and its scales, which the
     caller keeps, must be contiguous: the wrapper raises otherwise."""
@@ -404,10 +437,8 @@ def int4_matmul(x, w_packed, w_scales, *, out_dtype=None):
     lib = library()
     m = x2.shape[0]
     out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    plan = (0, 0, 0)
-    if x.dtype == torch.bfloat16 and g % 16 == 0 and (
-            m <= _DECODE_ROWS or (n % 4 == 0 and w_packed.data_ptr() % 4 == 0)):
-        plan = _int4_plan(m, n, k // 2, g, x.device)
+    plan = _route_plan(m, n, k // 2, g, x.element_size(),
+                       w_packed.data_ptr() % 4 == 0, x.device)
     rc = lib.lamp_int4_matmul(
         x2.data_ptr(), w_packed.data_ptr(), w_scales.data_ptr(),
         out.data_ptr(), m, k, n, g, _KERNEL_DTYPES[x.dtype],
@@ -415,15 +446,22 @@ def int4_matmul(x, w_packed, w_scales, *, out_dtype=None):
         torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(lib, rc, "int4_matmul")
     int4_matmul.launches += 1
-    if m > _DECODE_ROWS and plan[0]:
-        int4_matmul.tc_launches += 1
+    if not plan[0]:
+        int4_matmul.scalar_launches += 1
+    else:
+        int4_matmul.tc_launches += m > _DECODE_ROWS
+        int4_matmul.f32_launches += x.dtype == torch.float32
     return out.reshape(*lead, n)
 
 
 # kernel launches since the last reset (a run shows the path used the
-# kernel): every route's, and the row-tiled kernel's (int4_mm_tc) alone
+# kernel): every route's, the row-tiled kernel's (int4_mm_tc), f32 x's on
+# the tensor cores (int4_mm_decode or int4_mm_tc) and the scalar-route
+# kernel's (int4_mm_scalar)
 int4_matmul.launches = 0
 int4_matmul.tc_launches = 0
+int4_matmul.f32_launches = 0
+int4_matmul.scalar_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -432,10 +470,11 @@ def _sm_count(index: int) -> int:
 
 
 # K7's decode kernel (csrc/int4_matmul.cu, int4_mm_decode) takes M <= 64
-# rows of bf16 x; each plan it is given stays within a block's 227 KB of
-# shared memory, and a stage of a round within _DECODE_STAGE_BYTES, so that
-# two blocks of one round each fit on an SM (the logits' 250 blocks of 128
-# columns then run in one wave)
+# rows of bf16 or f32 x; each plan it is given stays within a block's 227
+# KB of shared memory, and a stage of a round within _DECODE_STAGE_BYTES,
+# so that two blocks of one round each fit on an SM (the logits' 250 blocks
+# of 128 columns then run in one wave; f32 x's logits, in rounds, keep
+# both stages within it)
 _DECODE_ROWS = 64
 _DECODE_STAGE_BYTES = 112 << 10
 _DECODE_WARPS = 8
@@ -444,19 +483,20 @@ _MAX_SMEM = 232448
 
 
 def _int4_decode_smem(tile: int, mrows: int, k2: int, g: int, cluster: int,
-                      round_rows: int) -> int:
+                      round_rows: int, xs: int = 2) -> int:
     """The decode kernel's dynamic shared memory (bytes) for a plan, by the
     kernel's own arithmetic (``Layout`` in csrc/int4_matmul.cu): the
     mbarriers, then one stage (two when the longest slice takes more than
     one round) of the round's packed rows [R][tile + 16], x rows
-    [2][mrows][2R + 16] bytes and scale rows [2][groups][tile] f32, or the
+    [2][mrows][xs (R + 8)] bytes (xs: x's element bytes, 2 for bf16, 4 for
+    f32) and scale rows [2][groups][tile] f32, or the
     K parts' partial tiles [8 / (tile / 16)][mrows][tile + 4] f32 if
     larger, then in a cluster the sum's slots [cluster][ceil(mrows tile /
     4 / cluster)] float4s."""
     slice_rows = 16 * -(-(k2 // 16) // cluster)
     r = min(round_rows, slice_rows)
     groups = (r + g - 17) // g + 1
-    stage = r * (tile + 16) + 2 * mrows * (2 * r + 16) + 2 * groups * tile * 4
+    stage = r * (tile + 16) + 2 * mrows * xs * (r + 8) + 2 * groups * tile * 4
     stages = 2 if r < slice_rows else 1
     red = (_DECODE_WARPS // (tile // 16)) * mrows * (tile + 4) * 4
     recv = cluster * -(-(mrows * tile // 4) // cluster) * 16 \
@@ -464,18 +504,32 @@ def _int4_decode_smem(tile: int, mrows: int, k2: int, g: int, cluster: int,
     return _DECODE_BAR_BYTES + max(stages * stage, red) + recv
 
 
-def _int4_plan(m: int, n: int, k2: int, g: int, device) -> Tuple[int, int,
-                                                                 int]:
-    """The launch plan of a tensor-core K7 call (bf16 x, ``g`` % 16 == 0),
-    decided here only: ``(tile, cluster, round_rows)`` for the decode
-    kernel of M <= 64 rows (:func:`_decode_plan`), or ``(tile, cluster,
-    rows)`` for the row-tiled kernel above (:func:`_tc_plan`). The kernel
-    refuses a plan that it cannot run."""
+def _route_plan(m: int, n: int, k2: int, g: int, xs: int, aligned4: bool,
+                device) -> Tuple[int, int, int]:
+    """K7's route for a call: the tensor cores' plan (:func:`_int4_plan`)
+    where ``g`` is a multiple of 16 and either M <= 64 (the decode kernel)
+    or N % 4 == 0 and the packed weight is 4-byte aligned (``aligned4``;
+    the row-tiled kernel), for bf16 and f32 x (``xs`` 2 or 4 bytes) alike;
+    else ``(0, 0, 0)``, the scalar-route kernel."""
+    if g % 16 == 0 and (m <= _DECODE_ROWS or (n % 4 == 0 and aligned4)):
+        return _int4_plan(m, n, k2, g, device, xs)
+    return 0, 0, 0
+
+
+def _int4_plan(m: int, n: int, k2: int, g: int, device,
+               xs: int = 2) -> Tuple[int, int, int]:
+    """The launch plan of a tensor-core K7 call (``g`` % 16 == 0; x of
+    ``xs`` bytes an element: 2 for bf16, 4 for f32, which the kernels split
+    into three bf16 parts), decided here only: ``(tile, cluster,
+    round_rows)`` for the decode kernel of M <= 64 rows
+    (:func:`_decode_plan`), or ``(tile, cluster, rows)`` for the row-tiled
+    kernel above (:func:`_tc_plan`). The kernel refuses a plan that it
+    cannot run."""
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
     if m > _DECODE_ROWS:
-        return _tc_plan(min(m, 257), n, k2, g, _sm_count(index))
-    return _decode_plan(m, n, k2, g, _sm_count(index))
+        return _tc_plan(min(m, 257), n, k2, g, _sm_count(index), xs)
+    return _decode_plan(m, n, k2, g, _sm_count(index), xs)
 
 
 def _even_cluster(steps: int, want: int) -> int:
@@ -486,11 +540,15 @@ def _even_cluster(steps: int, want: int) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _tc_plan(m: int, n: int, k2: int, g: int, sms: int):
+def _tc_plan(m: int, n: int, k2: int, g: int, sms: int, xs: int = 2):
     """``(tile, cluster, rows)`` of the row-tiled kernel (int4_mm_tc): a
     block is two consumer warpgroups of 64 output columns each (wgmma's M)
     over ``tile`` columns by ``rows`` x rows.
 
+    - f32 x (``xs`` 4): 128 columns by 64 rows at every M, the warpgroups
+      over 64 columns each (wgmma m64n64): a stage holds x's three bf16
+      planes a half, and 64 rows are what leaves room for three stages
+      beside a cluster's slots;
     - above 256 rows: 128 x 128 tiles, no split (the tiles fill the card,
       and the products bound the call; the grid is persistent);
     - 129-256 rows: 64 columns by 256 rows, the warpgroups over 128 rows
@@ -508,14 +566,17 @@ def _tc_plan(m: int, n: int, k2: int, g: int, sms: int):
       even split of the decode plan.
     """
     if m > 256:
-        return 128, 1, 128
+        return (128, 1, 64) if xs == 4 else (128, 1, 128)
     steps = k2 // 16
-    if m > 128:
+    if xs == 4:
+        tile, rows = 128, 64
+    elif m > 128:
         tile, rows = 64, 256
     else:
         rows = 128
         tile = 128 if -(-n // 128) >= sms // 2 else 64
-    want = max(1, min(8, steps, -(-max(1, sms // 2) // -(-n // tile))))
+    tiles = -(-n // tile) * -(-m // rows)
+    want = max(1, min(8, steps, -(-max(1, sms // 2) // tiles)))
     n_kp = k2 // g
     aligned = max(d for d in range(1, want + 1) if n_kp % d == 0)
     cluster = aligned if 2 * aligned >= want else _even_cluster(steps, want)
@@ -523,7 +584,7 @@ def _tc_plan(m: int, n: int, k2: int, g: int, sms: int):
 
 
 @functools.lru_cache(maxsize=None)
-def _decode_plan(m: int, n: int, k2: int, g: int, sms: int):
+def _decode_plan(m: int, n: int, k2: int, g: int, sms: int, xs: int = 2):
     steps = k2 // 16
     target = max(1, sms // 2)  # blocks a call aims at
     tiles64 = -(-n // 64)
@@ -536,10 +597,15 @@ def _decode_plan(m: int, n: int, k2: int, g: int, sms: int):
     cluster = _even_cluster(steps, -(-target // -(-n // tile)))
     slice_rows = 16 * -(-steps // cluster)
     mrows = 8 * -(-m // 8)
+    # f32 x's stage is twice bf16's: where the blocks outnumber the SMs (the
+    # logits), its two stages together stay within one bf16 stage's bytes,
+    # so that two blocks still fit an SM and the grid runs in one wave
+    one_wave = xs == 4 and -(-n // tile) * cluster > sms
     round_rows = slice_rows
     while round_rows > 16 and _int4_decode_smem(
-            tile, mrows, k2, g, cluster, round_rows) - _DECODE_BAR_BYTES > \
-            _DECODE_STAGE_BYTES * (2 if round_rows < slice_rows else 1):
+            tile, mrows, k2, g, cluster, round_rows, xs) \
+            - _DECODE_BAR_BYTES > _DECODE_STAGE_BYTES * (
+                2 if round_rows < slice_rows and not one_wave else 1):
         round_rows -= 16
     return tile, cluster, round_rows
 

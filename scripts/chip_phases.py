@@ -4,7 +4,7 @@ lines), then the named parts only.
 
     python3 scripts/chip_phases.py [paged] [ragged] [ragged_bwd] [fwd]
         [flash] [wide] [any] [small] [train32] [openllama] [gemma]
-        [openllama_train] [quant] [layouts] [spec]
+        [openllama_train] [quant] [layouts] [spec] [layernorm]
 
 paged: phase 2 (the paged-attention kernels: the fixed kernel's edges,
 K6_WIDE's shapes and the key split's edges included, and the serving
@@ -28,13 +28,16 @@ untimed; small: the GPT models of SMALL_HEAD_MODELS; train32:
 phase 5's f32 flagship; openllama: phase 11; gemma: phase 12;
 openllama_train: phase 13 (OpenLLaMA-3B trained in bf16); quant:
 phase 6 (K7 at every decode shape and edge and the row-tiled kernel's
-rows, int8_matmul, K8), then phase 7's int4 server (launch counts, greedy
+rows, bf16 and f32 x, the f32 and scalar routes timed, int8_matmul, K8),
+then phase 7's int4 servers in bf16 and in f32 (launch counts, greedy
 tokens, the steady decode and K7's share of a profiled step); layouts:
 check_layouts (the wrappers given transposed views and offset slices,
 against their contiguous copies, bit for bit); spec: phase 14
 (speculative decoding on the int4 servers: the bf16 chunk against single
 steps, the greedy run's checks and figures, a profiled round, the sampled
-run). No argument runs them all.
+run); layernorm: phase 8's fused LayerNorm kernels (K5: the forward and
+the one-pass backward against their plain versions, two backward calls
+bit for bit, timed beside F.layer_norm). No argument runs them all.
 Every check raises as in chip_smoke.py.
 """
 
@@ -58,7 +61,7 @@ from lamp_tpu_torch.ops.paged_attention import (  # noqa: E402
 
 PARTS = ("paged", "ragged", "ragged_bwd", "fwd", "flash", "wide", "any",
          "small", "train32", "openllama", "gemma", "openllama_train", "quant",
-         "layouts", "spec")
+         "layouts", "spec", "layernorm")
 
 
 def main(parts) -> int:
@@ -134,8 +137,10 @@ def main(parts) -> int:
         from lamp_tpu_torch.ops import quantization as Q
 
         cs.phase_quant_kernels(Q)
-        cs.serve_int4(cs.make_serving_model(torch_nn), models, Q,
-                      paged_attention)
+        model = cs.make_serving_model(torch_nn)
+        cs.serve_int4(model, models, Q, paged_attention)
+        cs.serve_int4_f32(model, models, Q, paged_attention)
+        del model
     if "layouts" in parts or "spec" in parts:
         from lamp_tpu_torch.ops import quantization as Q
 
@@ -144,6 +149,10 @@ def main(parts) -> int:
         if "spec" in parts:
             print(cs.phase_speculative(torch_nn, models, Q, paged_attention),
                   flush=True)
+    if "layernorm" in parts:
+        from lamp_tpu_torch.ops import fused_layernorm as FL
+
+        print(cs.phase_layernorm_kernel(FL), flush=True)
     print("chip_phases: done", flush=True)
     return 0
 

@@ -66,8 +66,8 @@ VARIANTS = {
          "      af[i][0] = af[i][1] = af[i][2] = af[i][3] = 0u;\n"
          "      continue;\n"
          "      const bool on = p.s + i < p.e;")],
-    "no products": [("for (int i = 0; i < kSteps; ++i) wgmma_tc<WR>(",
-                     "for (int i = 0; i < kSteps; ++i) if (false) wgmma_tc<WR>(")],
+    "no products": [("for (int q = 0; q < kXP; ++q) wgmma_tc<WR>(",
+                     "for (int q = 0; q < kXP; ++q) if (false) wgmma_tc<WR>(")],
     "no scaling": [("    for (int i = 0; i < WR / 8; ++i) {\n"
                     "      acc[4 * i] += part[4 * i] * sv.x;",
                     "    for (int i = 0; i < 0; ++i) {\n"
@@ -75,17 +75,17 @@ VARIANTS = {
     # each pass's products issued twice (the sum is then wrong): whether a
     # pass's time follows its products' count
     "products twice": [
-        ("    for (int i = 0; i < kSteps; ++i) wgmma_tc<WR>(part, af[i], desc[i], "
-         "i > 0);\n",
-         "    for (int i = 0; i < kSteps; ++i) wgmma_tc<WR>(part, af[i], desc[i], "
-         "i > 0);\n    for (int i = 0; i < kSteps; ++i) wgmma_tc<WR>(part, "
-         "af[i], desc[i], 1);\n")],
+        ("      for (int q = 0; q < kXP; ++q) wgmma_tc<WR>(part, af[i], desc[i] "
+         "+ q * (kX >> 4), i + q > 0);\n",
+         "      for (int q = 0; q < kXP; ++q) wgmma_tc<WR>(part, af[i], desc[i] "
+         "+ q * (kX >> 4), i + q > 0);\n      for (int q = 0; q < kXP; ++q) "
+         "wgmma_tc<WR>(part, af[i], desc[i] + q * (kX >> 4), 1);\n")],
     # design choices
     "fragments after the wait": [
         ("    if (more) build(next, nxt);\n    hopper::wg_wait<0>();",
          "    hopper::wg_wait<0>();\n    if (more) build(next, nxt);")],
-    "no setmaxnreg": [("    hopper::regs_dec<40>();", ""),
-                      ("  hopper::regs_inc<232>();", "")],
+    "no setmaxnreg": [("    hopper::regs_dec<kF32 ? 120 : 40>();", ""),
+                      ("  hopper::regs_inc<kF32 ? 192 : 232>();", "")],
     "2 stages": [("  pl.stages = (kMaxSmem - 2048 - recv) / stage;",
                   "  pl.stages = 2;")],
     # a timeline: thread 0 of each block (of the first 4096) writes the

@@ -147,3 +147,38 @@ def test_plain_versions_follow_the_kernels():
     assert tfl.fused_layernorm.launches == 0  # CPU: the plain versions
     with pytest.raises(ValueError, match="weight"):
         tfl.fused_layernorm(torch.tensor(x), torch.tensor(g[:5]), None)
+
+
+@pytest.mark.parametrize("n", [1, 7, 3072, 8192])
+@pytest.mark.parametrize("d", [8, 100, 768, 1024, 8192])
+def test_backward_plan_covers_every_row_and_column_once(n, d):
+    """The CUDA backward's plan (ops/fused_layernorm.py:_bwd_plan, as the
+    kernel cuts it): two blocks an SM at most and none without rows; block
+    b's contiguous band [b n / B, (b + 1) n / B) with warp w taking its
+    rows w, w + 8, ... covers every row once; each lane's columns c0 + V
+    lane + 32 V j + e of every window cover every column once, at 16-byte
+    loads of bf16 (V = 8, 3 chunks a lane up to 768 columns, else 4:
+    windows of 1024) and f32 (V = 4, 6 chunks: 768) and one value a load
+    (V = 1, 24 chunks: 768); above the narrowest window the rows' m1, m2 go
+    through the workspace."""
+    blocks = tfl._bwd_plan(n, 132)
+    assert 1 <= blocks <= min(264, n)
+    rows = np.zeros(n, int)
+    for start, end in tfl._bwd_bands(n, blocks):
+        assert start < end
+        for warp in range(8):
+            rows[start + warp:end:8] += 1
+    assert (rows == 1).all()
+    for v, chunks in ((8, 3 if d <= 768 else 4), (4, 6), (1, 24)):
+        if d % v:
+            continue
+        window = 32 * v * chunks
+        assert window >= tfl._HELD
+        cols = np.zeros(d, int)
+        for c0 in range(0, d, window):
+            for lane in range(32):
+                for j in range(chunks):
+                    c = c0 + v * lane + 32 * v * j
+                    if c < d:
+                        cols[c:c + v] += 1
+        assert (cols == 1).all()

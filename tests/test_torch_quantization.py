@@ -379,3 +379,85 @@ def test_quantize_model_rejects_other_bits_and_keeps_the_original():
     assert tq.QuantizedLinear.__tags__["w_q"] == "QuantizedLinear.weight"
     assert tq.QuantizedLinearInt4.__tags__["w_packed"] == \
         "QuantizedLinearInt4.weight"
+
+
+def test_split_f32_to_bf16x3_adds_back_bit_for_bit():
+    """f32 x splits into three bf16 parts that add back (in f32) to x bit
+    for bit: seeded normals at exponents 2^-100 to 2^100, signed zeros, and
+    values at bf16 rounding ties (the low 16 bits 0x8000) and one step past
+    them, as the K7 kernels split f32 x on the card."""
+    rng = np.random.RandomState(11)
+    normals = rng.randn(4096).astype(np.float32) * np.exp2(
+        rng.randint(-100, 101, 4096)).astype(np.float32)
+    bits = rng.randint(0, 1 << 16, 512).astype(np.uint32) << 16
+    ties = np.concatenate([bits | 0x8000, bits | 0x8001, bits | 0x7FFF,
+                           (bits | 0x8000) | 0x80000000]).view(np.float32)
+    ties = ties[np.isfinite(ties) & (np.abs(ties) < 3e38)
+                & (np.abs(ties) > 2.0 ** -100)]
+    x = torch.from_numpy(np.concatenate(
+        [normals, ties, np.float32([0.0, -0.0])]))
+    hi, mid, lo = tq.split_f32_to_bf16x3(x)
+    assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+    back = hi.float() + mid.float() + lo.float()
+    assert torch.equal(back.view(torch.int32), x.view(torch.int32))
+    # each part is the rounding of what the ones before it left
+    assert torch.equal(hi, x.bfloat16())
+    assert torch.equal(mid, (x - hi.float()).bfloat16())
+
+
+# the serving configuration's matmuls (K, g) cut to narrow N
+@pytest.mark.parametrize("k,n", [(768, 40), (2048, 24), (768, 72)])
+def test_reference_over_the_three_parts_equals_f32_x(k, n):
+    """int4_matmul_reference over hi, mid and lo, summed, equals it over the
+    f32 x within 1e-6 relative: the kernels' three products are the plain
+    version's f32 product, summed in another order."""
+    rng = np.random.RandomState(k + n)
+    p, s = tq.quantize_int4(torch.from_numpy(
+        (rng.randn(k, n) * k ** -0.5).astype(np.float32)),
+        group_size=tq.int4_group_size(k))
+    x = torch.from_numpy((rng.randn(32, k) * 3).astype(np.float32))
+    want = tq.int4_matmul_reference(x, p, s)
+    got = sum(tq.int4_matmul_reference(part, p, s)
+              for part in tq.split_f32_to_bf16x3(x))
+    assert float((got - want).norm() / want.norm()) < 1e-6
+    # one part alone reads far above that: the chip's planted fault
+    one = tq.int4_matmul_reference(x.bfloat16(), p, s)
+    assert float((one - want).norm() / want.norm()) > 1e-4
+
+
+# (M, N, K/2, g, xs): f32 x (xs 4) at the decode rows and above, bf16 x
+# (xs 2) beside it, groups that are not a multiple of 16, odd N at M > 64
+@pytest.mark.parametrize("m,n,k2,g,xs", [
+    (32, 1280, 384, 128, 4), (1, 32000, 384, 128, 4), (64, 768, 1024, 128, 4),
+    (64, 1024, 4096, 128, 4), (128, 1280, 384, 128, 4),
+    (160, 2048, 384, 128, 4), (3072, 32000, 384, 128, 4),
+    (128, 50257, 384, 128, 4), (32, 1280, 384, 8, 4), (32, 1280, 384, 8, 2),
+    (128, 50257, 384, 128, 2), (32, 50257, 384, 128, 2),
+    (3072, 1280, 384, 128, 2)])
+def test_route_plan_puts_f32_x_on_the_tensor_cores(monkeypatch, m, n, k2, g,
+                                                   xs):
+    """K7's routing (ops/quantization.py:_route_plan): groups of a multiple
+    of 16 run on the tensor cores in f32 x as in bf16 x (the decode plan at
+    M <= 64, whose shared memory holds x's f32 stage; the row-tiled plan
+    above, 128 columns by 64 rows for f32 x, unsplit above 256 rows); groups
+    of 8 and an odd N above 64 rows take the scalar route (0, 0, 0)."""
+    monkeypatch.setattr(tq, "_sm_count", lambda index: 132)
+    plan = tq._route_plan(m, n, k2, g, xs, True, torch.device("cuda", 0))
+    if g % 16 or (m > 64 and n % 4):
+        assert plan == (0, 0, 0)
+        return
+    tile, cluster, rows = plan
+    steps = k2 // 16
+    assert 1 <= cluster <= min(8, steps)
+    if m <= 64:
+        assert tile in (32, 64, 128) and rows % 16 == 0
+        assert tq._int4_decode_smem(tile, 8 * -(-m // 8), k2, g, cluster,
+                                    rows, xs) <= tq._MAX_SMEM
+    elif xs == 4:
+        assert (tile, rows) == (128, 64)
+        assert m <= 256 or cluster == 1
+        tiles = -(-n // 128) * -(-min(m, 257) // 64)
+        assert cluster <= max(1, -(-66 // tiles))
+    assert tq._route_plan(m, n, k2, g, xs, False,
+                          torch.device("cuda", 0)) == (
+        plan if m <= 64 else (0, 0, 0))
