@@ -574,6 +574,9 @@ K4_ODD = ((65,), (131073,), (3, 5, 7))
 # plain dw with one block's band of rows dropped) must read above the limit
 # in every check, and two backward calls give the same bits.
 K5_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-3}
+# the forward's mu and rstd against the plain version's, per row (mu
+# relative to the row's mean |x|): both sum in f32 in other orders
+K5_STATS = 1e-5
 K5_SHAPES = ((3072, 768), (8192, 768))  # B.T of a flagship micro-batch
 K5_SMALL = ((15, 256), (8, 100), (40, 8192))
 
@@ -2952,17 +2955,147 @@ def phase_quant_kernels(Q):
           f"{k7_f32['library_ms'] * 1e3:.1f} us", flush=True)
     check_int8_matmul(Q, gen)
 
-    # K8 is on no path of the port: this phase drives it directly, and its
-    # launch count is this drive's
+    k8 = phase_k8(Q, gen)
+    return k7, k7_f32, k7_scalar, k8
+
+
+def k8_plain_rows(Q, x, seed, row0):
+    """quantize_int8_stochastic_reference's arithmetic on the rows x of a
+    larger tensor that start at row ``row0``: the words of their own flat
+    indices (``Q._random_words`` from row0 * K)."""
+    m, k = x.shape
+    xf = x.float()
+    scale = Q._div(torch.clamp(xf.abs().amax(dim=1, keepdim=True), min=1e-8),
+                   127.0)
+    scaled = torch.clamp(xf / scale, -127.0, 127.0)
+    words = Q._random_words(seed, m * k, x.device, start=row0 * k).reshape(
+        m, k)
+    u = (words >> 8).float() * (1.0 / (1 << 24))
+    floor = torch.floor(scaled)
+    return (floor + (u < (scaled - floor)).float()).to(torch.int8), scale
+
+
+def k8_edge_rows(k, dtype, gen):
+    """Rows of width k that test K8's edges: zeros; subnormals of the dtype
+    (with one zero); absmax at the 1e-8 clamp, and below it; +-bf16's
+    largest finite value among N(0, 1) values; one element 1e6 above
+    N(0, 1) values; then 4 rows of N(0, 3)."""
+    dev = torch.device("cuda")
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    tiny = torch.finfo(dtype).smallest_normal
+    big = torch.finfo(torch.bfloat16).max
+    rows = [torch.zeros(k, device=dev),
+            randn(k).sign() * tiny * torch.rand(k, generator=gen, device=dev),
+            randn(k).clamp(-1, 1) * 1e-8, randn(k).clamp(-1, 1) * 5e-9,
+            randn(k), randn(k)]
+    rows[1][0] = 0.0
+    rows[2][1] = 1e-8
+    rows[4][3], rows[4][k // 2] = big, -big
+    rows[5][k - 1] = 1e6
+    return torch.cat([torch.stack(rows), randn(4, k) * 3]).to(dtype)
+
+
+# K8's widths beyond K8_SHAPES: the bf16 rows held in registers (3072),
+# wider rows by windows (4104; f32 above 1536), odd widths on the one-value
+# path in registers (765) and by windows (3071)
+K8_EDGE_K = (3072, 4104, 3071, 765)
+# a tensor whose flat index crosses 2^32 (1398101.33 rows of 3072): the
+# rows on both sides of it are held bit for bit (12.9 GB on the card)
+K8_WIDE = (1_398_104, 3072)
+
+
+def phase_k8(Q, gen):
+    """K8 against its plain version bit for bit (values and scales): at
+    K8_SHAPES, on its edge rows in bf16 and f32 at K8_EDGE_K, at bytes
+    that the kernel redoes (u = 0 at a tiny quotient; u within 2^-17 of 0
+    or 1 at a quotient past 127), and on the rows either side of flat index
+    2^32 of a K8_WIDE tensor; its
+    unbiasedness; its device time at K8_SHAPES. K8 is on no path of the
+    port: its launches are this drive's (K8_SHAPES' and the edges')."""
+    dev = torch.device("cuda")
+
+    def same(what, got, want):
+        (vals, scales), (rv, rs) = got, want
+        if not (torch.equal(vals, rv) and torch.equal(scales, rs)):
+            raise AssertionError(
+                f"quantize_int8_stochastic {what}: "
+                f"{int((vals != rv).sum())} values and "
+                f"{int((scales != rs).sum())} scales differ from the plain "
+                f"version")
+
     reset_launch_counts()
     driven = {}
     for m, k in K8_SHAPES:
         x = torch.randn(m, k, generator=gen, device=dev).bfloat16()
-        driven[(m, k)] = (x, Q.quantize_int8_stochastic(x, seed=1))
+        driven[(m, k)] = x
+        same(f"[{m}, {k}]", Q.quantize_int8_stochastic(x, seed=1),
+             Q.quantize_int8_stochastic_reference(x, seed=1))
+    for dtype in (torch.bfloat16, torch.float32):
+        for k in K8_EDGE_K:
+            x = k8_edge_rows(k, dtype, gen)
+            same(f"edge rows K={k} {dtype}",
+                 Q.quantize_int8_stochastic(x, seed=7),
+                 Q.quantize_int8_stochastic_reference(x, seed=7))
+    launches = Q.quantize_int8_stochastic.launches
+    print(f"  quantize_int8_stochastic: bit for bit at {list(K8_SHAPES)} and "
+          f"on the edge rows (zeros, subnormals, absmax at and below 1e-8, "
+          f"+-{torch.finfo(torch.bfloat16).max:.4e}, one element 1e6) at "
+          f"K={list(K8_EDGE_K)} in bf16 and f32", flush=True)
+
+    # the redo (csrc/quantize_int8.cu): a byte whose u lies within 2^-16 of
+    # 0 or 1 is redone by the plain arithmetic. Held at the first flat index
+    # whose u = 0, in a row of quotients under 2^-64 (bf16's largest value
+    # among +-2e-8s: subnormal quotients; its byte 1, the IEEE quotient being
+    # above 0), and at the first 8 indices with u < 2^-17 (u > 1 - 2^-17)
+    # holding their row's absmax 1.0625 (-1.0625), whose quotient lies
+    # 2^-17 past 127 (byte 127, -127: the clip)
+    k, seed = 3072, 11
+    m24 = Q._random_words(seed, 1 << 26, dev) >> 8
+    zero = int(torch.nonzero(m24 == 0)[0])
+    low = torch.nonzero(m24 < 128).flatten()[:8]
+    high = torch.nonzero(m24 >= (1 << 24) - 128).flatten()[:8]
+    rows = max(zero, int(low.max()), int(high.max())) // k + 1
+    x = 0.1 * torch.randn(rows * k, generator=gen, device=dev)
+    x[low], x[high] = 1.0625, -1.0625
+    x = x.reshape(rows, k)
+    r, c = divmod(zero, k)
+    x[r] = 2e-8 * torch.randn(k, generator=gen, device=dev).sign()
+    x[r, c], x[r, (c + 1) % k] = 2e-8, torch.finfo(torch.bfloat16).max
+    x = x.bfloat16()
+    got = Q.quantize_int8_stochastic(x, seed=seed)
+    same(f"[{rows}, {k}] at redone bytes", got,
+         Q.quantize_int8_stochastic_reference(x, seed=seed))
+    flat = got[0].flatten()
+    if not (int(flat[zero]) == 1 and bool((flat[low] == 127).all())
+            and bool((flat[high] == -127).all())):
+        raise AssertionError("quantize_int8_stochastic: a redone byte is not "
+                             "the one its input was made for")
+    print(f"  quantize_int8_stochastic: redone bytes bit for bit (u = 0 at a "
+          f"subnormal quotient, row {r}; u within 2^-17 of 0 or 1 at 8 + 8 "
+          f"quotients 2^-17 past 127)", flush=True)
+    del x, got, m24
+
+    m, k = K8_WIDE
+    x = torch.empty(m, k, dtype=torch.bfloat16, device=dev)
+    x.normal_(generator=gen)
+    vals, scales = Q.quantize_int8_stochastic(x, seed=3)
+    row = (1 << 32) // k
+    rows = slice(row - 1, min(m, row + 2))
+    same(f"[{m}, {k}] rows {row - 1}-{rows.stop - 1} (flat index 2^32 in row "
+         f"{row}, column {(1 << 32) - row * k})",
+         (vals[rows], scales[rows]), k8_plain_rows(Q, x[rows], 3, rows.start))
+    print(f"  quantize_int8_stochastic [{m}, {k}] bf16: rows {rows.start}-"
+          f"{rows.stop - 1}, either side of flat index 2^32, bit for bit",
+          flush=True)
+    del x, vals, scales
+    torch.cuda.empty_cache()
+
     anchor = torch.cat([torch.ones(512, 1, device=dev),
                         torch.full((512, 127), 0.3, device=dev)], dim=1)
     vals, scales = Q.quantize_int8_stochastic(anchor, seed=1)
-    launches = Q.quantize_int8_stochastic.launches
     v = vals[:, 1:].cpu().numpy()
     mean = float((v.astype(np.float32) * scales.cpu().numpy()).mean())
     print(f"  quantize_int8_stochastic: payload 0.3 -> codes "
@@ -2970,29 +3103,25 @@ def phase_quant_kernels(Q):
     if not set(np.unique(v).tolist()) <= {38, 39} or \
             abs(mean - 0.3) > 0.005 * 0.3:
         raise AssertionError("quantize_int8_stochastic is biased")
-    k8 = None
-    for (m, k), (x, (vals, scales)) in driven.items():
-        rv, rs = Q.quantize_int8_stochastic_reference(x, seed=1)
-        if not (torch.equal(vals, rv) and torch.equal(scales, rs)):
-            raise AssertionError(
-                f"quantize_int8_stochastic [{m}, {k}]: "
-                f"{int((vals != rv).sum())} values and "
-                f"{int((scales != rs).sum())} scales differ from the plain "
-                f"version")
+    times = {}
+    for (m, k), x in driven.items():
         ms = _kernel_ms(device_ms(
             lambda: Q.quantize_int8_stochastic(x, seed=2), 20),
             "quantize_int8_stochastic_kernel")
+        events = graph_ms(lambda i: Q.quantize_int8_stochastic(x, seed=i))
         plain = sum(device_ms(lambda: Q.quantize_int8_stochastic_reference(
             x, seed=2), 5).values())
         bound = (m * k * 2 + m * k + m * 4) / PEAK_BYTES * 1e3
-        print(f"  quantize_int8_stochastic [{m}, {k}] bf16: bit for bit "
-              f"equal to the plain version; {ms * 1e3:.2f} us, bound "
+        print(f"  quantize_int8_stochastic [{m}, {k}] bf16: {ms * 1e3:.2f} us "
+              f"(CUDA events over a graph {events * 1e3:.2f}), bound "
               f"{bound * 1e3:.2f} us (bytes), plain {plain * 1e3:.2f} us",
               flush=True)
-        k8 = dict(max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bound,
-                  bound_by="bytes", library_ms=None, launches=launches,
-                  shape=[m, k])
-    return k7, k7_f32, k7_scalar, k8
+        times[f"{m}x{k}"] = dict(ms=ms, events_ms=events, plain_ms=plain,
+                                 bound_ms=bound)
+    m, k = K8_SHAPES[-1]
+    return dict(times.pop(f"{m}x{k}"), max_abs_err=0.0, bound_by="bytes",
+                library_ms=None, launches=launches, shape=[m, k],
+                per_shape=times)
 
 
 class _RowMix(torch.nn.Module):
@@ -3541,32 +3670,44 @@ def phase_adamw_kernel(torch_nn, optim, FA):
                 library_ms=None, replaced_ms=replaced_ms)
 
 
-def check_layernorm(FL, n, d, dtype, bias, gen):
+def check_layernorm(FL, n, d, dtype, bias, gen, param_dtype=None):
     """fused_layernorm's forward and backward (autograd) against the plain
     versions at [n, d], by relative Frobenius error of y, dx, dw and db in
-    their dtypes; the plain dw with one block's band of rows dropped must
-    read above the limit; two backward calls give the same bits. Returns
-    ({output: max abs err}, largest relative error, the planted fault's
-    reading)."""
+    their dtypes (w and b in ``param_dtype``, x's by default); the forward's
+    mu and rstd per row within K5_STATS of the plain version's (mu relative
+    to the row's mean |x|); the plain y with one block's band of rows given
+    9/8 of their rstd, and the plain dw with that band dropped, must read
+    above the limit; two backward calls give the same
+    bits. Returns ({output: max abs err}, largest relative error, the
+    smaller planted fault's reading)."""
     dev = torch.device("cuda")
 
-    def randn(*shape, scale=1.0, shift=0.0):
+    def randn(*shape, scale=1.0, shift=0.0, dt=dtype):
         return (torch.randn(shape, generator=gen, device=dev) * scale
-                + shift).to(dtype)
+                + shift).to(dt)
 
-    x, w = randn(n, d, scale=3.0, shift=1.0), randn(d, scale=0.5, shift=1.0)
-    b = randn(d, scale=0.1) if bias else None
+    pdt = param_dtype or dtype
+    x = randn(n, d, scale=3.0, shift=1.0)
+    w = randn(d, scale=0.5, shift=1.0, dt=pdt)
+    b = randn(d, scale=0.1, dt=pdt) if bias else None
     dy = randn(n, d)
+    _, mu_k, rs_k = FL._fwd_cuda(x, w, b, 1e-5)
+    y_ref, mu, rs = FL.fused_layernorm_reference(x, w, b)
+    mean_abs = x.float().abs().mean(dim=1)
+    stats = max(float(((mu_k - mu).abs() / mean_abs).max()),
+                float(((rs_k - rs).abs() / rs).max()))
+    if not stats <= K5_STATS:
+        raise AssertionError(f"fused_layernorm [{n}, {d}] {dtype}: mu or "
+                             f"rstd off by {stats:.3e} > {K5_STATS:.0e}")
     leaves = [t.clone().requires_grad_() for t in (x, w, b) if t is not None]
     y = FL.fused_layernorm(*leaves, *([] if bias else [None]))
     y.backward(dy)
-    y_ref, mu, rs = FL.fused_layernorm_reference(x, w, b)
     dx_ref, dw_ref, db_ref = FL.fused_layernorm_backward_reference(
         x, dy, w, mu, rs)
     outs = [("y", y, y_ref), ("dx", leaves[0].grad, dx_ref),
-            ("dw", leaves[1].grad, dw_ref.to(dtype))]
+            ("dw", leaves[1].grad, dw_ref.to(pdt))]
     if bias:
-        outs.append(("db", leaves[2].grad, db_ref.to(dtype)))
+        outs.append(("db", leaves[2].grad, db_ref.to(pdt)))
     tol = K5_TOL[dtype]
     errs, rels = {}, []
     for what, got, want in outs:
@@ -3576,32 +3717,40 @@ def check_layernorm(FL, n, d, dtype, bias, gen):
                                  f"{what}: error {rel:.3e} > {tol:.0e}")
         errs[what] = float((got.float() - want.float()).abs().max())
         rels.append(rel)
-    blocks = FL._bwd_blocks(n, dev)
-    start, end = FL._bwd_bands(n, blocks)[min(1, blocks - 1)]  # the second
+    blocks = FL._blocks(n, dev)
+    start, end = FL._bands(n, blocks)[min(1, blocks - 1)]  # the second
     band = slice(start, end)
     yhat = (x.float() - mu[:, None]) * rs[:, None]
     faulty = dw_ref - (dy.float()[band] * yhat[band]).sum(0)
-    fault = rel_err(faulty.to(dtype), dw_ref.to(dtype))
+    fault = rel_err(faulty.to(pdt), dw_ref.to(pdt))
+    rs_bad = rs.clone()
+    rs_bad[band] *= 9 / 8
+    y_bad = ((x.float() - mu[:, None]) * rs_bad[:, None] * w.float()
+             + (0.0 if b is None else b.float())).to(dtype)
+    fault = min(fault, rel_err(y_bad, y_ref))
     if not fault > tol:
-        raise AssertionError(f"fused_layernorm [{n}, {d}] {dtype}: the "
+        raise AssertionError(f"fused_layernorm [{n}, {d}] {dtype}: a "
                              f"planted fault reads {fault:.3e}, within "
                              f"{tol:.0e}")
     once, again = (FL._bwd_cuda(x, dy, w, mu, rs) for _ in range(2))
     if not all(torch.equal(_bits(a), _bits(b)) for a, b in zip(once, again)):
         raise AssertionError(f"fused_layernorm [{n}, {d}] {dtype}: two "
                              f"backward calls differ")
-    print(f"  fused_layernorm [{n}, {d}] {str(dtype)[6:]:8} bias={bias!s:5}:"
-          f" relative error y/dx/dw{'/db' if bias else ''} "
-          f"{' '.join(f'{e:.2e}' for e in rels)}; planted fault "
-          f"{fault:.2e} ({blocks} blocks); two backward calls bit for bit",
-          flush=True)
+    print(f"  fused_layernorm [{n}, {d}] {str(dtype)[6:]:8} bias={bias!s:5}"
+          f"{'' if pdt == dtype else ' w, b ' + str(pdt)[6:]}: relative "
+          f"error y/dx/dw{'/db' if bias else ''} "
+          f"{' '.join(f'{e:.2e}' for e in rels)}; mu, rstd {stats:.2e}; "
+          f"planted faults >= {fault:.2e} ({blocks} blocks); two backward "
+          f"calls bit for bit", flush=True)
     return errs, max(rels), fault
 
 
 def time_layernorm(FL, n, d, gen):
     """Device times (ms) of K5a and K5b (both its kernels) at [n, d] bf16
-    with bias, their plain versions, F.layer_norm forward and its autograd
-    backward, and the bounds."""
+    with bias (bf16 w and b), their plain versions, F.layer_norm forward
+    and its autograd backward, and the bounds; for the forward also the
+    whole call (fused_layernorm: every kernel it launches) and, by CUDA
+    events over a graph of calls, the kernel's wrapper and F.layer_norm."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -3620,6 +3769,9 @@ def time_layernorm(FL, n, d, gen):
         x, dy, w, mu, rs), 10).values())
     lib_fwd = sum(device_ms(lambda: F.layer_norm(x, (d,), w, b, 1e-5),
                             50).values())
+    call_fwd = sum(device_ms(lambda: FL.fused_layernorm(x, w, b), 50).values())
+    events_fwd = graph_ms(lambda i: FL._fwd_cuda(x, w, b, 1e-5))
+    events_lib = graph_ms(lambda i: F.layer_norm(x, (d,), w, b, 1e-5))
     xl, wl, bl = (t.clone().requires_grad_() for t in (x, w, b))
     yl = F.layer_norm(xl, (d,), wl, bl, 1e-5)
     lib_bwd = sum(device_ms(lambda: torch.autograd.grad(
@@ -3636,7 +3788,9 @@ def time_layernorm(FL, n, d, gen):
         bounds[what] = (max(by, fl) * 1e3,
                         "bytes" if by >= fl else "operations")
     out = {"fwd": dict(ms=fwd, plain_ms=plain_fwd, library_ms=lib_fwd,
-                       bound_ms=bounds["fwd"][0], bound_by=bounds["fwd"][1]),
+                       bound_ms=bounds["fwd"][0], bound_by=bounds["fwd"][1],
+                       call_ms=call_fwd, events_ms=events_fwd,
+                       library_events_ms=events_lib),
            "bwd": dict(ms=bwd, plain_ms=plain_bwd, library_ms=lib_bwd,
                        bound_ms=bounds["bwd"][0], bound_by=bounds["bwd"][1])}
     for what, r in out.items():
@@ -3645,6 +3799,11 @@ def time_layernorm(FL, n, d, gen):
               f"plain {r['plain_ms'] * 1e3:.2f} us, F.layer_norm "
               f"{'forward' if what == 'fwd' else 'autograd backward'} "
               f"{r['library_ms'] * 1e3:.2f} us", flush=True)
+    r = out["fwd"]
+    print(f"  fused_layernorm fwd [{n}, {d}] bf16: the whole call "
+          f"{r['call_ms'] * 1e3:.2f} us by the profiler; CUDA events over a "
+          f"graph: the kernel {r['events_ms'] * 1e3:.2f} us, F.layer_norm "
+          f"{r['library_events_ms'] * 1e3:.2f} us", flush=True)
     return out
 
 
@@ -3661,11 +3820,14 @@ def phase_layernorm_kernel(FL):
     cases += [(n, d, dtype, True) for n, d in K5_SMALL
               for dtype in (torch.bfloat16, torch.float32)]
     cases.append((8, 100, torch.float32, False))
+    # bf16 x with f32 w and b (the forward reads each in its own dtype)
+    cases += [(n, d, torch.bfloat16, True, torch.float32)
+              for n, d in (K5_SHAPES[0], K5_SMALL[1])]
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
     least_fault = math.inf
     path_err = {"fwd": 0.0, "bwd": 0.0}
-    for n, d, dtype, bias in cases:
-        errs, rel, fault = check_layernorm(FL, n, d, dtype, bias, gen)
+    for n, d, dtype, bias, *pdt in cases:
+        errs, rel, fault = check_layernorm(FL, n, d, dtype, bias, gen, *pdt)
         worst[dtype] = max(worst[dtype], rel)
         least_fault = min(least_fault, fault)
         if (n, d) in K5_SHAPES and dtype == torch.bfloat16:
@@ -4310,7 +4472,12 @@ def main() -> int:
                replaces="lamp_tpu/ops/quantization.py:123", **k8)
     row = {k: row[k] for k in keys}
     row["note"] = (f"on no path of the port: launches are phase 6's direct "
-                   f"drive; times at {k8['shape']} bf16")
+                   f"drive (K8_SHAPES and the edge rows); times at "
+                   f"{k8['shape']} bf16 by the profiler (events_ms: CUDA "
+                   f"events over a graph of {GRAPH_CALLS} calls); per_shape: "
+                   f"the other shape of K8_SHAPES")
+    row["events_ms"] = k8["events_ms"]
+    row["per_shape"] = k8["per_shape"]
     rows.append(row)
     row = dict(name="fused_adamw", route="cuda",
                source="lamp_tpu_torch/csrc/fused_adamw.cu",
@@ -4334,7 +4501,13 @@ def main() -> int:
             "on no path of the port: launches are phase 8's direct drive; "
             "times at [3072, 768] bf16 with bias (per_shape: [8192, 768]); "
             "library: F.layer_norm " + ("forward" if what == "fwd" else
-                                        "autograd backward (dx, dw, db)"))
+                                        "autograd backward (dx, dw, db)")
+            + ("; call_ms: the whole fused_layernorm call (bf16 w and b, "
+               "read as they are); events_ms and library_events_ms: CUDA "
+               "events over a graph of calls" if what == "fwd" else ""))
+        for key in ("call_ms", "events_ms", "library_events_ms"):
+            if key in k5[what]:
+                row[key] = k5[what][key]
         row["per_shape"] = k5[what]["per_shape"]
         rows.append(row)
     print(json.dumps({"kernels": rows}))

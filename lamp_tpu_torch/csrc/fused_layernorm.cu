@@ -2,8 +2,9 @@
 // (sm_90a).
 //
 // Replaces lamp_tpu/ops/fused_layernorm.py:_fwd_kernel (K5a) and
-// _bwd_kernel (K5b). x [N, D] in f32 or bf16; weight and bias [D] f32 (the
-// wrapper casts them); statistics in f32.
+// _bwd_kernel (K5b). x [N, D] in f32 or bf16; the forward reads weight and
+// bias [D] in their own dtype (f32 or bf16), the backward weight as f32 (the
+// wrapper casts it); statistics in f32.
 //
 //   forward:  mu = sum(x) / D;  var = sum((x - mu)^2) / D;  rs = rsqrt(var + eps)
 //             y = (x - mu) rs w (+ b) in x's dtype; mu, rs [N] f32 saved
@@ -15,24 +16,31 @@
 //
 // What bounds them: bytes. The forward reads x once and writes y (plus 8
 // bytes a row), the backward reads x and dy and writes dx; a few flops per
-// byte. The forward gives each row to one warp: a lane keeps up to 32 of its
-// row's values in registers (the whole row for D <= 1024) and re-reads the
-// rest from L1 for the three passes (mean, variance, output).
+// byte. Both take a grid of blocks over contiguous bands of rows
+// (ops/fused_layernorm.py:_bwd_plan, _fwd_plan), a warp a row at a time; its
+// lanes take 16-byte loads (8 bf16 or 4 f32: V values) at columns V lane +
+// 32 V j, so a lane owns the same columns in every row.
 //
-// The backward reads x and dy once from memory. A warp owns a row at a
-// time; its lanes take 16-byte loads (8 bf16 or 4 f32: V values) at
-// columns V lane + 32 V j, so a lane owns the same columns in every row,
-// and for D up to a window (bf16: 768 columns with the next row's loads in
-// flight under this row's sums, else 1024; f32: 768) the row stays in its
-// registers as read: m1 and m2 come from warp shuffles, then dx is written
-// with 16-byte stores, and the lane's dw and db partials for its columns
-// stay in registers across every row the warp takes. A lane's row and
-// partials take at most 96 registers, so that two blocks fit an SM. Rows
-// that are not 16-byte multiples, or not 16-byte aligned, take the same
-// loop with one value a load (windows of 768). Above a window the row goes
-// in windows: a first pass takes every row's m1, m2 into a workspace, and
-// each window re-reads its columns (from L1 or L2), so the kernel runs at
-// every N and D.
+// The forward keeps, for rows of up to a window (bf16 768 or 1024 columns,
+// f32 768), the row as read in its registers, and w and b as floats,
+// loaded once a warp for every row it takes; the next row's loads are
+// issued before this row's two sums (mean, then variance: two dependent
+// warp reductions), and y goes back with 16-byte stores. Wider rows go by
+// windows of 32 V columns re-read from L1 or L2 for each of the three
+// passes, w and b with them. Rows that are not 16-byte multiples, or not
+// 16-byte aligned, take the same loop with one value a load.
+//
+// The backward reads x and dy once from memory. For D up to a window
+// (bf16: 768 columns with the next row's loads in flight under this row's
+// sums, else 1024; f32: 768) the row stays in its registers as read: m1
+// and m2 come from warp shuffles, then dx is written with 16-byte stores,
+// and the lane's dw and db partials for its columns stay in registers
+// across every row the warp takes. A lane's row and partials take at most
+// 96 registers, so that two blocks fit an SM. Rows that are not 16-byte
+// multiples, or not 16-byte aligned, take the same loop with one value a
+// load (windows of 768). Above a window the row goes in windows: a first
+// pass takes every row's m1, m2 into a workspace, and each window re-reads
+// its columns (from L1 or L2), so the kernel runs at every N and D.
 //
 // dw and db are sums over rows. The TPU kernel carries them across its
 // sequential grid in a revisited output block; here the grid is persistent
@@ -55,111 +63,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "pack.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kCache = 32;      // row values a lane keeps in registers
 constexpr int kReduceCols = 32;  // columns of one reduction block
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
 
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-layernorm_fwd_kernel(const T* __restrict__ x, const float* __restrict__ w,
-                     const float* __restrict__ b, T* __restrict__ y, float* __restrict__ mu_out,
-                     float* __restrict__ rs_out, int n, int d, float eps) {
-  const int lane = threadIdx.x % 32;
-  const int row = blockIdx.x * kWarps + threadIdx.x / 32;
-  if (row >= n) return;
-  const T* xr = x + (long long)row * d;
-  T* yr = y + (long long)row * d;
-
-  float c[kCache];
-  float sum = 0.f;
-#pragma unroll
-  for (int k = 0; k < kCache; ++k) {
-    const int col = lane + 32 * k;
-    c[k] = col < d ? to_float(xr[col]) : 0.f;
-    sum += c[k];
-  }
-  for (int col = lane + 32 * kCache; col < d; col += 32) sum += to_float(xr[col]);
-  const float mu = __fdiv_rn(warp_sum(sum), (float)d);
-
-  float sq = 0.f;
-#pragma unroll
-  for (int k = 0; k < kCache; ++k) {
-    const float t = c[k] - mu;
-    if (lane + 32 * k < d) sq += t * t;
-  }
-  for (int col = lane + 32 * kCache; col < d; col += 32) {
-    const float t = to_float(xr[col]) - mu;
-    sq += t * t;
-  }
-  const float rs = rsqrtf(__fdiv_rn(warp_sum(sq), (float)d) + eps);
-
-#pragma unroll
-  for (int k = 0; k < kCache; ++k) {
-    const int col = lane + 32 * k;
-    if (col < d) {
-      float v = (c[k] - mu) * rs * w[col];
-      if (b != nullptr) v += b[col];
-      yr[col] = from_float<T>(v);
-    }
-  }
-  for (int col = lane + 32 * kCache; col < d; col += 32) {
-    float v = (to_float(xr[col]) - mu) * rs * w[col];
-    if (b != nullptr) v += b[col];
-    yr[col] = from_float<T>(v);
-  }
-  if (lane == 0) {
-    mu_out[row] = mu;
-    rs_out[row] = rs;
-  }
-}
-
-// V values of T as they lie in memory (16 bytes for V > 1; one value for V =
-// 1), held in 32-bit registers and turned into floats where used
-template <typename T, int V>
-struct Pack {
-  static constexpr int kRegs = V > 1 ? 4 : 1;
-  uint32_t r[kRegs];
-  __device__ __forceinline__ void load(const T* p) {
-    if constexpr (V > 1) {
-      const uint4 a = *reinterpret_cast<const uint4*>(p);
-      r[0] = a.x, r[1] = a.y, r[2] = a.z, r[3] = a.w;
-    } else if constexpr (sizeof(T) == 4) {
-      r[0] = __float_as_uint(*reinterpret_cast<const float*>(p));
-    } else {
-      r[0] = *reinterpret_cast<const unsigned short*>(p);
-    }
-  }
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int i = 0; i < kRegs; ++i) r[i] = 0u;
-  }
-  __device__ __forceinline__ float operator[](int e) const {  // e a constant after unrolling
-    if constexpr (sizeof(T) == 4) return __uint_as_float(r[e]);
-    const uint32_t w = r[e / 2];
-    return __uint_as_float(e % 2 ? w & 0xFFFF0000u : w << 16);
-  }
-};
 
 template <int V>
 __device__ __forceinline__ void store_v(float* p, const float (&v)[V]) {
@@ -196,6 +112,158 @@ __device__ __forceinline__ void load_w(const float* p, float (&v)[V]) {
     }
   } else {
     v[0] = *p;
+  }
+}
+
+// V floats of a parameter (f32, or bf16 where `bf16`) at its column c
+// (16-byte loads for V > 1; 8 bytes for V = 4 in bf16)
+template <int V>
+__device__ __forceinline__ void load_param(const void* p, bool bf16, int c, float (&v)[V]) {
+  if (!bf16) {
+    load_w<V>(static_cast<const float*>(p) + c, v);
+    return;
+  }
+  const __nv_bfloat16* q = static_cast<const __nv_bfloat16*>(p) + c;
+  if constexpr (V == 8) {
+    Pack<__nv_bfloat16, 8> a;
+    a.load(q);
+#pragma unroll
+    for (int e = 0; e < V; ++e) v[e] = a[e];
+  } else if constexpr (V == 4) {
+    const uint2 a = *reinterpret_cast<const uint2*>(q);
+    v[0] = __uint_as_float(a.x << 16), v[1] = __uint_as_float(a.x & 0xFFFF0000u);
+    v[2] = __uint_as_float(a.y << 16), v[3] = __uint_as_float(a.y & 0xFFFF0000u);
+  } else {
+    v[0] = __bfloat162float(*q);
+  }
+}
+
+// x [n, d] T -> y [n, d] T, mu and rstd [n] f32; w [d] and b [d] (b may be
+// null) f32 or bf16 (wb: bit 0 set where w is bf16, bit 1 where b is). Block
+// b of `blocks` takes the rows [b n / blocks, (b + 1) n / blocks), its warp w
+// the rows w, w + 8, ... of that band. For d <= W = 32 V CH, lane l holds the
+// columns V l + 32 V j (j < CH): the row as read, w and b as floats (loaded
+// once a warp), and with PF the next row, whose loads are issued before this
+// row's sums. Wider rows go by windows of 32 V columns, each pass re-reading
+// them (from L1 or L2), w and b with the last.
+template <typename T, int V, int CH, bool PF>
+__global__ void __launch_bounds__(kThreads, 2)
+layernorm_fwd_kernel(const T* __restrict__ x, const void* __restrict__ w,
+                     const void* __restrict__ b, T* __restrict__ y, float* __restrict__ mu_out,
+                     float* __restrict__ rs_out, int n, int d, float eps, int blocks, int wb) {
+  constexpr int W = 32 * V * CH;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int r0 = (int)((long long)blockIdx.x * n / blocks);
+  const int r1 = (int)((long long)(blockIdx.x + 1) * n / blocks);
+  const bool w16 = wb & 1, b16 = wb & 2, bias = b != nullptr;
+  const float fd = (float)d;
+
+  if (d > W) {
+    for (int r = r0 + warp; r < r1; r += kWarps) {
+      const long long off = (long long)r * d;
+      float s = 0.f;
+      for (int c = V * lane; c < d; c += 32 * V) {
+        Pack<T, V> p;
+        p.load(x + off + c);
+#pragma unroll
+        for (int e = 0; e < V; ++e) s += p[e];
+      }
+      const float mu = __fdiv_rn(warp_sum(s), fd);
+      float q = 0.f;
+      for (int c = V * lane; c < d; c += 32 * V) {
+        Pack<T, V> p;
+        p.load(x + off + c);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const float t = p[e] - mu;
+          q += t * t;
+        }
+      }
+      const float rs = rsqrtf(__fdiv_rn(warp_sum(q), fd) + eps);
+      for (int c = V * lane; c < d; c += 32 * V) {
+        Pack<T, V> p;
+        p.load(x + off + c);
+        float wv[V], bv[V], o[V];
+        load_param<V>(w, w16, c, wv);
+        if (bias) load_param<V>(b, b16, c, bv);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          o[e] = (p[e] - mu) * rs * wv[e];
+          if (bias) o[e] += bv[e];
+        }
+        store_v<V>(y + off + c, o);
+      }
+      if (lane == 0) mu_out[r] = mu, rs_out[r] = rs;
+    }
+    return;
+  }
+
+  float wv[CH][V], bv[CH][V];
+#pragma unroll
+  for (int j = 0; j < CH; ++j) {
+    const int c = V * lane + 32 * V * j;
+#pragma unroll
+    for (int e = 0; e < V; ++e) wv[j][e] = bv[j][e] = 0.f;
+    if (c < d) {
+      load_param<V>(w, w16, c, wv[j]);
+      if (bias) load_param<V>(b, b16, c, bv[j]);
+    }
+  }
+  Pack<T, V> xv[CH], xn[PF ? CH : 1];
+  auto load_row = [&](Pack<T, V>* px, int r) {
+    const long long off = (long long)r * d;
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      const int c = V * lane + 32 * V * j;
+      if (c < d)
+        px[j].load(x + off + c);
+      else
+        px[j].zero();
+    }
+  };
+  int r = r0 + warp;
+  if (PF && r < r1) load_row(xv, r);
+  for (; r < r1; r += kWarps) {
+    if constexpr (PF) {
+      if (r + kWarps < r1) load_row(xn, r + kWarps);
+    } else {
+      load_row(xv, r);
+    }
+    float s = 0.f;
+#pragma unroll
+    for (int j = 0; j < CH; ++j)
+#pragma unroll
+      for (int e = 0; e < V; ++e) s += xv[j][e];
+    const float mu = __fdiv_rn(warp_sum(s), fd);
+    float q = 0.f;
+#pragma unroll
+    for (int j = 0; j < CH; ++j)
+      if (V * lane + 32 * V * j < d)
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const float t = xv[j][e] - mu;
+          q += t * t;
+        }
+    const float rs = rsqrtf(__fdiv_rn(warp_sum(q), fd) + eps);
+    const long long off = (long long)r * d;
+#pragma unroll
+    for (int j = 0; j < CH; ++j) {
+      const int c = V * lane + 32 * V * j;
+      if (c < d) {
+        float o[V];
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          o[e] = (xv[j][e] - mu) * rs * wv[j][e];
+          if (bias) o[e] += bv[j][e];
+        }
+        store_v<V>(y + off + c, o);
+      }
+    }
+    if (lane == 0) mu_out[r] = mu, rs_out[r] = rs;
+    if constexpr (PF) {
+#pragma unroll
+      for (int j = 0; j < CH; ++j) xv[j] = xn[j];
+    }
   }
 }
 
@@ -388,12 +456,34 @@ layernorm_bwd_reduce_kernel(const float* __restrict__ part_w, const float* __res
   }
 }
 
-template <typename T>
-cudaError_t fwd(const void* x, const float* w, const float* b, void* y, float* mu, float* rs,
-                int n, int d, float eps, cudaStream_t stream) {
-  layernorm_fwd_kernel<T><<<(n + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), w, b, static_cast<T*>(y), mu, rs, n, d, eps);
+template <typename T, int V, int CH, bool PF>
+cudaError_t fwd(const void* x, const void* w, const void* b, void* y, float* mu, float* rs, int n,
+                int d, float eps, int blocks, int wb, cudaStream_t stream) {
+  layernorm_fwd_kernel<T, V, CH, PF><<<blocks, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), w, b, static_cast<T*>(y), mu, rs, n, d, eps, blocks, wb);
   return cudaGetLastError();
+}
+
+// 16-byte loads where every row, w and b start 16-byte aligned (bf16: 3
+// chunks a lane with the next row in flight up to 768 columns, else 4; f32:
+// 6 with the next row), else one value a load (24 a lane)
+template <typename T>
+cudaError_t fwd_launch(const void* x, const void* w, const void* b, void* y, float* mu, float* rs,
+                       int n, int d, float eps, int blocks, int wb, cudaStream_t stream) {
+  constexpr int V = 16 / sizeof(T);
+  const bool vec = (d * sizeof(T)) % 16 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(w) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  if (vec) {
+    if constexpr (V == 8) {
+      if (d <= 768) return fwd<T, V, 3, true>(x, w, b, y, mu, rs, n, d, eps, blocks, wb, stream);
+      return fwd<T, V, 4, false>(x, w, b, y, mu, rs, n, d, eps, blocks, wb, stream);
+    } else {
+      return fwd<T, V, 6, true>(x, w, b, y, mu, rs, n, d, eps, blocks, wb, stream);
+    }
+  }
+  return fwd<T, 1, 24, false>(x, w, b, y, mu, rs, n, d, eps, blocks, wb, stream);
 }
 
 template <typename T, int V, int CH, bool PF>
@@ -443,20 +533,25 @@ cudaError_t bwd_launch(const void* x, const void* dy, const float* w, const floa
 
 extern "C" {
 
-// x [n, d] contiguous (dtype 0 = float32, 1 = bfloat16); weight, bias [d]
-// float32 (bias may be null) -> y [n, d] in x's dtype, mu and rstd [n]
-// float32. Returns the cudaError_t of the launch.
+// x [n, d] contiguous (dtype 0 = float32, 1 = bfloat16); weight and bias
+// [d] in wdtype and bdtype (0 = float32, 1 = bfloat16; bias may be null) ->
+// y [n, d] in x's dtype, mu and rstd [n] float32. blocks: the grid, 1 <=
+// blocks <= max(n, 1), each over a contiguous band of rows. Returns the
+// cudaError_t of the launch.
 int lamp_layernorm_fwd(const void* x, const void* weight, const void* bias, void* y, void* mu,
-                       void* rstd, int n, int d, float eps, int dtype, void* stream) {
+                       void* rstd, int n, int d, float eps, int dtype, int wdtype, int bdtype,
+                       int blocks, void* stream) {
+  if (n < 0 || d < 0 || blocks < 1 || blocks > (n > 1 ? n : 1) || wdtype < 0 || wdtype > 1 ||
+      bdtype < 0 || bdtype > 1)
+    return cudaErrorInvalidValue;
   if (n == 0 || d == 0) return cudaSuccess;
-  if (n < 0 || d < 0) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* w = static_cast<const float*>(weight);
-  const float* b = static_cast<const float*>(bias);
   float* m = static_cast<float*>(mu);
   float* r = static_cast<float*>(rstd);
-  if (dtype == 0) return fwd<float>(x, w, b, y, m, r, n, d, eps, st);
-  if (dtype == 1) return fwd<__nv_bfloat16>(x, w, b, y, m, r, n, d, eps, st);
+  const int wb = wdtype | bdtype << 1;
+  if (dtype == 0) return fwd_launch<float>(x, weight, bias, y, m, r, n, d, eps, blocks, wb, st);
+  if (dtype == 1)
+    return fwd_launch<__nv_bfloat16>(x, weight, bias, y, m, r, n, d, eps, blocks, wb, st);
   return cudaErrorInvalidValue;
 }
 

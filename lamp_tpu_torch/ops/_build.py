@@ -145,10 +145,11 @@ def load(path: Path) -> ctypes.CDLL:
     lib.lamp_fused_adamw.argtypes = [ptr, i32, i32] + [f32] * 9 + [
         ctypes.c_uint, i32, ptr]
     lib.lamp_fused_adamw.restype = i32
-    # fused LayerNorm forward: x, weight, bias, y, mu, rstd, n, d, eps,
-    # dtype, stream; backward: x, dy, weight, mu, rstd, dx, dweight, dbias,
-    # the workspace, n, d, rows per tile, dtype, stream
-    lib.lamp_layernorm_fwd.argtypes = [ptr] * 6 + [i32, i32, f32, i32, ptr]
+    # fused LayerNorm forward: x, weight, bias, y, mu, rstd, n, d, eps, the
+    # x, weight and bias dtypes, blocks, stream; backward: x, dy, weight, mu,
+    # rstd, dx, dweight, dbias, the workspace, n, d, blocks, dtype, stream
+    lib.lamp_layernorm_fwd.argtypes = [ptr] * 6 + [i32, i32, f32] + \
+        [i32] * 4 + [ptr]
     lib.lamp_layernorm_fwd.restype = i32
     lib.lamp_layernorm_bwd.argtypes = [ptr] * 9 + [i32] * 4 + [ptr]
     lib.lamp_layernorm_bwd.restype = i32

@@ -16,12 +16,16 @@ launch the kernels or raise. Each forward launch adds one to
 ``fused_layernorm.launches`` and each backward (a kernel and its
 reduction pass) one to ``fused_layernorm.backward_launches``.
 
-The CUDA backward reads x and dy once: a warp a row, 16-byte loads, the
-row held in registers up to 1024 columns (bf16; 768 in f32), each lane's
-dw, db partials in registers across its rows; a persistent grid
-(:func:`_bwd_plan`) of blocks over contiguous bands of rows adds them in
-warp order, then in a fixed order over the blocks, so two calls give the
-same bits.
+The CUDA forward reads x once and writes y: a warp a row at a time,
+16-byte loads, the row held in registers up to 768 columns (bf16, 1024
+without the next row in flight; f32 768) with w and b (read in their own
+dtype, f32 or bf16) kept as floats across the warp's rows, the next row's
+loads issued before this row's sums. The CUDA backward reads x and dy
+once: a warp a row, 16-byte loads, the row held in registers up to 1024
+columns (bf16; 768 in f32), each lane's dw, db partials in registers
+across its rows, added in warp order, then in a fixed order over the
+blocks, so two calls give the same bits. Both run on one grid
+(:func:`_plan`) of blocks over contiguous bands of rows.
 
 **Every shape takes the kernel.** The JAX op sends shapes its TPU kernel
 cannot tile (D not a multiple of 128, or N not a multiple of 8) to a jnp
@@ -78,26 +82,33 @@ def fused_layernorm_backward_reference(x2, dy2, weight, mu, rs):
     return dx, (dy * yhat).sum(dim=0), dy.sum(dim=0)
 
 
-def _bwd_plan(n: int, sms: int) -> int:
-    """The CUDA backward's persistent grid: two blocks an SM, but no more
-    than one block for every 8 rows (a row for each of its warps), and at
-    least one. Block b takes the contiguous rows [b n / blocks, (b + 1) n /
-    blocks) (:func:`_bwd_bands`); its dw, db partial is one row of a
-    workspace [2, blocks, D]. (At [3072, 768] bf16 on an H100, 8 rows a
-    block read 11.54 us a call against 12.54 at 16, 12.03 at 32 and 16.77 at
-    64; scripts/exp_layernorm_variants.py.)"""
+def _plan(n: int, sms: int) -> int:
+    """Both CUDA kernels' grid: two blocks an SM, but no more than one block
+    for every 8 rows (a row for each of its warps), and at least one. Block
+    b takes the contiguous rows ``_bands(n, blocks)[b]``, its warp w the
+    rows w, w + 8, ... of them; the backward's dw, db partial of a block is
+    one row of a workspace [2, blocks, D]. (At [3072, 768] bf16 on an H100,
+    scripts/exp_layernorm_variants.py: the backward read 11.54 us a call at
+    8 rows a block against 12.54 at 16, 12.03 at 32 and 16.77 at 64; the
+    forward 4.84 against 5.73 at one row a warp and 4.99 at two.)"""
     return max(1, min(2 * sms, -(-n // 8)))
 
 
-def _bwd_bands(n: int, blocks: int):
-    """Each block's rows ``[start, end)``, as the kernel cuts them."""
+def _bands(n: int, blocks: int):
+    """Each block's rows ``[start, end)``, as both kernels cut them."""
     return [(b * n // blocks, (b + 1) * n // blocks) for b in range(blocks)]
 
 
-def _bwd_blocks(n: int, device) -> int:
+def _blocks(n: int, device) -> int:
     index = device.index if device.index is not None \
         else torch.cuda.current_device()
-    return _bwd_plan(n, _sm_count(index))
+    return _plan(n, _sm_count(index))
+
+
+def _param(t):
+    """w or b as the forward kernel reads them: f32 or bf16 as they are
+    (another dtype widened to f32, as the plain version does), contiguous."""
+    return (t if t.dtype in _KERNEL_DTYPES else t.float()).contiguous()
 
 
 def _stream(t):
@@ -119,12 +130,14 @@ def _fwd_cuda(x2, weight, bias, eps):
     y = torch.empty_like(x2)
     mu = torch.empty(n, dtype=torch.float32, device=x2.device)
     rs = torch.empty(n, dtype=torch.float32, device=x2.device)
-    w = weight.float().contiguous()
-    b = None if bias is None else bias.float().contiguous()
+    w = _param(weight)
+    b = None if bias is None else _param(bias)
     rc = lib.lamp_layernorm_fwd(
         x2.data_ptr(), w.data_ptr(), None if b is None else b.data_ptr(),
         y.data_ptr(), mu.data_ptr(), rs.data_ptr(), n, d, eps,
-        _KERNEL_DTYPES[x2.dtype], _stream(x2))
+        _KERNEL_DTYPES[x2.dtype], _KERNEL_DTYPES[w.dtype],
+        0 if b is None else _KERNEL_DTYPES[b.dtype],
+        _blocks(n, x2.device), _stream(x2))
     _raise_on(lib, rc, "forward")
     fused_layernorm.launches += 1
     return y, mu, rs
@@ -135,7 +148,7 @@ def _bwd_cuda(x2, dy2, weight, mu, rs):
 
     lib = library()
     n, d = x2.shape
-    blocks = _bwd_blocks(n, x2.device)
+    blocks = _blocks(n, x2.device)
     dx = torch.empty_like(x2)
     dw = torch.empty(d, dtype=torch.float32, device=x2.device)
     db = torch.empty(d, dtype=torch.float32, device=x2.device)

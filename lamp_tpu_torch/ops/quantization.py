@@ -218,10 +218,10 @@ def _lowbias32(x):
     return x ^ (x >> 16)
 
 
-def _random_words(seed: int, numel: int, device):
-    """The 32-bit word of each flat index ``i < numel`` (module docstring),
-    as int64."""
-    i = torch.arange(numel, dtype=torch.int64, device=device)
+def _random_words(seed: int, numel: int, device, start: int = 0):
+    """The 32-bit word of each flat index ``start <= i < start + numel``
+    (module docstring), as int64."""
+    i = torch.arange(start, start + numel, dtype=torch.int64, device=device)
     key = _lowbias32((seed & _M32) ^ _lowbias32(i >> 32))
     return _lowbias32((i & _M32) ^ key)
 
@@ -264,7 +264,8 @@ def quantize_int8_stochastic(x, *, seed: int = 0):
     if not x.is_contiguous():
         raise ValueError("quantize_int8_stochastic: x must be contiguous")
     # csrc/quantize_int8.cu replaces lamp_tpu's _quant_kernel: one warp per
-    # row, bound by the bytes of x read and of the int8 values written
+    # row, held in registers, bound by the bytes of x read and of the int8
+    # values written and close to its instructions an element
     from ._build import library
 
     lib = library()

@@ -4,7 +4,7 @@ lines), then the named parts only.
 
     python3 scripts/chip_phases.py [paged] [ragged] [ragged_bwd] [fwd]
         [flash] [wide] [any] [small] [train32] [openllama] [gemma]
-        [openllama_train] [quant] [layouts] [spec] [layernorm]
+        [openllama_train] [quant] [k8] [layouts] [spec] [layernorm]
 
 paged: phase 2 (the paged-attention kernels: the fixed kernel's edges,
 K6_WIDE's shapes and the key split's edges included, and the serving
@@ -30,7 +30,9 @@ openllama_train: phase 13 (OpenLLaMA-3B trained in bf16); quant:
 phase 6 (K7 at every decode shape and edge and the row-tiled kernel's
 rows, bf16 and f32 x, the f32 and scalar routes timed, int8_matmul, K8),
 then phase 7's int4 servers in bf16 and in f32 (launch counts, greedy
-tokens, the steady decode and K7's share of a profiled step); layouts:
+tokens, the steady decode and K7's share of a profiled step); k8: phase
+6's K8 part alone (phase_k8: bit for bit at K8_SHAPES, on the edge rows
+and either side of flat index 2^32, timed); layouts:
 check_layouts (the wrappers given transposed views and offset slices,
 against their contiguous copies, bit for bit); spec: phase 14
 (speculative decoding on the int4 servers: the bf16 chunk against single
@@ -61,7 +63,7 @@ from lamp_tpu_torch.ops.paged_attention import (  # noqa: E402
 
 PARTS = ("paged", "ragged", "ragged_bwd", "fwd", "flash", "wide", "any",
          "small", "train32", "openllama", "gemma", "openllama_train", "quant",
-         "layouts", "spec", "layernorm")
+         "k8", "layouts", "spec", "layernorm")
 
 
 def main(parts) -> int:
@@ -141,6 +143,11 @@ def main(parts) -> int:
         cs.serve_int4(model, models, Q, paged_attention)
         cs.serve_int4_f32(model, models, Q, paged_attention)
         del model
+    if "k8" in parts and "quant" not in parts:
+        from lamp_tpu_torch.ops import quantization as Q
+
+        print(cs.phase_k8(Q, torch.Generator(device="cuda").manual_seed(0)),
+              flush=True)
     if "layouts" in parts or "spec" in parts:
         from lamp_tpu_torch.ops import quantization as Q
 

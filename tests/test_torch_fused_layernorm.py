@@ -152,7 +152,7 @@ def test_plain_versions_follow_the_kernels():
 @pytest.mark.parametrize("n", [1, 7, 3072, 8192])
 @pytest.mark.parametrize("d", [8, 100, 768, 1024, 8192])
 def test_backward_plan_covers_every_row_and_column_once(n, d):
-    """The CUDA backward's plan (ops/fused_layernorm.py:_bwd_plan, as the
+    """The CUDA backward's plan (ops/fused_layernorm.py:_plan, as the
     kernel cuts it): two blocks an SM at most and none without rows; block
     b's contiguous band [b n / B, (b + 1) n / B) with warp w taking its
     rows w, w + 8, ... covers every row once; each lane's columns c0 + V
@@ -161,10 +161,10 @@ def test_backward_plan_covers_every_row_and_column_once(n, d):
     windows of 1024) and f32 (V = 4, 6 chunks: 768) and one value a load
     (V = 1, 24 chunks: 768); above the narrowest window the rows' m1, m2 go
     through the workspace."""
-    blocks = tfl._bwd_plan(n, 132)
+    blocks = tfl._plan(n, 132)
     assert 1 <= blocks <= min(264, n)
     rows = np.zeros(n, int)
-    for start, end in tfl._bwd_bands(n, blocks):
+    for start, end in tfl._bands(n, blocks):
         assert start < end
         for warp in range(8):
             rows[start + warp:end:8] += 1
@@ -181,4 +181,36 @@ def test_backward_plan_covers_every_row_and_column_once(n, d):
                     c = c0 + v * lane + 32 * v * j
                     if c < d:
                         cols[c:c + v] += 1
+        assert (cols == 1).all()
+
+
+@pytest.mark.parametrize("n", [1, 7, 3072, 8192])
+@pytest.mark.parametrize("d", [8, 100, 768, 1024, 8192])
+def test_forward_plan_covers_every_row_and_column_once(n, d):
+    """The CUDA forward's plan (ops/fused_layernorm.py:_plan, as the
+    kernel cuts it): two blocks an SM at most and none without rows; the
+    bands of _bands with warp w taking rows w, w + 8, ... cover every row
+    once; each lane's columns V lane + 32 V j + e (j < CH) of a row in its
+    registers, or V lane + 32 V i + e of the windows above W = 32 V CH,
+    cover every column once, at 16-byte loads of bf16 (V = 8, 3 chunks a
+    lane up to 768 columns, else 4) and f32 (V = 4, 6 chunks) and one value
+    a load (V = 1, 24 chunks)."""
+    blocks = tfl._plan(n, 132)
+    assert 1 <= blocks <= min(264, n)
+    rows = np.zeros(n, int)
+    for start, end in tfl._bands(n, blocks):
+        assert start < end
+        for warp in range(8):
+            rows[start + warp:end:8] += 1
+    assert (rows == 1).all()
+    for v, chunks in ((8, 3 if d <= 768 else 4), (4, 6), (1, 24)):
+        if d % v:
+            continue
+        cols = np.zeros(d, int)
+        held = d <= 32 * v * chunks
+        for lane in range(32):
+            for j in range(chunks if held else -(-d // (32 * v))):
+                c = v * lane + 32 * v * j
+                if c < d:
+                    cols[c:c + v] += 1
         assert (cols == 1).all()

@@ -296,6 +296,249 @@ def test_stochastic_quantizer_unbiased():
     np.testing.assert_allclose(back.mean(), 0.3, rtol=0.005)
 
 
+# K8's exact forms (csrc/quantize_int8.cu), written in numpy over the same
+# bits and held against the plain operations they replace
+
+_MAGIC = np.float32(1.5 * 2 ** 23)
+
+
+def _f32(bits):
+    return np.asarray(bits, np.uint32).view(np.float32)
+
+
+def _bits(f):
+    return np.asarray(f, np.float32).view(np.uint32)
+
+
+def _lowbias32_np(x):
+    x = np.atleast_1d(np.asarray(x, np.uint32))  # arrays wrap silently
+    x = x ^ (x >> np.uint32(16))
+    x = x * np.uint32(0x7FEB352D)
+    x = x ^ (x >> np.uint32(15))
+    x = x * np.uint32(0x846CA68B)
+    return x ^ (x >> np.uint32(16))
+
+
+def _two_sum(a, b):
+    """float64 (s, e) with s + e == a + b exactly."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _fma32(a, b, c):
+    """fmaf(a, b, c): a b + c rounded once to float32 (nearest even). a b is
+    exact in float64; the sum's float64 rounding error decides a float32
+    midpoint that the float64 sum lands on."""
+    s, e = _two_sum(np.float64(a) * np.float64(b), np.asarray(c, np.float64))
+    f = s.astype(np.float32)
+    other = np.nextafter(f, np.where(s > f, np.float32(np.inf),
+                                     np.float32(-np.inf)).astype(np.float32))
+    mid = (np.float64(f) + np.float64(other)) / 2
+    on_mid = (s != f) & (s == mid)
+    hi, lo = np.maximum(f, other), np.minimum(f, other)
+    return np.where(on_mid & (e > 0), hi, np.where(on_mid & (e < 0), lo, f))
+
+
+def _quotient(v, scale):
+    """The kernel's bf16 quotient: RN(v inv) and one FMA residual
+    correction, inv = RN(1 / scale)."""
+    v = np.asarray(v, np.float32)
+    inv = np.float32(1) / np.float32(scale)
+    q = v * inv
+    return _fma32(_fma32(-q, scale, v), inv, q)
+
+
+def _floor_magic(s):
+    """(t, floor) of s + 1.5 2^23 rounded down to float32 (its unit is 1
+    there), as ``__fadd_rd``: the exact sum's floor."""
+    big, err = _two_sum(np.asarray(s, np.float32).astype(np.float64),
+                        np.float64(_MAGIC))
+    t = np.floor(big) - ((big == np.floor(big)) & (err < 0))
+    t = t.astype(np.float32)
+    return t, t - _MAGIC
+
+
+def _below(word, frac):
+    """The kernel's u - frac rounded once: fma(wu, 2^-32, -frac), wu the
+    word with its low 8 bits cleared (u = wu 2^-32), as a float."""
+    wu = np.asarray(word, np.uint32) & np.uint32(0xFFFFFF00)
+    return _fma32(wu.astype(np.float32), np.float32(2.0 ** -32),
+                  -np.asarray(frac, np.float32))
+
+
+def _round_byte(s, word):
+    """The kernel's byte of floor(s) + (u < s - floor(s)), s unclipped (its
+    sign bit of u - frac added to floor(s)'s pattern), and whether the
+    kernel redoes it: |u - frac| <= 2^-17."""
+    t, f = _floor_magic(s)
+    d = _below(word, np.asarray(s, np.float32) - f)
+    byte = (_bits(t) + (_bits(d) >> np.uint32(31))) & np.uint32(0xFF)
+    return byte.astype(np.uint8), np.abs(d) <= np.float32(2.0 ** -17)
+
+
+def _plain_byte(s, word):
+    s = np.asarray(s, np.float32)
+    f = np.floor(s)
+    u = (word >> np.uint32(8)).astype(np.float32) * np.float32(2.0 ** -24)
+    return (f + (u < (s - f))).astype(np.int8).view(np.uint8)
+
+
+def test_k8_compare_form_is_exact_over_every_24_bit_value():
+    """u < frac as the sign bit of fma(wu, 2^-32, -frac), wu the word with
+    its low 8 bits cleared, as a float (exact: 24 significant bits): equal
+    to the comparison of u = (word >> 8) 2^-24 at all 2^24 values of the
+    word's top 24 bits (its low 8 at random), with frac at u and one ulp
+    above and below it (within [0, 1))."""
+    m = np.arange(1 << 24, dtype=np.uint32)
+    rng = np.random.RandomState(0)
+    word = (m << np.uint32(8)) | rng.randint(0, 256, m.size).astype(np.uint32)
+    wu = m << np.uint32(8)
+    assert (wu.astype(np.float32).astype(np.uint64) == wu).all()
+    u = m.astype(np.float32) * np.float32(2.0 ** -24)
+    one = np.float32(1)
+    for frac in (u, np.minimum(np.nextafter(u, one), np.nextafter(one, 0)),
+                 np.maximum(np.nextafter(u, np.float32(0)), 0)):
+        assert ((0 <= frac) & (frac < 1)).all()
+        np.testing.assert_array_equal(_bits(_below(word, frac)) >> 31,
+                                      (u < frac).astype(np.uint32))
+
+
+def test_k8_clip_is_left_to_the_redo():
+    """The quotient of |x| <= absmax by scale = RN(max(absmax, 1e-8) / 127)
+    is at most 2^-17 past 127 (every bf16 significand of absmax, the clamp,
+    10^6 seeded f32 absmax), and there the unclipped byte equals the clipped
+    plain one at every u except where |u - frac| <= 2^-17, which the kernel
+    redoes (and differs at some of those)."""
+    absmax = np.concatenate([
+        (1 + np.arange(128) / 128).astype(np.float32),
+        np.float32([1e-8]),
+        np.random.RandomState(3).uniform(1, 2, 10 ** 6).astype(np.float32)])
+    for e in (-20, 0, 60):
+        a = absmax * np.float32(2.0 ** e)
+        scale = np.maximum(a, np.float32(1e-8)) / np.float32(127)
+        assert (a / scale <= np.float32(127 + 2.0 ** -17)).all()
+    m = np.arange(1 << 24, dtype=np.uint32)
+    word = m << np.uint32(8)
+    for s in np.float32([127 + 2.0 ** -17, -127 - 2.0 ** -17]):
+        got, redone = _round_byte(np.full(m.size, s), word)
+        want = _plain_byte(np.full(m.size, np.clip(s, -127, 127)), word)
+        assert (got == want)[~redone].all()
+        assert not (got == want)[redone].all()
+        assert redone.mean() < 2.0 ** -15
+
+
+def test_k8_floor_and_byte_forms_match_the_plain_rounding():
+    """floor(s) from s + 1.5 2^23 rounded down, the byte from that sum's
+    pattern plus the sign bit of u - frac: equal to floor, to s - floor(s)
+    and to the int8 of floor(s) + (u < frac) at every integer in [-127,
+    127], its neighbours one ulp each way, and 10^6 seeded values, each
+    with words whose u lies at, below and above the fraction and at
+    random."""
+    ints = np.arange(-127, 128, dtype=np.float32)
+    up = np.nextafter(ints, np.float32(np.inf))
+    dn = np.nextafter(ints, np.float32(-np.inf))
+    rng = np.random.RandomState(1)
+    s = np.concatenate([ints, up[:-1], dn[1:], np.float32([0.0, -0.0, 2e-45,
+                                                           -2e-45, 1e-30]),
+                        rng.uniform(-127, 127, 10 ** 6).astype(np.float32)])
+    t, f = _floor_magic(s)
+    np.testing.assert_array_equal(f, np.floor(s))
+    assert (_bits(t) & np.uint32(0xFF)).astype(np.uint8).tolist() == \
+        np.floor(s).astype(np.int8).view(np.uint8).tolist()
+    frac = s - np.floor(s)
+    at = np.minimum(np.floor(frac.astype(np.float64) * 2 ** 24),
+                    2 ** 24 - 1).astype(np.uint32)
+    for m in (at, np.maximum(at, 1) - 1, np.minimum(at + 1, 2 ** 24 - 1),
+              rng.randint(0, 1 << 24, s.size).astype(np.uint32)):
+        word = (m << np.uint32(8)) | rng.randint(0, 256, s.size).astype(
+            np.uint32)
+        np.testing.assert_array_equal(_round_byte(s, word)[0],
+                                      _plain_byte(s, word))
+
+
+def _bf16_scales():
+    """Every scale a bf16 row gives, up to a power of 2: RN(m / 127) for
+    the 128 significands m in [1, 2), and RN(1e-8 / 127) (the clamp)."""
+    m = (1 + np.arange(128) / 128).astype(np.float32)
+    return np.concatenate([m / np.float32(127),
+                           np.float32([np.float32(1e-8) / np.float32(127)])])
+
+
+def test_k8_bf16_quotient_equals_the_ieee_division():
+    """The bf16 path's quotient (RN(v inv) and one FMA residual correction)
+    equals v / scale rounded to nearest at every bf16 significand of v, both
+    signs, against every scale a bf16 row gives, at every binade of the
+    quotient from 2^-66 to 2^8 (|v| >= scale 2^-64 and the clip to 127 keep
+    the kernel within them; scaling v and the scale by one power of 2 keeps
+    every step's rounding, no step being subnormal, so this covers every
+    bf16 input there). Zeros give zero. Then 10^6 seeded bf16 elements of
+    rows at every exponent: equal to the IEEE quotient above scale 2^-64;
+    below, both quotients are under 2^-61 and never of the other sign, so
+    their bytes can differ only where u = 0, where |u - frac| <= 2^-17: the
+    kernel redoes those by the plain arithmetic."""
+    sig = (1 + np.arange(128) / 128).astype(np.float32)
+    for scale in _bf16_scales():
+        e = np.floor(np.log2(scale))
+        exps = np.arange(e - 67, e + 10)
+        v = (sig[:, None] * np.float32(2.0) ** exps[None, :].astype(
+            np.float32)).ravel()
+        v = np.concatenate([v, -v, np.float32([0.0, -0.0])])
+        assert np.abs(v[:-2]).min() / scale < 2.0 ** -66
+        got = _quotient(v, scale)
+        want = v / np.float32(scale)
+        np.testing.assert_array_equal(got, want)
+    rng = np.random.RandomState(2)
+    absmax = torch.from_numpy((2.0 ** rng.uniform(-140, 127, 1000)).astype(
+        np.float32)).bfloat16().float().numpy()
+    x = torch.from_numpy((rng.uniform(-1, 1, (1000, 1000))
+                          * 2.0 ** rng.uniform(-60, 0, (1000, 1000))
+                          * absmax[:, None]).astype(np.float32)
+                         ).bfloat16().float().numpy()
+    x[:, 0] = absmax
+    scale = (np.maximum(np.abs(x).max(1), np.float32(1e-8))
+             / np.float32(127))[:, None]
+    got, want = _quotient(x, scale), x / scale
+    above = np.abs(x) >= scale * np.float32(2.0 ** -64)
+    np.testing.assert_array_equal(got[above], want[above])
+    below = ~above
+    assert 0.1 < below.mean() < 0.5
+    assert (np.abs(got[below]) < 2.0 ** -61).all()
+    assert (np.abs(want[below]) < 2.0 ** -61).all()
+    assert (got[below] * np.sign(x[below]) >= 0).all()
+    word = rng.randint(0, 1 << 32, below.sum(), dtype=np.uint64).astype(
+        np.uint32)
+    word[:1000] &= np.uint32(0xFF)  # u = 0
+    byte, redone = _round_byte(got[below], word)
+    keep = ~redone
+    np.testing.assert_array_equal(byte[keep], _plain_byte(want[below],
+                                                          word)[keep])
+    assert redone[:1000][got[below][:1000] >= 0].all()  # all but q < 0
+
+
+@pytest.mark.parametrize("k", [3072, 8, 4096 + 8])
+def test_k8_chunk_key_equals_the_element_key_across_2_32(k):
+    """The kernel's words: a row's two keys h(seed ^ h(hi)) and h(seed ^
+    h(hi + 1)), the chunk's low index lo0 + c (32-bit, wrapping) picking
+    one, and its elements' words h((lo ^ key) ^ e): equal to the per-element
+    formula (``_random_words``) on 8-aligned chunks of the rows on both
+    sides of flat index 2^32."""
+    seed = 0x9E3779B9
+    row = (1 << 32) // k
+    for r in range(row - 1, row + 2):
+        off = r * k
+        lo0, hi0 = np.uint32(off & 0xFFFFFFFF), np.uint32(off >> 32)
+        key0, key1 = (_lowbias32_np(np.uint32(seed) ^ _lowbias32_np(h))
+                      for h in (hi0, hi0 + np.uint32(1)))
+        c = np.arange(0, k, 8, dtype=np.uint32)
+        lo = lo0 + c
+        h = lo ^ np.where(lo < lo0, key1, key0)
+        got = _lowbias32_np(h[:, None] ^ np.arange(8, dtype=np.uint32))
+        want = tq._random_words(seed, k, "cpu", start=off).numpy()
+        np.testing.assert_array_equal(got.ravel().astype(np.int64), want)
+    assert (row - 1) * k < 1 << 32 < (row + 2) * k
+
+
 def _jax_forward(model, inputs):
     out = model(jnp.asarray(inputs))
     return out[0] if isinstance(out, tuple) else out
