@@ -230,6 +230,24 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
    time, ops, int4_mm_tc's share). Before it, in bf16, one advance_chunk's
    logits against the same 4 tokens fed one step at a time (relative
    error); after it, a sampled run at temperature 1.0.
+15. Serving with a shared system prompt at full width: phase 3's model
+   behind ModernBatchServer(enable_prefix_cache=True) and phase 3's 40
+   requests through ServingEngine, each behind one seeded 256-token system
+   prompt (2 full pages): the first prefills cold, the 39 others share its
+   pages and prefill their 23-30-row tails as one chunk each (K6 over one
+   sequence's query rows, each with its own length); the hit and miss
+   counts, exact lengths, K6 launched 12 times a decode step and a suffix
+   prefill, greedy tokens against the dense forward past MARGIN, the pool
+   back at its start with the 2 system pages cached. The same under
+   quantize_bits=4 (K7's decode route 61 times a step and a suffix
+   prefill, greedy tokens past phase 7's margin). Then, on the bf16
+   server: 8 requests fanned out (n=2 of best_of=4 at temperature 0.8:
+   each result's 2 branches ranked by summed logprob), BeamSearchDecoder
+   (4 beams over 4 prompts, 32 tokens: sorted, distinct hypotheses, pages
+   copied on write, the pool back), beams=1 against a greedy add + step
+   loop token for token, and the admission time (add, CUDA events) of a
+   cold 287-token prompt and of a prefix hit, printed beside the card's
+   name and power limit.
 
 After phase 6, check_layouts holds flash_attention (forward and backward),
 paged_attention and int4_matmul given transposed views and offset slices
@@ -1223,9 +1241,10 @@ def profile_step(server):
     return busy, ops, k6, k7
 
 
-def serve_requests(models, server):
+def serve_requests(models, server, system=()):
     """Phase 3's 40 requests (prompts of 24-31 tokens, 36 sampled, 4
-    greedy, max_tokens 32-96) through ServingEngine(decode_steps=8,
+    greedy, max_tokens 32-96), each behind the tokens ``system`` (phase
+    15's shared system prompt), through ServingEngine(decode_steps=8,
     max_batch=32), with every launch count set to 0 just before the run.
     Checks each result's length and range and that the page pool returns
     to its start. Returns (prompts, results, greedy ids, decode steps)."""
@@ -1235,14 +1254,15 @@ def serve_requests(models, server):
     prompts, max_tokens = {}, {}
     for i in range(40):
         rid = f"r{i}"
-        prompts[rid] = rng.randint(0, VOCAB, 24 + i % 8).tolist()
+        prompts[rid] = list(system) + rng.randint(0, VOCAB,
+                                                  24 + i % 8).tolist()
         max_tokens[rid] = 32 + (64 * i) // 39
         params = (models.SamplingParams(max_tokens=max_tokens[rid])
                   if i in greedy else models.SamplingParams(
                       temperature=0.8, top_p=0.95,
                       max_tokens=max_tokens[rid]))
         engine.submit(prompts[rid], params, request_id=rid)
-    free0 = len(server.free_pages)
+    free0 = server.available_pages
     # the main path's run: the launch counts cover exactly this
     reset_launch_counts()
     steps0 = server.steps_decoded
@@ -1261,7 +1281,7 @@ def serve_requests(models, server):
                 0 <= t < VOCAB for t in toks):
             raise AssertionError(f"{rid}: {len(toks)} tokens, want "
                                  f"{max_tokens[rid]} in [0, {VOCAB})")
-    if len(server.free_pages) != free0 or server.seq_pages:
+    if server.available_pages != free0 or server.seq_pages:
         raise AssertionError("the page pool did not return to its start")
     return prompts, results, [f"r{i}" for i in sorted(greedy)], steps
 
@@ -3517,6 +3537,240 @@ def phase_speculative(torch_nn, models, Q, paged_attention):
                 tc_share=tc_us / busy, chunk_err=chunk_err)
 
 
+# phase 15: serving with a shared system prompt: the serving configuration
+# behind ModernBatchServer(enable_prefix_cache=True); phase 3's 40 requests,
+# each behind one seeded system prompt of SYSTEM tokens (2 full pages), then
+# FAN_REQUESTS requests fanned out (n=FAN_N of best_of=FAN_BEST_OF), beam
+# search (BEAMS beams over BEAM_PROMPTS prompts, BEAM_TOKENS tokens) and the
+# admission times of a cold prompt and of a prefix hit (ADMIT_REPS timed
+# after ADMIT_WARMUP)
+SYSTEM = 2 * PAGE
+FAN_REQUESTS, FAN_N, FAN_BEST_OF = 8, 2, 4
+BEAMS, BEAM_PROMPTS, BEAM_TOKENS = 4, 4, 32
+ADMIT_REPS, ADMIT_WARMUP = 5, 2
+
+
+def serve_system_prompt(models, server, system, logits_of, margin):
+    """Phase 3's 40 requests behind ``system`` through serve_requests on a
+    prefix-cache server: the first prefills cold, the 39 others share its
+    system pages and prefill their tails (23-30 rows) as one chunk each.
+    Checks the hit and miss counts, that the pool returns to its start
+    with the system pages cached (reclaimable), and the greedy tokens
+    (check_greedy's ``logits_of`` past ``margin``). Returns (prompts,
+    decode steps, suffix prefills, launch counts of the run)."""
+    hits0, miss0 = server.cache_hit_tokens, server.cache_miss_tokens
+    prompts, results, greedy, steps = serve_requests(models, server, system)
+    counts = launch_counts()
+    tails = [len(p) - len(system) for p in prompts.values()]
+    want = ((len(tails) - 1) * len(system),
+            len(system) + sum(t - 1 for t in tails))
+    got = (server.cache_hit_tokens - hits0,
+           server.cache_miss_tokens - miss0)
+    cached = server.available_pages - len(server.free_pages)
+    print(f"  prefix cache: {got[0]} tokens hit, {got[1]} missed (want "
+          f"{want[0]}, {want[1]}); {steps} decode steps, {len(tails) - 1} "
+          f"suffix prefills; {cached} pages cached after the run",
+          flush=True)
+    if got != want:
+        raise AssertionError("the prefix cache's hit and miss counts")
+    if cached != len(system) // PAGE:
+        raise AssertionError(f"{cached} cached pages after the run, want "
+                             f"the system prompt's {len(system) // PAGE}")
+    check_greedy(logits_of, prompts, results, greedy, margin)
+    return prompts, steps, len(tails) - 1, counts
+
+
+def fan_out(models, server, prompts):
+    """FAN_REQUESTS of the prompts, each fanned out into FAN_BEST_OF
+    sampled branches (temperature 0.8, top-p 0.95) of which the FAN_N of
+    highest summed logprob are kept. Checks every result (FAN_N lists of
+    32 tokens, best first, each one of its request's streamed branches),
+    the hits, K6's launches and the pool. Returns K6's launches."""
+    streams = {}
+    engine = models.ServingEngine(
+        server, decode_steps=8, max_batch=32,
+        on_token=lambda rid, t: streams.setdefault(rid, []).append(t))
+    params = models.SamplingParams(temperature=0.8, top_p=0.95,
+                                   max_tokens=32, logprobs=True)
+    for i in range(FAN_REQUESTS):
+        engine.submit(prompts[f"r{i}"], params, request_id=f"f{i}", n=FAN_N,
+                      best_of=FAN_BEST_OF)
+    free0, hits0 = server.available_pages, server.cache_hit_tokens
+    branches = FAN_REQUESTS * FAN_BEST_OF
+    reset_launch_counts()
+    steps0 = server.steps_decoded
+    results = engine.run()
+    steps = server.steps_decoded - steps0
+    k6 = launch_counts()["paged_attention"]
+    for i in range(FAN_REQUESTS):
+        rid = f"f{i}"
+        kept, lps = results[rid], engine.result_logprobs[rid]
+        sums = [sum(lp) for lp in lps]
+        if [len(b) for b in kept] != [32] * FAN_N or \
+                [len(lp) for lp in lps] != [32] * FAN_N:
+            raise AssertionError(f"{rid}: {[len(b) for b in kept]} tokens")
+        if sums != sorted(sums, reverse=True):
+            raise AssertionError(f"{rid}: branches not ranked: {sums}")
+        if any(b not in [streams[(rid, j)] for j in range(FAN_BEST_OF)]
+               for b in kept):
+            raise AssertionError(f"{rid}: a kept branch was not sampled")
+    hits = server.cache_hit_tokens - hits0
+    print(f"  fan-out: {FAN_REQUESTS} requests, n={FAN_N} of best_of="
+          f"{FAN_BEST_OF} ({branches} branches), {steps} decode steps, "
+          f"{hits} tokens hit; summed logprobs of f0's kept branches "
+          f"{[round(sum(lp), 3) for lp in engine.result_logprobs['f0']]}",
+          flush=True)
+    if hits != branches * SYSTEM:
+        raise AssertionError(f"fan-out: {hits} tokens hit")
+    check_launches("paged_attention (fan-out)", k6,
+                   BLOCKS * (steps + branches))
+    if server.available_pages != free0 or server.seq_pages:
+        raise AssertionError("fan-out: the page pool did not return")
+    return k6
+
+
+def beam_search(models, server, prompts):
+    """BeamSearchDecoder(beams=BEAMS) over BEAM_PROMPTS of the prompts,
+    BEAM_TOKENS tokens each: the hypotheses sorted best first and
+    distinct, pages copied on write, K6's launches and the pool; then
+    beams=1 against a greedy add + step loop on the same server, token for
+    token (the same kernels on the same inputs: bit for bit). Returns
+    (K6's launches, pages copied)."""
+    free0, cow0 = server.available_pages, server.cow_copies
+    reset_launch_counts()
+    steps0 = server.steps_decoded
+    for i in range(BEAM_PROMPTS):
+        hyps = models.BeamSearchDecoder(server, beams=BEAMS).decode(
+            prompts[f"r{i}"], max_tokens=BEAM_TOKENS)
+        scores = [sc for _, sc in hyps]
+        tokens = [t for t, _ in hyps]
+        if len(hyps) != BEAMS or scores != sorted(scores, reverse=True) or \
+                len(set(map(tuple, tokens))) != BEAMS or any(
+                    len(t) != BEAM_TOKENS or min(t) < 0 or max(t) >= VOCAB
+                    for t in tokens):
+            raise AssertionError(f"r{i}: beam hypotheses {scores}")
+    steps = server.steps_decoded - steps0
+    k6 = launch_counts()["paged_attention"]
+    cow = server.cow_copies - cow0
+    print(f"  beam search: {BEAM_PROMPTS} prompts x {BEAMS} beams, "
+          f"{steps} decode steps, {cow} pages copied on write; "
+          f"r{BEAM_PROMPTS - 1}'s scores {[round(sc, 4) for sc in scores]}",
+          flush=True)
+    check_launches("paged_attention (beams)", k6,
+                   BLOCKS * (steps + BEAM_PROMPTS))
+    if cow <= 0:
+        raise AssertionError("the beams copied no page on write")
+    if server.available_pages != free0 or server.seq_pages:
+        raise AssertionError("beams: the page pool did not return")
+    prompt = prompts[f"r{BEAM_PROMPTS}"]
+    hyps = models.BeamSearchDecoder(server, beams=1,
+                                    length_penalty=0.0).decode(
+        prompt, max_tokens=BEAM_TOKENS)
+    server.add("greedy", prompt)
+    greedy = [server.step()["greedy"] for _ in range(BEAM_TOKENS)]
+    server.remove("greedy")
+    same = sum(a == b for a, b in zip(hyps[0][0], greedy))
+    print(f"  beams=1 against greedy add + step: {same} of {BEAM_TOKENS} "
+          f"tokens equal", flush=True)
+    if hyps[0][0] != greedy:
+        raise AssertionError("beams=1 differs from greedy decoding")
+    return k6, cow
+
+
+def admission_ms(server, system, smi):
+    """CUDA events around add() of a cold prompt of SYSTEM + 31 tokens (a
+    new one each time) and of a prefix hit (the system prompt and a
+    31-token tail: 256 rows shared, 30 prefilled as one chunk): medians of
+    ADMIT_REPS after ADMIT_WARMUP; then one profiled admission of each
+    (device time, ops, K6's time). Returns (cold ms, hit ms, the
+    profiles)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+
+    def admit(prompt, want_hit):
+        hits0 = server.cache_hit_tokens
+        torch.cuda.synchronize()
+        start.record()
+        server.add("admit", prompt)
+        end.record()
+        torch.cuda.synchronize()
+        server.remove("admit")
+        if server.cache_hit_tokens - hits0 != want_hit:
+            raise AssertionError("admission: an unexpected cache hit or miss")
+        return start.elapsed_time(end)
+
+    rng = np.random.RandomState(16)
+    times = ADMIT_WARMUP + ADMIT_REPS
+    cold = [admit(rng.randint(0, VOCAB, SYSTEM + 31).tolist(), 0)
+            for _ in range(times)][ADMIT_WARMUP:]
+    hit_prompt = list(system) + rng.randint(0, VOCAB, 31).tolist()
+    hit = [admit(hit_prompt, SYSTEM) for _ in range(times)][ADMIT_WARMUP:]
+    cold_ms = sorted(cold)[ADMIT_REPS // 2]
+    hit_ms = sorted(hit)[ADMIT_REPS // 2]
+    print(f"  time to first token, admission (add, CUDA events, median of "
+          f"{ADMIT_REPS} after {ADMIT_WARMUP}): cold {SYSTEM + 31} tokens "
+          f"{cold_ms:.3f} ms {[round(t, 3) for t in cold]}, prefix hit "
+          f"({SYSTEM} cached + 30) {hit_ms:.3f} ms "
+          f"{[round(t, 3) for t in hit]} | {smi}", flush=True)
+    profiles = {}
+    for what, prompt, want in (
+            ("cold", rng.randint(0, VOCAB, SYSTEM + 31).tolist(), 0),
+            ("hit", hit_prompt, SYSTEM)):
+        with traced() as trace:
+            admit(prompt, want)
+        events = sorted(trace.events, key=lambda e: -e.self_device_time_total)
+        profiles[what] = dict(
+            device_us=sum(e.self_device_time_total for e in events),
+            ops=sum(e.count for e in events),
+            k6_us=sum(e.self_device_time_total for e in events
+                      if "paged_attention" in e.key),
+            top=[(e.key[:60], round(e.self_device_time_total, 1), e.count)
+                 for e in events[:4]])
+        print(f"  profiled admission, {what}: {profiles[what]}", flush=True)
+    return cold_ms, hit_ms, profiles
+
+
+def phase_prefix(torch_nn, models, Q, smi):
+    """Phase 15: serving with a shared system prompt at full width, in bf16
+    and under quantize_bits=4; fan-out, beam search and the admission
+    times on the bf16 server. Returns the figures."""
+    model = make_serving_model(torch_nn)
+    system = np.random.RandomState(15).randint(0, VOCAB, SYSTEM).tolist()
+    kw = dict(page_size=PAGE, total_pages=TOTAL_PAGES,
+              enable_prefix_cache=True)
+    server = models.ModernBatchServer(model, **kw)
+    prompts, steps, suffixes, counts = serve_system_prompt(
+        models, server, system, lambda t, _: model(t)[0], MARGIN)
+    check_launches("paged_attention", counts["paged_attention"],
+                   BLOCKS * (steps + suffixes))
+    out = dict(k6=counts["paged_attention"], steps=steps, suffixes=suffixes)
+
+    server4 = models.ModernBatchServer(model, quantize_bits=4, **kw)
+    ref = quantized_server_reference(model, Q, 4)
+    # the system prompt's rows come from the cold request's prefill on the
+    # float weights; every later row from the int4 weights
+    _, steps4, suffixes4, counts4 = serve_system_prompt(
+        models, server4, system, lambda t, _: ref(t, SYSTEM + 1), QMARGIN)
+    check_launches("int4_matmul (int4_mm_decode)", counts4["int4_matmul"],
+                   K7_PER_STEP * (steps4 + suffixes4))
+    if counts4["int4_mm_tc"] or counts4["int4_matmul_f32"]:
+        raise AssertionError("a K7 call of phase 15 left the decode route")
+    check_launches("paged_attention (int4)", counts4["paged_attention"],
+                   BLOCKS * (steps4 + suffixes4))
+    out.update(k7=counts4["int4_matmul"], k6_int4=counts4["paged_attention"],
+               steps4=steps4, suffixes4=suffixes4)
+    del server4, ref
+    torch.cuda.empty_cache()
+
+    out["k6_fan"] = fan_out(models, server, prompts)
+    out["k6_beams"], out["cow"] = beam_search(models, server, prompts)
+    out["admit_cold_ms"], out["admit_hit_ms"], out["admit_profiles"] = \
+        admission_ms(server, system, smi)
+    del server, model
+    torch.cuda.empty_cache()
+    return out
+
+
 def _bits(x):
     """The bit pattern of a 2- or 4-byte float tensor, so that equality
     is bit for bit (signed zeros, NaNs)."""
@@ -4165,6 +4419,13 @@ def kernel_line(source, kernel):
     raise AssertionError(f"no definition of {kernel} in {source}")
 
 
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -4178,9 +4439,7 @@ def main() -> int:
     from lamp_tpu_torch.ops.paged_attention import (paged_attention,
                                                     paged_attention_reference)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
+    smi = card()
     print(f"phase 1: {torch.cuda.get_device_name(0)} | {smi} | torch "
           f"{torch.__version__} cuda {torch.version.cuda}", flush=True)
     t0 = time.perf_counter()
@@ -4239,6 +4498,9 @@ def main() -> int:
     print("phase 14: speculative decoding on the int4 servers at full "
           "width", flush=True)
     spec = phase_speculative(torch_nn, models, Q, paged_attention)
+    print("phase 15: serving with a shared system prompt at full width "
+          "(prefix cache, fan-out, beam search)", flush=True)
+    prefix = phase_prefix(torch_nn, models, Q, smi)
     tc_by = {c["tc"][f"M={SPEC_ROWS}"]["bound_by"]
              for c in k7["per_call"].values()}
     k7_tc = dict(k7["tc_round"], launches=spec["tc_launches"],
@@ -4294,6 +4556,16 @@ def main() -> int:
         "56-95, 4 tables x 12 layers in turns, cold) by CUDA events over a "
         "graph; launches: phase 3's 40 requests; fixed_edges: "
         "check_paged_fixed")
+    rows[0]["prefix_cache"] = dict(
+        launches=(prefix["k6"] + prefix["k6_int4"] + prefix["k6_fan"]
+                  + prefix["k6_beams"]),
+        note="phase 15 (prefix cache): the 40 requests' decode steps and "
+             "suffix prefills (one sequence's 23-30 query rows over shared "
+             "pages, each row its own length) in bf16 and under int4, the "
+             "fan-out's and the beams' (after copies on write)",
+        admission=dict(cold_ms=prefix["admit_cold_ms"],
+                       hit_ms=prefix["admit_hit_ms"],
+                       profiles=prefix["admit_profiles"]))
     rows[1]["note"] = ("the same on an e4m3 pool; launches: phase 7's fp8-KV "
                        "requests")
     for i, what in ((0, "bf16"), (1, "fp8")):
@@ -4432,6 +4704,10 @@ def main() -> int:
                    "and the f32 route at M=32, 128 and 3072 (beside "
                    "F.linear in f32)")
     row["per_call"] = k7["per_call"]
+    row["prefix_cache"] = dict(
+        launches=prefix["k7"],
+        note="phase 15's int4 server: 61 a decode step and a suffix "
+             "prefill (23-30 rows of one sequence), all on int4_mm_decode")
     rows.append(row)
     row = dict(name="int4_matmul_tc", **k7_src, **k7_tc)
     row = {k: row[k] for k in keys}

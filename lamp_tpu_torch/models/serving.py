@@ -42,16 +42,30 @@ tensors) and verifies its proposals with one chunk of the target a round:
 Under ``quantize_bits=4`` a chunk of B*k > 64 rows runs the int4 kernel's
 row-tiled route.
 
+Shared KV pages: ``ModernBatchServer(model, enable_prefix_cache=True)``
+content-addresses every full prompt page by a chain hash of its tokens; a
+later prompt with the same prefix shares those physical pages (refcounted,
+kept on an LRU once no sequence holds them) and prefills only its uncached
+tail, as one chunk through :meth:`~ModernBatchServer._decode_chunk`. The
+first write into a shared page copies it (copy-on-write). On that
+machinery :meth:`BatchServer.fork` duplicates a sequence without copying
+its KV, :meth:`ServingEngine.submit` fans a request into ``n`` / ``best_of``
+sampled branches, and :class:`BeamSearchDecoder` keeps its beams:
+
+    server = ModernBatchServer(model, enable_prefix_cache=True)
+    hyps = BeamSearchDecoder(server, beams=4).decode(prompt, max_tokens=32)
+
 Not ported yet (each raises ``NotImplementedError`` when asked for): the
 GPT ``BatchServer`` model path, penalties, constrained decoding, LoRA
-adapters, ``n``/``best_of`` fan-out, the prefix cache (and so the
-prefix-cache suffix prefill), tensor parallelism, MoE blocks,
-``BeamSearchDecoder`` and ``LoRADraftSpeculativeDecoder``.
+adapters, tensor parallelism, MoE blocks and
+``LoRADraftSpeculativeDecoder``.
 """
 
 from __future__ import annotations
 
-from collections import deque
+import dataclasses
+import hashlib
+from collections import OrderedDict, deque
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -65,8 +79,9 @@ from ..ops.quantization import (int4_group_size, int4_matmul, int8_matmul,
                                 quantize_int4, quantize_int8)
 from .sampling import NUCLEUS_CAND, SamplingParams, sample_tokens
 
-__all__ = ["BatchServer", "ModernBatchServer", "ServingEngine",
-           "SamplingParams", "SpeculativeDecoder", "draft_view"]
+__all__ = ["BatchServer", "BeamSearchDecoder", "ModernBatchServer",
+           "ServingEngine", "SamplingParams", "SpeculativeDecoder",
+           "draft_view"]
 
 
 def _kv_write_stacked(pool, total_pages, token_pages, token_slots,
@@ -111,8 +126,7 @@ class BatchServer:
         if quantize_bits not in (None, 4, 8):
             raise ValueError("quantize_bits must be None, 4 or 8")
         self.quantize_bits = quantize_bits
-        if enable_prefix_cache:
-            raise NotImplementedError("enable_prefix_cache")
+        self.enable_prefix_cache = enable_prefix_cache
         self.model = model
         self._introspect(model)
         self.device = model.token_embedding.weight.device
@@ -150,6 +164,19 @@ class BatchServer:
         self.temperature = temperature
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.steps_decoded = 0  # decode steps run (each: one kernel per layer)
+        # every page a sequence holds is refcounted. Under the prefix cache
+        # full prompt pages are content-addressed by a chain hash over
+        # page-sized token chunks, and later prompts with the same prefix
+        # share the physical pages. A page whose count drops to 0 stays
+        # cached on an LRU until the allocator reclaims it; the first write
+        # into a shared page copies it (copy-on-write)
+        self._page_refs: Dict[int, int] = {}
+        self._hash_to_page: Dict[bytes, int] = {}
+        self._page_hash: Dict[int, bytes] = {}
+        self._lru: "OrderedDict[int, None]" = OrderedDict()
+        self.cache_hit_tokens = 0
+        self.cache_miss_tokens = 0
+        self.cow_copies = 0  # pages copied on write
         self._extras = self._precompute_extras(model)
 
     # -- request lifecycle --------------------------------------------------
@@ -164,7 +191,11 @@ class BatchServer:
         ``temperature``). ``window`` caps THIS request's attention to its
         last ``window`` tokens (the tighter of it and a layer's window
         wins); when every layer ends up windowed, pages that fall below the
-        band are released back to the pool mid-generation."""
+        band are released back to the pool mid-generation.
+
+        Under ``enable_prefix_cache`` the longest run of cached full pages
+        of the prompt is shared instead of recomputed, and only the tail
+        after it is prefilled (:meth:`_prefill_suffix`)."""
         if seq_id in self.seq_pages:
             raise ValueError(f"duplicate request {seq_id}")
         if adapter is not None:
@@ -187,7 +218,30 @@ class BatchServer:
         self.seq_len[seq_id] = 0
         prompt = np.asarray(prompt_tokens).reshape(-1)
         n_prefill = len(prompt) - 1
-        if n_prefill > 0:
+        matched = 0
+        hashes = []
+        if self.enable_prefix_cache and n_prefill > 0:
+            # the salt partitions the cache: a window changes the K/V of
+            # every later layer for the same tokens (so would a LoRA
+            # adapter, whose index is 0 while adapters are not ported)
+            hashes = self._prefix_hashes(
+                prompt[:-1],
+                salt=b"" if window is None else f"0:{window}".encode())
+            pages = self.seq_pages[seq_id]
+            for h in hashes:
+                pg = self._hash_to_page.get(h)
+                if pg is None:
+                    break
+                self._incref(pg)
+                pages.append(pg)
+            matched = len(pages) * self.page_size
+            self.seq_len[seq_id] = matched
+            self.cache_hit_tokens += matched
+            self.cache_miss_tokens += n_prefill - matched
+        if matched > 0:
+            # the tail attends over the shared pages: one chunk
+            self._prefill_suffix(seq_id, prompt[matched:-1])
+        elif n_prefill > 0:
             slots = []
             for _ in range(n_prefill):
                 slots.append(self._alloc_slot(seq_id))
@@ -199,18 +253,132 @@ class BatchServer:
                 torch.as_tensor([s for _, s in slots], device=dev),
                 req_window=window,
             )
+        if hashes:
+            self._register_pages(seq_id, hashes)
         self.last_token[seq_id] = int(prompt[-1])
         self._release_pages(seq_id)
 
     def remove(self, seq_id) -> None:
-        pages = self.seq_pages.pop(seq_id)
-        self.free_pages.extend(pg for pg in pages if pg >= 0)
+        for pg in self.seq_pages.pop(seq_id):
+            if pg >= 0:
+                self._decref(pg)
         self.seq_len.pop(seq_id)
         self.last_token.pop(seq_id)
         self.seq_params.pop(seq_id, None)
         self.seq_window.pop(seq_id, None)
         self.seq_released.pop(seq_id, None)
         self.seq_logprobs.pop(seq_id, None)
+
+    def fork(self, src_id, dst_id) -> None:
+        """Duplicate a sequence's decode state without copying its KV: the
+        child references the parent's physical pages (refcounted), and the
+        first write into the shared tail page copies it
+        (:meth:`_alloc_slot`). Needs ``enable_prefix_cache=True``, which
+        owns the refcounts and the copy-on-write."""
+        if not self.enable_prefix_cache:
+            raise RuntimeError("fork requires enable_prefix_cache=True")
+        if dst_id in self.seq_pages:
+            raise ValueError(f"duplicate request {dst_id}")
+        if src_id not in self.seq_pages:
+            raise KeyError(f"unknown request {src_id}")
+        for pg in self.seq_pages[src_id]:
+            if pg >= 0:
+                self._incref(pg)
+        self.seq_pages[dst_id] = list(self.seq_pages[src_id])
+        self.seq_len[dst_id] = self.seq_len[src_id]
+        self.last_token[dst_id] = self.last_token[src_id]
+        self.seq_params[dst_id] = self.seq_params[src_id]
+        self.seq_window[dst_id] = self.seq_window.get(src_id)
+        self.seq_released[dst_id] = self.seq_released.get(src_id, 0)
+        if src_id in self.seq_logprobs:
+            self.seq_logprobs[dst_id] = list(self.seq_logprobs[src_id])
+
+    # -- prefix cache ----------------------------------------------------
+    def _prefix_hashes(self, prompt_kv, salt: bytes = b"") -> List[bytes]:
+        """Chain hash (sha256) of each FULL page-sized chunk of the
+        prompt's KV tokens, as int64 bytes: hash i commits to every token
+        up to the end of chunk i, and to ``salt``."""
+        ps = self.page_size
+        out = []
+        h = salt
+        for i in range(len(prompt_kv) // ps):
+            chunk = np.asarray(prompt_kv[i * ps:(i + 1) * ps],
+                               np.int64).tobytes()
+            h = hashlib.sha256(h + chunk).digest()
+            out.append(h)
+        return out
+
+    def _register_pages(self, seq_id, hashes) -> None:
+        """Content-address this request's full prompt pages, so that later
+        requests can share them."""
+        pages = self.seq_pages[seq_id]
+        for h, pg in zip(hashes, pages):
+            if h in self._hash_to_page or pg in self._page_hash:
+                continue
+            self._hash_to_page[h] = pg
+            self._page_hash[pg] = h
+
+    def _prefill_suffix(self, seq_id, suffix) -> None:
+        """Prefill the uncached tail after a prefix-cache hit: ONE chunk of
+        the sequence's m = len(suffix) tokens (:meth:`_decode_chunk`, B=1),
+        whose rows attend over the shared pages and over each other. (The
+        JAX server pads m to a bucket to bound its jit traces, with the
+        pad rows written to the trash page; here the padding is left out,
+        as :meth:`ModernBatchServer._prefill_seq` leaves out its own.)"""
+        if len(suffix):
+            self._run_chunk([seq_id], torch.as_tensor(
+                np.asarray(suffix, np.int64)[None], device=self.device))
+
+    def _incref(self, pg: int) -> None:
+        r = self._page_refs.get(pg, 0)
+        if r == 0:
+            self._lru.pop(pg, None)  # back in use
+        self._page_refs[pg] = r + 1
+
+    def _decref(self, pg: int) -> None:
+        """A sequence lets go of page ``pg``: with no holder left the page
+        stays cached (reclaimable) if it is content-addressed, else it is
+        free. (Without the prefix cache no page is shared or addressed, so
+        this frees it.)"""
+        r = self._page_refs.get(pg, 1) - 1
+        if r > 0:
+            self._page_refs[pg] = r
+            return
+        self._page_refs.pop(pg, None)
+        if pg in self._page_hash:
+            self._lru[pg] = None  # cached KV, reclaimable
+            self._lru.move_to_end(pg)
+        else:
+            self.free_pages.append(pg)
+
+    def _take_page(self) -> int:
+        """A free page, else the least recently used cached one (whose hash
+        entry goes with it)."""
+        if self.free_pages:
+            return self.free_pages.pop()
+        if self._lru:
+            pg, _ = self._lru.popitem(last=False)
+            self._invalidate_page(pg)
+            return pg
+        raise RuntimeError("KV page pool exhausted")
+
+    def _invalidate_page(self, pg: int) -> None:
+        h = self._page_hash.pop(pg, None)
+        if h is not None and self._hash_to_page.get(h) == pg:
+            del self._hash_to_page[h]
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """Copy-on-write: page ``src``'s K and V rows of EVERY layer of the
+        stacked pool to page ``dst``, in place, by one gather and one
+        scatter (rows ``li*P + src`` to ``li*P + dst``). An fp8 pool is
+        copied through its uint8 view: CUDA's indexing does not take every
+        fp8 dtype."""
+        off = torch.arange(self.layers, device=self.device) * self.total_pages
+        pool = self.kv_pages
+        if pool.element_size() == 1:
+            pool = pool.view(torch.uint8)
+        pool[off + dst] = pool[off + src]
+        self.cow_copies += 1
 
     # -- sliding-window KV release ---------------------------------------
     def kv_bound_for(self, window: Optional[int] = None) -> Optional[int]:
@@ -245,7 +413,7 @@ class BatchServer:
         # sees lengths+1 during decode)
         while j < len(pages) and (j + 1) * ps <= self.seq_len[seq_id] - bound:
             if pages[j] >= 0:
-                self.free_pages.append(pages[j])
+                self._decref(pages[j])
                 pages[j] = -1
             j += 1
         self.seq_released[seq_id] = j
@@ -265,8 +433,8 @@ class BatchServer:
 
     @property
     def available_pages(self) -> int:
-        """Pages the allocator can hand out."""
-        return len(self.free_pages)
+        """Pages the allocator can hand out: free and cached (reclaimable)."""
+        return len(self.free_pages) + len(self._lru)
 
     # -- internals ------------------------------------------------------
     def _alloc_slot(self, seq_id) -> Tuple[int, int]:
@@ -280,10 +448,24 @@ class BatchServer:
                 "handles max_tokens/stop/context retirement automatically)")
         pages = self.seq_pages[seq_id]
         if pos % self.page_size == 0 and pos // self.page_size == len(pages):
-            if not self.free_pages:
-                raise RuntimeError("KV page pool exhausted")
-            pages.append(self.free_pages.pop())
-        return pages[pos // self.page_size], pos % self.page_size
+            pg = self._take_page()
+            self._page_refs[pg] = 1
+            pages.append(pg)
+        pg = pages[pos // self.page_size]
+        if self._page_refs[pg] > 1:
+            # about to write into a SHARED page (a fork's tail, or a rewind
+            # into a cached prefix): copy-on-write
+            new = self._take_page()
+            self._page_refs[new] = 1
+            self._copy_page(pg, new)
+            self._decref(pg)
+            pages[pos // self.page_size] = new
+            pg = new
+        elif pg in self._page_hash:
+            # sole owner of a content-addressed page: the write changes its
+            # content, so its cache entry goes
+            self._invalidate_page(pg)
+        return pg, pos % self.page_size
 
     def _views(self, seq_ids):
         """(page table [B, max_pages], lengths [B]) int32 on the device."""
@@ -334,10 +516,15 @@ class BatchServer:
         [B, m, V] f32. Token j's logits predict token j+1 (causal within
         the chunk). Bumps lengths by m."""
         tokens = torch.as_tensor(tokens, device=self.device).long()
-        b, m = tokens.shape
-        self._require_capacity(seq_ids, m)
+        self._require_capacity(seq_ids, tokens.shape[1])
         for s in seq_ids:
             self._release_pages(s)
+        return self._run_chunk(seq_ids, tokens)
+
+    def _run_chunk(self, seq_ids, tokens):
+        """m slots a sequence of ``tokens`` [B, m], then one
+        :meth:`_decode_chunk` call; returns its logits [B, m, V]."""
+        b, m = tokens.shape
         lens0 = torch.as_tensor([self.seq_len[s] for s in seq_ids],
                                 dtype=torch.int32, device=self.device)
         tp = np.zeros((b, m), np.int64)
@@ -357,7 +544,8 @@ class BatchServer:
         """Drop the last ``n`` tokens' KV (speculative-decoding rollback).
         The rows are simply forgotten: lengths mask them and their slots are
         reused on the next advance; pages past the new length go back to
-        the pool."""
+        the pool (a decref under the prefix cache, and the next write into
+        a page still shared copies it)."""
         if not 0 <= n <= self.seq_len[seq_id]:
             raise ValueError(
                 f"rewind({n}) of {seq_id!r}, which holds "
@@ -375,7 +563,7 @@ class BatchServer:
         keep = max(-(-self.seq_len[seq_id] // self.page_size), rel)
         pages = self.seq_pages[seq_id]
         while len(pages) > keep:
-            self.free_pages.append(pages.pop())
+            self._decref(pages.pop())
 
     def _sampling_arrays(self, seq_ids):
         """(temperature [B] | None, top_k [B] | None, top_p [B] | None,
@@ -696,6 +884,30 @@ class ModernBatchServer(BatchServer):
                           token_slots, deferred_rows)
 
 
+class _Fan:
+    """An ``n`` / ``best_of`` request's branches while they run."""
+
+    def __init__(self, n: int, ranked: bool, want_logprobs: bool, k: int):
+        self.n = n                  # branches returned
+        self.ranked = ranked        # best_of: rank by summed logprob
+        self.want_logprobs = want_logprobs
+        self.branches: List = [None] * k   # token lists as they finish
+        self.logprobs: List = [None] * k
+
+    def kept(self):
+        """(the kept branches, their logprob lists), best first when
+        ranked."""
+        order = range(self.n)
+        if self.ranked:
+            order = sorted(range(len(self.branches)),
+                           key=lambda i: -sum(self.logprobs[i]))[:self.n]
+        kept = [self.branches[i] for i in order]
+        kept_lp = [self.logprobs[i] for i in order]
+        if self.n == 1:  # best_of with n=1 reads like a plain request
+            return kept[0], kept_lp[0]
+        return kept, kept_lp
+
+
 class ServingEngine:
     """Continuous-batching scheduler over a :class:`ModernBatchServer`.
 
@@ -714,10 +926,14 @@ class ServingEngine:
     """
 
     def __init__(self, server: BatchServer, *, decode_steps: int = 8,
-                 max_batch: int = 64):
+                 max_batch: int = 64, on_token=None):
+        """``on_token(request_id, token)`` streams tokens as they are
+        accepted (after stop and budget filtering): once per emitted token,
+        in order, from :meth:`step`."""
         self.server = server
         self.decode_steps = decode_steps
         self.max_batch = max_batch
+        self.on_token = on_token
         self.pending = deque()       # (rid, prompt list, params, window)
         self.generated: Dict = {}    # rid -> [tokens so far]
         self.results: Dict = {}      # rid -> finished token list
@@ -728,7 +944,10 @@ class ServingEngine:
         self._reserve: Dict = {}     # rid -> worst-case total pages
         self._max_new: Dict = {}     # rid -> decode budget
         self._next_id = 0
-        self._retired = 0            # finished requests
+        self._retired = 0            # finished requests, fan-out branches too
+        # n / best_of fan-out: branch rids are (parent, i)
+        self._parent: Dict = {}      # branch rid -> parent rid
+        self._fan: Dict = {}         # parent -> _Fan
 
     def submit(self, prompt_tokens, params: Optional[SamplingParams] = None,
                request_id=None, adapter: Optional[str] = None,
@@ -737,13 +956,20 @@ class ServingEngine:
                best_of: Optional[int] = None):
         """Queue a request; returns its id. Decoding starts once pages are
         available (see :meth:`step`). ``window`` caps the request's
-        attention to its last ``window`` tokens."""
+        attention to its last ``window`` tokens.
+
+        ``n > 1`` fans the request into n independently sampled branches of
+        one prompt (under the server's prefix cache they share the prompt's
+        full pages): its result is then a list of n token lists (and
+        ``result_logprobs`` a list of n logprob lists). ``best_of = k >= n``
+        samples k branches and keeps the n of highest summed logprob, best
+        first (``n == 1`` with ``best_of`` returns a plain token list: the
+        best branch). Branch rids are ``(rid, i)``, as ``on_token`` sees
+        them. Fan-out needs ``temperature > 0``."""
         if adapter is not None:
             raise NotImplementedError("LoRA adapters")
         if constraint is not None:
             raise NotImplementedError("constrained decoding")
-        if n != 1 or best_of is not None:
-            raise NotImplementedError("n / best_of fan-out")
         rid = request_id if request_id is not None else f"req{self._next_id}"
         self._next_id += 1
         prompt = [int(t) for t in np.asarray(prompt_tokens).reshape(-1)]
@@ -760,6 +986,26 @@ class ServingEngine:
             raise NotImplementedError("sampling penalties")
         if window is not None and int(window) <= 0:
             raise ValueError("window must be a positive int")
+        if n < 1:
+            raise ValueError("n must be >= 1")
+        if best_of is not None and best_of < n:
+            raise ValueError("best_of must be >= n")
+        k = n if best_of is None else best_of
+        if k > 1:
+            if params.temperature == 0.0:
+                raise ValueError(
+                    "n/best_of > 1 requires temperature > 0 (greedy "
+                    "branches would be identical)")
+            ranked = best_of is not None
+            self._fan[rid] = _Fan(n, ranked, params.logprobs, k)
+            if ranked:
+                # ranking reads each branch's logprobs; they reach the
+                # result only where the caller asked for them
+                params = dataclasses.replace(params, logprobs=True)
+            for i in range(k):
+                self._parent[(rid, i)] = rid
+                self.pending.append(((rid, i), prompt, params, window))
+            return rid
         self.pending.append((rid, prompt, params, window))
         return rid
 
@@ -849,18 +1095,38 @@ class ServingEngine:
                 g.append(t)
                 if lp_tail is not None:
                     self._generated_lp[rid].append(lp_tail[i])
+                if self.on_token is not None:
+                    self.on_token(rid, t)
                 if len(g) >= self._max_new[rid]:
                     done = True
                     break
             if done:
                 finished[rid] = g
+        out = {}
         for rid in finished:
             self._retire(rid)
-            self.results[rid] = self.generated.pop(rid)
+            toks = self.generated.pop(rid)
             lp = self._generated_lp.pop(rid, None)
-            if lp is not None:
-                self.result_logprobs[rid] = lp
-        return {rid: self.results[rid] for rid in finished}
+            parent = self._parent.pop(rid, None)
+            if parent is None:
+                self.results[rid] = toks
+                if lp is not None:
+                    self.result_logprobs[rid] = lp
+                out[rid] = toks
+                continue
+            # a fan-out branch: the parent finishes, and is all that is
+            # reported, once every branch is in
+            fan = self._fan[parent]
+            fan.branches[rid[1]] = toks
+            fan.logprobs[rid[1]] = lp
+            if any(b is None for b in fan.branches):
+                continue
+            del self._fan[parent]
+            kept, kept_lp = fan.kept()
+            out[parent] = self.results[parent] = kept
+            if fan.want_logprobs:
+                self.result_logprobs[parent] = kept_lp
+        return out
 
     def _retire(self, rid) -> None:
         self.server.remove(rid)
@@ -881,8 +1147,20 @@ class ServingEngine:
 
     def cancel(self, rid) -> bool:
         """Abort a request, pending or in flight. Its KV pages free
-        immediately and it never appears in :attr:`results`. Returns False
-        when the id is unknown or already finished."""
+        immediately and it never appears in :attr:`results`. A fan-out
+        parent cancels every branch. Returns False when the id is unknown
+        or already finished."""
+        fan = self._fan.pop(rid, None)
+        if fan is not None:
+            cancelled = False
+            for i in range(len(fan.branches)):
+                if self._parent.pop((rid, i), None) is not None:
+                    cancelled |= self._cancel_leaf((rid, i))
+            return cancelled
+        self._parent.pop(rid, None)
+        return self._cancel_leaf(rid)
+
+    def _cancel_leaf(self, rid) -> bool:
         for i, entry in enumerate(self.pending):
             if entry[0] == rid:
                 del self.pending[i]
@@ -893,6 +1171,121 @@ class ServingEngine:
             self._generated_lp.pop(rid, None)
             return True
         return False
+
+
+class BeamSearchDecoder:
+    """Deterministic beam search over a paged server: every beam keeps
+    paged KV, and a step is ONE batched decode over the live beams. A beam
+    that branches forks (:meth:`BatchServer.fork`): the child shares the
+    parent's pages, and the first write into the shared tail page copies
+    it, so a fork never copies the KV history.
+
+    Scoring: the summed logprob, divided in the final ranking by ``len **
+    length_penalty`` (0: the plain sum, 1: the mean). ``early_stopping``
+    stops once ``beams`` finished hypotheses exist; otherwise the search
+    runs to ``max_tokens`` and unfinished beams compete with finished ones.
+
+    Usage:
+        server = ModernBatchServer(model, ..., enable_prefix_cache=True)
+        hyps = BeamSearchDecoder(server, beams=4).decode(
+            prompt, max_tokens=32, stop_tokens=(eos,))
+        best_tokens, best_score = hyps[0]
+    """
+
+    def __init__(self, server: BatchServer, *, beams: int = 4,
+                 length_penalty: float = 1.0, early_stopping: bool = True):
+        if not server.enable_prefix_cache:
+            raise ValueError(
+                "BeamSearchDecoder needs a server with "
+                "enable_prefix_cache=True (beam forks ride the refcount/COW "
+                "machinery)")
+        if beams < 1:
+            raise ValueError("beams must be >= 1")
+        self.server = server
+        self.beams = beams
+        self.length_penalty = length_penalty
+        self.early_stopping = early_stopping
+        self._n = 0
+
+    def _score(self, cum: float, length: int) -> float:
+        return cum / max(length, 1) ** self.length_penalty
+
+    def decode(self, prompt_tokens, *, max_tokens: int,
+               stop_tokens=()) -> List[Tuple[List[int], float]]:
+        """Beam-search one prompt; returns up to ``beams`` hypotheses as
+        ``(generated tokens, score)``, best first. Stop tokens are not
+        emitted."""
+        s = self.server
+        prompt = [int(t) for t in np.asarray(prompt_tokens).reshape(-1)]
+        if not prompt:
+            raise ValueError("empty prompt")
+        stop = set(int(t) for t in stop_tokens)
+        w = self.beams
+        tag = self._n
+        self._n += 1
+        root = ("_beam", tag, 0)
+        s.add(root, prompt)
+        live = [root]          # seq ids, one a live beam
+        toks = {root: []}      # generated tokens of each live beam
+        cums = {root: 0.0}     # summed logprob of each live beam
+        done: List[Tuple[List[int], float]] = []
+        next_child = 1
+        max_steps = min(int(max_tokens),
+                        s.model.context_length - len(prompt) + 1)
+        for _ in range(max_steps):
+            feed = torch.as_tensor([s.last_token[b] for b in live],
+                                   device=s.device)
+            logp = torch.log_softmax(s._advance(live, feed).float(), dim=-1)
+            k = min(2 * w, logp.shape[-1])
+            top_lp, top_ix = torch.topk(logp, k)
+            top_lp = top_lp.cpu().numpy()
+            top_ix = top_ix.cpu().numpy()
+            cands = sorted(
+                ((cums[b] + float(top_lp[i, j]), i, int(top_ix[i, j]))
+                 for i, b in enumerate(live) for j in range(k)),
+                key=lambda c: -c[0])
+            chosen = []
+            for score, i, t in cands:
+                if t in stop:
+                    b = live[i]
+                    done.append((list(toks[b]),
+                                 self._score(score, len(toks[b]) + 1)))
+                elif len(chosen) < w:
+                    chosen.append((score, i, t))
+            if self.early_stopping and len(done) >= w:
+                for b in live:
+                    s.remove(b)
+                live = []
+                break
+            # one child a parent continues in place, the others fork, all
+            # before any state of the parent changes
+            used = set()
+            new_live, new_toks, new_cums = [], {}, {}
+            for score, i, t in chosen:
+                parent = live[i]
+                if i not in used:
+                    used.add(i)
+                    bid = parent
+                else:
+                    bid = ("_beam", tag, next_child)
+                    next_child += 1
+                    s.fork(parent, bid)
+                new_live.append(bid)
+                new_toks[bid] = toks[parent] + [t]
+                new_cums[bid] = score
+            for i, b in enumerate(live):
+                if i not in used:
+                    s.remove(b)
+            for bid, (_, _, t) in zip(new_live, chosen):
+                s.last_token[bid] = t
+            live, toks, cums = new_live, new_toks, new_cums
+            if not live:  # every candidate finished
+                break
+        for b in live:  # out of budget: unfinished beams compete too
+            done.append((list(toks[b]), self._score(cums[b], len(toks[b]))))
+            s.remove(b)
+        done.sort(key=lambda h: -h[1])
+        return done[:w]
 
 
 class SpeculativeDecoder:

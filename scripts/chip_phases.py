@@ -5,6 +5,7 @@ lines), then the named parts only.
     python3 scripts/chip_phases.py [paged] [ragged] [ragged_bwd] [fwd]
         [flash] [wide] [any] [small] [train32] [openllama] [gemma]
         [openllama_train] [quant] [k8] [layouts] [spec] [layernorm]
+        [prefix]
 
 paged: phase 2 (the paged-attention kernels: the fixed kernel's edges,
 K6_WIDE's shapes and the key split's edges included, and the serving
@@ -39,7 +40,9 @@ against their contiguous copies, bit for bit); spec: phase 14
 steps, the greedy run's checks and figures, a profiled round, the sampled
 run); layernorm: phase 8's fused LayerNorm kernels (K5: the forward and
 the one-pass backward against their plain versions, two backward calls
-bit for bit, timed beside F.layer_norm). No argument runs them all.
+bit for bit, timed beside F.layer_norm); prefix: phase 15 (serving with
+a shared system prompt: the prefix cache in bf16 and int4, fan-out, beam
+search, the admission times). No argument runs them all.
 Every check raises as in chip_smoke.py.
 """
 
@@ -63,7 +66,7 @@ from lamp_tpu_torch.ops.paged_attention import (  # noqa: E402
 
 PARTS = ("paged", "ragged", "ragged_bwd", "fwd", "flash", "wide", "any",
          "small", "train32", "openllama", "gemma", "openllama_train", "quant",
-         "k8", "layouts", "spec", "layernorm")
+         "k8", "layouts", "spec", "layernorm", "prefix")
 
 
 def main(parts) -> int:
@@ -148,13 +151,16 @@ def main(parts) -> int:
 
         print(cs.phase_k8(Q, torch.Generator(device="cuda").manual_seed(0)),
               flush=True)
-    if "layouts" in parts or "spec" in parts:
+    if "layouts" in parts or "spec" in parts or "prefix" in parts:
         from lamp_tpu_torch.ops import quantization as Q
 
         if "layouts" in parts:
             cs.check_layouts(att, paged_attention, Q)
         if "spec" in parts:
             print(cs.phase_speculative(torch_nn, models, Q, paged_attention),
+                  flush=True)
+        if "prefix" in parts:
+            print(cs.phase_prefix(torch_nn, models, Q, cs.card()),
                   flush=True)
     if "layernorm" in parts:
         from lamp_tpu_torch.ops import fused_layernorm as FL

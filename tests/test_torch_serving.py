@@ -194,15 +194,13 @@ def test_unported_features_raise():
     engine = ServingEngine(ts)
     with pytest.raises(NotImplementedError, match="penalties"):
         ts.add("p", [1, 2], SamplingParams(presence_penalty=1.0))
-    with pytest.raises(NotImplementedError, match="fan-out"):
-        engine.submit([1, 2], SamplingParams(temperature=1.0), n=2)
     with pytest.raises(NotImplementedError, match="constrained"):
         engine.submit([1, 2], constraint="json")
     with pytest.raises(NotImplementedError, match="adapters"):
         ts.add("l", [1, 2], adapter="a")
-    for kw in (dict(enable_prefix_cache=True), dict(mesh=object())):
-        with pytest.raises(NotImplementedError):
-            ModernBatchServer(ts.model, page_size=PAGE, total_pages=4, **kw)
+    with pytest.raises(NotImplementedError):
+        ModernBatchServer(ts.model, page_size=PAGE, total_pages=4,
+                          mesh=object())
     with pytest.raises(ValueError, match="quantize_bits"):
         ModernBatchServer(ts.model, page_size=PAGE, total_pages=4,
                           quantize_bits=2)
