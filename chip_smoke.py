@@ -248,6 +248,47 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
    loop token for token, and the admission time (add, CUDA events) of a
    cold 287-token prompt and of a prefix hit, printed beside the card's
    name and power limit.
+16. Per-request controls at full width, on phase 3's model. Multi-LoRA:
+   four adapters from lora_inject with seeded non-zero B (rank 8 and 16 on
+   all 7 block projections, rank 16 on q and v, rank 4 on w1/w3/w2)
+   registered on ModernBatchServer(enable_prefix_cache=True); phase 3's
+   40 requests behind phase 15's system prompt, 8 to the base and 8 to
+   each adapter, 2 of each group greedy, through ServingEngine: no hit
+   crosses adapters (each admission's system pages carry its own group's
+   hashes; the hits equal the groups' pages cached at each admission,
+   5 x 7 x 256 when none is reclaimed; each group's first admission
+   misses), exact lengths, K6 12 times a decode step and a chunk prefill
+   (the 4 cold adapter prompts through the chunk path, the 35 hits'
+   tails), greedy tokens against the dense forward of each adapter's
+   lora_merge past MARGIN, the pool back with every group's system pages
+   cached. The same under quantize_bits=4 (K7: int4_mm_tc 61 times a cold
+   adapter prompt, int4_mm_decode 61 times a step and a tail; greedy
+   tokens against the dense f32 forward of the dequantized base plus the
+   adapter's f32 delta past phase 7's margin). Penalties, one engine run
+   on the bf16 server: 8 greedy requests at presence_penalty=1000 (every
+   request's tokens distinct), 8 greedy at repetition 1.3 + frequency 0.5
+   (each token the argmax of the dense forward's logits after the plain
+   apply_penalties, past MARGIN), 8 sampled with penalties, top-p and
+   logprobs (lengths, finite logprobs). JSON mode: json_value_regex(3)
+   compiled (and timed) over a seeded synthetic 32000-token vocabulary
+   (bytes, then strings of 2-6 printable bytes, EOS last), 8 requests
+   sampled at temperature 1.0 and 8 greedy to 64 tokens (half the greedy
+   prompts picked from 256 seeded ones for a first token that opens an
+   object or an array): every output walks the table without a dead
+   state, every output that ended at EOS parses, the greedy tokens equal
+   the masked dense argmax past MARGIN, at least 16 of them checked.
+   LoRADraftSpeculativeDecoder in phase 14's setting (int4 target, k = 4,
+   the draft lora_inject(draft_view(model, 3), rank=16) with seeded B):
+   1 to 4 tokens a round, int4_mm_tc 61 times a round, the draft's
+   decode-route and K6 launches, greedy tokens past phase 7's margin, the
+   draft's decode weights the target's tensors (the same objects and
+   data_ptr), both pools back; then 8 greedy requests through the draft
+   server alone under its adapter, against the dense f32 forward of the
+   dequantized draft plus the adapter's delta past phase 7's margin (and
+   the delta must move some checked token off the unadapted argmax). Then the steady step_many(8) at B=32 of a
+   batch mixing the base and the 4 adapters beside the same server's
+   base-only batch (tok/s, device time, ops and busy share of a profiled
+   call), beside the card's name and power limit.
 
 After phase 6, check_layouts holds flash_attention (forward and backward),
 paged_attention and int4_matmul given transposed views and offset slices
@@ -1215,7 +1256,8 @@ def profile_step(server):
     """torch.profiler over one steady step_many(8): the device's busy share
     of the wall time (a lower bound: tracing slows the host) and the
     kernels that take the most device time. Returns (device time us,
-    device ops, K6's device time us, K7's device time us) of the call."""
+    device ops, K6's device time us, K7's device time us, wall us) of the
+    call."""
     with traced() as trace:
         t0 = time.perf_counter()
         server.step_many(8)
@@ -1238,19 +1280,21 @@ def profile_step(server):
     print(f"  K6 (paged_attention) {k6:.0f} us, {100 * k6 / busy:.1f}% of "
           f"the device time" + (f"; K7 (int4_mm) {k7:.0f} us, "
                                 f"{100 * k7 / busy:.1f}%" if k7 else ""))
-    return busy, ops, k6, k7
+    return busy, ops, k6, k7, wall_us
 
 
-def serve_requests(models, server, system=()):
-    """Phase 3's 40 requests (prompts of 24-31 tokens, 36 sampled, 4
-    greedy, max_tokens 32-96), each behind the tokens ``system`` (phase
-    15's shared system prompt), through ServingEngine(decode_steps=8,
+def serve_requests(models, server, system=(), greedy=(3, 13, 23, 33),
+                   adapter_of=None):
+    """Phase 3's 40 requests (prompts of 24-31 tokens, 36 sampled, the 4
+    of ``greedy`` greedy, max_tokens 32-96), each behind the tokens
+    ``system`` (phase 15's shared system prompt) and under the adapter
+    ``adapter_of(i)`` (phase 16), through ServingEngine(decode_steps=8,
     max_batch=32), with every launch count set to 0 just before the run.
     Checks each result's length and range and that the page pool returns
     to its start. Returns (prompts, results, greedy ids, decode steps)."""
     engine = models.ServingEngine(server, decode_steps=8, max_batch=32)
     rng = np.random.RandomState(0)
-    greedy = {3, 13, 23, 33}
+    greedy = set(greedy)
     prompts, max_tokens = {}, {}
     for i in range(40):
         rid = f"r{i}"
@@ -1261,7 +1305,8 @@ def serve_requests(models, server, system=()):
                   if i in greedy else models.SamplingParams(
                       temperature=0.8, top_p=0.95,
                       max_tokens=max_tokens[rid]))
-        engine.submit(prompts[rid], params, request_id=rid)
+        engine.submit(prompts[rid], params, request_id=rid,
+                      adapter=adapter_of and adapter_of(i))
     free0 = server.available_pages
     # the main path's run: the launch counts cover exactly this
     reset_launch_counts()
@@ -1319,27 +1364,28 @@ def check_greedy(logits_of, prompts, results, greedy, margin, least=4):
         raise AssertionError("too few greedy tokens could be checked")
 
 
-def steady_decode(models, server, what):
-    """Steady decode rate of 32 requests with step_many(8) (CUDA events over
-    5 rounds after 2), then one profiled call. Returns tok/s, and the
-    device time (us) and device ops per decode step of the profiled
-    call."""
+def steady_decode(models, server, what, adapter_of=None):
+    """Steady decode rate of 32 requests (request i under the adapter
+    ``adapter_of(i)``) with step_many(8) (CUDA events over 5 rounds after
+    2), then one profiled call. Returns tok/s, and the device time (us)
+    and device ops per decode step of the profiled call."""
     rng = np.random.RandomState(0)
     for i in range(32):
         server.add(f"s{i}", rng.randint(0, VOCAB, 24 + i % 8).tolist(),
-                   models.SamplingParams(temperature=0.8))
+                   models.SamplingParams(temperature=0.8),
+                   adapter=adapter_of and adapter_of(i))
     server.step_many(8)
     server.step_many(8)
     ms = cuda_time_ms(lambda: server.step_many(8), 5, warmup=0)
     tok_s = 32 * 8 / (ms * 1e-3)
     print(f"  decode ({what}): step_many(8) at B=32 {ms:.2f} ms, "
           f"{ms / 8:.3f} ms/step, {tok_s:.1f} tok/s", flush=True)
-    busy, ops, k6, k7 = profile_step(server)
+    busy, ops, k6, k7, wall_us = profile_step(server)
     for i in range(32):
         server.remove(f"s{i}")
     return dict(tok_s=tok_s, device_us_per_step=busy / 8,
                 device_ops_per_step=ops / 8, k6_share=k6 / busy,
-                k7_share=k7 / busy)
+                k7_share=k7 / busy, busy_share=busy / wall_us)
 
 
 def make_serving_model(torch_nn):
@@ -3160,16 +3206,25 @@ class _RowMix(torch.nn.Module):
                            self.decode(x))
 
 
-def quantized_server_reference(model, Q, bits):
+def quantized_server_reference(model, Q, bits, adapter=None):
     """``logits_of(tokens, n_prompt)`` -> [T, V] f32: a dense f32 forward
     of what ModernBatchServer(quantize_bits=bits) computes for one
     sequence: the prefilled rows (all prompt tokens but the last) through
     the float weights, as the server's prefill; every later row through
     each decode matmul's quantized weight (int4: x times its round trip;
     int8: int8_matmul, which also quantizes x per row), and the logits
-    likewise through the tied logits matrix."""
+    likewise through the tied logits matrix. ``adapter`` (a lora_inject-ed
+    copy of ``model``, phase 16) adds each adapted projection's merged
+    delta A B scale, in f32, to both."""
     dense = copy.deepcopy(model).float()
     split = [0]
+
+    def delta(path):  # [in, out] f32, or None where nothing is adapted
+        mod = None if adapter is None else adapter.get_submodule(path)
+        if not hasattr(mod, "lora_a"):
+            return None
+        return (mod.lora_a.detach().float() @ mod.lora_b.detach().float()
+                ) * mod.scale
 
     def decode_matmul(wt):  # wt [in, out] f32, as the server packs it
         if bits == 8:
@@ -3179,13 +3234,20 @@ def quantized_server_reference(model, Q, bits):
         deq = Q.dequantize_int4(p, s, dtype=torch.float32)
         return lambda x: x @ deq
 
+    def plus(fn, d):
+        return fn if d is None else (lambda x: fn(x) + x @ d)
+
     with torch.no_grad():
-        for blk in dense.blocks:
-            for owner, name in ((blk, "w_q"), (blk, "w_k"), (blk, "w_v"),
-                                (blk, "w_o"), (blk.mlp, "w1"),
-                                (blk.mlp, "w3"), (blk.mlp, "w2")):
+        for li, blk in enumerate(dense.blocks):
+            for path in ("w_q", "w_k", "w_v", "w_o", "mlp.w1", "mlp.w3",
+                         "mlp.w2"):
+                owner_path, _, name = path.rpartition(".")
+                owner = blk.get_submodule(owner_path)
                 w = getattr(owner, name).weight.detach()
-                setattr(owner, name, _RowMix(w, decode_matmul(w.T), split))
+                d = delta(f"blocks.{li}.{path}")
+                setattr(owner, name, _RowMix(
+                    w if d is None else w + d.T,
+                    plus(decode_matmul(w.T), d), split))
         logits = decode_matmul(dense.output_weight.detach().T)  # [D, V]
 
     def logits_of(tokens, n_prompt):
@@ -3767,6 +3829,553 @@ def phase_prefix(torch_nn, models, Q, smi):
     out["admit_cold_ms"], out["admit_hit_ms"], out["admit_profiles"] = \
         admission_ms(server, system, smi)
     del server, model
+    torch.cuda.empty_cache()
+    return out
+
+
+# phase 16: per-request controls at full width on phase 3's model. Multi-
+# LoRA: LORA_SPECS adapters (name, rank, the projections adapted: None for
+# all 7) with B drawn at LORA_B_STD from a seed (lora_inject starts B at
+# 0), phase 3's 40 requests behind phase 15's system prompt, request i
+# under LORA_GROUPS[i // 8], CONTROL_GREEDY of them greedy (two a group);
+# penalties (PEN_BATCH requests of each kind); JSON mode over a seeded
+# synthetic vocabulary (JSON_DEPTH, JSON_SAMPLED requests at temperature
+# 1.0 and JSON_GREEDY greedy, JSON_TOKENS at most; half the greedy prompts
+# picked from JSON_POOL seeded candidates for a first token that opens an
+# object or an array; at least JSON_LEAST greedy tokens checked);
+# LoRA-draft speculation in phase 14's setting (the draft's adapter of
+# rank DRAFT_RANK; DRAFT_CHECK requests of DRAFT_CHECK_TOKENS through the
+# draft server alone, held to its dense reference)
+LORA_SPECS = (("r8", 8, None), ("r16", 16, None),
+              ("qv16", 16, ("w_q", "w_v")),
+              ("mlp4", 4, ("mlp.w1", "mlp.w3", "mlp.w2")))
+LORA_GROUPS = (None,) + tuple(name for name, _, _ in LORA_SPECS)
+LORA_B_STD = 0.05
+CONTROL_GREEDY = (3, 5, 11, 13, 19, 21, 27, 29, 35, 37)
+PEN_BATCH, PEN_TOKENS = 8, 48
+JSON_DEPTH, JSON_SAMPLED, JSON_TOKENS = 3, 8, 64
+JSON_GREEDY, JSON_POOL, JSON_LEAST = 8, 256, 16
+DRAFT_RANK, DRAFT_CHECK, DRAFT_CHECK_TOKENS = 16, 8, 32
+
+
+def seeded_adapter(torch_nn, model, rank, seed, match=None):
+    """lora_inject(model) with A and B drawn from ``seed`` (B at
+    LORA_B_STD, so that the adapter changes the outputs)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    tuned = torch_nn.lora_inject(model, rank=rank, generator=gen,
+                                 match=match)
+    with torch.no_grad():
+        for m in tuned.modules():
+            if type(m) is torch_nn.LoRALinear:
+                m.lora_b.copy_(torch.randn(
+                    m.lora_b.shape, generator=gen, device="cuda")
+                    * LORA_B_STD)
+    return tuned
+
+
+def make_adapters(torch_nn, model):
+    """LORA_SPECS as {name: lora_inject-ed model}, each from its own
+    seed."""
+    out = {}
+    for i, (name, rank, projs) in enumerate(LORA_SPECS):
+        match = None if projs is None else (lambda p, e=projs: p.endswith(e))
+        out[name] = seeded_adapter(torch_nn, model, rank, 160 + i, match)
+    return out
+
+
+def watch_admissions(server, system):
+    """Wrap ``server.add`` for one engine run: before each admission note
+    how many of its group's system pages are cached (the tokens it must
+    hit), after it check that its first pages carry its own group's
+    hashes (no hit crosses adapters). Returns the record: {"hit": tokens
+    that must hit, "chunks": prefills through the chunk path (a hit's
+    tail, or an adapter's whole cold prompt), "cold": cold admissions by
+    group}."""
+    add = server.add
+    record = dict(hit=0, chunks=0, cold={})
+
+    def salt(adapter):
+        aidx = server._adapter_index(adapter)
+        return f"{aidx}:None".encode() if aidx else b""
+
+    hashes = {g: server._prefix_hashes(system, salt(g)) for g in LORA_GROUPS}
+
+    def watched(rid, prompt, params=None, adapter=None, window=None,
+                constraint=None):
+        want = hashes[adapter]
+        cached = 0
+        while cached < len(want) and want[cached] in server._hash_to_page:
+            cached += 1
+        add(rid, prompt, params, adapter=adapter, window=window,
+            constraint=constraint)
+        pages = server.seq_pages[rid][:len(want)]
+        if [server._page_hash.get(p) for p in pages] != want:
+            raise AssertionError(f"{rid} ({adapter}): its system pages do "
+                                 f"not carry its group's hashes")
+        record["hit"] += cached * PAGE
+        record["chunks"] += bool(cached or adapter)
+        if not cached:
+            record["cold"][adapter] = record["cold"].get(adapter, 0) + 1
+
+    server.add = watched
+    return record
+
+
+def serve_adapters(models, server, system, refs, margin):
+    """Phase 3's 40 requests behind ``system``, request i under adapter
+    LORA_GROUPS[i // 8], through serve_requests on a prefix-cache server
+    with every adapter registered. Checks the hits (admission by
+    admission, watch_admissions), that each group's first admission
+    missed, the pool back at its start with every group's system pages
+    cached, and each greedy request against ``refs[group]`` (a
+    check_greedy ``logits_of``) past ``margin``. Returns (decode steps,
+    chunk prefills, the cold adapter prompts, launch counts)."""
+    record = watch_admissions(server, system)
+    hits0 = server.cache_hit_tokens
+    try:
+        prompts, results, greedy, steps = serve_requests(
+            models, server, system, CONTROL_GREEDY,
+            adapter_of=lambda i: LORA_GROUPS[i // 8])
+    finally:
+        del server.add
+    counts = launch_counts()
+    hit = server.cache_hit_tokens - hits0
+    cached = server.available_pages - len(server.free_pages)
+    cold_adapters = sum(n for g, n in record["cold"].items() if g)
+    print(f"  prefix cache: {hit} tokens hit (want {record['hit']} from the "
+          f"groups' pages cached at each admission; "
+          f"{len(LORA_GROUPS) * (40 // len(LORA_GROUPS) - 1) * SYSTEM} if "
+          f"no system page is reclaimed); cold admissions by group "
+          f"{record['cold']}; {steps} decode steps, {record['chunks']} chunk "
+          f"prefills ({cold_adapters} cold adapter prompts); {cached} pages "
+          f"cached after the run", flush=True)
+    if hit != record["hit"]:
+        raise AssertionError("the prefix cache's hits")
+    if sorted(record["cold"], key=str) != sorted(LORA_GROUPS, key=str):
+        raise AssertionError("a group's first admission did not miss")
+    if cached != len(LORA_GROUPS) * (SYSTEM // PAGE):
+        raise AssertionError(f"{cached} cached pages after the run")
+    for g, group in enumerate(LORA_GROUPS):
+        ids = [f"r{i}" for i in CONTROL_GREEDY if i // 8 == g]
+        print(f"  {group or 'base'}:", end="")
+        check_greedy(refs[group], prompts, results, ids, margin)
+    return steps, record["chunks"], cold_adapters, counts
+
+
+def dense_penalized(model, prompt, toks, sp, apply_penalties):
+    """The dense forward's logits at each generated position after the
+    plain apply_penalties with the counts of the tokens before it."""
+    with torch.no_grad():
+        seq = prompt + toks
+        logits = model(torch.as_tensor([seq[:-1]], device="cuda"))[0]
+        rows = logits[len(prompt) - 1:].float()
+        n, v = rows.shape
+        counts = torch.zeros((n, v), dtype=torch.int32, device="cuda")
+        for j in range(1, n):
+            counts[j] = counts[j - 1]
+            counts[j, toks[j - 1]] += 1
+        pmask = torch.zeros((n, v), dtype=torch.bool, device="cuda")
+        pmask[:, prompt] = True
+
+        def col(x):
+            return torch.full((n,), x, dtype=torch.float32, device="cuda")
+
+        return apply_penalties(rows, counts, pmask,
+                               col(sp.presence_penalty),
+                               col(sp.frequency_penalty),
+                               col(sp.repetition_penalty))
+
+
+def serve_penalties(models, model, server):
+    """One engine run on the bf16 server: PEN_BATCH greedy requests at
+    presence 1000 (every request's tokens distinct), PEN_BATCH greedy at
+    repetition 1.3 + frequency 0.5 (each token the argmax of the dense
+    forward's logits after the plain apply_penalties, past MARGIN) and
+    PEN_BATCH sampled at temperature 0.8 with penalties, top-p and
+    logprobs (lengths, finite logprobs). Returns (decode steps, K6
+    launches)."""
+    rng = np.random.RandomState(0)
+    kinds = {"pres": models.SamplingParams(presence_penalty=1000.0,
+                                           max_tokens=PEN_TOKENS),
+             "rep": models.SamplingParams(repetition_penalty=1.3,
+                                          frequency_penalty=0.5,
+                                          max_tokens=PEN_TOKENS),
+             "samp": models.SamplingParams(
+                 temperature=0.8, top_p=0.95, presence_penalty=0.5,
+                 frequency_penalty=0.2, repetition_penalty=1.1,
+                 logprobs=True, max_tokens=PEN_TOKENS)}
+    engine = models.ServingEngine(server, decode_steps=8, max_batch=32)
+    prompts = {}
+    for kind, sp in kinds.items():
+        for i in range(PEN_BATCH):
+            rid = f"{kind}{i}"
+            prompts[rid] = rng.randint(0, VOCAB, 24 + i % 8).tolist()
+            engine.submit(prompts[rid], sp, request_id=rid)
+    free0 = server.available_pages
+    reset_launch_counts()
+    steps0 = server.steps_decoded
+    results = engine.run()
+    steps = server.steps_decoded - steps0
+    k6 = launch_counts()["paged_attention"]
+    if any(len(results[rid]) != PEN_TOKENS for rid in prompts):
+        raise AssertionError("penalties: a result's length")
+    repeats = [rid for rid in prompts if rid.startswith("pres")
+               and len(set(results[rid])) != PEN_TOKENS]
+    if repeats:
+        raise AssertionError(f"presence 1000: repeated tokens in {repeats}")
+    lps = [lp for i in range(PEN_BATCH)
+           for lp in engine.result_logprobs[f"samp{i}"]]
+    if len(lps) != PEN_BATCH * PEN_TOKENS or not np.all(np.isfinite(lps)):
+        raise AssertionError("penalties: the sampled requests' logprobs")
+    checked = total = 0
+    for i in range(PEN_BATCH):
+        rid = f"rep{i}"
+        logits = dense_penalized(model, prompts[rid], results[rid],
+                                 kinds["rep"], models.apply_penalties)
+        top = logits.topk(2, dim=-1)
+        gap = (top.values[:, 0] - top.values[:, 1]).cpu().numpy()
+        arg = top.indices[:, 0].cpu().numpy()
+        for j, tok in enumerate(results[rid]):
+            total += 1
+            if gap[j] > MARGIN:
+                checked += 1
+                if tok != arg[j]:
+                    raise AssertionError(
+                        f"{rid} token {j}: {tok} != the penalized dense "
+                        f"argmax {arg[j]} (margin {gap[j]:.3f})")
+    print(f"  penalties: {3 * PEN_BATCH} requests, {steps} decode steps; "
+          f"presence 1000: every request's {PEN_TOKENS} tokens distinct; "
+          f"repetition 1.3 + frequency 0.5: {checked} of {total} tokens past "
+          f"the {MARGIN} margin equal the penalized dense argmax; sampled: "
+          f"{len(lps)} finite logprobs", flush=True)
+    if checked < total // 4:
+        raise AssertionError("too few penalized tokens could be checked")
+    check_launches("paged_attention (penalties)", k6, BLOCKS * steps)
+    if server.available_pages != free0 or server.seq_pages:
+        raise AssertionError("penalties: the page pool did not return")
+    return steps, k6
+
+
+def synthetic_vocab():
+    """Token i < 256: the byte i; tokens 256 .. VOCAB - 2: seeded strings
+    of 2-6 printable ASCII bytes; token VOCAB - 1: EOS, empty."""
+    rng = np.random.RandomState(16)
+    vocab = [bytes([i]) for i in range(256)]
+    for _ in range(256, VOCAB - 1):
+        vocab.append(bytes(rng.randint(0x20, 0x7f,
+                                       rng.randint(2, 7)).tolist()))
+    return vocab + [b""]
+
+
+def masked_rows(dfa, state):
+    """The allowed tokens of the DFA's ``state`` as a bool tensor on the
+    card."""
+    return torch.as_tensor(dfa.table[state] >= 0, device="cuda")
+
+
+def json_prompts(model, dfa, vocab, rng):
+    """JSON_POOL seeded prompts of 28 tokens; returns (JSON_GREEDY greedy
+    prompts, JSON_SAMPLED sampled ones). The first half of the greedy ones
+    are pool prompts whose first masked dense argmax opens an object or an
+    array (as many as the pool holds), the rest the pool's others in
+    order, so that the greedy check walks nested states too."""
+    pool = rng.randint(0, VOCAB, (JSON_POOL, 28))
+    with torch.no_grad():
+        last = torch.cat([model(torch.as_tensor(pool[i:i + 64],
+                                                device="cuda"))[:, -1]
+                          for i in range(0, JSON_POOL, 64)]).float()
+    first = torch.where(masked_rows(dfa, dfa.start), last,
+                        -torch.inf).argmax(-1).tolist()
+    opens = [i for i, t in enumerate(first) if vocab[t][:1] in (b"{", b"[")]
+    rest = [i for i in range(JSON_POOL) if i not in opens]
+    picked = opens[:JSON_GREEDY // 2]
+    picked += rest[:JSON_GREEDY - len(picked)]
+    sampled = [i for i in rest if i not in picked][:JSON_SAMPLED]
+    return ([pool[i].tolist() for i in picked],
+            [pool[i].tolist() for i in sampled])
+
+
+def serve_json(models, model, server):
+    """JSON mode: json_value_regex(JSON_DEPTH) compiled over
+    synthetic_vocab() with EOS = VOCAB - 1 (the compile timed), registered
+    on the bf16 server; JSON_GREEDY greedy requests (json_prompts) and
+    JSON_SAMPLED at temperature 1.0 in one engine run, at most JSON_TOKENS
+    tokens, stopping at EOS. Every output must walk the table without a
+    dead state, every output that ended at EOS must parse (json.loads; the
+    DFA works on bytes, so they are read back with surrogateescape), and
+    every greedy token must equal the masked dense argmax wherever its
+    margin exceeds MARGIN, at least JSON_LEAST of them and a quarter of
+    all. Returns (compile s, states, decode steps, K6 launches)."""
+    from lamp_tpu_torch.models.constrained import TokenDFA, json_value_regex
+
+    vocab = synthetic_vocab()
+    eos = VOCAB - 1
+    t0 = time.perf_counter()
+    dfa = TokenDFA.compile(json_value_regex(max_depth=JSON_DEPTH), vocab,
+                           eos_token=eos)
+    compile_s = time.perf_counter() - t0
+    print(f"  JSON (depth {JSON_DEPTH}) over a {VOCAB}-token vocabulary: "
+          f"{dfa.n_states} states compiled in {compile_s:.2f} s, a "
+          f"{dfa.table.nbytes / 2**20:.1f} MiB table", flush=True)
+    server.register_constraint("json", dfa)
+    greedy, sampled = json_prompts(model, dfa, vocab,
+                                   np.random.RandomState(3))
+    engine = models.ServingEngine(server, decode_steps=8, max_batch=32)
+    prompts = {}
+    for i, p in enumerate(greedy + sampled):
+        rid = f"g{i}" if i < len(greedy) else f"s{i - len(greedy)}"
+        prompts[rid] = p
+        engine.submit(p, models.SamplingParams(
+            temperature=1.0 if rid[0] == "s" else 0.0,
+            max_tokens=JSON_TOKENS, stop_tokens=(eos,)), request_id=rid,
+            constraint="json")
+    free0 = server.available_pages
+    reset_launch_counts()
+    steps0 = server.steps_decoded
+    results = engine.run()
+    steps = server.steps_decoded - steps0
+    k6 = launch_counts()["paged_attention"]
+    parsed = 0
+    for rid, toks in results.items():
+        st = dfa.start
+        for t in toks:
+            st = int(dfa.table[st, t])
+            if st < 0:
+                raise AssertionError(f"{rid}: token {t} leaves the grammar")
+        if len(toks) < JSON_TOKENS:  # ended at EOS: a complete value
+            if not dfa.accepting[st]:
+                raise AssertionError(f"{rid}: stopped outside an accepting "
+                                     f"state")
+            json.loads(b"".join(vocab[t] for t in toks).decode(
+                "utf-8", "surrogateescape"))
+            parsed += 1
+    checked = total = 0
+    for rid in (r for r in prompts if r[0] == "g"):
+        toks = results[rid]
+        with torch.no_grad():
+            logits = model(torch.as_tensor([prompts[rid] + toks[:-1]],
+                                           device="cuda"))[0].float()
+        rows = logits[len(prompts[rid]) - 1:]
+        st = dfa.start
+        for j, tok in enumerate(toks):
+            top = torch.where(masked_rows(dfa, st), rows[j],
+                              -torch.inf).topk(2)
+            total += 1
+            if float(top.values[0] - top.values[1]) > MARGIN:
+                checked += 1
+                if tok != int(top.indices[0]):
+                    raise AssertionError(
+                        f"{rid} token {j}: {tok} != the masked dense "
+                        f"argmax {int(top.indices[0])}")
+            st = int(dfa.table[st, tok])
+    nested = sum(b"".join(vocab[t] for t in results[r])[:1] in (b"{", b"[")
+                 for r in prompts if r[0] == "g")
+    print(f"  JSON mode: {len(results)} requests, {steps} decode steps, "
+          f"{parsed} ended at EOS and parse; lengths "
+          f"{[len(results[r]) for r in prompts]}; greedy: {checked} of "
+          f"{total} tokens past the {MARGIN} margin equal the masked dense "
+          f"argmax, {nested} of {len(greedy)} outputs open an object or an "
+          f"array; g0 = {b''.join(vocab[t] for t in results['g0'])[:80]!r}",
+          flush=True)
+    if checked < max(JSON_LEAST, total // 4):
+        raise AssertionError("too few constrained tokens could be checked")
+    check_launches("paged_attention (JSON)", k6, BLOCKS * steps)
+    if server.available_pages != free0 or server.seq_pages:
+        raise AssertionError("JSON: the page pool did not return")
+    return compile_s, dfa.n_states, steps, k6
+
+
+def lora_draft_speculative(torch_nn, models, Q, model):
+    """LoRADraftSpeculativeDecoder in phase 14's setting: the target under
+    quantize_bits=4, the draft lora_inject(draft_view(model,
+    SPEC_DRAFT_BLOCKS), rank=DRAFT_RANK) with seeded B, k = SPEC_K, the
+    first SPEC_BATCH prompts greedy to SPEC_TOKENS. Checks 1 to k tokens a
+    round (run_speculative), int4_mm_tc 61 times a round, the draft's
+    decode route and K6 launches, the greedy tokens against the dense f32
+    forward of the dequantized target past QMARGIN, that the draft's
+    decode weights are the target's tensors, and both pools back at their
+    start. Returns the figures."""
+    lora = seeded_adapter(
+        torch_nn, models.draft_view(model, SPEC_DRAFT_BLOCKS), DRAFT_RANK,
+        170)
+    spec = models.LoRADraftSpeculativeDecoder(
+        model, lora, k=SPEC_K, page_size=PAGE, total_pages=TOTAL_PAGES,
+        quantize_bits=4)
+    te, de = spec.target._extras, spec.draft._extras
+
+    def flat(extras):
+        out = []
+        for group in extras[:-1]:
+            for w in group:
+                out += list(w)
+        return out + list(extras[-1])
+
+    shared = flat(de)
+    own = flat((*[g[:SPEC_DRAFT_BLOCKS] for g in te[:-1]], te[-1]))
+    if len(shared) != len(own) or not all(
+            d is t and d.data_ptr() == t.data_ptr()
+            for d, t in zip(shared, own)):
+        raise AssertionError("the draft's weights are not the target's")
+    prompts = spec_prompts()
+    free0 = (len(spec.target.free_pages), len(spec.draft.free_pages))
+    out, rounds, full, wall = run_speculative(spec, prompts, SPEC_TOKENS)
+    counts = launch_counts()
+    emitted = sum(len(v) for v in out.values())
+    draft_calls = (SPEC_K - 1) * rounds + full
+    check_launches("int4_mm_tc (the target's chunks)", counts["int4_mm_tc"],
+                   K7_PER_STEP * rounds)
+    check_launches("int4_mm_decode (the draft's steps)",
+                   counts["int4_matmul"] - counts["int4_mm_tc"],
+                   (5 * SPEC_DRAFT_BLOCKS + 1) * draft_calls)
+    check_launches("paged_attention", counts["paged_attention"],
+                   BLOCKS * rounds + SPEC_DRAFT_BLOCKS * draft_calls)
+    per_seq = emitted / (rounds * SPEC_BATCH)
+    print(f"  LoRA draft (rank {DRAFT_RANK}, {SPEC_DRAFT_BLOCKS} blocks on "
+          f"the target's {len(shared)} int4 tensors): {rounds} rounds, "
+          f"{emitted} tokens in {wall:.2f} s ({emitted / wall:.1f} tok/s), "
+          f"{per_seq:.3f} tokens a sequence a round, every proposal "
+          f"accepted in {full} of {rounds * SPEC_BATCH}", flush=True)
+    ids = list(prompts)
+    check_greedy(quantized_server_reference(model, Q, 4), prompts,
+                 {rid: v[:SPEC_TOKENS] for rid, v in out.items()}, ids,
+                 QMARGIN)
+    for rid in ids:
+        spec.remove(rid)
+    if (len(spec.target.free_pages), len(spec.draft.free_pages)) != free0:
+        raise AssertionError("a page pool did not return to its start")
+    check_draft_adapter(models, Q, model, spec, lora)
+    if len(spec.draft.free_pages) != free0[1]:
+        raise AssertionError("the draft's page pool did not return")
+    return dict(rounds=rounds, emitted=emitted, tok_s=emitted / wall,
+                per_seq_round=per_seq, full=full,
+                tc_launches=counts["int4_mm_tc"],
+                decode_launches=counts["int4_matmul"] - counts["int4_mm_tc"],
+                k6=counts["paged_attention"])
+
+
+def check_draft_adapter(models, Q, model, spec, lora):
+    """The LoRA draft's own logits, which the speculative run's greedy
+    check cannot see (a wrong draft only lowers acceptance): DRAFT_CHECK
+    greedy requests of DRAFT_CHECK_TOKENS through a ServingEngine on the
+    draft server alone under its adapter, each token against the dense f32
+    forward of the dequantized draft view plus the adapter's f32 delta
+    (every row through the int4 weights: an adapter's prompt prefills on
+    the chunk path) past QMARGIN. The same forward without the delta must
+    disagree with the tokens at some checked position, so that the check
+    sees the delta. Its launches come after the phase's counts were
+    read."""
+    view = models.draft_view(model, SPEC_DRAFT_BLOCKS)
+    tuned = quantized_server_reference(view, Q, 4, lora)
+    plain = quantized_server_reference(view, Q, 4)
+    engine = models.ServingEngine(spec.draft, decode_steps=8, max_batch=32)
+    prompts = dict(list(spec_prompts().items())[:DRAFT_CHECK])
+    for rid, p in prompts.items():
+        engine.submit(p, models.SamplingParams(max_tokens=DRAFT_CHECK_TOKENS),
+                      request_id=rid, adapter="draft")
+    results = engine.run()
+    checked = total = moved = 0
+    with torch.no_grad():
+        for rid, toks in results.items():
+            seq = torch.as_tensor([prompts[rid] + toks[:-1]], device="cuda")
+            n = len(prompts[rid]) - 1
+            top = tuned(seq, 1)[n:].topk(2, dim=-1)
+            base = plain(seq, 1)[n:].argmax(-1).tolist()
+            gap = (top.values[:, 0] - top.values[:, 1]).tolist()
+            for j, tok in enumerate(toks):
+                total += 1
+                if gap[j] > QMARGIN:
+                    checked += 1
+                    if tok != int(top.indices[j, 0]):
+                        raise AssertionError(
+                            f"draft {rid} token {j}: {tok} != the adapted "
+                            f"dense argmax {int(top.indices[j, 0])}")
+                    moved += tok != base[j]
+    print(f"  the LoRA draft alone: {checked} of {total} greedy tokens past "
+          f"the {QMARGIN} margin equal the adapted dense argmax; the "
+          f"adapter's delta moves {moved} of them off the unadapted "
+          f"argmax", flush=True)
+    if checked < total // 4 or not moved:
+        raise AssertionError("the LoRA draft's check saw too little")
+
+
+def phase_controls(torch_nn, models, Q, smi):
+    """Phase 16: per-request controls at full width: multi-LoRA serving in
+    bf16 and under quantize_bits=4 (prefix cache on, 4 adapters and the
+    base), penalties, JSON mode, LoRA-draft speculation, and the mixed-
+    adapter decode step beside the base-only one. Returns the figures."""
+    model = make_serving_model(torch_nn)
+    adapters = make_adapters(torch_nn, model)
+    system = np.random.RandomState(15).randint(0, VOCAB, SYSTEM).tolist()
+    kw = dict(page_size=PAGE, total_pages=TOTAL_PAGES,
+              enable_prefix_cache=True)
+    out = {}
+
+    server = models.ModernBatchServer(model, **kw)
+    for name, tuned in adapters.items():
+        server.register_adapter(name, tuned)
+    refs = {None: lambda t, _: model(t)[0]}
+    merged = {}
+    for name, tuned in adapters.items():
+        merged[name] = torch_nn.lora_merge(tuned)
+        refs[name] = lambda t, _, m=merged[name]: m(t)[0]
+    steps, chunks, cold, counts = serve_adapters(models, server, system,
+                                                 refs, MARGIN)
+    check_launches("paged_attention (multi-LoRA)",
+                   counts["paged_attention"], BLOCKS * (steps + chunks))
+    out.update(k6_lora=counts["paged_attention"], steps=steps,
+               chunks=chunks, cold=cold)
+    del merged, refs
+    torch.cuda.empty_cache()
+
+    server4 = models.ModernBatchServer(model, quantize_bits=4, **kw)
+    for name, tuned in adapters.items():
+        server4.register_adapter(name, tuned)
+    refs4 = {}
+    for group in LORA_GROUPS:
+        ref = quantized_server_reference(
+            model, Q, 4, None if group is None else adapters[group])
+        # the base group's system rows come from its cold request's dense
+        # prefill on the float weights; an adapter's cold prompt runs the
+        # int4 chunk path, so all its rows are int4 rows
+        refs4[group] = (lambda t, _, r=ref: r(t, SYSTEM + 1)) \
+            if group is None else (lambda t, _, r=ref: r(t, 1))
+    steps4, chunks4, cold4, counts4 = serve_adapters(
+        models, server4, system, refs4, QMARGIN)
+    tc4 = counts4["int4_mm_tc"]
+    check_launches("int4_mm_tc (the cold adapter prompts)", tc4,
+                   K7_PER_STEP * cold4)
+    check_launches("int4_mm_decode (decode steps and tails)",
+                   counts4["int4_matmul"] - tc4,
+                   K7_PER_STEP * (steps4 + chunks4 - cold4))
+    if counts4["int4_matmul_f32"] or counts4["int4_mm_scalar"]:
+        raise AssertionError("a K7 call of phase 16 left the bf16 routes")
+    check_launches("paged_attention (multi-LoRA, int4)",
+                   counts4["paged_attention"], BLOCKS * (steps4 + chunks4))
+    out.update(k6_lora4=counts4["paged_attention"], steps4=steps4,
+               chunks4=chunks4, cold4=cold4, k7_tc=tc4,
+               k7_decode=counts4["int4_matmul"] - tc4)
+    del server4, refs4
+    torch.cuda.empty_cache()
+
+    out["pen_steps"], out["k6_pen"] = serve_penalties(models, model, server)
+    (out["json_compile_s"], out["json_states"], out["json_steps"],
+     out["k6_json"]) = serve_json(models, model, server)
+
+    groups = LORA_GROUPS
+    mixed = steady_decode(models, server, "mixed adapters",
+                          adapter_of=lambda i: groups[i % len(groups)])
+    base = steady_decode(models, server, "base only")
+    for what, d in (("mixed adapters", mixed), ("base only", base)):
+        print(f"  steady decode, {what}: {d['tok_s']:.1f} tok/s; profiled "
+              f"step {d['device_us_per_step']:.1f} us of device time, "
+              f"{d['device_ops_per_step']:.1f} device ops, device busy "
+              f"{100 * d['busy_share']:.1f}% | {smi}", flush=True)
+    out.update(decode_mixed=mixed, decode_base=base)
+    del server
+    torch.cuda.empty_cache()
+
+    out["draft"] = lora_draft_speculative(torch_nn, models, Q, model)
+    del model, adapters
     torch.cuda.empty_cache()
     return out
 
@@ -4501,6 +5110,9 @@ def main() -> int:
     print("phase 15: serving with a shared system prompt at full width "
           "(prefix cache, fan-out, beam search)", flush=True)
     prefix = phase_prefix(torch_nn, models, Q, smi)
+    print("phase 16: per-request controls at full width (multi-LoRA, "
+          "penalties, JSON mode, LoRA-draft speculation)", flush=True)
+    controls = phase_controls(torch_nn, models, Q, smi)
     tc_by = {c["tc"][f"M={SPEC_ROWS}"]["bound_by"]
              for c in k7["per_call"].values()}
     k7_tc = dict(k7["tc_round"], launches=spec["tc_launches"],
@@ -4566,6 +5178,23 @@ def main() -> int:
         admission=dict(cold_ms=prefix["admit_cold_ms"],
                        hit_ms=prefix["admit_hit_ms"],
                        profiles=prefix["admit_profiles"]))
+    rows[0]["controls"] = dict(
+        launches=(controls["k6_lora"] + controls["k6_lora4"]
+                  + controls["k6_pen"] + controls["k6_json"]
+                  + controls["draft"]["k6"]),
+        note="phase 16 (per-request controls): multi-LoRA serving's decode "
+             "steps and chunk prefills (the cold adapter prompts and the "
+             "hits' tails) in bf16 and under int4, the penalties' and JSON "
+             "mode's decode steps, and the LoRA-draft decoder's target "
+             "chunks and draft steps",
+        multi_lora=dict(bf16=controls["k6_lora"], int4=controls["k6_lora4"],
+                        decode_steps=controls["steps"],
+                        chunk_prefills=controls["chunks"],
+                        cold_adapter_prompts=controls["cold"]),
+        decode_mixed_adapters=controls["decode_mixed"],
+        decode_base_only=controls["decode_base"],
+        json=dict(compile_s=controls["json_compile_s"],
+                  states=controls["json_states"]))
     rows[1]["note"] = ("the same on an e4m3 pool; launches: phase 7's fp8-KV "
                        "requests")
     for i, what in ((0, "bf16"), (1, "fp8")):
@@ -4708,6 +5337,11 @@ def main() -> int:
         launches=prefix["k7"],
         note="phase 15's int4 server: 61 a decode step and a suffix "
              "prefill (23-30 rows of one sequence), all on int4_mm_decode")
+    row["controls"] = dict(
+        launches=controls["k7_decode"] + controls["draft"]["decode_launches"],
+        note="phase 16: the int4 multi-LoRA server's decode steps and "
+             "tails (61 each) and the LoRA draft's steps (16 each), all on "
+             "int4_mm_decode")
     rows.append(row)
     row = dict(name="int4_matmul_tc", **k7_src, **k7_tc)
     row = {k: row[k] for k in keys}
@@ -4718,6 +5352,13 @@ def main() -> int:
     row["speculative"] = {key: spec[key] for key in (
         "rounds", "emitted", "tok_s", "per_seq_round", "tc_launches",
         "round_device_us", "round_ops", "tc_share", "chunk_err")}
+    row["controls"] = dict(
+        launches=controls["k7_tc"] + controls["draft"]["tc_launches"],
+        note="phase 16: the int4 multi-LoRA server's cold adapter prompts "
+             "(one chunk of 279-286 rows each) and the LoRA-draft "
+             "decoder's target chunks (128 rows)",
+        lora_draft={key: controls["draft"][key] for key in (
+            "rounds", "emitted", "tok_s", "per_seq_round", "full")})
     rows.append(row)
     row = dict(name="int4_matmul_f32", **k7_src, **k7_f32)
     row = {k: row[k] for k in keys}

@@ -18,8 +18,12 @@ int4 matmul kernel and fp8 KV pools; ``ops.quantize_model``), the fused
 AdamW with stochastic rounding (``ops.AdamWStochastic``) and the opt-in
 fused LayerNorm (``ops.fused_layernorm``), and packed-document ModernLM
 training (``data.pack_documents``, ``nn.ModernLM.loss`` over
-``ops.fused_lm_loss`` and the flash-attention kernels with segment ids);
-``bridge.load_modern_lm``, ``bridge.load_language_model``,
+``ops.fused_lm_loss`` and the flash-attention kernels with segment ids),
+and the serving path's per-request controls (penalties, constrained
+decoding over ``models.TokenDFA``, multi-LoRA adapters from
+``nn.lora_inject`` and ``models.LoRADraftSpeculativeDecoder``);
+``bridge.load_modern_lm`` (LoRA factors included),
+``bridge.load_language_model``,
 ``bridge.load_quantized_linear`` and ``bridge.load_adamw_state`` carry a JAX
 model's weights, quantized layers and optimizer state across.
 """

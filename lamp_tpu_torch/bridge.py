@@ -19,6 +19,7 @@ import torch
 
 from .nn.layers import Embedding, LayerNorm, Linear
 from .nn.lm import LanguageModelModule
+from .nn.lora import LoRALinear
 from .nn.modern import LlamaBlock, ModernLM, RMSNorm, SwiGLU
 from .nn.transformer import (MultiheadAttention, TransformerEncoder,
                              TransformerEncoderBlock)
@@ -48,14 +49,22 @@ def _tensor(a, dtype, device):
 
 def load_modern_lm(params: Dict[str, np.ndarray], *, device="cuda",
                    dtype=torch.float32, window=None,
-                   norm_eps: float = 1e-6) -> ModernLM:
+                   norm_eps: float = 1e-6,
+                   lora_scale: float = 1.0) -> ModernLM:
     """Build a :class:`~lamp_tpu_torch.nn.ModernLM` from the parameters of a
     ``lamp_tpu.nn.ModernLM``. Shapes give the vocabulary, width, depth,
     heads (head_dim from the RoPE table), kv heads, MLP width, context and
     whether the embedding is tied; ``window`` (an int, or one entry per
     block) and ``norm_eps`` are not parameters and are passed as in
     ``ModernLM.init``. Weights are cast to ``dtype``; the RoPE tables stay
-    f32. Raises ``KeyError`` on a missing or an unexpected key."""
+    f32.
+
+    A ``lora_inject``-ed model's adapted linears carry ``<path>.lora_a``
+    [in, r] and ``<path>.lora_b`` [r, out] beside ``<path>.weight``; each
+    becomes a :class:`~lamp_tpu_torch.nn.LoRALinear` with the factors in
+    that layout (untransposed). Its ``scale`` (alpha / rank, 1.0 unless
+    ``alpha`` was given) is not a parameter: pass it as ``lora_scale``.
+    Raises ``KeyError`` on a missing or an unexpected key."""
     blocks = sorted({int(m.group(1)) for k in params
                      if (m := re.match(r"blocks\.(\d+)\.", k))})
     n_blocks = (blocks[-1] + 1) if blocks else 0
@@ -65,6 +74,13 @@ def load_modern_lm(params: Dict[str, np.ndarray], *, device="cuda",
         expected.add("lm_head.weight")
     expected |= {f"blocks.{i}.{k}" for i in range(n_blocks)
                  for k in _BLOCK_KEYS}
+    # the linears that carry an adapter: both factors are then expected
+    linears = {k[:-len(".weight")] for k in expected
+               if k.endswith(".weight") and "norm" not in k
+               and k != "token_embedding.weight"}
+    adapted = {k.rsplit(".", 1)[0] for k in params
+               if k.endswith((".lora_a", ".lora_b"))} & linears
+    expected |= {f"{p}.{f}" for p in adapted for f in ("lora_a", "lora_b")}
     _check_keys("ModernLM parameters", params, expected)
 
     def w(key, transpose=False):
@@ -81,6 +97,11 @@ def load_modern_lm(params: Dict[str, np.ndarray], *, device="cuda",
         raise ValueError("per-block window list length mismatch")
 
     def lin(key):
+        path = key[:-len(".weight")]
+        if path in adapted:
+            return LoRALinear(w(key, transpose=True), None,
+                              w(path + ".lora_a"), w(path + ".lora_b"),
+                              lora_scale)
         return Linear(w(key, transpose=True))
 
     def block(i):

@@ -1,9 +1,13 @@
-"""Serving: token sampling and the paged-KV batch decode engine."""
+"""Serving: token sampling, constrained decoding and the paged-KV batch
+decode engine."""
 
+from .constrained import TokenDFA, byte_vocab, json_value_regex
 from .sampling import SamplingParams, apply_penalties, sample_tokens
-from .serving import (BatchServer, BeamSearchDecoder, ModernBatchServer,
+from .serving import (BatchServer, BeamSearchDecoder,
+                      LoRADraftSpeculativeDecoder, ModernBatchServer,
                       ServingEngine, SpeculativeDecoder, draft_view)
 
 __all__ = ["SamplingParams", "apply_penalties", "sample_tokens",
-           "BatchServer", "BeamSearchDecoder", "ModernBatchServer",
-           "ServingEngine", "SpeculativeDecoder", "draft_view"]
+           "BatchServer", "BeamSearchDecoder", "LoRADraftSpeculativeDecoder",
+           "ModernBatchServer", "ServingEngine", "SpeculativeDecoder",
+           "TokenDFA", "byte_vocab", "draft_view", "json_value_regex"]

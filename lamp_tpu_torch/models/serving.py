@@ -55,10 +55,27 @@ sampled branches, and :class:`BeamSearchDecoder` keeps its beams:
     server = ModernBatchServer(model, enable_prefix_cache=True)
     hyps = BeamSearchDecoder(server, beams=4).decode(prompt, max_tokens=32)
 
+Per-request controls: ``SamplingParams(presence_penalty=,
+frequency_penalty=, repetition_penalty=)`` (a [B, V] count stack on the
+device, cached per batch composition and bumped inside the decode loop),
+``constraint=`` (a :class:`~lamp_tpu_torch.models.constrained.TokenDFA`
+registered with :meth:`BatchServer.register_constraint`: one stacked
+transition table whose gathered rows mask the logits and advance each
+request's state), and ``adapter=`` (a LoRA adapter registered with
+:meth:`ModernBatchServer.register_adapter`: one batch mixes adapters, each
+row's low-rank delta added beside the shared base matmuls by two
+``torch.bmm`` a projection). :class:`LoRADraftSpeculativeDecoder` drafts
+with the target's first blocks plus an adapter, on the target's own
+tensors:
+
+    server.register_adapter("fr", lora_inject(model, rank=8, generator=g))
+    server.register_constraint("json", TokenDFA.compile(
+        json_value_regex(3), vocab_bytes, eos_token=eos))
+    engine.submit(prompt, SamplingParams(presence_penalty=0.5),
+                  adapter="fr", constraint="json")
+
 Not ported yet (each raises ``NotImplementedError`` when asked for): the
-GPT ``BatchServer`` model path, penalties, constrained decoding, LoRA
-adapters, tensor parallelism, MoE blocks and
-``LoRADraftSpeculativeDecoder``.
+GPT ``BatchServer`` model path, tensor parallelism and MoE blocks.
 """
 
 from __future__ import annotations
@@ -72,6 +89,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..nn.lora import LoRALinear
 from ..nn.modern import ModernLM, apply_rope
 from ..ops.attention import mha_reference
 from ..ops.paged_attention import paged_attention
@@ -79,9 +97,16 @@ from ..ops.quantization import (int4_group_size, int4_matmul, int8_matmul,
                                 quantize_int4, quantize_int8)
 from .sampling import NUCLEUS_CAND, SamplingParams, sample_tokens
 
-__all__ = ["BatchServer", "BeamSearchDecoder", "ModernBatchServer",
-           "ServingEngine", "SamplingParams", "SpeculativeDecoder",
-           "draft_view"]
+__all__ = ["BatchServer", "BeamSearchDecoder", "LoRADraftSpeculativeDecoder",
+           "ModernBatchServer", "ServingEngine", "SamplingParams",
+           "SpeculativeDecoder", "draft_view"]
+
+
+def _bump_counts(counts, nxt):
+    """counts [B, V] += one_hot(nxt), in place."""
+    rows = torch.arange(nxt.shape[0], device=counts.device)
+    counts.index_put_((rows, nxt), torch.ones_like(nxt, dtype=counts.dtype),
+                      accumulate=True)
 
 
 def _kv_write_stacked(pool, total_pages, token_pages, token_slots,
@@ -160,7 +185,25 @@ class BatchServer:
         self.seq_window: Dict = {}
         self.seq_released: Dict = {}
         self.seq_logprobs: Dict = {}
+        self.seq_adapter: Dict = {}  # LoRA adapter index (0 = the base)
         self.vocab = model.token_embedding.weight.shape[0]
+        # penalty state: host prompt masks per request; the [B, V] count
+        # stack lives on the device, cached per batch composition
+        # (_pen_stacks: surviving rows gathered, new or dirty rows zeroed)
+        self.seq_prompt_mask: Dict = {}
+        self._pen_cache = None  # (ids tuple, counts [B, V], pmask [B, V])
+        self._pen_dirty: set = set()
+        # constrained decoding: every registered TokenDFA's transitions in
+        # ONE [sum of states, V] int32 device table whose row 0 is the free
+        # automaton (every token allowed, a self-loop)
+        self._constraints: Dict = {}
+        self._c_offsets: Dict = {}
+        self._ctable_host = np.zeros((1, self.vocab), np.int32)
+        self._ctable_dev = None
+        self.seq_cstate: Dict = {}
+        # LoRA adapters (ModernBatchServer.register_adapter): name -> index
+        # into the stacked factors (0 = the all-zero base)
+        self._adapters: Dict[str, int] = {}
         self.temperature = temperature
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.steps_decoded = 0  # decode steps run (each: one kernel per layer)
@@ -187,33 +230,46 @@ class BatchServer:
             constraint: Optional[str] = None) -> None:
         """Admit a request: dense prefill of all but the last prompt token,
         whose K/V rows are written into freshly allocated pages. ``params``
-        sets per-request sampling controls (default: the server-level
-        ``temperature``). ``window`` caps THIS request's attention to its
-        last ``window`` tokens (the tighter of it and a layer's window
-        wins); when every layer ends up windowed, pages that fall below the
-        band are released back to the pool mid-generation.
+        sets per-request sampling controls, penalties included (default:
+        the server-level ``temperature``). ``adapter`` names a LoRA adapter
+        registered with :meth:`ModernBatchServer.register_adapter`: its
+        prompt prefills through the chunk path (:meth:`_prefill_suffix`),
+        which carries the adapter, where the dense prefill does not.
+        ``window`` caps THIS request's attention to its last ``window``
+        tokens (the tighter of it and a layer's window wins); when every
+        layer ends up windowed, pages that fall below the band are released
+        back to the pool mid-generation. ``constraint`` names a
+        :meth:`register_constraint`-ed TokenDFA that masks the request's
+        sampling.
 
         Under ``enable_prefix_cache`` the longest run of cached full pages
         of the prompt is shared instead of recomputed, and only the tail
         after it is prefilled (:meth:`_prefill_suffix`)."""
         if seq_id in self.seq_pages:
             raise ValueError(f"duplicate request {seq_id}")
-        if adapter is not None:
-            raise NotImplementedError("LoRA adapters")
-        if constraint is not None:
-            raise NotImplementedError("constrained decoding")
         if window is not None:
             window = int(window)
             if window <= 0:
                 raise ValueError("window must be a positive int")
+        if constraint is not None and constraint not in self._c_offsets:
+            raise ValueError(f"unknown constraint {constraint!r}")
+        aidx = self._adapter_index(adapter)
+        if constraint is not None:
+            # the global state index into the stacked table (the DFA's
+            # start is its first row)
+            self.seq_cstate[seq_id] = self._c_offsets[constraint]
+        self.seq_adapter[seq_id] = aidx
         sp = params or SamplingParams(temperature=self.temperature)
-        if sp.has_penalties:
-            raise NotImplementedError("sampling penalties")
         self.seq_window[seq_id] = window
         self.seq_released[seq_id] = 0
         self.seq_params[seq_id] = sp
         if sp.logprobs:
             self.seq_logprobs[seq_id] = []
+        if sp.has_penalties:
+            mask = np.zeros(self.vocab, bool)
+            mask[np.asarray(prompt_tokens).reshape(-1)] = True
+            self.seq_prompt_mask[seq_id] = mask
+            self._pen_dirty.add(seq_id)
         self.seq_pages[seq_id] = []
         self.seq_len[seq_id] = 0
         prompt = np.asarray(prompt_tokens).reshape(-1)
@@ -221,12 +277,12 @@ class BatchServer:
         matched = 0
         hashes = []
         if self.enable_prefix_cache and n_prefill > 0:
-            # the salt partitions the cache: a window changes the K/V of
-            # every later layer for the same tokens (so would a LoRA
-            # adapter, whose index is 0 while adapters are not ported)
+            # the salt partitions the cache: an adapter and a window both
+            # change the K/V of every later layer for the same tokens
             hashes = self._prefix_hashes(
                 prompt[:-1],
-                salt=b"" if window is None else f"0:{window}".encode())
+                salt=(f"{aidx}:{window}".encode()
+                      if aidx or window is not None else b""))
             pages = self.seq_pages[seq_id]
             for h in hashes:
                 pg = self._hash_to_page.get(h)
@@ -238,8 +294,9 @@ class BatchServer:
             self.seq_len[seq_id] = matched
             self.cache_hit_tokens += matched
             self.cache_miss_tokens += n_prefill - matched
-        if matched > 0:
-            # the tail attends over the shared pages: one chunk
+        if matched > 0 or (aidx and n_prefill > 0):
+            # the tail attends over the shared pages: one chunk (an
+            # adapter's whole prompt too: the chunk path carries the delta)
             self._prefill_suffix(seq_id, prompt[matched:-1])
         elif n_prefill > 0:
             slots = []
@@ -268,13 +325,19 @@ class BatchServer:
         self.seq_window.pop(seq_id, None)
         self.seq_released.pop(seq_id, None)
         self.seq_logprobs.pop(seq_id, None)
+        self.seq_adapter.pop(seq_id, None)
+        self.seq_cstate.pop(seq_id, None)
+        self.seq_prompt_mask.pop(seq_id, None)
+        self._pen_dirty.discard(seq_id)
 
     def fork(self, src_id, dst_id) -> None:
         """Duplicate a sequence's decode state without copying its KV: the
         child references the parent's physical pages (refcounted), and the
         first write into the shared tail page copies it
         (:meth:`_alloc_slot`). Needs ``enable_prefix_cache=True``, which
-        owns the refcounts and the copy-on-write."""
+        owns the refcounts and the copy-on-write. The child keeps the
+        parent's adapter, constraint state and penalties; its penalty
+        counts start at zero (it is marked dirty), as in the JAX server."""
         if not self.enable_prefix_cache:
             raise RuntimeError("fork requires enable_prefix_cache=True")
         if dst_id in self.seq_pages:
@@ -288,10 +351,16 @@ class BatchServer:
         self.seq_len[dst_id] = self.seq_len[src_id]
         self.last_token[dst_id] = self.last_token[src_id]
         self.seq_params[dst_id] = self.seq_params[src_id]
+        self.seq_adapter[dst_id] = self.seq_adapter.get(src_id, 0)
         self.seq_window[dst_id] = self.seq_window.get(src_id)
         self.seq_released[dst_id] = self.seq_released.get(src_id, 0)
+        if src_id in self.seq_cstate:
+            self.seq_cstate[dst_id] = self.seq_cstate[src_id]
         if src_id in self.seq_logprobs:
             self.seq_logprobs[dst_id] = list(self.seq_logprobs[src_id])
+        if src_id in self.seq_prompt_mask:
+            self.seq_prompt_mask[dst_id] = self.seq_prompt_mask[src_id].copy()
+            self._pen_dirty.add(dst_id)
 
     # -- prefix cache ----------------------------------------------------
     def _prefix_hashes(self, prompt_kv, salt: bytes = b"") -> List[bytes]:
@@ -427,6 +496,74 @@ class BatchServer:
             [self.seq_window.get(s) or 0 for s in seq_ids],
             dtype=torch.int32, device=self.device)
 
+    # -- LoRA adapters and constraints -----------------------------------
+    def _adapter_index(self, name) -> int:
+        if name is None:
+            return 0
+        try:
+            return self._adapters[name]
+        except KeyError:
+            raise ValueError(f"unknown adapter {name!r}") from None
+
+    def _lora_arg(self, seq_ids):
+        """(adapter ids [B] int64, the stacked factors), or None when no
+        adapter is registered or the batch is all base rows: the decode
+        step then runs no gather and no delta."""
+        if not self._adapters:
+            return None
+        host_ids = [self.seq_adapter.get(s, 0) for s in seq_ids]
+        if not any(host_ids):
+            return None
+        return (torch.as_tensor(host_ids, dtype=torch.int64,
+                                device=self.device), self._lora_stacks)
+
+    def register_constraint(self, name: str, dfa) -> None:
+        """Register a :class:`~lamp_tpu_torch.models.constrained.TokenDFA`
+        under ``name`` for ``add(..., constraint=name)``. Its transition
+        table is appended to the server's stacked device table once; a
+        constrained batch then gathers one row a request a decode step,
+        which masks the logits and gives the next state. Compile the DFA
+        with ``eos_token`` so that every accepting state keeps an
+        out-edge."""
+        if name in self._constraints:
+            raise ValueError(f"duplicate constraint {name!r}")
+        if dfa.vocab_size != self.vocab:
+            raise ValueError(f"constraint vocab {dfa.vocab_size} != model "
+                             f"vocab {self.vocab}")
+        offset = self._ctable_host.shape[0]
+        block = dfa.table.astype(np.int32).copy()
+        block[block >= 0] += offset
+        self._constraints[name] = dfa
+        self._c_offsets[name] = offset
+        self._ctable_host = np.concatenate([self._ctable_host, block], 0)
+        self._ctable_dev = torch.as_tensor(self._ctable_host,
+                                           device=self.device)
+
+    def _constraint_arrays(self, seq_ids):
+        """(table, states [B]) for the batch, or (None, None) when no
+        request in it is constrained: the step then gathers and masks
+        nothing."""
+        states = [self.seq_cstate.get(s, 0) for s in seq_ids]
+        if not any(states):
+            return None, None
+        return self._ctable_dev, torch.as_tensor(states, dtype=torch.int64,
+                                                 device=self.device)
+
+    def _constraint_advance(self, seq_ids, toks_host) -> None:
+        """The automata's host-side advance over the sampled tokens
+        ``toks_host`` [n, B]. A state with no out-edge falls back to the
+        free automaton."""
+        for i, sid in enumerate(seq_ids):
+            st = self.seq_cstate.get(sid, 0)
+            if st == 0:
+                continue
+            for t in toks_host[:, i]:
+                st = int(self._ctable_host[st, int(t)])
+                if st < 0:
+                    st = 0
+                    break
+            self.seq_cstate[sid] = st
+
     @property
     def active(self) -> List:
         return list(self.seq_pages)
@@ -506,7 +643,7 @@ class BatchServer:
             tokens, idx, lens,
             torch.as_tensor([p for p, _ in slots], device=dev),
             torch.as_tensor([sl for _, sl in slots], device=dev),
-            self._windows_arg(seq_ids))
+            self._windows_arg(seq_ids), self._lora_arg(seq_ids))
         for s in seq_ids:
             self.seq_len[s] += 1
         return logits
@@ -538,7 +675,7 @@ class BatchServer:
         return self._decode_chunk(
             tokens, idx, lens0, torch.as_tensor(tp, device=self.device),
             torch.as_tensor(ts, device=self.device),
-            self._windows_arg(seq_ids))
+            self._windows_arg(seq_ids), self._lora_arg(seq_ids))
 
     def rewind(self, seq_id, n: int) -> None:
         """Drop the last ``n`` tokens' KV (speculative-decoding rollback).
@@ -567,9 +704,11 @@ class BatchServer:
 
     def _sampling_arrays(self, seq_ids):
         """(temperature [B] | None, top_k [B] | None, top_p [B] | None,
-        min_p [B] | None, max_top_k, want_logprobs). A filter is None when
-        no request uses it; temperature is None when the whole batch is
-        greedy (a bare argmax, no random draws)."""
+        min_p [B] | None, penalties | None, max_top_k, want_logprobs). A
+        filter is None when no request uses it; temperature is None when
+        the whole batch is greedy (a bare argmax, no random draws);
+        penalties, when a request has any, is (counts [B, V], prompt mask
+        [B, V], presence [B], frequency [B], repetition [B])."""
         ps = [self.seq_params[s] for s in seq_ids]
         dev = self.device
 
@@ -591,14 +730,56 @@ class BatchServer:
         min_p = None
         if any(p.min_p > 0.0 for p in ps):
             min_p = col([p.min_p for p in ps], torch.float32)
+        penalties = None
+        if any(p.has_penalties for p in ps):
+            counts, pmask = self._pen_stacks(seq_ids)
+            penalties = (
+                counts, pmask,
+                col([p.presence_penalty for p in ps], torch.float32),
+                col([p.frequency_penalty for p in ps], torch.float32),
+                col([p.repetition_penalty for p in ps], torch.float32))
         want_lp = any(p.logprobs for p in ps)
-        return temps, top_k, top_p, min_p, max_top_k, want_lp
+        return temps, top_k, top_p, min_p, penalties, max_top_k, want_lp
 
-    def _sample(self, logits, arrays):
-        temps, top_k, top_p, min_p, mtk, want_lp = arrays
+    def _pen_stacks(self, seq_ids):
+        """Device [B, V] (counts, prompt mask) for the batch, cached per
+        composition. On a change the surviving rows are gathered from the
+        last stack and new or dirty rows start at zero, so a steady batch
+        adds no work here."""
+        key = tuple(seq_ids)
+        cache = self._pen_cache
+        if cache is not None and cache[0] == key and not self._pen_dirty:
+            return cache[1], cache[2]
+        zero = np.zeros(self.vocab, bool)
+        pmask = torch.as_tensor(
+            np.stack([self.seq_prompt_mask.get(s, zero) for s in seq_ids]),
+            device=self.device)
+        counts = torch.zeros((len(seq_ids), self.vocab), dtype=torch.int32,
+                             device=self.device)
+        if cache is not None:
+            old_ids, old_counts, _ = cache
+            pos = {s: i for i, s in enumerate(old_ids)}
+            keep = [(i, pos[s]) for i, s in enumerate(seq_ids)
+                    if s in pos and s not in self._pen_dirty]
+            if keep:
+                rows = torch.as_tensor([i for i, _ in keep],
+                                       device=self.device)
+                srcs = torch.as_tensor([j for _, j in keep],
+                                       device=self.device)
+                counts[rows] = old_counts[srcs]
+        self._pen_dirty.clear()
+        self._pen_cache = (key, counts, pmask)
+        return counts, pmask
+
+    def _sample(self, logits, arrays, rows=None):
+        """One token a row of ``logits`` under ``arrays``
+        (:meth:`_sampling_arrays`) and the constraint rows ``rows``;
+        returns (tokens, logprobs | None). The caller bumps the penalty
+        counts after."""
+        temps, top_k, top_p, min_p, pen, mtk, want_lp = arrays
         out = sample_tokens(logits, self.generator, temps, top_k, top_p,
-                            min_p=min_p, max_top_k=mtk,
-                            return_logprobs=want_lp)
+                            penalties=pen, allowed_rows=rows, min_p=min_p,
+                            max_top_k=mtk, return_logprobs=want_lp)
         return out if want_lp else (out, None)
 
     def _record(self, seq_ids, toks_host, lps_host) -> Dict:
@@ -625,9 +806,17 @@ class BatchServer:
         tokens = torch.as_tensor([self.last_token[s] for s in seq_ids],
                                  device=self.device)
         logits = self._advance(seq_ids, tokens)
-        nxt, lps = self._sample(logits, self._sampling_arrays(seq_ids))
+        arrays = self._sampling_arrays(seq_ids)
+        ctable, cstates = self._constraint_arrays(seq_ids)
+        rows = None if ctable is None else ctable[cstates]
+        nxt, lps = self._sample(logits, arrays, rows)
         # ONE device->host copy for the whole batch
-        out = self._record(seq_ids, nxt.cpu().numpy()[None],
+        nxt_host = nxt.cpu().numpy()[None]
+        if ctable is not None:
+            self._constraint_advance(seq_ids, nxt_host)
+        if arrays[4] is not None:
+            _bump_counts(arrays[4][0], nxt)
+        out = self._record(seq_ids, nxt_host,
                            None if lps is None else lps.cpu().numpy()[None])
         return {s: t[0] for s, t in out.items()}
 
@@ -635,8 +824,9 @@ class BatchServer:
         """Decode ``n`` tokens for every active request; returns {seq_id:
         [tok, ...]}. All n slots are allocated up front (and pages released
         once), then n decode steps run back to back with sampling on the
-        device, each step's tokens feeding the next; one device->host copy
-        at the end. No request joins or leaves between the n steps."""
+        device, each step's tokens feeding the next (and, on the device,
+        the penalty counts and the constraint states); one device->host
+        copy at the end. No request joins or leaves between the n steps."""
         seq_ids = self.active
         if not seq_ids:
             return {}
@@ -660,17 +850,29 @@ class BatchServer:
         tp = torch.as_tensor(tp, device=self.device)
         ts = torch.as_tensor(ts, device=self.device)
         windows = self._windows_arg(seq_ids)
+        lora = self._lora_arg(seq_ids)
         arrays = self._sampling_arrays(seq_ids)
+        ctable, cst = self._constraint_arrays(seq_ids)
         toks, lps = [], []
         for i in range(n):
             logits = self._decode_step(tok, idx, lens0 + i, tp[:, i],
-                                       ts[:, i], windows)
-            tok, lp = self._sample(logits, arrays)
+                                       ts[:, i], windows, lora)
+            # a constrained batch's rows are its mask and its next states
+            rows = None if cst is None else ctable[cst]
+            tok, lp = self._sample(logits, arrays, rows)
+            if cst is not None:
+                # the dead-end guard of _constraint_advance: a state with
+                # no out-edge falls back to the free automaton
+                cst = rows.gather(1, tok[:, None])[:, 0].clamp_min(0).long()
+            if arrays[4] is not None:
+                _bump_counts(arrays[4][0], tok)
             toks.append(tok)
             lps.append(lp)
         toks_host = torch.stack(toks).cpu().numpy()  # [n, B]
         lps_host = (None if lps[0] is None
                     else torch.stack(lps).cpu().numpy())
+        if ctable is not None:
+            self._constraint_advance(seq_ids, toks_host)
         return self._record(seq_ids, toks_host, lps_host)
 
 
@@ -684,6 +886,8 @@ class ModernBatchServer(BatchServer):
         if mesh is not None:
             raise NotImplementedError("mesh= (tensor-parallel serving)")
         super().__init__(model, **kwargs)
+        # per adapter, per layer: {projection: (A [in, r], B [r, out])}
+        self._adapter_defs: Dict[str, List[dict]] = {}
 
     def _introspect(self, model):
         block = model.blocks[0]
@@ -693,6 +897,106 @@ class ModernBatchServer(BatchServer):
         self.head_dim = block.w_q.weight.shape[1] // self.heads
         # per-layer sliding windows: the kernel walks only each layer's band
         self._windows = tuple(b.window for b in model.blocks)
+
+    # -- multi-LoRA serving ------------------------------------------------
+    @staticmethod
+    def _projections(blk):
+        return {"q": blk.w_q, "k": blk.w_k, "v": blk.w_v, "o": blk.w_o,
+                "w1": blk.mlp.w1, "w3": blk.mlp.w3, "w2": blk.mlp.w2}
+
+    def register_adapter(self, name: str, lora_model) -> None:
+        """Register a LoRA adapter for per-request use: ``lora_model`` is a
+        :func:`~lamp_tpu_torch.nn.lora_inject`-ed copy of this server's
+        model. Requests pass ``add(..., adapter=name)``, and one batch
+        mixes adapters freely: the decode step gathers each row's A and B
+        factors from the stacked adapters and adds the low-rank delta
+        beside the shared base matmuls. The prefix cache is partitioned by
+        adapter. Only the blocks' q/k/v/o/w1/w3/w2 projections can be
+        served: an adapter on any other module (an untied ``lm_head``)
+        raises ``ValueError``."""
+        if name in self._adapters:
+            raise ValueError(f"duplicate adapter {name!r}")
+        per_layer = []
+        n_collected = 0
+        with torch.no_grad():
+            for blk in lora_model.blocks:
+                row = {}
+                for p, mod in self._projections(blk).items():
+                    if type(mod) is LoRALinear:
+                        # scale folded into B in f32, back in B's dtype
+                        row[p] = (mod.lora_a.detach(),
+                                  (mod.lora_b.float() * mod.scale
+                                   ).to(mod.lora_b.dtype))
+                        n_collected += 1
+                per_layer.append(row)
+        n_total = sum(type(m) is LoRALinear for m in lora_model.modules())
+        if n_total != n_collected:
+            raise ValueError(
+                f"adapter {name!r} adapts {n_total - n_collected} module(s) "
+                "outside the block q/k/v/o/w1/w3/w2 projections (an untied "
+                "lm_head or embedding); these are not servable: restrict "
+                "lora_inject's match= accordingly")
+        self._adapter_defs[name] = per_layer
+        self._adapters[name] = len(self._adapters) + 1  # 0 = the base
+        self._rebuild_lora_stacks()
+
+    def _rebuild_lora_stacks(self) -> None:
+        """Stack every adapter's factors: per adapted projection p and
+        layer, A [N+1, d_in, r_p] and B [N+1, r_p, d_out]; index 0 is the
+        all-zero base, smaller ranks are zero-padded to r_p, and an
+        adapter that leaves p alone has zero rows."""
+        n = len(self._adapters)
+        order = sorted(self._adapters, key=self._adapters.get)
+        shapes = {p: m.weight.shape for p, m in
+                  self._projections(self.model.blocks[0]).items()}
+        dt = self.model.blocks[0].w_q.weight.dtype
+        stacks = {}
+        for p, (d_out, d_in) in shapes.items():
+            ranks = [self._adapter_defs[nm][li][p][0].shape[1]
+                     for nm in order for li in range(self.layers)
+                     if p in self._adapter_defs[nm][li]]
+            if not ranks:
+                continue
+            r = max(ranks)
+            a_layers, b_layers = [], []
+            for li in range(self.layers):
+                a_rows = torch.zeros((n + 1, d_in, r), dtype=dt,
+                                     device=self.device)
+                b_rows = torch.zeros((n + 1, r, d_out), dtype=dt,
+                                     device=self.device)
+                for k, nm in enumerate(order):
+                    entry = self._adapter_defs[nm][li].get(p)
+                    if entry is None:
+                        continue
+                    a, bv = entry
+                    a_rows[k + 1, :, :a.shape[1]] = a.to(dt)
+                    b_rows[k + 1, :bv.shape[0], :] = bv.to(dt)
+                a_layers.append(a_rows)
+                b_layers.append(b_rows)
+            stacks[p] = (tuple(a_layers), tuple(b_layers))
+        self._lora_stacks = stacks
+
+    @staticmethod
+    def _lora_delta(x, stack, ids, li):
+        """Each row's low-rank delta: x [B, D_in] or [B, T, D_in]; layer
+        ``li`` of ``stack`` holds A [N+1, D_in, r] and B [N+1, r, O] (the
+        scale folded into B), ``ids`` [B] the rows' adapters. Two
+        ``torch.bmm`` (products summed in f32, each rounded to x's dtype,
+        as the JAX einsums with ``preferred_element_type=f32``); returns
+        x's shape with O columns."""
+        a_stack, b_stack = stack
+        x3 = x if x.dim() == 3 else x[:, None]
+        h = torch.bmm(x3, a_stack[li].index_select(0, ids))
+        out = torch.bmm(h, b_stack[li].index_select(0, ids))
+        return out if x.dim() == 3 else out[:, 0]
+
+    def _plus_delta(self, y, x, lora, p, li):
+        """``y`` plus projection ``p``'s delta of ``x`` where the batch
+        carries adapters that adapt ``p``; else ``y`` itself."""
+        if lora is None or p not in lora[1]:
+            return y
+        ids, stacks = lora
+        return y + self._lora_delta(x, stacks[p], ids, li)
 
     def _quantize_weight(self, w):
         """Decode-path entry of a weight ``w`` [out, in]: ``w`` itself, or,
@@ -746,10 +1050,12 @@ class ModernBatchServer(BatchServer):
 
     @torch.no_grad()
     def _decode_step(self, tokens, page_idx, lengths, token_pages,
-                     token_slots, req_windows=None):
+                     token_slots, req_windows=None, lora=None):
         """Process a [B] batch of tokens sitting at positions ``lengths``:
         attend over history + self, write every layer's K/V into
-        (token_pages, token_slots) of the pool, return logits [B, V] f32."""
+        (token_pages, token_slots) of the pool, return logits [B, V] f32.
+        ``lora`` (:meth:`_lora_arg`) adds each row's adapter delta to
+        q/k/v (before RoPE), o, w1 and w3 (before the gate) and w2."""
         self.steps_decoded += 1
         model = self.model
         b = tokens.shape[0]
@@ -768,13 +1074,16 @@ class ModernBatchServer(BatchServer):
         nq = self.heads * hd
         nkv = self.kv_heads * hd
         mm = self._mm
+        delta = self._plus_delta
         deferred_rows = []  # per-layer (k_rows, v_rows) written after loop
         for li, block in enumerate(model.blocks):
-            y = mm(block.norm1(x), wqkv[li])
-            q = rot(y[:, :nq].reshape(b, self.heads, hd))
-            kk_f = rot(y[:, nq:nq + nkv].reshape(b, self.kv_heads, hd)
-                       ).reshape(b, nkv)
-            vv_f = y[:, nq + nkv:].contiguous()
+            a = block.norm1(x)
+            y = mm(a, wqkv[li])
+            yq = delta(y[:, :nq], a, lora, "q", li)
+            yk = delta(y[:, nq:nq + nkv], a, lora, "k", li)
+            q = rot(yq.reshape(b, self.heads, hd))
+            kk_f = rot(yk.reshape(b, self.kv_heads, hd)).reshape(b, nkv)
+            vv_f = delta(y[:, nq + nkv:], a, lora, "v", li).contiguous()
             # the current token's K/V is INJECTED into the kernel
             # (append_kv), so the pool write is deferred out of the loop
             deferred_rows.append((kk_f, vv_f))
@@ -784,24 +1093,26 @@ class ModernBatchServer(BatchServer):
                 window=self._windows[li], windows=req_windows,
                 append_kv=(kk_f, vv_f),
                 page_offset=li * self.total_pages,
-            )
-            x = x + mm(o.reshape(b, nq), wo[li])
+            ).reshape(b, nq)
+            x = x + delta(mm(o, wo[li]), o, lora, "o", li)
             h = block.norm2(x)
-            x = x + mm(F.silu(mm(h, w1[li])) * mm(h, w3[li]), w2[li])
+            gate = (F.silu(delta(mm(h, w1[li]), h, lora, "w1", li))
+                    * delta(mm(h, w3[li]), h, lora, "w3", li))
+            x = x + delta(mm(gate, w2[li]), gate, lora, "w2", li)
         _kv_write_stacked(self.kv_pages, self.total_pages, token_pages,
                           token_slots, deferred_rows)
         return mm(model.final_norm(x), lmh, out_dtype=torch.float32)
 
     @torch.no_grad()
     def _decode_chunk(self, tokens, page_idx, lengths, token_pages,
-                      token_slots, req_windows=None):
+                      token_slots, req_windows=None, lora=None):
         """Process a [B, m] chunk of tokens at positions ``lengths[:, None]
         + arange(m)``: each layer writes the chunk's K/V rows into
         (token_pages, token_slots) [B, m] of the pool before its attention
         (row j of a chunk sees rows < j, which ``append_kv``'s one injected
         row cannot give), then the paged kernel attends over the B*m query
         rows (the page table repeated m times, lengths pos + 1); returns
-        logits [B, m, V] f32."""
+        logits [B, m, V] f32. ``lora`` as in :meth:`_decode_step`."""
         model = self.model
         b, m = tokens.shape
         wqkv, wo, w1, w3, w2, lmh = self._extras
@@ -820,6 +1131,7 @@ class ModernBatchServer(BatchServer):
         nq = self.heads * hd
         nkv = self.kv_heads * hd
         mm = self._mm
+        delta = self._plus_delta
         plen = (pos + 1).reshape(-1).to(torch.int32)
         pidx = page_idx.repeat_interleave(m, dim=0)
         win_r = (None if req_windows is None
@@ -827,21 +1139,27 @@ class ModernBatchServer(BatchServer):
         tp = token_pages.reshape(-1)
         ts = token_slots.reshape(-1)
         for li, block in enumerate(model.blocks):
-            y = mm(block.norm1(x), wqkv[li])
-            q = rot(y[..., :nq].reshape(b, m, self.heads, hd))
-            kk = rot(y[..., nq:nq + nkv].reshape(b, m, self.kv_heads, hd))
+            a = block.norm1(x)
+            y = mm(a, wqkv[li])
+            q = rot(delta(y[..., :nq], a, lora, "q", li
+                          ).reshape(b, m, self.heads, hd))
+            kk = rot(delta(y[..., nq:nq + nkv], a, lora, "k", li
+                           ).reshape(b, m, self.kv_heads, hd))
+            vv = delta(y[..., nq + nkv:], a, lora, "v", li)
             _kv_write_stacked(self.kv_pages, self.total_pages,
                               tp + li * self.total_pages, ts,
                               [(kk.reshape(b * m, nkv),
-                                y[..., nq + nkv:].reshape(b * m, nkv))])
+                                vv.reshape(b * m, nkv))])
             o = paged_attention(
                 q.reshape(b * m, self.heads, hd), self.kv_pages, None, pidx,
                 plen, num_kv_heads=self.kv_heads, window=self._windows[li],
                 windows=win_r, page_offset=li * self.total_pages,
             ).reshape(b, m, nq)
-            x = x + mm(o, wo[li])
+            x = x + delta(mm(o, wo[li]), o, lora, "o", li)
             h = block.norm2(x)
-            x = x + mm(F.silu(mm(h, w1[li])) * mm(h, w3[li]), w2[li])
+            gate = (F.silu(delta(mm(h, w1[li]), h, lora, "w1", li))
+                    * delta(mm(h, w3[li]), h, lora, "w3", li))
+            x = x + delta(mm(gate, w2[li]), gate, lora, "w2", li)
         return mm(model.final_norm(x), lmh, out_dtype=torch.float32)
 
     @torch.no_grad()
@@ -912,7 +1230,8 @@ class ServingEngine:
     """Continuous-batching scheduler over a :class:`ModernBatchServer`.
 
     Requests are submitted with per-request :class:`SamplingParams`
-    (temperature / top-k / top-p / ``max_tokens`` / ``stop_tokens``) and
+    (temperature / top-k / top-p / penalties / ``max_tokens`` /
+    ``stop_tokens``), an adapter and a constraint, and
     queue until KV pages are available; each :meth:`step` admits what fits
     (conservative worst-case page reservation, so the pool can never be
     exhausted mid-flight), decodes a chunk of tokens for the whole batch
@@ -934,7 +1253,8 @@ class ServingEngine:
         self.decode_steps = decode_steps
         self.max_batch = max_batch
         self.on_token = on_token
-        self.pending = deque()       # (rid, prompt list, params, window)
+        # (rid, prompt list, params, adapter, window, constraint)
+        self.pending = deque()
         self.generated: Dict = {}    # rid -> [tokens so far]
         self.results: Dict = {}      # rid -> finished token list
         # chosen-token logprobs for requests with SamplingParams.logprobs,
@@ -955,8 +1275,13 @@ class ServingEngine:
                constraint: Optional[str] = None, n: int = 1,
                best_of: Optional[int] = None):
         """Queue a request; returns its id. Decoding starts once pages are
-        available (see :meth:`step`). ``window`` caps the request's
-        attention to its last ``window`` tokens.
+        available (see :meth:`step`). ``adapter`` selects a registered LoRA
+        adapter; ``window`` caps the request's attention to its last
+        ``window`` tokens; ``constraint`` names a DFA registered on the
+        server with :meth:`BatchServer.register_constraint` (compile it
+        with the request's EOS token and list that token in
+        ``params.stop_tokens`` to stop on a complete match). An unknown
+        adapter or constraint raises ``ValueError`` here.
 
         ``n > 1`` fans the request into n independently sampled branches of
         one prompt (under the server's prefix cache they share the prompt's
@@ -965,11 +1290,8 @@ class ServingEngine:
         samples k branches and keeps the n of highest summed logprob, best
         first (``n == 1`` with ``best_of`` returns a plain token list: the
         best branch). Branch rids are ``(rid, i)``, as ``on_token`` sees
-        them. Fan-out needs ``temperature > 0``."""
-        if adapter is not None:
-            raise NotImplementedError("LoRA adapters")
-        if constraint is not None:
-            raise NotImplementedError("constrained decoding")
+        them; they keep the request's adapter, constraint and penalties.
+        Fan-out needs ``temperature > 0``."""
         rid = request_id if request_id is not None else f"req{self._next_id}"
         self._next_id += 1
         prompt = [int(t) for t in np.asarray(prompt_tokens).reshape(-1)]
@@ -982,10 +1304,12 @@ class ServingEngine:
         if params is None:
             # same default a direct server.add() would apply
             params = SamplingParams(temperature=self.server.temperature)
-        if params.has_penalties:
-            raise NotImplementedError("sampling penalties")
+        self.server._adapter_index(adapter)  # validate early
         if window is not None and int(window) <= 0:
             raise ValueError("window must be a positive int")
+        if constraint is not None and \
+                constraint not in self.server._c_offsets:
+            raise ValueError(f"unknown constraint {constraint!r}")
         if n < 1:
             raise ValueError("n must be >= 1")
         if best_of is not None and best_of < n:
@@ -1004,9 +1328,11 @@ class ServingEngine:
                 params = dataclasses.replace(params, logprobs=True)
             for i in range(k):
                 self._parent[(rid, i)] = rid
-                self.pending.append(((rid, i), prompt, params, window))
+                self.pending.append(((rid, i), prompt, params, adapter,
+                                     window, constraint))
             return rid
-        self.pending.append((rid, prompt, params, window))
+        self.pending.append((rid, prompt, params, adapter, window,
+                             constraint))
         return rid
 
     def _budget(self, prompt_len: int, params: SamplingParams) -> int:
@@ -1049,13 +1375,15 @@ class ServingEngine:
         # pages still owed to requests already in flight
         owed = sum(self._reserve[r] - self._held(r) for r in s.seq_pages)
         while self.pending and len(s.seq_pages) < self.max_batch:
-            rid, prompt, params, window = self.pending[0]
+            rid, prompt, params, adapter, window, constraint = \
+                self.pending[0]
             max_new = self._budget(len(prompt), params)
             need = self._pages_for(len(prompt), max_new, window)
             if s.available_pages < owed + need:
                 break
             self.pending.popleft()
-            s.add(rid, prompt, params, window=window)
+            s.add(rid, prompt, params, adapter=adapter, window=window,
+                  constraint=constraint)
             self.generated[rid] = []
             if params.logprobs:
                 self._generated_lp[rid] = []
@@ -1441,3 +1769,58 @@ def draft_view(model, num_blocks: int):
     return ModernLM(model.token_embedding, list(model.blocks[:num_blocks]),
                     model.final_norm, model.lm_head, model.rope_cos,
                     model.rope_sin, context_length=model.context_length)
+
+
+class LoRADraftSpeculativeDecoder(SpeculativeDecoder):
+    """Speculative decoding whose DRAFT shares the target's weights: the
+    draft is the target's first ``L`` blocks with a LoRA adapter on the
+    block projections, so the only extra device memory is the adapter's
+    factors and a KV pool of ``L`` layers.
+
+    ``lora_draft`` is a :func:`~lamp_tpu_torch.nn.lora_inject`-ed
+    :func:`draft_view` of the target (the adapter on the block
+    q/k/v/o/w1/w3/w2 projections only, as
+    :meth:`ModernBatchServer.register_adapter` needs); its block count
+    sets the draft's depth. The draft server's decode weights are the
+    target server's own tensors (its extras tuples sliced, the packed int4
+    weights included), and every request's draft copy runs under the
+    adapter ``"draft"``. Acceptance and rollback are
+    :class:`SpeculativeDecoder`'s, so the emitted stream keeps the
+    target's distribution whatever the draft. ``server_kwargs`` go to both
+    servers (``quantize_bits=4``, ``kv_dtype``, ...)."""
+
+    def __init__(self, model, lora_draft, *, k: int = 4,
+                 page_size: int = 128, total_pages: int = 512,
+                 temperature: float = 0.0, seed: int = 0, **server_kwargs):
+        if hasattr(model, "encoder"):
+            raise NotImplementedError(
+                "LoRA-draft speculation serves the ModernLM family")
+        n_draft = len(lora_draft.blocks)
+        if n_draft > len(model.blocks):
+            raise ValueError(f"draft has {n_draft} blocks but the target "
+                             f"only {len(model.blocks)}")
+        self.k = k
+        self.temperature = temperature
+        self.rng = np.random.default_rng(seed)
+        self.target = ModernBatchServer(model, page_size=page_size,
+                                        total_pages=total_pages,
+                                        **server_kwargs)
+        te = self.target._extras
+
+        class _SharedExtrasServer(ModernBatchServer):
+            """A draft server whose decode weights are slices of the target
+            server's extras tuples: the same tensors."""
+
+            def _precompute_extras(self, m):
+                wqkv, wo, w1, w3, w2, lmh = te
+                n = len(m.blocks)
+                return (wqkv[:n], wo[:n], w1[:n], w3[:n], w2[:n], lmh)
+
+        self.draft = _SharedExtrasServer(
+            draft_view(model, n_draft), page_size=page_size,
+            total_pages=total_pages, **server_kwargs)
+        self.draft.register_adapter("draft", lora_draft)
+
+    def add(self, seq_id, prompt_tokens) -> None:
+        self.target.add(seq_id, prompt_tokens)
+        self.draft.add(seq_id, prompt_tokens, adapter="draft")

@@ -13,7 +13,7 @@ import math
 
 import torch
 
-__all__ = ["normal", "xavier_normal"]
+__all__ = ["kaiming_normal", "normal", "xavier_normal"]
 
 
 def normal(std=0.02):
@@ -29,3 +29,9 @@ def xavier_normal(generator, shape, dtype=torch.float32, device=None):
     fans, so it serves the JAX [in, out] and the PyTorch [out, in] layout."""
     std = math.sqrt(2.0 / (shape[0] + shape[-1]))
     return normal(std)(generator, shape, dtype, device)
+
+
+def kaiming_normal(generator, shape, dtype=torch.float32, device=None):
+    """He normal, std sqrt(2 / fan_in) with fan_in = ``shape[0]`` (the JAX
+    [in, out] layout's input width)."""
+    return normal(math.sqrt(2.0 / shape[0]))(generator, shape, dtype, device)

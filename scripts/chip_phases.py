@@ -5,7 +5,7 @@ lines), then the named parts only.
     python3 scripts/chip_phases.py [paged] [ragged] [ragged_bwd] [fwd]
         [flash] [wide] [any] [small] [train32] [openllama] [gemma]
         [openllama_train] [quant] [k8] [layouts] [spec] [layernorm]
-        [prefix]
+        [prefix] [controls]
 
 paged: phase 2 (the paged-attention kernels: the fixed kernel's edges,
 K6_WIDE's shapes and the key split's edges included, and the serving
@@ -42,7 +42,10 @@ run); layernorm: phase 8's fused LayerNorm kernels (K5: the forward and
 the one-pass backward against their plain versions, two backward calls
 bit for bit, timed beside F.layer_norm); prefix: phase 15 (serving with
 a shared system prompt: the prefix cache in bf16 and int4, fan-out, beam
-search, the admission times). No argument runs them all.
+search, the admission times); controls: phase 16 (per-request controls:
+multi-LoRA serving in bf16 and int4 behind the system prompt, penalties,
+JSON mode, LoRA-draft speculation, the mixed-adapter decode step beside
+the base-only one). No argument runs them all.
 Every check raises as in chip_smoke.py.
 """
 
@@ -66,7 +69,7 @@ from lamp_tpu_torch.ops.paged_attention import (  # noqa: E402
 
 PARTS = ("paged", "ragged", "ragged_bwd", "fwd", "flash", "wide", "any",
          "small", "train32", "openllama", "gemma", "openllama_train", "quant",
-         "k8", "layouts", "spec", "layernorm", "prefix")
+         "k8", "layouts", "spec", "layernorm", "prefix", "controls")
 
 
 def main(parts) -> int:
@@ -151,7 +154,7 @@ def main(parts) -> int:
 
         print(cs.phase_k8(Q, torch.Generator(device="cuda").manual_seed(0)),
               flush=True)
-    if "layouts" in parts or "spec" in parts or "prefix" in parts:
+    if {"layouts", "spec", "prefix", "controls"} & set(parts):
         from lamp_tpu_torch.ops import quantization as Q
 
         if "layouts" in parts:
@@ -161,6 +164,9 @@ def main(parts) -> int:
                   flush=True)
         if "prefix" in parts:
             print(cs.phase_prefix(torch_nn, models, Q, cs.card()),
+                  flush=True)
+        if "controls" in parts:
+            print(cs.phase_controls(torch_nn, models, Q, cs.card()),
                   flush=True)
     if "layernorm" in parts:
         from lamp_tpu_torch.ops import fused_layernorm as FL

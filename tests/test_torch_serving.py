@@ -192,12 +192,12 @@ def test_windowed_release_matches_jax():
 def test_unported_features_raise():
     _, ts = _servers()
     engine = ServingEngine(ts)
-    with pytest.raises(NotImplementedError, match="penalties"):
-        ts.add("p", [1, 2], SamplingParams(presence_penalty=1.0))
-    with pytest.raises(NotImplementedError, match="constrained"):
+    with pytest.raises(ValueError, match="unknown constraint"):
         engine.submit([1, 2], constraint="json")
-    with pytest.raises(NotImplementedError, match="adapters"):
+    with pytest.raises(ValueError, match="unknown adapter"):
         ts.add("l", [1, 2], adapter="a")
+    with pytest.raises(ValueError, match="unknown adapter"):
+        engine.submit([1, 2], adapter="a")
     with pytest.raises(NotImplementedError):
         ModernBatchServer(ts.model, page_size=PAGE, total_pages=4,
                           mesh=object())
