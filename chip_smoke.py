@@ -289,6 +289,33 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
    batch mixing the base and the 4 adapters beside the same server's
    base-only batch (tok/s, device time, ops and busy share of a profiled
    call), beside the card's name and power limit.
+17. GPT decode at full width: the flagship GPT of phase 5 (12 blocks, 768
+   wide, 12 heads of 64, MLP 3072, byte vocab 256, context 384, biases,
+   tied; 85.6 M parameters, bf16, random weights from a seed; nothing cut)
+   behind BatchServer(page_size=128, total_pages=128) and
+   ServingEngine(decode_steps=8, max_batch=32): 40 requests of seeded
+   bytes (prompts of 16-256 tokens over 1-3 pages, every fifth budget up
+   to the context's end, 4 greedy, the rest sampled at temperature 0.8
+   with top-p): exact lengths, the pool back at its start, K6 (the fixed
+   kernel at 12 / 12 heads) 12 times a decode step, greedy tokens against
+   the dense forward past MARGIN; the same requests on an e4m3 pool (past
+   GPT_FP8_MARGIN) and on the f32 model (K6's f32 route, past 1e-3), each
+   with its teacher-forced logit distance from the dense forward held below
+   half its margin. Then the
+   prefix cache (a seeded 256-byte system prompt before 40 tails: hit and
+   miss counts, K6 12 times a decode step and a suffix prefill through the
+   GPT's chunk path, the pool back with the system pages cached),
+   SpeculativeDecoder (a 2-block GPT draft at the same widths, k = 4, 32
+   prompts, 64 greedy tokens each: 1 to 4 tokens a round, K6 on both
+   servers, greedy tokens against the dense argmax, both pools back),
+   generate (8 prompts of 64 bytes, 128 greedy tokens: tokens against the
+   dense argmax, tok/s; no kernel runs there), PagedKVCache (32 sequences
+   appended at step 1's prompt lengths, bit for bit in its split pools;
+   one K6 call over them against the plain version; every page freed),
+   the GPT's decode call (B=32, step 1's lengths, cold) beside its bound
+   and plain version, and the steady step_many(8) at B=32 (tok/s, a
+   profiled call's device time, ops and busy share), beside the card's
+   name and power limit.
 
 After phase 6, check_layouts holds flash_attention (forward and backward),
 paged_attention and int4_matmul given transposed views and offset slices
@@ -449,7 +476,8 @@ K6_TOL_F32 = 1e-4
 # at phase 2's B=32 and CTX / PAGE pages a sequence (CTX / 16 of 16
 # tokens) over lengths 0, 1, 15-17, 127-129, 511 and the split's
 # boundaries +- 1; every q / pool pair the kernel takes, fused and split
-# pools, groups of 1, 3, 4 and 8, one block and a cluster of two
+# pools, groups of 1, 3, 4 and 8, one block and a cluster of two, and the
+# GPT's 12 / 12 heads
 K6_FIXED = (
     ("serving d64", 12, 4, 64, torch.bfloat16, torch.bfloat16, "fused", PAGE),
     ("serving d64 e4m3", 12, 4, 64, torch.bfloat16, torch.float8_e4m3fn,
@@ -477,6 +505,18 @@ K6_FIXED = (
     ("d128 f32", 8, 2, 128, torch.float32, torch.float32, "split", PAGE),
     ("d128 f32 e5m2", 4, 4, 128, torch.float32, torch.float8_e5m2, "fused",
      PAGE),
+    # the flagship GPT's layer (phase 17): 12 query heads over 12 kv heads
+    # of 64 (group 1: one row of each 16-row mma.sync tile), on the
+    # server's fused pool in bf16, f32 and e4m3, and on PagedKVCache's
+    # split pools
+    ("gpt d64 12/12", 12, 12, 64, torch.bfloat16, torch.bfloat16, "fused",
+     PAGE),
+    ("gpt d64 12/12 f32", 12, 12, 64, torch.float32, torch.float32, "fused",
+     PAGE),
+    ("gpt d64 12/12 e4m3", 12, 12, 64, torch.bfloat16, torch.float8_e4m3fn,
+     "fused", PAGE),
+    ("gpt d64 12/12 split", 12, 12, 64, torch.bfloat16, torch.bfloat16,
+     "split", PAGE),
 )
 
 
@@ -1288,25 +1328,34 @@ def serve_requests(models, server, system=(), greedy=(3, 13, 23, 33),
     """Phase 3's 40 requests (prompts of 24-31 tokens, 36 sampled, the 4
     of ``greedy`` greedy, max_tokens 32-96), each behind the tokens
     ``system`` (phase 15's shared system prompt) and under the adapter
-    ``adapter_of(i)`` (phase 16), through ServingEngine(decode_steps=8,
-    max_batch=32), with every launch count set to 0 just before the run.
-    Checks each result's length and range and that the page pool returns
-    to its start. Returns (prompts, results, greedy ids, decode steps)."""
-    engine = models.ServingEngine(server, decode_steps=8, max_batch=32)
+    ``adapter_of(i)`` (phase 16), through :func:`run_engine`."""
     rng = np.random.RandomState(0)
+    requests = [(list(system) + rng.randint(0, VOCAB, 24 + i % 8).tolist(),
+                 32 + (64 * i) // 39, adapter_of and adapter_of(i))
+                for i in range(40)]
+    return run_engine(models, server, requests, greedy, VOCAB)
+
+
+def run_engine(models, server, requests, greedy, vocab):
+    """Request r<i> of ``requests`` ((prompt, max_tokens or None for the
+    context's end, adapter) each) through ServingEngine(decode_steps=8,
+    max_batch=32), greedy where i is in ``greedy``, else sampled at
+    temperature 0.8 with top-p 0.95, with every launch count set to 0 just
+    before the run. Checks each result's length (max_tokens, or up to the
+    context's end) and range and that the page pool returns to its start.
+    Returns (prompts, results, greedy ids, decode steps)."""
+    engine = models.ServingEngine(server, decode_steps=8, max_batch=32)
+    ctx = server.model.context_length
     greedy = set(greedy)
-    prompts, max_tokens = {}, {}
-    for i in range(40):
+    prompts, want_len = {}, {}
+    for i, (prompt, max_tokens, adapter) in enumerate(requests):
         rid = f"r{i}"
-        prompts[rid] = list(system) + rng.randint(0, VOCAB,
-                                                  24 + i % 8).tolist()
-        max_tokens[rid] = 32 + (64 * i) // 39
-        params = (models.SamplingParams(max_tokens=max_tokens[rid])
+        prompts[rid] = prompt
+        want_len[rid] = min(ctx - len(prompt) + 1, max_tokens or ctx)
+        params = (models.SamplingParams(max_tokens=max_tokens)
                   if i in greedy else models.SamplingParams(
-                      temperature=0.8, top_p=0.95,
-                      max_tokens=max_tokens[rid]))
-        engine.submit(prompts[rid], params, request_id=rid,
-                      adapter=adapter_of and adapter_of(i))
+                      temperature=0.8, top_p=0.95, max_tokens=max_tokens))
+        engine.submit(prompt, params, request_id=rid, adapter=adapter)
     free0 = server.available_pages
     # the main path's run: the launch counts cover exactly this
     reset_launch_counts()
@@ -1317,15 +1366,15 @@ def serve_requests(models, server, system=(), greedy=(3, 13, 23, 33),
     wall = time.perf_counter() - t0
     steps = server.steps_decoded - steps0
     emitted = sum(len(v) for v in results.values())
-    print(f"  engine: 40 requests, {emitted} tokens, {steps} decode steps, "
-          f"{wall:.2f} s wall")
+    print(f"  engine: {len(requests)} requests, {emitted} tokens, {steps} "
+          f"decode steps, {wall:.2f} s wall")
     if sorted(results) != sorted(prompts):
         raise AssertionError("missing results")
     for rid, toks in results.items():
-        if len(toks) != max_tokens[rid] or not all(
-                0 <= t < VOCAB for t in toks):
+        if len(toks) != want_len[rid] or not all(
+                0 <= t < vocab for t in toks):
             raise AssertionError(f"{rid}: {len(toks)} tokens, want "
-                                 f"{max_tokens[rid]} in [0, {VOCAB})")
+                                 f"{want_len[rid]} in [0, {vocab})")
     if server.available_pages != free0 or server.seq_pages:
         raise AssertionError("the page pool did not return to its start")
     return prompts, results, [f"r{i}" for i in sorted(greedy)], steps
@@ -1364,14 +1413,15 @@ def check_greedy(logits_of, prompts, results, greedy, margin, least=4):
         raise AssertionError("too few greedy tokens could be checked")
 
 
-def steady_decode(models, server, what, adapter_of=None):
-    """Steady decode rate of 32 requests (request i under the adapter
-    ``adapter_of(i)``) with step_many(8) (CUDA events over 5 rounds after
-    2), then one profiled call. Returns tok/s, and the device time (us)
-    and device ops per decode step of the profiled call."""
+def steady_decode(models, server, what, adapter_of=None, vocab=VOCAB):
+    """Steady decode rate of 32 requests of 24-31 tokens below ``vocab``
+    (request i under the adapter ``adapter_of(i)``) with step_many(8) (CUDA
+    events over 5 rounds after 2), then one profiled call. Returns tok/s,
+    and the device time (us) and device ops per decode step of the
+    profiled call."""
     rng = np.random.RandomState(0)
     for i in range(32):
-        server.add(f"s{i}", rng.randint(0, VOCAB, 24 + i % 8).tolist(),
+        server.add(f"s{i}", rng.randint(0, vocab, 24 + i % 8).tolist(),
                    models.SamplingParams(temperature=0.8),
                    adapter=adapter_of and adapter_of(i))
     server.step_many(8)
@@ -3479,13 +3529,13 @@ def spec_prompts():
             for i in range(SPEC_BATCH)}
 
 
-def run_speculative(spec, prompts, tokens):
+def run_speculative(spec, prompts, tokens, vocab=VOCAB):
     """Every prompt through ``spec`` until each request has emitted
     ``tokens``, the whole batch in every round (so that each target chunk
-    has SPEC_BATCH x k rows), every launch count set to 0 just before.
-    Checks that 1 to k tokens come out a round. Returns (the emitted
-    tokens, rounds, rounds x sequences that accepted every proposal, wall
-    seconds)."""
+    has len(prompts) x k rows), every launch count set to 0 just before.
+    Checks that 1 to k tokens below ``vocab`` come out a round. Returns
+    (the emitted tokens, rounds, rounds x sequences that accepted every
+    proposal, wall seconds)."""
     for rid, p in prompts.items():
         spec.add(rid, p)
     out = {rid: [] for rid in prompts}
@@ -3496,7 +3546,7 @@ def run_speculative(spec, prompts, tokens):
     while min(len(v) for v in out.values()) < tokens:
         for rid, toks in spec.step().items():
             if not 1 <= len(toks) <= spec.k or not all(
-                    0 <= t < VOCAB for t in toks):
+                    0 <= t < vocab for t in toks):
                 raise AssertionError(f"{rid}: a round emitted {toks}")
             full += len(toks) == spec.k
             out[rid] += toks
@@ -3612,16 +3662,18 @@ BEAMS, BEAM_PROMPTS, BEAM_TOKENS = 4, 4, 32
 ADMIT_REPS, ADMIT_WARMUP = 5, 2
 
 
-def serve_system_prompt(models, server, system, logits_of, margin):
-    """Phase 3's 40 requests behind ``system`` through serve_requests on a
-    prefix-cache server: the first prefills cold, the 39 others share its
-    system pages and prefill their tails (23-30 rows) as one chunk each.
-    Checks the hit and miss counts, that the pool returns to its start
-    with the system pages cached (reclaimable), and the greedy tokens
-    (check_greedy's ``logits_of`` past ``margin``). Returns (prompts,
-    decode steps, suffix prefills, launch counts of the run)."""
+def serve_system_prompt(models, server, system, logits_of, margin,
+                        serve=serve_requests):
+    """Phase 3's 40 requests (or those of ``serve(models, server,
+    system)``: phase 17's) behind ``system`` on a prefix-cache server: the
+    first prefills cold, the 39 others share its system pages and prefill
+    their tails (23-30 rows in phase 15) as one chunk each. Checks the hit
+    and miss counts, that the pool returns to its start with the system
+    pages cached (reclaimable), and the greedy tokens (check_greedy's
+    ``logits_of`` past ``margin``). Returns (prompts, decode steps, suffix
+    prefills, launch counts of the run)."""
     hits0, miss0 = server.cache_hit_tokens, server.cache_miss_tokens
-    prompts, results, greedy, steps = serve_requests(models, server, system)
+    prompts, results, greedy, steps = serve(models, server, system)
     counts = launch_counts()
     tails = [len(p) - len(system) for p in prompts.values()]
     want = ((len(tails) - 1) * len(system),
@@ -4380,6 +4432,331 @@ def phase_controls(torch_nn, models, Q, smi):
     return out
 
 
+# phase 17: GPT decode at full width. The flagship GPT (bench.py:107-113,
+# phase 5's model: 12 blocks, 768 wide, 12 heads of 64, MLP 3072, byte
+# vocab 256, context 384, biases, tied; 85.6 M parameters), bf16, random
+# weights from seed 0; nothing cut. BatchServer over GPT_PAGES pages of
+# PAGE tokens (3 a sequence); 40 requests of seeded bytes with prompts of
+# 16-256 tokens (1-3 pages), every fifth budget up to the context's end,
+# those of GPT_GREEDY greedy; then the same behind a 256-byte system prompt
+# (tails of 8-31 bytes); speculative decoding (a GPT_DRAFT_BLOCKS-block
+# draft at the same widths from seed 1, k = SPEC_K, the first
+# GPT_SPEC_BATCH prompts, GPT_SPEC_TOKENS greedy tokens each); generate
+# (GEN_BATCH prompts of GEN_PROMPT bytes, GEN_TOKENS greedy tokens)
+GPT_CTX = TRAIN_CONFIGS[0][1]
+GPT_PAGES = 128
+GPT_GREEDY = (3, 13, 24, 39)
+GPT_DRAFT_BLOCKS = 2
+GPT_SPEC_BATCH, GPT_SPEC_TOKENS = 32, 64
+GEN_BATCH, GEN_PROMPT, GEN_TOKENS = 8, 64, 128
+# a greedy token of the e4m3 pool must equal the bf16 dense forward's
+# argmax where its top-1/top-2 margin exceeds this: an e4m3 K or V value
+# is off by up to 2^-4 of itself (3 mantissa bits), so the paged logits
+# move further from the dense ones than bf16 rounding moves them (MARGIN).
+# A token can differ only where the margin is below twice the logits'
+# distance; phase 17 prints that distance for a greedy request fed through
+# the chunk path (on an H100: 0.0277 on e4m3, 0.0221 on bf16), so phase 7's
+# doubling of MARGIN for int4 leaves the e4m3 check 1.8x that bound;
+# gpt_engine fails if the distance reaches half the margin
+GPT_FP8_MARGIN = 0.1
+
+
+def make_gpt(torch_nn, dtype=torch.bfloat16, seed=0, blocks=None):
+    """The flagship GPT (``blocks`` of its blocks where given), random
+    weights from ``seed``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return torch_nn.LanguageModelModule.init(
+        vocab_size=LM_VOCAB, context_length=GPT_CTX,
+        num_blocks=blocks or LM_BLOCKS,
+        embed_dim=LM_DIM, attention_heads=LM_HEADS, generator=gen,
+        dtype=dtype, device="cuda")
+
+
+def gpt_requests(system=()):
+    """Phase 17's 40 requests as run_engine takes them: prompts of 16-256
+    seeded bytes (behind ``system``: tails of 8-31 bytes), max_tokens
+    32-96, every fifth None (up to the context's end)."""
+    rng = np.random.RandomState(17)
+    out = []
+    for i in range(40):
+        n = 8 + i % 24 if system else 16 + (240 * i) // 39
+        out.append((list(system) + rng.randint(0, LM_VOCAB, n).tolist(),
+                    None if i % 5 == 4 else 32 + (64 * i) // 39, None))
+    return out
+
+
+def serve_gpt(models, server, system=()):
+    return run_engine(models, server, gpt_requests(system), GPT_GREEDY,
+                      LM_VOCAB)
+
+
+def forced_logit_err(server, prompt, toks, logits_of):
+    """The largest |logit| difference between ``server``'s chunk path (the
+    prompt added, then ``toks`` teacher-forced as one chunk) and the dense
+    ``logits_of`` at the same positions. Runs after the launch counts are
+    read."""
+    server.add("forced", prompt)
+    got = server.advance_chunk(["forced"], [[prompt[-1]] + toks[:-1]])[0]
+    server.remove("forced")
+    with torch.no_grad():
+        want = logits_of(torch.as_tensor([prompt + toks[:-1]],
+                                         device="cuda"), len(prompt))
+    return float((got - want[len(prompt) - 1:]).abs().max())
+
+
+def gpt_decode_call(gen, prompts, pool_dtype=torch.bfloat16, tables=2):
+    """The decode call of K6's fixed kernel as phase 17's steady step makes
+    it at step 1's lengths: the GPT's layer (12 / 12 heads of 64, bf16 q)
+    over a layer-stacked pool of LM_BLOCKS x GPT_PAGES pages of PAGE tokens
+    (``pool_dtype``), 3 pages a sequence, B = 32 at the first 32 prompts'
+    lengths (15-210 tokens before the new one), append_kv. Each of
+    ``tables`` page tables gives every sequence its own live pages and the
+    trash page 0 for the rest; call i takes decode_turn(i, tables,
+    offsets), so calls in turn read tables x 12 layers' rows (~260 MB,
+    past the 50 MB L2) cold. Returns (q, pool, (new_k, new_v), tables,
+    lengths, offsets)."""
+    dev = torch.device("cuda")
+    d = LM_DIM // LM_HEADS
+    lens = np.asarray([len(p) - 1 for p in prompts][:32], np.int32)
+    live = -(-(lens + 1) // PAGE)
+    pool = torch.randn((LM_BLOCKS * GPT_PAGES, 2, PAGE, LM_DIM),
+                       generator=gen, device=dev,
+                       dtype=torch.bfloat16).to(pool_dtype)
+    rng = np.random.RandomState(7)
+    ids = rng.choice(np.arange(1, GPT_PAGES), tables * int(live.sum()),
+                     replace=False)
+    out, at = [], 0
+    for _ in range(tables):
+        table = np.zeros((32, GPT_CTX // PAGE), np.int32)
+        for i, n in enumerate(live):
+            table[i, :n] = ids[at:at + n]
+            at += n
+        out.append(torch.as_tensor(table, device=dev))
+    q = torch.randn((32, LM_HEADS, d), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    new = tuple(torch.randn((32, LM_DIM), generator=gen, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
+    offsets = [layer * GPT_PAGES for layer in range(LM_BLOCKS)]
+    return q, pool, new, out, torch.as_tensor(lens, device=dev), offsets
+
+
+def time_gpt_decode_call(paged_attention, paged_attention_reference,
+                         prompts):
+    """The GPT's decode call (gpt_decode_call) against its plain version
+    (f32), then timed: CUDA events over a graph of the calls in turns
+    (cold), the plain version by the profiler, beside the bound (each pool
+    row below ``lens`` read once, q and the appended rows read and the
+    output written once, the table and lengths read once; or the products
+    over those rows and the appended ones at 989 TFLOP/s). Returns the
+    figures."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    q, pool, new, tables, lens, offsets = gpt_decode_call(gen, prompts)
+    kw = dict(num_kv_heads=LM_HEADS, append_kv=new)
+
+    def call(i=0):
+        tab, off = decode_turn(i, tables, offsets)
+        return paged_attention(q, pool, None, tab, lens, page_offset=off,
+                               **kw)
+
+    def plain():
+        return paged_attention_reference(q, pool, None, tables[0], lens,
+                                          **kw)
+
+    ref = paged_attention_reference(
+        q.float(), pool.float(), None, tables[0], lens,
+        num_kv_heads=LM_HEADS, append_kv=tuple(x.float() for x in new))
+    err = (call().float() - ref).abs()
+    if (err > ATOL + RTOL * ref.abs()).any():
+        raise AssertionError(f"GPT decode call: max err {float(err.max())}")
+    ms = graph_ms(call)
+    plain_ms = sum(device_ms(plain, 10).values())
+    live = int(lens.sum())
+    d = LM_DIM // LM_HEADS
+    nbytes = live * 2 * LM_DIM * 2 + (2 * q.numel() + 2 * new[0].numel()) \
+        * 2 + (tables[0].numel() + 32) * 4
+    bound_ms = max(nbytes / PEAK_BYTES,
+                   4 * (live + 32) * LM_HEADS * d / PEAK_FLOPS) * 1e3
+    print(f"  GPT decode call (B=32, 12/12 heads of 64, step 1's lengths "
+          f"{int(lens.min())}-{int(lens.max())}, 2 tables x 12 layers in "
+          f"turns, cold): {ms * 1e3:.2f} us a call (CUDA events over a "
+          f"graph), plain {plain_ms * 1e3:.2f} us, bound {bound_ms * 1e3:.2f}"
+          f" us (bytes), max_abs_err {float(err.max()):.3e}", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                max_abs_err=float(err.max()))
+
+
+def gpt_engine(models, model, what, logits_of, margin, **server_kw):
+    """Phase 17's 40 requests through the engine on BatchServer(model,
+    **server_kw): lengths, the pool, K6 12 times a decode step, the greedy
+    tokens against ``logits_of`` past ``margin``, and the teacher-forced
+    logit distance of the last greedy request, which must be below half
+    ``margin`` (the reason for the margin). Returns (the server, its
+    prompts, K6's launches, decode steps, the distance)."""
+    server = models.BatchServer(model, page_size=PAGE, total_pages=GPT_PAGES,
+                                **server_kw)
+    prompts, results, greedy, steps = serve_gpt(models, server)
+    k6 = launch_counts()["paged_attention"]
+    check_launches(f"paged_attention ({what})", k6, LM_BLOCKS * steps)
+    rid = greedy[-1]
+    err = forced_logit_err(server, prompts[rid], results[rid][:64],
+                           logits_of)
+    print(f"  {what}: teacher-forced logits of {rid} (its first 64 tokens "
+          f"through the chunk path) against the dense forward: max abs err "
+          f"{err:.4f}", flush=True)
+    if not err < margin / 2:
+        raise AssertionError(f"{what}: the teacher-forced logit distance "
+                             f"{err:.4g} is not below half the greedy "
+                             f"margin {margin}")
+    check_greedy(logits_of, prompts, results, greedy, margin)
+    return server, prompts, k6, steps, err
+
+
+def phase_gpt(torch_nn, models, ops, paged_attention,
+              paged_attention_reference, smi):
+    """Phase 17: GPT decode at full width: the engine on bf16, e4m3 and f32
+    pools, the prefix cache, speculative decoding, generate, PagedKVCache,
+    the GPT decode call and the steady step. Returns the figures."""
+    model = make_gpt(torch_nn)
+    dense = lambda t, _: model(t)[0]  # noqa: E731
+    out = {}
+    server, prompts, out["k6_bf16"], out["steps"], out["err_bf16"] = \
+        gpt_engine(models, model, "bf16", dense, MARGIN)
+    _, _, out["k6_fp8"], out["steps_fp8"], out["err_fp8"] = gpt_engine(
+        models, model, "e4m3 pool", dense, GPT_FP8_MARGIN,
+        kv_dtype=torch.float8_e4m3fn)
+    model32 = make_gpt(torch_nn, torch.float32)
+    server32, _, out["k6_f32"], out["steps_f32"], out["err_f32"] = \
+        gpt_engine(models, model32, "f32", lambda t, _: model32(t)[0],
+                   QMARGIN32)
+    if server32.kv_pages.dtype != torch.float32:
+        raise AssertionError("the f32 model's pool is not f32")
+    del server32, model32
+    torch.cuda.empty_cache()
+
+    system = np.random.RandomState(18).randint(0, LM_VOCAB, SYSTEM).tolist()
+    cache = models.BatchServer(model, page_size=PAGE, total_pages=GPT_PAGES,
+                               enable_prefix_cache=True)
+    _, steps_p, suffixes, counts = serve_system_prompt(
+        models, cache, system, dense, MARGIN, serve=serve_gpt)
+    check_launches("paged_attention (prefix cache)",
+                   counts["paged_attention"], LM_BLOCKS * (steps_p + suffixes))
+    out.update(k6_prefix=counts["paged_attention"], steps_prefix=steps_p,
+               suffixes=suffixes, hit=cache.cache_hit_tokens)
+    del cache
+
+    draft = make_gpt(torch_nn, seed=1, blocks=GPT_DRAFT_BLOCKS)
+    spec = models.SpeculativeDecoder(model, draft, k=SPEC_K, page_size=PAGE,
+                                     total_pages=GPT_PAGES)
+    spec_prompts = dict(list(prompts.items())[:GPT_SPEC_BATCH])
+    free0 = (len(spec.target.free_pages), len(spec.draft.free_pages))
+    draft0 = spec.draft.steps_decoded
+    emitted, rounds, full, wall = run_speculative(
+        spec, spec_prompts, GPT_SPEC_TOKENS, LM_VOCAB)
+    k6 = launch_counts()["paged_attention"]
+    draft_calls = spec.draft.steps_decoded - draft0
+    if draft_calls != (SPEC_K - 1) * rounds + full:
+        raise AssertionError(f"the draft ran {draft_calls} decode steps")
+    check_launches("paged_attention (the target's chunks and the draft's "
+                   "steps)", k6,
+                   LM_BLOCKS * rounds + GPT_DRAFT_BLOCKS * draft_calls)
+    n = sum(len(v) for v in emitted.values())
+    per_seq = n / (rounds * GPT_SPEC_BATCH)
+    print(f"  speculative (k={SPEC_K}, a {GPT_DRAFT_BLOCKS}-block draft): "
+          f"{rounds} rounds, {n} tokens in {wall:.2f} s ({n / wall:.1f} "
+          f"tok/s), {per_seq:.3f} a sequence a round, every proposal "
+          f"accepted in {full}", flush=True)
+    check_greedy(dense, spec_prompts,
+                 {r: v[:GPT_SPEC_TOKENS] for r, v in emitted.items()},
+                 list(spec_prompts), MARGIN)
+    for rid in spec_prompts:
+        spec.remove(rid)
+    if (len(spec.target.free_pages), len(spec.draft.free_pages)) != free0:
+        raise AssertionError("a speculative pool did not return")
+    out.update(k6_spec=k6, spec_rounds=rounds, spec_tok_s=n / wall,
+               spec_per_seq_round=per_seq)
+    del spec, draft
+    torch.cuda.empty_cache()
+
+    rng = np.random.RandomState(19)
+    gen_prompts = rng.randint(0, LM_VOCAB, (GEN_BATCH, GEN_PROMPT))
+    reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = models.generate(model, gen_prompts, GEN_TOKENS, temperature=0.0)
+    wall = time.perf_counter() - t0
+    if launch_counts()["paged_attention"]:
+        raise AssertionError("generate launched the paged kernel")
+    if toks.shape != (GEN_BATCH, GEN_TOKENS):
+        raise AssertionError(f"generate gave {toks.shape}")
+    out["generate_tok_s"] = GEN_BATCH * GEN_TOKENS / wall
+    print(f"  generate: {GEN_BATCH} prompts of {GEN_PROMPT} bytes, "
+          f"{GEN_TOKENS} greedy tokens each in {wall:.2f} s "
+          f"({out['generate_tok_s']:.1f} tok/s, prefill included); plain "
+          f"PyTorch attention over the cache, as the JAX function's einsum: "
+          f"no kernel of the port runs here", flush=True)
+    check_greedy(dense, {f"g{i}": p.tolist() for i, p in
+                         enumerate(gen_prompts)},
+                 {f"g{i}": t.tolist() for i, t in enumerate(toks)},
+                 [f"g{i}" for i in range(GEN_BATCH)], MARGIN)
+
+    d = LM_DIM // LM_HEADS
+    kv_cache = ops.PagedKVCache(num_kv_heads=LM_HEADS, head_dim=d,
+                                page_size=PAGE, total_pages=GPT_PAGES,
+                                max_pages_per_seq=GPT_CTX // PAGE)
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    ids = list(prompts)[:32]
+    rows = {}
+    for sid in ids:
+        kv_cache.add_sequence(sid)
+        rows[sid] = torch.randn((2, len(prompts[sid]), LM_HEADS, d),
+                                generator=gen, device="cuda",
+                                dtype=torch.bfloat16)
+        for t in range(len(prompts[sid])):
+            kv_cache.append(sid, rows[sid][0, t], rows[sid][1, t])
+    for sid in ids:
+        pages = kv_cache.seq_pages[sid]
+        for pool, part in ((kv_cache.k_pages, 0), (kv_cache.v_pages, 1)):
+            held = pool[pages].reshape(-1, LM_DIM)[:len(prompts[sid])]
+            if not torch.equal(held, rows[sid][part].reshape(-1, LM_DIM)):
+                raise AssertionError(f"PagedKVCache: {sid}'s rows")
+    q = torch.randn((32, LM_HEADS, d), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    table, lens = kv_cache.batch_views(ids)
+    reset_launch_counts()
+    got = paged_attention(q, kv_cache.k_pages, kv_cache.v_pages, table, lens,
+                          num_kv_heads=LM_HEADS)
+    out["k6_kv_cache"] = launch_counts()["paged_attention"]
+    ref = paged_attention_reference(q.float(), kv_cache.k_pages.float(),
+                                    kv_cache.v_pages.float(), table, lens,
+                                    num_kv_heads=LM_HEADS)
+    err = (got.float() - ref).abs()
+    print(f"  PagedKVCache: 32 sequences of {int(lens.min())}-"
+          f"{int(lens.max())} tokens appended ({int(lens.sum())} rows, bit "
+          f"for bit in the pools); paged_attention over its split pools "
+          f"against the plain version: max_abs_err {float(err.max()):.3e}",
+          flush=True)
+    if (err > ATOL + RTOL * ref.abs()).any():
+        raise AssertionError("paged_attention over PagedKVCache's pools")
+    check_launches("paged_attention (PagedKVCache)", out["k6_kv_cache"], 1)
+    for sid in ids:
+        kv_cache.free_sequence(sid)
+    if sorted(kv_cache.free_pages) != list(range(GPT_PAGES)):
+        raise AssertionError("PagedKVCache: pages not returned")
+    del kv_cache, rows
+
+    out["decode_call"] = time_gpt_decode_call(
+        paged_attention, paged_attention_reference, list(prompts.values()))
+    out["decode"] = steady_decode(models, server, "gpt bf16",
+                                  vocab=LM_VOCAB)
+    print(f"  GPT steady decode: {out['decode']['tok_s']:.1f} tok/s, "
+          f"{out['decode']['device_us_per_step']:.1f} us of device time and "
+          f"{out['decode']['device_ops_per_step']:.1f} ops a step, busy "
+          f"{100 * out['decode']['busy_share']:.1f}% | {smi}", flush=True)
+    del server, model
+    torch.cuda.empty_cache()
+    return out
+
+
 def _bits(x):
     """The bit pattern of a 2- or 4-byte float tensor, so that equality
     is bit for bit (signed zeros, NaNs)."""
@@ -5041,7 +5418,7 @@ def main() -> int:
     # f32 matmuls (the plain versions, the logits) stay f32: no TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    from lamp_tpu_torch import models, optim, train
+    from lamp_tpu_torch import models, ops, optim, train
     from lamp_tpu_torch import nn as torch_nn
     from lamp_tpu_torch.ops import _build
     from lamp_tpu_torch.ops import attention as att
@@ -5113,6 +5490,12 @@ def main() -> int:
     print("phase 16: per-request controls at full width (multi-LoRA, "
           "penalties, JSON mode, LoRA-draft speculation)", flush=True)
     controls = phase_controls(torch_nn, models, Q, smi)
+    print("phase 17: GPT decode at full width (generate, BatchServer on "
+          "bf16, e4m3 and f32 pools, the prefix cache, speculative "
+          "decoding, PagedKVCache)", flush=True)
+    gpt = phase_gpt(torch_nn, models, ops, paged_attention,
+                    paged_attention_reference, smi)
+    print(json.dumps({"gpt": gpt}))
     tc_by = {c["tc"][f"M={SPEC_ROWS}"]["bound_by"]
              for c in k7["per_call"].values()}
     k7_tc = dict(k7["tc_round"], launches=spec["tc_launches"],
@@ -5195,6 +5578,22 @@ def main() -> int:
         decode_base_only=controls["decode_base"],
         json=dict(compile_s=controls["json_compile_s"],
                   states=controls["json_states"]))
+    rows[0]["gpt"] = dict(
+        launches=(gpt["k6_bf16"] + gpt["k6_f32"] + gpt["k6_prefix"]
+                  + gpt["k6_spec"] + gpt["k6_kv_cache"]),
+        note="phase 17 (the flagship GPT: 12/12 heads of 64, group 1): the "
+             "engine's decode steps on the bf16 pool and, on the f32 "
+             "model's pool, the f32 route; the prefix cache's decode steps "
+             "and suffix chunks; the speculative target's chunks and the "
+             "draft's steps; one call over PagedKVCache's split pools. "
+             "decode_call: the GPT's decode call (B=32, step 1's lengths, "
+             "cold) by CUDA events over a graph, its plain version by the "
+             "profiler",
+        bf16=gpt["k6_bf16"], f32=gpt["k6_f32"], prefix_cache=gpt["k6_prefix"],
+        speculative=gpt["k6_spec"], paged_kv_cache=gpt["k6_kv_cache"],
+        decode_call=gpt["decode_call"], decode=gpt["decode"])
+    rows[1]["gpt"] = dict(launches=gpt["k6_fp8"],
+                          note="phase 17's engine on an e4m3 pool")
     rows[1]["note"] = ("the same on an e4m3 pool; launches: phase 7's fp8-KV "
                        "requests")
     for i, what in ((0, "bf16"), (1, "fp8")):

@@ -1,9 +1,13 @@
 """Batch LM serving over the paged KV cache.
 
-Counterpart of :mod:`lamp_tpu.models.serving` for the llama-style
-:class:`~lamp_tpu_torch.nn.ModernLM`: a continuous-batching decode engine in
-which concurrent sequences of different lengths share one physical page
-pool, and requests join and leave the batch between steps.
+Counterpart of :mod:`lamp_tpu.models.serving`: a continuous-batching decode
+engine in which concurrent sequences of different lengths share one
+physical page pool, and requests join and leave the batch between steps.
+:class:`BatchServer` serves the GPT family
+(:class:`~lamp_tpu_torch.nn.LanguageModelModule`: learned positions,
+pre-norm blocks, biased projections) and :class:`ModernBatchServer` the
+llama-style :class:`~lamp_tpu_torch.nn.ModernLM`; both share the page pool,
+the request lifecycle, sampling and the decode loop.
 
     server = ModernBatchServer(model, page_size=128, total_pages=192)
     engine = ServingEngine(server, decode_steps=8)
@@ -74,8 +78,11 @@ tensors:
     engine.submit(prompt, SamplingParams(presence_penalty=0.5),
                   adapter="fr", constraint="json")
 
-Not ported yet (each raises ``NotImplementedError`` when asked for): the
-GPT ``BatchServer`` model path, tensor parallelism and MoE blocks.
+Not ported yet (each raises ``NotImplementedError`` when asked for):
+tensor parallelism (``mesh=``) and MoE blocks. As in the JAX package, the
+GPT :class:`BatchServer` takes no ``quantize_bits`` (``ValueError``) and no
+adapter (``NotImplementedError``), and :class:`LoRADraftSpeculativeDecoder`
+serves the ModernLM family only.
 """
 
 from __future__ import annotations
@@ -134,15 +141,28 @@ def _kv_write_stacked(pool, total_pages, token_pages, token_slots,
 
 
 class BatchServer:
-    """Paged-KV batch decode: page pool, request lifecycle, sampling and
-    the multi-step decode loop, independent of the model family. The model
-    hooks (``_introspect``, ``_precompute_extras``, ``_decode_step``,
-    ``_prefill_seq``) are :class:`ModernBatchServer`'s; the GPT
-    (``LanguageModelModule``) server is not ported yet."""
+    """Paged-KV batch decode for the GPT family
+    (:class:`~lamp_tpu_torch.nn.LanguageModelModule`; see
+    :class:`ModernBatchServer` for the llama-style family): the page pool,
+    the request lifecycle, sampling and the multi-step decode loop, and
+    the GPT's model hooks (``_introspect``, ``_precompute_extras``,
+    ``_prefill_seq``, ``_decode_step``, ``_decode_chunk``), which
+    :class:`ModernBatchServer` overrides.
+
+    As the JAX server does, the GPT hooks assume pre-norm blocks and softmax
+    attention (whatever the blocks' ``gpt_order`` and ``linearized`` say),
+    one kv head a query head, and no per-layer window. A projection's
+    product is rounded to the activations' dtype before its bias is added,
+    in the JAX server's order."""
 
     def _introspect(self, model):
-        raise NotImplementedError(
-            "BatchServer for LanguageModelModule (GPT); use ModernBatchServer")
+        block = model.encoder.blocks[0]
+        self.layers = len(model.encoder.blocks)
+        self.heads = block.attention.num_heads
+        self.kv_heads = self.heads
+        # the port's Linear is [out, in]: the q width is the first axis
+        self.head_dim = block.attention.w_q.weight.shape[0] // self.heads
+        self._windows = tuple(None for _ in range(self.layers))
 
     def __init__(self, model, *, page_size: int = 128,
                  total_pages: int = 512, temperature: float = 0.0,
@@ -500,10 +520,8 @@ class BatchServer:
     def _adapter_index(self, name) -> int:
         if name is None:
             return 0
-        try:
-            return self._adapters[name]
-        except KeyError:
-            raise ValueError(f"unknown adapter {name!r}") from None
+        raise NotImplementedError(
+            "LoRA adapters are supported on ModernBatchServer")
 
     def _lora_arg(self, seq_ids):
         """(adapter ids [B] int64, the stacked factors), or None when no
@@ -875,6 +893,160 @@ class BatchServer:
             self._constraint_advance(seq_ids, toks_host)
         return self._record(seq_ids, toks_host, lps_host)
 
+    # -- the GPT model hooks ----------------------------------------------
+    def _precompute_extras(self, model):
+        """Decode-path weights of the GPT: a fused [(3·H·hd), D] QKV weight
+        a layer, its fused bias (zeros for a linear without one; None when
+        no linear has one), and an f32 copy of the tied embedding for the
+        logits, so that they accumulate and stay in f32 as the JAX server's
+        ``preferred_element_type`` does."""
+        if self.quantize_bits:
+            raise ValueError(
+                "quantize_bits is supported on ModernBatchServer")
+        ws, bs = [], []
+        any_bias = False
+        with torch.no_grad():
+            for block in model.encoder.blocks:
+                att = block.attention
+                lins = (att.w_q, att.w_k, att.w_v)
+                ws.append(torch.cat([lin.weight for lin in lins]))
+                row = []
+                for lin in lins:
+                    if lin.bias is not None:
+                        any_bias = True
+                        row.append(lin.bias)
+                    else:
+                        row.append(torch.zeros_like(lin.weight[:, 0]))
+                bs.append(torch.cat(row))
+            lmh = model.token_embedding.weight.detach().float()
+        return tuple(ws), (tuple(bs) if any_bias else None), lmh
+
+    @staticmethod
+    def _project(x, weight, bias):
+        """``x`` times ``weight`` [out, in], the product rounded to x's dtype
+        before ``bias`` is added (the JAX server's order; ``F.linear``
+        would add it before rounding)."""
+        y = F.linear(x, weight)
+        return y if bias is None else y + bias
+
+    @staticmethod
+    def _mlp_residual(x, block):
+        """x plus the pre-norm block's MLP, w2(activation(w1(norm2(x)))),
+        times its learned scale."""
+        return x + block.w2(block.activation(block.w1(block.norm2(x)))) \
+            * block.scale2
+
+    @torch.no_grad()
+    def _prefill_seq(self, tokens, token_pages, token_slots, req_window=None):
+        """Dense prefill of ONE sequence: causal forward over its [T] tokens
+        at learned positions 0..T-1 with the plain attention, writing every
+        layer's K/V rows into (token_pages, token_slots). ``req_window`` is
+        this request's window. (The JAX server pads T to a bucket to bound
+        its jit traces; causal attention makes the padding inert, so it is
+        left out here.)"""
+        model = self.model
+        t = tokens.shape[0]
+        x = model.token_embedding(tokens[None]) + \
+            model.position_embedding.weight[:t][None]  # [1, T, D]
+        h, hd = self.heads, self.head_dim
+        deferred_rows = []
+        for block in model.encoder.blocks:
+            att = block.attention
+            a = block.norm1(x)
+
+            def heads(lin):
+                return self._project(a, lin.weight, lin.bias).reshape(
+                    1, t, h, hd).transpose(1, 2)
+
+            q, kk, vv = heads(att.w_q), heads(att.w_k), heads(att.w_v)
+            deferred_rows.append((kk[0].transpose(0, 1).reshape(t, -1),
+                                  vv[0].transpose(0, 1).reshape(t, -1)))
+            o = mha_reference(q, kk, vv, causal=True, window=req_window)
+            o = o.transpose(1, 2).reshape(1, t, h * hd)
+            x = x + self._project(o, att.w_o.weight, att.w_o.bias) \
+                * block.scale1
+            x = self._mlp_residual(x, block)
+        _kv_write_stacked(self.kv_pages, self.total_pages, token_pages,
+                          token_slots, deferred_rows)
+
+    @torch.no_grad()
+    def _decode_step(self, tokens, page_idx, lengths, token_pages,
+                     token_slots, req_windows=None, lora=None):
+        """Process a [B] batch of tokens sitting at positions ``lengths``:
+        attend over history + self, write every layer's K/V into
+        (token_pages, token_slots) of the pool, return logits [B, V] f32.
+        The GPT takes no adapter: ``lora`` is always None here."""
+        self.steps_decoded += 1
+        model = self.model
+        b = tokens.shape[0]
+        wqkv, bqkv, lmh = self._extras
+        x = model.token_embedding(tokens) + \
+            model.position_embedding.weight[lengths]  # [B, D]
+        nq = self.heads * self.head_dim
+        deferred_rows = []  # per-layer (k_rows, v_rows) written after loop
+        for li, block in enumerate(model.encoder.blocks):
+            att = block.attention
+            y = self._project(block.norm1(x), wqkv[li],
+                              None if bqkv is None else bqkv[li])
+            q = y[:, :nq].reshape(b, self.heads, self.head_dim)
+            kk, vv = y[:, nq:2 * nq], y[:, 2 * nq:]
+            # the current token's K/V is INJECTED into the kernel
+            # (append_kv), so the pool write is deferred out of the loop
+            deferred_rows.append((kk, vv))
+            o = paged_attention(
+                q, self.kv_pages, None, page_idx, lengths,
+                num_kv_heads=self.kv_heads, windows=req_windows,
+                append_kv=(kk, vv), page_offset=li * self.total_pages,
+            ).reshape(b, nq)
+            x = x + self._project(o, att.w_o.weight, att.w_o.bias) \
+                * block.scale1
+            x = self._mlp_residual(x, block)
+        _kv_write_stacked(self.kv_pages, self.total_pages, token_pages,
+                          token_slots, deferred_rows)
+        return F.linear(model.final_norm(x).float(), lmh)
+
+    @torch.no_grad()
+    def _decode_chunk(self, tokens, page_idx, lengths, token_pages,
+                      token_slots, req_windows=None, lora=None):
+        """Process a [B, m] chunk of tokens at positions ``lengths[:, None]
+        + arange(m)``: each layer writes the chunk's K/V rows into
+        (token_pages, token_slots) [B, m] of the pool before its attention,
+        then the paged kernel attends over the B*m query rows (the page
+        table repeated m times, lengths pos + 1); returns logits [B, m, V]
+        f32. The GPT takes no adapter: ``lora`` is always None here."""
+        model = self.model
+        b, m = tokens.shape
+        wqkv, bqkv, lmh = self._extras
+        pos = lengths.long()[:, None] + \
+            torch.arange(m, device=self.device)[None]
+        x = model.token_embedding(tokens) + \
+            model.position_embedding.weight[pos]  # [B, m, D]
+        nq = self.heads * self.head_dim
+        plen = (pos + 1).reshape(-1).to(torch.int32)
+        pidx = page_idx.repeat_interleave(m, dim=0)
+        win_r = (None if req_windows is None
+                 else req_windows.repeat_interleave(m))
+        tp = token_pages.reshape(-1)
+        ts = token_slots.reshape(-1)
+        for li, block in enumerate(model.encoder.blocks):
+            att = block.attention
+            y = self._project(block.norm1(x), wqkv[li],
+                              None if bqkv is None else bqkv[li])
+            _kv_write_stacked(self.kv_pages, self.total_pages,
+                              tp + li * self.total_pages, ts,
+                              [(y[..., nq:2 * nq].reshape(b * m, nq),
+                                y[..., 2 * nq:].reshape(b * m, nq))])
+            o = paged_attention(
+                y[..., :nq].reshape(b * m, self.heads, self.head_dim),
+                self.kv_pages, None, pidx, plen,
+                num_kv_heads=self.kv_heads, windows=win_r,
+                page_offset=li * self.total_pages,
+            ).reshape(b, m, nq)
+            x = x + self._project(o, att.w_o.weight, att.w_o.bias) \
+                * block.scale1
+            x = self._mlp_residual(x, block)
+        return F.linear(model.final_norm(x).float(), lmh)
+
 
 class ModernBatchServer(BatchServer):
     """Paged-KV batch decode for :class:`lamp_tpu_torch.nn.ModernLM` (RoPE +
@@ -899,6 +1071,14 @@ class ModernBatchServer(BatchServer):
         self._windows = tuple(b.window for b in model.blocks)
 
     # -- multi-LoRA serving ------------------------------------------------
+    def _adapter_index(self, name) -> int:
+        if name is None:
+            return 0
+        try:
+            return self._adapters[name]
+        except KeyError:
+            raise ValueError(f"unknown adapter {name!r}") from None
+
     @staticmethod
     def _projections(blk):
         return {"q": blk.w_q, "k": blk.w_k, "v": blk.w_v, "o": blk.w_o,
@@ -1227,7 +1407,8 @@ class _Fan:
 
 
 class ServingEngine:
-    """Continuous-batching scheduler over a :class:`ModernBatchServer`.
+    """Continuous-batching scheduler over a :class:`BatchServer` (the GPT
+    family) or a :class:`ModernBatchServer`.
 
     Requests are submitted with per-request :class:`SamplingParams`
     (temperature / top-k / top-p / penalties / ``max_tokens`` /
@@ -1281,7 +1462,8 @@ class ServingEngine:
         server with :meth:`BatchServer.register_constraint` (compile it
         with the request's EOS token and list that token in
         ``params.stop_tokens`` to stop on a complete match). An unknown
-        adapter or constraint raises ``ValueError`` here.
+        adapter or constraint raises ``ValueError`` here (an adapter on the
+        GPT server ``NotImplementedError``).
 
         ``n > 1`` fans the request into n independently sampled branches of
         one prompt (under the server's prefix cache they share the prompt's
@@ -1786,11 +1968,14 @@ class LoRADraftSpeculativeDecoder(SpeculativeDecoder):
     weights included), and every request's draft copy runs under the
     adapter ``"draft"``. Acceptance and rollback are
     :class:`SpeculativeDecoder`'s, so the emitted stream keeps the
-    target's distribution whatever the draft. ``server_kwargs`` go to both
-    servers (``quantize_bits=4``, ``kv_dtype``, ...)."""
+    target's distribution whatever the draft. ``draft_total_pages`` sizes
+    the draft's pool (default: ``total_pages``, as the target's);
+    ``server_kwargs`` go to both servers (``quantize_bits=4``,
+    ``kv_dtype``, ...)."""
 
     def __init__(self, model, lora_draft, *, k: int = 4,
                  page_size: int = 128, total_pages: int = 512,
+                 draft_total_pages: Optional[int] = None,
                  temperature: float = 0.0, seed: int = 0, **server_kwargs):
         if hasattr(model, "encoder"):
             raise NotImplementedError(
@@ -1818,7 +2003,9 @@ class LoRADraftSpeculativeDecoder(SpeculativeDecoder):
 
         self.draft = _SharedExtrasServer(
             draft_view(model, n_draft), page_size=page_size,
-            total_pages=total_pages, **server_kwargs)
+            total_pages=(total_pages if draft_total_pages is None
+                         else draft_total_pages),
+            **server_kwargs)
         self.draft.register_adapter("draft", lora_draft)
 
     def add(self, seq_id, prompt_tokens) -> None:

@@ -3,8 +3,9 @@
 Counterpart of :mod:`lamp_tpu.nn.lm`: learned token and position
 embeddings, a causal pre-norm :class:`TransformerEncoder`, a final
 :class:`LayerNorm`, and logits through the tied token embedding, computed
-in at least f32. The KV-cached decode path of the JAX package is not ported
-yet.
+in at least f32. Its KV-cached decode is
+:mod:`lamp_tpu_torch.models.generate` (``generate``) and, paged and
+batched, :class:`lamp_tpu_torch.models.BatchServer`.
 """
 
 from __future__ import annotations
@@ -66,6 +67,10 @@ class LanguageModelModule(nn.Module):
                 linearized=linearized, dtype=dtype, device=device),
             LayerNorm.init(embed_dim, dtype=dtype, device=device),
             context_length=context_length)
+
+    @property
+    def vocab_size(self):
+        return self.token_embedding.weight.shape[0]
 
     def forward(self, inp, *, train: bool = False, generator=None):
         """Logits [B, T, V] (or [B, P, V] with ``positions``) in at least

@@ -18,7 +18,9 @@ FUSED layout (pass ``v_pages=None``): kv_pages [P, 2, page, H_kv * D]
 
 :func:`paged_attention` launches the hand-written CUDA kernel
 (``csrc/paged_attention.cu``) for CUDA tensors and takes the plain PyTorch
-:func:`paged_attention_reference` for CPU tensors only.
+:func:`paged_attention_reference` for CPU tensors only. :class:`PagedKVCache`
+manages a split K/V pool on the host side and hands the kernel its page
+tables and lengths.
 """
 
 from __future__ import annotations
@@ -27,12 +29,13 @@ import functools
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from .attention import aligned16
 from .quantization import _sm_count
 
-__all__ = ["paged_attention", "paged_attention_reference"]
+__all__ = ["PagedKVCache", "paged_attention", "paged_attention_reference"]
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -325,3 +328,68 @@ def paged_attention(q, k_pages, v_pages, page_indices, lengths, *,
 
 # kernel launches since the last reset (a run shows the path used the kernel)
 paged_attention.launches = 0
+
+
+class PagedKVCache:
+    """Host-side page-pool manager over split K and V pools
+    ``[total_pages, page_size, num_kv_heads * head_dim]`` on ``device``:
+    allocates and frees pages a sequence, appends one token's K/V at a time
+    into its page slot (in place), and gives :func:`paged_attention` its
+    page tables and lengths (:meth:`batch_views`). Every page, page 0
+    included, can be handed out: unlike the serving pool this one keeps no
+    trash page. An fp8 pool is written through its uint8 view, as the
+    server's page copy is."""
+
+    def __init__(self, *, num_kv_heads: int, head_dim: int, page_size: int,
+                 total_pages: int, max_pages_per_seq: int,
+                 dtype=torch.bfloat16, device="cuda"):
+        self.page_size = page_size
+        self.num_kv_heads = num_kv_heads
+        self.head_dim = head_dim
+        self.max_pages_per_seq = max_pages_per_seq
+        self.k_pages = torch.zeros(
+            (total_pages, page_size, num_kv_heads * head_dim), dtype=dtype,
+            device=device)
+        self.v_pages = torch.zeros_like(self.k_pages)
+        self.free_pages = list(range(total_pages - 1, -1, -1))
+        self.seq_pages = {}   # seq_id -> [page ids]
+        self.seq_len = {}     # seq_id -> tokens
+
+    def add_sequence(self, seq_id) -> None:
+        self.seq_pages[seq_id] = []
+        self.seq_len[seq_id] = 0
+
+    def free_sequence(self, seq_id) -> None:
+        self.free_pages.extend(self.seq_pages.pop(seq_id))
+        self.seq_len.pop(seq_id)
+
+    def append(self, seq_id, k, v) -> None:
+        """Append one token's K/V ([H_kv, D] each) for a sequence; raises
+        ``RuntimeError`` when its next page is due and none is free."""
+        pos = self.seq_len[seq_id]
+        if pos % self.page_size == 0:
+            if not self.free_pages:
+                raise RuntimeError("KV page pool exhausted")
+            self.seq_pages[seq_id].append(self.free_pages.pop())
+        pg = self.seq_pages[seq_id][pos // self.page_size]
+        slot = pos % self.page_size
+        for pool, row in ((self.k_pages, k), (self.v_pages, v)):
+            row = row.reshape(-1).to(device=pool.device, dtype=pool.dtype)
+            if pool.element_size() == 1:
+                pool, row = pool.view(torch.uint8), row.view(torch.uint8)
+            pool[pg, slot] = row
+        self.seq_len[seq_id] = pos + 1
+
+    def batch_views(self, seq_ids):
+        """(page_indices [B, max_pages], lengths [B]) int32 on the pool's
+        device, for :func:`paged_attention`."""
+        b = len(seq_ids)
+        idx = np.zeros((b, self.max_pages_per_seq), np.int32)
+        lens = np.zeros((b,), np.int32)
+        for i, sid in enumerate(seq_ids):
+            pages = self.seq_pages[sid]
+            idx[i, :len(pages)] = pages
+            lens[i] = self.seq_len[sid]
+        dev = self.k_pages.device
+        return (torch.as_tensor(idx, device=dev),
+                torch.as_tensor(lens, device=dev))

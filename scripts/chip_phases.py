@@ -5,7 +5,7 @@ lines), then the named parts only.
     python3 scripts/chip_phases.py [paged] [ragged] [ragged_bwd] [fwd]
         [flash] [wide] [any] [small] [train32] [openllama] [gemma]
         [openllama_train] [quant] [k8] [layouts] [spec] [layernorm]
-        [prefix] [controls]
+        [prefix] [controls] [gpt]
 
 paged: phase 2 (the paged-attention kernels: the fixed kernel's edges,
 K6_WIDE's shapes and the key split's edges included, and the serving
@@ -45,7 +45,10 @@ a shared system prompt: the prefix cache in bf16 and int4, fan-out, beam
 search, the admission times); controls: phase 16 (per-request controls:
 multi-LoRA serving in bf16 and int4 behind the system prompt, penalties,
 JSON mode, LoRA-draft speculation, the mixed-adapter decode step beside
-the base-only one). No argument runs them all.
+the base-only one); gpt: phase 17 (GPT decode at full width: the engine
+on bf16, e4m3 and f32 pools, the prefix cache, speculative decoding,
+generate, PagedKVCache, the GPT decode call and the steady step). No
+argument runs them all.
 Every check raises as in chip_smoke.py.
 """
 
@@ -69,7 +72,7 @@ from lamp_tpu_torch.ops.paged_attention import (  # noqa: E402
 
 PARTS = ("paged", "ragged", "ragged_bwd", "fwd", "flash", "wide", "any",
          "small", "train32", "openllama", "gemma", "openllama_train", "quant",
-         "k8", "layouts", "spec", "layernorm", "prefix", "controls")
+         "k8", "layouts", "spec", "layernorm", "prefix", "controls", "gpt")
 
 
 def main(parts) -> int:
@@ -168,6 +171,11 @@ def main(parts) -> int:
         if "controls" in parts:
             print(cs.phase_controls(torch_nn, models, Q, cs.card()),
                   flush=True)
+    if "gpt" in parts:
+        from lamp_tpu_torch import ops
+
+        print(cs.phase_gpt(torch_nn, models, ops, paged_attention,
+                           paged_attention_reference, cs.card()), flush=True)
     if "layernorm" in parts:
         from lamp_tpu_torch.ops import fused_layernorm as FL
 

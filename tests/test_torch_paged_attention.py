@@ -5,7 +5,9 @@ CPU, as tests/test_paged_attention.py runs it) and through the port's
 wrapper on CPU tensors (its plain PyTorch version), in f32.
 Tolerance: atol 1e-5 (f32 on both sides; the two differ only in the order
 of the softmax sums). The fp8-pool cases hold the port against the JAX
-plain reference at atol 1e-4.
+plain reference at atol 1e-4. PagedKVCache: the same appends and frees
+on both packages' managers leave equal pages, free lists, lengths and
+pools (bit for bit; an fp8 pool byte for byte).
 """
 
 import jax.numpy as jnp
@@ -14,12 +16,14 @@ import numpy as np
 import pytest
 import torch
 
+from lamp_tpu.ops.paged_attention import PagedKVCache as JaxPagedKVCache
 from lamp_tpu.ops.paged_attention import _effective_window as jax_window
 from lamp_tpu.ops.paged_attention import paged_attention as jax_paged
 from lamp_tpu.ops.paged_attention import \
     paged_attention_reference as jax_reference
 from lamp_tpu_torch.ops.paged_attention import (
     _MAX_SPLITS,
+    PagedKVCache,
     _check_cuda,
     _effective_window,
     _paged_plan,
@@ -489,3 +493,88 @@ def test_paged_plan_and_route_follow_the_kernel():
     assert _paged_plan(1, 1, 32, 128, 64, 132)[0] == _MAX_SPLITS
     # a tile's products are long at 128 query heads a kv head: two stages
     assert _paged_plan(32, 1, 128, 256, 4, 132) == (4, 2)
+
+
+def _managers(dtype, total=6, hkv=2, d=8, page=4):
+    """A JAX and a port PagedKVCache of one shape (the pool's dtype
+    ``dtype``, a torch dtype name)."""
+    kw = dict(num_kv_heads=hkv, head_dim=d, page_size=page,
+              total_pages=total, max_pages_per_seq=4)
+    jdt = {"float32": jnp.float32, "float8_e4m3fn": jnp.float8_e4m3fn}[dtype]
+    return (JaxPagedKVCache(**kw, dtype=jdt),
+            PagedKVCache(**kw, dtype=getattr(torch, dtype), device="cpu"))
+
+
+def _same_pool(jc, tc):
+    assert tc.seq_pages == jc.seq_pages and tc.seq_len == jc.seq_len
+    assert tc.free_pages == jc.free_pages
+    for got, want in ((tc.k_pages, jc.k_pages), (tc.v_pages, jc.v_pages)):
+        if got.element_size() == 1:
+            np.testing.assert_array_equal(
+                got.view(torch.uint8).numpy(), np.asarray(want).view(np.uint8))
+        else:
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float8_e4m3fn"])
+def test_paged_kv_cache_matches_jax(dtype):
+    """Appends to three sequences (one across two pages), a free and an
+    append into the freed page: pages (page 0 handed out too: no trash
+    page), free lists, lengths and the split pools equal JAX's after each;
+    batch_views equal and int32; paged_attention over the views equals
+    the JAX kernel in interpret mode (f32 pool, atol 1e-5) or the JAX
+    plain reference (e4m3 pool, atol 1e-4, as the fp8 cases above)."""
+    jc, tc = _managers(dtype)
+    assert tc.k_pages.shape == (6, 4, 16) and tc.k_pages.dtype == getattr(
+        torch, dtype)
+    rng = np.random.RandomState(3)
+    for c in (jc, tc):
+        for sid in ("a", "b", "c"):
+            c.add_sequence(sid)
+    for sid, n in (("a", 6), ("b", 3), ("c", 1)):
+        for _ in range(n):
+            k, v = (rng.randn(2, 8).astype(np.float32) for _ in range(2))
+            jc.append(sid, jnp.asarray(k), jnp.asarray(v))
+            tc.append(sid, torch.from_numpy(k), torch.from_numpy(v))
+            _same_pool(jc, tc)
+    assert tc.seq_pages["a"][0] == 0
+    for c in (jc, tc):
+        c.free_sequence("b")
+        c.add_sequence("d")
+        c.append("d", *(c.k_pages[0, 0].reshape(2, 8),) * 2)
+    _same_pool(jc, tc)
+    ids = ["a", "c", "d"]
+    jidx, jlens = jc.batch_views(ids)
+    tidx, tlens = tc.batch_views(ids)
+    assert tidx.dtype == tlens.dtype == torch.int32
+    np.testing.assert_array_equal(tidx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(tlens.numpy(), [6, 1, 1])
+    q = rng.randn(3, 4, 8).astype(np.float32)
+    got = paged_attention(torch.from_numpy(q), tc.k_pages, tc.v_pages, tidx,
+                          tlens, num_kv_heads=2)
+    if dtype == "float32":
+        want = jax_paged(jnp.asarray(q), jc.k_pages, jc.v_pages, jidx, jlens,
+                         num_kv_heads=2, interpret=True)
+        atol = ATOL
+    else:
+        want = jax_reference(jnp.asarray(q), jc.k_pages, jc.v_pages, jidx,
+                             jlens, num_kv_heads=2)
+        atol = 1e-4
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=atol,
+                               rtol=0)
+
+
+def test_paged_kv_cache_exhaustion_and_free():
+    """A full pool raises RuntimeError at the next page's first append, as
+    JAX's; freeing returns every page."""
+    jc, tc = _managers("float32", total=2)
+    zero = np.zeros((2, 8), np.float32)
+    for c, z in ((jc, jnp.asarray(zero)), (tc, torch.from_numpy(zero))):
+        c.add_sequence("a")
+        for _ in range(8):
+            c.append("a", z, z)
+        with pytest.raises(RuntimeError, match="exhausted"):
+            c.append("a", z, z)
+        c.free_sequence("a")
+    _same_pool(jc, tc)
+    assert sorted(tc.free_pages) == [0, 1] and not tc.seq_pages

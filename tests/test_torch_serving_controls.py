@@ -390,6 +390,24 @@ def test_lora_draft_full_depth_shares_the_target(bits):
     assert got == expected[:len(got)]
 
 
+def test_lora_draft_total_pages_sizes_the_draft_pool_as_jax():
+    """draft_total_pages sizes the draft server's pool (the target keeps
+    total_pages), as in the JAX decoder: both servers' page counts, pools
+    and free lists equal JAX's, before and after a request."""
+    jm, jd, tm, td = _lora_drafts()
+    kw = dict(k=3, page_size=PAGE, total_pages=TOTAL, draft_total_pages=12)
+    jspec, spec = JaxLoRADraft(jm, jd, **kw), \
+        LoRADraftSpeculativeDecoder(tm, td, **kw)
+    for s in (jspec, spec):
+        s.add("x", [1, 4, 7, 2, 9])
+    assert spec.step() == jspec.step()
+    for got, want in ((spec.target, jspec.target), (spec.draft, jspec.draft)):
+        assert got.total_pages == want.total_pages
+        assert tuple(got.kv_pages.shape) == want.kv_pages.shape
+        _same_pages(want, got)
+    assert (spec.target.total_pages, spec.draft.total_pages) == (TOTAL, 12)
+
+
 def test_lora_draft_validation():
     """A draft deeper than the target raises ValueError; a GPT target
     NotImplementedError (tests/test_serving.py's validation case)."""
