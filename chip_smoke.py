@@ -316,6 +316,25 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
    and plain version, and the steady step_many(8) at B=32 (tok/s, a
    profiled call's device time, ops and busy share), beside the card's
    name and power limit.
+18. The LM example, checkpoints and the epoch loop at the flagship's width
+   (examples/autoregressivelm_torch.py's defaults: 12 x 768, ctx 384,
+   batch 8 x 5, bf16 with f32 AdamW masters; random weights from a seed)
+   on the bytes of SURVEY.md and README.md: ``main(["train", ...])`` for
+   CKPT_STEPS steps, then ``train --resume`` for CKPT_STEPS more (finite
+   losses that fall, the resumed run at the saved step, K1/K2 12 x 5 a
+   step, train tok/s by CUDA events); ``generate --temperature 0`` from the
+   file, after a prompt of the corpus, against the dense argmax of the
+   trained model past MARGIN;
+   load_loop_state into a model and optimizer of other weights (every
+   parameter, master, mt, vt and the step equal; generate's decode path on
+   it, teacher-forced over 64 corpus bytes, within MARGIN / 2 of the
+   trained model's dense logits, which lie more than MARGIN from its
+   logits of each byte alone), the file's size and the
+   read and write rates, one step from the saved and from the loaded state
+   bit for bit; a background save while 2 steps run, byte for byte equal
+   to a synchronous save; resumable_epochs (2 epochs of CKPT_EPOCH_STEPS
+   steps, prefetch_to_device) preempted after epoch 0 and resumed into
+   other weights, bit for bit the uninterrupted run's state and curve.
 
 After phase 6, check_layouts holds flash_attention (forward and backward),
 paged_attention and int4_matmul given transposed views and offset slices
@@ -331,6 +350,7 @@ import contextlib
 import copy
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -4449,6 +4469,14 @@ GPT_GREEDY = (3, 13, 24, 39)
 GPT_DRAFT_BLOCKS = 2
 GPT_SPEC_BATCH, GPT_SPEC_TOKENS = 32, 64
 GEN_BATCH, GEN_PROMPT, GEN_TOKENS = 8, 64, 128
+# phase 18: the LM example at the flagship's width (its defaults: 12 x 768,
+# ctx 384, batch 8 x 5, bf16 with f32 masters) trains CKPT_STEPS steps, then
+# CKPT_STEPS more from its checkpoint; a warmup of CKPT_WARMUP steps (the
+# example's --warmup-steps) so that 10 steps move the loss; generate takes
+# CKPT_GEN_TOKENS greedy tokens; resumable_epochs runs 2 epochs of
+# CKPT_EPOCH_STEPS steps
+CKPT_STEPS, CKPT_WARMUP, CKPT_ACCUM = 10, 5, 5
+CKPT_GEN_TOKENS, CKPT_EPOCH_STEPS, LM_CTX = 64, 5, 384
 # a greedy token of the e4m3 pool must equal the bf16 dense forward's
 # argmax where its top-1/top-2 margin exceeds this: an e4m3 K or V value
 # is off by up to 2^-4 of itself (3 mantissa bits), so the paged logits
@@ -5395,6 +5423,316 @@ def phase_openllama_train(torch_nn, optim, train, att,
                           ours, torch_nn, optim, train, att)
 
 
+def _files_equal(a, b) -> bool:
+    """The descriptor, blob and sidecar of checkpoints ``a`` and ``b`` hold
+    the same bytes."""
+    import filecmp
+
+    return all(filecmp.cmp(a + sfx, b + sfx, shallow=False)
+               for sfx in ("", ".data", ".meta"))
+
+
+def _state_equal(a, b) -> list:
+    """Names of the tensors in which TrainStates ``a`` and ``b`` differ:
+    every parameter, and each one's master, mt and vt."""
+    differ = []
+    for (name, p), q in zip(a.model.named_parameters(),
+                            b.model.parameters()):
+        if not torch.equal(p, q):
+            differ.append(name)
+        sa, sb = a.optimizer.state[p], b.optimizer.state[q]
+        for part in ("master", "mt", "vt"):
+            x, y = sa.get(part), sb.get(part)
+            if (x is None) != (y is None) or (
+                    x is not None and not torch.equal(x, y)):
+                differ.append(f"{name} {part}")
+    if a.optimizer.param_groups[0]["step"] != \
+            b.optimizer.param_groups[0]["step"]:
+        differ.append("step")
+    return differ
+
+
+def _max_diff(a, b) -> float:
+    return max(float((p.float() - q.float()).abs().max())
+               for p, q in zip(a.model.parameters(), b.model.parameters()))
+
+
+def phase_checkpoint(smi):
+    """Phase 18: the port's LM example, checkpoints and the epoch loop at
+    the flagship's width (CKPT_STEPS steps of 8 x 5 x 384 bytes of the
+    repository's SURVEY.md and README.md a run). Returns the K1/K2
+    launches of its training steps and its figures."""
+    import importlib.util
+    import shutil
+
+    from lamp_tpu_torch import io as lio, train
+
+    root = Path(__file__).resolve().parent
+    spec = importlib.util.spec_from_file_location(
+        "autoregressivelm_torch", root / "examples" /
+        "autoregressivelm_torch.py")
+    ex = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ex)
+    work = root / "lamp_tpu_torch" / "_build" / "phase18"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    corpus = work / "corpus.txt"
+    corpus.write_bytes((root / "SURVEY.md").read_bytes()
+                       + (root / "README.md").read_bytes())
+    ck = str(work / "lm")
+    common = ["--checkpoint", ck, "--device", "cuda"]
+    run = ["train", "--corpus", str(corpus), "--steps", str(CKPT_STEPS),
+           "--warmup-steps", str(CKPT_WARMUP), *common]
+    out = {}
+    launches = [0, 0]
+
+    def counted(what, fn, steps):
+        """``fn()`` with the kernels' counts from 0; K1 and K2 must each
+        have launched 12 x 5 a step."""
+        reset_launch_counts()
+        result = fn()
+        got = (launch_counts()["flash_attention"],
+               launch_counts()["flash_attention_backward"])
+        want = LM_BLOCKS * CKPT_ACCUM * steps
+        if got != (want, want):
+            raise AssertionError(f"{what}: K1/K2 launches {got}, want {want}")
+        launches[0] += got[0]
+        launches[1] += got[1]
+        return result
+
+    # 1. train, then resume, through the example's main()
+    first = counted("train", lambda: ex.main(run), CKPT_STEPS)
+    with open(ck + ".meta") as f:
+        saved_at = json.load(f)["epoch"]
+    second = counted("train --resume", lambda: ex.main(run + ["--resume"]),
+                     CKPT_STEPS)
+    losses = first["losses"] + second["losses"]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"a loss is not finite: {losses}")
+    head, tail = np.mean(first["losses"][:3]), np.mean(losses[-3:])
+    if not tail < head:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if saved_at != CKPT_STEPS or second["start"] != CKPT_STEPS:
+        raise AssertionError(f"resumed at {second['start']}, saved at "
+                             f"{saved_at}")
+    tok_s = [r["tokens"] / (r["ms"] * 1e-3) for r in (first, second)]
+    print(f"  example train {CKPT_STEPS} steps + --resume {CKPT_STEPS} "
+          f"(flagship, {CKPT_ACCUM} x 8 x 384 bytes a step): losses "
+          f"{' '.join(f'{v:.4f}' for v in losses)}; resumed at step "
+          f"{second['start']} (meta epoch {saved_at}); {tok_s[0]:.1f} and "
+          f"{tok_s[1]:.1f} train tok/s by CUDA events (warmup steps "
+          f"included); K1/K2 {launches[0]}/{launches[1]} launches | {smi}",
+          flush=True)
+    out.update(losses=losses, train_tok_s=tok_s, resumed_at=second["start"])
+    trained = second["state"]
+
+    # 5 first (the trained model changes below): generate from the file,
+    # after a prompt of the corpus (its first ASCII line of 48 bytes)
+    text = corpus.read_bytes()
+    prompt = next(line[:48] for line in text.decode("utf-8").splitlines()
+                  if len(line) >= 48 and line.isascii())
+    toks = ex.main(["generate", *common, "--temperature", "0", "--length",
+                    str(CKPT_GEN_TOKENS), "--prompt", prompt])
+    plen = len(prompt)
+    seq = list(prompt.encode()) + toks[0].tolist()
+    print(f"  generate from the checkpoint (greedy) after {prompt!r}: "
+          f"{toks[0].tolist()}", flush=True)
+    check_greedy(lambda t, _: trained.model(t)[0], {"p": seq[:plen]},
+                 {"p": seq[plen:]}, ["p"], MARGIN)
+
+    # 2. the full-width round trip, into a model of other weights
+    args = ex.parse(run)
+    model = ex.build_model(args, torch.Generator(device="cuda").manual_seed(1),
+                           torch.device("cuda"))
+    opt = ex.make_optimizer(args, model)
+    size = os.path.getsize(ck + ".data")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lio.load_loop_state(ck, model_template=model,
+                        optimizer_state_template=opt)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    loaded = train.TrainState(model, opt, trained.step)
+    differ = _state_equal(trained, loaded)
+    if differ:
+        raise AssertionError(f"loaded state differs: {differ[:8]}")
+    forced_generate_check(model, trained.model, text)
+    t0 = time.perf_counter()
+    lio.save_loop_state(str(work / "again"), model=model,
+                        optimizer_state=opt, epoch=2 * CKPT_STEPS)
+    write_s = time.perf_counter() - t0
+    os.remove(str(work / "again.data"))
+    print(f"  round trip: every parameter, master, mt, vt and the step "
+          f"equal (torch.equal); file {size / 1e9:.3f} GB (predicted 1.20 "
+          f"at 14 B a parameter); read {size / read_s / 1e9:.2f} GB/s into "
+          f"the card ({read_s:.2f} s, warm page cache), write "
+          f"{size / write_s / 1e9:.2f} GB/s from the card ({write_s:.2f} s, "
+          f"to the page cache, no fsync) | {smi}", flush=True)
+    out.update(file_gb=size / 1e9, read_gb_s=size / read_s / 1e9,
+               write_gb_s=size / write_s / 1e9)
+    step = train.make_train_step(opt, ex.loss_fn,
+                                 accumulation_steps=CKPT_ACCUM)
+    step_t = train.make_train_step(trained.optimizer, ex.loss_fn,
+                                   accumulation_steps=CKPT_ACCUM)
+    batch = ckpt_batch(corpus, 0)
+    _, (l_loaded, _) = counted("a step from the loaded state",
+                               lambda: step(loaded, batch, None, 1.0), 1)
+    _, (l_saved, _) = counted("a step from the saved state",
+                              lambda: step_t(trained, batch, None, 1.0), 1)
+    differ = _state_equal(trained, loaded)
+    if differ or float(l_loaded) != float(l_saved):
+        raise AssertionError(
+            f"one step from the saved and the loaded state differ: loss "
+            f"{float(l_saved)} / {float(l_loaded)}, tensors {differ[:8]} "
+            f"(max |diff| {_max_diff(trained, loaded):.3e})")
+    print(f"  one step from the saved and from the loaded state: the same "
+          f"bits (loss {float(l_saved):.6f})", flush=True)
+    del trained, step_t
+    torch.cuda.empty_cache()
+
+    # 3. a background save while the next steps run
+    sync, bg = str(work / "sync"), str(work / "bg")
+    t0 = time.perf_counter()
+    lio.save_loop_state(sync, model=model, optimizer_state=opt,
+                        epoch=2 * CKPT_STEPS + 1)
+    sync_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lio.save_loop_state(bg, model=model, optimizer_state=opt,
+                        epoch=2 * CKPT_STEPS + 1, background=True)
+    issue_s = time.perf_counter() - t0
+    counted("steps during the background save",
+            lambda: [step(loaded, ckpt_batch(corpus, i + 1), None, 1.0)
+                     for i in range(2)], 2)
+    torch.cuda.synchronize()
+    steps_s = time.perf_counter() - t0 - issue_s
+    lio.wait_for_background_saves()
+    bg_s = time.perf_counter() - t0
+    if not _files_equal(sync, bg):
+        raise AssertionError("the background save differs from the "
+                             "synchronous one")
+    print(f"  background save: its files equal a synchronous save's byte for "
+          f"byte; the call returned in {issue_s * 1e3:.1f} ms (the clones), "
+          f"2 steps ran in {steps_s:.2f} s meanwhile, the write ended after "
+          f"{bg_s:.2f} s (a synchronous save {sync_s:.2f} s)", flush=True)
+    out.update(bg_issue_ms=issue_s * 1e3, bg_total_s=bg_s, sync_s=sync_s)
+    for path in (sync, bg):
+        for sfx in ("", ".data", ".meta"):
+            os.remove(path + sfx)
+    del model, opt, loaded, step
+    torch.cuda.empty_cache()
+
+    # 4. resumable_epochs with prefetch, preempted after epoch 0
+    class Preempted(Exception):
+        pass
+
+    def epochs_run(where, seed, **kw):
+        model = ex.build_model(
+            args, torch.Generator(device="cuda").manual_seed(seed),
+            torch.device("cuda"))
+        opt = ex.make_optimizer(args, model)
+        result = train.resumable_epochs(
+            checkpoint_dir=str(work / where), model=model, optimizer=opt,
+            loss_fn=ex.loss_fn,
+            train_batches=lambda e: ckpt_stream(corpus, e),
+            epochs=2, keep=1, accumulation_steps=CKPT_ACCUM, key=3, **kw)
+        return result
+
+    def preempt(state, payload):
+        if payload["epoch"] == 0:
+            raise Preempted
+
+    whole = counted("resumable_epochs", lambda: epochs_run("whole", 0),
+                    2 * CKPT_EPOCH_STEPS)
+
+    def cut():
+        try:
+            epochs_run("cut", 0, checkpoint_callback=preempt)
+        except Preempted:
+            return
+        raise AssertionError("the preemption did not happen")
+
+    counted("resumable_epochs until preempted", cut, CKPT_EPOCH_STEPS)
+    resumed = counted("resumable_epochs resumed",
+                      lambda: epochs_run("cut", 5), CKPT_EPOCH_STEPS)
+    differ = _state_equal(whole.state, resumed.state)
+    if differ or whole.learning_curve != resumed.learning_curve:
+        raise AssertionError(
+            f"the resumed run differs from the uninterrupted one: "
+            f"{differ[:8]} (max |diff| "
+            f"{_max_diff(whole.state, resumed.state):.3e}), curves "
+            f"{whole.learning_curve} / {resumed.learning_curve}")
+    print(f"  resumable_epochs (2 epochs of {CKPT_EPOCH_STEPS} steps, "
+          f"prefetch_to_device on a side stream) preempted after epoch 0 "
+          f"and resumed into other weights: the final state and curve equal "
+          f"the uninterrupted run's bit for bit (curve "
+          f"{[round(c[1], 6) for c in whole.learning_curve]})", flush=True)
+    del whole, resumed
+    shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["launches"] = tuple(launches)
+    return out
+
+
+def forced_generate_check(loaded, trained, text):
+    """``generate``'s decode path on the model loaded from the file,
+    teacher-forced over CKPT_GEN_TOKENS bytes of the corpus (one
+    ``decode_step`` a byte through the KV cache, as ``generate`` feeds its
+    prompt and its tokens), against the dense forward of the trained model
+    at the same positions: the largest |logit| difference must be below
+    MARGIN / 2 (the reason for the greedy margin). The gate must also
+    separate a decode that ignored the prompt, the cache and the positions:
+    the trained model's logits of each byte alone at position 0 must lie
+    more than MARGIN from the dense ones."""
+    from lamp_tpu_torch.models.generate import decode_step, init_cache
+
+    seq = torch.as_tensor(list(text[4096:4096 + CKPT_GEN_TOKENS]),
+                          device="cuda")
+    cache = init_cache(loaded, 1)
+    got = []
+    for t in range(CKPT_GEN_TOKENS):
+        logits, cache = decode_step(loaded, cache, seq[t:t + 1])
+        got.append(logits[0])
+    with torch.no_grad():
+        want = trained(seq[None])[0].float()
+        alone = trained(seq[:, None])[:, 0].float()
+    err = float((torch.stack(got) - want).abs().max())
+    blind = float((alone - want).abs().max())
+    argmax = want.argmax(-1).tolist()
+    print(f"  generate's decode path on the loaded model, teacher-forced "
+          f"over {CKPT_GEN_TOKENS} corpus bytes, against the trained "
+          f"model's dense forward: max abs err {err:.4f}; each byte alone "
+          f"at position 0: {blind:.4f}; {len(set(argmax))} distinct dense "
+          f"argmax tokens", flush=True)
+    if not err < MARGIN / 2:
+        raise AssertionError(f"generate's teacher-forced logit distance "
+                             f"{err:.4g} is not below half the greedy "
+                             f"margin {MARGIN}")
+    if not blind > MARGIN:
+        raise AssertionError(f"the trained model's logits hardly depend on "
+                             f"the context ({blind:.4g}): the gate cannot "
+                             f"tell a decode that ignores it")
+
+
+def ckpt_stream(corpus, epoch):
+    """Epoch ``epoch``'s CKPT_EPOCH_STEPS batches of the corpus, each [5,
+    8, 384] (the accumulation axis first), from a generator of the
+    epoch."""
+    from lamp_tpu_torch import data
+
+    text = np.frombuffer(corpus.read_bytes(), np.uint8)
+    return data.autoregressive_minibatches_from_corpus(
+        text, 8 * CKPT_ACCUM, LM_CTX, batches_per_epoch=CKPT_EPOCH_STEPS,
+        rng=np.random.default_rng(100 + epoch)).map(
+        lambda b: tuple(x.reshape(CKPT_ACCUM, 8, LM_CTX) for x in b))
+
+
+def ckpt_batch(corpus, i):
+    """One [5, 8, 384] batch of the corpus on the card."""
+    x, y = next(iter(ckpt_stream(corpus, 1000 + i)))
+    return (torch.as_tensor(x, device="cuda"),
+            torch.as_tensor(y, device="cuda"))
+
+
 def kernel_line(source, kernel):
     """``csrc/<source>:<line>`` of the line that opens ``kernel``'s
     definition (its name followed by its parameter list)."""
@@ -5496,6 +5834,11 @@ def main() -> int:
     gpt = phase_gpt(torch_nn, models, ops, paged_attention,
                     paged_attention_reference, smi)
     print(json.dumps({"gpt": gpt}))
+    print("phase 18: the LM example at full width (train, resume, the "
+          "checkpoint round trip, a background save, resumable_epochs with "
+          "prefetch, generate from the file)", flush=True)
+    ckpt = phase_checkpoint(smi)
+    print(json.dumps({"checkpoint": ckpt}))
     tc_by = {c["tc"][f"M={SPEC_ROWS}"]["bound_by"]
              for c in k7["per_call"].values()}
     k7_tc = dict(k7["tc_round"], launches=spec["tc_launches"],
@@ -5506,9 +5849,9 @@ def main() -> int:
     tc_models = [small_by_model[m] for m in ("bert width",
                                              "translation width")]
     fwd_launches += sum(g[0] for g in tc_models) + \
-        packed["launches"]["flash_attention"]
+        packed["launches"]["flash_attention"] + ckpt["launches"][0]
     bwd_launches += sum(g[1] for g in tc_models) + \
-        packed["launches"]["flash_attention_backward"]
+        packed["launches"]["flash_attention_backward"] + ckpt["launches"][1]
     # the new instances' launches (flash_instance): the ragged forward runs
     # the head_dim 100 GPT, phase 11's dense check and phase 13, the D=256
     # forward the head_dim 256 GPT and phase 12, the ragged backward the
@@ -5636,6 +5979,12 @@ def main() -> int:
             launches=packed["launches"][
                 "flash_attention" if name.endswith("fwd")
                 else "flash_attention_backward"])
+        row["checkpoint"] = dict(
+            launches=ckpt["launches"][0 if name.endswith("fwd") else 1],
+            note="phase 18 (the LM example, included in launches): its "
+                 "train and --resume runs, a step each from the saved and "
+                 "the loaded state, 2 steps during the background save and "
+                 "resumable_epochs' runs, 12 x 5 a step")
         if "backward" in r:  # plain_ms and library_ms time dq, dk and dv
             bwd = r["backward"]
             row["backward"] = dict(

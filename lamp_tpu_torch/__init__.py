@@ -1,7 +1,7 @@
 """PyTorch/CUDA port of :mod:`lamp_tpu` for NVIDIA Hopper.
 
 Mirrors the JAX package's layout (``nn``, ``ops``, ``optim``, ``train``,
-``models``) and its public names. It imports torch and never JAX, and
+``models``, ``data``, ``io``) and its public names. It imports torch and never JAX, and
 nothing of ``lamp_tpu`` (whose package import pulls in JAX). Each Pallas
 kernel of the JAX package becomes a CUDA kernel written by hand for sm_90a,
 in ``csrc/``, built with nvcc at its first CUDA use (``ops/_build.py``). On
@@ -25,9 +25,17 @@ decoding over ``models.TokenDFA``, multi-LoRA adapters from
 ``bridge.load_modern_lm`` (LoRA factors included),
 ``bridge.load_language_model``,
 ``bridge.load_quantized_linear`` and ``bridge.load_adamw_state`` carry a JAX
-model's weights, quantized layers and optimizer state across.
+model's weights, quantized layers and optimizer state across, and
+``bridge.jax_entries`` / ``bridge.optimizer_entries`` / ``bridge.jax_tree``
+give them back in JAX's layout and order. Checkpoints, the epoch loop and the LM example: ``io`` writes and
+reads the JAX package's checkpoint files (loop state, sharded files,
+safetensors, background saves), ``train.epochs`` / ``resumable_epochs``
+drive training epoch by epoch over ``data.BatchStream`` with
+``data.prefetch_to_device`` (pinned buffers, a side stream), ``data`` holds
+the codecs (``ByteSegmentCodec``, with the ``native`` C++ encoder), and
+``examples/autoregressivelm_torch.py`` trains, resumes and samples the GPT.
 """
 
-from . import data, models, nn, ops, optim, train
+from . import data, io, models, nn, ops, optim, train
 
-__all__ = ["data", "models", "nn", "ops", "optim", "train"]
+__all__ = ["data", "io", "models", "nn", "ops", "optim", "train"]

@@ -1,5 +1,5 @@
 """Carry a JAX ``lamp_tpu`` model's weights, and AdamW's state, into the
-port.
+port, and back.
 
 The parameters arrive as a flat dict of numpy arrays keyed by pytree path
 (``blocks.3.w_q.weight``, ``encoder.blocks.3.attention.w_q.weight``,
@@ -7,15 +7,24 @@ The parameters arrive as a flat dict of numpy arrays keyed by pytree path
 JAX nor ``lamp_tpu``. ``Linear`` weights are transposed from lamp_tpu's
 [in, out] to PyTorch's [out, in]. Every loader raises ``KeyError`` on a
 missing or an unexpected key.
+
+The other direction: :func:`jax_entries` gives a port model's leaves in
+JAX's layout and in ``jax.tree_util``'s flatten order (the order a
+``lamp_tpu`` checkpoint file holds them in), :func:`optimizer_entries` its
+optimizer's state as the JAX optimizer keeps it, and :func:`jax_tree` a
+model, an optimizer or a ``TrainState`` as the whole JAX pytree it stands
+for, which :mod:`lamp_tpu_torch.io.checkpoint` writes; :func:`load_jax_tree`
+writes such a tree, as read back, into the port object in place.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from .nn.layers import Embedding, LayerNorm, Linear
 from .nn.lm import LanguageModelModule
@@ -24,9 +33,11 @@ from .nn.modern import LlamaBlock, ModernLM, RMSNorm, SwiGLU
 from .nn.transformer import (MultiheadAttention, TransformerEncoder,
                              TransformerEncoderBlock)
 from .ops.quantization import QuantizedLinear, QuantizedLinearInt4
+from .train.loops import TrainState
 
 __all__ = ["load_modern_lm", "load_language_model", "load_adamw_state",
-           "load_quantized_linear"]
+           "load_quantized_linear", "jax_entries", "optimizer_entries",
+           "jax_tree", "load_jax_tree"]
 
 _BLOCK_KEYS = ("norm1.weight", "norm2.weight", "w_q.weight", "w_k.weight",
                "w_v.weight", "w_o.weight", "mlp.w1.weight", "mlp.w3.weight",
@@ -253,3 +264,201 @@ def load_adamw_state(opt_state: Dict, optimizer, model) -> None:
                 state[part].copy_(_tensor(a.T if name in linear else a,
                                           torch.float32, p.device))
     optimizer.param_groups[0]["step"] = int(opt_state["step"])
+
+
+# The JAX modules' array fields, in their dataclass order: a JAX module
+# flattens into its fields in this order (lists of blocks in index order),
+# which is the order of the leaves in a lamp_tpu checkpoint.
+_JAX_FIELDS = {
+    LanguageModelModule: ("token_embedding", "position_embedding", "encoder",
+                          "final_norm"),
+    TransformerEncoder: ("blocks",),
+    TransformerEncoderBlock: ("attention", "norm1", "norm2", "w1", "w2",
+                              "scale1", "scale2"),
+    MultiheadAttention: ("w_q", "w_k", "w_v", "w_o"),
+    ModernLM: ("token_embedding", "blocks", "final_norm", "lm_head",
+               "rope_cos", "rope_sin"),
+    LlamaBlock: ("norm1", "norm2", "w_q", "w_k", "w_v", "w_o", "mlp"),
+    SwiGLU: ("w1", "w3", "w2"),
+    Linear: ("weight", "bias"),
+    Embedding: ("weight",),
+    LayerNorm: ("weight", "bias"),
+    RMSNorm: ("weight",),
+}
+
+
+class JaxEntry(NamedTuple):
+    """One leaf of a model in JAX's flatten order: its pytree ``path``, a
+    detached ``view`` of the port's tensor in JAX's layout (a ``Linear``
+    weight transposed, so writing into the view writes the weight) or None
+    where JAX holds ``None``, the port's ``tensor`` itself, ``kind``:
+    "param" (trainable, in the optimizer's state), "buffer" (``None`` in
+    the optimizer's state, as ``partition_params`` puts it) or None, and
+    whether the view is ``transposed``."""
+
+    path: str
+    view: Optional[torch.Tensor]
+    tensor: Optional[torch.Tensor]
+    kind: Optional[str]
+    transposed: bool = False
+
+
+def jax_entries(model) -> List[JaxEntry]:
+    """The leaves of ``model`` as the JAX module of the same structure
+    flattens them (a ``LanguageModelModule`` or a ``ModernLM``, tied or
+    untied, and their parts). A module with no JAX layout (a quantized
+    layer, a ``LoRALinear``) raises ``TypeError`` naming its class."""
+    out: List[JaxEntry] = []
+
+    def visit(prefix, module):
+        fields = _JAX_FIELDS.get(type(module))
+        if fields is None:
+            raise TypeError(f"{type(module).__name__} has no JAX layout to "
+                            f"write or read")
+        for name in fields:
+            value = getattr(module, name)
+            path = prefix + name
+            if isinstance(value, (nn.ModuleList, list, tuple)):
+                for i, sub in enumerate(value):
+                    visit(f"{path}.{i}.", sub)
+            elif isinstance(value, nn.Module):
+                visit(path + ".", value)
+            elif value is None:
+                out.append(JaxEntry(path, None, None, None))
+            else:
+                transposed = type(module) is Linear and name == "weight"
+                view = value.detach()
+                kind = ("param" if isinstance(value, nn.Parameter)
+                        else "buffer")
+                out.append(JaxEntry(path, view.t() if transposed else view,
+                                    value, kind, transposed))
+
+    visit("", model)
+    return out
+
+
+def _optimizer_kind(optimizer):
+    from .ops.fused_adamw import AdamWStochastic
+    from .optim.optimizers import AdamW
+
+    if isinstance(optimizer, AdamW):
+        return "adamw"
+    if isinstance(optimizer, AdamWStochastic):
+        return "stochastic"
+    raise TypeError(f"{type(optimizer).__name__} has no JAX layout to write "
+                    f"or read")
+
+
+def optimizer_entries(optimizer, model,
+                      entries: Optional[List[JaxEntry]] = None) -> Dict:
+    """The state of ``optimizer`` (over ``model``'s parameters) as the JAX
+    optimizer keeps it, with views for leaves: ``optim.AdamW`` as
+    ``{"master", "mt", "step", "vt"}`` and ``ops.AdamWStochastic`` as
+    ``{"mt", "step", "vt"}``. ``mt``, ``vt`` and ``master`` are lists in
+    ``jax_entries(model)``'s order, None where the model's leaf is a buffer
+    or None; ``master`` holds None for a parameter without a master, and
+    is None itself under ``mixed_precision=False``; ``step`` is an int32
+    0-d tensor. Moments and masters of ``Linear`` weights are transposed
+    views, as the weights are."""
+    kind = _optimizer_kind(optimizer)
+    entries = jax_entries(model) if entries is None else entries
+    params = [e.tensor for e in entries if e.kind == "param"]
+    if {id(p) for p in params} != {id(p) for p in optimizer.params}:
+        raise ValueError("the optimizer's parameters are not the model's")
+
+    def part(key):
+        out = []
+        for e in entries:
+            s = optimizer.state[e.tensor].get(key) if e.kind == "param" \
+                else None
+            if s is not None and e.transposed:
+                s = s.t()
+            out.append(None if s is None else s.detach())
+        return out
+
+    state = {"mt": part("mt"),
+             "step": torch.tensor(optimizer.param_groups[0]["step"],
+                                  dtype=torch.int32),
+             "vt": part("vt")}
+    if kind == "adamw":
+        state["master"] = part("master") if optimizer.mixed_precision \
+            else None
+    return state
+
+
+def jax_tree(obj, model=None):
+    """The JAX pytree that a port object stands for, its leaves views of
+    the object's own tensors:
+
+    - a model (``LanguageModelModule``, ``ModernLM``): its leaves, a list in
+      :func:`jax_entries`' order;
+    - an optimizer over ``model``: :func:`optimizer_entries`;
+    - a ``TrainState``: the JAX ``TrainState``, ``(params, rest,
+      opt_state, step)``: ``params`` the model's leaves with ``None`` at
+      each buffer, ``rest`` with ``None`` at each parameter (as
+      ``partition_params`` splits them), an int32 ``step``.
+
+    Anything else (``None``, a tree of tensors) is returned as it is."""
+    if isinstance(obj, TrainState):
+        entries = jax_entries(obj.model)
+        return ([e.view if e.kind == "param" else None for e in entries],
+                [e.view if e.kind == "buffer" else None for e in entries],
+                optimizer_entries(obj.optimizer, obj.model, entries),
+                torch.tensor(int(obj.step), dtype=torch.int32))
+    if isinstance(obj, nn.Module):
+        return [e.view for e in jax_entries(obj)]
+    if isinstance(obj, torch.optim.Optimizer):
+        if model is None:
+            raise TypeError("an optimizer's JAX state follows its model's "
+                            "tree: pass model=")
+        return optimizer_entries(obj, model)
+    return obj
+
+
+@torch.no_grad()
+def _put(view, value, what):
+    """Write a leaf read back from a file into the port's tensor ``view``
+    (None where the JAX tree holds None), checking its shape."""
+    if view is None or value is None:
+        if view is not None or value is not None:
+            raise ValueError(f"{what}: the file holds "
+                             f"{'None' if value is None else 'an array'} "
+                             f"where the template holds "
+                             f"{'None' if view is None else 'an array'}")
+        return
+    if tuple(value.shape) != tuple(view.shape):
+        raise ValueError(f"{what}: the file's shape {tuple(value.shape)} is "
+                         f"not the template's {tuple(view.shape)}")
+    view.copy_(value)
+
+
+def load_jax_tree(obj, tree, model=None):
+    """Write ``tree``, the JAX pytree of ``obj`` as a checkpoint gives it
+    back (:func:`jax_tree`'s structure, tensors, ``None`` and ints), into
+    ``obj`` in place, checking each leaf's shape; returns ``obj``. For an
+    ``obj`` that :func:`jax_tree` returns as it is, returns ``tree``."""
+    if isinstance(obj, TrainState):
+        params, rest, opt_state, step = tree
+        entries = jax_entries(obj.model)
+        for e, p, r in zip(entries, params, rest):
+            _put(e.view if e.kind == "param" else None, p, e.path)
+            _put(e.view if e.kind == "buffer" else None, r, e.path)
+        load_jax_tree(obj.optimizer, opt_state, model=obj.model)
+        obj.step = int(step)
+        return obj
+    if isinstance(obj, nn.Module):
+        for e, value in zip(jax_entries(obj), tree):
+            _put(e.view, value, e.path)
+        return obj
+    if isinstance(obj, torch.optim.Optimizer):
+        state = jax_tree(obj, model)
+        for key in sorted(state):
+            if key == "step":
+                obj.param_groups[0]["step"] = int(tree[key])
+            elif state[key] is None or tree[key] is None:
+                _put(state[key], tree[key], key)
+            else:
+                for view, value in zip(state[key], tree[key]):
+                    _put(view, value, key)
+        return obj
+    return tree

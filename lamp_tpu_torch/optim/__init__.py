@@ -2,9 +2,8 @@
 
 Counterpart of :mod:`lamp_tpu.optim`. Ported so far: ``AdamW`` (f32
 masters for bf16/f16 parameters, per-tag hyperparameters, global-norm
-clip), ``clip_by_global_norm``/``global_norm`` and the
-``cosine_with_warmup`` schedule. The other optimizers and schedules are not
-ported yet.
+clip), ``clip_by_global_norm``/``global_norm`` and every learning-rate
+schedule (``schedules``). The other optimizers are not ported yet.
 """
 
 from . import schedules

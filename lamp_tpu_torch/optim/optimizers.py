@@ -79,6 +79,10 @@ class AdamW(torch.optim.Optimizer):
         self.beta1, self.beta2, self.eps = beta1, beta2, eps
         self.clip = clip
         self.debias = debias
+        # whether the state keeps masters at all: a checkpoint writes the
+        # JAX optimizer's master tree (None for each f32 parameter) or, as
+        # JAX does without mixed precision, one None
+        self.mixed_precision = mixed_precision
         for _, p in named:
             self.state[p] = {
                 "mt": torch.zeros_like(p, dtype=torch.float32),

@@ -5,7 +5,7 @@ lines), then the named parts only.
     python3 scripts/chip_phases.py [paged] [ragged] [ragged_bwd] [fwd]
         [flash] [wide] [any] [small] [train32] [openllama] [gemma]
         [openllama_train] [quant] [k8] [layouts] [spec] [layernorm]
-        [prefix] [controls] [gpt]
+        [prefix] [controls] [gpt] [ckpt]
 
 paged: phase 2 (the paged-attention kernels: the fixed kernel's edges,
 K6_WIDE's shapes and the key split's edges included, and the serving
@@ -47,8 +47,10 @@ multi-LoRA serving in bf16 and int4 behind the system prompt, penalties,
 JSON mode, LoRA-draft speculation, the mixed-adapter decode step beside
 the base-only one); gpt: phase 17 (GPT decode at full width: the engine
 on bf16, e4m3 and f32 pools, the prefix cache, speculative decoding,
-generate, PagedKVCache, the GPT decode call and the steady step). No
-argument runs them all.
+generate, PagedKVCache, the GPT decode call and the steady step); ckpt:
+phase 18 (the LM example at full width: train, resume, generate from the
+file, the checkpoint round trip, a background save, resumable_epochs with
+prefetch). No argument runs them all.
 Every check raises as in chip_smoke.py.
 """
 
@@ -72,7 +74,8 @@ from lamp_tpu_torch.ops.paged_attention import (  # noqa: E402
 
 PARTS = ("paged", "ragged", "ragged_bwd", "fwd", "flash", "wide", "any",
          "small", "train32", "openllama", "gemma", "openllama_train", "quant",
-         "k8", "layouts", "spec", "layernorm", "prefix", "controls", "gpt")
+         "k8", "layouts", "spec", "layernorm", "prefix", "controls", "gpt",
+         "ckpt")
 
 
 def main(parts) -> int:
@@ -176,6 +179,8 @@ def main(parts) -> int:
 
         print(cs.phase_gpt(torch_nn, models, ops, paged_attention,
                            paged_attention_reference, cs.card()), flush=True)
+    if "ckpt" in parts:
+        print(cs.phase_checkpoint(cs.card()), flush=True)
     if "layernorm" in parts:
         from lamp_tpu_torch.ops import fused_layernorm as FL
 
