@@ -336,6 +336,29 @@ Phases (every failure raises and exits non-zero; nothing is skipped):
    steps, prefetch_to_device) preempted after epoch 0 and resumed into
    other weights, bit for bit the uninterrupted run's state and curve.
 
+19. MoE serving, HuggingFace checkpoints and the OpenAI front end: a MoE
+   ModernLM at Mixtral-8x7B's widths (4096 wide, 32 / 8 heads of 128, 8
+   experts of 14336, top-2, vocab 32000, bf16, random weights from a seed)
+   on 8 of its 32 blocks, which one card's memory forces (MIX), behind
+   ModernBatchServer and ServingEngine with phase 3's 40 requests: exact
+   lengths, the pool back at its start, K6's fixed kernel at D=128 (group 4)
+   8 times a decode step, the greedy tokens against the dense forward (K1
+   at D=128) past MARGIN where every layer's routing is clear
+   (check_greedy_moe), the steady decode, the MoE MLPs' device time a step;
+   quantize_bits=4 refused; int8 experts on all 40 requests greedy past
+   QMARGIN8; the three dispatches of one layer over 4096 tokens; the
+   Mixtral decode call of K6 cold beside its bound and plain version. Then
+   OpenLLaMA-3B (phase 11's model) exported to a HuggingFace directory and
+   loaded back bit for bit (write and read GB/s), a Metaspace BPE tokenizer
+   of 32000 ids built from SURVEY.md, the model behind ServingEngine,
+   OpenAIFrontend and OpenAIHTTPServer on port 0: 8 greedy prompts through
+   the engine against the dense forward (K1 ragged at D=100), the same 8 as
+   concurrent /v1/completions whose texts equal the engine's tokens decoded,
+   a stream equal to its completion, chat, n=2, a stop string, a malformed
+   body (400), /metrics back at 0 pending and running, paged_attention_any
+   26 times a decode step. Then examples/serving_demo_torch.py at its
+   defaults (K6's fixed kernel at D=64, 4 times a step).
+
 After phase 6, check_layouts holds flash_attention (forward and backward),
 paged_attention and int4_matmul given transposed views and offset slices
 against their contiguous copies, bit for bit.
@@ -5733,6 +5756,710 @@ def ckpt_batch(corpus, i):
             torch.as_tensor(y, device="cuda"))
 
 
+# phase 19 (a): a MoE ModernLM at mistralai/Mixtral-8x7B-v0.1's widths
+# (its config.json: hidden_size 4096, intermediate_size 14336, 32 attention
+# heads over 8 kv heads of head_dim 128, num_local_experts 8,
+# num_experts_per_tok 2, vocab_size 32000, rope_theta 1e6, rms_norm_eps
+# 1e-5, max_position_embeddings 32768, untied, no sliding window), bf16,
+# random weights from seed 0, on 8 of its 32 blocks. The cut is forced by
+# one card's memory: the 32 blocks are 46.70 B parameters (93.4 GB in
+# bf16, above the card's 80 GB), 8 blocks 11.87 B (23.7 GB), and the int8
+# server then adds 11.3 GB of expert values. Served with phase 3's pages,
+# pool size and requests.
+MIX = dict(vocab_size=32000, context_length=32768, num_blocks=8,
+           embed_dim=4096, num_heads=32, num_kv_heads=8, mlp_hidden=14336,
+           tied=False, rope_base=1e6, norm_eps=1e-5, moe_experts=8,
+           moe_top_k=2)
+MIX_BLOCKS, MIX_HEADS, MIX_KV, MIX_D = 8, 32, 8, 128
+# one SwiGLUMoE layer over MOE_TOKENS seeded tokens: the three dispatches
+# agree within this relative Frobenius error (bf16 products rounded at
+# other places and summed in another order); capacity gets a factor of
+# E / top_k, so that an expert can take every token and nothing drops
+MOE_TOKENS, MOE_DISPATCH_TOL = 4096, 1e-2
+# the greedy checks of a MoE server. A MoE model is discontinuous where a
+# token's top_k-th and next gate logits tie: two computations that round
+# differently may route a token to other experts, which moves its output
+# by ~1 and, through attention, the logits of later tokens by ~0.1-0.5. In
+# bf16 the server and the dense forward round activations at other places,
+# and such flips are common (on an NVIDIA H100: a greedy token 0.227 from
+# the dense argmax with every layer's routing of that token clear by
+# 0.059, after flips among its prompt's tokens). So the MoE decode path is held
+# token for token on the same model in f32 (as phase 7's f32 int4 server),
+# where the two computations differ in summation order only: past a 1e-3
+# margin, wherever every layer's routing of the token is clear by 1e-3,
+# every greedy token equals the dense argmax, and at least 1/4 are checked.
+# The bf16 and int8 servers are held to an agreement rate past MARGIN and
+# QMARGIN8: at least MOE_AGREE of those tokens equal the dense argmax (a
+# wrong expert, page or head agrees by chance, ~1/32000), all 40 requests
+# greedy in int8 (the untied head's logits have std ~0.48 at these widths:
+# ~9.5% of tokens clear 0.25, and at least 1/16 must)
+MOE_F32_MARGIN = MOE_F32_ROUTE = 1e-3
+MOE_AGREE = 0.5
+
+
+def check_greedy_moe(model, prompts, results, greedy, margin,
+                     route_margin=None, least=4, agree=1.0):
+    """:func:`check_greedy` for a MoE model: each greedy token against the
+    dense forward's argmax where its logit margin exceeds ``margin`` and,
+    given ``route_margin``, every layer's routing gap (the top_k-th gate
+    logit less the next, of the dense forward's MLP input) exceeds it. At
+    least 1/``least`` of the tokens must be checked, and a share
+    ``agree`` of the checked ones must equal the argmax (1.0: every one)."""
+    gaps = []
+
+    def hook(mlp, args):
+        h = args[0].reshape(-1, args[0].shape[-1])
+        g = torch.matmul(h, mlp.w_gate.to(h.dtype)).float()
+        top = g.topk(mlp.top_k + 1, dim=-1).values
+        gaps.append(top[:, -2] - top[:, -1])
+
+    hooks = [b.mlp.register_forward_pre_hook(hook) for b in model.blocks]
+    checked = same = routed = total = 0
+    first = None
+    try:
+        with torch.no_grad():
+            for rid in greedy:
+                gaps.clear()
+                seq = prompts[rid] + results[rid]
+                n = len(prompts[rid])
+                logits = model(torch.as_tensor([seq[:-1]], device="cuda"))[0]
+                top = logits[n - 1:].topk(2, dim=-1)
+                gap = (top.values[:, 0] - top.values[:, 1]).cpu().numpy()
+                route = torch.stack(gaps).amin(0)[n - 1:].cpu().numpy()
+                argmax = top.indices[:, 0].cpu().numpy()
+                for j, tok in enumerate(results[rid]):
+                    total += 1
+                    if route_margin is not None and route[j] <= route_margin:
+                        routed += 1
+                    elif gap[j] > margin:
+                        checked += 1
+                        same += int(tok == argmax[j])
+                        if tok != argmax[j] and first is None:
+                            first = (f"{rid} token {j}: {tok} != dense "
+                                     f"argmax {argmax[j]} (margin "
+                                     f"{gap[j]:.3f}, routing gap "
+                                     f"{route[j]:.3f})")
+    finally:
+        for h in hooks:
+            h.remove()
+    print(f"  greedy: {same} of {checked} tokens past the {margin} margin "
+          f"(of {total}) equal the dense argmax"
+          + (f"; {routed} skipped, their routing within {route_margin} of a "
+             f"tie" if route_margin is not None else "")
+          + (f"; first other: {first}" if first else ""))
+    if checked < total // least:
+        raise AssertionError("too few greedy tokens could be checked")
+    if same < agree * checked:
+        raise AssertionError(f"{same} of {checked} greedy tokens equal the "
+                             f"dense argmax, want {agree:.0%}; {first}")
+    return dict(checked=checked, equal=same, near_routing_tie=routed,
+                total=total)
+
+
+def mixtral_model(torch_nn, dtype=torch.bfloat16):
+    """Phase 19's Mixtral-widths ModernLM (8 blocks), seed 0 (the f32 model
+    holds the draws that the bf16 one rounds)."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    return torch_nn.ModernLM.init(generator=gen, dtype=dtype, device="cuda",
+                                  **MIX)
+
+
+def serve_mixtral_f32(torch_nn, models, paged_attention):
+    """The Mixtral-widths model in f32 (47.5 GB) behind the same server and
+    requests: K6 on its f32 route 8 times a decode step, and every greedy
+    token past MOE_F32_MARGIN whose routing is clear by MOE_F32_ROUTE equal
+    to the dense f32 forward's argmax. Returns (the greedy check's counts,
+    K6's launches)."""
+    model = mixtral_model(torch_nn, torch.float32)
+    server = models.ModernBatchServer(model, page_size=PAGE,
+                                      total_pages=TOTAL_PAGES)
+    prompts, results, greedy, steps = serve_requests(models, server)
+    k6 = paged_attention.launches
+    check_launches("paged_attention (Mixtral widths, f32)", k6,
+                   MIX_BLOCKS * steps)
+    checked = check_greedy_moe(model, prompts, results, greedy,
+                               MOE_F32_MARGIN, MOE_F32_ROUTE)
+    del server, model
+    torch.cuda.empty_cache()
+    return checked, k6
+
+
+def k6_kernels(server, models):
+    """The K6 kernels that one decode step of ``server`` runs, by the
+    profiler's names (one request of 24 tokens, removed after)."""
+    server.add("k6", list(range(1, 25)), models.SamplingParams())
+    server.step()
+    with traced() as trace:
+        server.step()
+        torch.cuda.synchronize()
+    server.remove("k6")
+    return sorted({e.key for e in trace.events if "paged_attention" in e.key})
+
+
+def check_k6_kernel(names, want, also=()):
+    """Every K6 kernel name holds ``want`` and each of ``also``."""
+    print(f"  K6 kernels of a decode step: {names}")
+    if not names or any(want not in n or any(a not in n for a in also)
+                        for n in names):
+        raise AssertionError(f"K6 kernels {names}, want {want} {also}")
+
+
+def mixtral_decode_call(gen, rng, batch: int = 32, tables: int = 4):
+    """K6's Mixtral decode call, as a steady step makes it: 32 / 8 heads of
+    128, bf16, over the layer-stacked pool of MIX_BLOCKS x TOTAL_PAGES pages
+    of PAGE tokens, 256 pages a sequence (32768 positions), lengths 56-95
+    (phase 3's steady decode), append_kv, no window; ``tables`` page tables
+    that give each sequence its own live page, taken in turns with the
+    layers (decode_turn), so that calls read ~135 MB of rows, past L2."""
+    dev = torch.device("cuda")
+    f = MIX_KV * MIX_D
+    pool = torch.randn((MIX_BLOCKS * TOTAL_PAGES, 2, PAGE, f), generator=gen,
+                       device=dev, dtype=torch.bfloat16)
+    live = rng.choice(np.arange(1, TOTAL_PAGES), tables * batch,
+                      replace=False).reshape(tables, batch)
+    out = []
+    for t in range(tables):
+        table = np.zeros((batch, MIX["context_length"] // PAGE), np.int32)
+        table[:, 0] = live[t]
+        out.append(torch.as_tensor(table, device=dev))
+    lengths = torch.as_tensor(rng.randint(56, 96, batch).astype(np.int32),
+                              device=dev)
+    q = torch.randn((batch, MIX_HEADS, MIX_D), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    new = tuple(torch.randn((batch, f), generator=gen, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
+    offsets = [layer * TOTAL_PAGES for layer in range(MIX_BLOCKS)]
+    return q, pool, MIX_KV, new, out, lengths, offsets
+
+
+def time_mixtral_decode_call(paged_attention, paged_attention_reference):
+    """The Mixtral decode call against its plain version, then timed cold
+    by CUDA events over a graph, in turns with phase 3's serving decode
+    call (two rounds each); its plain version by the profiler. Returns the
+    figures of K6's row."""
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    q, pool, hkv, new, tables, lengths, offsets = mixtral_decode_call(
+        gen, np.random.RandomState(19))
+    sq, spool, shkv, snew, stables, slens, soffs = serving_decode_call(
+        gen, np.random.RandomState(7))
+
+    def call(i=0):
+        tab, off = decode_turn(i, tables, offsets)
+        return paged_attention(q, pool, None, tab, lengths, num_kv_heads=hkv,
+                               append_kv=new, page_offset=off)
+
+    def serving(i=0):
+        tab, off = decode_turn(i, stables, soffs)
+        return paged_attention(sq, spool, None, tab, slens,
+                               num_kv_heads=shkv, append_kv=snew,
+                               page_offset=off)
+
+    # the plain version on each sequence's live page alone: lengths below
+    # PAGE leave the other 255 pages of a sequence without a key (masked),
+    # and gathering them would take ~50 GB
+    live_table = tables[0][:, :1].contiguous()
+
+    def plain():
+        return paged_attention_reference(q, pool, None, live_table, lengths,
+                                         num_kv_heads=hkv, append_kv=new)
+
+    ref = paged_attention_reference(q.float(), pool.float(), None,
+                                    live_table, lengths, num_kv_heads=hkv,
+                                    append_kv=tuple(x.float() for x in new))
+    e = (call().float() - ref).abs()
+    err = float(e.max())
+    if (e > ATOL + RTOL * ref.abs()).any():
+        raise AssertionError(f"Mixtral decode call: max err {err:.3e}")
+    times = {"mixtral": [], "serving": []}
+    for _ in range(2):
+        times["mixtral"].append(graph_ms(call))
+        times["serving"].append(graph_ms(serving))
+    ms = min(times["mixtral"])
+    plain_ms = sum(device_ms(plain, 10).values())
+    live = int(lengths.sum()) + q.shape[0]
+    kv_bytes = live * 2 * hkv * MIX_D * 2
+    nbytes = kv_bytes + 2 * q.numel() * 2 + (tables[0].numel() + q.shape[0]) * 4
+    bound_ms = max(nbytes / PEAK_BYTES,
+                   4 * live * MIX_HEADS * MIX_D / PEAK_FLOPS) * 1e3
+    print(f"  Mixtral decode call (B=32, 32/8 heads of 128, lengths 56-95, "
+          f"4 tables x 8 layers in turns, cold): {ms * 1e3:.2f} us a call "
+          f"(CUDA events over a graph; rounds {times['mixtral']}), bound "
+          f"{bound_ms * 1e3:.2f} us ({kv_bytes / 1e6:.2f} MB of K/V rows), "
+          f"plain {plain_ms * 1e3:.2f} us (on the live pages); in turns, "
+          f"phase 3's serving decode call {times['serving']} ms",
+          flush=True)
+    del pool, spool
+    torch.cuda.empty_cache()
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                max_abs_err=err, kv_bytes=kv_bytes,
+                rounds_ms=times["mixtral"],
+                serving_rounds_ms=times["serving"])
+
+
+def moe_mlp_us(server, steps_rows: int = 32):
+    """Device time (us) a decode step's MoE MLPs take in ``server``: its
+    ``_moe_mlp_rows`` over each layer's entries at B=32 rows, by CUDA events
+    over back-to-back calls (a call is ~1 ms of device time against ~0.1
+    ms of host time)."""
+    _, _, w1, w3, w2, _ = server._extras
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    h = torch.randn((steps_rows, MIX["embed_dim"]), generator=gen,
+                    device="cuda", dtype=torch.bfloat16)
+    layer = [0]
+
+    def call():
+        li = layer[0] % MIX_BLOCKS
+        layer[0] += 1
+        server._moe_mlp_rows(h, w3[li], w2[li], w1[li])
+
+    return cuda_time_ms(call, 4 * MIX_BLOCKS, warmup=MIX_BLOCKS) * 1e3 * \
+        MIX_BLOCKS
+
+
+def moe_dispatches(model):
+    """One SwiGLUMoE layer (block 0's experts) at Mixtral's widths over
+    MOE_TOKENS seeded tokens under each dispatch, timed by CUDA events;
+    sorted and capacity (factor E / top_k: no drop) against dense by
+    relative Frobenius error."""
+    from lamp_tpu_torch.nn import SwiGLUMoE
+
+    mlp = model.blocks[0].mlp
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    x = torch.randn((MOE_TOKENS, MIX["embed_dim"]), generator=gen,
+                    device="cuda", dtype=torch.bfloat16)
+    out, ms = {}, {}
+    factor = MIX["moe_experts"] / MIX["moe_top_k"]
+    with torch.no_grad():
+        for dispatch in ("dense", "sorted", "capacity"):
+            m = SwiGLUMoE(mlp.w_gate, mlp.w1, mlp.w3, mlp.w2,
+                          top_k=MIX["moe_top_k"], dispatch=dispatch,
+                          capacity_factor=factor)
+            out[dispatch] = m(x)
+            ms[dispatch] = cuda_time_ms(lambda: m(x), 2, warmup=1)
+            if dispatch == "capacity" and int(m.dropped):
+                raise AssertionError(f"capacity dispatch dropped "
+                                     f"{int(m.dropped)} slots")
+    errs = {d: rel_err(out[d], out["dense"]) for d in ("sorted", "capacity")}
+    for d, v in out.items():
+        if v.shape != x.shape or not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{d} dispatch: bad output")
+    print(f"  SwiGLUMoE at 4096 x 14336 x 8 experts over {MOE_TOKENS} "
+          f"tokens: dense {ms['dense']:.2f} ms, sorted {ms['sorted']:.2f} "
+          f"ms, capacity (factor {factor}, nothing dropped) "
+          f"{ms['capacity']:.2f} ms; against dense: sorted "
+          f"{errs['sorted']:.2e}, capacity {errs['capacity']:.2e}",
+          flush=True)
+    if max(errs.values()) > MOE_DISPATCH_TOL:
+        raise AssertionError(f"dispatches disagree: {errs}")
+    return dict(ms=ms, rel_err=errs)
+
+
+def phase_moe(torch_nn, models, paged_attention, paged_attention_reference,
+              att):
+    """Phase 19 (a): MoE serving at Mixtral-8x7B's widths (8 blocks)."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    model = mixtral_model(torch_nn)
+    n_params = sum(p.numel() for p in model.parameters())
+    server = models.ModernBatchServer(model, page_size=PAGE,
+                                      total_pages=TOTAL_PAGES)
+    print(f"  Mixtral widths, {MIX_BLOCKS} blocks: {n_params} parameters "
+          f"({n_params * 2 / 1e9:.2f} GB bf16); KV pool "
+          f"{server.kv_pages.numel() * 2 / 1e9:.2f} GB; built in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check_k6_kernel(k6_kernels(server, models), "paged_attention_fixed",
+                    ("128",))
+    prompts, results, greedy, steps = serve_requests(models, server)
+    k6 = paged_attention.launches
+    check_launches("paged_attention (Mixtral widths)", k6, MIX_BLOCKS * steps)
+    reset_launch_counts()
+    greedy_bf16 = check_greedy_moe(model, prompts, results, greedy, MARGIN,
+                                   agree=MOE_AGREE)
+    k1 = att.flash_attention.launches
+    check_launches("flash_attention (dense check, D=128)", k1,
+                   MIX_BLOCKS * len(greedy))
+    decode = steady_decode(models, server, "bf16, Mixtral widths")
+    decode["moe_mlp_us_per_step"] = moe_mlp_us(server)
+    decode["moe_mlp_share"] = (decode["moe_mlp_us_per_step"]
+                               / decode["device_us_per_step"])
+    del server
+    torch.cuda.empty_cache()
+    try:
+        models.ModernBatchServer(model, page_size=PAGE,
+                                 total_pages=TOTAL_PAGES, quantize_bits=4)
+    except NotImplementedError as e:
+        print(f"  quantize_bits=4 raises NotImplementedError: {e}")
+    else:
+        raise AssertionError("a MoE server took quantize_bits=4")
+    server8 = models.ModernBatchServer(model, page_size=PAGE,
+                                       total_pages=TOTAL_PAGES,
+                                       quantize_bits=8)
+    ev, sc = server8._extras[3][0]
+    expert_bytes = MIX_BLOCKS * sum(
+        t.numel() * t.element_size()
+        for t in (ev, sc, *server8._extras[4][0]))
+    print(f"  int8 experts: {expert_bytes / 1e9:.2f} GB", flush=True)
+    prompts8, results8, greedy8, steps8 = serve_requests(
+        models, server8, greedy=range(40))
+    k6_int8 = paged_attention.launches
+    check_launches("paged_attention (Mixtral widths, int8)", k6_int8,
+                   MIX_BLOCKS * steps8)
+    greedy_int8 = check_greedy_moe(model, prompts8, results8, greedy8,
+                                   QMARGIN8, least=16, agree=MOE_AGREE)
+    decode8 = steady_decode(models, server8, "int8 experts, Mixtral widths")
+    decode8["moe_mlp_us_per_step"] = moe_mlp_us(server8)
+    decode8["moe_mlp_share"] = (decode8["moe_mlp_us_per_step"]
+                                / decode8["device_us_per_step"])
+    del server8
+    torch.cuda.empty_cache()
+    dispatch = moe_dispatches(model)
+    del model
+    torch.cuda.empty_cache()
+    greedy_f32, k6_f32 = serve_mixtral_f32(torch_nn, models, paged_attention)
+    call = time_mixtral_decode_call(paged_attention,
+                                    paged_attention_reference)
+    for what, d in (("bf16", decode), ("int8", decode8)):
+        print(f"  Mixtral-widths decode ({what}): {d['tok_s']:.1f} tok/s, "
+              f"{d['device_us_per_step']:.1f} us and "
+              f"{d['device_ops_per_step']:.1f} device ops a step, device "
+              f"busy {100 * d['busy_share']:.1f}%, K6 "
+              f"{100 * d['k6_share']:.1f}%, MoE MLPs "
+              f"{d['moe_mlp_us_per_step']:.1f} us a step "
+              f"({100 * d['moe_mlp_share']:.1f}%)", flush=True)
+    seconds = time.perf_counter() - t0
+    print(f"  phase 19 (a) took {seconds:.1f} s", flush=True)
+    return dict(k6=k6, k6_int8=k6_int8, k6_f32=k6_f32, k1=k1, steps=steps,
+                steps8=steps8, greedy=greedy_bf16, greedy_int8=greedy_int8,
+                greedy_f32=greedy_f32,
+                decode=decode, decode8=decode8, dispatch=dispatch,
+                decode_call=call, n_params=n_params,
+                int8_expert_bytes=expert_bytes, seconds=seconds)
+
+
+# phase 19 (b): OpenLLaMA-3B (phase 11's model) through a HuggingFace
+# directory and the OpenAI front end
+HF_MIN_FREE = 8e9           # bytes free that the export needs
+HF_TOKENS = 32              # max_tokens of the 8 completions
+HF_PROMPTS = 8
+
+
+def survey_tokenizer(path, vocab: int = VOCAB, merges: int = 256):
+    """A Metaspace BPE ``tokenizer.json`` of exactly ``vocab`` ids (no
+    tokenizer file can be downloaded): ``<unk>``, ``<s>``, ``</s>``, the
+    256 byte-fallback tokens, every character of SURVEY.md, ``merges``
+    merges learned from SURVEY.md's words (pairs counted over its words,
+    the most frequent merged first), then filler tokens up to ``vocab``,
+    so that every id decodes."""
+    from collections import Counter
+
+    text = (Path(__file__).resolve().parent / "SURVEY.md").read_text(
+        encoding="utf-8")
+    words = Counter("▁" + w for w in text.split())
+    tokens = ["<unk>", "<s>", "</s>"] + [f"<0x{b:02X}>" for b in range(256)]
+    tokens += sorted({c for w in words for c in w} - set(tokens))
+    seqs = {w: list(w) for w in words}
+    learned = []
+    for _ in range(merges):
+        pairs = Counter()
+        for w, n in words.items():
+            s = seqs[w]
+            for a, b in zip(s, s[1:]):
+                pairs[a, b] += n
+        if not pairs:
+            break
+        (a, b), _ = pairs.most_common(1)[0]
+        learned.append(f"{a} {b}")
+        if a + b not in tokens:
+            tokens.append(a + b)
+        for w, s in seqs.items():
+            i, out = 0, []
+            while i < len(s):
+                if i + 1 < len(s) and s[i] == a and s[i + 1] == b:
+                    out.append(a + b)
+                    i += 2
+                else:
+                    out.append(s[i])
+                    i += 1
+            seqs[w] = out
+    tokens += [f"<filler_{i}>" for i in range(vocab - len(tokens))]
+    if len(tokens) != vocab or len(set(tokens)) != vocab:
+        raise AssertionError("the tokenizer's vocabulary is not 32000 ids")
+    spec = {
+        "model": {"type": "BPE", "vocab": {t: i for i, t in enumerate(tokens)},
+                  "merges": learned, "unk_token": "<unk>",
+                  "byte_fallback": True},
+        "pre_tokenizer": {"type": "Metaspace", "replacement": "▁",
+                          "prepend_scheme": "always"},
+        "decoder": {"type": "Metaspace"},
+        "added_tokens": [{"id": i, "content": t, "special": True}
+                         for i, t in enumerate(tokens[:3])],
+    }
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(spec, f)
+    return len(learned)
+
+
+def hf_prompts():
+    """HF_PROMPTS lines of SURVEY.md of 60-200 characters, spread over it."""
+    lines = [ln.strip() for ln in (Path(__file__).resolve().parent /
+                                   "SURVEY.md").read_text(
+        encoding="utf-8").splitlines() if 60 <= len(ln.strip()) <= 200]
+    step = len(lines) // HF_PROMPTS
+    return [lines[i * step] for i in range(HF_PROMPTS)]
+
+
+def http_json(port, path, body, raw=None, timeout=600):
+    """POST ``body`` (or the bytes ``raw``) to the local server; returns
+    (status, the JSON reply)."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}",
+        data=raw if raw is not None else json.dumps(body).encode(),
+        method="POST", headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def http_stream(port, body, timeout=600):
+    """A streamed completion: (the text, the finish reason, seconds to the
+    first event)."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/completions",
+        data=json.dumps(dict(body, stream=True)).encode(), method="POST",
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    first, text, finish, done = None, [], None, False
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        for line in r:
+            line = line.decode().strip()
+            if not line.startswith("data: "):
+                continue
+            if first is None:
+                first = time.perf_counter() - t0
+            payload = line[len("data: "):]
+            if payload == "[DONE]":
+                done = True
+                continue
+            choice = json.loads(payload)["choices"][0]
+            text.append(choice["text"])
+            finish = choice["finish_reason"] or finish
+    if not done:
+        raise AssertionError("the stream did not end with [DONE]")
+    return "".join(text), finish, first
+
+
+def phase_hf(torch_nn, models, paged_attention, att):
+    """Phase 19 (b): OpenLLaMA-3B exported to a HuggingFace directory and
+    loaded back, then served behind the OpenAI front end."""
+    import shutil
+    import threading
+    import urllib.request
+
+    from lamp_tpu_torch.data import HFTokenizer
+    from lamp_tpu_torch.models.openai_api import (OpenAIFrontend,
+                                                  OpenAIHTTPServer)
+
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    work = root / "lamp_tpu_torch" / "_build" / "phase19"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    free = shutil.disk_usage(work).free
+    if free < HF_MIN_FREE:
+        raise AssertionError(f"phase 19 needs {HF_MIN_FREE / 1e9:.0f} GB "
+                             f"free for the export, the disk has "
+                             f"{free / 1e9:.2f} GB")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    seeded = torch_nn.ModernLM.init(
+        vocab_size=VOCAB, context_length=OL_CTX, num_blocks=OL_BLOCKS,
+        embed_dim=OL_DIM, num_heads=OL_HEADS, num_kv_heads=OL_HEADS,
+        mlp_hidden=OL_MLP, tied=False, rope_base=10000.0, norm_eps=1e-6,
+        generator=gen, dtype=torch.bfloat16, device="cuda")
+    nbytes = sum(p.numel() * p.element_size() for p in seeded.parameters())
+    hf_dir = work / "open_llama_3b"
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    models.modernlm_to_hf_llama(seeded, str(hf_dir),
+                                config_extra={"rope_theta": 10000.0})
+    write_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    model = models.modernlm_from_hf_llama(str(hf_dir))
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t1
+    file_bytes = sum(f.stat().st_size for f in hf_dir.iterdir())
+    a, b = seeded.state_dict(), model.state_dict()
+    if list(a) != list(b):
+        raise AssertionError("the loaded model's tree is not the seeded one")
+    for name in a:
+        if a[name].dtype != b[name].dtype or not torch.equal(a[name],
+                                                             b[name]):
+            raise AssertionError(f"{name} differs after the HF round trip")
+    print(f"  HF round trip: {len(a)} tensors ({nbytes / 1e9:.2f} GB of "
+          f"parameters, a {file_bytes / 1e9:.2f} GB directory) equal bit for "
+          f"bit, the RoPE tables too; write {write_s:.2f} s "
+          f"({file_bytes / write_s / 1e9:.2f} GB/s), read onto the card "
+          f"{read_s:.2f} s ({file_bytes / read_s / 1e9:.2f} GB/s)",
+          flush=True)
+    del seeded, a, b
+    torch.cuda.empty_cache()
+    tok_path = work / "tokenizer.json"
+    n_merges = survey_tokenizer(tok_path)
+    tok = HFTokenizer.from_file(str(tok_path))
+    if tok.vocab_size != VOCAB or tok.mode != "metaspace":
+        raise AssertionError(f"tokenizer: {tok.vocab_size} ids, {tok.mode}")
+    texts = hf_prompts()
+    for s in texts:
+        if tok.decode(tok.encode(s)) != s:
+            raise AssertionError(f"tokenizer round trip: {s!r}")
+
+    server = models.ModernBatchServer(model, page_size=PAGE,
+                                      total_pages=TOTAL_PAGES)
+    engine = models.ServingEngine(server, decode_steps=8)
+    check_k6_kernel(k6_kernels(server, models), "paged_attention_any")
+    prompts = {f"h{i}": tok.encode(s) for i, s in enumerate(texts)}
+    for rid, ids in prompts.items():
+        engine.submit(ids, models.SamplingParams(max_tokens=HF_TOKENS),
+                      request_id=rid)
+    direct = engine.run()
+    engine.results.clear()
+    reset_launch_counts()
+    check_greedy(lambda t, _: model(t)[0], prompts, direct, sorted(direct),
+                 MARGIN)
+    k1 = att.flash_attention.launches
+    check_launches("flash_attention (dense check, D=100)", k1,
+                   OL_BLOCKS * HF_PROMPTS)
+
+    frontend = OpenAIFrontend(engine, tok, model_name="open-llama-3b-widths",
+                              default_max_tokens=HF_TOKENS)
+    api = OpenAIHTTPServer(frontend, host="127.0.0.1", port=0)
+    # the HTTP thread first, the engine's loop once all 8 requests wait:
+    # the loop then admits them in one batch, in submission order, as the
+    # direct run did (a batch of another size may round differently)
+    api._thread = threading.Thread(target=api._httpd.serve_forever,
+                                   daemon=True)
+    api._thread.start()
+    reset_launch_counts()
+    steps0 = server.steps_decoded
+    replies = [None] * HF_PROMPTS
+
+    def post(i):
+        replies[i] = http_json(api.port, "/v1/completions", {
+            "prompt": texts[i], "temperature": 0.0, "max_tokens": HF_TOKENS})
+
+    threads = []
+    for i in range(HF_PROMPTS):
+        threads.append(threading.Thread(target=post, args=(i,)))
+        threads[-1].start()
+        while len(engine.pending) < i + 1:
+            time.sleep(0.001)
+    t1 = time.perf_counter()
+    frontend.start()
+    for t in threads:
+        t.join()
+    http_s = time.perf_counter() - t1
+    emitted = 0
+    for i, (status, reply) in enumerate(replies):
+        want = tok.decode(direct[f"h{i}"])
+        choice = reply["choices"][0] if status == 200 else {}
+        if status != 200 or choice["text"] != want:
+            raise AssertionError(f"completion {i}: {status} {reply} != "
+                                 f"{want!r}")
+        emitted += reply["usage"]["completion_tokens"]
+    http_tok_s = emitted / http_s
+    print(f"  {HF_PROMPTS} concurrent /v1/completions: texts equal the "
+          f"engine's tokens decoded; {emitted} tokens in {http_s:.2f} s "
+          f"({http_tok_s:.1f} tok/s)", flush=True)
+    body = {"prompt": texts[0], "temperature": 0.0, "max_tokens": HF_TOKENS}
+    status, full = http_json(api.port, "/v1/completions", body)
+    streamed, finish, ttft = http_stream(api.port, body)
+    if status != 200 or streamed != full["choices"][0]["text"] or \
+            finish != full["choices"][0]["finish_reason"]:
+        raise AssertionError("the stream differs from the completion")
+    status, chat = http_json(api.port, "/v1/chat/completions", {
+        "messages": [{"role": "user", "content": texts[1]}],
+        "temperature": 0.0, "max_tokens": 8})
+    if status != 200 or chat["choices"][0]["message"]["role"] != "assistant":
+        raise AssertionError(f"chat completion: {status} {chat}")
+    status, two = http_json(api.port, "/v1/completions", dict(
+        body, temperature=1.0, n=2, max_tokens=8))
+    if status != 200 or [c["index"] for c in two["choices"]] != [0, 1]:
+        raise AssertionError(f"n=2: {status} {two}")
+    text = full["choices"][0]["text"]
+    stop = text[len(text) // 2:len(text) // 2 + 2]
+    status, cut = http_json(api.port, "/v1/completions",
+                            dict(body, stop=[stop]))
+    if status != 200 or cut["choices"][0]["text"] != text[:text.find(stop)] \
+            or cut["choices"][0]["finish_reason"] != "stop":
+        raise AssertionError(f"stop string {stop!r}: {cut}")
+    status, bad = http_json(api.port, "/v1/completions", None,
+                            raw=b'{"prompt": ')
+    if status != 400 or "error" not in bad:
+        raise AssertionError(f"malformed body: {status} {bad}")
+    with urllib.request.urlopen(f"http://127.0.0.1:{api.port}/metrics",
+                                timeout=60) as r:
+        metrics = {ln.split()[0]: float(ln.split()[1])
+                   for ln in r.read().decode().splitlines()
+                   if not ln.startswith("#")}
+    api.shutdown()
+    steps = server.steps_decoded - steps0
+    k6 = paged_attention.launches
+    check_launches("paged_attention_any (behind HTTP)", k6,
+                   OL_BLOCKS * steps)
+    if (metrics["lamp_requests_pending"], metrics["lamp_requests_running"],
+            metrics["lamp_kv_pages_free"]) != (0, 0, TOTAL_PAGES - 1):
+        raise AssertionError(f"/metrics at the end: {metrics}")
+    print(f"  stream = completion, time to the first streamed event "
+          f"{ttft * 1e3:.1f} ms; chat, n=2 and a stop string answered, a "
+          f"malformed body 400; /metrics: 0 pending, 0 running, "
+          f"{metrics['lamp_kv_pages_free']:.0f} of {TOTAL_PAGES} pages free",
+          flush=True)
+    del server, engine, frontend, api, model
+    shutil.rmtree(work)
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    print(f"  phase 19 (b) took {seconds:.1f} s", flush=True)
+    return dict(k6=k6, k1=k1, steps=steps,
+                write_gb_s=file_bytes / write_s / 1e9,
+                read_gb_s=file_bytes / read_s / 1e9, file_bytes=file_bytes,
+                http_tok_s=http_tok_s, ttft_ms=ttft * 1e3,
+                merges=n_merges, seconds=seconds)
+
+
+def phase_serving_demo(models, paged_attention):
+    """Phase 19 (c): examples/serving_demo_torch.py at its defaults (4 x
+    256, 4 heads of 64, context 256, f32; the GPT BatchServer with the
+    prefix cache): the completions' lengths, the prefix cache's counts,
+    K6's launches (4 a decode step) on the fixed kernel at D = 64."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "serving_demo_torch", Path(__file__).resolve().parent / "examples" /
+        "serving_demo_torch.py")
+    demo = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(demo)
+    reset_launch_counts()
+    out = demo.main([])
+    server = out["server"]
+    k6, steps = paged_attention.launches, server.steps_decoded
+    check_launches("paged_attention (serving demo)", k6, 4 * steps)
+    lengths = [len(out["results"][f"req{i}"]) for i in range(3)]
+    if lengths != [40, 50, 60] or (server.cache_hit_tokens,
+                                   server.cache_miss_tokens) != (0, 34):
+        raise AssertionError(f"serving demo: lengths {lengths}, prefix "
+                             f"cache {server.cache_hit_tokens}/"
+                             f"{server.cache_miss_tokens}")
+    check_k6_kernel(k6_kernels(server, models), "paged_attention_fixed",
+                    ("64",))
+    return dict(k6=k6, steps=steps, tok_s=out["tokens"] / out["seconds"])
+
+
 def kernel_line(source, kernel):
     """``csrc/<source>:<line>`` of the line that opens ``kernel``'s
     definition (its name followed by its parameter list)."""
@@ -5839,6 +6566,16 @@ def main() -> int:
           "prefetch, generate from the file)", flush=True)
     ckpt = phase_checkpoint(smi)
     print(json.dumps({"checkpoint": ckpt}))
+    print("phase 19: MoE serving at Mixtral-8x7B's widths (8 of its 32 "
+          "blocks), OpenLLaMA-3B through a HuggingFace directory and the "
+          "OpenAI front end, the serving demo", flush=True)
+    t19 = time.perf_counter()
+    moe = phase_moe(torch_nn, models, paged_attention,
+                    paged_attention_reference, att)
+    hf = phase_hf(torch_nn, models, paged_attention, att)
+    demo = phase_serving_demo(models, paged_attention)
+    print(json.dumps({"phase19": dict(moe=moe, hf=hf, serving_demo=demo,
+                                      seconds=time.perf_counter() - t19)}))
     tc_by = {c["tc"][f"M={SPEC_ROWS}"]["bound_by"]
              for c in k7["per_call"].values()}
     k7_tc = dict(k7["tc_round"], launches=spec["tc_launches"],
@@ -5849,7 +6586,8 @@ def main() -> int:
     tc_models = [small_by_model[m] for m in ("bert width",
                                              "translation width")]
     fwd_launches += sum(g[0] for g in tc_models) + \
-        packed["launches"]["flash_attention"] + ckpt["launches"][0]
+        packed["launches"]["flash_attention"] + ckpt["launches"][0] + \
+        moe["k1"]
     bwd_launches += sum(g[1] for g in tc_models) + \
         packed["launches"]["flash_attention_backward"] + ckpt["launches"][1]
     # the new instances' launches (flash_instance): the ragged forward runs
@@ -5865,7 +6603,8 @@ def main() -> int:
         "flash_attention", "flash_attention_backward"))
     o_fwd, o_bwd = (ol_train["launches"][k] for k in (
         "flash_attention", "flash_attention_backward"))
-    wide_launches = {"fwd_ragged": openllama["k1"] + d100[0] + o_fwd,
+    wide_launches = {"fwd_ragged": openllama["k1"] + d100[0] + o_fwd
+                     + hf["k1"],
                      "fwd_wg": d256[0] + g_fwd, "dq_ragged": d100[1] + o_bwd,
                      "dkv_ragged": d100[1] + o_bwd, "dq_wide": g_bwd,
                      "dkv_wide": g_bwd, "fwd_any": f32_fwd,
@@ -5935,6 +6674,18 @@ def main() -> int:
         bf16=gpt["k6_bf16"], f32=gpt["k6_f32"], prefix_cache=gpt["k6_prefix"],
         speculative=gpt["k6_spec"], paged_kv_cache=gpt["k6_kv_cache"],
         decode_call=gpt["decode_call"], decode=gpt["decode"])
+    rows[0]["moe"] = dict(
+        launches=moe["k6"] + moe["k6_int8"] + demo["k6"],
+        note="phase 19: the Mixtral-widths servers' decode steps (32/8 heads "
+             "of 128, group 4: the D=128 instance; bf16 and int8 experts, 8 "
+             "a step) and the serving demo's (the GPT at 4 heads of 64, "
+             "group 1, f32: the D=64 FFMA instance, 4 a step). decode_call: "
+             "the Mixtral decode call (B=32, lengths 56-95, 4 tables x 8 "
+             "layers in turns, cold) by CUDA events over a graph, its plain "
+             "version by the profiler on the live pages",
+        bf16=moe["k6"], int8=moe["k6_int8"], serving_demo=demo["k6"],
+        decode_call=moe["decode_call"], decode=moe["decode"],
+        decode_int8=moe["decode8"])
     rows[1]["gpt"] = dict(launches=gpt["k6_fp8"],
                           note="phase 17's engine on an e4m3 pool")
     rows[1]["note"] = ("the same on an e4m3 pool; launches: phase 7's fp8-KV "
@@ -5954,6 +6705,10 @@ def main() -> int:
         "per_case: phase 2's K6_WIDE, with each case's splits and its "
         "split-edge check")
     rows[2]["per_case"] = paged["any"]["per_case"]
+    rows[2]["hf"] = dict(
+        launches=hf["k6"],
+        note="phase 19: OpenLLaMA-3B loaded from its HF directory, behind "
+             "the OpenAI front end: 26 a decode step")
     rows[3]["note"] = ("the same on an e4m3 pool (100-byte head slices); "
                        "launches: phase 11's fp8-pool steady decode")
     replaces = {"flash_attention_fwd": "lamp_tpu/ops/attention.py:87",
@@ -5979,6 +6734,12 @@ def main() -> int:
             launches=packed["launches"][
                 "flash_attention" if name.endswith("fwd")
                 else "flash_attention_backward"])
+        if name.endswith("fwd"):
+            row["moe"] = dict(
+                launches=moe["k1"],
+                note="phase 19 (included in launches): the dense forwards "
+                     "that check the Mixtral-widths server's greedy tokens, "
+                     "on the D=128 instance, 8 a forward")
         row["checkpoint"] = dict(
             launches=ckpt["launches"][0 if name.endswith("fwd") else 1],
             note="phase 18 (the LM example, included in launches): its "

@@ -30,6 +30,7 @@ from .nn.layers import Embedding, LayerNorm, Linear
 from .nn.lm import LanguageModelModule
 from .nn.lora import LoRALinear
 from .nn.modern import LlamaBlock, ModernLM, RMSNorm, SwiGLU
+from .nn.moe import MoEMLP, SwiGLUMoE
 from .nn.transformer import (MultiheadAttention, TransformerEncoder,
                              TransformerEncoderBlock)
 from .ops.quantization import QuantizedLinear, QuantizedLinearInt4
@@ -40,8 +41,11 @@ __all__ = ["load_modern_lm", "load_language_model", "load_adamw_state",
            "jax_tree", "load_jax_tree"]
 
 _BLOCK_KEYS = ("norm1.weight", "norm2.weight", "w_q.weight", "w_k.weight",
-               "w_v.weight", "w_o.weight", "mlp.w1.weight", "mlp.w3.weight",
-               "mlp.w2.weight")
+               "w_v.weight", "w_o.weight")
+_MLP_KEYS = ("mlp.w1.weight", "mlp.w3.weight", "mlp.w2.weight")
+# a SwiGLUMoE's stacked experts, in the JAX layout (not transposed)
+_MOE_KEYS = ("mlp.w_gate", "mlp.w1", "mlp.w3", "mlp.w2")
+_ATTENTION = ("w_q", "w_k", "w_v", "w_o")
 
 
 def _check_keys(what, params, expected):
@@ -61,7 +65,10 @@ def _tensor(a, dtype, device):
 def load_modern_lm(params: Dict[str, np.ndarray], *, device="cuda",
                    dtype=torch.float32, window=None,
                    norm_eps: float = 1e-6,
-                   lora_scale: float = 1.0) -> ModernLM:
+                   lora_scale: float = 1.0, moe_top_k: int = 2,
+                   moe_dispatch: str = "dense",
+                   moe_capacity_factor: float = 1.25,
+                   moe_group_size: int = 0) -> ModernLM:
     """Build a :class:`~lamp_tpu_torch.nn.ModernLM` from the parameters of a
     ``lamp_tpu.nn.ModernLM``. Shapes give the vocabulary, width, depth,
     heads (head_dim from the RoPE table), kv heads, MLP width, context and
@@ -75,7 +82,14 @@ def load_modern_lm(params: Dict[str, np.ndarray], *, device="cuda",
     becomes a :class:`~lamp_tpu_torch.nn.LoRALinear` with the factors in
     that layout (untransposed). Its ``scale`` (alpha / rank, 1.0 unless
     ``alpha`` was given) is not a parameter: pass it as ``lora_scale``.
-    Raises ``KeyError`` on a missing or an unexpected key."""
+
+    A MoE model's blocks carry ``mlp.w_gate`` [D, E] and the stacked
+    ``mlp.w1``/``mlp.w3`` [E, D, H] and ``mlp.w2`` [E, H, D], which become a
+    :class:`~lamp_tpu_torch.nn.SwiGLUMoE` in that layout; its static fields
+    are passed as ``moe_top_k``, ``moe_dispatch``, ``moe_capacity_factor``
+    and ``moe_group_size``. An attention projection's ``bias`` (a Qwen2
+    import's q/k/v) is taken where the JAX tree has one. Raises
+    ``KeyError`` on a missing or an unexpected key."""
     blocks = sorted({int(m.group(1)) for k in params
                      if (m := re.match(r"blocks\.(\d+)\.", k))})
     n_blocks = (blocks[-1] + 1) if blocks else 0
@@ -83,8 +97,11 @@ def load_modern_lm(params: Dict[str, np.ndarray], *, device="cuda",
                 "rope_sin"}
     if "lm_head.weight" in params:
         expected.add("lm_head.weight")
+    moe = "blocks.0.mlp.w_gate" in params
     expected |= {f"blocks.{i}.{k}" for i in range(n_blocks)
-                 for k in _BLOCK_KEYS}
+                 for k in _BLOCK_KEYS + (_MOE_KEYS if moe else _MLP_KEYS)}
+    expected |= {k for k in params if re.fullmatch(
+        r"blocks\.\d+\.(w_q|w_k|w_v|w_o)\.bias", k)}
     # the linears that carry an adapter: both factors are then expected
     linears = {k[:-len(".weight")] for k in expected
                if k.endswith(".weight") and "norm" not in k
@@ -109,21 +126,29 @@ def load_modern_lm(params: Dict[str, np.ndarray], *, device="cuda",
 
     def lin(key):
         path = key[:-len(".weight")]
+        bias = (w(path + ".bias") if path + ".bias" in params else None)
         if path in adapted:
-            return LoRALinear(w(key, transpose=True), None,
+            return LoRALinear(w(key, transpose=True), bias,
                               w(path + ".lora_a"), w(path + ".lora_b"),
                               lora_scale)
-        return Linear(w(key, transpose=True))
+        return Linear(w(key, transpose=True), bias)
+
+    def mlp(p):
+        if moe:
+            return SwiGLUMoE(
+                w(p + "mlp.w_gate"), w(p + "mlp.w1"), w(p + "mlp.w3"),
+                w(p + "mlp.w2"), top_k=moe_top_k, dispatch=moe_dispatch,
+                capacity_factor=moe_capacity_factor,
+                group_size=moe_group_size)
+        return SwiGLU(lin(p + "mlp.w1.weight"), lin(p + "mlp.w3.weight"),
+                      lin(p + "mlp.w2.weight"))
 
     def block(i):
         p = f"blocks.{i}."
         return LlamaBlock(
             RMSNorm(w(p + "norm1.weight"), norm_eps),
             RMSNorm(w(p + "norm2.weight"), norm_eps),
-            lin(p + "w_q.weight"), lin(p + "w_k.weight"),
-            lin(p + "w_v.weight"), lin(p + "w_o.weight"),
-            SwiGLU(lin(p + "mlp.w1.weight"), lin(p + "mlp.w3.weight"),
-                   lin(p + "mlp.w2.weight")),
+            *(lin(f"{p}{a}.weight") for a in _ATTENTION), mlp(p),
             num_heads=num_heads,
             num_kv_heads=params[p + "w_k.weight"].shape[1] // head_dim,
             window=windows[i],
@@ -280,6 +305,10 @@ _JAX_FIELDS = {
                "rope_cos", "rope_sin"),
     LlamaBlock: ("norm1", "norm2", "w_q", "w_k", "w_v", "w_o", "mlp"),
     SwiGLU: ("w1", "w3", "w2"),
+    # top_k, dispatch, capacity_factor, group_size (and MoEMLP's activation)
+    # are static fields, which JAX's flatten leaves out
+    SwiGLUMoE: ("w_gate", "w1", "w3", "w2"),
+    MoEMLP: ("w_gate", "w1", "b1", "w2", "b2"),
     Linear: ("weight", "bias"),
     Embedding: ("weight",),
     LayerNorm: ("weight", "bias"),

@@ -1,7 +1,8 @@
 """Data utilities. Counterpart of :mod:`lamp_tpu.data`: batch streams and
 the prefetch to the card, the tokenizer and codecs, and the language-model
-data (corpus minibatches, packed documents, sampling inference). The text,
-BERT, graph, image and reader modules are not ported yet."""
+data (corpus minibatches, packed documents, sampling inference), and the
+HuggingFace ``tokenizer.json`` BPE codec. The text, BERT, graph, image
+and reader modules are not ported yet."""
 
 from .batchstream import (
     BatchStream,
@@ -12,6 +13,7 @@ from .batchstream import (
     prefetch_to_device,
     staged_from_indices,
 )
+from .hf_tokenizer import HFTokenizer
 from .lm_data import (
     autoregressive_inference,
     autoregressive_minibatches_from_corpus,
@@ -34,6 +36,7 @@ __all__ = [
     "minibatches_from_full",
     "prefetch_to_device",
     "staged_from_indices",
+    "HFTokenizer",
     "train_bpe",
     "bpe_encode",
     "bpe_decode",

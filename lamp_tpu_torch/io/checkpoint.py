@@ -478,27 +478,41 @@ def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
     return out
 
 
+def _st_entry(t) -> Tuple[str, List[int], int]:
+    """(safetensors dtype, shape, bytes) of a tensor or an array, without
+    copying it."""
+    if isinstance(t, torch.Tensor):
+        if t.dtype == torch.bfloat16:
+            dt = "BF16"
+        elif t.dtype in _TORCH_TO_NUMPY:
+            dt = _ST_NAMES[np.dtype(_TORCH_TO_NUMPY[t.dtype]).type]
+        else:
+            raise KeyError(f"{t.dtype} has no safetensors dtype")
+        return dt, list(t.shape), t.numel() * t.element_size()
+    arr = np.asarray(t)
+    dt = ("BF16" if arr.dtype.name == "bfloat16"
+          else _ST_NAMES[arr.dtype.type])
+    return dt, list(arr.shape), arr.nbytes
+
+
+_ST_NAMES = {v: k for k, v in _ST_DTYPES.items()}
+
+
 def write_safetensors(path: str, tensors: Dict[str, Any],
                       metadata: Optional[Dict[str, str]] = None) -> None:
     """Write named tensors (or arrays) as a safetensors file: the header's
-    JSON padded with spaces to 8 bytes, then the payloads in order."""
+    JSON padded with spaces to 8 bytes, then the payloads in order. Each
+    tensor is copied to the host and written in turn, so the host holds
+    one tensor at a time."""
     header: Dict[str, Any] = {}
     if metadata:
         header["__metadata__"] = metadata
-    payloads = []
     offset = 0
-    rev = {v: k for k, v in _ST_DTYPES.items()}
     for name, t in tensors.items():
-        arr, dname = _np_of(t)
-        dt = "BF16" if dname == _BF16 else rev[arr.dtype.type]
-        data = np.ascontiguousarray(arr).tobytes()
-        header[name] = {
-            "dtype": dt,
-            "shape": list(arr.shape),
-            "data_offsets": [offset, offset + len(data)],
-        }
-        payloads.append(data)
-        offset += len(data)
+        dt, shape, nbytes = _st_entry(t)
+        header[name] = {"dtype": dt, "shape": shape,
+                        "data_offsets": [offset, offset + nbytes]}
+        offset += nbytes
     hj = json.dumps(header).encode("utf-8")
     hj += b" " * ((-len(hj)) % 8)
     dirn = os.path.dirname(os.path.abspath(path)) or "."
@@ -507,8 +521,9 @@ def write_safetensors(path: str, tensors: Dict[str, Any],
     with os.fdopen(fd, "wb") as f:
         f.write(np.uint64(len(hj)).tobytes())
         f.write(hj)
-        for pdata in payloads:
-            f.write(pdata)
+        for t in tensors.values():
+            arr = np.ascontiguousarray(_np_of(t)[0])
+            f.write(arr.reshape(-1).view(np.uint8).data)
     os.replace(tmp, path)
 
 

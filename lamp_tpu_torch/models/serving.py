@@ -78,11 +78,23 @@ tensors:
     engine.submit(prompt, SamplingParams(presence_penalty=0.5),
                   adapter="fr", constraint="json")
 
+MoE models: a ModernLM with :class:`~lamp_tpu_torch.nn.SwiGLUMoE` blocks
+(``moe_experts``, or a Mixtral import) decodes its MLPs by dense dispatch,
+every expert over the step's few rows, combined by the top-k gates, as
+the JAX server does; ``quantize_bits=8`` stores the experts in int8 per
+expert and output channel and multiplies by ``torch._int_mm``. The prefill
+runs each block's own MLP.
+
 Not ported yet (each raises ``NotImplementedError`` when asked for):
-tensor parallelism (``mesh=``) and MoE blocks. As in the JAX package, the
-GPT :class:`BatchServer` takes no ``quantize_bits`` (``ValueError``) and no
-adapter (``NotImplementedError``), and :class:`LoRADraftSpeculativeDecoder`
-serves the ModernLM family only.
+tensor parallelism (``mesh=``). As in the JAX package, a MoE model takes
+neither ``quantize_bits=4`` nor adapters, the GPT :class:`BatchServer`
+takes no ``quantize_bits`` (``ValueError``) and no adapter
+(``NotImplementedError``), and :class:`LoRADraftSpeculativeDecoder` serves
+the ModernLM family only. A ModernLM whose attention projections carry
+biases (a Qwen2 import) raises ``NotImplementedError``: the JAX server
+leaves the biases out of its decode step and its prefill
+(``lamp_tpu/models/serving.py:1575-1578``, ``:1616-1690``, ``:1970-1976``)
+and so serves other tokens than the model's.
 """
 
 from __future__ import annotations
@@ -98,10 +110,11 @@ import torch.nn.functional as F
 
 from ..nn.lora import LoRALinear
 from ..nn.modern import ModernLM, apply_rope
+from ..nn.moe import SwiGLUMoE, moe_combine, swiglu_moe_dense
 from ..ops.attention import mha_reference
 from ..ops.paged_attention import paged_attention
 from ..ops.quantization import (int4_group_size, int4_matmul, int8_matmul,
-                                quantize_int4, quantize_int8)
+                                int_mm, quantize_int4, quantize_int8)
 from .sampling import NUCLEUS_CAND, SamplingParams, sample_tokens
 
 __all__ = ["BatchServer", "BeamSearchDecoder", "LoRADraftSpeculativeDecoder",
@@ -1055,8 +1068,24 @@ class ModernBatchServer(BatchServer):
     written, so the cached keys are already position-encoded."""
 
     def __init__(self, model, *, mesh=None, **kwargs):
+        # SwiGLUMoE blocks decode by dense dispatch; they take int8 experts,
+        # and neither int4 nor adapters, as in JAX
+        self._moe = any(isinstance(b.mlp, SwiGLUMoE) for b in model.blocks)
+        if self._moe:
+            self._moe_top_k = int(model.blocks[0].mlp.top_k)
+            if kwargs.get("quantize_bits") == 4:
+                raise NotImplementedError(
+                    "int4 quantization with MoE serving (int8 is supported)")
         if mesh is not None:
             raise NotImplementedError("mesh= (tensor-parallel serving)")
+        biased = sorted({name for b in model.blocks
+                         for name in ("w_q", "w_k", "w_v", "w_o")
+                         if getattr(b, name).bias is not None})
+        if biased:
+            raise NotImplementedError(
+                f"attention biases ({', '.join(biased)}): the decode step "
+                "and the prefill multiply by the weights alone, as the JAX "
+                "server's do, and would serve other tokens than the model's")
         super().__init__(model, **kwargs)
         # per adapter, per layer: {projection: (A [in, r], B [r, out])}
         self._adapter_defs: Dict[str, List[dict]] = {}
@@ -1094,6 +1123,8 @@ class ModernBatchServer(BatchServer):
         adapter. Only the blocks' q/k/v/o/w1/w3/w2 projections can be
         served: an adapter on any other module (an untied ``lm_head``)
         raises ``ValueError``."""
+        if self._moe:
+            raise NotImplementedError("adapters on MoE models")
         if name in self._adapters:
             raise ValueError(f"duplicate adapter {name!r}")
         per_layer = []
@@ -1204,10 +1235,71 @@ class ModernBatchServer(BatchServer):
         y = F.linear(a.to(w.dtype), w)
         return y if out_dtype is None else y.to(out_dtype)
 
+    def _quantize_stacked(self, w13, w2):
+        """Decode-path entries of one MoE layer's stacked experts, w1 and
+        w3 (``w13``, two [E, D, H]) and w2 [E, H, D]: the tensors
+        themselves, or under ``quantize_bits=8`` int8 per expert per output
+        channel, as the JAX server's ``_quantize_stacked`` (values and
+        scales [E, 1, N] the same), laid out for ``torch._int_mm``: w1 and
+        w3 as one [D, 2 E H] matrix of their columns (w1's experts, then
+        w3's) with its [1, 2 E H] scales, so that one product gives every
+        expert's gate and up rows; w2 as it is."""
+        if not self.quantize_bits:
+            return w13, w2
+        d = w2.shape[2]
+        parts = [quantize_int8(w.detach(), axis=1) for w in w13]
+        v13 = torch.cat([v.permute(1, 0, 2).reshape(d, -1)
+                         for v, _ in parts], dim=1)
+        s13 = torch.cat([sc.reshape(1, -1) for _, sc in parts], dim=1)
+        return (v13, s13), quantize_int8(w2.detach(), axis=1)
+
+    def _moe_mlp_rows(self, h, w13, w2, w_gate):
+        """A MoE layer's MLP over the step's rows h [..., D], by dense
+        dispatch (every expert computes every row, combined by the
+        renormalized top-k gates; at decode's few rows a per-token gather
+        of expert weights would move more bytes than computing all
+        experts), as the JAX server's ``_moe_mlp_rows``. Under int8 the
+        rows are quantized once (per row), the gate and up products of all
+        experts are one ``torch._int_mm``, their SwiGLU activations are
+        re-quantized per expert and row, and each expert's down product is
+        one more; the scales apply to the int32 sums in JAX's order."""
+        shape = h.shape
+        flat = h.reshape(-1, shape[-1])
+        if not isinstance(w2, tuple):
+            y = swiglu_moe_dense(flat, w_gate, *w13, w2, self._moe_top_k)
+            return y.reshape(shape).to(h.dtype)
+        (v13, s13), (v2, s2) = w13, w2
+        e, hid, _ = v2.shape
+        combine = moe_combine(flat, w_gate, self._moe_top_k)
+        xq, x_scale = quantize_int8(flat, axis=1)          # [T, D], [T, 1]
+        g13 = (int_mm(xq, v13).float() * x_scale * s13
+               ).reshape(-1, 2, e, hid)
+        g = F.silu(g13[:, 0]) * g13[:, 1]                  # [T, E, H] f32
+        gq, g_scale = quantize_int8(g, axis=2)             # per expert, row
+        out = torch.stack([int_mm(gq[:, i].contiguous(), v2[i]).float()
+                           * g_scale[:, i] * s2[i] for i in range(e)])
+        y = torch.einsum("te,etd->td", combine, out.to(combine.dtype))
+        return y.reshape(shape).to(h.dtype)
+
+    def _mlp_rows(self, h, li, lora):
+        """Layer ``li``'s MLP over the step's rows: the MoE's by dense
+        dispatch, else the SwiGLU of the decode-path matrices with each
+        row's adapter delta."""
+        _, _, w1, w3, w2, _ = self._extras
+        if self._moe:
+            return self._moe_mlp_rows(h, w3[li], w2[li], w1[li])
+        mm, delta = self._mm, self._plus_delta
+        gate = (F.silu(delta(mm(h, w1[li]), h, lora, "w1", li))
+                * delta(mm(h, w3[li]), h, lora, "w3", li))
+        return delta(mm(gate, w2[li]), gate, lora, "w2", li)
+
     def _precompute_extras(self, model):
         """Decode-path weights: fused per-layer QKV, attention
         out-projection, the three SwiGLU matrices and the logits matrix,
-        each through :meth:`_quantize_weight`. Unquantized, the logits
+        each through :meth:`_quantize_weight`. A MoE layer's entries are
+        its gate [D, E] (in ``w1``'s place, never quantized), its w1 and
+        w3 experts (in ``w3``'s) and its w2 experts, the last two through
+        :meth:`_quantize_stacked`. Unquantized, the logits
         matrix is kept in f32 (a copy for bf16 models), so that logits
         accumulate and stay in f32 as the JAX server's
         ``preferred_element_type`` does; quantized, it is packed from the
@@ -1219,9 +1311,15 @@ class ModernBatchServer(BatchServer):
                                       blk.w_v.weight]))
                          for blk in model.blocks)
         wo = tuple(q(blk.w_o.weight) for blk in model.blocks)
-        w1 = tuple(q(blk.mlp.w1.weight) for blk in model.blocks)
-        w3 = tuple(q(blk.mlp.w3.weight) for blk in model.blocks)
-        w2 = tuple(q(blk.mlp.w2.weight) for blk in model.blocks)
+        if self._moe:
+            w1 = tuple(blk.mlp.w_gate for blk in model.blocks)
+            w3, w2 = zip(*(self._quantize_stacked(
+                (blk.mlp.w1, blk.mlp.w3), blk.mlp.w2)
+                for blk in model.blocks))
+        else:
+            w1 = tuple(q(blk.mlp.w1.weight) for blk in model.blocks)
+            w3 = tuple(q(blk.mlp.w3.weight) for blk in model.blocks)
+            w2 = tuple(q(blk.mlp.w2.weight) for blk in model.blocks)
         if self.quantize_bits:
             lmh = q(model.output_weight)
         else:
@@ -1239,7 +1337,7 @@ class ModernBatchServer(BatchServer):
         self.steps_decoded += 1
         model = self.model
         b = tokens.shape[0]
-        wqkv, wo, w1, w3, w2, lmh = self._extras
+        wqkv, wo, _, _, _, lmh = self._extras
         x = model.token_embedding(tokens)  # [B, D]
         # the RoPE angle gathers are shared by every layer
         hd = self.head_dim
@@ -1275,10 +1373,7 @@ class ModernBatchServer(BatchServer):
                 page_offset=li * self.total_pages,
             ).reshape(b, nq)
             x = x + delta(mm(o, wo[li]), o, lora, "o", li)
-            h = block.norm2(x)
-            gate = (F.silu(delta(mm(h, w1[li]), h, lora, "w1", li))
-                    * delta(mm(h, w3[li]), h, lora, "w3", li))
-            x = x + delta(mm(gate, w2[li]), gate, lora, "w2", li)
+            x = x + self._mlp_rows(block.norm2(x), li, lora)
         _kv_write_stacked(self.kv_pages, self.total_pages, token_pages,
                           token_slots, deferred_rows)
         return mm(model.final_norm(x), lmh, out_dtype=torch.float32)
@@ -1295,7 +1390,7 @@ class ModernBatchServer(BatchServer):
         logits [B, m, V] f32. ``lora`` as in :meth:`_decode_step`."""
         model = self.model
         b, m = tokens.shape
-        wqkv, wo, w1, w3, w2, lmh = self._extras
+        wqkv, wo, _, _, _, lmh = self._extras
         dev = self.device
         pos = lengths.long()[:, None] + torch.arange(m, device=dev)[None]
         x = model.token_embedding(tokens)  # [B, m, D]
@@ -1336,10 +1431,7 @@ class ModernBatchServer(BatchServer):
                 windows=win_r, page_offset=li * self.total_pages,
             ).reshape(b, m, nq)
             x = x + delta(mm(o, wo[li]), o, lora, "o", li)
-            h = block.norm2(x)
-            gate = (F.silu(delta(mm(h, w1[li]), h, lora, "w1", li))
-                    * delta(mm(h, w3[li]), h, lora, "w3", li))
-            x = x + delta(mm(gate, w2[li]), gate, lora, "w2", li)
+            x = x + self._mlp_rows(block.norm2(x), li, lora)
         return mm(model.final_norm(x), lmh, out_dtype=torch.float32)
 
     @torch.no_grad()

@@ -10,6 +10,7 @@ from .losses import cross_entropy_loss, nll_loss, sequence_nll
 from .modern import (LlamaBlock, ModernLM, RMSNorm, SwiGLU, apply_rope,
                      rope_frequencies)
 from .module import param_tags
+from .moe import MoEMLP, SwiGLUMoE
 from .transformer import (MultiheadAttention, TransformerEncoder,
                           TransformerEncoderBlock, lengths_to_mask,
                           linearized_attention)
@@ -20,6 +21,6 @@ __all__ = ["init", "Dropout", "Embedding", "LayerNorm", "Linear",
            "lora_parameter_count", "cross_entropy_loss", "nll_loss",
            "sequence_nll",
            "LlamaBlock", "ModernLM", "RMSNorm", "SwiGLU", "apply_rope",
-           "rope_frequencies", "param_tags", "MultiheadAttention",
+           "rope_frequencies", "MoEMLP", "SwiGLUMoE", "param_tags", "MultiheadAttention",
            "TransformerEncoder", "TransformerEncoderBlock", "lengths_to_mask",
            "linearized_attention"]

@@ -31,7 +31,10 @@ def xavier_normal(generator, shape, dtype=torch.float32, device=None):
     return normal(std)(generator, shape, dtype, device)
 
 
-def kaiming_normal(generator, shape, dtype=torch.float32, device=None):
-    """He normal, std sqrt(2 / fan_in) with fan_in = ``shape[0]`` (the JAX
-    [in, out] layout's input width)."""
-    return normal(math.sqrt(2.0 / shape[0]))(generator, shape, dtype, device)
+def kaiming_normal(generator, shape, dtype=torch.float32, device=None, *,
+                   fan_in=None):
+    """He normal, std sqrt(2 / fan_in); ``fan_in`` defaults to ``shape[0]``
+    (the JAX [in, out] layout's input width; a stacked [E, in, out] weight
+    passes it)."""
+    return normal(math.sqrt(2.0 / (fan_in or shape[0])))(
+        generator, shape, dtype, device)

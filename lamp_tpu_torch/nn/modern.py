@@ -23,6 +23,7 @@ from ..ops.attention import flash_attention, mha_reference
 from ..ops.fused_ce import fused_lm_loss
 from . import init as initializers
 from .layers import Embedding, Linear
+from .moe import SwiGLUMoE
 
 __all__ = ["RMSNorm", "apply_rope", "rope_frequencies", "SwiGLU",
            "LlamaBlock", "ModernLM"]
@@ -161,10 +162,12 @@ class SwiGLU(nn.Module):
 
 
 class LlamaBlock(nn.Module):
-    """Pre-RMSNorm decoder block: RoPE attention (GQA) + SwiGLU."""
+    """Pre-RMSNorm decoder block: RoPE attention (GQA) + SwiGLU, or a
+    :class:`~lamp_tpu_torch.nn.SwiGLUMoE` with ``moe_experts``. The
+    projections may carry biases (a Qwen2 import's q/k/v)."""
 
     def __init__(self, norm1: RMSNorm, norm2: RMSNorm, w_q: Linear,
-                 w_k: Linear, w_v: Linear, w_o: Linear, mlp: SwiGLU, *,
+                 w_k: Linear, w_v: Linear, w_o: Linear, mlp: nn.Module, *,
                  num_heads: int, num_kv_heads: int,
                  window: Optional[int] = None):
         super().__init__()
@@ -180,9 +183,9 @@ class LlamaBlock(nn.Module):
              num_kv_heads: Optional[int] = None,
              mlp_hidden: Optional[int] = None, window: Optional[int] = None,
              norm_eps: float = 1e-6, moe_experts: Optional[int] = None,
+             moe_top_k: int = 2, moe_dispatch: str = "dense",
+             moe_capacity_factor: float = 1.25, moe_group_size: int = 0,
              dtype=torch.float32, device="cuda") -> "LlamaBlock":
-        if moe_experts is not None:
-            raise NotImplementedError("LlamaBlock: moe_experts")
         kv_heads = num_kv_heads or num_heads
         mlp_hidden = mlp_hidden or int(dim * 8 / 3 // 64 * 64) or dim * 2
         head_dim = dim // num_heads
@@ -194,15 +197,22 @@ class LlamaBlock(nn.Module):
             w_k=Linear.init(dim, kv_heads * head_dim, **kw),
             w_v=Linear.init(dim, kv_heads * head_dim, **kw),
             w_o=Linear.init(dim, dim, **kw),
-            mlp=SwiGLU.init(dim, mlp_hidden, generator=generator, dtype=dtype,
-                            device=device),
+            mlp=(SwiGLU.init(dim, mlp_hidden, generator=generator,
+                             dtype=dtype, device=device)
+                 if moe_experts is None else SwiGLUMoE.init(
+                     dim, mlp_hidden, moe_experts, generator=generator,
+                     top_k=moe_top_k, dispatch=moe_dispatch,
+                     capacity_factor=moe_capacity_factor,
+                     group_size=moe_group_size, dtype=dtype, device=device)),
             num_heads=num_heads, num_kv_heads=kv_heads, window=window,
         )
 
-    def forward(self, x, cos, sin, *, positions=None, segment_ids=None):
+    def forward(self, x, cos, sin, *, positions=None, segment_ids=None,
+                with_aux: bool = False):
         """x [B, T, D] -> [B, T, D]. ``positions`` ([T] or [B, T]) override
         the RoPE positions; ``segment_ids`` ([B, T]) keep attention within
-        each packed document."""
+        each packed document. ``with_aux``: also return the MLP's
+        load-balancing loss (0 for a dense block), as ``(x, aux)``."""
         b, t, d = x.shape
         h, hk = self.num_heads, self.num_kv_heads
         hd = d // h
@@ -222,7 +232,14 @@ class LlamaBlock(nn.Module):
             o = mha_reference(q, k, v, causal=True, window=self.window,
                               segment_ids=segment_ids)
         x = x + self.w_o(o.transpose(1, 2).reshape(b, t, d))
-        return x + self.mlp(self.norm2(x))
+        a2 = self.norm2(x)
+        x = x + self.mlp(a2)
+        if not with_aux:
+            return x
+        aux = (self.mlp.load_balancing_loss(a2)
+               if hasattr(self.mlp, "load_balancing_loss")
+               else torch.zeros((), dtype=torch.float32, device=x.device))
+        return x, aux
 
 
 class ModernLM(nn.Module):
@@ -249,11 +266,16 @@ class ModernLM(nn.Module):
              mlp_hidden: Optional[int] = None, tied: bool = True, generator,
              rope_base: float = 10000.0, rope_scaling: Optional[dict] = None,
              window=None, norm_eps: float = 1e-6,
-             moe_experts: Optional[int] = None, dtype=torch.float32,
+             moe_experts: Optional[int] = None, moe_top_k: int = 2,
+             moe_dispatch: str = "dense", moe_capacity_factor: float = 1.25,
+             moe_group_size: int = 0, dtype=torch.float32,
              device="cuda") -> "ModernLM":
         """Random weights drawn from ``generator``. ``window``: None (full
         attention), an int (sliding window in every block) or one entry per
-        block."""
+        block. ``moe_experts`` makes every block's MLP a
+        :class:`~lamp_tpu_torch.nn.SwiGLUMoE` of that many experts
+        (``moe_top_k``, ``moe_dispatch``, ``moe_capacity_factor`` and
+        ``moe_group_size`` as its ``init`` takes them)."""
         cos, sin = rope_frequencies(embed_dim // num_heads, context_length,
                                     base=rope_base, scaling=rope_scaling,
                                     device=device)
@@ -269,7 +291,10 @@ class ModernLM(nn.Module):
             LlamaBlock.init(embed_dim, num_heads, generator=generator,
                             num_kv_heads=num_kv_heads, mlp_hidden=mlp_hidden,
                             window=windows[i], norm_eps=norm_eps,
-                            moe_experts=moe_experts, dtype=dtype,
+                            moe_experts=moe_experts, moe_top_k=moe_top_k,
+                            moe_dispatch=moe_dispatch,
+                            moe_capacity_factor=moe_capacity_factor,
+                            moe_group_size=moe_group_size, dtype=dtype,
                             device=device)
             for i in range(num_blocks)
         ]
@@ -282,13 +307,21 @@ class ModernLM(nn.Module):
             lm_head, cos, sin, context_length=context_length,
         )
 
-    def hidden(self, tokens, *, positions=None, segment_ids=None):
-        """Final-norm hidden states [B, T, D] (no logits projection)."""
+    def hidden(self, tokens, *, positions=None, segment_ids=None,
+               with_aux: bool = False):
+        """Final-norm hidden states [B, T, D] (no logits projection).
+        ``with_aux``: also return the blocks' summed MoE load-balancing
+        loss (0.0 for a dense model), as ``(h, aux)``."""
         x = self.token_embedding(tokens)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for block in self.blocks:
             x = block(x, self.rope_cos, self.rope_sin, positions=positions,
-                      segment_ids=segment_ids)
-        return self.final_norm(x)
+                      segment_ids=segment_ids, with_aux=with_aux)
+            if with_aux:
+                x, a = x
+                aux = aux + a
+        h = self.final_norm(x)
+        return (h, aux) if with_aux else h
 
     @property
     def output_weight(self):
@@ -305,14 +338,16 @@ class ModernLM(nn.Module):
         through :func:`~lamp_tpu_torch.ops.fused_ce.fused_lm_loss`. At
         vocabulary 32000 and 8192 tokens the logits would be the step's
         largest tensor. ``segment_ids`` and ``positions`` ([B, T]) train on
-        packed documents (``data.pack_documents``). MoE blocks are not
-        ported, so ``moe_aux_coef`` must be 0."""
-        if moe_aux_coef:
-            raise NotImplementedError(
-                "ModernLM.loss: moe_aux_coef (MoE blocks are not ported)")
-        x = self.hidden(tokens, positions=positions, segment_ids=segment_ids)
-        return fused_lm_loss(x, self.output_weight, targets,
+        packed documents (``data.pack_documents``). ``moe_aux_coef`` adds
+        that multiple of the MoE blocks' summed balancing loss (Switch
+        style; ~1e-2)."""
+        x, aux = self.hidden(tokens, positions=positions,
+                             segment_ids=segment_ids, with_aux=True)
+        loss = fused_lm_loss(x, self.output_weight, targets,
                              ignore_index=ignore_index, row_chunk=row_chunk)
+        if moe_aux_coef:
+            loss = loss + moe_aux_coef * aux
+        return loss
 
     def forward(self, tokens, *, positions=None, segment_ids=None):
         """Logits [B, T, V] in at least f32."""

@@ -119,6 +119,17 @@ def dequantize_int8(values, scales, dtype=torch.float32):
 _INT_MM_MIN_ROWS = 17
 
 
+def int_mm(xq, w_q):
+    """``torch._int_mm(xq, w_q)``, int8 [M, K] times int8 [K, N] summed in
+    int32, for any M: fewer than 17 rows are padded with zero rows to meet
+    its shape constraints on CUDA (the padding rows are dropped)."""
+    m, k = xq.shape
+    if m < _INT_MM_MIN_ROWS:
+        rows = -(-_INT_MM_MIN_ROWS // 8) * 8
+        xq = torch.cat([xq, xq.new_zeros((rows - m, k))])
+    return torch._int_mm(xq, w_q)[:m]
+
+
 def int8_matmul(x, w_q, w_scale, *, out_dtype=None):
     """y = x @ dequant(w): x is quantized per row, the product of the int8
     values accumulates in int32 (``torch._int_mm``), and both scales are
@@ -135,14 +146,8 @@ def int8_matmul(x, w_q, w_scale, *, out_dtype=None):
         raise ValueError(
             f"int8_matmul: torch._int_mm on CUDA takes K and N multiples of "
             f"8, got K={k}, N={n}")
-    x2 = x.reshape(-1, k)
-    m = x2.shape[0]
-    xq, x_scale = quantize_int8(x2, axis=1)  # per row
-    if m < _INT_MM_MIN_ROWS:
-        rows = -(-_INT_MM_MIN_ROWS // 8) * 8
-        xq = torch.cat([xq, xq.new_zeros((rows - m, k))])
-    acc = torch._int_mm(xq, w_q)[:m]
-    y = acc.float() * x_scale * w_scale
+    xq, x_scale = quantize_int8(x.reshape(-1, k), axis=1)  # per row
+    y = int_mm(xq, w_q).float() * x_scale * w_scale
     return y.reshape(*lead, n).to(out_dtype)
 
 

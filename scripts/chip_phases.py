@@ -5,7 +5,7 @@ lines), then the named parts only.
     python3 scripts/chip_phases.py [paged] [ragged] [ragged_bwd] [fwd]
         [flash] [wide] [any] [small] [train32] [openllama] [gemma]
         [openllama_train] [quant] [k8] [layouts] [spec] [layernorm]
-        [prefix] [controls] [gpt] [ckpt]
+        [prefix] [controls] [gpt] [ckpt] [moe] [hf]
 
 paged: phase 2 (the paged-attention kernels: the fixed kernel's edges,
 K6_WIDE's shapes and the key split's edges included, and the serving
@@ -50,10 +50,18 @@ on bf16, e4m3 and f32 pools, the prefix cache, speculative decoding,
 generate, PagedKVCache, the GPT decode call and the steady step); ckpt:
 phase 18 (the LM example at full width: train, resume, generate from the
 file, the checkpoint round trip, a background save, resumable_epochs with
-prefetch). No argument runs them all.
+prefetch); moe: phase 19 (a), MoE serving at Mixtral-8x7B's widths on 8
+of its 32 blocks (bf16 and int8 experts through the engine, the greedy
+checks, the steady decode, int4's refusal, the three dispatches of one
+layer over 4096 tokens, the Mixtral decode call of K6); hf: phase 19 (b)
+and (c), OpenLLaMA-3B exported to a HuggingFace directory and loaded back
+bit for bit, served behind the OpenAI front end with a tokenizer built
+from SURVEY.md, then examples/serving_demo_torch.py at its defaults. No
+argument runs them all.
 Every check raises as in chip_smoke.py.
 """
 
+import json
 import sys
 import time
 from pathlib import Path
@@ -75,7 +83,7 @@ from lamp_tpu_torch.ops.paged_attention import (  # noqa: E402
 PARTS = ("paged", "ragged", "ragged_bwd", "fwd", "flash", "wide", "any",
          "small", "train32", "openllama", "gemma", "openllama_train", "quant",
          "k8", "layouts", "spec", "layernorm", "prefix", "controls", "gpt",
-         "ckpt")
+         "ckpt", "moe", "hf")
 
 
 def main(parts) -> int:
@@ -88,6 +96,7 @@ def main(parts) -> int:
     torch.backends.cudnn.allow_tf32 = False
     print(torch.cuda.get_device_name(0), torch.__version__,
           torch.version.cuda, flush=True)
+    print(cs.card(), flush=True)
     t0 = time.perf_counter()
     _build.build(verbose=True)
     _build.library()
@@ -181,6 +190,15 @@ def main(parts) -> int:
                            paged_attention_reference, cs.card()), flush=True)
     if "ckpt" in parts:
         print(cs.phase_checkpoint(cs.card()), flush=True)
+    if "moe" in parts:
+        print(json.dumps(cs.phase_moe(torch_nn, models, paged_attention,
+                                      paged_attention_reference, att)),
+              flush=True)
+    if "hf" in parts:
+        print(json.dumps(cs.phase_hf(torch_nn, models, paged_attention,
+                                     att)), flush=True)
+        print(json.dumps(cs.phase_serving_demo(models, paged_attention)),
+              flush=True)
     if "layernorm" in parts:
         from lamp_tpu_torch.ops import fused_layernorm as FL
 

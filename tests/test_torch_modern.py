@@ -156,8 +156,11 @@ def test_bridge_rejects_missing_and_extra_keys():
     del missing["blocks.1.w_v.weight"]
     with pytest.raises(KeyError, match="blocks.1.w_v.weight"):
         load_modern_lm(missing, device="cpu")
-    extra = dict(params, **{"blocks.0.w_q.bias": np.zeros(64, np.float32)})
-    with pytest.raises(KeyError, match="blocks.0.w_q.bias"):
+    # an attention projection's bias is taken (a Qwen2 import's); an MLP
+    # bias has no place in a ModernLM
+    extra = dict(params,
+                 **{"blocks.0.mlp.w1.bias": np.zeros(64, np.float32)})
+    with pytest.raises(KeyError, match="blocks.0.mlp.w1.bias"):
         load_modern_lm(extra, device="cpu")
 
 
@@ -169,8 +172,13 @@ def test_modern_lm_init_is_seeded():
     for (na, pa), (_, pb) in zip(a.state_dict().items(),
                                  b.state_dict().items()):
         assert torch.equal(pa, pb), na
-    with pytest.raises(NotImplementedError, match="moe_experts"):
-        tnn.ModernLM.init(generator=torch.Generator(), moe_experts=4, **kw)
+    # and so is a MoE model's
+    a, b = (tnn.ModernLM.init(generator=torch.Generator().manual_seed(7),
+                              moe_experts=4, **kw) for _ in range(2))
+    assert type(a.blocks[0].mlp).__name__ == "SwiGLUMoE"
+    for (na, pa), (_, pb) in zip(a.state_dict().items(),
+                                 b.state_dict().items()):
+        assert torch.equal(pa, pb), na
 
 
 def _packed(seed=5, ctx=16, vocab=61, rows=2):
@@ -247,5 +255,9 @@ def test_modern_lm_packed_loss_is_document_weighted():
     _close(h1[0, first:], h0[0, first:].numpy(), 1e-5)
     _close(h1[1:], h0[1:].numpy(), 1e-5)
     assert not torch.allclose(h1[0, :first], h0[0, :first])
-    with pytest.raises(NotImplementedError, match="moe_aux_coef"):
-        t.loss(tt["tokens"], tt["targets"], moe_aux_coef=0.01)
+    # a dense model's balancing loss is 0, so moe_aux_coef adds nothing
+    with torch.no_grad():
+        aux = t.loss(tt["tokens"], tt["targets"],
+                     segment_ids=tt["segment_ids"],
+                     positions=tt["positions"], moe_aux_coef=0.01)
+    assert float(aux) == float(packed)
